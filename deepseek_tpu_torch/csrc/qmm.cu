@@ -1,0 +1,261 @@
+// Nibble-plane dequant + matrix-vector product for Hopper (sm_90a).
+//
+// Replaces the TPU kernels deepseek_tpu/ops/pallas/qmm.py::qmm with
+// _knib_body (K1: every dense projection and the lm_head) and
+// ::qmm_experts with _knib_body (K2: the gathered-expert form, one expert
+// id per activation row; the MoE tables and the per-head wv_b).
+//
+//   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
+//             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
+//
+// u is the 4-bit plane (low nibble of byte j = permuted column j, high
+// nibble = permuted column j + n/2), xp the activations in the stride-16
+// permuted order (position o*n16 + g holds natural column g*16 + o) and
+// s16 the per-16 sums of the NATURAL activations (quant/qtensor.py).
+//
+// Bound: bytes. A decode matvec does 4 flops per weight byte, far below
+// the card's ~295 flops/byte balance point, so the weight stream is the
+// whole cost. The design keeps the instruction count per weight low enough
+// for that stream:
+//  - each block stages its activation row once in shared memory, already
+//    permuted, and the per-16 sums beside it (no separate launch for the
+//    permutation, which the TPU did outside the kernel);
+//  - a lane owns 4 consecutive groups g; for them the 16 bytes it needs
+//    sit at 8 offsets o*n16 (o = 0..7), each a 4-byte coalesced load, and
+//    both nibbles of a byte share the group and its scale (n/2 is a
+//    multiple of n16);
+//  - a nibble becomes a float in one byte-permute: placed under the
+//    exponent of 0.5 it reads as 0.5 + u/256 exactly, so each weight costs
+//    a PRMT and an FFMA; the 0.5 offset is removed per group with the
+//    group sum s16 (sum x*(0.5 + u/256) = s16/2 + sum x*u/256);
+//  - kRows output rows share every shared-memory read of the activations,
+//    and the next quad's planes are loaded before this quad's arithmetic.
+// The accumulation is float32 throughout.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // 4 warps per block
+constexpr int kRows = 4;       // output rows per lane subgroup
+constexpr int kPro = 4;        // activation groups staged per thread per pass
+constexpr int kMaxSmem = 232448;
+
+// 0.5 + u/256 for the nibble held in one byte of `nib` (selector picks the
+// byte into bits 16..23 under the 0x3F exponent byte of 0.5f)
+__device__ __forceinline__ float nib_f(uint32_t nib, uint32_t sel) {
+  return __uint_as_float(__byte_perm(nib, 0x3F000000u, sel));
+}
+
+__device__ __forceinline__ void bf16x4(uint2 v, float out[4]) {
+  out[0] = __uint_as_float(v.x << 16);
+  out[1] = __uint_as_float(v.x & 0xFFFF0000u);
+  out[2] = __uint_as_float(v.y << 16);
+  out[3] = __uint_as_float(v.y & 0xFFFF0000u);
+}
+
+// LPR: lanes that share one output row (8, 16 or 32); a warp holds
+// 32 / LPR subgroups, each owning kRows rows.
+template <int LPR, bool HAS_C>
+__global__ void __launch_bounds__(kThreads)
+knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
+                   const uint16_t* __restrict__ a,
+                   const uint16_t* __restrict__ c,
+                   const int32_t* __restrict__ idx, float* __restrict__ y,
+                   int d, int n, float off) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // n floats, permuted order
+  const int n16 = n >> 4;
+  float* s16 = xs + n;                          // n16 group sums
+
+  const int xrow = blockIdx.y;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
+  // kPro groups per thread per pass, all their loads in flight together
+  for (int g0 = threadIdx.x; g0 < n16; g0 += kThreads * kPro) {
+    float4 f[kPro][4];
+#pragma unroll
+    for (int j = 0; j < kPro; ++j) {
+      const int g = min(g0 + j * kThreads, n16 - 1);   // clamped: loads unconditional
+#pragma unroll
+      for (int v = 0; v < 4; ++v) f[j][v] = __ldg(xr + g * 4 + v);
+    }
+#pragma unroll
+    for (int j = 0; j < kPro; ++j) {
+      const int g = g0 + j * kThreads;
+      if (g >= n16) break;
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        xs[(4 * v + 0) * n16 + g] = f[j][v].x;
+        xs[(4 * v + 1) * n16 + g] = f[j][v].y;
+        xs[(4 * v + 2) * n16 + g] = f[j][v].z;
+        xs[(4 * v + 3) * n16 + g] = f[j][v].w;
+        s += (f[j][v].x + f[j][v].y) + (f[j][v].z + f[j][v].w);
+      }
+      s16[g] = s;
+    }
+  }
+  __syncthreads();
+
+  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
+  const size_t half = (size_t)(n >> 1);
+  const uint8_t* pe = p + e * (size_t)d * half;
+  const uint16_t* ae = a + e * (size_t)d * n16;
+  const uint16_t* ce = HAS_C ? c + e * (size_t)d * n16 : nullptr;
+
+  constexpr int kSub = 32 / LPR;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % LPR;
+  const int sub = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kSub
+                  + lane / LPR;
+  const int row0 = sub * kRows;
+  const int nq = n16 >> 2;                     // 4-group quads per row
+  const float c0 = 128.f + off;
+
+  // the planes of one 4-group quad for the subgroup's kRows rows
+  // (clamped rows: loads stay in bounds, stores are masked)
+  auto load = [&](int q, uint32_t (&w)[kRows][8], uint2 (&av)[kRows],
+                  uint2 (&cv)[kRows]) {
+    const int g0 = q << 2;
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = min(row0 + rr, d - 1);
+      const uint8_t* pr = pe + (size_t)r * half + g0;
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+        w[rr][o] = __ldg(reinterpret_cast<const uint32_t*>(pr + (size_t)o * n16));
+      av[rr] = __ldg(reinterpret_cast<const uint2*>(ae + (size_t)r * n16 + g0));
+      if (HAS_C)
+        cv[rr] = __ldg(reinterpret_cast<const uint2*>(ce + (size_t)r * n16 + g0));
+    }
+  };
+
+  float acc[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
+  uint32_t w[kRows][8];
+  uint2 av[kRows], cv[kRows];
+  if (sl < nq) load(sl, w, av, cv);
+  for (int q = sl; q < nq; q += LPR) {
+    // prefetch the next quad so its loads overlap this quad's arithmetic
+    uint32_t wn[kRows][8];
+    uint2 avn[kRows], cvn[kRows];
+    if (q + LPR < nq) load(q + LPR, wn, avn, cvn);
+    const int g0 = q << 2;
+    float4 xl[8], xh[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      xl[o] = *reinterpret_cast<const float4*>(xs + o * n16 + g0);
+      xh[o] = *reinterpret_cast<const float4*>(xs + (o + 8) * n16 + g0);
+    }
+    const float4 s4 = *reinterpret_cast<const float4*>(s16 + g0);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const uint32_t lo = w[rr][o] & 0x0F0F0F0Fu;
+        const uint32_t hi = (w[rr][o] >> 4) & 0x0F0F0F0Fu;
+        t0 = fmaf(xl[o].x, nib_f(lo, 0x7054u), t0);
+        t0 = fmaf(xh[o].x, nib_f(hi, 0x7054u), t0);
+        t1 = fmaf(xl[o].y, nib_f(lo, 0x7154u), t1);
+        t1 = fmaf(xh[o].y, nib_f(hi, 0x7154u), t1);
+        t2 = fmaf(xl[o].z, nib_f(lo, 0x7254u), t2);
+        t2 = fmaf(xh[o].z, nib_f(hi, 0x7254u), t2);
+        t3 = fmaf(xl[o].w, nib_f(lo, 0x7354u), t3);
+        t3 = fmaf(xh[o].w, nib_f(hi, 0x7354u), t3);
+      }
+      const float t[4] = {t0, t1, t2, t3};
+      float af[4];
+      bf16x4(av[rr], af);
+      float cf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (HAS_C) bf16x4(cv[rr], cf);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[rr] += af[k] * (256.f * t[k] - c0 * sv[k]) - cf[k] * sv[k];
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+      for (int o = 0; o < 8; ++o) w[rr][o] = wn[rr][o];
+      av[rr] = avn[rr];
+      cv[rr] = cvn[rr];
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int m = LPR / 2; m > 0; m >>= 1)
+      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
+  }
+  if (sl == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = row0 + rr;
+      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+    }
+  }
+}
+
+template <int LPR, bool HAS_C>
+cudaError_t launch(const float* x, const uint8_t* p, const uint16_t* a,
+                   const uint16_t* c, const int32_t* idx, float* y,
+                   int rows_x, int d, int n, float off, cudaStream_t stream) {
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        knib_matvec_kernel<LPR, HAS_C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_opt_in = true;
+  }
+  const size_t smem = (size_t)(n + n / 16) * sizeof(float);
+  const int rows_per_block = (kThreads / 32) * (32 / LPR) * kRows;
+  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
+  knib_matvec_kernel<LPR, HAS_C><<<grid, kThreads, smem, stream>>>(
+      x, p, a, c, idx, y, d, n, off);
+  return cudaGetLastError();
+}
+
+template <bool HAS_C>
+cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
+                     const uint16_t* c, const int32_t* idx, float* y,
+                     int rows_x, int d, int n, float off,
+                     cudaStream_t stream) {
+  const int nq = n / 64;
+  if (nq % 32 == 0)
+    return launch<32, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+  if (nq % 16 == 0)
+    return launch<16, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+  return launch<8, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+}
+
+}  // namespace
+
+// y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32. Planes p
+// (E, d, n/2) u8, a and c (E, d, n/16) bf16 (c may be null); idx (rows_x,)
+// int32 selects the expert of each row (K2), or is null with E = 1 (K1).
+// Returns a cudaError_t; the launch is asynchronous on `stream`.
+extern "C" int knib_matvec(const void* x, const void* p, const void* a,
+                           const void* c, const void* idx, void* y,
+                           int rows_x, int d, int n, int off, void* stream) {
+  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 256 != 0 ||
+      (size_t)(n + n / 16) * sizeof(float) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  auto xs = static_cast<const float*>(x);
+  auto ps = static_cast<const uint8_t*>(p);
+  auto as = static_cast<const uint16_t*>(a);
+  auto cs = static_cast<const uint16_t*>(c);
+  auto is = static_cast<const int32_t*>(idx);
+  auto ys = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (cs != nullptr)
+    return (int)dispatch<true>(xs, ps, as, cs, is, ys, rows_x, d, n,
+                               (float)off, st);
+  return (int)dispatch<false>(xs, ps, as, cs, is, ys, rows_x, d, n,
+                              (float)off, st);
+}

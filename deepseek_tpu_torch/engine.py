@@ -1,0 +1,211 @@
+"""Inference engine: the reference ``Session`` (main.cpp:71-83) as a class
+owning the checkpoint, config, params, tokenizer and sampler.
+
+The port of ``deepseek_tpu/engine.py::Engine`` (``__init__``, ``hydrate``,
+``generate``) for single-sequence decode. The prompt goes through the
+decode step one token at a time, which is all the reference ever did;
+chunked prefill and the on-device decode block are later slices
+(ROADMAP.md), so ``decode_block`` must be 1 here.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepseek_tpu_torch.config import ModelConfig, QuantKind
+from deepseek_tpu_torch.models.deepseek import forward_decode
+from deepseek_tpu_torch.models.kvcache import init_cache
+from deepseek_tpu_torch.models.loader import (
+    fuse_projections, load_params, params_active_bytes,
+)
+from deepseek_tpu_torch.sampler import Sampler
+from deepseek_tpu_torch.tokenizer import Tokenizer
+from deepseek_tpu_torch.utils.codec import load_checkpoint
+
+
+@dataclass
+class GenerationStats:
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    hydrate_s: float = 0.0
+    generate_s: float = 0.0
+    active_bytes_per_token: float = 0.0
+
+    @property
+    def tok_per_s(self) -> float:
+        return self.generated_tokens / self.generate_s if self.generate_s > 0 else 0.0
+
+    @property
+    def gb_per_s(self) -> float:
+        if self.generate_s <= 0:
+            return 0.0
+        return self.active_bytes_per_token * self.generated_tokens / self.generate_s / 1e9
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; "cuda" without a visible GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA GPU is visible; pass "
+                           "device='cpu' to run the plain versions")
+    return dev
+
+
+class Engine:
+    def __init__(
+        self,
+        checkpoint_dir: str,
+        *,
+        context: int = 0,
+        lock_weights: bool = False,
+        compute_dtype: Optional[str] = None,
+        runtime_dtype: Optional[str] = None,
+        kv_cache_dtype: Optional[str] = None,
+        seed: Optional[int] = None,
+        prefill_chunk: int = 256,
+        decode_block: int = 1,
+        use_yarn: bool = False,
+        load_mtp: bool = True,
+        kquant_runtime: Optional[str] = "nibble",
+        fuse: bool = True,
+        scan_layers="auto",
+        device="cuda",
+    ):
+        """Same keywords as the JAX Engine. ``prefill_chunk``,
+        ``lock_weights`` and ``load_mtp`` have no effect in this slice (no
+        prefill, weights are always resident, no MTP head); the options
+        whose other values are not ported raise."""
+        if decode_block != 1:
+            raise NotImplementedError(
+                f"decode_block={decode_block}: the on-device decode block is "
+                "not ported yet (ROADMAP.md queue 1, item 6)")
+        if scan_layers not in ("auto", False):
+            raise NotImplementedError(
+                "scan-stacked layers have no counterpart in the port "
+                "(ROADMAP.md queue 1, item 15)")
+        self.device = resolve_device(device)
+        self.data = load_checkpoint(checkpoint_dir)
+        overrides = {}
+        if compute_dtype:
+            overrides["compute_dtype"] = compute_dtype
+        if kv_cache_dtype:
+            overrides["kv_cache_dtype"] = kv_cache_dtype
+        if use_yarn:
+            overrides["use_yarn"] = True
+        self.cfg = ModelConfig.from_metadata(self.data.metadata, context=context,
+                                             **overrides)
+        if (self.cfg.weight_quant in (QuantKind.Q2_K, QuantKind.Q3_K)
+                and kquant_runtime != "nibble"):
+            raise NotImplementedError(
+                f"kquant_runtime={kquant_runtime!r}: only the nibble runtime is "
+                "ported (packed/turbo layouts: ROADMAP.md queue 1, item 9)")
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.params = load_params(self.data, self.cfg, device=self.device,
+                                  runtime_dtype=runtime_dtype,
+                                  kquant_runtime=kquant_runtime)
+        if fuse:
+            self.params = fuse_projections(self.params, self.cfg)
+        self.tokenizer = Tokenizer.from_checkpoint(self.data)
+        self.sampler = Sampler(self.cfg.vocab_size, seed)
+
+    def new_cache(self, batch: int = 1):
+        return init_cache(self.cfg, batch=batch, device=self.device)
+
+    def active_bytes(self, pos: int = 0) -> float:
+        return params_active_bytes(self.params, self.cfg, pos)
+
+    @torch.inference_mode()
+    def step(self, cache, token: int, pos: int) -> torch.Tensor:
+        """One decode step for a single sequence -> logits (1, V) on device."""
+        tok = torch.tensor([[token]], dtype=torch.int64, device=self.device)
+        return forward_decode(self.params, cache, tok, pos, self.cfg)
+
+    def hydrate(self, cache, tokens: List[int], pos0: int = 0,
+                want_last_logits: bool = True,
+                collect_all_logits: bool = False,
+                progress: Optional[Callable[[int, int], None]] = None,
+                target_tokens: Optional[List[int]] = None):
+        """Feed ``tokens`` at positions pos0.. into the cache, one decode
+        step each. Returns (cache, last_logits | None, collected | None,
+        end_pos): ``collect_all_logits`` collects per-position log-softmax
+        rows (N, V); ``target_tokens`` (entry i scored against the logits
+        after tokens[i]) collects only those log-probabilities (N,)."""
+        N = len(tokens)
+        last_logits = None
+        rows = []
+        for i, tok in enumerate(tokens):
+            logits = self.step(cache, int(tok), pos0 + i)
+            if target_tokens is not None:
+                lsm = torch.log_softmax(logits[0].float(), dim=-1)
+                rows.append(float(lsm[int(target_tokens[i])]))
+            elif collect_all_logits:
+                rows.append(torch.log_softmax(logits[0].float(), dim=-1).cpu().numpy())
+            if i == N - 1 and want_last_logits:
+                last_logits = logits[0].float().cpu().numpy()
+            if progress is not None:
+                progress(i + 1, N)
+        collected = None
+        if target_tokens is not None:
+            collected = np.asarray(rows, np.float32)
+        elif collect_all_logits and rows:
+            collected = np.stack(rows)
+        return cache, last_logits, collected, pos0 + N
+
+    def generate(
+        self,
+        prompt_tokens: List[int],
+        num_steps: int = 256,
+        temperature: float = 1.0,
+        top_p: float = 0.95,
+        on_token: Optional[Callable[[int, bytes], None]] = None,
+        top_k: int = 0,
+        min_p: float = 0.0,
+    ) -> Tuple[List[int], GenerationStats]:
+        """Completion loop (run_completion, main.cpp:277-361).
+        num_steps: 0 = up to max_seq_len, -1 = until eos."""
+        cfg = self.cfg
+        stats = GenerationStats(prompt_tokens=len(prompt_tokens))
+        if not prompt_tokens:
+            raise ValueError("generate needs at least one prompt token")
+        cache = self.new_cache()
+
+        t0 = time.perf_counter()
+        cache, logits, _, pos = self.hydrate(cache, prompt_tokens, 0)
+        stats.hydrate_s = time.perf_counter() - t0
+
+        if num_steps == 0:
+            max_new = cfg.max_seq_len - len(prompt_tokens)
+        elif num_steps < 0:
+            max_new = 1 << 62
+        else:
+            max_new = num_steps
+
+        out_tokens: List[int] = []
+        prev = prompt_tokens[-1]
+
+        def emit(token: int) -> bool:
+            nonlocal prev
+            out_tokens.append(token)
+            if on_token is not None:
+                on_token(token, self.tokenizer.decode_one(prev, token))
+            prev = token
+            return self.tokenizer.is_eos_or_eot(token)
+
+        t0 = time.perf_counter()
+        token = self.sampler.sample(logits, temperature, top_p, top_k, min_p)
+        stopped = emit(token)
+        while not stopped and len(out_tokens) < max_new:
+            logits = self.step(cache, token, pos)[0].float().cpu().numpy()
+            pos += 1
+            token = self.sampler.sample(logits, temperature, top_p, top_k, min_p)
+            stopped = emit(token)
+        stats.generate_s = time.perf_counter() - t0
+        stats.generated_tokens = len(out_tokens)
+        stats.active_bytes_per_token = self.active_bytes(pos)
+        return out_tokens, stats

@@ -1,0 +1,73 @@
+"""Ring-buffer + attention-sink latent KV cache (absorbed MLA).
+
+``kv_window`` slots per layer (the reference windows at
+``rs_original_max_position_embeddings``, infer.cpp:1271-1277). Past the
+window, slots are replaced in ring order while the first ``KV_SINKS``
+slots hold StreamingLLM sinks whose rope chunk is re-rotated by +1 every
+step. MLA caches only the shared latent + rope key per slot.
+
+Unlike the JAX package's immutable arrays, the port updates the cache in
+place: one write per layer per step, no copy of the cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
+
+_CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                 "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class KVCache:
+    ckv: torch.Tensor     # (L, B, S, kv_lora_rank)
+    krope: torch.Tensor   # (L, B, S, qk_rope_head_dim)
+
+    @property
+    def batch(self) -> int:
+        return self.ckv.shape[1]
+
+    @property
+    def window(self) -> int:
+        return self.ckv.shape[2]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.ckv, self.krope))
+
+
+def init_cache(cfg: ModelConfig, batch: int = 1, device="cpu") -> KVCache:
+    if not cfg.use_mla:
+        raise NotImplementedError(
+            "the decompressed-MHA cache is not ported yet (ROADMAP.md queue 1, "
+            "item 5: MHA decode)")
+    dt = _CACHE_DTYPES.get(str(cfg.kv_cache_dtype))
+    if dt is None:
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 cache is not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
+    L, S = cfg.n_layers, cfg.kv_window
+    return KVCache(
+        ckv=torch.zeros((L, batch, S, cfg.kv_lora_rank), dtype=dt, device=device),
+        krope=torch.zeros((L, batch, S, cfg.qk_rope_head_dim), dtype=dt,
+                          device=device))
+
+
+def ring_positions(cfg: ModelConfig, pos: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(kv_sink, kv_pos, kv_len) for decode positions ``pos`` (B,) int64
+    (infer.cpp:1271-1277):
+      kv_sink = pos >= window ? KV_SINKS : 0
+      kv_pos  = kv_sink + (pos - kv_sink) % (window - kv_sink)
+      kv_len  = min(pos + 1, window)
+    """
+    window = cfg.kv_window
+    kv_sink = torch.where(pos >= window, KV_SINKS, 0)
+    kv_pos = kv_sink + torch.remainder(pos - kv_sink, window - kv_sink)
+    kv_len = torch.clamp(pos + 1, max=window)
+    return kv_sink, kv_pos, kv_len

@@ -1,0 +1,306 @@
+"""Checkpoint -> ModelParams, the fusion pass, and params carried across
+from the JAX package.
+
+``load_params`` ports ``deepseek_tpu/models/loader.py::load_params`` for
+F32/F16/BF16 tensors and U8 K-quant tensors in the nibble runtime layout;
+``fuse_projections`` ports the function of the same name without the
+row-permuted expert layout. ``params_from_reference`` builds the port's
+params from a ``deepseek_tpu`` ModelParams object without importing JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deepseek_tpu_torch.config import ModelConfig, QuantKind
+from deepseek_tpu_torch.models.params import LayerParams, ModelParams
+from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
+from deepseek_tpu_torch.quant.qtensor import (
+    KNibbleTensor, PlainTensor, q2k_to_nibble, q3k_to_nibble,
+)
+from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
+from deepseek_tpu_torch.utils.codec import CheckpointData
+
+_TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                 "bfloat16": torch.bfloat16}
+
+
+def _to_torch(arr) -> torch.Tensor:
+    """numpy (or array-like) -> CPU tensor; bfloat16 arrays (ml_dtypes or
+    raw 16-bit words) keep their bits."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16), copy=True, order="C")
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def _logical_shape(dtype_str: str, shape, cfg: ModelConfig):
+    """Logical (..., out, in) shape of a stored tensor (K-quant raw blocks
+    encode 256 weights per block)."""
+    if dtype_str == "U8":
+        bb = (Q2K_BLOCK_BYTES if cfg.weight_quant == QuantKind.Q2_K
+              else Q3K_BLOCK_BYTES)
+        return tuple(shape[:-1]) + (shape[-1] // bb * QK_K,)
+    return tuple(shape)
+
+
+def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
+                runtime_dtype: Optional[str] = None,
+                kquant_runtime: Optional[str] = "nibble") -> ModelParams:
+    """Read a ``.dseek`` checkpoint onto ``device``. K-quant tensors expand
+    to the nibble layout (the only K-quant runtime ported); shapes are
+    checked against the config and a mismatch fails loudly."""
+    if cfg.weight_quant in (QuantKind.Q2_K, QuantKind.Q3_K) \
+            and kquant_runtime != "nibble":
+        raise NotImplementedError(
+            f"kquant_runtime={kquant_runtime!r}: only the nibble runtime is "
+            "ported; the packed and turbo layouts are ROADMAP.md queue 1, "
+            "item 9")
+
+    def norm(name: str, expect=None) -> Optional[torch.Tensor]:
+        arr = data.get(name + ".weight")
+        if arr is None:
+            return None
+        arr = np.asarray(arr, dtype=np.float32)
+        if expect is not None and tuple(arr.shape) != tuple(expect):
+            raise ValueError(
+                f"checkpoint tensor {name}.weight has shape "
+                f"{tuple(arr.shape)}, config expects {tuple(expect)}")
+        return torch.from_numpy(arr.copy()).to(device)
+
+    def qt(name: str, expect=None):
+        w = data.get(name + ".weight")
+        if w is None:
+            return None
+        dt = data.tensors[name + ".weight"].dtype_str
+        if expect is not None:
+            got = _logical_shape(dt, w.shape, cfg)
+            if tuple(got) != tuple(expect):
+                raise ValueError(
+                    f"checkpoint tensor {name}.weight has logical shape "
+                    f"{tuple(got)}, config expects {tuple(expect)}")
+        if dt in ("F32", "F16", "BF16"):
+            t = _to_torch(w)
+            if dt == "BF16" and t.dtype != torch.bfloat16:
+                t = t.view(torch.bfloat16)       # raw 16-bit words
+            if runtime_dtype is not None:
+                t = t.to(_TORCH_DTYPES[runtime_dtype])
+            return PlainTensor(data=t.to(device))
+        if dt == "U8":
+            raw = np.asarray(w)
+            rows = raw.shape[-2]
+            if cfg.weight_quant == QuantKind.Q2_K:
+                cols = raw.shape[-1] // Q2K_BLOCK_BYTES * QK_K
+                return q2k_to_nibble(*repack_q2k(raw, rows, cols), device=device)
+            if cfg.weight_quant == QuantKind.Q3_K:
+                cols = raw.shape[-1] // Q3K_BLOCK_BYTES * QK_K
+                return q3k_to_nibble(*repack_q3k(raw, rows, cols), device=device)
+            raise ValueError(f"U8 tensor {name} but weight_quant={cfg.weight_quant}")
+        raise NotImplementedError(
+            f"stored dtype {dt} of {name} is not ported yet (F8E5M2 is "
+            "ROADMAP.md queue 1, item 9)")
+
+    def block_params(p: str, moe: bool) -> LayerParams:
+        c = cfg
+        H = c.n_heads
+        R, P = c.kv_lora_rank, c.qk_rope_head_dim
+        nope, Dv = c.qk_nope_head_dim, c.v_head_dim
+        E, m, ql = c.n_routed_experts, c.moe_intermediate_size, c.q_lora_rank
+        moegate = norm(f"{p}.moegate", expect=(E, c.dim) if E else None)
+        bias = data.get(f"{p}.moegate.bias") if moegate is not None else None
+        ffn1 = (E, m, c.dim) if moe else (c.hidden_dim, c.dim)
+        ffn2 = (E, c.dim, m) if moe else (c.dim, c.hidden_dim)
+        return LayerParams(
+            attn_norm=norm(f"{p}.attn.norm", expect=(c.dim,)),
+            ffn_norm=norm(f"{p}.mlp.norm", expect=(c.dim,)),
+            kv_a_norm=norm(f"{p}.attn.kv_a_norm", expect=(R,)),
+            q_a_norm=norm(f"{p}.attn.q_a_norm", expect=(ql,) if ql > 0 else None),
+            wkv_a=qt(f"{p}.attn.wkv_a", expect=(R + P, c.dim)),
+            wo=qt(f"{p}.attn.wo", expect=(c.dim, H * Dv)),
+            wq=qt(f"{p}.attn.wq", expect=(H * c.head_dim, c.dim)),
+            wq_a=qt(f"{p}.attn.wq_a", expect=(ql, c.dim)),
+            wq_b=qt(f"{p}.attn.wq_b", expect=(H * c.head_dim, ql)),
+            wkv_b=qt(f"{p}.attn.wkv_b", expect=(H * (nope + Dv), R)),
+            wc=qt(f"{p}.attn.wc", expect=(H * R, ql)),
+            wq_rope_b=qt(f"{p}.attn.wq_rope_b", expect=(H * P, ql)),
+            wv_b=qt(f"{p}.attn.wv_b", expect=(H * Dv, R)),
+            w1=qt(f"{p}.mlp.w1", expect=ffn1),
+            w2=qt(f"{p}.mlp.w2", expect=ffn2),
+            w3=qt(f"{p}.mlp.w3", expect=ffn1),
+            shared_w1=qt(f"{p}.shared_mlp.w1", expect=(c.n_shared_experts * m, c.dim)),
+            shared_w2=qt(f"{p}.shared_mlp.w2", expect=(c.dim, c.n_shared_experts * m)),
+            shared_w3=qt(f"{p}.shared_mlp.w3", expect=(c.n_shared_experts * m, c.dim)),
+            moegate=moegate,
+            moegate_bias=None if bias is None else torch.from_numpy(
+                np.asarray(bias, np.float32).copy()).to(device),
+        )
+
+    layers = [block_params(f"model.layers.{l}", cfg.is_moe_layer(l))
+              for l in range(cfg.n_layers)]
+    embed = qt("model.embed", expect=(cfg.vocab_size, cfg.dim))
+    lm_head = qt("model.output", expect=(cfg.vocab_size, cfg.dim))
+    return ModelParams(embed=embed, layers=layers,
+                       final_norm=norm("model.norm"),
+                       lm_head=lm_head if lm_head is not None else embed)
+
+
+# ---------------------------------------------------------------------------
+# projection fusion
+# ---------------------------------------------------------------------------
+
+def _concat(a, b, dim: int):
+    """Concatenate two same-layout weights along ``dim`` (-2: output rows,
+    0: experts); None when the pair cannot be fused losslessly."""
+    if a is None or b is None or type(a) is not type(b):
+        return None
+    if isinstance(a, PlainTensor):
+        return PlainTensor(data=torch.cat([a.data, b.data], dim=dim))
+    if a.off != b.off or (a.c is None) != (b.c is None):
+        return None
+    return KNibbleTensor(
+        p=torch.cat([a.p, b.p], dim=dim), a=torch.cat([a.a, b.a], dim=dim),
+        c=None if a.c is None else torch.cat([a.c, b.c], dim=dim), off=a.off)
+
+
+def _rows_to_experts(qt, ns: int):
+    """(ns*m, cols...) -> (ns, m, cols...) for every plane."""
+    fn = lambda t: t.reshape(ns, t.shape[0] // ns, *t.shape[1:])
+    return PlainTensor(data=fn(qt.data)) if isinstance(qt, PlainTensor) \
+        else qt.map(fn)
+
+
+def _cols_to_experts(qt, ns: int, m: int):
+    """(dim, ns*m) -> (ns, dim, m) where the columns split cleanly: plain
+    weights only (nibble planes interleave columns stride-16)."""
+    if not isinstance(qt, PlainTensor):
+        return None
+    d = qt.data
+    return PlainTensor(data=d.reshape(d.shape[0], ns, m).movedim(1, 0).contiguous())
+
+
+def fuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
+    """Concatenate projection pairs that read the same activation
+    ([w1;w3], [shared_w1;shared_w3], [wq_rope_b;wc], [wkv_a;wq_a]) so one
+    kernel launch and one weight sweep replace two, and fold the shared
+    experts into the routed tables where the layout allows (plain weights).
+    The component fields become None."""
+
+    def fuse_layer(lp: LayerParams) -> LayerParams:
+        w13 = _concat(lp.w1, lp.w3, -2)
+        wcr = _concat(lp.wq_rope_b, lp.wc, -2)
+        wkvq = _concat(lp.wkv_a, lp.wq_a, -2)
+        attn = dict(
+            wcr=wcr, wq_rope_b=None if wcr is not None else lp.wq_rope_b,
+            wc=None if wcr is not None else lp.wc,
+            wkvq=wkvq, wkv_a=None if wkvq is not None else lp.wkv_a,
+            wq_a=None if wkvq is not None else lp.wq_a)
+        ns, m = cfg.n_shared_experts, cfg.moe_intermediate_size
+        if (lp.moegate is not None and w13 is not None and ns > 0
+                and lp.shared_w1 is not None and lp.shared_w1.shape[-2] == ns * m):
+            w2sh = _cols_to_experts(lp.shared_w2, ns, m)
+            if w2sh is not None:
+                sh13 = _concat(_rows_to_experts(lp.shared_w1, ns),
+                               _rows_to_experts(lp.shared_w3, ns), -2)
+                return dataclasses.replace(
+                    lp, w13s=_concat(w13, sh13, 0), w2s=_concat(lp.w2, w2sh, 0),
+                    w1=None, w2=None, w3=None, shared_w1=None, shared_w2=None,
+                    shared_w3=None, **attn)
+        s13 = _concat(lp.shared_w1, lp.shared_w3, -2)
+        return dataclasses.replace(
+            lp, w13=w13, w1=None if w13 is not None else lp.w1,
+            w3=None if w13 is not None else lp.w3, shared_w13=s13,
+            shared_w1=None if s13 is not None else lp.shared_w1,
+            shared_w3=None if s13 is not None else lp.shared_w3, **attn)
+
+    return dataclasses.replace(params, layers=[fuse_layer(lp) for lp in params.layers])
+
+
+# ---------------------------------------------------------------------------
+# params carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+def _weight_from_reference(obj, device):
+    kind = type(obj).__name__
+    if kind == "PlainTensor":
+        return PlainTensor(data=_to_torch(obj.data).to(device))
+    if kind == "KNibbleTensor":
+        if getattr(obj, "rowperm", 0):
+            raise NotImplementedError(
+                "row-permuted nibble tables are not ported (ROADMAP.md K7)")
+        return KNibbleTensor(
+            p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
+            c=None if obj.c is None else _to_torch(obj.c).to(device),
+            off=int(obj.off))
+    raise NotImplementedError(f"weight layout {kind} is not ported yet")
+
+
+def _layer_from_reference(lp, device) -> LayerParams:
+    kw = {}
+    for f in dataclasses.fields(LayerParams):
+        v = getattr(lp, f.name, None)
+        if v is None:
+            kw[f.name] = None
+        elif type(v).__name__ in ("PlainTensor", "KNibbleTensor") or \
+                dataclasses.is_dataclass(v):
+            kw[f.name] = _weight_from_reference(v, device)
+        else:
+            kw[f.name] = _to_torch(v).float().to(device)
+    return LayerParams(**kw)
+
+
+def params_from_reference(obj, device="cpu") -> ModelParams:
+    """The JAX package's ``ModelParams`` (fused or not, unstacked layers)
+    -> the port's, walking dataclass fields and type names and reading each
+    leaf through ``np.asarray`` — no import of JAX or of deepseek_tpu."""
+    layers = []
+    for lp in obj.layers:
+        if type(lp).__name__ != "LayerParams":
+            raise NotImplementedError(
+                f"{type(lp).__name__} layer groups (scan stacking) have no "
+                "counterpart in the port (ROADMAP.md queue 1, item 15)")
+        layers.append(_layer_from_reference(lp, device))
+    return ModelParams(
+        embed=_weight_from_reference(obj.embed, device),
+        layers=layers,
+        final_norm=_to_torch(obj.final_norm).float().to(device),
+        lm_head=_weight_from_reference(obj.lm_head, device))
+
+
+def params_active_bytes(params: ModelParams, cfg: ModelConfig, pos: int = 0) -> float:
+    """Bytes one decode token reads (reference active_bytes,
+    model.cpp:324-352): all dense weights, k routed (+ shared) experts per
+    MoE layer, the latent cache up to kv_len, one embedding row."""
+    def nb(t):
+        if t is None:
+            return 0
+        if isinstance(t, torch.Tensor):
+            return t.numel() * t.element_size()
+        return t.nbytes_active
+
+    kv_len = min(pos + 1, cfg.kv_window)
+    itemsize = _TORCH_DTYPES[str(cfg.kv_cache_dtype)].itemsize \
+        if str(cfg.kv_cache_dtype) in _TORCH_DTYPES else 1
+    kv = kv_len * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * itemsize
+    total = nb(params.embed) / params.embed.shape[0] + nb(params.final_norm) \
+        + nb(params.lm_head)
+    for l, lp in enumerate(params.layers):
+        total += kv
+        for f in ("attn_norm", "ffn_norm", "kv_a_norm", "q_a_norm", "wkv_a",
+                  "wo", "wq_a", "wc", "wq_rope_b", "wv_b", "wcr", "wkvq",
+                  "moegate", "moegate_bias", "shared_w1", "shared_w2",
+                  "shared_w3", "shared_w13"):
+            total += nb(getattr(lp, f))
+        moe = cfg.is_moe_layer(l)
+        frac = cfg.n_active_routed / cfg.n_routed_experts if moe else 1.0
+        for f in ("w1", "w2", "w3", "w13"):
+            total += nb(getattr(lp, f)) * frac
+        if lp.w13s is not None:
+            ns = cfg.n_shared_experts
+            frac_s = (cfg.n_active_routed + ns) / (cfg.n_routed_experts + ns)
+            total += (nb(lp.w13s) + nb(lp.w2s)) * frac_s
+    return float(total)

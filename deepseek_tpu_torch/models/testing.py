@@ -1,0 +1,106 @@
+"""Random-weight models built directly on the device (benchmarks, smoke runs).
+
+Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
+nibble part of ``random_fused_params``: planes are synthesized in their
+final runtime layout from a seeded ``torch.Generator`` on the target device,
+one random 2-D block per projection, repeated across an expert stack
+(throughput does not depend on the values, and every expert still has its
+own bytes at its own address).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deepseek_tpu_torch.config import (
+    ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod,
+)
+from deepseek_tpu_torch.models.params import LayerParams, ModelParams
+from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
+
+
+def deepseek_v3_proportions(n_layers: int = 61, **overrides) -> ModelConfig:
+    """DeepSeek-V3's architecture hyperparameters (config.json of
+    deepseek-ai/DeepSeek-V3): dim 7168, 128 heads, MLA r=512 with q_lora
+    1536, 256 routed experts (k=8, sigmoid + noaux_tc routing over 8
+    groups, e-score correction bias), 1 shared expert, m=2048, first 3
+    layers dense, vocab 129280. Only the depth is cut by callers."""
+    base = dict(
+        dim=7168, hidden_dim=18432, n_layers=n_layers, n_heads=128,
+        vocab_size=129280, max_seq_len=4096, rope_theta=10000.0,
+        norm_eps=1e-6, act=ActivationType.SILU, first_k_dense_replace=3,
+        n_shared_experts=1, n_routed_experts=256, n_active_routed=8,
+        moe_intermediate_size=2048, routed_scaling_factor=2.5, n_group=8,
+        norm_topk_prob=True, scoring_func=ScoringFunc.SIGMOID,
+        topk_group=4, topk_method=TopKMethod.NOAUX_TC, has_moegate_bias=True,
+        use_mla=True, kv_lora_rank=512, q_lora_rank=1536,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        weight_quant=QuantKind.F16,
+        rs_original_max_position_embeddings=4096,
+        arch="DeepseekV3ForCausalLM",
+        compute_dtype="bfloat16", kv_cache_dtype="bfloat16",
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
+                        device="cuda") -> ModelParams:
+    """Random model in the fused decode layout (wkvq, wcr, w13 and shared
+    experts folded into w13s/w2s) with nibble planes. ``quant``:
+    q3_k_nibble | q2_k_nibble. The embedding is bf16, the lm_head nibble."""
+    if quant not in ("q3_k_nibble", "q2_k_nibble"):
+        raise ValueError(f"quant must be q3_k_nibble or q2_k_nibble, not {quant}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def uniform(shape, lo, hi, dtype):
+        t = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+        return (t * (hi - lo) + lo).to(dtype)
+
+    def tile(blk, lead):
+        return blk if not lead else blk.expand(*lead, *blk.shape).contiguous()
+
+    def qt(*shape):
+        *lead, rows, cols = shape
+        if cols % 256:
+            raise ValueError(f"nibble planes need cols % 256 == 0, got {cols}")
+        p = torch.randint(0, 256, (rows, cols // 2), generator=gen,
+                          device=device, dtype=torch.uint8)
+        a = uniform((rows, cols // 16), 0.001, 0.01, torch.bfloat16)
+        if quant == "q2_k_nibble":
+            c = uniform((rows, cols // 16), 0.0005, 0.005, torch.bfloat16)
+            return KNibbleTensor(p=tile(p, lead), a=tile(a, lead),
+                                 c=tile(c, lead), off=0)
+        return KNibbleTensor(p=tile(p, lead), a=tile(a, lead), c=None, off=4)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    def ones(n):
+        return torch.ones(n, device=device)
+
+    c = cfg
+    H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
+    E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
+    layers = []
+    for l in range(c.n_layers):
+        moe = c.is_moe_layer(l)
+        layers.append(LayerParams(
+            attn_norm=ones(c.dim), ffn_norm=ones(c.dim), kv_a_norm=ones(R),
+            q_a_norm=ones(c.q_lora_rank),
+            wo=qt(c.dim, H * Dv), wv_b=qt(H * Dv, R),
+            wcr=qt(H * P + H * R, c.q_lora_rank),
+            wkvq=qt(R + P + c.q_lora_rank, c.dim),
+            w13=None if moe else qt(2 * c.hidden_dim, c.dim),
+            w2=None if moe else qt(c.dim, c.hidden_dim),
+            moegate=normal(E, c.dim) if moe else None,
+            moegate_bias=(torch.zeros(E, device=device)
+                          if moe and c.has_moegate_bias else None),
+            w13s=qt(E + ns, 2 * m, c.dim) if moe else None,
+            w2s=qt(E + ns, c.dim, m) if moe else None,
+        ))
+    return ModelParams(
+        embed=PlainTensor(data=normal(c.vocab_size, c.dim).to(torch.bfloat16)),
+        layers=layers, final_norm=ones(c.dim),
+        lm_head=qt(c.vocab_size, c.dim))

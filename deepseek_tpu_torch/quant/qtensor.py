@@ -1,0 +1,123 @@
+"""Weight tensors of the port: plain and K-quant nibble.
+
+The counterparts of ``deepseek_tpu/quant/qtensor.py``'s ``PlainTensor`` and
+``KNibbleTensor`` with the same fields and layouts, so a test can hand the
+same planes to both packages. A projection is stored as ``W (out, in)`` and
+applied as ``y = x @ W.T``.
+
+Nibble layout: unsigned ``u = q + off`` stored two per byte in the stride-16
+PERMUTED column order (quant.repack): the low nibble of byte j is permuted
+column j, the high nibble permuted column j + n/2, and permuted position
+``o*(n/16) + g`` holds natural column ``g*16 + o``. Each 16-column group g
+has one bf16 scale ``a[g]``; the signed or min offset is applied on the
+output side against the activations' per-16 group sums ``s16``:
+
+    y = sum_c x_c * a_g(c) * u_c  -  sum_g s16_g * (off*a_g + c_g)
+
+(Q2_K: off=0, c = dmin*mn; Q3_K: off=4, c=None.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepseek_tpu_torch.quant.repack import stride16_inv_perm
+
+
+@dataclasses.dataclass
+class PlainTensor:
+    """Unquantized weight (f32 / f16 / bf16)."""
+
+    data: torch.Tensor  # (..., out, in)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.data.numel() * self.data.element_size()
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        return self.data.to(dtype)
+
+
+@dataclasses.dataclass
+class KNibbleTensor:
+    """K-quant expanded to a 4-bit nibble plane (see the module docstring)."""
+
+    p: torch.Tensor                    # (..., out, in//2) uint8
+    a: torch.Tensor                    # (..., out, in//16) bf16 = d*sc
+    c: Optional[torch.Tensor] = None   # (..., out, in//16) bf16 min term
+    off: int = 0                       # u = q + off
+    # (the reference's row-permuted expert layout, rowperm > 0, belongs to
+    # kernel K7 and is not ported; params_from_reference rejects it)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.p.shape[:-1]) + (self.p.shape[-1] * 2,)
+
+    @property
+    def nbytes_active(self) -> int:
+        return (self.p.numel() + self.a.numel() * 2
+                + (self.c.numel() * 2 if self.c is not None else 0))
+
+    def map(self, fn) -> "KNibbleTensor":
+        """Apply ``fn`` to every plane (row slices, device moves)."""
+        return KNibbleTensor(p=fn(self.p), a=fn(self.a),
+                             c=None if self.c is None else fn(self.c),
+                             off=self.off)
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        n = 2 * self.p.shape[-1]
+        u = torch.cat([self.p & 0xF, self.p >> 4], dim=-1).to(dtype)
+        reps = (1,) * (self.a.dim() - 1) + (16,)
+        w = self.a.to(dtype).repeat(reps) * (u - float(self.off))
+        if self.c is not None:
+            w = w - self.c.to(dtype).repeat(reps)
+        inv = torch.as_tensor(stride16_inv_perm(n), device=w.device)
+        return w.index_select(-1, inv)
+
+
+def _plane_unpack(planes: np.ndarray, bits: int) -> np.ndarray:
+    """Shift+concat unpack of 2-bit (bits=2) or 1-bit planes; stays in the
+    permuted column order the planes are packed in."""
+    mask = (1 << bits) - 1
+    return np.concatenate([(planes >> s) & mask for s in range(0, 8, bits)],
+                          axis=-1)
+
+
+def _nibble_pack(u: np.ndarray) -> np.ndarray:
+    """Two nibbles per byte, C-contiguous (numpy may hand back another
+    memory order from elementwise ops on fancy-indexed planes, and the
+    kernels take row-major planes only)."""
+    n = u.shape[-1]
+    return np.ascontiguousarray(
+        (u[..., :n // 2] | (u[..., n // 2:] << 4)).astype(np.uint8))
+
+
+def _bf16(x: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        device=device, dtype=torch.bfloat16)
+
+
+def q2k_to_nibble(qs, sm, d, dmin, device="cpu") -> KNibbleTensor:
+    """Q2_K planes (quant.repack.repack_q2k) -> nibble layout (6 bit/w)."""
+    u = _plane_unpack(qs, 2)
+    a = np.repeat(d.astype(np.float32), 16, axis=-1) * (sm & 0xF).astype(np.float32)
+    c = np.repeat(dmin.astype(np.float32), 16, axis=-1) * (sm >> 4).astype(np.float32)
+    return KNibbleTensor(p=torch.from_numpy(_nibble_pack(u)).to(device),
+                         a=_bf16(a, device), c=_bf16(c, device), off=0)
+
+
+def q3k_to_nibble(qs, hm, sc, d, device="cpu") -> KNibbleTensor:
+    """Q3_K planes (quant.repack.repack_q3k) -> nibble layout (5 bit/w):
+    u = qlow + 4*hbit in [0,7]; the -4 offset is output-side (off=4)."""
+    u = _plane_unpack(qs, 2) + (_plane_unpack(hm, 1) << 2)
+    a = np.repeat(d.astype(np.float32), 16, axis=-1) * sc.astype(np.float32)
+    return KNibbleTensor(p=torch.from_numpy(_nibble_pack(u)).to(device),
+                         a=_bf16(a, device), c=None, off=4)

@@ -35,3 +35,8 @@ from deepseek_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 enable_compile_cache(os.environ.get("DSEEK_TEST_COMPILE_CACHE",
                                     "/tmp/dseek_test_jaxcache"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where none is visible")
