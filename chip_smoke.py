@@ -5,17 +5,27 @@
 Phases, each of which fails the run (non-zero exit) on any error:
   1. the card: name and power limit, and the build of every CUDA kernel
      (one nvcc per source, in parallel, into build/torch_kernels/);
-  2. entry point: a tiny random Q3_K checkpoint written with the port's
-     codec, decoded greedily by Engine(..., device="cuda") and held against
-     the same Engine on the CPU (plain versions);
-  3. the kernels: K1 (Q3_K and Q2_K nibble), K2 and K3 at the shapes of the
-     DeepSeek-V3-width model, each against its plain version on the card,
-     with its time, the plain version's time and its bound;
-  4. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
-     from a seed) decodes 64 greedy tokens through the port's forward; the
-     launch counts read around this run show that K1, K2 and K3 ran.
-The line before last holds the card's name and power limit; the last line
-is the JSON result. Without a CUDA GPU the script exits 2 and prints none.
+  2. entry points: a tiny random Q3_K checkpoint written with the port's
+     codec, hydrated by prefill and decoded greedily by Engine(...,
+     device="cuda") and held against the same Engine on the CPU (plain
+     versions); then a tiny bf16 MoE checkpoint with the factor weights,
+     whose prompt puts 300 token-expert pairs in one chunk (K9, K11) and
+     whose decode steps run its bf16 expert tables (K2's plain body);
+  3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
+     from a seed) decodes 64 greedy tokens through the port's forward
+     (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
+     256, with the factor weights (K9) and without (K10), each followed by
+     16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again);
+  4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
+     1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
+     the shapes of the DeepSeek-V3-width model, each against its plain
+     version on the card, with its time, the plain version's time, a
+     PyTorch library call's time where one computes the same function, and
+     its bound.
+The launch counts are set to 0 just before each driven path and read just
+after; a kernel that its path never launched fails the run. The line
+before last holds the card's name and power limit; the last line is the
+JSON result. Without a CUDA GPU the script exits 2 and prints none.
 """
 
 import json
@@ -34,6 +44,8 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 N_DECODE = 64
 N_WARMUP = 4
 SEED = 0
+PREFILL_TOKENS = 512       # two chunks of the default prefill_chunk (256)
+PREFILL_DECODE = 16
 
 
 def log(*a):
@@ -152,6 +164,55 @@ def write_tiny_checkpoint(path: str, rng) -> None:
     save_checkpoint(path, [t], md)
 
 
+def compare_hydrate(eng, ref, toks, label):
+    """Engine.hydrate on the card against the CPU engine (plain versions):
+    last logits within 1e-3 of their scale, the collected log-softmax rows
+    within 2e-3 (a row moves by at most twice its logits' error)."""
+    _, last, rows, _ = eng.hydrate(eng.new_cache(), toks, collect_all_logits=True)
+    _, want_last, want_rows, _ = ref.hydrate(ref.new_cache(), toks,
+                                             collect_all_logits=True)
+    scale = float(np.abs(want_last).max())
+    e_last = float(np.abs(last - want_last).max())
+    e_rows = float(np.abs(rows - want_rows).max())
+    log(f"{label}: hydrate of {len(toks)} tokens vs CPU plain: last logits max "
+        f"abs err {e_last:.3e} (tolerance {1e-3 * scale:.3e}), log-softmax rows "
+        f"{e_rows:.3e} (tolerance {2e-3 * scale:.3e})")
+    if not (np.isfinite(last).all() and e_last <= 1e-3 * scale
+            and e_rows <= 2e-3 * scale):
+        raise RuntimeError(f"{label}: hydrate disagrees with the CPU engine")
+
+
+def check_greedy(ref, prompt, out, label):
+    """Each greedy token of the card's run is the CPU engine's argmax after
+    the same tokens on generate's schedule (prefill the prompt, then one
+    decode step a token), or within 1e-3 of the logit scale of it (a
+    near-tie that the sums' order may break either way)."""
+    cache = ref.new_cache()
+    _, logits, _, pos = ref.hydrate(cache, prompt)
+    tol = 1e-3 * float(np.abs(logits).max())
+    for i, got in enumerate(out):
+        want = int(logits.argmax())
+        if got != want and float(logits[want] - logits[got]) > tol:
+            raise RuntimeError(f"{label}: greedy token {got} at position "
+                               f"{len(prompt) + i}, CPU says {want}")
+        logits = ref.step(cache, got, pos)[0].float().cpu().numpy()
+        pos += 1
+
+
+def drive(counts, expect, label, fn):
+    """Run one path with every launch count set to 0 just before and read
+    just after; fail if a kernel of the path never launched."""
+    reset(counts)
+    out = fn()
+    torch.cuda.synchronize()
+    launched = read(counts)
+    log(f"{label}: launches {launched}")
+    missing = [k for k in expect if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"{label} never launched {missing}")
+    return out, launched
+
+
 def entry_point_phase(counts):
     from deepseek_tpu_torch.engine import Engine
 
@@ -162,24 +223,22 @@ def entry_point_phase(counts):
     write_tiny_checkpoint(tmp, rng)
     eng = Engine(tmp, device="cuda", seed=SEED)
     ref = Engine(tmp, device="cpu", seed=SEED)
-    prompt = eng.tokenizer.encode("hello", bos=True)
-    n_new = 40 - len(prompt)                  # past the 32-slot window
-    reset(counts)
-    out, stats = eng.generate(prompt, num_steps=n_new, temperature=0.0)
-    torch.cuda.synchronize()
-    launched = read(counts)
+    # 20 prompt tokens: the prefill chunk's projections take K1's row-tiled
+    # route; the greedy tokens run past the 32-slot window
+    prompt = eng.tokenizer.encode("hello, a prompt of twenty tokens", bos=True)[:20]
+    n_new = 40 - len(prompt)
+    (out, stats), launched = drive(
+        counts, ("K1", "K1r", "K2", "K3", "K10"), "entry point",
+        lambda: eng.generate(prompt, num_steps=n_new, temperature=0.0))
     log(f"entry point: Engine(tiny Q3_K .dseek, device='cuda').generate -> "
-        f"{len(out)} greedy tokens {out}")
-    log(f"entry point: launches {launched}, {stats.tok_per_s:.1f} tok/s "
+        f"{len(out)} greedy tokens {out}, {stats.tok_per_s:.1f} tok/s "
         f"(tiny model, launch-bound)")
-    missing = [k for k, v in launched.items() if v == 0]
-    if missing:
-        raise RuntimeError(f"entry point never launched {missing}")
-    # teacher-forced logits against the CPU engine's plain versions on
-    # the same tokens. Tolerance 1e-3 of the logit scale: the f32 sums
+    toks = prompt + out
+    compare_hydrate(eng, ref, toks[:30], "entry point")
+    # teacher-forced decode logits against the CPU engine's plain versions
+    # on the same tokens. Tolerance 1e-3 of the logit scale: the f32 sums
     # run in other orders and a latent can round to the neighbouring f16
     # cache value (2^-11 relative), as in tests/test_torch_engine.py
-    toks = prompt + out
     c_gpu, c_cpu = eng.new_cache(), ref.new_cache()
     worst, scale = 0.0, 0.0
     for pos in range(len(toks) - 1):
@@ -189,16 +248,123 @@ def entry_point_phase(counts):
             raise RuntimeError(f"non-finite logits at position {pos}")
         worst = max(worst, float((a - b).abs().max()))
         scale = max(scale, float(b.abs().max()))
-        if pos >= len(prompt) - 1:
-            want = int(b.argmax())
-            got = toks[pos + 1]
-            if got != want and float(b[want] - b[got]) > 1e-3 * scale:
-                raise RuntimeError(
-                    f"greedy token {got} at position {pos + 1}, CPU says {want}")
-    log(f"entry point: logits vs CPU plain: max abs err {worst:.3e} "
+    log(f"entry point: decode logits vs CPU plain: max abs err {worst:.3e} "
         f"(tolerance {1e-3 * scale:.3e} = 1e-3 of max|logit| {scale:.3f})")
     if not worst <= 1e-3 * scale:
         raise RuntimeError("entry-point logits disagree with the CPU engine")
+    check_greedy(ref, prompt, out, "entry point")
+    return launched
+
+
+def write_bf16_checkpoint(path: str, rng) -> None:
+    """A tiny MoE checkpoint with bf16 weights (widths multiples of 128)
+    that keeps the factor weights wq_b/wkv_b, so its prefill attends in
+    decompressed head space (K9) and its MoE chunk runs K11."""
+    from deepseek_tpu_torch.config import (
+        ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
+    from deepseek_tpu_torch.utils.codec import (
+        _DTYPE_TO_NP, pack_tokenizer_tokens, save_checkpoint)
+
+    c = ModelConfig(
+        dim=512, hidden_dim=1024, n_layers=2, n_heads=4, vocab_size=512,
+        max_seq_len=256, rope_theta=10000.0, norm_eps=1e-6,
+        act=ActivationType.SILU, first_k_dense_replace=1, n_shared_experts=1,
+        n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
+        routed_scaling_factor=2.5, n_group=2, norm_topk_prob=True,
+        scoring_func=ScoringFunc.SIGMOID, topk_group=1,
+        topk_method=TopKMethod.NOAUX_TC, has_moegate_bias=True, use_mla=True,
+        kv_lora_rank=512, q_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, weight_quant=QuantKind.F16,
+        rs_original_max_position_embeddings=128, arch="DeepseekV3ForCausalLM")
+
+    def bf16(*shape, scale=0.02):
+        return to_bf16(rng.standard_normal(shape) * scale)
+
+    def f32(*shape, scale=0.02, base=0.0):
+        return (base + rng.standard_normal(shape) * scale).astype(np.float32)
+
+    H, R, P, Dv, ql = c.n_heads, c.kv_lora_rank, c.qk_rope_head_dim, c.v_head_dim, c.q_lora_rank
+    E, m, nope = c.n_routed_experts, c.moe_intermediate_size, c.qk_nope_head_dim
+
+    def absorbed():
+        """The factors wq_b/wkv_b and their absorption wc, wq_rope_b, wv_b
+        as deepseek_tpu/convert.py:350-371 derives them."""
+        q_b = rng.standard_normal((H, nope + P, ql)) * 0.05
+        kv_b = rng.standard_normal((H, nope + Dv, R)) * 0.05
+        c_proj = np.einsum("hnr,hnq->hrq", kv_b[:, :nope], q_b[:, :nope])
+        return {"wq_b": q_b.reshape(-1, ql), "wkv_b": kv_b.reshape(-1, R),
+                "wc": c_proj.reshape(-1, ql),
+                "wq_rope_b": q_b[:, nope:].reshape(-1, ql),
+                "wv_b": kv_b[:, nope:].reshape(-1, R)}
+
+    def to_bf16(a):
+        x = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        return x.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16) \
+            .view(_DTYPE_TO_NP["BF16"])
+
+    t = {"model.embed.weight": bf16(c.vocab_size, c.dim, scale=1.0),
+         "model.output.weight": bf16(c.vocab_size, c.dim),
+         "model.norm.weight": f32(c.dim, scale=0.1, base=1.0)}
+    for l in range(c.n_layers):
+        p = f"model.layers.{l}"
+        t.update({
+            f"{p}.attn.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.mlp.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.attn.kv_a_norm.weight": f32(R, scale=0.1, base=1.0),
+            f"{p}.attn.q_a_norm.weight": f32(ql, scale=0.1, base=1.0),
+            f"{p}.attn.wkv_a.weight": bf16(R + P, c.dim),
+            f"{p}.attn.wq_a.weight": bf16(ql, c.dim),
+            f"{p}.attn.wo.weight": bf16(c.dim, H * Dv),
+        })
+        t.update({f"{p}.attn.{k}.weight": to_bf16(v) for k, v in absorbed().items()})
+        if c.is_moe_layer(l):
+            t.update({
+                f"{p}.moegate.weight": f32(E, c.dim, scale=0.05),
+                f"{p}.moegate.bias": f32(E, scale=0.01),
+                f"{p}.mlp.w1.weight": bf16(E, m, c.dim),
+                f"{p}.mlp.w3.weight": bf16(E, m, c.dim),
+                f"{p}.mlp.w2.weight": bf16(E, c.dim, m),
+                f"{p}.shared_mlp.w1.weight": bf16(m, c.dim),
+                f"{p}.shared_mlp.w3.weight": bf16(m, c.dim),
+                f"{p}.shared_mlp.w2.weight": bf16(c.dim, m),
+            })
+        else:
+            t.update({f"{p}.mlp.w1.weight": bf16(c.hidden_dim, c.dim),
+                      f"{p}.mlp.w3.weight": bf16(c.hidden_dim, c.dim),
+                      f"{p}.mlp.w2.weight": bf16(c.dim, c.hidden_dim)})
+    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
+    vocab += [f"tok{i}".encode() for i in range(len(vocab), c.vocab_size)]
+    t["tokenizer.tokens"] = pack_tokenizer_tokens(vocab)
+    md = c.to_metadata()
+    md.update(bos_token_id="1", eos_token_id="2")
+    save_checkpoint(path, [t], md)
+
+
+def bf16_entry_point_phase(counts):
+    """The bf16 MoE checkpoint through Engine(device="cuda"): a 100-token
+    prompt is one prefill chunk with 300 token-expert pairs (k = 2 routed +
+    1 shared), so the MoE layer runs K11; the attention runs K9. The decode
+    steps after it run the bf16 expert tables through K2's plain body."""
+    from deepseek_tpu_torch.engine import Engine
+
+    rng = np.random.default_rng(SEED + 2)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_bf16")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_bf16_checkpoint(tmp, rng)
+    eng = Engine(tmp, device="cuda", seed=SEED)
+    ref = Engine(tmp, device="cpu", seed=SEED)
+    if eng.params.layers[1].w13s is None or eng.params.layers[0].wkv_b is None:
+        raise RuntimeError("bf16 checkpoint: expected folded experts and factor weights")
+    prompt = [int(v) for v in rng.integers(3, 512, 100)]
+    (out, stats), launched = drive(
+        counts, ("K2f", "K3", "K9", "K11"), "bf16 entry point",
+        lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
+    log(f"bf16 entry point: Engine(tiny bf16 MoE .dseek, device='cuda').generate "
+        f"-> {len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+    compare_hydrate(eng, ref, prompt, "bf16 entry point")
+    check_greedy(ref, prompt, out, "bf16 entry point")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +400,7 @@ def kernel_phase(params, cfg):
         mla_decode_attn, mla_decode_attn_plain)
     from deepseek_tpu_torch.ops.kernels.qmm import (
         qmm, qmm_experts, qmm_experts_plain, qmm_plain)
+    from deepseek_tpu_torch.quant.qtensor import PlainTensor
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
@@ -242,13 +409,20 @@ def kernel_phase(params, cfg):
     H = cfg.n_heads
 
     def emit(name, fn, plain, tol, nb, flops, source, replaces, kernel,
-             library=None):
+             library=None, select=lambda y: y):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "kernel": kernel}
-        check(entry, fn(), plain(), tol)
+        check(entry, select(fn()), select(plain()), tol)
         entry["ms"] = time_ms(fn)
         entry["plain_ms"] = time_ms(plain)
         entry["bound_ms"], entry["bound_by"] = bound_ms(nb, flops)
+        if library is not None:
+            try:
+                library()
+            except Exception as exc:    # the yardstick only; the port never calls it
+                log(f"  {name}: library call unavailable: {type(exc).__name__}: "
+                    f"{str(exc)[:200]}")
+                library = None
         entry["library_ms"] = time_ms(library) if library is not None else None
         log(f"  {name}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
             f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})"
@@ -293,6 +467,24 @@ def kernel_phase(params, cfg):
              "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _knib_body :206)",
              "K2")
 
+    # K2's plain body: bf16 MoE tables at V3 widths for one token's 9
+    # experts, the expert count cut from 257 to 16 (the pair path reads
+    # only the 9 it is given). Tolerance 1e-4 of max|ref|: f32 sums of the
+    # same widened products in other orders.
+    m = cfg.moe_intermediate_size
+    for label, d, n in (("w13s", 2 * m, cfg.dim), ("w2s", cfg.dim, m)):
+        qt = PlainTensor(data=torch.randn((16, d, n), generator=gen, device="cuda",
+                                          dtype=torch.bfloat16) * 0.02)
+        idx = torch.randperm(16, generator=gen, device="cuda")[:9].sort().values
+        x = torch.randn((9, n), generator=gen, device="cuda")
+        emit(f"K2 qmm_experts bf16 plain table {label} 9x{d}x{n}",
+             lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
+             1e-4, nbytes(x) + 9 * d * n * 2 + 4 * d * 9, 2.0 * 9 * d * n,
+             "deepseek_tpu_torch/csrc/qmm.cu",
+             "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, plain body :651)",
+             "K2f")
+        del qt
+
     # K3 at the V3 window: kv_len < S, and a ragged S. Tolerance 1e-4 of
     # max|ref|: f32 sums over thousands of slots in other orders, fast exp.
     R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
@@ -322,7 +514,159 @@ def kernel_phase(params, cfg):
              "deepseek_tpu_torch/csrc/mla_decode.cu",
              "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, _mla_body :89)",
              "K3", library=sdpa)
+
+    prefill_kernel_entries(params, cfg, gen, emit)
     return entries
+
+
+def prefill_kernel_entries(params, cfg, gen, emit):
+    """K1 row-tiled, K6, K9, K10 and K11 at the prefill shapes of the
+    DeepSeek-V3-width model: a 256-token chunk, the 4096-slot window."""
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
+        mla_prefill_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        gmm, gmm_plain, qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows)
+    from deepseek_tpu_torch.ops.matmul import tile_dispatch
+
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    H, T, S = cfg.n_heads, 256, cfg.kv_window
+    qtiles = "deepseek_tpu_torch/csrc/qmm_tiles.cu"
+
+    # K1's row-tiled route: every projection of a 256-token chunk, and
+    # wkv_b over the whole window (4096 rows). Tolerance 1e-4 of max|ref|:
+    # f32 sums in other orders.
+    for label, qt, rows in (("w13 (dense)", dense.w13, T), ("wkv_b", dense.wkv_b, S)):
+        d, n = qt.shape
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        emit(f"K1 qmm row-tiled q3_k nibble {label} {rows}x{d}x{n}",
+             lambda: qmm_rows(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+             nbytes(x, qt.p, qt.a, qt.c) + 4 * rows * d, 2.0 * rows * d * n,
+             qtiles, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body "
+             ":206, rows tiled by 128 :347-351)", "K1r")
+
+    # K1's two routes at few rows, to place ROW_TILE_MIN: the matvec (qmm
+    # with the threshold raised past the row count) against the tile GEMM
+    # (qmm_rows) on the dense w13 and wo
+    import deepseek_tpu_torch.ops.kernels.qmm as qmm_mod
+    keep, wins = qmm_mod.ROW_TILE_MIN, {}
+    for label, qt in (("w13 (dense)", dense.w13), ("wo", dense.wo)):
+        d, n = qt.shape
+        for rows in (1, 2, 4, 8, 16, 32):
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            qmm_mod.ROW_TILE_MIN = 1 << 30
+            try:
+                t_vec = time_ms(lambda: qmm_mod.qmm(qt, x))
+            finally:
+                qmm_mod.ROW_TILE_MIN = keep
+            t_tile = time_ms(lambda: qmm_rows(qt, x))
+            wins.setdefault(label, {})[rows] = t_tile < t_vec
+            log(f"  K1 routes {label} {d}x{n} at {rows} rows: matvec "
+                f"{t_vec:.4f} ms, row-tiled {t_tile:.4f} ms")
+    for label, won in wins.items():
+        # the fewest rows from which the row-tiled route wins at every count
+        first = min((r for r in won if all(won[q] for q in won if q >= r)),
+                    default=None)
+        log(f"  K1 routes {label}: row-tiled faster from {first} rows on "
+            f"(ROW_TILE_MIN = {keep}: the matvec up to it)")
+
+    # K6: the folded MoE tables under a random 256-token routing, 8 routed
+    # experts + the shared one per token (2304 pairs, 275 tiles). Only the
+    # tiles' live rows are computed, compared and counted in the bound.
+    E = cfg.n_routed_experts
+    routed = torch.rand((T, E), generator=gen, device="cuda") \
+        .topk(cfg.n_active_routed, dim=-1).indices
+    idx = torch.cat([routed, torch.full((T, 1), E, device="cuda")], dim=-1)
+    te, tr, _, G = tile_dispatch(idx.reshape(-1), E + 1)
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live = int(tr.sum())
+    n_exp = int(te[tr > 0].unique().numel())
+    for label, qt in (("w13s", moe.w13s), ("w2s", moe.w2s)):
+        _, d, n = qt.shape
+        x = torch.randn((G, 128, n), generator=gen, device="cuda")
+        per_expert = nbytes(qt.p[0], qt.a[0], None if qt.c is None else qt.c[0])
+        emit(f"K6 qmm_grouped q3_k nibble {label} (MoE) {G} tiles, {n_live} "
+             f"pairs over {n_exp} experts, {d}x{n}",
+             lambda: qmm_grouped(qt, te, x, tr),
+             lambda: qmm_grouped_plain(qt, te, x, tr), 1e-4,
+             n_live * n * 4 + per_expert * n_exp + n_live * d * 4,
+             2.0 * n_live * d * n, qtiles,
+             "deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, pallas_call "
+             ":538, _knib_body :206)", "K6", select=lambda y: y[live])
+
+    # K9 and K10: the window's last chunk, which sees every slot. The
+    # yardstick is scaled_dot_product_attention with the same causal mask
+    # (the port never calls it). Tolerance 1e-4 of max|ref|: f32 sums over
+    # 4096 slots in other orders, fast exp.
+    q_pos0 = S - T
+    scale = cfg.attn_softmax_scale()
+    pairs = sum(min(S, q_pos0 + t + 1) for t in range(T))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= q_pos0 + torch.arange(T, device="cuda")[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    Dh, Dv, nope = cfg.head_dim, cfg.v_head_dim, cfg.qk_nope_head_dim
+    q = torch.randn((1, T, H, Dh), generator=gen, device="cuda") * 0.3
+    k = (torch.randn((1, S, H, Dh), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    v = (torch.randn((1, S, H, Dv), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    qh, kh, vh = (t.transpose(1, 2).to(torch.bfloat16).contiguous() for t in (q, k, v))
+    emit(f"K9 mha_prefill_attn bf16 T={T} S={S} H={H} Dh={Dh} Dv={Dv} q_pos0={q_pos0}",
+         lambda: mha_prefill_attn(q, k, v, q_pos0, 0, scale),
+         lambda: mha_prefill_attn_plain(q, k, v, q_pos0, 0, scale), 1e-4,
+         nbytes(q, k, v) + 4 * T * H * Dv, 2.0 * pairs * H * (Dh + Dv),
+         "deepseek_tpu_torch/csrc/prefill_attn.cu",
+         "deepseek_tpu/ops/pallas/attention.py:481 (mha_prefill_attn, "
+         "pallas_call :543)", "K9",
+         library=lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=scale))
+    del k, v, kh, vh
+    R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    qc = torch.randn((1, T, H, R), generator=gen, device="cuda") * 0.3
+    qr = torch.randn((1, T, H, P), generator=gen, device="cuda") * 0.3
+    ckv = (torch.randn((1, S, R), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    kr = (torch.randn((1, S, P), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    # yardstick: SDPA over the concatenated MQA form [q_c|q_rope],
+    # [ckv|krope], values ckv
+    q_cat = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
+    k_cat = torch.cat([ckv, kr], -1)[:, None].expand(1, H, S, R + P)
+    v_cat = ckv[:, None].expand(1, H, S, R)
+    emit(f"K10 mla_prefill_attn bf16 T={T} S={S} H={H} R={R} P={P} q_pos0={q_pos0}",
+         lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, 0, scale),
+         lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, 0, scale), 1e-4,
+         nbytes(qc, qr, ckv, kr) + 4 * T * H * R, 2.0 * pairs * H * (2 * R + P),
+         "deepseek_tpu_torch/csrc/prefill_attn.cu",
+         "deepseek_tpu/ops/pallas/attention.py:644 (mla_prefill_attn, "
+         "pallas_call :707)", "K10",
+         library=lambda: sdpa(q_cat, k_cat, v_cat, attn_mask=mask, scale=scale))
+    del ckv, kr, q_cat, k_cat, v_cat
+
+    # K11: bf16 expert tables at V3 widths, the expert count cut from 257
+    # to 64 (63 routed + 1 shared) so the tables and the plain version fit
+    # beside the model; the same 256-token x 9-pair routing shape.
+    # Tolerance 1e-4 of max|ref|: f32 sums of the same bf16 products.
+    E11 = 64
+    routed = torch.rand((T, E11 - 1), generator=gen, device="cuda") \
+        .topk(cfg.n_active_routed, dim=-1).indices
+    idx = torch.cat([routed, torch.full((T, 1), E11 - 1, device="cuda")], dim=-1)
+    sizes = torch.bincount(idx.reshape(-1), minlength=E11)
+    M = idx.numel()
+    n_grp = int((sizes > 0).sum())
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    m = cfg.moe_intermediate_size
+    for label, n, k in (("w13", 2 * m, cfg.dim), ("w2", cfg.dim, m)):
+        rhs = torch.randn((E11, n, k), generator=gen, device="cuda",
+                          dtype=torch.bfloat16) * 0.02
+        lhs = torch.randn((M, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        rhs_t = rhs.transpose(1, 2)
+        library = None
+        if hasattr(torch, "_grouped_mm"):
+            # its output is bf16 (it refuses an f32 output for bf16 inputs)
+            def library(lhs=lhs, rhs_t=rhs_t):
+                return torch._grouped_mm(lhs, rhs_t, offs=offs)
+        emit(f"K11 gmm bf16 experts {label} {E11}x{n}x{k}, {M} rows in {n_grp} groups",
+             lambda: gmm(lhs, rhs, sizes), lambda: gmm_plain(lhs, rhs, sizes), 1e-4,
+             nbytes(lhs) + n_grp * n * k * 2 + 4 * M * n, 2.0 * M * n * k,
+             qtiles, "megablox.gmm via deepseek_tpu/ops/matmul.py:308-362 "
+             "(grouped_expert_ffn)", "K11", library=library)
+        del rhs, lhs, rhs_t
 
 
 # ---------------------------------------------------------------------------
@@ -365,16 +709,82 @@ def full_width_phase(params, cfg, counts):
         f"(per token {({k: v / (N_DECODE + N_WARMUP) for k, v in launched.items()})})")
     log(f"full width: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    missing = [k for k, v in launched.items() if v == 0]
+    missing = [k for k in ("K1", "K2", "K3") if launched[k] == 0]
     if missing:
         raise RuntimeError(f"the full-width decode never launched {missing}")
     return launched, tps
 
 
+def prefill_phase(params, cfg, counts):
+    """The 4-layer V3-width model hydrates a 512-token prompt through the
+    port's hydrate_cache (Engine.hydrate's schedule: two prefill chunks of
+    256), then decodes 16 greedy tokens: once with the factor weights
+    (decompressed prefill, K9) and once without (absorbed prefill, K10).
+    One path run for the launch counts."""
+    import dataclasses
+
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+
+    chunk = 256
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    prompt = torch.randint(3, cfg.vocab_size, (PREFILL_TOKENS,), generator=gen,
+                           device="cuda").tolist()
+    absorbed = dataclasses.replace(params, layers=[
+        dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])
+    stats = {}
+
+    def run():
+        for label, p in (("decompressed (K9)", params), ("absorbed (K10)", absorbed)):
+            cache = init_cache(cfg, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            marks = []
+
+            def progress(i, n):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            _, last, _, pos = hydrate_cache(p, cfg, cache, prompt,
+                                            prefill_chunk=chunk, progress=progress)
+            walls = [b - a for a, b in zip(marks, marks[1:])]
+            if last.shape != (cfg.vocab_size,) or not np.isfinite(last).all():
+                raise RuntimeError(f"prefill logits {last.shape} not finite")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tok = torch.tensor([[int(last.argmax())]], device="cuda")
+            toks = [int(tok)]
+            with torch.inference_mode():
+                for i in range(PREFILL_DECODE - 1):
+                    logits = forward_decode(p, cache, tok, pos + i, cfg)
+                    tok = logits.argmax(-1, keepdim=True)
+                    toks.append(int(tok))
+            if not torch.isfinite(logits).all():
+                raise RuntimeError("decode logits after prefill not finite")
+            stats[label] = (walls, peak, toks)
+
+    _, launched = drive(counts, ("K1", "K1r", "K2", "K3", "K6", "K9", "K10"),
+                        "full-width prefill", run)
+    for label, (walls, peak, toks) in stats.items():
+        log(f"full-width prefill, {label}: {PREFILL_TOKENS} tokens in "
+            f"{len(walls)} chunks of {chunk}: {PREFILL_TOKENS / sum(walls):.1f} "
+            f"tok/s, wall per chunk {[round(w * 1e3, 3) for w in walls]} ms "
+            f"(the first includes first-call setup), peak device memory "
+            f"{peak:.2f} GiB; {PREFILL_DECODE} greedy tokens {toks}")
+    return launched, stats
+
+
 def counters():
     from deepseek_tpu_torch.ops.kernels.attention import mla_decode_attn
-    from deepseek_tpu_torch.ops.kernels.qmm import qmm, qmm_experts
-    return {"K1": qmm, "K2": qmm_experts, "K3": mla_decode_attn}
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mla_prefill_attn)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_grouped, qmm_rows)
+    return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
+            "K3": mla_decode_attn, "K6": qmm_grouped, "K9": mha_prefill_attn,
+            "K10": mla_prefill_attn, "K11": gmm}
 
 
 def reset(counts):
@@ -408,20 +818,30 @@ def main() -> int:
     time_ms.flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
     counts = counters()
 
-    entry_point_phase(counts)
+    runs = {"entry point": entry_point_phase(counts),
+            "bf16 entry point": bf16_entry_point_phase(counts)}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
-    params = random_fused_params(cfg, "q3_k_nibble", seed=SEED, device="cuda")
+    params = random_fused_params(cfg, "q3_k_nibble", seed=SEED, device="cuda",
+                                 factors=True)
     torch.cuda.synchronize()
-    log(f"full width: random nibble model built on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    launched, _ = full_width_phase(params, cfg, counts)
+    log(f"full width: random nibble model (with wq_b/wkv_b) built on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    runs["full-width decode"], _ = full_width_phase(params, cfg, counts)
+    runs["full-width prefill"], _ = prefill_phase(params, cfg, counts)
 
     log("kernels (each against its plain version on the card):")
     entries = kernel_phase(params, cfg)
+    # each kernel's launches come from the run of the path it serves
+    path_of = {"K1": "full-width decode", "K2": "full-width decode",
+               "K3": "full-width decode", "K1r": "full-width prefill",
+               "K6": "full-width prefill", "K9": "full-width prefill",
+               "K10": "full-width prefill", "K2f": "bf16 entry point",
+               "K11": "bf16 entry point"}
     for e in entries:
-        e["launches"] = launched[e.pop("kernel")]
+        kernel = e.pop("kernel")
+        e["launches"] = runs[path_of[kernel]][kernel]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 // Replaces the TPU kernels deepseek_tpu/ops/pallas/qmm.py::qmm with
 // _knib_body (K1: every dense projection and the lm_head) and
 // ::qmm_experts with _knib_body (K2: the gathered-expert form, one expert
-// id per activation row; the MoE tables and the per-head wv_b).
+// id per activation row; the MoE tables and the per-head wv_b), and K2's
+// plain body (qmm.py:651: an f32, f16 or bf16 expert table, the MoE
+// tables of a plain-weight checkpoint) at the end of this file.
 //
 //   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
 //             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
@@ -33,6 +35,7 @@
 // The accumulation is float32 throughout.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -234,6 +237,116 @@ cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
   return launch<8, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
 }
 
+// K2's plain body: y[b, r] = sum_c x[b, c] * float(W[idx[b]][r, c]), the
+// table read in its own dtype and widened to f32 (the Pallas body's
+// astype(float32)). Bound: bytes, as the nibble matvec (2 flops per
+// weight). A block stages its activation row once in shared memory; a
+// lane subgroup of 32 lanes owns kRows weight rows and walks their
+// columns in 16-byte vectors, coalesced across the lanes, kRows loads in
+// flight at once.
+template <typename WT>
+__device__ __forceinline__ void widen(const uint4& v, float* out);
+
+template <>
+__device__ __forceinline__ void widen<float>(const uint4& v, float* out) {
+  out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+}
+
+template <>
+__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& v, float* out) {
+  bf16x4(make_uint2(v.x, v.y), out);
+  bf16x4(make_uint2(v.z, v.w), out + 4);
+}
+
+template <>
+__device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[k]));
+    out[2 * k] = f.x;
+    out[2 * k + 1] = f.y;
+  }
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kThreads)
+plain_matvec_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                    const int32_t* __restrict__ idx, float* __restrict__ y,
+                    int d, int n) {
+  constexpr int kVec = 16 / sizeof(WT);          // table elements per load
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // the row, natural order
+  const int xrow = blockIdx.y;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
+  for (int i = threadIdx.x; i < n / 4; i += kThreads)
+    reinterpret_cast<float4*>(xs)[i] = __ldg(xr + i);
+  __syncthreads();
+
+  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
+  const WT* we = w + e * (size_t)d * n;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows;
+  const int nv = n / kVec;
+  float acc[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
+  for (int v = lane; v < nv; v += 32) {
+    uint4 raw[kRows];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = min(row0 + rr, d - 1);       // clamped: stores are masked
+      raw[rr] = __ldg(reinterpret_cast<const uint4*>(we + (size_t)r * n) + v);
+    }
+    float xv[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; k += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(xs + v * kVec + k);
+      xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      float wv[kVec];
+      widen<WT>(raw[rr], wv);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) acc[rr] = fmaf(xv[k], wv[k], acc[rr]);
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = row0 + rr;
+      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+    }
+  }
+}
+
+template <typename WT>
+cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
+                         float* y, int rows_x, int d, int n,
+                         cudaStream_t stream) {
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        plain_matvec_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_opt_in = true;
+  }
+  const int rows_per_block = (kThreads / 32) * kRows;
+  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
+  plain_matvec_kernel<WT><<<grid, kThreads, (size_t)n * sizeof(float), stream>>>(
+      x, static_cast<const WT*>(w), idx, y, d, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32. Planes p
@@ -258,4 +371,23 @@ extern "C" int knib_matvec(const void* x, const void* p, const void* a,
                                (float)off, st);
   return (int)dispatch<false>(xs, ps, as, cs, is, ys, rows_x, d, n,
                               (float)off, st);
+}
+
+// y (rows_x, d) f32 = x (rows_x, n) f32 against the plain table W (E, d, n)
+// in f32 (kind 2), f16 (3) or bf16 (4); idx (rows_x,) int32 selects the
+// expert of each row (K2's plain body). Needs n % 8 == 0 and a 16-byte
+// aligned table. Returns a cudaError_t; the launch is asynchronous.
+extern "C" int plain_matvec(const void* x, const void* w, int kind,
+                            const void* idx, void* y, int rows_x, int d, int n,
+                            void* stream) {
+  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 8 != 0 ||
+      (size_t)n * sizeof(float) > (size_t)kMaxSmem || kind < 2 || kind > 4)
+    return (int)cudaErrorInvalidValue;
+  auto xs = static_cast<const float*>(x);
+  auto is = static_cast<const int32_t*>(idx);
+  auto ys = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kind == 2) return (int)launch_plain<float>(xs, w, is, ys, rows_x, d, n, st);
+  if (kind == 3) return (int)launch_plain<__half>(xs, w, is, ys, rows_x, d, n, st);
+  return (int)launch_plain<__nv_bfloat16>(xs, w, is, ys, rows_x, d, n, st);
 }

@@ -1,0 +1,443 @@
+// Tile GEMM for many activation rows against nibble or plain weights, on
+// Hopper (sm_90a). One kernel family, templated on the weight reader:
+//
+//   K1 row-tiled: deepseek_tpu/ops/pallas/qmm.py::qmm with _knib_body at
+//       many rows (a prefill chunk's projections, wkv_b over the window);
+//   K6: ::qmm_grouped with _knib_body: 128-row tiles, tile g against
+//       expert tile_expert[g] of a nibble table (E, d, n);
+//   K11: megablox.gmm as deepseek_tpu/ops/matmul.py::grouped_expert_ffn
+//       calls it: rows grouped by expert, a plain f32/f16/bf16 table.
+//
+//   y[row, r] = sum_c x[row, c] * W[e(row)][r, c]     (f32 accumulation)
+//
+// A block owns one tile of at most 128 consecutive activation rows, all of
+// one expert, and 128 output columns (weight rows); the grid is (tiles,
+// column blocks), tiles fastest, so the blocks that share a weight block
+// run together and it is read from device memory about once.
+//  - K1: tile g = rows 128g.., expert 0;
+//  - K6: tile g = rows 128g.. of the (G, 128, n) tiles, expert
+//    tile_expert[g], and only the first tile_rows[g] rows when given (the
+//    rest of the tile is left unwritten: the caller never reads it);
+//  - K11: the tiles are cut from the expert groups (group_off, the row
+//    offsets, and tile_off, each group's first tile): a block finds its
+//    group by binary search. Tiles past the last group exit.
+//
+// Bound: at 128 rows a tile does 256 flops per weight it reads, above the
+// card's balance point even in bf16, so the products bound it. This first
+// version computes them with float32 FMAs on the CUDA cores: each k-step
+// stages a 128 x 64 activation block and a 64 x 128 weight block in shared
+// memory as float32, and a thread owns an 8 x 8 register tile. The next
+// step's global loads start before this step's products, so their
+// latency hides behind them. A K6 tile under a real routing often has a
+// handful of live rows (256 experts, ~9 pairs a token): a tile of at most
+// 16 live rows gives every thread 8 rows x 1 column instead, so all eight
+// warps share its products, and the weight block's read bounds it.
+// Tensor cores (mma/wgmma) are later work (ROADMAP.md).
+//
+// Nibble reader. In the stride-16 permuted plane, byte o*n16 + g (o < 8)
+// holds natural column 16g + o in its low nibble and 16g + 8 + o in its
+// high nibble, so the 64 natural columns of groups g0..g0+3 are 8 aligned
+// 4-byte words (o = 0..7) per weight row, each in its own 32-byte sector.
+// Loading them a step at a time costs a sector per word, so the reader
+// stages 512 columns at once: per weight row 8 slabs of 32 contiguous
+// bytes (and the 32 scales), in 16-byte loads started a whole stage ahead.
+// Each step then dequantizes its 64 columns from that raw copy into
+// natural order in shared memory, a * (u - off) - c, the f32 arithmetic of
+// the plain version (quant/qtensor.py). The activations then stay in their
+// natural order: unlike the one-row matvec (csrc/qmm.cu), a tile shares each
+// dequantized weight among 128 rows, so it needs neither the permuted
+// activation copy nor the per-16 group sums the TPU kernel took from HBM.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kBM = 128;          // activation rows per tile
+constexpr int kBN = 128;          // output columns per block
+constexpr int kBK = 64;           // reduction columns per step (4 groups)
+constexpr int kLdx = kBM + 4;     // xs[k][m] row stride (16-byte rows)
+constexpr int kLdw = kBN + 4;     // ws[k][r] row stride
+constexpr int kSW = 512;          // nibble columns staged raw at a time
+constexpr int kLdp = 8 * 8 + 1;   // praw row: 8 slabs x 8 words (+1: banks)
+constexpr int kLda = 16 + 1;      // araw/craw row: 32 bf16 scales (+1)
+constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
+constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
+
+enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4 };
+
+struct Weights {
+  const void* w;          // nibble plane p (E, d, n/2) u8, or plain (E, d, n)
+  const uint16_t* a;      // nibble scales (E, d, n/16) bf16
+  const uint16_t* c;      // nibble min terms (E, d, n/16) bf16, or null
+  float off;
+};
+
+struct Tiles {
+  const int32_t* tile_expert;   // (G,) or null: expert 0
+  const int32_t* tile_rows;     // (G,) live rows per tile, or null
+  const int32_t* group_off;     // (E+1,) row offsets of the groups (K11)
+  const int32_t* tile_off;      // (E+1,) first tile of each group (K11)
+  int rows, E;
+};
+
+__device__ __forceinline__ float bf16_f(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+// tile g -> (expert, first row, live rows); false for a tile with no rows
+__device__ bool tile_of(const Tiles& t, int g, int& e, int& r0, int& nr) {
+  if (t.group_off != nullptr) {
+    if (g >= t.tile_off[t.E]) return false;
+    int lo = 0, hi = t.E - 1;                 // last e with tile_off[e] <= g
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.tile_off[mid] <= g) lo = mid; else hi = mid - 1;
+    }
+    e = lo;
+    r0 = t.group_off[e] + (g - t.tile_off[e]) * kBM;
+    nr = min(min(kBM, t.group_off[e + 1] - r0), t.rows - r0);
+    return nr > 0;
+  }
+  e = t.tile_expert != nullptr ? t.tile_expert[g] : 0;
+  r0 = g * kBM;
+  nr = min(kBM, t.rows - r0);
+  if (t.tile_rows != nullptr) nr = min(nr, t.tile_rows[g]);
+  return nr > 0;
+}
+
+template <int KIND, typename XT>
+__global__ void __launch_bounds__(kThreads)
+tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
+                 float* __restrict__ y, int d, int n) {
+  constexpr bool kNibble = KIND == kNib || KIND == kNibC;
+  using WT = typename std::conditional<
+      KIND == kF16, __half,
+      typename std::conditional<KIND == kBF16, __nv_bfloat16, float>::type>::type;
+  // raw global words of one k-step, held in registers until stored
+  using XR = typename std::conditional<sizeof(XT) == 4, float4, uint2>::type;
+  using WR = typename std::conditional<sizeof(WT) == 4, float4, uint2>::type;
+  constexpr int kXIt = kBM * kBK / 4 / kThreads;   // 8 activation items
+  constexpr int kWIt = kBN * kBK / 4 / kThreads;   // 8 plain weight items
+  constexpr int kOIt = kBN * 8 / kThreads;         // 4 nibble words
+
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [kBK][kLdx]
+  float* ws = xs + kBK * kLdx;                   // [kBK][kLdw]
+  // nibble: the raw planes of kSW columns for the block's kBN rows
+  uint32_t* praw = reinterpret_cast<uint32_t*>(ws + kBK * kLdw);  // [kBN][kLdp]
+  uint32_t* araw = praw + kBN * kLdp;                              // [kBN][kLda]
+  uint32_t* craw = araw + kBN * kLda;                              // [kBN][kLda]
+
+  int e, r0, nr;
+  if (!tile_of(tl, blockIdx.x, e, r0, nr)) return;
+  const int col0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = lane & 15, ty = warp * 2 + (lane >> 4);
+  // a tile of at most 16 live rows spreads them over every warp (narrow:
+  // thread = 8 rows x 1 column); a wider one takes the 8 x 8 register
+  // tiles (rows 8ty.., columns 4tx.. and 64+4tx..), and a warp whose 16
+  // rows are all dead skips the products
+  const bool narrow = nr <= 16;
+  const bool warp_live = warp * 16 < nr;
+
+  const int n16 = n >> 4;
+  const size_t half = (size_t)(n >> 1);
+  const uint8_t* pe = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * half;
+  const uint16_t* ae = wt.a + (size_t)e * d * n16;
+  const uint16_t* ce = KIND == kNibC ? wt.c + (size_t)e * d * n16 : nullptr;
+  const WT* we = static_cast<const WT*>(wt.w) + (size_t)e * d * n;
+  const int wr_r = tid & (kBN - 1), wr_o = tid / kBN;   // nibble: row, byte slab
+
+  XR xr[kXIt];
+  WR wr[kWIt];
+  uint4 pr[8], ar[2], cr[2];         // nibble: one raw stage in flight
+
+  // nibble: start the coalesced 16-byte loads of the raw stage at column
+  // ks: per weight row 8 slabs x 32 bytes (groups ks/16 .. +31) and the
+  // 32 scales (and min terms); a 256-column tail stage loads half
+  auto load_raw = [&](int ks) {
+    const int gs = ks >> 4, sg = min(kSW, n - ks) >> 4;   // stage groups
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int item = tid + it * kThreads;
+      const int ch = item & 1, o = (item >> 1) & 7, r = item >> 4;
+      const size_t gr = (size_t)min(col0 + r, d - 1);
+      if (ch * 16 < sg)
+        pr[it] = *reinterpret_cast<const uint4*>(
+            pe + gr * half + (size_t)o * n16 + gs + ch * 16);
+    }
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int item = tid + it * kThreads;
+      const int q = item & 3, r = item >> 2;
+      const size_t gr = (size_t)min(col0 + r, d - 1);
+      if (q * 8 < sg) {
+        ar[it] = *reinterpret_cast<const uint4*>(ae + gr * n16 + gs + q * 8);
+        if constexpr (KIND == kNibC)
+          cr[it] = *reinterpret_cast<const uint4*>(ce + gr * n16 + gs + q * 8);
+      }
+    }
+  };
+  auto store_raw = [&](int ks) {
+    const int sg = min(kSW, n - ks) >> 4;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int item = tid + it * kThreads;
+      const int ch = item & 1, o = (item >> 1) & 7, r = item >> 4;
+      if (ch * 16 >= sg) continue;
+      uint32_t* dst = praw + r * kLdp + o * 8 + ch * 4;
+      dst[0] = pr[it].x; dst[1] = pr[it].y; dst[2] = pr[it].z; dst[3] = pr[it].w;
+    }
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int item = tid + it * kThreads;
+      const int q = item & 3, r = item >> 2;
+      if (q * 8 >= sg) continue;
+      uint32_t* da = araw + r * kLda + q * 4;
+      da[0] = ar[it].x; da[1] = ar[it].y; da[2] = ar[it].z; da[3] = ar[it].w;
+      if constexpr (KIND == kNibC) {
+        uint32_t* dc = craw + r * kLda + q * 4;
+        dc[0] = cr[it].x; dc[1] = cr[it].y; dc[2] = cr[it].z; dc[3] = cr[it].w;
+      }
+    }
+  };
+
+  // start one k-step's global loads (clamped rows, dead activation rows
+  // skipped); they stay in flight while the previous step computes
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int it = 0; it < kXIt; ++it) {
+      const int item = tid + it * kThreads;
+      const int m = item & (kBM - 1), c4 = (item / kBM) * 4;
+      if (m < nr)
+        xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + k0 + c4);
+    }
+    if constexpr (!kNibble) {
+#pragma unroll
+      for (int it = 0; it < kWIt; ++it) {
+        const int item = tid + it * kThreads;
+        const int r = item & (kBN - 1), c4 = (item / kBN) * 4;
+        const size_t gr = (size_t)min(col0 + r, d - 1);
+        wr[it] = *reinterpret_cast<const WR*>(we + gr * n + k0 + c4);
+      }
+    }
+  };
+
+  // registers -> shared memory as f32, both k-major (a warp's 32 lanes
+  // hold 32 consecutive rows, so the stores hit distinct banks); the
+  // weights in natural column order
+  auto store = [&](int k0) {
+#pragma unroll
+    for (int it = 0; it < kXIt; ++it) {
+      const int item = tid + it * kThreads;
+      const int m = item & (kBM - 1), c4 = (item / kBM) * 4;
+      if (m >= nr) continue;
+      float v[4];
+      if constexpr (sizeof(XT) == 4) {
+        v[0] = xr[it].x; v[1] = xr[it].y; v[2] = xr[it].z; v[3] = xr[it].w;
+      } else {
+        v[0] = bf16_f(xr[it].x & 0xFFFFu); v[1] = bf16_f(xr[it].x >> 16);
+        v[2] = bf16_f(xr[it].y & 0xFFFFu); v[3] = bf16_f(xr[it].y >> 16);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xs[(c4 + q) * kLdx + m] = v[q];
+    }
+    if constexpr (kNibble) {
+      // the 4 groups of this step sit in word `w` of each slab of the stage
+      const int w = (k0 % kSW) / kBK;
+      const uint32_t a01 = araw[wr_r * kLda + 2 * w];
+      const uint32_t a23 = araw[wr_r * kLda + 2 * w + 1];
+      const float af[4] = {bf16_f(a01 & 0xFFFFu), bf16_f(a01 >> 16),
+                           bf16_f(a23 & 0xFFFFu), bf16_f(a23 >> 16)};
+      float cf[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (KIND == kNibC) {
+        const uint32_t c01 = craw[wr_r * kLda + 2 * w];
+        const uint32_t c23 = craw[wr_r * kLda + 2 * w + 1];
+        cf[0] = bf16_f(c01 & 0xFFFFu); cf[1] = bf16_f(c01 >> 16);
+        cf[2] = bf16_f(c23 & 0xFFFFu); cf[3] = bf16_f(c23 >> 16);
+      }
+#pragma unroll
+      for (int it = 0; it < kOIt; ++it) {
+        const int o = wr_o + 2 * it;
+        const uint32_t wb = praw[wr_r * kLdp + o * 8 + w];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float lo = (float)((wb >> (8 * q)) & 0xFu);
+          const float hi = (float)((wb >> (8 * q + 4)) & 0xFu);
+          ws[(q * 16 + o) * kLdw + wr_r] = af[q] * (lo - wt.off) - cf[q];
+          ws[(q * 16 + 8 + o) * kLdw + wr_r] = af[q] * (hi - wt.off) - cf[q];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < kWIt; ++it) {
+        const int item = tid + it * kThreads;
+        const int r = item & (kBN - 1), c4 = (item / kBN) * 4;
+        float v[4];
+        if constexpr (sizeof(WT) == 4) {
+          v[0] = wr[it].x; v[1] = wr[it].y; v[2] = wr[it].z; v[3] = wr[it].w;
+        } else {
+          const uint32_t b[4] = {wr[it].x & 0xFFFFu, wr[it].x >> 16,
+                                 wr[it].y & 0xFFFFu, wr[it].y >> 16};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = KIND == kF16 ? __half2float(__ushort_as_half((unsigned short)b[q]))
+                                : bf16_f(b[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // the table is cast to the compute dtype (the activations')
+          if constexpr (sizeof(XT) == 2)
+            v[q] = __bfloat162float(__float2bfloat16(v[q]));
+          ws[(c4 + q) * kLdw + r] = v[q];
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int rg = tid & 1, nc = tid >> 1;     // narrow: rows 8rg.., column nc
+
+  load(0);
+  if constexpr (kNibble) load_raw(0);
+  for (int k0 = 0; k0 < n; k0 += kBK) {
+    __syncthreads();                 // the previous step's blocks consumed
+    if constexpr (kNibble) {
+      if (k0 % kSW == 0) {           // a new raw stage: store it, fetch the next
+        store_raw(k0);
+        __syncthreads();
+        if (k0 + kSW < n) load_raw(k0 + kSW);
+      }
+    }
+    store(k0);
+    __syncthreads();
+    if (k0 + kBK < n) load(k0 + kBK);
+    if (narrow) {
+#pragma unroll 8
+      for (int k = 0; k < kBK; ++k) {
+        const float w = ws[k * kLdw + nc];
+        const float4 xa = *reinterpret_cast<const float4*>(xs + k * kLdx + rg * 8);
+        const float4 xb = *reinterpret_cast<const float4*>(xs + k * kLdx + rg * 8 + 4);
+        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[0][i] = fmaf(xv[i], w, acc[0][i]);
+      }
+    } else if (warp_live) {
+#pragma unroll 8
+      for (int k = 0; k < kBK; ++k) {
+        const float* xk = xs + k * kLdx + ty * 8;
+        const float* wk = ws + k * kLdw + tx * 4;
+        const float4 xa = *reinterpret_cast<const float4*>(xk);
+        const float4 xb = *reinterpret_cast<const float4*>(xk + 4);
+        const float4 wa = *reinterpret_cast<const float4*>(wk);
+        const float4 wc = *reinterpret_cast<const float4*>(wk + 64);
+        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+      }
+    }
+  }
+
+  if (narrow) {
+    const int col = col0 + nc;
+    if (col >= d) return;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = rg * 8 + i;
+      if (m < nr) y[(size_t)(r0 + m) * d + col] = acc[0][i];
+    }
+    return;
+  }
+  if (!warp_live) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = ty * 8 + i;
+    if (m >= nr) continue;
+    float* yr = y + (size_t)(r0 + m) * d;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + (j & 4) * 16 + tx * 4 + (j & 3);
+      if (col < d) yr[col] = acc[i][j];
+    }
+  }
+}
+
+template <int KIND, typename XT>
+cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
+                   float* y, int G, int d, int n, cudaStream_t stream) {
+  constexpr int smem = KIND == kNib || KIND == kNibC ? kSmemNib : kSmemPlain;
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tile_gemm_kernel<KIND, XT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_opt_in = true;
+  }
+  dim3 grid(G, (d + kBN - 1) / kBN);
+  tile_gemm_kernel<KIND, XT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const XT*>(x), wt, tl, y, d, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y (rows, d) f32 = tile GEMM of x (rows, n) against W (E, d, n).
+// x_dtype: 0 = f32, 2 = bf16 (bf16 only with a plain table). kind: 0/1 =
+// nibble without/with the min plane c (w = p, a, c, off), 2/3/4 = plain
+// f32/f16/bf16 table (w). Tiles as the header says: tile_expert and
+// tile_rows (G,) or null; group_off and tile_off (E+1,) or null.
+// Needs n % 64 == 0 (nibble: n % 256 == 0), G <= 2^31 - 1, d <= 8388480.
+// Returns a cudaError_t; the launch is asynchronous on `stream`.
+extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
+                         const void* a, const void* c, int off,
+                         const void* tile_expert, const void* tile_rows,
+                         const void* group_off, const void* tile_off,
+                         void* y, int rows, int G, int E, int d, int n,
+                         void* stream) {
+  const bool nib = kind == kNib || kind == kNibC;
+  if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
+      n % (nib ? 256 : kBK) != 0 || (nib && x_dtype != 0) ||
+      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kBF16 ||
+      (kind == kNibC && c == nullptr) ||
+      ((group_off == nullptr) != (tile_off == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Weights wt{w, static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(c),
+             (float)off};
+  Tiles tl{static_cast<const int32_t*>(tile_expert),
+           static_cast<const int32_t*>(tile_rows),
+           static_cast<const int32_t*>(group_off),
+           static_cast<const int32_t*>(tile_off), rows, E};
+  auto ys = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_dtype == 0) {
+    switch (kind) {
+      case kNib: err = launch<kNib, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kNibC: err = launch<kNibC, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kF32: err = launch<kF32, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kF16: err = launch<kF16, float>(x, wt, tl, ys, G, d, n, st); break;
+      default: err = launch<kBF16, float>(x, wt, tl, ys, G, d, n, st); break;
+    }
+  } else {
+    switch (kind) {
+      case kF32: err = launch<kF32, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
+      case kF16: err = launch<kF16, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
+      default: err = launch<kBF16, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
+    }
+  }
+  return (int)err;
+}

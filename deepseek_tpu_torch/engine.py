@@ -2,10 +2,13 @@
 owning the checkpoint, config, params, tokenizer and sampler.
 
 The port of ``deepseek_tpu/engine.py::Engine`` (``__init__``, ``hydrate``,
-``generate``) for single-sequence decode. The prompt goes through the
-decode step one token at a time, which is all the reference ever did;
-chunked prefill and the on-device decode block are later slices
-(ROADMAP.md), so ``decode_block`` must be 1 here.
+``generate``) for a single sequence. ``hydrate`` feeds a prompt as the JAX
+engine does: causal prefill chunks of ``prefill_chunk`` tokens while the
+position is inside the KV window, then one decode step per token. That
+schedule is ``hydrate_cache``, which also takes params and a config built
+in memory (a random model has no checkpoint directory). The
+on-device decode block is a later slice (ROADMAP.md), so ``decode_block``
+must be 1 here.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import ModelConfig, QuantKind
-from deepseek_tpu_torch.models.deepseek import forward_decode
+from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
 from deepseek_tpu_torch.models.kvcache import init_cache
 from deepseek_tpu_torch.models.loader import (
     fuse_projections, load_params, params_active_bytes,
@@ -56,6 +59,74 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@torch.inference_mode()
+def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
+                  pos0: int = 0, *, prefill_chunk: int = 256,
+                  want_last_logits: bool = True,
+                  collect_all_logits: bool = False,
+                  progress: Optional[Callable[[int, int], None]] = None,
+                  target_tokens: Optional[List[int]] = None):
+    """Feed ``tokens`` at positions pos0.. into the cache of a single
+    sequence (``deepseek_tpu/engine.py::Engine.hydrate``): prefill chunks of
+    ``prefill_chunk`` while inside the window (each clamped at the window
+    edge and zero-padded to its length), decode steps past it. Returns
+    (cache, last_logits | None, collected | None, end_pos):
+    ``collect_all_logits`` collects per-position log-softmax rows (N, V);
+    ``target_tokens`` (entry i scored against the logits after tokens[i];
+    the final entry may be a dummy) collects only those log-probabilities
+    (N,), gathered on the device. ``progress(i, N)`` runs after each chunk
+    or step."""
+    window = cfg.kv_window
+    C = max(1, int(prefill_chunk))
+    device = cache.ckv.device
+    N = len(tokens)
+    last_logits = None
+    collect = collect_all_logits or target_tokens is not None
+    chunks: List[np.ndarray] = []      # per-chunk (r, V) lsm or (r,) lp
+
+    def collect_rows(rows: torch.Tensor, i: int, r: int):
+        """rows: (T, V) logits for positions i..i+r-1 (T >= r)."""
+        lsm = torch.log_softmax(rows[:r].float(), dim=-1)
+        if target_tokens is not None:
+            tg = torch.as_tensor(list(target_tokens[i:i + r]), device=lsm.device)
+            chunks.append(lsm.gather(1, tg[:, None])[:, 0].cpu().numpy())
+        else:
+            chunks.append(lsm.cpu().numpy())
+
+    i = 0
+    while i < N:
+        pos = pos0 + i
+        if pos < window:
+            cp = min(C, window - pos)
+            r = min(cp, N - i)
+            chunk = list(tokens[i:i + r]) + [0] * (cp - r)
+            need_last = i + r == N and want_last_logits
+            mode = "all" if (collect or (need_last and r < cp)) else (
+                "last" if need_last else "none")
+            tok = torch.tensor([chunk], dtype=torch.int64, device=device)
+            out = forward_prefill(params, cache, tok, pos, cfg, mode)
+            if mode == "all":
+                if collect:
+                    collect_rows(out[0], i, r)
+                if need_last:
+                    last_logits = out[0, r - 1].float().cpu().numpy()
+            elif mode == "last":
+                last_logits = out[0].float().cpu().numpy()
+            i += r
+        else:
+            tok = torch.tensor([[int(tokens[i])]], dtype=torch.int64, device=device)
+            logits = forward_decode(params, cache, tok, pos, cfg)
+            if collect:
+                collect_rows(logits, i, 1)
+            if i + 1 == N and want_last_logits:
+                last_logits = logits[0].float().cpu().numpy()
+            i += 1
+        if progress is not None:
+            progress(i, N)
+    collected = np.concatenate(chunks, axis=0) if chunks else None
+    return cache, last_logits, collected, pos0 + N
+
+
 class Engine:
     def __init__(
         self,
@@ -76,10 +147,11 @@ class Engine:
         scan_layers="auto",
         device="cuda",
     ):
-        """Same keywords as the JAX Engine. ``prefill_chunk``,
-        ``lock_weights`` and ``load_mtp`` have no effect in this slice (no
-        prefill, weights are always resident, no MTP head); the options
-        whose other values are not ported raise."""
+        """Same keywords as the JAX Engine. ``prefill_chunk`` is the
+        prompt chunk ``hydrate`` prefills at a time; ``lock_weights`` and
+        ``load_mtp`` have no effect in this slice (weights are always
+        resident, no MTP head); the options whose other values are not
+        ported raise."""
         if decode_block != 1:
             raise NotImplementedError(
                 f"decode_block={decode_block}: the on-device decode block is "
@@ -88,6 +160,7 @@ class Engine:
             raise NotImplementedError(
                 "scan-stacked layers have no counterpart in the port "
                 "(ROADMAP.md queue 1, item 15)")
+        self.prefill_chunk = max(1, int(prefill_chunk))
         self.device = resolve_device(device)
         self.data = load_checkpoint(checkpoint_dir)
         overrides = {}
@@ -131,31 +204,13 @@ class Engine:
                 collect_all_logits: bool = False,
                 progress: Optional[Callable[[int, int], None]] = None,
                 target_tokens: Optional[List[int]] = None):
-        """Feed ``tokens`` at positions pos0.. into the cache, one decode
-        step each. Returns (cache, last_logits | None, collected | None,
-        end_pos): ``collect_all_logits`` collects per-position log-softmax
-        rows (N, V); ``target_tokens`` (entry i scored against the logits
-        after tokens[i]) collects only those log-probabilities (N,)."""
-        N = len(tokens)
-        last_logits = None
-        rows = []
-        for i, tok in enumerate(tokens):
-            logits = self.step(cache, int(tok), pos0 + i)
-            if target_tokens is not None:
-                lsm = torch.log_softmax(logits[0].float(), dim=-1)
-                rows.append(float(lsm[int(target_tokens[i])]))
-            elif collect_all_logits:
-                rows.append(torch.log_softmax(logits[0].float(), dim=-1).cpu().numpy())
-            if i == N - 1 and want_last_logits:
-                last_logits = logits[0].float().cpu().numpy()
-            if progress is not None:
-                progress(i + 1, N)
-        collected = None
-        if target_tokens is not None:
-            collected = np.asarray(rows, np.float32)
-        elif collect_all_logits and rows:
-            collected = np.stack(rows)
-        return cache, last_logits, collected, pos0 + N
+        """``hydrate_cache`` with this engine's params, config and
+        ``prefill_chunk``."""
+        return hydrate_cache(self.params, self.cfg, cache, tokens, pos0,
+                             prefill_chunk=self.prefill_chunk,
+                             want_last_logits=want_last_logits,
+                             collect_all_logits=collect_all_logits,
+                             progress=progress, target_tokens=target_tokens)
 
     def generate(
         self,

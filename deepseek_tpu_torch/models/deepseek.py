@@ -1,12 +1,24 @@
-"""DeepSeek decode forward: one token per sequence per call.
+"""DeepSeek forward: decode (one token per sequence per call) and chunked
+prefill.
 
-The port of the decode mode of ``deepseek_tpu/models/deepseek.py::
-_forward_impl``: ring/sink position math, the absorbed-MLA attention over
-the latent cache (written in place), the dense GLU and the MoE FFN through
-an expert-sorted pair list, then the final norm and the lm_head. Nibble
-projections go through kernel K1, the per-head ``wv_b`` and the expert
-tables through K2, the attention through K3; on CPU tensors each of them
-runs its plain version. Prefill is the next slice (ROADMAP.md).
+The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
+
+- ``forward_decode`` (decode mode): ring/sink position math, the
+  absorbed-MLA attention over the latent cache (written in place), the
+  dense GLU and the MoE FFN through an expert-sorted pair list, then the
+  final norm and the lm_head. Nibble projections go through kernel K1, the
+  per-head nibble ``wv_b`` and the expert tables (nibble or plain) through
+  K2, the attention through K3.
+- ``forward_prefill`` (prefill mode, scalar ``pos0``, pos0 + T <= window):
+  T rows written at slot pos0, then causal attention over the window. The
+  hybrid-MLA policy: a layer that kept ``wq_b``/``wkv_b`` attends in
+  decompressed head space (K9), any other through the latent cache (K10).
+  The MoE FFN takes the pair path (K2) for at most 128 token-expert pairs,
+  the grouped products (K6, K11) where the widths allow, the
+  dense-over-experts einsums otherwise. Projections at many rows take
+  K1's row-tiled route.
+
+On CPU tensors every kernel runs its plain version.
 """
 
 from __future__ import annotations
@@ -16,18 +28,29 @@ import dataclasses
 import torch
 
 from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
-from deepseek_tpu_torch.models.kvcache import KVCache, ring_positions
+from deepseek_tpu_torch.models.kvcache import KVCache, ring_positions, write_rows
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams, embed_lookup
 from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.gating import moe_gate
 from deepseek_tpu_torch.ops.kernels.attention import mla_decode_attn
+from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+    mha_prefill_attn, mla_prefill_attn,
+)
 from deepseek_tpu_torch.ops.kernels.qmm import qmm_experts
-from deepseek_tpu_torch.ops.matmul import dispatch_pairs, qmatmul
+from deepseek_tpu_torch.ops.matmul import (
+    dispatch_pairs, grouped_expert_ffn, grouped_ffn_supported, qmatmul,
+)
 from deepseek_tpu_torch.ops.norms import rmsnorm
 from deepseek_tpu_torch.ops.rope import apply_rope
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Prefill chunks with at most this many token-expert pairs run the
+# decode-style pair dispatch (K2) instead of the grouped chunk products,
+# whose cost floor is about one tile per expert (the JAX package's
+# ``_PAIR_PREFILL_MAX_PAIRS``, measured on a TPU; not re-measured here).
+PAIR_PREFILL_MAX_PAIRS = 128
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -41,12 +64,36 @@ def _rotation_only(yarn):
         yarn, mscale=yarn.mscale_all_dim)
 
 
-def _expert_mm(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Row i of x against expert idx[i] of a stacked table -> f32."""
-    if isinstance(qt, KNibbleTensor):
-        return qmm_experts(qt, idx, x)
-    w = qt.data[idx].float()                                  # (N, d, n)
-    return torch.bmm(w, x.float()[..., None])[..., 0]
+def _latent_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
+                   pos_bt: torch.Tensor):
+    """The MLA projections both modes share: xb (B,T,dim) at positions
+    pos_bt (B,T) -> (ckv (B,T,R), k_rope (B,T,P) f32, q_a (B,T,q_lora))."""
+    R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    if lp.wkvq is not None:
+        kvq = qmatmul(lp.wkvq, xb)
+        kv_a, q_a_raw = kvq[..., :R + P], kvq[..., R + P:]
+    else:
+        kv_a, q_a_raw = qmatmul(lp.wkv_a, xb), qmatmul(lp.wq_a, xb)
+    k_rope = apply_rope(kv_a[..., R:].float(), pos_bt, cfg.rope_theta,
+                        cfg.has_moegate_bias, cfg.yarn_params())
+    ckv = rmsnorm(kv_a[..., :R], lp.kv_a_norm, cfg.norm_eps)
+    return ckv, k_rope, rmsnorm(q_a_raw, lp.q_a_norm, cfg.norm_eps)
+
+
+def _absorbed_queries(lp: LayerParams, cfg: ModelConfig, q_a: torch.Tensor,
+                      pos_bt: torch.Tensor):
+    """Queries in the latent space: q_a (B,T,q_lora) -> (q_c (B,T,H,R),
+    q_rope (B,T,H,P)), both f32."""
+    B, T = q_a.shape[:2]
+    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    if lp.wcr is not None:
+        qcr = qmatmul(lp.wcr, q_a)
+        q_rope, q_c = qcr[..., :H * P], qcr[..., H * P:]
+    else:
+        q_rope, q_c = qmatmul(lp.wq_rope_b, q_a), qmatmul(lp.wc, q_a)
+    q_rope = apply_rope(q_rope.reshape(B, T, H, P).float(), pos_bt[..., None],
+                        cfg.rope_theta, cfg.has_moegate_bias, cfg.yarn_params())
+    return q_c.reshape(B, T, H, R).float(), q_rope
 
 
 def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
@@ -55,28 +102,14 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                kv_sink: torch.Tensor) -> torch.Tensor:
     """Absorbed MLA decode (BlockMLA, infer.cpp:1052-1141). xb (B,1,dim)."""
     B = xb.shape[0]
-    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    H, R = cfg.n_heads, cfg.kv_lora_rank
     Dv = cfg.v_head_dim
     is_v3, theta = cfg.has_moegate_bias, cfg.rope_theta
     yarn = cfg.yarn_params()
 
-    if lp.wkvq is not None:
-        kvq = qmatmul(lp.wkvq, xb)
-        kv_a, q_a_raw = kvq[..., :R + P], kvq[..., R + P:]
-    else:
-        kv_a, q_a_raw = qmatmul(lp.wkv_a, xb), qmatmul(lp.wq_a, xb)
     pos_b1 = pos[:, None]                                     # (B, 1)
-    k_rope = apply_rope(kv_a[..., R:].float(), pos_b1, theta, is_v3, yarn)
-    ckv = rmsnorm(kv_a[..., :R], lp.kv_a_norm, cfg.norm_eps)
-    q_a = rmsnorm(q_a_raw, lp.q_a_norm, cfg.norm_eps)
-    if lp.wcr is not None:
-        qcr = qmatmul(lp.wcr, q_a)
-        q_rope, q_c = qcr[..., :H * P], qcr[..., H * P:]
-    else:
-        q_rope, q_c = qmatmul(lp.wq_rope_b, q_a), qmatmul(lp.wc, q_a)
-    q_rope = apply_rope(q_rope.reshape(B, 1, H, P).float(), pos_b1[..., None],
-                        theta, is_v3, yarn)
-    q_c = q_c.reshape(B, 1, H, R).float()
+    ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_b1)
+    q_c, q_rope = _absorbed_queries(lp, cfg, q_a, pos_b1)
 
     # cache write at the ring slot, then the sink re-rotation by +1
     # (StreamingLLM; infer.cpp:1103-1110) once the ring has wrapped
@@ -104,6 +137,52 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     return qmatmul(lp.wo, v.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
+def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
+                       cache: KVCache, layer: int, pos0: int) -> torch.Tensor:
+    """MLA attention of a prefill chunk xb (B,T,dim) at positions pos0..:
+    the chunk's latent rows go into the cache at slot pos0, then the
+    chunk attends causally over the window (slot == position)."""
+    B, T, _ = xb.shape
+    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    scale = cfg.attn_softmax_scale()
+    pos_bt = (pos0 + torch.arange(T, device=xb.device)).expand(B, T)
+
+    ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
+    # hybrid MLA (deepseek.py:247-265): every prefill chunk of a layer that
+    # kept its factor weights attends in decompressed head space, so the
+    # hydrated cache does not depend on the chunk length
+    decompress = lp.wkv_b is not None and lp.wq_b is not None
+    if not decompress:
+        q_c, q_rope = _absorbed_queries(lp, cfg, q_a, pos_bt)
+
+    write_rows(cache, layer, ckv, k_rope, pos0)
+    ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]              # (B,S,.)
+    # The JAX package launches its flash kernels only above 256 MB of f32
+    # scores (_use_flash_prefill, a TPU v5e measurement); on the card the
+    # port always launches K9/K10 for prefill, which never hold the
+    # (B,H,T,S) scores in device memory.
+    if decompress:
+        S = ckv_l.shape[1]
+        q = qmatmul(lp.wq_b, q_a).reshape(B, T, H, cfg.head_dim).float()
+        q_pe = apply_rope(q[..., nope:], pos_bt[..., None], cfg.rope_theta,
+                          cfg.has_moegate_bias, cfg.yarn_params())
+        q = torch.cat([q[..., :nope], q_pe], dim=-1)
+        # the whole window's keys and values, decompressed through wkv_b
+        kv_dec = qmatmul(lp.wkv_b, ckv_l.to(xb.dtype)).reshape(B, S, H, nope + Dv)
+        k_l = torch.cat([kv_dec[..., :nope].float(),
+                         kr_l[:, :, None, :].float().expand(B, S, H, P)], dim=-1)
+        v_out = mha_prefill_attn(q, k_l.to(xb.dtype),
+                                 kv_dec[..., nope:].contiguous(), pos0, 0, scale)
+        return qmatmul(lp.wo, v_out.reshape(B, T, H * Dv).to(xb.dtype))
+    lat = mla_prefill_attn(q_c, q_rope, ckv_l, kr_l, pos0, 0, scale)  # (B,T,H,R)
+    # per-head up-projection of the attended latents, a plain einsum as in
+    # the JAX prefill (deepseek.py:489-492)
+    wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)
+    v = torch.einsum("bthr,hvr->bthv", lat, wv)
+    return qmatmul(lp.wo, v.reshape(B, T, H * Dv).to(xb.dtype))
+
+
 def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if w13 is not None:
         h2 = qmatmul(w13, xb)
@@ -114,40 +193,78 @@ def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return qmatmul(w2, h)
 
 
-def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int) -> torch.Tensor:
+def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
+         prefill: bool = False) -> torch.Tensor:
+    """The FFN over xb (B,T,dim). Decode (T == 1) and small prefill chunks
+    take the expert-sorted pair list; larger prefill chunks the grouped
+    products or, where the widths do not allow them, dense-over-experts."""
     if not cfg.is_moe_layer(layer):
         return _dense_glu(lp.w13, lp.w1, lp.w2, lp.w3, xb, cfg)
-    B, dtype = xb.shape[0], xb.dtype
+    B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     router_logits = torch.matmul(xb.float(), lp.moegate.float().t())
-    weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,1,k)
-    idx, weights = idx.reshape(B, -1), weights.reshape(B, -1)
+    weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,T,k)
     folded = lp.w13s is not None
     if folded:
         # shared experts sit at the tail of the tables as weight-1.0 slots
         ns, E = cfg.n_shared_experts, cfg.n_routed_experts
-        sid = torch.arange(E, E + ns, device=idx.device).expand(B, ns)
+        sid = torch.arange(E, E + ns, device=idx.device).expand(B, T, ns)
         idx = torch.cat([idx, sid], dim=-1)
-        weights = torch.cat([weights, torch.ones_like(weights[:, :ns])], dim=-1)
+        weights = torch.cat([weights, torch.ones_like(weights[..., :ns])], dim=-1)
         t13, t1, t2, t3 = lp.w13s, None, lp.w2s, None
     else:
         t13, t1, t2, t3 = lp.w13, lp.w1, lp.w2, lp.w3
-    eid, wts, tok = dispatch_pairs(idx, weights)                   # (N,)
-    xk = xb.reshape(B, -1)[tok]                                    # (N, dim)
-    if t13 is not None:
-        h2 = _expert_mm(t13, eid, xk).to(dtype)
-        m = h2.shape[-1] // 2
-        h = glu_act(h2[:, :m], h2[:, m:], cfg.act)
+    n_exp = t2.shape[0]
+    probe = t13 if t13 is not None else t1
+    if not prefill or idx.numel() <= PAIR_PREFILL_MAX_PAIRS:
+        out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg)
+    elif grouped_ffn_supported(cfg, probe):
+        out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13)
     else:
-        h = glu_act(_expert_mm(t1, eid, xk).to(dtype),
-                    _expert_mm(t3, eid, xk).to(dtype), cfg.act)
-    per = _expert_mm(t2, eid, h)                                   # (N, dim) f32
-    out = torch.zeros((B, per.shape[-1]), dtype=torch.float32, device=per.device)
-    out.index_add_(0, tok, per * wts[:, None])
-    out = out.reshape(B, 1, -1).to(dtype)
+        out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg)
     if not folded and (lp.shared_w13 is not None or lp.shared_w1 is not None):
         out = out + _dense_glu(lp.shared_w13, lp.shared_w1, lp.shared_w2,
                                lp.shared_w3, xb, cfg)
     return out
+
+
+def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
+    """Expert-sorted pair list through the gathered-expert products (K2:
+    its nibble body or, for a plain table, its plain body), combined per
+    token with the routing weights."""
+    B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
+    Bt = B * T
+    eid, wts, tok = dispatch_pairs(idx.reshape(Bt, -1), weights.reshape(Bt, -1))
+    xk = xb.reshape(Bt, -1)[tok]                                   # (N, dim)
+    if t13 is not None:
+        h2 = qmm_experts(t13, eid, xk).to(dtype)
+        m = h2.shape[-1] // 2
+        h = glu_act(h2[:, :m], h2[:, m:], cfg.act)
+    else:
+        h = glu_act(qmm_experts(t1, eid, xk).to(dtype),
+                    qmm_experts(t3, eid, xk).to(dtype), cfg.act)
+    per = qmm_experts(t2, eid, h)                                   # (N, dim) f32
+    out = torch.zeros((Bt, per.shape[-1]), dtype=torch.float32, device=per.device)
+    out.index_add_(0, tok, per * wts[:, None])
+    return out.reshape(B, T, -1).to(dtype)
+
+
+def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg):
+    """Every expert once per chunk, the routing weights combined through a
+    (B,T,E) matrix (plain torch, as the JAX package leaves it to XLA)."""
+    dtype = xb.dtype
+    wmat = (torch.nn.functional.one_hot(idx, n_exp).float()
+            * weights[..., None].float()).sum(-2)                  # (B,T,E)
+    if t13 is not None:
+        d13 = t13.dequant(dtype).float()                           # (E,2m,dim)
+        m = d13.shape[-2] // 2
+        d1, d3 = d13[..., :m, :], d13[..., m:, :]
+    else:
+        d1, d3 = t1.dequant(dtype).float(), t3.dequant(dtype).float()
+    x = xb.float()
+    h = glu_act(torch.einsum("btn,emn->btem", x, d1).to(dtype),
+                torch.einsum("btn,emn->btem", x, d3).to(dtype), cfg.act)
+    per_e = torch.einsum("btem,edm->bted", h.float(), t2.dequant(dtype).float())
+    return torch.einsum("bted,bte->btd", per_e, wmat).to(dtype)
 
 
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
@@ -169,10 +286,15 @@ def decode_positions(cfg: ModelConfig, B: int, pos0, device):
     return pos, kv_pos, kv_len.to(torch.int32), kv_sink
 
 
-def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + lm_head of the last row: x (B,T,dim) -> (B,V) float32."""
-    x = rmsnorm(x[:, -1:], final_norm, cfg.norm_eps)
-    return qmatmul(lm_head, x.float())[:, 0]
+def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
+                 logits_mode: str = "last") -> torch.Tensor:
+    """Final norm + lm_head: x (B,T,dim) -> (B,V) float32 of the last row
+    (``logits_mode="last"``) or (B,T,V) of every row (``"all"``)."""
+    if logits_mode == "last":
+        x = x[:, -1:]
+    x = rmsnorm(x, final_norm, cfg.norm_eps)
+    logits = qmatmul(lm_head, x.float())
+    return logits[:, 0] if logits_mode == "last" else logits
 
 
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
@@ -189,3 +311,37 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg)
     return final_logits(params.final_norm, params.lm_head, x, cfg)
+
+
+def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
+                    pos0, cfg: ModelConfig, logits_mode: str = "last"):
+    """One prefill chunk: tokens (B,T) at positions pos0..pos0+T-1 (a
+    shared int; pos0 + T <= kv_window) -> logits per ``logits_mode``:
+    "last" (B,V), "all" (B,T,V) float32, or "none" (None). Writes the
+    chunk's latent rows into ``cache`` in place. The port has no mesh, so
+    context and sequence parallelism do not arise (ROADMAP.md queue 1,
+    item 14)."""
+    B, T = tokens.shape
+    if isinstance(pos0, torch.Tensor) and pos0.dim() > 0:
+        raise NotImplementedError(
+            "verify mode (per-sequence chunk positions) is not ported yet "
+            "(ROADMAP.md queue 1, item 11)")
+    pos0 = int(pos0)
+    if not cfg.use_mla:
+        raise NotImplementedError(
+            "decompressed-MHA prefill is not ported yet (ROADMAP.md queue 1, "
+            "item 5)")
+    if logits_mode not in ("all", "last", "none"):
+        raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
+    if pos0 + T > cfg.kv_window:
+        raise ValueError(f"prefill at {pos0}..{pos0 + T - 1} crosses the "
+                         f"{cfg.kv_window}-slot window; decode steps go on past it")
+    x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
+    for layer, lp in enumerate(params.layers):
+        xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
+        x = x + _attention_prefill(lp, cfg, xb, cache, layer, pos0)
+        xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
+        x = x + _ffn(lp, cfg, xb, layer, prefill=True)
+    if logits_mode == "none":
+        return None
+    return final_logits(params.final_norm, params.lm_head, x, cfg, logits_mode)

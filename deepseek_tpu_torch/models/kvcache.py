@@ -71,3 +71,16 @@ def ring_positions(cfg: ModelConfig, pos: torch.Tensor
     kv_pos = kv_sink + torch.remainder(pos - kv_sink, window - kv_sink)
     kv_len = torch.clamp(pos + 1, max=window)
     return kv_sink, kv_pos, kv_len
+
+
+def write_rows(cache: KVCache, layer: int, ckv: torch.Tensor,
+               krope: torch.Tensor, start: int) -> None:
+    """Prefill write: ckv (B,T,R) and krope (B,T,P) into slots start ..
+    start+T-1 of ``layer``, in place. Prefill runs only while start + T <=
+    window, so slot == position and no sink rotates."""
+    T = ckv.shape[1]
+    if start < 0 or start + T > cache.window:
+        raise ValueError(f"prefill rows {start}..{start + T - 1} leave the "
+                         f"{cache.window}-slot window")
+    cache.ckv[layer, :, start:start + T] = ckv.to(cache.ckv.dtype)
+    cache.krope[layer, :, start:start + T] = krope.to(cache.krope.dtype)

@@ -45,10 +45,14 @@ def deepseek_v3_proportions(n_layers: int = 61, **overrides) -> ModelConfig:
 
 
 def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
-                        device="cuda") -> ModelParams:
+                        device="cuda", factors: bool = False) -> ModelParams:
     """Random model in the fused decode layout (wkvq, wcr, w13 and shared
     experts folded into w13s/w2s) with nibble planes. ``quant``:
-    q3_k_nibble | q2_k_nibble. The embedding is bf16, the lm_head nibble."""
+    q3_k_nibble | q2_k_nibble. The embedding is bf16, the lm_head nibble.
+    ``factors`` also gives each layer the nibble factor weights wq_b
+    (H*head_dim, q_lora) and wkv_b (H*(nope+v), kv_lora) that every
+    converted MLA checkpoint keeps, so prefill attends in decompressed head
+    space (K9); without them it runs the absorbed prefill (K10)."""
     if quant not in ("q3_k_nibble", "q2_k_nibble"):
         raise ValueError(f"quant must be q3_k_nibble or q2_k_nibble, not {quant}")
     gen = torch.Generator(device=device)
@@ -99,6 +103,8 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                           if moe and c.has_moegate_bias else None),
             w13s=qt(E + ns, 2 * m, c.dim) if moe else None,
             w2s=qt(E + ns, c.dim, m) if moe else None,
+            wq_b=qt(H * c.head_dim, c.q_lora_rank) if factors else None,
+            wkv_b=qt(H * (c.qk_nope_head_dim + Dv), R) if factors else None,
         ))
     return ModelParams(
         embed=PlainTensor(data=normal(c.vocab_size, c.dim).to(torch.bfloat16)),

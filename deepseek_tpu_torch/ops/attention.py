@@ -1,10 +1,12 @@
-"""Absorbed-MLA decode attention, plain PyTorch.
+"""Attention, plain PyTorch: absorbed-MLA decode and the chunked prefill.
 
-``decode_attn_mla`` is the port of ``deepseek_tpu/ops/attention.py``'s
-function of the same name and the plain version of kernel K3
-(ops.kernels.attention.mla_decode_attn): scores live in the shared latent
-space, MQA-style — one (kv_lora_rank + rope) cache row serves every head.
-``kv_len`` masks the valid prefix of the static ring buffer.
+``decode_attn_mla``, ``prefill_attn_mha`` and ``prefill_attn_mla`` port the
+functions of the same names in ``deepseek_tpu/ops/attention.py``. They are
+the plain versions of kernels K3 (ops.kernels.attention), K9 and K10
+(ops.kernels.prefill_attn). In the MLA forms scores live in the shared
+latent space, MQA-style: one (kv_lora_rank + rope) cache row serves every
+head. Decode masks the valid prefix ``kv_len`` of the ring buffer; prefill
+masks by the position each slot holds.
 """
 
 from __future__ import annotations
@@ -36,3 +38,47 @@ def decode_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
     e = torch.where(mask, e, torch.zeros_like(e))
     w = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhs,bsr->bhr", w, ckv)
+
+
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    e = torch.where(mask, e, torch.zeros_like(e))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _prefill_mask(q_pos: torch.Tensor, cache_pos: torch.Tensor) -> torch.Tensor:
+    """(1, 1, T, S): query t sees slot s when the position stored there is
+    at most its own and the slot is filled (position >= 0)."""
+    mask = (cache_pos[None, :] <= q_pos[:, None]) & (cache_pos >= 0)[None, :]
+    return mask[None, None]
+
+
+def prefill_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_pos: torch.Tensor,
+                     cache_pos: torch.Tensor, softmax_scale=None) -> torch.Tensor:
+    """Chunked causal attention: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache
+    (B,S,H,Dv), q_pos (T,) query positions, cache_pos (S,) the position
+    each slot holds (-1 = empty) -> (B,T,H,Dv) float32."""
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k_cache.float()) * scale
+    w = _masked_softmax(scores, _prefill_mask(q_pos, cache_pos))
+    return torch.einsum("bhts,bshv->bthv", w, v_cache.float())
+
+
+def prefill_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
+                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                     q_pos: torch.Tensor, cache_pos: torch.Tensor,
+                     head_dim: int, softmax_scale=None) -> torch.Tensor:
+    """Chunked causal absorbed-MLA attention over the latent cache: q_c
+    (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache (B,S,P) ->
+    attended latents (B,T,H,R) float32 (mask as prefill_attn_mha)."""
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(head_dim)
+    ckv = ckv_cache.float()
+    scores = (torch.einsum("bthr,bsr->bhts", q_c.float(), ckv)
+              + torch.einsum("bthp,bsp->bhts", q_rope.float(),
+                             krope_cache.float())) * scale
+    w = _masked_softmax(scores, _prefill_mask(q_pos, cache_pos))
+    return torch.einsum("bhts,bsr->bthr", w, ckv)

@@ -1,0 +1,146 @@
+"""Kernels K9 and K10: chunked causal flash attention for prefill.
+
+``mha_prefill_attn`` replaces ``deepseek_tpu/ops/pallas/attention.py::
+mha_prefill_attn`` (K9, the decompressed heads of the hybrid-MLA prefill)
+and ``mla_prefill_attn`` replaces ``::mla_prefill_attn`` (K10, absorbed
+prefill over the latent cache). Both launch ``csrc/prefill_attn.cu`` (see
+its header for the design and its bound) and keep the JAX public layouts
+and arguments: query t sits at position ``q_pos0 + t``, cache slot s holds
+position ``cache_pos0 + s``, and t sees s when ``cache_pos0 + s <= q_pos0 +
+t``. Only the float cache without seq-parallel partials is ported: the
+int8 scales (ROADMAP.md queue 1, item 10) and ``partials`` (item 14) raise.
+
+CPU tensors take the plain versions (ops.attention.prefill_attn_*);
+CUDA tensors launch the kernel or raise. ``.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deepseek_tpu_torch.ops.attention import prefill_attn_mha, prefill_attn_mla
+from deepseek_tpu_torch.ops.kernels.build import check, library
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_DV = (128, 512)      # value widths the kernel is built for
+
+
+def _positions(T: int, S: int, q_pos0: int, cache_pos0: int, device):
+    q_pos = q_pos0 + torch.arange(T, device=device)
+    cache_pos = cache_pos0 + torch.arange(S, device=device)
+    return q_pos, cache_pos
+
+
+def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0: int, cache_pos0: int,
+                           softmax_scale: float) -> torch.Tensor:
+    q_pos, cache_pos = _positions(q.shape[1], k_cache.shape[1], q_pos0,
+                                  cache_pos0, q.device)
+    return prefill_attn_mha(q, k_cache, v_cache, q_pos, cache_pos,
+                            softmax_scale=softmax_scale)
+
+
+def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0: int,
+                           cache_pos0: int, softmax_scale: float) -> torch.Tensor:
+    q_pos, cache_pos = _positions(q_c.shape[1], ckv_cache.shape[1], q_pos0,
+                                  cache_pos0, q_c.device)
+    return prefill_attn_mla(q_c, q_rope, ckv_cache, krope_cache, q_pos,
+                            cache_pos, head_dim=0, softmax_scale=softmax_scale)
+
+
+def _unported(name, scales, partials):
+    if any(s is not None for s in scales):
+        raise NotImplementedError(
+            f"{name}: int8 cache scales are not ported yet (ROADMAP.md queue "
+            "1, item 10)")
+    if partials:
+        raise NotImplementedError(
+            f"{name}: seq-parallel partials are not ported yet (ROADMAP.md "
+            "queue 1, item 14)")
+
+
+def _check_operands(name, queries, caches):
+    dev = queries[0].device
+    for t in (*queries, *caches):
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+    if caches[0].dtype not in _DTYPE_CODE or \
+            any(c.dtype != caches[0].dtype for c in caches):
+        raise ValueError(f"{name}: unsupported cache dtypes "
+                         f"{[c.dtype for c in caches]}")
+    for c in caches:
+        if not c.is_contiguous():
+            raise ValueError(f"{name}: the cache planes must be contiguous")
+
+
+def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_pos0: int, cache_pos0: int,
+                     softmax_scale: float, k_scale=None, v_scale=None,
+                     partials: bool = False) -> torch.Tensor:
+    """K9: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
+    f32/f16/bf16 -> (B,T,H,Dv) float32."""
+    _unported("mha_prefill_attn", (k_scale, v_scale), partials)
+    if q.device.type == "cpu":
+        return mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0,
+                                      softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_prefill_attn runs on cuda or cpu, not {q.device}")
+    B, T, H, Dh = q.shape
+    S, Dv = k_cache.shape[1], v_cache.shape[-1]
+    if k_cache.shape != (B, S, H, Dh) or v_cache.shape != (B, S, H, Dv):
+        raise ValueError("mha_prefill_attn: inconsistent shapes "
+                         f"{tuple(q.shape)} {tuple(k_cache.shape)} {tuple(v_cache.shape)}")
+    if Dv not in _DV or Dh % 4:
+        raise ValueError(f"mha_prefill_attn needs Dv in {_DV} and Dh % 4 == 0, "
+                         f"got Dh={Dh} Dv={Dv}")
+    _check_operands("mha_prefill_attn", (q,), (k_cache, v_cache))
+    qf = q.float().contiguous()
+    out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
+    err = library("prefill_attn").mha_prefill(
+        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        B, T, H, S, Dh, Dv, _DTYPE_CODE[k_cache.dtype], int(q_pos0),
+        int(cache_pos0), float(softmax_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "mha_prefill")
+    mha_prefill_attn.launches += 1
+    return out
+
+
+def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
+                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                     q_pos0: int, cache_pos0: int, softmax_scale: float,
+                     ckv_scale=None, krope_scale=None,
+                     partials: bool = False) -> torch.Tensor:
+    """K10: q_c (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache
+    (B,S,P) in f32/f16/bf16 -> attended latents (B,T,H,R) float32."""
+    _unported("mla_prefill_attn", (ckv_scale, krope_scale), partials)
+    if q_c.device.type == "cpu":
+        return mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
+                                      q_pos0, cache_pos0, softmax_scale)
+    if q_c.device.type != "cuda":
+        raise ValueError(f"mla_prefill_attn runs on cuda or cpu, not {q_c.device}")
+    B, T, H, R = q_c.shape
+    S, P = ckv_cache.shape[1], q_rope.shape[-1]
+    if (q_rope.shape != (B, T, H, P) or ckv_cache.shape != (B, S, R)
+            or krope_cache.shape != (B, S, P)):
+        raise ValueError("mla_prefill_attn: inconsistent shapes "
+                         f"{tuple(q_c.shape)} {tuple(q_rope.shape)} "
+                         f"{tuple(ckv_cache.shape)} {tuple(krope_cache.shape)}")
+    if R not in _DV or (R + P) % 4:
+        raise ValueError(f"mla_prefill_attn needs R in {_DV} and (R+P) % 4 == 0, "
+                         f"got R={R} P={P}")
+    _check_operands("mla_prefill_attn", (q_c, q_rope), (ckv_cache, krope_cache))
+    qc = q_c.float().contiguous()
+    qr = q_rope.float().contiguous()
+    out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
+    err = library("prefill_attn").mla_prefill(
+        qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),
+        krope_cache.data_ptr(), out.data_ptr(), B, T, H, S, R, P,
+        _DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
+        float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
+    check(err, "mla_prefill")
+    mla_prefill_attn.launches += 1
+    return out
+
+
+mha_prefill_attn.launches = 0
+mla_prefill_attn.launches = 0

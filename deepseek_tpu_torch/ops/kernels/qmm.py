@@ -1,10 +1,21 @@
-"""Kernels K1 and K2: nibble-plane dequant + matrix-vector product.
+"""Kernels K1, K2, K6 and K11: quantized and grouped matrix products.
 
-``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with ``_knib_body``
-(K1) and ``qmm_experts`` replaces ``::qmm_experts`` with ``_knib_body`` (K2,
-one expert id per activation row). Both launch ``csrc/qmm.cu`` (see its
-header for the design and why the weight bytes bound it). Each wrapper
-keeps its own launch count in ``.launches``.
+- ``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with
+  ``_knib_body`` (K1). Up to ``ROW_TILE_MIN`` rows it launches the matvec
+  of ``csrc/qmm.cu``; above, its row-tiled route ``qmm_rows`` launches the
+  tile GEMM of ``csrc/qmm_tiles.cu``.
+- ``qmm_experts`` replaces ``::qmm_experts`` with ``_knib_body`` (K2, one
+  expert id per activation row; ``csrc/qmm.cu``). A plain f32/f16/bf16
+  table goes to ``qmm_experts_fp``, K2's plain body (``qmm.py:651``; the
+  same source).
+- ``qmm_grouped`` replaces ``::qmm_grouped`` with ``_knib_body`` (K6:
+  128-row tiles, one expert each; ``csrc/qmm_tiles.cu``).
+- ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
+  grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
+  plain table; ``csrc/qmm_tiles.cu``).
+
+The sources' headers give each design and its bound. Each wrapper keeps
+its own launch count in ``.launches``.
 
 A wrapper given CPU tensors computes the plain version (``*_plain``: the
 f32 dequant of quant/qtensor.py and a product); given CUDA tensors it
@@ -13,10 +24,12 @@ launches the kernel or raises. It never falls back.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from deepseek_tpu_torch.ops.kernels.build import check, library
-from deepseek_tpu_torch.quant.qtensor import KNibbleTensor
+from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
 
 
 def qmm_plain(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
@@ -24,15 +37,72 @@ def qmm_plain(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), qt.dequant(torch.float32).t())
 
 
-def qmm_experts_plain(qt: KNibbleTensor, idx: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
-    """Row i of x (..., n) times expert idx[i] of W (E, d, n) -> (..., d)
-    float32. Only the selected experts are dequantized."""
+def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row i of x (..., n) times expert idx[i] of W (E, d, n), a nibble or
+    a plain table, -> (..., d) float32. Only the selected experts are
+    dequantized (a plain table: widened to f32)."""
     lead, n = x.shape[:-1], x.shape[-1]
-    sel = qt.map(lambda t: t[idx.reshape(-1).long()])
-    w = sel.dequant(torch.float32)                         # (N, d, n)
+    sel = idx.reshape(-1).long()
+    if isinstance(qt, PlainTensor):
+        w = qt.data[sel].float()
+    else:
+        w = qt.map(lambda t: t[sel]).dequant(torch.float32)   # (N, d, n)
     out = torch.bmm(w, x.reshape(-1, n, 1).float())[..., 0]
     return out.reshape(*lead, -1)
+
+
+# K1 takes the row-tiled route above this many rows. The matvec streams
+# the weight once per row; the tile GEMM streams it once per 128 rows but
+# runs a 128-row tile's machinery (a block per 128 output columns, the
+# weight dequantized into shared memory) however few rows are live, so its
+# time hardly moves below 16 rows. Measured by chip_smoke.py on an H100
+# 80GB HBM3 at 700 W (matvec / row-tiled ms): w13 36864x7168 at 8 rows
+# 0.545 / 0.789, at 16 rows 1.060 / 0.809; wo 7168x16384 at 16 rows
+# 0.481 / 0.623, at 32 rows 0.922 / 0.970. The crossover is 8-16 rows on
+# w13 and near 32 on wo; 16 keeps both within 0.25 ms of their faster
+# route from 1 to 32 rows (8 would cost wo up to 0.33 ms). A decode step
+# (1 row) and the pair path's gathered rows stay on the matvec.
+ROW_TILE_MIN = 16
+_TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
+_PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}
+_X_DTYPE = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def qmm_grouped_plain(qt: KNibbleTensor, tile_expert: torch.Tensor,
+                      x_tiles: torch.Tensor,
+                      tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x_tiles (G, TB, n) in natural column order, tile g against expert
+    tile_expert[g] of W (E, d, n) -> (G, TB, d) float32. Rows at or past
+    tile_rows[g] (when given) are zero."""
+    G, TB, _ = x_tiles.shape
+    d = qt.shape[-2]
+    out = torch.zeros((G, TB, d), dtype=torch.float32, device=x_tiles.device)
+    te = tile_expert.long()
+    for e in te.unique().tolist():
+        sel = (te == e).nonzero()[:, 0]
+        w = qt.map(lambda t: t[e]).dequant(torch.float32)
+        out[sel] = torch.matmul(x_tiles[sel].float(), w.t())
+    if tile_rows is not None:
+        live = torch.arange(TB, device=out.device)[None, :] < tile_rows[:, None]
+        out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+              group_sizes: torch.Tensor) -> torch.Tensor:
+    """Row group e of lhs (M, k) times rhs[e].T, rhs (E, n, k) cast to
+    lhs's dtype (the compute dtype) -> (M, n) float32. Groups are
+    consecutive from row 0; rows past the last group are zero."""
+    M, E = lhs.shape[0], rhs.shape[0]
+    out = torch.zeros((M, rhs.shape[1]), dtype=torch.float32, device=lhs.device)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()[:E]):
+        end = min(start + int(size), M)
+        if end > start:
+            w = rhs[e].to(lhs.dtype).float()
+            out[start:end] = torch.matmul(lhs[start:end].float(), w.t())
+        start = end
+    return out
 
 
 def _check_planes(qt: KNibbleTensor, x: torch.Tensor, experts: bool) -> None:
@@ -68,8 +138,25 @@ def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
     return y
 
 
+def _nibble_args(qt: KNibbleTensor):
+    return (1 if qt.c is not None else 0, qt.p.data_ptr(), qt.a.data_ptr(),
+            qt.c.data_ptr() if qt.c is not None else None, int(qt.off))
+
+
+def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d):
+    """Launch csrc/qmm_tiles.cu; ``tiles`` = (tile_expert, tile_rows,
+    group_off, tile_off), each an int32 device tensor or None."""
+    ptr = [t.data_ptr() if t is not None else None for t in tiles]
+    err = library("qmm_tiles").tile_gemm(
+        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *ptr,
+        y.data_ptr(), x2.shape[0], G, E, d, x2.shape[1],
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "tile_gemm")
+
+
 def qmm(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
-    """K1: x (..., n) @ W (d, n).T -> (..., d) float32."""
+    """K1: x (..., n) @ W (d, n).T -> (..., d) float32. More than
+    ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``)."""
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -80,16 +167,38 @@ def qmm(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, n)
     if x2.shape[0] == 0:
         return x.new_zeros((*lead, d), dtype=torch.float32)
+    if x2.shape[0] > ROW_TILE_MIN:
+        return qmm_rows(qt, x2).reshape(*lead, d)
     y = _launch(qt, x2, None, d)
     qmm.launches += 1
     return y.reshape(*lead, d)
 
 
-def qmm_experts(qt: KNibbleTensor, idx: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
+def qmm_rows(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
+    """K1's row-tiled route: x (rows, n) @ W (d, n).T -> (rows, d) float32,
+    128 rows a tile. ``qmm`` calls it above ``ROW_TILE_MIN`` rows."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_rows runs on cuda or cpu tensors, not {x.device}")
+    _check_planes(qt, x, experts=False)
+    rows, d = x.shape[0], qt.shape[-2]
+    x2 = x.float().contiguous()
+    y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    kind, p, a, c, off = _nibble_args(qt)
+    _tile_gemm(x2, kind, p, a, c, off, (None, None, None, None), y,
+               -(-rows // _TILE), 1, d)
+    qmm_rows.launches += 1
+    return y
+
+
+def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K2: row i of x (..., n) against expert idx[i] of W (E, d, n) ->
     (..., d) float32. ``idx`` (...) must hold ids in [0, E): the kernel
-    reads the expert's planes at that offset unchecked."""
+    reads the expert's planes at that offset unchecked. A plain table
+    takes ``qmm_experts_fp``."""
+    if isinstance(qt, PlainTensor):
+        return qmm_experts_fp(qt, idx, x)
     if x.device.type == "cpu":
         return qmm_experts_plain(qt, idx, x)
     if x.device.type != "cuda":
@@ -108,5 +217,117 @@ def qmm_experts(qt: KNibbleTensor, idx: torch.Tensor,
     return y.reshape(*lead, d)
 
 
+def qmm_experts_fp(qt: PlainTensor, idx: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """K2's plain body: row i of x (..., n) against expert idx[i] (ids in
+    [0, E), read unchecked) of a plain f32/f16/bf16 table W (E, d, n),
+    widened to f32 -> (..., d) float32."""
+    if x.device.type == "cpu":
+        return qmm_experts_plain(qt, idx, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_experts_fp runs on cuda or cpu tensors, not {x.device}")
+    w = qt.data
+    lead, n = x.shape[:-1], x.shape[-1]
+    if w.dim() != 3 or w.shape[2] != n or idx.shape != lead:
+        raise ValueError(f"qmm_experts_fp: W {tuple(w.shape)}, x {tuple(x.shape)}, "
+                         f"idx {tuple(idx.shape)}")
+    if w.device != x.device or w.dtype not in _PLAIN_KIND \
+            or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"qmm_experts_fp: need a contiguous, 16-byte aligned "
+                         f"f32/f16/bf16 table on {x.device}, got {w.dtype} on "
+                         f"{w.device}, contiguous={w.is_contiguous()}")
+    if n % 8:
+        raise ValueError(f"qmm_experts_fp needs in-features % 8 == 0, got {n}")
+    d = w.shape[1]
+    x2 = x.reshape(-1, n).float().contiguous()
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
+    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x.device)
+    err = library("qmm").plain_matvec(
+        x2.data_ptr(), w.data_ptr(), _PLAIN_KIND[w.dtype], idx32.data_ptr(),
+        y.data_ptr(), x2.shape[0], d, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "plain_matvec")
+    qmm_experts_fp.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
+                x_tiles: torch.Tensor,
+                tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: x_tiles (G, 128, n) f32 in natural column order, tile g against
+    expert tile_expert[g] (ids in [0, E), read unchecked) of the nibble
+    table W (E, d, n) -> (G, 128, d) float32. With ``tile_rows`` (G,) only
+    the first tile_rows[g] rows of tile g are computed; the kernel leaves
+    the others unwritten (the plain version zeroes them)."""
+    if x_tiles.device.type == "cpu":
+        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
+    if x_tiles.device.type != "cuda":
+        raise ValueError(f"qmm_grouped runs on cuda or cpu tensors, not {x_tiles.device}")
+    _check_planes(qt, x_tiles, experts=True)
+    G, TB, n = x_tiles.shape
+    if TB != _TILE or tile_expert.shape != (G,) or n != qt.shape[-1]:
+        raise ValueError(f"qmm_grouped: x_tiles {tuple(x_tiles.shape)}, "
+                         f"tile_expert {tuple(tile_expert.shape)}, W {qt.shape}")
+    dev = x_tiles.device
+    for t in (tile_expert, tile_rows):
+        if t is not None and t.device != dev:
+            raise ValueError("qmm_grouped: tile maps on another device")
+    d = qt.shape[-2]
+    x2 = x_tiles.reshape(G * TB, n).float().contiguous()
+    y = torch.empty((G, TB, d), dtype=torch.float32, device=dev)
+    te = tile_expert.to(torch.int32).contiguous()
+    tr = None if tile_rows is None else tile_rows.to(torch.int32).contiguous()
+    kind, p, a, c, off = _nibble_args(qt)
+    _tile_gemm(x2, kind, p, a, c, off, (te, tr, None, None), y, G,
+               qt.shape[0], d)
+    qmm_grouped.launches += 1
+    return y
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
+        group_sizes: torch.Tensor) -> torch.Tensor:
+    """K11: row group e of lhs (M, k) (f32 or bf16, the compute dtype)
+    times rhs[e].T for a plain table rhs (E, n, k) in f32/f16/bf16, cast to
+    lhs's dtype -> (M, n) float32. Groups are consecutive from row 0
+    (group_sizes (E,), summing to at most M); rows past them are left
+    unwritten on the card (zero in the plain version)."""
+    if lhs.device.type == "cpu":
+        return gmm_plain(lhs, rhs, group_sizes)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"gmm runs on cuda or cpu tensors, not {lhs.device}")
+    M, k = lhs.shape
+    E, n = rhs.shape[0], rhs.shape[1]
+    if rhs.dim() != 3 or rhs.shape[2] != k or group_sizes.shape != (E,):
+        raise ValueError(f"gmm: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
+                         f"group_sizes {tuple(group_sizes.shape)}")
+    if rhs.device != lhs.device or group_sizes.device != lhs.device:
+        raise ValueError("gmm: operands on different devices")
+    if lhs.dtype not in _X_DTYPE or rhs.dtype not in _PLAIN_KIND:
+        raise ValueError(f"gmm: unsupported dtypes {lhs.dtype} x {rhs.dtype}")
+    if not rhs.is_contiguous() or rhs.data_ptr() % 16:
+        raise ValueError("gmm: the table must be contiguous and 16-byte aligned")
+    if k % 64:
+        raise ValueError(f"gmm needs k % 64 == 0, got {k}")
+    if M == 0:
+        return lhs.new_zeros((0, n), dtype=torch.float32)
+    sizes = group_sizes.to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32, device=lhs.device)
+    group_off = torch.cat([zero, torch.cumsum(sizes, 0, dtype=torch.int32)])
+    tile_off = torch.cat([zero, torch.cumsum((sizes + _TILE - 1) // _TILE, 0,
+                                             dtype=torch.int32)])
+    y = torch.empty((M, n), dtype=torch.float32, device=lhs.device)
+    _tile_gemm(lhs.contiguous(), _PLAIN_KIND[rhs.dtype], rhs.data_ptr(), None,
+               None, 0, (None, None, group_off, tile_off), y,
+               E + -(-M // _TILE), E, n)
+    gmm.launches += 1
+    return y
+
+
 qmm.launches = 0
+qmm_rows.launches = 0
 qmm_experts.launches = 0
+qmm_experts_fp.launches = 0
+qmm_grouped.launches = 0
+gmm.launches = 0

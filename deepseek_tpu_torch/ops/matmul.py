@@ -5,6 +5,15 @@
 qmatmul``): nibble weights go through kernel K1, plain weights through one
 matrix product. ``dispatch_pairs`` is the single-device (ep == 1) part of
 ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``.
+
+The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
+name in ``deepseek_tpu/ops/matmul.py`` for ``ep == 1``: a counting sort of
+the token-expert pairs by expert, then the expert projections as grouped
+products, K11 (``gmm``) for plain tables and K6 (``qmm_grouped``) over
+128-row tiles for nibble tables. The pair capacity is every pair, rounded
+up to the 128-row tile (the JAX ``ep_prefill_capacity`` at ``ep == 1``);
+expert parallelism (the EP capacity and its overflow count) is ROADMAP.md
+queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -13,7 +22,8 @@ from typing import Tuple
 
 import torch
 
-from deepseek_tpu_torch.ops.kernels.qmm import qmm
+from deepseek_tpu_torch.ops.activations import glu_act
+from deepseek_tpu_torch.ops.kernels.qmm import gmm, qmm, qmm_grouped
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
 
 
@@ -37,3 +47,109 @@ def dispatch_pairs(idx: torch.Tensor, weights: torch.Tensor
     order = torch.sort(flat, stable=True).indices
     tok = torch.arange(T * k, device=idx.device) // k
     return flat[order], weights.reshape(-1)[order], tok[order]
+
+
+def counting_rank(cls: torch.Tensor, n_cls: int):
+    """One-hot-cumsum counting sort (``deepseek_tpu/parallel/spmd.py::
+    counting_rank``): (within, counts, starts) = each element's rank among
+    its class, the per-class counts and the exclusive class starts."""
+    oh = torch.nn.functional.one_hot(cls.long(), n_cls).to(torch.int32)
+    within = (torch.cumsum(oh, 0) - 1).gather(1, cls.long()[:, None])[:, 0]
+    counts = oh.sum(0)
+    return within, counts, torch.cumsum(counts, 0) - counts
+
+
+def grouped_ffn_supported(cfg, w1=None) -> bool:
+    """Divisibility for the grouped prefill paths: the nibble tiles need the
+    K-quant superblock (256) to divide both contraction dims, the plain
+    grouped product 128."""
+    if isinstance(w1, KNibbleTensor):
+        return cfg.dim % 256 == 0 and cfg.moe_intermediate_size % 256 == 0
+    return cfg.dim % 128 == 0 and cfg.moe_intermediate_size % 128 == 0
+
+
+def tile_dispatch(flat_idx: torch.Tensor, e_local: int, tile: int = 128):
+    """Counting dispatch of N pairs' expert ids into ``tile``-row tiles,
+    each tile of one expert, under the static budget G = E + C/tile (C =
+    all pairs, tile-rounded): each expert wastes less than one tile to
+    ragged fragmentation; surplus tiles point at the last expert.
+
+    Returns (tile_expert (G,), tile_rows (G,) live rows per tile, dest (N,)
+    each pair's slot in the (G*tile) rows, G)."""
+    N = flat_idx.shape[0]
+    G = e_local + -(-N // tile)
+    within, counts, _ = counting_rank(flat_idx, e_local)
+    tiles_e = (counts + tile - 1) // tile
+    tile_start = torch.cumsum(tiles_e, 0) - tiles_e              # (E,)
+    t_idx = torch.arange(G, device=flat_idx.device)
+    tile_expert = ((t_idx[:, None] >= tile_start[None, :]).sum(1) - 1) \
+        .clamp(0, e_local - 1)
+    tile_rows = (counts[tile_expert] - (t_idx - tile_start[tile_expert]) * tile) \
+        .clamp(0, tile)
+    dest = tile_start[flat_idx.long()] * tile + within
+    return tile_expert, tile_rows, dest, G
+
+
+def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None):
+    """Nibble-expert prefill FFN: ``tile_dispatch`` into 128-row tiles and
+    K6 over them. Unfilled slots gather row 0 and are never read back; the
+    live row count of each tile goes to the kernel, which skips the rest.
+    Returns out (B, T, dim)."""
+    TB = 128
+    B, T, k = idx.shape
+    dim, dtype = xb.shape[-1], xb.dtype
+    N = B * T * k
+    e_local = (w13 if w13 is not None else w1).shape[0]
+    tile_expert, tile_rows, dest, G = tile_dispatch(idx.reshape(N), e_local, TB)
+    src = torch.zeros(G * TB, dtype=torch.int64, device=xb.device)
+    src[dest] = torch.arange(N, device=xb.device)
+    x_tiles = xb.reshape(B * T, dim)[src // k].float().reshape(G, TB, dim)
+
+    if w13 is not None:
+        h2 = qmm_grouped(w13, tile_expert, x_tiles, tile_rows)
+        mh = h2.shape[-1] // 2
+        h = glu_act(h2[..., :mh], h2[..., mh:], act)
+    else:
+        h = glu_act(qmm_grouped(w1, tile_expert, x_tiles, tile_rows),
+                    qmm_grouped(w3, tile_expert, x_tiles, tile_rows), act)
+    y = qmm_grouped(w2, tile_expert, h, tile_rows)              # (G, TB, dim)
+    y = y.reshape(G * TB, dim)[dest] * weights.reshape(N, 1).float()
+    return y.reshape(B, T, k, dim).sum(2).to(dtype)
+
+
+def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
+                       idx: torch.Tensor, act, w13=None) -> torch.Tensor:
+    """Prefill MoE FFN as a ragged grouped product: the (B*T*k) pairs are
+    counting-sorted by expert and each expert's rows multiply its table
+    once, so the work scales with the k routed experts per token, not all
+    E. Plain tables (E, m, dim)/(E, dim, m) run K11; nibble tables K6.
+    xb (B, T, dim), weights/idx (B, T, k) -> (B, T, dim) in xb's dtype."""
+    if not isinstance(w13 if w13 is not None else w1, PlainTensor):
+        return _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=w13)
+    B, T, k = idx.shape
+    dim, dtype = xb.shape[-1], xb.dtype
+    N = B * T * k
+    e_local = w2.shape[0]
+    C = -(-N // 128) * 128           # all pairs, tile-rounded (ep == 1)
+
+    flat = idx.reshape(N)
+    within, counts, starts = counting_rank(flat, e_local)
+    dest = starts[flat] + within                                 # (N,) < C
+    src = torch.zeros(C, dtype=torch.int64, device=xb.device)
+    src[dest] = torch.arange(N, device=xb.device)
+    # slack rows (unfilled, src = 0) attach to the last expert; their
+    # outputs are never gathered back
+    sizes = counts.clone()
+    sizes[-1] += C - N
+    x_rows = xb.reshape(B * T, dim)[src // k]                    # (C, dim)
+
+    if w13 is not None:
+        h2 = gmm(x_rows, w13.data, sizes)
+        mh = h2.shape[-1] // 2
+        h = glu_act(h2[:, :mh], h2[:, mh:], act).to(dtype)
+    else:
+        h = glu_act(gmm(x_rows, w1.data, sizes), gmm(x_rows, w3.data, sizes),
+                    act).to(dtype)
+    y = gmm(h, w2.data, sizes)                                   # (C, dim) f32
+    y = y[dest] * weights.reshape(N, 1).float()
+    return y.reshape(B, T, k, dim).sum(2).to(dtype)

@@ -1,21 +1,27 @@
-"""Where a decode step's time goes in the PyTorch/CUDA port (one GPU).
+"""Where a decode step's and a prefill chunk's time goes in the
+PyTorch/CUDA port (one GPU).
 
     python scripts/torch_profile_decode.py [--layers 4] [--steps 16]
-                                           [--trace out.json]
+                                           [--chunks 4] [--trace out.json]
 
-Builds the DeepSeek-V3-width nibble model (random weights from a seed,
-models/testing.py) and decodes greedily in two cells:
-  short: positions 0.. (kv_len grows from 1; attention is negligible);
-  long:  positions from the 4096-slot window onwards, over a cache filled
-         with random latents (kv_len = 4096: K3 at the full window, the
-         ring wrapped, sinks re-rotating).
-For each cell it prints the wall time per step (host clock around
-synchronized work), the device time per step summed over the profiler's
+Builds the DeepSeek-V3-width nibble model with the factor weights wq_b /
+wkv_b (random weights from a seed, models/testing.py) and profiles:
+  short: greedy decode at positions 0.. (kv_len grows from 1; attention is
+         negligible);
+  long:  greedy decode from the 4096-slot window onwards, over a cache
+         filled with random latents (kv_len = 4096: K3 at the full window,
+         the ring wrapped, sinks re-rotating);
+  prefill-{k9,k10}-{first,last}: one 256-token prefill chunk, with the
+         factor weights (decompressed: K9) or without (absorbed: K10), at
+         the start of the window or at its end (over 4096 filled slots).
+For each cell it prints the wall time per step or chunk (host clock around
+synchronized work), the device time per unit summed over the profiler's
 kernel events, the device's idle share, and the kernels by device time.
 Needs a CUDA GPU; exits 2 without one.
 """
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -33,52 +39,80 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def run_cell(name, params, cfg, pos0, steps, trace):
+def profile_cell(name, run, n, unit, trace):
+    """``run(k)`` does k units (decode steps or prefill chunks); time n of
+    them on the host clock, then profile n more."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deepseek_tpu_torch.models.deepseek import forward_decode
-    from deepseek_tpu_torch.models.kvcache import init_cache
-
-    cache = init_cache(cfg, device="cuda")
-    if pos0 > 0:
-        g = torch.Generator(device="cuda").manual_seed(1)
-        cache.ckv.copy_(torch.randn(cache.ckv.shape, generator=g, device="cuda"))
-        cache.krope.copy_(torch.randn(cache.krope.shape, generator=g, device="cuda"))
-    tok = torch.tensor([[1]], device="cuda")
-
-    def steps_from(p0, n):
-        nonlocal tok
-        for pos in range(p0, p0 + n):
-            tok = forward_decode(params, cache, tok, pos, cfg).argmax(-1, keepdim=True)
-
     with torch.inference_mode():
-        steps_from(pos0, 4)                          # warm-up
+        run(2)                                       # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        steps_from(pos0 + 4, steps)
+        run(n)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            steps_from(pos0 + 4 + steps, steps)
+            run(n)
             torch.cuda.synchronize()
     # device-kernel rows only: an aten op's row repeats the device time of
     # the kernels it launched, so summing every row would count it twice
-    from torch.autograd import DeviceType
     avgs = sorted((e for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA),
                   key=_device_us, reverse=True)
-    dev_ms = sum(_device_us(e) for e in avgs) / 1e3 / steps
-    print(f"[{name}] positions {pos0 + 4}..{pos0 + 4 + steps}: wall {wall_ms:.3f} "
-          f"ms/step ({1e3 / wall_ms:.1f} tok/s), device busy {dev_ms:.3f} ms/step "
-          f"(profiled window), idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
-    print(f"[{name}] device time per step by kernel:")
+    dev_ms = sum(_device_us(e) for e in avgs) / 1e3 / n
+    print(f"[{name}] wall {wall_ms:.3f} ms/{unit}, device busy {dev_ms:.3f} "
+          f"ms/{unit} (profiled window), idle share "
+          f"{max(0.0, 1 - dev_ms / wall_ms):.3f}")
+    print(f"[{name}] device time per {unit} by kernel:")
     for e in avgs[:16]:
-        us = _device_us(e) / steps
+        us = _device_us(e) / n
         if us <= 0:
             break
-        print(f"    {us:9.1f} us  x{e.count / steps:5.1f}  {e.key[:90]}")
+        print(f"    {us:9.1f} us  x{e.count / n:5.1f}  {e.key[:90]}")
     if trace:
         prof.export_chrome_trace(f"{trace}.{name}.json")
+
+
+def filled_cache(cfg):
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    cache = init_cache(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cache.ckv.copy_(torch.randn(cache.ckv.shape, generator=g, device="cuda"))
+    cache.krope.copy_(torch.randn(cache.krope.shape, generator=g, device="cuda"))
+    return cache
+
+
+def decode_cell(name, params, cfg, pos0, steps, trace):
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+
+    cache = filled_cache(cfg) if pos0 > 0 else init_cache(cfg, device="cuda")
+    state = {"tok": torch.tensor([[1]], device="cuda"), "pos": pos0}
+
+    def run(k):
+        for _ in range(k):
+            state["tok"] = forward_decode(params, cache, state["tok"], state["pos"],
+                                          cfg).argmax(-1, keepdim=True)
+            state["pos"] += 1
+    print(f"[{name}] decode from position {pos0}")
+    profile_cell(name, run, steps, "step", trace)
+
+
+def prefill_cell(name, params, cfg, pos0, chunks, trace):
+    """The same 256-token chunk prefilled at pos0 again and again (each run
+    rewrites the same slots)."""
+    from deepseek_tpu_torch.models.deepseek import forward_prefill
+
+    cache = filled_cache(cfg)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(3, cfg.vocab_size, (1, 256), generator=g, device="cuda")
+
+    def run(k):
+        for _ in range(k):
+            forward_prefill(params, cache, toks, pos0, cfg, "last")
+    print(f"[{name}] prefill chunk of 256 at position {pos0}")
+    profile_cell(name, run, chunks, "chunk", trace)
 
 
 def main() -> int:
@@ -88,6 +122,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--trace", default=None, help="chrome-trace path prefix")
     args = ap.parse_args()
 
@@ -100,9 +135,16 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = deepseek_v3_proportions(n_layers=args.layers)
-    params = random_fused_params(cfg, "q3_k_nibble", seed=0, device="cuda")
-    run_cell("short", params, cfg, 0, args.steps, args.trace)
-    run_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
+    params = random_fused_params(cfg, "q3_k_nibble", seed=0, device="cuda",
+                                 factors=True)
+    decode_cell("short", params, cfg, 0, args.steps, args.trace)
+    decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
+    absorbed = dataclasses.replace(params, layers=[
+        dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])
+    for label, p in (("k9", params), ("k10", absorbed)):
+        for where, pos0 in (("first", 0), ("last", cfg.kv_window - 256)):
+            prefill_cell(f"prefill-{label}-{where}", p, cfg, pos0, args.chunks,
+                         args.trace)
     return 0
 
 

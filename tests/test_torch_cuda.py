@@ -18,10 +18,15 @@ import torch
 from deepseek_tpu_torch.ops.kernels.attention import (
     mla_decode_attn, mla_decode_attn_plain,
 )
-from deepseek_tpu_torch.ops.kernels.qmm import (
-    qmm, qmm_experts, qmm_experts_plain, qmm_plain,
+from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+    mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
+    mla_prefill_attn_plain,
 )
-from deepseek_tpu_torch.quant.qtensor import KNibbleTensor
+from deepseek_tpu_torch.ops.kernels.qmm import (
+    gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_plain,
+    qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows,
+)
+from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
 
 
 @pytest.fixture
@@ -72,6 +77,23 @@ def test_qmm_rejects_misaligned_planes(dev):
         qmm(bad, torch.ones((1, 256), device=dev))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("d,n,rows", [(100, 256, 3), (4096, 7168, 9), (7168, 2048, 9)])
+def test_k2_plain_body_matches_plain(dtype, d, n, rows, dev):
+    """K2's plain body (a plain expert table) against its plain version,
+    with a repeated expert and a ragged row block. Tolerance 1e-4 of the
+    output scale: f32 sums of the same f32-widened products, in other
+    orders."""
+    g = torch.Generator().manual_seed(d)
+    qt = PlainTensor(data=(torch.randn((4, d, n), generator=g) * 0.05).to(dev, dtype))
+    x = torch.randn((rows, n), generator=g).to(dev)
+    idx = torch.tensor(([3, 0, 3] * 3)[:rows], device=dev)
+    before = qmm_experts_fp.launches
+    _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_fp.launches == before + 1
+
+
 def _attn_inputs(B, H, S, R, P, seed, dtype, dev):
     g = torch.Generator().manual_seed(seed)
     qc = torch.randn((B, H, R), generator=g)
@@ -109,3 +131,153 @@ def test_mla_kernel_ignores_slots_past_kv_len(dev):
     got = mla_decode_attn(*args, kl, 0.1)
     assert torch.equal(got, want)
     assert not np.isnan(got.cpu().numpy()).any()
+
+
+def _close(got, want, rel):
+    """Max abs error within ``rel`` of the output scale."""
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("rows,n", [(17, 256), (200, 512), (300, 1536)])
+def test_k1_row_tiled_matches_plain(quant, rows, n, dev):
+    """K1's row-tiled route (qmm above ROW_TILE_MIN rows) against the plain
+    version; 100 output columns leave a ragged column block. Tolerance
+    1e-4 of the output scale: f32 sums in other orders."""
+    qt = _nibble(1, 100, n, quant, seed=rows, dev=dev).map(lambda t: t[0].contiguous())
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = qmm_rows.launches
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm_rows.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+def test_k6_matches_plain(quant, dev):
+    """K6 over 5 tiles of 3 experts, with and without live-row counts; the
+    rows past a tile's count are not compared (the kernel leaves them)."""
+    E, d, n, G = 3, 200, 512, 5
+    qt = _nibble(E, d, n, quant, seed=6, dev=dev)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((G, 128, n), generator=g).to(dev)
+    te = torch.tensor([0, 0, 2, 1, 2], device=dev, dtype=torch.int32)
+    _close(qmm_grouped(qt, te, x), qmm_grouped_plain(qt, te, x), 1e-4)
+    rows = torch.tensor([128, 7, 0, 64, 1], device=dev, dtype=torch.int32)
+    got = qmm_grouped(qt, te, x, rows)
+    want = qmm_grouped_plain(qt, te, x, rows)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    _close(got[live], want[live], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_k11_matches_plain(x_dtype, w_dtype, dev):
+    """K11 against its plain version with an empty group and one of more
+    than a tile. Tolerance 1e-4 of the output scale: f32 sums of the same
+    products (the table cast to the activations' dtype on both sides)."""
+    E, n, k = 4, 136, 256
+    g = torch.Generator().manual_seed(3)
+    sizes = torch.tensor([5, 0, 150, 37], device=dev)
+    lhs = torch.randn((200, k), generator=g).to(dev, x_dtype)
+    rhs = (torch.randn((E, n, k), generator=g) * 0.1).to(dev, w_dtype)
+    got = gmm(lhs, rhs, sizes)
+    want = gmm_plain(lhs, rhs, sizes)
+    _close(got[:192], want[:192], 1e-4)
+
+
+def _prefill_inputs(B, T, H, S, DK, DV, seed, dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, T, H, DK), generator=g) * 0.3
+    k = (torch.randn((B, S, H, DK), generator=g) * 0.3).to(dtype)
+    v = (torch.randn((B, S, H, DV), generator=g) * 0.3).to(dtype)
+    return q.to(dev), k.to(dev), v.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("B,T,H,S,DK,DV,q_pos0,cache_pos0", [
+    (2, 12, 3, 64, 48, 128, 7, 0),
+    (1, 70, 2, 101, 192, 128, 30, 5),
+    (1, 256, 128, 512, 192, 128, 256, 0),
+])
+def test_k9_matches_plain(dtype, B, T, H, S, DK, DV, q_pos0, cache_pos0, dev):
+    """K9 against its plain version: ragged S and T, q_pos0 > 0, a
+    cache_pos0 offset. Tolerance 1e-4: f32 sums in other orders, fast exp."""
+    q, k, v = _prefill_inputs(B, T, H, S, DK, DV, T, dtype, dev)
+    scale = 1.0 / math.sqrt(DK)
+    _close(mha_prefill_attn(q, k, v, q_pos0, cache_pos0, scale),
+           mha_prefill_attn_plain(q, k, v, q_pos0, cache_pos0, scale), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("B,T,H,S,R,P,q_pos0,cache_pos0", [
+    (2, 10, 4, 40, 128, 16, 3, 0),
+    (1, 33, 5, 77, 512, 64, 40, 2),
+    (1, 256, 128, 512, 512, 64, 256, 0),
+])
+def test_k10_matches_plain(dtype, B, T, H, S, R, P, q_pos0, cache_pos0, dev):
+    """K10 against its plain version; tolerance as K9."""
+    g = torch.Generator().manual_seed(S)
+    qc = (torch.randn((B, T, H, R), generator=g) * 0.3).to(dev)
+    qr = (torch.randn((B, T, H, P), generator=g) * 0.3).to(dev)
+    ckv = (torch.randn((B, S, R), generator=g) * 0.3).to(dev, dtype)
+    kr = (torch.randn((B, S, P), generator=g) * 0.3).to(dev, dtype)
+    scale = 1.0 / math.sqrt(192)
+    _close(mla_prefill_attn(qc, qr, ckv, kr, q_pos0, cache_pos0, scale),
+           mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, cache_pos0, scale), 1e-4)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_bad_operands(dev):
+    """A CPU/CUDA mix, a non-contiguous plane and the unported int8 scales
+    and partials raise instead of launching."""
+    qt = _nibble(2, 16, 256, "q3_k", seed=0, dev=dev)
+    x = torch.ones((2, 128, 256), device=dev)
+    te = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        qmm_grouped(qt, te.cpu(), x)
+    with pytest.raises(ValueError):
+        qmm_grouped(qt.map(lambda t: t.cpu()), te, x)
+    with pytest.raises(ValueError):
+        qmm_grouped(qt.map(lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)), te, x)
+    with pytest.raises(ValueError):
+        qmm_rows(qt.map(lambda t: t[0].cpu()), x[0])
+    w = torch.ones((2, 16, 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        qmm_experts_fp(PlainTensor(data=w.cpu()), te[:1], x[0, :1])
+    with pytest.raises(ValueError):
+        qmm_experts_fp(PlainTensor(data=w.transpose(1, 2).contiguous().transpose(1, 2)),
+                       te[:1], x[0, :1])
+    rhs = torch.ones((2, 128, 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gmm(x[0], rhs.cpu(), torch.tensor([64, 64], device=dev))
+    with pytest.raises(ValueError):
+        gmm(x[0], rhs.transpose(1, 2).contiguous().transpose(1, 2),
+            torch.tensor([64, 64], device=dev))
+    q, k, v = _prefill_inputs(1, 4, 2, 8, 64, 128, 0, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        mha_prefill_attn(q, k.cpu(), v, 0, 0, 0.1)
+    with pytest.raises(ValueError):
+        mha_prefill_attn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 0, 0, 0.1)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mha_prefill_attn(q, k, v, 0, 0, 0.1, k_scale=torch.ones(1), v_scale=torch.ones(1))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        mha_prefill_attn(q, k, v, 0, 0, 0.1, partials=True)
+    qc = torch.ones((1, 4, 2, 128), device=dev)
+    qr = torch.ones((1, 4, 2, 64), device=dev)
+    ckv = torch.ones((1, 8, 128), device=dev, dtype=torch.bfloat16)
+    kr = torch.ones((1, 8, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mla_prefill_attn(qc, qr, ckv.cpu(), kr, 0, 0, 0.1)
+    with pytest.raises(ValueError):
+        kr_t = torch.ones((1, 64, 8), device=dev, dtype=torch.bfloat16).transpose(1, 2)
+        mla_prefill_attn(qc, qr, ckv, kr_t, 0, 0, 0.1)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, ckv_scale=torch.ones(1),
+                         krope_scale=torch.ones(1))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, partials=True)

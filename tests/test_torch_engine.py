@@ -4,7 +4,8 @@ Q2_K and Q3_K MLA+MoE checkpoints are made by ``deepseek_tpu.convert``
 from a fake HF directory (the ``test_nibble_runtime_matches_packed_engine``
 recipe) and decoded past a shrunk window, so the ring wraps and the sinks
 re-rotate. The oracle is JAX decode mode (``make_forward(prefill=False)``)
-on the CPU, i.e. the f32 dequant path; the port runs its plain versions on
+on the CPU, i.e. the f32 dequant path, and the JAX Engine for hydrate and
+generate, which prefill the prompt; the port runs its plain versions on
 the CPU. Weights reach the port two ways, ``params_from_reference`` and the
 port's own loader, and both must agree.
 """
@@ -120,9 +121,13 @@ def test_port_loader_matches_reference_params(ckpt):
 
 
 def test_greedy_tokens_identical(ckpt):
+    """The port's generate against the JAX Engine.generate: both hydrate
+    the prompt by prefill (the decompressed hybrid-MLA branch, since the
+    converted checkpoint keeps wq_b/wkv_b), then decode past the window."""
     eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu", seed=0)
     out, stats = eng.generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)
-    assert out == ckpt["tokens"][len(ckpt["prompt"]):]
+    want, _ = ckpt["jeng"].generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)
+    assert out == want
     assert stats.generated_tokens == N_NEW and stats.active_bytes_per_token > 0
 
 
@@ -140,19 +145,26 @@ def test_engine_rejects_unported_options(ckpt):
 
 def test_hydrate_collects_logprobs(ckpt):
     """hydrate's per-position log-softmax rows and target log-probs agree
-    with the JAX decode logits (tolerance 1e-2: the port's logits differ by
-    up to 1e-3 of a ~6 logit scale, see test_decode_logits_match_jax) and
-    with each other (1e-5: the same port logits, gathered two ways)."""
+    with the JAX Engine.hydrate (one prefill chunk of 8 padded to the
+    12-slot window, then decode steps past it; tolerance 2e-3 of the logit
+    scale: the logits differ by up to 1e-3 of it, see
+    test_decode_logits_match_jax, and a log-softmax row by at most twice
+    that) and with each other (1e-5: the same port logits, gathered two
+    ways)."""
     eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu")
-    toks = ckpt["tokens"][:8]
+    jeng = ckpt["jeng"]
+    toks = ckpt["tokens"][:14]
     _, last, rows, end = eng.hydrate(eng.new_cache(), toks, collect_all_logits=True)
-    lsm = torch.log_softmax(torch.from_numpy(ckpt["logits"][:8]), -1).numpy()
-    assert end == 8 and rows.shape == lsm.shape
-    np.testing.assert_allclose(rows, lsm, rtol=0, atol=1e-2)
+    _, jlast, jrows, jend = jeng.hydrate(jeng.new_cache(), toks,
+                                         collect_all_logits=True)
+    scale = np.abs(ckpt["logits"]).max()
+    assert end == jend == 14 and rows.shape == jrows.shape
+    np.testing.assert_allclose(rows, jrows, rtol=0, atol=2e-3 * scale)
+    np.testing.assert_allclose(last, jlast, rtol=0, atol=1e-3 * scale)
     np.testing.assert_allclose(rows[-1], torch.log_softmax(
         torch.from_numpy(last), -1).numpy(), rtol=0, atol=1e-6)
     _, _, lp, _ = eng.hydrate(eng.new_cache(), toks[:-1], target_tokens=toks[1:])
-    np.testing.assert_allclose(lp, rows[np.arange(7), toks[1:]], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lp, rows[np.arange(13), toks[1:]], rtol=0, atol=1e-5)
 
 
 def test_plain_weight_checkpoint_matches_jax(tmp_path):

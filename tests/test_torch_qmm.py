@@ -1,4 +1,4 @@
-"""Kernels K1 (qmm) and K2 (qmm_experts) of the port against the JAX package.
+"""Kernels K1 (qmm) and K2 (qmm_experts, nibble and plain bodies) of the port against the JAX package.
 
 The same numpy-seeded weights go through the JAX K-quant path (quantize,
 repack, nibble planes) and the Pallas kernels in interpret mode, and through
@@ -14,8 +14,9 @@ import torch
 from deepseek_tpu.ops.pallas.qmm import qmm as jax_qmm
 from deepseek_tpu.ops.pallas.qmm import qmm_experts as jax_qmm_experts
 from deepseek_tpu.quant import kquant, repack
+from deepseek_tpu.quant.qtensor import PlainTensor as JaxPlain
 from deepseek_tpu.quant.qtensor import Q2KTensor, Q3KTensor, q2k_to_nibble, q3k_to_nibble
-from deepseek_tpu_torch.ops.kernels.qmm import qmm, qmm_experts
+from deepseek_tpu_torch.ops.kernels.qmm import qmm, qmm_experts, qmm_experts_fp
 from deepseek_tpu_torch.quant import qtensor as tq
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
 
@@ -96,12 +97,33 @@ def test_k2_plain_matches_pallas_interpret(quant, B):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_k2_plain_body_matches_pallas_interpret(dtype):
+    """K2's plain body (a plain expert table, as a plain-weight checkpoint's
+    MoE pair path gives it) against the Pallas qmm_experts with its plain
+    body in interpret mode. Both widen the table to f32 and sum f32
+    products; tolerance 1e-4 of the output scale for the summation order."""
+    E, m, n, B, k = 5, 48, 256, 2, 3
+    w = rnd((E, m, n), seed=9, scale=0.1)
+    wj = jnp.asarray(w, dtype)
+    idx = np.asarray([[4, 0, 4], [2, 1, 0]], np.int32)
+    x = rnd((B, k, n), seed=10)
+    want = np.asarray(jax_qmm_experts(JaxPlain(data=wj), jnp.asarray(idx),
+                                      jnp.asarray(x), interpret=True))
+    wt = torch.from_numpy(np.array(wj.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = qmm_experts(tq.PlainTensor(data=wt), torch.from_numpy(idx),
+                      torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain versions: no launch."""
     raw = _raw(rnd((16, 256), seed=3), "q3_k")
     qt = torch_nibble(raw, "q3_k", 16, 256)
-    before = (qmm.launches, qmm_experts.launches)
+    before = (qmm.launches, qmm_experts.launches, qmm_experts_fp.launches)
     qmm(qt, torch.ones(1, 256))
     qmm_experts(qt.map(lambda t: t[None]), torch.zeros(2, dtype=torch.int64),
                 torch.ones(2, 256))
-    assert (qmm.launches, qmm_experts.launches) == before
+    qmm_experts(tq.PlainTensor(data=torch.ones(1, 16, 256)),
+                torch.zeros(2, dtype=torch.int64), torch.ones(2, 256))
+    assert (qmm.launches, qmm_experts.launches, qmm_experts_fp.launches) == before
