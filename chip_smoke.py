@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      device="cuda") and held against the same Engine on the CPU (plain
      versions); then a tiny bf16 MoE checkpoint with the factor weights,
      whose prompt puts 300 token-expert pairs in one chunk (K9, K11) and
-     whose decode steps run its bf16 expert tables (K2's plain body);
+     whose decode steps run its bf16 expert tables (K2's plain body); then a
+     tiny F16 decompressed-MHA checkpoint (the converter's default kind)
+     with a 32 MiB lm_head (K9, K11, then K8, K4, K2's plain body);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
      (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
@@ -18,10 +20,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again);
   4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
      1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
-     the shapes of the DeepSeek-V3-width model, each against its plain
-     version on the card, with its time, the plain version's time, a
+     the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
+     DeepSeek-V2-Lite (and V3's lm_head and 128 heads), each against its
+     plain version on the card, with its time, the plain version's time, a
      PyTorch library call's time where one computes the same function, and
-     its bound.
+     its bound;
+  5. DeepSeek-V2-Lite (decompressed MHA, F16) at full width and depth from
+     random weights: a 512-token prompt in 2 prefill chunks (K9, K11), then
+     greedy decode (K8, K4, K2's plain body); then its first 2 layers
+     hydrate to the 4096-slot window's edge and decode past it, against
+     the same run on the CPU.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -46,6 +54,9 @@ N_WARMUP = 4
 SEED = 0
 PREFILL_TOKENS = 512       # two chunks of the default prefill_chunk (256)
 PREFILL_DECODE = 16
+V2_LITE_LAYERS = 27        # DeepSeek-V2-Lite's full depth
+V2_LITE_DECODE = 32
+WINDOW_EDGE_DECODE = 8
 
 
 def log(*a):
@@ -91,11 +102,23 @@ def nbytes(*ts):
 # phase 2: the entry point on a tiny checkpoint
 # ---------------------------------------------------------------------------
 
+def save_tiny(path: str, cfg, tensors: dict) -> None:
+    """Write a tiny checkpoint with the port's codec: the tensors, a
+    byte-fallback vocabulary and the config's metadata."""
+    from deepseek_tpu_torch.utils.codec import pack_tokenizer_tokens, save_checkpoint
+
+    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
+    vocab += [f"tok{i}".encode() for i in range(len(vocab), cfg.vocab_size)]
+    tensors["tokenizer.tokens"] = pack_tokenizer_tokens(vocab)
+    md = cfg.to_metadata()
+    md.update(bos_token_id="1", eos_token_id="2")
+    save_checkpoint(path, [tensors], md)
+
+
 def write_tiny_checkpoint(path: str, rng) -> None:
     from deepseek_tpu_torch.config import (
         ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
     from deepseek_tpu_torch.quant.kquant import Q3K_BLOCK_BYTES, QK_K
-    from deepseek_tpu_torch.utils.codec import pack_tokenizer_tokens, save_checkpoint
 
     cfg = ModelConfig(
         dim=512, hidden_dim=1024, n_layers=2, n_heads=4, vocab_size=512,
@@ -156,12 +179,7 @@ def write_tiny_checkpoint(path: str, rng) -> None:
             t.update({f"{p}.mlp.w1.weight": q3k(c.hidden_dim, c.dim),
                       f"{p}.mlp.w3.weight": q3k(c.hidden_dim, c.dim),
                       f"{p}.mlp.w2.weight": q3k(c.dim, c.hidden_dim)})
-    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
-    vocab += [f"tok{i}".encode() for i in range(len(vocab), c.vocab_size)]
-    t["tokenizer.tokens"] = pack_tokenizer_tokens(vocab)
-    md = cfg.to_metadata()
-    md.update(bos_token_id="1", eos_token_id="2")
-    save_checkpoint(path, [t], md)
+    save_tiny(path, c, t)
 
 
 def compare_hydrate(eng, ref, toks, label):
@@ -262,8 +280,7 @@ def write_bf16_checkpoint(path: str, rng) -> None:
     decompressed head space (K9) and its MoE chunk runs K11."""
     from deepseek_tpu_torch.config import (
         ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
-    from deepseek_tpu_torch.utils.codec import (
-        _DTYPE_TO_NP, pack_tokenizer_tokens, save_checkpoint)
+    from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP
 
     c = ModelConfig(
         dim=512, hidden_dim=1024, n_layers=2, n_heads=4, vocab_size=512,
@@ -332,12 +349,94 @@ def write_bf16_checkpoint(path: str, rng) -> None:
             t.update({f"{p}.mlp.w1.weight": bf16(c.hidden_dim, c.dim),
                       f"{p}.mlp.w3.weight": bf16(c.hidden_dim, c.dim),
                       f"{p}.mlp.w2.weight": bf16(c.dim, c.hidden_dim)})
-    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
-    vocab += [f"tok{i}".encode() for i in range(len(vocab), c.vocab_size)]
-    t["tokenizer.tokens"] = pack_tokenizer_tokens(vocab)
-    md = c.to_metadata()
-    md.update(bos_token_id="1", eos_token_id="2")
-    save_checkpoint(path, [t], md)
+    save_tiny(path, c, t)
+
+
+def write_mha_checkpoint(path: str, rng) -> None:
+    """A tiny 2-layer MoE checkpoint as the converter writes one by
+    default: F16 weights, decompressed MHA (use_mla=0), no query LoRA.
+    Vocab 16384 x dim 1024 makes the lm_head 32 MiB, so its decode steps
+    take K4."""
+    from deepseek_tpu_torch.config import (
+        ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
+
+    c = ModelConfig(
+        dim=1024, hidden_dim=2048, n_layers=2, n_heads=4, vocab_size=16384,
+        max_seq_len=256, rope_theta=10000.0, norm_eps=1e-6,
+        act=ActivationType.SILU, first_k_dense_replace=1, n_shared_experts=1,
+        n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
+        routed_scaling_factor=1.0, n_group=1, norm_topk_prob=False,
+        scoring_func=ScoringFunc.SOFTMAX, topk_group=1,
+        topk_method=TopKMethod.GREEDY, has_moegate_bias=False, use_mla=False,
+        kv_lora_rank=256, q_lora_rank=0, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, weight_quant=QuantKind.F16,
+        rs_original_max_position_embeddings=128, arch="DeepseekV2ForCausalLM")
+
+    def f16(*shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float16)
+
+    def f32(*shape, scale=0.02, base=0.0):
+        return (base + rng.standard_normal(shape) * scale).astype(np.float32)
+
+    H, R, P, Dv = c.n_heads, c.kv_lora_rank, c.qk_rope_head_dim, c.v_head_dim
+    E, m, nope = c.n_routed_experts, c.moe_intermediate_size, c.qk_nope_head_dim
+    t = {"model.embed.weight": f16(c.vocab_size, c.dim, scale=1.0),
+         "model.output.weight": f16(c.vocab_size, c.dim),
+         "model.norm.weight": f32(c.dim, scale=0.1, base=1.0)}
+    for l in range(c.n_layers):
+        p = f"model.layers.{l}"
+        t.update({
+            f"{p}.attn.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.mlp.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.attn.kv_a_norm.weight": f32(R, scale=0.1, base=1.0),
+            f"{p}.attn.wkv_a.weight": f16(R + P, c.dim),
+            f"{p}.attn.wq.weight": f16(H * c.head_dim, c.dim),
+            f"{p}.attn.wkv_b.weight": f16(H * (nope + Dv), R, scale=0.05),
+            f"{p}.attn.wo.weight": f16(c.dim, H * Dv),
+        })
+        if c.is_moe_layer(l):
+            t.update({
+                f"{p}.moegate.weight": f32(E, c.dim, scale=0.05),
+                f"{p}.mlp.w1.weight": f16(E, m, c.dim),
+                f"{p}.mlp.w3.weight": f16(E, m, c.dim),
+                f"{p}.mlp.w2.weight": f16(E, c.dim, m),
+                f"{p}.shared_mlp.w1.weight": f16(m, c.dim),
+                f"{p}.shared_mlp.w3.weight": f16(m, c.dim),
+                f"{p}.shared_mlp.w2.weight": f16(c.dim, m),
+            })
+        else:
+            t.update({f"{p}.mlp.w1.weight": f16(c.hidden_dim, c.dim),
+                      f"{p}.mlp.w3.weight": f16(c.hidden_dim, c.dim),
+                      f"{p}.mlp.w2.weight": f16(c.dim, c.hidden_dim)})
+    save_tiny(path, c, t)
+
+
+def mha_entry_point_phase(counts):
+    """The converter's default kind of checkpoint (F16, MHA) through
+    Engine(device="cuda") against Engine(device="cpu"): a 100-token prompt
+    is one prefill chunk (K9; 300 token-expert pairs: K11), then 40 greedy
+    decode steps past the 128-slot window (K8, K4 on the lm_head, K2's
+    plain body on the expert tables)."""
+    from deepseek_tpu_torch.engine import Engine
+
+    rng = np.random.default_rng(SEED + 4)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_mha")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_mha_checkpoint(tmp, rng)
+    eng = Engine(tmp, device="cuda", seed=SEED)
+    ref = Engine(tmp, device="cpu", seed=SEED)
+    if eng.cfg.use_mla or eng.params.layers[0].wq is None:
+        raise RuntimeError("MHA checkpoint: expected use_mla=0 and wq")
+    prompt = [int(v) for v in rng.integers(3, 16384, 100)]
+    (out, stats), launched = drive(
+        counts, ("K2f", "K4", "K8", "K9", "K11"), "MHA entry point",
+        lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
+    log(f"MHA entry point: Engine(tiny F16 MHA .dseek, device='cuda').generate "
+        f"-> {len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+    compare_hydrate(eng, ref, (prompt + out)[:140], "MHA entry point")
+    check_greedy(ref, prompt, out, "MHA entry point")
+    return launched
 
 
 def bf16_entry_point_phase(counts):
@@ -516,7 +615,65 @@ def kernel_phase(params, cfg):
              "K3", library=sdpa)
 
     prefill_kernel_entries(params, cfg, gen, emit)
+    mha_kernel_entries(gen, emit)
     return entries
+
+
+def mha_kernel_entries(gen, emit):
+    """K4 at DeepSeek-V2-Lite's three large F16 weights (1 and 8 rows) and
+    at DeepSeek-V3's bf16 lm_head; K8 over the 4096-slot bf16 MHA cache at
+    V2-Lite's 16 heads and V3's 128 (Dh 192, Dv 128), kv_len 68 and 4000."""
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mha_decode_attn, mha_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import qmm, qmm_fp_plain
+    from deepseek_tpu_torch.quant.qtensor import PlainTensor
+
+    # Tolerance 1e-5 of max|ref|: f32 sums of the same f32-widened products
+    # in other orders.
+    shapes = [("lm_head (V2-Lite)", 102400, 2048, torch.float16, (1, 8)),
+              ("w13 dense (V2-Lite)", 21888, 2048, torch.float16, (1, 8)),
+              ("w2 dense (V2-Lite)", 2048, 10944, torch.float16, (1, 8)),
+              ("lm_head (V3)", 129280, 7168, torch.bfloat16, (1,))]
+    for label, d, n, dt, rows_list in shapes:
+        qt = PlainTensor(data=(torch.randn((d, n), generator=gen, device="cuda")
+                               * 0.02).to(dt))
+        for rows in rows_list:
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            emit(f"K4 qmm plain {str(dt)[6:]} {label} {rows}x{d}x{n}",
+                 lambda: qmm(qt, x), lambda: qmm_fp_plain(qt, x), 1e-5,
+                 nbytes(x, qt.data) + 4 * rows * d, 2.0 * rows * d * n,
+                 "deepseek_tpu_torch/csrc/qmm.cu",
+                 "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _plain_body :305, "
+                 "pallas_call :329)", "K4",
+                 library=lambda: torch.matmul(x.to(dt), qt.data.t()))
+        del qt
+
+    # K8. Tolerance 1e-4 of max|ref|: f32 sums over thousands of slots in
+    # other orders, fast exp. The yardstick is SDPA over head-major copies
+    # with the slots past kv_len masked (the port never calls it).
+    S, Dh, Dv = 4096, 192, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for H in (16, 128):
+        q = torch.randn((1, H, Dh), generator=gen, device="cuda")
+        k = (torch.randn((1, S, H, Dh), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+        v = torch.randn((1, S, H, Dv), generator=gen, device="cuda").to(torch.bfloat16)
+        qh = q[:, :, None].to(torch.bfloat16)
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+        for kv in (68, 4000):
+            kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
+            mask = (torch.arange(S, device="cuda") < kv)[None, None, None]
+            scale = 1.0 / math.sqrt(Dh)
+            emit(f"K8 mha_decode_attn bf16 cache S={S} kv_len={kv} H={H} "
+                 f"Dh={Dh} Dv={Dv}",
+                 lambda: mha_decode_attn(q, k, v, kl, scale),
+                 lambda: mha_decode_attn_plain(q, k, v, kl, scale), 1e-4,
+                 kv * H * (Dh + Dv) * 2 + nbytes(q) + 4 * H * Dv,
+                 2.0 * H * kv * (Dh + Dv),
+                 "deepseek_tpu_torch/csrc/mha_decode.cu",
+                 "deepseek_tpu/ops/pallas/attention.py:320 (mha_decode_attn, "
+                 "_mha_body :245, pallas_call :370)", "K8",
+                 library=lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=scale))
+        del k, v, kh, vh
 
 
 def prefill_kernel_entries(params, cfg, gen, emit):
@@ -776,14 +933,173 @@ def prefill_phase(params, cfg, counts):
     return launched, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 5: DeepSeek-V2-Lite, the converter's default checkpoint, full size
+# ---------------------------------------------------------------------------
+
+def v2_lite_phase(counts):
+    """Random F16 DeepSeek-V2-Lite at full width and depth (decompressed
+    MHA, ~31.4 GB) hydrates a 512-token prompt through hydrate_cache (two
+    chunks of 256: K9, K11) and decodes greedily (K8, K4, K2's plain body).
+    Returns (launches, params, cfg): the window-edge phase reuses the
+    first layers."""
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.loader import params_active_bytes
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v2_lite_proportions, random_plain_params)
+
+    cfg = deepseek_v2_lite_proportions(n_layers=V2_LITE_LAYERS)
+    if cfg.n_layers < 27:
+        log(f"V2-Lite: depth cut from 27 to {cfg.n_layers} layers (widths uncut)")
+    t0 = time.perf_counter()
+    params = random_plain_params(cfg, torch.float16, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(nbytes(t.data) for lp in params.layers for t in vars(lp).values()
+                  if hasattr(t, "data")) + nbytes(params.embed.data, params.lm_head.data)
+    log(f"V2-Lite: random F16 model, {cfg.n_layers} layers, {w_bytes / 1e9:.2f} GB "
+        f"of weights, built on the card in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    prompt = torch.randint(3, cfg.vocab_size, (PREFILL_TOKENS,), generator=gen,
+                           device="cuda").tolist()
+    chunk, split = 256, {}
+
+    def run():
+        cache = init_cache(cfg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        marks = []
+
+        def progress(i, n):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        _, last, _, pos = hydrate_cache(params, cfg, cache, prompt,
+                                        prefill_chunk=chunk, progress=progress)
+        split["prefill"] = read(counts)
+        if last.shape != (cfg.vocab_size,) or not np.isfinite(last).all():
+            raise RuntimeError(f"V2-Lite prefill logits {last.shape} not finite")
+        tok = torch.tensor([[int(last.argmax())]], device="cuda")
+        toks = [int(tok)]
+        with torch.inference_mode():
+            for i in range(N_WARMUP + V2_LITE_DECODE):
+                if i == N_WARMUP:
+                    torch.cuda.synchronize()
+                    t_dec = time.perf_counter()
+                logits = forward_decode(params, cache, tok, pos + i, cfg)
+                tok = logits.argmax(-1, keepdim=True)
+                toks.append(int(tok))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t_dec
+        if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise RuntimeError("V2-Lite decode logits not finite")
+        return [b - a for a, b in zip(marks, marks[1:])], dt, toks, pos
+
+    (walls, dt, toks, pos), launched = drive(
+        counts, ("K2f", "K4", "K8", "K9", "K11"), "V2-Lite", run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_tok = params_active_bytes(params, cfg, pos + (N_WARMUP + V2_LITE_DECODE) // 2)
+    tps = V2_LITE_DECODE / dt
+    n_steps = N_WARMUP + V2_LITE_DECODE
+    pre = split["prefill"]
+    dec = {k: launched[k] - pre[k] for k in launched}
+    log(f"V2-Lite prefill: {PREFILL_TOKENS} tokens in {len(walls)} chunks of {chunk}: "
+        f"{PREFILL_TOKENS / sum(walls):.1f} tok/s, wall per chunk "
+        f"{[round(w * 1e3, 3) for w in walls]} ms (the first includes first-call setup)")
+    log(f"V2-Lite decode: {V2_LITE_DECODE} greedy steps after {N_WARMUP} warm-up "
+        f"(positions {pos}..{pos + n_steps - 1}): {tps:.2f} tok/s, "
+        f"{per_tok * tps / 1e9:.1f} GB/s of {per_tok / 1e9:.3f} GB active bytes/token "
+        f"(byte bound {per_tok / HBM_BYTES_PER_S * 1e3:.3f} ms/token = "
+        f"{HBM_BYTES_PER_S / per_tok:.0f} tok/s); tokens {toks[:12]}")
+    log(f"V2-Lite: peak device memory {peak:.2f} GiB")
+    log(f"V2-Lite launches per chunk "
+        f"{ {k: pre[k] / len(walls) for k in ('K2f', 'K4', 'K8', 'K9', 'K11')} }, "
+        f"per decode token "
+        f"{ {k: dec[k] / n_steps for k in ('K2f', 'K4', 'K8', 'K9', 'K11')} }")
+    for k in ("K4", "K8", "K2f"):
+        if dec[k] == 0:
+            raise RuntimeError(f"V2-Lite decode never launched {k}")
+    for k in ("K9", "K11"):
+        if pre[k] == 0:
+            raise RuntimeError(f"V2-Lite prefill never launched {k}")
+    return launched, params, cfg
+
+
+def window_edge_phase(params, cfg, counts):
+    """The first 2 layers of the V2-Lite model hydrate a 4096-token prompt
+    (16 chunks: up to the window's edge), then decode 8 greedy steps past
+    it: the sinks' rope parts re-rotate and K8 attends over all 4096 slots.
+    The same run on the CPU (plain versions) is the reference: the last
+    logits within 1e-3 of their scale, the greedy tokens its argmax (or a
+    near-tie within that tolerance). Compute in f32, cache in f16: the
+    Engine's defaults for a converted checkpoint."""
+    import dataclasses
+
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32",
+                               kv_cache_dtype="float16")
+    gpu = dataclasses.replace(params, layers=params.layers[:2])
+    to_cpu = lambda t: None if t is None else (
+        t.cpu() if isinstance(t, torch.Tensor) else type(t)(data=t.data.cpu()))
+    cpu = dataclasses.replace(
+        gpu, embed=to_cpu(gpu.embed), lm_head=to_cpu(gpu.lm_head),
+        final_norm=gpu.final_norm.cpu(),
+        layers=[dataclasses.replace(lp, **{f: to_cpu(v) for f, v in vars(lp).items()})
+                for lp in gpu.layers])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    S = cfg2.kv_window
+    prompt = torch.randint(3, cfg.vocab_size, (S,), generator=gen, device="cuda").tolist()
+
+    def run(p, device, forced=None):
+        cache = init_cache(cfg2, device=device)
+        _, last, _, pos = hydrate_cache(p, cfg2, cache, prompt, prefill_chunk=256)
+        logits, toks, rows = torch.from_numpy(last)[None], [], []
+        with torch.inference_mode():
+            for i in range(WINDOW_EDGE_DECODE):
+                tok = int(logits.argmax()) if forced is None else forced[i]
+                toks.append(tok)
+                rows.append(logits[0].float().cpu())
+                logits = forward_decode(p, cache, torch.tensor([[tok]], device=device),
+                                        pos + i, cfg2)
+        rows.append(logits[0].float().cpu())
+        return toks, torch.stack(rows)
+
+    (toks, got), launched = drive(counts, ("K8", "K9", "K11", "K4", "K2f"),
+                                  "window edge", lambda: run(gpu, "cuda"))
+    _, want = run(cpu, "cpu", forced=toks)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    log(f"window edge: 2 V2-Lite layers, {S}-token prompt in {-(-S // 256)} chunks, then "
+        f"{WINDOW_EDGE_DECODE} greedy steps past the window (K8 at kv_len {S}): "
+        f"logits vs CPU plain max abs err {err:.3e} (tolerance {1e-3 * scale:.3e}); "
+        f"tokens {toks}")
+    if not (torch.isfinite(got).all() and err <= 1e-3 * scale):
+        raise RuntimeError("window-edge logits disagree with the CPU run")
+    for i, tok in enumerate(toks):
+        want_tok = int(want[i].argmax())
+        if tok != want_tok and float(want[i, want_tok] - want[i, tok]) > 1e-3 * scale:
+            raise RuntimeError(f"window edge: greedy token {tok} at step {i}, "
+                               f"CPU says {want_tok}")
+    return launched
+
+
 def counters():
-    from deepseek_tpu_torch.ops.kernels.attention import mla_decode_attn
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mha_decode_attn, mla_decode_attn)
     from deepseek_tpu_torch.ops.kernels.prefill_attn import (
         mha_prefill_attn, mla_prefill_attn)
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_grouped, qmm_rows)
+        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_fp, qmm_grouped, qmm_rows)
     return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
-            "K3": mla_decode_attn, "K6": qmm_grouped, "K9": mha_prefill_attn,
+            "K3": mla_decode_attn, "K4": qmm_fp, "K6": qmm_grouped,
+            "K8": mha_decode_attn, "K9": mha_prefill_attn,
             "K10": mla_prefill_attn, "K11": gmm}
 
 
@@ -813,13 +1129,14 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(build.SIGNATURES)}")
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     time_ms.flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
     counts = counters()
 
     runs = {"entry point": entry_point_phase(counts),
-            "bf16 entry point": bf16_entry_point_phase(counts)}
+            "bf16 entry point": bf16_entry_point_phase(counts),
+            "MHA entry point": mha_entry_point_phase(counts)}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -833,12 +1150,17 @@ def main() -> int:
 
     log("kernels (each against its plain version on the card):")
     entries = kernel_phase(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    runs["V2-Lite"], v2_params, v2_cfg = v2_lite_phase(counts)
+    runs["window edge"] = window_edge_phase(v2_params, v2_cfg, counts)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",
                "K6": "full-width prefill", "K9": "full-width prefill",
                "K10": "full-width prefill", "K2f": "bf16 entry point",
-               "K11": "bf16 entry point"}
+               "K11": "bf16 entry point", "K4": "V2-Lite", "K8": "V2-Lite"}
     for e in entries:
         kernel = e.pop("kernel")
         e["launches"] = runs[path_of[kernel]][kernel]

@@ -3,9 +3,10 @@
 // Replaces the TPU kernels deepseek_tpu/ops/pallas/qmm.py::qmm with
 // _knib_body (K1: every dense projection and the lm_head) and
 // ::qmm_experts with _knib_body (K2: the gathered-expert form, one expert
-// id per activation row; the MoE tables and the per-head wv_b), and K2's
+// id per activation row; the MoE tables and the per-head wv_b), K2's
 // plain body (qmm.py:651: an f32, f16 or bf16 expert table, the MoE
-// tables of a plain-weight checkpoint) at the end of this file.
+// tables of a plain-weight checkpoint) and K4, qmm's plain body (qmm.py:
+// 305, the large plain weights at <= 8 rows), after the nibble kernel.
 //
 //   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
 //             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
@@ -347,7 +348,191 @@ cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
   return cudaGetLastError();
 }
 
+// K4, the plain-weight matvec (qmm.py:305 _plain_body, launched at :329 for
+// plain weights of at least 32 MiB at <= 8 activation rows: the lm_head and
+// the large dense FFN weights): y[b, r] = sum_c x[b, c] * float(W[r, c]).
+// Bound: bytes; every weight row is read once for all NB rows of x. A
+// block handles tiles of kMvRows = 8 output rows; its 8 warps are 2 row
+// groups of 4 rows x 4 column quarters, so the contraction of a long row
+// (w2: 10944 columns, 21 KB) is split across the warps of the block and
+// reduced in shared memory. A lane reads 16-byte weight vectors
+// (coalesced: a warp instruction covers 512 contiguous bytes of one row),
+// two column steps of its 4 rows in flight at once, widened to f32 in
+// registers. The NB x rows are staged in shared memory a column chunk at a
+// time (8 rows of 10944 floats would not fit), at most 64 KB a chunk. The
+// grid holds only as many blocks as fit on the card at once, each walking
+// row tiles: where x fits in one chunk it is staged once per block, not
+// once per tile (at 8 rows, restaging it for every 8-row tile would read
+// twice the weight's bytes from L2).
+constexpr int kMvThreads = 256;
+constexpr int kMvRows = 8;          // output rows per tile
+constexpr int kMvRowsPerWarp = 4;
+constexpr int kMvQuarters = 4;      // column splits per row group
+constexpr int kMvSmemFloats = 16384;
+
+template <typename WT, int NB>
+__global__ void __launch_bounds__(kMvThreads)
+plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                float* __restrict__ y, int d, int n, int chunk) {
+  constexpr int kVec = 16 / sizeof(WT);
+  constexpr int kStride = 32 * kMvQuarters;      // vectors between a lane's steps
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [NB][chunk]
+  __shared__ float red[kMvQuarters][kMvRows][NB];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp / kMvQuarters, cq = warp % kMvQuarters;
+  const bool one_chunk = chunk >= n;
+  auto stage = [&](int c0, int cc) {
+    for (int i = tid; i < NB * (cc / 4); i += kMvThreads) {
+      const int b = i / (cc / 4), j = i - b * (cc / 4);
+      reinterpret_cast<float4*>(xs + b * chunk)[j] =
+          __ldg(reinterpret_cast<const float4*>(x + (size_t)b * n + c0) + j);
+    }
+  };
+  if (one_chunk) stage(0, n);
+
+  const int tiles = (d + kMvRows - 1) / kMvRows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kMvRows + rg * kMvRowsPerWarp;
+    const WT* wr[kMvRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
+      wr[rr] = w + (size_t)min(row0 + rr, d - 1) * n;   // clamped: stores masked
+
+    float acc[kMvRowsPerWarp][NB];
+#pragma unroll
+    for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[rr][b] = 0.f;
+
+    for (int c0 = 0; c0 < n; c0 += chunk) {
+      const int cc = min(chunk, n - c0);
+      if (!one_chunk) {
+        __syncthreads();                   // the previous chunk is consumed
+        stage(c0, cc);
+      }
+      __syncthreads();
+      const int nv = cc / kVec;
+      for (int vi = cq * 32 + lane; vi < nv; vi += 2 * kStride) {
+        const bool two = vi + kStride < nv;
+        uint4 raw[2][kMvRowsPerWarp];
+#pragma unroll
+        for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
+          const uint4* src = reinterpret_cast<const uint4*>(wr[rr] + c0);
+          raw[0][rr] = __ldg(src + vi);
+          raw[1][rr] = two ? __ldg(src + vi + kStride) : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (u == 1 && !two) break;
+          const int col = (vi + u * kStride) * kVec;
+          // the 4 rows' weights widened once; the x rows one at a time
+          float wv[kMvRowsPerWarp][kVec];
+#pragma unroll
+          for (int rr = 0; rr < kMvRowsPerWarp; ++rr) widen<WT>(raw[u][rr], wv[rr]);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            float xv[kVec];
+#pragma unroll
+            for (int k = 0; k < kVec; k += 4) {
+              const float4 f = *reinterpret_cast<const float4*>(xs + b * chunk + col + k);
+              xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
+            }
+#pragma unroll
+            for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
+#pragma unroll
+              for (int k = 0; k < kVec; ++k)
+                acc[rr][b] = fmaf(xv[k], wv[rr][k], acc[rr][b]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        float s = acc[rr][b];
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+        if (lane == 0) red[cq][rg * kMvRowsPerWarp + rr][b] = s;
+      }
+    __syncthreads();
+    if (tid < kMvRows * NB) {
+      const int r = tid / NB, b = tid % NB;
+      const int row = tile * kMvRows + r;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMvQuarters; ++q) s += red[q][r][b];
+      if (row < d) y[(size_t)b * d + row] = s;
+    }
+    __syncthreads();                       // red is read before the next tile
+  }
+}
+
+template <typename WT, int NB>
+cudaError_t launch_mv(const float* x, const void* w, float* y, int d, int n,
+                      cudaStream_t stream) {
+  // the x chunk: a multiple of 64 columns (whole weight vectors), <= 64 KB
+  const int chunk = min(n, kMvSmemFloats / NB / 64 * 64);
+  const size_t smem = (size_t)NB * chunk * sizeof(float);
+  static int sms = 0;
+  if (sms == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        plain_mv_kernel<WT, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMvSmemFloats * (int)sizeof(float));
+    int dev = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  // as many blocks as the card holds at once with this launch's x chunk
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, plain_mv_kernel<WT, NB>, kMvThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = min((d + kMvRows - 1) / kMvRows, max(1, per_sm) * sms);
+  plain_mv_kernel<WT, NB><<<grid, kMvThreads, smem, stream>>>(
+      x, static_cast<const WT*>(w), y, d, n, chunk);
+  return cudaGetLastError();
+}
+
+template <typename WT>
+cudaError_t dispatch_mv(const float* x, const void* w, float* y, int rows_x,
+                        int d, int n, cudaStream_t stream) {
+  switch (rows_x) {
+    case 1: return launch_mv<WT, 1>(x, w, y, d, n, stream);
+    case 2: return launch_mv<WT, 2>(x, w, y, d, n, stream);
+    case 3: return launch_mv<WT, 3>(x, w, y, d, n, stream);
+    case 4: return launch_mv<WT, 4>(x, w, y, d, n, stream);
+    case 5: return launch_mv<WT, 5>(x, w, y, d, n, stream);
+    case 6: return launch_mv<WT, 6>(x, w, y, d, n, stream);
+    case 7: return launch_mv<WT, 7>(x, w, y, d, n, stream);
+    case 8: return launch_mv<WT, 8>(x, w, y, d, n, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// y (rows_x, d) f32 = x (rows_x, n) f32 @ W (d, n).T, W in f32 (kind 2),
+// f16 (3) or bf16 (4), contiguous and 16-byte aligned (K4). Needs 1 <=
+// rows_x <= 8 and n % 64 == 0. Returns a cudaError_t; the launch is
+// asynchronous on `stream`.
+extern "C" int plain_mv(const void* x, const void* w, int kind, void* y,
+                        int rows_x, int d, int n, void* stream) {
+  if (rows_x < 1 || rows_x > 8 || d <= 0 || n <= 0 || n % 64 != 0 ||
+      kind < 2 || kind > 4)
+    return (int)cudaErrorInvalidValue;
+  auto xs = static_cast<const float*>(x);
+  auto ys = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kind == 2) return (int)dispatch_mv<float>(xs, w, ys, rows_x, d, n, st);
+  if (kind == 3) return (int)dispatch_mv<__half>(xs, w, ys, rows_x, d, n, st);
+  return (int)dispatch_mv<__nv_bfloat16>(xs, w, ys, rows_x, d, n, st);
+}
 
 // y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32. Planes p
 // (E, d, n/2) u8, a and c (E, d, n/16) bf16 (c may be null); idx (rows_x,)

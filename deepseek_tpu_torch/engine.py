@@ -78,7 +78,7 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
     or step."""
     window = cfg.kv_window
     C = max(1, int(prefill_chunk))
-    device = cache.ckv.device
+    device = cache.device
     N = len(tokens)
     last_logits = None
     collect = collect_all_logits or target_tokens is not None

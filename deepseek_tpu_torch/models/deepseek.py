@@ -17,6 +17,12 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   the grouped products (K6, K11) where the widths allow, the
   dense-over-experts einsums otherwise. Projections at many rows take
   K1's row-tiled route.
+- A ``use_mla=0`` checkpoint (the converter's default) takes the
+  decompressed-MHA branch in both modes: queries from ``wq`` (or
+  ``wq_a``/``wq_b``), keys and values decompressed through ``wkv_b`` and
+  cached per head; decode re-rotates only the rope part of the sink keys
+  and attends through K8, prefill through K9. Large plain weights at few
+  rows (the lm_head, the dense FFN of DeepSeek-V2-Lite) take K4.
 
 On CPU tensors every kernel runs its plain version.
 """
@@ -32,7 +38,7 @@ from deepseek_tpu_torch.models.kvcache import KVCache, ring_positions, write_row
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams, embed_lookup
 from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.gating import moe_gate
-from deepseek_tpu_torch.ops.kernels.attention import mla_decode_attn
+from deepseek_tpu_torch.ops.kernels.attention import mha_decode_attn, mla_decode_attn
 from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mha_prefill_attn, mla_prefill_attn,
 )
@@ -66,18 +72,87 @@ def _rotation_only(yarn):
 
 def _latent_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                    pos_bt: torch.Tensor):
-    """The MLA projections both modes share: xb (B,T,dim) at positions
-    pos_bt (B,T) -> (ckv (B,T,R), k_rope (B,T,P) f32, q_a (B,T,q_lora))."""
+    """The projections every attention path and mode shares: xb (B,T,dim)
+    at positions pos_bt (B,T) -> (ckv (B,T,R), k_rope (B,T,P) f32, q_a
+    (B,T,q_lora), or None for a checkpoint without a query LoRA)."""
     R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     if lp.wkvq is not None:
         kvq = qmatmul(lp.wkvq, xb)
         kv_a, q_a_raw = kvq[..., :R + P], kvq[..., R + P:]
     else:
-        kv_a, q_a_raw = qmatmul(lp.wkv_a, xb), qmatmul(lp.wq_a, xb)
+        kv_a = qmatmul(lp.wkv_a, xb)
+        q_a_raw = qmatmul(lp.wq_a, xb) if lp.wq_a is not None else None
     k_rope = apply_rope(kv_a[..., R:].float(), pos_bt, cfg.rope_theta,
                         cfg.has_moegate_bias, cfg.yarn_params())
     ckv = rmsnorm(kv_a[..., :R], lp.kv_a_norm, cfg.norm_eps)
-    return ckv, k_rope, rmsnorm(q_a_raw, lp.q_a_norm, cfg.norm_eps)
+    q_a = None if q_a_raw is None else rmsnorm(q_a_raw, lp.q_a_norm, cfg.norm_eps)
+    return ckv, k_rope, q_a
+
+
+def _mha_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
+                pos_bt: torch.Tensor):
+    """Decompressed-MHA projections (BlockMHA, infer.cpp:935-1049;
+    deepseek_tpu/models/deepseek.py:499-514): xb (B,T,dim) at positions
+    pos_bt (B,T) -> q (B,T,H,Dh) f32 with rope on its last P dims, k
+    (B,T,H,Dh) f32 = [k_nope, the rope key shared by every head], v
+    (B,T,H,Dv) in xb's dtype. The queries come from ``wq``, or from
+    ``wq_a`` -> ``q_a_norm`` -> ``wq_b`` where the checkpoint has a query
+    LoRA."""
+    B, T, _ = xb.shape
+    H, P = cfg.n_heads, cfg.qk_rope_head_dim
+    nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
+    q = qmatmul(lp.wq_b, q_a) if q_a is not None else qmatmul(lp.wq, xb)
+    q = q.reshape(B, T, H, cfg.head_dim).float()
+    q_pe = apply_rope(q[..., nope:], pos_bt[..., None], cfg.rope_theta,
+                      cfg.has_moegate_bias, cfg.yarn_params())
+    q = torch.cat([q[..., :nope], q_pe], dim=-1)
+    kv_b = qmatmul(lp.wkv_b, ckv).reshape(B, T, H, nope + Dv)
+    k = torch.cat([kv_b[..., :nope].float(),
+                   k_rope[:, :, None, :].expand(B, T, H, P)], dim=-1)
+    return q, k, kv_b[..., nope:]
+
+
+def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
+                   cache: KVCache, layer: int, pos: torch.Tensor,
+                   kv_pos: torch.Tensor, kv_len: torch.Tensor,
+                   kv_sink: torch.Tensor) -> torch.Tensor:
+    """Decompressed-MHA decode (deepseek.py:579-635). xb (B,1,dim)."""
+    B = xb.shape[0]
+    H, nope, Dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q, k, v = _mha_inputs(lp, cfg, xb, pos[:, None])
+    bidx = torch.arange(B, device=xb.device)
+    k_l, v_l = cache.k[layer], cache.v[layer]                 # (B,S,H,.)
+    k_l[bidx, kv_pos] = k[:, 0].to(k_l.dtype)
+    v_l[bidx, kv_pos] = v[:, 0].to(v_l.dtype)
+    # the sink re-rotation by +1 touches only the rope part of each key
+    sink = k_l[:, :KV_SINKS, :, nope:]
+    rot = apply_rope(sink.float(), 1, cfg.rope_theta, cfg.has_moegate_bias,
+                     _rotation_only(cfg.yarn_params()))
+    keep = (kv_sink > 0)[:, None, None, None]
+    k_l[:, :KV_SINKS, :, nope:] = torch.where(keep, rot.to(k_l.dtype), sink)
+    out = mha_decode_attn(q[:, 0], k_l, v_l, kv_len, cfg.attn_softmax_scale())
+    return qmatmul(lp.wo, out.reshape(B, 1, H * Dv).to(xb.dtype))
+
+
+def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
+                           cache: KVCache, layer: int, pos0: int) -> torch.Tensor:
+    """Decompressed-MHA attention of a prefill chunk xb (B,T,dim) at
+    positions pos0.. (deepseek.py:548-578): the chunk's keys and values go
+    into the cache at slot pos0, then the chunk attends causally over the
+    cached heads (slot == position)."""
+    B, T, _ = xb.shape
+    H, Dv = cfg.n_heads, cfg.v_head_dim
+    pos_bt = (pos0 + torch.arange(T, device=xb.device)).expand(B, T)
+    q, k, v = _mha_inputs(lp, cfg, xb, pos_bt)
+    write_rows(cache, layer, k, v, pos0)
+    # On the card the port always launches K9 here. The JAX package's
+    # _use_flash_prefill (deepseek.py:195-200) would take its einsum at
+    # DeepSeek-V2-Lite's T=256, S=4096, H=16 (64 MB of f32 scores, under its
+    # 256 MB threshold); K9 never holds the (B,H,T,S) scores in memory.
+    out = mha_prefill_attn(q, cache.k[layer], cache.v[layer], pos0, 0,
+                           cfg.attn_softmax_scale())
+    return qmatmul(lp.wo, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
 def _absorbed_queries(lp: LayerParams, cfg: ModelConfig, q_a: torch.Tensor,
@@ -270,9 +345,10 @@ def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg):
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
                     kv_len, kv_sink, cfg: ModelConfig) -> torch.Tensor:
     """The transformer layers, unrolled, over x (B,1,dim)."""
+    attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + _attention(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink)
+        x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
         x = x + _ffn(lp, cfg, xb, layer)
     return x
@@ -300,13 +376,10 @@ def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                    pos0, cfg: ModelConfig) -> torch.Tensor:
     """One decode step: tokens (B,1) at position ``pos0`` -> logits (B,V)
-    float32. Writes this step's latent rows into ``cache`` in place."""
+    float32. Writes this step's cache rows into ``cache`` in place."""
     B, T = tokens.shape
     if T != 1:
         raise ValueError("decode processes one token per sequence per call")
-    if not cfg.use_mla:
-        raise NotImplementedError(
-            "decompressed-MHA decode is not ported yet (ROADMAP.md queue 1, item 5)")
     pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg)
@@ -318,7 +391,7 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     """One prefill chunk: tokens (B,T) at positions pos0..pos0+T-1 (a
     shared int; pos0 + T <= kv_window) -> logits per ``logits_mode``:
     "last" (B,V), "all" (B,T,V) float32, or "none" (None). Writes the
-    chunk's latent rows into ``cache`` in place. The port has no mesh, so
+    chunk's cache rows into ``cache`` in place. The port has no mesh, so
     context and sequence parallelism do not arise (ROADMAP.md queue 1,
     item 14)."""
     B, T = tokens.shape
@@ -327,19 +400,16 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
             "verify mode (per-sequence chunk positions) is not ported yet "
             "(ROADMAP.md queue 1, item 11)")
     pos0 = int(pos0)
-    if not cfg.use_mla:
-        raise NotImplementedError(
-            "decompressed-MHA prefill is not ported yet (ROADMAP.md queue 1, "
-            "item 5)")
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
     if pos0 + T > cfg.kv_window:
         raise ValueError(f"prefill at {pos0}..{pos0 + T - 1} crosses the "
                          f"{cfg.kv_window}-slot window; decode steps go on past it")
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
+    attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
     for layer, lp in enumerate(params.layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + _attention_prefill(lp, cfg, xb, cache, layer, pos0)
+        x = x + attend(lp, cfg, xb, cache, layer, pos0)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
         x = x + _ffn(lp, cfg, xb, layer, prefill=True)
     if logits_mode == "none":

@@ -1,10 +1,12 @@
-"""Ring-buffer + attention-sink latent KV cache (absorbed MLA).
+"""Ring-buffer + attention-sink KV cache, for either attention path.
 
 ``kv_window`` slots per layer (the reference windows at
 ``rs_original_max_position_embeddings``, infer.cpp:1271-1277). Past the
 window, slots are replaced in ring order while the first ``KV_SINKS``
 slots hold StreamingLLM sinks whose rope chunk is re-rotated by +1 every
-step. MLA caches only the shared latent + rope key per slot.
+step. Absorbed MLA caches only the shared latent + rope key per slot
+(``ckv``/``krope``); the decompressed-MHA path caches every head's key
+and value (``k``/``v``). The other pair is None.
 
 Unlike the JAX package's immutable arrays, the port updates the cache in
 place: one write per layer per step, no copy of the cache.
@@ -13,7 +15,7 @@ place: one write per layer per step, no copy of the cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,33 +27,46 @@ _CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
 
 @dataclasses.dataclass
 class KVCache:
-    ckv: torch.Tensor     # (L, B, S, kv_lora_rank)
-    krope: torch.Tensor   # (L, B, S, qk_rope_head_dim)
+    # absorbed MLA
+    ckv: Optional[torch.Tensor] = None     # (L, B, S, kv_lora_rank)
+    krope: Optional[torch.Tensor] = None   # (L, B, S, qk_rope_head_dim)
+    # decompressed MHA
+    k: Optional[torch.Tensor] = None       # (L, B, S, H, head_dim)
+    v: Optional[torch.Tensor] = None       # (L, B, S, H, v_head_dim)
+
+    def _first(self) -> torch.Tensor:
+        return self.k if self.k is not None else self.ckv
 
     @property
     def batch(self) -> int:
-        return self.ckv.shape[1]
+        return self._first().shape[1]
 
     @property
     def window(self) -> int:
-        return self.ckv.shape[2]
+        return self._first().shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self._first().device
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.ckv, self.krope))
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ckv, self.krope, self.k, self.v) if t is not None)
 
 
 def init_cache(cfg: ModelConfig, batch: int = 1, device="cpu") -> KVCache:
-    if not cfg.use_mla:
-        raise NotImplementedError(
-            "the decompressed-MHA cache is not ported yet (ROADMAP.md queue 1, "
-            "item 5: MHA decode)")
     dt = _CACHE_DTYPES.get(str(cfg.kv_cache_dtype))
     if dt is None:
         raise NotImplementedError(
             f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 cache is not "
             "ported yet (ROADMAP.md queue 1, item 10)")
     L, S = cfg.n_layers, cfg.kv_window
+    if not cfg.use_mla:
+        H = cfg.n_heads
+        return KVCache(
+            k=torch.zeros((L, batch, S, H, cfg.head_dim), dtype=dt, device=device),
+            v=torch.zeros((L, batch, S, H, cfg.v_head_dim), dtype=dt, device=device))
     return KVCache(
         ckv=torch.zeros((L, batch, S, cfg.kv_lora_rank), dtype=dt, device=device),
         krope=torch.zeros((L, batch, S, cfg.qk_rope_head_dim), dtype=dt,
@@ -73,14 +88,17 @@ def ring_positions(cfg: ModelConfig, pos: torch.Tensor
     return kv_sink, kv_pos, kv_len
 
 
-def write_rows(cache: KVCache, layer: int, ckv: torch.Tensor,
-               krope: torch.Tensor, start: int) -> None:
-    """Prefill write: ckv (B,T,R) and krope (B,T,P) into slots start ..
-    start+T-1 of ``layer``, in place. Prefill runs only while start + T <=
-    window, so slot == position and no sink rotates."""
-    T = ckv.shape[1]
+def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
+               second: torch.Tensor, start: int) -> None:
+    """Prefill write into slots start .. start+T-1 of ``layer``, in place:
+    the latent rows ckv (B,T,R) and krope (B,T,P) of an MLA cache, or the
+    keys (B,T,H,head_dim) and values (B,T,H,v_head_dim) of an MHA cache.
+    Prefill runs only while start + T <= window, so slot == position and no
+    sink rotates."""
+    T = first.shape[1]
     if start < 0 or start + T > cache.window:
         raise ValueError(f"prefill rows {start}..{start + T - 1} leave the "
                          f"{cache.window}-slot window")
-    cache.ckv[layer, :, start:start + T] = ckv.to(cache.ckv.dtype)
-    cache.krope[layer, :, start:start + T] = krope.to(cache.krope.dtype)
+    a, b = (cache.k, cache.v) if cache.k is not None else (cache.ckv, cache.krope)
+    a[layer, :, start:start + T] = first.to(a.dtype)
+    b[layer, :, start:start + T] = second.to(b.dtype)

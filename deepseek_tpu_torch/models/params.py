@@ -29,10 +29,10 @@ class LayerParams:
     # attention projections (checkpoint layout: (out, in))
     wkv_a: QT = None                 # (kv_lora_rank + qk_rope_head_dim, dim)
     wo: QT = None                    # (dim, n_heads * v_head_dim)
-    wq: QT = None                    # decompressed-MHA path (not in this slice)
+    wq: QT = None                    # (n_heads * head_dim, dim) — MHA, no q LoRA
     wq_a: QT = None                  # (q_lora_rank, dim)
-    wq_b: QT = None                  # (n_heads * head_dim, q_lora_rank) — prefill
-    wkv_b: QT = None                 # (n_heads * (nope + v), kv_lora_rank) — prefill
+    wq_b: QT = None                  # (n_heads * head_dim, q_lora_rank) — MHA, MLA prefill
+    wkv_b: QT = None                 # (n_heads * (nope + v), kv_lora_rank) — MHA, MLA prefill
     wc: QT = None                    # (n_heads * kv_lora_rank, q_lora_rank)
     wq_rope_b: QT = None             # (n_heads * qk_rope_head_dim, q_lora_rank)
     wv_b: QT = None                  # (n_heads * v_head_dim, kv_lora_rank)

@@ -1,8 +1,10 @@
 """Random-weight models built directly on the device (benchmarks, smoke runs).
 
 Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
-nibble part of ``random_fused_params``: planes are synthesized in their
-final runtime layout from a seeded ``torch.Generator`` on the target device,
+nibble part of ``random_fused_params``, and adds DeepSeek-V2-Lite's
+proportions with a plain-weight model (``random_plain_params``): weights
+are synthesized in their final runtime layout from a seeded
+``torch.Generator`` on the target device,
 one random 2-D block per projection, repeated across an expert stack
 (throughput does not depend on the values, and every expert still has its
 own bytes at its own address).
@@ -42,6 +44,80 @@ def deepseek_v3_proportions(n_layers: int = 61, **overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+def deepseek_v2_lite_proportions(n_layers: int = 27, **overrides) -> ModelConfig:
+    """DeepSeek-V2-Lite's architecture hyperparameters (config.json of
+    deepseek-ai/DeepSeek-V2-Lite): dim 2048, 27 layers, 16 heads, no query
+    LoRA, kv_lora 512, 64 routed experts + 2 shared, k=6, softmax greedy
+    routing, first layer dense (10944), m=1408, vocab 102400. As the
+    converter writes it by default: decompressed MHA (use_mla=0) in F16;
+    compute and cache in bf16 as bench.py's V2-Lite config. YaRN stays
+    off: the window is the original 4096 positions."""
+    base = dict(
+        dim=2048, hidden_dim=10944, n_layers=n_layers, n_heads=16,
+        vocab_size=102400, max_seq_len=4096, rope_theta=10000.0,
+        norm_eps=1e-6, act=ActivationType.SILU, first_k_dense_replace=1,
+        n_shared_experts=2, n_routed_experts=64, n_active_routed=6,
+        moe_intermediate_size=1408, routed_scaling_factor=1.0, n_group=1,
+        norm_topk_prob=False, scoring_func=ScoringFunc.SOFTMAX,
+        topk_group=1, topk_method=TopKMethod.GREEDY, has_moegate_bias=False,
+        use_mla=False, kv_lora_rank=512, q_lora_rank=0,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        weight_quant=QuantKind.F16, rs_factor=40.0, rs_mscale=0.707,
+        rs_mscale_all_dim=0.707, rs_original_max_position_embeddings=4096,
+        arch="DeepseekV2ForCausalLM",
+        compute_dtype="bfloat16", kv_cache_dtype="bfloat16",
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def random_plain_params(cfg: ModelConfig, dtype=torch.float16, seed: int = 7,
+                        device="cuda") -> ModelParams:
+    """Random plain-weight (``dtype`` f16/bf16/f32) decompressed-MHA model
+    without a query LoRA (DeepSeek-V2-Lite's layout), as
+    ``loader.fuse_projections`` leaves a plain checkpoint: ``wq``,
+    ``wkv_a``, ``wkv_b`` and ``wo``, the dense FFN as w13/w2, the shared
+    experts folded into w13s/w2s. Weights are normal(0, 0.02) blocks from
+    a seeded generator on the device; an expert table repeats one block
+    across its experts."""
+    if cfg.use_mla or cfg.q_lora_rank > 0:
+        raise ValueError("random_plain_params builds MHA models without a "
+                         "query LoRA (use_mla=False, q_lora_rank=0)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def w(*shape):
+        *lead, rows, cols = shape
+        blk = (torch.randn((rows, cols), generator=gen, device=device) * 0.02).to(dtype)
+        return PlainTensor(data=blk if not lead else
+                           blk.expand(*lead, rows, cols).contiguous())
+
+    def ones(n):
+        return torch.ones(n, device=device)
+
+    c = cfg
+    H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
+    E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
+    layers = []
+    for l in range(c.n_layers):
+        moe = c.is_moe_layer(l)
+        layers.append(LayerParams(
+            attn_norm=ones(c.dim), ffn_norm=ones(c.dim), kv_a_norm=ones(R),
+            wq=w(H * c.head_dim, c.dim), wkv_a=w(R + P, c.dim),
+            wkv_b=w(H * (c.qk_nope_head_dim + Dv), R), wo=w(c.dim, H * Dv),
+            w13=None if moe else w(2 * c.hidden_dim, c.dim),
+            w2=None if moe else w(c.dim, c.hidden_dim),
+            moegate=(torch.randn((E, c.dim), generator=gen, device=device) * 0.02
+                     if moe else None),
+            moegate_bias=(torch.zeros(E, device=device)
+                          if moe and c.has_moegate_bias else None),
+            w13s=w(E + ns, 2 * m, c.dim) if moe else None,
+            w2s=w(E + ns, c.dim, m) if moe else None,
+        ))
+    return ModelParams(embed=w(c.vocab_size, c.dim), layers=layers,
+                       final_norm=ones(c.dim), lm_head=w(c.vocab_size, c.dim))
 
 
 def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,

@@ -1,11 +1,12 @@
-"""Attention, plain PyTorch: absorbed-MLA decode and the chunked prefill.
+"""Attention, plain PyTorch: decode (MHA and absorbed MLA) and the chunked
+prefill.
 
-``decode_attn_mla``, ``prefill_attn_mha`` and ``prefill_attn_mla`` port the
-functions of the same names in ``deepseek_tpu/ops/attention.py``. They are
-the plain versions of kernels K3 (ops.kernels.attention), K9 and K10
-(ops.kernels.prefill_attn). In the MLA forms scores live in the shared
-latent space, MQA-style: one (kv_lora_rank + rope) cache row serves every
-head. Decode masks the valid prefix ``kv_len`` of the ring buffer; prefill
+``decode_attn_mha``, ``decode_attn_mla``, ``prefill_attn_mha`` and
+``prefill_attn_mla`` port the functions of the same names in
+``deepseek_tpu/ops/attention.py``. They are the plain versions of kernels
+K8, K3 (ops.kernels.attention), K9 and K10 (ops.kernels.prefill_attn). In
+the MLA forms scores live in the shared latent space, MQA-style: one
+(kv_lora_rank + rope) cache row serves every head. Decode masks the valid prefix ``kv_len`` of the ring buffer; prefill
 masks by the position each slot holds.
 """
 
@@ -16,6 +17,25 @@ import math
 import torch
 
 _NEG_INF = -1e30
+
+
+def _len_mask(kv_len, B: int, S: int, device) -> torch.Tensor:
+    """(B, 1, S) mask of the valid cache slots; kv_len int or (B,)."""
+    kv_len = torch.as_tensor(kv_len, device=device).reshape(-1)
+    return (torch.arange(S, device=device)[None, None, :]
+            < kv_len.expand(B)[:, None, None])
+
+
+def decode_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, kv_len, softmax_scale=None) -> torch.Tensor:
+    """Decompressed-MHA decode: q (B,H,Dh), k_cache (B,S,H,Dh), v_cache
+    (B,S,H,Dv), kv_len int or (B,) -> (B,H,Dv) float32."""
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), k_cache.float()) * scale
+    w = _masked_softmax(scores, _len_mask(kv_len, B, S, scores.device))
+    return torch.einsum("bhs,bshv->bhv", w, v_cache.float())
 
 
 def decode_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
@@ -30,13 +50,7 @@ def decode_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
     scores = (torch.einsum("bhr,bsr->bhs", q_c.float(), ckv)
               + torch.einsum("bhp,bsp->bhs", q_rope.float(),
                              krope_cache.float())) * scale
-    kv_len = torch.as_tensor(kv_len, device=ckv.device).reshape(-1)
-    mask = (torch.arange(S, device=ckv.device)[None, None, :]
-            < kv_len.expand(B)[:, None, None])
-    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    e = torch.where(mask, e, torch.zeros_like(e))
-    w = e / e.sum(dim=-1, keepdim=True)
+    w = _masked_softmax(scores, _len_mask(kv_len, B, S, ckv.device))
     return torch.einsum("bhs,bsr->bhr", w, ckv)
 
 

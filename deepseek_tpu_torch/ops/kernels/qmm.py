@@ -1,9 +1,11 @@
-"""Kernels K1, K2, K6 and K11: quantized and grouped matrix products.
+"""Kernels K1, K2, K4, K6 and K11: quantized, plain and grouped matrix
+products.
 
 - ``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with
   ``_knib_body`` (K1). Up to ``ROW_TILE_MIN`` rows it launches the matvec
   of ``csrc/qmm.cu``; above, its row-tiled route ``qmm_rows`` launches the
-  tile GEMM of ``csrc/qmm_tiles.cu``.
+  tile GEMM of ``csrc/qmm_tiles.cu``. A plain weight goes to ``qmm_fp``,
+  ``::qmm`` with ``_plain_body`` (K4: at most 8 rows; ``csrc/qmm.cu``).
 - ``qmm_experts`` replaces ``::qmm_experts`` with ``_knib_body`` (K2, one
   expert id per activation row; ``csrc/qmm.cu``). A plain f32/f16/bf16
   table goes to ``qmm_experts_fp``, K2's plain body (``qmm.py:651``; the
@@ -154,9 +156,12 @@ def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d):
     check(err, "tile_gemm")
 
 
-def qmm(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
+def qmm(qt, x: torch.Tensor) -> torch.Tensor:
     """K1: x (..., n) @ W (d, n).T -> (..., d) float32. More than
-    ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``)."""
+    ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``). A plain
+    weight takes ``qmm_fp`` (K4)."""
+    if isinstance(qt, PlainTensor):
+        return qmm_fp(qt, x)
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -171,6 +176,50 @@ def qmm(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
         return qmm_rows(qt, x2).reshape(*lead, d)
     y = _launch(qt, x2, None, d)
     qmm.launches += 1
+    return y.reshape(*lead, d)
+
+
+# The JAX package sends a plain weight through its Pallas body only from
+# this size on, at <= PLAIN_KERNEL_MAX_ROWS rows, with both widths % 128
+# (qmm.py:302, :326-327); ops.matmul.qmatmul keeps that condition for K4.
+PLAIN_KERNEL_MIN_BYTES = 32 * 1024 * 1024
+PLAIN_KERNEL_MAX_ROWS = 8
+
+
+def qmm_fp_plain(qt: PlainTensor, x: torch.Tensor) -> torch.Tensor:
+    """x (..., n) @ W (d, n).T, W widened to f32 -> (..., d) float32."""
+    return torch.matmul(x.float(), qt.data.float().t())
+
+
+def qmm_fp(qt: PlainTensor, x: torch.Tensor) -> torch.Tensor:
+    """K4, qmm's plain body: x (..., n) with at most 8 rows @ a plain
+    f32/f16/bf16 weight W (d, n).T, widened to f32 in registers ->
+    (..., d) float32. Each weight row is read once for all rows."""
+    if x.device.type == "cpu":
+        return qmm_fp_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_fp runs on cuda or cpu tensors, not {x.device}")
+    w = qt.data
+    lead, n = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, n).float().contiguous()
+    rows = x2.shape[0]
+    if w.dim() != 2 or w.shape[1] != n or not 1 <= rows <= PLAIN_KERNEL_MAX_ROWS:
+        raise ValueError(f"qmm_fp: W {tuple(w.shape)}, x {tuple(x.shape)} "
+                         f"(1 to {PLAIN_KERNEL_MAX_ROWS} rows)")
+    if w.device != x.device or w.dtype not in _PLAIN_KIND \
+            or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"qmm_fp: need a contiguous, 16-byte aligned "
+                         f"f32/f16/bf16 weight on {x.device}, got {w.dtype} on "
+                         f"{w.device}, contiguous={w.is_contiguous()}")
+    if n % 64:
+        raise ValueError(f"qmm_fp needs in-features % 64 == 0, got {n}")
+    d = w.shape[0]
+    y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    err = library("qmm").plain_mv(
+        x2.data_ptr(), w.data_ptr(), _PLAIN_KIND[w.dtype], y.data_ptr(), rows,
+        d, n, torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "plain_mv")
+    qmm_fp.launches += 1
     return y.reshape(*lead, d)
 
 
@@ -326,6 +375,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 qmm.launches = 0
+qmm_fp.launches = 0
 qmm_rows.launches = 0
 qmm_experts.launches = 0
 qmm_experts_fp.launches = 0

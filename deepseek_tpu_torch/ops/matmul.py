@@ -2,8 +2,9 @@
 
 ``qmatmul`` applies a stored projection ``W (out, in)`` to ``x (..., in)``
 (reference dispatcher infer.cpp:381-417; ``deepseek_tpu/ops/matmul.py::
-qmatmul``): nibble weights go through kernel K1, plain weights through one
-matrix product. ``dispatch_pairs`` is the single-device (ep == 1) part of
+qmatmul``): nibble weights go through kernel K1, large plain weights at
+few rows through K4 (the lm_head and the large dense FFN weights in
+decode), other plain weights through one matrix product. ``dispatch_pairs`` is the single-device (ep == 1) part of
 ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``.
 
 The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
@@ -23,8 +24,20 @@ from typing import Tuple
 import torch
 
 from deepseek_tpu_torch.ops.activations import glu_act
-from deepseek_tpu_torch.ops.kernels.qmm import gmm, qmm, qmm_grouped
+from deepseek_tpu_torch.ops.kernels.qmm import (
+    PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, gmm, qmm, qmm_grouped,
+)
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
+
+
+def plain_kernel_route(qt: PlainTensor, rows: int) -> bool:
+    """The JAX condition (``deepseek_tpu/ops/pallas/qmm.py:326-327``) for a
+    plain weight (d, n) to take qmm's kernel (K4) rather than one matrix
+    product: at most 8 rows, both widths % 128, at least 32 MiB."""
+    d, n = qt.data.shape[-2:]
+    return (qt.data.dim() == 2 and 1 <= rows <= PLAIN_KERNEL_MAX_ROWS
+            and n % 128 == 0 and d % 128 == 0
+            and qt.data.numel() * qt.data.element_size() >= PLAIN_KERNEL_MIN_BYTES)
 
 
 def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +45,8 @@ def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
     if isinstance(qt, KNibbleTensor):
         return qmm(qt, x).to(x.dtype)
     if isinstance(qt, PlainTensor):
+        if plain_kernel_route(qt, x.numel() // x.shape[-1]):
+            return qmm(qt, x).to(x.dtype)
         return torch.matmul(x.float(), qt.data.float().t()).to(x.dtype)
     raise TypeError(f"unsupported weight {type(qt).__name__}")
 

@@ -1,19 +1,24 @@
 """Where a decode step's and a prefill chunk's time goes in the
 PyTorch/CUDA port (one GPU).
 
-    python scripts/torch_profile_decode.py [--layers 4] [--steps 16]
-                                           [--chunks 4] [--trace out.json]
+    python scripts/torch_profile_decode.py [--model v3|v2-lite] [--layers N]
+                                           [--steps 16] [--chunks 4]
+                                           [--trace out.json]
 
-Builds the DeepSeek-V3-width nibble model with the factor weights wq_b /
-wkv_b (random weights from a seed, models/testing.py) and profiles:
+``--model v3`` (the default) builds the DeepSeek-V3-width nibble model
+with the factor weights wq_b / wkv_b, 4 layers unless --layers says
+otherwise; ``--model v2-lite`` builds the F16 decompressed-MHA
+DeepSeek-V2-Lite, all 27 layers unless --layers says otherwise (random
+weights from a seed, models/testing.py). It profiles:
   short: greedy decode at positions 0.. (kv_len grows from 1; attention is
          negligible);
   long:  greedy decode from the 4096-slot window onwards, over a cache
-         filled with random latents (kv_len = 4096: K3 at the full window,
-         the ring wrapped, sinks re-rotating);
+         filled with random rows (kv_len = 4096: K3, or K8 for V2-Lite, at
+         the full window, the ring wrapped, sinks re-rotating);
   prefill-{k9,k10}-{first,last}: one 256-token prefill chunk, with the
-         factor weights (decompressed: K9) or without (absorbed: K10), at
-         the start of the window or at its end (over 4096 filled slots).
+         factor weights (decompressed: K9) or without (absorbed: K10; V3
+         only), at the start of the window or at its end (over 4096
+         filled slots).
 For each cell it prints the wall time per step or chunk (host clock around
 synchronized work), the device time per unit summed over the profiler's
 kernel events, the device's idle share, and the kernels by device time.
@@ -78,8 +83,9 @@ def filled_cache(cfg):
     from deepseek_tpu_torch.models.kvcache import init_cache
     cache = init_cache(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
-    cache.ckv.copy_(torch.randn(cache.ckv.shape, generator=g, device="cuda"))
-    cache.krope.copy_(torch.randn(cache.krope.shape, generator=g, device="cuda"))
+    for t in (cache.ckv, cache.krope, cache.k, cache.v):
+        if t is not None:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
     return cache
 
 
@@ -120,7 +126,9 @@ def main() -> int:
         print("torch_profile_decode: no CUDA GPU visible", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--model", choices=("v3", "v2-lite"), default="v3")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: 4 for v3, 27 for v2-lite)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--trace", default=None, help="chrome-trace path prefix")
@@ -128,20 +136,27 @@ def main() -> int:
 
     import subprocess
     from deepseek_tpu_torch.models.testing import (
-        deepseek_v3_proportions, random_fused_params)
+        deepseek_v2_lite_proportions, deepseek_v3_proportions,
+        random_fused_params, random_plain_params)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = deepseek_v3_proportions(n_layers=args.layers)
-    params = random_fused_params(cfg, "q3_k_nibble", seed=0, device="cuda",
-                                 factors=True)
+    if args.model == "v2-lite":
+        cfg = deepseek_v2_lite_proportions(n_layers=args.layers or 27)
+        params = random_plain_params(cfg, torch.float16, seed=0, device="cuda")
+        variants = (("k9", params),)
+    else:
+        cfg = deepseek_v3_proportions(n_layers=args.layers or 4)
+        params = random_fused_params(cfg, "q3_k_nibble", seed=0, device="cuda",
+                                     factors=True)
+        variants = (("k9", params), ("k10", dataclasses.replace(params, layers=[
+            dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])))
+    print(f"model: {args.model}, {cfg.n_layers} layers")
     decode_cell("short", params, cfg, 0, args.steps, args.trace)
     decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
-    absorbed = dataclasses.replace(params, layers=[
-        dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])
-    for label, p in (("k9", params), ("k10", absorbed)):
+    for label, p in variants:
         for where, pos0 in (("first", 0), ("last", cfg.kv_window - 256)):
             prefill_cell(f"prefill-{label}-{where}", p, cfg, pos0, args.chunks,
                          args.trace)

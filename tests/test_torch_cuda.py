@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from deepseek_tpu_torch.ops.kernels.attention import (
-    mla_decode_attn, mla_decode_attn_plain,
+    mha_decode_attn, mha_decode_attn_plain, mla_decode_attn,
+    mla_decode_attn_plain,
 )
 from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
@@ -24,7 +25,7 @@ from deepseek_tpu_torch.ops.kernels.prefill_attn import (
 )
 from deepseek_tpu_torch.ops.kernels.qmm import (
     gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_plain,
-    qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows,
+    qmm_fp, qmm_fp_plain, qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows,
 )
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
 
@@ -232,6 +233,63 @@ def test_k10_matches_plain(dtype, B, T, H, S, R, P, q_pos0, cache_pos0, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("d,n", [(300, 256), (2048, 10944), (4096, 2048)])
+def test_k4_matches_plain(dtype, rows, d, n, dev):
+    """K4 (qmm on a plain weight) against its plain version: a ragged
+    row block (300 rows), the V2-Lite w2 width (10944 columns: several x
+    chunks at 8 rows). Tolerance 1e-5 of the output scale: f32 sums of the
+    same f32-widened products in other orders."""
+    g = torch.Generator().manual_seed(d + rows)
+    qt = PlainTensor(data=(torch.randn((d, n), generator=g) * 0.05).to(dev, dtype))
+    x = torch.randn((rows, n), generator=g).to(dev)
+    before = qmm_fp.launches
+    _close(qmm(qt, x), qmm_fp_plain(qt, x), 1e-5)
+    assert qmm_fp.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("B,H,S,Dh,Dv,kv_len", [
+    (1, 16, 4096, 192, 128, [4000]),
+    (1, 16, 4096, 192, 128, [68]),
+    (1, 128, 4096, 192, 128, [4000]),
+    (2, 3, 40, 24, 16, [37, 1]),
+    (1, 20, 301, 64, 256, [301]),
+])
+def test_k8_matches_plain(dtype, B, H, S, Dh, Dv, kv_len, dev):
+    """K8 against its plain version: the V2-Lite and V3 widths, a ragged
+    head group (20 heads), B = 2 with ragged lengths. Tolerance 1e-4 of the
+    output scale: f32 sums over up to 4096 slots in other orders, fast
+    exp."""
+    g = torch.Generator().manual_seed(S + H)
+    q = torch.randn((B, H, Dh), generator=g).to(dev)
+    k = (torch.randn((B, S, H, Dh), generator=g) * 0.3).to(dev, dtype)
+    v = torch.randn((B, S, H, Dv), generator=g).to(dev, dtype)
+    kl = torch.tensor(kv_len, device=dev)
+    scale = 1.0 / math.sqrt(Dh)
+    before = mha_decode_attn.launches
+    _close(mha_decode_attn(q, k, v, kl, scale),
+           mha_decode_attn_plain(q, k, v, kl, scale), 1e-4)
+    assert mha_decode_attn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k8_ignores_slots_past_kv_len(dev):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 16, 192), generator=g).to(dev)
+    k = torch.randn((1, 64, 16, 192), generator=g).to(dev, torch.bfloat16)
+    v = torch.randn((1, 64, 16, 128), generator=g).to(dev, torch.bfloat16)
+    kl = torch.tensor([40], device=dev)
+    want = mha_decode_attn(q, k, v, kl, 0.1)
+    k[:, 40:] = float("nan")
+    v[:, 40:] = float("nan")
+    got = mha_decode_attn(q, k, v, kl, 0.1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_new_wrappers_reject_bad_operands(dev):
     """A CPU/CUDA mix, a non-contiguous plane and the unported int8 scales
     and partials raise instead of launching."""
@@ -281,3 +339,13 @@ def test_new_wrappers_reject_bad_operands(dev):
                          krope_scale=torch.ones(1))
     with pytest.raises(NotImplementedError, match="item 14"):
         mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, partials=True)
+    wp = PlainTensor(data=torch.ones((128, 256), device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        qmm_fp(wp, torch.ones((9, 256), device=dev))
+    with pytest.raises(ValueError):
+        qmm_fp(PlainTensor(data=wp.data.cpu()), torch.ones((1, 256), device=dev))
+    with pytest.raises(ValueError):
+        mha_decode_attn(q[:, 0], k.cpu(), v, torch.tensor([8], device=dev), 0.1)
+    with pytest.raises(ValueError):
+        mha_decode_attn(q[:, 0], k[..., :60], v[..., :60],
+                        torch.tensor([8], device=dev), 0.1)

@@ -227,9 +227,6 @@ def test_prefill_rejects_unported_modes(ckpt):
     tok = torch.tensor([[5, 6]])
     with pytest.raises(NotImplementedError, match="item 11"):
         forward_prefill(eng.params, eng.new_cache(), tok, torch.tensor([0]), eng.cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        forward_prefill(eng.params, eng.new_cache(), tok, 0,
-                        dataclasses.replace(eng.cfg, use_mla=False))
     with pytest.raises(ValueError, match="window"):
         forward_prefill(eng.params, eng.new_cache(), tok, WINDOW - 1, eng.cfg)
 
