@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      whose prompt puts 300 token-expert pairs in one chunk (K9, K11) and
      whose decode steps run its bf16 expert tables (K2's plain body); then a
      tiny F16 decompressed-MHA checkpoint (the converter's default kind)
-     with a 32 MiB lm_head (K9, K11, then K8, K4, K2's plain body);
+     with a 32 MiB lm_head (K9, K11, then K8, K4, K2's plain body); then a
+     tiny absorbed-MLA F8E5M2 checkpoint with 128x128 block scales (K5
+     row-tiled, K6's fp8 body, K9, then K5, K2's fp8 body, K3);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
      (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
@@ -21,15 +23,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
   4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
      1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
      the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
-     DeepSeek-V2-Lite (and V3's lm_head and 128 heads), each against its
-     plain version on the card, with its time, the plain version's time, a
-     PyTorch library call's time where one computes the same function, and
-     its bound;
+     DeepSeek-V2-Lite (and V3's lm_head and 128 heads), and the fp8 bodies
+     of K5 (matvec and row-tiled), K2 and K6 at DeepSeek-V2-Lite's F8E5M2
+     shapes, each against its plain version on the card, with its time,
+     the plain version's time, a PyTorch library call's time where one
+     computes the same function, and its bound;
   5. DeepSeek-V2-Lite (decompressed MHA, F16) at full width and depth from
      random weights: a 512-token prompt in 2 prefill chunks (K9, K11), then
      greedy decode (K8, K4, K2's plain body); then its first 2 layers
      hydrate to the 4096-slot window's edge and decode past it, against
-     the same run on the CPU.
+     the same run on the CPU; then the same model in F8E5M2 with 128x128
+     blocks (K5 row-tiled, K6's fp8 body, K9; then K5, K2's fp8 body, K8),
+     and its first 2 layers against the CPU over a 300-token prompt.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -56,7 +61,8 @@ PREFILL_TOKENS = 512       # two chunks of the default prefill_chunk (256)
 PREFILL_DECODE = 16
 V2_LITE_LAYERS = 27        # DeepSeek-V2-Lite's full depth
 V2_LITE_DECODE = 32
-WINDOW_EDGE_DECODE = 8
+CUT_DECODE = 8             # decode steps of the 2-layer cuts held against the CPU
+FP8_CUT_PROMPT = 300       # the fp8 cut: a chunk of 256 and one of 44
 
 
 def log(*a):
@@ -466,6 +472,118 @@ def bf16_entry_point_phase(counts):
     return launched
 
 
+def write_fp8_checkpoint(path: str, rng) -> None:
+    """A tiny absorbed-MLA MoE checkpoint in F8E5M2 with 128x128 block
+    scales, as the converter writes one (quantized with the port's
+    quant/fp8.py and written with its codec, which needs no ml_dtypes): it
+    keeps the factor weights wq_b/wkv_b, and its wkv_a (576 rows) and dense
+    FFN (1088 wide) have partial edge blocks."""
+    from deepseek_tpu_torch.config import (
+        ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
+    from deepseek_tpu_torch.quant.fp8 import blockwise_quantize
+    from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP
+
+    c = ModelConfig(
+        dim=512, hidden_dim=1088, n_layers=2, n_heads=4, vocab_size=512,
+        max_seq_len=256, rope_theta=10000.0, norm_eps=1e-6,
+        act=ActivationType.SILU, first_k_dense_replace=1, n_shared_experts=1,
+        n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
+        routed_scaling_factor=2.5, n_group=2, norm_topk_prob=True,
+        scoring_func=ScoringFunc.SIGMOID, topk_group=1,
+        topk_method=TopKMethod.NOAUX_TC, has_moegate_bias=True, use_mla=True,
+        kv_lora_rank=512, q_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, weight_quant=QuantKind.F8E5M2,
+        block_size=(128, 128), rs_original_max_position_embeddings=128,
+        arch="DeepseekV3ForCausalLM")
+
+    def fp8(name, w):
+        """name.weight (fp8 bytes, per expert grids for a stack) and
+        name.scale (f32) from a float weight."""
+        mats = [w] if w.ndim == 2 else list(w)
+        qs, ss = zip(*(blockwise_quantize(torch.from_numpy(np.ascontiguousarray(
+            m, np.float32)), c.block_size) for m in mats))
+        q = torch.stack(qs) if w.ndim == 3 else qs[0]
+        s = torch.stack(ss) if w.ndim == 3 else ss[0]
+        return {f"{name}.weight": q.view(torch.uint8).numpy().view(_DTYPE_TO_NP["F8_E5M2"]),
+                f"{name}.scale": s.numpy()}
+
+    def rnd(*shape, scale=0.02):
+        return rng.standard_normal(shape) * scale
+
+    def f32(*shape, scale=0.02, base=0.0):
+        return (base + rng.standard_normal(shape) * scale).astype(np.float32)
+
+    H, R, P, Dv, ql = c.n_heads, c.kv_lora_rank, c.qk_rope_head_dim, c.v_head_dim, c.q_lora_rank
+    E, m, nope = c.n_routed_experts, c.moe_intermediate_size, c.qk_nope_head_dim
+    t = {"model.norm.weight": f32(c.dim, scale=0.1, base=1.0)}
+    t.update(fp8("model.embed", rnd(c.vocab_size, c.dim, scale=1.0)))
+    t.update(fp8("model.output", rnd(c.vocab_size, c.dim)))
+    for l in range(c.n_layers):
+        p = f"model.layers.{l}"
+        t.update({
+            f"{p}.attn.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.mlp.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+            f"{p}.attn.kv_a_norm.weight": f32(R, scale=0.1, base=1.0),
+            f"{p}.attn.q_a_norm.weight": f32(ql, scale=0.1, base=1.0),
+        })
+        q_b = rnd(H, nope + P, ql, scale=0.05)
+        kv_b = rnd(H, nope + Dv, R, scale=0.05)
+        # the absorption of deepseek_tpu/convert.py:350-371
+        for k, w in (("wkv_a", rnd(R + P, c.dim)), ("wq_a", rnd(ql, c.dim)),
+                     ("wo", rnd(c.dim, H * Dv)), ("wq_b", q_b.reshape(-1, ql)),
+                     ("wkv_b", kv_b.reshape(-1, R)),
+                     ("wc", np.einsum("hnr,hnq->hrq", kv_b[:, :nope],
+                                      q_b[:, :nope]).reshape(-1, ql)),
+                     ("wq_rope_b", q_b[:, nope:].reshape(-1, ql)),
+                     ("wv_b", kv_b[:, nope:].reshape(-1, R))):
+            t.update(fp8(f"{p}.attn.{k}", w))
+        if c.is_moe_layer(l):
+            t.update({f"{p}.moegate.weight": f32(E, c.dim, scale=0.05),
+                      f"{p}.moegate.bias": f32(E, scale=0.01)})
+            for k, shape in (("mlp.w1", (E, m, c.dim)), ("mlp.w3", (E, m, c.dim)),
+                             ("mlp.w2", (E, c.dim, m)), ("shared_mlp.w1", (m, c.dim)),
+                             ("shared_mlp.w3", (m, c.dim)), ("shared_mlp.w2", (c.dim, m))):
+                t.update(fp8(f"{p}.{k}", rnd(*shape)))
+        else:
+            for k, shape in (("w1", (c.hidden_dim, c.dim)), ("w3", (c.hidden_dim, c.dim)),
+                             ("w2", (c.dim, c.hidden_dim))):
+                t.update(fp8(f"{p}.mlp.{k}", rnd(*shape)))
+    save_tiny(path, c, t)
+
+
+def fp8_entry_point_phase(counts):
+    """The tiny F8E5M2 MLA checkpoint through Engine(device="cuda") against
+    Engine(device="cpu"): a 100-token prompt is one prefill chunk with 300
+    token-expert pairs (K6's fp8 body), its projections and wkv_b over the
+    window on K5's row-tiled route, attention through K9; then 40 greedy
+    decode steps past the 128-slot window (K5's matvec, K2's fp8 body on
+    the expert tables and the per-head wv_b, K3)."""
+    from deepseek_tpu_torch.engine import Engine
+
+    rng = np.random.default_rng(SEED + 7)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_fp8")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_fp8_checkpoint(tmp, rng)
+    eng = Engine(tmp, device="cuda", seed=SEED)
+    ref = Engine(tmp, device="cpu", seed=SEED)
+    lp0, lp1 = eng.params.layers
+    if not (eng.cfg.block_size == (128, 128) and lp1.w13s is not None
+            and lp0.wkv_b is not None and lp0.wkv_a.shape[0] % 128
+            and lp0.w1.shape[0] % 128):
+        raise RuntimeError("fp8 checkpoint: expected 128x128 blocks, folded "
+                           "experts, factor weights, ragged wkv_a and w1")
+    prompt = [int(v) for v in rng.integers(3, 512, 100)]
+    (out, stats), launched = drive(
+        counts, ("K3", "K5", "K5r", "K2-fp8", "K6-fp8", "K9"), "fp8 entry point",
+        lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
+    log(f"fp8 entry point: Engine(tiny F8E5M2 MLA .dseek, device='cuda').generate "
+        f"-> {len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+    compare_hydrate(eng, ref, (prompt + out)[:140], "fp8 entry point")
+    check_greedy(ref, prompt, out, "fp8 entry point")
+    return launched
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at the V3 slice's shapes
 # ---------------------------------------------------------------------------
@@ -527,6 +645,7 @@ def kernel_phase(params, cfg):
             f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})"
             + (f", library {entry['library_ms']:.4f} ms" if library else ""))
         entries.append(entry)
+        return entry
 
     # K1 over every dense projection shape of the path; Q3_K from the model
     # itself, Q2_K (with its min plane) synthesized at the same shapes.
@@ -616,7 +735,142 @@ def kernel_phase(params, cfg):
 
     prefill_kernel_entries(params, cfg, gen, emit)
     mha_kernel_entries(gen, emit)
+    fp8_kernel_entries(gen, emit)
     return entries
+
+
+def rand_fp8(gen, lead, d, n, block=(128, 128)):
+    """A random blockwise F8E5M2 weight or table on the card: normal bf16
+    values cast to e5m2, scales uniform in [0.005, 0.02] on the ceil grid."""
+    from deepseek_tpu_torch.quant.qtensor import Fp8Tensor
+    data = torch.randn((d, n), generator=gen, device="cuda").to(torch.bfloat16) \
+        .to(torch.float8_e5m2).view(torch.uint8)
+    sc = torch.rand((-(-d // block[0]), -(-n // block[1])), generator=gen,
+                    device="cuda") * 0.015 + 0.005
+    if lead:
+        data = data.expand(lead, d, n).contiguous()
+        sc = sc.expand(lead, *sc.shape).contiguous()
+    return Fp8Tensor(data=data.view(torch.float8_e5m2), scale=sc, block_size=block)
+
+
+def fp8_kernel_entries(gen, emit):
+    """The fp8 bodies at DeepSeek-V2-Lite's F8E5M2 shapes (128x128 blocks):
+    K5's matvec (the lm_head, wq, the ragged wkv_a and dense w2) at 1 and 8
+    rows, its row-tiled route (wq over a 256-token chunk, wkv_b over the
+    4096-slot window), K2's fp8 body on the folded tables for one token's 6
+    routed + 2 shared experts, and K6's on a 256-token chunk's tiles. No
+    PyTorch call computes a block-scaled e5m2 x f32 product, so
+    library_ms is null; `bf16_copy_ms` times torch.matmul over a bf16 copy
+    of the dequantized weight (another function, reading twice the
+    bytes). Tolerance 1e-4 of
+    max|ref|: the same products, the scale applied per 16-column partial
+    sum (matvec) or per weight (tiles), summed in other orders."""
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
+        qmm_plain, qmm_fp8_rows)
+    from deepseek_tpu_torch.ops.matmul import tile_dispatch
+
+    qmm_src, tiles_src = "deepseek_tpu_torch/csrc/qmm.cu", "deepseek_tpu_torch/csrc/qmm_tiles.cu"
+    k5 = "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _fp8_body :260, pallas_call :418)"
+
+    def fp8_bytes(qt):
+        return qt.data.numel() + 4 * qt.scale.numel()
+
+    def with_copy(entry_fn, qt, x):
+        """emit, then time the bf16-copy yardstick beside the entry."""
+        entry = entry_fn()
+        w16 = qt.dequant(torch.float32).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        entry["bf16_copy_ms"] = time_ms(lambda: torch.matmul(x16, w16.t()))
+        log(f"  {entry['name']}: torch.matmul over a bf16 copy of the weight "
+            f"(another function) {entry['bf16_copy_ms']:.4f} ms")
+        del w16
+
+    shapes = [("lm_head", 102400, 2048), ("wq", 3072, 2048),
+              ("wkv_a (ragged rows)", 576, 2048), ("w2 dense (ragged columns)", 2048, 10944)]
+    for label, d, n in shapes:
+        qt = rand_fp8(gen, 0, d, n)
+        for rows in (1, 8):
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            with_copy(lambda: emit(
+                f"K5 qmm fp8 128x128 {label} (V2-Lite) {rows}x{d}x{n}",
+                lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                nbytes(x) + fp8_bytes(qt) + 4 * rows * d, 2.0 * rows * d * n,
+                qmm_src, k5, "K5"), qt, x)
+        del qt
+
+    # K5's two routes at few rows, to place ROW_TILE_MIN for fp8 weights:
+    # the matvec (qmm with the threshold raised past the row count; 8 x
+    # rows a pass) against the tile GEMM (qmm_fp8_rows)
+    import deepseek_tpu_torch.ops.kernels.qmm as qmm_mod
+    keep = qmm_mod.ROW_TILE_MIN
+    for label, d, n in (shapes[0], shapes[1], shapes[3]):
+        qt = rand_fp8(gen, 0, d, n)
+        won = {}
+        for rows in (1, 2, 4, 8, 16, 24, 32):
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            qmm_mod.ROW_TILE_MIN = 1 << 30
+            try:
+                t_vec = time_ms(lambda: qmm_mod.qmm(qt, x))
+            finally:
+                qmm_mod.ROW_TILE_MIN = keep
+            t_tile = time_ms(lambda: qmm_fp8_rows(qt, x))
+            won[rows] = t_tile < t_vec
+            log(f"  K5 fp8 routes {label} {d}x{n} at {rows} rows: matvec "
+                f"{t_vec:.4f} ms, row-tiled {t_tile:.4f} ms")
+        first = min((r for r in won if all(won[q] for q in won if q >= r)),
+                    default=None)
+        log(f"  K5 fp8 routes {label}: row-tiled faster from {first} rows on "
+            f"(ROW_TILE_MIN = {keep}: the matvec up to it)")
+        del qt
+
+    for label, d, n, rows in (("wq", 3072, 2048, 256), ("wkv_b", 4096, 512, 4096)):
+        qt = rand_fp8(gen, 0, d, n)
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        with_copy(lambda: emit(
+            f"K5 qmm row-tiled fp8 128x128 {label} (V2-Lite) {rows}x{d}x{n}",
+            lambda: qmm_fp8_rows(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+            nbytes(x) + fp8_bytes(qt) + 4 * rows * d, 2.0 * rows * d * n,
+            tiles_src, k5 + ", rows tiled by 128 :347-351", "K5r"), qt, x)
+        del qt
+
+    # the folded V2-Lite tables: 64 routed + 2 shared experts
+    E, ns, k, T = 64, 2, 6, 256
+    tables = {"w13s": rand_fp8(gen, E + ns, 2816, 2048),
+              "w2s": rand_fp8(gen, E + ns, 2048, 1408)}
+    sel = torch.randperm(E, generator=gen, device="cuda")[:k].sort().values
+    eids = torch.cat([sel, torch.arange(E, E + ns, device="cuda")])
+    for label, qt in tables.items():
+        _, d, n = qt.shape
+        x = torch.randn((eids.numel(), n), generator=gen, device="cuda")
+        per_expert = qt.data[0].numel() + 4 * qt.scale[0].numel()
+        emit(f"K2 qmm_experts fp8 128x128 {label} (V2-Lite MoE) {eids.numel()}x{d}x{n}",
+             lambda: qmm_experts(qt, eids, x), lambda: qmm_experts_plain(qt, eids, x),
+             1e-4, nbytes(x) + per_expert * eids.numel() + 4 * d * eids.numel(),
+             2.0 * eids.numel() * d * n, qmm_src,
+             "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, fp8 body :664, "
+             "_fp8_body :260)", "K2-fp8")
+
+    # K6: a random 256-token routing, 6 routed + 2 shared experts a token
+    # (2048 pairs); only the live rows are computed, compared and counted
+    routed = torch.rand((T, E), generator=gen, device="cuda").topk(k, dim=-1).indices
+    idx = torch.cat([routed, torch.arange(E, E + ns, device="cuda").expand(T, ns)], -1)
+    te, tr, _, G = tile_dispatch(idx.reshape(-1), E + ns)
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live, n_exp = int(tr.sum()), int(te[tr > 0].unique().numel())
+    for label, qt in tables.items():
+        _, d, n = qt.shape
+        x = torch.randn((G, 128, n), generator=gen, device="cuda")
+        per_expert = qt.data[0].numel() + 4 * qt.scale[0].numel()
+        emit(f"K6 qmm_grouped fp8 128x128 {label} (V2-Lite MoE) {G} tiles, "
+             f"{n_live} pairs over {n_exp} experts, {d}x{n}",
+             lambda: qmm_grouped(qt, te, x, tr),
+             lambda: qmm_grouped_plain(qt, te, x, tr), 1e-4,
+             n_live * n * 4 + per_expert * n_exp + n_live * d * 4,
+             2.0 * n_live * d * n, tiles_src,
+             "deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, pallas_call :538, "
+             "fp8 body :502-508)", "K6-fp8", select=lambda y: y[live])
+    del tables
 
 
 def mha_kernel_entries(gen, emit):
@@ -934,7 +1188,8 @@ def prefill_phase(params, cfg, counts):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: DeepSeek-V2-Lite, the converter's default checkpoint, full size
+# phase 5: DeepSeek-V2-Lite, the converter's default checkpoint (F16) and its
+# blockwise F8E5M2 form, full size
 # ---------------------------------------------------------------------------
 
 def v2_lite_phase(counts):
@@ -943,23 +1198,69 @@ def v2_lite_phase(counts):
     chunks of 256: K9, K11) and decodes greedily (K8, K4, K2's plain body).
     Returns (launches, params, cfg): the window-edge phase reuses the
     first layers."""
-    from deepseek_tpu_torch.engine import hydrate_cache
-    from deepseek_tpu_torch.models.deepseek import forward_decode
-    from deepseek_tpu_torch.models.kvcache import init_cache
-    from deepseek_tpu_torch.models.loader import params_active_bytes
     from deepseek_tpu_torch.models.testing import (
         deepseek_v2_lite_proportions, random_plain_params)
 
     cfg = deepseek_v2_lite_proportions(n_layers=V2_LITE_LAYERS)
-    if cfg.n_layers < 27:
-        log(f"V2-Lite: depth cut from 27 to {cfg.n_layers} layers (widths uncut)")
     t0 = time.perf_counter()
     params = random_plain_params(cfg, torch.float16, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    w_bytes = sum(nbytes(t.data) for lp in params.layers for t in vars(lp).values()
-                  if hasattr(t, "data")) + nbytes(params.embed.data, params.lm_head.data)
-    log(f"V2-Lite: random F16 model, {cfg.n_layers} layers, {w_bytes / 1e9:.2f} GB "
-        f"of weights, built on the card in {time.perf_counter() - t0:.1f} s")
+    log(f"V2-Lite: random F16 model, {cfg.n_layers} layers, "
+        f"{weight_bytes(params) / 1e9:.2f} GB of weights, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launched = v2_lite_run("V2-Lite", params, cfg, counts, ("K9", "K11"),
+                           ("K2f", "K4", "K8"))
+    return launched, params, cfg
+
+
+def v2_lite_fp8_phase(counts):
+    """Random DeepSeek-V2-Lite in F8E5M2 with the converter's default
+    128x128 block scales (decompressed MHA, ~15.7 GB; the 576-row wkv_a and
+    layer 0's 10944-wide FFN have partial edge blocks) at full width and
+    depth: the same 512-token prompt in 2 chunks (K5's row-tiled route,
+    K6's fp8 body, K9) and greedy decode (K5's matvec, K2's fp8 body, K8).
+    Returns (launches, params, cfg)."""
+    from deepseek_tpu_torch.config import QuantKind
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v2_lite_proportions, random_fp8_params)
+
+    cfg = deepseek_v2_lite_proportions(n_layers=V2_LITE_LAYERS,
+                                       weight_quant=QuantKind.F8E5M2,
+                                       block_size=(128, 128))
+    t0 = time.perf_counter()
+    params = random_fp8_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"V2-Lite fp8: random F8E5M2 model (128x128 blocks), {cfg.n_layers} "
+        f"layers, {weight_bytes(params) / 1e9:.2f} GB of weights and scales, "
+        f"built on the card in {time.perf_counter() - t0:.1f} s")
+    launched = v2_lite_run("V2-Lite fp8", params, cfg, counts,
+                           ("K5r", "K6-fp8", "K9"), ("K5", "K2-fp8", "K8"))
+    return launched, params, cfg
+
+
+def weight_bytes(params) -> int:
+    """Bytes of every weight tensor (planes and scales) of a model."""
+    def nb(t):
+        if t is None or isinstance(t, torch.Tensor):
+            return 0
+        return sum(nbytes(v) for v in vars(t).values() if isinstance(v, torch.Tensor))
+    return sum(nb(t) for lp in params.layers for t in vars(lp).values()) \
+        + nb(params.embed) + nb(params.lm_head)
+
+
+def v2_lite_run(label, params, cfg, counts, prefill_kernels, decode_kernels):
+    """The V2-Lite cell: a 512-token prompt through hydrate_cache (two
+    chunks of 256), then 4 warm-up + 32 timed greedy decode steps. Prints
+    prefill and decode tok/s, achieved GB/s of the active bytes against
+    the byte bound, peak memory and launches per chunk and per token;
+    fails if a kernel of either part never launched."""
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.loader import params_active_bytes
+
+    if cfg.n_layers < 27:
+        log(f"{label}: depth cut from 27 to {cfg.n_layers} layers (widths uncut)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
     prompt = torch.randint(3, cfg.vocab_size, (PREFILL_TOKENS,), generator=gen,
@@ -981,7 +1282,7 @@ def v2_lite_phase(counts):
                                         prefill_chunk=chunk, progress=progress)
         split["prefill"] = read(counts)
         if last.shape != (cfg.vocab_size,) or not np.isfinite(last).all():
-            raise RuntimeError(f"V2-Lite prefill logits {last.shape} not finite")
+            raise RuntimeError(f"{label} prefill logits {last.shape} not finite")
         tok = torch.tensor([[int(last.argmax())]], device="cuda")
         toks = [int(tok)]
         with torch.inference_mode():
@@ -995,58 +1296,64 @@ def v2_lite_phase(counts):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t_dec
         if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all():
-            raise RuntimeError("V2-Lite decode logits not finite")
+            raise RuntimeError(f"{label} decode logits not finite")
         return [b - a for a, b in zip(marks, marks[1:])], dt, toks, pos
 
-    (walls, dt, toks, pos), launched = drive(
-        counts, ("K2f", "K4", "K8", "K9", "K11"), "V2-Lite", run)
+    kernels = prefill_kernels + decode_kernels
+    (walls, dt, toks, pos), launched = drive(counts, kernels, label, run)
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_tok = params_active_bytes(params, cfg, pos + (N_WARMUP + V2_LITE_DECODE) // 2)
     tps = V2_LITE_DECODE / dt
     n_steps = N_WARMUP + V2_LITE_DECODE
     pre = split["prefill"]
     dec = {k: launched[k] - pre[k] for k in launched}
-    log(f"V2-Lite prefill: {PREFILL_TOKENS} tokens in {len(walls)} chunks of {chunk}: "
+    log(f"{label} prefill: {PREFILL_TOKENS} tokens in {len(walls)} chunks of {chunk}: "
         f"{PREFILL_TOKENS / sum(walls):.1f} tok/s, wall per chunk "
         f"{[round(w * 1e3, 3) for w in walls]} ms (the first includes first-call setup)")
-    log(f"V2-Lite decode: {V2_LITE_DECODE} greedy steps after {N_WARMUP} warm-up "
+    log(f"{label} decode: {V2_LITE_DECODE} greedy steps after {N_WARMUP} warm-up "
         f"(positions {pos}..{pos + n_steps - 1}): {tps:.2f} tok/s, "
         f"{per_tok * tps / 1e9:.1f} GB/s of {per_tok / 1e9:.3f} GB active bytes/token "
         f"(byte bound {per_tok / HBM_BYTES_PER_S * 1e3:.3f} ms/token = "
         f"{HBM_BYTES_PER_S / per_tok:.0f} tok/s); tokens {toks[:12]}")
-    log(f"V2-Lite: peak device memory {peak:.2f} GiB")
-    log(f"V2-Lite launches per chunk "
-        f"{ {k: pre[k] / len(walls) for k in ('K2f', 'K4', 'K8', 'K9', 'K11')} }, "
-        f"per decode token "
-        f"{ {k: dec[k] / n_steps for k in ('K2f', 'K4', 'K8', 'K9', 'K11')} }")
-    for k in ("K4", "K8", "K2f"):
+    log(f"{label}: peak device memory {peak:.2f} GiB")
+    log(f"{label} launches per chunk { {k: pre[k] / len(walls) for k in kernels} }, "
+        f"per decode token { {k: dec[k] / n_steps for k in kernels} }")
+    for k in decode_kernels:
         if dec[k] == 0:
-            raise RuntimeError(f"V2-Lite decode never launched {k}")
-    for k in ("K9", "K11"):
+            raise RuntimeError(f"{label} decode never launched {k}")
+    for k in prefill_kernels:
         if pre[k] == 0:
-            raise RuntimeError(f"V2-Lite prefill never launched {k}")
-    return launched, params, cfg
+            raise RuntimeError(f"{label} prefill never launched {k}")
+    return launched
 
 
-def window_edge_phase(params, cfg, counts):
-    """The first 2 layers of the V2-Lite model hydrate a 4096-token prompt
-    (16 chunks: up to the window's edge), then decode 8 greedy steps past
-    it: the sinks' rope parts re-rotate and K8 attends over all 4096 slots.
-    The same run on the CPU (plain versions) is the reference: the last
-    logits within 1e-3 of their scale, the greedy tokens its argmax (or a
-    near-tie within that tolerance). Compute in f32, cache in f16: the
-    Engine's defaults for a converted checkpoint."""
+def cpu_cut_phase(label, params, cfg, counts, n_prompt, expect):
+    """The first 2 layers of a V2-Lite model hydrate an ``n_prompt``-token
+    prompt in chunks of 256 and then decode 8 greedy steps; the same run
+    on the CPU (plain versions) is the reference: the logits after the
+    prompt and after each step within 1e-3 of their scale, the greedy
+    tokens its argmax (or a near-tie within that tolerance). Compute in
+    f32, cache in f16: the Engine's defaults for a converted checkpoint.
+    With a 4096-token prompt the decode steps run past the window's edge:
+    the sinks' rope parts re-rotate and K8 attends over all 4096 slots."""
     import dataclasses
 
     from deepseek_tpu_torch.engine import hydrate_cache
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.quant.qtensor import PlainTensor
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32",
                                kv_cache_dtype="float16")
     gpu = dataclasses.replace(params, layers=params.layers[:2])
-    to_cpu = lambda t: None if t is None else (
-        t.cpu() if isinstance(t, torch.Tensor) else type(t)(data=t.data.cpu()))
+
+    def to_cpu(t):
+        if t is None or isinstance(t, torch.Tensor):
+            return None if t is None else t.cpu()
+        if isinstance(t, PlainTensor):
+            return PlainTensor(data=t.data.cpu())
+        return t.map(lambda a: a.cpu())
+
     cpu = dataclasses.replace(
         gpu, embed=to_cpu(gpu.embed), lm_head=to_cpu(gpu.lm_head),
         final_norm=gpu.final_norm.cpu(),
@@ -1054,15 +1361,15 @@ def window_edge_phase(params, cfg, counts):
                 for lp in gpu.layers])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
-    S = cfg2.kv_window
-    prompt = torch.randint(3, cfg.vocab_size, (S,), generator=gen, device="cuda").tolist()
+    prompt = torch.randint(3, cfg.vocab_size, (n_prompt,), generator=gen,
+                           device="cuda").tolist()
 
     def run(p, device, forced=None):
         cache = init_cache(cfg2, device=device)
         _, last, _, pos = hydrate_cache(p, cfg2, cache, prompt, prefill_chunk=256)
         logits, toks, rows = torch.from_numpy(last)[None], [], []
         with torch.inference_mode():
-            for i in range(WINDOW_EDGE_DECODE):
+            for i in range(CUT_DECODE):
                 tok = int(logits.argmax()) if forced is None else forced[i]
                 toks.append(tok)
                 rows.append(logits[0].float().cpu())
@@ -1071,21 +1378,20 @@ def window_edge_phase(params, cfg, counts):
         rows.append(logits[0].float().cpu())
         return toks, torch.stack(rows)
 
-    (toks, got), launched = drive(counts, ("K8", "K9", "K11", "K4", "K2f"),
-                                  "window edge", lambda: run(gpu, "cuda"))
+    (toks, got), launched = drive(counts, expect, label, lambda: run(gpu, "cuda"))
     _, want = run(cpu, "cpu", forced=toks)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    log(f"window edge: 2 V2-Lite layers, {S}-token prompt in {-(-S // 256)} chunks, then "
-        f"{WINDOW_EDGE_DECODE} greedy steps past the window (K8 at kv_len {S}): "
-        f"logits vs CPU plain max abs err {err:.3e} (tolerance {1e-3 * scale:.3e}); "
-        f"tokens {toks}")
+    log(f"{label}: 2 V2-Lite layers, {n_prompt}-token prompt in {-(-n_prompt // 256)} "
+        f"chunks, then {CUT_DECODE} greedy steps (to position "
+        f"{n_prompt + CUT_DECODE - 1}, a {cfg2.kv_window}-slot window): logits vs "
+        f"CPU plain max abs err {err:.3e} (tolerance {1e-3 * scale:.3e}); tokens {toks}")
     if not (torch.isfinite(got).all() and err <= 1e-3 * scale):
-        raise RuntimeError("window-edge logits disagree with the CPU run")
+        raise RuntimeError(f"{label} logits disagree with the CPU run")
     for i, tok in enumerate(toks):
         want_tok = int(want[i].argmax())
         if tok != want_tok and float(want[i, want_tok] - want[i, tok]) > 1e-3 * scale:
-            raise RuntimeError(f"window edge: greedy token {tok} at step {i}, "
+            raise RuntimeError(f"{label}: greedy token {tok} at step {i}, "
                                f"CPU says {want_tok}")
     return launched
 
@@ -1096,11 +1402,14 @@ def counters():
     from deepseek_tpu_torch.ops.kernels.prefill_attn import (
         mha_prefill_attn, mla_prefill_attn)
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_fp, qmm_grouped, qmm_rows)
+        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8, qmm_fp, qmm_fp8,
+        qmm_fp8_rows, qmm_grouped, qmm_grouped_fp8, qmm_rows)
     return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
             "K3": mla_decode_attn, "K4": qmm_fp, "K6": qmm_grouped,
             "K8": mha_decode_attn, "K9": mha_prefill_attn,
-            "K10": mla_prefill_attn, "K11": gmm}
+            "K10": mla_prefill_attn, "K11": gmm, "K5": qmm_fp8,
+            "K5r": qmm_fp8_rows, "K2-fp8": qmm_experts_fp8,
+            "K6-fp8": qmm_grouped_fp8}
 
 
 def reset(counts):
@@ -1136,7 +1445,8 @@ def main() -> int:
 
     runs = {"entry point": entry_point_phase(counts),
             "bf16 entry point": bf16_entry_point_phase(counts),
-            "MHA entry point": mha_entry_point_phase(counts)}
+            "MHA entry point": mha_entry_point_phase(counts),
+            "fp8 entry point": fp8_entry_point_phase(counts)}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -1154,13 +1464,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     runs["V2-Lite"], v2_params, v2_cfg = v2_lite_phase(counts)
-    runs["window edge"] = window_edge_phase(v2_params, v2_cfg, counts)
+    runs["window edge"] = cpu_cut_phase(
+        "window edge", v2_params, v2_cfg, counts, v2_cfg.kv_window,
+        ("K8", "K9", "K11", "K4", "K2f"))
+    del v2_params
+    torch.cuda.empty_cache()
+    runs["V2-Lite fp8"], v2_params, v2_cfg = v2_lite_fp8_phase(counts)
+    runs["V2-Lite fp8 cut"] = cpu_cut_phase(
+        "V2-Lite fp8 cut", v2_params, v2_cfg, counts, FP8_CUT_PROMPT,
+        ("K5", "K5r", "K2-fp8", "K6-fp8", "K8", "K9"))
+    del v2_params
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",
                "K6": "full-width prefill", "K9": "full-width prefill",
                "K10": "full-width prefill", "K2f": "bf16 entry point",
-               "K11": "bf16 entry point", "K4": "V2-Lite", "K8": "V2-Lite"}
+               "K11": "bf16 entry point", "K4": "V2-Lite", "K8": "V2-Lite",
+               "K5": "V2-Lite fp8", "K5r": "V2-Lite fp8",
+               "K2-fp8": "V2-Lite fp8", "K6-fp8": "V2-Lite fp8"}
     for e in entries:
         kernel = e.pop("kernel")
         e["launches"] = runs[path_of[kernel]][kernel]

@@ -5,8 +5,11 @@
 // ::qmm_experts with _knib_body (K2: the gathered-expert form, one expert
 // id per activation row; the MoE tables and the per-head wv_b), K2's
 // plain body (qmm.py:651: an f32, f16 or bf16 expert table, the MoE
-// tables of a plain-weight checkpoint) and K4, qmm's plain body (qmm.py:
-// 305, the large plain weights at <= 8 rows), after the nibble kernel.
+// tables of a plain-weight checkpoint), K4, qmm's plain body (qmm.py:
+// 305, the large plain weights at <= 8 rows), and the fp8 bodies of K5
+// (qmm.py:418, _fp8_body :260: blockwise F8E5M2 projections at few rows)
+// and K2 (qmm.py:664, the same body: fp8 expert tables and wv_b), after
+// the nibble kernel.
 //
 //   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
 //             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
@@ -39,6 +42,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fp8.cuh"
 
 namespace {
 
@@ -261,6 +266,11 @@ __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& v, float* out)
 }
 
 template <>
+__device__ __forceinline__ void widen<uint8_t>(const uint4& v, float* out) {
+  e5m2x16(v, out);                               // F8E5M2 bytes
+}
+
+template <>
 __device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
   const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -348,6 +358,107 @@ cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
   return cudaGetLastError();
 }
 
+// The fp8 body of K2 (row b against expert idx[b]; K5's, x rows against
+// one weight, takes plain_mv_kernel below, which reads each weight row once
+// for up to 8 x rows): y[b, r] = sum over the column blocks cb of
+// s[r / b0][cb] * sum_{c in cb} x[b, c] * float(W[r, c]), W in F8E5M2
+// (E, d, n), s the f32 inverse scales (E, ceil(d/b0), ceil(n/b1)). The
+// grid is ceil-sized, so ragged edges need nothing special: row r reads
+// scale row r / b0 and 16 columns at a time never straddle a block (b1 %
+// 16 == 0). As the TPU body (qmm.py:276-290) the scale is applied on the
+// output side, one FMA per 16 weights, not one multiply per weight.
+// Bound: bytes, 2 flops per 1-byte weight. The structure is K2's plain
+// body's: a block stages its activation row in shared memory, a warp owns
+// kRows weight rows and walks them in 16-byte loads (16 weights each),
+// coalesced across its lanes, kRows loads in flight. An e5m2 byte becomes
+// a float by a byte-permute to the half it equals and a cvt (fp8.cuh).
+__global__ void __launch_bounds__(kThreads)
+fp8_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
+                  const float* __restrict__ s, const int32_t* __restrict__ idx,
+                  float* __restrict__ y, int d, int n, int b0, int b1) {
+  constexpr int kVec = 16;                       // weights per 16-byte load
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // the row, natural order
+  const int xrow = blockIdx.y;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
+  for (int i = threadIdx.x; i < n / 4; i += kThreads)
+    reinterpret_cast<float4*>(xs)[i] = __ldg(xr + i);
+  __syncthreads();
+
+  const int g0 = (d + b0 - 1) / b0, g1 = (n + b1 - 1) / b1;
+  const size_t e = (size_t)idx[xrow];
+  const uint8_t* we = w + e * (size_t)d * n;
+  const float* se = s + e * (size_t)g0 * g1;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows;
+  const uint4* wr[kRows];
+  const float* sr[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int r = min(row0 + rr, d - 1);         // clamped: stores are masked
+    wr[rr] = reinterpret_cast<const uint4*>(we + (size_t)r * n);
+    sr[rr] = se + (size_t)(r / b0) * g1;
+  }
+  const int nv = n / kVec;
+  float acc[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
+  for (int v = lane; v < nv; v += 32) {
+    uint4 raw[kRows];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) raw[rr] = __ldg(wr[rr] + v);
+    const int cb = v * kVec / b1;
+    float sc[kRows];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) sc[rr] = __ldg(sr[rr] + cb);
+    float xv[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; k += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(xs + v * kVec + k);
+      xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      float wv[kVec];
+      e5m2x16(raw[rr], wv);
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) t = fmaf(xv[k], wv[k], t);
+      acc[rr] = fmaf(t, sc[rr], acc[rr]);
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = row0 + rr;
+      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+    }
+  }
+}
+
+cudaError_t launch_fp8(const float* x, const uint8_t* w, const float* s,
+                       const int32_t* idx, float* y, int rows_x, int d, int n,
+                       int b0, int b1, cudaStream_t stream) {
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fp8_matvec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_opt_in = true;
+  }
+  const int rows_per_block = (kThreads / 32) * kRows;
+  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
+  fp8_matvec_kernel<<<grid, kThreads, (size_t)n * sizeof(float), stream>>>(
+      x, w, s, idx, y, d, n, b0, b1);
+  return cudaGetLastError();
+}
+
 // K4, the plain-weight matvec (qmm.py:305 _plain_body, launched at :329 for
 // plain weights of at least 32 MiB at <= 8 activation rows: the lm_head and
 // the large dense FFN weights): y[b, r] = sum_c x[b, c] * float(W[r, c]).
@@ -364,18 +475,29 @@ cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
 // row tiles: where x fits in one chunk it is staged once per block, not
 // once per tile (at 8 rows, restaging it for every 8-row tile would read
 // twice the weight's bytes from L2).
+//
+// WT = uint8_t is K5's fp8 body at few rows (qmm.py:418): F8E5M2 weights
+// with f32 inverse scales (ceil(d/b0), ceil(n/b1)). Each 16-weight
+// vector lies in one scale block (b1 % 16 == 0, chunks of 64 columns), so
+// its partial sum is scaled once, on the output side as the TPU body does;
+// ragged grids need nothing more than the index. scale, b0 and b1 are
+// unused for the plain types.
 constexpr int kMvThreads = 256;
 constexpr int kMvRows = 8;          // output rows per tile
 constexpr int kMvRowsPerWarp = 4;
 constexpr int kMvQuarters = 4;      // column splits per row group
 constexpr int kMvSmemFloats = 16384;
+constexpr int kMvMaxX = 8;          // x rows a launch at most (dispatch_mv)
 
 template <typename WT, int NB>
 __global__ void __launch_bounds__(kMvThreads)
 plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-                float* __restrict__ y, int d, int n, int chunk) {
+                const float* __restrict__ scale, float* __restrict__ y,
+                int d, int n, int chunk, int b0, int b1) {
   constexpr int kVec = 16 / sizeof(WT);
+  constexpr bool kFp8 = sizeof(WT) == 1;
   constexpr int kStride = 32 * kMvQuarters;      // vectors between a lane's steps
+  const int g1 = (n + b1 - 1) / b1;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [NB][chunk]
   __shared__ float red[kMvQuarters][kMvRows][NB];
@@ -396,9 +518,13 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kMvRows + rg * kMvRowsPerWarp;
     const WT* wr[kMvRowsPerWarp];
+    const float* sr[kMvRowsPerWarp];             // fp8: each row's scale row
 #pragma unroll
-    for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
-      wr[rr] = w + (size_t)min(row0 + rr, d - 1) * n;   // clamped: stores masked
+    for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
+      const int r = min(row0 + rr, d - 1);       // clamped: stores masked
+      wr[rr] = w + (size_t)r * n;
+      if constexpr (kFp8) sr[rr] = scale + (size_t)(r / b0) * g1;
+    }
 
     float acc[kMvRowsPerWarp][NB];
 #pragma unroll
@@ -429,8 +555,12 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
           const int col = (vi + u * kStride) * kVec;
           // the 4 rows' weights widened once; the x rows one at a time
           float wv[kMvRowsPerWarp][kVec];
+          float sc[kMvRowsPerWarp];
 #pragma unroll
-          for (int rr = 0; rr < kMvRowsPerWarp; ++rr) widen<WT>(raw[u][rr], wv[rr]);
+          for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
+            widen<WT>(raw[u][rr], wv[rr]);
+            if constexpr (kFp8) sc[rr] = __ldg(sr[rr] + (c0 + col) / b1);
+          }
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
             float xv[kVec];
@@ -440,10 +570,18 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
               xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
             }
 #pragma unroll
-            for (int rr = 0; rr < kMvRowsPerWarp; ++rr)
+            for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
+              if constexpr (kFp8) {
+                float t = 0.f;
 #pragma unroll
-              for (int k = 0; k < kVec; ++k)
-                acc[rr][b] = fmaf(xv[k], wv[rr][k], acc[rr][b]);
+                for (int k = 0; k < kVec; ++k) t = fmaf(xv[k], wv[rr][k], t);
+                acc[rr][b] = fmaf(t, sc[rr], acc[rr][b]);
+              } else {
+#pragma unroll
+                for (int k = 0; k < kVec; ++k)
+                  acc[rr][b] = fmaf(xv[k], wv[rr][k], acc[rr][b]);
+              }
+            }
           }
         }
       }
@@ -472,8 +610,8 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
 }
 
 template <typename WT, int NB>
-cudaError_t launch_mv(const float* x, const void* w, float* y, int d, int n,
-                      cudaStream_t stream) {
+cudaError_t launch_mv(const float* x, const void* w, const float* s, float* y,
+                      int d, int n, int b0, int b1, cudaStream_t stream) {
   // the x chunk: a multiple of 64 columns (whole weight vectors), <= 64 KB
   const int chunk = min(n, kMvSmemFloats / NB / 64 * 64);
   const size_t smem = (size_t)NB * chunk * sizeof(float);
@@ -495,22 +633,23 @@ cudaError_t launch_mv(const float* x, const void* w, float* y, int d, int n,
   if (err != cudaSuccess) return err;
   const int grid = min((d + kMvRows - 1) / kMvRows, max(1, per_sm) * sms);
   plain_mv_kernel<WT, NB><<<grid, kMvThreads, smem, stream>>>(
-      x, static_cast<const WT*>(w), y, d, n, chunk);
+      x, static_cast<const WT*>(w), s, y, d, n, chunk, b0, b1);
   return cudaGetLastError();
 }
 
 template <typename WT>
-cudaError_t dispatch_mv(const float* x, const void* w, float* y, int rows_x,
-                        int d, int n, cudaStream_t stream) {
+cudaError_t dispatch_mv(const float* x, const void* w, const float* s,
+                        float* y, int rows_x, int d, int n, int b0, int b1,
+                        cudaStream_t stream) {
   switch (rows_x) {
-    case 1: return launch_mv<WT, 1>(x, w, y, d, n, stream);
-    case 2: return launch_mv<WT, 2>(x, w, y, d, n, stream);
-    case 3: return launch_mv<WT, 3>(x, w, y, d, n, stream);
-    case 4: return launch_mv<WT, 4>(x, w, y, d, n, stream);
-    case 5: return launch_mv<WT, 5>(x, w, y, d, n, stream);
-    case 6: return launch_mv<WT, 6>(x, w, y, d, n, stream);
-    case 7: return launch_mv<WT, 7>(x, w, y, d, n, stream);
-    case 8: return launch_mv<WT, 8>(x, w, y, d, n, stream);
+    case 1: return launch_mv<WT, 1>(x, w, s, y, d, n, b0, b1, stream);
+    case 2: return launch_mv<WT, 2>(x, w, s, y, d, n, b0, b1, stream);
+    case 3: return launch_mv<WT, 3>(x, w, s, y, d, n, b0, b1, stream);
+    case 4: return launch_mv<WT, 4>(x, w, s, y, d, n, b0, b1, stream);
+    case 5: return launch_mv<WT, 5>(x, w, s, y, d, n, b0, b1, stream);
+    case 6: return launch_mv<WT, 6>(x, w, s, y, d, n, b0, b1, stream);
+    case 7: return launch_mv<WT, 7>(x, w, s, y, d, n, b0, b1, stream);
+    case 8: return launch_mv<WT, 8>(x, w, s, y, d, n, b0, b1, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -523,15 +662,15 @@ cudaError_t dispatch_mv(const float* x, const void* w, float* y, int rows_x,
 // asynchronous on `stream`.
 extern "C" int plain_mv(const void* x, const void* w, int kind, void* y,
                         int rows_x, int d, int n, void* stream) {
-  if (rows_x < 1 || rows_x > 8 || d <= 0 || n <= 0 || n % 64 != 0 ||
+  if (rows_x < 1 || rows_x > kMvMaxX || d <= 0 || n <= 0 || n % 64 != 0 ||
       kind < 2 || kind > 4)
     return (int)cudaErrorInvalidValue;
   auto xs = static_cast<const float*>(x);
   auto ys = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  if (kind == 2) return (int)dispatch_mv<float>(xs, w, ys, rows_x, d, n, st);
-  if (kind == 3) return (int)dispatch_mv<__half>(xs, w, ys, rows_x, d, n, st);
-  return (int)dispatch_mv<__nv_bfloat16>(xs, w, ys, rows_x, d, n, st);
+  if (kind == 2) return (int)dispatch_mv<float>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
+  if (kind == 3) return (int)dispatch_mv<__half>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
+  return (int)dispatch_mv<__nv_bfloat16>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
 }
 
 // y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32. Planes p
@@ -575,4 +714,34 @@ extern "C" int plain_matvec(const void* x, const void* w, int kind,
   if (kind == 2) return (int)launch_plain<float>(xs, w, is, ys, rows_x, d, n, st);
   if (kind == 3) return (int)launch_plain<__half>(xs, w, is, ys, rows_x, d, n, st);
   return (int)launch_plain<__nv_bfloat16>(xs, w, is, ys, rows_x, d, n, st);
+}
+
+// y (rows_x, d) f32 = x (rows_x, n) f32 against the F8E5M2 table W (E, d,
+// n) with f32 inverse scales s (E, ceil(d/b0), ceil(n/b1)); idx (rows_x,)
+// int32 selects the expert of each row (K2's fp8 body), or is null with
+// E = 1 (K5's: the x rows 8 at a time through plain_mv_kernel, each weight
+// row read once per 8 x rows). Needs n % 16 == 0, b1 % 16 == 0 and a
+// 16-byte aligned W. Returns a cudaError_t; the launches are asynchronous
+// on `stream`.
+extern "C" int fp8_matvec(const void* x, const void* w, const void* s,
+                          const void* idx, void* y, int rows_x, int d, int n,
+                          int b0, int b1, void* stream) {
+  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 16 != 0 ||
+      b0 <= 0 || b1 <= 0 || b1 % 16 != 0 ||
+      (size_t)n * sizeof(float) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (idx == nullptr) {
+    for (int r0 = 0; r0 < rows_x; r0 += kMvMaxX) {
+      const cudaError_t err = dispatch_mv<uint8_t>(
+          static_cast<const float*>(x) + (size_t)r0 * n, w,
+          static_cast<const float*>(s), static_cast<float*>(y) + (size_t)r0 * d,
+          min(kMvMaxX, rows_x - r0), d, n, b0, b1, static_cast<cudaStream_t>(stream));
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+  }
+  return (int)launch_fp8(static_cast<const float*>(x), static_cast<const uint8_t*>(w),
+                         static_cast<const float*>(s), static_cast<const int32_t*>(idx),
+                         static_cast<float*>(y), rows_x, d, n, b0, b1,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -5,6 +5,8 @@
 //       many rows (a prefill chunk's projections, wkv_b over the window);
 //   K6: ::qmm_grouped with _knib_body: 128-row tiles, tile g against
 //       expert tile_expert[g] of a nibble table (E, d, n);
+//   K5 row-tiled and K6 with the fp8 body (qmm.py:418 and :502-508,
+//       _fp8_body :260): the same routes over a blockwise F8E5M2 weight;
 //   K11: megablox.gmm as deepseek_tpu/ops/matmul.py::grouped_expert_ffn
 //       calls it: rows grouped by expert, a plain f32/f16/bf16 table.
 //
@@ -47,6 +49,16 @@
 // natural order: unlike the one-row matvec (csrc/qmm.cu), a tile shares each
 // dequantized weight among 128 rows, so it needs neither the permuted
 // activation copy nor the per-16 group sums the TPU kernel took from HBM.
+//
+// F8E5M2 reader. A k-step's 64 bytes of a weight row are four 16-byte
+// vectors; two neighbouring lanes load one whole 32-byte sector, and each
+// lane takes its row's f32 block scale s[r / b0][k0 / b1] with it. The
+// step widens the bytes exactly to f32 (fp8.cuh) and stores weight x scale
+// in shared memory, the f32 dequantization of the plain version
+// (Fp8Tensor.dequant). A 64-column step never straddles a scale block
+// (b1 % 64 == 0: the converter's 128), and a partial edge block (a 576-row
+// or 10944-column weight) is a row or column index like any other, so the
+// grid needs no padding.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -54,6 +66,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "fp8.cuh"
 
 namespace {
 
@@ -69,13 +83,16 @@ constexpr int kLda = 16 + 1;      // araw/craw row: 32 bf16 scales (+1)
 constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
 constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
 
-enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4 };
+enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5 };
 
 struct Weights {
-  const void* w;          // nibble plane p (E, d, n/2) u8, or plain (E, d, n)
+  const void* w;          // nibble plane p (E, d, n/2) u8, plain (E, d, n),
+                          // or F8E5M2 bytes (E, d, n)
   const uint16_t* a;      // nibble scales (E, d, n/16) bf16
   const uint16_t* c;      // nibble min terms (E, d, n/16) bf16, or null
   float off;
+  const float* s;         // fp8 inverse scales (E, ceil(d/b0), ceil(n/b1))
+  int b0, b1;             // fp8 scale block
 };
 
 struct Tiles {
@@ -116,6 +133,7 @@ __global__ void __launch_bounds__(kThreads)
 tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
                  float* __restrict__ y, int d, int n) {
   constexpr bool kNibble = KIND == kNib || KIND == kNibC;
+  constexpr bool kFp8 = KIND == kF8;
   using WT = typename std::conditional<
       KIND == kF16, __half,
       typename std::conditional<KIND == kBF16, __nv_bfloat16, float>::type>::type;
@@ -125,6 +143,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   constexpr int kXIt = kBM * kBK / 4 / kThreads;   // 8 activation items
   constexpr int kWIt = kBN * kBK / 4 / kThreads;   // 8 plain weight items
   constexpr int kOIt = kBN * 8 / kThreads;         // 4 nibble words
+  constexpr int kFIt = kBN * kBK / 16 / kThreads;  // 2 fp8 16-byte vectors
 
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [kBK][kLdx]
@@ -153,9 +172,15 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const uint16_t* ce = KIND == kNibC ? wt.c + (size_t)e * d * n16 : nullptr;
   const WT* we = static_cast<const WT*>(wt.w) + (size_t)e * d * n;
   const int wr_r = tid & (kBN - 1), wr_o = tid / kBN;   // nibble: row, byte slab
+  const uint8_t* w8 = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * n;
+  const int g0 = kFp8 ? (d + wt.b0 - 1) / wt.b0 : 0;
+  const int g1 = kFp8 ? (n + wt.b1 - 1) / wt.b1 : 0;
+  const float* se = kFp8 ? wt.s + (size_t)e * g0 * g1 : nullptr;
 
   XR xr[kXIt];
   WR wr[kWIt];
+  uint4 fr[kFIt];                    // fp8: a step's raw vectors
+  float fs[kFIt];                    // and their rows' block scales
   uint4 pr[8], ar[2], cr[2];         // nibble: one raw stage in flight
 
   // nibble: start the coalesced 16-byte loads of the raw stage at column
@@ -218,7 +243,17 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       if (m < nr)
         xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + k0 + c4);
     }
-    if constexpr (!kNibble) {
+    if constexpr (kFp8) {
+#pragma unroll
+      for (int it = 0; it < kFIt; ++it) {
+        const int item = tid + it * kThreads;
+        const int r = (item >> 1) & (kBN - 1);
+        const int c16 = ((item >> 8) * 2 + (item & 1)) * 16;
+        const int gr = min(col0 + r, d - 1);
+        fr[it] = *reinterpret_cast<const uint4*>(w8 + (size_t)gr * n + k0 + c16);
+        fs[it] = se[(size_t)(gr / wt.b0) * g1 + k0 / wt.b1];
+      }
+    } else if constexpr (!kNibble) {
 #pragma unroll
       for (int it = 0; it < kWIt; ++it) {
         const int item = tid + it * kThreads;
@@ -273,6 +308,17 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
           ws[(q * 16 + o) * kLdw + wr_r] = af[q] * (lo - wt.off) - cf[q];
           ws[(q * 16 + 8 + o) * kLdw + wr_r] = af[q] * (hi - wt.off) - cf[q];
         }
+      }
+    } else if constexpr (kFp8) {
+#pragma unroll
+      for (int it = 0; it < kFIt; ++it) {
+        const int item = tid + it * kThreads;
+        const int r = (item >> 1) & (kBN - 1);
+        const int c16 = ((item >> 8) * 2 + (item & 1)) * 16;
+        float v[16];
+        e5m2x16(fr[it], v);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) ws[(c16 + q) * kLdw + r] = v[q] * fs[it];
       }
     } else {
 #pragma unroll
@@ -398,25 +444,29 @@ cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
 // y (rows, d) f32 = tile GEMM of x (rows, n) against W (E, d, n).
 // x_dtype: 0 = f32, 2 = bf16 (bf16 only with a plain table). kind: 0/1 =
 // nibble without/with the min plane c (w = p, a, c, off), 2/3/4 = plain
-// f32/f16/bf16 table (w). Tiles as the header says: tile_expert and
+// f32/f16/bf16 table (w), 5 = F8E5M2 table (w) with the f32 inverse scales
+// s (E, ceil(d/b0), ceil(n/b1)). Tiles as the header says: tile_expert and
 // tile_rows (G,) or null; group_off and tile_off (E+1,) or null.
-// Needs n % 64 == 0 (nibble: n % 256 == 0), G <= 2^31 - 1, d <= 8388480.
-// Returns a cudaError_t; the launch is asynchronous on `stream`.
+// Needs n % 64 == 0 (nibble: n % 256 == 0; fp8: b1 % 64 == 0), G <=
+// 2^31 - 1, d <= 8388480. Returns a cudaError_t; the launch is
+// asynchronous on `stream`.
 extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
                          const void* a, const void* c, int off,
+                         const void* s, int b0, int b1,
                          const void* tile_expert, const void* tile_rows,
                          const void* group_off, const void* tile_off,
                          void* y, int rows, int G, int E, int d, int n,
                          void* stream) {
   const bool nib = kind == kNib || kind == kNibC;
   if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
-      n % (nib ? 256 : kBK) != 0 || (nib && x_dtype != 0) ||
-      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kBF16 ||
+      n % (nib ? 256 : kBK) != 0 || ((nib || kind == kF8) && x_dtype != 0) ||
+      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kF8 ||
       (kind == kNibC && c == nullptr) ||
+      (kind == kF8 && (s == nullptr || b0 <= 0 || b1 <= 0 || b1 % kBK != 0)) ||
       ((group_off == nullptr) != (tile_off == nullptr)))
     return (int)cudaErrorInvalidValue;
   Weights wt{w, static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(c),
-             (float)off};
+             (float)off, static_cast<const float*>(s), b0, b1};
   Tiles tl{static_cast<const int32_t*>(tile_expert),
            static_cast<const int32_t*>(tile_rows),
            static_cast<const int32_t*>(group_off),
@@ -430,6 +480,7 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
       case kNibC: err = launch<kNibC, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF32: err = launch<kF32, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF16: err = launch<kF16, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kF8: err = launch<kF8, float>(x, wt, tl, ys, G, d, n, st); break;
       default: err = launch<kBF16, float>(x, wt, tl, ys, G, d, n, st); break;
     }
   } else {

@@ -2,9 +2,10 @@
 from the JAX package.
 
 ``load_params`` ports ``deepseek_tpu/models/loader.py::load_params`` for
-F32/F16/BF16 tensors and U8 K-quant tensors in the nibble runtime layout;
-``fuse_projections`` ports the function of the same name without the
-row-permuted expert layout. ``params_from_reference`` builds the port's
+F32/F16/BF16 tensors, F8_E5M2 tensors with blockwise or per-tensor scales,
+and U8 K-quant tensors in the nibble runtime layout; ``fuse_projections``
+ports the function of the same name without the row-permuted expert
+layout. ``params_from_reference`` builds the port's
 params from a ``deepseek_tpu`` ModelParams object without importing JAX.
 """
 
@@ -20,22 +21,27 @@ from deepseek_tpu_torch.config import ModelConfig, QuantKind
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
 from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 from deepseek_tpu_torch.quant.qtensor import (
-    KNibbleTensor, PlainTensor, q2k_to_nibble, q3k_to_nibble,
+    Fp8Tensor, KNibbleTensor, PlainTensor, cols_to_experts, q2k_to_nibble,
+    q3k_to_nibble, rows_to_experts,
 )
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
-from deepseek_tpu_torch.utils.codec import CheckpointData
+from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, CheckpointData
 
 _TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "bfloat16": torch.bfloat16}
 
 
 def _to_torch(arr) -> torch.Tensor:
-    """numpy (or array-like) -> CPU tensor; bfloat16 arrays (ml_dtypes or
-    raw 16-bit words) keep their bits."""
+    """numpy (or array-like) -> CPU tensor; bfloat16 and float8_e5m2
+    arrays (ml_dtypes, or the codec's raw words and bytes) keep their bits
+    (torch.from_numpy knows neither dtype)."""
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a.view(np.uint16), copy=True, order="C")
                                 ).view(torch.bfloat16)
+    if a.dtype == _DTYPE_TO_NP["F8_E5M2"]:
+        return torch.from_numpy(np.array(a.view(np.uint8), copy=True, order="C")
+                                ).view(torch.float8_e5m2)
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
@@ -91,6 +97,21 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
             if runtime_dtype is not None:
                 t = t.to(_TORCH_DTYPES[runtime_dtype])
             return PlainTensor(data=t.to(device))
+        if dt == "F8_E5M2":
+            scale = data.get(name + ".scale")
+            blockwise = scale is not None and scale.ndim >= 2
+            s = (torch.from_numpy(np.array(scale, np.float32)) if scale is not None
+                 else torch.ones((), dtype=torch.float32))
+            t = _to_torch(w)
+            if not blockwise and t.dim() == 3 and s.numel() == 1:
+                # one per-tensor scalar over an expert stack (the reference
+                # wire format): (E, 1, 1), so the scale gathers with the
+                # experts and broadcasts in dequant
+                s = s.reshape(1, 1, 1).expand(t.shape[0], 1, 1).contiguous()
+            return Fp8Tensor(
+                data=t.view(torch.uint8).to(device).view(torch.float8_e5m2),
+                scale=s.to(device),
+                block_size=tuple(cfg.block_size) if blockwise else (0, 0))
         if dt == "U8":
             raw = np.asarray(w)
             rows = raw.shape[-2]
@@ -101,9 +122,7 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
                 cols = raw.shape[-1] // Q3K_BLOCK_BYTES * QK_K
                 return q3k_to_nibble(*repack_q3k(raw, rows, cols), device=device)
             raise ValueError(f"U8 tensor {name} but weight_quant={cfg.weight_quant}")
-        raise NotImplementedError(
-            f"stored dtype {dt} of {name} is not ported yet (F8E5M2 is "
-            "ROADMAP.md queue 1, item 9)")
+        raise NotImplementedError(f"stored dtype {dt} of {name} is not ported")
 
     def block_params(p: str, moe: bool) -> LayerParams:
         c = cfg
@@ -155,11 +174,22 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
 
 def _concat(a, b, dim: int):
     """Concatenate two same-layout weights along ``dim`` (-2: output rows,
-    0: experts); None when the pair cannot be fused losslessly."""
+    0: experts); None when the pair cannot be fused losslessly (fp8: scales
+    per tensor, or a row block that would straddle the seam)."""
     if a is None or b is None or type(a) is not type(b):
         return None
     if isinstance(a, PlainTensor):
         return PlainTensor(data=torch.cat([a.data, b.data], dim=dim))
+    if isinstance(a, Fp8Tensor):
+        if tuple(a.block_size) != tuple(b.block_size) or a.per_tensor:
+            return None
+        b0 = a.block_size[0]
+        if dim == -2 and (a.shape[-2] % b0 or b.shape[-2] % b0):
+            return None
+        return Fp8Tensor(
+            data=torch.cat([a.data.view(torch.uint8), b.data.view(torch.uint8)],
+                           dim=dim).view(torch.float8_e5m2),
+            scale=torch.cat([a.scale, b.scale], dim=dim), block_size=a.block_size)
     if a.off != b.off or (a.c is None) != (b.c is None):
         return None
     return KNibbleTensor(
@@ -167,57 +197,44 @@ def _concat(a, b, dim: int):
         c=None if a.c is None else torch.cat([a.c, b.c], dim=dim), off=a.off)
 
 
-def _rows_to_experts(qt, ns: int):
-    """(ns*m, cols...) -> (ns, m, cols...) for every plane."""
-    fn = lambda t: t.reshape(ns, t.shape[0] // ns, *t.shape[1:])
-    return PlainTensor(data=fn(qt.data)) if isinstance(qt, PlainTensor) \
-        else qt.map(fn)
-
-
-def _cols_to_experts(qt, ns: int, m: int):
-    """(dim, ns*m) -> (ns, dim, m) where the columns split cleanly: plain
-    weights only (nibble planes interleave columns stride-16)."""
-    if not isinstance(qt, PlainTensor):
-        return None
-    d = qt.data
-    return PlainTensor(data=d.reshape(d.shape[0], ns, m).movedim(1, 0).contiguous())
+def fuse_layer(lp: LayerParams, cfg: ModelConfig) -> LayerParams:
+    """``fuse_projections`` for one layer."""
+    w13 = _concat(lp.w1, lp.w3, -2)
+    wcr = _concat(lp.wq_rope_b, lp.wc, -2)
+    wkvq = _concat(lp.wkv_a, lp.wq_a, -2)
+    attn = dict(
+        wcr=wcr, wq_rope_b=None if wcr is not None else lp.wq_rope_b,
+        wc=None if wcr is not None else lp.wc,
+        wkvq=wkvq, wkv_a=None if wkvq is not None else lp.wkv_a,
+        wq_a=None if wkvq is not None else lp.wq_a)
+    ns, m = cfg.n_shared_experts, cfg.moe_intermediate_size
+    if (lp.moegate is not None and w13 is not None and ns > 0
+            and lp.shared_w1 is not None and lp.shared_w1.shape[-2] == ns * m):
+        w2sh = cols_to_experts(lp.shared_w2, ns, m)
+        sh1, sh3 = (rows_to_experts(t, ns) for t in (lp.shared_w1, lp.shared_w3))
+        sh13 = None if sh1 is None or sh3 is None else _concat(sh1, sh3, -2)
+        if w2sh is not None and sh13 is not None:
+            return dataclasses.replace(
+                lp, w13s=_concat(w13, sh13, 0), w2s=_concat(lp.w2, w2sh, 0),
+                w1=None, w2=None, w3=None, shared_w1=None, shared_w2=None,
+                shared_w3=None, **attn)
+    s13 = _concat(lp.shared_w1, lp.shared_w3, -2)
+    return dataclasses.replace(
+        lp, w13=w13, w1=None if w13 is not None else lp.w1,
+        w3=None if w13 is not None else lp.w3, shared_w13=s13,
+        shared_w1=None if s13 is not None else lp.shared_w1,
+        shared_w3=None if s13 is not None else lp.shared_w3, **attn)
 
 
 def fuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
     """Concatenate projection pairs that read the same activation
     ([w1;w3], [shared_w1;shared_w3], [wq_rope_b;wc], [wkv_a;wq_a]) so one
     kernel launch and one weight sweep replace two, and fold the shared
-    experts into the routed tables where the layout allows (plain weights).
-    The component fields become None."""
-
-    def fuse_layer(lp: LayerParams) -> LayerParams:
-        w13 = _concat(lp.w1, lp.w3, -2)
-        wcr = _concat(lp.wq_rope_b, lp.wc, -2)
-        wkvq = _concat(lp.wkv_a, lp.wq_a, -2)
-        attn = dict(
-            wcr=wcr, wq_rope_b=None if wcr is not None else lp.wq_rope_b,
-            wc=None if wcr is not None else lp.wc,
-            wkvq=wkvq, wkv_a=None if wkvq is not None else lp.wkv_a,
-            wq_a=None if wkvq is not None else lp.wq_a)
-        ns, m = cfg.n_shared_experts, cfg.moe_intermediate_size
-        if (lp.moegate is not None and w13 is not None and ns > 0
-                and lp.shared_w1 is not None and lp.shared_w1.shape[-2] == ns * m):
-            w2sh = _cols_to_experts(lp.shared_w2, ns, m)
-            if w2sh is not None:
-                sh13 = _concat(_rows_to_experts(lp.shared_w1, ns),
-                               _rows_to_experts(lp.shared_w3, ns), -2)
-                return dataclasses.replace(
-                    lp, w13s=_concat(w13, sh13, 0), w2s=_concat(lp.w2, w2sh, 0),
-                    w1=None, w2=None, w3=None, shared_w1=None, shared_w2=None,
-                    shared_w3=None, **attn)
-        s13 = _concat(lp.shared_w1, lp.shared_w3, -2)
-        return dataclasses.replace(
-            lp, w13=w13, w1=None if w13 is not None else lp.w1,
-            w3=None if w13 is not None else lp.w3, shared_w13=s13,
-            shared_w1=None if s13 is not None else lp.shared_w1,
-            shared_w3=None if s13 is not None else lp.shared_w3, **attn)
-
-    return dataclasses.replace(params, layers=[fuse_layer(lp) for lp in params.layers])
+    experts into the routed tables where the layout allows (plain weights,
+    blockwise fp8 whose blocks divide the expert width). The component
+    fields become None."""
+    return dataclasses.replace(params, layers=[fuse_layer(lp, cfg)
+                                               for lp in params.layers])
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +253,11 @@ def _weight_from_reference(obj, device):
             p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
             c=None if obj.c is None else _to_torch(obj.c).to(device),
             off=int(obj.off))
+    if kind == "Fp8Tensor":
+        return Fp8Tensor(data=_to_torch(obj.data).view(torch.uint8).to(device)
+                         .view(torch.float8_e5m2),
+                         scale=_to_torch(obj.scale).float().to(device),
+                         block_size=tuple(int(b) for b in obj.block_size))
     raise NotImplementedError(f"weight layout {kind} is not ported yet")
 
 
@@ -245,7 +267,7 @@ def _layer_from_reference(lp, device) -> LayerParams:
         v = getattr(lp, f.name, None)
         if v is None:
             kw[f.name] = None
-        elif type(v).__name__ in ("PlainTensor", "KNibbleTensor") or \
+        elif type(v).__name__ in ("PlainTensor", "Fp8Tensor", "KNibbleTensor") or \
                 dataclasses.is_dataclass(v):
             kw[f.name] = _weight_from_reference(v, device)
         else:

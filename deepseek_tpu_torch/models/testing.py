@@ -2,9 +2,10 @@
 
 Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
 nibble part of ``random_fused_params``, and adds DeepSeek-V2-Lite's
-proportions with a plain-weight model (``random_plain_params``): weights
-are synthesized in their final runtime layout from a seeded
-``torch.Generator`` on the target device,
+proportions with a plain-weight model (``random_plain_params``) and a
+blockwise F8E5M2 one (``random_fp8_params``): weights are synthesized in
+their final runtime layout from a seeded ``torch.Generator`` on the target
+device,
 one random 2-D block per projection, repeated across an expert stack
 (throughput does not depend on the values, and every expert still has its
 own bytes at its own address).
@@ -17,8 +18,9 @@ import torch
 from deepseek_tpu_torch.config import (
     ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod,
 )
+from deepseek_tpu_torch.models.loader import fuse_layer
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
-from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
 
 
 def deepseek_v3_proportions(n_layers: int = 61, **overrides) -> ModelConfig:
@@ -116,6 +118,69 @@ def random_plain_params(cfg: ModelConfig, dtype=torch.float16, seed: int = 7,
             w13s=w(E + ns, 2 * m, c.dim) if moe else None,
             w2s=w(E + ns, c.dim, m) if moe else None,
         ))
+    return ModelParams(embed=w(c.vocab_size, c.dim), layers=layers,
+                       final_norm=ones(c.dim), lm_head=w(c.vocab_size, c.dim))
+
+
+def random_fp8_params(cfg: ModelConfig, seed: int = 7, device="cuda") -> ModelParams:
+    """Random blockwise F8E5M2 model with the tensors the converter writes
+    for ``cfg`` (``deepseek_tpu/convert.py``: MHA ``wq`` or ``wq_a``/
+    ``wq_b``, or absorbed MLA with the factor weights kept; every
+    projection, the embedding and the lm_head in fp8 with ceil-sized
+    ``cfg.block_size`` grids, partial at a ragged edge such as V2-Lite's
+    576-row ``wkv_a`` or 10944-wide dense FFN), each layer fused by
+    ``loader.fuse_layer`` as ``Engine`` loads it. Values are normal(0, 1)
+    drawn in bf16 and cast to e5m2 (random bytes would hit its inf/NaN
+    codes), scales uniform in [0.005, 0.02]; an expert table repeats one
+    block and its grid across its experts."""
+    if tuple(cfg.block_size) == (0, 0):
+        raise ValueError("random_fp8_params builds blockwise models: "
+                         "cfg.block_size must be set")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    b0, b1 = cfg.block_size
+
+    def w(*shape):
+        *lead, rows, cols = shape
+        data = torch.randn((rows, cols), generator=gen, device=device) \
+            .to(torch.bfloat16).to(torch.float8_e5m2).view(torch.uint8)
+        sc = torch.rand((-(-rows // b0), -(-cols // b1)), generator=gen,
+                        device=device) * 0.015 + 0.005
+        if lead:
+            data = data.expand(*lead, rows, cols).contiguous()
+            sc = sc.expand(*lead, *sc.shape).contiguous()
+        return Fp8Tensor(data=data.view(torch.float8_e5m2), scale=sc,
+                         block_size=(b0, b1))
+
+    def ones(n):
+        return torch.ones(n, device=device)
+
+    c = cfg
+    H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
+    E, m, ns, ql = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts, c.q_lora_rank
+    hd, kvb = H * c.head_dim, H * (c.qk_nope_head_dim + Dv)
+    layers = []
+    for l in range(c.n_layers):
+        moe = c.is_moe_layer(l)
+        attn = dict(wkv_a=w(R + P, c.dim), wo=w(c.dim, H * Dv), wkv_b=w(kvb, R))
+        if c.use_mla:
+            attn.update(wq_a=w(ql, c.dim), wc=w(H * R, ql), wq_rope_b=w(H * P, ql),
+                        wv_b=w(H * Dv, R), wq_b=w(hd, ql))
+        elif ql > 0:
+            attn.update(wq_a=w(ql, c.dim), wq_b=w(hd, ql))
+        else:
+            attn.update(wq=w(hd, c.dim))
+        ffn = (dict(w1=w(E, m, c.dim), w3=w(E, m, c.dim), w2=w(E, c.dim, m),
+                    shared_w1=w(ns * m, c.dim), shared_w3=w(ns * m, c.dim),
+                    shared_w2=w(c.dim, ns * m),
+                    moegate=torch.randn((E, c.dim), generator=gen, device=device) * 0.02,
+                    moegate_bias=(torch.zeros(E, device=device)
+                                  if c.has_moegate_bias else None))
+               if moe else dict(w1=w(c.hidden_dim, c.dim), w3=w(c.hidden_dim, c.dim),
+                                w2=w(c.dim, c.hidden_dim)))
+        layers.append(fuse_layer(LayerParams(
+            attn_norm=ones(c.dim), ffn_norm=ones(c.dim), kv_a_norm=ones(R),
+            q_a_norm=ones(ql) if ql > 0 else None, **attn, **ffn), c))
     return ModelParams(embed=w(c.vocab_size, c.dim), layers=layers,
                        final_norm=ones(c.dim), lm_head=w(c.vocab_size, c.dim))
 

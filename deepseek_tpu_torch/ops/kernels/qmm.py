@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K4, K6 and K11: quantized, plain and grouped matrix
+"""Kernels K1, K2, K4, K5, K6 and K11: quantized, plain and grouped matrix
 products.
 
 - ``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with
@@ -12,6 +12,14 @@ products.
   same source).
 - ``qmm_grouped`` replaces ``::qmm_grouped`` with ``_knib_body`` (K6:
   128-row tiles, one expert each; ``csrc/qmm_tiles.cu``).
+- A blockwise F8E5M2 weight (``Fp8Tensor``) takes the fp8 bodies
+  (``_fp8_body``, qmm.py:260): ``qmm_fp8`` is K5's (qmm.py:418; the matvec
+  of ``csrc/qmm.cu`` up to ``ROW_TILE_MIN`` rows, ``qmm_fp8_rows`` on the
+  tile GEMM above), ``qmm_experts_fp8`` K2's (qmm.py:664; ``csrc/qmm.cu``)
+  and ``qmm_grouped_fp8`` K6's (qmm.py:502-508; ``csrc/qmm_tiles.cu``).
+  Ragged grids (a block size that does not divide the weight) are taken,
+  which the TPU kernels assert against. A per-tensor scale has no kernel
+  here, as in the JAX package: on the card these wrappers raise on it.
 - ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
   grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
   plain table; ``csrc/qmm_tiles.cu``).
@@ -20,8 +28,8 @@ The sources' headers give each design and its bound. Each wrapper keeps
 its own launch count in ``.launches``.
 
 A wrapper given CPU tensors computes the plain version (``*_plain``: the
-f32 dequant of quant/qtensor.py and a product); given CUDA tensors it
-launches the kernel or raises. It never falls back.
+f32 dequant of quant/qtensor.py and a product, for every layout); given
+CUDA tensors it launches the kernel or raises. It never falls back.
 """
 
 from __future__ import annotations
@@ -31,17 +39,18 @@ from typing import Optional
 import torch
 
 from deepseek_tpu_torch.ops.kernels.build import check, library
-from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
 
 
-def qmm_plain(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
-    """x (..., n) @ dequant(W (d, n)).T -> (..., d) float32."""
+def qmm_plain(qt, x: torch.Tensor) -> torch.Tensor:
+    """x (..., n) @ dequant(W (d, n)).T -> (..., d) float32 (a nibble or
+    fp8 weight)."""
     return torch.matmul(x.float(), qt.dequant(torch.float32).t())
 
 
 def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Row i of x (..., n) times expert idx[i] of W (E, d, n), a nibble or
-    a plain table, -> (..., d) float32. Only the selected experts are
+    """Row i of x (..., n) times expert idx[i] of W (E, d, n), a nibble,
+    fp8 or plain table, -> (..., d) float32. Only the selected experts are
     dequantized (a plain table: widened to f32)."""
     lead, n = x.shape[:-1], x.shape[-1]
     sel = idx.reshape(-1).long()
@@ -64,18 +73,25 @@ def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # w13 and near 32 on wo; 16 keeps both within 0.25 ms of their faster
 # route from 1 to 32 rows (8 would cost wo up to 0.33 ms). A decode step
 # (1 row) and the pair path's gathered rows stay on the matvec.
+# K5's fp8 matvec (8 x rows a pass) against its row-tiled route, the same
+# card: lm_head 102400x2048 at 8 rows 0.380 / 0.533, at 16 rows 0.755 /
+# 0.547; wq 3072x2048 at 32 rows 0.070 / 0.144; dense w2 2048x10944 at 32
+# rows 0.246 / 0.741. The lm_head crosses between 8 and 16 rows, the others
+# not by 32; 16 keeps all three within 0.21 ms of their faster route up to
+# 16 rows (8 would cost w2 0.29 ms at 16 rows), so fp8 shares the value.
 ROW_TILE_MIN = 16
 _TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
 _PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}
+_FP8_KIND = 5
 _X_DTYPE = {torch.float32: 0, torch.bfloat16: 2}
 
 
-def qmm_grouped_plain(qt: KNibbleTensor, tile_expert: torch.Tensor,
+def qmm_grouped_plain(qt, tile_expert: torch.Tensor,
                       x_tiles: torch.Tensor,
                       tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x_tiles (G, TB, n) in natural column order, tile g against expert
-    tile_expert[g] of W (E, d, n) -> (G, TB, d) float32. Rows at or past
-    tile_rows[g] (when given) are zero."""
+    tile_expert[g] of W (E, d, n), a nibble or fp8 table -> (G, TB, d)
+    float32. Rows at or past tile_rows[g] (when given) are zero."""
     G, TB, _ = x_tiles.shape
     d = qt.shape[-2]
     out = torch.zeros((G, TB, d), dtype=torch.float32, device=x_tiles.device)
@@ -145,12 +161,13 @@ def _nibble_args(qt: KNibbleTensor):
             qt.c.data_ptr() if qt.c is not None else None, int(qt.off))
 
 
-def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d):
+def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, fp8=(None, 0, 0)):
     """Launch csrc/qmm_tiles.cu; ``tiles`` = (tile_expert, tile_rows,
-    group_off, tile_off), each an int32 device tensor or None."""
+    group_off, tile_off), each an int32 device tensor or None; ``fp8`` =
+    (scale pointer, b0, b1) for an fp8 table."""
     ptr = [t.data_ptr() if t is not None else None for t in tiles]
     err = library("qmm_tiles").tile_gemm(
-        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *ptr,
+        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *fp8, *ptr,
         y.data_ptr(), x2.shape[0], G, E, d, x2.shape[1],
         torch.cuda.current_stream(x2.device).cuda_stream)
     check(err, "tile_gemm")
@@ -159,9 +176,11 @@ def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d):
 def qmm(qt, x: torch.Tensor) -> torch.Tensor:
     """K1: x (..., n) @ W (d, n).T -> (..., d) float32. More than
     ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``). A plain
-    weight takes ``qmm_fp`` (K4)."""
+    weight takes ``qmm_fp`` (K4), an fp8 one ``qmm_fp8`` (K5)."""
     if isinstance(qt, PlainTensor):
         return qmm_fp(qt, x)
+    if isinstance(qt, Fp8Tensor):
+        return qmm_fp8(qt, x)
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -245,9 +264,11 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K2: row i of x (..., n) against expert idx[i] of W (E, d, n) ->
     (..., d) float32. ``idx`` (...) must hold ids in [0, E): the kernel
     reads the expert's planes at that offset unchecked. A plain table
-    takes ``qmm_experts_fp``."""
+    takes ``qmm_experts_fp``, an fp8 one ``qmm_experts_fp8``."""
     if isinstance(qt, PlainTensor):
         return qmm_experts_fp(qt, idx, x)
+    if isinstance(qt, Fp8Tensor):
+        return qmm_experts_fp8(qt, idx, x)
     if x.device.type == "cpu":
         return qmm_experts_plain(qt, idx, x)
     if x.device.type != "cuda":
@@ -309,29 +330,168 @@ def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
     expert tile_expert[g] (ids in [0, E), read unchecked) of the nibble
     table W (E, d, n) -> (G, 128, d) float32. With ``tile_rows`` (G,) only
     the first tile_rows[g] rows of tile g are computed; the kernel leaves
-    the others unwritten (the plain version zeroes them)."""
+    the others unwritten (the plain version zeroes them). An fp8 table
+    takes ``qmm_grouped_fp8``."""
+    if isinstance(qt, Fp8Tensor):
+        return qmm_grouped_fp8(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type == "cpu":
         return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type != "cuda":
         raise ValueError(f"qmm_grouped runs on cuda or cpu tensors, not {x_tiles.device}")
     _check_planes(qt, x_tiles, experts=True)
+    x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
+                                      "qmm_grouped")
+    kind, p, a, c, off = _nibble_args(qt)
+    _tile_gemm(x2, kind, p, a, c, off, (te, tr, None, None), y,
+               te.shape[0], qt.shape[0], qt.shape[-2])
+    qmm_grouped.launches += 1
+    return y
+
+
+def _grouped_operands(qt, tile_expert, x_tiles, tile_rows, what):
+    """Checked K6 operands: (x (G*128, n) f32, tile_expert and tile_rows
+    as int32, the output (G, 128, d))."""
     G, TB, n = x_tiles.shape
     if TB != _TILE or tile_expert.shape != (G,) or n != qt.shape[-1]:
-        raise ValueError(f"qmm_grouped: x_tiles {tuple(x_tiles.shape)}, "
+        raise ValueError(f"{what}: x_tiles {tuple(x_tiles.shape)}, "
                          f"tile_expert {tuple(tile_expert.shape)}, W {qt.shape}")
     dev = x_tiles.device
     for t in (tile_expert, tile_rows):
         if t is not None and t.device != dev:
-            raise ValueError("qmm_grouped: tile maps on another device")
-    d = qt.shape[-2]
+            raise ValueError(f"{what}: tile maps on another device")
     x2 = x_tiles.reshape(G * TB, n).float().contiguous()
-    y = torch.empty((G, TB, d), dtype=torch.float32, device=dev)
+    y = torch.empty((G, TB, qt.shape[-2]), dtype=torch.float32, device=dev)
     te = tile_expert.to(torch.int32).contiguous()
     tr = None if tile_rows is None else tile_rows.to(torch.int32).contiguous()
-    kind, p, a, c, off = _nibble_args(qt)
-    _tile_gemm(x2, kind, p, a, c, off, (te, tr, None, None), y, G,
-               qt.shape[0], d)
-    qmm_grouped.launches += 1
+    return x2, te, tr, y
+
+
+# ---------------------------------------------------------------------------
+# the fp8 bodies (K5, and K2's and K6's): blockwise F8E5M2 weights
+# ---------------------------------------------------------------------------
+
+def _check_fp8(qt: Fp8Tensor, x: torch.Tensor, experts: bool, col_align: int,
+               what: str) -> None:
+    """Raise unless the kernels can take ``qt`` against x's device: a
+    blockwise grid of the ceil size, contiguous 16-byte aligned bytes, f32
+    scales, in-features and column blocks multiples of ``col_align``."""
+    dims = 3 if experts else 2
+    if qt.per_tensor:
+        raise ValueError(f"{what}: a per-tensor fp8 scale has no kernel (the "
+                         "callers dequantize it, as the JAX package does)")
+    b0, b1 = qt.block_size
+    d, n = qt.shape[-2:]
+    grid = (*qt.shape[:-2], -(-d // b0), -(-n // b1))
+    if qt.data.dim() != dims or tuple(qt.scale.shape) != grid:
+        raise ValueError(f"{what}: expected a {dims}-D fp8 weight with a "
+                         f"{grid} scale grid, got {qt.shape} and "
+                         f"{tuple(qt.scale.shape)}")
+    for name, t, dt in (("data", qt.data, torch.float8_e5m2),
+                        ("scale", qt.scale, torch.float32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"{what}: {name} must be a contiguous, 16-byte aligned {dt} "
+                f"tensor on {x.device}, got {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()}, address % 16 = {t.data_ptr() % 16}")
+    if n % col_align or b1 % col_align:
+        raise ValueError(f"{what} needs in-features and the column block % "
+                         f"{col_align} == 0, got {n} and {b1}")
+
+
+def _fp8_matvec(qt: Fp8Tensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+    x2 = x2.float().contiguous()
+    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
+    err = library("qmm").fp8_matvec(
+        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
+        idx.data_ptr() if idx is not None else None, y.data_ptr(),
+        x2.shape[0], d, x2.shape[1], *qt.block_size,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "fp8_matvec")
+    return y
+
+
+def qmm_fp8(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K5's fp8 body: x (..., n) @ W (d, n).T for a blockwise F8E5M2 weight
+    -> (..., d) float32; more than ``ROW_TILE_MIN`` rows take
+    ``qmm_fp8_rows``."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_fp8 runs on cuda or cpu tensors, not {x.device}")
+    _check_fp8(qt, x, False, 16, "qmm_fp8")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    if x2.shape[0] > ROW_TILE_MIN:
+        return qmm_fp8_rows(qt, x2).reshape(*lead, d)
+    y = _fp8_matvec(qt, x2, None, d)
+    qmm_fp8.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_fp8_rows(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K5's row-tiled route: x (rows, n) @ W (d, n).T for a blockwise fp8
+    weight -> (rows, d) float32, 128 rows a tile."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_fp8_rows runs on cuda or cpu tensors, not {x.device}")
+    _check_fp8(qt, x, False, 64, "qmm_fp8_rows")
+    rows, d = x.shape[0], qt.shape[-2]
+    x2 = x.float().contiguous()
+    y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
+               (None, None, None, None), y, -(-rows // _TILE), 1, d,
+               fp8=(qt.scale.data_ptr(), *qt.block_size))
+    qmm_fp8_rows.launches += 1
+    return y
+
+
+def qmm_experts_fp8(qt: Fp8Tensor, idx: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """K2's fp8 body: row i of x (..., n) against expert idx[i] (ids in
+    [0, E), read unchecked) of a blockwise F8E5M2 table W (E, d, n) ->
+    (..., d) float32."""
+    if x.device.type == "cpu":
+        return qmm_experts_plain(qt, idx, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_experts_fp8 runs on cuda or cpu tensors, not {x.device}")
+    _check_fp8(qt, x, True, 16, "qmm_experts_fp8")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    if idx.shape != lead or n != qt.shape[-1]:
+        raise ValueError(f"qmm_experts_fp8: W {qt.shape}, x {tuple(x.shape)}, "
+                         f"idx {tuple(idx.shape)}")
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
+    y = _fp8_matvec(qt, x2, idx32, d)
+    qmm_experts_fp8.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_grouped_fp8(qt: Fp8Tensor, tile_expert: torch.Tensor,
+                    x_tiles: torch.Tensor,
+                    tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6's fp8 body: ``qmm_grouped`` over a blockwise F8E5M2 table W (E,
+    d, n) -> (G, 128, d) float32 (rows past tile_rows[g] unwritten on the
+    card, zero in the plain version)."""
+    if x_tiles.device.type == "cpu":
+        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
+    if x_tiles.device.type != "cuda":
+        raise ValueError(f"qmm_grouped_fp8 runs on cuda or cpu tensors, not "
+                         f"{x_tiles.device}")
+    _check_fp8(qt, x_tiles, True, 64, "qmm_grouped_fp8")
+    x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
+                                      "qmm_grouped_fp8")
+    _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
+               (te, tr, None, None), y, te.shape[0], qt.shape[0], qt.shape[-2],
+               fp8=(qt.scale.data_ptr(), *qt.block_size))
+    qmm_grouped_fp8.launches += 1
     return y
 
 
@@ -381,3 +541,7 @@ qmm_experts.launches = 0
 qmm_experts_fp.launches = 0
 qmm_grouped.launches = 0
 gmm.launches = 0
+qmm_fp8.launches = 0
+qmm_fp8_rows.launches = 0
+qmm_experts_fp8.launches = 0
+qmm_grouped_fp8.launches = 0

@@ -1,9 +1,9 @@
-"""Weight tensors of the port: plain and K-quant nibble.
+"""Weight tensors of the port: plain, F8E5M2 and K-quant nibble.
 
-The counterparts of ``deepseek_tpu/quant/qtensor.py``'s ``PlainTensor`` and
-``KNibbleTensor`` with the same fields and layouts, so a test can hand the
-same planes to both packages. A projection is stored as ``W (out, in)`` and
-applied as ``y = x @ W.T``.
+The counterparts of ``deepseek_tpu/quant/qtensor.py``'s ``PlainTensor``,
+``Fp8Tensor`` and ``KNibbleTensor`` with the same fields and layouts, so a
+test can hand the same planes to both packages. A projection is stored as
+``W (out, in)`` and applied as ``y = x @ W.T``.
 
 Nibble layout: unsigned ``u = q + off`` stored two per byte in the stride-16
 PERMUTED column order (quant.repack): the low nibble of byte j is permuted
@@ -47,6 +47,59 @@ class PlainTensor:
 
 
 @dataclasses.dataclass
+class Fp8Tensor:
+    """F8E5M2 weight with a blockwise (or per-tensor) inverse-scale grid.
+    The grid is ceil-sized: an edge block may be partial (a 576-row
+    weight has 5 row blocks of 128)."""
+
+    data: torch.Tensor   # (..., out, in) float8_e5m2
+    scale: torch.Tensor  # (..., ceil(out/b0), ceil(in/b1)) f32; per-tensor:
+                         # a scalar, (1,), or (E, 1, 1) over an expert stack
+    block_size: Tuple[int, int] = (0, 0)   # (0, 0) = per-tensor
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def per_tensor(self) -> bool:
+        return tuple(self.block_size) == (0, 0)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.data.numel() + self.scale.numel() * 4
+
+    def map(self, fn) -> "Fp8Tensor":
+        """Apply ``fn`` to the data (as its raw bytes: not every torch op
+        has a float8 kernel) and the scale grid: expert gathers, reshapes,
+        device moves."""
+        data = fn(self.data.view(torch.uint8)).view(torch.float8_e5m2)
+        return Fp8Tensor(data=data, scale=fn(self.scale),
+                         block_size=tuple(self.block_size))
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        w = self.data.to(dtype)
+        if self.per_tensor:
+            return w * self.scale.to(dtype)
+        b0, b1 = self.block_size
+        d, n = self.shape[-2:]
+        s = self.scale.repeat_interleave(b0, dim=-2)[..., :d, :]
+        s = s.repeat_interleave(b1, dim=-1)[..., :n]
+        return w * s.to(dtype)
+
+    def gather_rows(self, rows: torch.Tensor) -> "Fp8Tensor":
+        """The weight rows ``rows`` (...,) of a 2-D weight, each with its own
+        scale row: (..., n) data under a (1, b1) grid (an embedding
+        lookup)."""
+        data = self.data.view(torch.uint8)[rows].view(torch.float8_e5m2)
+        if self.per_tensor:
+            return Fp8Tensor(data=data, scale=self.scale, block_size=(0, 0))
+        b0, b1 = self.block_size
+        return Fp8Tensor(data=data, scale=self.scale[rows // b0],
+                         block_size=(1, b1))
+
+
+@dataclasses.dataclass
 class KNibbleTensor:
     """K-quant expanded to a 4-bit nibble plane (see the module docstring)."""
 
@@ -81,6 +134,33 @@ class KNibbleTensor:
             w = w - self.c.to(dtype).repeat(reps)
         inv = torch.as_tensor(stride16_inv_perm(n), device=w.device)
         return w.index_select(-1, inv)
+
+
+def rows_to_experts(qt, ns: int):
+    """(ns*m, cols...) -> (ns, m, cols...) for every plane (the shared
+    experts' rows, wv_b's per-head blocks; ``deepseek_tpu/ops/matmul.py::
+    reshape_rows``); None for an fp8 weight with a per-tensor scale or with
+    row blocks that would straddle two parts."""
+    if isinstance(qt, Fp8Tensor) and (
+            qt.per_tensor or (qt.shape[-2] // ns) % qt.block_size[0]):
+        return None
+    fn = lambda t: t.reshape(ns, t.shape[0] // ns, *t.shape[1:])
+    return PlainTensor(data=fn(qt.data)) if isinstance(qt, PlainTensor) \
+        else qt.map(fn)
+
+
+def cols_to_experts(qt, ns: int, m: int):
+    """(dim, ns*m) -> (ns, dim, m) where the columns split cleanly: plain
+    weights, and blockwise fp8 whose column blocks divide m (nibble planes
+    interleave columns stride-16); None otherwise."""
+    split = lambda t, c: t.reshape(t.shape[0], ns, c).movedim(1, 0).contiguous()
+    if isinstance(qt, PlainTensor):
+        return PlainTensor(data=split(qt.data, m))
+    if isinstance(qt, Fp8Tensor) and not qt.per_tensor and m % qt.block_size[1] == 0:
+        return Fp8Tensor(
+            data=split(qt.data.view(torch.uint8), m).view(torch.float8_e5m2),
+            scale=split(qt.scale, m // qt.block_size[1]), block_size=qt.block_size)
+    return None
 
 
 def _plane_unpack(planes: np.ndarray, bits: int) -> np.ndarray:

@@ -33,10 +33,15 @@ try:
     _F8E5M2 = np.dtype(ml_dtypes.float8_e5m2)
     _F8E4M3 = np.dtype(ml_dtypes.float8_e4m3fn)
 except ImportError:
-    # without ml_dtypes a BF16 tensor maps to its raw 16-bit words; the
-    # loader reinterprets them as torch.bfloat16 (models/loader.py)
+    # without ml_dtypes a BF16 tensor maps to its raw 16-bit words and an
+    # F8_E5M2 tensor to its raw bytes, in a one-field record dtype so it
+    # stays distinct from U8; the loader reinterprets them as
+    # torch.bfloat16 / torch.float8_e5m2 (models/loader.py). Build such an
+    # array as ``uint8 bytes .view(_DTYPE_TO_NP["F8_E5M2"])``, which works
+    # with and without ml_dtypes.
     _BF16 = np.dtype(np.uint16)
-    _F8E5M2 = _F8E4M3 = None
+    _F8E5M2 = np.dtype([("f8_e5m2", np.uint8)])
+    _F8E4M3 = None
 
 # safetensors dtype-string <-> numpy dtype (codec.cpp:68-105)
 _DTYPE_TO_NP = {

@@ -1,15 +1,17 @@
 """Where a decode step's and a prefill chunk's time goes in the
 PyTorch/CUDA port (one GPU).
 
-    python scripts/torch_profile_decode.py [--model v3|v2-lite] [--layers N]
+    python scripts/torch_profile_decode.py [--model v3|v2-lite|v2-lite-fp8]
+                                           [--layers N]
                                            [--steps 16] [--chunks 4]
                                            [--trace out.json]
 
 ``--model v3`` (the default) builds the DeepSeek-V3-width nibble model
 with the factor weights wq_b / wkv_b, 4 layers unless --layers says
 otherwise; ``--model v2-lite`` builds the F16 decompressed-MHA
-DeepSeek-V2-Lite, all 27 layers unless --layers says otherwise (random
-weights from a seed, models/testing.py). It profiles:
+DeepSeek-V2-Lite and ``--model v2-lite-fp8`` the same model in F8E5M2
+with 128x128 block scales, all 27 layers unless --layers says otherwise
+(random weights from a seed, models/testing.py). It profiles:
   short: greedy decode at positions 0.. (kv_len grows from 1; attention is
          negligible);
   long:  greedy decode from the 4096-slot window onwards, over a cache
@@ -126,7 +128,7 @@ def main() -> int:
         print("torch_profile_decode: no CUDA GPU visible", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("v3", "v2-lite"), default="v3")
+    ap.add_argument("--model", choices=("v3", "v2-lite", "v2-lite-fp8"), default="v3")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 4 for v3, 27 for v2-lite)")
     ap.add_argument("--steps", type=int, default=16)
@@ -135,8 +137,9 @@ def main() -> int:
     args = ap.parse_args()
 
     import subprocess
+    from deepseek_tpu_torch.config import QuantKind
     from deepseek_tpu_torch.models.testing import (
-        deepseek_v2_lite_proportions, deepseek_v3_proportions,
+        deepseek_v2_lite_proportions, deepseek_v3_proportions, random_fp8_params,
         random_fused_params, random_plain_params)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -146,6 +149,12 @@ def main() -> int:
     if args.model == "v2-lite":
         cfg = deepseek_v2_lite_proportions(n_layers=args.layers or 27)
         params = random_plain_params(cfg, torch.float16, seed=0, device="cuda")
+        variants = (("k9", params),)
+    elif args.model == "v2-lite-fp8":
+        cfg = deepseek_v2_lite_proportions(n_layers=args.layers or 27,
+                                           weight_quant=QuantKind.F8E5M2,
+                                           block_size=(128, 128))
+        params = random_fp8_params(cfg, seed=0, device="cuda")
         variants = (("k9", params),)
     else:
         cfg = deepseek_v3_proportions(n_layers=args.layers or 4)

@@ -24,10 +24,11 @@ from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mla_prefill_attn_plain,
 )
 from deepseek_tpu_torch.ops.kernels.qmm import (
-    gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_plain,
-    qmm_fp, qmm_fp_plain, qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows,
+    gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
+    qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows, qmm_fp_plain, qmm_grouped,
+    qmm_grouped_fp8, qmm_grouped_plain, qmm_plain, qmm_rows,
 )
-from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
 
 
 @pytest.fixture
@@ -349,3 +350,129 @@ def test_new_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         mha_decode_attn(q[:, 0], k[..., :60], v[..., :60],
                         torch.tensor([8], device=dev), 0.1)
+
+
+def _fp8(E, d, n, block, seed, dev):
+    """A random blockwise F8E5M2 table (E, d, n) (E = 0: one 2-D weight)
+    with its ceil-sized grid of scales in [0.005, 0.02]."""
+    g = torch.Generator().manual_seed(seed)
+    lead = (E,) if E else ()
+    data = torch.randn((*lead, d, n), generator=g).to(torch.float8_e5m2)
+    sc = torch.rand((*lead, -(-d // block[0]), -(-n // block[1])), generator=g) * 0.015 + 0.005
+    return Fp8Tensor(data=data.view(torch.uint8).to(dev).view(torch.float8_e5m2),
+                     scale=sc.to(dev), block_size=block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(576, 2048), (2048, 10944), (300, 448), (64, 256)],
+                         ids=["wkv_a", "w2-dense", "ragged-both", "small"])
+@pytest.mark.parametrize("rows", [1, 8, 11, 16, 40, 256])
+def test_k5_fp8_matches_plain(d, n, rows, dev):
+    """K5's fp8 body (the matvec up to 16 rows, 8 x rows a pass; the
+    row-tiled route above) against its plain version on 128x128 grids with
+    ragged row and column blocks. Tolerance 1e-4 of the output scale: the same products, the
+    scale applied per 16-column partial sum (matvec) or per weight (tiles),
+    summed in other orders."""
+    qt = _fp8(0, d, n, (128, 128), seed=d + n, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
+    before = (qmm_fp8.launches, qmm_fp8_rows.launches)
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    tiled = rows > 16
+    assert (qmm_fp8.launches, qmm_fp8_rows.launches) == (
+        before[0] + (not tiled), before[1] + tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 13])
+def test_k5_fp8_matvec_small_blocks(rows, dev):
+    """K5's fp8 matvec with 32x16 blocks, so that every 16-weight vector of
+    a row reads another scale, on a weight ragged in both directions.
+    Tolerance as above."""
+    qt = _fp8(0, 300, 448, (32, 16), seed=rows, dev=dev)
+    x = torch.randn((rows, 448), generator=torch.Generator().manual_seed(rows)).to(dev)
+    before = qmm_fp8.launches
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm_fp8.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,d,n,block", [(66, 2816, 2048, (128, 128)),
+                                         (66, 2048, 1408, (128, 128)),
+                                         (16, 128, 512, (128, 128)),
+                                         (4, 100, 320, (32, 64))],
+                         ids=["w13s", "w2s", "wv_b", "small-blocks"])
+def test_k2_fp8_matches_plain(E, d, n, block, dev):
+    """K2's fp8 body: 8 pairs (a repeated expert) against the plain version
+    (the selected experts dequantized). Tolerance as K5."""
+    qt = _fp8(E, d, n, block, seed=E + d, dev=dev)
+    idx = torch.tensor([0, 5 % E, 5 % E, E - 1, 1, 2, 3, E - 2], device=dev)
+    x = torch.randn((8, n), generator=torch.Generator().manual_seed(3)).to(dev)
+    before = qmm_experts_fp8.launches
+    _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_fp8.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,block", [(2816, 2048, (128, 128)), (2048, 1408, (128, 128)),
+                                       (200, 576, (128, 128)), (200, 576, (32, 64))])
+def test_k6_fp8_matches_plain(d, n, block, dev):
+    """K6's fp8 body over 5 tiles of 3 experts, with and without live-row
+    counts (the rows past a tile's count are not compared)."""
+    qt = _fp8(3, d, n, block, seed=d, dev=dev)
+    x = torch.randn((5, 128, n), generator=torch.Generator().manual_seed(4)).to(dev)
+    te = torch.tensor([0, 0, 2, 1, 2], device=dev, dtype=torch.int32)
+    before = qmm_grouped_fp8.launches
+    _close(qmm_grouped(qt, te, x), qmm_grouped_plain(qt, te, x), 1e-4)
+    rows = torch.tensor([128, 7, 0, 64, 1], device=dev, dtype=torch.int32)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    _close(qmm_grouped(qt, te, x, rows)[live],
+           qmm_grouped_plain(qt, te, x, rows)[live], 1e-4)
+    assert qmm_grouped_fp8.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_fp8_wrappers_reject_what_they_cannot_take(dev):
+    """A per-tensor scale, a block the kernels do not take, a wrong grid, a
+    non-contiguous or CPU weight raise instead of launching."""
+    qt = _fp8(0, 256, 256, (128, 128), seed=0, dev=dev)
+    x = torch.ones((1, 256), device=dev)
+    per_tensor = Fp8Tensor(data=qt.data, scale=torch.ones((), device=dev))
+    for fn in (qmm_fp8, qmm_fp8_rows):
+        with pytest.raises(ValueError, match="per-tensor"):
+            fn(per_tensor, x)
+    with pytest.raises(ValueError):
+        qmm_fp8(_fp8(0, 256, 256, (128, 8), seed=1, dev=dev), x)
+    with pytest.raises(ValueError):
+        qmm_fp8_rows(_fp8(0, 256, 256, (128, 32), seed=1, dev=dev), x)
+    with pytest.raises(ValueError):
+        qmm_fp8(Fp8Tensor(data=qt.data, scale=qt.scale[:1], block_size=(128, 128)), x)
+    with pytest.raises(ValueError):
+        qmm_fp8(qt.map(lambda t: t.t().contiguous().t()), x)
+    with pytest.raises(ValueError):
+        qmm_fp8(qt.map(lambda t: t.cpu()), x)
+    tab = _fp8(2, 128, 256, (128, 128), seed=2, dev=dev)
+    pt_tab = Fp8Tensor(data=tab.data, scale=torch.ones((2, 1, 1), device=dev))
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="per-tensor"):
+        qmm_experts_fp8(pt_tab, te, x)
+    with pytest.raises(ValueError, match="per-tensor"):
+        qmm_grouped_fp8(pt_tab, te, torch.ones((1, 128, 256), device=dev))
+
+
+@pytest.mark.cuda
+def test_per_head_up_fp8(dev):
+    """Absorbed-MLA decode's per-head wv_b product: a blockwise fp8 wv_b
+    whose row blocks split by head launches K2's fp8 body and matches the
+    dequantized product; one whose row blocks straddle two heads (Dv = 128
+    under 256-row blocks) raises on the card instead of dequantizing."""
+    from deepseek_tpu_torch.models.deepseek import per_head_up
+    H, Dv, R = 16, 128, 512
+    lat = torch.randn((2, H, R), generator=torch.Generator().manual_seed(5)).to(dev)
+    wv_b = _fp8(0, H * Dv, R, (128, 128), seed=6, dev=dev)
+    before = qmm_experts_fp8.launches
+    want = torch.einsum("bhr,hvr->bhv", lat,
+                        wv_b.dequant(torch.float32).reshape(H, Dv, R))
+    _close(per_head_up(wv_b, lat), want, 1e-4)
+    assert qmm_experts_fp8.launches == before + 1
+    with pytest.raises(ValueError, match="straddles"):
+        per_head_up(_fp8(0, H * Dv, R, (256, 128), seed=7, dev=dev), lat)
