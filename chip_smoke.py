@@ -7,19 +7,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (one nvcc per source, in parallel, into build/torch_kernels/);
   2. entry points: a tiny random Q3_K checkpoint written with the port's
      codec, hydrated by prefill and decoded greedily by Engine(...,
-     device="cuda") and held against the same Engine on the CPU (plain
-     versions); then a tiny bf16 MoE checkpoint with the factor weights,
+     device="cuda", kquant_runtime="nibble") and held against the same
+     Engine on the CPU (plain versions); then a tiny bf16 MoE checkpoint
+     with the factor weights,
      whose prompt puts 300 token-expert pairs in one chunk (K9, K11) and
      whose decode steps run its bf16 expert tables (K2's plain body); then a
      tiny F16 decompressed-MHA checkpoint (the converter's default kind)
      with a 32 MiB lm_head (K9, K11, then K8, K4, K2's plain body); then a
      tiny absorbed-MLA F8E5M2 checkpoint with 128x128 block scales (K5
-     row-tiled, K6's fp8 body, K9, then K5, K2's fp8 body, K3);
+     row-tiled, K6's fp8 body, K9, then K5, K2's fp8 body, K3); then tiny
+     random Q3_K and Q2_K checkpoints through Engine(device="cuda") with
+     default arguments, the packed planes (200 token-expert pairs in a
+     chunk: K6's packed body, K5 row-tiled, K10; then K5, K2's packed body
+     on the expert tables and wv_b, K3);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
      (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
      256, with the factor weights (K9) and without (K10), each followed by
-     16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again);
+     16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again); then
+     the same model in packed Q3_K and in packed Q2_K (K5, K2's and K6's
+     packed bodies, K5 row-tiled), each followed by its packed kernels at
+     its shapes (and K1 on the nibble layout of the same w13);
   4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
      1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
      the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
@@ -77,15 +85,21 @@ def card_line() -> str:
 
 def time_ms(fn, iters=10):
     """Mean device time of one call. Each call is enqueued behind a 512 MB
-    write that evicts the 50 MB L2 (decode finds its weights cold) and keeps
-    the device busy while the host prepares the call, so the interval
-    between the two events holds device time only."""
+    write that evicts the 50 MB L2 (decode finds its weights cold) and a
+    ~1 ms device spin that keeps the device busy while the host prepares
+    the call (the write alone drains before a wrapper's checks end), so the
+    interval between the two events holds device time only. A call slower
+    than 20 ms (a plain version over every expert) is timed 3 times."""
     flush = time_ms.flush
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.02:
+        iters = min(iters, 3)
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -121,27 +135,37 @@ def save_tiny(path: str, cfg, tensors: dict) -> None:
     save_checkpoint(path, [tensors], md)
 
 
-def write_tiny_checkpoint(path: str, rng) -> None:
+def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
+                          max_seq_len: int = 64, window: int = 32) -> None:
+    """A tiny 2-layer absorbed-MLA MoE checkpoint of random Q3_K (or Q2_K)
+    blocks with small f16 super scales, without the factor weights."""
     from deepseek_tpu_torch.config import (
         ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
-    from deepseek_tpu_torch.quant.kquant import Q3K_BLOCK_BYTES, QK_K
+    from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 
     cfg = ModelConfig(
         dim=512, hidden_dim=1024, n_layers=2, n_heads=4, vocab_size=512,
-        max_seq_len=64, rope_theta=10000.0, norm_eps=1e-6,
+        max_seq_len=max_seq_len, rope_theta=10000.0, norm_eps=1e-6,
         act=ActivationType.SILU, first_k_dense_replace=1, n_shared_experts=1,
         n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
         routed_scaling_factor=2.5, n_group=2, norm_topk_prob=True,
         scoring_func=ScoringFunc.SIGMOID, topk_group=1,
         topk_method=TopKMethod.NOAUX_TC, has_moegate_bias=True, use_mla=True,
         kv_lora_rank=512, q_lora_rank=512, qk_nope_head_dim=128,
-        qk_rope_head_dim=64, v_head_dim=128, weight_quant=QuantKind.Q3_K,
-        rs_original_max_position_embeddings=32, arch="DeepseekV3ForCausalLM")
+        qk_rope_head_dim=64, v_head_dim=128,
+        weight_quant=QuantKind.Q3_K if quant == "q3_k" else QuantKind.Q2_K,
+        rs_original_max_position_embeddings=window, arch="DeepseekV3ForCausalLM")
 
     def q3k(*shape):
-        """Random Q3_K blocks with small f16 super-scales."""
+        """Random Q3_K (Q2_K) blocks with small f16 super scales (and mins)."""
         *lead, rows, cols = shape
         nb = cols // QK_K
+        if quant == "q2_k":
+            raw = rng.integers(0, 256, (*lead, rows, nb, Q2K_BLOCK_BYTES), dtype=np.uint8)
+            for at in (80, 82):                       # d, then dmin
+                v = rng.uniform(2e-4, 6e-4, (*lead, rows, nb)).astype(np.float16)
+                raw[..., at:at + 2] = v[..., None].view(np.uint8).reshape(*v.shape, 2)
+            return raw.reshape(*lead, rows, nb * Q2K_BLOCK_BYTES)
         raw = rng.integers(0, 256, (*lead, rows, nb, Q3K_BLOCK_BYTES), dtype=np.uint8)
         d = rng.uniform(2e-4, 6e-4, (*lead, rows, nb)).astype(np.float16)
         raw[..., 108:110] = d[..., None].view(np.uint8).reshape(*d.shape, 2)
@@ -245,8 +269,8 @@ def entry_point_phase(counts):
                        "chip_smoke_tiny")
     shutil.rmtree(tmp, ignore_errors=True)
     write_tiny_checkpoint(tmp, rng)
-    eng = Engine(tmp, device="cuda", seed=SEED)
-    ref = Engine(tmp, device="cpu", seed=SEED)
+    eng = Engine(tmp, device="cuda", seed=SEED, kquant_runtime="nibble")
+    ref = Engine(tmp, device="cpu", seed=SEED, kquant_runtime="nibble")
     # 20 prompt tokens: the prefill chunk's projections take K1's row-tiled
     # route; the greedy tokens run past the 32-slot window
     prompt = eng.tokenizer.encode("hello, a prompt of twenty tokens", bos=True)[:20]
@@ -254,7 +278,8 @@ def entry_point_phase(counts):
     (out, stats), launched = drive(
         counts, ("K1", "K1r", "K2", "K3", "K10"), "entry point",
         lambda: eng.generate(prompt, num_steps=n_new, temperature=0.0))
-    log(f"entry point: Engine(tiny Q3_K .dseek, device='cuda').generate -> "
+    log(f"entry point: Engine(tiny Q3_K .dseek, device='cuda', "
+        f"kquant_runtime='nibble').generate -> "
         f"{len(out)} greedy tokens {out}, {stats.tok_per_s:.1f} tok/s "
         f"(tiny model, launch-bound)")
     toks = prompt + out
@@ -277,6 +302,42 @@ def entry_point_phase(counts):
     if not worst <= 1e-3 * scale:
         raise RuntimeError("entry-point logits disagree with the CPU engine")
     check_greedy(ref, prompt, out, "entry point")
+    return launched
+
+
+def packed_entry_point_phase(counts, quant):
+    """A tiny random Q3_K or Q2_K checkpoint through Engine(device="cuda")
+    with default arguments (the packed planes) against the same Engine on
+    the CPU: a 100-token prompt is one prefill chunk with 200 token-expert
+    pairs (the shared expert is not folded into the packed tables), so the
+    MoE layer runs K6's packed body and the projections K5's row-tiled
+    route, the attention K10; then 40 greedy decode steps past the
+    128-slot window (K5's packed matvec, K2's packed body on the expert
+    tables and the per-head wv_b, K3)."""
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.quant.qtensor import Q2KTensor, Q3KTensor
+
+    label = f"packed {quant.upper()} entry point"
+    rng = np.random.default_rng(SEED + 8)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       f"chip_smoke_{quant}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_tiny_checkpoint(tmp, rng, quant, max_seq_len=256, window=128)
+    eng = Engine(tmp, device="cuda", seed=SEED)
+    ref = Engine(tmp, device="cpu", seed=SEED)
+    cls = Q3KTensor if quant == "q3_k" else Q2KTensor
+    moe = eng.params.layers[1]
+    if not (isinstance(moe.w13, cls) and isinstance(moe.shared_w13, cls)
+            and isinstance(eng.params.layers[0].wv_b, cls)):
+        raise RuntimeError(f"{label}: expected packed {cls.__name__} planes by default")
+    prompt = [int(v) for v in rng.integers(3, 512, 100)]
+    (out, stats), launched = drive(
+        counts, ("K3", "K10", "K5-packed", "K5r-packed", "K2-packed", "K6-packed"),
+        label, lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
+    log(f"{label}: Engine(tiny {quant.upper()} .dseek, device='cuda').generate -> "
+        f"{len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+    compare_hydrate(eng, ref, (prompt + out)[:140], label)
+    check_greedy(ref, prompt, out, label)
     return launched
 
 
@@ -612,23 +673,16 @@ def check(entry, got, want, rel_tol):
         raise RuntimeError(f"{entry['name']} disagrees with its plain version")
 
 
-def kernel_phase(params, cfg):
-    from deepseek_tpu_torch.ops.kernels.attention import (
-        mla_decode_attn, mla_decode_attn_plain)
-    from deepseek_tpu_torch.ops.kernels.qmm import (
-        qmm, qmm_experts, qmm_experts_plain, qmm_plain)
-    from deepseek_tpu_torch.quant.qtensor import PlainTensor
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    entries = []
-    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
-    H = cfg.n_heads
-
+def make_emit(entries, path=None):
+    """emit(...) checks one kernel against its plain version, times both
+    (and a library call, where one computes the same function) and appends
+    the entry to ``entries``; ``path`` names the driven run whose launch
+    counts the entry reports (default: the kernel's entry in main's
+    path_of)."""
     def emit(name, fn, plain, tol, nb, flops, source, replaces, kernel,
              library=None, select=lambda y: y):
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "kernel": kernel}
+                 "replaces": replaces, "kernel": kernel, "path": path}
         check(entry, select(fn()), select(plain()), tol)
         entry["ms"] = time_ms(fn)
         entry["plain_ms"] = time_ms(plain)
@@ -646,6 +700,21 @@ def kernel_phase(params, cfg):
             + (f", library {entry['library_ms']:.4f} ms" if library else ""))
         entries.append(entry)
         return entry
+    return emit
+
+
+def kernel_phase(params, cfg, entries):
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mla_decode_attn, mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_plain)
+    from deepseek_tpu_torch.quant.qtensor import PlainTensor
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    emit = make_emit(entries)
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    H = cfg.n_heads
 
     # K1 over every dense projection shape of the path; Q3_K from the model
     # itself, Q2_K (with its min plane) synthesized at the same shapes.
@@ -736,7 +805,6 @@ def kernel_phase(params, cfg):
     prefill_kernel_entries(params, cfg, gen, emit)
     mha_kernel_entries(gen, emit)
     fp8_kernel_entries(gen, emit)
-    return entries
 
 
 def rand_fp8(gen, lead, d, n, block=(128, 128)):
@@ -871,6 +939,132 @@ def fp8_kernel_entries(gen, emit):
              "deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, pallas_call :538, "
              "fp8 body :502-508)", "K6-fp8", select=lambda y: y[live])
     del tables
+
+
+def packed_to_nibble(qt):
+    """The nibble layout of a packed Q2_K/Q3_K weight, on the card (the
+    port's q2k_to_nibble / q3k_to_nibble, bf16 scales): the same random
+    weights timed through K1 beside the packed K5."""
+    from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, Q2KTensor
+    u = torch.cat([(qt.qs >> s) & 3 for s in (0, 2, 4, 6)], dim=-1)
+    q2 = isinstance(qt, Q2KTensor)
+    if not q2:
+        u = u + (torch.cat([(qt.hm >> b) & 1 for b in range(8)], dim=-1) << 2)
+    n = u.shape[-1]
+    p = (u[..., :n // 2] | (u[..., n // 2:] << 4)).contiguous()
+    rep = lambda t: t.repeat_interleave(16, dim=-1)
+    if q2:
+        a = rep(qt.d) * (qt.sm & 0xF).float()
+        c = (rep(qt.dmin) * (qt.sm >> 4).float()).to(torch.bfloat16)
+        return KNibbleTensor(p=p, a=a.to(torch.bfloat16), c=c, off=0)
+    a = rep(qt.d) * qt.sc.float()
+    return KNibbleTensor(p=p, a=a.to(torch.bfloat16), c=None, off=4)
+
+
+def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
+    """The packed bodies at the V3-width model's shapes, each against its
+    plain version on the card: K5's matvec on the fused dense w13 (1 and 8
+    rows) and wo (1 row), its row-tiled route on w13 over a 256-token chunk
+    and wkv_b over the 4096-slot window; K2's on the routed w13/w2 tables
+    for the 8 experts of one token and on the per-head wv_b (128 heads of
+    128 x 512); K6's on w13/w2 for a 256-token chunk (2048 pairs over 256
+    experts: the shared expert is not folded into packed tables). Beside
+    K5 on w13, K1 on the nibble layout of the same weights. No PyTorch call
+    computes a K-quant product (library_ms null); `bf16_copy_ms` times
+    torch.matmul over a bf16 copy of the dequantized w13 (another function,
+    4.7-6.1x the bytes). Tolerance 1e-4 of max|ref|: f32 sums in other
+    orders, and the matvec's exact 0.5 + u/16 floats whose offset cancels
+    against f32 group sums."""
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
+        qmm_packed_rows, qmm_plain)
+    from deepseek_tpu_torch.ops.matmul import tile_dispatch
+    from deepseek_tpu_torch.quant.qtensor import rows_to_experts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    emit_dec, emit_pre = make_emit(entries, dec_path), make_emit(entries, pre_path)
+    emit_nib = make_emit(entries)
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    Q, H = quant.upper(), cfg.n_heads
+    qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
+    tiles_src = "deepseek_tpu_torch/csrc/qmm_tiles.cu"
+    body = "_q2k_body :361" if quant == "q2_k" else "_q3k_body :368"
+    k5 = f"deepseek_tpu/ops/pallas/qmm.py:312 (qmm, {body})"
+
+    for label, qt, rows_list in (("w13 (dense)", dense.w13, (1, 8)),
+                                 ("wo", dense.wo, (1,))):
+        d, n = qt.shape
+        for rows in rows_list:
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            entry = emit_dec(f"K5 qmm {Q} packed {label} {rows}x{d}x{n}",
+                             lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                             nbytes(x) + qt.nbytes_active + 4 * rows * d,
+                             2.0 * rows * d * n, qmm_src, k5, "K5-packed")
+            if label == "wo":
+                continue
+            nib = packed_to_nibble(qt)
+            emit_nib(f"K1 qmm {Q} nibble (the same w13, converted) {rows}x{d}x{n}",
+                     lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,
+                     nbytes(x, nib.p, nib.a, nib.c) + 4 * rows * d, 2.0 * rows * d * n,
+                     qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)",
+                     "K1")
+            del nib
+            if rows == 1:
+                w16 = qt.dequant(torch.float32).to(torch.bfloat16)
+                x16 = x.to(torch.bfloat16)
+                entry["bf16_copy_ms"] = time_ms(lambda: torch.matmul(x16, w16.t()))
+                log(f"  {entry['name']}: torch.matmul over a bf16 copy of the weight "
+                    f"(another function) {entry['bf16_copy_ms']:.4f} ms")
+                del w16
+
+    for label, qt, rows in (("w13 (dense)", dense.w13, 256),
+                            ("wkv_b", dense.wkv_b, cfg.kv_window)):
+        d, n = qt.shape
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        emit_pre(f"K5 qmm row-tiled {Q} packed {label} {rows}x{d}x{n}",
+                 lambda: qmm_packed_rows(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                 nbytes(x) + qt.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
+                 tiles_src, k5 + ", rows tiled by 128 :347-351", "K5r-packed")
+
+    # K2: one token's 8 routed experts (sorted, as the pair list holds them)
+    E = cfg.n_routed_experts
+    eids = torch.randperm(E, generator=gen, device="cuda")[:cfg.n_active_routed]
+    eids = eids.sort().values
+    k2 = (f"deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, {body}, "
+          f"bodies selected :622-629)")
+    for label, qt, idx in (("w13 (MoE)", moe.w13, eids), ("w2 (MoE)", moe.w2, eids),
+                           ("wv_b (per head)", rows_to_experts(dense.wv_b, H),
+                            torch.arange(H, device="cuda"))):
+        n_tab, d, n = qt.shape
+        x = torch.randn((idx.numel(), n), generator=gen, device="cuda")
+        per = qt.nbytes_active / n_tab
+        emit_dec(f"K2 qmm_experts {Q} packed {label} {idx.numel()}x{d}x{n}",
+                 lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
+                 1e-4, nbytes(x) + per * idx.unique().numel() + 4 * d * idx.numel(),
+                 2.0 * idx.numel() * d * n, qmm_src, k2, "K2-packed")
+
+    # K6: a random 256-token routing, 8 routed experts a token (2048 pairs);
+    # only the live rows are computed, compared and counted
+    T = 256
+    routed = torch.rand((T, E), generator=gen, device="cuda") \
+        .topk(cfg.n_active_routed, dim=-1).indices
+    te, tr, _, G = tile_dispatch(routed.reshape(-1), E)
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live, n_exp = int(tr.sum()), int(te[tr > 0].unique().numel())
+    for label, qt in (("w13", moe.w13), ("w2", moe.w2)):
+        _, d, n = qt.shape
+        x = torch.randn((G, 128, n), generator=gen, device="cuda")
+        per = qt.nbytes_active / E
+        emit_pre(f"K6 qmm_grouped {Q} packed {label} (MoE) {G} tiles, {n_live} pairs "
+                 f"over {n_exp} experts, {d}x{n}",
+                 lambda: qmm_grouped(qt, te, x, tr),
+                 lambda: qmm_grouped_plain(qt, te, x, tr), 1e-4,
+                 n_live * n * 4 + per * n_exp + n_live * d * 4,
+                 2.0 * n_live * d * n, tiles_src,
+                 f"deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, {body}, "
+                 f"pallas_call :538)", "K6-packed", select=lambda y: y[live])
+        del x
 
 
 def mha_kernel_entries(gen, emit):
@@ -1084,7 +1278,8 @@ def prefill_kernel_entries(params, cfg, gen, emit):
 # phase 4: the full-width decode
 # ---------------------------------------------------------------------------
 
-def full_width_phase(params, cfg, counts):
+def full_width_phase(params, cfg, counts, label="Q3_K nibble",
+                     expect=("K1", "K2", "K3")):
     from deepseek_tpu_torch.models.deepseek import forward_decode
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.loader import params_active_bytes
@@ -1112,21 +1307,24 @@ def full_width_phase(params, cfg, counts):
     tps = N_DECODE / dt
     log(f"full width: DeepSeek-V3 widths, {cfg.n_layers} layers "
         f"({cfg.first_k_dense_replace} dense + {cfg.n_layers - cfg.first_k_dense_replace}"
-        f" MoE), Q3_K nibble, {N_DECODE} greedy tokens: {tps:.2f} tok/s, "
+        f" MoE), {label}, {N_DECODE} greedy tokens: {tps:.2f} tok/s, "
         f"{per_tok * tps / 1e9:.1f} GB/s of {per_tok / 1e9:.3f} GB active bytes/token "
         f"(byte bound {per_tok / HBM_BYTES_PER_S * 1e3:.3f} ms/token = "
         f"{HBM_BYTES_PER_S / per_tok:.0f} tok/s), first tokens {toks[:12]}")
-    log(f"full width: launches over {N_WARMUP} warm-up + {N_DECODE} timed steps {launched} "
-        f"(per token {({k: v / (N_DECODE + N_WARMUP) for k, v in launched.items()})})")
-    log(f"full width: peak device memory "
+    n_steps = N_DECODE + N_WARMUP
+    log(f"full width ({label}): launches over {N_WARMUP} warm-up + {N_DECODE} timed "
+        f"steps {launched} (per token "
+        f"{ {k: v / n_steps for k, v in launched.items() if v} })")
+    log(f"full width ({label}): peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    missing = [k for k in ("K1", "K2", "K3") if launched[k] == 0]
+    missing = [k for k in expect if launched[k] == 0]
     if missing:
-        raise RuntimeError(f"the full-width decode never launched {missing}")
+        raise RuntimeError(f"the full-width {label} decode never launched {missing}")
     return launched, tps
 
 
-def prefill_phase(params, cfg, counts):
+def prefill_phase(params, cfg, counts, label="Q3_K nibble",
+                  expect=("K1", "K1r", "K2", "K3", "K6", "K9", "K10")):
     """The 4-layer V3-width model hydrates a 512-token prompt through the
     port's hydrate_cache (Engine.hydrate's schedule: two prefill chunks of
     256), then decodes 16 greedy tokens: once with the factor weights
@@ -1145,10 +1343,10 @@ def prefill_phase(params, cfg, counts):
                            device="cuda").tolist()
     absorbed = dataclasses.replace(params, layers=[
         dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])
-    stats = {}
+    stats, in_chunks = {}, {}
 
     def run():
-        for label, p in (("decompressed (K9)", params), ("absorbed (K10)", absorbed)):
+        for kind, p in (("decompressed (K9)", params), ("absorbed (K10)", absorbed)):
             cache = init_cache(cfg, device="cuda")
             torch.cuda.reset_peak_memory_stats()
             marks = []
@@ -1159,9 +1357,12 @@ def prefill_phase(params, cfg, counts):
 
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
+            before = read(counts)
             _, last, _, pos = hydrate_cache(p, cfg, cache, prompt,
                                             prefill_chunk=chunk, progress=progress)
             walls = [b - a for a, b in zip(marks, marks[1:])]
+            in_chunks[kind] = {k: (v - before[k]) / len(walls)
+                               for k, v in read(counts).items() if v > before[k]}
             if last.shape != (cfg.vocab_size,) or not np.isfinite(last).all():
                 raise RuntimeError(f"prefill logits {last.shape} not finite")
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1174,16 +1375,16 @@ def prefill_phase(params, cfg, counts):
                     toks.append(int(tok))
             if not torch.isfinite(logits).all():
                 raise RuntimeError("decode logits after prefill not finite")
-            stats[label] = (walls, peak, toks)
+            stats[kind] = (walls, peak, toks)
 
-    _, launched = drive(counts, ("K1", "K1r", "K2", "K3", "K6", "K9", "K10"),
-                        "full-width prefill", run)
-    for label, (walls, peak, toks) in stats.items():
-        log(f"full-width prefill, {label}: {PREFILL_TOKENS} tokens in "
+    _, launched = drive(counts, expect, f"full-width prefill ({label})", run)
+    for kind, (walls, peak, toks) in stats.items():
+        log(f"full-width prefill ({label}), {kind}: {PREFILL_TOKENS} tokens in "
             f"{len(walls)} chunks of {chunk}: {PREFILL_TOKENS / sum(walls):.1f} "
             f"tok/s, wall per chunk {[round(w * 1e3, 3) for w in walls]} ms "
-            f"(the first includes first-call setup), peak device memory "
-            f"{peak:.2f} GiB; {PREFILL_DECODE} greedy tokens {toks}")
+            f"(the first includes first-call setup), launches per chunk "
+            f"{in_chunks[kind]}, peak device memory {peak:.2f} GiB; "
+            f"{PREFILL_DECODE} greedy tokens {toks}")
     return launched, stats
 
 
@@ -1402,14 +1603,17 @@ def counters():
     from deepseek_tpu_torch.ops.kernels.prefill_attn import (
         mha_prefill_attn, mla_prefill_attn)
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8, qmm_fp, qmm_fp8,
-        qmm_fp8_rows, qmm_grouped, qmm_grouped_fp8, qmm_rows)
+        gmm, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
+        qmm_experts_packed, qmm_fp, qmm_fp8, qmm_fp8_rows, qmm_grouped,
+        qmm_grouped_fp8, qmm_grouped_packed, qmm_packed, qmm_packed_rows, qmm_rows)
     return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
             "K3": mla_decode_attn, "K4": qmm_fp, "K6": qmm_grouped,
             "K8": mha_decode_attn, "K9": mha_prefill_attn,
             "K10": mla_prefill_attn, "K11": gmm, "K5": qmm_fp8,
             "K5r": qmm_fp8_rows, "K2-fp8": qmm_experts_fp8,
-            "K6-fp8": qmm_grouped_fp8}
+            "K6-fp8": qmm_grouped_fp8, "K5-packed": qmm_packed,
+            "K5r-packed": qmm_packed_rows, "K2-packed": qmm_experts_packed,
+            "K6-packed": qmm_grouped_packed}
 
 
 def reset(counts):
@@ -1446,7 +1650,9 @@ def main() -> int:
     runs = {"entry point": entry_point_phase(counts),
             "bf16 entry point": bf16_entry_point_phase(counts),
             "MHA entry point": mha_entry_point_phase(counts),
-            "fp8 entry point": fp8_entry_point_phase(counts)}
+            "fp8 entry point": fp8_entry_point_phase(counts),
+            "packed Q3_K entry point": packed_entry_point_phase(counts, "q3_k"),
+            "packed Q2_K entry point": packed_entry_point_phase(counts, "q2_k")}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -1459,9 +1665,31 @@ def main() -> int:
     runs["full-width prefill"], _ = prefill_phase(params, cfg, counts)
 
     log("kernels (each against its plain version on the card):")
-    entries = kernel_phase(params, cfg)
+    entries = []
+    kernel_phase(params, cfg, entries)
     del params
     torch.cuda.empty_cache()
+
+    # the same model in the packed Q3_K and Q2_K layouts (the default
+    # K-quant runtime): decode, prefill, then the packed bodies at its shapes
+    for quant in ("q3_k", "q2_k"):
+        label = f"packed {quant.upper()}"
+        t0 = time.perf_counter()
+        params = random_fused_params(cfg, quant, seed=SEED, device="cuda", factors=True)
+        torch.cuda.synchronize()
+        log(f"full width: random {label} model (with wq_b/wkv_b), "
+            f"{weight_bytes(params) / 1e9:.3f} GB of planes and scales, built on "
+            f"the card in {time.perf_counter() - t0:.1f} s")
+        dec, pre = f"full-width {label} decode", f"full-width {label} prefill"
+        runs[dec], _ = full_width_phase(params, cfg, counts, label,
+                                        ("K5-packed", "K2-packed", "K3"))
+        runs[pre], _ = prefill_phase(
+            params, cfg, counts, label, ("K5-packed", "K5r-packed", "K2-packed",
+                                         "K3", "K6-packed", "K9", "K10"))
+        log(f"kernels, {label} (each against its plain version on the card):")
+        packed_kernel_entries(params, cfg, quant, entries, dec, pre)
+        del params
+        torch.cuda.empty_cache()
 
     runs["V2-Lite"], v2_params, v2_cfg = v2_lite_phase(counts)
     runs["window edge"] = cpu_cut_phase(
@@ -1483,8 +1711,8 @@ def main() -> int:
                "K5": "V2-Lite fp8", "K5r": "V2-Lite fp8",
                "K2-fp8": "V2-Lite fp8", "K6-fp8": "V2-Lite fp8"}
     for e in entries:
-        kernel = e.pop("kernel")
-        e["launches"] = runs[path_of[kernel]][kernel]
+        kernel, path = e.pop("kernel"), e.pop("path")
+        e["launches"] = runs[path or path_of[kernel]][kernel]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

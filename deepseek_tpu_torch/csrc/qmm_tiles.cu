@@ -7,6 +7,9 @@
 //       expert tile_expert[g] of a nibble table (E, d, n);
 //   K5 row-tiled and K6 with the fp8 body (qmm.py:418 and :502-508,
 //       _fp8_body :260): the same routes over a blockwise F8E5M2 weight;
+//   K5 row-tiled and K6 with the packed bodies (qmm.py:361/:368 _q2k_body
+//       and _q3k_body, rows tiled by 128 :347-351; qmm_grouped :471-478,
+//       launched :538): the same routes over packed Q2_K/Q3_K planes;
 //   K11: megablox.gmm as deepseek_tpu/ops/matmul.py::grouped_expert_ffn
 //       calls it: rows grouped by expert, a plain f32/f16/bf16 table.
 //
@@ -50,6 +53,19 @@
 // dequantized weight among 128 rows, so it needs neither the permuted
 // activation copy nor the per-16 group sums the TPU kernel took from HBM.
 //
+// Packed reader (Q2_K, Q3_K). The 64 natural columns of groups g0..g0+3
+// are one 4-byte word at each of the 4 offsets jq*n16 + g0 of the 2-bit
+// plane qs (field s of byte jq*n16 + g = offset 4s + jq of group g) and,
+// for Q3_K, at the 2 offsets jh*n16 + g0 of the 1-bit plane hm (bit b of
+// byte jh*n16 + g = offset 2b + jh; see csrc/qmm.cu). As the nibble reader,
+// the reader stages 512 columns at once: per weight row 4 qs slabs and 2
+// hm slabs of 32 contiguous bytes and the 32 scale bytes (sm | mn << 4, or
+// Q3_K's signed sc), in 16-byte loads started a whole stage ahead, and
+// each thread keeps its row's two f32 super scales (and Q2_K's super mins)
+// of the stage in registers. A step then writes the f32 dequantization of
+// the plain version (Q2KTensor / Q3KTensor.dequant) in natural order:
+//   Q2_K: (d*sc) * q - dmin*mn;  Q3_K: (d*sc) * (qlow + 4*hbit - 4).
+//
 // F8E5M2 reader. A k-step's 64 bytes of a weight row are four 16-byte
 // vectors; two neighbouring lanes load one whole 32-byte sector, and each
 // lane takes its row's f32 block scale s[r / b0][k0 / b1] with it. The
@@ -83,16 +99,21 @@ constexpr int kLda = 16 + 1;      // araw/craw row: 32 bf16 scales (+1)
 constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
 constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
 
-enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5 };
+enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5,
+            kQ2 = 6, kQ3 = 7 };
 
 struct Weights {
   const void* w;          // nibble plane p (E, d, n/2) u8, plain (E, d, n),
-                          // or F8E5M2 bytes (E, d, n)
+                          // F8E5M2 bytes (E, d, n) or packed qs (E, d, n/4)
   const uint16_t* a;      // nibble scales (E, d, n/16) bf16
   const uint16_t* c;      // nibble min terms (E, d, n/16) bf16, or null
   float off;
-  const float* s;         // fp8 inverse scales (E, ceil(d/b0), ceil(n/b1))
+  const float* s;         // fp8 inverse scales (E, ceil(d/b0), ceil(n/b1)),
+                          // or packed super scales d (E, d, n/256)
   int b0, b1;             // fp8 scale block
+  const uint8_t* s8;      // packed scale bytes (E, d, n/16): sm or sc
+  const uint8_t* hm;      // Q3_K high-bit plane (E, d, n/8)
+  const float* dmin;      // Q2_K super mins (E, d, n/256)
 };
 
 struct Tiles {
@@ -133,6 +154,8 @@ __global__ void __launch_bounds__(kThreads)
 tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
                  float* __restrict__ y, int d, int n) {
   constexpr bool kNibble = KIND == kNib || KIND == kNibC;
+  constexpr bool kPacked = KIND == kQ2 || KIND == kQ3;
+  constexpr bool kStaged = kNibble || kPacked;     // raw planes staged
   constexpr bool kFp8 = KIND == kF8;
   using WT = typename std::conditional<
       KIND == kF16, __half,
@@ -149,6 +172,8 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   float* xs = reinterpret_cast<float*>(smem4);   // [kBK][kLdx]
   float* ws = xs + kBK * kLdx;                   // [kBK][kLdw]
   // nibble: the raw planes of kSW columns for the block's kBN rows
+  // (packed: the 4 qs slabs in praw, the scale bytes in araw, the 2 hm
+  // slabs in craw)
   uint32_t* praw = reinterpret_cast<uint32_t*>(ws + kBK * kLdw);  // [kBN][kLdp]
   uint32_t* araw = praw + kBN * kLdp;                              // [kBN][kLda]
   uint32_t* craw = araw + kBN * kLda;                              // [kBN][kLda]
@@ -176,12 +201,22 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const int g0 = kFp8 ? (d + wt.b0 - 1) / wt.b0 : 0;
   const int g1 = kFp8 ? (n + wt.b1 - 1) / wt.b1 : 0;
   const float* se = kFp8 ? wt.s + (size_t)e * g0 * g1 : nullptr;
+  // packed planes of expert e
+  const size_t n4 = (size_t)(n >> 2), n8 = (size_t)(n >> 3), n256 = (size_t)(n >> 8);
+  const uint8_t* qe = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * n4;
+  const uint8_t* he = KIND == kQ3 ? wt.hm + (size_t)e * d * n8 : nullptr;
+  const uint8_t* s8e = kPacked ? wt.s8 + (size_t)e * d * n16 : nullptr;
+  const float* dse = kPacked ? wt.s + (size_t)e * d * n256 : nullptr;
+  const float* dme = KIND == kQ2 ? wt.dmin + (size_t)e * d * n256 : nullptr;
 
   XR xr[kXIt];
   WR wr[kWIt];
   uint4 fr[kFIt];                    // fp8: a step's raw vectors
   float fs[kFIt];                    // and their rows' block scales
   uint4 pr[8], ar[2], cr[2];         // nibble: one raw stage in flight
+  uint4 qr[4], hr[2], sr;            // packed: one raw stage in flight
+  float sup_next[2], min_next[2];    // packed: the row's super scales and
+  float sup_cur[2], min_cur[2];      // mins of the next and this stage
 
   // nibble: start the coalesced 16-byte loads of the raw stage at column
   // ks: per weight row 8 slabs x 32 bytes (groups ks/16 .. +31) and the
@@ -233,6 +268,81 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
     }
   };
 
+  // packed: the coalesced 16-byte loads of the raw stage at column ks:
+  // per weight row 4 qs slabs, 2 hm slabs and the scale bytes, 32 bytes
+  // each (groups ks/16 .. +31; a 256-column tail stage loads half), and
+  // this thread's row's super scales
+  auto load_raw_packed = [&](int ks) {
+    const int gs = ks >> 4, sg = min(kSW, n - ks) >> 4;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int item = tid + it * kThreads;
+      const int ch = item & 1, jq = (item >> 1) & 3, r = item >> 3;
+      const size_t gr = (size_t)min(col0 + r, d - 1);
+      if (ch * 16 < sg)
+        qr[it] = *reinterpret_cast<const uint4*>(
+            qe + gr * n4 + (size_t)jq * n16 + gs + ch * 16);
+    }
+    if constexpr (KIND == kQ3) {
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        const int item = tid + it * kThreads;
+        const int ch = item & 1, jh = (item >> 1) & 1, r = item >> 2;
+        const size_t gr = (size_t)min(col0 + r, d - 1);
+        if (ch * 16 < sg)
+          hr[it] = *reinterpret_cast<const uint4*>(
+              he + gr * n8 + (size_t)jh * n16 + gs + ch * 16);
+      }
+    }
+    {
+      const int ch = tid & 1, r = tid >> 1;
+      const size_t gr = (size_t)min(col0 + r, d - 1);
+      if (ch * 16 < sg)
+        sr = *reinterpret_cast<const uint4*>(s8e + gr * n16 + gs + ch * 16);
+    }
+    const size_t gr = (size_t)min(col0 + wr_r, d - 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j * 16 < sg) {
+        sup_next[j] = dse[gr * n256 + (ks >> 8) + j];
+        if constexpr (KIND == kQ2) min_next[j] = dme[gr * n256 + (ks >> 8) + j];
+      }
+    }
+  };
+  auto store_raw_packed = [&](int ks) {
+    const int sg = min(kSW, n - ks) >> 4;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int item = tid + it * kThreads;
+      const int ch = item & 1, jq = (item >> 1) & 3, r = item >> 3;
+      if (ch * 16 >= sg) continue;
+      uint32_t* dst = praw + r * kLdp + jq * 8 + ch * 4;
+      dst[0] = qr[it].x; dst[1] = qr[it].y; dst[2] = qr[it].z; dst[3] = qr[it].w;
+    }
+    if constexpr (KIND == kQ3) {
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        const int item = tid + it * kThreads;
+        const int ch = item & 1, jh = (item >> 1) & 1, r = item >> 2;
+        if (ch * 16 >= sg) continue;
+        uint32_t* dst = craw + r * kLda + jh * 8 + ch * 4;
+        dst[0] = hr[it].x; dst[1] = hr[it].y; dst[2] = hr[it].z; dst[3] = hr[it].w;
+      }
+    }
+    {
+      const int ch = tid & 1, r = tid >> 1;
+      if (ch * 16 < sg) {
+        uint32_t* dst = araw + r * kLda + ch * 4;
+        dst[0] = sr.x; dst[1] = sr.y; dst[2] = sr.z; dst[3] = sr.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sup_cur[j] = sup_next[j];
+      min_cur[j] = min_next[j];
+    }
+  };
+
   // start one k-step's global loads (clamped rows, dead activation rows
   // skipped); they stay in flight while the previous step computes
   auto load = [&](int k0) {
@@ -253,7 +363,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
         fr[it] = *reinterpret_cast<const uint4*>(w8 + (size_t)gr * n + k0 + c16);
         fs[it] = se[(size_t)(gr / wt.b0) * g1 + k0 / wt.b1];
       }
-    } else if constexpr (!kNibble) {
+    } else if constexpr (!kStaged) {
 #pragma unroll
       for (int it = 0; it < kWIt; ++it) {
         const int item = tid + it * kThreads;
@@ -309,6 +419,45 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
           ws[(q * 16 + 8 + o) * kLdw + wr_r] = af[q] * (hi - wt.off) - cf[q];
         }
       }
+    } else if constexpr (kPacked) {
+      // the 4 groups of this step: word `w` of each slab, byte k = group k;
+      // this thread's row wr_r and the offsets of slabs jq = wr_o, wr_o + 2
+      const int w = (k0 % kSW) / kBK;
+      const int sb = (k0 % kSW) >> 8;                // superblock in the stage
+      const uint32_t sw = araw[wr_r * kLda + w];
+      float scale[4], minv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t b = (sw >> (8 * k)) & 0xFFu;
+        if constexpr (KIND == kQ2) {
+          scale[k] = sup_cur[sb] * (float)(b & 0xFu);
+          minv[k] = min_cur[sb] * (float)(b >> 4);
+        } else {
+          scale[k] = sup_cur[sb] * (float)(int8_t)b;
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        const int jq = wr_o + 2 * it;
+        const uint32_t qw = praw[wr_r * kLdp + jq * 8 + w];
+        const uint32_t hw = KIND == kQ3 ? craw[wr_r * kLda + (jq & 1) * 8 + w] : 0u;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int o = 4 * s + jq;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int q = (int)((qw >> (8 * k + 2 * s)) & 3u);
+            float v;
+            if constexpr (KIND == kQ2) {
+              v = scale[k] * (float)q - minv[k];
+            } else {
+              const int h = (int)((hw >> (8 * k + 2 * s + (jq >> 1))) & 1u);
+              v = scale[k] * (float)(q + 4 * h - 4);
+            }
+            ws[(k * 16 + o) * kLdw + wr_r] = v;
+          }
+        }
+      }
     } else if constexpr (kFp8) {
 #pragma unroll
       for (int it = 0; it < kFIt; ++it) {
@@ -356,13 +505,16 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
 
   load(0);
   if constexpr (kNibble) load_raw(0);
+  if constexpr (kPacked) load_raw_packed(0);
   for (int k0 = 0; k0 < n; k0 += kBK) {
     __syncthreads();                 // the previous step's blocks consumed
-    if constexpr (kNibble) {
+    if constexpr (kStaged) {
       if (k0 % kSW == 0) {           // a new raw stage: store it, fetch the next
-        store_raw(k0);
+        if constexpr (kNibble) store_raw(k0); else store_raw_packed(k0);
         __syncthreads();
-        if (k0 + kSW < n) load_raw(k0 + kSW);
+        if (k0 + kSW < n) {
+          if constexpr (kNibble) load_raw(k0 + kSW); else load_raw_packed(k0 + kSW);
+        }
       }
     }
     store(k0);
@@ -424,7 +576,8 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
 template <int KIND, typename XT>
 cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
                    float* y, int G, int d, int n, cudaStream_t stream) {
-  constexpr int smem = KIND == kNib || KIND == kNibC ? kSmemNib : kSmemPlain;
+  constexpr int smem = KIND == kNib || KIND == kNibC || KIND == kQ2 || KIND == kQ3
+                           ? kSmemNib : kSmemPlain;
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -445,28 +598,33 @@ cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
 // x_dtype: 0 = f32, 2 = bf16 (bf16 only with a plain table). kind: 0/1 =
 // nibble without/with the min plane c (w = p, a, c, off), 2/3/4 = plain
 // f32/f16/bf16 table (w), 5 = F8E5M2 table (w) with the f32 inverse scales
-// s (E, ceil(d/b0), ceil(n/b1)). Tiles as the header says: tile_expert and
-// tile_rows (G,) or null; group_off and tile_off (E+1,) or null.
-// Needs n % 64 == 0 (nibble: n % 256 == 0; fp8: b1 % 64 == 0), G <=
-// 2^31 - 1, d <= 8388480. Returns a cudaError_t; the launch is
-// asynchronous on `stream`.
+// s (E, ceil(d/b0), ceil(n/b1)), 6 = packed Q2_K (w = qs, a = sm, s = d,
+// s2 = dmin), 7 = packed Q3_K (w = qs, a = sc, c = hm, s = d). Tiles as the
+// header says: tile_expert and tile_rows (G,) or null; group_off and
+// tile_off (E+1,) or null. Needs n % 64 == 0 (nibble and packed: n % 256
+// == 0; fp8: b1 % 64 == 0), G <= 2^31 - 1, d <= 8388480. Returns a
+// cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
                          const void* a, const void* c, int off,
-                         const void* s, int b0, int b1,
+                         const void* s, int b0, int b1, const void* s2,
                          const void* tile_expert, const void* tile_rows,
                          const void* group_off, const void* tile_off,
                          void* y, int rows, int G, int E, int d, int n,
                          void* stream) {
-  const bool nib = kind == kNib || kind == kNibC;
+  const bool kq = kind == kNib || kind == kNibC || kind == kQ2 || kind == kQ3;
   if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
-      n % (nib ? 256 : kBK) != 0 || ((nib || kind == kF8) && x_dtype != 0) ||
-      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kF8 ||
-      (kind == kNibC && c == nullptr) ||
+      n % (kq ? 256 : kBK) != 0 || ((kq || kind == kF8) && x_dtype != 0) ||
+      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kQ3 ||
+      w == nullptr || (kind == kNibC && c == nullptr) ||
       (kind == kF8 && (s == nullptr || b0 <= 0 || b1 <= 0 || b1 % kBK != 0)) ||
+      ((kind == kQ2 || kind == kQ3) && (a == nullptr || s == nullptr)) ||
+      (kind == kQ2 && s2 == nullptr) || (kind == kQ3 && c == nullptr) ||
       ((group_off == nullptr) != (tile_off == nullptr)))
     return (int)cudaErrorInvalidValue;
   Weights wt{w, static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(c),
-             (float)off, static_cast<const float*>(s), b0, b1};
+             (float)off, static_cast<const float*>(s), b0, b1,
+             static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(c),
+             static_cast<const float*>(s2)};
   Tiles tl{static_cast<const int32_t*>(tile_expert),
            static_cast<const int32_t*>(tile_rows),
            static_cast<const int32_t*>(group_off),
@@ -481,6 +639,8 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
       case kF32: err = launch<kF32, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF16: err = launch<kF16, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF8: err = launch<kF8, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kQ2: err = launch<kQ2, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kQ3: err = launch<kQ3, float>(x, wt, tl, ys, G, d, n, st); break;
       default: err = launch<kBF16, float>(x, wt, tl, ys, G, d, n, st); break;
     }
   } else {

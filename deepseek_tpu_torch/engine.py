@@ -20,7 +20,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deepseek_tpu_torch.config import ModelConfig, QuantKind
+from deepseek_tpu_torch.config import ModelConfig
 from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
 from deepseek_tpu_torch.models.kvcache import init_cache
 from deepseek_tpu_torch.models.loader import (
@@ -142,7 +142,7 @@ class Engine:
         decode_block: int = 1,
         use_yarn: bool = False,
         load_mtp: bool = True,
-        kquant_runtime: Optional[str] = "nibble",
+        kquant_runtime: Optional[str] = None,
         fuse: bool = True,
         scan_layers="auto",
         device="cuda",
@@ -151,7 +151,9 @@ class Engine:
         prompt chunk ``hydrate`` prefills at a time; ``lock_weights`` and
         ``load_mtp`` have no effect in this slice (weights are always
         resident, no MTP head); the options whose other values are not
-        ported raise."""
+        ported raise. A K-quant checkpoint keeps its packed planes
+        (``kquant_runtime=None``, the JAX default) or takes the nibble
+        layout (``"nibble"``)."""
         if decode_block != 1:
             raise NotImplementedError(
                 f"decode_block={decode_block}: the on-device decode block is "
@@ -172,11 +174,6 @@ class Engine:
             overrides["use_yarn"] = True
         self.cfg = ModelConfig.from_metadata(self.data.metadata, context=context,
                                              **overrides)
-        if (self.cfg.weight_quant in (QuantKind.Q2_K, QuantKind.Q3_K)
-                and kquant_runtime != "nibble"):
-            raise NotImplementedError(
-                f"kquant_runtime={kquant_runtime!r}: only the nibble runtime is "
-                "ported (packed/turbo layouts: ROADMAP.md queue 1, item 9)")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
         self.params = load_params(self.data, self.cfg, device=self.device,

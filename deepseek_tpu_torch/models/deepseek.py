@@ -23,6 +23,11 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   cached per head; decode re-rotates only the rope part of the sink keys
   and attends through K8, prefill through K9. Large plain weights at few
   rows (the lm_head, the dense FFN of DeepSeek-V2-Lite) take K4.
+- A packed Q2_K/Q3_K checkpoint (the default K-quant runtime) runs the
+  packed bodies: every projection through K5, the expert tables and the
+  per-head ``wv_b`` through K2's, the grouped MoE prefill through K6's; its
+  shared expert stays a dense projection (the stride-16 planes interleave
+  columns, so it is not folded into the routed tables).
 - A blockwise F8E5M2 checkpoint runs the fp8 bodies: every projection
   through K5, the expert tables and the per-head ``wv_b`` through K2's,
   the grouped MoE prefill through K6's. A per-tensor one has no expert
@@ -211,10 +216,10 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
 def per_head_up(wv_b, lat: torch.Tensor) -> torch.Tensor:
     """The per-head up-projection of the attended latents (infer.cpp:
     1134-1137; deepseek.py:465-492): lat (B, H, R) f32 through wv_b (H*Dv,
-    R) -> (B, H, Dv) f32. A nibble or blockwise fp8 wv_b goes through the
-    expert kernel with idx = head id, which reads each head's block once; a
-    plain or per-tensor fp8 one has no kernel (nor in the JAX package) and
-    is dequantized. A blockwise fp8 wv_b whose row blocks straddle two
+    R) -> (B, H, Dv) f32. A nibble, packed or blockwise fp8 wv_b goes
+    through the expert kernel with idx = head id, which reads each head's
+    block once; a plain or per-tensor fp8 one has no kernel (nor in the JAX
+    package) and is dequantized. A blockwise fp8 wv_b whose row blocks straddle two
     heads has no kernel either (the JAX kernel path asserts, ops/matmul.py:
     407): on the card that raises, on the CPU it is dequantized."""
     B, H, R = lat.shape
@@ -326,8 +331,8 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
 
 def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
     """Expert-sorted pair list through the gathered-expert products (K2:
-    its nibble body or, for a plain table, its plain body), combined per
-    token with the routing weights."""
+    its nibble, packed or fp8 body or, for a plain table, its plain body),
+    combined per token with the routing weights."""
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     Bt = B * T
     eid, wts, tok = dispatch_pairs(idx.reshape(Bt, -1), weights.reshape(Bt, -1))

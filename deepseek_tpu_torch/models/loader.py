@@ -3,7 +3,8 @@ from the JAX package.
 
 ``load_params`` ports ``deepseek_tpu/models/loader.py::load_params`` for
 F32/F16/BF16 tensors, F8_E5M2 tensors with blockwise or per-tensor scales,
-and U8 K-quant tensors in the nibble runtime layout; ``fuse_projections``
+and U8 K-quant tensors in the packed plane layout (the default, as in the
+JAX package) or the nibble runtime layout; ``fuse_projections``
 ports the function of the same name without the row-permuted expert
 layout. ``params_from_reference`` builds the port's
 params from a ``deepseek_tpu`` ModelParams object without importing JAX.
@@ -21,8 +22,8 @@ from deepseek_tpu_torch.config import ModelConfig, QuantKind
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
 from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 from deepseek_tpu_torch.quant.qtensor import (
-    Fp8Tensor, KNibbleTensor, PlainTensor, cols_to_experts, q2k_to_nibble,
-    q3k_to_nibble, rows_to_experts,
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
+    cols_to_experts, q2k_to_nibble, q3k_to_nibble, rows_to_experts,
 )
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
 from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, CheckpointData
@@ -45,6 +46,20 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
+def check_kquant_runtime(cfg: ModelConfig, kquant_runtime: Optional[str]) -> None:
+    """For a K-quant checkpoint: None (packed planes) and "nibble" are
+    ported, "turbo" is not yet."""
+    if cfg.weight_quant not in (QuantKind.Q2_K, QuantKind.Q3_K):
+        return
+    if kquant_runtime == "turbo":
+        raise NotImplementedError(
+            "kquant_runtime='turbo': the int8 turbo layout is not ported yet "
+            "(ROADMAP.md queue 1, item 9)")
+    if kquant_runtime not in (None, "nibble"):
+        raise ValueError(f"kquant_runtime must be None, 'nibble' or 'turbo', "
+                         f"not {kquant_runtime!r}")
+
+
 def _logical_shape(dtype_str: str, shape, cfg: ModelConfig):
     """Logical (..., out, in) shape of a stored tensor (K-quant raw blocks
     encode 256 weights per block)."""
@@ -57,16 +72,12 @@ def _logical_shape(dtype_str: str, shape, cfg: ModelConfig):
 
 def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
                 runtime_dtype: Optional[str] = None,
-                kquant_runtime: Optional[str] = "nibble") -> ModelParams:
-    """Read a ``.dseek`` checkpoint onto ``device``. K-quant tensors expand
-    to the nibble layout (the only K-quant runtime ported); shapes are
-    checked against the config and a mismatch fails loudly."""
-    if cfg.weight_quant in (QuantKind.Q2_K, QuantKind.Q3_K) \
-            and kquant_runtime != "nibble":
-        raise NotImplementedError(
-            f"kquant_runtime={kquant_runtime!r}: only the nibble runtime is "
-            "ported; the packed and turbo layouts are ROADMAP.md queue 1, "
-            "item 9")
+                kquant_runtime: Optional[str] = None) -> ModelParams:
+    """Read a ``.dseek`` checkpoint onto ``device``. K-quant tensors keep
+    the packed planes (``kquant_runtime=None``, the JAX package's default)
+    or expand to the nibble layout (``"nibble"``); shapes are checked
+    against the config and a mismatch fails loudly."""
+    check_kquant_runtime(cfg, kquant_runtime)
 
     def norm(name: str, expect=None) -> Optional[torch.Tensor]:
         arr = data.get(name + ".weight")
@@ -115,12 +126,19 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
         if dt == "U8":
             raw = np.asarray(w)
             rows = raw.shape[-2]
+            nibble = kquant_runtime == "nibble"
             if cfg.weight_quant == QuantKind.Q2_K:
                 cols = raw.shape[-1] // Q2K_BLOCK_BYTES * QK_K
-                return q2k_to_nibble(*repack_q2k(raw, rows, cols), device=device)
+                planes = repack_q2k(raw, rows, cols)
+                if nibble:
+                    return q2k_to_nibble(*planes, device=device)
+                return Q2KTensor(*(_to_torch(a).to(device) for a in planes))
             if cfg.weight_quant == QuantKind.Q3_K:
                 cols = raw.shape[-1] // Q3K_BLOCK_BYTES * QK_K
-                return q3k_to_nibble(*repack_q3k(raw, rows, cols), device=device)
+                planes = repack_q3k(raw, rows, cols)
+                if nibble:
+                    return q3k_to_nibble(*planes, device=device)
+                return Q3KTensor(*(_to_torch(a).to(device) for a in planes))
             raise ValueError(f"U8 tensor {name} but weight_quant={cfg.weight_quant}")
         raise NotImplementedError(f"stored dtype {dt} of {name} is not ported")
 
@@ -190,6 +208,11 @@ def _concat(a, b, dim: int):
             data=torch.cat([a.data.view(torch.uint8), b.data.view(torch.uint8)],
                            dim=dim).view(torch.float8_e5m2),
             scale=torch.cat([a.scale, b.scale], dim=dim), block_size=a.block_size)
+    if isinstance(a, (Q2KTensor, Q3KTensor)):
+        # every plane scales with the rows (and the experts), as the JAX
+        # _qt_concat_rows / _qt_concat0 concatenate each field
+        return type(a)(*(torch.cat([getattr(a, f.name), getattr(b, f.name)], dim=dim)
+                         for f in dataclasses.fields(a)))
     if a.off != b.off or (a.c is None) != (b.c is None):
         return None
     return KNibbleTensor(
@@ -253,6 +276,10 @@ def _weight_from_reference(obj, device):
             p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
             c=None if obj.c is None else _to_torch(obj.c).to(device),
             off=int(obj.off))
+    if kind in ("Q2KTensor", "Q3KTensor"):
+        cls = Q2KTensor if kind == "Q2KTensor" else Q3KTensor
+        return cls(*(_to_torch(getattr(obj, f.name)).to(device)
+                     for f in dataclasses.fields(cls)))
     if kind == "Fp8Tensor":
         return Fp8Tensor(data=_to_torch(obj.data).view(torch.uint8).to(device)
                          .view(torch.float8_e5m2),
@@ -267,8 +294,7 @@ def _layer_from_reference(lp, device) -> LayerParams:
         v = getattr(lp, f.name, None)
         if v is None:
             kw[f.name] = None
-        elif type(v).__name__ in ("PlainTensor", "Fp8Tensor", "KNibbleTensor") or \
-                dataclasses.is_dataclass(v):
+        elif dataclasses.is_dataclass(v):
             kw[f.name] = _weight_from_reference(v, device)
         else:
             kw[f.name] = _to_torch(v).float().to(device)

@@ -1,7 +1,8 @@
 """Random-weight models built directly on the device (benchmarks, smoke runs).
 
 Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
-nibble part of ``random_fused_params``, and adds DeepSeek-V2-Lite's
+nibble part of ``random_fused_params`` (with the packed Q2_K/Q3_K planes of
+``_direct_qtensor`` beside it), and adds DeepSeek-V2-Lite's
 proportions with a plain-weight model (``random_plain_params``) and a
 blockwise F8E5M2 one (``random_fp8_params``): weights are synthesized in
 their final runtime layout from a seeded ``torch.Generator`` on the target
@@ -20,7 +21,9 @@ from deepseek_tpu_torch.config import (
 )
 from deepseek_tpu_torch.models.loader import fuse_layer
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
-from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import (
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
+)
 
 
 def deepseek_v3_proportions(n_layers: int = 61, **overrides) -> ModelConfig:
@@ -187,15 +190,21 @@ def random_fp8_params(cfg: ModelConfig, seed: int = 7, device="cuda") -> ModelPa
 
 def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                         device="cuda", factors: bool = False) -> ModelParams:
-    """Random model in the fused decode layout (wkvq, wcr, w13 and shared
-    experts folded into w13s/w2s) with nibble planes. ``quant``:
-    q3_k_nibble | q2_k_nibble. The embedding is bf16, the lm_head nibble.
-    ``factors`` also gives each layer the nibble factor weights wq_b
-    (H*head_dim, q_lora) and wkv_b (H*(nope+v), kv_lora) that every
-    converted MLA checkpoint keeps, so prefill attends in decompressed head
-    space (K9); without them it runs the absorbed prefill (K10)."""
-    if quant not in ("q3_k_nibble", "q2_k_nibble"):
-        raise ValueError(f"quant must be q3_k_nibble or q2_k_nibble, not {quant}")
+    """Random model in the fused decode layout (wkvq, wcr, w13) with
+    nibble planes (``quant`` q3_k_nibble | q2_k_nibble: the shared experts
+    folded into w13s/w2s) or packed planes (q3_k | q2_k: the ranges of the
+    JAX ``_direct_qtensor``, random bytes for qs/sm/hm, sc in [-32, 32),
+    d and dmin in [0.001, 0.01]; the shared experts stay shared_w13 /
+    shared_w2, as ``loader.fuse_projections`` leaves a packed checkpoint).
+    The embedding is bf16, the lm_head quantized. ``factors`` also gives
+    each layer the factor weights wq_b (H*head_dim, q_lora) and wkv_b
+    (H*(nope+v), kv_lora) that every converted MLA checkpoint keeps, so
+    prefill attends in decompressed head space (K9); without them it runs
+    the absorbed prefill (K10)."""
+    if quant not in ("q3_k_nibble", "q2_k_nibble", "q3_k", "q2_k"):
+        raise ValueError(f"quant must be q3_k_nibble, q2_k_nibble, q3_k or "
+                         f"q2_k, not {quant}")
+    packed = quant in ("q3_k", "q2_k")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -206,10 +215,26 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
     def tile(blk, lead):
         return blk if not lead else blk.expand(*lead, *blk.shape).contiguous()
 
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=device,
+                             dtype=torch.uint8)
+
     def qt(*shape):
         *lead, rows, cols = shape
         if cols % 256:
-            raise ValueError(f"nibble planes need cols % 256 == 0, got {cols}")
+            raise ValueError(f"K-quant planes need cols % 256 == 0, got {cols}")
+        if packed:
+            qs = tile(u8(rows, cols // 4), lead)
+            d = tile(uniform((rows, cols // 256), 0.001, 0.01, torch.float32), lead)
+            if quant == "q2_k":
+                sm = tile(u8(rows, cols // 16), lead)
+                dmin = tile(uniform((rows, cols // 256), 0.001, 0.01, torch.float32),
+                            lead)
+                return Q2KTensor(qs=qs, sm=sm, d=d, dmin=dmin)
+            hm = tile(u8(rows, cols // 8), lead)
+            sc = tile(torch.randint(-32, 32, (rows, cols // 16), generator=gen,
+                                    device=device, dtype=torch.int8), lead)
+            return Q3KTensor(qs=qs, hm=hm, sc=sc, d=d)
         p = torch.randint(0, 256, (rows, cols // 2), generator=gen,
                           device=device, dtype=torch.uint8)
         a = uniform((rows, cols // 16), 0.001, 0.01, torch.bfloat16)
@@ -225,6 +250,12 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
     def ones(n):
         return torch.ones(n, device=device)
 
+    def moe_ffn(E, m, ns):
+        if packed:
+            return dict(w13=qt(E, 2 * m, c.dim), w2=qt(E, c.dim, m),
+                        shared_w13=qt(2 * ns * m, c.dim), shared_w2=qt(c.dim, ns * m))
+        return dict(w13s=qt(E + ns, 2 * m, c.dim), w2s=qt(E + ns, c.dim, m))
+
     c = cfg
     H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
     E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
@@ -237,13 +268,11 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
             wo=qt(c.dim, H * Dv), wv_b=qt(H * Dv, R),
             wcr=qt(H * P + H * R, c.q_lora_rank),
             wkvq=qt(R + P + c.q_lora_rank, c.dim),
-            w13=None if moe else qt(2 * c.hidden_dim, c.dim),
-            w2=None if moe else qt(c.dim, c.hidden_dim),
             moegate=normal(E, c.dim) if moe else None,
             moegate_bias=(torch.zeros(E, device=device)
                           if moe and c.has_moegate_bias else None),
-            w13s=qt(E + ns, 2 * m, c.dim) if moe else None,
-            w2s=qt(E + ns, c.dim, m) if moe else None,
+            **(moe_ffn(E, m, ns) if moe else
+               dict(w13=qt(2 * c.hidden_dim, c.dim), w2=qt(c.dim, c.hidden_dim))),
             wq_b=qt(H * c.head_dim, c.q_lora_rank) if factors else None,
             wkv_b=qt(H * (c.qk_nope_head_dim + Dv), R) if factors else None,
         ))

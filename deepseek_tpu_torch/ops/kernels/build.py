@@ -32,12 +32,13 @@ SIGNATURES = {
     "qmm": {"knib_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
             "plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "plain_mv": [_P, _P, _I, _P, _I, _I, _I, _P],
-            "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+            "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "mla_decode": {"mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P]},
-    "qmm_tiles": {"tile_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I,
+    "qmm_tiles": {"tile_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {
         "mha_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -20,6 +20,13 @@ products.
   Ragged grids (a block size that does not divide the weight) are taken,
   which the TPU kernels assert against. A per-tensor scale has no kernel
   here, as in the JAX package: on the card these wrappers raise on it.
+- A packed Q2_K/Q3_K weight (``Q2KTensor``/``Q3KTensor``, the default
+  K-quant runtime) takes the packed bodies (``_q2k_body`` qmm.py:361,
+  ``_q3k_body`` :368): ``qmm_packed`` is K5's (the matvec of
+  ``csrc/qmm.cu`` up to ``ROW_TILE_MIN`` rows, ``qmm_packed_rows`` on the
+  tile GEMM above), ``qmm_experts_packed`` K2's (qmm.py:622-629;
+  ``csrc/qmm.cu``) and ``qmm_grouped_packed`` K6's (qmm.py:471-478;
+  ``csrc/qmm_tiles.cu``).
 - ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
   grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
   plain table; ``csrc/qmm_tiles.cu``).
@@ -39,18 +46,20 @@ from typing import Optional
 import torch
 
 from deepseek_tpu_torch.ops.kernels.build import check, library
-from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import (
+    PACKED, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
+)
 
 
 def qmm_plain(qt, x: torch.Tensor) -> torch.Tensor:
-    """x (..., n) @ dequant(W (d, n)).T -> (..., d) float32 (a nibble or
-    fp8 weight)."""
+    """x (..., n) @ dequant(W (d, n)).T -> (..., d) float32 (a nibble,
+    packed or fp8 weight)."""
     return torch.matmul(x.float(), qt.dequant(torch.float32).t())
 
 
 def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Row i of x (..., n) times expert idx[i] of W (E, d, n), a nibble,
-    fp8 or plain table, -> (..., d) float32. Only the selected experts are
+    packed, fp8 or plain table, -> (..., d) float32. Only the selected experts are
     dequantized (a plain table: widened to f32)."""
     lead, n = x.shape[:-1], x.shape[-1]
     sel = idx.reshape(-1).long()
@@ -90,7 +99,7 @@ def qmm_grouped_plain(qt, tile_expert: torch.Tensor,
                       x_tiles: torch.Tensor,
                       tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x_tiles (G, TB, n) in natural column order, tile g against expert
-    tile_expert[g] of W (E, d, n), a nibble or fp8 table -> (G, TB, d)
+    tile_expert[g] of W (E, d, n), a nibble, packed or fp8 table -> (G, TB, d)
     float32. Rows at or past tile_rows[g] (when given) are zero."""
     G, TB, _ = x_tiles.shape
     d = qt.shape[-2]
@@ -161,13 +170,15 @@ def _nibble_args(qt: KNibbleTensor):
             qt.c.data_ptr() if qt.c is not None else None, int(qt.off))
 
 
-def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, fp8=(None, 0, 0)):
+def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, scales=(None, 0, 0),
+               s2=None):
     """Launch csrc/qmm_tiles.cu; ``tiles`` = (tile_expert, tile_rows,
-    group_off, tile_off), each an int32 device tensor or None; ``fp8`` =
-    (scale pointer, b0, b1) for an fp8 table."""
+    group_off, tile_off), each an int32 device tensor or None; ``scales`` =
+    (scale pointer, b0, b1): an fp8 table's grid, or a packed table's super
+    scales (b0 = b1 = 0) with Q2_K's super mins in ``s2``."""
     ptr = [t.data_ptr() if t is not None else None for t in tiles]
     err = library("qmm_tiles").tile_gemm(
-        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *fp8, *ptr,
+        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *scales, s2, *ptr,
         y.data_ptr(), x2.shape[0], G, E, d, x2.shape[1],
         torch.cuda.current_stream(x2.device).cuda_stream)
     check(err, "tile_gemm")
@@ -176,11 +187,14 @@ def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, fp8=(None, 0, 0)):
 def qmm(qt, x: torch.Tensor) -> torch.Tensor:
     """K1: x (..., n) @ W (d, n).T -> (..., d) float32. More than
     ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``). A plain
-    weight takes ``qmm_fp`` (K4), an fp8 one ``qmm_fp8`` (K5)."""
+    weight takes ``qmm_fp`` (K4), an fp8 one ``qmm_fp8`` (K5), a packed one
+    ``qmm_packed`` (K5)."""
     if isinstance(qt, PlainTensor):
         return qmm_fp(qt, x)
     if isinstance(qt, Fp8Tensor):
         return qmm_fp8(qt, x)
+    if isinstance(qt, PACKED):
+        return qmm_packed(qt, x)
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -264,11 +278,14 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K2: row i of x (..., n) against expert idx[i] of W (E, d, n) ->
     (..., d) float32. ``idx`` (...) must hold ids in [0, E): the kernel
     reads the expert's planes at that offset unchecked. A plain table
-    takes ``qmm_experts_fp``, an fp8 one ``qmm_experts_fp8``."""
+    takes ``qmm_experts_fp``, an fp8 one ``qmm_experts_fp8``, a packed one
+    ``qmm_experts_packed``."""
     if isinstance(qt, PlainTensor):
         return qmm_experts_fp(qt, idx, x)
     if isinstance(qt, Fp8Tensor):
         return qmm_experts_fp8(qt, idx, x)
+    if isinstance(qt, PACKED):
+        return qmm_experts_packed(qt, idx, x)
     if x.device.type == "cpu":
         return qmm_experts_plain(qt, idx, x)
     if x.device.type != "cuda":
@@ -331,9 +348,11 @@ def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
     table W (E, d, n) -> (G, 128, d) float32. With ``tile_rows`` (G,) only
     the first tile_rows[g] rows of tile g are computed; the kernel leaves
     the others unwritten (the plain version zeroes them). An fp8 table
-    takes ``qmm_grouped_fp8``."""
+    takes ``qmm_grouped_fp8``, a packed one ``qmm_grouped_packed``."""
     if isinstance(qt, Fp8Tensor):
         return qmm_grouped_fp8(qt, tile_expert, x_tiles, tile_rows)
+    if isinstance(qt, PACKED):
+        return qmm_grouped_packed(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type == "cpu":
         return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type != "cuda":
@@ -445,7 +464,7 @@ def qmm_fp8_rows(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
                (None, None, None, None), y, -(-rows // _TILE), 1, d,
-               fp8=(qt.scale.data_ptr(), *qt.block_size))
+               scales=(qt.scale.data_ptr(), *qt.block_size))
     qmm_fp8_rows.launches += 1
     return y
 
@@ -490,8 +509,149 @@ def qmm_grouped_fp8(qt: Fp8Tensor, tile_expert: torch.Tensor,
                                       "qmm_grouped_fp8")
     _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
                (te, tr, None, None), y, te.shape[0], qt.shape[0], qt.shape[-2],
-               fp8=(qt.scale.data_ptr(), *qt.block_size))
+               scales=(qt.scale.data_ptr(), *qt.block_size))
     qmm_grouped_fp8.launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the packed bodies (K5, and K2's and K6's): Q2_K / Q3_K plane layouts
+# ---------------------------------------------------------------------------
+
+_Q2K_TILE_KIND = 6      # kQ2 in csrc/qmm_tiles.cu; kQ3 = 7
+
+
+def _check_packed(qt, x: torch.Tensor, experts: bool, what: str) -> None:
+    """Raise unless the kernels can take the packed planes against x's
+    device: each plane contiguous, 16-byte aligned, of its dtype and of the
+    shape the in-features give, and in-features % 256 == 0."""
+    dims = 3 if experts else 2
+    n = qt.shape[-1]
+    if n % 256:
+        raise ValueError(f"{what}: packed K-quant kernels need in-features % 256 "
+                         f"== 0 (the converter writes no other), got {n}")
+    lead = tuple(qt.qs.shape[:-1])
+    if isinstance(qt, Q2KTensor):
+        planes = (("qs", qt.qs, torch.uint8, 4), ("sm", qt.sm, torch.uint8, 16),
+                  ("d", qt.d, torch.float32, 256), ("dmin", qt.dmin, torch.float32, 256))
+    else:
+        planes = (("qs", qt.qs, torch.uint8, 4), ("hm", qt.hm, torch.uint8, 8),
+                  ("sc", qt.sc, torch.int8, 16), ("d", qt.d, torch.float32, 256))
+    for name, t, dt, per in planes:
+        if t.dim() != dims or tuple(t.shape) != lead + (n // per,):
+            raise ValueError(f"{what}: plane {name} {tuple(t.shape)}, expected "
+                             f"{lead + (n // per,)} ({dims}-D planes)")
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"{what}: plane {name} must be a contiguous, 16-byte aligned {dt} "
+                f"tensor on {x.device}, got {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()}, address % 16 = {t.data_ptr() % 16}")
+
+
+def _packed_ptrs(qt):
+    """(kind: 0 = Q2_K, 1 = Q3_K; then the pointers of qs, hm, the scale
+    bytes, d and dmin, hm or dmin None)."""
+    if isinstance(qt, Q2KTensor):
+        return (0, qt.qs.data_ptr(), None, qt.sm.data_ptr(), qt.d.data_ptr(),
+                qt.dmin.data_ptr())
+    return (1, qt.qs.data_ptr(), qt.hm.data_ptr(), qt.sc.data_ptr(),
+            qt.d.data_ptr(), None)
+
+
+def _packed_matvec(qt, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+    x2 = x2.float().contiguous()
+    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
+    err = library("qmm").packed_matvec(
+        x2.data_ptr(), *_packed_ptrs(qt),
+        idx.data_ptr() if idx is not None else None, y.data_ptr(),
+        x2.shape[0], d, x2.shape[1], torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "packed_matvec")
+    return y
+
+
+def _packed_tiles(qt, x2, tiles, y, G, E):
+    kind, qs, hm, s8, dsup, dmin = _packed_ptrs(qt)
+    _tile_gemm(x2, _Q2K_TILE_KIND + kind, qs, s8, hm, 0, tiles, y, G, E,
+               qt.shape[-2], scales=(dsup, 0, 0), s2=dmin)
+
+
+def qmm_packed(qt, x: torch.Tensor) -> torch.Tensor:
+    """K5's packed bodies: x (..., n) @ W (d, n).T for a packed Q2_K/Q3_K
+    weight -> (..., d) float32; more than ``ROW_TILE_MIN`` rows take
+    ``qmm_packed_rows``."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_packed runs on cuda or cpu tensors, not {x.device}")
+    _check_packed(qt, x, False, "qmm_packed")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    if x2.shape[0] > ROW_TILE_MIN:
+        return qmm_packed_rows(qt, x2).reshape(*lead, d)
+    y = _packed_matvec(qt, x2, None, d)
+    qmm_packed.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_packed_rows(qt, x: torch.Tensor) -> torch.Tensor:
+    """K5's packed row-tiled route: x (rows, n) @ W (d, n).T -> (rows, d)
+    float32, 128 rows a tile."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_packed_rows runs on cuda or cpu tensors, not {x.device}")
+    _check_packed(qt, x, False, "qmm_packed_rows")
+    rows, d = x.shape[0], qt.shape[-2]
+    x2 = x.float().contiguous()
+    y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    _packed_tiles(qt, x2, (None, None, None, None), y, -(-rows // _TILE), 1)
+    qmm_packed_rows.launches += 1
+    return y
+
+
+def qmm_experts_packed(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K2's packed bodies: row i of x (..., n) against expert idx[i] (ids
+    in [0, E), read unchecked) of a packed Q2_K/Q3_K table W (E, d, n) ->
+    (..., d) float32."""
+    if x.device.type == "cpu":
+        return qmm_experts_plain(qt, idx, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_experts_packed runs on cuda or cpu tensors, not {x.device}")
+    _check_packed(qt, x, True, "qmm_experts_packed")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    if idx.shape != lead or n != qt.shape[-1]:
+        raise ValueError(f"qmm_experts_packed: W {qt.shape}, x {tuple(x.shape)}, "
+                         f"idx {tuple(idx.shape)}")
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
+    y = _packed_matvec(qt, x2, idx32, d)
+    qmm_experts_packed.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_grouped_packed(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
+                       tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6's packed bodies: ``qmm_grouped`` over a packed Q2_K/Q3_K table W
+    (E, d, n), x_tiles in natural column order -> (G, 128, d) float32
+    (rows past tile_rows[g] unwritten on the card, zero in the plain
+    version)."""
+    if x_tiles.device.type == "cpu":
+        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
+    if x_tiles.device.type != "cuda":
+        raise ValueError(f"qmm_grouped_packed runs on cuda or cpu tensors, not "
+                         f"{x_tiles.device}")
+    _check_packed(qt, x_tiles, True, "qmm_grouped_packed")
+    x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
+                                      "qmm_grouped_packed")
+    _packed_tiles(qt, x2, (te, tr, None, None), y, te.shape[0], qt.shape[0])
+    qmm_grouped_packed.launches += 1
     return y
 
 
@@ -545,3 +705,7 @@ qmm_fp8.launches = 0
 qmm_fp8_rows.launches = 0
 qmm_experts_fp8.launches = 0
 qmm_grouped_fp8.launches = 0
+qmm_packed.launches = 0
+qmm_packed_rows.launches = 0
+qmm_experts_packed.launches = 0
+qmm_grouped_packed.launches = 0

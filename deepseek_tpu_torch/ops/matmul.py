@@ -2,19 +2,19 @@
 
 ``qmatmul`` applies a stored projection ``W (out, in)`` to ``x (..., in)``
 (reference dispatcher infer.cpp:381-417; ``deepseek_tpu/ops/matmul.py::
-qmatmul``): nibble weights go through kernel K1, blockwise fp8 weights
-through K5, large plain weights at few rows through K4 (the lm_head and
-the large dense FFN weights in decode), other plain weights and per-tensor
-fp8 (dequantized first, as the JAX qmm does) through one matrix product.
-``dispatch_pairs`` is the single-device (ep == 1) part of
-``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``.
+qmatmul``): nibble weights go through kernel K1, packed Q2_K/Q3_K and
+blockwise fp8 weights through K5's bodies, large plain weights at few rows
+through K4 (the lm_head and the large dense FFN weights in decode), other
+plain weights and per-tensor fp8 (dequantized first, as the JAX qmm does)
+through one matrix product. ``dispatch_pairs`` is the single-device
+(ep == 1) part of ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``.
 
 The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
 name in ``deepseek_tpu/ops/matmul.py`` for ``ep == 1``: a counting sort of
 the token-expert pairs by expert, then the expert projections as grouped
 products, K11 (``gmm``) for plain tables and K6 (``qmm_grouped``) over
-128-row tiles for nibble and blockwise fp8 tables. The pair capacity is
-every pair, rounded up to the 128-row tile (the JAX
+128-row tiles for nibble, packed and blockwise fp8 tables. The pair
+capacity is every pair, rounded up to the 128-row tile (the JAX
 ``ep_prefill_capacity`` at ``ep == 1``); expert parallelism (the EP
 capacity and its overflow count) is ROADMAP.md queue 1, item 14.
 """
@@ -29,7 +29,7 @@ from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.kernels.qmm import (
     PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, gmm, qmm, qmm_grouped,
 )
-from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import PACKED, Fp8Tensor, KNibbleTensor, PlainTensor
 
 
 def plain_kernel_route(qt: PlainTensor, rows: int) -> bool:
@@ -52,7 +52,7 @@ def per_tensor_fp8(t) -> bool:
 
 def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ W.T -> (..., out) in x's dtype, accumulated in f32."""
-    if isinstance(qt, KNibbleTensor):
+    if isinstance(qt, (*PACKED, KNibbleTensor)):
         return qmm(qt, x).to(x.dtype)
     if isinstance(qt, Fp8Tensor):
         if qt.per_tensor:
@@ -89,12 +89,13 @@ def counting_rank(cls: torch.Tensor, n_cls: int):
 
 
 def grouped_ffn_supported(cfg, w1=None) -> bool:
-    """Divisibility for the grouped prefill paths: the nibble tiles need the
-    K-quant superblock (256) to divide both contraction dims, the plain and
-    fp8 grouped products 128. Per-tensor fp8 has no grouped kernel."""
+    """Divisibility for the grouped prefill paths: the K-quant tiles
+    (packed and nibble) need the superblock (256) to divide both
+    contraction dims, the plain and fp8 grouped products 128. Per-tensor
+    fp8 has no grouped kernel."""
     if per_tensor_fp8(w1):
         return False
-    if isinstance(w1, KNibbleTensor):
+    if isinstance(w1, (*PACKED, KNibbleTensor)):
         return cfg.dim % 256 == 0 and cfg.moe_intermediate_size % 256 == 0
     return cfg.dim % 128 == 0 and cfg.moe_intermediate_size % 128 == 0
 
@@ -122,7 +123,7 @@ def tile_dispatch(flat_idx: torch.Tensor, e_local: int, tile: int = 128):
 
 
 def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None):
-    """Nibble- or fp8-expert prefill FFN: ``tile_dispatch`` into 128-row
+    """K-quant- or fp8-expert prefill FFN: ``tile_dispatch`` into 128-row
     tiles and K6 over them. Unfilled slots gather row 0 and are never read
     back; the live row count of each tile goes to the kernel, which skips
     the rest. Returns out (B, T, dim)."""
@@ -153,8 +154,8 @@ def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
     """Prefill MoE FFN as a ragged grouped product: the (B*T*k) pairs are
     counting-sorted by expert and each expert's rows multiply its table
     once, so the work scales with the k routed experts per token, not all
-    E. Plain tables (E, m, dim)/(E, dim, m) run K11; nibble and blockwise
-    fp8 tables K6.
+    E. Plain tables (E, m, dim)/(E, dim, m) run K11; nibble, packed and
+    blockwise fp8 tables K6.
     xb (B, T, dim), weights/idx (B, T, k) -> (B, T, dim) in xb's dtype."""
     if not isinstance(w13 if w13 is not None else w1, PlainTensor):
         return _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=w13)

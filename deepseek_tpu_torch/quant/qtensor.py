@@ -1,9 +1,15 @@
-"""Weight tensors of the port: plain, F8E5M2 and K-quant nibble.
+"""Weight tensors of the port: plain, F8E5M2, K-quant packed and nibble.
 
 The counterparts of ``deepseek_tpu/quant/qtensor.py``'s ``PlainTensor``,
-``Fp8Tensor`` and ``KNibbleTensor`` with the same fields and layouts, so a
-test can hand the same planes to both packages. A projection is stored as
-``W (out, in)`` and applied as ``y = x @ W.T``.
+``Fp8Tensor``, ``Q2KTensor``, ``Q3KTensor`` and ``KNibbleTensor`` with the
+same fields and layouts, so a test can hand the same planes to both
+packages. A projection is stored as ``W (out, in)`` and applied as
+``y = x @ W.T``.
+
+Packed layout (quant.repack, the default K-quant runtime): 2-bit planes
+``qs`` (byte j, bits 2s..2s+1 = permuted column s*(n/4) + j), Q3_K's 1-bit
+plane ``hm`` (byte j, bit b = permuted column b*(n/8) + j), per-16-group
+scale bytes in natural group order and f32 super scales per 256 columns.
 
 Nibble layout: unsigned ``u = q + off`` stored two per byte in the stride-16
 PERMUTED column order (quant.repack): the low nibble of byte j is permuted
@@ -99,6 +105,80 @@ class Fp8Tensor:
                          block_size=(1, b1))
 
 
+def _unpack_planes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., d, n*bits/8) 2-bit (bits=2) or 1-bit planes -> (..., d, n)
+    values in the NATURAL column order."""
+    mask = (1 << bits) - 1
+    perm = torch.cat([(planes >> s) & mask for s in range(0, 8, bits)], dim=-1)
+    inv = torch.as_tensor(stride16_inv_perm(perm.shape[-1]), device=perm.device)
+    return perm.index_select(-1, inv)
+
+
+def _rep16(t: torch.Tensor) -> torch.Tensor:
+    return t.repeat_interleave(16, dim=-1)
+
+
+@dataclasses.dataclass
+class Q2KTensor:
+    """Q2_K weight in the packed plane layout: w = d*sc*q - dmin*mn."""
+
+    qs: torch.Tensor     # (..., out, in//4) uint8: 4 plane-packed 2-bit quants
+    sm: torch.Tensor     # (..., out, in//16) uint8: sc | mn << 4
+    d: torch.Tensor      # (..., out, in//256) f32 super scale
+    dmin: torch.Tensor   # (..., out, in//256) f32 super min scale
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.qs.shape[:-1]) + (self.qs.shape[-1] * 4,)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.qs.numel() + self.sm.numel() + 4 * (self.d.numel() + self.dmin.numel())
+
+    def map(self, fn) -> "Q2KTensor":
+        """Apply ``fn`` to every plane (row slices, expert gathers, moves)."""
+        return Q2KTensor(qs=fn(self.qs), sm=fn(self.sm), d=fn(self.d),
+                         dmin=fn(self.dmin))
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        q = _unpack_planes(self.qs, 2).to(dtype)
+        scale = _rep16(self.d.to(dtype)) * (self.sm & 0xF).to(dtype)
+        minv = _rep16(self.dmin.to(dtype)) * (self.sm >> 4).to(dtype)
+        return _rep16(scale) * q - _rep16(minv)
+
+
+@dataclasses.dataclass
+class Q3KTensor:
+    """Q3_K weight in the packed plane layout: w = d*sc*(qlow + 4*hbit - 4)."""
+
+    qs: torch.Tensor   # (..., out, in//4) uint8: low 2 bits, plane-packed
+    hm: torch.Tensor   # (..., out, in//8) uint8: high bit, plane-packed
+    sc: torch.Tensor   # (..., out, in//16) int8: signed 6-bit scale (already -32)
+    d: torch.Tensor    # (..., out, in//256) f32 super scale
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.qs.shape[:-1]) + (self.qs.shape[-1] * 4,)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.qs.numel() + self.hm.numel() + self.sc.numel() + 4 * self.d.numel()
+
+    def map(self, fn) -> "Q3KTensor":
+        """Apply ``fn`` to every plane (row slices, expert gathers, moves)."""
+        return Q3KTensor(qs=fn(self.qs), hm=fn(self.hm), sc=fn(self.sc), d=fn(self.d))
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        qlow = _unpack_planes(self.qs, 2).to(torch.int8)
+        hbit = _unpack_planes(self.hm, 1).to(torch.int8)
+        q = (qlow + (hbit << 2) - 4).to(dtype)
+        scale = _rep16(self.d.to(dtype)) * self.sc.to(dtype)
+        return _rep16(scale) * q
+
+
+PACKED = (Q2KTensor, Q3KTensor)
+
+
 @dataclasses.dataclass
 class KNibbleTensor:
     """K-quant expanded to a 4-bit nibble plane (see the module docstring)."""
@@ -151,8 +231,9 @@ def rows_to_experts(qt, ns: int):
 
 def cols_to_experts(qt, ns: int, m: int):
     """(dim, ns*m) -> (ns, dim, m) where the columns split cleanly: plain
-    weights, and blockwise fp8 whose column blocks divide m (nibble planes
-    interleave columns stride-16); None otherwise."""
+    weights, and blockwise fp8 whose column blocks divide m (packed and
+    nibble planes interleave columns stride-16, as the JAX
+    ``_qt_split_cols_to_experts`` says); None otherwise."""
     split = lambda t, c: t.reshape(t.shape[0], ns, c).movedim(1, 0).contiguous()
     if isinstance(qt, PlainTensor):
         return PlainTensor(data=split(qt.data, m))

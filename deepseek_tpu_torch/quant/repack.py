@@ -8,9 +8,9 @@ permuted column c' is ``S16[c' mod n/16]``.
     qs_plane[..., j]   holds permuted columns  j, j+n/4, j+2n/4, j+3n/4
     hm_plane[..., j]   holds permuted columns  j + b*n/8 for b in 0..7
 
-In the port these planes are only an intermediate of the load: the loader
-expands them to the nibble layout (quant.qtensor.q2k_to_nibble /
-q3k_to_nibble) at once.
+The loader keeps these planes as ``quant.qtensor.Q2KTensor`` /
+``Q3KTensor`` (the default runtime) or expands them to the nibble layout
+(``q2k_to_nibble`` / ``q3k_to_nibble``).
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Where a decode step's and a prefill chunk's time goes in the
 PyTorch/CUDA port (one GPU).
 
-    python scripts/torch_profile_decode.py [--model v3|v2-lite|v2-lite-fp8]
+    python scripts/torch_profile_decode.py [--model v3|v3-q3k|v3-q2k|v2-lite|v2-lite-fp8]
                                            [--layers N]
                                            [--steps 16] [--chunks 4]
                                            [--trace out.json]
 
 ``--model v3`` (the default) builds the DeepSeek-V3-width nibble model
 with the factor weights wq_b / wkv_b, 4 layers unless --layers says
-otherwise; ``--model v2-lite`` builds the F16 decompressed-MHA
+otherwise, ``v3-q3k`` / ``v3-q2k`` the same model in the packed Q3_K /
+Q2_K planes; ``--model v2-lite`` builds the F16 decompressed-MHA
 DeepSeek-V2-Lite and ``--model v2-lite-fp8`` the same model in F8E5M2
 with 128x128 block scales, all 27 layers unless --layers says otherwise
 (random weights from a seed, models/testing.py). It profiles:
@@ -128,7 +129,8 @@ def main() -> int:
         print("torch_profile_decode: no CUDA GPU visible", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("v3", "v2-lite", "v2-lite-fp8"), default="v3")
+    ap.add_argument("--model", choices=("v3", "v3-q3k", "v3-q2k", "v2-lite", "v2-lite-fp8"),
+                    default="v3")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 4 for v3, 27 for v2-lite)")
     ap.add_argument("--steps", type=int, default=16)
@@ -158,8 +160,8 @@ def main() -> int:
         variants = (("k9", params),)
     else:
         cfg = deepseek_v3_proportions(n_layers=args.layers or 4)
-        params = random_fused_params(cfg, "q3_k_nibble", seed=0, device="cuda",
-                                     factors=True)
+        quant = {"v3": "q3_k_nibble", "v3-q3k": "q3_k", "v3-q2k": "q2_k"}[args.model]
+        params = random_fused_params(cfg, quant, seed=0, device="cuda", factors=True)
         variants = (("k9", params), ("k10", dataclasses.replace(params, layers=[
             dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])))
     print(f"model: {args.model}, {cfg.n_layers} layers")

@@ -9,6 +9,7 @@ skipped:
 Each test skips where no CUDA GPU is visible.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -25,10 +26,13 @@ from deepseek_tpu_torch.ops.kernels.prefill_attn import (
 )
 from deepseek_tpu_torch.ops.kernels.qmm import (
     gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
-    qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows, qmm_fp_plain, qmm_grouped,
-    qmm_grouped_fp8, qmm_grouped_plain, qmm_plain, qmm_rows,
+    qmm_experts_packed, qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows,
+    qmm_fp_plain, qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed,
+    qmm_grouped_plain, qmm_packed, qmm_packed_rows, qmm_plain, qmm_rows,
 )
-from deepseek_tpu_torch.quant.qtensor import Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import (
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
+)
 
 
 @pytest.fixture
@@ -476,3 +480,130 @@ def test_per_head_up_fp8(dev):
     assert qmm_experts_fp8.launches == before + 1
     with pytest.raises(ValueError, match="straddles"):
         per_head_up(_fp8(0, H * Dv, R, (256, 128), seed=7, dev=dev), lat)
+
+
+def _packed(E, d, n, quant, seed, dev):
+    """A random packed Q2_K/Q3_K table (E, d, n) (E = 0: one 2-D weight):
+    random plane bytes, Q3_K scales in [-32, 32), super scales and mins in
+    [0.001, 0.01] (the JAX _direct_qtensor's ranges)."""
+    g = torch.Generator().manual_seed(seed)
+    lead = (E,) if E else ()
+
+    def u8(cols):
+        return torch.randint(0, 256, (*lead, d, cols), generator=g, dtype=torch.uint8)
+
+    def sup():
+        return torch.rand((*lead, d, n // 256), generator=g) * 0.009 + 0.001
+    if quant == "q2_k":
+        qt = Q2KTensor(qs=u8(n // 4), sm=u8(n // 16), d=sup(), dmin=sup())
+    else:
+        qt = Q3KTensor(qs=u8(n // 4), hm=u8(n // 8), d=sup(),
+                       sc=torch.randint(-32, 32, (*lead, d, n // 16), generator=g,
+                                        dtype=torch.int8))
+    return qt.map(lambda t: t.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(100, 256), (300, 1536), (4096, 7168), (64, 18432)],
+                         ids=["small", "ragged-rows", "w13-like", "w2-dense-width"])
+@pytest.mark.parametrize("rows", [1, 3, 16, 17, 130])
+def test_k5_packed_matches_plain(quant, d, n, rows, dev):
+    """K5's packed bodies (the matvec up to 16 rows, the row-tiled route
+    above, with a ragged row tile at 17 and 130 rows and ragged column
+    blocks) against the plain version. Tolerance 1e-4 of the output scale:
+    f32 sums in other orders, and the matvec's exact 0.5 + u/16 floats whose
+    offset cancels against f32 group sums."""
+    qt = _packed(0, d, n, quant, seed=d + n, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
+    before = (qmm_packed.launches, qmm_packed_rows.launches)
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    tiled = rows > 16
+    assert (qmm_packed.launches, qmm_packed_rows.launches) == (
+        before[0] + (not tiled), before[1] + tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("E,d,n", [(16, 4096, 7168), (16, 7168, 2048), (128, 128, 512),
+                                   (4, 100, 256)],
+                         ids=["w13", "w2", "wv_b", "small"])
+def test_k2_packed_matches_plain(quant, E, d, n, dev):
+    """K2's packed bodies: 9 pairs with a repeated expert against the plain
+    version (the selected experts dequantized). Tolerance as K5."""
+    qt = _packed(E, d, n, quant, seed=E + d, dev=dev)
+    idx = torch.tensor([0, 5 % E, 5 % E, E - 1, 1, 2, 3, E - 2, 3], device=dev)
+    x = torch.randn((9, n), generator=torch.Generator().manual_seed(3)).to(dev)
+    before = qmm_experts_packed.launches
+    _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(200, 512), (4096, 7168), (200, 2048)])
+def test_k6_packed_matches_plain(quant, d, n, dev):
+    """K6's packed bodies over 5 tiles of 3 experts, with and without
+    live-row counts (dead rows: the rows past a tile's count are not
+    compared); n = 7168 ends on a 256-column tail stage."""
+    qt = _packed(3, d, n, quant, seed=d, dev=dev)
+    x = torch.randn((5, 128, n), generator=torch.Generator().manual_seed(4)).to(dev)
+    te = torch.tensor([0, 0, 2, 1, 2], device=dev, dtype=torch.int32)
+    before = qmm_grouped_packed.launches
+    _close(qmm_grouped(qt, te, x), qmm_grouped_plain(qt, te, x), 1e-4)
+    rows = torch.tensor([128, 7, 0, 64, 1], device=dev, dtype=torch.int32)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    _close(qmm_grouped(qt, te, x, rows)[live],
+           qmm_grouped_plain(qt, te, x, rows)[live], 1e-4)
+    assert qmm_grouped_packed.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+def test_per_head_up_packed(quant, dev):
+    """Absorbed-MLA decode's per-head wv_b product on a packed wv_b (128
+    heads of 128 x 512) launches K2's packed body and matches the
+    dequantized product."""
+    from deepseek_tpu_torch.models.deepseek import per_head_up
+    H, Dv, R = 128, 128, 512
+    lat = torch.randn((1, H, R), generator=torch.Generator().manual_seed(5)).to(dev)
+    wv_b = _packed(0, H * Dv, R, quant, seed=6, dev=dev)
+    want = torch.einsum("bhr,hvr->bhv", lat,
+                        wv_b.dequant(torch.float32).reshape(H, Dv, R))
+    before = qmm_experts_packed.launches
+    _close(per_head_up(wv_b, lat), want, 1e-4)
+    assert qmm_experts_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+def test_packed_wrappers_reject_what_they_cannot_take(quant, dev):
+    """In-features that are no multiple of 256 (no converter writes them),
+    a CPU plane, a non-contiguous or misaligned plane and a wrong plane
+    shape raise instead of launching or falling back."""
+    x = torch.ones((1, 256), device=dev)
+    bad_n = _packed(0, 16, 128, quant, seed=0, dev=dev)
+    for fn in (qmm_packed, qmm_packed_rows, qmm):
+        with pytest.raises(ValueError, match="256"):
+            fn(bad_n, torch.ones((1, 128), device=dev))
+    with pytest.raises(ValueError, match="256"):
+        qmm_experts(bad_n.map(lambda t: t[None]), torch.zeros(1, device=dev,
+                                                             dtype=torch.int32),
+                    torch.ones((1, 128), device=dev))
+    qt = _packed(0, 16, 256, quant, seed=1, dev=dev)
+    with pytest.raises(ValueError):
+        qmm_packed(qt.map(lambda t: t.cpu()), x)
+    with pytest.raises(ValueError):
+        qmm_packed(qt.map(lambda t: t.t().contiguous().t()), x)
+    with pytest.raises(ValueError):
+        qmm_packed(dataclasses.replace(qt, qs=torch.zeros(16 * 64 + 1, dtype=torch.uint8,
+                                                          device=dev)[1:].view(16, 64)), x)
+    with pytest.raises(ValueError):
+        qmm_packed(dataclasses.replace(qt, d=qt.d[:8]), x)
+    tab = _packed(2, 16, 256, quant, seed=2, dev=dev)
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        qmm_grouped_packed(tab.map(lambda t: t.cpu()), te,
+                           torch.ones((1, 128, 256), device=dev))
+    with pytest.raises(ValueError):
+        qmm_experts_packed(tab, te, torch.ones((2, 256), device=dev))

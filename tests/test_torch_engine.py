@@ -103,7 +103,7 @@ def test_decode_logits_match_jax(ckpt):
 def test_port_loader_matches_reference_params(ckpt):
     """The port's own loader builds the same planes as the JAX loader and
     the same logits as params_from_reference."""
-    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu")
+    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu", kquant_runtime="nibble")
     ref = params_from_reference(ckpt["jeng"].params, "cpu")
     for name in ("wkvq", "wcr", "wo", "wv_b", "w13", "w2", "shared_w13"):
         a, b = getattr(eng.params.layers[1], name), getattr(ref.layers[1], name)
@@ -124,7 +124,8 @@ def test_greedy_tokens_identical(ckpt):
     """The port's generate against the JAX Engine.generate: both hydrate
     the prompt by prefill (the decompressed hybrid-MLA branch, since the
     converted checkpoint keeps wq_b/wkv_b), then decode past the window."""
-    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu", seed=0)
+    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu", seed=0,
+                 kquant_runtime="nibble")
     out, stats = eng.generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)
     want, _ = ckpt["jeng"].generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)
     assert out == want
@@ -151,7 +152,7 @@ def test_hydrate_collects_logprobs(ckpt):
     test_decode_logits_match_jax, and a log-softmax row by at most twice
     that) and with each other (1e-5: the same port logits, gathered two
     ways)."""
-    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu")
+    eng = Engine(ckpt["dir"], context=CONTEXT, device="cpu", kquant_runtime="nibble")
     jeng = ckpt["jeng"]
     toks = ckpt["tokens"][:14]
     _, last, rows, end = eng.hydrate(eng.new_cache(), toks, collect_all_logits=True)

@@ -125,7 +125,7 @@ def ckpt(request, tmp_path_factory):
     out = _checkpoint(str(tmp_path_factory.mktemp(quant)), quant)
     jeng = JaxEngine(out, seed=0, context=WINDOW, decode_block=1,
                      kquant_runtime="nibble")
-    eng = Engine(out, context=WINDOW, device="cpu", seed=0)
+    eng = Engine(out, context=WINDOW, device="cpu", seed=0, kquant_runtime="nibble")
     assert eng.cfg.kv_window == jeng.cfg.kv_window == WINDOW
     toks = np.random.default_rng(43).integers(3, 300, sum(CHUNKS) + 10).tolist()
     return dict(dir=out, quant=quant, jeng=jeng, eng=eng, toks=toks)
@@ -238,7 +238,8 @@ def test_hydrate_matches_jax_hydrate(ckpt):
     row moves by at most twice its logits' error)."""
     jeng = ckpt["jeng"]
     jeng.prefill_chunk = 70
-    eng = Engine(ckpt["dir"], context=WINDOW, device="cpu", seed=0, prefill_chunk=70)
+    eng = Engine(ckpt["dir"], context=WINDOW, device="cpu", seed=0, prefill_chunk=70,
+                 kquant_runtime="nibble")
     toks = ckpt["toks"][:WINDOW + 5]
     _, jlast, jrows, jend = jeng.hydrate(jeng.new_cache(), toks, collect_all_logits=True)
     _, last, rows, end = eng.hydrate(eng.new_cache(), toks, collect_all_logits=True)
@@ -259,7 +260,8 @@ def test_generate_tokens_match_jax(ckpt):
     """Greedy tokens after a prompt hydrated by two prefill chunks."""
     jeng = ckpt["jeng"]
     jeng.prefill_chunk = 70
-    eng = Engine(ckpt["dir"], context=WINDOW, device="cpu", seed=0, prefill_chunk=70)
+    eng = Engine(ckpt["dir"], context=WINDOW, device="cpu", seed=0, prefill_chunk=70,
+                 kquant_runtime="nibble")
     prompt = ckpt["toks"][:80]
     want, _ = jeng.generate(prompt, num_steps=8, temperature=0.0)
     got, stats = eng.generate(prompt, num_steps=8, temperature=0.0)
