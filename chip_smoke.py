@@ -19,7 +19,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      random Q3_K and Q2_K checkpoints through Engine(device="cuda") with
      default arguments, the packed planes (200 token-expert pairs in a
      chunk: K6's packed body, K5 row-tiled, K10; then K5, K2's packed body
-     on the expert tables and wv_b, K3);
+     on the expert tables and wv_b, K3), plus a run sampled at temperature
+     0.8 that must give the CPU Engine's tokens; then the same checkpoints
+     with kquant_runtime="turbo" (the turbo bodies of K5, K2 and K6). Every
+     Engine runs its default 32-token decode block (on-device sampling);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
      (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
@@ -27,7 +30,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
      16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again); then
      the same model in packed Q3_K and in packed Q2_K (K5, K2's and K6's
      packed bodies, K5 row-tiled), each followed by its packed kernels at
-     its shapes (and K1 on the nibble layout of the same w13);
+     its shapes (and K1 on the nibble layout of the same w13), with the
+     packed Q3_K model's decode timed at decode_block 1 and 32 (temperature
+     0 and 0.8) and one block run under set_sync_debug_mode("error"); then
+     the same draws in the turbo layout, Q3_K and Q2_K (K5, K2's and K6's
+     turbo bodies, K5 row-tiled), each followed by its turbo kernels at its
+     shapes beside packed K5 and nibble K1 on one w13;
   4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
      1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
      the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
@@ -305,39 +313,62 @@ def entry_point_phase(counts):
     return launched
 
 
-def packed_entry_point_phase(counts, quant):
+def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False):
     """A tiny random Q3_K or Q2_K checkpoint through Engine(device="cuda")
-    with default arguments (the packed planes) against the same Engine on
-    the CPU: a 100-token prompt is one prefill chunk with 200 token-expert
-    pairs (the shared expert is not folded into the packed tables), so the
-    MoE layer runs K6's packed body and the projections K5's row-tiled
-    route, the attention K10; then 40 greedy decode steps past the
-    128-slot window (K5's packed matvec, K2's packed body on the expert
-    tables and the per-head wv_b, K3)."""
+    with default arguments (the packed planes; ``runtime="turbo"``: the
+    int8 turbo planes) against the same Engine on the CPU: a 100-token
+    prompt is one prefill chunk with 200 token-expert pairs (300 where
+    Q2_K turbo folds the shared expert into its tables), so the MoE layer
+    runs K6 and the projections K5's row-tiled route, the attention K10;
+    then 40 greedy tokens past the 128-slot window in the default 32-token
+    decode blocks (K5's matvec, K2 on the expert tables and the per-head
+    wv_b, K3). ``sampled``: fresh engines on the card and the CPU at the
+    same seed then generate 40 tokens at temperature 0.8 (top_p 0.95), the
+    first from the host sampler and the rest from the on-device sampler,
+    and must give the same tokens."""
     from deepseek_tpu_torch.engine import Engine
-    from deepseek_tpu_torch.quant.qtensor import Q2KTensor, Q3KTensor
+    from deepseek_tpu_torch.quant.qtensor import (
+        Q2KTensor, Q2KTurboTensor, Q3KTensor, Q3KTurboTensor)
 
-    label = f"packed {quant.upper()} entry point"
+    kind = runtime or "packed"
+    label = f"{kind} {quant.upper()} entry point"
     rng = np.random.default_rng(SEED + 8)
     tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        f"chip_smoke_{quant}")
     shutil.rmtree(tmp, ignore_errors=True)
     write_tiny_checkpoint(tmp, rng, quant, max_seq_len=256, window=128)
-    eng = Engine(tmp, device="cuda", seed=SEED)
-    ref = Engine(tmp, device="cpu", seed=SEED)
-    cls = Q3KTensor if quant == "q3_k" else Q2KTensor
+    eng = Engine(tmp, device="cuda", seed=SEED, kquant_runtime=runtime)
+    ref = Engine(tmp, device="cpu", seed=SEED, kquant_runtime=runtime)
+    cls = {("packed", "q3_k"): Q3KTensor, ("packed", "q2_k"): Q2KTensor,
+           ("turbo", "q3_k"): Q3KTurboTensor, ("turbo", "q2_k"): Q2KTurboTensor}[
+        (kind, quant)]
     moe = eng.params.layers[1]
-    if not (isinstance(moe.w13, cls) and isinstance(moe.shared_w13, cls)
+    tables = ((moe.w13s, moe.w2s) if kind == "turbo" and quant == "q2_k"
+              else (moe.w13, moe.shared_w13))
+    if not (all(isinstance(t, cls) for t in tables)
             and isinstance(eng.params.layers[0].wv_b, cls)):
-        raise RuntimeError(f"{label}: expected packed {cls.__name__} planes by default")
+        raise RuntimeError(f"{label}: expected {cls.__name__} planes")
+    sfx = "-turbo" if kind == "turbo" else "-packed"
     prompt = [int(v) for v in rng.integers(3, 512, 100)]
     (out, stats), launched = drive(
-        counts, ("K3", "K10", "K5-packed", "K5r-packed", "K2-packed", "K6-packed"),
+        counts, ("K3", "K10", *(k + sfx for k in ("K5", "K5r", "K2", "K6"))),
         label, lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
-    log(f"{label}: Engine(tiny {quant.upper()} .dseek, device='cuda').generate -> "
+    log(f"{label}: Engine(tiny {quant.upper()} .dseek, device='cuda', "
+        f"kquant_runtime={runtime!r}).generate (decode_block {eng.decode_block}) -> "
         f"{len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
     compare_hydrate(eng, ref, (prompt + out)[:140], label)
     check_greedy(ref, prompt, out, label)
+    if sampled:
+        got, _ = Engine(tmp, device="cuda", seed=SEED, kquant_runtime=runtime) \
+            .generate(prompt, num_steps=40, temperature=0.8, top_p=0.95)
+        want, _ = Engine(tmp, device="cpu", seed=SEED, kquant_runtime=runtime) \
+            .generate(prompt, num_steps=40, temperature=0.8, top_p=0.95)
+        log(f"{label}: 40 tokens sampled at temperature 0.8, seed {SEED}: card "
+            f"{got}, CPU {want}")
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise RuntimeError(f"{label}: sampled token {first} differs: card "
+                               f"{got[first]}, CPU {want[first]}")
     return launched
 
 
@@ -662,6 +693,21 @@ def rand_nibble(gen, rows, cols, quant):
     return KNibbleTensor(p=p, a=a, c=None, off=4)
 
 
+def rand_packed(gen, rows, cols, quant):
+    """A random packed Q2_K/Q3_K weight on the card, in the ranges of
+    models/testing.py::random_fused_params."""
+    from deepseek_tpu_torch.quant.qtensor import Q2KTensor, Q3KTensor
+    u8 = lambda c: torch.randint(0, 256, (rows, c), generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+    sup = lambda: torch.rand((rows, cols // 256), generator=gen, device="cuda") \
+        * 0.009 + 0.001
+    if quant == "q2_k":
+        return Q2KTensor(qs=u8(cols // 4), sm=u8(cols // 16), d=sup(), dmin=sup())
+    sc = torch.randint(-32, 32, (rows, cols // 16), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    return Q3KTensor(qs=u8(cols // 4), hm=u8(cols // 8), sc=sc, d=sup())
+
+
 def check(entry, got, want, rel_tol):
     err = float((got - want).abs().max())
     ref = float(want.abs().max())
@@ -764,13 +810,16 @@ def kernel_phase(params, cfg, entries):
                                           dtype=torch.bfloat16) * 0.02)
         idx = torch.randperm(16, generator=gen, device="cuda")[:9].sort().values
         x = torch.randn((9, n), generator=gen, device="cuda")
+        # yardstick only: torch.bmm over the 9 gathered bf16 tables with x in
+        # bf16 (f32 accumulation), both gathered and cast before the clock
+        wsel, x16 = qt.data[idx], x.to(torch.bfloat16)[:, :, None]
         emit(f"K2 qmm_experts bf16 plain table {label} 9x{d}x{n}",
              lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
              1e-4, nbytes(x) + 9 * d * n * 2 + 4 * d * 9, 2.0 * 9 * d * n,
              "deepseek_tpu_torch/csrc/qmm.cu",
              "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, plain body :651)",
-             "K2f")
-        del qt
+             "K2f", library=lambda: torch.bmm(wsel, x16))
+        del qt, wsel
 
     # K3 at the V3 window: kv_len < S, and a ragged S. Tolerance 1e-4 of
     # max|ref|: f32 sums over thousands of slots in other orders, fast exp.
@@ -1065,6 +1114,195 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
                  f"deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, {body}, "
                  f"pallas_call :538)", "K6-packed", select=lambda y: y[live])
         del x
+
+
+def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
+    """The turbo bodies at the V3-width model's shapes, each against its
+    plain version on the card (the turbo dequantization, bf16 scales, and
+    one f32 product): K5's matvec on a dense w13 drawn in the packed layout
+    and converted (1 and 8 rows), beside K5's packed body and K1 on the
+    nibble layout of the same weights; wo (1 row); the row-tiled route on
+    the model's w13 over a 256-token chunk and wkv_b over the 4096-slot
+    window; K2 on one token's experts of the MoE tables (Q2_K turbo's
+    folded tables: the 8 routed and the shared expert) and on the per-head
+    wv_b; K6 on a 256-token chunk's 2048 routed pairs. No PyTorch call
+    computes a K-quant product (library_ms null). Tolerance 1e-4 of
+    max|ref|: f32 sums in other orders, and the matvec's exact 0.5 + u/256
+    floats whose offset cancels against f32 group sums."""
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
+        qmm_plain, qmm_turbo_rows)
+    from deepseek_tpu_torch.ops.matmul import tile_dispatch
+    from deepseek_tpu_torch.quant.qtensor import (
+        q2k_to_turbo, q3k_to_turbo, rows_to_experts)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    emit_dec, emit_pre = make_emit(entries, dec_path), make_emit(entries, pre_path)
+    Q, H = quant.upper(), cfg.n_heads
+    emit_nib, emit_packed = make_emit(entries), make_emit(
+        entries, f"full-width packed {Q} decode")
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
+    tiles_src = "deepseek_tpu_torch/csrc/qmm_tiles.cu"
+    body = "_q2kt_body :169, launched :378" if quant == "q2_k" else \
+        "_q3kt_body :195, launched :385"
+    k5 = f"deepseek_tpu/ops/pallas/qmm.py:312 (qmm, {body})"
+    to_turbo = q2k_to_turbo if quant == "q2_k" else q3k_to_turbo
+
+    # one dense w13 drawn as packed planes: turbo, packed and nibble
+    d, n = 2 * cfg.hidden_dim, cfg.dim
+    packed = rand_packed(gen, d, n, quant)
+    turbo, nib = to_turbo(packed), packed_to_nibble(packed)
+    for rows in (1, 8):
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        emit_dec(f"K5 qmm {Q} turbo w13 (dense) {rows}x{d}x{n}",
+                 lambda: qmm(turbo, x), lambda: qmm_plain(turbo, x), 1e-4,
+                 nbytes(x) + turbo.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
+                 qmm_src, k5, "K5-turbo")
+        if rows > 1:
+            continue
+        emit_packed(f"K5 qmm {Q} packed (the same w13) {rows}x{d}x{n}",
+                    lambda: qmm(packed, x), lambda: qmm_plain(packed, x), 1e-4,
+                    nbytes(x) + packed.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
+                    qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, packed bodies "
+                    ":361/:368)", "K5-packed")
+        emit_nib(f"K1 qmm {Q} nibble (the same w13) {rows}x{d}x{n}",
+                 lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,
+                 nbytes(x, nib.p, nib.a, nib.c) + 4 * rows * d, 2.0 * rows * d * n,
+                 qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)",
+                 "K1")
+    del packed, turbo, nib
+    d, n = dense.wo.shape
+    x = torch.randn((1, n), generator=gen, device="cuda")
+    emit_dec(f"K5 qmm {Q} turbo wo 1x{d}x{n}", lambda: qmm(dense.wo, x),
+             lambda: qmm_plain(dense.wo, x), 1e-4,
+             nbytes(x) + dense.wo.nbytes_active + 4 * d, 2.0 * d * n, qmm_src, k5,
+             "K5-turbo")
+
+    for label, qt, rows in (("w13 (dense)", dense.w13, 256),
+                            ("wkv_b", dense.wkv_b, cfg.kv_window)):
+        d, n = qt.shape
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        emit_pre(f"K5 qmm row-tiled {Q} turbo {label} {rows}x{d}x{n}",
+                 lambda: qmm_turbo_rows(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                 nbytes(x) + qt.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
+                 tiles_src, k5 + ", rows tiled by 128 :347-351", "K5r-turbo")
+
+    # K2: one token's experts as the pair list holds them (sorted routed
+    # ids, then Q2_K turbo's folded shared expert)
+    E = cfg.n_routed_experts
+    eids = torch.randperm(E, generator=gen, device="cuda")[:cfg.n_active_routed]
+    eids = eids.sort().values
+    folded = moe.w13s is not None
+    if folded:
+        eids = torch.cat([eids, torch.arange(E, E + cfg.n_shared_experts, device="cuda")])
+    t13, t2 = (moe.w13s, moe.w2s) if folded else (moe.w13, moe.w2)
+    k2 = (f"deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, {body}, "
+          f"bodies selected :630-637)")
+    for label, qt, idx in (("w13 (MoE)", t13, eids), ("w2 (MoE)", t2, eids),
+                           ("wv_b (per head)", rows_to_experts(dense.wv_b, H),
+                            torch.arange(H, device="cuda"))):
+        n_tab, d, n = qt.shape
+        x = torch.randn((idx.numel(), n), generator=gen, device="cuda")
+        per = qt.nbytes_active / n_tab
+        emit_dec(f"K2 qmm_experts {Q} turbo {label} {idx.numel()}x{d}x{n}",
+                 lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
+                 1e-4, nbytes(x) + per * idx.unique().numel() + 4 * d * idx.numel(),
+                 2.0 * idx.numel() * d * n, qmm_src, k2, "K2-turbo")
+
+    # K6: a random 256-token routing, 8 routed experts a token (2048 pairs);
+    # only the live rows are computed, compared and counted
+    T = 256
+    routed = torch.rand((T, E), generator=gen, device="cuda") \
+        .topk(cfg.n_active_routed, dim=-1).indices
+    te, tr, _, G = tile_dispatch(routed.reshape(-1), t2.shape[0])
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live, n_exp = int(tr.sum()), int(te[tr > 0].unique().numel())
+    for label, qt in (("w13", t13), ("w2", t2)):
+        _, d, n = qt.shape
+        x = torch.randn((G, 128, n), generator=gen, device="cuda")
+        per = qt.nbytes_active / qt.shape[0]
+        emit_pre(f"K6 qmm_grouped {Q} turbo {label} (MoE) {G} tiles, {n_live} pairs "
+                 f"over {n_exp} experts, {d}x{n}",
+                 lambda: qmm_grouped(qt, te, x, tr),
+                 lambda: qmm_grouped_plain(qt, te, x, tr), 1e-4,
+                 n_live * n * 4 + per * n_exp + n_live * d * 4,
+                 2.0 * n_live * d * n, tiles_src,
+                 f"deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, {body}, "
+                 f"bodies :479-487, pallas_call :538)", "K6-turbo",
+                 select=lambda y: y[live])
+        del x
+
+
+def decode_block_phase(params, cfg, label, reps=3):
+    """Engine.generate's two decode loops at full width, 64 tokens from a
+    1-token prompt at temperature 0 and 0.8 (top_p 0.95): decode_block 1
+    (forward_decode, the logits to the host, the host Sampler) and
+    decode_block 32 (make_decode_loop: the token sampled on the card and
+    fed back, one transfer a block). The two alternate (1, 32, 32, 1, ...),
+    ``reps`` runs each, every run from a fresh cache after one warm-up
+    block; the host clock around synchronized work. Then one 32-token
+    block at 0.8 runs under torch.cuda.set_sync_debug_mode("error"), which
+    raises on an operation that synchronizes the host with the card."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.sampler import Sampler
+
+    n_tok, block = 64, 32
+    loop = make_decode_loop(cfg, block)
+
+    def tok_per_s(blocked: bool, temperature: float):
+        cache = init_cache(cfg, device="cuda")
+        sampler, key = Sampler(cfg.vocab_size, SEED), prng.PRNGKey(SEED)
+        tok, pos = 1, 0
+
+        def run(n):
+            nonlocal tok, pos, key
+            for _ in range(n // block if blocked else n):
+                t = torch.full((1, 1), tok, dtype=torch.int64, device="cuda")
+                if blocked:
+                    key, sub = prng.split(key)
+                    toks, _, _ = loop(params, cache, t, pos, sub, temperature, 0.95)
+                    got = toks[0].tolist()
+                else:
+                    lg = forward_decode(params, cache, t, pos, cfg)[0].float().cpu().numpy()
+                    got = [sampler.sample(lg, temperature, 0.95)]
+                pos, tok = pos + len(got), got[-1]
+
+        run(block)                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n_tok)
+        torch.cuda.synchronize()
+        return n_tok / (time.perf_counter() - t0)
+
+    res = {}
+    with torch.inference_mode():
+        for temperature in (0.0, 0.8):
+            runs = {1: [], 32: []}
+            for rep in range(reps):
+                for b in ((1, 32) if rep % 2 == 0 else (32, 1)):
+                    runs[b].append(tok_per_s(b == block, temperature))
+            for b, v in runs.items():
+                res[(b, temperature)] = v
+                log(f"decode block ({label}), decode_block {b}, temperature "
+                    f"{temperature}: {[round(x, 2) for x in v]} tok/s over {n_tok} "
+                    f"tokens (runs alternating), median {float(np.median(v)):.2f}")
+        cache = init_cache(cfg, device="cuda")
+        tok = torch.full((1, 1), 1, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, logits, _ = loop(params, cache, tok, 0, prng.PRNGKey(SEED), 0.8, 0.95)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if toks.shape != (1, block) or not bool(torch.isfinite(logits).all()):
+            raise RuntimeError("decode block under sync debug mode: bad output")
+    log(f"decode block ({label}): a 32-token block at temperature 0.8 ran under "
+        f"set_sync_debug_mode('error') (no host synchronization inside it)")
+    return res
 
 
 def mha_kernel_entries(gen, emit):
@@ -1604,8 +1842,9 @@ def counters():
         mha_prefill_attn, mla_prefill_attn)
     from deepseek_tpu_torch.ops.kernels.qmm import (
         gmm, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
-        qmm_experts_packed, qmm_fp, qmm_fp8, qmm_fp8_rows, qmm_grouped,
-        qmm_grouped_fp8, qmm_grouped_packed, qmm_packed, qmm_packed_rows, qmm_rows)
+        qmm_experts_packed, qmm_experts_turbo, qmm_fp, qmm_fp8, qmm_fp8_rows,
+        qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed, qmm_grouped_turbo,
+        qmm_packed, qmm_packed_rows, qmm_rows, qmm_turbo, qmm_turbo_rows)
     return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
             "K3": mla_decode_attn, "K4": qmm_fp, "K6": qmm_grouped,
             "K8": mha_decode_attn, "K9": mha_prefill_attn,
@@ -1613,7 +1852,9 @@ def counters():
             "K5r": qmm_fp8_rows, "K2-fp8": qmm_experts_fp8,
             "K6-fp8": qmm_grouped_fp8, "K5-packed": qmm_packed,
             "K5r-packed": qmm_packed_rows, "K2-packed": qmm_experts_packed,
-            "K6-packed": qmm_grouped_packed}
+            "K6-packed": qmm_grouped_packed, "K5-turbo": qmm_turbo,
+            "K5r-turbo": qmm_turbo_rows, "K2-turbo": qmm_experts_turbo,
+            "K6-turbo": qmm_grouped_turbo}
 
 
 def reset(counts):
@@ -1651,8 +1892,11 @@ def main() -> int:
             "bf16 entry point": bf16_entry_point_phase(counts),
             "MHA entry point": mha_entry_point_phase(counts),
             "fp8 entry point": fp8_entry_point_phase(counts),
-            "packed Q3_K entry point": packed_entry_point_phase(counts, "q3_k"),
-            "packed Q2_K entry point": packed_entry_point_phase(counts, "q2_k")}
+            "packed Q3_K entry point": kquant_entry_point_phase(counts, "q3_k",
+                                                                sampled=True),
+            "packed Q2_K entry point": kquant_entry_point_phase(counts, "q2_k"),
+            "turbo Q3_K entry point": kquant_entry_point_phase(counts, "q3_k", "turbo"),
+            "turbo Q2_K entry point": kquant_entry_point_phase(counts, "q2_k", "turbo")}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -1686,8 +1930,33 @@ def main() -> int:
         runs[pre], _ = prefill_phase(
             params, cfg, counts, label, ("K5-packed", "K5r-packed", "K2-packed",
                                          "K3", "K6-packed", "K9", "K10"))
+        if quant == "q3_k":
+            decode_block_phase(params, cfg, label)
         log(f"kernels, {label} (each against its plain version on the card):")
         packed_kernel_entries(params, cfg, quant, entries, dec, pre)
+        del params
+        torch.cuda.empty_cache()
+
+    # the same draws converted to the int8 turbo layout (Q2_K turbo folds
+    # the shared expert into its tables): decode, prefill, then the turbo
+    # bodies at its shapes beside packed and nibble K5/K1 on one w13
+    for quant in ("q3_k", "q2_k"):
+        label = f"turbo {quant.upper()}"
+        t0 = time.perf_counter()
+        params = random_fused_params(cfg, quant + "_turbo", seed=SEED, device="cuda",
+                                     factors=True)
+        torch.cuda.synchronize()
+        log(f"full width: random {label} model (with wq_b/wkv_b), "
+            f"{weight_bytes(params) / 1e9:.3f} GB of planes and scales, built on "
+            f"the card in {time.perf_counter() - t0:.1f} s")
+        dec, pre = f"full-width {label} decode", f"full-width {label} prefill"
+        runs[dec], _ = full_width_phase(params, cfg, counts, label,
+                                        ("K5-turbo", "K2-turbo", "K3"))
+        runs[pre], _ = prefill_phase(
+            params, cfg, counts, label, ("K5-turbo", "K5r-turbo", "K2-turbo",
+                                         "K3", "K6-turbo", "K9", "K10"))
+        log(f"kernels, {label} (each against its plain version on the card):")
+        turbo_kernel_entries(params, cfg, quant, entries, dec, pre)
         del params
         torch.cuda.empty_cache()
 

@@ -8,8 +8,9 @@
 // tables of a plain-weight checkpoint), K4, qmm's plain body (qmm.py:
 // 305, the large plain weights at <= 8 rows), and the fp8 bodies of K5
 // (qmm.py:418, _fp8_body :260: blockwise F8E5M2 projections at few rows)
-// and K2 (qmm.py:664, the same body: fp8 expert tables and wv_b), after
-// the nibble kernel.
+// and K2 (qmm.py:664, the same body: fp8 expert tables and wv_b), and the
+// packed and turbo bodies of K5 and K2 (each before its kernels below),
+// after the nibble kernel.
 //
 //   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
 //             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
@@ -460,6 +461,277 @@ cudaError_t dispatch_packed(const float* x, const uint8_t* qs, const uint8_t* hm
   if (nq % 16 == 0)
     return launch_packed<16, Q3>(x, qs, hm, s8, dsup, dmin, idx, y, rows_x, d, n, stream);
   return launch_packed<8, Q3>(x, qs, hm, s8, dsup, dmin, idx, y, rows_x, d, n, stream);
+}
+
+// The turbo bodies of K5 (qmm.py:312 qmm with _q2kt_body :169, launched
+// :378, and _q3kt_body :195, launched :385: Q2_K/Q3_K turbo projections at
+// few rows) and K2 (qmm.py:566 qmm_experts, the same bodies chosen
+// :630-637: turbo expert tables and the per-head wv_b). Both planes hold
+// one int8 a weight; the activations come in natural order and the kernel
+// makes what the TPU kernel took as inputs: Q2_K's group sums s16 over the
+// natural row, Q3_K's permuted row (stage_permuted, as the packed bodies).
+//
+//   Q2_K turbo, natural order, p = sc*q in 0..45, f32 super scales d,
+//   bf16 min terms bm:
+//     y[b, r] = sum_sb d[r, sb] * (x_sb . p_sb) - sum_g s16[b, g] * bm[r, g]
+//   A lane takes two 16-column groups g, g + LPR at a time: one 16-byte
+//   load a group and row (coalesced across the lanes), both groups' loads
+//   issued before their arithmetic, t = sum_k x_k * (0.5 + p_k/256) by a
+//   byte-permute and an FMA a weight (the nibble kernel's float: p < 128
+//   sits in mantissa bits 16..22), then per group
+//     y += d[r, g/16] * (256 t - 128 s16[g]) - bm[r, g] * s16[g].
+//   Q3_K turbo, permuted order (position o*n16 + g = natural column 16g + o,
+//   scale group g), p = qlow + 4*hbit - 4 in [-4, 3], bf16 a = d*sc:
+//     y[b, r] = sum_g a[r, g] * sum_o xp[b, o*n16 + g] * p[r, o*n16 + g]
+//   A lane owns 16 consecutive groups g0.. (a 16-byte column at each of
+//   the 16 offsets o*n16 + g0) and sums each group over its 16 copies
+//   before the scale: t_g = sum_o xp * (0.5 + u/256), u = p + 4 by one
+//   per-byte add (__vadd4), then once a group
+//     y += a[r, g] * (256 t_g - 132 s16[g])     (sum xp*p = 256t - 128s - 4s)
+//   so the scale costs one FMA per 16 weights, never a multiply a weight.
+// Bound: bytes, 1 byte a weight (9.125 / 9 bits with the scales) at 2
+// flops a weight; each weight costs a byte-permute and an FMA. kRows rows
+// share every shared-memory read of the activations. f32 accumulation.
+
+// Stage activation row xrow in shared memory in its natural order, and
+// s16 (n/16 floats) the sums of its 16-column groups.
+__device__ __forceinline__ void stage_natural(const float* __restrict__ x,
+                                              int xrow, int n, float* xs,
+                                              float* s16) {
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
+  for (int g = threadIdx.x; g < (n >> 4); g += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float4 f = __ldg(xr + g * 4 + v);
+      reinterpret_cast<float4*>(xs)[g * 4 + v] = f;
+      s += (f.x + f.y) + (f.z + f.w);
+    }
+    s16[g] = s;
+  }
+}
+
+// t += x[0..3] . (0.5 + byte_k(w)/256) for the 4 bytes of w (each < 128)
+__device__ __forceinline__ float dot4_nib(uint32_t w, float4 xv, float t) {
+  t = fmaf(xv.x, nib_f(w, 0x7054u), t);
+  t = fmaf(xv.y, nib_f(w, 0x7154u), t);
+  t = fmaf(xv.z, nib_f(w, 0x7254u), t);
+  return fmaf(xv.w, nib_f(w, 0x7354u), t);
+}
+
+template <int LPR>
+__global__ void __launch_bounds__(kThreads)
+q2kt_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
+                   const float* __restrict__ dsup, const uint16_t* __restrict__ bm,
+                   const int32_t* __restrict__ idx, float* __restrict__ y,
+                   int d, int n) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // n floats, natural order
+  const int n16 = n >> 4;
+  float* s16 = xs + n;                          // n16 group sums
+  const int xrow = blockIdx.y;
+  stage_natural(x, xrow, n, xs, s16);
+  __syncthreads();
+
+  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
+  const size_t n256 = (size_t)(n >> 8);
+  const uint8_t* pe = p + e * (size_t)d * n;
+  const float* de = dsup + e * (size_t)d * n256;
+  const uint16_t* be = bm + e * (size_t)d * n16;
+
+  constexpr int kSub = 32 / LPR;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % LPR;
+  const int sub = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kSub
+                  + lane / LPR;
+  const int row0 = sub * kRows;
+
+  float acc[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
+  // two groups a step (g and g + LPR), all their loads issued before the
+  // arithmetic of either, so twice the bytes are in flight a lane
+  for (int g = sl; g < n16; g += 2 * LPR) {
+    const int ng = g + LPR < n16 ? 2 : 1;
+    uint4 w[2][kRows];
+    float dv[2][kRows], bv[2][kRows];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int gu = min(g + u * LPR, n16 - 1);          // clamped: used if u < ng
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        const size_t r = (size_t)min(row0 + rr, d - 1);  // clamped: stores masked
+        w[u][rr] = __ldg(reinterpret_cast<const uint4*>(pe + r * n) + gu);
+        dv[u][rr] = __ldg(de + r * n256 + (gu >> 4));
+        bv[u][rr] = __uint_as_float((uint32_t)__ldg(be + r * n16 + gu) << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u >= ng) break;
+      const int gu = g + u * LPR;
+      const float4* xg = reinterpret_cast<const float4*>(xs) + gu * 4;
+      const float4 x0 = xg[0], x1 = xg[1], x2 = xg[2], x3 = xg[3];
+      const float s = s16[gu];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        // two partial sums: shorter dependent FMA chains
+        const float t = dot4_nib(w[u][rr].y, x1, dot4_nib(w[u][rr].x, x0, 0.f))
+                        + dot4_nib(w[u][rr].w, x3, dot4_nib(w[u][rr].z, x2, 0.f));
+        acc[rr] += dv[u][rr] * (256.f * t - 128.f * s) - bv[u][rr] * s;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int m = LPR / 2; m > 0; m >>= 1)
+      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
+  }
+  if (sl == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = row0 + rr;
+      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+    }
+  }
+}
+
+template <int LPR>
+__global__ void __launch_bounds__(kThreads)
+q3kt_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
+                   const uint16_t* __restrict__ a, const int32_t* __restrict__ idx,
+                   float* __restrict__ y, int d, int n) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // n floats, permuted order
+  const int n16 = n >> 4;
+  float* s16 = xs + n;                          // n16 group sums
+  const int xrow = blockIdx.y;
+  stage_permuted(x, xrow, n, xs, s16);
+  __syncthreads();
+
+  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
+  const uint8_t* pe = p + e * (size_t)d * n;
+  const uint16_t* ae = a + e * (size_t)d * n16;
+
+  constexpr int kSub = 32 / LPR;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % LPR;
+  const int sub = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kSub
+                  + lane / LPR;
+  const int row0 = sub * kRows;
+  const int nb = n >> 8;                        // 16-group blocks per row
+
+  float acc[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
+  for (int jb = sl; jb < nb; jb += LPR) {
+    const int g0 = jb << 4;
+    float t[kRows][16];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) t[rr][k] = 0.f;
+#pragma unroll 2
+    for (int o = 0; o < 16; ++o) {
+      uint4 w[kRows];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        const size_t r = (size_t)min(row0 + rr, d - 1);
+        w[rr] = __ldg(reinterpret_cast<const uint4*>(pe + r * n + (size_t)o * n16 + g0));
+      }
+      const float4* xo = reinterpret_cast<const float4*>(xs + o * n16 + g0);
+      const float4 xv[4] = {xo[0], xo[1], xo[2], xo[3]};
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        const uint32_t u[4] = {__vadd4(w[rr].x, 0x04040404u), __vadd4(w[rr].y, 0x04040404u),
+                               __vadd4(w[rr].z, 0x04040404u), __vadd4(w[rr].w, 0x04040404u)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float xq[4] = {xv[q].x, xv[q].y, xv[q].z, xv[q].w};
+          t[rr][4 * q + 0] = fmaf(xq[0], nib_f(u[q], 0x7054u), t[rr][4 * q + 0]);
+          t[rr][4 * q + 1] = fmaf(xq[1], nib_f(u[q], 0x7154u), t[rr][4 * q + 1]);
+          t[rr][4 * q + 2] = fmaf(xq[2], nib_f(u[q], 0x7254u), t[rr][4 * q + 2]);
+          t[rr][4 * q + 3] = fmaf(xq[3], nib_f(u[q], 0x7354u), t[rr][4 * q + 3]);
+        }
+      }
+    }
+    float sv[16];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(s16 + g0)[q];
+      sv[4 * q] = f.x; sv[4 * q + 1] = f.y; sv[4 * q + 2] = f.z; sv[4 * q + 3] = f.w;
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const size_t r = (size_t)min(row0 + rr, d - 1);
+      const uint4* ar = reinterpret_cast<const uint4*>(ae + r * n16 + g0);
+      const uint4 a0 = __ldg(ar), a1 = __ldg(ar + 1);
+      float af[16];
+      bf16x4(make_uint2(a0.x, a0.y), af);
+      bf16x4(make_uint2(a0.z, a0.w), af + 4);
+      bf16x4(make_uint2(a1.x, a1.y), af + 8);
+      bf16x4(make_uint2(a1.z, a1.w), af + 12);
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        acc[rr] = fmaf(af[k], 256.f * t[rr][k] - 132.f * sv[k], acc[rr]);
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int m = LPR / 2; m > 0; m >>= 1)
+      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
+  }
+  if (sl == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = row0 + rr;
+      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+    }
+  }
+}
+
+template <int LPR, bool Q3>
+cudaError_t launch_turbo(const float* x, const uint8_t* p, const float* dsup,
+                         const uint16_t* a, const int32_t* idx, float* y,
+                         int rows_x, int d, int n, cudaStream_t stream) {
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    cudaError_t err;
+    if constexpr (Q3)
+      err = cudaFuncSetAttribute(q3kt_matvec_kernel<LPR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    else
+      err = cudaFuncSetAttribute(q2kt_matvec_kernel<LPR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_opt_in = true;
+  }
+  const size_t smem = (size_t)(n + n / 16) * sizeof(float);
+  const int rows_per_block = (kThreads / 32) * (32 / LPR) * kRows;
+  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
+  if constexpr (Q3)
+    q3kt_matvec_kernel<LPR><<<grid, kThreads, smem, stream>>>(x, p, a, idx, y, d, n);
+  else
+    q2kt_matvec_kernel<LPR><<<grid, kThreads, smem, stream>>>(x, p, dsup, a, idx, y, d, n);
+  return cudaGetLastError();
+}
+
+// lanes per row from the units a row has (Q2_K: 16-column groups; Q3_K:
+// 16-group blocks), so that short rows do not leave most lanes idle
+template <bool Q3>
+cudaError_t dispatch_turbo(const float* x, const uint8_t* p, const float* dsup,
+                           const uint16_t* a, const int32_t* idx, float* y,
+                           int rows_x, int d, int n, cudaStream_t stream) {
+  const int units = Q3 ? n / 256 : n / 16;
+  if (units >= 24)
+    return launch_turbo<32, Q3>(x, p, dsup, a, idx, y, rows_x, d, n, stream);
+  if (units >= 6)
+    return launch_turbo<8, Q3>(x, p, dsup, a, idx, y, rows_x, d, n, stream);
+  return launch_turbo<2, Q3>(x, p, dsup, a, idx, y, rows_x, d, n, stream);
 }
 
 // K2's plain body: y[b, r] = sum_c x[b, c] * float(W[idx[b]][r, c]), the
@@ -943,6 +1215,33 @@ extern "C" int packed_matvec(const void* x, int kind, const void* qs,
   if (kind == 1)
     return (int)dispatch_packed<true>(xs, q, h, sc, ds, dm, is, ys, rows_x, d, n, st);
   return (int)dispatch_packed<false>(xs, q, h, sc, ds, dm, is, ys, rows_x, d, n, st);
+}
+
+// y (rows_x, d) f32 = turbo matvec of x (rows_x, n) f32 (natural order).
+// kind 0 = Q2_K turbo: p (E, d, n) int8 in natural column order, dsup
+// (E, d, n/256) f32, a = bm (E, d, n/16) bf16; kind 1 = Q3_K turbo: p in
+// the permuted order, a (E, d, n/16) bf16, dsup null. idx (rows_x,) int32
+// selects the expert of each row (K2), or is null with E = 1 (K5). Needs
+// n % 256 == 0 and 16-byte aligned planes. Returns a cudaError_t; the
+// launch is asynchronous on `stream`.
+extern "C" int turbo_matvec(const void* x, int kind, const void* p,
+                            const void* dsup, const void* a, const void* idx,
+                            void* y, int rows_x, int d, int n, void* stream) {
+  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 256 != 0 ||
+      (size_t)(n + n / 16) * sizeof(float) > (size_t)kMaxSmem ||
+      kind < 0 || kind > 1 || p == nullptr || a == nullptr ||
+      (kind == 0 && dsup == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto xs = static_cast<const float*>(x);
+  auto ps = static_cast<const uint8_t*>(p);
+  auto ds = static_cast<const float*>(dsup);
+  auto as = static_cast<const uint16_t*>(a);
+  auto is = static_cast<const int32_t*>(idx);
+  auto ys = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kind == 1)
+    return (int)dispatch_turbo<true>(xs, ps, ds, as, is, ys, rows_x, d, n, st);
+  return (int)dispatch_turbo<false>(xs, ps, ds, as, is, ys, rows_x, d, n, st);
 }
 
 // y (rows_x, d) f32 = x (rows_x, n) f32 against the plain table W (E, d, n)

@@ -10,6 +10,9 @@
 //   K5 row-tiled and K6 with the packed bodies (qmm.py:361/:368 _q2k_body
 //       and _q3k_body, rows tiled by 128 :347-351; qmm_grouped :471-478,
 //       launched :538): the same routes over packed Q2_K/Q3_K planes;
+//   K5 row-tiled and K6 with the turbo bodies (qmm.py:378/:385 _q2kt_body
+//       and _q3kt_body; qmm_grouped :479-487, launched :538): the same
+//       routes over the int8 turbo planes;
 //   K11: megablox.gmm as deepseek_tpu/ops/matmul.py::grouped_expert_ffn
 //       calls it: rows grouped by expert, a plain f32/f16/bf16 table.
 //
@@ -66,6 +69,19 @@
 // the plain version (Q2KTensor / Q3KTensor.dequant) in natural order:
 //   Q2_K: (d*sc) * q - dmin*mn;  Q3_K: (d*sc) * (qlow + 4*hbit - 4).
 //
+// Turbo readers. Q2_K turbo's plane is int8 in natural order, so a
+// k-step's 64 bytes of a weight row load as the fp8 reader's below, each
+// 16-byte vector with its row's f32 super scale d[r][k0/256] and the bf16
+// min term bm[r][g] of its group (a vector is one group): w = d*p - bm.
+// Q3_K turbo's plane is int8 in the permuted order: the 64 natural columns
+// of groups g0..g0+3 are one 4-byte word at each of the 16 offsets
+// o*n16 + g0. As the nibble reader, the reader stages a raw copy, here
+// 256 columns (per weight row 16 slabs of 16 contiguous bytes and the 16
+// bf16 scales a), a whole stage ahead, and each step writes a[g] * p in
+// natural order: the f32 dequantization of the plain version
+// (Q2KTurboTensor / Q3KTurboTensor.dequant). Bound: bytes at few live rows,
+// 1 byte a weight, as the other readers.
+//
 // F8E5M2 reader. A k-step's 64 bytes of a weight row are four 16-byte
 // vectors; two neighbouring lanes load one whole 32-byte sector, and each
 // lane takes its row's f32 block scale s[r / b0][k0 / b1] with it. The
@@ -100,16 +116,19 @@ constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
 constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
 
 enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5,
-            kQ2 = 6, kQ3 = 7 };
+            kQ2 = 6, kQ3 = 7, kQ2T = 8, kQ3T = 9 };
+constexpr int kSW3T = 256;        // Q3_K turbo columns staged raw at a time
 
 struct Weights {
   const void* w;          // nibble plane p (E, d, n/2) u8, plain (E, d, n),
-                          // F8E5M2 bytes (E, d, n) or packed qs (E, d, n/4)
-  const uint16_t* a;      // nibble scales (E, d, n/16) bf16
+                          // F8E5M2 bytes (E, d, n), packed qs (E, d, n/4)
+                          // or turbo plane p (E, d, n) int8
+  const uint16_t* a;      // nibble scales, turbo bm (Q2_K) or a (Q3_K):
+                          // (E, d, n/16) bf16
   const uint16_t* c;      // nibble min terms (E, d, n/16) bf16, or null
   float off;
   const float* s;         // fp8 inverse scales (E, ceil(d/b0), ceil(n/b1)),
-                          // or packed super scales d (E, d, n/256)
+                          // or packed / Q2_K turbo super scales d (E, d, n/256)
   int b0, b1;             // fp8 scale block
   const uint8_t* s8;      // packed scale bytes (E, d, n/16): sm or sc
   const uint8_t* hm;      // Q3_K high-bit plane (E, d, n/8)
@@ -155,8 +174,10 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
                  float* __restrict__ y, int d, int n) {
   constexpr bool kNibble = KIND == kNib || KIND == kNibC;
   constexpr bool kPacked = KIND == kQ2 || KIND == kQ3;
-  constexpr bool kStaged = kNibble || kPacked;     // raw planes staged
+  constexpr bool kStaged = kNibble || kPacked || KIND == kQ3T;  // raw planes staged
+  constexpr int kStageW = KIND == kQ3T ? kSW3T : kSW;           // columns a stage
   constexpr bool kFp8 = KIND == kF8;
+  constexpr bool kBytes = kFp8 || KIND == kQ2T;    // 1-byte weights, natural order
   using WT = typename std::conditional<
       KIND == kF16, __half,
       typename std::conditional<KIND == kBF16, __nv_bfloat16, float>::type>::type;
@@ -206,13 +227,14 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const uint8_t* qe = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * n4;
   const uint8_t* he = KIND == kQ3 ? wt.hm + (size_t)e * d * n8 : nullptr;
   const uint8_t* s8e = kPacked ? wt.s8 + (size_t)e * d * n16 : nullptr;
-  const float* dse = kPacked ? wt.s + (size_t)e * d * n256 : nullptr;
+  const float* dse = kPacked || KIND == kQ2T ? wt.s + (size_t)e * d * n256 : nullptr;
   const float* dme = KIND == kQ2 ? wt.dmin + (size_t)e * d * n256 : nullptr;
 
   XR xr[kXIt];
   WR wr[kWIt];
-  uint4 fr[kFIt];                    // fp8: a step's raw vectors
-  float fs[kFIt];                    // and their rows' block scales
+  uint4 fr[kFIt];                    // fp8, Q2_K turbo: a step's raw vectors
+  float fs[kFIt];                    // and their rows' block (super) scales
+  float fb[kFIt];                    // Q2_K turbo: and their groups' min terms
   uint4 pr[8], ar[2], cr[2];         // nibble: one raw stage in flight
   uint4 qr[4], hr[2], sr;            // packed: one raw stage in flight
   float sup_next[2], min_next[2];    // packed: the row's super scales and
@@ -343,6 +365,35 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
     }
   };
 
+  // Q3_K turbo: the 16-byte loads of the raw stage at column ks: per
+  // weight row the 16 slabs o*n16 + ks/16 (16 groups each) and the 16
+  // scales
+  auto load_raw_q3t = [&](int ks) {
+    const int gs = ks >> 4;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int item = tid + it * kThreads;
+      const int o = item & 15, r = item >> 4;
+      const size_t gr = (size_t)min(col0 + r, d - 1);
+      pr[it] = *reinterpret_cast<const uint4*>(w8 + gr * n + (size_t)o * n16 + gs);
+    }
+    const int ch = tid & 1, r = tid >> 1;
+    const size_t gr = (size_t)min(col0 + r, d - 1);
+    ar[0] = *reinterpret_cast<const uint4*>(ae + gr * n16 + gs + ch * 8);
+  };
+  auto store_raw_q3t = [&]() {
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int item = tid + it * kThreads;
+      const int o = item & 15, r = item >> 4;
+      uint32_t* dst = praw + r * kLdp + o * 4;
+      dst[0] = pr[it].x; dst[1] = pr[it].y; dst[2] = pr[it].z; dst[3] = pr[it].w;
+    }
+    const int ch = tid & 1, r = tid >> 1;
+    uint32_t* da = araw + r * kLda + ch * 4;
+    da[0] = ar[0].x; da[1] = ar[0].y; da[2] = ar[0].z; da[3] = ar[0].w;
+  };
+
   // start one k-step's global loads (clamped rows, dead activation rows
   // skipped); they stay in flight while the previous step computes
   auto load = [&](int k0) {
@@ -353,7 +404,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       if (m < nr)
         xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + k0 + c4);
     }
-    if constexpr (kFp8) {
+    if constexpr (kBytes) {
 #pragma unroll
       for (int it = 0; it < kFIt; ++it) {
         const int item = tid + it * kThreads;
@@ -361,7 +412,12 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
         const int c16 = ((item >> 8) * 2 + (item & 1)) * 16;
         const int gr = min(col0 + r, d - 1);
         fr[it] = *reinterpret_cast<const uint4*>(w8 + (size_t)gr * n + k0 + c16);
-        fs[it] = se[(size_t)(gr / wt.b0) * g1 + k0 / wt.b1];
+        if constexpr (kFp8) {
+          fs[it] = se[(size_t)(gr / wt.b0) * g1 + k0 / wt.b1];
+        } else {
+          fs[it] = dse[(size_t)gr * n256 + (k0 >> 8)];
+          fb[it] = bf16_f(ae[(size_t)gr * n16 + ((k0 + c16) >> 4)]);
+        }
       }
     } else if constexpr (!kStaged) {
 #pragma unroll
@@ -458,16 +514,41 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
           }
         }
       }
-    } else if constexpr (kFp8) {
+    } else if constexpr (KIND == kQ3T) {
+      // the 4 groups of this step: word `w` of each of the 16 slabs, byte
+      // k = group k; this thread's row wr_r and offsets o = wr_o + 2*it
+      const int w = (k0 % kSW3T) / kBK;
+      const uint32_t a01 = araw[wr_r * kLda + 2 * w];
+      const uint32_t a23 = araw[wr_r * kLda + 2 * w + 1];
+      const float af[4] = {bf16_f(a01 & 0xFFFFu), bf16_f(a01 >> 16),
+                           bf16_f(a23 & 0xFFFFu), bf16_f(a23 >> 16)};
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int o = wr_o + 2 * it;
+        const uint32_t wb = praw[wr_r * kLdp + o * 4 + w];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          ws[(q * 16 + o) * kLdw + wr_r] = af[q] * (float)(int8_t)(wb >> (8 * q));
+      }
+    } else if constexpr (kBytes) {
 #pragma unroll
       for (int it = 0; it < kFIt; ++it) {
         const int item = tid + it * kThreads;
         const int r = (item >> 1) & (kBN - 1);
         const int c16 = ((item >> 8) * 2 + (item & 1)) * 16;
         float v[16];
-        e5m2x16(fr[it], v);
+        if constexpr (kFp8) {
+          e5m2x16(fr[it], v);
 #pragma unroll
-        for (int q = 0; q < 16; ++q) ws[(c16 + q) * kLdw + r] = v[q] * fs[it];
+          for (int q = 0; q < 16; ++q) v[q] *= fs[it];
+        } else {
+          const uint32_t u[4] = {fr[it].x, fr[it].y, fr[it].z, fr[it].w};
+#pragma unroll
+          for (int q = 0; q < 16; ++q)
+            v[q] = fs[it] * (float)(int8_t)(u[q >> 2] >> (8 * (q & 3))) - fb[it];
+        }
+#pragma unroll
+        for (int q = 0; q < 16; ++q) ws[(c16 + q) * kLdw + r] = v[q];
       }
     } else {
 #pragma unroll
@@ -506,14 +587,19 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   load(0);
   if constexpr (kNibble) load_raw(0);
   if constexpr (kPacked) load_raw_packed(0);
+  if constexpr (KIND == kQ3T) load_raw_q3t(0);
   for (int k0 = 0; k0 < n; k0 += kBK) {
     __syncthreads();                 // the previous step's blocks consumed
     if constexpr (kStaged) {
-      if (k0 % kSW == 0) {           // a new raw stage: store it, fetch the next
-        if constexpr (kNibble) store_raw(k0); else store_raw_packed(k0);
+      if (k0 % kStageW == 0) {       // a new raw stage: store it, fetch the next
+        if constexpr (kNibble) store_raw(k0);
+        else if constexpr (kPacked) store_raw_packed(k0);
+        else store_raw_q3t();
         __syncthreads();
-        if (k0 + kSW < n) {
-          if constexpr (kNibble) load_raw(k0 + kSW); else load_raw_packed(k0 + kSW);
+        if (k0 + kStageW < n) {
+          if constexpr (kNibble) load_raw(k0 + kStageW);
+          else if constexpr (kPacked) load_raw_packed(k0 + kStageW);
+          else load_raw_q3t(k0 + kStageW);
         }
       }
     }
@@ -576,7 +662,8 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
 template <int KIND, typename XT>
 cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
                    float* y, int G, int d, int n, cudaStream_t stream) {
-  constexpr int smem = KIND == kNib || KIND == kNibC || KIND == kQ2 || KIND == kQ3
+  constexpr int smem = KIND == kNib || KIND == kNibC || KIND == kQ2 || KIND == kQ3 ||
+                               KIND == kQ3T
                            ? kSmemNib : kSmemPlain;
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
@@ -599,7 +686,8 @@ cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
 // nibble without/with the min plane c (w = p, a, c, off), 2/3/4 = plain
 // f32/f16/bf16 table (w), 5 = F8E5M2 table (w) with the f32 inverse scales
 // s (E, ceil(d/b0), ceil(n/b1)), 6 = packed Q2_K (w = qs, a = sm, s = d,
-// s2 = dmin), 7 = packed Q3_K (w = qs, a = sc, c = hm, s = d). Tiles as the
+// s2 = dmin), 7 = packed Q3_K (w = qs, a = sc, c = hm, s = d), 8 = Q2_K
+// turbo (w = p, a = bm, s = d), 9 = Q3_K turbo (w = p, a). Tiles as the
 // header says: tile_expert and tile_rows (G,) or null; group_off and
 // tile_off (E+1,) or null. Needs n % 64 == 0 (nibble and packed: n % 256
 // == 0; fp8: b1 % 64 == 0), G <= 2^31 - 1, d <= 8388480. Returns a
@@ -611,14 +699,17 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
                          const void* group_off, const void* tile_off,
                          void* y, int rows, int G, int E, int d, int n,
                          void* stream) {
-  const bool kq = kind == kNib || kind == kNibC || kind == kQ2 || kind == kQ3;
+  const bool kq = kind == kNib || kind == kNibC || kind == kQ2 || kind == kQ3 ||
+                  kind == kQ2T || kind == kQ3T;
   if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
       n % (kq ? 256 : kBK) != 0 || ((kq || kind == kF8) && x_dtype != 0) ||
-      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kQ3 ||
+      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kQ3T ||
       w == nullptr || (kind == kNibC && c == nullptr) ||
       (kind == kF8 && (s == nullptr || b0 <= 0 || b1 <= 0 || b1 % kBK != 0)) ||
       ((kind == kQ2 || kind == kQ3) && (a == nullptr || s == nullptr)) ||
       (kind == kQ2 && s2 == nullptr) || (kind == kQ3 && c == nullptr) ||
+      ((kind == kQ2T || kind == kQ3T) && a == nullptr) ||
+      (kind == kQ2T && s == nullptr) ||
       ((group_off == nullptr) != (tile_off == nullptr)))
     return (int)cudaErrorInvalidValue;
   Weights wt{w, static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(c),
@@ -641,6 +732,8 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
       case kF8: err = launch<kF8, float>(x, wt, tl, ys, G, d, n, st); break;
       case kQ2: err = launch<kQ2, float>(x, wt, tl, ys, G, d, n, st); break;
       case kQ3: err = launch<kQ3, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kQ2T: err = launch<kQ2T, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kQ3T: err = launch<kQ3T, float>(x, wt, tl, ys, G, d, n, st); break;
       default: err = launch<kBF16, float>(x, wt, tl, ys, G, d, n, st); break;
     }
   } else {

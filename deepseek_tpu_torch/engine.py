@@ -2,13 +2,15 @@
 owning the checkpoint, config, params, tokenizer and sampler.
 
 The port of ``deepseek_tpu/engine.py::Engine`` (``__init__``, ``hydrate``,
-``generate``) for a single sequence. ``hydrate`` feeds a prompt as the JAX
-engine does: causal prefill chunks of ``prefill_chunk`` tokens while the
-position is inside the KV window, then one decode step per token. That
-schedule is ``hydrate_cache``, which also takes params and a config built
-in memory (a random model has no checkpoint directory). The
-on-device decode block is a later slice (ROADMAP.md), so ``decode_block``
-must be 1 here.
+``generate``, ``decode_loop``) for a single sequence. ``hydrate`` feeds a
+prompt as the JAX engine does: causal prefill chunks of ``prefill_chunk``
+tokens while the position is inside the KV window, then one decode step
+per token. That schedule is ``hydrate_cache``, which also takes params and
+a config built in memory (a random model has no checkpoint directory).
+``generate`` samples the first token on the host and the rest on the
+device, ``decode_block`` (default 32) a call, keyed from
+``PRNGKey(seed)`` as the JAX Engine keys them; ``decode_block=1`` samples
+every token on the host.
 """
 
 from __future__ import annotations
@@ -21,11 +23,14 @@ import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import ModelConfig
-from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
+from deepseek_tpu_torch.models.deepseek import (
+    forward_decode, forward_prefill, make_decode_loop,
+)
 from deepseek_tpu_torch.models.kvcache import init_cache
 from deepseek_tpu_torch.models.loader import (
     fuse_projections, load_params, params_active_bytes,
 )
+from deepseek_tpu_torch.ops import prng
 from deepseek_tpu_torch.sampler import Sampler
 from deepseek_tpu_torch.tokenizer import Tokenizer
 from deepseek_tpu_torch.utils.codec import load_checkpoint
@@ -139,7 +144,7 @@ class Engine:
         kv_cache_dtype: Optional[str] = None,
         seed: Optional[int] = None,
         prefill_chunk: int = 256,
-        decode_block: int = 1,
+        decode_block: int = 32,
         use_yarn: bool = False,
         load_mtp: bool = True,
         kquant_runtime: Optional[str] = None,
@@ -148,21 +153,19 @@ class Engine:
         device="cuda",
     ):
         """Same keywords as the JAX Engine. ``prefill_chunk`` is the
-        prompt chunk ``hydrate`` prefills at a time; ``lock_weights`` and
-        ``load_mtp`` have no effect in this slice (weights are always
-        resident, no MTP head); the options whose other values are not
-        ported raise. A K-quant checkpoint keeps its packed planes
-        (``kquant_runtime=None``, the JAX default) or takes the nibble
-        layout (``"nibble"``)."""
-        if decode_block != 1:
-            raise NotImplementedError(
-                f"decode_block={decode_block}: the on-device decode block is "
-                "not ported yet (ROADMAP.md queue 1, item 6)")
+        prompt chunk ``hydrate`` prefills at a time, ``decode_block`` the
+        tokens ``generate`` samples on the device a call (1: each on the
+        host); ``lock_weights`` and ``load_mtp`` have no effect in this
+        slice (weights are always resident, no MTP head); the options whose
+        other values are not ported raise. A K-quant checkpoint keeps its
+        packed planes (``kquant_runtime=None``, the JAX default) or takes
+        the nibble (``"nibble"``) or int8 turbo (``"turbo"``) layout."""
         if scan_layers not in ("auto", False):
             raise NotImplementedError(
                 "scan-stacked layers have no counterpart in the port "
                 "(ROADMAP.md queue 1, item 15)")
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self.decode_block = max(1, int(decode_block))
         self.device = resolve_device(device)
         self.data = load_checkpoint(checkpoint_dir)
         overrides = {}
@@ -183,6 +186,14 @@ class Engine:
             self.params = fuse_projections(self.params, self.cfg)
         self.tokenizer = Tokenizer.from_checkpoint(self.data)
         self.sampler = Sampler(self.cfg.vocab_size, seed)
+        self._key = prng.PRNGKey(seed if seed is not None else 0)
+        self._loops = {}
+
+    def decode_loop(self, n_steps: int):
+        """``make_decode_loop(cfg, n_steps)``, made once per ``n_steps``."""
+        if n_steps not in self._loops:
+            self._loops[n_steps] = make_decode_loop(self.cfg, n_steps)
+        return self._loops[n_steps]
 
     def new_cache(self, batch: int = 1):
         return init_cache(self.cfg, batch=batch, device=self.device)
@@ -250,13 +261,32 @@ class Engine:
             return self.tokenizer.is_eos_or_eot(token)
 
         t0 = time.perf_counter()
+        # the first token from the hydrate logits (host sampler)
         token = self.sampler.sample(logits, temperature, top_p, top_k, min_p)
         stopped = emit(token)
-        while not stopped and len(out_tokens) < max_new:
-            logits = self.step(cache, token, pos)[0].float().cpu().numpy()
-            pos += 1
-            token = self.sampler.sample(logits, temperature, top_p, top_k, min_p)
-            stopped = emit(token)
+        if self.decode_block > 1:
+            # decode_block tokens sampled on the device a call; the cache
+            # runs the whole block, as the JAX Engine's does
+            loop = self.decode_loop(self.decode_block)
+            while not stopped and len(out_tokens) < max_new:
+                self._key, sub = prng.split(self._key)
+                tok = torch.full((1, 1), token, dtype=torch.int64, device=self.device)
+                toks, _, cache = loop(self.params, cache, tok, pos, sub, temperature,
+                                      top_p, top_k=top_k, min_p=min_p)
+                block = toks[0].tolist()
+                pos += len(block)
+                token = block[-1]
+                for t in block:
+                    stopped = emit(t)
+                    if stopped or len(out_tokens) >= max_new:
+                        stopped = True
+                        break
+        else:
+            while not stopped and len(out_tokens) < max_new:
+                logits = self.step(cache, token, pos)[0].float().cpu().numpy()
+                pos += 1
+                token = self.sampler.sample(logits, temperature, top_p, top_k, min_p)
+                stopped = emit(token)
         stats.generate_s = time.perf_counter() - t0
         stats.generated_tokens = len(out_tokens)
         stats.active_bytes_per_token = self.active_bytes(pos)

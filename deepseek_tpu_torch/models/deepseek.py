@@ -28,11 +28,19 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   per-head ``wv_b`` through K2's, the grouped MoE prefill through K6's; its
   shared expert stays a dense projection (the stride-16 planes interleave
   columns, so it is not folded into the routed tables).
+- The turbo runtime (``kquant_runtime="turbo"``: int8 planes) runs the
+  turbo bodies of K5, K2 and K6 the same way; Q2_K turbo's natural column
+  order lets its shared expert fold into the routed tables, Q3_K turbo's
+  stays a dense projection as packed does.
 - A blockwise F8E5M2 checkpoint runs the fp8 bodies: every projection
   through K5, the expert tables and the per-head ``wv_b`` through K2's,
   the grouped MoE prefill through K6's. A per-tensor one has no expert
   kernel (nor has the JAX package): its decode gathers and dequantizes the
   selected experts, its prefill runs every expert once.
+
+- ``make_decode_loop`` runs ``n_steps`` decode steps at a time, sampling
+  each token on the device (``ops/sampling.py``) with the JAX package's
+  threefry keys; the Engine's default decode block.
 
 On CPU tensors every kernel runs its plain version.
 """
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
@@ -403,7 +412,9 @@ def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
 def decode_positions(cfg: ModelConfig, B: int, pos0, device):
     """(pos (B,), kv_pos (B,), kv_len (B,) int32, kv_sink (B,)) for decode
     at ``pos0`` (int, or a (B,) per-sequence tensor)."""
-    pos = torch.as_tensor(pos0, dtype=torch.int64, device=device).reshape(-1).expand(B)
+    pos = (pos0.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
+           if isinstance(pos0, torch.Tensor)
+           else torch.full((B,), int(pos0), dtype=torch.int64, device=device))
     kv_sink, kv_pos, kv_len = ring_positions(cfg, pos)
     return pos, kv_pos, kv_len.to(torch.int32), kv_sink
 
@@ -461,3 +472,61 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     if logits_mode == "none":
         return None
     return final_logits(params.final_norm, params.lm_head, x, cfg, logits_mode)
+
+
+def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
+                     with_logprobs: bool = False, with_hidden: bool = False):
+    """Multi-token decode (``deepseek_tpu/models/deepseek.py::
+    make_decode_loop``): one call runs ``n_steps`` decode steps, each
+    sampling on the device the token the next step feeds.
+
+    Returns ``fn(params, cache, tok (B,1), pos0, key, temperature, top_p,
+    active=None, top_k=0, min_p=0.0) -> (tokens (B, n_steps) int64,
+    logits_last (B, V) float32, cache)``: ``tok`` is the token fed first,
+    ``tokens[:, 0]`` its successor; ``key`` a (2,) uint32 threefry key
+    (``ops/prng.py``) split once a step as the JAX loop splits its carry;
+    the cache is written in place. Positions are host ints ``pos0 + i``
+    and the sampled token stays on the device, so no step synchronizes
+    with the host: the tokens cross once, when the caller reads them."""
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.ops.sampling import sample_with_noise
+
+    if mesh is not None:
+        raise NotImplementedError("a decode loop over a device mesh belongs to "
+                                  "multi-device (ROADMAP.md queue 1, item 14)")
+    if with_logprobs:
+        raise NotImplementedError("per-token logprobs belong to batched serving "
+                                  "(ROADMAP.md queue 1, item 12)")
+    if with_hidden:
+        raise NotImplementedError("the last hidden state feeds the MTP drafter "
+                                  "(ROADMAP.md queue 1, item 11)")
+
+    @torch.inference_mode()
+    def loop(params, cache, tok, pos0, key, temperature, top_p, active=None,
+             top_k=0, min_p=0.0):
+        if active is not None:
+            raise NotImplementedError("live-row masks belong to batched serving "
+                                      "(ROADMAP.md queue 1, item 12)")
+        subs = []
+        for _ in range(n_steps):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        noise = []
+
+        def noise_of(i):
+            # the block's noise in one draw, made when a step first samples
+            if not noise:
+                noise.append(prng.gumbel(np.stack(subs), (tok.shape[0], cfg.vocab_size),
+                                         tok.device))
+            return noise[0][i]
+
+        tokens, logits = [], None
+        for i in range(n_steps):
+            logits = forward_decode(params, cache, tok, pos0 + i, cfg)
+            nxt = sample_with_noise(logits, lambda i=i: noise_of(i), temperature,
+                                    top_p, top_k, min_p)
+            tokens.append(nxt)
+            tok = nxt[:, None]
+        return torch.stack(tokens, 1), logits.float(), cache
+
+    return loop

@@ -4,7 +4,7 @@ from the JAX package.
 ``load_params`` ports ``deepseek_tpu/models/loader.py::load_params`` for
 F32/F16/BF16 tensors, F8_E5M2 tensors with blockwise or per-tensor scales,
 and U8 K-quant tensors in the packed plane layout (the default, as in the
-JAX package) or the nibble runtime layout; ``fuse_projections``
+JAX package) or the nibble or turbo runtime layouts; ``fuse_projections``
 ports the function of the same name without the row-permuted expert
 layout. ``params_from_reference`` builds the port's
 params from a ``deepseek_tpu`` ModelParams object without importing JAX.
@@ -22,8 +22,9 @@ from deepseek_tpu_torch.config import ModelConfig, QuantKind
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
 from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 from deepseek_tpu_torch.quant.qtensor import (
-    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
-    cols_to_experts, q2k_to_nibble, q3k_to_nibble, rows_to_experts,
+    PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
+    Q3KTensor, cols_to_experts, q2k_to_nibble, q2k_to_turbo, q3k_to_nibble,
+    q3k_to_turbo, rows_to_experts,
 )
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
 from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, CheckpointData
@@ -47,15 +48,11 @@ def _to_torch(arr) -> torch.Tensor:
 
 
 def check_kquant_runtime(cfg: ModelConfig, kquant_runtime: Optional[str]) -> None:
-    """For a K-quant checkpoint: None (packed planes) and "nibble" are
-    ported, "turbo" is not yet."""
+    """For a K-quant checkpoint: None (packed planes), "nibble" or
+    "turbo"; any other value raises."""
     if cfg.weight_quant not in (QuantKind.Q2_K, QuantKind.Q3_K):
         return
-    if kquant_runtime == "turbo":
-        raise NotImplementedError(
-            "kquant_runtime='turbo': the int8 turbo layout is not ported yet "
-            "(ROADMAP.md queue 1, item 9)")
-    if kquant_runtime not in (None, "nibble"):
+    if kquant_runtime not in (None, "nibble", "turbo"):
         raise ValueError(f"kquant_runtime must be None, 'nibble' or 'turbo', "
                          f"not {kquant_runtime!r}")
 
@@ -75,8 +72,9 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
                 kquant_runtime: Optional[str] = None) -> ModelParams:
     """Read a ``.dseek`` checkpoint onto ``device``. K-quant tensors keep
     the packed planes (``kquant_runtime=None``, the JAX package's default)
-    or expand to the nibble layout (``"nibble"``); shapes are checked
-    against the config and a mismatch fails loudly."""
+    or expand to the nibble (``"nibble"``) or int8 turbo (``"turbo"``)
+    layout, the turbo one converted from the packed planes on ``device``;
+    shapes are checked against the config and a mismatch fails loudly."""
     check_kquant_runtime(cfg, kquant_runtime)
 
     def norm(name: str, expect=None) -> Optional[torch.Tensor]:
@@ -127,18 +125,21 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
             raw = np.asarray(w)
             rows = raw.shape[-2]
             nibble = kquant_runtime == "nibble"
+            turbo = kquant_runtime == "turbo"
             if cfg.weight_quant == QuantKind.Q2_K:
                 cols = raw.shape[-1] // Q2K_BLOCK_BYTES * QK_K
                 planes = repack_q2k(raw, rows, cols)
                 if nibble:
                     return q2k_to_nibble(*planes, device=device)
-                return Q2KTensor(*(_to_torch(a).to(device) for a in planes))
+                packed = Q2KTensor(*(_to_torch(a).to(device) for a in planes))
+                return q2k_to_turbo(packed) if turbo else packed
             if cfg.weight_quant == QuantKind.Q3_K:
                 cols = raw.shape[-1] // Q3K_BLOCK_BYTES * QK_K
                 planes = repack_q3k(raw, rows, cols)
                 if nibble:
                     return q3k_to_nibble(*planes, device=device)
-                return Q3KTensor(*(_to_torch(a).to(device) for a in planes))
+                packed = Q3KTensor(*(_to_torch(a).to(device) for a in planes))
+                return q3k_to_turbo(packed) if turbo else packed
             raise ValueError(f"U8 tensor {name} but weight_quant={cfg.weight_quant}")
         raise NotImplementedError(f"stored dtype {dt} of {name} is not ported")
 
@@ -208,7 +209,7 @@ def _concat(a, b, dim: int):
             data=torch.cat([a.data.view(torch.uint8), b.data.view(torch.uint8)],
                            dim=dim).view(torch.float8_e5m2),
             scale=torch.cat([a.scale, b.scale], dim=dim), block_size=a.block_size)
-    if isinstance(a, (Q2KTensor, Q3KTensor)):
+    if isinstance(a, (*PACKED, *TURBO)):
         # every plane scales with the rows (and the experts), as the JAX
         # _qt_concat_rows / _qt_concat0 concatenate each field
         return type(a)(*(torch.cat([getattr(a, f.name), getattr(b, f.name)], dim=dim)
@@ -254,8 +255,8 @@ def fuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
     ([w1;w3], [shared_w1;shared_w3], [wq_rope_b;wc], [wkv_a;wq_a]) so one
     kernel launch and one weight sweep replace two, and fold the shared
     experts into the routed tables where the layout allows (plain weights,
-    blockwise fp8 whose blocks divide the expert width). The component
-    fields become None."""
+    blockwise fp8 whose blocks divide the expert width, Q2_K turbo when 256
+    divides it). The component fields become None."""
     return dataclasses.replace(params, layers=[fuse_layer(lp, cfg)
                                                for lp in params.layers])
 
@@ -276,8 +277,9 @@ def _weight_from_reference(obj, device):
             p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
             c=None if obj.c is None else _to_torch(obj.c).to(device),
             off=int(obj.off))
-    if kind in ("Q2KTensor", "Q3KTensor"):
-        cls = Q2KTensor if kind == "Q2KTensor" else Q3KTensor
+    classes = {c.__name__: c for c in (*PACKED, *TURBO)}
+    if kind in classes:
+        cls = classes[kind]
         return cls(*(_to_torch(getattr(obj, f.name)).to(device)
                      for f in dataclasses.fields(cls)))
     if kind == "Fp8Tensor":

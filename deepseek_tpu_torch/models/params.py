@@ -13,9 +13,12 @@ from typing import Any, List, Optional
 
 import torch
 
-from deepseek_tpu_torch.quant.qtensor import PACKED, Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import (
+    PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor,
+)
 
-QT = Any  # PlainTensor, Fp8Tensor, Q2KTensor, Q3KTensor or KNibbleTensor
+QT = Any  # PlainTensor, Fp8Tensor, Q2KTensor, Q3KTensor, their turbo
+          # forms (Q2KTurboTensor, Q3KTurboTensor) or KNibbleTensor
 
 
 @dataclasses.dataclass
@@ -72,6 +75,6 @@ def embed_lookup(qt, tokens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
         return qt.data[tokens].to(dtype)
     if isinstance(qt, Fp8Tensor):
         return qt.gather_rows(tokens).dequant(dtype)
-    if isinstance(qt, (*PACKED, KNibbleTensor)):
+    if isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)):
         return qt.map(lambda t: t[tokens]).dequant(dtype)
     raise TypeError(f"unsupported embedding tensor {type(qt).__name__}")

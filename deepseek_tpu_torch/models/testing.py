@@ -2,7 +2,8 @@
 
 Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
 nibble part of ``random_fused_params`` (with the packed Q2_K/Q3_K planes of
-``_direct_qtensor`` beside it), and adds DeepSeek-V2-Lite's
+``_direct_qtensor`` beside it, and their turbo conversion as
+``_random_qtensor`` makes it), and adds DeepSeek-V2-Lite's
 proportions with a plain-weight model (``random_plain_params``) and a
 blockwise F8E5M2 one (``random_fp8_params``): weights are synthesized in
 their final runtime layout from a seeded ``torch.Generator`` on the target
@@ -22,7 +23,8 @@ from deepseek_tpu_torch.config import (
 from deepseek_tpu_torch.models.loader import fuse_layer
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
 from deepseek_tpu_torch.quant.qtensor import (
-    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, q2k_to_turbo,
+    q3k_to_turbo,
 )
 
 
@@ -192,18 +194,25 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                         device="cuda", factors: bool = False) -> ModelParams:
     """Random model in the fused decode layout (wkvq, wcr, w13) with
     nibble planes (``quant`` q3_k_nibble | q2_k_nibble: the shared experts
-    folded into w13s/w2s) or packed planes (q3_k | q2_k: the ranges of the
+    folded into w13s/w2s), packed planes (q3_k | q2_k: the ranges of the
     JAX ``_direct_qtensor``, random bytes for qs/sm/hm, sc in [-32, 32),
     d and dmin in [0.001, 0.01]; the shared experts stay shared_w13 /
-    shared_w2, as ``loader.fuse_projections`` leaves a packed checkpoint).
+    shared_w2, as ``loader.fuse_projections`` leaves a packed checkpoint)
+    or those packed draws converted on the device to the turbo layout
+    (q3_k_turbo | q2_k_turbo, as the JAX ``_random_qtensor``; Q2_K turbo
+    folds the shared experts into w13s/w2s, as fusing its checkpoint does,
+    Q3_K turbo keeps them apart like packed). Each 2-D block is drawn,
+    converted, then repeated across its experts.
     The embedding is bf16, the lm_head quantized. ``factors`` also gives
     each layer the factor weights wq_b (H*head_dim, q_lora) and wkv_b
     (H*(nope+v), kv_lora) that every converted MLA checkpoint keeps, so
     prefill attends in decompressed head space (K9); without them it runs
     the absorbed prefill (K10)."""
-    if quant not in ("q3_k_nibble", "q2_k_nibble", "q3_k", "q2_k"):
-        raise ValueError(f"quant must be q3_k_nibble, q2_k_nibble, q3_k or "
-                         f"q2_k, not {quant}")
+    kinds = ("q3_k_nibble", "q2_k_nibble", "q3_k", "q2_k", "q3_k_turbo", "q2_k_turbo")
+    if quant not in kinds:
+        raise ValueError(f"quant must be one of {kinds}, not {quant}")
+    turbo = quant.endswith("_turbo")
+    quant = quant[:-len("_turbo")] if turbo else quant
     packed = quant in ("q3_k", "q2_k")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -224,17 +233,20 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
         if cols % 256:
             raise ValueError(f"K-quant planes need cols % 256 == 0, got {cols}")
         if packed:
-            qs = tile(u8(rows, cols // 4), lead)
-            d = tile(uniform((rows, cols // 256), 0.001, 0.01, torch.float32), lead)
+            qs = u8(rows, cols // 4)
+            d = uniform((rows, cols // 256), 0.001, 0.01, torch.float32)
             if quant == "q2_k":
-                sm = tile(u8(rows, cols // 16), lead)
-                dmin = tile(uniform((rows, cols // 256), 0.001, 0.01, torch.float32),
-                            lead)
-                return Q2KTensor(qs=qs, sm=sm, d=d, dmin=dmin)
-            hm = tile(u8(rows, cols // 8), lead)
-            sc = tile(torch.randint(-32, 32, (rows, cols // 16), generator=gen,
-                                    device=device, dtype=torch.int8), lead)
-            return Q3KTensor(qs=qs, hm=hm, sc=sc, d=d)
+                sm = u8(rows, cols // 16)
+                dmin = uniform((rows, cols // 256), 0.001, 0.01, torch.float32)
+                blk = Q2KTensor(qs=qs, sm=sm, d=d, dmin=dmin)
+                blk = q2k_to_turbo(blk) if turbo else blk
+            else:
+                hm = u8(rows, cols // 8)
+                sc = torch.randint(-32, 32, (rows, cols // 16), generator=gen,
+                                   device=device, dtype=torch.int8)
+                blk = Q3KTensor(qs=qs, hm=hm, sc=sc, d=d)
+                blk = q3k_to_turbo(blk) if turbo else blk
+            return blk.map(lambda t: tile(t, lead))
         p = torch.randint(0, 256, (rows, cols // 2), generator=gen,
                           device=device, dtype=torch.uint8)
         a = uniform((rows, cols // 16), 0.001, 0.01, torch.bfloat16)
@@ -251,7 +263,7 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
         return torch.ones(n, device=device)
 
     def moe_ffn(E, m, ns):
-        if packed:
+        if packed and not (turbo and quant == "q2_k"):
             return dict(w13=qt(E, 2 * m, c.dim), w2=qt(E, c.dim, m),
                         shared_w13=qt(2 * ns * m, c.dim), shared_w2=qt(c.dim, ns * m))
         return dict(w13s=qt(E + ns, 2 * m, c.dim), w2s=qt(E + ns, c.dim, m))

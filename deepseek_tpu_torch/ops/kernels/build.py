@@ -33,7 +33,8 @@ SIGNATURES = {
             "plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "plain_mv": [_P, _P, _I, _P, _I, _I, _I, _P],
             "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-            "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+            "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "turbo_matvec": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "mla_decode": {"mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P,

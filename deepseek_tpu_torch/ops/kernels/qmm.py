@@ -27,6 +27,13 @@ products.
   tile GEMM above), ``qmm_experts_packed`` K2's (qmm.py:622-629;
   ``csrc/qmm.cu``) and ``qmm_grouped_packed`` K6's (qmm.py:471-478;
   ``csrc/qmm_tiles.cu``).
+- A turbo Q2_K/Q3_K weight (``Q2KTurboTensor``/``Q3KTurboTensor``, the
+  int8 planes of ``kquant_runtime="turbo"``) takes the turbo bodies
+  (``_q2kt_body`` qmm.py:169, launched :378; ``_q3kt_body`` :195, launched
+  :385): ``qmm_turbo`` is K5's (the matvec of ``csrc/qmm.cu`` up to
+  ``ROW_TILE_MIN`` rows, ``qmm_turbo_rows`` on the tile GEMM above),
+  ``qmm_experts_turbo`` K2's (qmm.py:630-637; ``csrc/qmm.cu``) and
+  ``qmm_grouped_turbo`` K6's (qmm.py:479-487; ``csrc/qmm_tiles.cu``).
 - ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
   grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
   plain table; ``csrc/qmm_tiles.cu``).
@@ -47,7 +54,8 @@ import torch
 
 from deepseek_tpu_torch.ops.kernels.build import check, library
 from deepseek_tpu_torch.quant.qtensor import (
-    PACKED, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
+    PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
+    Q2KTurboTensor,
 )
 
 
@@ -188,13 +196,15 @@ def qmm(qt, x: torch.Tensor) -> torch.Tensor:
     """K1: x (..., n) @ W (d, n).T -> (..., d) float32. More than
     ``ROW_TILE_MIN`` rows take the row-tiled route (``qmm_rows``). A plain
     weight takes ``qmm_fp`` (K4), an fp8 one ``qmm_fp8`` (K5), a packed one
-    ``qmm_packed`` (K5)."""
+    ``qmm_packed`` (K5), a turbo one ``qmm_turbo`` (K5)."""
     if isinstance(qt, PlainTensor):
         return qmm_fp(qt, x)
     if isinstance(qt, Fp8Tensor):
         return qmm_fp8(qt, x)
     if isinstance(qt, PACKED):
         return qmm_packed(qt, x)
+    if isinstance(qt, TURBO):
+        return qmm_turbo(qt, x)
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -279,13 +289,15 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (..., d) float32. ``idx`` (...) must hold ids in [0, E): the kernel
     reads the expert's planes at that offset unchecked. A plain table
     takes ``qmm_experts_fp``, an fp8 one ``qmm_experts_fp8``, a packed one
-    ``qmm_experts_packed``."""
+    ``qmm_experts_packed``, a turbo one ``qmm_experts_turbo``."""
     if isinstance(qt, PlainTensor):
         return qmm_experts_fp(qt, idx, x)
     if isinstance(qt, Fp8Tensor):
         return qmm_experts_fp8(qt, idx, x)
     if isinstance(qt, PACKED):
         return qmm_experts_packed(qt, idx, x)
+    if isinstance(qt, TURBO):
+        return qmm_experts_turbo(qt, idx, x)
     if x.device.type == "cpu":
         return qmm_experts_plain(qt, idx, x)
     if x.device.type != "cuda":
@@ -348,11 +360,14 @@ def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
     table W (E, d, n) -> (G, 128, d) float32. With ``tile_rows`` (G,) only
     the first tile_rows[g] rows of tile g are computed; the kernel leaves
     the others unwritten (the plain version zeroes them). An fp8 table
-    takes ``qmm_grouped_fp8``, a packed one ``qmm_grouped_packed``."""
+    takes ``qmm_grouped_fp8``, a packed one ``qmm_grouped_packed``, a turbo
+    one ``qmm_grouped_turbo``."""
     if isinstance(qt, Fp8Tensor):
         return qmm_grouped_fp8(qt, tile_expert, x_tiles, tile_rows)
     if isinstance(qt, PACKED):
         return qmm_grouped_packed(qt, tile_expert, x_tiles, tile_rows)
+    if isinstance(qt, TURBO):
+        return qmm_grouped_turbo(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type == "cpu":
         return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type != "cuda":
@@ -523,20 +538,28 @@ _Q2K_TILE_KIND = 6      # kQ2 in csrc/qmm_tiles.cu; kQ3 = 7
 
 def _check_packed(qt, x: torch.Tensor, experts: bool, what: str) -> None:
     """Raise unless the kernels can take the packed planes against x's
-    device: each plane contiguous, 16-byte aligned, of its dtype and of the
-    shape the in-features give, and in-features % 256 == 0."""
-    dims = 3 if experts else 2
-    n = qt.shape[-1]
-    if n % 256:
-        raise ValueError(f"{what}: packed K-quant kernels need in-features % 256 "
-                         f"== 0 (the converter writes no other), got {n}")
-    lead = tuple(qt.qs.shape[:-1])
+    device."""
     if isinstance(qt, Q2KTensor):
         planes = (("qs", qt.qs, torch.uint8, 4), ("sm", qt.sm, torch.uint8, 16),
                   ("d", qt.d, torch.float32, 256), ("dmin", qt.dmin, torch.float32, 256))
     else:
         planes = (("qs", qt.qs, torch.uint8, 4), ("hm", qt.hm, torch.uint8, 8),
                   ("sc", qt.sc, torch.int8, 16), ("d", qt.d, torch.float32, 256))
+    _check_kquant_planes(qt, planes, x, experts, what)
+
+
+def _check_kquant_planes(qt, planes, x: torch.Tensor, experts: bool,
+                         what: str) -> None:
+    """Raise unless each of ``planes`` ((name, tensor, dtype, in-features
+    per element)) is contiguous, 16-byte aligned, of its dtype and of the
+    shape the in-features give, on x's device, and in-features % 256 ==
+    0."""
+    dims = 3 if experts else 2
+    n = qt.shape[-1]
+    if n % 256:
+        raise ValueError(f"{what}: K-quant kernels need in-features % 256 "
+                         f"== 0 (the converter writes no other), got {n}")
+    lead = tuple(planes[0][1].shape[:-1])
     for name, t, dt, per in planes:
         if t.dim() != dims or tuple(t.shape) != lead + (n // per,):
             raise ValueError(f"{what}: plane {name} {tuple(t.shape)}, expected "
@@ -655,6 +678,128 @@ def qmm_grouped_packed(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
     return y
 
 
+# ---------------------------------------------------------------------------
+# the turbo bodies (K5, and K2's and K6's): Q2_K / Q3_K int8 planes
+# ---------------------------------------------------------------------------
+
+_Q2KT_TILE_KIND = 8     # kQ2T in csrc/qmm_tiles.cu; kQ3T = 9
+
+
+def _check_turbo(qt, x: torch.Tensor, experts: bool, what: str) -> None:
+    """Raise unless the kernels can take the turbo planes against x's
+    device."""
+    planes = [("p", qt.p, torch.int8, 1)]
+    if isinstance(qt, Q2KTurboTensor):
+        planes += [("d", qt.d, torch.float32, 256), ("bm", qt.bm, torch.bfloat16, 16)]
+    else:
+        planes += [("a", qt.a, torch.bfloat16, 16)]
+    _check_kquant_planes(qt, planes, x, experts, what)
+
+
+def _turbo_ptrs(qt):
+    """(kind: 0 = Q2_K turbo, 1 = Q3_K turbo; the pointers of p, d (None for
+    Q3_K) and the bf16 plane, bm or a)."""
+    if isinstance(qt, Q2KTurboTensor):
+        return 0, qt.p.data_ptr(), qt.d.data_ptr(), qt.bm.data_ptr()
+    return 1, qt.p.data_ptr(), None, qt.a.data_ptr()
+
+
+def _turbo_matvec(qt, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+    x2 = x2.float().contiguous()
+    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
+    err = library("qmm").turbo_matvec(
+        x2.data_ptr(), *_turbo_ptrs(qt), idx.data_ptr() if idx is not None else None,
+        y.data_ptr(), x2.shape[0], d, x2.shape[1],
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "turbo_matvec")
+    return y
+
+
+def _turbo_tiles(qt, x2, tiles, y, G, E):
+    kind, p, dsup, a = _turbo_ptrs(qt)
+    _tile_gemm(x2, _Q2KT_TILE_KIND + kind, p, a, None, 0, tiles, y, G, E,
+               qt.shape[-2], scales=(dsup, 0, 0))
+
+
+def qmm_turbo(qt, x: torch.Tensor) -> torch.Tensor:
+    """K5's turbo bodies: x (..., n) in natural order @ W (d, n).T for a
+    Q2_K/Q3_K turbo weight -> (..., d) float32; more than ``ROW_TILE_MIN``
+    rows take ``qmm_turbo_rows``."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_turbo runs on cuda or cpu tensors, not {x.device}")
+    _check_turbo(qt, x, False, "qmm_turbo")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    if x2.shape[0] > ROW_TILE_MIN:
+        return qmm_turbo_rows(qt, x2).reshape(*lead, d)
+    y = _turbo_matvec(qt, x2, None, d)
+    qmm_turbo.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_turbo_rows(qt, x: torch.Tensor) -> torch.Tensor:
+    """K5's turbo row-tiled route: x (rows, n) @ W (d, n).T -> (rows, d)
+    float32, 128 rows a tile."""
+    if x.device.type == "cpu":
+        return qmm_plain(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_turbo_rows runs on cuda or cpu tensors, not {x.device}")
+    _check_turbo(qt, x, False, "qmm_turbo_rows")
+    rows, d = x.shape[0], qt.shape[-2]
+    x2 = x.float().contiguous()
+    y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    _turbo_tiles(qt, x2, (None, None, None, None), y, -(-rows // _TILE), 1)
+    qmm_turbo_rows.launches += 1
+    return y
+
+
+def qmm_experts_turbo(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K2's turbo bodies: row i of x (..., n) against expert idx[i] (ids in
+    [0, E), read unchecked) of a Q2_K/Q3_K turbo table W (E, d, n) ->
+    (..., d) float32."""
+    if x.device.type == "cpu":
+        return qmm_experts_plain(qt, idx, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_experts_turbo runs on cuda or cpu tensors, not {x.device}")
+    _check_turbo(qt, x, True, "qmm_experts_turbo")
+    lead, n = x.shape[:-1], x.shape[-1]
+    d = qt.shape[-2]
+    if idx.shape != lead or n != qt.shape[-1]:
+        raise ValueError(f"qmm_experts_turbo: W {qt.shape}, x {tuple(x.shape)}, "
+                         f"idx {tuple(idx.shape)}")
+    x2 = x.reshape(-1, n)
+    if x2.shape[0] == 0:
+        return x.new_zeros((*lead, d), dtype=torch.float32)
+    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
+    y = _turbo_matvec(qt, x2, idx32, d)
+    qmm_experts_turbo.launches += 1
+    return y.reshape(*lead, d)
+
+
+def qmm_grouped_turbo(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
+                      tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6's turbo bodies: ``qmm_grouped`` over a Q2_K/Q3_K turbo table W
+    (E, d, n), x_tiles in natural column order -> (G, 128, d) float32
+    (rows past tile_rows[g] unwritten on the card, zero in the plain
+    version)."""
+    if x_tiles.device.type == "cpu":
+        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
+    if x_tiles.device.type != "cuda":
+        raise ValueError(f"qmm_grouped_turbo runs on cuda or cpu tensors, not "
+                         f"{x_tiles.device}")
+    _check_turbo(qt, x_tiles, True, "qmm_grouped_turbo")
+    x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
+                                      "qmm_grouped_turbo")
+    _turbo_tiles(qt, x2, (te, tr, None, None), y, te.shape[0], qt.shape[0])
+    qmm_grouped_turbo.launches += 1
+    return y
+
+
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         group_sizes: torch.Tensor) -> torch.Tensor:
     """K11: row group e of lhs (M, k) (f32 or bf16, the compute dtype)
@@ -709,3 +854,7 @@ qmm_packed.launches = 0
 qmm_packed_rows.launches = 0
 qmm_experts_packed.launches = 0
 qmm_grouped_packed.launches = 0
+qmm_turbo.launches = 0
+qmm_turbo_rows.launches = 0
+qmm_experts_turbo.launches = 0
+qmm_grouped_turbo.launches = 0

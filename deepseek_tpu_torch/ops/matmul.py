@@ -2,8 +2,9 @@
 
 ``qmatmul`` applies a stored projection ``W (out, in)`` to ``x (..., in)``
 (reference dispatcher infer.cpp:381-417; ``deepseek_tpu/ops/matmul.py::
-qmatmul``): nibble weights go through kernel K1, packed Q2_K/Q3_K and
-blockwise fp8 weights through K5's bodies, large plain weights at few rows
+qmatmul``): nibble weights go through kernel K1, packed Q2_K/Q3_K, their
+int8 turbo forms and blockwise fp8 weights through K5's bodies, large
+plain weights at few rows
 through K4 (the lm_head and the large dense FFN weights in decode), other
 plain weights and per-tensor fp8 (dequantized first, as the JAX qmm does)
 through one matrix product. ``dispatch_pairs`` is the single-device
@@ -13,7 +14,13 @@ The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
 name in ``deepseek_tpu/ops/matmul.py`` for ``ep == 1``: a counting sort of
 the token-expert pairs by expert, then the expert projections as grouped
 products, K11 (``gmm``) for plain tables and K6 (``qmm_grouped``) over
-128-row tiles for nibble, packed and blockwise fp8 tables. The pair
+128-row tiles for nibble, packed, turbo and blockwise fp8 tables. Every
+K-quant kernel takes its activations in the natural column order: the
+permuted copy (packed, Q3_K turbo, nibble) and the per-16 group sums
+(Q2_K turbo, nibble), which the JAX package makes before its kernels
+(``ops/matmul.py:254-259``, ``ops/pallas/qmm.py:600-615``), are made
+inside the port's kernels (or, for the tiles, not needed: they dequantize
+the weights in natural order). The pair
 capacity is every pair, rounded up to the 128-row tile (the JAX
 ``ep_prefill_capacity`` at ``ep == 1``); expert parallelism (the EP
 capacity and its overflow count) is ROADMAP.md queue 1, item 14.
@@ -29,7 +36,9 @@ from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.kernels.qmm import (
     PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, gmm, qmm, qmm_grouped,
 )
-from deepseek_tpu_torch.quant.qtensor import PACKED, Fp8Tensor, KNibbleTensor, PlainTensor
+from deepseek_tpu_torch.quant.qtensor import (
+    PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor,
+)
 
 
 def plain_kernel_route(qt: PlainTensor, rows: int) -> bool:
@@ -52,7 +61,7 @@ def per_tensor_fp8(t) -> bool:
 
 def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ W.T -> (..., out) in x's dtype, accumulated in f32."""
-    if isinstance(qt, (*PACKED, KNibbleTensor)):
+    if isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)):
         return qmm(qt, x).to(x.dtype)
     if isinstance(qt, Fp8Tensor):
         if qt.per_tensor:
@@ -90,12 +99,12 @@ def counting_rank(cls: torch.Tensor, n_cls: int):
 
 def grouped_ffn_supported(cfg, w1=None) -> bool:
     """Divisibility for the grouped prefill paths: the K-quant tiles
-    (packed and nibble) need the superblock (256) to divide both
+    (packed, turbo and nibble) need the superblock (256) to divide both
     contraction dims, the plain and fp8 grouped products 128. Per-tensor
     fp8 has no grouped kernel."""
     if per_tensor_fp8(w1):
         return False
-    if isinstance(w1, (*PACKED, KNibbleTensor)):
+    if isinstance(w1, (*PACKED, *TURBO, KNibbleTensor)):
         return cfg.dim % 256 == 0 and cfg.moe_intermediate_size % 256 == 0
     return cfg.dim % 128 == 0 and cfg.moe_intermediate_size % 128 == 0
 

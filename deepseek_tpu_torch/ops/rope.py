@@ -67,14 +67,17 @@ def yarn_attention_mscale(yp: YarnParams) -> float:
 def _angles(pos: torch.Tensor, d: int, theta: float,
             yarn: Optional[YarnParams] = None):
     """pos (...,) -> (cos, sin) of shape pos.shape + (d//2,), float32."""
+    # no blocking host-to-device copy: the decode block runs without a
+    # host synchronization (models/deepseek.py::make_decode_loop)
     if yarn is not None and yarn.factor > 1.0:
-        freq = torch.from_numpy(_yarn_inv_freq(d, theta, yarn)).to(pos.device)
+        freq = torch.from_numpy(_yarn_inv_freq(d, theta, yarn)).to(
+            pos.device, non_blocking=True)
         m = (yarn_get_mscale(yarn.factor, yarn.mscale)
              / yarn_get_mscale(yarn.factor, yarn.mscale_all_dim))
     else:
         i = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
-        freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                      device=pos.device), -(i / d))
+        base = torch.full((), theta, dtype=torch.float32, device=pos.device)
+        freq = torch.pow(base, -(i / d))
         m = 1.0
     val = pos.float()[..., None] * freq
     return torch.cos(val) * m, torch.sin(val) * m
@@ -85,7 +88,8 @@ def apply_rope(x: torch.Tensor, pos, theta: float, is_v3: bool,
     """Rotate the last axis of ``x`` (length d, even); ``pos`` is an int or
     a tensor broadcastable to ``x.shape[:-1]``."""
     d = x.shape[-1]
-    pos = torch.as_tensor(pos, device=x.device)
+    pos = (pos.to(x.device) if isinstance(pos, torch.Tensor)
+           else torch.full((), pos, dtype=torch.int64, device=x.device))
     cos, sin = _angles(pos, d, theta, yarn)
     x0 = x[..., 0::2].float()
     x1 = x[..., 1::2].float()

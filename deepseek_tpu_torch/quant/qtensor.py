@@ -1,9 +1,9 @@
 """Weight tensors of the port: plain, F8E5M2, K-quant packed and nibble.
 
 The counterparts of ``deepseek_tpu/quant/qtensor.py``'s ``PlainTensor``,
-``Fp8Tensor``, ``Q2KTensor``, ``Q3KTensor`` and ``KNibbleTensor`` with the
-same fields and layouts, so a test can hand the same planes to both
-packages. A projection is stored as ``W (out, in)`` and applied as
+``Fp8Tensor``, ``Q2KTensor``, ``Q3KTensor``, ``Q2KTurboTensor``,
+``Q3KTurboTensor`` and ``KNibbleTensor`` with the same fields, dtypes and
+layouts, so a test can hand the same planes to both packages. A projection is stored as ``W (out, in)`` and applied as
 ``y = x @ W.T``.
 
 Packed layout (quant.repack, the default K-quant runtime): 2-bit planes
@@ -180,6 +180,91 @@ PACKED = (Q2KTensor, Q3KTensor)
 
 
 @dataclasses.dataclass
+class Q2KTurboTensor:
+    """Q2_K expanded at load to a pre-scaled int8 plane ("turbo"), in the
+    NATURAL column order: p = sc*q (0..45, exact in int8), so a superblock
+    is 256 contiguous columns and
+
+        y = sum_sb d[:, sb] * (x_sb . p_sb) - sum_g s16_g * bm_g
+
+    with s16 the activations' per-16 group sums. 9.125 bits a weight."""
+
+    p: torch.Tensor    # (..., out, in) int8 = sc*q, natural column order
+    d: torch.Tensor    # (..., out, in//256) f32 super scale
+    bm: torch.Tensor   # (..., out, in//16) bf16 = dmin*mn, the min term
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.p.shape)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.p.numel() + 4 * self.d.numel() + 2 * self.bm.numel()
+
+    def map(self, fn) -> "Q2KTurboTensor":
+        """Apply ``fn`` to every plane (row slices, expert gathers, moves)."""
+        return Q2KTurboTensor(p=fn(self.p), d=fn(self.d), bm=fn(self.bm))
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        w = self.d.to(dtype).repeat_interleave(256, dim=-1) * self.p.to(dtype)
+        return w - _rep16(self.bm.to(dtype))
+
+
+@dataclasses.dataclass
+class Q3KTurboTensor:
+    """Q3_K expanded at load to an int8 quant plane with fused per-16
+    scales ("turbo"): p = qlow + 4*hbit - 4 in [-4, 3], a = d*sc, in the
+    stride-16 PERMUTED column order, where position c' belongs to scale
+    group c' mod (in/16): w = a[c' mod in/16] * p[c']. 9 bits a weight."""
+
+    p: torch.Tensor    # (..., out, in) int8, permuted column order
+    a: torch.Tensor    # (..., out, in//16) bf16 = d*sc
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.p.shape)
+
+    @property
+    def nbytes_active(self) -> int:
+        return self.p.numel() + 2 * self.a.numel()
+
+    def map(self, fn) -> "Q3KTurboTensor":
+        """Apply ``fn`` to every plane (row slices, expert gathers, moves)."""
+        return Q3KTurboTensor(p=fn(self.p), a=fn(self.a))
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        reps = (1,) * (self.a.dim() - 1) + (16,)
+        w = self.a.to(dtype).repeat(reps) * self.p.to(dtype)
+        inv = torch.as_tensor(stride16_inv_perm(self.p.shape[-1]), device=w.device)
+        return w.index_select(-1, inv)
+
+
+TURBO = (Q2KTurboTensor, Q3KTurboTensor)
+
+
+def q2k_to_turbo(qt: Q2KTensor) -> Q2KTurboTensor:
+    """Packed Q2_K planes -> the turbo layout, on the planes' device
+    (``deepseek_tpu/quant/qtensor.py::q2k_to_turbo``): the quants unpacked
+    to natural order and multiplied by their 4-bit scales in uint8 (at most
+    45), the min term dmin*mn made in f32 and stored bf16."""
+    q = _unpack_planes(qt.qs, 2)                         # natural, uint8 0..3
+    p = (_rep16(qt.sm & 0xF) * q).to(torch.int8)
+    bm = _rep16(qt.dmin.float()) * (qt.sm >> 4).float()
+    return Q2KTurboTensor(p=p, d=qt.d.float().contiguous(), bm=bm.to(torch.bfloat16))
+
+
+def q3k_to_turbo(qt: Q3KTensor) -> Q3KTurboTensor:
+    """Packed Q3_K planes -> the turbo layout, on the planes' device
+    (``deepseek_tpu/quant/qtensor.py::q3k_to_turbo``): the plane keeps the
+    permuted column order, a = d*sc is made in f32 and stored bf16."""
+    qlow = torch.cat([(qt.qs >> s) & 3 for s in (0, 2, 4, 6)], dim=-1).to(torch.int8)
+    hbit = torch.cat([(qt.hm >> b) & 1 for b in range(8)], dim=-1).to(torch.int8)
+    p = qlow + hbit * 4 - 4
+    a = _rep16(qt.d.float()) * qt.sc.float()
+    return Q3KTurboTensor(p=p, a=a.to(torch.bfloat16))
+
+
+@dataclasses.dataclass
 class KNibbleTensor:
     """K-quant expanded to a 4-bit nibble plane (see the module docstring)."""
 
@@ -231,12 +316,18 @@ def rows_to_experts(qt, ns: int):
 
 def cols_to_experts(qt, ns: int, m: int):
     """(dim, ns*m) -> (ns, dim, m) where the columns split cleanly: plain
-    weights, and blockwise fp8 whose column blocks divide m (packed and
-    nibble planes interleave columns stride-16, as the JAX
-    ``_qt_split_cols_to_experts`` says); None otherwise."""
+    weights, blockwise fp8 whose column blocks divide m and Q2_K turbo
+    (natural order) when m % 256 == 0 (packed, Q3_K turbo and nibble planes
+    interleave columns stride-16, as the JAX ``_qt_split_cols_to_experts``
+    says); None otherwise."""
     split = lambda t, c: t.reshape(t.shape[0], ns, c).movedim(1, 0).contiguous()
     if isinstance(qt, PlainTensor):
         return PlainTensor(data=split(qt.data, m))
+    if isinstance(qt, Q2KTurboTensor):
+        if m % 256:
+            return None
+        return Q2KTurboTensor(p=split(qt.p, m), d=split(qt.d, m // 256),
+                              bm=split(qt.bm, m // 16))
     if isinstance(qt, Fp8Tensor) and not qt.per_tensor and m % qt.block_size[1] == 0:
         return Fp8Tensor(
             data=split(qt.data.view(torch.uint8), m).view(torch.float8_e5m2),

@@ -1,7 +1,8 @@
 """Where a decode step's and a prefill chunk's time goes in the
 PyTorch/CUDA port (one GPU).
 
-    python scripts/torch_profile_decode.py [--model v3|v3-q3k|v3-q2k|v2-lite|v2-lite-fp8]
+    python scripts/torch_profile_decode.py [--model v3|v3-q3k|v3-q2k|v3-q3kt|v3-q2kt|
+                                                    v2-lite|v2-lite-fp8]
                                            [--layers N]
                                            [--steps 16] [--chunks 4]
                                            [--trace out.json]
@@ -9,12 +10,16 @@ PyTorch/CUDA port (one GPU).
 ``--model v3`` (the default) builds the DeepSeek-V3-width nibble model
 with the factor weights wq_b / wkv_b, 4 layers unless --layers says
 otherwise, ``v3-q3k`` / ``v3-q2k`` the same model in the packed Q3_K /
-Q2_K planes; ``--model v2-lite`` builds the F16 decompressed-MHA
+Q2_K planes, ``v3-q3kt`` / ``v3-q2kt`` in the turbo int8 planes;
+``--model v2-lite`` builds the F16 decompressed-MHA
 DeepSeek-V2-Lite and ``--model v2-lite-fp8`` the same model in F8E5M2
 with 128x128 block scales, all 27 layers unless --layers says otherwise
 (random weights from a seed, models/testing.py). It profiles:
   short: greedy decode at positions 0.. (kv_len grows from 1; attention is
          negligible);
+  block: the Engine's decode block, 32 steps a unit through
+         make_decode_loop at temperature 0.8 (top_p 0.95), the token
+         sampled on the card (positions from 0);
   long:  greedy decode from the 4096-slot window onwards, over a cache
          filled with random rows (kv_len = 4096: K3, or K8 for V2-Lite, at
          the full window, the ring wrapped, sinks re-rotating);
@@ -108,6 +113,26 @@ def decode_cell(name, params, cfg, pos0, steps, trace):
     profile_cell(name, run, steps, "step", trace)
 
 
+def block_cell(name, params, cfg, blocks, trace, temperature=0.8):
+    from deepseek_tpu_torch.models.deepseek import make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+
+    loop = make_decode_loop(cfg, 32)
+    cache = init_cache(cfg, device="cuda")
+    state = {"tok": torch.tensor([[1]], device="cuda"), "pos": 0,
+             "key": prng.PRNGKey(0)}
+
+    def run(k):
+        for _ in range(k):
+            state["key"], sub = prng.split(state["key"])
+            toks, _, _ = loop(params, cache, state["tok"], state["pos"], sub,
+                              temperature, 0.95)
+            state["tok"], state["pos"] = toks[:, -1:], state["pos"] + 32
+    print(f"[{name}] decode blocks of 32 steps at temperature {temperature}")
+    profile_cell(name, run, blocks, "block", trace)
+
+
 def prefill_cell(name, params, cfg, pos0, chunks, trace):
     """The same 256-token chunk prefilled at pos0 again and again (each run
     rewrites the same slots)."""
@@ -129,7 +154,8 @@ def main() -> int:
         print("torch_profile_decode: no CUDA GPU visible", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("v3", "v3-q3k", "v3-q2k", "v2-lite", "v2-lite-fp8"),
+    ap.add_argument("--model", choices=("v3", "v3-q3k", "v3-q2k", "v3-q3kt", "v3-q2kt",
+                                        "v2-lite", "v2-lite-fp8"),
                     default="v3")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 4 for v3, 27 for v2-lite)")
@@ -160,12 +186,14 @@ def main() -> int:
         variants = (("k9", params),)
     else:
         cfg = deepseek_v3_proportions(n_layers=args.layers or 4)
-        quant = {"v3": "q3_k_nibble", "v3-q3k": "q3_k", "v3-q2k": "q2_k"}[args.model]
+        quant = {"v3": "q3_k_nibble", "v3-q3k": "q3_k", "v3-q2k": "q2_k",
+                 "v3-q3kt": "q3_k_turbo", "v3-q2kt": "q2_k_turbo"}[args.model]
         params = random_fused_params(cfg, quant, seed=0, device="cuda", factors=True)
         variants = (("k9", params), ("k10", dataclasses.replace(params, layers=[
             dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])))
     print(f"model: {args.model}, {cfg.n_layers} layers")
     decode_cell("short", params, cfg, 0, args.steps, args.trace)
+    block_cell("block", params, cfg, 2, args.trace)
     decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
     for label, p in variants:
         for where, pos0 in (("first", 0), ("last", cfg.kv_window - 256)):

@@ -13,6 +13,7 @@ from deepseek_tpu.ops.attention import decode_attn_mla as jax_decode_attn_mla
 from deepseek_tpu.ops.pallas.attention import mla_decode_attn as jax_mla_decode_attn
 from deepseek_tpu_torch.ops.attention import decode_attn_mla
 from deepseek_tpu_torch.ops.kernels.attention import mla_decode_attn
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(B, H, S, R, P, seed):

@@ -28,10 +28,12 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
     gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
     qmm_experts_packed, qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows,
     qmm_fp_plain, qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed,
-    qmm_grouped_plain, qmm_packed, qmm_packed_rows, qmm_plain, qmm_rows,
+    qmm_grouped_plain, qmm_grouped_turbo, qmm_experts_turbo, qmm_packed,
+    qmm_packed_rows, qmm_plain, qmm_rows, qmm_turbo, qmm_turbo_rows,
 )
 from deepseek_tpu_torch.quant.qtensor import (
-    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor,
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, q2k_to_turbo,
+    q3k_to_turbo,
 )
 
 
@@ -607,3 +609,192 @@ def test_packed_wrappers_reject_what_they_cannot_take(quant, dev):
                            torch.ones((1, 128, 256), device=dev))
     with pytest.raises(ValueError):
         qmm_experts_packed(tab, te, torch.ones((2, 256), device=dev))
+
+
+def _turbo(E, d, n, quant, seed, dev):
+    """A random turbo table (E, d, n) (E = 0: one 2-D weight): the packed
+    draw of ``_packed`` converted on the card."""
+    qt = _packed(E, d, n, quant, seed, dev)
+    return q2k_to_turbo(qt) if quant == "q2_k" else q3k_to_turbo(qt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(100, 256), (300, 1536), (4096, 7168), (64, 18432),
+                                 (200, 512)],
+                         ids=["small", "ragged-rows", "w13-like", "w2-dense-width",
+                              "kv-lora"])
+@pytest.mark.parametrize("rows", [1, 3, 16, 17, 130])
+def test_k5_turbo_matches_plain(quant, d, n, rows, dev):
+    """K5's turbo bodies (the matvec up to 16 rows, the row-tiled route
+    above) against the plain version (the turbo dequantization, bf16
+    scales, and one f32 product). Tolerance 1e-4 of the output scale: f32
+    sums in other orders, and the matvec's exact 0.5 + u/256 floats whose
+    offset cancels against f32 group sums."""
+    qt = _turbo(0, d, n, quant, seed=d + n, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
+    before = (qmm_turbo.launches, qmm_turbo_rows.launches)
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    tiled = rows > 16
+    assert (qmm_turbo.launches, qmm_turbo_rows.launches) == (
+        before[0] + (not tiled), before[1] + tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("E,d,n", [(16, 4096, 7168), (16, 7168, 2048), (128, 128, 512),
+                                   (4, 100, 256)],
+                         ids=["w13", "w2", "wv_b", "small"])
+def test_k2_turbo_matches_plain(quant, E, d, n, dev):
+    """K2's turbo bodies: 9 pairs with a repeated expert against the plain
+    version (the selected experts dequantized). Tolerance as K5."""
+    qt = _turbo(E, d, n, quant, seed=E + d, dev=dev)
+    idx = torch.tensor([0, 5 % E, 5 % E, E - 1, 1, 2, 3, E - 2, 3], device=dev)
+    x = torch.randn((9, n), generator=torch.Generator().manual_seed(3)).to(dev)
+    before = qmm_experts_turbo.launches
+    _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_turbo.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(200, 512), (4096, 7168), (200, 2048)])
+def test_k6_turbo_matches_plain(quant, d, n, dev):
+    """K6's turbo bodies over 5 tiles of 3 experts, with and without
+    live-row counts (the rows past a tile's count are not compared)."""
+    qt = _turbo(3, d, n, quant, seed=d, dev=dev)
+    x = torch.randn((5, 128, n), generator=torch.Generator().manual_seed(4)).to(dev)
+    te = torch.tensor([0, 0, 2, 1, 2], device=dev, dtype=torch.int32)
+    before = qmm_grouped_turbo.launches
+    _close(qmm_grouped(qt, te, x), qmm_grouped_plain(qt, te, x), 1e-4)
+    rows = torch.tensor([128, 7, 0, 64, 1], device=dev, dtype=torch.int32)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    _close(qmm_grouped(qt, te, x, rows)[live],
+           qmm_grouped_plain(qt, te, x, rows)[live], 1e-4)
+    assert qmm_grouped_turbo.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+def test_per_head_up_turbo(quant, dev):
+    """The per-head wv_b product on a turbo wv_b (128 heads of 128 x 512)
+    launches K2's turbo body and matches the dequantized product."""
+    from deepseek_tpu_torch.models.deepseek import per_head_up
+    H, Dv, R = 128, 128, 512
+    lat = torch.randn((1, H, R), generator=torch.Generator().manual_seed(5)).to(dev)
+    wv_b = _turbo(0, H * Dv, R, quant, seed=6, dev=dev)
+    want = torch.einsum("bhr,hvr->bhv", lat,
+                        wv_b.dequant(torch.float32).reshape(H, Dv, R))
+    before = qmm_experts_turbo.launches
+    _close(per_head_up(wv_b, lat), want, 1e-4)
+    assert qmm_experts_turbo.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+def test_turbo_wrappers_reject_what_they_cannot_take(quant, dev):
+    """In-features that are no multiple of 256, a CPU plane, a
+    non-contiguous plane and a wrong plane shape raise instead of launching
+    or falling back."""
+    bad_n = _turbo(0, 16, 256, quant, seed=0, dev=dev).map(lambda t: t[:, :t.shape[1] // 2])
+    for fn in (qmm_turbo, qmm_turbo_rows):
+        with pytest.raises(ValueError, match="256"):
+            fn(bad_n.map(lambda t: t.contiguous()), torch.ones((1, 128), device=dev))
+    qt = _turbo(0, 16, 256, quant, seed=1, dev=dev)
+    x = torch.ones((1, 256), device=dev)
+    with pytest.raises(ValueError):
+        qmm_turbo(qt.map(lambda t: t.cpu()), x)
+    with pytest.raises(ValueError):
+        qmm_turbo(qt.map(lambda t: t.t().contiguous().t()), x)
+    with pytest.raises(ValueError):
+        qmm_turbo(dataclasses.replace(qt, p=qt.p[:8]), x)
+    tab = _turbo(2, 16, 256, quant, seed=2, dev=dev)
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        qmm_grouped_turbo(tab.map(lambda t: t.cpu()), te,
+                          torch.ones((1, 128, 256), device=dev))
+    with pytest.raises(ValueError):
+        qmm_experts_turbo(tab, te, torch.ones((2, 256), device=dev))
+
+
+def _same_nucleus(got, want, tol):
+    """Two nucleus distributions (B, V) of the same logits, agreeing within
+    ``tol`` per row; or, in a row whose keep sets differ, differing only at
+    the cut: the tokens kept on one side only are no more probable than
+    (1 + 1e-4) x that side's least common token (a mass sum over 129280
+    probabilities, taken in another order, may land on the other side of
+    top_p there), and renormalized over the common keep set the two rows
+    agree within ``tol``."""
+    for g, w in zip(got, want):
+        kg, kw = g > 0, w > 0
+        if torch.equal(kg, kw):
+            torch.testing.assert_close(g, w, rtol=0, atol=tol)
+            continue
+        both = kg & kw
+        for side, keep in ((g, kg), (w, kw)):
+            only = keep & ~both
+            if only.any():
+                assert side[only].max() <= side[both].min() * (1 + 1e-4)
+        gc, wc = torch.where(both, g, 0.0), torch.where(both, w, 0.0)
+        torch.testing.assert_close(gc / gc.sum(), wc / wc.sum(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["greedy", "nucleus", "top_k_min_p", "per_row"])
+def test_sample_token_cuda_matches_cpu(case, dev):
+    """sample_token on the card picks the CPU tokens from the same logits
+    and key (the same threefry integers; the gumbel floats may differ by an
+    ulp of log, a near-tie only), and nucleus_dist agrees within 1e-6 up to
+    a token at the cut (``_same_nucleus``), at DeepSeek-V3's vocabulary."""
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.ops.sampling import nucleus_dist, sample_token
+    params = {"greedy": dict(temperature=0.0, top_p=0.95),
+              "nucleus": dict(temperature=0.8, top_p=0.95),
+              "top_k_min_p": dict(temperature=1.0, top_p=0.9, top_k=40, min_p=0.02),
+              "per_row": dict(temperature=torch.tensor([0.0, 0.7, 1.3]),
+                              top_p=torch.tensor([0.9, 0.95, 1.0]))}[case]
+    on_dev = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in params.items()}
+    g = torch.Generator().manual_seed(9)
+    for trial in range(4):
+        lg = torch.randn((3, 129280), generator=g) * 4
+        key = prng.split(prng.PRNGKey(trial))[1]
+        want = sample_token(lg, key, **params)
+        got = sample_token(lg.to(dev), key, **on_dev)
+        assert torch.equal(got.cpu(), want)
+        _same_nucleus(nucleus_dist(lg.to(dev), **on_dev).cpu(),
+                      nucleus_dist(lg, **params), 1e-6)
+    key = prng.PRNGKey(5)
+    assert torch.equal(prng.random_bits(key, (4, 1000), dev).cpu(),
+                       prng.random_bits(key, (4, 1000)))
+
+
+@pytest.mark.cuda
+def test_decode_block_does_not_synchronize(dev):
+    """A decode block of a small random packed Q3_K model runs under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any operation
+    that synchronizes the host with the card, greedy and sampled; reading
+    its tokens afterwards is the one synchronization."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fused_params)
+    from deepseek_tpu_torch.ops import prng
+    cfg = deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512)
+    params = random_fused_params(cfg, "q3_k", seed=1, device=dev)
+    cache = init_cache(cfg, device=dev)
+    tok = torch.tensor([[5]], device=dev)
+    with torch.inference_mode():
+        forward_decode(params, cache, tok, 0, cfg)           # builds the kernels
+    loop = make_decode_loop(cfg, 8)
+    torch.cuda.synchronize()
+    for temperature in (0.0, 0.8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, logits, _ = loop(params, cache, tok, 1, prng.PRNGKey(2), temperature,
+                                   0.95, top_k=20, min_p=0.01)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert toks.shape == (1, 8) and bool(torch.isfinite(logits).all())

@@ -26,6 +26,7 @@ from deepseek_tpu_torch.models.deepseek import forward_decode
 from deepseek_tpu_torch.models.kvcache import init_cache as torch_cache
 from deepseek_tpu_torch.models.loader import params_from_reference
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
 CONTEXT = 12          # kv_window = min(12, 24): the ring wraps at step 12
@@ -134,9 +135,7 @@ def test_greedy_tokens_identical(ckpt):
 
 def test_engine_rejects_unported_options(ckpt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(ckpt["dir"], device="cpu", decode_block=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(ckpt["dir"], device="cpu", kquant_runtime="turbo")
+        Engine(ckpt["dir"], device="cpu", scan_layers=True)
     with pytest.raises(NotImplementedError, match="int8"):
         Engine(ckpt["dir"], device="cpu", kv_cache_dtype="int8").new_cache()
     if not torch.cuda.is_available():      # the default device is the card

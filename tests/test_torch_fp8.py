@@ -57,6 +57,7 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
 from deepseek_tpu_torch.quant import fp8 as tfp8
 from deepseek_tpu_torch.quant.qtensor import Fp8Tensor
 from deepseek_tpu_torch.utils import codec as tcodec
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,6 +25,7 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
 )
 from deepseek_tpu_torch.quant.qtensor import PlainTensor
 from tests.test_torch_qmm import _raw, jax_nibble, rnd, torch_nibble
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("quant", ["q2_k", "q3_k"])

@@ -48,6 +48,7 @@ from deepseek_tpu_torch.ops.kernels.qmm import qmm
 from deepseek_tpu_torch.ops.matmul import plain_kernel_route, qmatmul
 from deepseek_tpu_torch.quant.qtensor import PlainTensor
 from tests.test_model import make_ckptdata
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 from tests.util_tinymodel import tiny_config, tiny_metadata, tiny_weights
 

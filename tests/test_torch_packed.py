@@ -57,6 +57,7 @@ from deepseek_tpu_torch.quant.qtensor import (
 )
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
 from tests.test_torch_qmm import _raw, rnd
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
 CONTEXT = 12          # kv_window = min(12, 24): the ring wraps at step 12
@@ -295,11 +296,13 @@ def test_default_runtime_is_packed_like_jax(ckpt):
 
 
 def test_kquant_runtime_values(ckpt):
-    """None and "nibble" load; "turbo" is not ported (ROADMAP.md); any
-    other value is refused rather than read as the default."""
+    """None, "nibble" and "turbo" load (tests/test_torch_turbo.py holds
+    turbo against the JAX package); any other value is refused rather than
+    read as the default."""
     data, cfg = ckpt["eng"].data, ckpt["eng"].cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_params(data, cfg, kquant_runtime="turbo")
+    turbo = load_params(data, cfg, kquant_runtime="turbo")
+    assert type(turbo.layers[0].wo).__name__ == \
+        ("Q2KTurboTensor" if ckpt["quant"] == "q2_k" else "Q3KTurboTensor")
     with pytest.raises(ValueError, match="kquant_runtime"):
         load_params(data, cfg, kquant_runtime="packed")
 

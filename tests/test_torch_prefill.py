@@ -37,6 +37,7 @@ from deepseek_tpu_torch.models.deepseek import forward_prefill
 from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mha_prefill_attn, mla_prefill_attn,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
 WINDOW = 96           # kv_window of the checkpoints below

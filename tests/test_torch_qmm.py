@@ -19,6 +19,7 @@ from deepseek_tpu.quant.qtensor import Q2KTensor, Q3KTensor, q2k_to_nibble, q3k_
 from deepseek_tpu_torch.ops.kernels.qmm import qmm, qmm_experts, qmm_experts_fp
 from deepseek_tpu_torch.quant import qtensor as tq
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def rnd(shape, seed=0, scale=1.0):
