@@ -21,7 +21,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      chunk: K6's packed body, K5 row-tiled, K10; then K5, K2's packed body
      on the expert tables and wv_b, K3), plus a run sampled at temperature
      0.8 that must give the CPU Engine's tokens; then the same checkpoints
-     with kquant_runtime="turbo" (the turbo bodies of K5, K2 and K6). Every
+     with kquant_runtime="turbo" (the turbo bodies of K5, K2 and K6); then
+     the packed Q3_K and the F16 MHA checkpoints with kv_cache_dtype="int8"
+     (the int8 bodies of K3 and K10, and of K8 and K9), past the window so
+     the sinks re-rotate from their float masters, whose greedy tokens and
+     the packed Q3_K run sampled at 0.8 must equal the CPU Engine's. Every
      Engine runs its default 32-token decode block (on-device sampling);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
@@ -32,7 +36,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      packed bodies, K5 row-tiled), each followed by its packed kernels at
      its shapes (and K1 on the nibble layout of the same w13), with the
      packed Q3_K model's decode timed at decode_block 1 and 32 (temperature
-     0 and 0.8) and one block run under set_sync_debug_mode("error"); then
+     0 and 0.8) and one block run under set_sync_debug_mode("error"), and
+     the packed Q3_K model again with an int8 KV cache: 64 decode steps
+     (K3's int8 body), the 512-token prefill with the factor weights (the
+     window dequantized, the float K9) and without (K10's int8 body), a
+     block under set_sync_debug_mode("error") and the cache's bytes; then
      the same draws in the turbo layout, Q3_K and Q2_K (K5, K2's and K6's
      turbo bodies, K5 row-tiled), each followed by its turbo kernels at its
      shapes beside packed K5 and nibble K1 on one w13;
@@ -41,14 +49,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
      DeepSeek-V2-Lite (and V3's lm_head and 128 heads), and the fp8 bodies
      of K5 (matvec and row-tiled), K2 and K6 at DeepSeek-V2-Lite's F8E5M2
-     shapes, each against its plain version on the card, with its time,
+     shapes, and the int8 bodies of K3 and K10 at V3's and of K8 and K9 at
+     V2-Lite's shapes (beside the bf16 body's time over the same rows),
+     each against its plain version on the card, with its time,
      the plain version's time, a PyTorch library call's time where one
      computes the same function, and its bound;
   5. DeepSeek-V2-Lite (decompressed MHA, F16) at full width and depth from
      random weights: a 512-token prompt in 2 prefill chunks (K9, K11), then
-     greedy decode (K8, K4, K2's plain body); then its first 2 layers
-     hydrate to the 4096-slot window's edge and decode past it, against
-     the same run on the CPU; then the same model in F8E5M2 with 128x128
+     greedy decode (K8, K4, K2's plain body), then the same with an int8
+     KV cache (K9's and K8's int8 bodies); then its first 2 layers hydrate
+     to the 4096-slot window's edge and decode past it, against the same
+     run on the CPU, with an f16 and with an int8 cache; then the same
+     model in F8E5M2 with 128x128
      blocks (K5 row-tiled, K6's fp8 body, K9; then K5, K2's fp8 body, K8),
      and its first 2 layers against the CPU over a 300-token prompt.
 The launch counts are set to 0 just before each driven path and read just
@@ -57,6 +69,7 @@ before last holds the card's name and power limit; the last line is the
 JSON result. Without a CUDA GPU the script exits 2 and prints none.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -313,7 +326,7 @@ def entry_point_phase(counts):
     return launched
 
 
-def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False):
+def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False, kv=None):
     """A tiny random Q3_K or Q2_K checkpoint through Engine(device="cuda")
     with default arguments (the packed planes; ``runtime="turbo"``: the
     int8 turbo planes) against the same Engine on the CPU: a 100-token
@@ -325,20 +338,24 @@ def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False):
     wv_b, K3). ``sampled``: fresh engines on the card and the CPU at the
     same seed then generate 40 tokens at temperature 0.8 (top_p 0.95), the
     first from the host sampler and the rest from the on-device sampler,
-    and must give the same tokens."""
+    and must give the same tokens. ``kv="int8"``: both Engines keep an int8
+    KV cache (K3's and K10's int8 bodies), the sinks re-rotating from their
+    float masters past the window, and the greedy tokens must equal the
+    CPU Engine's."""
     from deepseek_tpu_torch.engine import Engine
     from deepseek_tpu_torch.quant.qtensor import (
         Q2KTensor, Q2KTurboTensor, Q3KTensor, Q3KTurboTensor)
 
     kind = runtime or "packed"
-    label = f"{kind} {quant.upper()} entry point"
+    label = f"{kind} {quant.upper()} entry point" + (f", {kv} cache" if kv else "")
     rng = np.random.default_rng(SEED + 8)
     tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        f"chip_smoke_{quant}")
     shutil.rmtree(tmp, ignore_errors=True)
     write_tiny_checkpoint(tmp, rng, quant, max_seq_len=256, window=128)
-    eng = Engine(tmp, device="cuda", seed=SEED, kquant_runtime=runtime)
-    ref = Engine(tmp, device="cpu", seed=SEED, kquant_runtime=runtime)
+    opts = dict(seed=SEED, kquant_runtime=runtime, kv_cache_dtype=kv)
+    eng = Engine(tmp, device="cuda", **opts)
+    ref = Engine(tmp, device="cpu", **opts)
     cls = {("packed", "q3_k"): Q3KTensor, ("packed", "q2_k"): Q2KTensor,
            ("turbo", "q3_k"): Q3KTurboTensor, ("turbo", "q2_k"): Q2KTurboTensor}[
         (kind, quant)]
@@ -349,27 +366,38 @@ def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False):
             and isinstance(eng.params.layers[0].wv_b, cls)):
         raise RuntimeError(f"{label}: expected {cls.__name__} planes")
     sfx = "-turbo" if kind == "turbo" else "-packed"
+    attn = ("K3-int8", "K10-int8") if kv == "int8" else ("K3", "K10")
     prompt = [int(v) for v in rng.integers(3, 512, 100)]
     (out, stats), launched = drive(
-        counts, ("K3", "K10", *(k + sfx for k in ("K5", "K5r", "K2", "K6"))),
+        counts, (*attn, *(k + sfx for k in ("K5", "K5r", "K2", "K6"))),
         label, lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
     log(f"{label}: Engine(tiny {quant.upper()} .dseek, device='cuda', "
-        f"kquant_runtime={runtime!r}).generate (decode_block {eng.decode_block}) -> "
-        f"{len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+        f"kquant_runtime={runtime!r}, kv_cache_dtype={kv!r}).generate (decode_block "
+        f"{eng.decode_block}) -> {len(out)} greedy tokens past the 128-slot "
+        f"window, first {out[:12]}")
     compare_hydrate(eng, ref, (prompt + out)[:140], label)
     check_greedy(ref, prompt, out, label)
+    if kv == "int8":
+        same_tokens(out, ref.generate(prompt, num_steps=40, temperature=0.0)[0],
+                    f"{label}, greedy")
     if sampled:
-        got, _ = Engine(tmp, device="cuda", seed=SEED, kquant_runtime=runtime) \
+        got, _ = Engine(tmp, device="cuda", **opts) \
             .generate(prompt, num_steps=40, temperature=0.8, top_p=0.95)
-        want, _ = Engine(tmp, device="cpu", seed=SEED, kquant_runtime=runtime) \
+        want, _ = Engine(tmp, device="cpu", **opts) \
             .generate(prompt, num_steps=40, temperature=0.8, top_p=0.95)
-        log(f"{label}: 40 tokens sampled at temperature 0.8, seed {SEED}: card "
-            f"{got}, CPU {want}")
-        if got != want:
-            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-            raise RuntimeError(f"{label}: sampled token {first} differs: card "
-                               f"{got[first]}, CPU {want[first]}")
+        same_tokens(got, want, f"{label}, 40 tokens sampled at temperature 0.8, "
+                    f"seed {SEED}")
     return launched
+
+
+def same_tokens(got, want, label):
+    """The card's tokens must be the CPU Engine's, all of them."""
+    log(f"{label}: card {got}, CPU {want}")
+    if got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+        raise RuntimeError(f"{label}: token {first} differs: card "
+                           f"{got[first:first + 1]}, CPU {want[first:first + 1]}")
 
 
 def write_bf16_checkpoint(path: str, rng) -> None:
@@ -509,31 +537,39 @@ def write_mha_checkpoint(path: str, rng) -> None:
     save_tiny(path, c, t)
 
 
-def mha_entry_point_phase(counts):
+def mha_entry_point_phase(counts, kv=None):
     """The converter's default kind of checkpoint (F16, MHA) through
     Engine(device="cuda") against Engine(device="cpu"): a 100-token prompt
     is one prefill chunk (K9; 300 token-expert pairs: K11), then 40 greedy
     decode steps past the 128-slot window (K8, K4 on the lm_head, K2's
-    plain body on the expert tables)."""
+    plain body on the expert tables). ``kv="int8"``: both Engines keep an
+    int8 KV cache (K9's and K8's int8 bodies; the sink keys re-rotate from
+    their float masters), and the greedy tokens must equal the CPU's."""
     from deepseek_tpu_torch.engine import Engine
 
+    label = "MHA entry point" + (f", {kv} cache" if kv else "")
     rng = np.random.default_rng(SEED + 4)
     tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_mha")
     shutil.rmtree(tmp, ignore_errors=True)
     write_mha_checkpoint(tmp, rng)
-    eng = Engine(tmp, device="cuda", seed=SEED)
-    ref = Engine(tmp, device="cpu", seed=SEED)
+    eng = Engine(tmp, device="cuda", seed=SEED, kv_cache_dtype=kv)
+    ref = Engine(tmp, device="cpu", seed=SEED, kv_cache_dtype=kv)
     if eng.cfg.use_mla or eng.params.layers[0].wq is None:
         raise RuntimeError("MHA checkpoint: expected use_mla=0 and wq")
     prompt = [int(v) for v in rng.integers(3, 16384, 100)]
+    attn = ("K8-int8", "K9-int8") if kv == "int8" else ("K8", "K9")
     (out, stats), launched = drive(
-        counts, ("K2f", "K4", "K8", "K9", "K11"), "MHA entry point",
+        counts, ("K2f", "K4", "K11", *attn), label,
         lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
-    log(f"MHA entry point: Engine(tiny F16 MHA .dseek, device='cuda').generate "
-        f"-> {len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
-    compare_hydrate(eng, ref, (prompt + out)[:140], "MHA entry point")
-    check_greedy(ref, prompt, out, "MHA entry point")
+    log(f"{label}: Engine(tiny F16 MHA .dseek, device='cuda', kv_cache_dtype="
+        f"{kv!r}).generate -> {len(out)} greedy tokens past the 128-slot window, "
+        f"first {out[:12]}")
+    compare_hydrate(eng, ref, (prompt + out)[:140], label)
+    check_greedy(ref, prompt, out, label)
+    if kv == "int8":
+        same_tokens(out, ref.generate(prompt, num_steps=40, temperature=0.0)[0],
+                    f"{label}, greedy")
     return launched
 
 
@@ -854,6 +890,7 @@ def kernel_phase(params, cfg, entries):
     prefill_kernel_entries(params, cfg, gen, emit)
     mha_kernel_entries(gen, emit)
     fp8_kernel_entries(gen, emit)
+    int8_kernel_entries(cfg, gen, emit)
 
 
 def rand_fp8(gen, lead, d, n, block=(128, 128)):
@@ -1290,19 +1327,58 @@ def decode_block_phase(params, cfg, label, reps=3):
                 log(f"decode block ({label}), decode_block {b}, temperature "
                     f"{temperature}: {[round(x, 2) for x in v]} tok/s over {n_tok} "
                     f"tokens (runs alternating), median {float(np.median(v)):.2f}")
+    sync_debug_block(params, cfg, label)
+    return res
+
+
+def sync_debug_block(params, cfg, label, block=32):
+    """One 32-token decode block at temperature 0.8 under
+    torch.cuda.set_sync_debug_mode("error"), which raises on an operation
+    that synchronizes the host with the card (after a warm-up block)."""
+    from deepseek_tpu_torch.models.deepseek import make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+
+    loop = make_decode_loop(cfg, block)
+    with torch.inference_mode():
         cache = init_cache(cfg, device="cuda")
         tok = torch.full((1, 1), 1, dtype=torch.int64, device="cuda")
+        loop(params, cache, tok, 0, prng.PRNGKey(SEED), 0.8, 0.95)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            toks, logits, _ = loop(params, cache, tok, 0, prng.PRNGKey(SEED), 0.8, 0.95)
+            toks, logits, _ = loop(params, cache, tok, block, prng.PRNGKey(SEED),
+                                   0.8, 0.95)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         if toks.shape != (1, block) or not bool(torch.isfinite(logits).all()):
             raise RuntimeError("decode block under sync debug mode: bad output")
-    log(f"decode block ({label}): a 32-token block at temperature 0.8 ran under "
-        f"set_sync_debug_mode('error') (no host synchronization inside it)")
-    return res
+    log(f"decode block ({label}): a {block}-token block at temperature 0.8 ran "
+        f"under set_sync_debug_mode('error') (no host synchronization inside it)")
+
+
+def int8_cache_phase(params, cfg, counts, label, runs):
+    """The V3-width model with an int8 KV cache (the JAX CLI's --kv-dtype
+    int8): 64 greedy decode steps (K3's int8 body), the 512-token prefill
+    in 2 chunks with the factor weights (the window dequantized, then the
+    float K9) and without (K10's int8 body), one decode block under sync
+    debug mode, and the cache's bytes beside the bf16 cache's."""
+    from deepseek_tpu_torch.models.kvcache import init_cache
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    lab = f"{label}, int8 cache"
+    dec, pre = f"full-width {label} int8 decode", f"full-width {label} int8 prefill"
+    runs[dec], _ = full_width_phase(params, cfg8, counts, lab,
+                                    ("K5-packed", "K2-packed", "K3-int8"))
+    runs[pre], _ = prefill_phase(
+        params, cfg8, counts, lab, ("K5-packed", "K5r-packed", "K2-packed",
+                                    "K3-int8", "K6-packed", "K9", "K10-int8"))
+    sync_debug_block(params, cfg8, lab)
+    n8 = init_cache(cfg8, device="cuda").nbytes
+    n16 = init_cache(cfg, device="cuda").nbytes
+    log(f"full width ({lab}): KV cache {n8 / 1e6:.3f} MB (int8 rows + f32 scales) "
+        f"against {n16 / 1e6:.3f} MB in {cfg.kv_cache_dtype}, {cfg.n_layers} layers x "
+        f"{cfg.kv_window} slots ({n8 / n16:.3f}x)")
 
 
 def mha_kernel_entries(gen, emit):
@@ -1360,6 +1436,102 @@ def mha_kernel_entries(gen, emit):
                  "_mha_body :245, pallas_call :370)", "K8",
                  library=lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=scale))
         del k, v, kh, vh
+
+
+def int8_rows(gen, shape):
+    """Random rows quantized as the int8 cache stores them: (int8 rows,
+    their f32 amax/127 scales)."""
+    from deepseek_tpu_torch.models.kvcache import quantize_rows
+    return quantize_rows(torch.randn(shape, generator=gen, device="cuda") * 0.3)
+
+
+def int8_kernel_entries(cfg, gen, emit):
+    """K3, K8, K9 and K10 over an int8 cache with its f32 row scales, each
+    against its plain version (the same dequantized rows), at the main
+    path's full shapes: K3 and K10 at DeepSeek-V3's (128 heads, R 512, P
+    64), K8 and K9 at DeepSeek-V2-Lite's (16 heads, Dh 192, Dv 128), the
+    4096-slot window. Beside each, the float kernel's time at the same
+    shape over the same rows in bf16 (the float cell's cache dtype). The
+    bounds count the int8 rows and their scales. No PyTorch call attends
+    over an int8 cache with row scales, so there is no library time.
+    Tolerances as the float entries: 1e-4 of max|ref| (f32 sums in other
+    orders, fast exp)."""
+    from deepseek_tpu_torch.models.kvcache import dequant_rows
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mha_decode_attn, mha_decode_attn_plain, mla_decode_attn,
+        mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
+        mla_prefill_attn_plain)
+
+    S, T, kv = cfg.kv_window, 256, cfg.kv_window - 96
+    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    bf16 = lambda q, s: dequant_rows(q, s).to(torch.bfloat16)
+    src = "deepseek_tpu_torch/csrc/"
+    pallas = "deepseek_tpu/ops/pallas/attention.py:"
+
+    def float_time(label, fn):
+        t = time_ms(fn)
+        log(f"  {label}: the float kernel over the same rows in bf16: {t:.4f} ms")
+
+    # K3 at the V3 window: 4000 of 4096 slots
+    qc = torch.randn((1, H, R), generator=gen, device="cuda")
+    qr = torch.randn((1, H, P), generator=gen, device="cuda")
+    (ckv, cs), (kr, rs) = int8_rows(gen, (1, S, R)), int8_rows(gen, (1, S, P))
+    kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
+    scale = cfg.attn_softmax_scale()
+    name = f"K3-int8 mla_decode_attn int8 cache S={S} kv_len={kv} H={H}"
+    emit(name, lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, ckv_scale=cs,
+                                       krope_scale=rs),
+         lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, cs, rs), 1e-4,
+         kv * (R + P + 8) + nbytes(qc, qr) + 4 * H * R, 2.0 * H * kv * (2 * R + P),
+         src + "mla_decode.cu", pallas + "170 (mla_decode_attn, _mla_body :89, "
+         "int8 scales :131-151)", "K3-int8")
+    c16, r16 = bf16(ckv, cs), bf16(kr, rs)
+    float_time(name, lambda: mla_decode_attn(qc, qr, c16, r16, kl, scale))
+
+    # K10: the window's last 256-token chunk, which sees every slot
+    q_pos0 = S - T
+    pairs = sum(min(S, q_pos0 + t + 1) for t in range(T))
+    qc = torch.randn((1, T, H, R), generator=gen, device="cuda") * 0.3
+    qr = torch.randn((1, T, H, P), generator=gen, device="cuda") * 0.3
+    name = f"K10-int8 mla_prefill_attn int8 cache T={T} S={S} H={H} R={R} P={P} " \
+        f"q_pos0={q_pos0}"
+    emit(name, lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, 0, scale,
+                                        ckv_scale=cs, krope_scale=rs),
+         lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, 0, scale, cs, rs),
+         1e-4, nbytes(qc, qr, ckv, kr, cs, rs) + 4 * T * H * R,
+         2.0 * pairs * H * (2 * R + P), src + "prefill_attn.cu",
+         pallas + "644 (mla_prefill_attn, pallas_call :707, int8 scales :613)",
+         "K10-int8")
+    float_time(name, lambda: mla_prefill_attn(qc, qr, c16, r16, q_pos0, 0, scale))
+    del qc, qr, ckv, kr, c16, r16
+
+    # K8 and K9 at DeepSeek-V2-Lite's widths; the scales are the head-major
+    # views of the cache's (B,S,H) layout, as the model passes them
+    H, Dh, Dv = 16, 192, 128
+    scale = 1.0 / math.sqrt(Dh)
+    (k, ks), (v, vs) = int8_rows(gen, (1, S, H, Dh)), int8_rows(gen, (1, S, H, Dv))
+    ksh, vsh = ks.transpose(1, 2), vs.transpose(1, 2)
+    k16, v16 = bf16(k, ks), bf16(v, vs)
+    q = torch.randn((1, H, Dh), generator=gen, device="cuda")
+    name = f"K8-int8 mha_decode_attn int8 cache S={S} kv_len={kv} H={H} Dh={Dh} Dv={Dv}"
+    emit(name, lambda: mha_decode_attn(q, k, v, kl, scale, k_scale=ksh, v_scale=vsh),
+         lambda: mha_decode_attn_plain(q, k, v, kl, scale, ksh, vsh), 1e-4,
+         kv * H * (Dh + Dv + 8) + nbytes(q) + 4 * H * Dv, 2.0 * H * kv * (Dh + Dv),
+         src + "mha_decode.cu", pallas + "320 (mha_decode_attn, _mha_body :245, "
+         "pallas_call :370, int8 scales :286-299)", "K8-int8")
+    float_time(name, lambda: mha_decode_attn(q, k16, v16, kl, scale))
+    q = torch.randn((1, T, H, Dh), generator=gen, device="cuda") * 0.3
+    name = f"K9-int8 mha_prefill_attn int8 cache T={T} S={S} H={H} Dh={Dh} Dv={Dv} " \
+        f"q_pos0={q_pos0}"
+    emit(name, lambda: mha_prefill_attn(q, k, v, q_pos0, 0, scale, k_scale=ksh,
+                                        v_scale=vsh),
+         lambda: mha_prefill_attn_plain(q, k, v, q_pos0, 0, scale, ksh, vsh), 1e-4,
+         nbytes(q, k, v, ks, vs) + 4 * T * H * Dv, 2.0 * pairs * H * (Dh + Dv),
+         src + "prefill_attn.cu", pallas + "481 (mha_prefill_attn, pallas_call "
+         ":543, int8 scales :449-458)", "K9-int8")
+    float_time(name, lambda: mha_prefill_attn(q, k16, v16, q_pos0, 0, scale))
 
 
 def prefill_kernel_entries(params, cfg, gen, emit):
@@ -1568,8 +1740,6 @@ def prefill_phase(params, cfg, counts, label="Q3_K nibble",
     256), then decodes 16 greedy tokens: once with the factor weights
     (decompressed prefill, K9) and once without (absorbed prefill, K10).
     One path run for the launch counts."""
-    import dataclasses
-
     from deepseek_tpu_torch.engine import hydrate_cache
     from deepseek_tpu_torch.models.deepseek import forward_decode
     from deepseek_tpu_torch.models.kvcache import init_cache
@@ -1635,8 +1805,8 @@ def v2_lite_phase(counts):
     """Random F16 DeepSeek-V2-Lite at full width and depth (decompressed
     MHA, ~31.4 GB) hydrates a 512-token prompt through hydrate_cache (two
     chunks of 256: K9, K11) and decodes greedily (K8, K4, K2's plain body).
-    Returns (launches, params, cfg): the window-edge phase reuses the
-    first layers."""
+    Returns (launches, params, cfg, (prefill, decode) tok/s): the int8
+    cache run and the window-edge phases reuse the model."""
     from deepseek_tpu_torch.models.testing import (
         deepseek_v2_lite_proportions, random_plain_params)
 
@@ -1647,9 +1817,9 @@ def v2_lite_phase(counts):
     log(f"V2-Lite: random F16 model, {cfg.n_layers} layers, "
         f"{weight_bytes(params) / 1e9:.2f} GB of weights, built on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    launched = v2_lite_run("V2-Lite", params, cfg, counts, ("K9", "K11"),
-                           ("K2f", "K4", "K8"))
-    return launched, params, cfg
+    launched, rates = v2_lite_run("V2-Lite", params, cfg, counts, ("K9", "K11"),
+                                  ("K2f", "K4", "K8"))
+    return launched, params, cfg, rates
 
 
 def v2_lite_fp8_phase(counts):
@@ -1672,8 +1842,8 @@ def v2_lite_fp8_phase(counts):
     log(f"V2-Lite fp8: random F8E5M2 model (128x128 blocks), {cfg.n_layers} "
         f"layers, {weight_bytes(params) / 1e9:.2f} GB of weights and scales, "
         f"built on the card in {time.perf_counter() - t0:.1f} s")
-    launched = v2_lite_run("V2-Lite fp8", params, cfg, counts,
-                           ("K5r", "K6-fp8", "K9"), ("K5", "K2-fp8", "K8"))
+    launched, _ = v2_lite_run("V2-Lite fp8", params, cfg, counts,
+                              ("K5r", "K6-fp8", "K9"), ("K5", "K2-fp8", "K8"))
     return launched, params, cfg
 
 
@@ -1763,27 +1933,28 @@ def v2_lite_run(label, params, cfg, counts, prefill_kernels, decode_kernels):
     for k in prefill_kernels:
         if pre[k] == 0:
             raise RuntimeError(f"{label} prefill never launched {k}")
-    return launched
+    return launched, (PREFILL_TOKENS / sum(walls), tps)
 
 
-def cpu_cut_phase(label, params, cfg, counts, n_prompt, expect):
+def cpu_cut_phase(label, params, cfg, counts, n_prompt, expect,
+                  kv_cache_dtype="float16"):
     """The first 2 layers of a V2-Lite model hydrate an ``n_prompt``-token
     prompt in chunks of 256 and then decode 8 greedy steps; the same run
     on the CPU (plain versions) is the reference: the logits after the
     prompt and after each step within 1e-3 of their scale, the greedy
     tokens its argmax (or a near-tie within that tolerance). Compute in
-    f32, cache in f16: the Engine's defaults for a converted checkpoint.
-    With a 4096-token prompt the decode steps run past the window's edge:
-    the sinks' rope parts re-rotate and K8 attends over all 4096 slots."""
-    import dataclasses
-
+    f32, cache in ``kv_cache_dtype`` (f16: the Engine's default for a
+    converted checkpoint). With a 4096-token prompt the decode steps run
+    past the window's edge: the sinks' rope parts re-rotate (an int8 cache:
+    the sink keys from their float masters, quantized fresh) and K8 attends
+    over all 4096 slots."""
     from deepseek_tpu_torch.engine import hydrate_cache
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.deepseek import forward_decode
     from deepseek_tpu_torch.quant.qtensor import PlainTensor
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32",
-                               kv_cache_dtype="float16")
+                               kv_cache_dtype=kv_cache_dtype)
     gpu = dataclasses.replace(params, layers=params.layers[:2])
 
     def to_cpu(t):
@@ -1821,8 +1992,8 @@ def cpu_cut_phase(label, params, cfg, counts, n_prompt, expect):
     _, want = run(cpu, "cpu", forced=toks)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    log(f"{label}: 2 V2-Lite layers, {n_prompt}-token prompt in {-(-n_prompt // 256)} "
-        f"chunks, then {CUT_DECODE} greedy steps (to position "
+    log(f"{label}: 2 V2-Lite layers, {kv_cache_dtype} cache, {n_prompt}-token prompt "
+        f"in {-(-n_prompt // 256)} chunks, then {CUT_DECODE} greedy steps (to position "
         f"{n_prompt + CUT_DECODE - 1}, a {cfg2.kv_window}-slot window): logits vs "
         f"CPU plain max abs err {err:.3e} (tolerance {1e-3 * scale:.3e}); tokens {toks}")
     if not (torch.isfinite(got).all() and err <= 1e-3 * scale):
@@ -1854,7 +2025,10 @@ def counters():
             "K5r-packed": qmm_packed_rows, "K2-packed": qmm_experts_packed,
             "K6-packed": qmm_grouped_packed, "K5-turbo": qmm_turbo,
             "K5r-turbo": qmm_turbo_rows, "K2-turbo": qmm_experts_turbo,
-            "K6-turbo": qmm_grouped_turbo}
+            "K6-turbo": qmm_grouped_turbo,
+            # the int8-cache bodies count apart from the float ones
+            "K3-int8": mla_decode_attn.int8, "K8-int8": mha_decode_attn.int8,
+            "K9-int8": mha_prefill_attn.int8, "K10-int8": mla_prefill_attn.int8}
 
 
 def reset(counts):
@@ -1896,7 +2070,10 @@ def main() -> int:
                                                                 sampled=True),
             "packed Q2_K entry point": kquant_entry_point_phase(counts, "q2_k"),
             "turbo Q3_K entry point": kquant_entry_point_phase(counts, "q3_k", "turbo"),
-            "turbo Q2_K entry point": kquant_entry_point_phase(counts, "q2_k", "turbo")}
+            "turbo Q2_K entry point": kquant_entry_point_phase(counts, "q2_k", "turbo"),
+            "packed Q3_K entry point, int8 cache": kquant_entry_point_phase(
+                counts, "q3_k", sampled=True, kv="int8"),
+            "MHA entry point, int8 cache": mha_entry_point_phase(counts, kv="int8")}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -1932,6 +2109,7 @@ def main() -> int:
                                          "K3", "K6-packed", "K9", "K10"))
         if quant == "q3_k":
             decode_block_phase(params, cfg, label)
+            int8_cache_phase(params, cfg, counts, label, runs)
         log(f"kernels, {label} (each against its plain version on the card):")
         packed_kernel_entries(params, cfg, quant, entries, dec, pre)
         del params
@@ -1960,10 +2138,19 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
-    runs["V2-Lite"], v2_params, v2_cfg = v2_lite_phase(counts)
+    runs["V2-Lite"], v2_params, v2_cfg, rates = v2_lite_phase(counts)
+    runs["V2-Lite int8"], rates8 = v2_lite_run(
+        "V2-Lite int8 cache", v2_params, dataclasses.replace(v2_cfg, kv_cache_dtype="int8"),
+        counts, ("K9-int8", "K11"), ("K2f", "K4", "K8-int8"))
+    log(f"V2-Lite, one call: prefill {rates[0]:.1f} tok/s with the {v2_cfg.kv_cache_dtype} "
+        f"cache, {rates8[0]:.1f} with the int8 cache; decode {rates[1]:.2f} / "
+        f"{rates8[1]:.2f} tok/s")
     runs["window edge"] = cpu_cut_phase(
         "window edge", v2_params, v2_cfg, counts, v2_cfg.kv_window,
         ("K8", "K9", "K11", "K4", "K2f"))
+    runs["window edge int8"] = cpu_cut_phase(
+        "window edge, int8 cache", v2_params, v2_cfg, counts, v2_cfg.kv_window,
+        ("K8-int8", "K9-int8", "K11", "K4", "K2f"), kv_cache_dtype="int8")
     del v2_params
     torch.cuda.empty_cache()
     runs["V2-Lite fp8"], v2_params, v2_cfg = v2_lite_fp8_phase(counts)
@@ -1978,7 +2165,10 @@ def main() -> int:
                "K10": "full-width prefill", "K2f": "bf16 entry point",
                "K11": "bf16 entry point", "K4": "V2-Lite", "K8": "V2-Lite",
                "K5": "V2-Lite fp8", "K5r": "V2-Lite fp8",
-               "K2-fp8": "V2-Lite fp8", "K6-fp8": "V2-Lite fp8"}
+               "K2-fp8": "V2-Lite fp8", "K6-fp8": "V2-Lite fp8",
+               "K3-int8": "full-width packed Q3_K int8 decode",
+               "K10-int8": "full-width packed Q3_K int8 prefill",
+               "K8-int8": "V2-Lite int8", "K9-int8": "V2-Lite int8"}
     for e in entries:
         kernel, path = e.pop("kernel"), e.pop("path")
         e["launches"] = runs[path or path_of[kernel]][kernel]

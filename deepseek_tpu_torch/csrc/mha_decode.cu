@@ -31,11 +31,22 @@
 //    keeps several slots' loads in flight.
 // Slots at or past kv_len are never read (addresses clamp to the last live
 // slot, their weights are 0).
+//
+// int8 cache (kv_cache_dtype="int8"): a 16-byte vector holds 16 values,
+// and every (slot, head) key and value row has an f32 scale (amax/127),
+// read from the head-major (B,H,S) scale views through their strides (the
+// cache keeps them (B,S,H); the transposed view costs no copy). As on the
+// TPU the scales fold into the scores and the weights:
+//   s_t = scale * (q . k8[t]) * ks[t],   acc += (p_t * vs[t]) * v8[t],
+// with l summing the unscaled p_t. The cache bytes are half the f16
+// cache's, plus 8 bytes a (slot, head).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -68,6 +79,16 @@ __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& v, float* out)
 }
 
 template <>
+__device__ __forceinline__ void widen<int8_t>(const uint4& v, float* out) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = static_cast<float>(static_cast<int8_t>((u[i] >> (8 * j)) & 0xFFu));
+}
+
+template <>
 __device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
   const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -94,11 +115,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int VJ>
 __global__ void __launch_bounds__(kThreads)
 mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ kv_len,
+                 const T* __restrict__ v, const float* __restrict__ ks,
+                 const float* __restrict__ vs,
+                 const int32_t* __restrict__ kv_len,
                  float* __restrict__ acc_out, float* __restrict__ m_out,
                  float* __restrict__ l_out, int H, int S, int Dh, int Dv,
-                 int chunk, int nsplit, float scale) {
+                 int chunk, int nsplit, float scale, int sb, int sh, int ss) {
   constexpr int VE = 16 / sizeof(T);          // cache elements per vector
+  constexpr bool kQ = std::is_same<T, int8_t>::value;   // int8 rows + scales
   constexpr int kVU = 8 / VJ;                 // value slots loaded at once
   __shared__ __align__(16) float qs[kHG * kMaxD];   // [kHG][Dh]
   __shared__ float ps[kTS][kHG + 1];                // scores, then weights
@@ -132,6 +156,8 @@ mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)b * S * kslot + (size_t)h_base * Dh;
   const T* vb = v + (size_t)b * S * vslot + (size_t)h_base * Dv;
   const int nvk = Dh / VE, nvv = Dv / VE;
+  // int8: the scale of (slot t, block head h) is sc_b[h * sh + t * ss]
+  const size_t sc_b = (size_t)b * sb + (size_t)h_base * sh;
 
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // heads warp, warp+8
   float acc[VJ][VE];
@@ -181,7 +207,13 @@ mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
       }
       if (gl == 0) {
 #pragma unroll
-        for (int i = 0; i < kSlotsPerGroup; ++i) ps[gw + 4 * i][h] = sc[i];
+        for (int i = 0; i < kSlotsPerGroup; ++i) {
+          if constexpr (kQ) {
+            const int pos = min(t0 + gw + 4 * i, end - 1);
+            sc[i] *= ks[sc_b + (size_t)hc * sh + (size_t)pos * ss];
+          }
+          ps[gw + 4 * i][h] = sc[i];
+        }
       }
     }
     __syncthreads();
@@ -240,7 +272,10 @@ mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < VJ; ++j) {
           const int idx = tid + j * kThreads;
           if (idx >= kHG * nvv) continue;
-          const float p = ps[t + u][idx / nvv];
+          float p = ps[t + u][idx / nvv];
+          if constexpr (kQ)
+            p *= vs[sc_b + (size_t)min(idx / nvv, nh - 1) * sh +
+                    (size_t)(t0 + t + u) * ss];
           float w[VE];
           widen<T>(raw[u][j], w);
 #pragma unroll
@@ -328,16 +363,22 @@ mha_merge_kernel(const float* __restrict__ acc_in, const float* __restrict__ m_i
   }
 }
 
+struct Scales {
+  const float* k;   // (B,H,S) f32 views of int8 caches, null otherwise
+  const float* v;
+  int sb, sh, ss;   // their element strides (the same for both)
+};
+
 template <typename T, int VJ>
 cudaError_t launch(const float* q, const void* k, const void* v,
-                   const int32_t* kv_len, float* out, float* acc, float* m,
-                   float* l, int B, int H, int S, int Dh, int Dv, int nsplit,
-                   float scale, cudaStream_t stream) {
+                   const Scales& sc, const int32_t* kv_len, float* out,
+                   float* acc, float* m, float* l, int B, int H, int S, int Dh,
+                   int Dv, int nsplit, float scale, cudaStream_t stream) {
   const int chunk = ((S + nsplit - 1) / nsplit + kTS - 1) / kTS * kTS;
   dim3 grid((H + kHG - 1) / kHG, nsplit, B);
   mha_split_kernel<T, VJ><<<grid, kThreads, 0, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), kv_len, acc, m,
-      l, H, S, Dh, Dv, chunk, nsplit, scale);
+      q, static_cast<const T*>(k), static_cast<const T*>(v), sc.k, sc.v, kv_len,
+      acc, m, l, H, S, Dh, Dv, chunk, nsplit, scale, sc.sb, sc.sh, sc.ss);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mha_merge_kernel<<<B * H, kMergeThreads, 0, stream>>>(acc, m, l, out, Dv, nsplit);
@@ -346,38 +387,47 @@ cudaError_t launch(const float* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch(const float* q, const void* k, const void* v,
-                     const int32_t* kv_len, float* out, float* acc, float* m,
-                     float* l, int B, int H, int S, int Dh, int Dv, int nsplit,
-                     float scale, cudaStream_t stream) {
+                     const Scales& sc, const int32_t* kv_len, float* out,
+                     float* acc, float* m, float* l, int B, int H, int S,
+                     int Dh, int Dv, int nsplit, float scale,
+                     cudaStream_t stream) {
   constexpr int VE = 16 / sizeof(T);
   if (Dh % VE || Dv % VE) return cudaErrorInvalidValue;
   const int vecs = kHG * (Dv / VE);
   if (vecs <= kThreads)
-    return launch<T, 1>(q, k, v, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
+    return launch<T, 1>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
                         nsplit, scale, stream);
   if (vecs <= 2 * kThreads)
-    return launch<T, 2>(q, k, v, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
+    return launch<T, 2>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
                         nsplit, scale, stream);
-  return launch<T, 4>(q, k, v, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
+  return launch<T, 4>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
                       nsplit, scale, stream);
 }
 
 }  // namespace
 
 // q (B,H,Dh) f32, k (B,S,H,Dh) and v (B,S,H,Dv) of dtype 0 = f32, 1 = f16,
-// 2 = bf16 (contiguous, 16-byte aligned), kv_len (B,) int32 -> out (B,H,Dv)
-// f32. acc (B,H,nsplit,Dv), m and l (B,H,nsplit) f32 are scratch the
-// caller allocates. Needs Dh, Dv <= 256, each a whole number of 16-byte
-// vectors, and at most 256 splits (checked here).
+// 2 = bf16, 3 = int8 (contiguous, 16-byte aligned), kv_len (B,) int32 ->
+// out (B,H,Dv) f32. For int8, k_scale and v_scale are (B,H,S) f32 views
+// with element strides (sb, sh, ss); ignored otherwise. acc
+// (B,H,nsplit,Dv), m and l (B,H,nsplit) f32 are scratch the caller
+// allocates. Needs Dh, Dv <= 256, each a whole number of 16-byte vectors,
+// and at most 256 splits (checked here).
 // Returns a cudaError_t; both launches are asynchronous on `stream`.
 extern "C" int mha_decode(const void* q, const void* k, const void* v,
+                          const void* k_scale, const void* v_scale,
                           const void* kv_len, void* out, void* acc, void* m,
                           void* l, int B, int H, int S, int Dh, int Dv,
-                          int dtype, int nsplit, float scale, void* stream) {
+                          int dtype, int nsplit, float scale, int sb, int sh,
+                          int ss, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || S <= 0 || Dh <= 0 || Dh > kMaxD ||
       Dv <= 0 || Dv > kMaxD || nsplit <= 0 || nsplit > kMaxSplits ||
-      nsplit > 65535)
+      nsplit > 65535 ||
+      (dtype == 3 && (k_scale == nullptr || v_scale == nullptr || sb < 0 ||
+                      sh < 0 || ss < 0)))
     return (int)cudaErrorInvalidValue;
+  const Scales sc{static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale), sb, sh, ss};
   auto qq = static_cast<const float*>(q);
   auto kl = static_cast<const int32_t*>(kv_len);
   auto o = static_cast<float*>(out);
@@ -387,14 +437,17 @@ extern "C" int mha_decode(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch<float>(qq, k, v, kl, o, ac, mm, ll, B, H, S, Dh, Dv,
-                                  nsplit, scale, st);
+      return (int)dispatch<float>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S, Dh,
+                                  Dv, nsplit, scale, st);
     case 1:
-      return (int)dispatch<__half>(qq, k, v, kl, o, ac, mm, ll, B, H, S, Dh,
-                                   Dv, nsplit, scale, st);
+      return (int)dispatch<__half>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S,
+                                   Dh, Dv, nsplit, scale, st);
     case 2:
-      return (int)dispatch<__nv_bfloat16>(qq, k, v, kl, o, ac, mm, ll, B, H, S,
-                                          Dh, Dv, nsplit, scale, st);
+      return (int)dispatch<__nv_bfloat16>(qq, k, v, sc, kl, o, ac, mm, ll, B,
+                                          H, S, Dh, Dv, nsplit, scale, st);
+    case 3:
+      return (int)dispatch<int8_t>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S,
+                                   Dh, Dv, nsplit, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

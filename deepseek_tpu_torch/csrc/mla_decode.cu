@@ -24,11 +24,22 @@
 // float32 (row stride padded by one word so the per-lane score reads hit
 // distinct banks) and serve all 16 heads of the block (MQA-shaped cache).
 // Slots past kv_len or S are zeroed, never read.
+//
+// int8 cache (kv_cache_dtype="int8"): each cache row comes with an f32
+// scale, ckv_scale[b,t] for its latent part and krope_scale[b,t] for its
+// rope part (amax/127). The TPU folds the scales into the score and
+// probability rows; here each row is widened to f32 times its scale as it
+// is staged into shared memory, so the score and P.V loops are the float
+// kernel's. The same function up to f32 rounding: the staged tile is
+// exactly dequant_rows of the int8 tile, and the bytes read are half the
+// f16 cache's (plus 8 bytes of scales a slot).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +57,7 @@ __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -64,6 +76,7 @@ template <int RJ, typename T>
 __global__ void __launch_bounds__(kThreads)
 mla_split_kernel(const float* __restrict__ qc, const float* __restrict__ qr,
                  const T* __restrict__ ckv, const T* __restrict__ kr,
+                 const float* __restrict__ ckv_s, const float* __restrict__ kr_s,
                  const int32_t* __restrict__ kv_len,
                  float* __restrict__ acc_out, float* __restrict__ m_out,
                  float* __restrict__ l_out, int H, int S, int R, int P,
@@ -124,8 +137,11 @@ mla_split_kernel(const float* __restrict__ qc, const float* __restrict__ qr,
 #pragma unroll
     for (int h = 0; h < kHG; ++h) acc[j][h] = 0.f;
 
+  constexpr bool kQ = std::is_same<T, int8_t>::value;   // int8 rows + scales
   const T* ckv_b = ckv + (size_t)b * S * R;
   const T* kr_b = kr + (size_t)b * S * P;
+  const float* cs_b = kQ ? ckv_s + (size_t)b * S : nullptr;
+  const float* rs_b = kQ ? kr_s + (size_t)b * S : nullptr;
 
   for (int t0 = start; t0 < end; t0 += kTS) {
     __syncthreads();           // previous tile fully consumed (and qs ready)
@@ -139,12 +155,18 @@ mla_split_kernel(const float* __restrict__ qc, const float* __restrict__ qr,
         // is issued unconditionally, the value is masked afterwards
         const int pos = min(t0 + tb + r, end - 1);
         const bool live = t0 + tb + r < end;
+        float sc = 1.f, sr = 1.f;
+        if constexpr (kQ) {
+          sc = cs_b[pos];
+          sr = rs_b[pos];
+        }
 #pragma unroll
         for (int k = 0; k < kCols; ++k) {
           const int i = min(tid + k * kThreads, D - 1);
           const T* src = i < R ? ckv_b + (size_t)pos * R + i
                                : kr_b + (size_t)pos * P + (i - R);
-          const float x = to_f(*src);
+          float x = to_f(*src);
+          if constexpr (kQ) x *= i < R ? sc : sr;
           v[r][k] = live ? x : 0.f;
         }
       }
@@ -291,7 +313,8 @@ __global__ void mla_merge_kernel(const float* __restrict__ acc_in,
 
 template <int RJ, typename T>
 cudaError_t launch(const float* qc, const float* qr, const void* ckv,
-                   const void* kr, const int32_t* kv_len, float* out,
+                   const void* kr, const float* cs, const float* rs,
+                   const int32_t* kv_len, float* out,
                    float* acc, float* m, float* l, int B, int H, int S, int R,
                    int P, int nsplit, float scale, cudaStream_t stream) {
   static bool smem_opt_in = false;
@@ -309,8 +332,8 @@ cudaError_t launch(const float* qc, const float* qr, const void* ckv,
   const int chunk = ((S + nsplit - 1) / nsplit + kTS - 1) / kTS * kTS;
   dim3 grid((H + kHG - 1) / kHG, nsplit, B);
   mla_split_kernel<RJ, T><<<grid, kThreads, smem, stream>>>(
-      qc, qr, static_cast<const T*>(ckv), static_cast<const T*>(kr), kv_len,
-      acc, m, l, H, S, R, P, chunk, nsplit, scale);
+      qc, qr, static_cast<const T*>(ckv), static_cast<const T*>(kr), cs, rs,
+      kv_len, acc, m, l, H, S, R, P, chunk, nsplit, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mla_merge_kernel<<<B * H, 128, 0, stream>>>(acc, m, l, out, R, nsplit);
@@ -319,36 +342,41 @@ cudaError_t launch(const float* qc, const float* qr, const void* ckv,
 
 template <typename T>
 cudaError_t dispatch(const float* qc, const float* qr, const void* ckv,
-                     const void* kr, const int32_t* kv_len, float* out,
-                     float* acc, float* m, float* l, int B, int H, int S,
-                     int R, int P, int nsplit, float scale,
-                     cudaStream_t stream) {
+                     const void* kr, const float* cs, const float* rs,
+                     const int32_t* kv_len, float* out, float* acc, float* m,
+                     float* l, int B, int H, int S, int R, int P, int nsplit,
+                     float scale, cudaStream_t stream) {
   if (R <= kThreads)
-    return launch<1, T>(qc, qr, ckv, kr, kv_len, out, acc, m, l, B, H, S, R,
-                        P, nsplit, scale, stream);
-  return launch<2, T>(qc, qr, ckv, kr, kv_len, out, acc, m, l, B, H, S, R, P,
-                      nsplit, scale, stream);
+    return launch<1, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, acc, m, l, B, H,
+                        S, R, P, nsplit, scale, stream);
+  return launch<2, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, acc, m, l, B, H, S,
+                      R, P, nsplit, scale, stream);
 }
 
 }  // namespace
 
 // q_c (B,H,R) f32, q_rope (B,H,P) f32, ckv (B,S,R) and krope (B,S,P) of
-// dtype 0 = f32, 1 = f16, 2 = bf16, kv_len (B,) int32 -> out (B,H,R) f32.
-// acc (B,H,nsplit,R), m and l (B,H,nsplit) f32 are scratch the caller
-// allocates. Needs R <= 512, R + P <= 768, (R + P) % 4 == 0 and at most
-// 64 splits (checked here).
+// dtype 0 = f32, 1 = f16, 2 = bf16, 3 = int8 (then ckv_scale and
+// krope_scale (B,S) f32, contiguous; ignored otherwise), kv_len (B,) int32
+// -> out (B,H,R) f32. acc (B,H,nsplit,R), m and l (B,H,nsplit) f32 are
+// scratch the caller allocates. Needs R <= 512, R + P <= 768,
+// (R + P) % 4 == 0 and at most 64 splits (checked here).
 // Returns a cudaError_t; both launches are asynchronous on `stream`.
 extern "C" int mla_decode(const void* qc, const void* qr, const void* ckv,
-                          const void* kr, const void* kv_len, void* out,
-                          void* acc, void* m, void* l, int B, int H, int S,
-                          int R, int P, int dtype, int nsplit, float scale,
-                          void* stream) {
+                          const void* kr, const void* ckv_scale,
+                          const void* krope_scale, const void* kv_len,
+                          void* out, void* acc, void* m, void* l, int B, int H,
+                          int S, int R, int P, int dtype, int nsplit,
+                          float scale, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || S <= 0 || R <= 0 || R > 2 * kThreads ||
       P < 0 || (R + P) % 4 != 0 || R + P > kCols * kThreads || nsplit <= 0 ||
-      nsplit > kMaxSplits)
+      nsplit > kMaxSplits ||
+      (dtype == 3 && (ckv_scale == nullptr || krope_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto a = static_cast<const float*>(qc);
   auto b = static_cast<const float*>(qr);
+  auto cs = static_cast<const float*>(ckv_scale);
+  auto rs = static_cast<const float*>(krope_scale);
   auto kl = static_cast<const int32_t*>(kv_len);
   auto o = static_cast<float*>(out);
   auto ac = static_cast<float*>(acc);
@@ -357,14 +385,17 @@ extern "C" int mla_decode(const void* qc, const void* qr, const void* ckv,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch<float>(a, b, ckv, kr, kl, o, ac, mm, ll, B, H, S, R,
-                                  P, nsplit, scale, st);
+      return (int)dispatch<float>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
+                                  H, S, R, P, nsplit, scale, st);
     case 1:
-      return (int)dispatch<__half>(a, b, ckv, kr, kl, o, ac, mm, ll, B, H, S,
-                                   R, P, nsplit, scale, st);
+      return (int)dispatch<__half>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
+                                   H, S, R, P, nsplit, scale, st);
     case 2:
-      return (int)dispatch<__nv_bfloat16>(a, b, ckv, kr, kl, o, ac, mm, ll, B,
-                                          H, S, R, P, nsplit, scale, st);
+      return (int)dispatch<__nv_bfloat16>(a, b, ckv, kr, cs, rs, kl, o, ac, mm,
+                                          ll, B, H, S, R, P, nsplit, scale, st);
+    case 3:
+      return (int)dispatch<int8_t>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
+                                   H, S, R, P, nsplit, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,11 +33,23 @@
 // each cache tile is staged once as float32 (rows padded by 4 words:
 // 16-byte aligned, and 8 consecutive rows' float4 reads fall in distinct
 // banks). Tensor cores (mma/wgmma) are later work (ROADMAP.md).
+//
+// int8 cache (kv_cache_dtype="int8", KT = int8_t in both instances): every
+// stored row comes with an f32 scale (amax/127): K10's latent and rope
+// parts of slot s (ckv_scale, krope_scale (B,S)), K9's key and value rows
+// of (slot s, head h), read from the head-major (B,H,S) views through
+// their strides (the cache keeps them (B,S,H); no copy). The TPU folds
+// them into the score and probability rows; here each row is widened to
+// f32 times its scale as it is staged into shared memory, so the walk is
+// the float kernel's over exactly the dequantized tile (the same function
+// up to f32 rounding). The operations, not the bytes, still bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -52,6 +64,7 @@ __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 
 struct Args {
   const float* q;    // K9: q (B,T,H,DK); K10: q_c (B,T,H,DV)
@@ -62,6 +75,11 @@ struct Args {
   int T, H, S, DK;
   int q_pos0, cache_pos0;
   float scale;
+  // int8 caches: the f32 scales of the k and v rows (K10: ckv and krope),
+  // element (b, h, s) at b * sb + h * sh + s * ss (K10: sh = 0)
+  const float* ks;
+  const float* vs;
+  int sb, sh, ss;
 };
 
 size_t smem_bytes(int DK, int DV, bool mqa) {
@@ -145,6 +163,8 @@ prefill_attn_kernel(Args a) {
 
   const KT* kp = static_cast<const KT*>(a.k);
   const KT* vp = static_cast<const KT*>(a.v);
+  constexpr bool kQ = std::is_same<KT, int8_t>::value;   // int8 rows + scales
+  const size_t sc_b = (size_t)b * a.sb + (size_t)h_fix * a.sh;
   for (int s0 = 0; s0 < s_end; s0 += kTS) {
     __syncthreads();            // previous tile consumed (and qs staged)
     // stage slots s0..s0+15 as f32; slots at or past s_end become zero
@@ -158,6 +178,8 @@ prefill_attn_kernel(Args a) {
                      : to_f(vp[((size_t)b * S + sc) * (DK - DV) + (c - DV)]);
       else
         val = to_f(kp[(((size_t)b * S + sc) * H + h_fix) * DK + c]);
+      if constexpr (kQ)
+        val *= (MQA && c >= DV ? a.vs : a.ks)[sc_b + (size_t)sc * a.ss];
       ks[r * ld + c] = s < s_end ? val : 0.f;
     }
     if (!MQA) {
@@ -165,7 +187,8 @@ prefill_attn_kernel(Args a) {
         const int r = idx / DV, c = idx - r * DV;
         const int s = s0 + r;
         const int sc = min(s, s_end - 1);
-        const float val = to_f(vp[(((size_t)b * S + sc) * H + h_fix) * DV + c]);
+        float val = to_f(vp[(((size_t)b * S + sc) * H + h_fix) * DV + c]);
+        if constexpr (kQ) val *= a.vs[sc_b + (size_t)sc * a.ss];
         vs[r * ldv + c] = s < s_end ? val : 0.f;
       }
     }
@@ -299,6 +322,10 @@ int by_dtype(const Args& a, int DV, int B, int dtype, cudaStream_t stream) {
     case 0: return (int)by_dv<MQA, float>(a, DV, B, stream);
     case 1: return (int)by_dv<MQA, __half>(a, DV, B, stream);
     case 2: return (int)by_dv<MQA, __nv_bfloat16>(a, DV, B, stream);
+    case 3:
+      if (a.ks == nullptr || a.vs == nullptr || a.sb < 0 || a.sh < 0 || a.ss < 0)
+        return (int)cudaErrorInvalidValue;
+      return (int)by_dv<MQA, int8_t>(a, DV, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -311,26 +338,33 @@ bool bad_dims(int B, int T, int H, int S, int DK, int DV) {
 }  // namespace
 
 // K9: q (B,T,H,DK) f32, k (B,S,H,DK) and v (B,S,H,DV) of dtype 0 = f32,
-// 1 = f16, 2 = bf16 -> out (B,T,H,DV) f32. DK % 4 == 0, DV in {128, 512}.
+// 1 = f16, 2 = bf16, 3 = int8 -> out (B,T,H,DV) f32. For int8, k_scale and
+// v_scale are (B,H,S) f32 views with element strides (sb, sh, ss); ignored
+// otherwise. DK % 4 == 0, DV in {128, 512}.
 // Returns a cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int mha_prefill(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
                            void* out, int B, int T, int H, int S, int DK,
                            int DV, int dtype, int q_pos0, int cache_pos0,
-                           float scale, void* stream) {
+                           float scale, int sb, int sh, int ss, void* stream) {
   if (bad_dims(B, T, H, S, DK, DV) ||
       (long long)H * ((T + kRows - 1) / kRows) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q), nullptr, k, v, static_cast<float*>(out),
-         T, H, S, DK, q_pos0, cache_pos0, scale};
+         T, H, S, DK, q_pos0, cache_pos0, scale,
+         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+         sb, sh, ss};
   return by_dtype<false>(a, DV, B, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // K10: q_c (B,T,H,R) and q_rope (B,T,H,P) f32, ckv (B,S,R) and krope
-// (B,S,P) of dtype 0/1/2 -> out (B,T,H,R) f32. R in {128, 512},
+// (B,S,P) of dtype 0/1/2/3 (3 = int8, then ckv_scale and krope_scale (B,S)
+// f32, contiguous) -> out (B,T,H,R) f32. R in {128, 512},
 // (R + P) % 4 == 0. Returns a cudaError_t; asynchronous on `stream`.
 extern "C" int mla_prefill(const void* q_c, const void* q_rope,
-                           const void* ckv, const void* krope, void* out,
-                           int B, int T, int H, int S, int R, int P,
+                           const void* ckv, const void* krope,
+                           const void* ckv_scale, const void* krope_scale,
+                           void* out, int B, int T, int H, int S, int R, int P,
                            int dtype, int q_pos0, int cache_pos0, float scale,
                            void* stream) {
   if (bad_dims(B, T, H, S, R + P, R) || P < 0 ||
@@ -338,6 +372,7 @@ extern "C" int mla_prefill(const void* q_c, const void* q_rope,
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q_c), static_cast<const float*>(q_rope),
          ckv, krope, static_cast<float*>(out), T, H, S, R + P, q_pos0,
-         cache_pos0, scale};
+         cache_pos0, scale, static_cast<const float*>(ckv_scale),
+         static_cast<const float*>(krope_scale), S, 0, 1};
   return by_dtype<true>(a, R, B, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,14 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   kernel (nor has the JAX package): its decode gathers and dequantizes the
   selected experts, its prefill runs every expert once.
 
+- An int8 KV cache (``kv_cache_dtype="int8"``) stores each row quantized
+  with its f32 scale and the sink keys' float masters (models/kvcache.py):
+  every write quantizes, the sinks re-rotate from the master and are
+  quantized fresh each step (in MHA the whole (slot, head) key row, as its
+  scale covers it), and K3, K8, K9 and K10 take the scales. The hybrid
+  prefill dequantizes the window before ``wkv_b`` and attends through the
+  float K9.
+
 - ``make_decode_loop`` runs ``n_steps`` decode steps at a time, sampling
   each token on the device (``ops/sampling.py``) with the JAX package's
   threefry keys; the Engine's default decode block.
@@ -53,7 +61,9 @@ import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
-from deepseek_tpu_torch.models.kvcache import KVCache, ring_positions, write_rows
+from deepseek_tpu_torch.models.kvcache import (
+    KVCache, dequant_rows, ring_positions, write_rows, write_step_int8,
+)
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams, embed_lookup
 from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.gating import moe_gate
@@ -141,17 +151,27 @@ def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     B = xb.shape[0]
     H, nope, Dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     q, k, v = _mha_inputs(lp, cfg, xb, pos[:, None])
-    bidx = torch.arange(B, device=xb.device)
     k_l, v_l = cache.k[layer], cache.v[layer]                 # (B,S,H,.)
-    k_l[bidx, kv_pos] = k[:, 0].to(k_l.dtype)
-    v_l[bidx, kv_pos] = v[:, 0].to(v_l.dtype)
-    # the sink re-rotation by +1 touches only the rope part of each key
-    sink = k_l[:, :KV_SINKS, :, nope:]
-    rot = apply_rope(sink.float(), 1, cfg.rope_theta, cfg.has_moegate_bias,
-                     _rotation_only(cfg.yarn_params()))
-    keep = (kv_sink > 0)[:, None, None, None]
-    k_l[:, :KV_SINKS, :, nope:] = torch.where(keep, rot.to(k_l.dtype), sink)
-    out = mha_decode_attn(q[:, 0], k_l, v_l, kv_len, cfg.attn_softmax_scale())
+    rotate = lambda x: apply_rope(x, 1, cfg.rope_theta, cfg.has_moegate_bias,
+                                  _rotation_only(cfg.yarn_params()))
+    if cache.quantized:
+        # the sinks rotate from their float master: only the rope part moves
+        write_step_int8(cache, layer, kv_pos, k[:, 0], v[:, 0], kv_sink,
+                        lambda m: torch.cat([m[..., :nope], rotate(m[..., nope:])], -1))
+        scales = dict(k_scale=cache.k_s[layer].transpose(1, 2),
+                      v_scale=cache.v_s[layer].transpose(1, 2))
+    else:
+        bidx = torch.arange(B, device=xb.device)
+        k_l[bidx, kv_pos] = k[:, 0].to(k_l.dtype)
+        v_l[bidx, kv_pos] = v[:, 0].to(v_l.dtype)
+        # the sink re-rotation by +1 touches only the rope part of each key
+        sink = k_l[:, :KV_SINKS, :, nope:]
+        keep = (kv_sink > 0)[:, None, None, None]
+        k_l[:, :KV_SINKS, :, nope:] = torch.where(
+            keep, rotate(sink.float()).to(k_l.dtype), sink)
+        scales = {}
+    out = mha_decode_attn(q[:, 0], k_l, v_l, kv_len, cfg.attn_softmax_scale(),
+                          **scales)
     return qmatmul(lp.wo, out.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
@@ -166,12 +186,15 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     pos_bt = (pos0 + torch.arange(T, device=xb.device)).expand(B, T)
     q, k, v = _mha_inputs(lp, cfg, xb, pos_bt)
     write_rows(cache, layer, k, v, pos0)
+    scales = {} if not cache.quantized else dict(
+        k_scale=cache.k_s[layer].transpose(1, 2),
+        v_scale=cache.v_s[layer].transpose(1, 2))
     # On the card the port always launches K9 here. The JAX package's
     # _use_flash_prefill (deepseek.py:195-200) would take its einsum at
     # DeepSeek-V2-Lite's T=256, S=4096, H=16 (64 MB of f32 scores, under its
     # 256 MB threshold); K9 never holds the (B,H,T,S) scores in memory.
     out = mha_prefill_attn(q, cache.k[layer], cache.v[layer], pos0, 0,
-                           cfg.attn_softmax_scale())
+                           cfg.attn_softmax_scale(), **scales)
     return qmatmul(lp.wo, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
@@ -207,17 +230,22 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
 
     # cache write at the ring slot, then the sink re-rotation by +1
     # (StreamingLLM; infer.cpp:1103-1110) once the ring has wrapped
-    bidx = torch.arange(B, device=xb.device)
     ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]
-    ckv_l[bidx, kv_pos] = ckv[:, 0].to(ckv_l.dtype)
-    kr_l[bidx, kv_pos] = k_rope[:, 0].to(kr_l.dtype)
-    sink = kr_l[:, :KV_SINKS].float()
-    rot = apply_rope(sink, 1, theta, is_v3, _rotation_only(yarn))
-    keep = (kv_sink > 0)[:, None, None]
-    kr_l[:, :KV_SINKS] = torch.where(keep, rot.to(kr_l.dtype), kr_l[:, :KV_SINKS])
+    rotate = lambda x: apply_rope(x, 1, theta, is_v3, _rotation_only(yarn))
+    if cache.quantized:
+        write_step_int8(cache, layer, kv_pos, ckv[:, 0], k_rope[:, 0], kv_sink, rotate)
+        scales = dict(ckv_scale=cache.ckv_s[layer], krope_scale=cache.krope_s[layer])
+    else:
+        bidx = torch.arange(B, device=xb.device)
+        ckv_l[bidx, kv_pos] = ckv[:, 0].to(ckv_l.dtype)
+        kr_l[bidx, kv_pos] = k_rope[:, 0].to(kr_l.dtype)
+        keep = (kv_sink > 0)[:, None, None]
+        rot = rotate(kr_l[:, :KV_SINKS].float())
+        kr_l[:, :KV_SINKS] = torch.where(keep, rot.to(kr_l.dtype), kr_l[:, :KV_SINKS])
+        scales = {}
 
     lat = mla_decode_attn(q_c[:, 0], q_rope[:, 0], ckv_l, kr_l, kv_len,
-                          cfg.attn_softmax_scale())           # (B, H, R)
+                          cfg.attn_softmax_scale(), **scales)  # (B, H, R)
     v = per_head_up(lp.wv_b, lat)                             # (B, H, Dv)
     return qmatmul(lp.wo, v.reshape(B, 1, H * Dv).to(xb.dtype))
 
@@ -265,6 +293,8 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
 
     write_rows(cache, layer, ckv, k_rope, pos0)
     ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]              # (B,S,.)
+    cs_l, rs_l = ((cache.ckv_s[layer], cache.krope_s[layer]) if cache.quantized
+                  else (None, None))
     # The JAX package launches its flash kernels only above 256 MB of f32
     # scores (_use_flash_prefill, a TPU v5e measurement); on the card the
     # port always launches K9/K10 for prefill, which never hold the
@@ -276,13 +306,16 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                           cfg.has_moegate_bias, cfg.yarn_params())
         q = torch.cat([q[..., :nope], q_pe], dim=-1)
         # the whole window's keys and values, decompressed through wkv_b
-        kv_dec = qmatmul(lp.wkv_b, ckv_l.to(xb.dtype)).reshape(B, S, H, nope + Dv)
+        # (an int8 window dequantized first, as deepseek.py:317-318 does)
+        ckv_d, kr_d = dequant_rows(ckv_l, cs_l), dequant_rows(kr_l, rs_l)
+        kv_dec = qmatmul(lp.wkv_b, ckv_d.to(xb.dtype)).reshape(B, S, H, nope + Dv)
         k_l = torch.cat([kv_dec[..., :nope].float(),
-                         kr_l[:, :, None, :].float().expand(B, S, H, P)], dim=-1)
+                         kr_d[:, :, None, :].float().expand(B, S, H, P)], dim=-1)
         v_out = mha_prefill_attn(q, k_l.to(xb.dtype),
                                  kv_dec[..., nope:].contiguous(), pos0, 0, scale)
         return qmatmul(lp.wo, v_out.reshape(B, T, H * Dv).to(xb.dtype))
-    lat = mla_prefill_attn(q_c, q_rope, ckv_l, kr_l, pos0, 0, scale)  # (B,T,H,R)
+    lat = mla_prefill_attn(q_c, q_rope, ckv_l, kr_l, pos0, 0, scale,
+                           ckv_scale=cs_l, krope_scale=rs_l)        # (B,T,H,R)
     # per-head up-projection of the attended latents, a plain einsum as in
     # the JAX prefill (deepseek.py:489-492)
     wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)

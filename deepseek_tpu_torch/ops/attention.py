@@ -8,6 +8,12 @@ K8, K3 (ops.kernels.attention), K9 and K10 (ops.kernels.prefill_attn). In
 the MLA forms scores live in the shared latent space, MQA-style: one
 (kv_lora_rank + rope) cache row serves every head. Decode masks the valid prefix ``kv_len`` of the ring buffer; prefill
 masks by the position each slot holds.
+
+Over an int8 cache each takes the f32 scales of the stored rows and
+dequantizes the rows before the same einsums (the JAX package's XLA
+route, ``deepseek.py:317-318, 452-460, 565-566, 624-631``), in the layouts
+of the JAX kernels: (B,S) for the latent rows, head-major (B,H,S) for the
+per-head keys and values.
 """
 
 from __future__ import annotations
@@ -16,7 +22,15 @@ import math
 
 import torch
 
+from deepseek_tpu_torch.models.kvcache import dequant_rows
+
 _NEG_INF = -1e30
+
+
+def _heads_dequant(cache: torch.Tensor, scale) -> torch.Tensor:
+    """(B,S,H,D) int8 rows with head-major (B,H,S) scales -> f32, or a
+    float cache as it is."""
+    return dequant_rows(cache, None if scale is None else scale.transpose(1, 2))
 
 
 def _len_mask(kv_len, B: int, S: int, device) -> torch.Tensor:
@@ -27,10 +41,13 @@ def _len_mask(kv_len, B: int, S: int, device) -> torch.Tensor:
 
 
 def decode_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, kv_len, softmax_scale=None) -> torch.Tensor:
+                    v_cache: torch.Tensor, kv_len, softmax_scale=None,
+                    k_scale=None, v_scale=None) -> torch.Tensor:
     """Decompressed-MHA decode: q (B,H,Dh), k_cache (B,S,H,Dh), v_cache
-    (B,S,H,Dv), kv_len int or (B,) -> (B,H,Dv) float32."""
+    (B,S,H,Dv), kv_len int or (B,) -> (B,H,Dv) float32; an int8 cache
+    passes k_scale/v_scale (B,H,S)."""
     B, S = k_cache.shape[0], k_cache.shape[1]
+    k_cache, v_cache = _heads_dequant(k_cache, k_scale), _heads_dequant(v_cache, v_scale)
     scale = softmax_scale if softmax_scale is not None \
         else 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhd,bshd->bhs", q.float(), k_cache.float()) * scale
@@ -40,10 +57,14 @@ def decode_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
-                    kv_len, head_dim: int, softmax_scale=None) -> torch.Tensor:
+                    kv_len, head_dim: int, softmax_scale=None,
+                    ckv_scale=None, krope_scale=None) -> torch.Tensor:
     """q_c (B,H,R), q_rope (B,H,P), ckv_cache (B,S,R), krope_cache (B,S,P),
-    kv_len int or (B,) -> attended latents (B,H,R) float32."""
+    kv_len int or (B,) -> attended latents (B,H,R) float32; an int8 cache
+    passes ckv_scale/krope_scale (B,S)."""
     B, S = ckv_cache.shape[0], ckv_cache.shape[1]
+    ckv_cache = dequant_rows(ckv_cache, ckv_scale)
+    krope_cache = dequant_rows(krope_cache, krope_scale)
     scale = softmax_scale if softmax_scale is not None \
         else 1.0 / math.sqrt(head_dim)
     ckv = ckv_cache.float()
@@ -70,10 +91,13 @@ def _prefill_mask(q_pos: torch.Tensor, cache_pos: torch.Tensor) -> torch.Tensor:
 
 def prefill_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos: torch.Tensor,
-                     cache_pos: torch.Tensor, softmax_scale=None) -> torch.Tensor:
+                     cache_pos: torch.Tensor, softmax_scale=None,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
     """Chunked causal attention: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache
     (B,S,H,Dv), q_pos (T,) query positions, cache_pos (S,) the position
-    each slot holds (-1 = empty) -> (B,T,H,Dv) float32."""
+    each slot holds (-1 = empty) -> (B,T,H,Dv) float32; an int8 cache
+    passes k_scale/v_scale (B,H,S)."""
+    k_cache, v_cache = _heads_dequant(k_cache, k_scale), _heads_dequant(v_cache, v_scale)
     scale = softmax_scale if softmax_scale is not None \
         else 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k_cache.float()) * scale
@@ -84,10 +108,14 @@ def prefill_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
 def prefill_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                      q_pos: torch.Tensor, cache_pos: torch.Tensor,
-                     head_dim: int, softmax_scale=None) -> torch.Tensor:
+                     head_dim: int, softmax_scale=None, ckv_scale=None,
+                     krope_scale=None) -> torch.Tensor:
     """Chunked causal absorbed-MLA attention over the latent cache: q_c
     (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache (B,S,P) ->
-    attended latents (B,T,H,R) float32 (mask as prefill_attn_mha)."""
+    attended latents (B,T,H,R) float32 (mask as prefill_attn_mha); an int8
+    cache passes ckv_scale/krope_scale (B,S)."""
+    ckv_cache = dequant_rows(ckv_cache, ckv_scale)
+    krope_cache = dequant_rows(krope_cache, krope_scale)
     scale = softmax_scale if softmax_scale is not None \
         else 1.0 / math.sqrt(head_dim)
     ckv = ckv_cache.float()

@@ -6,30 +6,64 @@ and launches ``csrc/mla_decode.cu``; ``mha_decode_attn`` replaces
 ``::mha_decode_attn`` (``_mha_body``, K8: decompressed MHA over the
 per-head key/value cache) and launches ``csrc/mha_decode.cu``. Both run a
 split-KV pass writing (acc, m, l) partials, then an exact merge (see the
-source headers for the designs and their bounds). ``.launches`` counts
-calls that launched each. CPU tensors take the plain versions
-(ops.attention.decode_attn_*); CUDA tensors launch the kernel or raise.
+source headers for the designs and their bounds). Over an int8 cache both
+take the f32 scales of the stored rows, in the JAX layouts: (B,S) for the
+latent rows, head-major (B,H,S) for the per-head keys and values, which
+K8 reads through their strides (the cache's (B,S,H) scales transposed, no
+copy). ``.launches`` counts the calls that launched each over a float
+cache, ``.int8.launches`` those over an int8 cache. CPU tensors take the
+plain versions (ops.attention.decode_attn_*); CUDA tensors launch the
+kernel or raise. Seq-parallel ``partials`` (ROADMAP.md queue 1, item 14)
+are not ported and raise.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
 from deepseek_tpu_torch.ops.attention import decode_attn_mha, decode_attn_mla
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
-_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3}
 _TILE = 32          # cache slots per tile in the kernel (kTS)
 _HEADS = 16         # heads per block (kHG)
 _MAX_SPLITS = 64    # kMaxSplits
 
 
+def no_partials(name: str, partials: bool) -> None:
+    if partials:
+        raise NotImplementedError(
+            f"{name}: seq-parallel partials are not ported yet (ROADMAP.md "
+            "queue 1, item 14)")
+
+
+def check_scales(name: str, cache: torch.Tensor, scales, shape) -> None:
+    """An int8 cache needs both f32 scales of ``shape`` on its device; a
+    float cache takes none."""
+    if cache.dtype != torch.int8:
+        if any(s is not None for s in scales):
+            raise ValueError(f"{name}: scales come with an int8 cache, not {cache.dtype}")
+        return
+    for s in scales:
+        if s is None or s.dtype != torch.float32 or tuple(s.shape) != tuple(shape) \
+                or s.device != cache.device:
+            raise ValueError(f"{name}: an int8 cache needs f32 scales of shape "
+                             f"{tuple(shape)} on {cache.device}")
+
+
+def data_ptr_or_0(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache, kv_len,
-                          softmax_scale: float) -> torch.Tensor:
+                          softmax_scale: float, ckv_scale=None,
+                          krope_scale=None) -> torch.Tensor:
     return decode_attn_mla(q_c, q_rope, ckv_cache, krope_cache, kv_len,
-                           head_dim=0, softmax_scale=softmax_scale)
+                           head_dim=0, softmax_scale=softmax_scale,
+                           ckv_scale=ckv_scale, krope_scale=krope_scale)
 
 
 def _n_splits(device, B: int, H: int, S: int) -> int:
@@ -43,12 +77,15 @@ def _n_splits(device, B: int, H: int, S: int) -> int:
 
 def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
-                    kv_len: torch.Tensor, softmax_scale: float) -> torch.Tensor:
-    """q_c (B,H,R), q_rope (B,H,P), ckv_cache (B,S,R), krope_cache (B,S,P)
-    in f32/f16/bf16, kv_len (B,) -> attended latents (B,H,R) float32."""
+                    kv_len: torch.Tensor, softmax_scale: float, ckv_scale=None,
+                    krope_scale=None, partials: bool = False) -> torch.Tensor:
+    """K3: q_c (B,H,R), q_rope (B,H,P), ckv_cache (B,S,R), krope_cache
+    (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32,
+    kv_len (B,) -> attended latents (B,H,R) float32."""
+    no_partials("mla_decode_attn", partials)
     if q_c.device.type == "cpu":
         return mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
-                                     kv_len, softmax_scale)
+                                     kv_len, softmax_scale, ckv_scale, krope_scale)
     if q_c.device.type != "cuda":
         raise ValueError(f"mla_decode_attn runs on cuda or cpu, not {q_c.device}")
     B, H, R = q_c.shape
@@ -59,7 +96,7 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError("mla_decode_attn: inconsistent shapes "
                          f"{tuple(q_c.shape)} {tuple(q_rope.shape)} "
                          f"{tuple(ckv_cache.shape)} {tuple(krope_cache.shape)}")
-    if ckv_cache.dtype != krope_cache.dtype or ckv_cache.dtype not in _DTYPE_CODE:
+    if ckv_cache.dtype != krope_cache.dtype or ckv_cache.dtype not in DTYPE_CODE:
         raise ValueError(f"unsupported cache dtype {ckv_cache.dtype}")
     if R > 512 or R + P > 768 or (R + P) % 4:
         raise ValueError(f"mla_decode_attn needs R <= 512, R+P <= 768 and "
@@ -68,6 +105,10 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     for t in (q_rope, ckv_cache, krope_cache):
         if t.device != dev:
             raise ValueError("mla_decode_attn: operands on different devices")
+    check_scales("mla_decode_attn", ckv_cache, (ckv_scale, krope_scale), (B, S))
+    q8 = ckv_cache.dtype == torch.int8
+    cs = ckv_scale.contiguous() if q8 else None
+    rs = krope_scale.contiguous() if q8 else None
     ckv = ckv_cache.contiguous()
     kr = krope_cache.contiguous()
     qc = q_c.float().contiguous()
@@ -80,25 +121,38 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     m = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     l = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     err = library("mla_decode").mla_decode(
-        qc.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
-        kl.data_ptr(), out.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, S, R, P, _DTYPE_CODE[ckv.dtype], ns,
+        qc.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(), data_ptr_or_0(cs),
+        data_ptr_or_0(rs), kl.data_ptr(), out.data_ptr(), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, H, S, R, P, DTYPE_CODE[ckv.dtype], ns,
         float(softmax_scale), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mla_decode")
-    mla_decode_attn.launches += 1
+    (mla_decode_attn.int8 if q8 else mla_decode_attn).launches += 1
     return out
 
 
 mla_decode_attn.launches = 0
+mla_decode_attn.int8 = SimpleNamespace(launches=0)
 
 
 _MHA_MAX_D = 256          # kMaxD in csrc/mha_decode.cu
 _MHA_MAX_SPLITS = 256     # kMaxSplits
 
 
-def mha_decode_attn_plain(q, k_cache, v_cache, kv_len,
-                          softmax_scale: float) -> torch.Tensor:
-    return decode_attn_mha(q, k_cache, v_cache, kv_len, softmax_scale)
+def mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale: float,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
+    return decode_attn_mha(q, k_cache, v_cache, kv_len, softmax_scale,
+                           k_scale, v_scale)
+
+
+def head_major_strides(name: str, k_scale, v_scale):
+    """(b, h, s) element strides shared by the two (B,H,S) scale views,
+    (0, 0, 0) without scales."""
+    if k_scale is None:
+        return 0, 0, 0
+    if k_scale.stride() != v_scale.stride():
+        raise ValueError(f"{name}: k_scale and v_scale need the same strides, "
+                         f"got {k_scale.stride()} and {v_scale.stride()}")
+    return k_scale.stride()
 
 
 def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
@@ -106,19 +160,13 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                     softmax_scale: float, k_scale=None, v_scale=None,
                     partials: bool = False) -> torch.Tensor:
     """K8: q (B,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
-    f32/f16/bf16, kv_len (B,) -> (B,H,Dv) float32. The int8 scales
-    (ROADMAP.md queue 1, item 10) and seq-parallel ``partials`` (item 14)
-    are not ported and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "mha_decode_attn: int8 cache scales are not ported yet (ROADMAP.md "
-            "queue 1, item 10)")
-    if partials:
-        raise NotImplementedError(
-            "mha_decode_attn: seq-parallel partials are not ported yet "
-            "(ROADMAP.md queue 1, item 14)")
+    f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 (any strides:
+    the cache's (B,S,H) scales transposed), kv_len (B,) -> (B,H,Dv)
+    float32."""
+    no_partials("mha_decode_attn", partials)
     if q.device.type == "cpu":
-        return mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale)
+        return mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale,
+                                     k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"mha_decode_attn runs on cuda or cpu, not {q.device}")
     B, H, Dh = q.shape
@@ -127,7 +175,7 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("mha_decode_attn: inconsistent shapes "
                          f"{tuple(q.shape)} {tuple(k_cache.shape)} {tuple(v_cache.shape)}")
     dt = k_cache.dtype
-    if v_cache.dtype != dt or dt not in _DTYPE_CODE:
+    if v_cache.dtype != dt or dt not in DTYPE_CODE:
         raise ValueError(f"unsupported cache dtypes {dt}, {v_cache.dtype}")
     per_vec = 16 // k_cache.element_size()
     if Dh > _MHA_MAX_D or Dv > _MHA_MAX_D or Dh % per_vec or Dv % per_vec:
@@ -140,6 +188,8 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("mha_decode_attn: the cache must be contiguous "
                              "and 16-byte aligned")
+    check_scales("mha_decode_attn", k_cache, (k_scale, v_scale), (B, H, S))
+    sb, sh, ss = head_major_strides("mha_decode_attn", k_scale, v_scale)
     qf = q.float().contiguous()
     kl = torch.as_tensor(kv_len, device=dev).reshape(-1).expand(B) \
         .to(torch.int32).contiguous()
@@ -153,13 +203,14 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     m = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     l = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     err = library("mha_decode").mha_decode(
-        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kl.data_ptr(),
-        out.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, H, S, Dh, Dv, _DTYPE_CODE[dt], ns, float(softmax_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
+        data_ptr_or_0(v_scale), kl.data_ptr(), out.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, H, S, Dh, Dv, DTYPE_CODE[dt], ns,
+        float(softmax_scale), sb, sh, ss, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mha_decode")
-    mha_decode_attn.launches += 1
+    (mha_decode_attn.int8 if dt == torch.int8 else mha_decode_attn).launches += 1
     return out
 
 
 mha_decode_attn.launches = 0
+mha_decode_attn.int8 = SimpleNamespace(launches=0)

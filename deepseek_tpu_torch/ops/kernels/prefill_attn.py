@@ -7,21 +7,29 @@ prefill over the latent cache). Both launch ``csrc/prefill_attn.cu`` (see
 its header for the design and its bound) and keep the JAX public layouts
 and arguments: query t sits at position ``q_pos0 + t``, cache slot s holds
 position ``cache_pos0 + s``, and t sees s when ``cache_pos0 + s <= q_pos0 +
-t``. Only the float cache without seq-parallel partials is ported: the
-int8 scales (ROADMAP.md queue 1, item 10) and ``partials`` (item 14) raise.
+t``. Over an int8 cache both take the f32 scales of the stored rows in
+the JAX layouts: (B,S) for the latent rows (K10), head-major (B,H,S) for
+the per-head keys and values (K9), read through their strides (the
+cache's (B,S,H) scales transposed, no copy). Seq-parallel ``partials``
+(ROADMAP.md queue 1, item 14) are not ported and raise.
 
 CPU tensors take the plain versions (ops.attention.prefill_attn_*);
-CUDA tensors launch the kernel or raise. ``.launches`` counts launches.
+CUDA tensors launch the kernel or raise. ``.launches`` counts the
+launches over a float cache, ``.int8.launches`` those over an int8 cache.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from deepseek_tpu_torch.ops.attention import prefill_attn_mha, prefill_attn_mla
+from deepseek_tpu_torch.ops.kernels.attention import (
+    DTYPE_CODE, check_scales, data_ptr_or_0, head_major_strides, no_partials,
+)
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
-_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _DV = (128, 512)      # value widths the kernel is built for
 
 
@@ -32,30 +40,23 @@ def _positions(T: int, S: int, q_pos0: int, cache_pos0: int, device):
 
 
 def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0: int, cache_pos0: int,
-                           softmax_scale: float) -> torch.Tensor:
+                           softmax_scale: float, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     q_pos, cache_pos = _positions(q.shape[1], k_cache.shape[1], q_pos0,
                                   cache_pos0, q.device)
     return prefill_attn_mha(q, k_cache, v_cache, q_pos, cache_pos,
-                            softmax_scale=softmax_scale)
+                            softmax_scale=softmax_scale, k_scale=k_scale,
+                            v_scale=v_scale)
 
 
 def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0: int,
-                           cache_pos0: int, softmax_scale: float) -> torch.Tensor:
+                           cache_pos0: int, softmax_scale: float,
+                           ckv_scale=None, krope_scale=None) -> torch.Tensor:
     q_pos, cache_pos = _positions(q_c.shape[1], ckv_cache.shape[1], q_pos0,
                                   cache_pos0, q_c.device)
     return prefill_attn_mla(q_c, q_rope, ckv_cache, krope_cache, q_pos,
-                            cache_pos, head_dim=0, softmax_scale=softmax_scale)
-
-
-def _unported(name, scales, partials):
-    if any(s is not None for s in scales):
-        raise NotImplementedError(
-            f"{name}: int8 cache scales are not ported yet (ROADMAP.md queue "
-            "1, item 10)")
-    if partials:
-        raise NotImplementedError(
-            f"{name}: seq-parallel partials are not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
+                            cache_pos, head_dim=0, softmax_scale=softmax_scale,
+                            ckv_scale=ckv_scale, krope_scale=krope_scale)
 
 
 def _check_operands(name, queries, caches):
@@ -63,7 +64,7 @@ def _check_operands(name, queries, caches):
     for t in (*queries, *caches):
         if t.device != dev:
             raise ValueError(f"{name}: operands on different devices")
-    if caches[0].dtype not in _DTYPE_CODE or \
+    if caches[0].dtype not in DTYPE_CODE or \
             any(c.dtype != caches[0].dtype for c in caches):
         raise ValueError(f"{name}: unsupported cache dtypes "
                          f"{[c.dtype for c in caches]}")
@@ -77,11 +78,12 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
                      softmax_scale: float, k_scale=None, v_scale=None,
                      partials: bool = False) -> torch.Tensor:
     """K9: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
-    f32/f16/bf16 -> (B,T,H,Dv) float32."""
-    _unported("mha_prefill_attn", (k_scale, v_scale), partials)
+    f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 -> (B,T,H,Dv)
+    float32."""
+    no_partials("mha_prefill_attn", partials)
     if q.device.type == "cpu":
         return mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0,
-                                      softmax_scale)
+                                      softmax_scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"mha_prefill_attn runs on cuda or cpu, not {q.device}")
     B, T, H, Dh = q.shape
@@ -93,15 +95,19 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"mha_prefill_attn needs Dv in {_DV} and Dh % 4 == 0, "
                          f"got Dh={Dh} Dv={Dv}")
     _check_operands("mha_prefill_attn", (q,), (k_cache, v_cache))
+    check_scales("mha_prefill_attn", k_cache, (k_scale, v_scale), (B, H, S))
+    sb, sh, ss = head_major_strides("mha_prefill_attn", k_scale, v_scale)
     qf = q.float().contiguous()
     out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
     err = library("prefill_attn").mha_prefill(
-        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, T, H, S, Dh, Dv, _DTYPE_CODE[k_cache.dtype], int(q_pos0),
-        int(cache_pos0), float(softmax_scale),
+        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
+        data_ptr_or_0(v_scale), out.data_ptr(), B, T, H, S, Dh, Dv,
+        DTYPE_CODE[k_cache.dtype], int(q_pos0), int(cache_pos0),
+        float(softmax_scale), sb, sh, ss,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_prefill")
-    mha_prefill_attn.launches += 1
+    q8 = k_cache.dtype == torch.int8
+    (mha_prefill_attn.int8 if q8 else mha_prefill_attn).launches += 1
     return out
 
 
@@ -111,11 +117,13 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                      ckv_scale=None, krope_scale=None,
                      partials: bool = False) -> torch.Tensor:
     """K10: q_c (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache
-    (B,S,P) in f32/f16/bf16 -> attended latents (B,T,H,R) float32."""
-    _unported("mla_prefill_attn", (ckv_scale, krope_scale), partials)
+    (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32
+    -> attended latents (B,T,H,R) float32."""
+    no_partials("mla_prefill_attn", partials)
     if q_c.device.type == "cpu":
         return mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
-                                      q_pos0, cache_pos0, softmax_scale)
+                                      q_pos0, cache_pos0, softmax_scale,
+                                      ckv_scale, krope_scale)
     if q_c.device.type != "cuda":
         raise ValueError(f"mla_prefill_attn runs on cuda or cpu, not {q_c.device}")
     B, T, H, R = q_c.shape
@@ -129,18 +137,24 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"mla_prefill_attn needs R in {_DV} and (R+P) % 4 == 0, "
                          f"got R={R} P={P}")
     _check_operands("mla_prefill_attn", (q_c, q_rope), (ckv_cache, krope_cache))
+    check_scales("mla_prefill_attn", ckv_cache, (ckv_scale, krope_scale), (B, S))
+    q8 = ckv_cache.dtype == torch.int8
+    cs = ckv_scale.contiguous() if q8 else None
+    rs = krope_scale.contiguous() if q8 else None
     qc = q_c.float().contiguous()
     qr = q_rope.float().contiguous()
     out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
     err = library("prefill_attn").mla_prefill(
         qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),
-        krope_cache.data_ptr(), out.data_ptr(), B, T, H, S, R, P,
-        _DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
+        krope_cache.data_ptr(), data_ptr_or_0(cs), data_ptr_or_0(rs), out.data_ptr(), B, T, H, S,
+        R, P, DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
         float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
     check(err, "mla_prefill")
-    mla_prefill_attn.launches += 1
+    (mla_prefill_attn.int8 if q8 else mla_prefill_attn).launches += 1
     return out
 
 
 mha_prefill_attn.launches = 0
 mla_prefill_attn.launches = 0
+mha_prefill_attn.int8 = SimpleNamespace(launches=0)
+mla_prefill_attn.int8 = SimpleNamespace(launches=0)

@@ -3,7 +3,7 @@ PyTorch/CUDA port (one GPU).
 
     python scripts/torch_profile_decode.py [--model v3|v3-q3k|v3-q2k|v3-q3kt|v3-q2kt|
                                                     v2-lite|v2-lite-fp8]
-                                           [--layers N]
+                                           [--layers N] [--kv-dtype int8]
                                            [--steps 16] [--chunks 4]
                                            [--trace out.json]
 
@@ -14,7 +14,11 @@ Q2_K planes, ``v3-q3kt`` / ``v3-q2kt`` in the turbo int8 planes;
 ``--model v2-lite`` builds the F16 decompressed-MHA
 DeepSeek-V2-Lite and ``--model v2-lite-fp8`` the same model in F8E5M2
 with 128x128 block scales, all 27 layers unless --layers says otherwise
-(random weights from a seed, models/testing.py). It profiles:
+(random weights from a seed, models/testing.py). ``--kv-dtype int8``
+keeps the KV cache in int8 with f32 row scales (the JAX CLI's
+``--kv-dtype int8``: K3's, K8's, K9's and K10's int8 bodies; the hybrid
+prefill dequantizes the window for the float K9) instead of the model's
+bf16. It profiles:
   short: greedy decode at positions 0.. (kv_len grows from 1; attention is
          negligible);
   block: the Engine's decode block, 32 steps a unit through
@@ -88,12 +92,23 @@ def profile_cell(name, run, n, unit, trace):
 
 
 def filled_cache(cfg):
-    from deepseek_tpu_torch.models.kvcache import init_cache
+    """A cache whose every slot holds a random row (an int8 cache: the
+    quantized rows, their scales and the sink masters)."""
+    from deepseek_tpu_torch.models.kvcache import init_cache, quantize_rows
     cache = init_cache(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
-    for t in (cache.ckv, cache.krope, cache.k, cache.v):
-        if t is not None:
-            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    for f, fs in (("ckv", "ckv_s"), ("krope", "krope_s"), ("k", "k_s"), ("v", "v_s")):
+        t = getattr(cache, f)
+        if t is None:
+            continue
+        x = torch.randn(t.shape, generator=g, device="cuda")
+        if cache.quantized:
+            t[...], getattr(cache, fs)[...] = quantize_rows(x)
+        else:
+            t.copy_(x)
+    for m in (cache.sink_krope, cache.sink_k):
+        if m is not None:
+            m.copy_(torch.randn(m.shape, generator=g, device="cuda"))
     return cache
 
 
@@ -159,6 +174,8 @@ def main() -> int:
                     default="v3")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 4 for v3, 27 for v2-lite)")
+    ap.add_argument("--kv-dtype", choices=("int8",), default=None,
+                    help="KV cache dtype (default: the model's bf16)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--trace", default=None, help="chrome-trace path prefix")
@@ -191,7 +208,9 @@ def main() -> int:
         params = random_fused_params(cfg, quant, seed=0, device="cuda", factors=True)
         variants = (("k9", params), ("k10", dataclasses.replace(params, layers=[
             dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])))
-    print(f"model: {args.model}, {cfg.n_layers} layers")
+    if args.kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
+    print(f"model: {args.model}, {cfg.n_layers} layers, {cfg.kv_cache_dtype} KV cache")
     decode_cell("short", params, cfg, 0, args.steps, args.trace)
     block_cell("block", params, cfg, 2, args.trace)
     decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)

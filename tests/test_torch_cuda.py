@@ -296,10 +296,114 @@ def test_k8_ignores_slots_past_kv_len(dev):
     assert torch.equal(got, want)
 
 
+def _int8_rows(shape, g, dev):
+    """Random int8 rows and their f32 scales (one a row), on ``dev``."""
+    q = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    s = torch.rand(shape[:-1], generator=g) * 0.02 + 0.001
+    return q.to(dev), s.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,R,P,kv_len", [
+    (1, 128, 4096, 512, 64, [4000]),
+    (2, 2, 40, 256, 64, [37, 1]),
+    (1, 20, 301, 512, 64, [301]),
+])
+def test_k3_int8_matches_plain(B, H, S, R, P, kv_len, dev):
+    """K3 over an int8 cache with (B,S) row scales against its plain
+    version (kv_len 37 ends inside a 32-slot tile). Tolerance 1e-4 of the
+    output scale: f32 sums in other orders, fast exp."""
+    g = torch.Generator().manual_seed(S + H)
+    qc, qr = torch.randn((B, H, R), generator=g).to(dev), \
+        torch.randn((B, H, P), generator=g).to(dev)
+    ckv, cs = _int8_rows((B, S, R), g, dev)
+    kr, rs = _int8_rows((B, S, P), g, dev)
+    kl = torch.tensor(kv_len, device=dev)
+    scale = 1.0 / math.sqrt(192)
+    before = (mla_decode_attn.launches, mla_decode_attn.int8.launches)
+    _close(mla_decode_attn(qc, qr, ckv, kr, kl, scale, ckv_scale=cs, krope_scale=rs),
+           mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, cs, rs), 1e-4)
+    assert (mla_decode_attn.launches, mla_decode_attn.int8.launches) == \
+        (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh,Dv,kv_len", [
+    (1, 16, 4096, 192, 128, [4000]),
+    (1, 16, 4096, 192, 128, [68]),
+    (2, 3, 40, 32, 16, [37, 1]),
+    (1, 20, 301, 64, 256, [301]),
+])
+def test_k8_int8_matches_plain(B, H, S, Dh, Dv, kv_len, dev):
+    """K8 over an int8 cache, its (slot, head) scales passed as the
+    head-major (B,H,S) view of the cache's (B,S,H) layout, against its
+    plain version (kv_len 68 and 37 end inside a tile, 20 heads leave a
+    ragged head group). Tolerance 1e-4 of the output scale."""
+    g = torch.Generator().manual_seed(S + H + 1)
+    q = torch.randn((B, H, Dh), generator=g).to(dev)
+    k, ks = _int8_rows((B, S, H, Dh), g, dev)
+    v, vs = _int8_rows((B, S, H, Dv), g, dev)
+    ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    kl = torch.tensor(kv_len, device=dev)
+    scale = 1.0 / math.sqrt(Dh)
+    before = (mha_decode_attn.launches, mha_decode_attn.int8.launches)
+    _close(mha_decode_attn(q, k, v, kl, scale, k_scale=ks, v_scale=vs),
+           mha_decode_attn_plain(q, k, v, kl, scale, ks, vs), 1e-4)
+    assert (mha_decode_attn.launches, mha_decode_attn.int8.launches) == \
+        (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,S,DK,DV,q_pos0,cache_pos0", [
+    (2, 12, 3, 64, 48, 128, 7, 0),
+    (1, 70, 2, 101, 192, 128, 30, 5),
+    (1, 256, 16, 4096, 192, 128, 3840, 0),
+])
+def test_k9_int8_matches_plain(B, T, H, S, DK, DV, q_pos0, cache_pos0, dev):
+    """K9 over an int8 cache with head-major scales (views of the (B,S,H)
+    layout) against its plain version: ragged S and T, q_pos0 > 0, a
+    cache_pos0 offset, and V2-Lite's window end. Tolerance 1e-4 of the
+    output scale."""
+    g = torch.Generator().manual_seed(T + S)
+    q = (torch.randn((B, T, H, DK), generator=g) * 0.3).to(dev)
+    k, ks = _int8_rows((B, S, H, DK), g, dev)
+    v, vs = _int8_rows((B, S, H, DV), g, dev)
+    ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    scale = 1.0 / math.sqrt(DK)
+    before = (mha_prefill_attn.launches, mha_prefill_attn.int8.launches)
+    _close(mha_prefill_attn(q, k, v, q_pos0, cache_pos0, scale, k_scale=ks, v_scale=vs),
+           mha_prefill_attn_plain(q, k, v, q_pos0, cache_pos0, scale, ks, vs), 1e-4)
+    assert (mha_prefill_attn.launches, mha_prefill_attn.int8.launches) == \
+        (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,S,R,P,q_pos0,cache_pos0", [
+    (2, 10, 4, 40, 128, 16, 3, 0),
+    (1, 33, 5, 77, 512, 64, 40, 2),
+])
+def test_k10_int8_matches_plain(B, T, H, S, R, P, q_pos0, cache_pos0, dev):
+    """K10 over an int8 latent cache with (B,S) scales against its plain
+    version; tolerance as K9."""
+    g = torch.Generator().manual_seed(T + S + 1)
+    qc = (torch.randn((B, T, H, R), generator=g) * 0.3).to(dev)
+    qr = (torch.randn((B, T, H, P), generator=g) * 0.3).to(dev)
+    ckv, cs = _int8_rows((B, S, R), g, dev)
+    kr, rs = _int8_rows((B, S, P), g, dev)
+    scale = 1.0 / math.sqrt(192)
+    before = (mla_prefill_attn.launches, mla_prefill_attn.int8.launches)
+    _close(mla_prefill_attn(qc, qr, ckv, kr, q_pos0, cache_pos0, scale,
+                            ckv_scale=cs, krope_scale=rs),
+           mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, cache_pos0, scale, cs, rs),
+           1e-4)
+    assert (mla_prefill_attn.launches, mla_prefill_attn.int8.launches) == \
+        (before[0], before[1] + 1)
+
+
 @pytest.mark.cuda
 def test_new_wrappers_reject_bad_operands(dev):
-    """A CPU/CUDA mix, a non-contiguous plane and the unported int8 scales
-    and partials raise instead of launching."""
+    """A CPU/CUDA mix, a non-contiguous plane, scales that do not fit the
+    cache's dtype and the unported partials raise instead of launching."""
     qt = _nibble(2, 16, 256, "q3_k", seed=0, dev=dev)
     x = torch.ones((2, 128, 256), device=dev)
     te = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -328,8 +432,18 @@ def test_new_wrappers_reject_bad_operands(dev):
         mha_prefill_attn(q, k.cpu(), v, 0, 0, 0.1)
     with pytest.raises(ValueError):
         mha_prefill_attn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 0, 0, 0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mha_prefill_attn(q, k, v, 0, 0, 0.1, k_scale=torch.ones(1), v_scale=torch.ones(1))
+    # the int8 scales are ported: a float cache with scales, or an int8
+    # cache without them, raises; an int8 cache with them gives the plain
+    # version's result
+    ks = torch.rand((1, 2, 8), device=dev) * 0.01
+    with pytest.raises(ValueError):
+        mha_prefill_attn(q, k, v, 0, 0, 0.1, k_scale=ks, v_scale=ks)
+    k8 = torch.randint(-127, 128, (1, 8, 2, 64), device=dev, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (1, 8, 2, 128), device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        mha_prefill_attn(q, k8, v8, 0, 0, 0.1)
+    _close(mha_prefill_attn(q, k8, v8, 0, 0, 0.1, k_scale=ks, v_scale=ks),
+           mha_prefill_attn_plain(q, k8, v8, 0, 0, 0.1, k_scale=ks, v_scale=ks), 1e-4)
     with pytest.raises(NotImplementedError, match="item 14"):
         mha_prefill_attn(q, k, v, 0, 0, 0.1, partials=True)
     qc = torch.ones((1, 4, 2, 128), device=dev)
@@ -341,9 +455,14 @@ def test_new_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         kr_t = torch.ones((1, 64, 8), device=dev, dtype=torch.bfloat16).transpose(1, 2)
         mla_prefill_attn(qc, qr, ckv, kr_t, 0, 0, 0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, ckv_scale=torch.ones(1),
-                         krope_scale=torch.ones(1))
+    cs = torch.rand((1, 8), device=dev) * 0.01
+    with pytest.raises(ValueError):
+        mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, ckv_scale=cs, krope_scale=cs)
+    ckv8 = torch.randint(-127, 128, (1, 8, 128), device=dev, dtype=torch.int8)
+    kr8 = torch.randint(-127, 128, (1, 8, 64), device=dev, dtype=torch.int8)
+    _close(mla_prefill_attn(qc, qr, ckv8, kr8, 0, 0, 0.1, ckv_scale=cs, krope_scale=cs),
+           mla_prefill_attn_plain(qc, qr, ckv8, kr8, 0, 0, 0.1, ckv_scale=cs,
+                                  krope_scale=cs), 1e-4)
     with pytest.raises(NotImplementedError, match="item 14"):
         mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, partials=True)
     wp = PlainTensor(data=torch.ones((128, 256), device=dev, dtype=torch.float16))
@@ -768,12 +887,7 @@ def test_sample_token_cuda_matches_cpu(case, dev):
                        prng.random_bits(key, (4, 1000)))
 
 
-@pytest.mark.cuda
-def test_decode_block_does_not_synchronize(dev):
-    """A decode block of a small random packed Q3_K model runs under
-    torch.cuda.set_sync_debug_mode("error"), which raises on any operation
-    that synchronizes the host with the card, greedy and sampled; reading
-    its tokens afterwards is the one synchronization."""
+def _decode_block_under_sync_debug(dev, kv_cache_dtype):
     from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.testing import (
@@ -783,6 +897,7 @@ def test_decode_block_does_not_synchronize(dev):
         n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
         first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
         moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     params = random_fused_params(cfg, "q3_k", seed=1, device=dev)
     cache = init_cache(cfg, device=dev)
     tok = torch.tensor([[5]], device=dev)
@@ -798,3 +913,19 @@ def test_decode_block_does_not_synchronize(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert toks.shape == (1, 8) and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_decode_block_does_not_synchronize(dev):
+    """A decode block of a small random packed Q3_K model runs under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any operation
+    that synchronizes the host with the card, greedy and sampled; reading
+    its tokens afterwards is the one synchronization."""
+    _decode_block_under_sync_debug(dev, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_int8_decode_block_does_not_synchronize(dev):
+    """The same over an int8 KV cache: quantizing each written row, its
+    scale and the sink masters' updates add no synchronization."""
+    _decode_block_under_sync_debug(dev, "int8")

@@ -136,8 +136,14 @@ def test_greedy_tokens_identical(ckpt):
 def test_engine_rejects_unported_options(ckpt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(ckpt["dir"], device="cpu", scan_layers=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        Engine(ckpt["dir"], device="cpu", kv_cache_dtype="int8").new_cache()
+    # the int8 cache is ported: its greedy tokens are the JAX int8 Engine's
+    eng8 = Engine(ckpt["dir"], context=CONTEXT, device="cpu", seed=0,
+                  kv_cache_dtype="int8", kquant_runtime="nibble")
+    assert eng8.new_cache().quantized
+    jeng8 = JaxEngine(ckpt["dir"], seed=0, context=CONTEXT, decode_block=1,
+                      kv_cache_dtype="int8", kquant_runtime="nibble")
+    assert eng8.generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)[0] == \
+        jeng8.generate(ckpt["prompt"], num_steps=N_NEW, temperature=0.0)[0]
     if not torch.cuda.is_available():      # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             Engine(ckpt["dir"])

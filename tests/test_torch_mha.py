@@ -82,9 +82,17 @@ def test_k8_plain_matches_jax(B, S, kv_len):
 
 
 def test_k8_rejects_unported_operands():
+    """The int8 scales are ported (an int8 cache with (B,H,S) scales gives
+    the dequantized cache's result); seq-parallel partials are not."""
     q, k = torch.zeros((1, 2, 8)), torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mha_decode_attn(q, k, k, torch.tensor([4]), 0.1, k_scale=torch.ones(1))
+    g = torch.Generator().manual_seed(0)
+    k8 = torch.randint(-127, 128, (1, 4, 2, 8), generator=g, dtype=torch.int8)
+    ks = torch.rand((1, 2, 4), generator=g) * 0.01
+    q = torch.randn((1, 2, 8), generator=g)
+    kf = k8.float() * ks.transpose(1, 2)[..., None]
+    torch.testing.assert_close(
+        mha_decode_attn(q, k8, k8, torch.tensor([3]), 0.1, k_scale=ks, v_scale=ks),
+        mha_decode_attn(q, kf, kf, torch.tensor([3]), 0.1), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="item 14"):
         mha_decode_attn(q, k, k, torch.tensor([4]), 0.1, partials=True)
 
@@ -216,8 +224,10 @@ def test_mha_cache_shape_and_bytes(tiny):
     assert (c.batch, c.window, c.device.type) == (2, 16, "cpu")
     assert c.nbytes == 2 * cfg.n_layers * 2 * 16 * cfg.n_heads * (
         cfg.head_dim + cfg.v_head_dim)
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"))
+    # int8: a byte an element, an f32 scale a (slot, head) row of k and v
+    c8 = torch_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"), batch=2)
+    assert c8.quantized and c8.nbytes == 2 * cfg.n_layers * 16 * cfg.n_heads * (
+        cfg.head_dim + cfg.v_head_dim + 2 * 4)
 
 
 # ---------------------------------------------------------------------------
