@@ -25,13 +25,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the packed Q3_K and the F16 MHA checkpoints with kv_cache_dtype="int8"
      (the int8 bodies of K3 and K10, and of K8 and K9), past the window so
      the sinks re-rotate from their float masters, whose greedy tokens and
-     the packed Q3_K run sampled at 0.8 must equal the CPU Engine's. Every
+     the packed Q3_K run sampled at 0.8 must equal the CPU Engine's; then
+     the tiny Q3_K checkpoint with kquant_runtime="nibble" loaded under
+     DSEEK_FUSED_FFN=1 (the script sets it for those loads only; the
+     expert [w1;w3] tables row-permuted), 96-token prefill chunks so one
+     chunk runs K6 and K6's prepermuted body and the next K2 and K2's
+     prepermuted body, then decode through K7, whose greedy tokens must
+     equal the CPU Engine's. Every
      Engine runs its default 32-token decode block (on-device sampling);
   3. full width: the DeepSeek-V3-width 4-layer nibble model (random weights
      from a seed) decodes 64 greedy tokens through the port's forward
      (K1, K2, K3), then hydrates a 512-token prompt in 2 prefill chunks of
      256, with the factor weights (K9) and without (K10), each followed by
      16 greedy decode steps (K1 row-tiled, K6, and K1, K2, K3 again); then
+     the same draw with its expert w13s row-permuted (the fused expert
+     FFN: 64 decode steps through K7, the prefill through K6's prepermuted
+     body, logits against the natural layout, decode tok/s at decode_block
+     32 beside the natural model's, a block under sync debug mode, and K7,
+     with the time of the K2 chain it replaces, and K2's and K6's
+     prepermuted bodies against their plain versions); then
      the same model in packed Q3_K and in packed Q2_K (K5, K2's and K6's
      packed bodies, K5 row-tiled), each followed by its packed kernels at
      its shapes (and K1 on the nibble layout of the same w13), with the
@@ -1272,6 +1284,44 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
         del x
 
 
+def decode_tok_per_s(params, cfg, loop, blocked: bool, temperature: float,
+                     n_tok=64, block=32):
+    """Decode tok/s over ``n_tok`` tokens from a 1-token prompt, from a
+    fresh cache after one warm-up block: ``blocked``, the 32-token blocks of
+    ``loop`` (make_decode_loop: the token sampled on the card and fed back,
+    one transfer a block); else forward_decode, the logits to the host and
+    the host Sampler. Host clock around synchronized work."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.sampler import Sampler
+
+    cache = init_cache(cfg, device="cuda")
+    sampler, key = Sampler(cfg.vocab_size, SEED), prng.PRNGKey(SEED)
+    tok, pos = 1, 0
+
+    def run(n):
+        nonlocal tok, pos, key
+        for _ in range(n // block if blocked else n):
+            t = torch.full((1, 1), tok, dtype=torch.int64, device="cuda")
+            if blocked:
+                key, sub = prng.split(key)
+                toks, _, _ = loop(params, cache, t, pos, sub, temperature, 0.95)
+                got = toks[0].tolist()
+            else:
+                lg = forward_decode(params, cache, t, pos, cfg)[0].float().cpu().numpy()
+                got = [sampler.sample(lg, temperature, 0.95)]
+            pos, tok = pos + len(got), got[-1]
+
+    with torch.inference_mode():
+        run(block)                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n_tok)
+        torch.cuda.synchronize()
+    return n_tok / (time.perf_counter() - t0)
+
+
 def decode_block_phase(params, cfg, label, reps=3):
     """Engine.generate's two decode loops at full width, 64 tokens from a
     1-token prompt at temperature 0 and 0.8 (top_p 0.95): decode_block 1
@@ -1282,46 +1332,18 @@ def decode_block_phase(params, cfg, label, reps=3):
     block; the host clock around synchronized work. Then one 32-token
     block at 0.8 runs under torch.cuda.set_sync_debug_mode("error"), which
     raises on an operation that synchronizes the host with the card."""
-    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
-    from deepseek_tpu_torch.models.kvcache import init_cache
-    from deepseek_tpu_torch.ops import prng
-    from deepseek_tpu_torch.sampler import Sampler
+    from deepseek_tpu_torch.models.deepseek import make_decode_loop
 
     n_tok, block = 64, 32
     loop = make_decode_loop(cfg, block)
-
-    def tok_per_s(blocked: bool, temperature: float):
-        cache = init_cache(cfg, device="cuda")
-        sampler, key = Sampler(cfg.vocab_size, SEED), prng.PRNGKey(SEED)
-        tok, pos = 1, 0
-
-        def run(n):
-            nonlocal tok, pos, key
-            for _ in range(n // block if blocked else n):
-                t = torch.full((1, 1), tok, dtype=torch.int64, device="cuda")
-                if blocked:
-                    key, sub = prng.split(key)
-                    toks, _, _ = loop(params, cache, t, pos, sub, temperature, 0.95)
-                    got = toks[0].tolist()
-                else:
-                    lg = forward_decode(params, cache, t, pos, cfg)[0].float().cpu().numpy()
-                    got = [sampler.sample(lg, temperature, 0.95)]
-                pos, tok = pos + len(got), got[-1]
-
-        run(block)                                   # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(n_tok)
-        torch.cuda.synchronize()
-        return n_tok / (time.perf_counter() - t0)
-
     res = {}
     with torch.inference_mode():
         for temperature in (0.0, 0.8):
             runs = {1: [], 32: []}
             for rep in range(reps):
                 for b in ((1, 32) if rep % 2 == 0 else (32, 1)):
-                    runs[b].append(tok_per_s(b == block, temperature))
+                    runs[b].append(decode_tok_per_s(params, cfg, loop, b == block,
+                                                    temperature, n_tok, block))
             for b, v in runs.items():
                 res[(b, temperature)] = v
                 log(f"decode block ({label}), decode_block {b}, temperature "
@@ -1379,6 +1401,225 @@ def int8_cache_phase(params, cfg, counts, label, runs):
     log(f"full width ({lab}): KV cache {n8 / 1e6:.3f} MB (int8 rows + f32 scales) "
         f"against {n16 / 1e6:.3f} MB in {cfg.kv_cache_dtype}, {cfg.n_layers} layers x "
         f"{cfg.kv_window} slots ({n8 / n16:.3f}x)")
+
+
+# ---------------------------------------------------------------------------
+# the fused expert FFN (DSEEK_FUSED_FFN=1): row-permuted nibble [w1;w3]
+# tables, K7 and the prepermuted bodies of K2 and K6
+# ---------------------------------------------------------------------------
+
+def fused_entry_point_phase(counts):
+    """The tiny Q3_K checkpoint of phase 2 (dim 512, m 256: fusable) through
+    Engine(device="cuda", kquant_runtime="nibble") with DSEEK_FUSED_FFN=1
+    set while the Engines load (the variable is read there, once), against
+    the same Engine on the CPU: 96-token prefill chunks over a 100-token
+    prompt in a 128-slot window put 192 token-expert pairs in the first
+    chunk (K6 on the permuted w13, then K6's prepermuted body on w2) and 64
+    in the second (K2, then K2's prepermuted body); then 40 greedy tokens in
+    32-token decode blocks, one K7 launch a MoE layer a token. The tokens
+    must equal the CPU Engine's."""
+    from deepseek_tpu_torch.engine import Engine
+
+    label = "fused FFN entry point"
+    rng = np.random.default_rng(SEED + 8)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_fused")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_tiny_checkpoint(tmp, rng, "q3_k", max_seq_len=256, window=128)
+    opts = dict(seed=SEED, kquant_runtime="nibble", prefill_chunk=96)
+    os.environ["DSEEK_FUSED_FFN"] = "1"
+    try:
+        eng = Engine(tmp, device="cuda", **opts)
+        ref = Engine(tmp, device="cpu", **opts)
+    finally:
+        del os.environ["DSEEK_FUSED_FFN"]
+    perm = [e.params.layers[1].w13.rowperm for e in (eng, ref)]
+    if perm != [2, 2]:
+        raise RuntimeError(f"{label}: expert w13 rowperm {perm}, expected 2")
+    prompt = [int(v) for v in rng.integers(3, 512, 100)]
+    (out, _), launched = drive(
+        counts, ("K1", "K1r", "K2", "K2-xperm", "K3", "K6", "K6-xperm", "K7", "K10"),
+        label, lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
+    log(f"{label}: Engine(tiny Q3_K .dseek, device='cuda', kquant_runtime='nibble', "
+        f"prefill_chunk=96) with DSEEK_FUSED_FFN=1 at load: expert w13 rowperm 2, "
+        f"{len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
+    compare_hydrate(eng, ref, (prompt + out)[:140], label)
+    check_greedy(ref, prompt, out, label)
+    same_tokens(out, ref.generate(prompt, num_steps=40, temperature=0.0)[0],
+                f"{label}, greedy")
+    return launched
+
+
+def permuted_phase(params, cfg, counts, entries, runs):
+    """The V3-width 4-layer nibble model of phase 3 with its expert w13s
+    row-permuted (loader.rowperm_expert_w13 over the same draw, what
+    fuse_projections does under DSEEK_FUSED_FFN=1): 64 greedy decode steps
+    (K7, one launch a token), the 512-token prefill with and without the
+    factor weights (K6, then K6's prepermuted body on w2s), teacher-forced
+    logits against the natural layout from the same draw, decode tok/s at
+    decode_block 32 beside the natural model's (alternating), one block
+    under set_sync_debug_mode("error"), then the kernel entries."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.loader import rowperm_expert_w13
+
+    t0 = time.perf_counter()
+    perm = rowperm_expert_w13(params, cfg)
+    torch.cuda.synchronize()
+    moe = cfg.n_layers - 1
+    log(f"full width: expert w13s row-permuted on the card in "
+        f"{time.perf_counter() - t0:.1f} s (rowperm {perm.layers[moe].w13s.rowperm}, "
+        f"{nbytes(perm.layers[moe].w13s.p, perm.layers[moe].w13s.a) / 1e9:.3f} GB)")
+    label = "Q3_K nibble, row-permuted"
+    dec, pre = "full-width permuted decode", "full-width permuted prefill"
+    runs[dec], _ = full_width_phase(perm, cfg, counts, label, ("K1", "K3", "K7"))
+    runs[pre], _ = prefill_phase(perm, cfg, counts, label,
+                                 ("K1", "K1r", "K3", "K6", "K6-xperm", "K7", "K9", "K10"))
+
+    # teacher-forced logits, permuted against natural, on the same tokens.
+    # Tolerance 1e-3 of the logit scale, as the entry points': the natural
+    # chain rounds h2 and h to bf16, K7 keeps them f32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    toks = torch.randint(3, cfg.vocab_size, (8,), generator=gen, device="cuda").tolist()
+    caches = [init_cache(cfg, device="cuda") for _ in range(2)]
+    worst, scale = 0.0, 0.0
+    with torch.inference_mode():
+        for pos, t in enumerate(toks):
+            tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
+            a = forward_decode(perm, caches[0], tok, pos, cfg).float()
+            b = forward_decode(params, caches[1], tok, pos, cfg).float()
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"{label}: non-finite logits at position {pos}")
+            worst = max(worst, float((a - b).abs().max()))
+            scale = max(scale, float(b.abs().max()))
+    log(f"{label}: {len(toks)} teacher-forced decode steps vs the natural layout: "
+        f"logits max abs err {worst:.3e} (tolerance {1e-3 * scale:.3e} = 1e-3 of "
+        f"max|logit| {scale:.3f})")
+    if not worst <= 1e-3 * scale:
+        raise RuntimeError(f"{label}: logits disagree with the natural layout")
+    del caches
+
+    loop = make_decode_loop(cfg, 32)
+    rates = {"natural": [], "permuted": []}
+    for rep in range(3):
+        for kind in (("natural", "permuted") if rep % 2 == 0 else ("permuted", "natural")):
+            rates[kind].append(decode_tok_per_s(perm if kind == "permuted" else params,
+                                                cfg, loop, True, 0.0))
+    for kind, v in rates.items():
+        log(f"decode block (Q3_K nibble, {kind} expert w13s), decode_block 32, "
+            f"temperature 0: {[round(x, 2) for x in v]} tok/s over 64 tokens "
+            f"(runs alternating), median {float(np.median(v)):.2f}")
+    sync_debug_block(perm, cfg, label)
+    log("kernels, the fused expert FFN (each against its plain version on the card):")
+    fused_kernel_entries(perm, cfg, entries, dec, pre)
+    del perm
+
+
+def rand_nibble_table(gen, E, rows, cols, quant):
+    """E distinct random nibble experts (E, rows, cols) on the card, in the
+    ranges of rand_nibble."""
+    from deepseek_tpu_torch.quant.qtensor import KNibbleTensor
+    p = torch.randint(0, 256, (E, rows, cols // 2), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    a = (torch.rand((E, rows, cols // 16), generator=gen, device="cuda") * 0.009
+         + 0.001).to(torch.bfloat16)
+    if quant == "q2_k":
+        c = (torch.rand((E, rows, cols // 16), generator=gen, device="cuda") * 0.0045
+             + 0.0005).to(torch.bfloat16)
+        return KNibbleTensor(p=p, a=a, c=c, off=0)
+    return KNibbleTensor(p=p, a=a, c=None, off=4)
+
+
+def fused_kernel_entries(perm, cfg, entries, dec_path, pre_path):
+    """K7 at DeepSeek-V3's widths, Q3_K and Q2_K nibble, over 16 distinct
+    random experts (w13 row-permuted) for one token's 9 pairs (8 routed
+    and the shared slot), beside the time of the K2 chain it replaces on
+    the same tables (K2 on w13, the GLU, K2's prepermuted body on w2, the
+    weighted index_add_, as the pair path runs them); K2's prepermuted body
+    on those w2 rows; K6's prepermuted body on the model's w2s for a
+    256-token routing (2048 pairs). No PyTorch call computes these
+    functions (library_ms null). Tolerance 1e-4 of max|ref|, as K1/K2's."""
+    from deepseek_tpu_torch.config import ActivationType
+    from deepseek_tpu_torch.models.loader import _rowperm_qt
+    from deepseek_tpu_torch.ops.activations import glu_act
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm_expert_ffn, qmm_expert_ffn_plain, qmm_experts, qmm_experts_plain,
+        qmm_grouped, qmm_grouped_plain)
+    from deepseek_tpu_torch.ops.matmul import tile_dispatch
+    from deepseek_tpu_torch.quant.qtensor import perm_x
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    emit_dec, emit_pre = make_emit(entries, dec_path), make_emit(entries, pre_path)
+    emit_k2 = make_emit(entries, "fused FFN entry point")
+    qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
+    m, dim, N, E = cfg.moe_intermediate_size, cfg.dim, cfg.n_active_routed + 1, 16
+    act = ActivationType.SILU
+    for quant in ("q3_k", "q2_k"):
+        Q = quant.upper()
+        w13 = _rowperm_qt(rand_nibble_table(gen, E, 2 * m, dim, quant), 2, undo=False)
+        w2 = rand_nibble_table(gen, E, dim, m, quant)
+        idx = torch.randperm(E, generator=gen, device="cuda")[:N].sort().values
+        wts = torch.rand((N,), generator=gen, device="cuda")
+        wts = torch.cat([wts[:-1] / wts[:-1].sum() * cfg.routed_scaling_factor,
+                         torch.ones(1, device="cuda")])
+        x = torch.randn((1, dim), generator=gen, device="cuda").to(torch.bfloat16)
+        tok = torch.zeros(N, dtype=torch.int64, device="cuda")
+        planes = lambda t: nbytes(t.p[idx], t.a[idx], None if t.c is None else t.c[idx])
+        nb = nbytes(x, idx, wts) + planes(w13) + planes(w2) + 4 * dim
+
+        def chain():
+            h2 = qmm_experts(w13, idx, x.expand(N, dim)).to(x.dtype)
+            h = glu_act(h2[:, :m], h2[:, m:], act)
+            per = qmm_experts(w2, idx, h, x_prepermuted=True)
+            out = torch.zeros((1, dim), dtype=torch.float32, device="cuda")
+            return out.index_add_(0, tok, per * wts[:, None])
+
+        entry = emit_dec(
+            f"K7 qmm_expert_ffn {Q} nibble (MoE, w13 row-permuted) {N} pairs, "
+            f"w13 {2 * m}x{dim}, w2 {dim}x{m}",
+            lambda: qmm_expert_ffn(w13, w2, idx, x, wts, act),
+            lambda: qmm_expert_ffn_plain(w13, w2, idx, x, wts, act), 1e-4, nb,
+            2.0 * N * 3 * m * dim, "deepseek_tpu_torch/csrc/expert_ffn.cu",
+            "deepseek_tpu/ops/pallas/qmm.py:771 (qmm_expert_ffn, pallas_call :930)",
+            "K7")
+        entry["chain_ms"] = time_ms(chain)
+        err = float((chain() - qmm_expert_ffn(w13, w2, idx, x, wts, act)).abs().max())
+        log(f"  {entry['name']}: the K2 chain it replaces (K2 w13, GLU, K2 "
+            f"prepermuted w2, index_add_) {entry['chain_ms']:.4f} ms; chain vs K7 max "
+            f"abs err {err:.3e} (bf16 h in the chain)")
+
+        h = perm_x(torch.randn((N, m), generator=gen, device="cuda")).contiguous()
+        emit_k2(f"K2 qmm_experts {Q} nibble, x prepermuted (w2 MoE) {N}x{dim}x{m}",
+                lambda: qmm_experts(w2, idx, h, x_prepermuted=True),
+                lambda: qmm_experts_plain(w2, idx, h, x_prepermuted=True), 1e-4,
+                nbytes(h) + planes(w2) + 4 * dim * N, 2.0 * N * dim * m, qmm_src,
+                "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _knib_body :206, "
+                "x_prepermuted :602-609)", "K2-xperm")
+        del w13, w2
+
+    # K6's prepermuted body on the model's w2s: a random 256-token routing,
+    # 8 routed experts a token; only the live rows computed, compared, counted
+    w2s = perm.layers[cfg.n_layers - 1].w2s
+    En = cfg.n_routed_experts
+    T = 256
+    routed = torch.rand((T, En), generator=gen, device="cuda") \
+        .topk(cfg.n_active_routed, dim=-1).indices
+    te, tr, _, G = tile_dispatch(routed.reshape(-1), En)
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live, n_exp = int(tr.sum()), int(te[tr > 0].unique().numel())
+    xt = perm_x(torch.randn((G, 128, m), generator=gen, device="cuda")).contiguous()
+    per = w2s.nbytes_active / w2s.shape[0]
+    emit_pre(f"K6 qmm_grouped Q3_K nibble, x prepermuted (w2s MoE) {G} tiles, "
+             f"{n_live} pairs over {n_exp} experts, {dim}x{m}",
+             lambda: qmm_grouped(w2s, te, xt, tr, x_prepermuted=True),
+             lambda: qmm_grouped_plain(w2s, te, xt, tr, x_prepermuted=True), 1e-4,
+             n_live * m * 4 + per * n_exp + n_live * dim * 4, 2.0 * n_live * dim * m,
+             "deepseek_tpu_torch/csrc/qmm_tiles.cu",
+             "deepseek_tpu/ops/pallas/qmm.py:449 (qmm_grouped, _knib_body, pallas_call "
+             ":538; the rp branch of ops/matmul.py:268-285)", "K6-xperm",
+             select=lambda y: y[live])
 
 
 def mha_kernel_entries(gen, emit):
@@ -2015,7 +2256,8 @@ def counters():
         gmm, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
         qmm_experts_packed, qmm_experts_turbo, qmm_fp, qmm_fp8, qmm_fp8_rows,
         qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed, qmm_grouped_turbo,
-        qmm_packed, qmm_packed_rows, qmm_rows, qmm_turbo, qmm_turbo_rows)
+        qmm_packed, qmm_packed_rows, qmm_rows, qmm_turbo, qmm_turbo_rows,
+        qmm_expert_ffn)
     return {"K1": qmm, "K1r": qmm_rows, "K2": qmm_experts, "K2f": qmm_experts_fp,
             "K3": mla_decode_attn, "K4": qmm_fp, "K6": qmm_grouped,
             "K8": mha_decode_attn, "K9": mha_prefill_attn,
@@ -2028,7 +2270,10 @@ def counters():
             "K6-turbo": qmm_grouped_turbo,
             # the int8-cache bodies count apart from the float ones
             "K3-int8": mla_decode_attn.int8, "K8-int8": mha_decode_attn.int8,
-            "K9-int8": mha_prefill_attn.int8, "K10-int8": mla_prefill_attn.int8}
+            "K9-int8": mha_prefill_attn.int8, "K10-int8": mla_prefill_attn.int8,
+            # the fused expert FFN, and the bodies that take h permuted
+            "K7": qmm_expert_ffn, "K2-xperm": qmm_experts.prepermuted,
+            "K6-xperm": qmm_grouped.prepermuted}
 
 
 def reset(counts):
@@ -2050,6 +2295,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if os.environ.pop("DSEEK_FUSED_FFN", None) is not None:
+        log("DSEEK_FUSED_FFN cleared: the fused FFN phase sets it for its own loads")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -2073,7 +2320,8 @@ def main() -> int:
             "turbo Q2_K entry point": kquant_entry_point_phase(counts, "q2_k", "turbo"),
             "packed Q3_K entry point, int8 cache": kquant_entry_point_phase(
                 counts, "q3_k", sampled=True, kv="int8"),
-            "MHA entry point, int8 cache": mha_entry_point_phase(counts, kv="int8")}
+            "MHA entry point, int8 cache": mha_entry_point_phase(counts, kv="int8"),
+            "fused FFN entry point": fused_entry_point_phase(counts)}
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -2088,6 +2336,7 @@ def main() -> int:
     log("kernels (each against its plain version on the card):")
     entries = []
     kernel_phase(params, cfg, entries)
+    permuted_phase(params, cfg, counts, entries, runs)
     del params
     torch.cuda.empty_cache()
 

@@ -20,6 +20,12 @@
 // permuted order (position o*n16 + g holds natural column g*16 + o) and
 // s16 the per-16 sums of the NATURAL activations (quant/qtensor.py).
 //
+// K2's prepermuted body (qmm.py:602-609, x_prepermuted=True): behind a
+// row-permuted w13 table (KNibbleTensor.rowperm) h already arrives in the
+// permuted order, so the block stages it as given and forms each natural
+// group's sum over its permuted positions o*n16 + g (stage_prepermuted);
+// the products are the same.
+//
 // Bound: bytes. A decode matvec does 4 flops per weight byte, far below
 // the card's ~295 flops/byte balance point, so the weight stream is the
 // whole cost. The design keeps the instruction count per weight low enough
@@ -45,65 +51,37 @@
 #include <stdint.h>
 
 #include "fp8.cuh"
+#include "knib.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps per block
 constexpr int kRows = 4;       // output rows per lane subgroup
-constexpr int kPro = 4;        // activation groups staged per thread per pass
 constexpr int kMaxSmem = 232448;
 
-// 0.5 + u/256 for the nibble held in one byte of `nib` (selector picks the
-// byte into bits 16..23 under the 0x3F exponent byte of 0.5f)
-__device__ __forceinline__ float nib_f(uint32_t nib, uint32_t sel) {
-  return __uint_as_float(__byte_perm(nib, 0x3F000000u, sel));
-}
-
-__device__ __forceinline__ void bf16x4(uint2 v, float out[4]) {
-  out[0] = __uint_as_float(v.x << 16);
-  out[1] = __uint_as_float(v.x & 0xFFFF0000u);
-  out[2] = __uint_as_float(v.y << 16);
-  out[3] = __uint_as_float(v.y & 0xFFFF0000u);
-}
-
-// Stage activation row xrow in shared memory: xs (n floats) in the
-// stride-16 permuted order (position o*n16 + g = natural column 16g + o)
-// and s16 (n/16 floats) the sums of its natural 16-column groups.
-__device__ __forceinline__ void stage_permuted(const float* __restrict__ x,
-                                               int xrow, int n, float* xs,
-                                               float* s16) {
+// Stage an activation row that is already in the permuted order: xs a
+// copy of it, s16[g] the sum of natural group g over its 16 permuted
+// positions o*n16 + g. Ends with the block synchronized.
+__device__ __forceinline__ void stage_prepermuted(const float* __restrict__ x,
+                                                  int xrow, int n, float* xs,
+                                                  float* s16) {
   const int n16 = n >> 4;
   const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
-  // kPro groups per thread per pass, all their loads in flight together
-  for (int g0 = threadIdx.x; g0 < n16; g0 += kThreads * kPro) {
-    float4 f[kPro][4];
+  float4* xs4 = reinterpret_cast<float4*>(xs);
+  for (int i = threadIdx.x; i < (n >> 2); i += kThreads) xs4[i] = __ldg(xr + i);
+  __syncthreads();
+  for (int g = threadIdx.x; g < n16; g += kThreads) {
+    float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kPro; ++j) {
-      const int g = min(g0 + j * kThreads, n16 - 1);   // clamped: loads unconditional
-#pragma unroll
-      for (int v = 0; v < 4; ++v) f[j][v] = __ldg(xr + g * 4 + v);
-    }
-#pragma unroll
-    for (int j = 0; j < kPro; ++j) {
-      const int g = g0 + j * kThreads;
-      if (g >= n16) break;
-      float s = 0.f;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        xs[(4 * v + 0) * n16 + g] = f[j][v].x;
-        xs[(4 * v + 1) * n16 + g] = f[j][v].y;
-        xs[(4 * v + 2) * n16 + g] = f[j][v].z;
-        xs[(4 * v + 3) * n16 + g] = f[j][v].w;
-        s += (f[j][v].x + f[j][v].y) + (f[j][v].z + f[j][v].w);
-      }
-      s16[g] = s;
-    }
+    for (int o = 0; o < 16; ++o) s += xs[o * n16 + g];
+    s16[g] = s;
   }
+  __syncthreads();
 }
 
 // LPR: lanes that share one output row (8, 16 or 32); a warp holds
-// 32 / LPR subgroups, each owning kRows rows.
-template <int LPR, bool HAS_C>
+// 32 / LPR subgroups, each owning kRows rows. XP: x is already permuted.
+template <int LPR, bool HAS_C, bool XP>
 __global__ void __launch_bounds__(kThreads)
 knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
                    const uint16_t* __restrict__ a,
@@ -115,8 +93,12 @@ knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
   const int n16 = n >> 4;
   float* s16 = xs + n;                          // n16 group sums
   const int xrow = blockIdx.y;
-  stage_permuted(x, xrow, n, xs, s16);
-  __syncthreads();
+  if constexpr (XP) {
+    stage_prepermuted(x, xrow, n, xs, s16);
+  } else {
+    stage_permuted<kThreads>(x, xrow, n, xs, s16);
+    __syncthreads();
+  }
 
   const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
   const size_t half = (size_t)(n >> 1);
@@ -162,40 +144,7 @@ knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
     uint32_t wn[kRows][8];
     uint2 avn[kRows], cvn[kRows];
     if (q + LPR < nq) load(q + LPR, wn, avn, cvn);
-    const int g0 = q << 2;
-    float4 xl[8], xh[8];
-#pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      xl[o] = *reinterpret_cast<const float4*>(xs + o * n16 + g0);
-      xh[o] = *reinterpret_cast<const float4*>(xs + (o + 8) * n16 + g0);
-    }
-    const float4 s4 = *reinterpret_cast<const float4*>(s16 + g0);
-    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const uint32_t lo = w[rr][o] & 0x0F0F0F0Fu;
-        const uint32_t hi = (w[rr][o] >> 4) & 0x0F0F0F0Fu;
-        t0 = fmaf(xl[o].x, nib_f(lo, 0x7054u), t0);
-        t0 = fmaf(xh[o].x, nib_f(hi, 0x7054u), t0);
-        t1 = fmaf(xl[o].y, nib_f(lo, 0x7154u), t1);
-        t1 = fmaf(xh[o].y, nib_f(hi, 0x7154u), t1);
-        t2 = fmaf(xl[o].z, nib_f(lo, 0x7254u), t2);
-        t2 = fmaf(xh[o].z, nib_f(hi, 0x7254u), t2);
-        t3 = fmaf(xl[o].w, nib_f(lo, 0x7354u), t3);
-        t3 = fmaf(xh[o].w, nib_f(hi, 0x7354u), t3);
-      }
-      const float t[4] = {t0, t1, t2, t3};
-      float af[4];
-      bf16x4(av[rr], af);
-      float cf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (HAS_C) bf16x4(cv[rr], cf);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc[rr] += af[k] * (256.f * t[k] - c0 * sv[k]) - cf[k] * sv[k];
-    }
+    knib_quad<kRows, HAS_C>(w, av, cv, xs, s16, n16, q << 2, c0, acc);
 #pragma unroll
     for (int rr = 0; rr < kRows; ++rr) {
 #pragma unroll
@@ -220,14 +169,14 @@ knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
   }
 }
 
-template <int LPR, bool HAS_C>
+template <int LPR, bool HAS_C, bool XP>
 cudaError_t launch(const float* x, const uint8_t* p, const uint16_t* a,
                    const uint16_t* c, const int32_t* idx, float* y,
                    int rows_x, int d, int n, float off, cudaStream_t stream) {
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        knib_matvec_kernel<LPR, HAS_C>,
+        knib_matvec_kernel<LPR, HAS_C, XP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     smem_opt_in = true;
@@ -235,22 +184,22 @@ cudaError_t launch(const float* x, const uint8_t* p, const uint16_t* a,
   const size_t smem = (size_t)(n + n / 16) * sizeof(float);
   const int rows_per_block = (kThreads / 32) * (32 / LPR) * kRows;
   dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
-  knib_matvec_kernel<LPR, HAS_C><<<grid, kThreads, smem, stream>>>(
+  knib_matvec_kernel<LPR, HAS_C, XP><<<grid, kThreads, smem, stream>>>(
       x, p, a, c, idx, y, d, n, off);
   return cudaGetLastError();
 }
 
-template <bool HAS_C>
+template <bool HAS_C, bool XP>
 cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
                      const uint16_t* c, const int32_t* idx, float* y,
                      int rows_x, int d, int n, float off,
                      cudaStream_t stream) {
   const int nq = n / 64;
   if (nq % 32 == 0)
-    return launch<32, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+    return launch<32, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
   if (nq % 16 == 0)
-    return launch<16, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
-  return launch<8, HAS_C>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+    return launch<16, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
+  return launch<8, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
 }
 
 // The packed bodies of K5 (qmm.py:312 qmm with _q2k_body :361 and
@@ -304,7 +253,7 @@ packed_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs
   const int n16 = n >> 4;
   float* s16 = xs + n;                          // n16 group sums
   const int xrow = blockIdx.y;
-  stage_permuted(x, xrow, n, xs, s16);
+  stage_permuted<kThreads>(x, xrow, n, xs, s16);
   __syncthreads();
 
   const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
@@ -608,7 +557,7 @@ q3kt_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
   const int n16 = n >> 4;
   float* s16 = xs + n;                          // n16 group sums
   const int xrow = blockIdx.y;
-  stage_permuted(x, xrow, n, xs, s16);
+  stage_permuted<kThreads>(x, xrow, n, xs, s16);
   __syncthreads();
 
   const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
@@ -1164,13 +1113,16 @@ extern "C" int plain_mv(const void* x, const void* w, int kind, void* y,
   return (int)dispatch_mv<__nv_bfloat16>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
 }
 
-// y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32. Planes p
-// (E, d, n/2) u8, a and c (E, d, n/16) bf16 (c may be null); idx (rows_x,)
-// int32 selects the expert of each row (K2), or is null with E = 1 (K1).
-// Returns a cudaError_t; the launch is asynchronous on `stream`.
+// y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32, in the natural
+// column order (x_perm 0) or already in the stride-16 permuted order
+// (x_perm 1: K2's prepermuted body). Planes p (E, d, n/2) u8, a and c
+// (E, d, n/16) bf16 (c may be null); idx (rows_x,) int32 selects the
+// expert of each row (K2), or is null with E = 1 (K1). Returns a
+// cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int knib_matvec(const void* x, const void* p, const void* a,
                            const void* c, const void* idx, void* y,
-                           int rows_x, int d, int n, int off, void* stream) {
+                           int rows_x, int d, int n, int off, int x_perm,
+                           void* stream) {
   if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 256 != 0 ||
       (size_t)(n + n / 16) * sizeof(float) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -1181,11 +1133,15 @@ extern "C" int knib_matvec(const void* x, const void* p, const void* a,
   auto is = static_cast<const int32_t*>(idx);
   auto ys = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
+  const float fo = (float)off;
+  if (x_perm) {
+    if (cs != nullptr)
+      return (int)dispatch<true, true>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
+    return (int)dispatch<false, true>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
+  }
   if (cs != nullptr)
-    return (int)dispatch<true>(xs, ps, as, cs, is, ys, rows_x, d, n,
-                               (float)off, st);
-  return (int)dispatch<false>(xs, ps, as, cs, is, ys, rows_x, d, n,
-                              (float)off, st);
+    return (int)dispatch<true, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
+  return (int)dispatch<false, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
 }
 
 // y (rows_x, d) f32 = packed matvec of x (rows_x, n) f32. kind 0 = Q2_K:

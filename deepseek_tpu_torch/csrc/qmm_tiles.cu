@@ -56,6 +56,15 @@
 // dequantized weight among 128 rows, so it needs neither the permuted
 // activation copy nor the per-16 group sums the TPU kernel took from HBM.
 //
+// K6's prepermuted nibble body (kinds 10 and 11; the rp branch of
+// deepseek_tpu/ops/matmul.py:268-285, qmm_grouped with group sums over the
+// permuted layout): behind a row-permuted w13 table h arrives in the
+// stride-16 permuted order. A k-step's natural columns 16(g0+q) + o (q < 4,
+// o < 16) sit at permuted positions o*n16 + g0 + q, so the step loads one
+// aligned float4 at each of the 16 offsets o*n16 + g0 of an activation row
+// and writes its 4 values to natural columns 16q + o of the staged block:
+// the same 16-byte loads, no copy of the activations, the same products.
+//
 // Packed reader (Q2_K, Q3_K). The 64 natural columns of groups g0..g0+3
 // are one 4-byte word at each of the 4 offsets jq*n16 + g0 of the 2-bit
 // plane qs (field s of byte jq*n16 + g = offset 4s + jq of group g) and,
@@ -116,7 +125,7 @@ constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
 constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
 
 enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5,
-            kQ2 = 6, kQ3 = 7, kQ2T = 8, kQ3T = 9 };
+            kQ2 = 6, kQ3 = 7, kQ2T = 8, kQ3T = 9, kNibP = 10, kNibCP = 11 };
 constexpr int kSW3T = 256;        // Q3_K turbo columns staged raw at a time
 
 struct Weights {
@@ -172,7 +181,9 @@ template <int KIND, typename XT>
 __global__ void __launch_bounds__(kThreads)
 tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
                  float* __restrict__ y, int d, int n) {
-  constexpr bool kNibble = KIND == kNib || KIND == kNibC;
+  constexpr bool kHasC = KIND == kNibC || KIND == kNibCP;   // nibble min plane
+  constexpr bool kXPerm = KIND == kNibP || KIND == kNibCP;  // x in permuted order
+  constexpr bool kNibble = KIND == kNib || kHasC || kXPerm;
   constexpr bool kPacked = KIND == kQ2 || KIND == kQ3;
   constexpr bool kStaged = kNibble || kPacked || KIND == kQ3T;  // raw planes staged
   constexpr int kStageW = KIND == kQ3T ? kSW3T : kSW;           // columns a stage
@@ -215,7 +226,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const size_t half = (size_t)(n >> 1);
   const uint8_t* pe = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * half;
   const uint16_t* ae = wt.a + (size_t)e * d * n16;
-  const uint16_t* ce = KIND == kNibC ? wt.c + (size_t)e * d * n16 : nullptr;
+  const uint16_t* ce = kHasC ? wt.c + (size_t)e * d * n16 : nullptr;
   const WT* we = static_cast<const WT*>(wt.w) + (size_t)e * d * n;
   const int wr_r = tid & (kBN - 1), wr_o = tid / kBN;   // nibble: row, byte slab
   const uint8_t* w8 = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * n;
@@ -261,7 +272,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       const size_t gr = (size_t)min(col0 + r, d - 1);
       if (q * 8 < sg) {
         ar[it] = *reinterpret_cast<const uint4*>(ae + gr * n16 + gs + q * 8);
-        if constexpr (KIND == kNibC)
+        if constexpr (kHasC)
           cr[it] = *reinterpret_cast<const uint4*>(ce + gr * n16 + gs + q * 8);
       }
     }
@@ -283,7 +294,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       if (q * 8 >= sg) continue;
       uint32_t* da = araw + r * kLda + q * 4;
       da[0] = ar[it].x; da[1] = ar[it].y; da[2] = ar[it].z; da[3] = ar[it].w;
-      if constexpr (KIND == kNibC) {
+      if constexpr (kHasC) {
         uint32_t* dc = craw + r * kLda + q * 4;
         dc[0] = cr[it].x; dc[1] = cr[it].y; dc[2] = cr[it].z; dc[3] = cr[it].w;
       }
@@ -401,8 +412,10 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
     for (int it = 0; it < kXIt; ++it) {
       const int item = tid + it * kThreads;
       const int m = item & (kBM - 1), c4 = (item / kBM) * 4;
+      // permuted x: c4 / 4 is the offset o, the float4 groups k0/16 .. +3
+      const int col = kXPerm ? (c4 >> 2) * n16 + (k0 >> 4) : k0 + c4;
       if (m < nr)
-        xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + k0 + c4);
+        xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + col);
     }
     if constexpr (kBytes) {
 #pragma unroll
@@ -447,7 +460,8 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
         v[2] = bf16_f(xr[it].y & 0xFFFFu); v[3] = bf16_f(xr[it].y >> 16);
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) xs[(c4 + q) * kLdx + m] = v[q];
+      for (int q = 0; q < 4; ++q)
+        xs[(kXPerm ? q * 16 + (c4 >> 2) : c4 + q) * kLdx + m] = v[q];
     }
     if constexpr (kNibble) {
       // the 4 groups of this step sit in word `w` of each slab of the stage
@@ -457,7 +471,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       const float af[4] = {bf16_f(a01 & 0xFFFFu), bf16_f(a01 >> 16),
                            bf16_f(a23 & 0xFFFFu), bf16_f(a23 >> 16)};
       float cf[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (KIND == kNibC) {
+      if constexpr (kHasC) {
         const uint32_t c01 = craw[wr_r * kLda + 2 * w];
         const uint32_t c23 = craw[wr_r * kLda + 2 * w + 1];
         cf[0] = bf16_f(c01 & 0xFFFFu); cf[1] = bf16_f(c01 >> 16);
@@ -663,7 +677,7 @@ template <int KIND, typename XT>
 cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
                    float* y, int G, int d, int n, cudaStream_t stream) {
   constexpr int smem = KIND == kNib || KIND == kNibC || KIND == kQ2 || KIND == kQ3 ||
-                               KIND == kQ3T
+                               KIND == kQ3T || KIND == kNibP || KIND == kNibCP
                            ? kSmemNib : kSmemPlain;
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
@@ -687,7 +701,8 @@ cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
 // f32/f16/bf16 table (w), 5 = F8E5M2 table (w) with the f32 inverse scales
 // s (E, ceil(d/b0), ceil(n/b1)), 6 = packed Q2_K (w = qs, a = sm, s = d,
 // s2 = dmin), 7 = packed Q3_K (w = qs, a = sc, c = hm, s = d), 8 = Q2_K
-// turbo (w = p, a = bm, s = d), 9 = Q3_K turbo (w = p, a). Tiles as the
+// turbo (w = p, a = bm, s = d), 9 = Q3_K turbo (w = p, a), 10/11 = nibble
+// as 0/1 with x in the stride-16 permuted order. Tiles as the
 // header says: tile_expert and tile_rows (G,) or null; group_off and
 // tile_off (E+1,) or null. Needs n % 64 == 0 (nibble and packed: n % 256
 // == 0; fp8: b1 % 64 == 0), G <= 2^31 - 1, d <= 8388480. Returns a
@@ -699,12 +714,13 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
                          const void* group_off, const void* tile_off,
                          void* y, int rows, int G, int E, int d, int n,
                          void* stream) {
-  const bool kq = kind == kNib || kind == kNibC || kind == kQ2 || kind == kQ3 ||
+  const bool kq = kind == kNib || kind == kNibC || kind == kNibP || kind == kNibCP ||
+                  kind == kQ2 || kind == kQ3 ||
                   kind == kQ2T || kind == kQ3T;
   if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
       n % (kq ? 256 : kBK) != 0 || ((kq || kind == kF8) && x_dtype != 0) ||
-      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kQ3T ||
-      w == nullptr || (kind == kNibC && c == nullptr) ||
+      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kNibCP ||
+      w == nullptr || ((kind == kNibC || kind == kNibCP) && c == nullptr) ||
       (kind == kF8 && (s == nullptr || b0 <= 0 || b1 <= 0 || b1 % kBK != 0)) ||
       ((kind == kQ2 || kind == kQ3) && (a == nullptr || s == nullptr)) ||
       (kind == kQ2 && s2 == nullptr) || (kind == kQ3 && c == nullptr) ||
@@ -727,6 +743,8 @@ extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
     switch (kind) {
       case kNib: err = launch<kNib, float>(x, wt, tl, ys, G, d, n, st); break;
       case kNibC: err = launch<kNibC, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kNibP: err = launch<kNibP, float>(x, wt, tl, ys, G, d, n, st); break;
+      case kNibCP: err = launch<kNibCP, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF32: err = launch<kF32, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF16: err = launch<kF16, float>(x, wt, tl, ys, G, d, n, st); break;
       case kF8: err = launch<kF8, float>(x, wt, tl, ys, G, d, n, st); break;

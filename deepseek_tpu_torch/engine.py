@@ -159,7 +159,11 @@ class Engine:
         slice (weights are always resident, no MTP head); the options whose
         other values are not ported raise. A K-quant checkpoint keeps its
         packed planes (``kquant_runtime=None``, the JAX default) or takes
-        the nibble (``"nibble"``) or int8 turbo (``"turbo"``) layout."""
+        the nibble (``"nibble"``) or int8 turbo (``"turbo"``) layout. With
+        ``DSEEK_FUSED_FFN`` set in the environment when the Engine is made,
+        ``fuse_projections`` gives nibble expert [w1;w3] tables the
+        row-permuted layout, whose decode runs the fused expert FFN (K7);
+        the variable is read there once and never in the forward."""
         if scan_layers not in ("auto", False):
             raise NotImplementedError(
                 "scan-stacked layers have no counterpart in the port "

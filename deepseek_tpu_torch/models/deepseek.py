@@ -46,6 +46,13 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   prefill dequantizes the window before ``wkv_b`` and attends through the
   float K9.
 
+- The row-permuted nibble expert tables of ``DSEEK_FUSED_FFN=1``
+  (``KNibbleTensor.rowperm``, set once at load): a single token's MoE FFN
+  runs the fused expert FFN (K7, one launch for w13, the GLU, w2 and the
+  weighted sum); several tokens' pairs run K2 on w13 and K2's
+  prepermuted body on w2, the grouped prefill K6 then K6's prepermuted
+  body; the dequantizing paths restore the natural rows.
+
 - ``make_decode_loop`` runs ``n_steps`` decode steps at a time, sampling
   each token on the device (``ops/sampling.py``) with the JAX package's
   threefry keys; the Engine's default decode block.
@@ -71,14 +78,16 @@ from deepseek_tpu_torch.ops.kernels.attention import mha_decode_attn, mla_decode
 from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mha_prefill_attn, mla_prefill_attn,
 )
-from deepseek_tpu_torch.ops.kernels.qmm import qmm_experts
+from deepseek_tpu_torch.ops.kernels.qmm import (
+    expert_ffn_fusable, qmm_expert_ffn, qmm_experts,
+)
 from deepseek_tpu_torch.ops.matmul import (
     dispatch_pairs, grouped_expert_ffn, grouped_ffn_supported, per_tensor_fp8,
     qmatmul,
 )
 from deepseek_tpu_torch.ops.norms import rmsnorm
 from deepseek_tpu_torch.ops.rope import apply_rope
-from deepseek_tpu_torch.quant.qtensor import PlainTensor, rows_to_experts
+from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor, rows_to_experts
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -374,10 +383,16 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
 def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
     """Expert-sorted pair list through the gathered-expert products (K2:
     its nibble, packed or fp8 body or, for a plain table, its plain body),
-    combined per token with the routing weights."""
+    combined per token with the routing weights. A single token over a
+    row-permuted nibble w13 (``DSEEK_FUSED_FFN=1``) takes the fused expert
+    FFN (K7) instead; several tokens over one take K2's prepermuted body on
+    w2 (``deepseek_tpu/models/deepseek.py:806-850``)."""
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     Bt = B * T
     eid, wts, tok = dispatch_pairs(idx.reshape(Bt, -1), weights.reshape(Bt, -1))
+    if Bt == 1 and expert_ffn_fusable(t13, t2):
+        y = qmm_expert_ffn(t13, t2, eid, xb.reshape(1, -1), wts, cfg.act)
+        return y.reshape(B, T, -1).to(dtype)
     xk = xb.reshape(Bt, -1)[tok]                                   # (N, dim)
     if t13 is not None:
         h2 = qmm_experts(t13, eid, xk).to(dtype)
@@ -386,7 +401,9 @@ def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
     else:
         h = glu_act(qmm_experts(t1, eid, xk).to(dtype),
                     qmm_experts(t3, eid, xk).to(dtype), cfg.act)
-    per = qmm_experts(t2, eid, h)                                   # (N, dim) f32
+    # a row-permuted w13 leaves h permuted per half: w2 takes it as it is
+    rp = isinstance(t13, KNibbleTensor) and bool(t13.rowperm)
+    per = qmm_experts(t2, eid, h, rp)                # x_prepermuted; (N, dim) f32
     out = torch.zeros((Bt, per.shape[-1]), dtype=torch.float32, device=per.device)
     out.index_add_(0, tok, per * wts[:, None])
     return out.reshape(B, T, -1).to(dtype)

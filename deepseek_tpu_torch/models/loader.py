@@ -5,14 +5,16 @@ from the JAX package.
 F32/F16/BF16 tensors, F8_E5M2 tensors with blockwise or per-tensor scales,
 and U8 K-quant tensors in the packed plane layout (the default, as in the
 JAX package) or the nibble or turbo runtime layouts; ``fuse_projections``
-ports the function of the same name without the row-permuted expert
-layout. ``params_from_reference`` builds the port's
-params from a ``deepseek_tpu`` ModelParams object without importing JAX.
+ports the function of the same name, with the row-permuted expert layout
+of ``DSEEK_FUSED_FFN=1`` (``rowperm_expert_w13``). ``params_from_reference``
+builds the port's params from a ``deepseek_tpu`` ModelParams object
+without importing JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -256,9 +258,60 @@ def fuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
     kernel launch and one weight sweep replace two, and fold the shared
     experts into the routed tables where the layout allows (plain weights,
     blockwise fp8 whose blocks divide the expert width, Q2_K turbo when 256
-    divides it). The component fields become None."""
-    return dataclasses.replace(params, layers=[fuse_layer(lp, cfg)
-                                               for lp in params.layers])
+    divides it). The component fields become None.
+
+    With ``DSEEK_FUSED_FFN`` set (the JAX package's opt-in, read here once
+    a call, i.e. once at ``Engine.__init__``) the nibble expert [w1;w3]
+    tables also take the row-permuted layout (``rowperm_expert_w13``); the
+    tables' ``rowperm`` then chooses the fused expert FFN (K7) and the
+    prepermuted w2 products, and the variable is never read again."""
+    fused = dataclasses.replace(params, layers=[fuse_layer(lp, cfg)
+                                                for lp in params.layers])
+    if os.environ.get("DSEEK_FUSED_FFN"):
+        fused = rowperm_expert_w13(fused, cfg)
+    return fused
+
+
+def _rowperm_qt(qt: KNibbleTensor, halves: int, undo: bool) -> KNibbleTensor:
+    """Permute a nibble table's OUT rows stride-16 per contiguous part
+    (``deepseek_tpu/models/loader.py::_rowperm_qt``; a reshape and
+    transpose of p, a and c, which share the row axis -2): stored position
+    o*(mh/16) + g of a part holds natural row g*16 + o. ``undo`` restores
+    the natural rows."""
+    rows = qt.p.shape[-2]
+    mh = rows // halves
+    if rows % halves or mh % 16:
+        raise ValueError(f"rowperm: {rows} rows do not split into {halves} "
+                         "parts of a multiple of 16")
+
+    def perm(t):
+        *lead, _, cols = t.shape
+        split = (halves, 16, mh // 16) if undo else (halves, mh // 16, 16)
+        return t.reshape(*lead, *split, cols).transpose(-3, -2) \
+            .reshape(*lead, rows, cols)
+
+    return KNibbleTensor(p=perm(qt.p), a=perm(qt.a),
+                         c=None if qt.c is None else perm(qt.c), off=qt.off,
+                         rowperm=0 if undo else halves)
+
+
+def rowperm_expert_w13(params: ModelParams, cfg: ModelConfig,
+                       undo: bool = False) -> ModelParams:
+    """Apply (or ``undo``) the stride-16 row permutation of the fused expert
+    [w1;w3] nibble tables (w13s and w13: 3-D, rows % 32 == 0), as
+    ``deepseek_tpu/models/loader.py::rowperm_expert_w13`` does: the w13
+    products then leave h in the permuted activation order that the w2
+    kernels and K7 take. Reads no environment variable."""
+    def layer(lp: LayerParams) -> LayerParams:
+        rep = {}
+        for f in ("w13s", "w13"):
+            qt = getattr(lp, f)
+            if (isinstance(qt, KNibbleTensor) and qt.p.dim() == 3
+                    and bool(qt.rowperm) == undo and qt.p.shape[-2] % 32 == 0):
+                rep[f] = _rowperm_qt(qt, 2, undo)
+        return dataclasses.replace(lp, **rep) if rep else lp
+
+    return dataclasses.replace(params, layers=[layer(lp) for lp in params.layers])
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +323,10 @@ def _weight_from_reference(obj, device):
     if kind == "PlainTensor":
         return PlainTensor(data=_to_torch(obj.data).to(device))
     if kind == "KNibbleTensor":
-        if getattr(obj, "rowperm", 0):
-            raise NotImplementedError(
-                "row-permuted nibble tables are not ported (ROADMAP.md K7)")
         return KNibbleTensor(
             p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
             c=None if obj.c is None else _to_torch(obj.c).to(device),
-            off=int(obj.off))
+            off=int(obj.off), rowperm=int(getattr(obj, "rowperm", 0)))
     classes = {c.__name__: c for c in (*PACKED, *TURBO)}
     if kind in classes:
         cls = classes[kind]

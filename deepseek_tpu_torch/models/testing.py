@@ -1,7 +1,9 @@
 """Random-weight models built directly on the device (benchmarks, smoke runs).
 
 Ports ``deepseek_tpu/models/testing.py::deepseek_v3_proportions`` and the
-nibble part of ``random_fused_params`` (with the packed Q2_K/Q3_K planes of
+nibble part of ``random_fused_params`` (its row-permuted expert tables
+made by a real permutation where the JAX ``_mark_rowperm`` only sets the
+flag; with the packed Q2_K/Q3_K planes of
 ``_direct_qtensor`` beside it, and their turbo conversion as
 ``_random_qtensor`` makes it), and adds DeepSeek-V2-Lite's
 proportions with a plain-weight model (``random_plain_params``) and a
@@ -20,7 +22,7 @@ import torch
 from deepseek_tpu_torch.config import (
     ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod,
 )
-from deepseek_tpu_torch.models.loader import fuse_layer
+from deepseek_tpu_torch.models.loader import fuse_layer, rowperm_expert_w13
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams
 from deepseek_tpu_torch.quant.qtensor import (
     Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, q2k_to_turbo,
@@ -191,7 +193,8 @@ def random_fp8_params(cfg: ModelConfig, seed: int = 7, device="cuda") -> ModelPa
 
 
 def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
-                        device="cuda", factors: bool = False) -> ModelParams:
+                        device="cuda", factors: bool = False,
+                        rowperm: bool = False) -> ModelParams:
     """Random model in the fused decode layout (wkvq, wcr, w13) with
     nibble planes (``quant`` q3_k_nibble | q2_k_nibble: the shared experts
     folded into w13s/w2s), packed planes (q3_k | q2_k: the ranges of the
@@ -207,7 +210,10 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
     each layer the factor weights wq_b (H*head_dim, q_lora) and wkv_b
     (H*(nope+v), kv_lora) that every converted MLA checkpoint keeps, so
     prefill attends in decompressed head space (K9); without them it runs
-    the absorbed prefill (K10)."""
+    the absorbed prefill (K10). ``rowperm`` gives the nibble expert
+    [w1;w3] tables the row-permuted layout of ``DSEEK_FUSED_FFN=1``
+    (``loader.rowperm_expert_w13`` applied to the drawn planes, a real
+    permutation: the model computes what the one drawn without it does)."""
     kinds = ("q3_k_nibble", "q2_k_nibble", "q3_k", "q2_k", "q3_k_turbo", "q2_k_turbo")
     if quant not in kinds:
         raise ValueError(f"quant must be one of {kinds}, not {quant}")
@@ -288,7 +294,8 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
             wq_b=qt(H * c.head_dim, c.q_lora_rank) if factors else None,
             wkv_b=qt(H * (c.qk_nope_head_dim + Dv), R) if factors else None,
         ))
-    return ModelParams(
+    params = ModelParams(
         embed=PlainTensor(data=normal(c.vocab_size, c.dim).to(torch.bfloat16)),
         layers=layers, final_norm=ones(c.dim),
         lm_head=qt(c.vocab_size, c.dim))
+    return rowperm_expert_w13(params, cfg) if rowperm else params

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "qmm": {"knib_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qmm": {"knib_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "plain_mv": [_P, _P, _I, _P, _I, _I, _I, _P],
             "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -41,6 +41,8 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
     "qmm_tiles": {"tile_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "expert_ffn": {"expert_ffn": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                                  _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {
         "mha_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _F, _I, _I, _I, _P],

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K4, K5, K6 and K11: quantized, plain and grouped matrix
-products.
+"""Kernels K1, K2, K4, K5, K6, K7 and K11: quantized, plain and grouped
+matrix products, and the fused expert FFN.
 
 - ``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with
   ``_knib_body`` (K1). Up to ``ROW_TILE_MIN`` rows it launches the matvec
@@ -37,9 +37,21 @@ products.
 - ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
   grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
   plain table; ``csrc/qmm_tiles.cu``).
+- Row-permuted nibble expert tables (``KNibbleTensor.rowperm``, the
+  layout of ``DSEEK_FUSED_FFN=1``): ``qmm_expert_ffn`` replaces
+  ``::qmm_expert_ffn`` (K7: w13, GLU, w2 and the weighted sum over one
+  token's pairs in one launch; ``csrc/expert_ffn.cu``), and
+  ``qmm_experts`` / ``qmm_grouped`` take ``x_prepermuted=True``, K2's and
+  K6's prepermuted nibble bodies (``::qmm_experts`` :602-609 and the
+  ``rp`` branch of ``deepseek_tpu/ops/matmul.py:268-285``): the
+  activations arrive in the stride-16 permuted order in which a permuted
+  w13 leaves h. They count their launches apart, in
+  ``qmm_experts.prepermuted`` and ``qmm_grouped.prepermuted``.
 
 The sources' headers give each design and its bound. Each wrapper keeps
-its own launch count in ``.launches``.
+its own launch count in ``.launches``. The kernels compute against a
+table's rows as they are stored, and so do the plain versions
+(``KNibbleTensor.stored_rows``).
 
 A wrapper given CPU tensors computes the plain version (``*_plain``: the
 f32 dequant of quant/qtensor.py and a product, for every layout); given
@@ -48,33 +60,56 @@ CUDA tensors it launches the kernel or raises. It never falls back.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 
+from deepseek_tpu_torch.config import ActivationType
+from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.ops.kernels.build import check, library
 from deepseek_tpu_torch.quant.qtensor import (
     PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
-    Q2KTurboTensor,
+    Q2KTurboTensor, unperm_x,
 )
+
+
+def _stored(qt):
+    """A nibble table with its rows in their stored order (a row-permuted
+    table's products land permuted, as the kernels' do)."""
+    return qt.stored_rows() if isinstance(qt, KNibbleTensor) else qt
+
+
+def _natural_x(qt, x: torch.Tensor, x_prepermuted: bool, what: str) -> torch.Tensor:
+    """x in the natural column order; ``x_prepermuted`` (nibble tables
+    only, as the JAX qmm_experts asserts) undoes the stride-16 order."""
+    if not x_prepermuted:
+        return x
+    if not isinstance(qt, KNibbleTensor):
+        raise ValueError(f"{what}: x_prepermuted needs a nibble table, not "
+                         f"{type(qt).__name__}")
+    return unperm_x(x)
 
 
 def qmm_plain(qt, x: torch.Tensor) -> torch.Tensor:
     """x (..., n) @ dequant(W (d, n)).T -> (..., d) float32 (a nibble,
     packed or fp8 weight)."""
-    return torch.matmul(x.float(), qt.dequant(torch.float32).t())
+    return torch.matmul(x.float(), _stored(qt).dequant(torch.float32).t())
 
 
-def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor,
+                      x_prepermuted: bool = False) -> torch.Tensor:
     """Row i of x (..., n) times expert idx[i] of W (E, d, n), a nibble,
     packed, fp8 or plain table, -> (..., d) float32. Only the selected experts are
-    dequantized (a plain table: widened to f32)."""
+    dequantized (a plain table: widened to f32). ``x_prepermuted``: x in
+    the stride-16 permuted order (a nibble table)."""
+    x = _natural_x(qt, x, x_prepermuted, "qmm_experts")
     lead, n = x.shape[:-1], x.shape[-1]
     sel = idx.reshape(-1).long()
     if isinstance(qt, PlainTensor):
         w = qt.data[sel].float()
     else:
-        w = qt.map(lambda t: t[sel]).dequant(torch.float32)   # (N, d, n)
+        w = _stored(qt).map(lambda t: t[sel]).dequant(torch.float32)   # (N, d, n)
     out = torch.bmm(w, x.reshape(-1, n, 1).float())[..., 0]
     return out.reshape(*lead, -1)
 
@@ -105,14 +140,18 @@ _X_DTYPE = {torch.float32: 0, torch.bfloat16: 2}
 
 def qmm_grouped_plain(qt, tile_expert: torch.Tensor,
                       x_tiles: torch.Tensor,
-                      tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x_tiles (G, TB, n) in natural column order, tile g against expert
+                      tile_rows: Optional[torch.Tensor] = None,
+                      x_prepermuted: bool = False) -> torch.Tensor:
+    """x_tiles (G, TB, n) in natural column order (``x_prepermuted``: in
+    the stride-16 permuted order, a nibble table), tile g against expert
     tile_expert[g] of W (E, d, n), a nibble, packed or fp8 table -> (G, TB, d)
     float32. Rows at or past tile_rows[g] (when given) are zero."""
+    x_tiles = _natural_x(qt, x_tiles, x_prepermuted, "qmm_grouped")
     G, TB, _ = x_tiles.shape
     d = qt.shape[-2]
     out = torch.zeros((G, TB, d), dtype=torch.float32, device=x_tiles.device)
     te = tile_expert.long()
+    qt = _stored(qt)
     for e in te.unique().tolist():
         sel = (te == e).nonzero()[:, 0]
         w = qt.map(lambda t: t[e]).dequant(torch.float32)
@@ -159,7 +198,8 @@ def _check_planes(qt: KNibbleTensor, x: torch.Tensor, experts: bool) -> None:
         raise ValueError(f"nibble kernels need in-features % 256 == 0, got {n}")
 
 
-def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int,
+            x_perm: bool = False) -> torch.Tensor:
     n = x2.shape[-1]
     x2 = x2.float().contiguous()
     y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
@@ -168,7 +208,7 @@ def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
         x2.data_ptr(), qt.p.data_ptr(), qt.a.data_ptr(),
         qt.c.data_ptr() if qt.c is not None else None,
         idx.data_ptr() if idx is not None else None, y.data_ptr(),
-        x2.shape[0], d, n, int(qt.off), stream)
+        x2.shape[0], d, n, int(qt.off), int(x_perm), stream)
     check(err, "knib_matvec")
     return y
 
@@ -176,6 +216,9 @@ def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
 def _nibble_args(qt: KNibbleTensor):
     return (1 if qt.c is not None else 0, qt.p.data_ptr(), qt.a.data_ptr(),
             qt.c.data_ptr() if qt.c is not None else None, int(qt.off))
+
+
+_NIB_XPERM_KIND = 10    # kNibP in csrc/qmm_tiles.cu (kNibCP = 11): x permuted
 
 
 def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, scales=(None, 0, 0),
@@ -284,12 +327,19 @@ def qmm_rows(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor,
+                x_prepermuted: bool = False) -> torch.Tensor:
     """K2: row i of x (..., n) against expert idx[i] of W (E, d, n) ->
     (..., d) float32. ``idx`` (...) must hold ids in [0, E): the kernel
     reads the expert's planes at that offset unchecked. A plain table
     takes ``qmm_experts_fp``, an fp8 one ``qmm_experts_fp8``, a packed one
-    ``qmm_experts_packed``, a turbo one ``qmm_experts_turbo``."""
+    ``qmm_experts_packed``, a turbo one ``qmm_experts_turbo``.
+    ``x_prepermuted`` (a nibble table only; any other raises): x is in the
+    stride-16 permuted order, as a row-permuted w13 leaves h, and the
+    kernel stages it as given (K2's prepermuted body)."""
+    if x_prepermuted and not isinstance(qt, KNibbleTensor):
+        raise ValueError(f"qmm_experts: x_prepermuted needs a nibble table, "
+                         f"not {type(qt).__name__}")
     if isinstance(qt, PlainTensor):
         return qmm_experts_fp(qt, idx, x)
     if isinstance(qt, Fp8Tensor):
@@ -299,7 +349,7 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if isinstance(qt, TURBO):
         return qmm_experts_turbo(qt, idx, x)
     if x.device.type == "cpu":
-        return qmm_experts_plain(qt, idx, x)
+        return qmm_experts_plain(qt, idx, x, x_prepermuted)
     if x.device.type != "cuda":
         raise ValueError(f"qmm_experts runs on cuda or cpu tensors, not {x.device}")
     _check_planes(qt, x, experts=True)
@@ -311,8 +361,8 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x2.shape[0] == 0:
         return x.new_zeros((*lead, d), dtype=torch.float32)
     idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
-    y = _launch(qt, x2, idx32, d)
-    qmm_experts.launches += 1
+    y = _launch(qt, x2, idx32, d, x_prepermuted)
+    (qmm_experts.prepermuted if x_prepermuted else qmm_experts).launches += 1
     return y.reshape(*lead, d)
 
 
@@ -354,14 +404,21 @@ def qmm_experts_fp(qt: PlainTensor, idx: torch.Tensor,
 
 def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
                 x_tiles: torch.Tensor,
-                tile_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                tile_rows: Optional[torch.Tensor] = None,
+                x_prepermuted: bool = False) -> torch.Tensor:
     """K6: x_tiles (G, 128, n) f32 in natural column order, tile g against
     expert tile_expert[g] (ids in [0, E), read unchecked) of the nibble
     table W (E, d, n) -> (G, 128, d) float32. With ``tile_rows`` (G,) only
     the first tile_rows[g] rows of tile g are computed; the kernel leaves
     the others unwritten (the plain version zeroes them). An fp8 table
     takes ``qmm_grouped_fp8``, a packed one ``qmm_grouped_packed``, a turbo
-    one ``qmm_grouped_turbo``."""
+    one ``qmm_grouped_turbo``. ``x_prepermuted`` (a nibble table only; any
+    other raises): x_tiles are in the stride-16 permuted order, and the
+    kernel reads each natural column from its permuted position as it
+    stages a tile (K6's prepermuted body)."""
+    if x_prepermuted and not isinstance(qt, KNibbleTensor):
+        raise ValueError(f"qmm_grouped: x_prepermuted needs a nibble table, "
+                         f"not {type(qt).__name__}")
     if isinstance(qt, Fp8Tensor):
         return qmm_grouped_fp8(qt, tile_expert, x_tiles, tile_rows)
     if isinstance(qt, PACKED):
@@ -369,16 +426,18 @@ def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
     if isinstance(qt, TURBO):
         return qmm_grouped_turbo(qt, tile_expert, x_tiles, tile_rows)
     if x_tiles.device.type == "cpu":
-        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows)
+        return qmm_grouped_plain(qt, tile_expert, x_tiles, tile_rows, x_prepermuted)
     if x_tiles.device.type != "cuda":
         raise ValueError(f"qmm_grouped runs on cuda or cpu tensors, not {x_tiles.device}")
     _check_planes(qt, x_tiles, experts=True)
     x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
                                       "qmm_grouped")
     kind, p, a, c, off = _nibble_args(qt)
+    if x_prepermuted:
+        kind += _NIB_XPERM_KIND
     _tile_gemm(x2, kind, p, a, c, off, (te, tr, None, None), y,
                te.shape[0], qt.shape[0], qt.shape[-2])
-    qmm_grouped.launches += 1
+    (qmm_grouped.prepermuted if x_prepermuted else qmm_grouped).launches += 1
     return y
 
 
@@ -800,6 +859,106 @@ def qmm_grouped_turbo(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
     return y
 
 
+# ---------------------------------------------------------------------------
+# K7: the fused expert FFN over a row-permuted nibble [w1;w3] table
+# ---------------------------------------------------------------------------
+
+_ACT_CODE = {ActivationType.SILU: 0, ActivationType.GELU: 1}
+
+
+def expert_ffn_fusable(qt13, qt2) -> bool:
+    """True where K7 takes the tables (``deepseek_tpu/ops/pallas/qmm.py::
+    expert_ffn_fusable`` without its environment read and its TPU VMEM
+    budget): both nibble, w13 (E, 2m, n) row-permuted in two parts, w2
+    (E, d, m), m and n multiples of 256."""
+    if not (isinstance(qt13, KNibbleTensor) and isinstance(qt2, KNibbleTensor)):
+        return False
+    if qt13.rowperm != 2:
+        return False
+    m2, n = qt13.shape[-2], qt13.shape[-1]
+    mh = qt2.shape[-1]
+    return m2 == 2 * mh and mh % 256 == 0 and n % 256 == 0
+
+
+def qmm_expert_ffn_plain(qt13: KNibbleTensor, qt2: KNibbleTensor,
+                         idx: torch.Tensor, x: torch.Tensor, wts: torch.Tensor,
+                         act: ActivationType) -> torch.Tensor:
+    """y = sum_p wts[p] * (glu(x @ w1_e.T, x @ w3_e.T) @ w2_e.T), e =
+    idx[p], for one token x (1, n) over N pairs -> (1, d) float32, as K7
+    computes it: h2 against the stored (permuted) w13 rows in f32, the GLU
+    in f32 times wts[p], the w2 product of that permuted h per pair (its
+    natural order restored, which is what the kernel's natural-group sums
+    of the permuted h amount to), the pairs summed in their order."""
+    sel = idx.reshape(-1).long()
+    N = sel.numel()
+    w13 = qt13.stored_rows().map(lambda t: t[sel]).dequant(torch.float32)  # (N, 2m, n)
+    xf = x.reshape(1, -1, 1).float().expand(N, -1, 1)
+    h2 = torch.bmm(w13, xf)[..., 0]                                       # (N, 2m)
+    del w13
+    mh = h2.shape[-1] // 2
+    g = glu_act(h2[:, :mh], h2[:, mh:], act) * wts.reshape(N, 1).float()
+    w2 = qt2.stored_rows().map(lambda t: t[sel]).dequant(torch.float32)   # (N, d, m)
+    per = torch.bmm(w2, unperm_x(g)[..., None])[..., 0]                   # (N, d)
+    y = per[0]
+    for p in range(1, N):
+        y = y + per[p]
+    return y[None]
+
+
+def qmm_expert_ffn(qt13: KNibbleTensor, qt2: KNibbleTensor, idx: torch.Tensor,
+                   x: torch.Tensor, wts: torch.Tensor,
+                   act: ActivationType) -> torch.Tensor:
+    """K7: one token's whole MoE expert chain in one launch,
+
+        y = sum_p wts[p] * (glu(x @ w1_e.T, x @ w3_e.T) @ w2_e.T),  e = idx[p],
+
+    for x (1, n) in natural order, idx (N,) expert ids in [0, E) (read
+    unchecked), wts (N,) routing weights (dead pairs carry 0), w13 (E, 2m,
+    n) a nibble table row-permuted in two parts (``expert_ffn_fusable``)
+    and w2 (E, d, m) -> (1, d) float32. h never leaves the kernel's
+    scratch; no host synchronization."""
+    if x.device.type == "cpu":
+        return qmm_expert_ffn_plain(qt13, qt2, idx, x, wts, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_expert_ffn runs on cuda or cpu tensors, not {x.device}")
+    if not expert_ffn_fusable(qt13, qt2):
+        raise ValueError(f"qmm_expert_ffn: tables {type(qt13).__name__} "
+                         f"{qt13.shape} (rowperm "
+                         f"{getattr(qt13, 'rowperm', None)}) and "
+                         f"{type(qt2).__name__} {qt2.shape} are not fusable")
+    _check_planes(qt13, x, experts=True)
+    _check_planes(qt2, x, experts=True)
+    if (qt13.c is None) != (qt2.c is None):
+        raise ValueError("qmm_expert_ffn: w13 and w2 must both have or both "
+                         "lack the min plane c")
+    E, m2, n = qt13.shape
+    d, mh = qt2.shape[-2], m2 // 2
+    N = idx.numel()
+    if qt2.shape[0] != E or x.numel() != n or wts.numel() != N or not 1 <= N <= 65535:
+        raise ValueError(f"qmm_expert_ffn: w13 {qt13.shape}, w2 {qt2.shape}, "
+                         f"x {tuple(x.shape)}, idx {tuple(idx.shape)}, "
+                         f"wts {tuple(wts.shape)}")
+    if idx.device != x.device or wts.device != x.device:
+        raise ValueError("qmm_expert_ffn: idx and wts must be on x's device")
+    x1 = x.reshape(1, n).float().contiguous()
+    if x1.data_ptr() % 16:                     # the kernel reads float4s
+        x1 = x1.clone()
+    idx32 = idx.reshape(N).to(torch.int32).contiguous()
+    w = wts.reshape(N).to(torch.float32).contiguous()
+    g = torch.empty((N, mh), dtype=torch.float32, device=x.device)   # h scratch
+    y = torch.empty((1, d), dtype=torch.float32, device=x.device)
+    has_c = qt13.c is not None
+    err = library("expert_ffn").expert_ffn(
+        x1.data_ptr(), qt13.p.data_ptr(), qt13.a.data_ptr(),
+        qt13.c.data_ptr() if has_c else None, int(qt13.off),
+        qt2.p.data_ptr(), qt2.a.data_ptr(), qt2.c.data_ptr() if has_c else None,
+        int(qt2.off), idx32.data_ptr(), w.data_ptr(), g.data_ptr(), y.data_ptr(),
+        N, n, mh, d, _ACT_CODE[act], torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "expert_ffn")
+    qmm_expert_ffn.launches += 1
+    return y
+
+
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         group_sizes: torch.Tensor) -> torch.Tensor:
     """K11: row group e of lhs (M, k) (f32 or bf16, the compute dtype)
@@ -843,6 +1002,9 @@ qmm.launches = 0
 qmm_fp.launches = 0
 qmm_rows.launches = 0
 qmm_experts.launches = 0
+qmm_experts.prepermuted = SimpleNamespace(launches=0)
+qmm_grouped.prepermuted = SimpleNamespace(launches=0)
+qmm_expert_ffn.launches = 0
 qmm_experts_fp.launches = 0
 qmm_grouped.launches = 0
 gmm.launches = 0

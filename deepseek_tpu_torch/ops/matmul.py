@@ -20,7 +20,8 @@ permuted copy (packed, Q3_K turbo, nibble) and the per-16 group sums
 (Q2_K turbo, nibble), which the JAX package makes before its kernels
 (``ops/matmul.py:254-259``, ``ops/pallas/qmm.py:600-615``), are made
 inside the port's kernels (or, for the tiles, not needed: they dequantize
-the weights in natural order). The pair
+the weights in natural order); behind a row-permuted w13 the w2 tiles read
+h in its permuted order. The pair
 capacity is every pair, rounded up to the 128-row tile (the JAX
 ``ep_prefill_capacity`` at ``ep == 1``); expert parallelism (the EP
 capacity and its overflow count) is ROADMAP.md queue 1, item 14.
@@ -153,7 +154,11 @@ def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None):
     else:
         h = glu_act(qmm_grouped(w1, tile_expert, x_tiles, tile_rows),
                     qmm_grouped(w3, tile_expert, x_tiles, tile_rows), act)
-    y = qmm_grouped(w2, tile_expert, h, tile_rows)              # (G, TB, dim)
+    # a row-permuted w13 (KNibbleTensor.rowperm, DSEEK_FUSED_FFN=1) leaves
+    # h in the stride-16 permuted order per half: K6's prepermuted body
+    # takes it as it is (deepseek_tpu/ops/matmul.py:268-285)
+    rp = isinstance(w13, KNibbleTensor) and bool(w13.rowperm)
+    y = qmm_grouped(w2, tile_expert, h, tile_rows, x_prepermuted=rp)  # (G, TB, dim)
     y = y.reshape(G * TB, dim)[dest] * weights.reshape(N, 1).float()
     return y.reshape(B, T, k, dim).sum(2).to(dtype)
 

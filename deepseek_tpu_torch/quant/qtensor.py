@@ -272,8 +272,14 @@ class KNibbleTensor:
     a: torch.Tensor                    # (..., out, in//16) bf16 = d*sc
     c: Optional[torch.Tensor] = None   # (..., out, in//16) bf16 min term
     off: int = 0                       # u = q + off
-    # (the reference's row-permuted expert layout, rowperm > 0, belongs to
-    # kernel K7 and is not ported; params_from_reference rejects it)
+    # rowperm > 0: the OUT rows are stored stride-16 permuted per
+    # contiguous part (rowperm = the number of parts; 2 for an expert
+    # [w1;w3] table, models/loader.py::rowperm_expert_w13): stored position
+    # o*(mh/16) + g of a part holds its natural row g*16 + o. A product
+    # against the stored rows lands in the permuted activation order (per
+    # part), which the w2 kernels and K7 take as they are. dequant()
+    # restores the natural rows.
+    rowperm: int = 0
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -288,7 +294,7 @@ class KNibbleTensor:
         """Apply ``fn`` to every plane (row slices, device moves)."""
         return KNibbleTensor(p=fn(self.p), a=fn(self.a),
                              c=None if self.c is None else fn(self.c),
-                             off=self.off)
+                             off=self.off, rowperm=self.rowperm)
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         n = 2 * self.p.shape[-1]
@@ -298,7 +304,33 @@ class KNibbleTensor:
         if self.c is not None:
             w = w - self.c.to(dtype).repeat(reps)
         inv = torch.as_tensor(stride16_inv_perm(n), device=w.device)
-        return w.index_select(-1, inv)
+        w = w.index_select(-1, inv)
+        if self.rowperm:
+            # stored position o*(mh/16) + g of each part holds natural row
+            # g*16 + o: the inverse is a (16, mh/16) -> (mh/16, 16) transpose
+            *lead, rows, cols = w.shape
+            mh = rows // self.rowperm
+            w = w.reshape(*lead, self.rowperm, 16, mh // 16, cols) \
+                .transpose(-3, -2).reshape(*lead, rows, cols)
+        return w
+
+    def stored_rows(self) -> "KNibbleTensor":
+        """The same planes read as rows in their stored order (what the
+        kernels compute against): rowperm dropped."""
+        return dataclasses.replace(self, rowperm=0)
+
+
+def perm_x(x: torch.Tensor) -> torch.Tensor:
+    """Activations (..., n) into the stride-16 permuted order: position
+    o*(n/16) + g holds natural column g*16 + o (a (n/16, 16) transpose)."""
+    *lead, n = x.shape
+    return x.reshape(*lead, n // 16, 16).transpose(-1, -2).reshape(*lead, n)
+
+
+def unperm_x(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``perm_x``."""
+    *lead, n = x.shape
+    return x.reshape(*lead, 16, n // 16).transpose(-1, -2).reshape(*lead, n)
 
 
 def rows_to_experts(qt, ns: int):

@@ -25,15 +25,16 @@ from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mla_prefill_attn_plain,
 )
 from deepseek_tpu_torch.ops.kernels.qmm import (
-    gmm, gmm_plain, qmm, qmm_experts, qmm_experts_fp, qmm_experts_fp8,
+    gmm, gmm_plain, qmm, qmm_expert_ffn, qmm_expert_ffn_plain, qmm_experts,
+    qmm_experts_fp, qmm_experts_fp8,
     qmm_experts_packed, qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows,
     qmm_fp_plain, qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed,
     qmm_grouped_plain, qmm_grouped_turbo, qmm_experts_turbo, qmm_packed,
     qmm_packed_rows, qmm_plain, qmm_rows, qmm_turbo, qmm_turbo_rows,
 )
 from deepseek_tpu_torch.quant.qtensor import (
-    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, q2k_to_turbo,
-    q3k_to_turbo,
+    Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, perm_x,
+    q2k_to_turbo, q3k_to_turbo,
 )
 
 
@@ -177,6 +178,99 @@ def test_k6_matches_plain(quant, dev):
     want = qmm_grouped_plain(qt, te, x, rows)
     live = torch.arange(128, device=dev)[None, :] < rows[:, None]
     _close(got[live], want[live], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("E,d,n,rows", [(4, 100, 256, 3), (16, 7168, 2048, 9),
+                                        (3, 300, 1536, 1)])
+def test_k2_prepermuted_matches_plain(quant, E, d, n, rows, dev):
+    """K2's prepermuted body (x in the stride-16 order, staged as given,
+    group sums over the permuted positions) against its plain version and
+    against the natural body on the natural x; counted apart. Tolerance
+    1e-4 of the output scale, as K2's."""
+    qt = _nibble(E, d, n, quant, seed=d + n, dev=dev)
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, n), generator=g).to(dev)
+    xp = perm_x(x).contiguous()
+    idx = torch.tensor(([E - 1, 0, E - 1] * 3)[:rows], device=dev)
+    nat, pre = qmm_experts.launches, qmm_experts.prepermuted.launches
+    got = qmm_experts(qt, idx, xp, x_prepermuted=True)
+    _close(got, qmm_experts_plain(qt, idx, xp, x_prepermuted=True), 1e-4)
+    _close(got, qmm_experts(qt, idx, x), 1e-4)
+    assert qmm_experts.prepermuted.launches == pre + 1
+    assert qmm_experts.launches == nat + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(200, 512), (7168, 2048)])
+def test_k6_prepermuted_matches_plain(quant, d, n, dev):
+    """K6's prepermuted body (each natural column read from its permuted
+    position as a tile is staged) against its plain version, with live-row
+    counts, and against the natural body on the natural tiles."""
+    E, G = 3, 5
+    qt = _nibble(E, d, n, quant, seed=7, dev=dev)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((G, 128, n), generator=g).to(dev)
+    xp = perm_x(x).contiguous()
+    te = torch.tensor([0, 0, 2, 1, 2], device=dev, dtype=torch.int32)
+    rows = torch.tensor([128, 7, 0, 64, 1], device=dev, dtype=torch.int32)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    before = qmm_grouped.prepermuted.launches
+    got = qmm_grouped(qt, te, xp, rows, x_prepermuted=True)
+    assert qmm_grouped.prepermuted.launches == before + 1
+    _close(got[live], qmm_grouped_plain(qt, te, xp, rows, x_prepermuted=True)[live], 1e-4)
+    _close(got[live], qmm_grouped(qt, te, x, rows)[live], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("E,mh,n,d,N", [(3, 1024, 256, 512, 4), (12, 2048, 7168, 7168, 9),
+                                        (6, 256, 512, 300, 40)])
+def test_k7_matches_plain(quant, act, E, mh, n, d, N, dev):
+    """K7 (one cooperative launch) against its plain version: DeepSeek-V3's
+    widths with 9 pairs, the JAX test's shapes, and 40 pairs over a short
+    m, more than one shared-memory chunk of pairs; a repeated expert and a
+    zero-weight pair each time. Tolerance 1e-4 of the output scale: f32
+    sums in other orders, the GLU's exp/tanh, and the nibble floats'
+    offset cancelled against f32 group sums in both products."""
+    from deepseek_tpu_torch.config import ActivationType
+    from deepseek_tpu_torch.models.loader import _rowperm_qt
+    w13 = _rowperm_qt(_nibble(E, 2 * mh, n, quant, seed=mh + n, dev=dev), 2, undo=False)
+    w2 = _nibble(E, d, mh, quant, seed=d, dev=dev)
+    g = torch.Generator().manual_seed(N)
+    idx = torch.randint(0, E, (N,), generator=g)
+    idx[1] = idx[0]
+    idx = idx.sort().values.to(dev)
+    wts = torch.rand((N,), generator=g).to(dev)
+    wts[N // 2] = 0.0
+    x = torch.randn((1, n), generator=g).to(dev, torch.bfloat16)
+    a = ActivationType(act)
+    before = qmm_expert_ffn.launches
+    got = qmm_expert_ffn(w13, w2, idx, x, wts, a)
+    assert qmm_expert_ffn.launches == before + 1
+    assert got.shape == (1, d) and got.dtype == torch.float32
+    _close(got, qmm_expert_ffn_plain(w13, w2, idx, x, wts, a), 1e-4)
+    assert torch.equal(qmm_expert_ffn(w13, w2, idx, x, wts, a), got)   # no atomics
+
+
+@pytest.mark.cuda
+def test_k7_rejects_what_it_cannot_take(dev):
+    from deepseek_tpu_torch.config import ActivationType
+    w13 = _nibble(2, 512, 256, "q3_k", seed=1, dev=dev)
+    w2 = _nibble(2, 256, 256, "q3_k", seed=2, dev=dev)
+    idx = torch.zeros(2, dtype=torch.int64, device=dev)
+    wts = torch.ones(2, device=dev)
+    x = torch.ones((1, 256), device=dev)
+    with pytest.raises(ValueError, match="not fusable"):       # natural rows
+        qmm_expert_ffn(w13, w2, idx, x, wts, ActivationType.SILU)
+    from deepseek_tpu_torch.models.loader import _rowperm_qt
+    rp = _rowperm_qt(w13, 2, undo=False)
+    with pytest.raises(ValueError):                             # x width
+        qmm_expert_ffn(rp, w2, idx, torch.ones((1, 512), device=dev), wts,
+                       ActivationType.SILU)
 
 
 @pytest.mark.cuda
@@ -887,7 +981,8 @@ def test_sample_token_cuda_matches_cpu(case, dev):
                        prng.random_bits(key, (4, 1000)))
 
 
-def _decode_block_under_sync_debug(dev, kv_cache_dtype):
+def _decode_block_under_sync_debug(dev, kv_cache_dtype, quant="q3_k",
+                                   rowperm=False, block=8):
     from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.testing import (
@@ -898,12 +993,12 @@ def _decode_block_under_sync_debug(dev, kv_cache_dtype):
         first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
         moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512)
     cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
-    params = random_fused_params(cfg, "q3_k", seed=1, device=dev)
+    params = random_fused_params(cfg, quant, seed=1, device=dev, rowperm=rowperm)
     cache = init_cache(cfg, device=dev)
     tok = torch.tensor([[5]], device=dev)
     with torch.inference_mode():
         forward_decode(params, cache, tok, 0, cfg)           # builds the kernels
-    loop = make_decode_loop(cfg, 8)
+    loop = make_decode_loop(cfg, block)
     torch.cuda.synchronize()
     for temperature in (0.0, 0.8):
         torch.cuda.set_sync_debug_mode("error")
@@ -912,7 +1007,7 @@ def _decode_block_under_sync_debug(dev, kv_cache_dtype):
                                    0.95, top_k=20, min_p=0.01)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert toks.shape == (1, 8) and bool(torch.isfinite(logits).all())
+        assert toks.shape == (1, block) and bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.cuda
@@ -929,3 +1024,14 @@ def test_int8_decode_block_does_not_synchronize(dev):
     """The same over an int8 KV cache: quantizing each written row, its
     scale and the sink masters' updates add no synchronization."""
     _decode_block_under_sync_debug(dev, "int8")
+
+
+@pytest.mark.cuda
+def test_permuted_decode_block_does_not_synchronize(dev):
+    """A 32-token decode block of a small nibble model whose expert tables
+    are row-permuted (every MoE step one K7 launch, no occupancy query or
+    host read inside the block) under set_sync_debug_mode("error")."""
+    before = qmm_expert_ffn.launches
+    _decode_block_under_sync_debug(dev, "bfloat16", "q3_k_nibble", rowperm=True,
+                                   block=32)
+    assert qmm_expert_ffn.launches - before >= 2 * 32
