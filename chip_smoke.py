@@ -74,7 +74,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      run on the CPU, with an f16 and with an int8 cache; then the same
      model in F8E5M2 with 128x128
      blocks (K5 row-tiled, K6's fp8 body, K9; then K5, K2's fp8 body, K8),
-     and its first 2 layers against the CPU over a 300-token prompt.
+     and its first 2 layers against the CPU over a 300-token prompt;
+  6. the seq mesh axis (seq=2): with the parent's models freed, the
+     unsharded runs on the card, then two ranks spawned by
+     deepseek_tpu_torch/parallel/launch.py, gloo ranks that share the one
+     card, run the same paths over their halves of the KV window: the
+     DeepSeek-V3-width packed Q3_K model (a 512-token prompt in two
+     context-parallel chunks, with and without the factor weights: the
+     partials bodies of K9 and K10; 32 decode steps: K3's; bf16 and int8
+     caches, bf16 and f32 compute; a 32-token decode block at 0.8 whose
+     tokens both ranks must share), DeepSeek-V2-Lite F16 cut to 8 layers
+     (K9's and K8's partials bodies, bf16 and int8 caches, bf16 and f32
+     compute) and 2 of its layers hydrated to the window's edge and
+     decoded past it, each against the unsharded run; then every partials
+     body against its plain version at the shards' shapes and on an empty
+     shard.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -2247,6 +2261,553 @@ def cpu_cut_phase(label, params, cfg, counts, n_prompt, expect,
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the seq mesh axis (sequence-parallel decode, context-parallel
+# prefill) on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+SEQ = 2                    # ranks of the seq axis; gloo: they share one card
+SEQ_DECODE = 32            # teacher-forced decode steps after the prompt
+SEQ_V2_LAYERS = 8          # V2-Lite depth at seq=2: each rank holds the model
+SEQ_EDGE_DECODE = 8        # decode steps past the window's edge (2-layer cut)
+SEQ_TIMEOUT = 900          # seconds: a rank that hangs past it fails the run
+ATTN_COUNTERS = ("K3", "K8", "K9", "K10", "K3-int8", "K8-int8", "K9-int8", "K10-int8")
+
+
+# How a sharded run's logits are held against the unsharded run's, as
+# fractions of max|logit|. In f32 compute the two differ by f32 sums in
+# other orders (measured on the card: at most 4.8e-4 with an int8 cache,
+# 1.2e-4 without): 1e-3. In bf16 compute (the V3 and V2-Lite cells' dtype)
+# any change of summation order flips roundings of the bf16 residual
+# stream that every later layer carries: measured 0.35-1.03% on the rows
+# of the V3 cells and 1.28-1.70% on V2-Lite's (8 layers), argmax equal on
+# all rows but near-ties, while two unsharded runs agree bit for bit: 2^-5
+# (four bf16 ulps at the logit scale, about twice the largest measured).
+# Each row's argmax must be the unsharded run's or a near-tie within it.
+SEQ_TOL = {"float32": 1e-3, "bfloat16": 2.0 ** -5}
+
+
+def seq_cells():
+    """(name, model, variant, prefill kernels, decode kernels) of every path
+    the seq phase drives: the variant's factor weights, cache and compute
+    dtypes, and the partials bodies the path must launch. Each partials
+    body runs in at least one f32-compute cell, where it is held at 1e-3."""
+    f32 = "float32"
+    return [
+        ("V3 packed Q3_K, K9", "v3", dict(factors=True, kv="bfloat16"),
+         ("K9-part",), ("K3-part",)),
+        ("V3 packed Q3_K, K10", "v3", dict(factors=False, kv="bfloat16"),
+         ("K10-part",), ("K3-part",)),
+        ("V3 packed Q3_K int8, K9", "v3", dict(factors=True, kv="int8"),
+         ("K9-part",), ("K3-part-int8",)),
+        ("V3 packed Q3_K int8, K10", "v3", dict(factors=False, kv="int8"),
+         ("K10-part-int8",), ("K3-part-int8",)),
+        ("V3 packed Q3_K f32 compute, K9", "v3",
+         dict(factors=True, kv="bfloat16", compute=f32), ("K9-part",), ("K3-part",)),
+        ("V3 packed Q3_K f32 compute, K10", "v3",
+         dict(factors=False, kv="bfloat16", compute=f32), ("K10-part",), ("K3-part",)),
+        ("V3 packed Q3_K int8 f32 compute, K10", "v3",
+         dict(factors=False, kv="int8", compute=f32), ("K10-part-int8",),
+         ("K3-part-int8",)),
+        ("V2-Lite F16", "v2", dict(kv="bfloat16"), ("K9-part",), ("K8-part",)),
+        ("V2-Lite F16 int8", "v2", dict(kv="int8"), ("K9-part-int8",), ("K8-part-int8",)),
+        ("V2-Lite F16 f32 compute", "v2", dict(kv="bfloat16", compute=f32),
+         ("K9-part",), ("K8-part",)),
+        ("V2-Lite F16 int8 f32 compute", "v2", dict(kv="int8", compute=f32),
+         ("K9-part-int8",), ("K8-part-int8",)),
+        ("window edge", "edge", dict(kv="float16"), ("K9-part",), ("K8-part",)),
+    ]
+
+
+def seq_model(model):
+    """The seq phase's model of ``model`` ("v3", "v2", "edge"), drawn on the
+    card from the seed: the same draw in the parent and in each rank."""
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v2_lite_proportions, deepseek_v3_proportions, random_fused_params,
+        random_plain_params)
+    if model == "v3":
+        cfg = deepseek_v3_proportions(n_layers=4)
+        return random_fused_params(cfg, "q3_k", seed=SEED, device="cuda",
+                                   factors=True), cfg
+    cfg = deepseek_v2_lite_proportions(n_layers=SEQ_V2_LAYERS)
+    params = random_plain_params(cfg, torch.float16, seed=SEED, device="cuda")
+    if model == "edge":      # its first 2 layers in f32 compute, as cpu_cut_phase
+        cfg = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+        params = dataclasses.replace(params, layers=params.layers[:2])
+    return params, cfg
+
+
+def seq_inputs(cfg, model):
+    """(prompt, teacher-forced decode tokens) of a seq cell, from the seed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    n = cfg.kv_window if model == "edge" else PREFILL_TOKENS
+    steps = SEQ_EDGE_DECODE if model == "edge" else SEQ_DECODE
+    toks = torch.randint(3, cfg.vocab_size, (n + steps,), generator=gen,
+                         device="cuda").tolist()
+    return toks[:n], toks[n:]
+
+
+def seq_path(params, cfg, prompt, forced, ctx, cache, counts):
+    """The prompt in prefill chunks of 256 (every chunk divides the seq
+    axis: context-parallel), then the decode steps fed ``forced`` (None:
+    greedy). Returns the logits after the prompt and after each step (a
+    (steps + 1, V) f32 CPU tensor), the tokens fed, each part's launch
+    counts, its wall seconds."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
+
+    chunk, rows, fed, launched = 256, [], [], {}
+    steps = SEQ_EDGE_DECODE if forced is None else len(forced)
+    with torch.inference_mode():
+        reset(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(prompt), chunk):
+            last = i + chunk >= len(prompt)
+            tok = torch.tensor([prompt[i:i + chunk]], device="cuda")
+            logits = forward_prefill(params, cache, tok, i, cfg,
+                                     "last" if last else "none", ctx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launched["prefill"] = read(counts)
+        reset(counts)
+        for s in range(steps):
+            rows.append(logits[0].float().cpu())
+            t = int(rows[-1].argmax()) if forced is None else forced[s]
+            fed.append(t)
+            logits = forward_decode(params, cache, torch.tensor([[t]], device="cuda"),
+                                    len(prompt) + s, cfg, ctx)
+        rows.append(logits[0].float().cpu())
+        torch.cuda.synchronize()
+        launched["decode"] = read(counts)
+    return torch.stack(rows), fed, launched, (t1 - t0, time.perf_counter() - t1)
+
+
+def seq_cell_cfg(cfg, variant):
+    return dataclasses.replace(cfg, kv_cache_dtype=variant["kv"],
+                               compute_dtype=variant.get("compute", cfg.compute_dtype))
+
+
+def seq_cell_params(params, variant):
+    if variant.get("factors", True):
+        return params
+    return dataclasses.replace(params, layers=[
+        dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])
+
+
+def seq_rank(rank, world, forced_of):
+    """One rank of the seq phase: each cell over this rank's slice of the
+    window (its forced tokens from the unsharded run, the window edge's
+    greedy ones included), then a 32-token decode block at temperature 0.8
+    after the V3 cell's prompt. Returns per cell the logits, the launch
+    counts of its prefill and decode, its walls; the block's tokens; the
+    rank's peak memory."""
+    from deepseek_tpu_torch.models.deepseek import forward_prefill, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_tpu_torch.parallel.sharding import shard_cache, shard_params
+    from deepseek_tpu_torch.parallel.spmd import make_ctx
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(seq=world)
+    counts = counters()
+    out, models = {}, {}
+    for name, model, variant, _, _ in seq_cells():
+        if model not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[model] = seq_model(model)
+        params, cfg = models[model]
+        params = shard_params(seq_cell_params(params, variant), cfg, mesh)
+        cfg = seq_cell_cfg(cfg, variant)
+        ctx = make_ctx(cfg, mesh)
+        prompt, _ = seq_inputs(cfg, model)
+        cache = shard_cache(init_cache(cfg, device="cuda"), cfg, mesh)
+        rows, _, launched, walls = seq_path(params, cfg, prompt, forced_of[name], ctx,
+                                            cache, counts)
+        out[name] = dict(rows=rows, launched=launched, walls=walls)
+        if name == "V3 packed Q3_K, K9":
+            cache = shard_cache(init_cache(cfg, device="cuda"), cfg, mesh)
+            with torch.inference_mode():
+                for i in range(0, len(prompt), 256):
+                    forward_prefill(params, cache, torch.tensor([prompt[i:i + 256]],
+                                                                device="cuda"),
+                                    i, cfg, "none", ctx)
+            loop = make_decode_loop(cfg, 32, mesh=mesh)
+            tok = torch.full((1, 1), prompt[-1], dtype=torch.int64, device="cuda")
+            toks, _, _ = loop(params, cache, tok, len(prompt), prng.PRNGKey(SEED), 0.8,
+                              0.95)
+            out["block"] = toks[0].tolist()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def seq_phase(counts, runs):
+    """The seq mesh axis at SEQ=2: the unsharded runs on the card first (the
+    reference), then two ranks spawned by parallel/launch.py share the card
+    (gloo) and run the same cells over their slices of the window:
+    DeepSeek-V3 width, packed Q3_K, 4 layers, with and without the factor
+    weights, bf16 and int8 caches (a 512-token prompt in two CP chunks:
+    K9's or K10's partials; 32 decode steps: K3's), three of them again in
+    f32 compute, and a 32-token decode block at 0.8 whose tokens both ranks
+    must share; DeepSeek-V2-Lite F16 MHA cut to SEQ_V2_LAYERS layers, bf16
+    and int8 caches (K9's, K8's), each also in f32 compute; and 2
+    of its layers in f32 hydrated to the 4096-slot window's edge and
+    decoded greedily past it (the ring wraps from shard 1's last slot into
+    shard 0's, the sinks re-rotate on shard 0). Each rank's logits within
+    SEQ_TOL (by compute dtype) of the unsharded run's, the same on both
+    ranks, each row's argmax the same or a near-tie within the tolerance
+    (the edge's greedy tokens so); each path launched its partials bodies and
+    no normalized attention body. Every disagreement is logged before the
+    phase fails. The partials bodies against their plain versions at the
+    shards' shapes follow (``partials_kernel_entries``, run by main)."""
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.parallel.launch import launch
+    from deepseek_tpu_torch.parallel.spmd import NULL_CTX
+
+    t_phase = time.perf_counter()
+    log(f"seq=2: V3 width 4 layers (depth cut from 61); V2-Lite depth cut from "
+        f"{V2_LITE_LAYERS} to {SEQ_V2_LAYERS} layers, widths uncut (each rank holds "
+        f"a whole model); the window-edge cell its first 2 layers in f32 compute")
+    ref, forced_of, models = {}, {}, {}
+    for name, model, variant, _, _ in seq_cells():
+        if model not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[model] = seq_model(model)
+        params, cfg = models[model]
+        params, cfg = seq_cell_params(params, variant), seq_cell_cfg(cfg, variant)
+        prompt, forced = seq_inputs(cfg, model)
+        forced = None if model == "edge" else forced
+        rows, fed, _, walls = seq_path(params, cfg, prompt, forced, NULL_CTX,
+                                       init_cache(cfg, device="cuda"), counts)
+        ref[name], forced_of[name] = (rows, walls, str(cfg.compute_dtype)), fed
+    models.clear()
+    torch.cuda.empty_cache()
+    log(f"seq=2: unsharded reference runs on the card in "
+        f"{time.perf_counter() - t_phase:.1f} s; the parent holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB while the ranks run")
+
+    t0 = time.perf_counter()
+    ranks = launch(seq_rank, SEQ, forced_of, backend="gloo", timeout=SEQ_TIMEOUT,
+                   threads=None)
+    log(f"seq=2: {SEQ} gloo ranks on one card ran every cell in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and model draws included); peak "
+        f"device memory per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    failed = []
+    for name, model, variant, pre_k, dec_k in seq_cells():
+        want, walls1, cdt = ref[name]
+        scale = float(want.abs().max())
+        tol = SEQ_TOL[cdt] * scale
+        for r, res in enumerate(ranks):
+            got, launched = res[name]["rows"], res[name]["launched"]
+            row_err = (got - want).abs().amax(-1)
+            err = float(row_err.max())
+            top = got.argmax(-1)
+            ties = want.gather(1, want.argmax(-1, keepdim=True))[:, 0] \
+                - want.gather(1, top[:, None])[:, 0]
+            log(f"seq=2 {name} ({cdt} compute, {variant['kv']} cache), rank {r}: logits "
+                f"after the prompt and {len(got) - 1} decode steps vs unsharded: max abs "
+                f"err {err:.3e} (per-row errors / max|logit| from "
+                f"{float(row_err.min()) / scale:.2e} to {err / scale:.2e}; tolerance "
+                f"{tol:.3e} = {SEQ_TOL[cdt]:g} of max|logit| {scale:.3f}), argmax equal on "
+                f"{int((top == want.argmax(-1)).sum())} of {len(got)} rows; prefill / "
+                f"decode wall {res[name]['walls'][0]:.3f} / {res[name]['walls'][1]:.3f} s "
+                f"(unsharded {walls1[0]:.3f} / {walls1[1]:.3f} s; two ranks time-share "
+                f"the card); launches prefill "
+                f"{ {k: v for k, v in launched['prefill'].items() if v} }, decode "
+                f"{ {k: v for k, v in launched['decode'].items() if v} }")
+            if not (bool(torch.isfinite(got).all()) and err <= tol
+                    and float(ties.max()) <= tol):
+                failed.append(f"{name}: rank {r}'s logits disagree with the unsharded run")
+            if r and not torch.equal(got, ranks[0][name]["rows"]):
+                failed.append(f"{name}: rank {r}'s logits differ from rank 0's")
+            for part, kernels in (("prefill", pre_k), ("decode", dec_k)):
+                missing = [k for k in kernels if launched[part][k] == 0]
+                normal = {k: launched[part][k] for k in ATTN_COUNTERS
+                          if launched[part][k]}
+                if missing or normal:
+                    failed.append(f"{name} {part}, rank {r}: never launched {missing}, "
+                                  f"launched normalized {normal}")
+            if model == "edge":
+                bad = [i for i, tok in enumerate(forced_of[name])
+                       if int(got[i].argmax()) != tok
+                       and float(got[i].max() - got[i, tok]) > tol]
+                log(f"seq=2 window edge, rank {r}: the greedy tokens past the window's "
+                    f"edge {'equal' if not bad else 'DIFFER from'} the unsharded run's "
+                    f"{forced_of[name]} (or near-ties){f' at steps {bad}' if bad else ''}")
+                if bad:
+                    failed.append(f"window edge: rank {r}'s greedy tokens differ at {bad}")
+        runs[f"seq=2 {name} prefill"] = ranks[0][name]["launched"]["prefill"]
+        runs[f"seq=2 {name} decode"] = ranks[0][name]["launched"]["decode"]
+    blocks = [r["block"] for r in ranks]
+    log(f"seq=2: make_decode_loop(mesh=make_mesh(seq=2)) block at 0.8, tokens per "
+        f"rank {blocks}")
+    if any(b != blocks[0] for b in blocks):
+        failed.append("the ranks sampled different tokens")
+    log(f"seq=2 phase: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError("seq=2: " + "; ".join(failed))
+
+
+def check_triple(entry, got, want, rel_tol):
+    """A partials triple against its plain version: the rows that see no
+    slot are the empty triple exactly; elsewhere m within rel_tol of its
+    scale, acc and l within rel_tol of their scale after rescaling both to
+    the common maximum. max_abs_err is the largest of those errors."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    empty = m_w <= -1e29
+    ok = bool((m[empty] == -1e30).all()) and not l[empty].any() and not acc[empty].any()
+    live = ~empty
+    mx = torch.maximum(m, m_w)
+    a, b = torch.exp(m - mx), torch.exp(m_w - mx)
+    errs, tols = [], []
+    for x, y, floor in ((m[live], m_w[live], 1.0), ((l * a)[live], (l_w * b)[live], 0.0),
+                        ((acc * a[..., None])[live], (acc_w * b[..., None])[live], 0.0)):
+        errs.append(float((x - y).abs().max()) if x.numel() else 0.0)
+        tols.append(rel_tol * max(float(y.abs().max()) if y.numel() else 0.0, floor))
+    entry["max_abs_err"] = max(errs)
+    ok = ok and all(math.isfinite(e) and e <= t for e, t in zip(errs, tols))
+    log(f"  {entry['name']}: max abs err m / l / acc {errs[0]:.3e} / {errs[1]:.3e} / "
+        f"{errs[2]:.3e} (tolerances {tols[0]:.3e} / {tols[1]:.3e} / {tols[2]:.3e}, "
+        f"{rel_tol:g} of each scale), {int(empty.sum())} empty rows -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{entry['name']} disagrees with its plain version")
+
+
+def check_empty_shard(name, fn, plain):
+    """A partials body on a shard that holds no slot its queries may see
+    (on the main path, shard 1 while the prompt fills shard 0): every row
+    the empty triple (acc 0, l 0, m -1e30) exactly, as its plain version
+    gives, and no NaN."""
+    got, want = fn(), plain()
+    if [t.shape for t in got] != [t.shape for t in want]:
+        raise RuntimeError(f"{name}: shapes {[tuple(t.shape) for t in got]}, plain "
+                           f"{[tuple(t.shape) for t in want]}")
+    if not bool((want[1] <= -1e29).all()):
+        raise RuntimeError(f"{name}: the plain version sees a slot on the empty shard")
+    check_triple({"name": name}, got, want, 0.0)
+
+
+def emit_partials(entries, name, fn, plain, normalized, tol, nb, flops, source,
+                  replaces, kernel, path, library=None):
+    """One partials body: checked (check_triple) and timed beside its plain
+    version, the normalized body over the same slice and a library call."""
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "kernel": kernel, "path": path}
+    check_triple(entry, fn(), plain(), tol)
+    entry["ms"] = time_ms(fn)
+    entry["plain_ms"] = time_ms(plain)
+    entry["normalized_ms"] = time_ms(normalized)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(nb, flops)
+    if library is not None:
+        try:
+            library()
+        except Exception as exc:    # the yardstick only; the port never calls it
+            log(f"  {name}: library call unavailable: {type(exc).__name__}: "
+                f"{str(exc)[:300]}")
+            library = None
+    entry["library_ms"] = time_ms(library) if library is not None else None
+    log(f"  {name}: {entry['ms']:.4f} ms (normalized body over the same slice "
+        f"{entry['normalized_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})"
+        + (f", library {entry['library_ms']:.4f} ms" if library else ""))
+    entries.append(entry)
+
+
+def lse_attention(q, k, v, mask, scale):
+    """Yardstick only (the port never calls it): PyTorch's memory-efficient
+    SDPA with its log-sum-exp, the flash statistics the partials body
+    returns (lse = m + log l), over q (B,H,T,D), k/v (B,H,S,.) and a
+    boolean (T,S) mask turned into an additive bias."""
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
+        ~mask, float("-inf"))
+    bias = bias[None, None].expand(q.shape[0], q.shape[1], *mask.shape)
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, scale=scale)
+
+
+def partials_kernel_entries(entries):
+    """The partials bodies of K3, K8, K9 and K10 at the seq=2 shards' shapes
+    (each rank's 2048 of the 4096-slot window), the second shard's slice,
+    float (bf16) and int8 rows: K3 and K10 at DeepSeek-V3's (128 heads, R
+    512, P 64), K8 at DeepSeek-V2-Lite's (16 heads, Dh 192, Dv 128), K9 at
+    both (the V3 hybrid prefill's 128 heads and V2-Lite's 16). Decode at
+    kv_len 4000 (1952 live slots on the second shard); prefill the
+    window's last 256-token chunk at 3840 (shard 1 at cache_pos0 2048).
+    Each beside its normalized body over the same slice. Tolerance 1e-4 of
+    each scale: f32 sums in other orders, fast exp. The bounds count the
+    slice's rows (int8: and their f32 scales), the queries and the triple
+    written. The library time is the memory-efficient SDPA with its
+    log-sum-exp over the same mask (where PyTorch takes the shapes); over
+    int8 rows with scales no PyTorch call attends, so none. Each body,
+    float and int8, is also held on an empty shard at the same shapes
+    (``check_empty_shard``): decode at kv_len_local 0, prefill the
+    window's first chunk (q_pos0 0) on the second shard."""
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mha_decode_attn, mha_decode_attn_plain, mla_decode_attn,
+        mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
+        mla_prefill_attn_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    S, half, kv, T = 4096, 2048, 4000, 256
+    S_l, kv_l, q_pos0, base = half, kv - half, S - T, half
+    pairs = sum(min(S_l, max(0, q_pos0 + t - base + 1)) for t in range(T))
+    src, pallas = "deepseek_tpu_torch/csrc/", "deepseek_tpu/ops/pallas/attention.py:"
+    kl = torch.tensor([kv_l], device="cuda", dtype=torch.int32)
+    kl0 = torch.zeros(1, device="cuda", dtype=torch.int32)    # an empty shard
+    bf = lambda *shape: (torch.randn(shape, generator=gen, device="cuda") * 0.3).to(
+        torch.bfloat16)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    dec_mask = (torch.arange(S_l, device="cuda") < kv_l)[None]
+    pre_mask = (base + torch.arange(S_l, device="cuda")[None]
+                <= q_pos0 + torch.arange(T, device="cuda")[:, None])
+    trip = lambda *lead: 4 * math.prod(lead)      # bytes of acc + m + l written
+
+    # K3 partials (V3: 128 heads over the latent slice)
+    H, R, P = 128, 512, 64
+    scale = 1.0 / math.sqrt(192)
+    qc, qr = rnd(1, H, R), rnd(1, H, P)
+    for q8 in (False, True):
+        if q8:
+            (ckv, cs), (kr, rs) = int8_rows(gen, (1, S_l, R)), int8_rows(gen, (1, S_l, P))
+            sc, row_b, tag, kern = dict(ckv_scale=cs, krope_scale=rs), R + P + 8, \
+                "int8", "K3-part-int8"
+            lib = None
+        else:
+            ckv, kr, sc, row_b, tag, kern = bf(1, S_l, R), bf(1, S_l, P), {}, \
+                2 * (R + P), "bf16", "K3-part"
+            qh = torch.cat([qc, qr], -1)[:, :, None].to(torch.bfloat16)
+            kh = torch.cat([ckv, kr], -1)[:, None].expand(1, H, S_l, R + P)
+            vh = ckv[:, None].expand(1, H, S_l, R)
+            lib = lambda: lse_attention(qh, kh, vh, dec_mask, scale)
+        emit_partials(
+            entries, f"{kern} mla_decode_attn partials, {tag} shard S_local={S_l} "
+            f"kv_len_local={kv_l} H={H}",
+            lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, partials=True, **sc),
+            lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, partials=True, **sc),
+            lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, **sc), 1e-4,
+            kv_l * row_b + nbytes(qc, qr) + trip(H, R + 2), 2.0 * H * kv_l * (2 * R + P),
+            src + "mla_decode.cu", pallas + "170 (mla_decode_attn, partials out specs "
+            ":214-219, written :158-166)", kern, "seq=2 V3 packed Q3_K"
+            + (" int8, K10 decode" if q8 else ", K9 decode"), library=lib)
+        check_empty_shard(
+            f"{kern} mla_decode_attn partials, {tag} empty shard kv_len_local=0",
+            lambda: mla_decode_attn(qc, qr, ckv, kr, kl0, scale, partials=True, **sc),
+            lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl0, scale, partials=True,
+                                          **sc))
+        del ckv, kr
+
+    # K10 partials (V3), the window's last chunk on the second shard
+    qc, qr = rnd(1, T, H, R) * 0.3, rnd(1, T, H, P) * 0.3
+    for q8 in (False, True):
+        if q8:
+            (ckv, cs), (kr, rs) = int8_rows(gen, (1, S_l, R)), int8_rows(gen, (1, S_l, P))
+            sc, row_b, tag, kern, lib = dict(ckv_scale=cs, krope_scale=rs), R + P + 8, \
+                "int8", "K10-part-int8", None
+        else:
+            ckv, kr, sc, row_b, tag, kern = bf(1, S_l, R), bf(1, S_l, P), {}, \
+                2 * (R + P), "bf16", "K10-part"
+            qh = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16)
+            kh = torch.cat([ckv, kr], -1)[:, None].expand(1, H, S_l, R + P)
+            vh = ckv[:, None].expand(1, H, S_l, R)
+            lib = lambda: lse_attention(qh, kh, vh, pre_mask, scale)
+        emit_partials(
+            entries, f"{kern} mla_prefill_attn partials, {tag} shard T={T} "
+            f"S_local={S_l} H={H} q_pos0={q_pos0} cache_pos0={base}",
+            lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, base, scale,
+                                     partials=True, **sc),
+            lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, base, scale,
+                                           partials=True, **sc),
+            lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, base, scale, **sc), 1e-4,
+            S_l * row_b + nbytes(qc, qr) + trip(T, H, R + 2),
+            2.0 * pairs * H * (2 * R + P), src + "prefill_attn.cu",
+            pallas + "644 (mla_prefill_attn, partials out specs :697, written :634)",
+            kern, "seq=2 V3 packed Q3_K" + (" int8, K10 prefill" if q8 else ", K10 prefill"),
+            library=lib)
+        check_empty_shard(
+            f"{kern} mla_prefill_attn partials, {tag} empty shard T={T} q_pos0=0 "
+            f"cache_pos0={base}",
+            lambda: mla_prefill_attn(qc, qr, ckv, kr, 0, base, scale, partials=True, **sc),
+            lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, 0, base, scale, partials=True,
+                                           **sc))
+        del ckv, kr
+    del qc, qr
+
+    # K9 partials: the V3 hybrid prefill (128 heads) and V2-Lite (16)
+    Dh, Dv = 192, 128
+    scale = 1.0 / math.sqrt(Dh)
+    for H, q8, model in ((128, False, "V3"), (16, False, "V2-Lite"), (16, True, "V2-Lite")):
+        q = rnd(1, T, H, Dh) * 0.3
+        if q8:
+            (k, ks), (v, vs) = int8_rows(gen, (1, S_l, H, Dh)), int8_rows(gen, (1, S_l, H, Dv))
+            sc, row_b, tag, kern, lib = dict(k_scale=ks.transpose(1, 2),
+                                             v_scale=vs.transpose(1, 2)), \
+                H * (Dh + Dv + 8), "int8", "K9-part-int8", None
+            path = "seq=2 V2-Lite F16 int8 prefill"
+        else:
+            k, v, sc, row_b, tag, kern = bf(1, S_l, H, Dh), bf(1, S_l, H, Dv), {}, \
+                2 * H * (Dh + Dv), "bf16", "K9-part"
+            qh, kh, vh = (t.transpose(1, 2).to(torch.bfloat16) for t in (q, k, v))
+            lib = lambda: lse_attention(qh, kh, vh, pre_mask, scale)
+            path = ("seq=2 V3 packed Q3_K, K9 prefill" if model == "V3"
+                    else "seq=2 V2-Lite F16 prefill")
+        emit_partials(
+            entries, f"{kern} mha_prefill_attn partials ({model}), {tag} shard T={T} "
+            f"S_local={S_l} H={H} Dh={Dh} Dv={Dv} q_pos0={q_pos0} cache_pos0={base}",
+            lambda: mha_prefill_attn(q, k, v, q_pos0, base, scale, partials=True, **sc),
+            lambda: mha_prefill_attn_plain(q, k, v, q_pos0, base, scale, partials=True,
+                                           **sc),
+            lambda: mha_prefill_attn(q, k, v, q_pos0, base, scale, **sc), 1e-4,
+            S_l * row_b + nbytes(q) + trip(T, H, Dv + 2), 2.0 * pairs * H * (Dh + Dv),
+            src + "prefill_attn.cu", pallas + "481 (mha_prefill_attn, partials out "
+            "specs :533-541, written :468-474)", kern, path, library=lib)
+        check_empty_shard(
+            f"{kern} mha_prefill_attn partials ({model}), {tag} empty shard T={T} H={H} "
+            f"q_pos0=0 cache_pos0={base}",
+            lambda: mha_prefill_attn(q, k, v, 0, base, scale, partials=True, **sc),
+            lambda: mha_prefill_attn_plain(q, k, v, 0, base, scale, partials=True, **sc))
+        del q, k, v
+
+    # K8 partials (V2-Lite: 16 heads)
+    H = 16
+    q = rnd(1, H, Dh)
+    for q8 in (False, True):
+        if q8:
+            (k, ks), (v, vs) = int8_rows(gen, (1, S_l, H, Dh)), int8_rows(gen, (1, S_l, H, Dv))
+            sc, row_b, tag, kern, lib = dict(k_scale=ks.transpose(1, 2),
+                                             v_scale=vs.transpose(1, 2)), \
+                H * (Dh + Dv + 8), "int8", "K8-part-int8", None
+        else:
+            k, v, sc, row_b, tag, kern = bf(1, S_l, H, Dh), bf(1, S_l, H, Dv), {}, \
+                2 * H * (Dh + Dv), "bf16", "K8-part"
+            qh = q[:, :, None].to(torch.bfloat16)
+            kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+            lib = lambda: lse_attention(qh, kh, vh, dec_mask, scale)
+        emit_partials(
+            entries, f"{kern} mha_decode_attn partials, {tag} shard S_local={S_l} "
+            f"kv_len_local={kv_l} H={H} Dh={Dh} Dv={Dv}",
+            lambda: mha_decode_attn(q, k, v, kl, scale, partials=True, **sc),
+            lambda: mha_decode_attn_plain(q, k, v, kl, scale, partials=True, **sc),
+            lambda: mha_decode_attn(q, k, v, kl, scale, **sc), 1e-4,
+            kv_l * row_b + nbytes(q) + trip(H, Dv + 2), 2.0 * H * kv_l * (Dh + Dv),
+            src + "mha_decode.cu", pallas + "320 (mha_decode_attn, partials out specs "
+            ":363, written :309-318)", kern,
+            "seq=2 V2-Lite F16" + (" int8 decode" if q8 else " decode"), library=lib)
+        check_empty_shard(
+            f"{kern} mha_decode_attn partials, {tag} empty shard kv_len_local=0",
+            lambda: mha_decode_attn(q, k, v, kl0, scale, partials=True, **sc),
+            lambda: mha_decode_attn_plain(q, k, v, kl0, scale, partials=True, **sc))
+        del k, v
+
+
 def counters():
     from deepseek_tpu_torch.ops.kernels.attention import (
         mha_decode_attn, mla_decode_attn)
@@ -2273,7 +2834,16 @@ def counters():
             "K9-int8": mha_prefill_attn.int8, "K10-int8": mla_prefill_attn.int8,
             # the fused expert FFN, and the bodies that take h permuted
             "K7": qmm_expert_ffn, "K2-xperm": qmm_experts.prepermuted,
-            "K6-xperm": qmm_grouped.prepermuted}
+            "K6-xperm": qmm_grouped.prepermuted,
+            # the partials bodies of the seq axis (float cache, int8 cache)
+            "K3-part": mla_decode_attn.partials,
+            "K3-part-int8": mla_decode_attn.partials.int8,
+            "K8-part": mha_decode_attn.partials,
+            "K8-part-int8": mha_decode_attn.partials.int8,
+            "K9-part": mha_prefill_attn.partials,
+            "K9-part-int8": mha_prefill_attn.partials.int8,
+            "K10-part": mla_prefill_attn.partials,
+            "K10-part-int8": mla_prefill_attn.partials.int8}
 
 
 def reset(counts):
@@ -2308,7 +2878,6 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     time_ms.flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
     counts = counters()
-
     runs = {"entry point": entry_point_phase(counts),
             "bf16 entry point": bf16_entry_point_phase(counts),
             "MHA entry point": mha_entry_point_phase(counts),
@@ -2407,6 +2976,12 @@ def main() -> int:
         "V2-Lite fp8 cut", v2_params, v2_cfg, counts, FP8_CUT_PROMPT,
         ("K5", "K5r", "K2-fp8", "K6-fp8", "K8", "K9"))
     del v2_params
+    torch.cuda.empty_cache()
+    # the seq mesh axis: two ranks share the card (the parent holds no model)
+    seq_phase(counts, runs)
+    log("kernels, the partials bodies at the shards' shapes (each against its "
+        "plain version on the card):")
+    partials_kernel_entries(entries)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",
@@ -2418,6 +2993,12 @@ def main() -> int:
                "K3-int8": "full-width packed Q3_K int8 decode",
                "K10-int8": "full-width packed Q3_K int8 prefill",
                "K8-int8": "V2-Lite int8", "K9-int8": "V2-Lite int8"}
+    return finish(card, entries, runs, path_of)
+
+
+def finish(card, entries, runs, path_of) -> int:
+    """Each entry's launches from the run of the path it serves, then the
+    kernels line, the card line and the result line."""
     for e in entries:
         kernel, path = e.pop("kernel"), e.pop("path")
         e["launches"] = runs[path or path_of[kernel]][kernel]

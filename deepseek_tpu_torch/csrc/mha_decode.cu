@@ -40,6 +40,13 @@
 //   s_t = scale * (q . k8[t]) * ks[t],   acc += (p_t * vs[t]) * v8[t],
 // with l summing the unscaled p_t. The cache bytes are half the f16
 // cache's, plus 8 bytes a (slot, head).
+//
+// Partials (partials=True, the sequence-parallel decode: one shard of the
+// window per rank): the merge writes one unnormalized triple per (b, h),
+//   m = max_s m_s,  l = sum_s l_s e^(m_s - m),  acc = sum_s acc_s e^(m_s - m),
+// the TPU kernel's partials output. A shard past the live prefix (kv_len
+// 0: every split empty) gives acc 0, l 0 and m = -1e30 (the JAX _NEG_INF).
+// An int8 shard's scales are the (B,H,S) view of the shard's own slice.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -311,12 +318,14 @@ mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 // reduces m* = max_s m_s and sum_s l_s e^(m_s - m*) over the splits in
 // parallel (a split per thread) and keeps each split's weight e^(m_s - m*)
 // in shared memory, 0 for an empty split (l = 0), whose partials were
-// never written and are not read.
+// never written and are not read. With m_out (partials) the sum is not
+// divided and the block writes m* and l* (-1e30 and 0 with no live split).
 constexpr int kMergeThreads = 128;
 
 __global__ void __launch_bounds__(kMergeThreads)
 mha_merge_kernel(const float* __restrict__ acc_in, const float* __restrict__ m_in,
-                 const float* __restrict__ l_in, float* __restrict__ out, int Dv,
+                 const float* __restrict__ l_in, float* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int Dv,
                  int nsplit) {
   constexpr int kWarps = kMergeThreads / 32;
   __shared__ float w_s[kMaxSplits];
@@ -349,7 +358,11 @@ mha_merge_kernel(const float* __restrict__ acc_in, const float* __restrict__ m_i
   den = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) den += red[1][w];
-  const float inv = den > 0.f ? 1.f / den : 0.f;
+  const float inv = m_out != nullptr ? 1.f : (den > 0.f ? 1.f / den : 0.f);
+  if (m_out != nullptr && tid == 0) {
+    m_out[bh] = mx;              // kNegInf when no split is live
+    l_out[bh] = den;
+  }
 
   const float* acc = acc_in + bh * nsplit * Dv;
   for (int col = tid; col < Dv; col += kMergeThreads) {
@@ -372,8 +385,9 @@ struct Scales {
 template <typename T, int VJ>
 cudaError_t launch(const float* q, const void* k, const void* v,
                    const Scales& sc, const int32_t* kv_len, float* out,
-                   float* acc, float* m, float* l, int B, int H, int S, int Dh,
-                   int Dv, int nsplit, float scale, cudaStream_t stream) {
+                   float* m_out, float* l_out, float* acc, float* m, float* l,
+                   int B, int H, int S, int Dh, int Dv, int nsplit, float scale,
+                   cudaStream_t stream) {
   const int chunk = ((S + nsplit - 1) / nsplit + kTS - 1) / kTS * kTS;
   dim3 grid((H + kHG - 1) / kHG, nsplit, B);
   mha_split_kernel<T, VJ><<<grid, kThreads, 0, stream>>>(
@@ -381,34 +395,37 @@ cudaError_t launch(const float* q, const void* k, const void* v,
       acc, m, l, H, S, Dh, Dv, chunk, nsplit, scale, sc.sb, sc.sh, sc.ss);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mha_merge_kernel<<<B * H, kMergeThreads, 0, stream>>>(acc, m, l, out, Dv, nsplit);
+  mha_merge_kernel<<<B * H, kMergeThreads, 0, stream>>>(acc, m, l, out, m_out,
+                                                        l_out, Dv, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const float* q, const void* k, const void* v,
                      const Scales& sc, const int32_t* kv_len, float* out,
-                     float* acc, float* m, float* l, int B, int H, int S,
-                     int Dh, int Dv, int nsplit, float scale,
-                     cudaStream_t stream) {
+                     float* m_out, float* l_out, float* acc, float* m, float* l,
+                     int B, int H, int S, int Dh, int Dv, int nsplit,
+                     float scale, cudaStream_t stream) {
   constexpr int VE = 16 / sizeof(T);
   if (Dh % VE || Dv % VE) return cudaErrorInvalidValue;
   const int vecs = kHG * (Dv / VE);
   if (vecs <= kThreads)
-    return launch<T, 1>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
-                        nsplit, scale, stream);
+    return launch<T, 1>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B,
+                        H, S, Dh, Dv, nsplit, scale, stream);
   if (vecs <= 2 * kThreads)
-    return launch<T, 2>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
-                        nsplit, scale, stream);
-  return launch<T, 4>(q, k, v, sc, kv_len, out, acc, m, l, B, H, S, Dh, Dv,
-                      nsplit, scale, stream);
+    return launch<T, 2>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B,
+                        H, S, Dh, Dv, nsplit, scale, stream);
+  return launch<T, 4>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B, H,
+                      S, Dh, Dv, nsplit, scale, stream);
 }
 
 }  // namespace
 
 // q (B,H,Dh) f32, k (B,S,H,Dh) and v (B,S,H,Dv) of dtype 0 = f32, 1 = f16,
 // 2 = bf16, 3 = int8 (contiguous, 16-byte aligned), kv_len (B,) int32 ->
-// out (B,H,Dv) f32. For int8, k_scale and v_scale are (B,H,S) f32 views
+// out (B,H,Dv) f32. With m_out and l_out (B,H) f32 (partials; both null
+// otherwise) out is the unnormalized accumulator and m_out, l_out its flash
+// statistics. For int8, k_scale and v_scale are (B,H,S) f32 views
 // with element strides (sb, sh, ss); ignored otherwise. acc
 // (B,H,nsplit,Dv), m and l (B,H,nsplit) f32 are scratch the caller
 // allocates. Needs Dh, Dv <= 256, each a whole number of 16-byte vectors,
@@ -416,13 +433,13 @@ cudaError_t dispatch(const float* q, const void* k, const void* v,
 // Returns a cudaError_t; both launches are asynchronous on `stream`.
 extern "C" int mha_decode(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
-                          const void* kv_len, void* out, void* acc, void* m,
-                          void* l, int B, int H, int S, int Dh, int Dv,
-                          int dtype, int nsplit, float scale, int sb, int sh,
-                          int ss, void* stream) {
+                          const void* kv_len, void* out, void* m_out,
+                          void* l_out, void* acc, void* m, void* l, int B,
+                          int H, int S, int Dh, int Dv, int dtype, int nsplit,
+                          float scale, int sb, int sh, int ss, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || S <= 0 || Dh <= 0 || Dh > kMaxD ||
       Dv <= 0 || Dv > kMaxD || nsplit <= 0 || nsplit > kMaxSplits ||
-      nsplit > 65535 ||
+      nsplit > 65535 || (m_out == nullptr) != (l_out == nullptr) ||
       (dtype == 3 && (k_scale == nullptr || v_scale == nullptr || sb < 0 ||
                       sh < 0 || ss < 0)))
     return (int)cudaErrorInvalidValue;
@@ -431,23 +448,26 @@ extern "C" int mha_decode(const void* q, const void* k, const void* v,
   auto qq = static_cast<const float*>(q);
   auto kl = static_cast<const int32_t*>(kv_len);
   auto o = static_cast<float*>(out);
+  auto mo = static_cast<float*>(m_out);
+  auto lo = static_cast<float*>(l_out);
   auto ac = static_cast<float*>(acc);
   auto mm = static_cast<float*>(m);
   auto ll = static_cast<float*>(l);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch<float>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S, Dh,
-                                  Dv, nsplit, scale, st);
+      return (int)dispatch<float>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B, H,
+                                  S, Dh, Dv, nsplit, scale, st);
     case 1:
-      return (int)dispatch<__half>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S,
-                                   Dh, Dv, nsplit, scale, st);
+      return (int)dispatch<__half>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B,
+                                   H, S, Dh, Dv, nsplit, scale, st);
     case 2:
-      return (int)dispatch<__nv_bfloat16>(qq, k, v, sc, kl, o, ac, mm, ll, B,
-                                          H, S, Dh, Dv, nsplit, scale, st);
+      return (int)dispatch<__nv_bfloat16>(qq, k, v, sc, kl, o, mo, lo, ac, mm,
+                                          ll, B, H, S, Dh, Dv, nsplit, scale,
+                                          st);
     case 3:
-      return (int)dispatch<int8_t>(qq, k, v, sc, kl, o, ac, mm, ll, B, H, S,
-                                   Dh, Dv, nsplit, scale, st);
+      return (int)dispatch<int8_t>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B,
+                                   H, S, Dh, Dv, nsplit, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -25,6 +25,15 @@
 // distinct banks) and serve all 16 heads of the block (MQA-shaped cache).
 // Slots past kv_len or S are zeroed, never read.
 //
+// Partials (partials=True, the sequence-parallel decode: one shard of the
+// window per rank): the merge combines the splits into one unnormalized
+// triple per (b, h) instead of dividing,
+//   m = max_s m_s,  l = sum_s l_s e^(m_s - m),  acc = sum_s acc_s e^(m_s - m),
+// the TPU kernel's partials output. A shard past the live prefix has
+// kv_len 0, every split is empty (l = 0), and the merge writes acc 0, l 0,
+// m = -1e30 (the JAX _NEG_INF): no exp of a difference of two -1e30s and
+// no 0/0 is formed.
+//
 // int8 cache (kv_cache_dtype="int8"): each cache row comes with an f32
 // scale, ckv_scale[b,t] for its latent part and krope_scale[b,t] for its
 // rope part (amax/127). The TPU folds the scales into the score and
@@ -272,11 +281,15 @@ mla_split_kernel(const float* __restrict__ qc, const float* __restrict__ qr,
 
 // one block per (b, h): exact merge of the split partials. The non-empty
 // splits and their weights e^(m_s - m*) / sum_s l_s e^(m_s - m*) go to
-// shared memory first, so the column loop's loads are independent.
+// shared memory first, so the column loop's loads are independent. With
+// m_out (partials) the weights stay e^(m_s - m*) and the block also writes
+// m* and l* = sum_s l_s e^(m_s - m*) (-1e30 and 0 when no split is live).
 __global__ void mla_merge_kernel(const float* __restrict__ acc_in,
                                  const float* __restrict__ m_in,
                                  const float* __restrict__ l_in,
-                                 float* __restrict__ out, int R, int nsplit) {
+                                 float* __restrict__ out,
+                                 float* __restrict__ m_out,
+                                 float* __restrict__ l_out, int R, int nsplit) {
   __shared__ float w_s[kMaxSplits];
   __shared__ int id_s[kMaxSplits];
   __shared__ int n_live;
@@ -296,8 +309,13 @@ __global__ void mla_merge_kernel(const float* __restrict__ acc_in,
         w_s[n] = e;
         id_s[n++] = s;
       }
-    const float inv = denom > 0.f ? 1.f / denom : 0.f;
-    for (int j = 0; j < n; ++j) w_s[j] *= inv;
+    if (m_out != nullptr) {
+      m_out[bh] = mx;            // kNegInf when no split is live
+      l_out[bh] = denom;
+    } else {
+      const float inv = denom > 0.f ? 1.f / denom : 0.f;
+      for (int j = 0; j < n; ++j) w_s[j] *= inv;
+    }
     n_live = n;
   }
   __syncthreads();
@@ -314,9 +332,10 @@ __global__ void mla_merge_kernel(const float* __restrict__ acc_in,
 template <int RJ, typename T>
 cudaError_t launch(const float* qc, const float* qr, const void* ckv,
                    const void* kr, const float* cs, const float* rs,
-                   const int32_t* kv_len, float* out,
-                   float* acc, float* m, float* l, int B, int H, int S, int R,
-                   int P, int nsplit, float scale, cudaStream_t stream) {
+                   const int32_t* kv_len, float* out, float* m_out,
+                   float* l_out, float* acc, float* m, float* l, int B, int H,
+                   int S, int R, int P, int nsplit, float scale,
+                   cudaStream_t stream) {
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -336,21 +355,23 @@ cudaError_t launch(const float* qc, const float* qr, const void* ckv,
       kv_len, acc, m, l, H, S, R, P, chunk, nsplit, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mla_merge_kernel<<<B * H, 128, 0, stream>>>(acc, m, l, out, R, nsplit);
+  mla_merge_kernel<<<B * H, 128, 0, stream>>>(acc, m, l, out, m_out, l_out, R,
+                                               nsplit);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const float* qc, const float* qr, const void* ckv,
                      const void* kr, const float* cs, const float* rs,
-                     const int32_t* kv_len, float* out, float* acc, float* m,
-                     float* l, int B, int H, int S, int R, int P, int nsplit,
-                     float scale, cudaStream_t stream) {
+                     const int32_t* kv_len, float* out, float* m_out,
+                     float* l_out, float* acc, float* m, float* l, int B, int H,
+                     int S, int R, int P, int nsplit, float scale,
+                     cudaStream_t stream) {
   if (R <= kThreads)
-    return launch<1, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, acc, m, l, B, H,
-                        S, R, P, nsplit, scale, stream);
-  return launch<2, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, acc, m, l, B, H, S,
-                      R, P, nsplit, scale, stream);
+    return launch<1, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, m_out, l_out,
+                        acc, m, l, B, H, S, R, P, nsplit, scale, stream);
+  return launch<2, T>(qc, qr, ckv, kr, cs, rs, kv_len, out, m_out, l_out, acc,
+                      m, l, B, H, S, R, P, nsplit, scale, stream);
 }
 
 }  // namespace
@@ -358,19 +379,21 @@ cudaError_t dispatch(const float* qc, const float* qr, const void* ckv,
 // q_c (B,H,R) f32, q_rope (B,H,P) f32, ckv (B,S,R) and krope (B,S,P) of
 // dtype 0 = f32, 1 = f16, 2 = bf16, 3 = int8 (then ckv_scale and
 // krope_scale (B,S) f32, contiguous; ignored otherwise), kv_len (B,) int32
-// -> out (B,H,R) f32. acc (B,H,nsplit,R), m and l (B,H,nsplit) f32 are
-// scratch the caller allocates. Needs R <= 512, R + P <= 768,
-// (R + P) % 4 == 0 and at most 64 splits (checked here).
+// -> out (B,H,R) f32. With m_out and l_out (B,H) f32 (partials; both null
+// otherwise) out is the unnormalized accumulator and m_out, l_out its flash
+// statistics. acc (B,H,nsplit,R), m and l (B,H,nsplit) f32 are scratch the
+// caller allocates. Needs R <= 512, R + P <= 768, (R + P) % 4 == 0 and at
+// most 64 splits (checked here).
 // Returns a cudaError_t; both launches are asynchronous on `stream`.
 extern "C" int mla_decode(const void* qc, const void* qr, const void* ckv,
                           const void* kr, const void* ckv_scale,
                           const void* krope_scale, const void* kv_len,
-                          void* out, void* acc, void* m, void* l, int B, int H,
-                          int S, int R, int P, int dtype, int nsplit,
-                          float scale, void* stream) {
+                          void* out, void* m_out, void* l_out, void* acc,
+                          void* m, void* l, int B, int H, int S, int R, int P,
+                          int dtype, int nsplit, float scale, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || S <= 0 || R <= 0 || R > 2 * kThreads ||
       P < 0 || (R + P) % 4 != 0 || R + P > kCols * kThreads || nsplit <= 0 ||
-      nsplit > kMaxSplits ||
+      nsplit > kMaxSplits || (m_out == nullptr) != (l_out == nullptr) ||
       (dtype == 3 && (ckv_scale == nullptr || krope_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto a = static_cast<const float*>(qc);
@@ -379,23 +402,26 @@ extern "C" int mla_decode(const void* qc, const void* qr, const void* ckv,
   auto rs = static_cast<const float*>(krope_scale);
   auto kl = static_cast<const int32_t*>(kv_len);
   auto o = static_cast<float*>(out);
+  auto mo = static_cast<float*>(m_out);
+  auto lo = static_cast<float*>(l_out);
   auto ac = static_cast<float*>(acc);
   auto mm = static_cast<float*>(m);
   auto ll = static_cast<float*>(l);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch<float>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
-                                  H, S, R, P, nsplit, scale, st);
+      return (int)dispatch<float>(a, b, ckv, kr, cs, rs, kl, o, mo, lo, ac, mm,
+                                  ll, B, H, S, R, P, nsplit, scale, st);
     case 1:
-      return (int)dispatch<__half>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
-                                   H, S, R, P, nsplit, scale, st);
+      return (int)dispatch<__half>(a, b, ckv, kr, cs, rs, kl, o, mo, lo, ac, mm,
+                                   ll, B, H, S, R, P, nsplit, scale, st);
     case 2:
-      return (int)dispatch<__nv_bfloat16>(a, b, ckv, kr, cs, rs, kl, o, ac, mm,
-                                          ll, B, H, S, R, P, nsplit, scale, st);
+      return (int)dispatch<__nv_bfloat16>(a, b, ckv, kr, cs, rs, kl, o, mo, lo,
+                                          ac, mm, ll, B, H, S, R, P, nsplit,
+                                          scale, st);
     case 3:
-      return (int)dispatch<int8_t>(a, b, ckv, kr, cs, rs, kl, o, ac, mm, ll, B,
-                                   H, S, R, P, nsplit, scale, st);
+      return (int)dispatch<int8_t>(a, b, ckv, kr, cs, rs, kl, o, mo, lo, ac, mm,
+                                   ll, B, H, S, R, P, nsplit, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

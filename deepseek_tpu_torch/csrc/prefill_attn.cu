@@ -43,6 +43,15 @@
 // f32 times its scale as it is staged into shared memory, so the walk is
 // the float kernel's over exactly the dequantized tile (the same function
 // up to f32 rounding). The operations, not the bytes, still bound it.
+//
+// Partials (partials=True, context-parallel prefill: one shard of the
+// window per rank, its slot s at global position cache_pos0 + s): the
+// block stores its rows' unnormalized accumulator and flash statistics
+// instead of dividing, m (the row's running maximum of the scaled scores)
+// and l = sum exp(s - m) laid out (B,T,H), the TPU kernel's partials output
+// after its swapaxes. A row that sees no slot of the shard keeps acc 0,
+// l 0 and m = -1e30 (the JAX _NEG_INF); a block whose latest query comes
+// before the shard's first slot walks no tile and writes just that.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -72,6 +81,8 @@ struct Args {
   const void* k;     // K9: k (B,S,H,DK); K10: ckv (B,S,DV)
   const void* v;     // K9: v (B,S,H,DV); K10: krope (B,S,DK-DV)
   float* out;        // (B,T,H,DV)
+  float* m_out;      // partials: (B,T,H) row maxima, null otherwise
+  float* l_out;      // partials: (B,T,H) sums of exp(s - m)
   int T, H, S, DK;
   int q_pos0, cache_pos0;
   float scale;
@@ -263,10 +274,18 @@ prefill_attn_kernel(Args a) {
     __syncwarp();               // ps and al are rewritten by the next tile
   }
 
-  // normalize: the score lanes hold l; hand it to the P.V lanes
+  // normalize: the score lanes hold l; hand it to the P.V lanes. For
+  // partials the same lanes store m and l, and acc is not divided.
+  const bool partials = a.m_out != nullptr;
   if (j == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) al[rs + i] = l[i];
+    for (int i = 0; i < 4; ++i) {
+      al[rs + i] = l[i];
+      if (partials && row0 + rs + i < n_rows) {
+        a.m_out[row_off(rs + i)] = m[i];
+        a.l_out[row_off(rs + i)] = l[i];
+      }
+    }
   }
   __syncwarp();
 #pragma unroll
@@ -274,7 +293,7 @@ prefill_attn_kernel(Args a) {
     const int i = warp * 8 + r;
     if (row0 + i >= n_rows) continue;
     // fully masked rows have l == 0 and acc == 0
-    const float inv = 1.f / fmaxf(al[i], 1e-30f);
+    const float inv = partials ? 1.f : 1.f / fmaxf(al[i], 1e-30f);
     float* o = a.out + row_off(i) * DV;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
@@ -340,17 +359,20 @@ bool bad_dims(int B, int T, int H, int S, int DK, int DV) {
 // K9: q (B,T,H,DK) f32, k (B,S,H,DK) and v (B,S,H,DV) of dtype 0 = f32,
 // 1 = f16, 2 = bf16, 3 = int8 -> out (B,T,H,DV) f32. For int8, k_scale and
 // v_scale are (B,H,S) f32 views with element strides (sb, sh, ss); ignored
-// otherwise. DK % 4 == 0, DV in {128, 512}.
+// otherwise. DK % 4 == 0, DV in {128, 512}. With m_out and l_out (B,T,H)
+// f32 (partials; both null otherwise) out is the unnormalized accumulator.
 // Returns a cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int mha_prefill(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
-                           void* out, int B, int T, int H, int S, int DK,
-                           int DV, int dtype, int q_pos0, int cache_pos0,
-                           float scale, int sb, int sh, int ss, void* stream) {
-  if (bad_dims(B, T, H, S, DK, DV) ||
+                           void* out, void* m_out, void* l_out, int B, int T,
+                           int H, int S, int DK, int DV, int dtype, int q_pos0,
+                           int cache_pos0, float scale, int sb, int sh, int ss,
+                           void* stream) {
+  if (bad_dims(B, T, H, S, DK, DV) || (m_out == nullptr) != (l_out == nullptr) ||
       (long long)H * ((T + kRows - 1) / kRows) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q), nullptr, k, v, static_cast<float*>(out),
+         static_cast<float*>(m_out), static_cast<float*>(l_out),
          T, H, S, DK, q_pos0, cache_pos0, scale,
          static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
          sb, sh, ss};
@@ -360,18 +382,22 @@ extern "C" int mha_prefill(const void* q, const void* k, const void* v,
 // K10: q_c (B,T,H,R) and q_rope (B,T,H,P) f32, ckv (B,S,R) and krope
 // (B,S,P) of dtype 0/1/2/3 (3 = int8, then ckv_scale and krope_scale (B,S)
 // f32, contiguous) -> out (B,T,H,R) f32. R in {128, 512},
-// (R + P) % 4 == 0. Returns a cudaError_t; asynchronous on `stream`.
+// (R + P) % 4 == 0. With m_out and l_out (B,T,H) f32 (partials; both null
+// otherwise) out is the unnormalized accumulator.
+// Returns a cudaError_t; asynchronous on `stream`.
 extern "C" int mla_prefill(const void* q_c, const void* q_rope,
                            const void* ckv, const void* krope,
                            const void* ckv_scale, const void* krope_scale,
-                           void* out, int B, int T, int H, int S, int R, int P,
-                           int dtype, int q_pos0, int cache_pos0, float scale,
-                           void* stream) {
+                           void* out, void* m_out, void* l_out, int B, int T,
+                           int H, int S, int R, int P, int dtype, int q_pos0,
+                           int cache_pos0, float scale, void* stream) {
   if (bad_dims(B, T, H, S, R + P, R) || P < 0 ||
+      (m_out == nullptr) != (l_out == nullptr) ||
       (long long)T * H > 2147483647LL - kRows)
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q_c), static_cast<const float*>(q_rope),
-         ckv, krope, static_cast<float*>(out), T, H, S, R + P, q_pos0,
+         ckv, krope, static_cast<float*>(out), static_cast<float*>(m_out),
+         static_cast<float*>(l_out), T, H, S, R + P, q_pos0,
          cache_pos0, scale, static_cast<const float*>(ckv_scale),
          static_cast<const float*>(krope_scale), S, 0, 1};
   return by_dtype<true>(a, R, B, dtype, static_cast<cudaStream_t>(stream));

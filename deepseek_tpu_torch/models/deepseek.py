@@ -57,6 +57,18 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   each token on the device (``ops/sampling.py``) with the JAX package's
   threefry keys; the Engine's default decode block.
 
+- On a mesh with a ``seq`` axis (``parallel/``: one process per shard,
+  ``torch.distributed``), ``forward_decode``/``forward_prefill`` take the
+  ``SpmdCtx`` of ``make_ctx``: the cache is this rank's slice of the
+  window, decode writes commit on the shard that owns the slot, the sinks
+  re-rotate on shard 0, and every attention launches its kernel's
+  ``partials`` body over the local slice and merges the shards exactly
+  (``seq_merge``). A prefill chunk whose length divides the axis runs
+  context-parallel (the JAX ``_forward_impl``): each rank embeds,
+  projects and runs the FFN on its T/sp rows, the chunk's queries and
+  cache rows are gathered, and ``cp_merge_scatter`` hands each rank its
+  rows back; the logits are reassembled (``final_logits``).
+
 On CPU tensors every kernel runs its plain version.
 """
 
@@ -69,7 +81,7 @@ import torch
 
 from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
 from deepseek_tpu_torch.models.kvcache import (
-    KVCache, dequant_rows, ring_positions, write_rows, write_step_int8,
+    KVCache, dequant_rows, ring_positions, write_rows, write_slot, write_step_int8,
 )
 from deepseek_tpu_torch.models.params import LayerParams, ModelParams, embed_lookup
 from deepseek_tpu_torch.ops.activations import glu_act
@@ -87,6 +99,7 @@ from deepseek_tpu_torch.ops.matmul import (
 )
 from deepseek_tpu_torch.ops.norms import rmsnorm
 from deepseek_tpu_torch.ops.rope import apply_rope
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, make_ctx
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor, rows_to_experts
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -128,6 +141,16 @@ def _latent_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     return ckv, k_rope, q_a
 
 
+def _attend(kernel, ctx: SpmdCtx, merge, *args, **kw) -> torch.Tensor:
+    """``kernel(*args, **kw)`` on one device; under a seq axis its partials
+    body over this rank's slice of the window, merged across the shards by
+    ``merge`` (``ctx.seq_merge`` or, for a context-parallel chunk,
+    ``ctx.cp_merge_scatter``)."""
+    if ctx.sp <= 1:
+        return kernel(*args, **kw)
+    return merge(*kernel(*args, partials=True, **kw))
+
+
 def _mha_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                 pos_bt: torch.Tensor):
     """Decompressed-MHA projections (BlockMHA, infer.cpp:935-1049;
@@ -155,7 +178,7 @@ def _mha_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
 def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                    cache: KVCache, layer: int, pos: torch.Tensor,
                    kv_pos: torch.Tensor, kv_len: torch.Tensor,
-                   kv_sink: torch.Tensor) -> torch.Tensor:
+                   kv_sink: torch.Tensor, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Decompressed-MHA decode (deepseek.py:579-635). xb (B,1,dim)."""
     B = xb.shape[0]
     H, nope, Dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
@@ -166,35 +189,49 @@ def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     if cache.quantized:
         # the sinks rotate from their float master: only the rope part moves
         write_step_int8(cache, layer, kv_pos, k[:, 0], v[:, 0], kv_sink,
-                        lambda m: torch.cat([m[..., :nope], rotate(m[..., nope:])], -1))
+                        lambda m: torch.cat([m[..., :nope], rotate(m[..., nope:])], -1),
+                        ctx)
         scales = dict(k_scale=cache.k_s[layer].transpose(1, 2),
                       v_scale=cache.v_s[layer].transpose(1, 2))
     else:
         bidx = torch.arange(B, device=xb.device)
-        k_l[bidx, kv_pos] = k[:, 0].to(k_l.dtype)
-        v_l[bidx, kv_pos] = v[:, 0].to(v_l.dtype)
-        # the sink re-rotation by +1 touches only the rope part of each key
-        sink = k_l[:, :KV_SINKS, :, nope:]
-        keep = (kv_sink > 0)[:, None, None, None]
-        k_l[:, :KV_SINKS, :, nope:] = torch.where(
-            keep, rotate(sink.float()).to(k_l.dtype), sink)
+        lpos, own = ctx.local_slots(kv_pos, cfg.kv_window)
+        write_slot(k_l, bidx, lpos, k[:, 0], own)
+        write_slot(v_l, bidx, lpos, v[:, 0], own)
+        if ctx.sidx == 0:       # the sink slots live on seq shard 0
+            # the sink re-rotation by +1 touches only the rope part of each key
+            sink = k_l[:, :KV_SINKS, :, nope:]
+            keep = (kv_sink > 0)[:, None, None, None]
+            k_l[:, :KV_SINKS, :, nope:] = torch.where(
+                keep, rotate(sink.float()).to(k_l.dtype), sink)
         scales = {}
-    out = mha_decode_attn(q[:, 0], k_l, v_l, kv_len, cfg.attn_softmax_scale(),
-                          **scales)
+    out = _attend(mha_decode_attn, ctx, ctx.seq_merge, q[:, 0], k_l, v_l,
+                  ctx.local_kv_len(kv_len, cfg.kv_window), cfg.attn_softmax_scale(),
+                  **scales)
     return qmatmul(lp.wo, out.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
+def _chunk_positions(xb: torch.Tensor, pos0: int, ctx: SpmdCtx) -> torch.Tensor:
+    """(B,T) positions of the chunk rows in xb: pos0.., or under context
+    parallelism this rank's share of the chunk."""
+    B, T = xb.shape[:2]
+    first = pos0 + (ctx.sidx * T if ctx.cp else 0)
+    return (first + torch.arange(T, device=xb.device)).expand(B, T)
+
+
 def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
-                           cache: KVCache, layer: int, pos0: int) -> torch.Tensor:
+                           cache: KVCache, layer: int, pos0: int,
+                           ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Decompressed-MHA attention of a prefill chunk xb (B,T,dim) at
     positions pos0.. (deepseek.py:548-578): the chunk's keys and values go
     into the cache at slot pos0, then the chunk attends causally over the
     cached heads (slot == position)."""
     B, T, _ = xb.shape
     H, Dv = cfg.n_heads, cfg.v_head_dim
-    pos_bt = (pos0 + torch.arange(T, device=xb.device)).expand(B, T)
-    q, k, v = _mha_inputs(lp, cfg, xb, pos_bt)
-    write_rows(cache, layer, k, v, pos0)
+    q, k, v = _mha_inputs(lp, cfg, xb, _chunk_positions(xb, pos0, ctx))
+    write_rows(cache, layer, k, v, pos0, ctx)
+    if ctx.cp:
+        q = ctx.cp_gather_rows(q)                 # the whole chunk's queries
     scales = {} if not cache.quantized else dict(
         k_scale=cache.k_s[layer].transpose(1, 2),
         v_scale=cache.v_s[layer].transpose(1, 2))
@@ -202,8 +239,9 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     # _use_flash_prefill (deepseek.py:195-200) would take its einsum at
     # DeepSeek-V2-Lite's T=256, S=4096, H=16 (64 MB of f32 scores, under its
     # 256 MB threshold); K9 never holds the (B,H,T,S) scores in memory.
-    out = mha_prefill_attn(q, cache.k[layer], cache.v[layer], pos0, 0,
-                           cfg.attn_softmax_scale(), **scales)
+    merge = ctx.cp_merge_scatter if ctx.cp else ctx.seq_merge
+    out = _attend(mha_prefill_attn, ctx, merge, q, cache.k[layer], cache.v[layer],
+                  pos0, ctx.sidx * cache.window, cfg.attn_softmax_scale(), **scales)
     return qmatmul(lp.wo, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
@@ -226,7 +264,7 @@ def _absorbed_queries(lp: LayerParams, cfg: ModelConfig, q_a: torch.Tensor,
 def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                cache: KVCache, layer: int, pos: torch.Tensor,
                kv_pos: torch.Tensor, kv_len: torch.Tensor,
-               kv_sink: torch.Tensor) -> torch.Tensor:
+               kv_sink: torch.Tensor, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Absorbed MLA decode (BlockMLA, infer.cpp:1052-1141). xb (B,1,dim)."""
     B = xb.shape[0]
     H, Dv = cfg.n_heads, cfg.v_head_dim
@@ -242,19 +280,24 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]
     rotate = lambda x: apply_rope(x, 1, theta, is_v3, _rotation_only(yarn))
     if cache.quantized:
-        write_step_int8(cache, layer, kv_pos, ckv[:, 0], k_rope[:, 0], kv_sink, rotate)
+        write_step_int8(cache, layer, kv_pos, ckv[:, 0], k_rope[:, 0], kv_sink, rotate,
+                        ctx)
         scales = dict(ckv_scale=cache.ckv_s[layer], krope_scale=cache.krope_s[layer])
     else:
         bidx = torch.arange(B, device=xb.device)
-        ckv_l[bidx, kv_pos] = ckv[:, 0].to(ckv_l.dtype)
-        kr_l[bidx, kv_pos] = k_rope[:, 0].to(kr_l.dtype)
-        keep = (kv_sink > 0)[:, None, None]
-        rot = rotate(kr_l[:, :KV_SINKS].float())
-        kr_l[:, :KV_SINKS] = torch.where(keep, rot.to(kr_l.dtype), kr_l[:, :KV_SINKS])
+        lpos, own = ctx.local_slots(kv_pos, cfg.kv_window)
+        write_slot(ckv_l, bidx, lpos, ckv[:, 0], own)
+        write_slot(kr_l, bidx, lpos, k_rope[:, 0], own)
+        if ctx.sidx == 0:       # the sink slots live on seq shard 0
+            keep = (kv_sink > 0)[:, None, None]
+            rot = rotate(kr_l[:, :KV_SINKS].float())
+            kr_l[:, :KV_SINKS] = torch.where(keep, rot.to(kr_l.dtype),
+                                             kr_l[:, :KV_SINKS])
         scales = {}
 
-    lat = mla_decode_attn(q_c[:, 0], q_rope[:, 0], ckv_l, kr_l, kv_len,
-                          cfg.attn_softmax_scale(), **scales)  # (B, H, R)
+    lat = _attend(mla_decode_attn, ctx, ctx.seq_merge, q_c[:, 0], q_rope[:, 0],
+                  ckv_l, kr_l, ctx.local_kv_len(kv_len, cfg.kv_window),
+                  cfg.attn_softmax_scale(), **scales)           # (B, H, R)
     v = per_head_up(lp.wv_b, lat)                             # (B, H, Dv)
     return qmatmul(lp.wo, v.reshape(B, 1, H * Dv).to(xb.dtype))
 
@@ -282,15 +325,19 @@ def per_head_up(wv_b, lat: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
-                       cache: KVCache, layer: int, pos0: int) -> torch.Tensor:
+                       cache: KVCache, layer: int, pos0: int,
+                       ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """MLA attention of a prefill chunk xb (B,T,dim) at positions pos0..:
     the chunk's latent rows go into the cache at slot pos0, then the
-    chunk attends causally over the window (slot == position)."""
+    chunk attends causally over the window (slot == position). Under a
+    seq axis the window is this rank's slice (its slot s holds position
+    sidx * S_local + s) and the shards' partials merge; under context
+    parallelism xb holds this rank's rows and the queries are gathered."""
     B, T, _ = xb.shape
     H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     scale = cfg.attn_softmax_scale()
-    pos_bt = (pos0 + torch.arange(T, device=xb.device)).expand(B, T)
+    pos_bt = _chunk_positions(xb, pos0, ctx)
 
     ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
     # hybrid MLA (deepseek.py:247-265): every prefill chunk of a layer that
@@ -299,11 +346,15 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     decompress = lp.wkv_b is not None and lp.wq_b is not None
     if not decompress:
         q_c, q_rope = _absorbed_queries(lp, cfg, q_a, pos_bt)
+        if ctx.cp:
+            q_c, q_rope = ctx.cp_gather_rows(q_c), ctx.cp_gather_rows(q_rope)
 
-    write_rows(cache, layer, ckv, k_rope, pos0)
+    write_rows(cache, layer, ckv, k_rope, pos0, ctx)
     ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]              # (B,S,.)
     cs_l, rs_l = ((cache.ckv_s[layer], cache.krope_s[layer]) if cache.quantized
                   else (None, None))
+    base = ctx.sidx * cache.window              # position of local slot 0
+    merge = ctx.cp_merge_scatter if ctx.cp else ctx.seq_merge
     # The JAX package launches its flash kernels only above 256 MB of f32
     # scores (_use_flash_prefill, a TPU v5e measurement); on the card the
     # port always launches K9/K10 for prefill, which never hold the
@@ -314,17 +365,19 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
         q_pe = apply_rope(q[..., nope:], pos_bt[..., None], cfg.rope_theta,
                           cfg.has_moegate_bias, cfg.yarn_params())
         q = torch.cat([q[..., :nope], q_pe], dim=-1)
+        if ctx.cp:
+            q = ctx.cp_gather_rows(q)             # the whole chunk's queries
         # the whole window's keys and values, decompressed through wkv_b
         # (an int8 window dequantized first, as deepseek.py:317-318 does)
         ckv_d, kr_d = dequant_rows(ckv_l, cs_l), dequant_rows(kr_l, rs_l)
         kv_dec = qmatmul(lp.wkv_b, ckv_d.to(xb.dtype)).reshape(B, S, H, nope + Dv)
         k_l = torch.cat([kv_dec[..., :nope].float(),
                          kr_d[:, :, None, :].float().expand(B, S, H, P)], dim=-1)
-        v_out = mha_prefill_attn(q, k_l.to(xb.dtype),
-                                 kv_dec[..., nope:].contiguous(), pos0, 0, scale)
+        v_out = _attend(mha_prefill_attn, ctx, merge, q, k_l.to(xb.dtype),
+                        kv_dec[..., nope:].contiguous(), pos0, base, scale)
         return qmatmul(lp.wo, v_out.reshape(B, T, H * Dv).to(xb.dtype))
-    lat = mla_prefill_attn(q_c, q_rope, ckv_l, kr_l, pos0, 0, scale,
-                           ckv_scale=cs_l, krope_scale=rs_l)        # (B,T,H,R)
+    lat = _attend(mla_prefill_attn, ctx, merge, q_c, q_rope, ckv_l, kr_l, pos0, base,
+                  scale, ckv_scale=cs_l, krope_scale=rs_l)      # (B,T,H,R)
     # per-head up-projection of the attended latents, a plain einsum as in
     # the JAX prefill (deepseek.py:489-492)
     wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)
@@ -448,12 +501,13 @@ def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg):
 
 
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
-                    kv_len, kv_sink, cfg: ModelConfig) -> torch.Tensor:
+                    kv_len, kv_sink, cfg: ModelConfig,
+                    ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """The transformer layers, unrolled, over x (B,1,dim)."""
     attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink)
+        x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
         x = x + _ffn(lp, cfg, xb, layer)
     return x
@@ -470,37 +524,48 @@ def decode_positions(cfg: ModelConfig, B: int, pos0, device):
 
 
 def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
-                 logits_mode: str = "last") -> torch.Tensor:
+                 logits_mode: str = "last", ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Final norm + lm_head: x (B,T,dim) -> (B,V) float32 of the last row
-    (``logits_mode="last"``) or (B,T,V) of every row (``"all"``)."""
+    (``logits_mode="last"``) or (B,T,V) of every row (``"all"``). Under a
+    context-parallel chunk x holds this rank's rows: the chunk's last row
+    comes from the last shard, "all" gathers every shard's rows
+    (``deepseek.py:1086-1095``), so every rank returns the whole result."""
     if logits_mode == "last":
         x = x[:, -1:]
     x = rmsnorm(x, final_norm, cfg.norm_eps)
     logits = qmatmul(lm_head, x.float())
+    if ctx.cp:
+        logits = ctx.cp_last_row(logits) if logits_mode == "last" \
+            else ctx.cp_gather_rows(logits)
     return logits[:, 0] if logits_mode == "last" else logits
 
 
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
-                   pos0, cfg: ModelConfig) -> torch.Tensor:
+                   pos0, cfg: ModelConfig, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """One decode step: tokens (B,1) at position ``pos0`` -> logits (B,V)
-    float32. Writes this step's cache rows into ``cache`` in place."""
+    float32. Writes this step's cache rows into ``cache`` in place; under a
+    seq axis (``ctx`` from ``parallel.spmd.make_ctx``) ``cache`` is this
+    rank's slice of the window and every rank returns the same logits."""
     B, T = tokens.shape
     if T != 1:
         raise ValueError("decode processes one token per sequence per call")
     pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
-    x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg)
+    x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx)
     return final_logits(params.final_norm, params.lm_head, x, cfg)
 
 
 def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
-                    pos0, cfg: ModelConfig, logits_mode: str = "last"):
+                    pos0, cfg: ModelConfig, logits_mode: str = "last",
+                    ctx: SpmdCtx = NULL_CTX):
     """One prefill chunk: tokens (B,T) at positions pos0..pos0+T-1 (a
     shared int; pos0 + T <= kv_window) -> logits per ``logits_mode``:
     "last" (B,V), "all" (B,T,V) float32, or "none" (None). Writes the
-    chunk's cache rows into ``cache`` in place. The port has no mesh, so
-    context and sequence parallelism do not arise (ROADMAP.md queue 1,
-    item 14)."""
+    chunk's cache rows into ``cache`` in place. Under a seq axis (``ctx``
+    from ``parallel.spmd.make_ctx``, ``cache`` this rank's slice of the
+    window) a chunk whose length divides the axis runs context-parallel,
+    each rank on T/sp rows; any other chunk runs replicated on every rank
+    (``deepseek.py:1036-1056``). Every rank returns the same logits."""
     B, T = tokens.shape
     if isinstance(pos0, torch.Tensor) and pos0.dim() > 0:
         raise NotImplementedError(
@@ -512,16 +577,21 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     if pos0 + T > cfg.kv_window:
         raise ValueError(f"prefill at {pos0}..{pos0 + T - 1} crosses the "
                          f"{cfg.kv_window}-slot window; decode steps go on past it")
+    if ctx.sp > 1 and T % ctx.sp == 0 and not ctx.cp:
+        ctx = dataclasses.replace(ctx, cp=True)
+    if ctx.cp:
+        sidx, t_loc = ctx.cp_rows(T)
+        tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
     for layer, lp in enumerate(params.layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + attend(lp, cfg, xb, cache, layer, pos0)
+        x = x + attend(lp, cfg, xb, cache, layer, pos0, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
         x = x + _ffn(lp, cfg, xb, layer, prefill=True)
     if logits_mode == "none":
         return None
-    return final_logits(params.final_norm, params.lm_head, x, cfg, logits_mode)
+    return final_logits(params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
 
 
 def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
@@ -537,13 +607,16 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     (``ops/prng.py``) split once a step as the JAX loop splits its carry;
     the cache is written in place. Positions are host ints ``pos0 + i``
     and the sampled token stays on the device, so no step synchronizes
-    with the host: the tokens cross once, when the caller reads them."""
+    with the host: the tokens cross once, when the caller reads them.
+
+    With ``mesh`` (``parallel.mesh.make_mesh(seq=n)``, called on every
+    rank) each rank runs the block over its slice of the window
+    (``parallel.sharding.shard_cache``) with the same key: the merged
+    logits, and so the sampled tokens, are the same on every rank."""
     from deepseek_tpu_torch.ops import prng
     from deepseek_tpu_torch.ops.sampling import sample_with_noise
 
-    if mesh is not None:
-        raise NotImplementedError("a decode loop over a device mesh belongs to "
-                                  "multi-device (ROADMAP.md queue 1, item 14)")
+    ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
     if with_logprobs:
         raise NotImplementedError("per-token logprobs belong to batched serving "
                                   "(ROADMAP.md queue 1, item 12)")
@@ -572,7 +645,7 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
 
         tokens, logits = [], None
         for i in range(n_steps):
-            logits = forward_decode(params, cache, tok, pos0 + i, cfg)
+            logits = forward_decode(params, cache, tok, pos0 + i, cfg, ctx)
             nxt = sample_with_noise(logits, lambda i=i: noise_of(i), temperature,
                                     top_p, top_k, min_p)
             tokens.append(nxt)

@@ -16,6 +16,11 @@ the int8 rounding does not compound over the rotations.
 
 Unlike the JAX package's immutable arrays, the port updates the cache in
 place: one write per layer per step, no copy of the cache.
+
+On a mesh with a ``seq`` axis (``parallel/``) each rank holds one slice
+of the window (``parallel/sharding.py::shard_cache``): the writes take
+the forward's ``SpmdCtx`` and commit only the rows that fall in the
+rank's slice; the int8 sink masters stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from deepseek_tpu_torch.config import KV_SINKS, ModelConfig
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx
 
 _CACHE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -133,7 +139,7 @@ def ring_positions(cfg: ModelConfig, pos: torch.Tensor
 
 
 def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
-               second: torch.Tensor, start: int) -> None:
+               second: torch.Tensor, start: int, ctx: SpmdCtx = NULL_CTX) -> None:
     """Prefill write into slots start .. start+T-1 of ``layer``, in place:
     the latent rows ckv (B,T,R) and krope (B,T,P) of an MLA cache, or the
     keys (B,T,H,head_dim) and values (B,T,H,v_head_dim) of an MHA cache.
@@ -141,30 +147,57 @@ def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
     sink rotates. An int8 cache stores the rows quantized (each widened to
     f32 first), their scales, and the f32 keys of rows landing in the sink
     slots as their masters (``deepseek_tpu/models/deepseek.py::
-    _sink_update``)."""
-    T = first.shape[1]
-    if start < 0 or start + T > cache.window:
-        raise ValueError(f"prefill rows {start}..{start + T - 1} leave the "
-                         f"{cache.window}-slot window")
+    _sink_update``).
+
+    Under a ``seq`` axis (``ctx.sp > 1``) the cache is this rank's slice of
+    the window and only the chunk's rows inside it are committed
+    (``deepseek.py::_cache_write_sp_prefill``); under context parallelism
+    (``ctx.cp``) the rows are this rank's share of the chunk, gathered
+    first at the cache dtype, int8 with their scales, as JAX gathers them
+    after quantizing (``deepseek.py:296-305``)."""
+    s_local = cache.window
+    lo = ctx.sidx * s_local
     mha = cache.k is not None
     a, b = (cache.k, cache.v) if mha else (cache.ckv, cache.krope)
-    rows = slice(start, start + T)
-    if not cache.quantized:
-        a[layer, :, rows] = first.to(a.dtype)
-        b[layer, :, rows] = second.to(b.dtype)
-        return
     a_s, b_s = (cache.k_s, cache.v_s) if mha else (cache.ckv_s, cache.krope_s)
-    for t, t_s, x in ((a, a_s, first), (b, b_s, second)):
-        t[layer, :, rows], t_s[layer, :, rows] = quantize_rows(x.float())
-    master, key = (cache.sink_k, first) if mha else (cache.sink_krope, second)
+    key = first if mha else second
+    if cache.quantized:
+        (first, fs), (second, ss) = quantize_rows(first.float()), quantize_rows(second.float())
+    else:
+        first, second, fs, ss = first.to(a.dtype), second.to(b.dtype), None, None
+    master = cache.sink_k if mha else cache.sink_krope
+    if ctx.cp:
+        first, second, fs, ss = map(ctx.cp_gather_rows, (first, second, fs, ss))
+        key = ctx.cp_gather_rows(key.float()) if master is not None else key
+    T = first.shape[1]
+    if start < 0 or start + T > s_local * ctx.sp:
+        raise ValueError(f"prefill rows {start}..{start + T - 1} leave the "
+                         f"{s_local * ctx.sp}-slot window")
+    # the chunk's rows inside this rank's slots lo .. lo + s_local - 1
+    g0, g1 = max(start, lo), min(start + T, lo + s_local)
+    if g0 < g1:
+        src, dst = slice(g0 - start, g1 - start), slice(g0 - lo, g1 - lo)
+        for t, x in ((a, first), (b, second), (a_s, fs), (b_s, ss)):
+            if x is not None:
+                t[layer, :, dst] = x[:, src]
     n = min(start + T, KV_SINKS) - start
-    if n > 0:
+    if master is not None and n > 0:
         master[layer, :, start:start + n] = key[:, :n].float()
+
+
+def write_slot(t: torch.Tensor, bidx: torch.Tensor, lpos: torch.Tensor, x: torch.Tensor,
+               own=None) -> None:
+    """t[bidx, lpos] = x in place, or, with ``own`` (B,) bool (a window
+    shard: the slot lies in this rank's slice), only where owned."""
+    if own is not None:
+        old = t[bidx, lpos]
+        x = torch.where(own.reshape((-1,) + (1,) * (x.dim() - 1)), x.to(t.dtype), old)
+    t[bidx, lpos] = x.to(t.dtype)
 
 
 def write_step_int8(cache: KVCache, layer: int, kv_pos: torch.Tensor,
                     first: torch.Tensor, second: torch.Tensor,
-                    kv_sink: torch.Tensor, rotate) -> None:
+                    kv_sink: torch.Tensor, rotate, ctx: SpmdCtx = NULL_CTX) -> None:
     """Decode write into an int8 cache, in place and without a host sync:
     the rows first (B,...) and second (B,...) (MLA: ckv, krope; MHA: the
     keys and values of every head) quantized into ring slots kv_pos (B,)
@@ -172,13 +205,19 @@ def write_step_int8(cache: KVCache, layer: int, kv_pos: torch.Tensor,
     float master (``deepseek.py::_sink_update``); then, for sequences
     whose ring has wrapped (kv_sink > 0), the master re-rotated by
     ``rotate(master)`` and the sink keys quantized fresh from it, whole
-    rows, as one scale covers each (``deepseek.py:410-430, 580-601``)."""
+    rows, as one scale covers each (``deepseek.py:410-430, 580-601``).
+    Under a ``seq`` axis only the shard that holds slot kv_pos commits the
+    row, the master (whole on every rank) follows the global slot, and the
+    sink slots, on shard 0, are requantized there only."""
     mha = cache.k is not None
     a, b = (cache.k, cache.v) if mha else (cache.ckv, cache.krope)
     a_s, b_s = (cache.k_s, cache.v_s) if mha else (cache.ckv_s, cache.krope_s)
     bidx = torch.arange(kv_pos.shape[0], device=kv_pos.device)
+    lpos, own = ctx.local_slots(kv_pos, cache.window * ctx.sp)
     for t, t_s, x in ((a, a_s, first), (b, b_s, second)):
-        t[layer][bidx, kv_pos], t_s[layer][bidx, kv_pos] = quantize_rows(x.float())
+        q, sc = quantize_rows(x.float())
+        write_slot(t[layer], bidx, lpos, q, own)
+        write_slot(t_s[layer], bidx, lpos, sc, own)
     keys, keys_s, key = (a, a_s, first) if mha else (b, b_s, second)
     master = (cache.sink_k if mha else cache.sink_krope)[layer]
     expand = (-1,) + (1,) * (key.dim() - 1)
@@ -188,6 +227,8 @@ def write_step_int8(cache: KVCache, layer: int, kv_pos: torch.Tensor,
     keep = (kv_sink > 0).reshape(expand + (1,))
     rot = rotate(master)
     master.copy_(torch.where(keep, rot, master))
+    if ctx.sidx != 0:
+        return                      # the sink slots live on seq shard 0
     rot_q, rot_s = quantize_rows(rot)
     sinks = keys[layer, :, :KV_SINKS]
     sinks.copy_(torch.where(keep, rot_q, sinks))

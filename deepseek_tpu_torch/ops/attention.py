@@ -14,6 +14,14 @@ dequantizes the rows before the same einsums (the JAX package's XLA
 route, ``deepseek.py:317-318, 452-460, 565-566, 624-631``), in the layouts
 of the JAX kernels: (B,S) for the latent rows, head-major (B,H,S) for the
 per-head keys and values.
+
+The ``*_partial`` functions (``decode_attn_mla_partial`` etc., the JAX
+functions of the same names) attend over one shard of the window and
+return the unnormalized accumulator with its flash statistics, (acc, m,
+l): m the shard's maximum scaled score of each query row, l = sum exp(s -
+m), acc = sum exp(s - m) v. Shards merge exactly (``parallel/spmd.py``).
+A row that sees no slot of the shard gives acc 0, l 0 and m = -1e30. They
+are the plain versions of the kernels' ``partials=True`` bodies.
 """
 
 from __future__ import annotations
@@ -75,6 +83,44 @@ def decode_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
     return torch.einsum("bhs,bsr->bhr", w, ckv)
 
 
+def _masked_partials(scores: torch.Tensor, mask: torch.Tensor):
+    """(m, e): the masked rows' maximum (-1e30 where no slot is visible)
+    and exp(s - m), 0 at masked slots."""
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    m = scores.amax(dim=-1)
+    e = torch.where(mask, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
+    return m, e
+
+
+def decode_attn_mha_partial(q, k_cache, v_cache, kv_len_local, softmax_scale=None,
+                            k_scale=None, v_scale=None):
+    """decode_attn_mha over one shard of the window: kv_len_local (B,) the
+    valid prefix within the shard -> (acc (B,H,Dv), m (B,H), l (B,H))."""
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    k_cache, v_cache = _heads_dequant(k_cache, k_scale), _heads_dequant(v_cache, v_scale)
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), k_cache.float()) * scale
+    m, e = _masked_partials(scores, _len_mask(kv_len_local, B, S, scores.device))
+    return torch.einsum("bhs,bshv->bhv", e, v_cache.float()), m, e.sum(-1)
+
+
+def decode_attn_mla_partial(q_c, q_rope, ckv_cache, krope_cache, kv_len_local,
+                            head_dim: int, softmax_scale=None, ckv_scale=None,
+                            krope_scale=None):
+    """decode_attn_mla over one shard of the window -> (acc (B,H,R), m
+    (B,H), l (B,H))."""
+    B, S = ckv_cache.shape[0], ckv_cache.shape[1]
+    ckv = dequant_rows(ckv_cache, ckv_scale).float()
+    krope = dequant_rows(krope_cache, krope_scale).float()
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(head_dim)
+    scores = (torch.einsum("bhr,bsr->bhs", q_c.float(), ckv)
+              + torch.einsum("bhp,bsp->bhs", q_rope.float(), krope)) * scale
+    m, e = _masked_partials(scores, _len_mask(kv_len_local, B, S, ckv.device))
+    return torch.einsum("bhs,bsr->bhr", e, ckv), m, e.sum(-1)
+
+
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
@@ -124,3 +170,33 @@ def prefill_attn_mla(q_c: torch.Tensor, q_rope: torch.Tensor,
                              krope_cache.float())) * scale
     w = _masked_softmax(scores, _prefill_mask(q_pos, cache_pos))
     return torch.einsum("bhts,bsr->bthr", w, ckv)
+
+
+def prefill_attn_mha_partial(q, k_cache, v_cache, q_pos, cache_pos,
+                             softmax_scale=None, k_scale=None, v_scale=None):
+    """prefill_attn_mha over one shard of the window, cache_pos (S_local,)
+    the global positions of its slots -> (acc (B,T,H,Dv), m (B,T,H), l
+    (B,T,H))."""
+    k_cache, v_cache = _heads_dequant(k_cache, k_scale), _heads_dequant(v_cache, v_scale)
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k_cache.float()) * scale
+    m, e = _masked_partials(scores, _prefill_mask(q_pos, cache_pos))
+    acc = torch.einsum("bhts,bshv->bthv", e, v_cache.float())
+    return acc, m.transpose(1, 2), e.sum(-1).transpose(1, 2)
+
+
+def prefill_attn_mla_partial(q_c, q_rope, ckv_cache, krope_cache, q_pos, cache_pos,
+                             head_dim: int, softmax_scale=None, ckv_scale=None,
+                             krope_scale=None):
+    """prefill_attn_mla over one shard of the window -> (acc (B,T,H,R), m
+    (B,T,H), l (B,T,H))."""
+    ckv = dequant_rows(ckv_cache, ckv_scale).float()
+    krope = dequant_rows(krope_cache, krope_scale).float()
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(head_dim)
+    scores = (torch.einsum("bthr,bsr->bhts", q_c.float(), ckv)
+              + torch.einsum("bthp,bsp->bhts", q_rope.float(), krope)) * scale
+    m, e = _masked_partials(scores, _prefill_mask(q_pos, cache_pos))
+    acc = torch.einsum("bhts,bsr->bthr", e, ckv)
+    return acc, m.transpose(1, 2), e.sum(-1).transpose(1, 2)

@@ -10,11 +10,15 @@ source headers for the designs and their bounds). Over an int8 cache both
 take the f32 scales of the stored rows, in the JAX layouts: (B,S) for the
 latent rows, head-major (B,H,S) for the per-head keys and values, which
 K8 reads through their strides (the cache's (B,S,H) scales transposed, no
-copy). ``.launches`` counts the calls that launched each over a float
-cache, ``.int8.launches`` those over an int8 cache. CPU tensors take the
-plain versions (ops.attention.decode_attn_*); CUDA tensors launch the
-kernel or raise. Seq-parallel ``partials`` (ROADMAP.md queue 1, item 14)
-are not ported and raise.
+copy). With ``partials=True`` (sequence-parallel decode over one shard
+of the window) each returns the TPU kernel's partials triple instead of
+the normalized output: the unnormalized accumulator and its flash
+statistics (acc, m (B,H), l (B,H)); the merge kernel combines its splits
+without dividing. ``.launches`` counts the normalized launches over a
+float cache, ``.int8.launches`` those over an int8 cache,
+``.partials.launches`` and ``.partials.int8.launches`` the partials ones.
+CPU tensors take the plain versions (ops.attention.decode_attn_*); CUDA
+tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from types import SimpleNamespace
 
 import torch
 
-from deepseek_tpu_torch.ops.attention import decode_attn_mha, decode_attn_mla
+from deepseek_tpu_torch.ops.attention import (
+    decode_attn_mha, decode_attn_mha_partial, decode_attn_mla,
+    decode_attn_mla_partial,
+)
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3}
@@ -33,11 +40,23 @@ _HEADS = 16         # heads per block (kHG)
 _MAX_SPLITS = 64    # kMaxSplits
 
 
-def no_partials(name: str, partials: bool) -> None:
-    if partials:
-        raise NotImplementedError(
-            f"{name}: seq-parallel partials are not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
+def launch_counters() -> SimpleNamespace:
+    """A wrapper's partials counts: float cache, and ``.int8``."""
+    return SimpleNamespace(launches=0, int8=SimpleNamespace(launches=0))
+
+
+def count_launch(fn, partials: bool, q8: bool) -> None:
+    """One launch of ``fn``'s kernel, counted by its body."""
+    c = fn.partials if partials else fn
+    (c.int8 if q8 else c).launches += 1
+
+
+def stats_outputs(partials: bool, shape, dev):
+    """(m, l) f32 buffers of ``shape`` for a partials launch, else (None, None)."""
+    if not partials:
+        return None, None
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.float32, device=dev))
 
 
 def check_scales(name: str, cache: torch.Tensor, scales, shape) -> None:
@@ -60,10 +79,11 @@ def data_ptr_or_0(t) -> int:
 
 def mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache, kv_len,
                           softmax_scale: float, ckv_scale=None,
-                          krope_scale=None) -> torch.Tensor:
-    return decode_attn_mla(q_c, q_rope, ckv_cache, krope_cache, kv_len,
-                           head_dim=0, softmax_scale=softmax_scale,
-                           ckv_scale=ckv_scale, krope_scale=krope_scale)
+                          krope_scale=None, partials: bool = False):
+    fn = decode_attn_mla_partial if partials else decode_attn_mla
+    return fn(q_c, q_rope, ckv_cache, krope_cache, kv_len, head_dim=0,
+              softmax_scale=softmax_scale, ckv_scale=ckv_scale,
+              krope_scale=krope_scale)
 
 
 def _n_splits(device, B: int, H: int, S: int) -> int:
@@ -78,14 +98,15 @@ def _n_splits(device, B: int, H: int, S: int) -> int:
 def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                     kv_len: torch.Tensor, softmax_scale: float, ckv_scale=None,
-                    krope_scale=None, partials: bool = False) -> torch.Tensor:
+                    krope_scale=None, partials: bool = False):
     """K3: q_c (B,H,R), q_rope (B,H,P), ckv_cache (B,S,R), krope_cache
     (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32,
-    kv_len (B,) -> attended latents (B,H,R) float32."""
-    no_partials("mla_decode_attn", partials)
+    kv_len (B,) -> attended latents (B,H,R) float32; with ``partials``
+    (acc (B,H,R), m (B,H), l (B,H)) over this shard of the window."""
     if q_c.device.type == "cpu":
         return mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
-                                     kv_len, softmax_scale, ckv_scale, krope_scale)
+                                     kv_len, softmax_scale, ckv_scale, krope_scale,
+                                     partials)
     if q_c.device.type != "cuda":
         raise ValueError(f"mla_decode_attn runs on cuda or cpu, not {q_c.device}")
     B, H, R = q_c.shape
@@ -117,21 +138,24 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
         .to(torch.int32).contiguous()
     ns = _n_splits(dev, B, H, S)
     out = torch.empty((B, H, R), dtype=torch.float32, device=dev)
+    m_out, l_out = stats_outputs(partials, (B, H), dev)
     acc = torch.empty((B, H, ns, R), dtype=torch.float32, device=dev)
     m = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     l = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     err = library("mla_decode").mla_decode(
         qc.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(), data_ptr_or_0(cs),
-        data_ptr_or_0(rs), kl.data_ptr(), out.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, H, S, R, P, DTYPE_CODE[ckv.dtype], ns,
-        float(softmax_scale), torch.cuda.current_stream(dev).cuda_stream)
+        data_ptr_or_0(rs), kl.data_ptr(), out.data_ptr(), data_ptr_or_0(m_out),
+        data_ptr_or_0(l_out), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, S,
+        R, P, DTYPE_CODE[ckv.dtype], ns, float(softmax_scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mla_decode")
-    (mla_decode_attn.int8 if q8 else mla_decode_attn).launches += 1
-    return out
+    count_launch(mla_decode_attn, partials, q8)
+    return (out, m_out, l_out) if partials else out
 
 
 mla_decode_attn.launches = 0
 mla_decode_attn.int8 = SimpleNamespace(launches=0)
+mla_decode_attn.partials = launch_counters()
 
 
 _MHA_MAX_D = 256          # kMaxD in csrc/mha_decode.cu
@@ -139,9 +163,9 @@ _MHA_MAX_SPLITS = 256     # kMaxSplits
 
 
 def mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale: float,
-                          k_scale=None, v_scale=None) -> torch.Tensor:
-    return decode_attn_mha(q, k_cache, v_cache, kv_len, softmax_scale,
-                           k_scale, v_scale)
+                          k_scale=None, v_scale=None, partials: bool = False):
+    fn = decode_attn_mha_partial if partials else decode_attn_mha
+    return fn(q, k_cache, v_cache, kv_len, softmax_scale, k_scale, v_scale)
 
 
 def head_major_strides(name: str, k_scale, v_scale):
@@ -158,15 +182,15 @@ def head_major_strides(name: str, k_scale, v_scale):
 def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, kv_len: torch.Tensor,
                     softmax_scale: float, k_scale=None, v_scale=None,
-                    partials: bool = False) -> torch.Tensor:
+                    partials: bool = False):
     """K8: q (B,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
     f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 (any strides:
     the cache's (B,S,H) scales transposed), kv_len (B,) -> (B,H,Dv)
-    float32."""
-    no_partials("mha_decode_attn", partials)
+    float32; with ``partials`` (acc (B,H,Dv), m (B,H), l (B,H)) over this
+    shard of the window."""
     if q.device.type == "cpu":
         return mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale,
-                                     k_scale, v_scale)
+                                     k_scale, v_scale, partials)
     if q.device.type != "cuda":
         raise ValueError(f"mha_decode_attn runs on cuda or cpu, not {q.device}")
     B, H, Dh = q.shape
@@ -199,18 +223,21 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     ns = max(1, min(math.ceil(S / _TILE), math.ceil(2 * sms / blocks),
                     _MHA_MAX_SPLITS))
     out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
+    m_out, l_out = stats_outputs(partials, (B, H), dev)
     acc = torch.empty((B, H, ns, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     l = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
     err = library("mha_decode").mha_decode(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
-        data_ptr_or_0(v_scale), kl.data_ptr(), out.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), B, H, S, Dh, Dv, DTYPE_CODE[dt], ns,
-        float(softmax_scale), sb, sh, ss, torch.cuda.current_stream(dev).cuda_stream)
+        data_ptr_or_0(v_scale), kl.data_ptr(), out.data_ptr(), data_ptr_or_0(m_out),
+        data_ptr_or_0(l_out), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, S,
+        Dh, Dv, DTYPE_CODE[dt], ns, float(softmax_scale), sb, sh, ss,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mha_decode")
-    (mha_decode_attn.int8 if dt == torch.int8 else mha_decode_attn).launches += 1
-    return out
+    count_launch(mha_decode_attn, partials, dt == torch.int8)
+    return (out, m_out, l_out) if partials else out
 
 
 mha_decode_attn.launches = 0
 mha_decode_attn.int8 = SimpleNamespace(launches=0)
+mha_decode_attn.partials = launch_counters()

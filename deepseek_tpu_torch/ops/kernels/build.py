@@ -36,18 +36,19 @@ SIGNATURES = {
             "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
             "turbo_matvec": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "mla_decode": {"mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _P]},
-    "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]},
+                                  _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                  _I, _P]},
     "qmm_tiles": {"tile_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "expert_ffn": {"expert_ffn": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                                   _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {
-        "mha_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _I, _I, _I, _P],
-        "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _P]},
+        "mha_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _lock = threading.Lock()

@@ -10,12 +10,17 @@ position ``cache_pos0 + s``, and t sees s when ``cache_pos0 + s <= q_pos0 +
 t``. Over an int8 cache both take the f32 scales of the stored rows in
 the JAX layouts: (B,S) for the latent rows (K10), head-major (B,H,S) for
 the per-head keys and values (K9), read through their strides (the
-cache's (B,S,H) scales transposed, no copy). Seq-parallel ``partials``
-(ROADMAP.md queue 1, item 14) are not ported and raise.
+cache's (B,S,H) scales transposed, no copy). With ``partials=True``
+(context-parallel prefill over one shard of the window, whose slot s holds
+position ``cache_pos0 + s``) each returns the TPU kernel's partials triple:
+the unnormalized accumulator and its flash statistics, (acc, m (B,T,H),
+l (B,T,H)).
 
 CPU tensors take the plain versions (ops.attention.prefill_attn_*);
 CUDA tensors launch the kernel or raise. ``.launches`` counts the
-launches over a float cache, ``.int8.launches`` those over an int8 cache.
+normalized launches over a float cache, ``.int8.launches`` those over an
+int8 cache, ``.partials.launches`` and ``.partials.int8.launches`` the
+partials ones.
 """
 
 from __future__ import annotations
@@ -24,9 +29,13 @@ from types import SimpleNamespace
 
 import torch
 
-from deepseek_tpu_torch.ops.attention import prefill_attn_mha, prefill_attn_mla
+from deepseek_tpu_torch.ops.attention import (
+    prefill_attn_mha, prefill_attn_mha_partial, prefill_attn_mla,
+    prefill_attn_mla_partial,
+)
 from deepseek_tpu_torch.ops.kernels.attention import (
-    DTYPE_CODE, check_scales, data_ptr_or_0, head_major_strides, no_partials,
+    DTYPE_CODE, check_scales, count_launch, data_ptr_or_0, head_major_strides,
+    launch_counters, stats_outputs,
 )
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
@@ -40,23 +49,24 @@ def _positions(T: int, S: int, q_pos0: int, cache_pos0: int, device):
 
 
 def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0: int, cache_pos0: int,
-                           softmax_scale: float, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
+                           softmax_scale: float, k_scale=None, v_scale=None,
+                           partials: bool = False):
     q_pos, cache_pos = _positions(q.shape[1], k_cache.shape[1], q_pos0,
                                   cache_pos0, q.device)
-    return prefill_attn_mha(q, k_cache, v_cache, q_pos, cache_pos,
-                            softmax_scale=softmax_scale, k_scale=k_scale,
-                            v_scale=v_scale)
+    fn = prefill_attn_mha_partial if partials else prefill_attn_mha
+    return fn(q, k_cache, v_cache, q_pos, cache_pos, softmax_scale=softmax_scale,
+              k_scale=k_scale, v_scale=v_scale)
 
 
 def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0: int,
                            cache_pos0: int, softmax_scale: float,
-                           ckv_scale=None, krope_scale=None) -> torch.Tensor:
+                           ckv_scale=None, krope_scale=None, partials: bool = False):
     q_pos, cache_pos = _positions(q_c.shape[1], ckv_cache.shape[1], q_pos0,
                                   cache_pos0, q_c.device)
-    return prefill_attn_mla(q_c, q_rope, ckv_cache, krope_cache, q_pos,
-                            cache_pos, head_dim=0, softmax_scale=softmax_scale,
-                            ckv_scale=ckv_scale, krope_scale=krope_scale)
+    fn = prefill_attn_mla_partial if partials else prefill_attn_mla
+    return fn(q_c, q_rope, ckv_cache, krope_cache, q_pos, cache_pos, head_dim=0,
+              softmax_scale=softmax_scale, ckv_scale=ckv_scale,
+              krope_scale=krope_scale)
 
 
 def _check_operands(name, queries, caches):
@@ -76,14 +86,13 @@ def _check_operands(name, queries, caches):
 def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos0: int, cache_pos0: int,
                      softmax_scale: float, k_scale=None, v_scale=None,
-                     partials: bool = False) -> torch.Tensor:
+                     partials: bool = False):
     """K9: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
     f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 -> (B,T,H,Dv)
-    float32."""
-    no_partials("mha_prefill_attn", partials)
+    float32; with ``partials`` (acc (B,T,H,Dv), m (B,T,H), l (B,T,H))."""
     if q.device.type == "cpu":
         return mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0,
-                                      softmax_scale, k_scale, v_scale)
+                                      softmax_scale, k_scale, v_scale, partials)
     if q.device.type != "cuda":
         raise ValueError(f"mha_prefill_attn runs on cuda or cpu, not {q.device}")
     B, T, H, Dh = q.shape
@@ -99,31 +108,31 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
     sb, sh, ss = head_major_strides("mha_prefill_attn", k_scale, v_scale)
     qf = q.float().contiguous()
     out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
+    m_out, l_out = stats_outputs(partials, (B, T, H), q.device)
     err = library("prefill_attn").mha_prefill(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
-        data_ptr_or_0(v_scale), out.data_ptr(), B, T, H, S, Dh, Dv,
-        DTYPE_CODE[k_cache.dtype], int(q_pos0), int(cache_pos0),
-        float(softmax_scale), sb, sh, ss,
+        data_ptr_or_0(v_scale), out.data_ptr(), data_ptr_or_0(m_out),
+        data_ptr_or_0(l_out), B, T, H, S, Dh, Dv, DTYPE_CODE[k_cache.dtype],
+        int(q_pos0), int(cache_pos0), float(softmax_scale), sb, sh, ss,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_prefill")
-    q8 = k_cache.dtype == torch.int8
-    (mha_prefill_attn.int8 if q8 else mha_prefill_attn).launches += 1
-    return out
+    count_launch(mha_prefill_attn, partials, k_cache.dtype == torch.int8)
+    return (out, m_out, l_out) if partials else out
 
 
 def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                      q_pos0: int, cache_pos0: int, softmax_scale: float,
                      ckv_scale=None, krope_scale=None,
-                     partials: bool = False) -> torch.Tensor:
+                     partials: bool = False):
     """K10: q_c (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache
     (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32
-    -> attended latents (B,T,H,R) float32."""
-    no_partials("mla_prefill_attn", partials)
+    -> attended latents (B,T,H,R) float32; with ``partials`` (acc
+    (B,T,H,R), m (B,T,H), l (B,T,H))."""
     if q_c.device.type == "cpu":
         return mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
                                       q_pos0, cache_pos0, softmax_scale,
-                                      ckv_scale, krope_scale)
+                                      ckv_scale, krope_scale, partials)
     if q_c.device.type != "cuda":
         raise ValueError(f"mla_prefill_attn runs on cuda or cpu, not {q_c.device}")
     B, T, H, R = q_c.shape
@@ -144,17 +153,21 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     qc = q_c.float().contiguous()
     qr = q_rope.float().contiguous()
     out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
+    m_out, l_out = stats_outputs(partials, (B, T, H), q_c.device)
     err = library("prefill_attn").mla_prefill(
         qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),
-        krope_cache.data_ptr(), data_ptr_or_0(cs), data_ptr_or_0(rs), out.data_ptr(), B, T, H, S,
-        R, P, DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
+        krope_cache.data_ptr(), data_ptr_or_0(cs), data_ptr_or_0(rs), out.data_ptr(),
+        data_ptr_or_0(m_out), data_ptr_or_0(l_out), B, T, H, S, R, P,
+        DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
         float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
     check(err, "mla_prefill")
-    (mla_prefill_attn.int8 if q8 else mla_prefill_attn).launches += 1
-    return out
+    count_launch(mla_prefill_attn, partials, q8)
+    return (out, m_out, l_out) if partials else out
 
 
 mha_prefill_attn.launches = 0
 mla_prefill_attn.launches = 0
 mha_prefill_attn.int8 = SimpleNamespace(launches=0)
 mla_prefill_attn.int8 = SimpleNamespace(launches=0)
+mha_prefill_attn.partials = launch_counters()
+mla_prefill_attn.partials = launch_counters()

@@ -24,7 +24,8 @@ the weights in natural order); behind a row-permuted w13 the w2 tiles read
 h in its permuted order. The pair
 capacity is every pair, rounded up to the 128-row tile (the JAX
 ``ep_prefill_capacity`` at ``ep == 1``); expert parallelism (the EP
-capacity and its overflow count) is ROADMAP.md queue 1, item 14.
+capacity and its overflow count) is ROADMAP.md queue 1, item 14 (tensor,
+expert, data axes).
 """
 
 from __future__ import annotations

@@ -496,8 +496,9 @@ def test_k10_int8_matches_plain(B, T, H, S, R, P, q_pos0, cache_pos0, dev):
 
 @pytest.mark.cuda
 def test_new_wrappers_reject_bad_operands(dev):
-    """A CPU/CUDA mix, a non-contiguous plane, scales that do not fit the
-    cache's dtype and the unported partials raise instead of launching."""
+    """A CPU/CUDA mix, a non-contiguous plane and scales that do not fit the
+    cache's dtype raise instead of launching; ``partials=True`` (ported
+    with the seq mesh axis) returns the triple of the plain version."""
     qt = _nibble(2, 16, 256, "q3_k", seed=0, dev=dev)
     x = torch.ones((2, 128, 256), device=dev)
     te = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -538,8 +539,8 @@ def test_new_wrappers_reject_bad_operands(dev):
         mha_prefill_attn(q, k8, v8, 0, 0, 0.1)
     _close(mha_prefill_attn(q, k8, v8, 0, 0, 0.1, k_scale=ks, v_scale=ks),
            mha_prefill_attn_plain(q, k8, v8, 0, 0, 0.1, k_scale=ks, v_scale=ks), 1e-4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mha_prefill_attn(q, k, v, 0, 0, 0.1, partials=True)
+    _close_triples(mha_prefill_attn(q, k, v, 0, 0, 0.1, partials=True),
+                   mha_prefill_attn_plain(q, k, v, 0, 0, 0.1, partials=True), 1e-4)
     qc = torch.ones((1, 4, 2, 128), device=dev)
     qr = torch.ones((1, 4, 2, 64), device=dev)
     ckv = torch.ones((1, 8, 128), device=dev, dtype=torch.bfloat16)
@@ -557,8 +558,9 @@ def test_new_wrappers_reject_bad_operands(dev):
     _close(mla_prefill_attn(qc, qr, ckv8, kr8, 0, 0, 0.1, ckv_scale=cs, krope_scale=cs),
            mla_prefill_attn_plain(qc, qr, ckv8, kr8, 0, 0, 0.1, ckv_scale=cs,
                                   krope_scale=cs), 1e-4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, partials=True)
+    _close_triples(mla_prefill_attn(qc, qr, ckv, kr, 0, 0, 0.1, partials=True),
+                   mla_prefill_attn_plain(qc, qr, ckv, kr, 0, 0, 0.1, partials=True),
+                   1e-4)
     wp = PlainTensor(data=torch.ones((128, 256), device=dev, dtype=torch.float16))
     with pytest.raises(ValueError):
         qmm_fp(wp, torch.ones((9, 256), device=dev))
@@ -569,6 +571,148 @@ def test_new_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         mha_decode_attn(q[:, 0], k[..., :60], v[..., :60],
                         torch.tensor([8], device=dev), 0.1)
+
+
+def _close_triples(got, want, rel):
+    """(acc, m, l) against (acc, m, l): rows that see no slot (m -1e30 in
+    want) are the empty triple exactly (acc 0, l 0, m -1e30); elsewhere m
+    within ``rel`` of its scale, and acc and l within ``rel`` of their scale
+    once both are rescaled to the common maximum."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    assert acc.shape == acc_w.shape and m.shape == m_w.shape == l.shape == l_w.shape
+    empty = m_w <= -1e29
+    assert bool((m[empty] == -1e30).all()) and not l[empty].any()
+    assert not acc[empty].any()
+    live = ~empty
+    if not bool(live.any()):
+        return
+    torch.testing.assert_close(m[live], m_w[live], rtol=0,
+                               atol=rel * max(1.0, m_w[live].abs().max().item()))
+    mx = torch.maximum(m, m_w)
+    a, b = torch.exp(m - mx), torch.exp(m_w - mx)
+    _close(l * a, l_w * b, rel)
+    _close(acc * a[..., None], acc_w * b[..., None], rel)
+
+
+def _merged(parts):
+    """The exact flash merge of shard triples."""
+    ms = torch.stack([p[1] for p in parts])
+    mg = ms.amax(0)
+    num = sum(a * torch.exp(m - mg)[..., None] for a, m, _ in parts)
+    den = sum(l * torch.exp(m - mg) for _, m, l in parts)
+    return num / den.clamp(min=1e-30)[..., None]
+
+
+def _shard_scales(kind, sc, sl):
+    """A shard's scale arguments: the (B,S) latent scales sliced, or the
+    head-major view of the shard's own (B,S,H) slice."""
+    if sc is None:
+        return {}
+    a, b = sc
+    if kind == "mla":
+        return dict(ckv_scale=a[:, sl], krope_scale=b[:, sl])
+    return dict(k_scale=a[:, sl].transpose(1, 2), v_scale=b[:, sl].transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kind,H,S,kv_len", [
+    ("mla", 128, 4096, [4000, 1500]), ("mla", 20, 302, [301, 3]),
+    ("mha", 16, 4096, [4000, 1500]), ("mha", 3, 302, [301, 3])])
+def test_decode_partials_match_plain(kind, H, S, kv_len, q8, dev):
+    """K3's and K8's partials bodies over each half of the window (the
+    second sequence's live prefix ends in shard 0, so shard 1 is empty for
+    it: every split empty) against their plain versions, and the two
+    shards merged against the normalized kernel over the whole window.
+    Tolerance 1e-4 of the scale: f32 sums in other orders, fast exp. Each
+    launch counts in ``.partials`` (``.partials.int8`` over int8 rows)."""
+    g = torch.Generator().manual_seed(S + H)
+    B, half = 2, S // 2
+    if kind == "mla":
+        R, P = 512, 64
+        q = [torch.randn((B, H, R), generator=g).to(dev),
+             torch.randn((B, H, P), generator=g).to(dev)]
+        shapes = ((B, S, R), (B, S, P))
+        fn, plain, scale = mla_decode_attn, mla_decode_attn_plain, 1.0 / math.sqrt(192)
+    else:
+        Dh, Dv = 192, 128
+        q = [torch.randn((B, H, Dh), generator=g).to(dev)]
+        shapes = ((B, S, H, Dh), (B, S, H, Dv))
+        fn, plain, scale = mha_decode_attn, mha_decode_attn_plain, 1.0 / math.sqrt(Dh)
+    if q8:
+        (a, a_s), (b, b_s) = (_int8_rows(sh, g, dev) for sh in shapes)
+        sc = (a_s, b_s)
+    else:
+        a, b = ((torch.randn(sh, generator=g) * 0.3).to(torch.bfloat16).to(dev)
+                for sh in shapes)
+        sc = None
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    counter = fn.partials.int8 if q8 else fn.partials
+    before = (fn.launches, counter.launches)
+    parts = []
+    for s in range(2):
+        sl = slice(s * half, (s + 1) * half)
+        kl_s = (kl - s * half).clamp(0, half)
+        # a rank's shard is a cache of its own: contiguous
+        a_s_, b_s_ = a[:, sl].contiguous(), b[:, sl].contiguous()
+        got = fn(*q, a_s_, b_s_, kl_s, scale, partials=True,
+                 **_shard_scales(kind, sc, sl))
+        want = plain(*q, a_s_, b_s_, kl_s, scale, partials=True,
+                     **_shard_scales(kind, sc, sl))
+        _close_triples(got, want, 1e-4)
+        parts.append(got)
+    assert bool((parts[1][1][1] == -1e30).all()) and not parts[1][0][1].any()
+    assert (fn.launches, counter.launches) == (before[0], before[1] + 2)
+    _close(_merged(parts), fn(*q, a, b, kl, scale, **_shard_scales(kind, sc, slice(None))),
+           1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kind,T,H,S,q_pos0", [
+    ("mla", 256, 128, 4096, 3840), ("mla", 256, 128, 4096, 0),
+    ("mha", 256, 16, 4096, 1024), ("mha", 37, 3, 102, 9)])
+def test_prefill_partials_match_plain(kind, T, H, S, q_pos0, q8, dev):
+    """K9's and K10's partials bodies over each half of the window (shard 1
+    at cache_pos0 S/2: for a chunk at the window's start no query sees it,
+    the blocks walk no tile and write the empty triple) against their plain
+    versions, then the halves merged against the normalized kernel over the
+    whole window. Tolerance 1e-4 of the scale, as the normalized ones."""
+    g = torch.Generator().manual_seed(T + S + q_pos0)
+    B, half = 1, S // 2
+    if kind == "mla":
+        R, P = 512, 64
+        q = [(torch.randn((B, T, H, R), generator=g) * 0.3).to(dev),
+             (torch.randn((B, T, H, P), generator=g) * 0.3).to(dev)]
+        shapes = ((B, S, R), (B, S, P))
+        fn, plain, scale = mla_prefill_attn, mla_prefill_attn_plain, 1.0 / math.sqrt(192)
+    else:
+        Dh, Dv = 192, 128
+        q = [(torch.randn((B, T, H, Dh), generator=g) * 0.3).to(dev)]
+        shapes = ((B, S, H, Dh), (B, S, H, Dv))
+        fn, plain, scale = mha_prefill_attn, mha_prefill_attn_plain, 1.0 / math.sqrt(Dh)
+    if q8:
+        (a, a_s), (b, b_s) = (_int8_rows(sh, g, dev) for sh in shapes)
+        sc = (a_s, b_s)
+    else:
+        a, b = ((torch.randn(sh, generator=g) * 0.3).to(torch.bfloat16).to(dev)
+                for sh in shapes)
+        sc = None
+    counter = fn.partials.int8 if q8 else fn.partials
+    before = (fn.launches, counter.launches)
+    parts = []
+    for s in range(2):
+        sl = slice(s * half, (s + 1) * half)
+        args = (*q, a[:, sl].contiguous(), b[:, sl].contiguous(), q_pos0, s * half, scale)
+        kw = _shard_scales(kind, sc, sl)
+        got = fn(*args, partials=True, **kw)
+        _close_triples(got, plain(*args, partials=True, **kw), 1e-4)
+        parts.append(got)
+    if q_pos0 + T <= half:
+        assert bool((parts[1][1] == -1e30).all()) and not parts[1][0].any()
+    assert (fn.launches, counter.launches) == (before[0], before[1] + 2)
+    _close(_merged(parts), fn(*q, a, b, q_pos0, 0, scale,
+                              **_shard_scales(kind, sc, slice(None))), 1e-4)
 
 
 def _fp8(E, d, n, block, seed, dev):

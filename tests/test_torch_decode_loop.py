@@ -34,6 +34,7 @@ from deepseek_tpu_torch.models.deepseek import make_decode_loop
 from deepseek_tpu_torch.models.kvcache import init_cache as torch_cache
 from deepseek_tpu_torch.ops import prng
 from deepseek_tpu_torch.ops.sampling import nucleus_dist, sample_token
+from deepseek_tpu_torch.parallel.mesh import Mesh
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
@@ -224,11 +225,14 @@ def test_decode_loop_does_not_synchronize(ckpt, monkeypatch):
 
 
 def test_decode_loop_raises_on_unported_options(ckpt):
+    """The seq mesh axis is ported (tests/test_torch_seq_parallel.py); a
+    mesh with a tensor axis, per-token logprobs and the hidden state are
+    not and raise, citing their ROADMAP items."""
     eng = _port_engine(ckpt)
     for kw, item in (("mesh", "item 14"), ("with_logprobs", "item 12"),
                      ("with_hidden", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
-            make_decode_loop(eng.cfg, 4, **{kw: object() if kw == "mesh" else True})
+            make_decode_loop(eng.cfg, 4, **{kw: Mesh(tensor=2) if kw == "mesh" else True})
     loop = make_decode_loop(eng.cfg, 4)
     with pytest.raises(NotImplementedError, match="item 12"):
         loop(eng.params, torch_cache(eng.cfg), torch.tensor([[5]]), 0,

@@ -203,11 +203,26 @@ def test_k10_int8_plain_matches_jax(S, q_pos0, cache_pos0):
 
 
 def test_attention_wrappers_reject_partials():
-    """Seq-parallel partials stay unported (ROADMAP.md queue 1, item 14)."""
-    z = torch.zeros
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mla_decode_attn(z(1, 2, 8), z(1, 2, 4), z(1, 4, 8), z(1, 4, 4),
-                        torch.tensor([4]), 0.1, partials=True)
+    """The seq-parallel partials are ported (the seq mesh axis): over an
+    int8 cache with scales, ``partials=True`` returns the (acc, m, l)
+    triple of the JAX ``decode_attn_mla_partial`` over the dequantized
+    rows (1e-5 of each term's scale), and over a shard past the live
+    prefix the empty triple: acc 0, l 0, m -1e30."""
+    B, H, R, P, S = 2, 4, 64, 32, 24
+    qc, qr = _rnd((B, H, R), 21), _rnd((B, H, P), 22)
+    ckv, cs = _q8((B, S, R), 23)
+    kr, rs = _q8((B, S, P), 24)
+    kl = np.asarray([17, 0], np.int32)
+    scale = 1.0 / math.sqrt(96.0)
+    want = jax_attn.decode_attn_mla_partial(
+        jnp.asarray(qc), jnp.asarray(qr), jax_dequant(ckv, cs), jax_dequant(kr, rs),
+        jnp.asarray(kl), 96, softmax_scale=scale)
+    acc, m, l = mla_decode_attn(_t(qc), _t(qr), _t(ckv), _t(kr), _t(kl), scale,
+                                ckv_scale=_t(cs), krope_scale=_t(rs), partials=True)
+    for g, w in zip((acc, m, l), want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g[0].numpy(), w[0], rtol=0, atol=1e-5 * np.abs(w[0]).max())
+    assert not acc[1].any() and not l[1].any() and bool((m[1] == -1e30).all())
 
 
 # ---------------------------------------------------------------------------

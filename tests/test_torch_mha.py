@@ -83,18 +83,24 @@ def test_k8_plain_matches_jax(B, S, kv_len):
 
 def test_k8_rejects_unported_operands():
     """The int8 scales are ported (an int8 cache with (B,H,S) scales gives
-    the dequantized cache's result); seq-parallel partials are not."""
-    q, k = torch.zeros((1, 2, 8)), torch.zeros((1, 4, 2, 8))
+    the dequantized cache's result), and so are the seq-parallel partials:
+    ``partials=True`` returns (acc, m, l) with acc / l the normalized
+    output, and the empty triple (acc 0, l 0, m -1e30) for a shard with no
+    live slot."""
     g = torch.Generator().manual_seed(0)
     k8 = torch.randint(-127, 128, (1, 4, 2, 8), generator=g, dtype=torch.int8)
     ks = torch.rand((1, 2, 4), generator=g) * 0.01
     q = torch.randn((1, 2, 8), generator=g)
     kf = k8.float() * ks.transpose(1, 2)[..., None]
-    torch.testing.assert_close(
-        mha_decode_attn(q, k8, k8, torch.tensor([3]), 0.1, k_scale=ks, v_scale=ks),
-        mha_decode_attn(q, kf, kf, torch.tensor([3]), 0.1), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mha_decode_attn(q, k, k, torch.tensor([4]), 0.1, partials=True)
+    out = mha_decode_attn(q, k8, k8, torch.tensor([3]), 0.1, k_scale=ks, v_scale=ks)
+    torch.testing.assert_close(out, mha_decode_attn(q, kf, kf, torch.tensor([3]), 0.1),
+                               rtol=0, atol=0)
+    acc, m, l = mha_decode_attn(q, k8, k8, torch.tensor([3]), 0.1, k_scale=ks,
+                                v_scale=ks, partials=True)
+    assert acc.shape == (1, 2, 8) and m.shape == l.shape == (1, 2)
+    torch.testing.assert_close(acc / l[..., None], out, rtol=1e-6, atol=1e-7)
+    acc, m, l = mha_decode_attn(q, kf, kf, torch.tensor([0]), 0.1, partials=True)
+    assert not acc.any() and not l.any() and bool((m == -1e30).all())
 
 
 @pytest.mark.parametrize("B", [1, 8])
