@@ -25,7 +25,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the packed Q3_K and the F16 MHA checkpoints with kv_cache_dtype="int8"
      (the int8 bodies of K3 and K10, and of K8 and K9), past the window so
      the sinks re-rotate from their float masters, whose greedy tokens and
-     the packed Q3_K run sampled at 0.8 must equal the CPU Engine's; then
+     the packed Q3_K run sampled at 0.8 must equal the CPU Engine's, and
+     the packed Q3_K one with kv_cache_dtype="float32" (K10's f32 body;
+     the default f16 cache runs its f16 body, the f32 compute K9's f32
+     body, both counted apart); then
      the tiny Q3_K checkpoint with kquant_runtime="nibble" loaded under
      DSEEK_FUSED_FFN=1 (the script sets it for those loads only; the
      expert [w1;w3] tables row-permuted), 96-token prefill chunks so one
@@ -62,10 +65,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      DeepSeek-V2-Lite (and V3's lm_head and 128 heads), and the fp8 bodies
      of K5 (matvec and row-tiled), K2 and K6 at DeepSeek-V2-Lite's F8E5M2
      shapes, and the int8 bodies of K3 and K10 at V3's and of K8 and K9 at
-     V2-Lite's shapes (beside the bf16 body's time over the same rows),
-     each against its plain version on the card, with its time,
-     the plain version's time, a PyTorch library call's time where one
-     computes the same function, and its bound;
+     V2-Lite's shapes (beside the bf16 body's time over the same rows; for
+     K9 an entry of its own, V2-Lite's split window, with SDPA's time),
+     and the bodies that take the cache in two bf16 terms (K9 over f32 keys
+     and values at V3's and V2-Lite's widths and over an f16 cache at
+     V2-Lite's, K10 over f16 and f32 caches at V3's), each against its
+     plain version on the card, with its time, the plain version's time, a
+     PyTorch library call's time where one computes the same function, and
+     its bound;
   5. DeepSeek-V2-Lite (decompressed MHA, F16) at full width and depth from
      random weights: a 512-token prompt in 2 prefill chunks (K9, K11), then
      greedy decode (K8, K4, K2's plain body), then the same with an int8
@@ -323,7 +330,7 @@ def entry_point_phase(counts):
     prompt = eng.tokenizer.encode("hello, a prompt of twenty tokens", bos=True)[:20]
     n_new = 40 - len(prompt)
     (out, stats), launched = drive(
-        counts, ("K1", "K1r", "K2", "K3", "K10"), "entry point",
+        counts, ("K1", "K1r", "K2", "K3", "K10", "K10-f16"), "entry point",
         lambda: eng.generate(prompt, num_steps=n_new, temperature=0.0))
     log(f"entry point: Engine(tiny Q3_K .dseek, device='cuda', "
         f"kquant_runtime='nibble').generate -> "
@@ -367,7 +374,8 @@ def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False, kv=None
     and must give the same tokens. ``kv="int8"``: both Engines keep an int8
     KV cache (K3's and K10's int8 bodies), the sinks re-rotating from their
     float masters past the window, and the greedy tokens must equal the
-    CPU Engine's."""
+    CPU Engine's. ``kv="float32"``: an f32 cache (K10's f32 body; the
+    default f16 cache runs its f16 body)."""
     from deepseek_tpu_torch.engine import Engine
     from deepseek_tpu_torch.quant.qtensor import (
         Q2KTensor, Q2KTurboTensor, Q3KTensor, Q3KTurboTensor)
@@ -392,7 +400,8 @@ def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False, kv=None
             and isinstance(eng.params.layers[0].wv_b, cls)):
         raise RuntimeError(f"{label}: expected {cls.__name__} planes")
     sfx = "-turbo" if kind == "turbo" else "-packed"
-    attn = ("K3-int8", "K10-int8") if kv == "int8" else ("K3", "K10")
+    attn = {"int8": ("K3-int8", "K10-int8"), "float32": ("K3", "K10", "K10-f32")} \
+        .get(kv, ("K3", "K10", "K10-f16"))
     prompt = [int(v) for v in rng.integers(3, 512, 100)]
     (out, stats), launched = drive(
         counts, (*attn, *(k + sfx for k in ("K5", "K5r", "K2", "K6"))),
@@ -584,7 +593,7 @@ def mha_entry_point_phase(counts, kv=None):
     if eng.cfg.use_mla or eng.params.layers[0].wq is None:
         raise RuntimeError("MHA checkpoint: expected use_mla=0 and wq")
     prompt = [int(v) for v in rng.integers(3, 16384, 100)]
-    attn = ("K8-int8", "K9-int8") if kv == "int8" else ("K8", "K9")
+    attn = ("K8-int8", "K9-int8") if kv == "int8" else ("K8", "K9", "K9-f16")
     (out, stats), launched = drive(
         counts, ("K2f", "K4", "K11", *attn), label,
         lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
@@ -617,7 +626,7 @@ def bf16_entry_point_phase(counts):
         raise RuntimeError("bf16 checkpoint: expected folded experts and factor weights")
     prompt = [int(v) for v in rng.integers(3, 512, 100)]
     (out, stats), launched = drive(
-        counts, ("K2f", "K3", "K9", "K11"), "bf16 entry point",
+        counts, ("K2f", "K3", "K9", "K9-f32", "K11"), "bf16 entry point",
         lambda: eng.generate(prompt, num_steps=40, temperature=0.0))
     log(f"bf16 entry point: Engine(tiny bf16 MoE .dseek, device='cuda').generate "
         f"-> {len(out)} greedy tokens past the 128-slot window, first {out[:12]}")
@@ -916,7 +925,7 @@ def kernel_phase(params, cfg, entries):
     prefill_kernel_entries(params, cfg, gen, emit)
     mha_kernel_entries(gen, emit)
     fp8_kernel_entries(gen, emit)
-    int8_kernel_entries(cfg, gen, emit)
+    int8_kernel_entries(cfg, gen, emit, make_emit(entries, "V2-Lite"))
 
 
 def rand_fp8(gen, lead, d, n, block=(128, 128)):
@@ -1700,13 +1709,15 @@ def int8_rows(gen, shape):
     return quantize_rows(torch.randn(shape, generator=gen, device="cuda") * 0.3)
 
 
-def int8_kernel_entries(cfg, gen, emit):
+def int8_kernel_entries(cfg, gen, emit, emit_v2):
     """K3, K8, K9 and K10 over an int8 cache with its f32 row scales, each
     against its plain version (the same dequantized rows), at the main
     path's full shapes: K3 and K10 at DeepSeek-V3's (128 heads, R 512, P
     64), K8 and K9 at DeepSeek-V2-Lite's (16 heads, Dh 192, Dv 128), the
     4096-slot window. Beside each, the float kernel's time at the same
-    shape over the same rows in bf16 (the float cell's cache dtype). The
+    shape over the same rows in bf16 (the float cell's cache dtype); for
+    K9 that is an entry of its own (``emit_v2``: launches from the V2-Lite
+    run) with SDPA's time. The
     bounds count the int8 rows and their scales. No PyTorch call attends
     over an int8 cache with row scales, so there is no library time.
     Tolerances as the float entries: 1e-4 of max|ref| (f32 sums in other
@@ -1786,7 +1797,50 @@ def int8_kernel_entries(cfg, gen, emit):
          nbytes(q, k, v, ks, vs) + 4 * T * H * Dv, 2.0 * pairs * H * (Dh + Dv),
          src + "prefill_attn.cu", pallas + "481 (mha_prefill_attn, pallas_call "
          ":543, int8 scales :449-458)", "K9-int8")
-    float_time(name, lambda: mha_prefill_attn(q, k16, v16, q_pos0, 0, scale))
+    # the float K9 over the same rows in bf16, V2-Lite's prefill cell (64
+    # row blocks: the split window), against SDPA with the same causal mask
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= q_pos0 + torch.arange(T, device="cuda")[:, None])
+    qh, kh, vh = (t.transpose(1, 2).to(torch.bfloat16).contiguous() for t in (q, k16, v16))
+    emit_v2(f"K9 mha_prefill_attn bf16 V2-Lite T={T} S={S} H={H} Dh={Dh} Dv={Dv} "
+            f"q_pos0={q_pos0}",
+            lambda: mha_prefill_attn(q, k16, v16, q_pos0, 0, scale),
+            lambda: mha_prefill_attn_plain(q, k16, v16, q_pos0, 0, scale), 1e-4,
+            nbytes(q, k16, v16) + 4 * T * H * Dv, 2.0 * pairs * H * (Dh + Dv),
+            src + "prefill_attn.cu", pallas + "481 (mha_prefill_attn, pallas_call :543)",
+            "K9", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=scale))
+    del k, v, k16, v16, qh, kh, vh
+    # the two-term bodies at V2-Lite's widths, through the split window:
+    # over an f16 cache (the Engine's default, the window-edge cell) and
+    # over f32 keys and values
+    for dt in (torch.float16, torch.float32):
+        two_term_k9_entry(emit, " V2-Lite", q, gen, q_pos0, scale, pairs, mask, dt)
+
+
+def two_term_k9_entry(emit, label, q, gen, q_pos0, scale, pairs, mask, dtype):
+    """K9 over keys and values of ``dtype`` (f16 or f32: the body that
+    takes them in two bf16 terms), drawn in f32 at q's shapes (Dh, Dv 128)
+    over the 4096-slot window, against its plain version at 1e-4 of
+    max|ref| and SDPA in ``dtype``."""
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain)
+
+    _, T, H, Dh = q.shape
+    S, Dv = mask.shape[1], 128
+    tag = {torch.float16: "f16", torch.float32: "f32"}[dtype]
+    k = (torch.randn((1, S, H, Dh), generator=gen, device="cuda") * 0.3).to(dtype)
+    v = (torch.randn((1, S, H, Dv), generator=gen, device="cuda") * 0.3).to(dtype)
+    qh, kh, vh = (t.transpose(1, 2).to(dtype).contiguous() for t in (q, k, v))
+    emit(f"K9-{tag} mha_prefill_attn {tag}{label} T={T} S={S} H={H} Dh={Dh} Dv={Dv} "
+         f"q_pos0={q_pos0}",
+         lambda: mha_prefill_attn(q, k, v, q_pos0, 0, scale),
+         lambda: mha_prefill_attn_plain(q, k, v, q_pos0, 0, scale), 1e-4,
+         nbytes(q, k, v) + 4 * T * H * Dv, 2.0 * pairs * H * (Dh + Dv),
+         "deepseek_tpu_torch/csrc/prefill_attn.cu",
+         "deepseek_tpu/ops/pallas/attention.py:481 (mha_prefill_attn, pallas_call :543)",
+         f"K9-{tag}", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+             qh, kh, vh, attn_mask=mask, scale=scale))
 
 
 def prefill_kernel_entries(params, cfg, gen, emit):
@@ -1888,6 +1942,12 @@ def prefill_kernel_entries(params, cfg, gen, emit):
          "pallas_call :543)", "K9",
          library=lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=scale))
     del k, v, kh, vh
+    # The bodies that take the cache in two bf16 terms, over rows drawn in
+    # f32 (their lo terms are not 0): K9 over f32 keys and values (the
+    # hybrid prefill in f32 compute, the Engine's default, casts them to
+    # f32), K10 over f16 (the Engine's default cache) and f32 caches. SDPA
+    # computes the same function in the rows' dtype.
+    two_term_k9_entry(emit, "", q, gen, q_pos0, scale, pairs, mask, torch.float32)
     R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     qc = torch.randn((1, T, H, R), generator=gen, device="cuda") * 0.3
     qr = torch.randn((1, T, H, P), generator=gen, device="cuda") * 0.3
@@ -1907,6 +1967,22 @@ def prefill_kernel_entries(params, cfg, gen, emit):
          "pallas_call :707)", "K10",
          library=lambda: sdpa(q_cat, k_cat, v_cat, attn_mask=mask, scale=scale))
     del ckv, kr, q_cat, k_cat, v_cat
+    for tag, dt in (("f16", torch.float16), ("f32", torch.float32)):
+        ckv = (torch.randn((1, S, R), generator=gen, device="cuda") * 0.3).to(dt)
+        kr = (torch.randn((1, S, P), generator=gen, device="cuda") * 0.3).to(dt)
+        q_cat = torch.cat([qc, qr], -1).transpose(1, 2).to(dt).contiguous()
+        k_cat = torch.cat([ckv, kr], -1)[:, None].expand(1, H, S, R + P)
+        v_cat = ckv[:, None].expand(1, H, S, R)
+        emit(f"K10-{tag} mla_prefill_attn {tag} cache T={T} S={S} H={H} R={R} P={P} "
+             f"q_pos0={q_pos0}",
+             lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, 0, scale),
+             lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, 0, scale), 1e-4,
+             nbytes(qc, qr, ckv, kr) + 4 * T * H * R, 2.0 * pairs * H * (2 * R + P),
+             "deepseek_tpu_torch/csrc/prefill_attn.cu",
+             "deepseek_tpu/ops/pallas/attention.py:644 (mla_prefill_attn, "
+             "pallas_call :707)", f"K10-{tag}",
+             library=lambda: sdpa(q_cat, k_cat, v_cat, attn_mask=mask, scale=scale))
+        del ckv, kr, q_cat, k_cat, v_cat
 
     # K11: bf16 expert tables at V3 widths, the expert count cut from 257
     # to 64 (63 routed + 1 shared) so the tables and the plain version fit
@@ -2832,6 +2908,9 @@ def counters():
             # the int8-cache bodies count apart from the float ones
             "K3-int8": mla_decode_attn.int8, "K8-int8": mha_decode_attn.int8,
             "K9-int8": mha_prefill_attn.int8, "K10-int8": mla_prefill_attn.int8,
+            # among the float ones, the bodies over f16 and f32 caches
+            "K9-f16": mha_prefill_attn.f16, "K9-f32": mha_prefill_attn.f32,
+            "K10-f16": mla_prefill_attn.f16, "K10-f32": mla_prefill_attn.f32,
             # the fused expert FFN, and the bodies that take h permuted
             "K7": qmm_expert_ffn, "K2-xperm": qmm_experts.prepermuted,
             "K6-xperm": qmm_grouped.prepermuted,
@@ -2889,6 +2968,8 @@ def main() -> int:
             "turbo Q2_K entry point": kquant_entry_point_phase(counts, "q2_k", "turbo"),
             "packed Q3_K entry point, int8 cache": kquant_entry_point_phase(
                 counts, "q3_k", sampled=True, kv="int8"),
+            "packed Q3_K entry point, float32 cache": kquant_entry_point_phase(
+                counts, "q3_k", kv="float32"),
             "MHA entry point, int8 cache": mha_entry_point_phase(counts, kv="int8"),
             "fused FFN entry point": fused_entry_point_phase(counts)}
 
@@ -2965,7 +3046,7 @@ def main() -> int:
         f"{rates8[1]:.2f} tok/s")
     runs["window edge"] = cpu_cut_phase(
         "window edge", v2_params, v2_cfg, counts, v2_cfg.kv_window,
-        ("K8", "K9", "K11", "K4", "K2f"))
+        ("K8", "K9", "K9-f16", "K11", "K4", "K2f"))
     runs["window edge int8"] = cpu_cut_phase(
         "window edge, int8 cache", v2_params, v2_cfg, counts, v2_cfg.kv_window,
         ("K8-int8", "K9-int8", "K11", "K4", "K2f"), kv_cache_dtype="int8")
@@ -2992,7 +3073,13 @@ def main() -> int:
                "K2-fp8": "V2-Lite fp8", "K6-fp8": "V2-Lite fp8",
                "K3-int8": "full-width packed Q3_K int8 decode",
                "K10-int8": "full-width packed Q3_K int8 prefill",
-               "K8-int8": "V2-Lite int8", "K9-int8": "V2-Lite int8"}
+               "K8-int8": "V2-Lite int8", "K9-int8": "V2-Lite int8",
+               # the two-term bodies: the paths that run them (f32 compute
+               # casts the hybrid prefill's keys and values to f32; the
+               # Engine's default cache is f16)
+               "K9-f32": "bf16 entry point", "K9-f16": "window edge",
+               "K10-f16": "entry point",
+               "K10-f32": "packed Q3_K entry point, float32 cache"}
     return finish(card, entries, runs, path_of)
 
 

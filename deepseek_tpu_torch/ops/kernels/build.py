@@ -45,10 +45,10 @@ SIGNATURES = {
     "expert_ffn": {"expert_ffn": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                                   _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {
-        "mha_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _F, _I, _I, _I, _P],
-        "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _F, _P]},
+        "mha_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _lock = threading.Lock()

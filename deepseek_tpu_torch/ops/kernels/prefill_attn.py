@@ -3,8 +3,9 @@
 ``mha_prefill_attn`` replaces ``deepseek_tpu/ops/pallas/attention.py::
 mha_prefill_attn`` (K9, the decompressed heads of the hybrid-MLA prefill)
 and ``mla_prefill_attn`` replaces ``::mla_prefill_attn`` (K10, absorbed
-prefill over the latent cache). Both launch ``csrc/prefill_attn.cu`` (see
-its header for the design and its bound) and keep the JAX public layouts
+prefill over the latent cache). Both launch ``csrc/prefill_attn.cu``, the
+f32 function on Hopper's tensor cores through split bf16 operands (see
+its header for the design and its bound), and keep the JAX public layouts
 and arguments: query t sits at position ``q_pos0 + t``, cache slot s holds
 position ``cache_pos0 + s``, and t sees s when ``cache_pos0 + s <= q_pos0 +
 t``. Over an int8 cache both take the f32 scales of the stored rows in
@@ -14,13 +15,15 @@ cache's (B,S,H) scales transposed, no copy). With ``partials=True``
 (context-parallel prefill over one shard of the window, whose slot s holds
 position ``cache_pos0 + s``) each returns the TPU kernel's partials triple:
 the unnormalized accumulator and its flash statistics, (acc, m (B,T,H),
-l (B,T,H)).
+l (B,T,H)). Where the row blocks are too few to fill the card
+(``prefill_splits``), the window is split over blocks and merged.
 
 CPU tensors take the plain versions (ops.attention.prefill_attn_*);
 CUDA tensors launch the kernel or raise. ``.launches`` counts the
-normalized launches over a float cache, ``.int8.launches`` those over an
-int8 cache, ``.partials.launches`` and ``.partials.int8.launches`` the
-partials ones.
+normalized launches over a float cache, and among them ``.f16.launches``
+and ``.f32.launches`` those over f16 and f32 caches (the bodies that take
+the cache in two bf16 terms); ``.int8.launches`` those over an int8 cache,
+``.partials.launches`` and ``.partials.int8.launches`` the partials ones.
 """
 
 from __future__ import annotations
@@ -40,6 +43,46 @@ from deepseek_tpu_torch.ops.kernels.attention import (
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
 _DV = (128, 512)      # value widths the kernel is built for
+# The kernel's own constants, in csrc/prefill_attn.cu (the tests read them
+# there): query rows per block (Cfg::BM) and the most window splits its
+# merge takes (kMaxSplits: mha_prefill/mla_prefill refuse more)
+_BLOCK_ROWS = 64
+_MAX_SPLITS = 16
+_SPAN_ALIGN = 64      # split spans are whole multiples of every tile size
+_FILL_BLOCKS = 264    # about 2 blocks on each of the H100's 132 SMs
+
+
+def prefill_splits(B: int, T: int, H: int, S: int, q_pos0: int, cache_pos0: int,
+                   mqa: bool):
+    """(n_split, span): the kernel walks the window in n_split spans of
+    ``span`` slots, one block per span and row block, when the row blocks
+    alone (K9: B x H x ceil(T/64), K10: B x ceil(T*H/64)) are fewer than
+    ``_FILL_BLOCKS``; a merge kernel then combines the spans' partials. The
+    spans cover only the slots the chunk's latest query sees."""
+    blocks = B * (-(-T * H // _BLOCK_ROWS) if mqa else H * -(-T // _BLOCK_ROWS))
+    used = max(0, min(S, q_pos0 + T - cache_pos0))
+    chunks = -(-used // _SPAN_ALIGN)
+    n = min(-(-_FILL_BLOCKS // blocks), chunks, _MAX_SPLITS)
+    if n <= 1:
+        return 1, S
+    span = -(-chunks // n) * _SPAN_ALIGN
+    return -(-used // span), span
+
+
+_TWO_TERM = {torch.float16: "f16", torch.float32: "f32"}
+
+
+def _count(fn, partials: bool, cache_dtype) -> None:
+    count_launch(fn, partials, cache_dtype == torch.int8)
+    if not partials and cache_dtype in _TWO_TERM:
+        getattr(fn, _TWO_TERM[cache_dtype]).launches += 1
+
+
+def _split_buffers(n_split: int, rows: int, dv: int, device):
+    """Scratch for the spans' partials (acc, m, l), or None for one span."""
+    if n_split == 1:
+        return None
+    return torch.empty(n_split * rows * (dv + 2), dtype=torch.float32, device=device)
 
 
 def _positions(T: int, S: int, q_pos0: int, cache_pos0: int, device):
@@ -109,14 +152,17 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q.device)
+    n_split, span = prefill_splits(B, T, H, S, int(q_pos0), int(cache_pos0), False)
+    scratch = _split_buffers(n_split, B * T * H, Dv, q.device)
     err = library("prefill_attn").mha_prefill(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
         data_ptr_or_0(v_scale), out.data_ptr(), data_ptr_or_0(m_out),
-        data_ptr_or_0(l_out), B, T, H, S, Dh, Dv, DTYPE_CODE[k_cache.dtype],
+        data_ptr_or_0(l_out), data_ptr_or_0(scratch), n_split, span,
+        B, T, H, S, Dh, Dv, DTYPE_CODE[k_cache.dtype],
         int(q_pos0), int(cache_pos0), float(softmax_scale), sb, sh, ss,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_prefill")
-    count_launch(mha_prefill_attn, partials, k_cache.dtype == torch.int8)
+    _count(mha_prefill_attn, partials, k_cache.dtype)
     return (out, m_out, l_out) if partials else out
 
 
@@ -154,14 +200,17 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     qr = q_rope.float().contiguous()
     out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q_c.device)
+    n_split, span = prefill_splits(B, T, H, S, int(q_pos0), int(cache_pos0), True)
+    scratch = _split_buffers(n_split, B * T * H, R, q_c.device)
     err = library("prefill_attn").mla_prefill(
         qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),
         krope_cache.data_ptr(), data_ptr_or_0(cs), data_ptr_or_0(rs), out.data_ptr(),
-        data_ptr_or_0(m_out), data_ptr_or_0(l_out), B, T, H, S, R, P,
+        data_ptr_or_0(m_out), data_ptr_or_0(l_out), data_ptr_or_0(scratch), n_split,
+        span, B, T, H, S, R, P,
         DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
         float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
     check(err, "mla_prefill")
-    count_launch(mla_prefill_attn, partials, q8)
+    _count(mla_prefill_attn, partials, ckv_cache.dtype)
     return (out, m_out, l_out) if partials else out
 
 
@@ -171,3 +220,7 @@ mha_prefill_attn.int8 = SimpleNamespace(launches=0)
 mla_prefill_attn.int8 = SimpleNamespace(launches=0)
 mha_prefill_attn.partials = launch_counters()
 mla_prefill_attn.partials = launch_counters()
+mha_prefill_attn.f16 = SimpleNamespace(launches=0)
+mla_prefill_attn.f16 = SimpleNamespace(launches=0)
+mha_prefill_attn.f32 = SimpleNamespace(launches=0)
+mla_prefill_attn.f32 = SimpleNamespace(launches=0)

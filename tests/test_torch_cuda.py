@@ -1179,3 +1179,89 @@ def test_permuted_decode_block_does_not_synchronize(dev):
     _decode_block_under_sync_debug(dev, "bfloat16", "q3_k_nibble", rowperm=True,
                                    block=32)
     assert qmm_expert_ffn.launches - before >= 2 * 32
+
+
+def _prefill_case(kind, dtype, B, T, H, S, d, q_scale, g, dev):
+    """Queries, cache planes of ``dtype`` ("int8": rows with their scales,
+    K9's head-major) and the call's scale for K9 (d = Dh, Dv 128) or K10
+    (d = P, R 512)."""
+    if kind == "mha":
+        qs = [torch.randn((B, T, H, d), generator=g) * q_scale]
+        shapes, scale = ((B, S, H, d), (B, S, H, 128)), 1.0 / math.sqrt(d)
+    else:
+        qs = [torch.randn((B, T, H, 512), generator=g) * q_scale,
+              torch.randn((B, T, H, d), generator=g) * q_scale]
+        shapes, scale = ((B, S, 512), (B, S, d)), 1.0 / math.sqrt(192)
+    if dtype == "int8":
+        (a, a_s), (b, b_s) = (_int8_rows(sh, g, dev) for sh in shapes)
+        if kind == "mha":
+            a_s, b_s = a_s.transpose(1, 2), b_s.transpose(1, 2)
+        kw = (dict(k_scale=a_s, v_scale=b_s) if kind == "mha"
+              else dict(ckv_scale=a_s, krope_scale=b_s))
+    else:
+        dt = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[dtype]
+        a, b = ((torch.randn(sh, generator=g) * 0.3).to(dt).to(dev) for sh in shapes)
+        kw = {}
+    return [q.to(dev) for q in qs], a, b, scale, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,T,H,S,d,q_pos0,cache_pos0,q_scale,partials", [
+    # V2-Lite's K9 at the window's end: 64 row blocks, the split window
+    ("mha", "bf16", 256, 16, 4096, 192, 3840, 0, 0.3, False),
+    ("mha", "int8", 256, 16, 4096, 192, 3840, 0, 0.3, False),
+    ("mha", "f16", 256, 16, 4096, 192, 3840, 0, 0.3, False),
+    ("mha", "f32", 256, 16, 4096, 192, 3840, 0, 0.3, False),
+    # scores reaching about +-30
+    ("mha", "bf16", 64, 4, 300, 192, 200, 0, 25.0, False),
+    ("mha", "f32", 64, 4, 300, 192, 200, 0, 25.0, False),
+    ("mla", "bf16", 40, 16, 300, 64, 200, 0, 16.0, False),
+    ("mla", "f16", 40, 16, 300, 64, 200, 0, 16.0, False),
+    # a key width that is not a multiple of 16 (Dh 52; P 20: R + P 532)
+    ("mha", "bf16", 40, 3, 77, 52, 50, 0, 0.3, False),
+    ("mha", "f16", 40, 3, 77, 52, 50, 0, 0.3, False),
+    ("mha", "int8", 40, 3, 77, 52, 50, 0, 0.3, True),
+    ("mla", "bf16", 30, 3, 90, 20, 60, 0, 0.3, False),
+    ("mla", "f32", 30, 3, 90, 20, 60, 0, 0.3, False),
+    ("mla", "int8", 30, 3, 90, 20, 60, 0, 0.3, True),
+    # K10 with T * H not a multiple of the block's 64 rows
+    ("mla", "bf16", 7, 5, 70, 64, 40, 0, 0.3, False),
+    ("mla", "int8", 100, 5, 333, 64, 250, 3, 0.3, False),
+    # the partials bodies through the split window, and an empty shard
+    ("mha", "bf16", 256, 16, 2048, 192, 3840, 2048, 0.3, True),
+    ("mha", "int8", 256, 16, 2048, 192, 3840, 2048, 0.3, True),
+    ("mha", "bf16", 256, 16, 2048, 192, 0, 2048, 0.3, True),
+    ("mla", "int8", 100, 5, 2048, 64, 0, 2048, 0.3, True),
+])
+def test_prefill_tensor_core_cases(kind, dtype, T, H, S, d, q_pos0, cache_pos0,
+                                   q_scale, partials, dev):
+    """K9 and K10 on the tensor cores (split bf16 operands) against their
+    plain versions at the cases the design has to get right, each counted
+    once by its body's launch counter (f16 and f32 caches: also by the
+    two-term bodies' own). Tolerance 1e-4 of the output scale
+    (of each of acc, m, l for partials), as every K9/K10 check."""
+    g = torch.Generator().manual_seed(T * H + S + d)
+    qs, a, b, scale, kw = _prefill_case(kind, dtype, 1, T, H, S, d, q_scale, g, dev)
+    fn, plain = ((mha_prefill_attn, mha_prefill_attn_plain) if kind == "mha"
+                 else (mla_prefill_attn, mla_prefill_attn_plain))
+    if q_scale > 1:       # the scores reach about +-30
+        kf = torch.cat([a, b], -1) if kind == "mla" else a
+        q = torch.cat(qs, -1)
+        eq = "bthd,bsd->bhts" if kind == "mla" else "bthd,bshd->bhts"
+        assert float(torch.einsum(eq, q, kf.float()).abs().max()) * scale > 20.0
+    counter = fn.partials if partials else fn
+    counter = counter.int8 if dtype == "int8" else counter
+    two_term = getattr(fn, dtype) if dtype in ("f16", "f32") and not partials else None
+    before = counter.launches, two_term.launches if two_term else 0
+    args = (*qs, a, b, q_pos0, cache_pos0, scale)
+    got = fn(*args, partials=partials, **kw)
+    want = plain(*args, partials=partials, **kw)
+    assert counter.launches == before[0] + 1
+    if two_term:
+        assert two_term.launches == before[1] + 1
+    if partials:
+        _close_triples(got, want, 1e-4)
+        if q_pos0 + T <= cache_pos0:
+            assert bool((got[1] == -1e30).all()) and not got[0].any()
+    else:
+        _close(got, want, 1e-4)
