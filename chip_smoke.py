@@ -922,10 +922,11 @@ def kernel_phase(params, cfg, entries):
              "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, _mla_body :89)",
              "K3", library=sdpa)
 
-    prefill_kernel_entries(params, cfg, gen, emit)
+    emit_v2 = make_emit(entries, "V2-Lite")
+    prefill_kernel_entries(params, cfg, gen, emit, emit_v2)
     mha_kernel_entries(gen, emit)
     fp8_kernel_entries(gen, emit)
-    int8_kernel_entries(cfg, gen, emit, make_emit(entries, "V2-Lite"))
+    int8_kernel_entries(cfg, gen, emit, emit_v2)
 
 
 def rand_fp8(gen, lead, d, n, block=(128, 128)):
@@ -1843,12 +1844,15 @@ def two_term_k9_entry(emit, label, q, gen, q_pos0, scale, pairs, mask, dtype):
              qh, kh, vh, attn_mask=mask, scale=scale))
 
 
-def prefill_kernel_entries(params, cfg, gen, emit):
+def prefill_kernel_entries(params, cfg, gen, emit, emit_v2):
     """K1 row-tiled, K6, K9, K10 and K11 at the prefill shapes of the
-    DeepSeek-V3-width model: a 256-token chunk, the 4096-slot window."""
+    DeepSeek-V3-width model: a 256-token chunk, the 4096-slot window; K11
+    also in f32 compute, and at DeepSeek-V2-Lite's widths over its F16
+    tables (``emit_v2``: launches from the V2-Lite run)."""
     from deepseek_tpu_torch.ops.kernels.prefill_attn import (
         mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
         mla_prefill_attn_plain)
+    from deepseek_tpu_torch.models.testing import deepseek_v2_lite_proportions
     from deepseek_tpu_torch.ops.kernels.qmm import (
         gmm, gmm_plain, qmm_grouped, qmm_grouped_plain, qmm_plain, qmm_rows)
     from deepseek_tpu_torch.ops.matmul import tile_dispatch
@@ -1987,32 +1991,78 @@ def prefill_kernel_entries(params, cfg, gen, emit):
     # K11: bf16 expert tables at V3 widths, the expert count cut from 257
     # to 64 (63 routed + 1 shared) so the tables and the plain version fit
     # beside the model; the same 256-token x 9-pair routing shape.
-    # Tolerance 1e-4 of max|ref|: f32 sums of the same bf16 products.
+    # Tolerance 1e-4 of max|ref|: f32 sums of the same bf16 products (in
+    # f32 compute, of the rows' bf16 hi + lo terms: within 2^-18 of each).
+    gmm_src = "deepseek_tpu_torch/csrc/gmm.cu"
+    gmm_tpu = "megablox.gmm via deepseek_tpu/ops/matmul.py:308-362 (grouped_expert_ffn)"
+
+    def routing(n_routed, top, n_shared):
+        """grouped_expert_ffn's rows for a T-token chunk: top-k routed
+        experts a token plus the shared ones at the tables' tail."""
+        routed = torch.rand((T, n_routed), generator=gen, device="cuda") \
+            .topk(top, dim=-1).indices
+        shared = torch.arange(n_routed, n_routed + n_shared, device="cuda").expand(T, -1)
+        idx = torch.cat([routed, shared], dim=-1)
+        sizes = torch.bincount(idx.reshape(-1), minlength=n_routed + n_shared)
+        return sizes, idx.numel(), int((sizes > 0).sum()), \
+            torch.cumsum(sizes, 0).to(torch.int32)
+
+    def grouped_mm(lhs, rhs_t, offs):
+        """torch._grouped_mm (the yardstick; the port never calls it; its
+        output in the inputs' dtype), or None where this torch has none."""
+        if not hasattr(torch, "_grouped_mm"):
+            return None
+        return lambda: torch._grouped_mm(lhs, rhs_t, offs=offs)
+
     E11 = 64
-    routed = torch.rand((T, E11 - 1), generator=gen, device="cuda") \
-        .topk(cfg.n_active_routed, dim=-1).indices
-    idx = torch.cat([routed, torch.full((T, 1), E11 - 1, device="cuda")], dim=-1)
-    sizes = torch.bincount(idx.reshape(-1), minlength=E11)
-    M = idx.numel()
-    n_grp = int((sizes > 0).sum())
-    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    sizes, M, n_grp, offs = routing(E11 - 1, cfg.n_active_routed, 1)
     m = cfg.moe_intermediate_size
     for label, n, k in (("w13", 2 * m, cfg.dim), ("w2", cfg.dim, m)):
         rhs = torch.randn((E11, n, k), generator=gen, device="cuda",
                           dtype=torch.bfloat16) * 0.02
         lhs = torch.randn((M, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-        rhs_t = rhs.transpose(1, 2)
-        library = None
-        if hasattr(torch, "_grouped_mm"):
-            # its output is bf16 (it refuses an f32 output for bf16 inputs)
-            def library(lhs=lhs, rhs_t=rhs_t):
-                return torch._grouped_mm(lhs, rhs_t, offs=offs)
         emit(f"K11 gmm bf16 experts {label} {E11}x{n}x{k}, {M} rows in {n_grp} groups",
              lambda: gmm(lhs, rhs, sizes), lambda: gmm_plain(lhs, rhs, sizes), 1e-4,
              nbytes(lhs) + n_grp * n * k * 2 + 4 * M * n, 2.0 * M * n * k,
-             qtiles, "megablox.gmm via deepseek_tpu/ops/matmul.py:308-362 "
-             "(grouped_expert_ffn)", "K11", library=library)
-        del rhs, lhs, rhs_t
+             gmm_src, gmm_tpu, "K11",
+             library=grouped_mm(lhs, rhs.transpose(1, 2), offs))
+        if label == "w13":
+            # f32 compute (the bf16 entry point's MoE chunk): f32 rows
+            # against the bf16 tables, two passes (rows hi, lo). The
+            # yardstick is the f32 call on an f32 copy of the tables made
+            # outside the timed call, TF32 off, where torch takes f32.
+            lhs32 = torch.randn((M, k), generator=gen, device="cuda")
+            rhs32_t = rhs.float().transpose(1, 2)
+            emit(f"K11-f32 gmm f32 rows x bf16 experts {label} {E11}x{n}x{k}, {M} rows "
+                 f"in {n_grp} groups",
+                 lambda: gmm(lhs32, rhs, sizes), lambda: gmm_plain(lhs32, rhs, sizes),
+                 1e-4, nbytes(lhs32) + n_grp * n * k * 2 + 4 * M * n, 2.0 * M * n * k,
+                 gmm_src, gmm_tpu, "K11", library=grouped_mm(lhs32, rhs32_t, offs))
+            del lhs32, rhs32_t
+        del rhs, lhs
+
+    # K11 at DeepSeek-V2-Lite's widths over its F16 tables (64 routed + 2
+    # shared) in bf16 compute, the V2-Lite cell's function: the table
+    # rounded to bf16, one pass. 2048 rows: a 256-token top-6 routing plus
+    # the 2 shared slots a token, as grouped_expert_ffn builds them.
+    # _grouped_mm takes no f16 table: it is timed on a bf16 copy made
+    # outside the timed call (the same products).
+    v2 = deepseek_v2_lite_proportions()
+    E2 = v2.n_routed_experts + v2.n_shared_experts
+    sizes, M, n_grp, offs = routing(v2.n_routed_experts, v2.n_active_routed,
+                                    v2.n_shared_experts)
+    m = v2.moe_intermediate_size
+    for label, n, k in (("w13", 2 * m, v2.dim), ("w2", v2.dim, m)):
+        rhs = (torch.randn((E2, n, k), generator=gen, device="cuda") * 0.02) \
+            .to(torch.float16)
+        lhs = torch.randn((M, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        rhs_bf16_t = rhs.to(torch.bfloat16).transpose(1, 2)
+        emit_v2(f"K11-f16 gmm f16 experts x bf16 rows (V2-Lite) {label} {E2}x{n}x{k}, "
+                f"{M} rows in {n_grp} groups",
+                lambda: gmm(lhs, rhs, sizes), lambda: gmm_plain(lhs, rhs, sizes), 1e-4,
+                nbytes(lhs) + n_grp * n * k * 2 + 4 * M * n, 2.0 * M * n * k,
+                gmm_src, gmm_tpu, "K11", library=grouped_mm(lhs, rhs_bf16_t, offs))
+        del rhs, lhs, rhs_bf16_t
 
 
 # ---------------------------------------------------------------------------

@@ -6,31 +6,38 @@
 //   s_t  = scale * q[b,h] . k[b,t,h],   t < kv_len[b] (later slots masked)
 //   out  = sum_t softmax(s)_t * v[b,t,h]          (B, H, Dv) float32
 //
-// with the cache in its (B, S, H, D) layout: one slot's keys for all heads
-// are contiguous (16 heads x 192 x 2 B = 6 KB in bf16 at V2-Lite width).
+// with the cache in its (B, S, H, D) layout: one slot's keys for a run of
+// heads are contiguous (16 heads x 192 x 2 B = 6 KB in bf16 at V2-Lite
+// width, its values 4 KB).
 //
 // Bound: bytes. At kv_len 4000, H = 16 the cache holds 41 MB and the work
 // is ~41 MFLOP, about one flop per byte, far below the card's balance
-// point, so the f32 FMAs on the CUDA cores are not the limit; the design is
-// about keeping enough cache bytes in flight:
-//  - the TPU walks S in order per (batch, head group); at B = 1, H = 16
-//    that is one program, which would leave all but one of the 132 SMs
-//    idle. Here the grid is (head group, KV split, sequence) with enough
-//    splits for about two blocks per SM, each block runs the online softmax
-//    over its slice and writes unnormalized partials (acc, m, l), and a
-//    second kernel merges the splits exactly:
-//      out = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*);
-//  - a block owns 16 heads (all of them at V2-Lite width) and a tile of 32
-//    slots. Scores: a group of 8 lanes takes one (slot, head) row and reads
-//    it in 16-byte vectors, so a warp instruction covers four 128-byte runs
-//    of the cache; the four groups of a warp share the head and take four
-//    slots, so their query reads from shared memory are broadcasts. Each
-//    lane keeps 8 slots' loads in flight.
-//  - values: thread i owns 16 bytes of one head's value row (16 heads x
-//    128 values x 2 B = 4 KB a slot: one coalesced sweep of the block) and
-//    keeps several slots' loads in flight.
-// Slots at or past kv_len are never read (addresses clamp to the last live
-// slot, their weights are 0).
+// point; the f32 FMAs on the CUDA cores are not the limit. The design is
+// about keeping the cache streaming, so enough bytes are in flight on
+// every SM from the first cycle to the last:
+//  - the grid is (head group, KV split, sequence); a block owns 8 heads
+//    (a warp each) and one split of `span` slots (a pure function of the
+//    shapes, ops/kernels/attention.py::decode_splits, about two blocks an
+//    SM), and walks it in tiles of TS slots (8 for int8, 4 otherwise);
+//  - the tiles come by 1-D bulk copies (cp.async.bulk, TMA without a
+//    tensor map) into a ring of NS stages, an mbarrier a stage, as deep as
+//    ~100 KB of shared memory allows (int8 and bf16 at V2-Lite width: 5
+//    stages of 20 KB): one thread asks for the keys and values of every
+//    slot of a tile, one copy each (one for the whole tile where the block
+//    holds every head: the run is contiguous), and refills a stage as soon
+//    as the block has used it, so a block has NS tiles in flight while it
+//    computes;
+//  - a warp works its head alone, with no barrier inside a tile: scores
+//    with 32/TS lanes a slot (16-byte vectors of the key row against q in
+//    registers, shuffle sums), the online softmax over the tile's slots
+//    (shuffles, fast exp), then the values, a 16-byte vector of the value
+//    row a lane (the lanes split the slots where the row is narrower than
+//    the warp); one __syncthreads a tile frees its stage;
+//  - each block writes unnormalized partials (acc, m, l) and a second
+//    kernel merges the splits exactly:
+//      out = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*).
+// Slots at or past kv_len are never copied; their scores and weights are
+// masked, and the values of dead slots of a tile are not read.
 //
 // int8 cache (kv_cache_dtype="int8"): a 16-byte vector holds 16 values,
 // and every (slot, head) key and value row has an f32 scale (amax/127),
@@ -38,8 +45,9 @@
 // cache keeps them (B,S,H); the transposed view costs no copy). As on the
 // TPU the scales fold into the scores and the weights:
 //   s_t = scale * (q . k8[t]) * ks[t],   acc += (p_t * vs[t]) * v8[t],
-// with l summing the unscaled p_t. The cache bytes are half the f16
-// cache's, plus 8 bytes a (slot, head).
+// with l summing the unscaled p_t. The cache bytes are half the bf16
+// cache's, plus 8 bytes a (slot, head); a lane loads its slot's scales a
+// tile ahead, so their latency hides behind a tile's products.
 //
 // Partials (partials=True, the sequence-parallel decode: one shard of the
 // window per rank): the merge writes one unnormalized triple per (b, h),
@@ -55,16 +63,27 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kHG = 16;         // heads per block (warp w: softmax of w, w+8)
-constexpr int kTS = 32;         // cache slots per tile (one per lane)
-constexpr int kGL = 8;          // lanes per (slot, head) dot product
-constexpr int kSlotsPerGroup = kTS / 4;   // 4 groups of 8 lanes a warp
+constexpr int kThreads = 256;    // 8 warps, a head each
+constexpr int kHG = 8;           // heads a block (_MHA_HEADS in the wrapper)
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxD = 256;      // head_dim and v_head_dim limit
-constexpr int kMaxSplits = 256; // the merge keeps one weight per split
+constexpr int kMaxD = 256;       // head_dim and v_head_dim limit
+constexpr int kMaxSplits = 256;  // the merge keeps one weight per split
+constexpr int kMaxStages = 8;
+constexpr int kRingBytes = 104 * 1024;   // two blocks an SM
+constexpr int kMaxSmem = 232448;
+
+template <typename T>
+struct Cfg {
+  static constexpr int VE = 16 / (int)sizeof(T);        // values a 16-byte vector
+  static constexpr int TS = sizeof(T) == 1 ? 8 : 4;     // slots a tile
+  static constexpr int LPS = 32 / TS;                   // lanes a key row
+  static constexpr int KV = kMaxD / VE / LPS;           // key vectors a lane, at most
+  static constexpr int VJ = kMaxD / VE > 32 ? 2 : 1;    // value vectors a lane, at most
+};
 
 template <typename T>
 __device__ __forceinline__ void widen(const uint4& v, float* out);
@@ -106,317 +125,337 @@ __device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
-  return v;
-}
+struct Args {
+  const float* q;            // (B,H,Dh) f32
+  const void* k;             // (B,S,H,Dh)
+  const void* v;             // (B,S,H,Dv)
+  const float* ks;           // int8: (B,H,S) scale views, element strides
+  const float* vs;           // (sb, sh, ss); null otherwise
+  const int32_t* kv_len;     // (B,)
+  float* acc;                // (B,H,nsplit,Dv) split partials
+  float* m;                  // (B,H,nsplit)
+  float* l;
+  int H, S, Dh, Dv, span, nsplit, ns;   // ns: ring stages
+  float scale;
+  int sb, sh, ss;
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
-// VJ: 16-byte value vectors owned per thread (kHG * Dv / VE <= VJ * 256)
-template <typename T, int VJ>
-__global__ void __launch_bounds__(kThreads)
-mha_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ ks,
-                 const float* __restrict__ vs,
-                 const int32_t* __restrict__ kv_len,
-                 float* __restrict__ acc_out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int H, int S, int Dh, int Dv,
-                 int chunk, int nsplit, float scale, int sb, int sh, int ss) {
-  constexpr int VE = 16 / sizeof(T);          // cache elements per vector
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+mha_split_kernel(Args a) {
+  using C = Cfg<T>;
+  constexpr int VE = C::VE, TS = C::TS, LPS = C::LPS;
   constexpr bool kQ = std::is_same<T, int8_t>::value;   // int8 rows + scales
-  constexpr int kVU = 8 / VJ;                 // value slots loaded at once
-  __shared__ __align__(16) float qs[kHG * kMaxD];   // [kHG][Dh]
-  __shared__ float ps[kTS][kHG + 1];                // scores, then weights
-  __shared__ float alpha_s[kHG];
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) uint64_t bars[kMaxStages];
 
   const int hg = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
   const int h_base = hg * kHG;
-  const int nh = min(kHG, H - h_base);        // live heads of this block
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gw = lane >> 3, gl = lane & (kGL - 1);
-  const int len = min(kv_len[b], S);
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
-  const size_t part = ((size_t)b * H + h_base) * nsplit + split;  // (b,h,split)
+  const int nh = min(kHG, a.H - h_base);       // live heads of this block
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int len = min(a.kv_len[b], a.S);
+  const int start = split * a.span;
+  const int end = min(start + a.span, len);
+  const size_t part = ((size_t)b * a.H + h_base) * a.nsplit + split;   // (b,h,split)
 
   if (start >= end) {          // empty slice: l = 0 tells the merge to skip
     if (tid < nh) {
-      m_out[part + (size_t)tid * nsplit] = kNegInf;
-      l_out[part + (size_t)tid * nsplit] = 0.f;
+      a.m[part + (size_t)tid * a.nsplit] = kNegInf;
+      a.l[part + (size_t)tid * a.nsplit] = 0.f;
     }
     return;
   }
 
-  // the block's queries in f32; dead heads (past H) read as 0
-  for (int i = tid; i < kHG * Dh; i += kThreads) {
-    const int h = i / Dh;
-    qs[i] = h < nh ? q[((size_t)b * H + h_base + h) * Dh + (i - h * Dh)] : 0.f;
+  const int ntiles = (end - start + TS - 1) / TS;
+  const int kb = nh * a.Dh * (int)sizeof(T);            // key bytes a slot
+  const int vb = nh * a.Dv * (int)sizeof(T);            // value bytes a slot
+  const int stage_b = TS * (kb + vb);                   // keys, then values
+  const size_t kslot = (size_t)a.H * a.Dh * sizeof(T);  // bytes between slots
+  const size_t vslot = (size_t)a.H * a.Dv * sizeof(T);
+  const char* kg = static_cast<const char*>(a.k) +
+                   (size_t)b * a.S * kslot + (size_t)h_base * a.Dh * sizeof(T);
+  const char* vg = static_cast<const char*>(a.v) +
+                   (size_t)b * a.S * vslot + (size_t)h_base * a.Dv * sizeof(T);
+  const uint32_t ring_a = smem_addr(ring);
+
+  if (tid == 0) {
+    for (int s = 0; s < a.ns; ++s) mbar_init(smem_addr(&bars[s]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // one thread asks for tile i: its live slots' keys and values, one bulk
+  // copy each (one for all slots where the block holds every head)
+  auto issue = [&](int i) {
+    const int st = i % a.ns;
+    const int t0 = start + i * TS, nt = min(TS, end - t0);
+    const uint32_t bar = smem_addr(&bars[st]);
+    const uint32_t dk = ring_a + st * stage_b, dv = dk + TS * kb;
+    mbar_expect(bar, nt * (kb + vb));
+    if (nh == a.H) {
+      bulk_1d(dk, kg + (size_t)t0 * kslot, nt * kb, bar);
+      bulk_1d(dv, vg + (size_t)t0 * vslot, nt * vb, bar);
+    } else {
+      for (int t = 0; t < nt; ++t) {
+        bulk_1d(dk + t * kb, kg + (size_t)(t0 + t) * kslot, kb, bar);
+        bulk_1d(dv + t * vb, vg + (size_t)(t0 + t) * vslot, vb, bar);
+      }
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(a.ns, ntiles); ++i) issue(i);
 
-  const size_t kslot = (size_t)H * Dh, vslot = (size_t)H * Dv;
-  const T* kb = k + (size_t)b * S * kslot + (size_t)h_base * Dh;
-  const T* vb = v + (size_t)b * S * vslot + (size_t)h_base * Dv;
-  const int nvk = Dh / VE, nvv = Dv / VE;
-  // int8: the scale of (slot t, block head h) is sc_b[h * sh + t * ss]
-  const size_t sc_b = (size_t)b * sb + (size_t)h_base * sh;
-
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // heads warp, warp+8
-  float acc[VJ][VE];
+  // keys: lane = (slot sl, part sub), vectors sub + LPS*i of the key row;
+  // q's matching values in registers
+  const int sl = lane / LPS, sub = lane % LPS;
+  const int nvk = a.Dh / VE;
+  float qv[C::KV][VE];
+  const int hq = min(w, nh - 1);             // dead warps read a live row
+  const float* qh = a.q + ((size_t)b * a.H + h_base + hq) * a.Dh;
 #pragma unroll
-  for (int j = 0; j < VJ; ++j)
+  for (int i = 0; i < C::KV; ++i) {
+    const int vi = sub + LPS * i;
+#pragma unroll
+    for (int e = 0; e < VE; e += 4) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (vi < nvk) f = *reinterpret_cast<const float4*>(qh + vi * VE + e);
+      qv[i][e] = f.x; qv[i][e + 1] = f.y; qv[i][e + 2] = f.z; qv[i][e + 3] = f.w;
+    }
+  }
+  // values: vector j of the value row; where the row has fewer vectors
+  // than a power-of-two share of the warp, the lanes split the slots into
+  // P phases (lane = phase * nvv + j) and sum the phases at the end
+  const int nvv = a.Dv / VE;
+  const int P = (nvv < 32 && (32 % nvv) == 0) ? 32 / nvv : 1;
+  const int ph = P > 1 ? lane / nvv : 0;
+  const int vj = P > 1 ? lane % nvv : lane;
+  // int8 scales of (slot, this head): ks_h[t * ss]
+  const size_t sc_h = (size_t)b * a.sb + (size_t)(h_base + hq) * a.sh;
+
+  // int8: this lane's slot's scales, the next tile's loaded a tile ahead
+  auto scales = [&](int i, float& kd, float& vd) {
+    if constexpr (kQ) {
+      const int t0 = start + i * TS;
+      const size_t at = sc_h + (size_t)(t0 + min(sl, end - 1 - t0)) * a.ss;
+      kd = a.ks[at];
+      vd = a.vs[at];
+    }
+  };
+  float ksc = 1.f, vsc = 1.f, ksc_n = 1.f, vsc_n = 1.f;
+  if (w < nh) scales(0, ksc, vsc);
+
+  float m = kNegInf, l = 0.f;
+  float acc[C::VJ][VE];
+#pragma unroll
+  for (int j = 0; j < C::VJ; ++j)
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[j][e] = 0.f;
 
-  for (int t0 = start; t0 < end; t0 += kTS) {
-    __syncthreads();           // qs staged / the previous tile's weights used
-    // scores: the group (gw) of 8 lanes takes slots t0 + gw + 4i of head h
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % a.ns;
+    const int t0 = start + i * TS, nt = min(TS, end - t0);
+    if (w < nh) {
+      if (i + 1 < ntiles) scales(i + 1, ksc_n, vsc_n);
+      mbar_wait(smem_addr(&bars[st]), (i / a.ns) & 1);
+      const uint8_t* kt = ring + st * stage_b;
+      const uint8_t* vt = kt + TS * kb;
+      // scores
+      const uint8_t* krow = kt + (size_t)sl * kb + (size_t)w * a.Dh * sizeof(T);
+      float sc = 0.f;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int h = warp + 8 * hh;
-      const int hc = min(h, nh - 1);          // dead heads read a live row
-      const float* qh = qs + h * Dh;
-      float sc[kSlotsPerGroup];
-#pragma unroll
-      for (int i = 0; i < kSlotsPerGroup; ++i) sc[i] = 0.f;
-      for (int vi = gl; vi < nvk; vi += kGL) {
-        uint4 raw[kSlotsPerGroup];
-#pragma unroll
-        for (int i = 0; i < kSlotsPerGroup; ++i) {
-          const int pos = min(t0 + gw + 4 * i, end - 1);   // clamped: in bounds
-          raw[i] = __ldg(reinterpret_cast<const uint4*>(
-              kb + (size_t)pos * kslot + (size_t)hc * Dh) + vi);
-        }
-        float qv[VE];
-#pragma unroll
-        for (int e = 0; e < VE; e += 4) {
-          const float4 f = *reinterpret_cast<const float4*>(qh + vi * VE + e);
-          qv[e] = f.x; qv[e + 1] = f.y; qv[e + 2] = f.z; qv[e + 3] = f.w;
-        }
-#pragma unroll
-        for (int i = 0; i < kSlotsPerGroup; ++i) {
+      for (int ii = 0; ii < C::KV; ++ii) {
+        const int vi = sub + LPS * ii;
+        if (vi < nvk) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + vi * 16);
           float kv[VE];
-          widen<T>(raw[i], kv);
+          widen<T>(raw, kv);
 #pragma unroll
-          for (int e = 0; e < VE; ++e) sc[i] = fmaf(qv[e], kv[e], sc[i]);
+          for (int e = 0; e < VE; ++e) sc = fmaf(qv[ii][e], kv[e], sc);
         }
       }
 #pragma unroll
-      for (int i = 0; i < kSlotsPerGroup; ++i) {
+      for (int o = LPS / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
+      const bool live = sl < nt;
+      const float s = live ? sc * ksc * a.scale : kNegInf;
+      // online softmax over the tile's slots (one value a slot group)
+      float mt = s;
 #pragma unroll
-        for (int m = kGL / 2; m > 0; m >>= 1)
-          sc[i] += __shfl_xor_sync(0xffffffffu, sc[i], m);
-      }
-      if (gl == 0) {
+      for (int o = LPS; o < 32; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float mn = fmaxf(m, mt);
+      const float alpha = __expf(m - mn);
+      const float p = live ? __expf(s - mn) : 0.f;
+      float ps = p;
 #pragma unroll
-        for (int i = 0; i < kSlotsPerGroup; ++i) {
-          if constexpr (kQ) {
-            const int pos = min(t0 + gw + 4 * i, end - 1);
-            sc[i] *= ks[sc_b + (size_t)hc * sh + (size_t)pos * ss];
+      for (int o = LPS; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l = l * alpha + ps;
+      m = mn;
+      const float pv = p * vsc;                 // the weight of this lane's slot
+#pragma unroll
+      for (int j = 0; j < C::VJ; ++j)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[j][e] *= alpha;
+      // values: slots ph, ph + P, ... of the tile
+      const uint8_t* vrow = vt + (size_t)w * a.Dv * sizeof(T);
+#pragma unroll
+      for (int u = 0; u < TS; ++u) {
+        const int t = ph + P * u;
+        if (P * u >= TS) break;
+        const float pt = __shfl_sync(0xffffffffu, pv, min(t, TS - 1) * LPS);
+        if (t < nt) {
+#pragma unroll
+          for (int j = 0; j < C::VJ; ++j) {
+            const int vv = vj + 32 * j;
+            if (vv < nvv) {
+              const uint4 raw =
+                  *reinterpret_cast<const uint4*>(vrow + (size_t)t * vb + vv * 16);
+              float x[VE];
+              widen<T>(raw, x);
+#pragma unroll
+              for (int e = 0; e < VE; ++e) acc[j][e] = fmaf(pt, x[e], acc[j][e]);
+            }
           }
-          ps[gw + 4 * i][h] = sc[i];
         }
       }
+      ksc = ksc_n;
+      vsc = vsc_n;
     }
-    __syncthreads();
-
-    // online softmax: warp w keeps (m, l) of heads w and w + 8, lane = slot
-    {
-      const bool valid = t0 + lane < end;
-      const float s0 = valid ? ps[lane][warp] * scale : kNegInf;
-      const float s1 = valid ? ps[lane][warp + 8] * scale : kNegInf;
-      const float mn0 = fmaxf(m0, warp_max(s0));
-      const float mn1 = fmaxf(m1, warp_max(s1));
-      const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
-      const float p0 = valid ? __expf(s0 - mn0) : 0.f;
-      const float p1 = valid ? __expf(s1 - mn1) : 0.f;
-      l0 = l0 * al0 + warp_sum(p0);
-      l1 = l1 * al1 + warp_sum(p1);
-      m0 = mn0;
-      m1 = mn1;
-      ps[lane][warp] = p0;
-      ps[lane][warp + 8] = p1;
-      if (lane == 0) {
-        alpha_s[warp] = al0;
-        alpha_s[warp + 8] = al1;
-      }
-    }
-    __syncthreads();
-
-    // acc[h][c] = acc * alpha[h] + sum_t p[t][h] * v[t][h][c]
-    const int ntile = min(kTS, end - t0);
-#pragma unroll
-    for (int j = 0; j < VJ; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < kHG * nvv) {
-        const float a = alpha_s[idx / nvv];
-#pragma unroll
-        for (int e = 0; e < VE; ++e) acc[j][e] *= a;
-      }
-    }
-    for (int t = 0; t < ntile; t += kVU) {
-      uint4 raw[kVU][VJ];
-#pragma unroll
-      for (int u = 0; u < kVU; ++u) {
-        const int pos = t0 + min(t + u, ntile - 1);     // clamped: live slot
-#pragma unroll
-        for (int j = 0; j < VJ; ++j) {
-          const int idx = min(tid + j * kThreads, kHG * nvv - 1);
-          const int hl = min(idx / nvv, nh - 1), cv = idx % nvv;
-          raw[u][j] = __ldg(reinterpret_cast<const uint4*>(
-              vb + (size_t)pos * vslot + (size_t)hl * Dv) + cv);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kVU; ++u) {
-        if (t + u >= ntile) break;
-#pragma unroll
-        for (int j = 0; j < VJ; ++j) {
-          const int idx = tid + j * kThreads;
-          if (idx >= kHG * nvv) continue;
-          float p = ps[t + u][idx / nvv];
-          if constexpr (kQ)
-            p *= vs[sc_b + (size_t)min(idx / nvv, nh - 1) * sh +
-                    (size_t)(t0 + t + u) * ss];
-          float w[VE];
-          widen<T>(raw[u][j], w);
-#pragma unroll
-          for (int e = 0; e < VE; ++e) acc[j][e] = fmaf(p, w[e], acc[j][e]);
-        }
-      }
-    }
+    __syncthreads();                            // stage st used by every warp
+    if (tid == 0 && i + a.ns < ntiles) issue(i + a.ns);
   }
 
+  if (w >= nh) return;
+  // the phases' sums of the same vectors
+  for (int o = nvv; o < 32 && P > 1; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < C::VJ; ++j)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
+  const size_t row = part + (size_t)w * a.nsplit;
   if (lane == 0) {
-    if (warp < nh) {
-      m_out[part + (size_t)warp * nsplit] = m0;
-      l_out[part + (size_t)warp * nsplit] = l0;
-    }
-    if (warp + 8 < nh) {
-      m_out[part + (size_t)(warp + 8) * nsplit] = m1;
-      l_out[part + (size_t)(warp + 8) * nsplit] = l1;
-    }
+    a.m[row] = m;
+    a.l[row] = l;
   }
+  if (ph != 0) return;
 #pragma unroll
-  for (int j = 0; j < VJ; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx >= kHG * nvv) continue;
-    const int hl = idx / nvv, cv = idx % nvv;
-    if (hl >= nh) continue;
-    float* dst = acc_out + (part + (size_t)hl * nsplit) * Dv + cv * VE;
+  for (int j = 0; j < C::VJ; ++j) {
+    const int vv = vj + 32 * j;
+    if (vv >= nvv) continue;
+    float* dst = a.acc + row * a.Dv + vv * VE;
 #pragma unroll
-    for (int e = 0; e < VE; ++e) dst[e] = acc[j][e];
+    for (int e = 0; e < VE; e += 4)
+      *reinterpret_cast<float4*>(dst + e) =
+          make_float4(acc[j][e], acc[j][e + 1], acc[j][e + 2], acc[j][e + 3]);
   }
 }
 
-// one block per (b, h): exact merge of the split partials. The block
-// reduces m* = max_s m_s and sum_s l_s e^(m_s - m*) over the splits in
-// parallel (a split per thread) and keeps each split's weight e^(m_s - m*)
-// in shared memory, 0 for an empty split (l = 0), whose partials were
-// never written and are not read. With m_out (partials) the sum is not
-// divided and the block writes m* and l* (-1e30 and 0 with no live split).
-constexpr int kMergeThreads = 128;
+// one block per (b, h): exact merge of the split partials. Groups of
+// threads, each a whole row of Dv values in float4s, take every G-th
+// split and fold it into their own (m, l, acc) as the online softmax does
+// (an empty split, l = 0, whose row was never written, is skipped); the
+// loads of kMergeBatch splits are issued before any is used, so one round
+// trip to L2 serves them. The groups' triples then combine through shared memory.
+// With m_out (partials) the sum is not divided and the block writes m* and
+// l* (-1e30 and 0 with no live split).
+constexpr int kMergeThreads = 512;
+constexpr int kMergeBatch = 4;
+static_assert(kMaxSplits <= kMergeThreads, "a split a thread at least");
 
 __global__ void __launch_bounds__(kMergeThreads)
 mha_merge_kernel(const float* __restrict__ acc_in, const float* __restrict__ m_in,
                  const float* __restrict__ l_in, float* __restrict__ out,
                  float* __restrict__ m_out, float* __restrict__ l_out, int Dv,
                  int nsplit) {
-  constexpr int kWarps = kMergeThreads / 32;
-  __shared__ float w_s[kMaxSplits];
-  __shared__ float red[2][kWarps];
+  __shared__ float gm[kMergeThreads], gl[kMergeThreads];
+  __shared__ __align__(16) float gacc[kMergeThreads * 4];     // [G][Dv]
   const size_t bh = blockIdx.x;
   const float* m = m_in + bh * nsplit;
   const float* l = l_in + bh * nsplit;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* acc = acc_in + bh * nsplit * Dv;
+  const int tid = threadIdx.x;
+  const int nc4 = Dv / 4;                 // float4s a row (Dv % 4 == 0)
+  const int G = kMergeThreads / nc4;      // groups of a row's threads
+  const int c4 = tid % nc4, grp = tid / nc4;
 
-  float mx = kNegInf;
-  for (int s = tid; s < nsplit; s += kMergeThreads)
-    if (l[s] > 0.f) mx = fmaxf(mx, m[s]);
-  mx = warp_max(mx);
-  if (lane == 0) red[0][warp] = mx;
-  __syncthreads();
-  mx = red[0][0];
+  float mt = kNegInf, lt = 0.f;
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (grp < G) {
+    for (int s0 = grp; s0 < nsplit; s0 += kMergeBatch * G) {
+      float ms[kMergeBatch], ls[kMergeBatch];
+      float4 as[kMergeBatch];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[0][w]);
-
-  float den = 0.f;
-  for (int s = tid; s < nsplit; s += kMergeThreads) {
-    const float ls = l[s];
-    const float e = ls > 0.f ? __expf(m[s] - mx) : 0.f;
-    w_s[s] = e;
-    den += ls * e;
+      for (int j = 0; j < kMergeBatch; ++j) {
+        const int s = min(s0 + j * G, nsplit - 1);
+        ms[j] = m[s];
+        ls[j] = s0 + j * G < nsplit ? l[s] : 0.f;
+        as[j] = *reinterpret_cast<const float4*>(acc + (size_t)s * Dv + c4 * 4);
+      }
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j) {
+        if (ls[j] > 0.f) {
+          const float mn = fmaxf(mt, ms[j]);
+          const float ea = __expf(mt - mn), eb = __expf(ms[j] - mn);
+          lt = lt * ea + ls[j] * eb;
+          r.x = r.x * ea + as[j].x * eb; r.y = r.y * ea + as[j].y * eb;
+          r.z = r.z * ea + as[j].z * eb; r.w = r.w * ea + as[j].w * eb;
+          mt = mn;
+        }
+      }
+    }
+    if (c4 == 0) {
+      gm[grp] = mt;
+      gl[grp] = lt;
+    }
+    *reinterpret_cast<float4*>(gacc + grp * Dv + c4 * 4) = r;
   }
-  den = warp_sum(den);
-  if (lane == 0) red[1][warp] = den;
   __syncthreads();
-  den = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) den += red[1][w];
-  const float inv = m_out != nullptr ? 1.f : (den > 0.f ? 1.f / den : 0.f);
+  float mx = kNegInf;
+  for (int g = 0; g < G; ++g)
+    if (gl[g] > 0.f) mx = fmaxf(mx, gm[g]);
+  float den = 0.f;
+  for (int g = 0; g < G; ++g)
+    if (gl[g] > 0.f) den += gl[g] * __expf(gm[g] - mx);
   if (m_out != nullptr && tid == 0) {
     m_out[bh] = mx;              // kNegInf when no split is live
     l_out[bh] = den;
   }
-
-  const float* acc = acc_in + bh * nsplit * Dv;
+  const float inv = m_out != nullptr ? 1.f : (den > 0.f ? 1.f / den : 0.f);
   for (int col = tid; col < Dv; col += kMergeThreads) {
-    float r = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = w_s[s];
-      if (w != 0.f) r = fmaf(acc[(size_t)s * Dv + col], w, r);
-    }
-    out[bh * Dv + col] = r * inv;
+    float t = 0.f;
+    for (int g = 0; g < G; ++g)
+      if (gl[g] > 0.f) t += gacc[g * Dv + col] * __expf(gm[g] - mx);
+    out[bh * Dv + col] = t * inv;
   }
 }
 
-struct Scales {
-  const float* k;   // (B,H,S) f32 views of int8 caches, null otherwise
-  const float* v;
-  int sb, sh, ss;   // their element strides (the same for both)
-};
-
-template <typename T, int VJ>
-cudaError_t launch(const float* q, const void* k, const void* v,
-                   const Scales& sc, const int32_t* kv_len, float* out,
-                   float* m_out, float* l_out, float* acc, float* m, float* l,
-                   int B, int H, int S, int Dh, int Dv, int nsplit, float scale,
+template <typename T>
+cudaError_t launch(Args a, int B, float* out, float* m_out, float* l_out,
                    cudaStream_t stream) {
-  const int chunk = ((S + nsplit - 1) / nsplit + kTS - 1) / kTS * kTS;
-  dim3 grid((H + kHG - 1) / kHG, nsplit, B);
-  mha_split_kernel<T, VJ><<<grid, kThreads, 0, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), sc.k, sc.v, kv_len,
-      acc, m, l, H, S, Dh, Dv, chunk, nsplit, scale, sc.sb, sc.sh, sc.ss);
+  using C = Cfg<T>;
+  constexpr int VE = C::VE;
+  if (a.Dh % VE || a.Dv % VE) return cudaErrorInvalidValue;
+  // the ring: as many stages as kRingBytes holds, at least two
+  const int nh = min(kHG, a.H);
+  const int stage_b = C::TS * nh * (a.Dh + a.Dv) * (int)sizeof(T);
+  a.ns = max(2, min(kMaxStages, kRingBytes / stage_b));
+  const int smem = a.ns * stage_b;
+  static int max_dynamic = -1;
+  if (max_dynamic < 0) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, mha_split_kernel<T>);
+    if (err != cudaSuccess) return err;
+    const int avail = kMaxSmem - (int)fa.sharedSizeBytes;
+    err = cudaFuncSetAttribute(mha_split_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, avail);
+    if (err != cudaSuccess) return err;
+    max_dynamic = avail;
+  }
+  if (smem > max_dynamic) return cudaErrorInvalidValue;
+  dim3 grid((a.H + kHG - 1) / kHG, a.nsplit, B);
+  mha_split_kernel<T><<<grid, kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mha_merge_kernel<<<B * H, kMergeThreads, 0, stream>>>(acc, m, l, out, m_out,
-                                                        l_out, Dv, nsplit);
+  mha_merge_kernel<<<B * a.H, kMergeThreads, 0, stream>>>(a.acc, a.m, a.l, out, m_out,
+                                                          l_out, a.Dv, a.nsplit);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const float* q, const void* k, const void* v,
-                     const Scales& sc, const int32_t* kv_len, float* out,
-                     float* m_out, float* l_out, float* acc, float* m, float* l,
-                     int B, int H, int S, int Dh, int Dv, int nsplit,
-                     float scale, cudaStream_t stream) {
-  constexpr int VE = 16 / sizeof(T);
-  if (Dh % VE || Dv % VE) return cudaErrorInvalidValue;
-  const int vecs = kHG * (Dv / VE);
-  if (vecs <= kThreads)
-    return launch<T, 1>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B,
-                        H, S, Dh, Dv, nsplit, scale, stream);
-  if (vecs <= 2 * kThreads)
-    return launch<T, 2>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B,
-                        H, S, Dh, Dv, nsplit, scale, stream);
-  return launch<T, 4>(q, k, v, sc, kv_len, out, m_out, l_out, acc, m, l, B, H,
-                      S, Dh, Dv, nsplit, scale, stream);
 }
 
 }  // namespace
@@ -426,49 +465,39 @@ cudaError_t dispatch(const float* q, const void* k, const void* v,
 // out (B,H,Dv) f32. With m_out and l_out (B,H) f32 (partials; both null
 // otherwise) out is the unnormalized accumulator and m_out, l_out its flash
 // statistics. For int8, k_scale and v_scale are (B,H,S) f32 views
-// with element strides (sb, sh, ss); ignored otherwise. acc
-// (B,H,nsplit,Dv), m and l (B,H,nsplit) f32 are scratch the caller
-// allocates. Needs Dh, Dv <= 256, each a whole number of 16-byte vectors,
-// and at most 256 splits (checked here).
+// with element strides (sb, sh, ss); ignored otherwise. The window is cut
+// into nsplit splits of `span` slots (span a multiple of 8, nsplit * span
+// >= S); acc (B,H,nsplit,Dv), m and l (B,H,nsplit) f32 are scratch the
+// caller allocates. Needs Dh, Dv <= 256, each a whole number of 16-byte
+// vectors, and at most 256 splits (checked here).
 // Returns a cudaError_t; both launches are asynchronous on `stream`.
 extern "C" int mha_decode(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
                           const void* kv_len, void* out, void* m_out,
                           void* l_out, void* acc, void* m, void* l, int B,
                           int H, int S, int Dh, int Dv, int dtype, int nsplit,
-                          float scale, int sb, int sh, int ss, void* stream) {
+                          int span, float scale, int sb, int sh, int ss,
+                          void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || S <= 0 || Dh <= 0 || Dh > kMaxD ||
       Dv <= 0 || Dv > kMaxD || nsplit <= 0 || nsplit > kMaxSplits ||
-      nsplit > 65535 || (m_out == nullptr) != (l_out == nullptr) ||
+      span <= 0 || span % 8 || (long long)nsplit * span < S ||
+      (m_out == nullptr) != (l_out == nullptr) ||
       (dtype == 3 && (k_scale == nullptr || v_scale == nullptr || sb < 0 ||
                       sh < 0 || ss < 0)))
     return (int)cudaErrorInvalidValue;
-  const Scales sc{static_cast<const float*>(k_scale),
-                  static_cast<const float*>(v_scale), sb, sh, ss};
-  auto qq = static_cast<const float*>(q);
-  auto kl = static_cast<const int32_t*>(kv_len);
+  Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale), static_cast<const int32_t*>(kv_len),
+         static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+         H, S, Dh, Dv, span, nsplit, 0, scale, sb, sh, ss};
   auto o = static_cast<float*>(out);
   auto mo = static_cast<float*>(m_out);
   auto lo = static_cast<float*>(l_out);
-  auto ac = static_cast<float*>(acc);
-  auto mm = static_cast<float*>(m);
-  auto ll = static_cast<float*>(l);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return (int)dispatch<float>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B, H,
-                                  S, Dh, Dv, nsplit, scale, st);
-    case 1:
-      return (int)dispatch<__half>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B,
-                                   H, S, Dh, Dv, nsplit, scale, st);
-    case 2:
-      return (int)dispatch<__nv_bfloat16>(qq, k, v, sc, kl, o, mo, lo, ac, mm,
-                                          ll, B, H, S, Dh, Dv, nsplit, scale,
-                                          st);
-    case 3:
-      return (int)dispatch<int8_t>(qq, k, v, sc, kl, o, mo, lo, ac, mm, ll, B,
-                                   H, S, Dh, Dv, nsplit, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return (int)launch<float>(a, B, o, mo, lo, st);
+    case 1: return (int)launch<__half>(a, B, o, mo, lo, st);
+    case 2: return (int)launch<__nv_bfloat16>(a, B, o, mo, lo, st);
+    case 3: return (int)launch<int8_t>(a, B, o, mo, lo, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -92,6 +92,7 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -108,66 +109,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Operand tiles are the wgmma canonical 128-byte-swizzled layout: a tile
-// of R rows (R a multiple of 8) x W bf16 columns is W/64 column blocks of
-// R rows x 128 bytes, and in each 8-row x 128-byte atom (1024 bytes,
-// 1024-aligned) the 16-byte chunk c of row r sits at chunk c ^ (r & 7).
-// Byte offset of byte cb of row r:
-__device__ __forceinline__ uint32_t tile_b(int r, int R, int cb) {
-  return ((cb >> 7) * R + r) * 128 + ((((cb >> 4) & 7) ^ (r & 7)) << 4) + (cb & 15);
-}
-// ... and of element (r, c)
-__device__ __forceinline__ uint32_t tile_e(int r, int R, int c) {
-  return tile_b(r, R, 2 * c);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at byte
-// address addr: lbo = bytes between 64-column blocks (MN-major operands),
-// sbo = bytes between 8-row groups
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// pin an accumulator's registers at this point of the program: no
-// instruction that defines them moves into a wgmma's issue window (the
-// compiler would serialize the wgmmas)
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e]) :: "memory");
-}
-// shared-memory writes of this thread (stores, landed cp.async) become
-// visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// split x into bf16 hi + lo, packed pairs (low half = first element)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
-                                                 x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                                          int ch, bool valid) {
@@ -233,33 +174,6 @@ struct Args {
 struct alignas(64) Maps {
   CUtensorMap k, v;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// one box of `map` at (c0 columns, c1 rows) into shared memory at dst,
-// completing `bar`'s transaction count
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -966,63 +880,6 @@ int chunk_bytes(const void* base, long long row_b, long long stride_b) {
   for (int ch = 16; ch > 4; ch >>= 1)
     if (p % ch == 0 && row_b % ch == 0 && stride_b % ch == 0) return ch;
   return 4;
-}
-
-// cuTensorMapEncodeTiled, a libcuda entry point, looked up through the
-// runtime (this library links no libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  static bool tried = false;
-  if (!tried) {
-    tried = true;
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2-D map of `rows` rows of `cols` KT elements `stride_b` bytes apart,
-// boxes of box_cols x box_rows: bf16 operand column blocks (128-byte
-// swizzled) or raw column blocks (plain). kMapped; kNoMap where TMA cannot
-// take the tensor (a base, row stride or box width off 16 bytes), whose
-// tiles then come by cp.async; kMapFailed where the driver's encoder is
-// missing or refuses a map TMA can take (the launch then fails: no slower
-// route stands in for it)
-enum MapResult { kMapped, kNoMap, kMapFailed };
-template <typename KT>
-MapResult map_2d(CUtensorMap* m, const void* base, long long cols, long long rows,
-                 long long stride_b, int box_cols, int box_rows) {
-  constexpr bool bf16 = std::is_same<KT, __nv_bfloat16>::value;
-  constexpr CUtensorMapDataType dt =
-      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-      : std::is_same<KT, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-      : std::is_same<KT, float>::value  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                        : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  if ((reinterpret_cast<unsigned long long>(base) & 15) || (stride_b & 15) ||
-      (box_cols * (int)sizeof(KT)) % 16 || box_cols > 256 || cols < box_cols ||
-      rows < box_rows || rows >= (1LL << 31))
-    return kNoMap;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return kMapFailed;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride_b};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t es[2] = {1, 1};
-  const CUresult r =
-      enc(m, dt, 2, const_cast<void*>(base), dims, strides, box, es,
-          CU_TENSOR_MAP_INTERLEAVE_NONE,
-          bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? kMapped : kMapFailed;
 }
 
 // both maps, or neither (kNoMap: the tiles come by cp.async)

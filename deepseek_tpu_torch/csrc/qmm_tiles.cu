@@ -1,5 +1,5 @@
-// Tile GEMM for many activation rows against nibble or plain weights, on
-// Hopper (sm_90a). One kernel family, templated on the weight reader:
+// Tile GEMM for many activation rows against quantized weights, on Hopper
+// (sm_90a). One kernel family, templated on the weight reader:
 //
 //   K1 row-tiled: deepseek_tpu/ops/pallas/qmm.py::qmm with _knib_body at
 //       many rows (a prefill chunk's projections, wkv_b over the window);
@@ -12,9 +12,9 @@
 //       launched :538): the same routes over packed Q2_K/Q3_K planes;
 //   K5 row-tiled and K6 with the turbo bodies (qmm.py:378/:385 _q2kt_body
 //       and _q3kt_body; qmm_grouped :479-487, launched :538): the same
-//       routes over the int8 turbo planes;
-//   K11: megablox.gmm as deepseek_tpu/ops/matmul.py::grouped_expert_ffn
-//       calls it: rows grouped by expert, a plain f32/f16/bf16 table.
+//       routes over the int8 turbo planes.
+// (K11, rows grouped against a plain table, is csrc/gmm.cu, on the
+// tensor cores.)
 //
 //   y[row, r] = sum_c x[row, c] * W[e(row)][r, c]     (f32 accumulation)
 //
@@ -25,10 +25,7 @@
 //  - K1: tile g = rows 128g.., expert 0;
 //  - K6: tile g = rows 128g.. of the (G, 128, n) tiles, expert
 //    tile_expert[g], and only the first tile_rows[g] rows when given (the
-//    rest of the tile is left unwritten: the caller never reads it);
-//  - K11: the tiles are cut from the expert groups (group_off, the row
-//    offsets, and tile_off, each group's first tile): a block finds its
-//    group by binary search. Tiles past the last group exit.
+//    rest of the tile is left unwritten: the caller never reads it).
 //
 // Bound: at 128 rows a tile does 256 flops per weight it reads, above the
 // card's balance point even in bf16, so the products bound it. This first
@@ -40,7 +37,9 @@
 // handful of live rows (256 experts, ~9 pairs a token): a tile of at most
 // 16 live rows gives every thread 8 rows x 1 column instead, so all eight
 // warps share its products, and the weight block's read bounds it.
-// Tensor cores (mma/wgmma) are later work (ROADMAP.md).
+// The quantized weights dequantize to f32 values, so tensor cores would
+// need two or three bf16 terms a weight (csrc/gmm.cu's split); that is
+// later work (ROADMAP.md).
 //
 // Nibble reader. In the stride-16 permuted plane, byte o*n16 + g (o < 8)
 // holds natural column 16g + o in its low nibble and 16g + 8 + o in its
@@ -121,15 +120,16 @@ constexpr int kLdw = kBN + 4;     // ws[k][r] row stride
 constexpr int kSW = 512;          // nibble columns staged raw at a time
 constexpr int kLdp = 8 * 8 + 1;   // praw row: 8 slabs x 8 words (+1: banks)
 constexpr int kLda = 16 + 1;      // araw/craw row: 32 bf16 scales (+1)
-constexpr int kSmemPlain = (kBK * kLdx + kBK * kLdw) * sizeof(float);
-constexpr int kSmemNib = kSmemPlain + (kBN * kLdp + 2 * kBN * kLda) * 4;
+constexpr int kSmemBytes = (kBK * kLdx + kBK * kLdw) * sizeof(float);
+constexpr int kSmemNib = kSmemBytes + (kBN * kLdp + 2 * kBN * kLda) * 4;
 
-enum Kind { kNib = 0, kNibC = 1, kF32 = 2, kF16 = 3, kBF16 = 4, kF8 = 5,
-            kQ2 = 6, kQ3 = 7, kQ2T = 8, kQ3T = 9, kNibP = 10, kNibCP = 11 };
+// kinds 2-4 were the plain tables, now K11's own kernel (csrc/gmm.cu)
+enum Kind { kNib = 0, kNibC = 1, kF8 = 5, kQ2 = 6, kQ3 = 7, kQ2T = 8, kQ3T = 9,
+            kNibP = 10, kNibCP = 11 };
 constexpr int kSW3T = 256;        // Q3_K turbo columns staged raw at a time
 
 struct Weights {
-  const void* w;          // nibble plane p (E, d, n/2) u8, plain (E, d, n),
+  const void* w;          // nibble plane p (E, d, n/2) u8,
                           // F8E5M2 bytes (E, d, n), packed qs (E, d, n/4)
                           // or turbo plane p (E, d, n) int8
   const uint16_t* a;      // nibble scales, turbo bm (Q2_K) or a (Q3_K):
@@ -147,9 +147,7 @@ struct Weights {
 struct Tiles {
   const int32_t* tile_expert;   // (G,) or null: expert 0
   const int32_t* tile_rows;     // (G,) live rows per tile, or null
-  const int32_t* group_off;     // (E+1,) row offsets of the groups (K11)
-  const int32_t* tile_off;      // (E+1,) first tile of each group (K11)
-  int rows, E;
+  int rows;
 };
 
 __device__ __forceinline__ float bf16_f(uint32_t bits16) {
@@ -158,18 +156,6 @@ __device__ __forceinline__ float bf16_f(uint32_t bits16) {
 
 // tile g -> (expert, first row, live rows); false for a tile with no rows
 __device__ bool tile_of(const Tiles& t, int g, int& e, int& r0, int& nr) {
-  if (t.group_off != nullptr) {
-    if (g >= t.tile_off[t.E]) return false;
-    int lo = 0, hi = t.E - 1;                 // last e with tile_off[e] <= g
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (t.tile_off[mid] <= g) lo = mid; else hi = mid - 1;
-    }
-    e = lo;
-    r0 = t.group_off[e] + (g - t.tile_off[e]) * kBM;
-    nr = min(min(kBM, t.group_off[e + 1] - r0), t.rows - r0);
-    return nr > 0;
-  }
   e = t.tile_expert != nullptr ? t.tile_expert[g] : 0;
   r0 = g * kBM;
   nr = min(kBM, t.rows - r0);
@@ -177,9 +163,9 @@ __device__ bool tile_of(const Tiles& t, int g, int& e, int& r0, int& nr) {
   return nr > 0;
 }
 
-template <int KIND, typename XT>
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
+tile_gemm_kernel(const float* __restrict__ x, Weights wt, Tiles tl,
                  float* __restrict__ y, int d, int n) {
   constexpr bool kHasC = KIND == kNibC || KIND == kNibCP;   // nibble min plane
   constexpr bool kXPerm = KIND == kNibP || KIND == kNibCP;  // x in permuted order
@@ -189,14 +175,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   constexpr int kStageW = KIND == kQ3T ? kSW3T : kSW;           // columns a stage
   constexpr bool kFp8 = KIND == kF8;
   constexpr bool kBytes = kFp8 || KIND == kQ2T;    // 1-byte weights, natural order
-  using WT = typename std::conditional<
-      KIND == kF16, __half,
-      typename std::conditional<KIND == kBF16, __nv_bfloat16, float>::type>::type;
-  // raw global words of one k-step, held in registers until stored
-  using XR = typename std::conditional<sizeof(XT) == 4, float4, uint2>::type;
-  using WR = typename std::conditional<sizeof(WT) == 4, float4, uint2>::type;
   constexpr int kXIt = kBM * kBK / 4 / kThreads;   // 8 activation items
-  constexpr int kWIt = kBN * kBK / 4 / kThreads;   // 8 plain weight items
   constexpr int kOIt = kBN * 8 / kThreads;         // 4 nibble words
   constexpr int kFIt = kBN * kBK / 16 / kThreads;  // 2 fp8 16-byte vectors
 
@@ -227,7 +206,6 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const uint8_t* pe = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * half;
   const uint16_t* ae = wt.a + (size_t)e * d * n16;
   const uint16_t* ce = kHasC ? wt.c + (size_t)e * d * n16 : nullptr;
-  const WT* we = static_cast<const WT*>(wt.w) + (size_t)e * d * n;
   const int wr_r = tid & (kBN - 1), wr_o = tid / kBN;   // nibble: row, byte slab
   const uint8_t* w8 = static_cast<const uint8_t*>(wt.w) + (size_t)e * d * n;
   const int g0 = kFp8 ? (d + wt.b0 - 1) / wt.b0 : 0;
@@ -241,8 +219,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   const float* dse = kPacked || KIND == kQ2T ? wt.s + (size_t)e * d * n256 : nullptr;
   const float* dme = KIND == kQ2 ? wt.dmin + (size_t)e * d * n256 : nullptr;
 
-  XR xr[kXIt];
-  WR wr[kWIt];
+  float4 xr[kXIt];
   uint4 fr[kFIt];                    // fp8, Q2_K turbo: a step's raw vectors
   float fs[kFIt];                    // and their rows' block (super) scales
   float fb[kFIt];                    // Q2_K turbo: and their groups' min terms
@@ -415,7 +392,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       // permuted x: c4 / 4 is the offset o, the float4 groups k0/16 .. +3
       const int col = kXPerm ? (c4 >> 2) * n16 + (k0 >> 4) : k0 + c4;
       if (m < nr)
-        xr[it] = *reinterpret_cast<const XR*>(x + (size_t)(r0 + m) * n + col);
+        xr[it] = *reinterpret_cast<const float4*>(x + (size_t)(r0 + m) * n + col);
     }
     if constexpr (kBytes) {
 #pragma unroll
@@ -432,14 +409,6 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
           fb[it] = bf16_f(ae[(size_t)gr * n16 + ((k0 + c16) >> 4)]);
         }
       }
-    } else if constexpr (!kStaged) {
-#pragma unroll
-      for (int it = 0; it < kWIt; ++it) {
-        const int item = tid + it * kThreads;
-        const int r = item & (kBN - 1), c4 = (item / kBN) * 4;
-        const size_t gr = (size_t)min(col0 + r, d - 1);
-        wr[it] = *reinterpret_cast<const WR*>(we + gr * n + k0 + c4);
-      }
     }
   };
 
@@ -452,13 +421,7 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
       const int item = tid + it * kThreads;
       const int m = item & (kBM - 1), c4 = (item / kBM) * 4;
       if (m >= nr) continue;
-      float v[4];
-      if constexpr (sizeof(XT) == 4) {
-        v[0] = xr[it].x; v[1] = xr[it].y; v[2] = xr[it].z; v[3] = xr[it].w;
-      } else {
-        v[0] = bf16_f(xr[it].x & 0xFFFFu); v[1] = bf16_f(xr[it].x >> 16);
-        v[2] = bf16_f(xr[it].y & 0xFFFFu); v[3] = bf16_f(xr[it].y >> 16);
-      }
+      const float v[4] = {xr[it].x, xr[it].y, xr[it].z, xr[it].w};
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         xs[(kXPerm ? q * 16 + (c4 >> 2) : c4 + q) * kLdx + m] = v[q];
@@ -544,7 +507,8 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
         for (int q = 0; q < 4; ++q)
           ws[(q * 16 + o) * kLdw + wr_r] = af[q] * (float)(int8_t)(wb >> (8 * q));
       }
-    } else if constexpr (kBytes) {
+    } else {
+      static_assert(kBytes, "a weight reader for every kind");
 #pragma unroll
       for (int it = 0; it < kFIt; ++it) {
         const int item = tid + it * kThreads;
@@ -563,30 +527,6 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
         }
 #pragma unroll
         for (int q = 0; q < 16; ++q) ws[(c16 + q) * kLdw + r] = v[q];
-      }
-    } else {
-#pragma unroll
-      for (int it = 0; it < kWIt; ++it) {
-        const int item = tid + it * kThreads;
-        const int r = item & (kBN - 1), c4 = (item / kBN) * 4;
-        float v[4];
-        if constexpr (sizeof(WT) == 4) {
-          v[0] = wr[it].x; v[1] = wr[it].y; v[2] = wr[it].z; v[3] = wr[it].w;
-        } else {
-          const uint32_t b[4] = {wr[it].x & 0xFFFFu, wr[it].x >> 16,
-                                 wr[it].y & 0xFFFFu, wr[it].y >> 16};
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            v[q] = KIND == kF16 ? __half2float(__ushort_as_half((unsigned short)b[q]))
-                                : bf16_f(b[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // the table is cast to the compute dtype (the activations')
-          if constexpr (sizeof(XT) == 2)
-            v[q] = __bfloat162float(__float2bfloat16(v[q]));
-          ws[(c4 + q) * kLdw + r] = v[q];
-        }
       }
     }
   };
@@ -673,93 +613,72 @@ tile_gemm_kernel(const XT* __restrict__ x, Weights wt, Tiles tl,
   }
 }
 
-template <int KIND, typename XT>
-cudaError_t launch(const void* x, const Weights& wt, const Tiles& tl,
+template <int KIND>
+cudaError_t launch(const float* x, const Weights& wt, const Tiles& tl,
                    float* y, int G, int d, int n, cudaStream_t stream) {
-  constexpr int smem = KIND == kNib || KIND == kNibC || KIND == kQ2 || KIND == kQ3 ||
-                               KIND == kQ3T || KIND == kNibP || KIND == kNibCP
-                           ? kSmemNib : kSmemPlain;
+  constexpr int smem = KIND == kF8 || KIND == kQ2T ? kSmemBytes : kSmemNib;
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        tile_gemm_kernel<KIND, XT>,
+        tile_gemm_kernel<KIND>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_opt_in = true;
   }
   dim3 grid(G, (d + kBN - 1) / kBN);
-  tile_gemm_kernel<KIND, XT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const XT*>(x), wt, tl, y, d, n);
+  tile_gemm_kernel<KIND><<<grid, kThreads, smem, stream>>>(x, wt, tl, y, d, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y (rows, d) f32 = tile GEMM of x (rows, n) against W (E, d, n).
-// x_dtype: 0 = f32, 2 = bf16 (bf16 only with a plain table). kind: 0/1 =
-// nibble without/with the min plane c (w = p, a, c, off), 2/3/4 = plain
-// f32/f16/bf16 table (w), 5 = F8E5M2 table (w) with the f32 inverse scales
-// s (E, ceil(d/b0), ceil(n/b1)), 6 = packed Q2_K (w = qs, a = sm, s = d,
-// s2 = dmin), 7 = packed Q3_K (w = qs, a = sc, c = hm, s = d), 8 = Q2_K
-// turbo (w = p, a = bm, s = d), 9 = Q3_K turbo (w = p, a), 10/11 = nibble
-// as 0/1 with x in the stride-16 permuted order. Tiles as the
-// header says: tile_expert and tile_rows (G,) or null; group_off and
-// tile_off (E+1,) or null. Needs n % 64 == 0 (nibble and packed: n % 256
-// == 0; fp8: b1 % 64 == 0), G <= 2^31 - 1, d <= 8388480. Returns a
+// y (rows, d) f32 = tile GEMM of x (rows, n) f32 against W (E, d, n).
+// kind: 0/1 = nibble without/with the min plane c (w = p, a, c, off), 5 =
+// F8E5M2 table (w) with the f32 inverse scales s (E, ceil(d/b0),
+// ceil(n/b1)), 6 = packed Q2_K (w = qs, a = sm, s = d, s2 = dmin), 7 =
+// packed Q3_K (w = qs, a = sc, c = hm, s = d), 8 = Q2_K turbo (w = p, a =
+// bm, s = d), 9 = Q3_K turbo (w = p, a), 10/11 = nibble as 0/1 with x in
+// the stride-16 permuted order. Tiles as the header says: tile_expert and
+// tile_rows (G,) or null. Needs n % 64 == 0 (nibble, packed and turbo: n %
+// 256 == 0; fp8: b1 % 64 == 0), G <= 2^31 - 1, d <= 8388480. Returns a
 // cudaError_t; the launch is asynchronous on `stream`.
-extern "C" int tile_gemm(const void* x, int x_dtype, int kind, const void* w,
+extern "C" int tile_gemm(const void* x, int kind, const void* w,
                          const void* a, const void* c, int off,
                          const void* s, int b0, int b1, const void* s2,
                          const void* tile_expert, const void* tile_rows,
-                         const void* group_off, const void* tile_off,
-                         void* y, int rows, int G, int E, int d, int n,
+                         void* y, int rows, int G, int d, int n,
                          void* stream) {
-  const bool kq = kind == kNib || kind == kNibC || kind == kNibP || kind == kNibCP ||
-                  kind == kQ2 || kind == kQ3 ||
-                  kind == kQ2T || kind == kQ3T;
-  if (rows <= 0 || G <= 0 || E <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
-      n % (kq ? 256 : kBK) != 0 || ((kq || kind == kF8) && x_dtype != 0) ||
-      (x_dtype != 0 && x_dtype != 2) || kind < kNib || kind > kNibCP ||
+  const bool kq = kind != kF8;
+  if (rows <= 0 || G <= 0 || d <= 0 || d > 65535 * kBN || n <= 0 ||
+      n % (kq ? 256 : kBK) != 0 || kind < kNib || kind > kNibCP ||
+      (kind > kNibC && kind < kF8) ||
       w == nullptr || ((kind == kNibC || kind == kNibCP) && c == nullptr) ||
       (kind == kF8 && (s == nullptr || b0 <= 0 || b1 <= 0 || b1 % kBK != 0)) ||
       ((kind == kQ2 || kind == kQ3) && (a == nullptr || s == nullptr)) ||
       (kind == kQ2 && s2 == nullptr) || (kind == kQ3 && c == nullptr) ||
       ((kind == kQ2T || kind == kQ3T) && a == nullptr) ||
-      (kind == kQ2T && s == nullptr) ||
-      ((group_off == nullptr) != (tile_off == nullptr)))
+      (kind == kQ2T && s == nullptr))
     return (int)cudaErrorInvalidValue;
   Weights wt{w, static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(c),
              (float)off, static_cast<const float*>(s), b0, b1,
              static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(c),
              static_cast<const float*>(s2)};
   Tiles tl{static_cast<const int32_t*>(tile_expert),
-           static_cast<const int32_t*>(tile_rows),
-           static_cast<const int32_t*>(group_off),
-           static_cast<const int32_t*>(tile_off), rows, E};
+           static_cast<const int32_t*>(tile_rows), rows};
+  auto xs = static_cast<const float*>(x);
   auto ys = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (x_dtype == 0) {
-    switch (kind) {
-      case kNib: err = launch<kNib, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kNibC: err = launch<kNibC, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kNibP: err = launch<kNibP, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kNibCP: err = launch<kNibCP, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kF32: err = launch<kF32, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kF16: err = launch<kF16, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kF8: err = launch<kF8, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kQ2: err = launch<kQ2, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kQ3: err = launch<kQ3, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kQ2T: err = launch<kQ2T, float>(x, wt, tl, ys, G, d, n, st); break;
-      case kQ3T: err = launch<kQ3T, float>(x, wt, tl, ys, G, d, n, st); break;
-      default: err = launch<kBF16, float>(x, wt, tl, ys, G, d, n, st); break;
-    }
-  } else {
-    switch (kind) {
-      case kF32: err = launch<kF32, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
-      case kF16: err = launch<kF16, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
-      default: err = launch<kBF16, __nv_bfloat16>(x, wt, tl, ys, G, d, n, st); break;
-    }
+  switch (kind) {
+    case kNib: err = launch<kNib>(xs, wt, tl, ys, G, d, n, st); break;
+    case kNibC: err = launch<kNibC>(xs, wt, tl, ys, G, d, n, st); break;
+    case kNibP: err = launch<kNibP>(xs, wt, tl, ys, G, d, n, st); break;
+    case kNibCP: err = launch<kNibCP>(xs, wt, tl, ys, G, d, n, st); break;
+    case kF8: err = launch<kF8>(xs, wt, tl, ys, G, d, n, st); break;
+    case kQ2: err = launch<kQ2>(xs, wt, tl, ys, G, d, n, st); break;
+    case kQ3: err = launch<kQ3>(xs, wt, tl, ys, G, d, n, st); break;
+    case kQ2T: err = launch<kQ2T>(xs, wt, tl, ys, G, d, n, st); break;
+    default: err = launch<kQ3T>(xs, wt, tl, ys, G, d, n, st); break;
   }
   return (int)err;
 }

@@ -1,11 +1,72 @@
-// The Hopper warp-group MMAs (wgmma) that csrc/prefill_attn.cu issues,
-// bf16 operands, f32 accumulators: every accumulator register is an asm
-// operand, so each shape has its own function (written out by a short
-// generator; the operand lists are the only thing that differs).
+// The Hopper warp-group MMAs (wgmma) that csrc/prefill_attn.cu and
+// csrc/gmm.cu issue, bf16 operands, f32 accumulators: every accumulator
+// register is an asm operand, so each shape has its own function (written
+// out by a short generator; the operand lists are the only thing that
+// differs). Beside them: the 128-byte-swizzled operand layout, the
+// shared-memory descriptors, the fences, and the split of f32 values into
+// bf16 hi + lo terms.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+// Operand tiles are the wgmma canonical 128-byte-swizzled layout: a tile
+// of R rows (R a multiple of 8) x W bf16 columns is W/64 column blocks of
+// R rows x 128 bytes, and in each 8-row x 128-byte atom (1024 bytes,
+// 1024-aligned) the 16-byte chunk c of row r sits at chunk c ^ (r & 7).
+// Byte offset of byte cb of row r:
+__device__ __forceinline__ uint32_t tile_b(int r, int R, int cb) {
+  return ((cb >> 7) * R + r) * 128 + ((((cb >> 4) & 7) ^ (r & 7)) << 4) + (cb & 15);
+}
+// ... and of element (r, c)
+__device__ __forceinline__ uint32_t tile_e(int r, int R, int c) {
+  return tile_b(r, R, 2 * c);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at byte
+// address addr: lbo = bytes between 64-column blocks (MN-major operands),
+// sbo = bytes between 8-row groups
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pin an accumulator's registers at this point of the program: no
+// instruction that defines them moves into a wgmma's issue window (the
+// compiler would serialize the wgmmas)
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e]) :: "memory");
+}
+// shared-memory writes of this thread (stores, landed cp.async) become
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// split x into bf16 hi + lo, packed pairs (low half = first element)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                 x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 
 // d (this warp group's 64 rows x 16 columns) += A . B, both from
 // shared memory through descriptors (K-major)
@@ -104,5 +165,26 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
         "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]),
         "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (this warp group's 64 rows x 64 columns) += A . B, A from registers
+// (each warp its 16 rows, the mma.m16n8k16 A fragment), B from shared
+// memory through a descriptor (K-major: no transpose)
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[8][4],
+                                               const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }

@@ -6,7 +6,8 @@ and launches ``csrc/mla_decode.cu``; ``mha_decode_attn`` replaces
 ``::mha_decode_attn`` (``_mha_body``, K8: decompressed MHA over the
 per-head key/value cache) and launches ``csrc/mha_decode.cu``. Both run a
 split-KV pass writing (acc, m, l) partials, then an exact merge (see the
-source headers for the designs and their bounds). Over an int8 cache both
+source headers for the designs and their bounds; K8's split count is
+``decode_splits``). Over an int8 cache both
 take the f32 scales of the stored rows, in the JAX layouts: (B,S) for the
 latent rows, head-major (B,H,S) for the per-head keys and values, which
 K8 reads through their strides (the cache's (B,S,H) scales transposed, no
@@ -158,8 +159,25 @@ mla_decode_attn.int8 = SimpleNamespace(launches=0)
 mla_decode_attn.partials = launch_counters()
 
 
-_MHA_MAX_D = 256          # kMaxD in csrc/mha_decode.cu
-_MHA_MAX_SPLITS = 256     # kMaxSplits
+# csrc/mha_decode.cu's constants (the tests read them there): head widths
+# (kMaxD), splits its merge takes (kMaxSplits), heads a block (kHG)
+_MHA_MAX_D = 256
+_MHA_MAX_SPLITS = 256
+_MHA_HEADS = 8
+_MHA_SPAN_ALIGN = 8       # split spans are whole tiles (TS: 8 int8, 4 otherwise)
+_MHA_FILL_BLOCKS = 264    # about 2 blocks on each of the H100's 132 SMs
+
+
+def decode_splits(B: int, H: int, S: int):
+    """(n_split, span): K8 walks the window of S slots in n_split spans
+    of ``span`` slots, one block per span, head group and sequence, about
+    ``_MHA_FILL_BLOCKS`` blocks in all; a merge kernel combines the spans'
+    partials. A pure function of the shapes (kv_len stays on the card)."""
+    blocks = B * -(-H // _MHA_HEADS)
+    chunks = -(-S // _MHA_SPAN_ALIGN)
+    n = max(1, min(-(-_MHA_FILL_BLOCKS // blocks), chunks, _MHA_MAX_SPLITS))
+    span = -(-chunks // n) * _MHA_SPAN_ALIGN
+    return -(-S // span), span
 
 
 def mha_decode_attn_plain(q, k_cache, v_cache, kv_len, softmax_scale: float,
@@ -217,11 +235,7 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     kl = torch.as_tensor(kv_len, device=dev).reshape(-1).expand(B) \
         .to(torch.int32).contiguous()
-    # about two blocks per SM, at most one split per 32-slot tile
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = B * math.ceil(H / _HEADS)
-    ns = max(1, min(math.ceil(S / _TILE), math.ceil(2 * sms / blocks),
-                    _MHA_MAX_SPLITS))
+    ns, span = decode_splits(B, H, S)
     out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m_out, l_out = stats_outputs(partials, (B, H), dev)
     acc = torch.empty((B, H, ns, Dv), dtype=torch.float32, device=dev)
@@ -231,7 +245,7 @@ def mha_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
         data_ptr_or_0(v_scale), kl.data_ptr(), out.data_ptr(), data_ptr_or_0(m_out),
         data_ptr_or_0(l_out), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, S,
-        Dh, Dv, DTYPE_CODE[dt], ns, float(softmax_scale), sb, sh, ss,
+        Dh, Dv, DTYPE_CODE[dt], ns, span, float(softmax_scale), sb, sh, ss,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mha_decode")
     count_launch(mha_decode_attn, partials, dt == torch.int8)

@@ -38,10 +38,11 @@ SIGNATURES = {
     "mla_decode": {"mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                  _I, _P]},
-    "qmm_tiles": {"tile_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
-                                _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _I, _I, _P]},
+    "qmm_tiles": {"tile_gemm": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P,
+                                _P, _P, _P, _I, _I, _I, _I, _P]},
+    "gmm": {"gmm": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "expert_ffn": {"expert_ffn": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                                   _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {

@@ -36,7 +36,7 @@ matrix products, and the fused expert FFN.
   ``qmm_grouped_turbo`` K6's (qmm.py:479-487; ``csrc/qmm_tiles.cu``).
 - ``gmm`` replaces ``megablox.gmm`` as ``deepseek_tpu/ops/matmul.py::
   grouped_expert_ffn`` calls it (K11: rows grouped by expert against a
-  plain table; ``csrc/qmm_tiles.cu``).
+  plain table; ``csrc/gmm.cu``, on the tensor cores).
 - Row-permuted nibble expert tables (``KNibbleTensor.rowperm``, the
   layout of ``DSEEK_FUSED_FFN=1``): ``qmm_expert_ffn`` replaces
   ``::qmm_expert_ffn`` (K7: w13, GLU, w2 and the weighted sum over one
@@ -133,9 +133,12 @@ def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor,
 # 16 rows (8 would cost w2 0.29 ms at 16 rows), so fp8 shares the value.
 ROW_TILE_MIN = 16
 _TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
-_PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}
+_PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}   # csrc/qmm.cu
 _FP8_KIND = 5
-_X_DTYPE = {torch.float32: 0, torch.bfloat16: 2}
+# K11 (csrc/gmm.cu): rows of x a tile (kBN there; the tests read it) and
+# its dtype codes (x: f32 or bf16, the compute dtype; the table: any)
+_GMM_ROWS = 64
+_GMM_DTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def qmm_grouped_plain(qt, tile_expert: torch.Tensor,
@@ -221,16 +224,16 @@ def _nibble_args(qt: KNibbleTensor):
 _NIB_XPERM_KIND = 10    # kNibP in csrc/qmm_tiles.cu (kNibCP = 11): x permuted
 
 
-def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, E, d, scales=(None, 0, 0),
+def _tile_gemm(x2, kind, w, a, c, off, tiles, y, G, d, scales=(None, 0, 0),
                s2=None):
-    """Launch csrc/qmm_tiles.cu; ``tiles`` = (tile_expert, tile_rows,
-    group_off, tile_off), each an int32 device tensor or None; ``scales`` =
-    (scale pointer, b0, b1): an fp8 table's grid, or a packed table's super
-    scales (b0 = b1 = 0) with Q2_K's super mins in ``s2``."""
+    """Launch csrc/qmm_tiles.cu over x2 (rows, n) f32; ``tiles`` =
+    (tile_expert, tile_rows), each an int32 device tensor or None;
+    ``scales`` = (scale pointer, b0, b1): an fp8 table's grid, or a packed
+    table's super scales (b0 = b1 = 0) with Q2_K's super mins in ``s2``."""
     ptr = [t.data_ptr() if t is not None else None for t in tiles]
     err = library("qmm_tiles").tile_gemm(
-        x2.data_ptr(), _X_DTYPE[x2.dtype], kind, w, a, c, off, *scales, s2, *ptr,
-        y.data_ptr(), x2.shape[0], G, E, d, x2.shape[1],
+        x2.data_ptr(), kind, w, a, c, off, *scales, s2, *ptr,
+        y.data_ptr(), x2.shape[0], G, d, x2.shape[1],
         torch.cuda.current_stream(x2.device).cuda_stream)
     check(err, "tile_gemm")
 
@@ -321,8 +324,7 @@ def qmm_rows(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
     x2 = x.float().contiguous()
     y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     kind, p, a, c, off = _nibble_args(qt)
-    _tile_gemm(x2, kind, p, a, c, off, (None, None, None, None), y,
-               -(-rows // _TILE), 1, d)
+    _tile_gemm(x2, kind, p, a, c, off, (None, None), y, -(-rows // _TILE), d)
     qmm_rows.launches += 1
     return y
 
@@ -435,8 +437,7 @@ def qmm_grouped(qt: KNibbleTensor, tile_expert: torch.Tensor,
     kind, p, a, c, off = _nibble_args(qt)
     if x_prepermuted:
         kind += _NIB_XPERM_KIND
-    _tile_gemm(x2, kind, p, a, c, off, (te, tr, None, None), y,
-               te.shape[0], qt.shape[0], qt.shape[-2])
+    _tile_gemm(x2, kind, p, a, c, off, (te, tr), y, te.shape[0], qt.shape[-2])
     (qmm_grouped.prepermuted if x_prepermuted else qmm_grouped).launches += 1
     return y
 
@@ -537,7 +538,7 @@ def qmm_fp8_rows(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
     x2 = x.float().contiguous()
     y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
-               (None, None, None, None), y, -(-rows // _TILE), 1, d,
+               (None, None), y, -(-rows // _TILE), d,
                scales=(qt.scale.data_ptr(), *qt.block_size))
     qmm_fp8_rows.launches += 1
     return y
@@ -582,7 +583,7 @@ def qmm_grouped_fp8(qt: Fp8Tensor, tile_expert: torch.Tensor,
     x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
                                       "qmm_grouped_fp8")
     _tile_gemm(x2, _FP8_KIND, qt.data.data_ptr(), None, None, 0,
-               (te, tr, None, None), y, te.shape[0], qt.shape[0], qt.shape[-2],
+               (te, tr), y, te.shape[0], qt.shape[-2],
                scales=(qt.scale.data_ptr(), *qt.block_size))
     qmm_grouped_fp8.launches += 1
     return y
@@ -652,9 +653,9 @@ def _packed_matvec(qt, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
     return y
 
 
-def _packed_tiles(qt, x2, tiles, y, G, E):
+def _packed_tiles(qt, x2, tiles, y, G):
     kind, qs, hm, s8, dsup, dmin = _packed_ptrs(qt)
-    _tile_gemm(x2, _Q2K_TILE_KIND + kind, qs, s8, hm, 0, tiles, y, G, E,
+    _tile_gemm(x2, _Q2K_TILE_KIND + kind, qs, s8, hm, 0, tiles, y, G,
                qt.shape[-2], scales=(dsup, 0, 0), s2=dmin)
 
 
@@ -690,7 +691,7 @@ def qmm_packed_rows(qt, x: torch.Tensor) -> torch.Tensor:
     rows, d = x.shape[0], qt.shape[-2]
     x2 = x.float().contiguous()
     y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    _packed_tiles(qt, x2, (None, None, None, None), y, -(-rows // _TILE), 1)
+    _packed_tiles(qt, x2, (None, None), y, -(-rows // _TILE))
     qmm_packed_rows.launches += 1
     return y
 
@@ -732,7 +733,7 @@ def qmm_grouped_packed(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
     _check_packed(qt, x_tiles, True, "qmm_grouped_packed")
     x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
                                       "qmm_grouped_packed")
-    _packed_tiles(qt, x2, (te, tr, None, None), y, te.shape[0], qt.shape[0])
+    _packed_tiles(qt, x2, (te, tr), y, te.shape[0])
     qmm_grouped_packed.launches += 1
     return y
 
@@ -774,9 +775,9 @@ def _turbo_matvec(qt, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
     return y
 
 
-def _turbo_tiles(qt, x2, tiles, y, G, E):
+def _turbo_tiles(qt, x2, tiles, y, G):
     kind, p, dsup, a = _turbo_ptrs(qt)
-    _tile_gemm(x2, _Q2KT_TILE_KIND + kind, p, a, None, 0, tiles, y, G, E,
+    _tile_gemm(x2, _Q2KT_TILE_KIND + kind, p, a, None, 0, tiles, y, G,
                qt.shape[-2], scales=(dsup, 0, 0))
 
 
@@ -812,7 +813,7 @@ def qmm_turbo_rows(qt, x: torch.Tensor) -> torch.Tensor:
     rows, d = x.shape[0], qt.shape[-2]
     x2 = x.float().contiguous()
     y = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    _turbo_tiles(qt, x2, (None, None, None, None), y, -(-rows // _TILE), 1)
+    _turbo_tiles(qt, x2, (None, None), y, -(-rows // _TILE))
     qmm_turbo_rows.launches += 1
     return y
 
@@ -854,7 +855,7 @@ def qmm_grouped_turbo(qt, tile_expert: torch.Tensor, x_tiles: torch.Tensor,
     _check_turbo(qt, x_tiles, True, "qmm_grouped_turbo")
     x2, te, tr, y = _grouped_operands(qt, tile_expert, x_tiles, tile_rows,
                                       "qmm_grouped_turbo")
-    _turbo_tiles(qt, x2, (te, tr, None, None), y, te.shape[0], qt.shape[0])
+    _turbo_tiles(qt, x2, (te, tr), y, te.shape[0])
     qmm_grouped_turbo.launches += 1
     return y
 
@@ -959,6 +960,18 @@ def qmm_expert_ffn(qt13: KNibbleTensor, qt2: KNibbleTensor, idx: torch.Tensor,
     return y
 
 
+def gmm_tiles(group_sizes: torch.Tensor):
+    """(group_off, tile_off), (E+1,) int32 each: the groups' first rows
+    and first tiles of ``_GMM_ROWS`` rows. Tile g of csrc/gmm.cu takes
+    group e (the last with tile_off[e] <= g), rows group_off[e] + (g -
+    tile_off[e]) * _GMM_ROWS onwards, within the group."""
+    sizes = group_sizes.to(torch.int32)
+    zero = sizes.new_zeros(1)
+    tiles = (sizes + _GMM_ROWS - 1) // _GMM_ROWS
+    return (torch.cat([zero, torch.cumsum(sizes, 0, dtype=torch.int32)]),
+            torch.cat([zero, torch.cumsum(tiles, 0, dtype=torch.int32)]))
+
+
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         group_sizes: torch.Tensor) -> torch.Tensor:
     """K11: row group e of lhs (M, k) (f32 or bf16, the compute dtype)
@@ -977,7 +990,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
                          f"group_sizes {tuple(group_sizes.shape)}")
     if rhs.device != lhs.device or group_sizes.device != lhs.device:
         raise ValueError("gmm: operands on different devices")
-    if lhs.dtype not in _X_DTYPE or rhs.dtype not in _PLAIN_KIND:
+    if lhs.dtype not in (torch.float32, torch.bfloat16) or rhs.dtype not in _GMM_DTYPE:
         raise ValueError(f"gmm: unsupported dtypes {lhs.dtype} x {rhs.dtype}")
     if not rhs.is_contiguous() or rhs.data_ptr() % 16:
         raise ValueError("gmm: the table must be contiguous and 16-byte aligned")
@@ -985,15 +998,16 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor,
         raise ValueError(f"gmm needs k % 64 == 0, got {k}")
     if M == 0:
         return lhs.new_zeros((0, n), dtype=torch.float32)
-    sizes = group_sizes.to(torch.int32)
-    zero = torch.zeros(1, dtype=torch.int32, device=lhs.device)
-    group_off = torch.cat([zero, torch.cumsum(sizes, 0, dtype=torch.int32)])
-    tile_off = torch.cat([zero, torch.cumsum((sizes + _TILE - 1) // _TILE, 0,
-                                             dtype=torch.int32)])
+    x = lhs.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    group_off, tile_off = gmm_tiles(group_sizes)
     y = torch.empty((M, n), dtype=torch.float32, device=lhs.device)
-    _tile_gemm(lhs.contiguous(), _PLAIN_KIND[rhs.dtype], rhs.data_ptr(), None,
-               None, 0, (None, None, group_off, tile_off), y,
-               E + -(-M // _TILE), E, n)
+    err = library("gmm").gmm(
+        x.data_ptr(), _GMM_DTYPE[x.dtype], rhs.data_ptr(), _GMM_DTYPE[rhs.dtype],
+        group_off.data_ptr(), tile_off.data_ptr(), y.data_ptr(), M,
+        E + -(-M // _GMM_ROWS), E, n, k, torch.cuda.current_stream(lhs.device).cuda_stream)
+    check(err, "gmm")
     gmm.launches += 1
     return y
 

@@ -290,6 +290,82 @@ def test_k11_matches_plain(x_dtype, w_dtype, dev):
     _close(got[:192], want[:192], 1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("E,n,k,sizes,M", [
+    # a one-row group inside a tile, two empty groups, a group over three
+    # 64-row tiles, rows past the last group (left unwritten)
+    (6, 256, 1408, [1, 0, 70, 0, 150, 37], 320),
+    # DeepSeek-V2-Lite's w2 widths (k = 1408), 128 rows in one group
+    (3, 2048, 1408, [0, 128, 5], 133),
+    # a table narrower than a 128-row block, a ragged last block
+    (2, 200, 64, [64, 3], 67),
+])
+def test_k11_tensor_core_cases(x_dtype, w_dtype, E, n, k, sizes, M, dev):
+    """K11 on the tensor cores (csrc/gmm.cu) against its plain version for
+    every (rows, table) dtype pair: bf16 rows in one pass over the table
+    rounded to bf16, f32 rows as bf16 hi + lo (and f16/f32 tables in two
+    terms). Tolerance 1e-4 of the output scale, as chip_smoke.py holds it.
+    Rows past the last group are left as they were; one launch each."""
+    g = torch.Generator().manual_seed(E + n + k)
+    lhs = torch.randn((M, k), generator=g).to(dev, x_dtype)
+    rhs = (torch.randn((E, n, k), generator=g) * 0.1).to(dev, w_dtype)
+    sz = torch.tensor(sizes, device=dev)
+    before = gmm.launches
+    got = gmm(lhs, rhs, sz)
+    assert gmm.launches == before + 1
+    live = sum(sizes)
+    _close(got[:live], gmm_plain(lhs, rhs, sz)[:live], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("kv_len", [1, 31, 33, 3997])
+def test_k8_streaming_cases(kv_len, H, q8, dev):
+    """K8's streaming kernel over the 4096-slot window at DeepSeek-V2-Lite's
+    16 heads and V3's 128: one live slot, windows that end inside a tile
+    (31, 33: tiles of 4 bf16 / 8 int8 slots; 3997: the last tile of a long
+    window), normalized against the plain version, then the partials body
+    over the two halves of the window (shard 1 empty for kv_len <= 2048:
+    the empty triple) against its plain version. Tolerance 1e-4 of the
+    scale. Launch counters: .launches / .int8 and .partials(.int8)."""
+    g = torch.Generator().manual_seed(kv_len + H)
+    S, Dh, Dv = 4096, 192, 128
+    q = torch.randn((1, H, Dh), generator=g).to(dev)
+    if q8:
+        k, ks = _int8_rows((1, S, H, Dh), g, dev)
+        v, vs = _int8_rows((1, S, H, Dv), g, dev)
+        sc = (ks, vs)
+    else:
+        k = (torch.randn((1, S, H, Dh), generator=g) * 0.3).to(dev, torch.bfloat16)
+        v = torch.randn((1, S, H, Dv), generator=g).to(dev, torch.bfloat16)
+        sc = None
+    kl = torch.tensor([kv_len], device=dev, dtype=torch.int32)
+    scale = 1.0 / math.sqrt(Dh)
+    sc_all = _shard_scales("mha", sc, slice(None))
+    counter = mha_decode_attn.int8 if q8 else mha_decode_attn
+    before = counter.launches
+    _close(mha_decode_attn(q, k, v, kl, scale, **sc_all),
+           mha_decode_attn_plain(q, k, v, kl, scale, **sc_all), 1e-4)
+    assert counter.launches == before + 1
+    pc = mha_decode_attn.partials.int8 if q8 else mha_decode_attn.partials
+    before = pc.launches
+    half = S // 2
+    for s in range(2):
+        sl = slice(s * half, (s + 1) * half)
+        kl_s = (kl - s * half).clamp(0, half)
+        k_s, v_s = k[:, sl].contiguous(), v[:, sl].contiguous()
+        sc_s = _shard_scales("mha", sc, sl)
+        got = mha_decode_attn(q, k_s, v_s, kl_s, scale, partials=True, **sc_s)
+        _close_triples(got, mha_decode_attn_plain(q, k_s, v_s, kl_s, scale,
+                                                  partials=True, **sc_s), 1e-4)
+        if int(kl_s) == 0:
+            assert bool((got[1] == -1e30).all()) and not got[0].any() and not got[2].any()
+    assert pc.launches == before + 2
+
+
 def _prefill_inputs(B, T, H, S, DK, DV, seed, dtype, dev):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((B, T, H, DK), generator=g) * 0.3
