@@ -4,7 +4,10 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. the card: name and power limit, and the build of every CUDA kernel
-     (one nvcc per source, in parallel, into build/torch_kernels/);
+     (one nvcc per source, in parallel, into build/torch_kernels/), with
+     each kernel's ptxas register and spill line; an instantiation of the
+     tile GEMM (csrc/qmm_tiles.cu, K1/K5 row-tiled and K6 on the tensor
+     cores) or of K2's plain body that spills fails the run;
   2. entry points: a tiny random Q3_K checkpoint written with the port's
      codec, hydrated by prefill and decoded greedily by Engine(...,
      device="cuda", kquant_runtime="nibble") and held against the same
@@ -61,8 +64,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      shapes beside packed K5 and nibble K1 on one w13;
   4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
      1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
-     the shapes of the DeepSeek-V3-width model, K4 and K8 at those of
-     DeepSeek-V2-Lite (and V3's lm_head and 128 heads), and the fp8 bodies
+     the shapes of the DeepSeek-V3-width model, K2's plain body and K4
+     and K8 at those of DeepSeek-V2-Lite (and V3's lm_head and 128
+     heads), and the fp8 bodies
      of K5 (matvec and row-tiled), K2 and K6 at DeepSeek-V2-Lite's F8E5M2
      shapes, and the int8 bodies of K3 and K10 at V3's and of K8 and K9 at
      V2-Lite's shapes (beside the bf16 body's time over the same rows; for
@@ -106,6 +110,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -821,6 +826,7 @@ def make_emit(entries, path=None):
 
 
 def kernel_phase(params, cfg, entries):
+    from deepseek_tpu_torch.models.testing import deepseek_v2_lite_proportions
     from deepseek_tpu_torch.ops.kernels.attention import (
         mla_decode_attn, mla_decode_attn_plain)
     from deepseek_tpu_torch.ops.kernels.qmm import (
@@ -923,6 +929,29 @@ def kernel_phase(params, cfg, entries):
              "K3", library=sdpa)
 
     emit_v2 = make_emit(entries, "V2-Lite")
+    # K2's plain body at DeepSeek-V2-Lite's decode shape: one token's 6
+    # routed + 2 shared experts over its F16 w13s and w2s (66 tables),
+    # launched 52 times a V2-Lite token. Yardstick: torch.bmm over the 8
+    # gathered f16 tables with x in f16 (f32 accumulation): the same
+    # bytes, the activation's rounding left out.
+    v2 = deepseek_v2_lite_proportions()
+    mv = v2.moe_intermediate_size
+    for label, d, n in (("w13s", 2 * mv, v2.dim), ("w2s", v2.dim, mv)):
+        n_tab = v2.n_routed_experts + v2.n_shared_experts
+        qt = PlainTensor(data=torch.randn((n_tab, d, n), generator=gen, device="cuda",
+                                          dtype=torch.float16) * 0.02)
+        routed = torch.randperm(v2.n_routed_experts, generator=gen,
+                                device="cuda")[:v2.n_active_routed].sort().values
+        idx = torch.cat([routed, torch.arange(v2.n_routed_experts, n_tab, device="cuda")])
+        x = torch.randn((idx.numel(), n), generator=gen, device="cuda")
+        wsel, x16 = qt.data[idx], x.to(torch.float16)[:, :, None]
+        emit_v2(f"K2 qmm_experts f16 plain table {label} (V2-Lite) {idx.numel()}x{d}x{n}",
+                lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
+                1e-4, nbytes(x) + idx.numel() * d * n * 2 + 4 * d * idx.numel(),
+                2.0 * idx.numel() * d * n, "deepseek_tpu_torch/csrc/qmm.cu",
+                "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, plain body :651)",
+                "K2f", library=lambda: torch.bmm(wsel, x16))
+        del qt, wsel
     prefill_kernel_entries(params, cfg, gen, emit, emit_v2)
     mha_kernel_entries(gen, emit)
     fp8_kernel_entries(gen, emit)
@@ -945,9 +974,9 @@ def rand_fp8(gen, lead, d, n, block=(128, 128)):
 
 def fp8_kernel_entries(gen, emit):
     """The fp8 bodies at DeepSeek-V2-Lite's F8E5M2 shapes (128x128 blocks):
-    K5's matvec (the lm_head, wq, the ragged wkv_a and dense w2) at 1 and 8
-    rows, its row-tiled route (wq over a 256-token chunk, wkv_b over the
-    4096-slot window), K2's fp8 body on the folded tables for one token's 6
+    K5's matvec (the lm_head, wq, the ragged wkv_a and dense w2) at 1 and
+    ROW_TILE_MIN rows (the most it takes), its row-tiled route (wq over a
+    256-token chunk, wkv_b over the 4096-slot window), K2's fp8 body on the folded tables for one token's 6
     routed + 2 shared experts, and K6's on a 256-token chunk's tiles. No
     PyTorch call computes a block-scaled e5m2 x f32 product, so
     library_ms is null; `bf16_copy_ms` times torch.matmul over a bf16 copy
@@ -956,8 +985,8 @@ def fp8_kernel_entries(gen, emit):
     max|ref|: the same products, the scale applied per 16-column partial
     sum (matvec) or per weight (tiles), summed in other orders."""
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
-        qmm_plain, qmm_fp8_rows)
+        ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_grouped,
+        qmm_grouped_plain, qmm_plain, qmm_fp8_rows)
     from deepseek_tpu_torch.ops.matmul import tile_dispatch
 
     qmm_src, tiles_src = "deepseek_tpu_torch/csrc/qmm.cu", "deepseek_tpu_torch/csrc/qmm_tiles.cu"
@@ -980,7 +1009,7 @@ def fp8_kernel_entries(gen, emit):
               ("wkv_a (ragged rows)", 576, 2048), ("w2 dense (ragged columns)", 2048, 10944)]
     for label, d, n in shapes:
         qt = rand_fp8(gen, 0, d, n)
-        for rows in (1, 8):
+        for rows in (1, ROW_TILE_MIN):             # the matvec's row counts
             x = torch.randn((rows, n), generator=gen, device="cuda")
             with_copy(lambda: emit(
                 f"K5 qmm fp8 128x128 {label} (V2-Lite) {rows}x{d}x{n}",
@@ -1085,9 +1114,9 @@ def packed_to_nibble(qt):
 
 def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     """The packed bodies at the V3-width model's shapes, each against its
-    plain version on the card: K5's matvec on the fused dense w13 (1 and 8
-    rows) and wo (1 row), its row-tiled route on w13 over a 256-token chunk
-    and wkv_b over the 4096-slot window; K2's on the routed w13/w2 tables
+    plain version on the card: K5's matvec on the fused dense w13 (1 and
+    ROW_TILE_MIN rows) and wo (1 row), its row-tiled route on w13 over a
+    256-token chunk and wkv_b over the 4096-slot window; K2's on the routed w13/w2 tables
     for the 8 experts of one token and on the per-head wv_b (128 heads of
     128 x 512); K6's on w13/w2 for a 256-token chunk (2048 pairs over 256
     experts: the shared expert is not folded into packed tables). Beside
@@ -1098,8 +1127,8 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     orders, and the matvec's exact 0.5 + u/16 floats whose offset cancels
     against f32 group sums."""
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
-        qmm_packed_rows, qmm_plain)
+        ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_grouped,
+        qmm_grouped_plain, qmm_packed_rows, qmm_plain)
     from deepseek_tpu_torch.ops.matmul import tile_dispatch
     from deepseek_tpu_torch.quant.qtensor import rows_to_experts
 
@@ -1114,7 +1143,7 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     body = "_q2k_body :361" if quant == "q2_k" else "_q3k_body :368"
     k5 = f"deepseek_tpu/ops/pallas/qmm.py:312 (qmm, {body})"
 
-    for label, qt, rows_list in (("w13 (dense)", dense.w13, (1, 8)),
+    for label, qt, rows_list in (("w13 (dense)", dense.w13, (1, ROW_TILE_MIN)),
                                  ("wo", dense.wo, (1,))):
         d, n = qt.shape
         for rows in rows_list:
@@ -1193,8 +1222,8 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     """The turbo bodies at the V3-width model's shapes, each against its
     plain version on the card (the turbo dequantization, bf16 scales, and
     one f32 product): K5's matvec on a dense w13 drawn in the packed layout
-    and converted (1 and 8 rows), beside K5's packed body and K1 on the
-    nibble layout of the same weights; wo (1 row); the row-tiled route on
+    and converted (1 and ROW_TILE_MIN rows), beside K5's packed body and K1
+    on the nibble layout of the same weights; wo (1 row); the row-tiled route on
     the model's w13 over a 256-token chunk and wkv_b over the 4096-slot
     window; K2 on one token's experts of the MoE tables (Q2_K turbo's
     folded tables: the 8 routed and the shared expert) and on the per-head
@@ -1203,8 +1232,8 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     max|ref|: f32 sums in other orders, and the matvec's exact 0.5 + u/256
     floats whose offset cancels against f32 group sums."""
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        qmm, qmm_experts, qmm_experts_plain, qmm_grouped, qmm_grouped_plain,
-        qmm_plain, qmm_turbo_rows)
+        ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_grouped,
+        qmm_grouped_plain, qmm_plain, qmm_turbo_rows)
     from deepseek_tpu_torch.ops.matmul import tile_dispatch
     from deepseek_tpu_torch.quant.qtensor import (
         q2k_to_turbo, q3k_to_turbo, rows_to_experts)
@@ -1227,7 +1256,7 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     d, n = 2 * cfg.hidden_dim, cfg.dim
     packed = rand_packed(gen, d, n, quant)
     turbo, nib = to_turbo(packed), packed_to_nibble(packed)
-    for rows in (1, 8):
+    for rows in (1, ROW_TILE_MIN):                 # the matvec's row counts
         x = torch.randn((rows, n), generator=gen, device="cuda")
         emit_dec(f"K5 qmm {Q} turbo w13 (dense) {rows}x{d}x{n}",
                  lambda: qmm(turbo, x), lambda: qmm_plain(turbo, x), 1e-4,
@@ -2934,6 +2963,21 @@ def partials_kernel_entries(entries):
         del k, v
 
 
+def spilling_kernels(logs, names):
+    """The entry functions among ``names`` (substrings of the mangled
+    names) whose ptxas -v lines report spill stores or loads."""
+    bad, fn = [], None
+    for text in logs.values():
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+            elif "spill stores" in line and fn and any(k in fn for k in names):
+                stores, loads = (int(w) for w in re.findall(r"(\d+) bytes spill", line))
+                if stores or loads:
+                    bad.append(fn)
+    return bad
+
+
 def counters():
     from deepseek_tpu_torch.ops.kernels.attention import (
         mha_decode_attn, mla_decode_attn)
@@ -2999,12 +3043,17 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    # a fresh build, so that ptxas reports on every kernel of this checkout
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(build.SIGNATURES)}")
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    spills = spilling_kernels(build.BUILD_LOGS, ("tile_gemm_kernel", "plain_matvec_kernel"))
+    if spills:
+        raise RuntimeError(f"these instantiations spill: {spills}")
     time_ms.flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
     counts = counters()
     runs = {"entry point": entry_point_phase(counts),

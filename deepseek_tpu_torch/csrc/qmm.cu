@@ -685,11 +685,19 @@ cudaError_t dispatch_turbo(const float* x, const uint8_t* p, const float* dsup,
 
 // K2's plain body: y[b, r] = sum_c x[b, c] * float(W[idx[b]][r, c]), the
 // table read in its own dtype and widened to f32 (the Pallas body's
-// astype(float32)). Bound: bytes, as the nibble matvec (2 flops per
-// weight). A block stages its activation row once in shared memory; a
-// lane subgroup of 32 lanes owns kRows weight rows and walks their
-// columns in 16-byte vectors, coalesced across the lanes, kRows loads in
-// flight at once.
+// astype(float32)). Bound: bytes, 2 flops per table element. A warp owns
+// an item of kPlainRows table rows of one pair b and walks their columns
+// in 16-byte vectors, coalesced across its lanes, kPlainUnroll vectors of
+// each row (8 loads) in flight a lane. Nothing is staged: a lane always
+// reads the same slices of x, straight from L1/L2 beside the table
+// vectors, so a warp's first table loads leave at once (no block-wide
+// copy of the row and barrier before them). The grid is persistent:
+// as many warps as the card holds at once, fewer where that spreads the
+// items more evenly, each walking items a grid apart, so no partial last
+// wave of blocks idles the card; consecutive warps take consecutive rows
+// of one pair, which share x in L1. 64 registers, four blocks an SM: at
+// DeepSeek-V2-Lite's w2s (8 pairs of 2048 x 1408) every item then has a
+// warp of its own (at 76 registers, three blocks, a warp took two).
 template <typename WT>
 __device__ __forceinline__ void widen(const uint4& v, float* out);
 
@@ -721,60 +729,70 @@ __device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
   }
 }
 
+constexpr int kPlainThreads = 256;
+constexpr int kPlainRows = 4;      // table rows a warp item
+constexpr int kPlainUnroll = 2;    // 16-byte vectors of each row in flight a lane
+
 template <typename WT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPlainThreads, 4)
 plain_matvec_kernel(const float* __restrict__ x, const WT* __restrict__ w,
                     const int32_t* __restrict__ idx, float* __restrict__ y,
-                    int d, int n) {
+                    int rows_x, int d, int n) {
   constexpr int kVec = 16 / sizeof(WT);          // table elements per load
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);   // the row, natural order
-  const int xrow = blockIdx.y;
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
-  for (int i = threadIdx.x; i < n / 4; i += kThreads)
-    reinterpret_cast<float4*>(xs)[i] = __ldg(xr + i);
-  __syncthreads();
-
-  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
-  const WT* we = w + e * (size_t)d * n;
   const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows;
-  const int nv = n / kVec;
-  float acc[kRows];
+  const int warps = gridDim.x * (kPlainThreads / 32);
+  const int groups = (d + kPlainRows - 1) / kPlainRows;
+  const int items = rows_x * groups, nv = n / kVec;
+  for (int item = blockIdx.x * (kPlainThreads / 32) + (threadIdx.x >> 5); item < items;
+       item += warps) {
+    const int b = item / groups, row0 = (item - b * groups) * kPlainRows;
+    const WT* we = w + (size_t)idx[b] * d * n;
+    const uint4* wr[kPlainRows];
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
-  for (int v = lane; v < nv; v += 32) {
-    uint4 raw[kRows];
+    for (int rr = 0; rr < kPlainRows; ++rr)     // clamped: stores are masked
+      wr[rr] = reinterpret_cast<const uint4*>(we + (size_t)min(row0 + rr, d - 1) * n);
+    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * n);
+    float acc[kPlainRows];
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = min(row0 + rr, d - 1);       // clamped: stores are masked
-      raw[rr] = __ldg(reinterpret_cast<const uint4*>(we + (size_t)r * n) + v);
+    for (int rr = 0; rr < kPlainRows; ++rr) acc[rr] = 0.f;
+    for (int v0 = lane; v0 < nv; v0 += 32 * kPlainUnroll) {
+      uint4 raw[kPlainUnroll][kPlainRows];
+      float4 xv[kPlainUnroll][kVec / 4];
+#pragma unroll
+      for (int u = 0; u < kPlainUnroll; ++u) {
+        const int v = v0 + 32 * u;
+        if (v < nv) {
+#pragma unroll
+          for (int rr = 0; rr < kPlainRows; ++rr) raw[u][rr] = __ldg(wr[rr] + v);
+#pragma unroll
+          for (int k = 0; k < kVec / 4; ++k) xv[u][k] = __ldg(xr + v * (kVec / 4) + k);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPlainUnroll; ++u) {
+        if (v0 + 32 * u >= nv) break;
+        const float* xf = reinterpret_cast<const float*>(xv[u]);
+#pragma unroll
+        for (int rr = 0; rr < kPlainRows; ++rr) {
+          float wv[kVec];
+          widen<WT>(raw[u][rr], wv);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) acc[rr] = fmaf(xf[k], wv[k], acc[rr]);
+        }
+      }
     }
-    float xv[kVec];
 #pragma unroll
-    for (int k = 0; k < kVec; k += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(xs + v * kVec + k);
-      xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
+    for (int rr = 0; rr < kPlainRows; ++rr) {
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
     }
+    if (lane == 0) {
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      float wv[kVec];
-      widen<WT>(raw[rr], wv);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) acc[rr] = fmaf(xv[k], wv[k], acc[rr]);
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = row0 + rr;
-      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
+      for (int rr = 0; rr < kPlainRows; ++rr) {
+        const int r = row0 + rr;
+        if (r < d) y[(size_t)b * d + r] = acc[rr];
+      }
     }
   }
 }
@@ -783,18 +801,25 @@ template <typename WT>
 cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
                          float* y, int rows_x, int d, int n,
                          cudaStream_t stream) {
-  static bool smem_opt_in = false;
-  if (!smem_opt_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        plain_matvec_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+  static int max_warps = 0;        // warps the card holds at once
+  if (max_warps == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, plain_matvec_kernel<WT>, kPlainThreads, 0);
     if (err != cudaSuccess) return err;
-    smem_opt_in = true;
+    max_warps = max(1, per_sm) * sms * (kPlainThreads / 32);
   }
-  const int rows_per_block = (kThreads / 32) * kRows;
-  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
-  plain_matvec_kernel<WT><<<grid, kThreads, (size_t)n * sizeof(float), stream>>>(
-      x, static_cast<const WT*>(w), idx, y, d, n);
+  // the fewest warps that keep the most items a warp walks
+  const long long items = (long long)rows_x * ((d + kPlainRows - 1) / kPlainRows);
+  const long long per = (items + max_warps - 1) / max_warps;
+  const long long warps = (items + per - 1) / per;
+  const int grid = (int)((warps + kPlainThreads / 32 - 1) / (kPlainThreads / 32));
+  plain_matvec_kernel<WT><<<grid, kPlainThreads, 0, stream>>>(
+      x, static_cast<const WT*>(w), idx, y, rows_x, d, n);
   return cudaGetLastError();
 }
 
@@ -1208,7 +1233,7 @@ extern "C" int plain_matvec(const void* x, const void* w, int kind,
                             const void* idx, void* y, int rows_x, int d, int n,
                             void* stream) {
   if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 8 != 0 ||
-      (size_t)n * sizeof(float) > (size_t)kMaxSmem || kind < 2 || kind > 4)
+      kind < 2 || kind > 4 || idx == nullptr)
     return (int)cudaErrorInvalidValue;
   auto xs = static_cast<const float*>(x);
   auto is = static_cast<const int32_t*>(idx);

@@ -11,7 +11,9 @@ matrix products, and the fused expert FFN.
   table goes to ``qmm_experts_fp``, K2's plain body (``qmm.py:651``; the
   same source).
 - ``qmm_grouped`` replaces ``::qmm_grouped`` with ``_knib_body`` (K6:
-  128-row tiles, one expert each; ``csrc/qmm_tiles.cu``).
+  128-row tiles, one expert each; ``csrc/qmm_tiles.cu``, the tile GEMM
+  on the tensor cores over split bf16 operands, which every row-tiled
+  route and every K6 body launches; ``tile_width`` is its MMA width).
 - A blockwise F8E5M2 weight (``Fp8Tensor``) takes the fp8 bodies
   (``_fp8_body``, qmm.py:260): ``qmm_fp8`` is K5's (qmm.py:418; the matvec
   of ``csrc/qmm.cu`` up to ``ROW_TILE_MIN`` rows, ``qmm_fp8_rows`` on the
@@ -115,30 +117,42 @@ def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor,
 
 
 # K1 takes the row-tiled route above this many rows. The matvec streams
-# the weight once per row; the tile GEMM streams it once per 128 rows but
-# runs a 128-row tile's machinery (a block per 128 output columns, the
-# weight dequantized into shared memory) however few rows are live, so its
-# time hardly moves below 16 rows. Measured by chip_smoke.py on an H100
-# 80GB HBM3 at 700 W (matvec / row-tiled ms): w13 36864x7168 at 8 rows
-# 0.545 / 0.789, at 16 rows 1.060 / 0.809; wo 7168x16384 at 16 rows
-# 0.481 / 0.623, at 32 rows 0.922 / 0.970. The crossover is 8-16 rows on
-# w13 and near 32 on wo; 16 keeps both within 0.25 ms of their faster
-# route from 1 to 32 rows (8 would cost wo up to 0.33 ms). A decode step
-# (1 row) and the pair path's gathered rows stay on the matvec.
-# K5's fp8 matvec (8 x rows a pass) against its row-tiled route, the same
-# card: lm_head 102400x2048 at 8 rows 0.380 / 0.533, at 16 rows 0.755 /
-# 0.547; wq 3072x2048 at 32 rows 0.070 / 0.144; dense w2 2048x10944 at 32
-# rows 0.246 / 0.741. The lm_head crosses between 8 and 16 rows, the others
-# not by 32; 16 keeps all three within 0.21 ms of their faster route up to
-# 16 rows (8 would cost w2 0.29 ms at 16 rows), so fp8 shares the value.
-ROW_TILE_MIN = 16
+# the weight once per row; the tile GEMM (on the tensor cores) streams it
+# once per 128 rows and runs a tile of at most 16 live rows at MMA width
+# 16, so its time hardly moves below 16 rows. Measured by chip_smoke.py on
+# an H100 80GB HBM3 at 700 W, both routes in one call (matvec / row-tiled
+# ms): w13 36864x7168 at 2 rows 0.156 / 0.257, at 4 rows 0.287 / 0.258, at
+# 8 0.545 / 0.259; wo 7168x16384 at 4 rows 0.141 / 0.217, at 8 0.262 /
+# 0.222. K5's fp8 matvec (8 x rows a pass) against its row-tiled route,
+# the same call: lm_head 102400x2048 at 4 rows 0.228 / 0.137, at 8 0.379 /
+# 0.137; wq 3072x2048 at 8 rows 0.021 / 0.029, at 16 0.037 / 0.030; dense
+# w2 2048x10944 at 8 rows 0.066 / 0.117, at 16 0.125 / 0.118. The
+# crossover is 4 rows on w13 and the lm_head, 8 on wo, 16 on wq and w2;
+# 4 keeps every one within 0.09 ms of its faster route at every count
+# measured from 1 to 32 rows (the worst: the lm_head at 4 rows, w2 at 8),
+# where 8 would cost w13 0.29 ms and the lm_head 0.24 ms at 8 rows, so
+# both weight kinds share the value. A decode step (1 row) and the pair path's
+# gathered rows stay on the matvec.
+ROW_TILE_MIN = 4
 _TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
+# the tile GEMM's MMA widths (kW0..kW3 there; the tests read both back)
+_TILE_WIDTHS = (16, 32, 64, _TILE)
 _PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}   # csrc/qmm.cu
 _FP8_KIND = 5
 # K11 (csrc/gmm.cu): rows of x a tile (kBN there; the tests read it) and
 # its dtype codes (x: f32 or bf16, the compute dtype; the table: any)
 _GMM_ROWS = 64
 _GMM_DTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def tile_width(live_rows: int) -> int:
+    """The MMA width N (wgmma m64nNk16) that csrc/qmm_tiles.cu runs a tile
+    of ``live_rows`` rows at: the least of ``_TILE_WIDTHS`` that covers
+    them, chosen block-uniformly on the card, so a routed tile of a few
+    live rows does not pay for 128."""
+    if not 1 <= live_rows <= _TILE:
+        raise ValueError(f"a tile holds 1 to {_TILE} live rows, not {live_rows}")
+    return next(w for w in _TILE_WIDTHS if w >= live_rows)
 
 
 def qmm_grouped_plain(qt, tile_expert: torch.Tensor,
@@ -508,7 +522,9 @@ def _fp8_matvec(qt: Fp8Tensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
 def qmm_fp8(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
     """K5's fp8 body: x (..., n) @ W (d, n).T for a blockwise F8E5M2 weight
     -> (..., d) float32; more than ``ROW_TILE_MIN`` rows take
-    ``qmm_fp8_rows``."""
+    ``qmm_fp8_rows`` where its 64-column k-steps fit the column blocks (b1
+    % 64 == 0: the converter's 128), the matvec (8 rows a pass) where they
+    do not."""
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -519,7 +535,7 @@ def qmm_fp8(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, n)
     if x2.shape[0] == 0:
         return x.new_zeros((*lead, d), dtype=torch.float32)
-    if x2.shape[0] > ROW_TILE_MIN:
+    if x2.shape[0] > ROW_TILE_MIN and qt.block_size[1] % 64 == 0:
         return qmm_fp8_rows(qt, x2).reshape(*lead, d)
     y = _fp8_matvec(qt, x2, None, d)
     qmm_fp8.launches += 1

@@ -1,15 +1,18 @@
 """Where a decode step's and a prefill chunk's time goes in the
 PyTorch/CUDA port (one GPU).
 
-    python scripts/torch_profile_decode.py [--model v3|v3-q3k|v3-q2k|v3-q3kt|v3-q2kt|
-                                                    v2-lite|v2-lite-fp8]
+    python scripts/torch_profile_decode.py [--model v3|v3-perm|v3-q3k|v3-q2k|v3-q3kt|
+                                                    v3-q2kt|v2-lite|v2-lite-fp8]
                                            [--layers N] [--kv-dtype int8]
                                            [--steps 16] [--chunks 4]
+                                           [--cells all|prefill]
                                            [--trace out.json]
 
 ``--model v3`` (the default) builds the DeepSeek-V3-width nibble model
 with the factor weights wq_b / wkv_b, 4 layers unless --layers says
-otherwise, ``v3-q3k`` / ``v3-q2k`` the same model in the packed Q3_K /
+otherwise, ``v3-perm`` the same draw with its expert w13s row-permuted
+(the fused expert FFN's layout: K6 on w13s, K6's prepermuted body on
+w2s), ``v3-q3k`` / ``v3-q2k`` the same model in the packed Q3_K /
 Q2_K planes, ``v3-q3kt`` / ``v3-q2kt`` in the turbo int8 planes;
 ``--model v2-lite`` builds the F16 decompressed-MHA
 DeepSeek-V2-Lite and ``--model v2-lite-fp8`` the same model in F8E5M2
@@ -31,6 +34,7 @@ bf16. It profiles:
          factor weights (decompressed: K9) or without (absorbed: K10; V3
          only), at the start of the window or at its end (over 4096
          filled slots).
+``--cells prefill`` profiles the prefill cells only.
 For each cell it prints the wall time per step or chunk (host clock around
 synchronized work), the device time per unit summed over the profiler's
 kernel events, the device's idle share, and the kernels by device time.
@@ -169,8 +173,8 @@ def main() -> int:
         print("torch_profile_decode: no CUDA GPU visible", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("v3", "v3-q3k", "v3-q2k", "v3-q3kt", "v3-q2kt",
-                                        "v2-lite", "v2-lite-fp8"),
+    ap.add_argument("--model", choices=("v3", "v3-perm", "v3-q3k", "v3-q2k", "v3-q3kt",
+                                        "v3-q2kt", "v2-lite", "v2-lite-fp8"),
                     default="v3")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 4 for v3, 27 for v2-lite)")
@@ -178,6 +182,7 @@ def main() -> int:
                     help="KV cache dtype (default: the model's bf16)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--chunks", type=int, default=4)
+    ap.add_argument("--cells", choices=("all", "prefill"), default="all")
     ap.add_argument("--trace", default=None, help="chrome-trace path prefix")
     args = ap.parse_args()
 
@@ -203,17 +208,22 @@ def main() -> int:
         variants = (("k9", params),)
     else:
         cfg = deepseek_v3_proportions(n_layers=args.layers or 4)
-        quant = {"v3": "q3_k_nibble", "v3-q3k": "q3_k", "v3-q2k": "q2_k",
-                 "v3-q3kt": "q3_k_turbo", "v3-q2kt": "q2_k_turbo"}[args.model]
+        quant = {"v3": "q3_k_nibble", "v3-perm": "q3_k_nibble", "v3-q3k": "q3_k",
+                 "v3-q2k": "q2_k", "v3-q3kt": "q3_k_turbo",
+                 "v3-q2kt": "q2_k_turbo"}[args.model]
         params = random_fused_params(cfg, quant, seed=0, device="cuda", factors=True)
+        if args.model == "v3-perm":
+            from deepseek_tpu_torch.models.loader import rowperm_expert_w13
+            params = rowperm_expert_w13(params, cfg)
         variants = (("k9", params), ("k10", dataclasses.replace(params, layers=[
             dataclasses.replace(lp, wq_b=None, wkv_b=None) for lp in params.layers])))
     if args.kv_dtype:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
     print(f"model: {args.model}, {cfg.n_layers} layers, {cfg.kv_cache_dtype} KV cache")
-    decode_cell("short", params, cfg, 0, args.steps, args.trace)
-    block_cell("block", params, cfg, 2, args.trace)
-    decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
+    if args.cells == "all":
+        decode_cell("short", params, cfg, 0, args.steps, args.trace)
+        block_cell("block", params, cfg, 2, args.trace)
+        decode_cell("long", params, cfg, cfg.kv_window, args.steps, args.trace)
     for label, p in variants:
         for where, pos0 in (("first", 0), ("last", cfg.kv_window - 256)):
             prefill_cell(f"prefill-{label}-{where}", p, cfg, pos0, args.chunks,

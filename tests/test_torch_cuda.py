@@ -25,7 +25,7 @@ from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mla_prefill_attn_plain,
 )
 from deepseek_tpu_torch.ops.kernels.qmm import (
-    gmm, gmm_plain, qmm, qmm_expert_ffn, qmm_expert_ffn_plain, qmm_experts,
+    ROW_TILE_MIN, gmm, gmm_plain, qmm, qmm_expert_ffn, qmm_expert_ffn_plain, qmm_experts,
     qmm_experts_fp, qmm_experts_fp8,
     qmm_experts_packed, qmm_experts_plain, qmm_fp, qmm_fp8, qmm_fp8_rows,
     qmm_fp_plain, qmm_grouped, qmm_grouped_fp8, qmm_grouped_packed,
@@ -807,7 +807,7 @@ def _fp8(E, d, n, block, seed, dev):
                          ids=["wkv_a", "w2-dense", "ragged-both", "small"])
 @pytest.mark.parametrize("rows", [1, 8, 11, 16, 40, 256])
 def test_k5_fp8_matches_plain(d, n, rows, dev):
-    """K5's fp8 body (the matvec up to 16 rows, 8 x rows a pass; the
+    """K5's fp8 body (the matvec up to ROW_TILE_MIN rows, 8 x rows a pass; the
     row-tiled route above) against its plain version on 128x128 grids with
     ragged row and column blocks. Tolerance 1e-4 of the output scale: the same products, the
     scale applied per 16-column partial sum (matvec) or per weight (tiles),
@@ -816,7 +816,7 @@ def test_k5_fp8_matches_plain(d, n, rows, dev):
     x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
     before = (qmm_fp8.launches, qmm_fp8_rows.launches)
     _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
-    tiled = rows > 16
+    tiled = rows > ROW_TILE_MIN
     assert (qmm_fp8.launches, qmm_fp8_rows.launches) == (
         before[0] + (not tiled), before[1] + tiled)
 
@@ -944,7 +944,7 @@ def _packed(E, d, n, quant, seed, dev):
                          ids=["small", "ragged-rows", "w13-like", "w2-dense-width"])
 @pytest.mark.parametrize("rows", [1, 3, 16, 17, 130])
 def test_k5_packed_matches_plain(quant, d, n, rows, dev):
-    """K5's packed bodies (the matvec up to 16 rows, the row-tiled route
+    """K5's packed bodies (the matvec up to ROW_TILE_MIN rows, the row-tiled route
     above, with a ragged row tile at 17 and 130 rows and ragged column
     blocks) against the plain version. Tolerance 1e-4 of the output scale:
     f32 sums in other orders, and the matvec's exact 0.5 + u/16 floats whose
@@ -953,7 +953,7 @@ def test_k5_packed_matches_plain(quant, d, n, rows, dev):
     x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
     before = (qmm_packed.launches, qmm_packed_rows.launches)
     _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
-    tiled = rows > 16
+    tiled = rows > ROW_TILE_MIN
     assert (qmm_packed.launches, qmm_packed_rows.launches) == (
         before[0] + (not tiled), before[1] + tiled)
 
@@ -1059,7 +1059,7 @@ def _turbo(E, d, n, quant, seed, dev):
                               "kv-lora"])
 @pytest.mark.parametrize("rows", [1, 3, 16, 17, 130])
 def test_k5_turbo_matches_plain(quant, d, n, rows, dev):
-    """K5's turbo bodies (the matvec up to 16 rows, the row-tiled route
+    """K5's turbo bodies (the matvec up to ROW_TILE_MIN rows, the row-tiled route
     above) against the plain version (the turbo dequantization, bf16
     scales, and one f32 product). Tolerance 1e-4 of the output scale: f32
     sums in other orders, and the matvec's exact 0.5 + u/256 floats whose
@@ -1068,7 +1068,7 @@ def test_k5_turbo_matches_plain(quant, d, n, rows, dev):
     x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
     before = (qmm_turbo.launches, qmm_turbo_rows.launches)
     _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
-    tiled = rows > 16
+    tiled = rows > ROW_TILE_MIN
     assert (qmm_turbo.launches, qmm_turbo_rows.launches) == (
         before[0] + (not tiled), before[1] + tiled)
 
@@ -1341,3 +1341,118 @@ def test_prefill_tensor_core_cases(kind, dtype, T, H, S, d, q_pos0, cache_pos0,
             assert bool((got[1] == -1e30).all()) and not got[0].any()
     else:
         _close(got, want, 1e-4)
+
+
+def _tile_table(kind, E, d, n, seed, dev):
+    """A random table (E, d, n) of one tile GEMM kind (E = 0: one 2-D
+    weight): nibble with (q2_k) or without (q3_k) its min plane, packed,
+    turbo or F8E5M2 on 128x128 blocks."""
+    quant = "q2_k" if "q2" in kind else "q3_k"
+    if kind.startswith("nibble"):
+        qt = _nibble(max(E, 1), d, n, quant, seed, dev)
+        return qt if E else qt.map(lambda t: t[0].contiguous())
+    if kind.startswith("packed"):
+        return _packed(E, d, n, quant, seed, dev)
+    if kind.startswith("turbo"):
+        return _turbo(E, d, n, quant, seed, dev)
+    return _fp8(E, d, n, (128, 128), seed, dev)
+
+
+_TILE_KINDS = ["nibble-q2", "nibble-q3", "fp8", "packed-q2", "packed-q3", "turbo-q2",
+               "turbo-q3"]
+_GROUPED_COUNTER = {"nibble": qmm_grouped, "fp8": qmm_grouped_fp8,
+                    "packed": qmm_grouped_packed, "turbo": qmm_grouped_turbo}
+_ROWS_ROUTE = {"nibble": qmm_rows, "fp8": qmm_fp8_rows, "packed": qmm_packed_rows,
+                 "turbo": qmm_turbo_rows}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _TILE_KINDS + ["nibble-q2-xperm", "nibble-q3-xperm"])
+def test_tile_gemm_tensor_core_cases(kind, dev):
+    """The tile GEMM on the tensor cores (split bf16 operands, the MMA
+    width from the live rows) against the plain versions, for every kind
+    (nibble with and without c, and with x prepermuted: kinds 0, 1, 10,
+    11; fp8 5; packed 6, 7; turbo 8, 9): K6 over tiles of 128, 7, 0, 64,
+    1, 30, 100 and 17 live rows (widths 128, 16, empty, 64, 16, 32, 128,
+    32) on 300 weight rows (a ragged column block) and three 256-column
+    slots (fp8: 576 columns, a ragged scale block), each tile's live rows
+    compared. Tolerance 1e-4 of the output scale, as every tile GEMM
+    check; one launch counted a call."""
+    xperm = kind.endswith("-xperm")
+    kind = kind.replace("-xperm", "")
+    E, d = 3, 300
+    n = 576 if kind == "fp8" else 768
+    qt = _tile_table(kind, E, d, n, seed=len(kind) + xperm, dev=dev)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((8, 128, n), generator=g).to(dev)
+    te = torch.tensor([0, 0, 2, 1, 2, 1, 0, 2], device=dev, dtype=torch.int32)
+    rows = torch.tensor([128, 7, 0, 64, 1, 30, 100, 17], device=dev, dtype=torch.int32)
+    live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+    xin = perm_x(x).contiguous() if xperm else x
+    counter = _GROUPED_COUNTER[kind.split("-")[0]]
+    counter = counter.prepermuted if xperm else counter
+    before = counter.launches
+    got = qmm_grouped(qt, te, xin, rows, x_prepermuted=xperm)
+    assert counter.launches == before + 1
+    want = qmm_grouped_plain(qt, te, xin, rows, x_prepermuted=xperm)
+    _close(got[live], want[live], 1e-4)
+    if not xperm:        # every row of every tile
+        _close(qmm_grouped(qt, te, x), qmm_grouped_plain(qt, te, x), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [17, 256, 4096])
+@pytest.mark.parametrize("kind", _TILE_KINDS)
+def test_tile_gemm_row_tiled_cases(kind, rows, dev):
+    """The row-tiled routes (K1's and K5's bodies, which qmm takes above
+    ROW_TILE_MIN rows) on the tensor cores at 17 rows (one tile of width
+    32), 256 (two full tiles) and 4096 (32), 300 weight rows; each counted
+    once by its own counter. Tolerance 1e-4 of the output scale."""
+    d, n = 300, 576 if kind == "fp8" else 512
+    qt = _tile_table(kind, 0, d, n, seed=rows, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
+    route = _ROWS_ROUTE[kind.split("-")[0]]
+    before = route.launches
+    _close(route(qt, x), qmm_plain(qt, x), 1e-4)
+    assert route.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tile_gemm_fp8_ragged_edges(dev):
+    """K6's and K5's fp8 bodies at DeepSeek-V2-Lite's ragged shapes: wkv_a's
+    576 rows (a partial last row block of scales) and the dense w2's 10944
+    columns (a partial last column block), narrow and full tiles."""
+    for d, n in ((576, 2048), (2048, 10944)):
+        qt = _fp8(2, d, n, (128, 128), seed=d, dev=dev)
+        x = torch.randn((3, 128, n), generator=torch.Generator().manual_seed(5)).to(dev)
+        te = torch.tensor([1, 0, 1], device=dev, dtype=torch.int32)
+        rows = torch.tensor([5, 128, 40], device=dev, dtype=torch.int32)
+        live = torch.arange(128, device=dev)[None, :] < rows[:, None]
+        _close(qmm_grouped(qt, te, x, rows)[live],
+               qmm_grouped_plain(qt, te, x, rows)[live], 1e-4)
+        w = qt.map(lambda t: t[1].contiguous())
+        xr = x.reshape(-1, n)[:256]
+        _close(qmm_fp8_rows(w, xr), qmm_plain(w, xr), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("E,d,n,pairs", [
+    (16, 4096, 7168, 9),      # V3's w13s: one token's 8 routed + 1 shared
+    (66, 2816, 2048, 8),      # V2-Lite's w13s: 6 routed + 2 shared
+    (66, 2048, 1408, 8),      # V2-Lite's w2s
+    (5, 301, 520, 8),         # d not a multiple of a warp's 4 rows
+    (3, 4096, 7168, 1),       # a single pair
+])
+def test_k2_plain_cases(dtype, E, d, n, pairs, dev):
+    """K2's plain body (persistent warps, x read beside the table) against
+    its plain version at V3 and V2-Lite shapes, a ragged row group and a
+    single pair, with repeated experts. Tolerance 1e-4 of the output
+    scale: f32 sums of the same widened products in other orders."""
+    g = torch.Generator().manual_seed(E + d + pairs)
+    qt = PlainTensor(data=(torch.randn((E, d, n), generator=g) * 0.05).to(dev, dtype))
+    x = torch.randn((pairs, n), generator=g).to(dev)
+    idx = torch.tensor([(7 * p) % E for p in range(pairs - 1)] + [E - 1], device=dev)
+    before = qmm_experts_fp.launches
+    _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_fp.launches == before + 1
