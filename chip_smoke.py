@@ -335,7 +335,7 @@ def entry_point_phase(counts):
     prompt = eng.tokenizer.encode("hello, a prompt of twenty tokens", bos=True)[:20]
     n_new = 40 - len(prompt)
     (out, stats), launched = drive(
-        counts, ("K1", "K1r", "K2", "K3", "K10", "K10-f16"), "entry point",
+        counts, ("K1", "K1r", "K2", "K3", "K3-f16", "K10", "K10-f16"), "entry point",
         lambda: eng.generate(prompt, num_steps=n_new, temperature=0.0))
     log(f"entry point: Engine(tiny Q3_K .dseek, device='cuda', "
         f"kquant_runtime='nibble').generate -> "
@@ -405,8 +405,9 @@ def kquant_entry_point_phase(counts, quant, runtime=None, sampled=False, kv=None
             and isinstance(eng.params.layers[0].wv_b, cls)):
         raise RuntimeError(f"{label}: expected {cls.__name__} planes")
     sfx = "-turbo" if kind == "turbo" else "-packed"
-    attn = {"int8": ("K3-int8", "K10-int8"), "float32": ("K3", "K10", "K10-f32")} \
-        .get(kv, ("K3", "K10", "K10-f16"))
+    attn = {"int8": ("K3-int8", "K10-int8"),
+            "float32": ("K3", "K3-f32", "K10", "K10-f32")} \
+        .get(kv, ("K3", "K3-f16", "K10", "K10-f16"))
     prompt = [int(v) for v in rng.integers(3, 512, 100)]
     (out, stats), launched = drive(
         counts, (*attn, *(k + sfx for k in ("K5", "K5r", "K2", "K6"))),
@@ -898,35 +899,47 @@ def kernel_phase(params, cfg, entries):
              "K2f", library=lambda: torch.bmm(wsel, x16))
         del qt, wsel
 
-    # K3 at the V3 window: kv_len < S, and a ragged S. Tolerance 1e-4 of
-    # max|ref|: f32 sums over thousands of slots in other orders, fast exp.
+    # K3 at the V3 window over every float cache dtype (bf16: the V3 cells';
+    # f16: the Engine's default; f32), at kv_len < S, a ragged S and a short
+    # window (kv_len 32: all but one span empty). Tolerance 1e-4 of
+    # max|ref|: the split bf16 operands, f32 sums over thousands of slots
+    # in other orders, exp2.
     R, P = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     scale = cfg.attn_softmax_scale()
-    for S, kv in ((cfg.kv_window, cfg.kv_window - 96), (cfg.kv_window - 3, 3001)):
+    k3_cells = [(torch.bfloat16, cfg.kv_window, cfg.kv_window - 96),
+                (torch.bfloat16, cfg.kv_window - 3, 3001),
+                (torch.bfloat16, cfg.kv_window, 32)]
+    k3_cells += [(dt, cfg.kv_window, kv) for dt in (torch.float16, torch.float32)
+                 for kv in (cfg.kv_window - 96, 32)]
+    for dt, S, kv in k3_cells:
+        tag = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[dt]
         qc = torch.randn((1, H, R), generator=gen, device="cuda")
         qr = torch.randn((1, H, P), generator=gen, device="cuda")
-        ckv = torch.randn((1, S, R), generator=gen, device="cuda").to(torch.bfloat16)
-        kr = torch.randn((1, S, P), generator=gen, device="cuda").to(torch.bfloat16)
+        ckv = torch.randn((1, S, R), generator=gen, device="cuda").to(dt)
+        kr = torch.randn((1, S, P), generator=gen, device="cuda").to(dt)
         kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
         # yardstick only: SDPA over the concatenated MQA form [q_c|q_rope],
-        # [ckv|krope], values ckv, slots >= kv_len masked (the port never calls it)
-        q_cat = torch.cat([qc, qr], -1)[:, :, None].to(torch.bfloat16)
-        k_cat = torch.cat([ckv, kr], -1)[:, None].expand(1, H, S, R + P)
-        v_cat = ckv[:, None].expand(1, H, S, R)
+        # [ckv|krope], values ckv, slots >= kv_len masked (the port never
+        # calls it), in the cache's dtype (bf16 for an f32 cache)
+        sd = torch.bfloat16 if dt == torch.float32 else dt
+        q_cat = torch.cat([qc, qr], -1)[:, :, None].to(sd)
+        k_cat = torch.cat([ckv, kr], -1).to(sd)[:, None].expand(1, H, S, R + P)
+        v_cat = ckv.to(sd)[:, None].expand(1, H, S, R)
         mask = (torch.arange(S, device="cuda") < kv)[None, None, None]
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q_cat, k_cat, v_cat, attn_mask=mask, scale=scale)
 
-        emit(f"K3 mla_decode_attn bf16 cache S={S} kv_len={kv} H={H}",
+        emit(f"K3 mla_decode_attn {tag} cache S={S} kv_len={kv} H={H}",
              lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale),
              lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale), 1e-4,
-             kv * (R + P) * 2 + nbytes(qc, qr) + 4 * H * R,
-             2.0 * H * kv * (2 * R + P),
-             "deepseek_tpu_torch/csrc/mla_decode.cu",
-             "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, _mla_body :89)",
-             "K3", library=sdpa)
+             kv * (R + P) * ckv.element_size() + nbytes(qc, qr) + 4 * H * R,
+             2.0 * H * kv * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
+             "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, _mla_body :89, "
+             "pallas_call :221)", "K3" if dt == torch.bfloat16 else f"K3-{tag}",
+             library=sdpa)
+        del ckv, kr, k_cat, v_cat
 
     emit_v2 = make_emit(entries, "V2-Lite")
     # K2's plain body at DeepSeek-V2-Lite's decode shape: one token's 6
@@ -1770,21 +1783,23 @@ def int8_kernel_entries(cfg, gen, emit, emit_v2):
         t = time_ms(fn)
         log(f"  {label}: the float kernel over the same rows in bf16: {t:.4f} ms")
 
-    # K3 at the V3 window: 4000 of 4096 slots
+    # K3 at the V3 window: 4000 of 4096 slots, and a short window (32)
     qc = torch.randn((1, H, R), generator=gen, device="cuda")
     qr = torch.randn((1, H, P), generator=gen, device="cuda")
     (ckv, cs), (kr, rs) = int8_rows(gen, (1, S, R)), int8_rows(gen, (1, S, P))
-    kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
     scale = cfg.attn_softmax_scale()
-    name = f"K3-int8 mla_decode_attn int8 cache S={S} kv_len={kv} H={H}"
-    emit(name, lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, ckv_scale=cs,
-                                       krope_scale=rs),
-         lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, cs, rs), 1e-4,
-         kv * (R + P + 8) + nbytes(qc, qr) + 4 * H * R, 2.0 * H * kv * (2 * R + P),
-         src + "mla_decode.cu", pallas + "170 (mla_decode_attn, _mla_body :89, "
-         "int8 scales :131-151)", "K3-int8")
-    c16, r16 = bf16(ckv, cs), bf16(kr, rs)
-    float_time(name, lambda: mla_decode_attn(qc, qr, c16, r16, kl, scale))
+    for kv_k3 in (kv, 32):
+        kl = torch.tensor([kv_k3], device="cuda", dtype=torch.int32)
+        name = f"K3-int8 mla_decode_attn int8 cache S={S} kv_len={kv_k3} H={H}"
+        emit(name, lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, ckv_scale=cs,
+                                           krope_scale=rs),
+             lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, cs, rs), 1e-4,
+             kv_k3 * (R + P + 8) + nbytes(qc, qr) + 4 * H * R,
+             2.0 * H * kv_k3 * (2 * R + P), src + "prefill_attn.cu",
+             pallas + "170 (mla_decode_attn, _mla_body :89, int8 scales :131-151)",
+             "K3-int8")
+        c16, r16 = bf16(ckv, cs), bf16(kr, rs)
+        float_time(name, lambda: mla_decode_attn(qc, qr, c16, r16, kl, scale))
 
     # K10: the window's last 256-token chunk, which sees every slot
     q_pos0 = S - T
@@ -1807,6 +1822,7 @@ def int8_kernel_entries(cfg, gen, emit, emit_v2):
     # views of the cache's (B,S,H) layout, as the model passes them
     H, Dh, Dv = 16, 192, 128
     scale = 1.0 / math.sqrt(Dh)
+    kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
     (k, ks), (v, vs) = int8_rows(gen, (1, S, H, Dh)), int8_rows(gen, (1, S, H, Dv))
     ksh, vsh = ks.transpose(1, 2), vs.transpose(1, 2)
     k16, v16 = bf16(k, ks), bf16(v, vs)
@@ -2850,7 +2866,7 @@ def partials_kernel_entries(entries):
             lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale, partials=True, **sc),
             lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale, **sc), 1e-4,
             kv_l * row_b + nbytes(qc, qr) + trip(H, R + 2), 2.0 * H * kv_l * (2 * R + P),
-            src + "mla_decode.cu", pallas + "170 (mla_decode_attn, partials out specs "
+            src + "prefill_attn.cu", pallas + "170 (mla_decode_attn, partials out specs "
             ":214-219, written :158-166)", kern, "seq=2 V3 packed Q3_K"
             + (" int8, K10 decode" if q8 else ", K9 decode"), library=lib)
         check_empty_shard(
@@ -3005,6 +3021,7 @@ def counters():
             # among the float ones, the bodies over f16 and f32 caches
             "K9-f16": mha_prefill_attn.f16, "K9-f32": mha_prefill_attn.f32,
             "K10-f16": mla_prefill_attn.f16, "K10-f32": mla_prefill_attn.f32,
+            "K3-f16": mla_decode_attn.f16, "K3-f32": mla_decode_attn.f32,
             # the fused expert FFN, and the bodies that take h permuted
             "K7": qmm_expert_ffn, "K2-xperm": qmm_experts.prepermuted,
             "K6-xperm": qmm_grouped.prepermuted,
@@ -3177,8 +3194,9 @@ def main() -> int:
                # casts the hybrid prefill's keys and values to f32; the
                # Engine's default cache is f16)
                "K9-f32": "bf16 entry point", "K9-f16": "window edge",
-               "K10-f16": "entry point",
-               "K10-f32": "packed Q3_K entry point, float32 cache"}
+               "K10-f16": "entry point", "K3-f16": "entry point",
+               "K10-f32": "packed Q3_K entry point, float32 cache",
+               "K3-f32": "packed Q3_K entry point, float32 cache"}
     return finish(card, entries, runs, path_of)
 
 

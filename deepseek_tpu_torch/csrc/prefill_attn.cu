@@ -1,12 +1,13 @@
-// Chunked causal flash attention for prefill on Hopper's tensor cores
-// (sm_90a).
+// Flash attention on Hopper's tensor cores (sm_90a): chunked causal
+// prefill, and absorbed-MLA decode as the same kernel with one query.
 //
 // Replaces the TPU kernels deepseek_tpu/ops/pallas/attention.py:481
 // mha_prefill_attn (_mha_prefill_body, pallas_call :543; K9: the
-// decompressed heads of the hybrid-MLA prefill) and :644 mla_prefill_attn
+// decompressed heads of the hybrid-MLA prefill), :644 mla_prefill_attn
 // (_mla_prefill_body, pallas_call :707; K10: the absorbed prefill over the
-// latent cache). For query t of the chunk at position q_pos0 + t and cache
-// slot s holding position cache_pos0 + s:
+// latent cache) and :170 mla_decode_attn (_mla_body :89, pallas_call :221;
+// K3: absorbed-MLA decode). For query t of the chunk at position q_pos0 + t
+// and cache slot s holding position cache_pos0 + s:
 //
 //   s_ts = scale * q_t . k_s,   masked unless cache_pos0 + s <= q_pos0 + t
 //   out_t = sum_s softmax(s_t)_s v_s                      (float32)
@@ -14,9 +15,17 @@
 //   K9  (MHA): q (B,T,H,Dh) f32, k (B,S,H,Dh), v (B,S,H,Dv)
 //   K10 (MQA): q = [q_c | q_rope] (B,T,H,R+P) f32, k = [ckv | krope]
 //              (B,S,R+P), v = ckv (B,S,R): one cache row serves every head
+//   K3  (MQA decode, Args::kv_len set): K10 with T = 1, so the block's 64
+//              rows are 64 heads of one sequence, and slot s masked unless
+//              s < kv_len[b], read on the device (no host position)
 //
 // Bound: operations (V3, T 256 at 3840, S 4096, H 128: K9 ~83 GFLOP, K10
-// ~283 GFLOP over a few MB of cache).
+// ~283 GFLOP over a few MB of cache). K3 at V3's 128 heads over 4000 slots:
+// ~1.1 GFLOP over 4.6 MB of bf16 cache, ~1.4 us of bytes and ~2.3 us of
+// split-operand MMA at the card's peaks; at B = 1 its two row blocks walk
+// the window in many spans (mla_decode_splits in ops/kernels/attention.py,
+// one block an SM), which makes the per-block costs (the 147 KB of queries
+// staged, the 131 KB of partials written and merged) the ones to watch.
 //
 // The function is the f32 one (the port's oracle; every check holds the
 // kernel at 1e-4 of max|ref|), computed on the tensor cores (wgmma, bf16
@@ -48,12 +57,18 @@
 // the A fragment of one 16-slot k-step; wgmma m64nDVk16, V MN-major). At
 // DV = 512 the 64 x 512 f32 accumulator does not fit one group's
 // registers: a second group takes the other 256 value columns and half of
-// the score columns, and the two warps of each row pair sum their partial
-// scores through shared memory (two pair barriers). Queries and cache
-// tiles live in shared memory in the wgmma canonical 128-byte-swizzled
-// layout (64-column blocks of 8-row x 128-byte atoms); key columns past DK
-// up to a multiple of 64 are zero. Shared memory bounds the design: K10's
-// q hi/lo take 147,456 bytes, the two 32-slot stages 73,728.
+// the score columns (half of the latent and half of the rope ones, so that
+// both groups issue the same wgmma sequence: a thread-dependent loop count
+// serializes the wgmmas, ptxas C7520), and the two warps of each row pair
+// sum their partial scores through shared memory (two pair barriers).
+// Queries and cache tiles live in shared memory in the wgmma canonical
+// 128-byte-swizzled layout (64-column blocks of 8-row x 128-byte atoms; the
+// q hi and lo blocks interleaved); key columns past DK up to a multiple of
+// 64 are zero. Shared memory bounds the design: K10's q hi/lo take 147,456
+// bytes, the two 32-slot stages 73,728. The queries' f32 rows come by
+// cp.async, all in flight at once, into their tiles' own space (a 64-column
+// f32 slab where its hi and lo blocks go), and are split slab by slab in
+// place while the first cache tiles land.
 //
 // Staging: bf16 cache tiles come by TMA (cp.async.bulk.tensor, 2-D maps
 // with 64-column 128-byte-swizzled boxes, encoded on the host through
@@ -71,10 +86,14 @@
 // or the range's end are masked.
 //
 // Few blocks (V2-Lite's K9: 16 heads x 4 row blocks = 64 blocks on 132
-// SMs): the wrapper splits the window into n_split spans of `span` slots
-// (a pure function of the shapes, ops/kernels/prefill_attn.py); each
-// split writes the partials triple into scratch and a merge kernel
-// combines them, dividing for the normal output or not for partials.
+// SMs; K3 always): the wrapper splits the window into n_split spans of
+// `span` slots (a pure function of the shapes, ops/kernels/prefill_attn.py
+// and ops/kernels/attention.py); each split writes the partials triple into
+// scratch and a merge kernel combines them, dividing for the normal output
+// or not for partials. A split block that sees no slot (a span past the
+// live prefix: short decode windows) writes only m = -1e30 and l = 0 for
+// its rows and returns before staging its queries; the merge skips the
+// splits with l = 0 and never reads their accumulators.
 //
 // Partials (partials=True, context-parallel prefill: one shard of the
 // window per rank, its slot s at global position cache_pos0 + s): the
@@ -97,8 +116,12 @@
 
 namespace {
 
-constexpr int kMaxSplits = 16;   // window splits the merge takes
+constexpr int kMaxSplits = 16;   // window splits of a prefill launch
                                  // (_MAX_SPLITS in ops/kernels/prefill_attn.py)
+constexpr int kMaxDecodeSplits = 128;  // of a decode launch, and the most the
+                                       // merge takes (_MAX_DECODE_SPLITS in
+                                       // ops/kernels/attention.py)
+constexpr int kMergeThreads = 512;   // a multiple of DV / 4 for DV 128, 512
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSmem = 232448;
@@ -164,6 +187,9 @@ struct Args {
   const float* ks;
   const float* vs;
   int sb, sh, ss;
+  // decode (K3, T = 1): kv_len (B,) int32 on the device, slot s live while
+  // s < kv_len[b]; q_pos0 and cache_pos0 unused. Null for prefill.
+  const int32_t* kv_len;
 };
 
 // TMA tensor maps of the cache, 2-D (columns, B*S rows) with boxes of TS
@@ -204,7 +230,9 @@ struct Cfg {
 
 // shared memory layout (byte offsets), the same on host and device
 struct Layout {
-  int q_hi, q_lo;    // [BM][DKP] bf16, swizzled
+  int q_hi, q_lo;    // [BM][DKP] bf16, swizzled, interleaved by 64-column
+                     // block (hi block k at q_hi + k * 2 * BM * 128, lo
+                     // block k BM * 128 bytes after it)
   int op;            // the operand tiles: NST ring stages of `stage` bytes
   int stage;         // (K [TS][DKP], MHA: then V [TS][DV]), bf16 swizzled
   int op_lo;         // f16/f32 caches: the lo terms of op[0]
@@ -230,8 +258,8 @@ __host__ __device__ Layout layout(int DK) {
     o += bytes;
     return at;
   };
-  L.q_hi = take(C::BM * DKP * 2, 1024);
-  L.q_lo = take(C::BM * DKP * 2, 1024);
+  L.q_hi = take(2 * C::BM * DKP * 2, 1024);
+  L.q_lo = L.q_hi + C::BM * 128;
   L.stage = round_up(stage, 1024);
   L.op = take(C::NST * L.stage, 1024);
   L.op_lo = C::kSplit ? take(stage, 1024) : L.op;
@@ -395,15 +423,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
 }
 
 // scores of this warp group's 64 rows against the tile's TS slots over
-// the k columns [k0, k1) (multiples of 16): q_hi.k + q_lo.k, plus
-// q_hi.k_lo for two-term caches. q: tiles of BM rows, the group's from
-// row r0; k: tiles of TS rows. Issued and committed; the caller waits.
+// the n k-steps of 16 columns from k0: q_hi.k + q_lo.k, plus q_hi.k_lo for
+// two-term caches. q: 64-column blocks BM rows apart (the interleaved hi
+// and lo tiles), the group's rows from r0; k: tiles of TS rows. Issued and
+// committed; the caller waits.
 template <int TS, int BM, bool SPLIT>
 __device__ __forceinline__ void score_steps(float (&c)[TS / 8][4], uint32_t qh,
                                             uint32_t ql, uint32_t kh,
-                                            uint32_t kl, int r0, int k0,
-                                            int k1) {
-  for (int kk = k0; kk < k1; kk += 16) {
+                                            uint32_t kl, int r0, int k0, int n) {
+  for (int j = 0; j < n; ++j) {
+    const int kk = k0 + 16 * j;
     // column block kk / 64, and 32 bytes a 16-column step inside it
     const uint32_t qo = ((kk >> 6) * BM + r0) * 128 + (kk & 63) * 2;
     const uint32_t ko = (kk >> 6) * TS * 128 + (kk & 63) * 2;
@@ -472,55 +501,31 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
   };
 
   // this split's slots: [s_lo, s_hi), cut at the last one the block's
-  // latest query may see
+  // latest query may see (decode: at the sequence's kv_len). A row sees
+  // slot s while s <= lim (lim_first: the block's first row)
+  const bool decode = a.kv_len != nullptr;
   const int i_last = min(kBM, n_rows - row0) - 1;
-  const int lim_first = a.q_pos0 + row_t(0) - a.cache_pos0;
-  const int s_end = max(0, min(S, a.q_pos0 + row_t(i_last) - a.cache_pos0 + 1));
+  const int lim_first = decode ? S : a.q_pos0 + row_t(0) - a.cache_pos0;
+  const int s_end = max(0, min(S, decode ? a.kv_len[b]
+                                         : a.q_pos0 + row_t(i_last) - a.cache_pos0 + 1));
   const int s_lo = z * a.span;
   const int s_hi = min(s_end, s_lo + a.span);
   const int n_tiles = s_hi > s_lo ? (s_hi - s_lo + TS - 1) / TS : 0;
+  const long long slab = (long long)a.B * T * H;  // rows of one split
+  if (n_tiles == 0 && gridDim.z > 1) {
+    // an empty span: l = 0 tells the merge to skip it (and its accumulator)
+    for (int i = tid; i < kBM && row0 + i < n_rows; i += NTHR) {
+      const long long ro = row_off(i) + z * slab;
+      a.m_out[ro] = kNegInf;
+      a.l_out[ro] = 0.f;
+    }
+    return;
+  }
   int lim[2];                                    // rows g and g + 8
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int i = wm * 16 + g + 8 * j;
-    lim[j] = row0 + i < n_rows ? a.q_pos0 + row_t(i) - a.cache_pos0 : -1;
-  }
-
-  // stage the queries as hi/lo bf16 (rows past the end, columns past DK: 0)
-  {
-    char* qh = sm + L.q_hi;
-    char* ql = sm + L.q_lo;
-    const int P = DK - DV;
-    for (Walk w(tid, NTHR, DKP / 2); w.r < kBM; w.next()) {
-      const int c = 2 * w.c;
-      float2 x = make_float2(0.f, 0.f);
-      if (row0 + w.r < n_rows) {
-        const long long ro = row_off(w.r);
-        if (MQA) {
-          if (c < DV)
-            x = *reinterpret_cast<const float2*>(a.q + ro * DV + c);
-          else if (c - DV < P)
-            x = *reinterpret_cast<const float2*>(a.qr + ro * P + (c - DV));
-        } else if (c < DK) {
-          x = *reinterpret_cast<const float2*>(a.q + ro * DK + c);
-        }
-      }
-      uint32_t h, l;
-      split2(x.x, x.y, h, l);
-      const uint32_t off = tile_e(w.r, kBM, c);
-      *reinterpret_cast<uint32_t*>(qh + off) = h;
-      *reinterpret_cast<uint32_t*>(ql + off) = l;
-    }
-    // key columns past DK are zero in every operand tile
-    if (DKP > DK) {
-      for (Walk w(tid, NTHR, (DKP - DK) / 2); w.r < TS; w.next()) {
-        const uint32_t off = tile_e(w.r, TS, DK + 2 * w.c);
-#pragma unroll
-        for (int k = 0; k < C::NST; ++k)
-          *reinterpret_cast<uint32_t*>(sm + L.op + k * L.stage + off) = 0u;
-        *reinterpret_cast<uint32_t*>(sm + L.op_lo + off) = 0u;
-      }
-    }
+    lim[j] = row0 + i >= n_rows ? -1 : decode ? S : a.q_pos0 + row_t(i) - a.cache_pos0;
   }
 
   // the two cache segments of a tile: K9 keys and values of head h_fix;
@@ -620,13 +625,17 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   const uint32_t qh_a = smem_addr(sm + L.q_hi), ql_a = smem_addr(sm + L.q_lo);
   const int r0 = (warp >> 2) % (C::WM / 4) * 64;  // this warp group's rows
-  // the score columns of this warp: all of them, or (NG = 2) half, the
-  // two halves summed through shared memory; over an int8 latent cache
-  // K10 keeps the latent and rope parts apart for their scales
-  const int kb = NG == 2 ? wg * (DKP / 2) : 0;
-  const int ke = NG == 2 ? kb + DKP / 2 : DKP;
+  // the score k-steps of this warp group: all of them, or (NG = 2) half
+  // of the latent (K10: key, K9) columns and half of the rope columns, the
+  // two halves summed through shared memory. Both groups issue the same
+  // number of steps from another column, so no control flow around the
+  // wgmmas depends on the thread (ptxas serializes the wgmmas of a
+  // divergent path: C7520). Over an int8 latent cache K10 keeps the latent
+  // and rope parts apart for their scales.
+  const int k_main = MQA ? DV : DKP, k_rest = DKP - k_main;
+  const int n_main = k_main / (16 * NG), n_rest = k_rest / (16 * NG);
+  const int kb_main = wg * (k_main / NG), kb_rest = k_main + wg * (k_rest / NG);
   constexpr bool kRope = MQA && kQ8;
-  const int k_split = kRope ? max(kb, min(ke, DV)) : ke;
   float* xb = reinterpret_cast<float*>(sm + L.xch) + wm * 16 * C::XW;
 
   // the ring: tile j goes to stage j % NST; one commit group a tile
@@ -643,6 +652,60 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
     if (j < n_tiles) issue(j);
     else cp_commit();
   }
+
+  // while the first tiles land: stage the queries as hi/lo bf16. Their f32
+  // rows come by cp.async, every copy in flight at once, into the query
+  // tiles' own space: 64-column slab k (64 rows x 256 bytes) exactly where
+  // hi block k and lo block k go. Then slab by slab each thread reads its
+  // values, the block syncs, and it writes their hi and lo terms over them.
+  // Rows past the end and columns past DK: zero-filled copies.
+  {
+    char* qs = sm + L.q_hi;
+    const int P = DK - DV;
+    for (Walk w(tid, NTHR, DKP / 4); w.r < kBM; w.next()) {
+      const int c = 4 * w.c;
+      const bool ok = row0 + w.r < n_rows && c < DK;
+      const long long ro = row_off(ok ? w.r : 0);
+      const float* src = !ok ? a.q
+                         : !MQA ? a.q + ro * DK + c
+                         : c < DV ? a.q + ro * DV + c : a.qr + ro * P + (c - DV);
+      cp_async(smem_addr(qs + (c >> 6) * (2 * kBM * 128) + w.r * 256 + (c & 63) * 4), src,
+               16, ok);
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    constexpr int kPer = kBM * 16 / NTHR;          // float4s of a slab a thread
+    for (int k = 0; k < DKP / 64; ++k) {
+      char* slab = qs + k * (2 * kBM * 128);
+      float4 x[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        x[u] = reinterpret_cast<const float4*>(slab)[tid + u * NTHR];
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int j = tid + u * NTHR, r = j >> 4, c = (j & 15) * 4;
+        uint32_t h0, l0, h1, l1;
+        split2(x[u].x, x[u].y, h0, l0);
+        split2(x[u].z, x[u].w, h1, l1);
+        const uint32_t off = tile_e(r, 2 * kBM, 64 * k + c);
+        *reinterpret_cast<uint2*>(sm + L.q_hi + off) = make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(sm + L.q_lo + off) = make_uint2(l0, l1);
+      }
+    }
+    // key columns past DK are zero in every operand tile (no copy writes them)
+    if (DKP > DK) {
+      for (Walk w(tid, NTHR, (DKP - DK) / 2); w.r < TS; w.next()) {
+        const uint32_t off = tile_e(w.r, TS, DK + 2 * w.c);
+#pragma unroll
+        for (int k = 0; k < C::NST; ++k)
+          *reinterpret_cast<uint32_t*>(sm + L.op + k * L.stage + off) = 0u;
+        *reinterpret_cast<uint32_t*>(sm + L.op_lo + off) = 0u;
+      }
+    }
+  }
+
   for (int i = 0; i < n_tiles; ++i) {
     const int s0 = s_lo + i * TS;
     const char* khi;
@@ -693,9 +756,11 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
     pin(sc);
     pin(sr);
     wg_fence();
-    score_steps<TS, kBM, kSplit>(sc, qh_a, ql_a, kh_a, kl_a, r0, kb, k_split);
-    if (kRope)
-      score_steps<TS, kBM, kSplit>(sr, qh_a, ql_a, kh_a, kl_a, r0, k_split, ke);
+    score_steps<TS, 2 * kBM, kSplit>(sc, qh_a, ql_a, kh_a, kl_a, r0, kb_main, n_main);
+    if constexpr (kRope)
+      score_steps<TS, 2 * kBM, kSplit>(sr, qh_a, ql_a, kh_a, kl_a, r0, kb_rest, n_rest);
+    else if constexpr (MQA)
+      score_steps<TS, 2 * kBM, kSplit>(sc, qh_a, ql_a, kh_a, kl_a, r0, kb_rest, n_rest);
     wg_wait();
     pin(sc);
     pin(sr);
@@ -807,7 +872,6 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) l_r[j] = quad_sum(l_r[j]);
   const bool norm = a.m_out == nullptr;
-  const long long slab = (long long)a.B * T * H;  // rows of one split
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int i = wm * 16 + g + 8 * hf;
@@ -829,47 +893,83 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
 
 // one block per (b, t, h) row: the exact merge of the window splits'
 // partials (acc, m, l) (n_split, rows, ...): out = sum_k w_k acc_k / L with
-// w_k = exp(m_k - M), M = max_k m_k, L = sum_k w_k l_k; with m_out the
-// unnormalized triple (acc, M, L). A split that saw no slot has m = -1e30
-// and l = 0, acc = 0, and weighs nothing (or, if every split is empty,
-// leaves M = -1e30, L = 0, acc = 0).
-__global__ void merge_kernel(const float* __restrict__ acc,
-                             const float* __restrict__ m,
-                             const float* __restrict__ l,
-                             float* __restrict__ out, float* __restrict__ m_out,
-                             float* __restrict__ l_out, long long rows, int DV,
-                             int n_split) {
+// w_k = exp(m_k - M), M = max_k m_k, L = sum_k w_k l_k over the splits that
+// saw a slot (l_k > 0; the others may have written no accumulator); with
+// m_out the unnormalized triple (acc, M, L). If every split is empty: M =
+// -1e30, L = 0, acc = 0. The first warp lists the live splits and their
+// weights in shared memory; then kMergeThreads / (DV / 4) groups of DV / 4
+// threads (a float4 column each) take every group-th live split, so that
+// many loads are in flight, and sum their columns through shared memory.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+             const float* __restrict__ l, float* __restrict__ out,
+             float* __restrict__ m_out, float* __restrict__ l_out, long long rows,
+             int DV, int n_split) {
+  __shared__ float w_s[kMaxDecodeSplits];
+  __shared__ int id_s[kMaxDecodeSplits];
+  __shared__ float4 part_s[kMergeThreads];
+  __shared__ float stat_s[2];
+  __shared__ int n_s;
   const long long row = blockIdx.x;
-  float M = kNegInf;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float M = kNegInf;
+    for (int k = lane; k < n_split; k += 32)
+      if (l[k * rows + row] > 0.f) M = fmaxf(M, m[k * rows + row]);
 #pragma unroll
-  for (int k = 0; k < kMaxSplits; ++k)
-    if (k < n_split) M = fmaxf(M, m[k * rows + row]);
-  float w[kMaxSplits];
-  float Lsum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxSplits; ++k) {
-    w[k] = k < n_split ? __expf(m[k * rows + row] - M) : 0.f;
-    if (k < n_split) Lsum += w[k] * l[k * rows + row];
-  }
-  const float inv = m_out != nullptr ? 1.f : 1.f / fmaxf(Lsum, 1e-30f);
-  for (int c = threadIdx.x * 4; c < DV; c += blockDim.x * 4) {
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < kMaxSplits; ++k) {
-      if (k >= n_split) break;
-      const float4 v =
-          *reinterpret_cast<const float4*>(acc + (k * rows + row) * DV + c);
-      s.x += w[k] * v.x;
-      s.y += w[k] * v.y;
-      s.z += w[k] * v.z;
-      s.w += w[k] * v.w;
+    for (int s = 16; s > 0; s >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, s));
+    float Lsum = 0.f;
+    int n = 0;
+    for (int k0 = 0; k0 < n_split; k0 += 32) {
+      const int k = k0 + lane;
+      const float lk = k < n_split ? l[k * rows + row] : 0.f;
+      const bool live = lk > 0.f;
+      const float e = live ? __expf(m[k * rows + row] - M) : 0.f;
+      Lsum += e * lk;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int at = n + __popc(mask & ((1u << lane) - 1u));
+        id_s[at] = k;
+        w_s[at] = e;
+      }
+      n += __popc(mask);
     }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) Lsum += __shfl_xor_sync(0xffffffffu, Lsum, s);
+    if (lane == 0) {
+      n_s = n;
+      stat_s[0] = M;
+      stat_s[1] = Lsum;
+    }
+  }
+  __syncthreads();
+  const int n = n_s, cols = DV / 4, groups = kMergeThreads / cols;
+  const int grp = threadIdx.x / cols, c = (threadIdx.x - grp * cols) * 4;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+  for (int j = grp; j < n; j += groups) {
+    const float w = w_s[j];
+    const float4 v = __ldg(reinterpret_cast<const float4*>(
+        acc + ((long long)id_s[j] * rows + row) * DV + c));
+    s.x += w * v.x;
+    s.y += w * v.y;
+    s.z += w * v.z;
+    s.w += w * v.w;
+  }
+  part_s[threadIdx.x] = s;
+  __syncthreads();
+  if (grp == 0) {
+    for (int g = 1; g < groups; ++g) {
+      const float4 u = part_s[g * cols + threadIdx.x];
+      s.x += u.x; s.y += u.y; s.z += u.z; s.w += u.w;
+    }
+    const float inv = m_out != nullptr ? 1.f : 1.f / fmaxf(stat_s[1], 1e-30f);
     s.x *= inv; s.y *= inv; s.z *= inv; s.w *= inv;
     *reinterpret_cast<float4*>(out + row * DV + c) = s;
   }
   if (m_out != nullptr && threadIdx.x == 0) {
-    m_out[row] = M;
-    l_out[row] = Lsum;
+    m_out[row] = stat_s[0];
+    l_out[row] = stat_s[1];
   }
 }
 
@@ -1000,16 +1100,16 @@ int run(Args a, int DV, int dtype, int n_split, float* scratch, float* out,
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  merge_kernel<<<(unsigned)rows, DV / 4, 0, stream>>>(
+  merge_kernel<<<(unsigned)rows, kMergeThreads, 0, stream>>>(
       a.out, a.m_out, a.l_out, out, m_out, l_out, rows, DV, n_split);
   return (int)cudaGetLastError();
 }
 
 bool bad_dims(int B, int T, int H, int S, int DK, int DV, int dtype,
-              int n_split, int span, const void* scratch) {
+              int n_split, int span, const void* scratch, int max_splits = kMaxSplits) {
   return B <= 0 || B > 65535 || T <= 0 || H <= 0 || S <= 0 || DK <= 0 ||
          DK % 4 != 0 || (DV != 128 && DV != 512) || elem_size(dtype) == 0 ||
-         n_split < 1 || n_split > kMaxSplits || span <= 0 ||
+         n_split < 1 || n_split > max_splits || span <= 0 ||
          (n_split > 1 && scratch == nullptr) ||
          (long long)B * T * H > 2147483647LL - Cfg<true, float, 128>::BM;
 }
@@ -1069,6 +1169,35 @@ extern "C" int mla_prefill(const void* q_c, const void* q_rope,
          chunk_bytes(krope, P * esz, P * esz), 0,
          static_cast<const float*>(ckv_scale),
          static_cast<const float*>(krope_scale), S, 0, 1};
+  return run<true>(a, R, dtype, n_split, static_cast<float*>(scratch),
+                   static_cast<float*>(out), static_cast<float*>(m_out),
+                   static_cast<float*>(l_out), static_cast<cudaStream_t>(stream));
+}
+
+// K3: q_c (B,H,R) and q_rope (B,H,P) f32, ckv (B,S,R) and krope (B,S,P) of
+// dtype 0/1/2/3 (3 = int8, then ckv_scale and krope_scale (B,S) f32,
+// contiguous), kv_len (B,) int32 on the device -> out (B,H,R) f32 over the
+// slots s < kv_len[b]. R in {128, 512}, (R + P) % 4 == 0. With m_out and
+// l_out (B,H) f32 (partials; both null otherwise) out is the unnormalized
+// accumulator. The window is walked in n_split <= kMaxDecodeSplits spans of
+// `span` slots (n_split > 1 needs f32 scratch of n_split * B*H * (R + 2)).
+// Returns a cudaError_t; the launches are asynchronous on `stream`.
+extern "C" int mla_decode(const void* q_c, const void* q_rope, const void* ckv,
+                          const void* krope, const void* ckv_scale,
+                          const void* krope_scale, const void* kv_len, void* out,
+                          void* m_out, void* l_out, void* scratch, int n_split,
+                          int span, int B, int H, int S, int R, int P, int dtype,
+                          float scale, void* stream) {
+  if (bad_dims(B, 1, H, S, R + P, R, dtype, n_split, span, scratch,
+               kMaxDecodeSplits) ||
+      P < 0 || kv_len == nullptr || (m_out == nullptr) != (l_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long esz = elem_size(dtype);
+  Args a{static_cast<const float*>(q_c), static_cast<const float*>(q_rope),
+         ckv, krope, nullptr, nullptr, nullptr, B, 1, H, S, R + P, 0, 0, scale,
+         span, chunk_bytes(ckv, R * esz, R * esz), chunk_bytes(krope, P * esz, P * esz),
+         0, static_cast<const float*>(ckv_scale), static_cast<const float*>(krope_scale),
+         S, 0, 1, static_cast<const int32_t*>(kv_len)};
   return run<true>(a, R, dtype, n_split, static_cast<float*>(scratch),
                    static_cast<float*>(out), static_cast<float*>(m_out),
                    static_cast<float*>(l_out), static_cast<cudaStream_t>(stream));

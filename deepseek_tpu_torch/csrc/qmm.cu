@@ -683,8 +683,8 @@ cudaError_t dispatch_turbo(const float* x, const uint8_t* p, const float* dsup,
   return launch_turbo<2, Q3>(x, p, dsup, a, idx, y, rows_x, d, n, stream);
 }
 
-// K2's plain body: y[b, r] = sum_c x[b, c] * float(W[idx[b]][r, c]), the
-// table read in its own dtype and widened to f32 (the Pallas body's
+// K2's plain and fp8 bodies: y[b, r] = sum_c x[b, c] * float(W[idx[b]][r, c]),
+// the table read in its own dtype and widened to f32 (the Pallas body's
 // astype(float32)). Bound: bytes, 2 flops per table element. A warp owns
 // an item of kPlainRows table rows of one pair b and walks their columns
 // in 16-byte vectors, coalesced across its lanes, kPlainUnroll vectors of
@@ -698,6 +698,19 @@ cudaError_t dispatch_turbo(const float* x, const uint8_t* p, const float* dsup,
 // of one pair, which share x in L1. 64 registers, four blocks an SM: at
 // DeepSeek-V2-Lite's w2s (8 pairs of 2048 x 1408) every item then has a
 // warp of its own (at 76 registers, three blocks, a warp took two).
+//
+// WT = uint8_t is the fp8 body (qmm.py:655-666, _fp8_body :260): F8E5M2
+// weights with f32 inverse scales s (E, ceil(d/b0), ceil(n/b1)), y[b, r] =
+// sum over the column blocks cb of s[idx[b]][r / b0][cb] * sum_{c in cb}
+// x[b, c] * float(W[r, c]). A 16-weight vector never straddles a block
+// (b1 % 16 == 0), so its partial sum is scaled once, on the output side as
+// the TPU body does (one FMA per 16 weights); ragged grids need nothing but
+// the index. Per weight: half a byte-permute and one half -> float convert
+// (fp8.cuh) and the FMA, about a third of the SM's issue rate at the byte
+// bound; a 16-byte vector is 16 weights against 64 bytes of x, so the x
+// vectors are loaded after the table's (x comes from L1) and the block
+// bound is two an SM (128 registers: at three, 80 registers spilled), 16
+// warps with 8 table loads of 16 bytes in flight a lane.
 template <typename WT>
 __device__ __forceinline__ void widen(const uint4& v, float* out);
 
@@ -733,24 +746,37 @@ constexpr int kPlainThreads = 256;
 constexpr int kPlainRows = 4;      // table rows a warp item
 constexpr int kPlainUnroll = 2;    // 16-byte vectors of each row in flight a lane
 
+// blocks an SM the launch bounds ask for (registers: 64 a thread at 4;
+// the fp8 body's 16 x values a vector need more: 128 at 2, no spill)
 template <typename WT>
-__global__ void __launch_bounds__(kPlainThreads, 4)
+constexpr int plain_blocks() { return sizeof(WT) == 1 ? 2 : 4; }
+
+template <typename WT>
+__global__ void __launch_bounds__(kPlainThreads, plain_blocks<WT>())
 plain_matvec_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-                    const int32_t* __restrict__ idx, float* __restrict__ y,
-                    int rows_x, int d, int n) {
+                    const float* __restrict__ s, const int32_t* __restrict__ idx,
+                    float* __restrict__ y, int rows_x, int d, int n, int b0,
+                    int vb, int vshift) {
   constexpr int kVec = 16 / sizeof(WT);          // table elements per load
+  constexpr bool kFp8 = sizeof(WT) == 1;         // F8E5M2 with block scales
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (kPlainThreads / 32);
   const int groups = (d + kPlainRows - 1) / kPlainRows;
   const int items = rows_x * groups, nv = n / kVec;
+  const int g0 = (d + b0 - 1) / b0, g1 = (n / 16 + vb - 1) / vb;   // fp8 scale grid
   for (int item = blockIdx.x * (kPlainThreads / 32) + (threadIdx.x >> 5); item < items;
        item += warps) {
     const int b = item / groups, row0 = (item - b * groups) * kPlainRows;
-    const WT* we = w + (size_t)idx[b] * d * n;
+    const size_t e = (size_t)idx[b];
+    const WT* we = w + e * d * n;
     const uint4* wr[kPlainRows];
+    const float* sr[kPlainRows];                 // fp8: each row's scale row
 #pragma unroll
-    for (int rr = 0; rr < kPlainRows; ++rr)     // clamped: stores are masked
-      wr[rr] = reinterpret_cast<const uint4*>(we + (size_t)min(row0 + rr, d - 1) * n);
+    for (int rr = 0; rr < kPlainRows; ++rr) {    // clamped: stores are masked
+      const int r = min(row0 + rr, d - 1);
+      wr[rr] = reinterpret_cast<const uint4*>(we + (size_t)r * n);
+      if constexpr (kFp8) sr[rr] = s + (e * g0 + r / b0) * g1;
+    }
     const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * n);
     float acc[kPlainRows];
 #pragma unroll
@@ -764,20 +790,36 @@ plain_matvec_kernel(const float* __restrict__ x, const WT* __restrict__ w,
         if (v < nv) {
 #pragma unroll
           for (int rr = 0; rr < kPlainRows; ++rr) raw[u][rr] = __ldg(wr[rr] + v);
+          if constexpr (!kFp8) {
 #pragma unroll
-          for (int k = 0; k < kVec / 4; ++k) xv[u][k] = __ldg(xr + v * (kVec / 4) + k);
+            for (int k = 0; k < kVec / 4; ++k) xv[u][k] = __ldg(xr + v * (kVec / 4) + k);
+          }
         }
       }
 #pragma unroll
       for (int u = 0; u < kPlainUnroll; ++u) {
-        if (v0 + 32 * u >= nv) break;
+        const int v = v0 + 32 * u;
+        if (v >= nv) break;
+        if constexpr (kFp8) {
+#pragma unroll
+          for (int k = 0; k < kVec / 4; ++k) xv[u][k] = __ldg(xr + v * (kVec / 4) + k);
+        }
         const float* xf = reinterpret_cast<const float*>(xv[u]);
+        // fp8: the column block of vector v
+        [[maybe_unused]] const int cb = vshift >= 0 ? v >> vshift : v / vb;
 #pragma unroll
         for (int rr = 0; rr < kPlainRows; ++rr) {
           float wv[kVec];
           widen<WT>(raw[u][rr], wv);
+          if constexpr (kFp8) {
+            float t = 0.f;
 #pragma unroll
-          for (int k = 0; k < kVec; ++k) acc[rr] = fmaf(xf[k], wv[k], acc[rr]);
+            for (int k = 0; k < kVec; ++k) t = fmaf(xf[k], wv[k], t);
+            acc[rr] = fmaf(t, __ldg(sr[rr] + cb), acc[rr]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) acc[rr] = fmaf(xf[k], wv[k], acc[rr]);
+          }
         }
       }
     }
@@ -797,10 +839,13 @@ plain_matvec_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
+// s, b0, b1: the fp8 body's scales and blocks (WT = uint8_t), unused
+// otherwise
 template <typename WT>
 cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
                          float* y, int rows_x, int d, int n,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const float* s = nullptr,
+                         int b0 = 1, int b1 = 16) {
   static int max_warps = 0;        // warps the card holds at once
   if (max_warps == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -818,109 +863,11 @@ cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
   const long long per = (items + max_warps - 1) / max_warps;
   const long long warps = (items + per - 1) / per;
   const int grid = (int)((warps + kPlainThreads / 32 - 1) / (kPlainThreads / 32));
+  // 16-weight vectors a column block holds, and its log2 where it is a
+  // power of two (a shift in place of a division), else -1
+  const int vb = b1 / 16, vshift = (vb & (vb - 1)) ? -1 : __builtin_ctz(vb);
   plain_matvec_kernel<WT><<<grid, kPlainThreads, 0, stream>>>(
-      x, static_cast<const WT*>(w), idx, y, rows_x, d, n);
-  return cudaGetLastError();
-}
-
-// The fp8 body of K2 (row b against expert idx[b]; K5's, x rows against
-// one weight, takes plain_mv_kernel below, which reads each weight row once
-// for up to 8 x rows): y[b, r] = sum over the column blocks cb of
-// s[r / b0][cb] * sum_{c in cb} x[b, c] * float(W[r, c]), W in F8E5M2
-// (E, d, n), s the f32 inverse scales (E, ceil(d/b0), ceil(n/b1)). The
-// grid is ceil-sized, so ragged edges need nothing special: row r reads
-// scale row r / b0 and 16 columns at a time never straddle a block (b1 %
-// 16 == 0). As the TPU body (qmm.py:276-290) the scale is applied on the
-// output side, one FMA per 16 weights, not one multiply per weight.
-// Bound: bytes, 2 flops per 1-byte weight. The structure is K2's plain
-// body's: a block stages its activation row in shared memory, a warp owns
-// kRows weight rows and walks them in 16-byte loads (16 weights each),
-// coalesced across its lanes, kRows loads in flight. An e5m2 byte becomes
-// a float by a byte-permute to the half it equals and a cvt (fp8.cuh).
-__global__ void __launch_bounds__(kThreads)
-fp8_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-                  const float* __restrict__ s, const int32_t* __restrict__ idx,
-                  float* __restrict__ y, int d, int n, int b0, int b1) {
-  constexpr int kVec = 16;                       // weights per 16-byte load
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);   // the row, natural order
-  const int xrow = blockIdx.y;
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
-  for (int i = threadIdx.x; i < n / 4; i += kThreads)
-    reinterpret_cast<float4*>(xs)[i] = __ldg(xr + i);
-  __syncthreads();
-
-  const int g0 = (d + b0 - 1) / b0, g1 = (n + b1 - 1) / b1;
-  const size_t e = (size_t)idx[xrow];
-  const uint8_t* we = w + e * (size_t)d * n;
-  const float* se = s + e * (size_t)g0 * g1;
-  const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows;
-  const uint4* wr[kRows];
-  const float* sr[kRows];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int r = min(row0 + rr, d - 1);         // clamped: stores are masked
-    wr[rr] = reinterpret_cast<const uint4*>(we + (size_t)r * n);
-    sr[rr] = se + (size_t)(r / b0) * g1;
-  }
-  const int nv = n / kVec;
-  float acc[kRows];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
-  for (int v = lane; v < nv; v += 32) {
-    uint4 raw[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) raw[rr] = __ldg(wr[rr] + v);
-    const int cb = v * kVec / b1;
-    float sc[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) sc[rr] = __ldg(sr[rr] + cb);
-    float xv[kVec];
-#pragma unroll
-    for (int k = 0; k < kVec; k += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(xs + v * kVec + k);
-      xv[k] = f.x; xv[k + 1] = f.y; xv[k + 2] = f.z; xv[k + 3] = f.w;
-    }
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      float wv[kVec];
-      e5m2x16(raw[rr], wv);
-      float t = 0.f;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) t = fmaf(xv[k], wv[k], t);
-      acc[rr] = fmaf(t, sc[rr], acc[rr]);
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = row0 + rr;
-      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
-    }
-  }
-}
-
-cudaError_t launch_fp8(const float* x, const uint8_t* w, const float* s,
-                       const int32_t* idx, float* y, int rows_x, int d, int n,
-                       int b0, int b1, cudaStream_t stream) {
-  static bool smem_opt_in = false;
-  if (!smem_opt_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fp8_matvec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    smem_opt_in = true;
-  }
-  const int rows_per_block = (kThreads / 32) * kRows;
-  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
-  fp8_matvec_kernel<<<grid, kThreads, (size_t)n * sizeof(float), stream>>>(
-      x, w, s, idx, y, d, n, b0, b1);
+      x, static_cast<const WT*>(w), s, idx, y, rows_x, d, n, b0, vb, vshift);
   return cudaGetLastError();
 }
 
@@ -1246,17 +1193,17 @@ extern "C" int plain_matvec(const void* x, const void* w, int kind,
 
 // y (rows_x, d) f32 = x (rows_x, n) f32 against the F8E5M2 table W (E, d,
 // n) with f32 inverse scales s (E, ceil(d/b0), ceil(n/b1)); idx (rows_x,)
-// int32 selects the expert of each row (K2's fp8 body), or is null with
-// E = 1 (K5's: the x rows 8 at a time through plain_mv_kernel, each weight
-// row read once per 8 x rows). Needs n % 16 == 0, b1 % 16 == 0 and a
-// 16-byte aligned W. Returns a cudaError_t; the launches are asynchronous
-// on `stream`.
+// int32 selects the expert of each row (K2's fp8 body, the persistent
+// plain_matvec_kernel), or is null with E = 1
+// (K5's: the x rows 8 at a time through plain_mv_kernel, each weight row
+// read once per 8 x rows). Needs n % 16 == 0, b1 % 16 == 0 and a 16-byte
+// aligned W. Returns a cudaError_t; the launches are asynchronous on
+// `stream`.
 extern "C" int fp8_matvec(const void* x, const void* w, const void* s,
                           const void* idx, void* y, int rows_x, int d, int n,
                           int b0, int b1, void* stream) {
   if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 16 != 0 ||
-      b0 <= 0 || b1 <= 0 || b1 % 16 != 0 ||
-      (size_t)n * sizeof(float) > (size_t)kMaxSmem)
+      b0 <= 0 || b1 <= 0 || b1 % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (idx == nullptr) {
     for (int r0 = 0; r0 < rows_x; r0 += kMvMaxX) {
@@ -1268,8 +1215,8 @@ extern "C" int fp8_matvec(const void* x, const void* w, const void* s,
     }
     return (int)cudaSuccess;
   }
-  return (int)launch_fp8(static_cast<const float*>(x), static_cast<const uint8_t*>(w),
-                         static_cast<const float*>(s), static_cast<const int32_t*>(idx),
-                         static_cast<float*>(y), rows_x, d, n, b0, b1,
-                         static_cast<cudaStream_t>(stream));
+  return (int)launch_plain<uint8_t>(
+      static_cast<const float*>(x), w, static_cast<const int32_t*>(idx),
+      static_cast<float*>(y), rows_x, d, n, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(s), b0, b1);
 }

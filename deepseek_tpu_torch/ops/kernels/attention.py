@@ -2,12 +2,15 @@
 
 ``mla_decode_attn`` replaces ``deepseek_tpu/ops/pallas/attention.py::
 mla_decode_attn`` (``_mla_body``, K3: absorbed MLA over the latent cache)
-and launches ``csrc/mla_decode.cu``; ``mha_decode_attn`` replaces
-``::mha_decode_attn`` (``_mha_body``, K8: decompressed MHA over the
-per-head key/value cache) and launches ``csrc/mha_decode.cu``. Both run a
-split-KV pass writing (acc, m, l) partials, then an exact merge (see the
-source headers for the designs and their bounds; K8's split count is
-``decode_splits``). Over an int8 cache both
+and launches the decode mode of ``csrc/prefill_attn.cu`` (K10's kernel on
+Hopper's tensor cores with one query: 64 heads a block as the MMA's rows,
+the f32 function through split bf16 operands); ``mha_decode_attn``
+replaces ``::mha_decode_attn`` (``_mha_body``, K8: decompressed MHA over
+the per-head key/value cache) and launches ``csrc/mha_decode.cu``. Both
+run a split-KV pass writing (acc, m, l) partials, then an exact merge (see
+the source headers for the designs and their bounds; the split counts are
+``mla_decode_splits`` and ``decode_splits``, pure functions of the shapes:
+kv_len stays on the card). Over an int8 cache both
 take the f32 scales of the stored rows, in the JAX layouts: (B,S) for the
 latent rows, head-major (B,H,S) for the per-head keys and values, which
 K8 reads through their strides (the cache's (B,S,H) scales transposed, no
@@ -17,14 +20,15 @@ the normalized output: the unnormalized accumulator and its flash
 statistics (acc, m (B,H), l (B,H)); the merge kernel combines its splits
 without dividing. ``.launches`` counts the normalized launches over a
 float cache, ``.int8.launches`` those over an int8 cache,
-``.partials.launches`` and ``.partials.int8.launches`` the partials ones.
+``.partials.launches`` and ``.partials.int8.launches`` the partials ones;
+K3 also counts its normalized launches over f16 and f32 caches (the
+two-term bodies) in ``.f16.launches`` / ``.f32.launches``.
 CPU tensors take the plain versions (ops.attention.decode_attn_*); CUDA
 tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-import math
 from types import SimpleNamespace
 
 import torch
@@ -36,9 +40,14 @@ from deepseek_tpu_torch.ops.attention import (
 from deepseek_tpu_torch.ops.kernels.build import check, library
 
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3}
-_TILE = 32          # cache slots per tile in the kernel (kTS)
-_HEADS = 16         # heads per block (kHG)
-_MAX_SPLITS = 64    # kMaxSplits
+# K3's decode mode of csrc/prefill_attn.cu (the tests read its constants
+# there): heads a block (Cfg::BM), the latent widths it is built for (its
+# DV instances) and the splits its merge takes (kMaxDecodeSplits)
+_DECODE_ROWS = 64
+_DECODE_R = (128, 512)
+_MAX_DECODE_SPLITS = 128
+_DECODE_SPAN_ALIGN = 64     # split spans are whole multiples of every tile size
+_DECODE_FILL_BLOCKS = 132   # one block an SM (a block takes ~226 KB of shared memory)
 
 
 def launch_counters() -> SimpleNamespace:
@@ -50,6 +59,18 @@ def count_launch(fn, partials: bool, q8: bool) -> None:
     """One launch of ``fn``'s kernel, counted by its body."""
     c = fn.partials if partials else fn
     (c.int8 if q8 else c).launches += 1
+
+
+_TWO_TERM = {torch.float16: "f16", torch.float32: "f32"}
+
+
+def count_body(fn, partials: bool, cache_dtype) -> None:
+    """``count_launch``, and among the normalized float launches those
+    over f16 and f32 caches (the bodies that take the cache in two bf16
+    terms) in ``.f16`` / ``.f32``."""
+    count_launch(fn, partials, cache_dtype == torch.int8)
+    if not partials and cache_dtype in _TWO_TERM:
+        getattr(fn, _TWO_TERM[cache_dtype]).launches += 1
 
 
 def stats_outputs(partials: bool, shape, dev):
@@ -87,13 +108,29 @@ def mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache, kv_len,
               krope_scale=krope_scale)
 
 
-def _n_splits(device, B: int, H: int, S: int) -> int:
-    """KV splits per (sequence, head group): about two blocks per SM, at
-    most one split per tile of the cache."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = B * math.ceil(H / _HEADS)
-    return max(1, min(math.ceil(S / _TILE), math.ceil(2 * sms / blocks),
-                      _MAX_SPLITS))
+def mla_decode_splits(B: int, H: int, S: int):
+    """(n_split, span): K3 walks the window of S slots in n_split spans of
+    ``span`` slots, one block per span, 64-head row block and sequence,
+    about ``_DECODE_FILL_BLOCKS`` blocks in all; a merge kernel combines the
+    spans' partials. A pure function of the shapes (kv_len stays on the
+    card): spans past a sequence's live prefix return at once."""
+    blocks = B * -(-H // _DECODE_ROWS)
+    chunks = -(-S // _DECODE_SPAN_ALIGN)
+    n = max(1, min(-(-_DECODE_FILL_BLOCKS // blocks), chunks, _MAX_DECODE_SPLITS))
+    span = -(-chunks // n) * _DECODE_SPAN_ALIGN
+    return -(-S // span), span
+
+
+def check_mla_decode_shapes(B: int, H: int, S: int, R: int, P: int, dtype) -> None:
+    """Raise ValueError unless K3's decode kernel takes these shapes."""
+    if min(B, H, S, R) <= 0 or P < 0 or B > 65535:
+        raise ValueError(f"mla_decode_attn: empty or oversized shapes B={B} H={H} "
+                         f"S={S} R={R} P={P}")
+    if R not in _DECODE_R or (R + P) % 4:
+        raise ValueError(f"mla_decode_attn needs R in {_DECODE_R} and (R+P) % 4 == 0, "
+                         f"got R={R} P={P}")
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"mla_decode_attn: unsupported cache dtype {dtype}")
 
 
 def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
@@ -118,11 +155,10 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError("mla_decode_attn: inconsistent shapes "
                          f"{tuple(q_c.shape)} {tuple(q_rope.shape)} "
                          f"{tuple(ckv_cache.shape)} {tuple(krope_cache.shape)}")
-    if ckv_cache.dtype != krope_cache.dtype or ckv_cache.dtype not in DTYPE_CODE:
-        raise ValueError(f"unsupported cache dtype {ckv_cache.dtype}")
-    if R > 512 or R + P > 768 or (R + P) % 4:
-        raise ValueError(f"mla_decode_attn needs R <= 512, R+P <= 768 and "
-                         f"(R+P) % 4 == 0, got R={R} P={P}")
+    if ckv_cache.dtype != krope_cache.dtype:
+        raise ValueError(f"mla_decode_attn: cache dtypes {ckv_cache.dtype} and "
+                         f"{krope_cache.dtype} differ")
+    check_mla_decode_shapes(B, H, S, R, P, ckv_cache.dtype)
     dev = q_c.device
     for t in (q_rope, ckv_cache, krope_cache):
         if t.device != dev:
@@ -137,26 +173,27 @@ def mla_decode_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     qr = q_rope.float().contiguous()
     kl = torch.as_tensor(kv_len, device=dev).reshape(-1).expand(B) \
         .to(torch.int32).contiguous()
-    ns = _n_splits(dev, B, H, S)
+    ns, span = mla_decode_splits(B, H, S)
     out = torch.empty((B, H, R), dtype=torch.float32, device=dev)
     m_out, l_out = stats_outputs(partials, (B, H), dev)
-    acc = torch.empty((B, H, ns, R), dtype=torch.float32, device=dev)
-    m = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
-    l = torch.empty((B, H, ns), dtype=torch.float32, device=dev)
-    err = library("mla_decode").mla_decode(
+    scratch = None if ns == 1 else torch.empty(
+        ns * B * H * (R + 2), dtype=torch.float32, device=dev)
+    err = library("prefill_attn").mla_decode(
         qc.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(), data_ptr_or_0(cs),
         data_ptr_or_0(rs), kl.data_ptr(), out.data_ptr(), data_ptr_or_0(m_out),
-        data_ptr_or_0(l_out), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, S,
-        R, P, DTYPE_CODE[ckv.dtype], ns, float(softmax_scale),
+        data_ptr_or_0(l_out), data_ptr_or_0(scratch), ns, span, B, H, S, R, P,
+        DTYPE_CODE[ckv.dtype], float(softmax_scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "mla_decode")
-    count_launch(mla_decode_attn, partials, q8)
+    count_body(mla_decode_attn, partials, ckv.dtype)
     return (out, m_out, l_out) if partials else out
 
 
 mla_decode_attn.launches = 0
 mla_decode_attn.int8 = SimpleNamespace(launches=0)
 mla_decode_attn.partials = launch_counters()
+mla_decode_attn.f16 = SimpleNamespace(launches=0)
+mla_decode_attn.f32 = SimpleNamespace(launches=0)
 
 
 # csrc/mha_decode.cu's constants (the tests read them there): head widths

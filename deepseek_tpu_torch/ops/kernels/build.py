@@ -35,8 +35,6 @@ SIGNATURES = {
             "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
             "turbo_matvec": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
-    "mla_decode": {"mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _I, _P]},
@@ -49,7 +47,9 @@ SIGNATURES = {
         "mha_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
         "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _lock = threading.Lock()

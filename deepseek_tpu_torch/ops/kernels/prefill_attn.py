@@ -37,7 +37,7 @@ from deepseek_tpu_torch.ops.attention import (
     prefill_attn_mla_partial,
 )
 from deepseek_tpu_torch.ops.kernels.attention import (
-    DTYPE_CODE, check_scales, count_launch, data_ptr_or_0, head_major_strides,
+    DTYPE_CODE, check_scales, count_body, data_ptr_or_0, head_major_strides,
     launch_counters, stats_outputs,
 )
 from deepseek_tpu_torch.ops.kernels.build import check, library
@@ -67,15 +67,6 @@ def prefill_splits(B: int, T: int, H: int, S: int, q_pos0: int, cache_pos0: int,
         return 1, S
     span = -(-chunks // n) * _SPAN_ALIGN
     return -(-used // span), span
-
-
-_TWO_TERM = {torch.float16: "f16", torch.float32: "f32"}
-
-
-def _count(fn, partials: bool, cache_dtype) -> None:
-    count_launch(fn, partials, cache_dtype == torch.int8)
-    if not partials and cache_dtype in _TWO_TERM:
-        getattr(fn, _TWO_TERM[cache_dtype]).launches += 1
 
 
 def _split_buffers(n_split: int, rows: int, dv: int, device):
@@ -162,7 +153,7 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
         int(q_pos0), int(cache_pos0), float(softmax_scale), sb, sh, ss,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_prefill")
-    _count(mha_prefill_attn, partials, k_cache.dtype)
+    count_body(mha_prefill_attn, partials, k_cache.dtype)
     return (out, m_out, l_out) if partials else out
 
 
@@ -210,7 +201,7 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
         DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
         float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
     check(err, "mla_prefill")
-    _count(mla_prefill_attn, partials, ckv_cache.dtype)
+    count_body(mla_prefill_attn, partials, ckv_cache.dtype)
     return (out, m_out, l_out) if partials else out
 
 

@@ -116,23 +116,36 @@ def _attn_inputs(B, H, S, R, P, seed, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("B,H,S,R,P,kv_len", [
     (1, 128, 4096, 512, 64, [4000]),
-    (2, 2, 40, 256, 64, [37, 1]),
+    (2, 2, 40, 512, 64, [37, 1]),
     (1, 20, 301, 512, 64, [301]),
+    (2, 80, 700, 512, 64, [613, 1]),
+    (1, 70, 300, 128, 64, [290]),
 ])
 def test_mla_kernel_matches_plain(dtype, B, H, S, R, P, kv_len, dev):
-    """K3 against its plain version. Tolerance 1e-4: f32 sums over up to
-    4096 slots in other orders, and the fast exp."""
+    """K3 against its plain version: a ragged kv_len a sequence (1 slot
+    included), head counts that leave the last 64-head row block part
+    empty, R 512 and 128. Tolerance 1e-4: split bf16 operands, f32 sums
+    over up to 4096 slots in other orders, exp2."""
     args = _attn_inputs(B, H, S, R, P, H, dtype, dev)
     kl = torch.tensor(kv_len, device=dev)
     scale = 1.0 / math.sqrt(192)
+    before = (mla_decode_attn.launches, mla_decode_attn.f16.launches,
+              mla_decode_attn.f32.launches)
     torch.testing.assert_close(mla_decode_attn(*args, kl, scale),
                                mla_decode_attn_plain(*args, kl, scale),
                                rtol=1e-4, atol=1e-4)
+    assert (mla_decode_attn.launches, mla_decode_attn.f16.launches,
+            mla_decode_attn.f32.launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float16),
+        before[2] + (dtype == torch.float32))
 
 
 @pytest.mark.cuda
-def test_mla_kernel_ignores_slots_past_kv_len(dev):
-    args = _attn_inputs(1, 4, 64, 256, 64, 0, torch.bfloat16, dev)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_mla_kernel_ignores_slots_past_kv_len(dtype, dev):
+    """NaN in the slots past kv_len (inside the last tile and in whole
+    tiles past it) changes no bit of the output."""
+    args = _attn_inputs(1, 4, 200, 512, 64, 0, dtype, dev)
     kl = torch.tensor([40], device=dev)
     want = mla_decode_attn(*args, kl, 0.1)
     args[2][:, 40:] = float("nan")
@@ -140,6 +153,20 @@ def test_mla_kernel_ignores_slots_past_kv_len(dev):
     got = mla_decode_attn(*args, kl, 0.1)
     assert torch.equal(got, want)
     assert not np.isnan(got.cpu().numpy()).any()
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_cannot_take(dev):
+    """K3's decode kernel is built for R 128 and 512: another latent width,
+    (R + P) % 4 != 0 or two cache dtypes raise ValueError before a launch."""
+    kl = torch.tensor([5], device=dev)
+    for R, P in ((256, 64), (512, 2)):
+        args = _attn_inputs(1, 4, 16, R, P, 0, torch.bfloat16, dev)
+        with pytest.raises(ValueError):
+            mla_decode_attn(*args, kl, 0.1)
+    args = _attn_inputs(1, 4, 16, 512, 64, 0, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        mla_decode_attn(args[0], args[1], args[2], args[3].half(), kl, 0.1)
 
 
 def _close(got, want, rel):
@@ -476,8 +503,10 @@ def _int8_rows(shape, g, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,S,R,P,kv_len", [
     (1, 128, 4096, 512, 64, [4000]),
-    (2, 2, 40, 256, 64, [37, 1]),
+    (2, 2, 40, 512, 64, [37, 1]),
     (1, 20, 301, 512, 64, [301]),
+    (2, 80, 700, 512, 64, [613, 1]),
+    (1, 128, 4096, 512, 64, [32]),
 ])
 def test_k3_int8_matches_plain(B, H, S, R, P, kv_len, dev):
     """K3 over an int8 cache with (B,S) row scales against its plain
@@ -838,8 +867,11 @@ def test_k5_fp8_matvec_small_blocks(rows, dev):
 @pytest.mark.parametrize("E,d,n,block", [(66, 2816, 2048, (128, 128)),
                                          (66, 2048, 1408, (128, 128)),
                                          (16, 128, 512, (128, 128)),
-                                         (4, 100, 320, (32, 64))],
-                         ids=["w13s", "w2s", "wv_b", "small-blocks"])
+                                         (4, 100, 320, (32, 64)),
+                                         (4, 300, 448, (128, 128)),
+                                         (4, 100, 336, (32, 48))],
+                         ids=["w13s", "w2s", "wv_b", "small-blocks", "ragged-128",
+                              "blocks-of-3-vectors"])
 def test_k2_fp8_matches_plain(E, d, n, block, dev):
     """K2's fp8 body: 8 pairs (a repeated expert) against the plain version
     (the selected experts dequantized). Tolerance as K5."""
