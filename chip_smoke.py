@@ -1127,18 +1127,21 @@ def packed_to_nibble(qt):
 
 def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     """The packed bodies at the V3-width model's shapes, each against its
-    plain version on the card: K5's matvec on the fused dense w13 (1 and
-    ROW_TILE_MIN rows) and wo (1 row), its row-tiled route on w13 over a
+    plain version on the card: K5's matvec (csrc/packed_mv.cu) on the
+    attention projections wkvq, wcr and wo, the fused dense w13 and w2 and
+    the lm_head at 1 row, and on w13 at 2 to ROW_TILE_MIN rows (each weight
+    byte read once for all of them); its row-tiled route on w13 over a
     256-token chunk and wkv_b over the 4096-slot window; K2's on the routed w13/w2 tables
     for the 8 experts of one token and on the per-head wv_b (128 heads of
     128 x 512); K6's on w13/w2 for a 256-token chunk (2048 pairs over 256
     experts: the shared expert is not folded into packed tables). Beside
-    K5 on w13, K1 on the nibble layout of the same weights. No PyTorch call
-    computes a K-quant product (library_ms null); `bf16_copy_ms` times
-    torch.matmul over a bf16 copy of the dequantized w13 (another function,
-    4.7-6.1x the bytes). Tolerance 1e-4 of max|ref|: f32 sums in other
-    orders, and the matvec's exact 0.5 + u/16 floats whose offset cancels
-    against f32 group sums."""
+    K5 on w13 at 1 and ROW_TILE_MIN rows, K1 on the nibble layout of the
+    same weights. No PyTorch call computes a K-quant product (library_ms
+    null); `bf16_copy_ms` times torch.matmul over a bf16 copy of the
+    dequantized w13 (another function, 4.7-6.1x the bytes). Tolerance 1e-4
+    of max|ref|: the matvec takes x in two int8 terms (2-4e-5 of max|ref|
+    in the CPU emulation, tests/test_torch_packed_mv.py) and f32 sums in
+    other orders."""
     from deepseek_tpu_torch.ops.kernels.qmm import (
         ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_grouped,
         qmm_grouped_plain, qmm_packed_rows, qmm_plain)
@@ -1152,20 +1155,24 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
     Q, H = quant.upper(), cfg.n_heads
     qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
+    mv_src = "deepseek_tpu_torch/csrc/packed_mv.cu"
     tiles_src = "deepseek_tpu_torch/csrc/qmm_tiles.cu"
     body = "_q2k_body :361" if quant == "q2_k" else "_q3k_body :368"
     k5 = f"deepseek_tpu/ops/pallas/qmm.py:312 (qmm, {body})"
 
-    for label, qt, rows_list in (("w13 (dense)", dense.w13, (1, ROW_TILE_MIN)),
-                                 ("wo", dense.wo, (1,))):
+    for label, qt, rows_list in (("wkvq", dense.wkvq, (1,)), ("wcr", dense.wcr, (1,)),
+                                 ("wo", dense.wo, (1,)),
+                                 ("w13 (dense)", dense.w13, range(1, ROW_TILE_MIN + 1)),
+                                 ("w2 (dense)", dense.w2, (1,)),
+                                 ("lm_head", params.lm_head, (1,))):
         d, n = qt.shape
         for rows in rows_list:
             x = torch.randn((rows, n), generator=gen, device="cuda")
             entry = emit_dec(f"K5 qmm {Q} packed {label} {rows}x{d}x{n}",
                              lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
                              nbytes(x) + qt.nbytes_active + 4 * rows * d,
-                             2.0 * rows * d * n, qmm_src, k5, "K5-packed")
-            if label == "wo":
+                             2.0 * rows * d * n, mv_src, k5, "K5-packed")
+            if label != "w13 (dense)" or rows not in (1, ROW_TILE_MIN):
                 continue
             nib = packed_to_nibble(qt)
             emit_nib(f"K1 qmm {Q} nibble (the same w13, converted) {rows}x{d}x{n}",
@@ -1206,7 +1213,7 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
         emit_dec(f"K2 qmm_experts {Q} packed {label} {idx.numel()}x{d}x{n}",
                  lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
                  1e-4, nbytes(x) + per * idx.unique().numel() + 4 * d * idx.numel(),
-                 2.0 * idx.numel() * d * n, qmm_src, k2, "K2-packed")
+                 2.0 * idx.numel() * d * n, mv_src, k2, "K2-packed")
 
     # K6: a random 256-token routing, 8 routed experts a token (2048 pairs);
     # only the live rows are computed, compared and counted
@@ -1280,7 +1287,8 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
         emit_packed(f"K5 qmm {Q} packed (the same w13) {rows}x{d}x{n}",
                     lambda: qmm(packed, x), lambda: qmm_plain(packed, x), 1e-4,
                     nbytes(x) + packed.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
-                    qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, packed bodies "
+                    "deepseek_tpu_torch/csrc/packed_mv.cu",
+                    "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, packed bodies "
                     ":361/:368)", "K5-packed")
         emit_nib(f"K1 qmm {Q} nibble (the same w13) {rows}x{d}x{n}",
                  lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,

@@ -9,8 +9,8 @@
 // 305, the large plain weights at <= 8 rows), and the fp8 bodies of K5
 // (qmm.py:418, _fp8_body :260: blockwise F8E5M2 projections at few rows)
 // and K2 (qmm.py:664, the same body: fp8 expert tables and wv_b), and the
-// packed and turbo bodies of K5 and K2 (each before its kernels below),
-// after the nibble kernel.
+// turbo bodies of K5 and K2 (each before its kernels below), after the
+// nibble kernel. The packed bodies of K5 and K2 are csrc/packed_mv.cu.
 //
 //   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
 //             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
@@ -202,223 +202,13 @@ cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
   return launch<8, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
 }
 
-// The packed bodies of K5 (qmm.py:312 qmm with _q2k_body :361 and
-// _q3k_body :368, launched :361-373: Q2_K/Q3_K projections at few rows)
-// and K2 (qmm.py:566 qmm_experts, the same bodies :622-629: packed expert
-// tables and the per-head wv_b), after the nibble kernel above: the same
-// staged permuted row with its group sums, the same lanes-per-row
-// subgroups of kRows rows, and f32 accumulation.
-//
-// Index algebra (quant/repack.py; n16 = n/16, permuted position
-// o*n16 + g = natural column 16g + o). Byte j = jq*n16 + g of the 2-bit
-// plane qs (jq = 0..3) holds, in bits 2s..2s+1, offset o = 4s + jq of
-// group g; byte jh*n16 + g of the 1-bit plane hm (Q3_K) holds in bit b
-// offset o = 2b + jh of group g, so the high bit of qs byte j's field s is
-// bit 2s + jq/2 of hm byte (jq % 2)*n16 + g. A lane owns a quad of groups
-// g0..g0+3 (one 4-byte word at each of the 4 qs and 2 hm offsets, one
-// scale word, one super scale: the quad lies in one 256-column
-// superblock) and loads the next quad's words before this quad's
-// arithmetic.
-//
-// A quant u (Q2_K: q; Q3_K: qlow + 4*hbit) is moved to bits 4..6 of its
-// byte and turned into the float 0.5 + u/16 by one byte-permute under the
-// exponent of 0.5 (as the nibble kernel's 0.5 + u/256, with the quant
-// higher in the mantissa so the 0.5 removed below cancels less). Per
-// group, with t = sum x*(0.5 + u/16) and s16 the group's activation sum,
-// sum x*u = 16t - 8*s16, and the f32 scales are made in the kernel from
-// the stored planes (never bf16 copies):
-//   Q2_K: y += d*sc * (16t - 8*s16) - dmin*mn * s16
-//   Q3_K: y += d*sc * (16t - 12*s16)            (q = u - 4)
-// Bound: bytes (2.625 or 3.4375 bits a weight); the unpack costs about one
-// shift-and-mask per 4 weights (two more for Q3_K's high bits) beside the
-// byte-permute and the FMA of each weight.
-
-// bits FROM.. of every byte of w moved to bits TO.. (cross-byte bits are
-// masked off by the caller)
-template <int FROM, int TO>
-__device__ __forceinline__ uint32_t move_bits(uint32_t w) {
-  if constexpr (FROM <= TO) return w << (TO - FROM);
-  else return w >> (FROM - TO);
-}
-
-template <int LPR, bool Q3>
-__global__ void __launch_bounds__(kThreads)
-packed_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
-                     const uint8_t* __restrict__ hm, const uint8_t* __restrict__ s8,
-                     const float* __restrict__ dsup, const float* __restrict__ dmin,
-                     const int32_t* __restrict__ idx, float* __restrict__ y,
-                     int d, int n) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // n floats, permuted order
-  const int n16 = n >> 4;
-  float* s16 = xs + n;                          // n16 group sums
-  const int xrow = blockIdx.y;
-  stage_permuted<kThreads>(x, xrow, n, xs, s16);
-  __syncthreads();
-
-  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
-  const size_t n4 = (size_t)(n >> 2), n8 = (size_t)(n >> 3), n256 = (size_t)(n >> 8);
-  const uint8_t* qe = qs + e * (size_t)d * n4;
-  const uint8_t* he = Q3 ? hm + e * (size_t)d * n8 : nullptr;
-  const uint8_t* se = s8 + e * (size_t)d * n16;
-  const float* de = dsup + e * (size_t)d * n256;
-  const float* me = Q3 ? nullptr : dmin + e * (size_t)d * n256;
-
-  constexpr int kSub = 32 / LPR;
-  const int lane = threadIdx.x & 31;
-  const int sl = lane % LPR;
-  const int sub = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kSub
-                  + lane / LPR;
-  const int row0 = sub * kRows;
-  const int nq = n16 >> 2;                     // 4-group quads per row
-
-  // one quad's words for the subgroup's kRows rows (clamped rows: loads
-  // stay in bounds, stores are masked)
-  struct Quad {
-    uint32_t q[kRows][4], h[kRows][2], s[kRows];
-    float d[kRows], m[kRows];
-  };
-  auto load = [&](int qd, Quad& w) {
-    const int g0 = qd << 2;
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const size_t r = (size_t)min(row0 + rr, d - 1);
-#pragma unroll
-      for (int jq = 0; jq < 4; ++jq)
-        w.q[rr][jq] = __ldg(reinterpret_cast<const uint32_t*>(
-            qe + r * n4 + (size_t)jq * n16 + g0));
-      if (Q3) {
-#pragma unroll
-        for (int jh = 0; jh < 2; ++jh)
-          w.h[rr][jh] = __ldg(reinterpret_cast<const uint32_t*>(
-              he + r * n8 + (size_t)jh * n16 + g0));
-      }
-      w.s[rr] = __ldg(reinterpret_cast<const uint32_t*>(se + r * n16 + g0));
-      w.d[rr] = __ldg(de + r * n256 + (g0 >> 4));
-      if (!Q3) w.m[rr] = __ldg(me + r * n256 + (g0 >> 4));
-    }
-  };
-
-  float acc[kRows];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
-  Quad cur, nxt;
-  if (sl < nq) load(sl, cur);
-  for (int qd = sl; qd < nq; qd += LPR) {
-    if (qd + LPR < nq) load(qd + LPR, nxt);
-    const int g0 = qd << 2;
-    float t[kRows][4];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) t[rr][k] = 0.f;
-#pragma unroll
-    for (int jq = 0; jq < 4; ++jq) {
-      float4 xv[4];                              // offsets o = 4s + jq
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        xv[s] = *reinterpret_cast<const float4*>(xs + (4 * s + jq) * n16 + g0);
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          uint32_t v;
-          const uint32_t qw = cur.q[rr][jq];
-          if (s == 0) v = move_bits<0, 4>(qw);
-          else if (s == 1) v = move_bits<2, 4>(qw);
-          else if (s == 2) v = qw;
-          else v = move_bits<6, 4>(qw);
-          v &= 0x30303030u;
-          if (Q3) {
-            // high bit b = 2s + jq/2 of hm byte (jq % 2)*n16 + g -> bit 6
-            const uint32_t hw = cur.h[rr][jq & 1];
-            const int b = 2 * s + (jq >> 1);
-            const uint32_t hb = b <= 6 ? hw << (6 - b) : hw >> 1;
-            v |= hb & 0x40404040u;
-          }
-          t[rr][0] = fmaf(xv[s].x, nib_f(v, 0x7054u), t[rr][0]);
-          t[rr][1] = fmaf(xv[s].y, nib_f(v, 0x7154u), t[rr][1]);
-          t[rr][2] = fmaf(xv[s].z, nib_f(v, 0x7254u), t[rr][2]);
-          t[rr][3] = fmaf(xv[s].w, nib_f(v, 0x7354u), t[rr][3]);
-        }
-      }
-    }
-    const float4 s4 = *reinterpret_cast<const float4*>(s16 + g0);
-    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t sb = cur.s[rr] >> (8 * k);
-        if (Q3) {
-          const float scale = cur.d[rr] * (float)(int8_t)(sb & 0xFFu);
-          acc[rr] += scale * (16.f * t[rr][k] - 12.f * sv[k]);
-        } else {
-          const float scale = cur.d[rr] * (float)(sb & 0xFu);
-          const float minv = cur.m[rr] * (float)((sb >> 4) & 0xFu);
-          acc[rr] += scale * (16.f * t[rr][k] - 8.f * sv[k]) - minv * sv[k];
-        }
-      }
-    }
-    cur = nxt;
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-    for (int m = LPR / 2; m > 0; m >>= 1)
-      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
-  }
-  if (sl == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = row0 + rr;
-      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
-    }
-  }
-}
-
-template <int LPR, bool Q3>
-cudaError_t launch_packed(const float* x, const uint8_t* qs, const uint8_t* hm,
-                          const uint8_t* s8, const float* dsup, const float* dmin,
-                          const int32_t* idx, float* y, int rows_x, int d, int n,
-                          cudaStream_t stream) {
-  static bool smem_opt_in = false;
-  if (!smem_opt_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        packed_matvec_kernel<LPR, Q3>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    smem_opt_in = true;
-  }
-  const size_t smem = (size_t)(n + n / 16) * sizeof(float);
-  const int rows_per_block = (kThreads / 32) * (32 / LPR) * kRows;
-  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
-  packed_matvec_kernel<LPR, Q3><<<grid, kThreads, smem, stream>>>(
-      x, qs, hm, s8, dsup, dmin, idx, y, d, n);
-  return cudaGetLastError();
-}
-
-template <bool Q3>
-cudaError_t dispatch_packed(const float* x, const uint8_t* qs, const uint8_t* hm,
-                            const uint8_t* s8, const float* dsup, const float* dmin,
-                            const int32_t* idx, float* y, int rows_x, int d, int n,
-                            cudaStream_t stream) {
-  const int nq = n / 64;
-  if (nq % 32 == 0)
-    return launch_packed<32, Q3>(x, qs, hm, s8, dsup, dmin, idx, y, rows_x, d, n, stream);
-  if (nq % 16 == 0)
-    return launch_packed<16, Q3>(x, qs, hm, s8, dsup, dmin, idx, y, rows_x, d, n, stream);
-  return launch_packed<8, Q3>(x, qs, hm, s8, dsup, dmin, idx, y, rows_x, d, n, stream);
-}
-
 // The turbo bodies of K5 (qmm.py:312 qmm with _q2kt_body :169, launched
 // :378, and _q3kt_body :195, launched :385: Q2_K/Q3_K turbo projections at
 // few rows) and K2 (qmm.py:566 qmm_experts, the same bodies chosen
 // :630-637: turbo expert tables and the per-head wv_b). Both planes hold
 // one int8 a weight; the activations come in natural order and the kernel
 // makes what the TPU kernel took as inputs: Q2_K's group sums s16 over the
-// natural row, Q3_K's permuted row (stage_permuted, as the packed bodies).
+// natural row, Q3_K's permuted row (stage_permuted, as the nibble kernel).
 //
 //   Q2_K turbo, natural order, p = sc*q in 0..45, f32 super scales d,
 //   bf16 min terms bm:
@@ -1114,35 +904,6 @@ extern "C" int knib_matvec(const void* x, const void* p, const void* a,
   if (cs != nullptr)
     return (int)dispatch<true, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
   return (int)dispatch<false, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
-}
-
-// y (rows_x, d) f32 = packed matvec of x (rows_x, n) f32. kind 0 = Q2_K:
-// qs (E, d, n/4) u8, s8 = sm (E, d, n/16) u8, dsup and dmin (E, d, n/256)
-// f32, hm null; kind 1 = Q3_K: qs, hm (E, d, n/8) u8, s8 = sc (E, d, n/16)
-// int8, dsup, dmin null. idx (rows_x,) int32 selects the expert of each row
-// (K2), or is null with E = 1 (K5). Needs n % 256 == 0 and 4-byte aligned
-// planes. Returns a cudaError_t; the launch is asynchronous on `stream`.
-extern "C" int packed_matvec(const void* x, int kind, const void* qs,
-                             const void* hm, const void* s8, const void* dsup,
-                             const void* dmin, const void* idx, void* y,
-                             int rows_x, int d, int n, void* stream) {
-  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 256 != 0 ||
-      (size_t)(n + n / 16) * sizeof(float) > (size_t)kMaxSmem ||
-      kind < 0 || kind > 1 || qs == nullptr || s8 == nullptr || dsup == nullptr ||
-      (kind == 0 && dmin == nullptr) || (kind == 1 && hm == nullptr))
-    return (int)cudaErrorInvalidValue;
-  auto xs = static_cast<const float*>(x);
-  auto q = static_cast<const uint8_t*>(qs);
-  auto h = static_cast<const uint8_t*>(hm);
-  auto sc = static_cast<const uint8_t*>(s8);
-  auto ds = static_cast<const float*>(dsup);
-  auto dm = static_cast<const float*>(dmin);
-  auto is = static_cast<const int32_t*>(idx);
-  auto ys = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (kind == 1)
-    return (int)dispatch_packed<true>(xs, q, h, sc, ds, dm, is, ys, rows_x, d, n, st);
-  return (int)dispatch_packed<false>(xs, q, h, sc, ds, dm, is, ys, rows_x, d, n, st);
 }
 
 // y (rows_x, d) f32 = turbo matvec of x (rows_x, n) f32 (natural order).

@@ -33,8 +33,9 @@ SIGNATURES = {
             "plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "plain_mv": [_P, _P, _I, _P, _I, _I, _I, _P],
             "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-            "packed_matvec": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
             "turbo_matvec": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "packed_mv": {"packed_mv": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                                _I, _I, _I, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _I, _P]},

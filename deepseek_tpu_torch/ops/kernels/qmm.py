@@ -24,11 +24,13 @@ matrix products, and the fused expert FFN.
   here, as in the JAX package: on the card these wrappers raise on it.
 - A packed Q2_K/Q3_K weight (``Q2KTensor``/``Q3KTensor``, the default
   K-quant runtime) takes the packed bodies (``_q2k_body`` qmm.py:361,
-  ``_q3k_body`` :368): ``qmm_packed`` is K5's (the matvec of
-  ``csrc/qmm.cu`` up to ``ROW_TILE_MIN`` rows, ``qmm_packed_rows`` on the
-  tile GEMM above), ``qmm_experts_packed`` K2's (qmm.py:622-629;
-  ``csrc/qmm.cu``) and ``qmm_grouped_packed`` K6's (qmm.py:471-478;
-  ``csrc/qmm_tiles.cu``).
+  ``_q3k_body`` :368): ``qmm_packed`` is K5's (the integer matvec of
+  ``csrc/packed_mv.cu`` up to ``ROW_TILE_MIN`` rows, each weight byte read
+  once for all of them; ``qmm_packed_rows`` on the tile GEMM above),
+  ``qmm_experts_packed`` K2's (qmm.py:622-629; the same kernel, the expert
+  ids read as given) and ``qmm_grouped_packed`` K6's (qmm.py:471-478;
+  ``csrc/qmm_tiles.cu``). ``packed_lanes`` and ``packed_warps`` size the
+  matvec's persistent grid.
 - A turbo Q2_K/Q3_K weight (``Q2KTurboTensor``/``Q3KTurboTensor``, the
   int8 planes of ``kquant_runtime="turbo"``) takes the turbo bodies
   (``_q2kt_body`` qmm.py:169, launched :378; ``_q3kt_body`` :195, launched
@@ -658,14 +660,83 @@ def _packed_ptrs(qt):
             qt.d.data_ptr(), None)
 
 
-def _packed_matvec(qt, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+# K5's and K2's packed matvec (csrc/packed_mv.cu; the tests read these
+# back): weight rows a lane subgroup holds (kPkRows), x rows a K5 launch
+# takes at most (kPkMaxX, = ROW_TILE_MIN), warps a block (kPkThreads / 32)
+# and, by the x rows an item takes (K2's: 1), the warps an SM holds at the
+# launch bounds (2 x kPkBlocksFew at 1-2, 2 x kPkBlocksMany at 3-4)
+_PK_ROWS = 2
+_PK_MAX_X = 4
+_PK_BLOCK_WARPS = 2
+_PK_WARPS_PER_SM = {1: 16, 2: 16, 3: 12, 4: 12}
+_SMS = {}
+
+
+def packed_lanes(n: int) -> int:
+    """Lanes that share one weight row in the packed matvec, from the
+    256-column superblocks a row has (a lane takes one a step): 32 from 24
+    superblocks on (V3's n = 7168, 16384, 18432), 8 from 6 (n = 1536,
+    2048), else 2 (n = 512), so that short rows still fill the warp."""
+    units = n // 256
+    return 32 if units >= 24 else 8 if units >= 6 else 2
+
+
+def packed_warps(rows: int, d: int, n: int, sms: int, experts: bool = False) -> int:
+    """The packed matvec's persistent warps for ``rows`` x rows (K5: 1 to
+    ``_PK_MAX_X``, all in each item) or pairs (``experts``, K2: one item
+    per pair and row group) of a (d, n) weight on ``sms`` SMs: an item is
+    ``_PK_ROWS`` rows for each lane subgroup of a warp; as many warps as
+    the card holds at the kernel's launch bounds, fewer where that spreads
+    the items more evenly (every warp walks ``per`` or ``per - 1``
+    items), so that no partial last wave is left."""
+    warp_rows = 32 // packed_lanes(n) * _PK_ROWS
+    items = (rows if experts else 1) * -(-d // warp_rows)
+    most = sms * _PK_WARPS_PER_SM[1 if experts else rows]
+    per = -(-items // most)
+    return -(-items // per)
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def check_packed_mv(qt, x2: torch.Tensor, idx, what: str) -> None:
+    """Raise ValueError unless csrc/packed_mv.cu takes x (rows, n) and the
+    ids beside planes that ``_check_packed`` has passed: x as wide as the
+    weight, at most ``_PK_MAX_X`` rows without ids, and ids of int32 or
+    int64 on x's device, one a row, contiguous."""
+    rows, n = x2.shape
+    if n != qt.shape[-1]:
+        raise ValueError(f"{what}: x {tuple(x2.shape)} against W {qt.shape}")
+    if idx is None:
+        if not 1 <= rows <= _PK_MAX_X:
+            raise ValueError(f"{what}: the matvec takes 1 to {_PK_MAX_X} rows, not {rows}")
+        return
+    if idx.dtype not in (torch.int32, torch.int64) or idx.device != x2.device \
+            or tuple(idx.shape) != (rows,) or not idx.is_contiguous():
+        raise ValueError(f"{what}: expert ids must be {rows} contiguous int32 or int64 "
+                         f"values on {x2.device}, got {idx.dtype} {tuple(idx.shape)} "
+                         f"on {idx.device}")
+
+
+def _packed_matvec(qt, x2: torch.Tensor, idx, d: int, what: str) -> torch.Tensor:
     x2 = x2.float().contiguous()
-    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
-    err = library("qmm").packed_matvec(
+    check_packed_mv(qt, x2, idx, what)
+    rows, n = x2.shape
+    y = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
+    # the pre-pass's two int8 terms and group scalars: 40 bytes a group
+    scratch = torch.empty(rows * (n // 16) * 40, dtype=torch.uint8, device=x2.device)
+    warps = packed_warps(rows, d, n, _sm_count(x2.device), experts=idx is not None)
+    err = library("packed_mv").packed_mv(
         x2.data_ptr(), *_packed_ptrs(qt),
-        idx.data_ptr() if idx is not None else None, y.data_ptr(),
-        x2.shape[0], d, x2.shape[1], torch.cuda.current_stream(x2.device).cuda_stream)
-    check(err, "packed_matvec")
+        idx.data_ptr() if idx is not None else None,
+        idx.element_size() if idx is not None else 0, scratch.data_ptr(),
+        y.data_ptr(), rows, d, n, packed_lanes(n), warps,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "packed_mv")
     return y
 
 
@@ -691,7 +762,7 @@ def qmm_packed(qt, x: torch.Tensor) -> torch.Tensor:
         return x.new_zeros((*lead, d), dtype=torch.float32)
     if x2.shape[0] > ROW_TILE_MIN:
         return qmm_packed_rows(qt, x2).reshape(*lead, d)
-    y = _packed_matvec(qt, x2, None, d)
+    y = _packed_matvec(qt, x2, None, d, "qmm_packed")
     qmm_packed.launches += 1
     return y.reshape(*lead, d)
 
@@ -713,9 +784,9 @@ def qmm_packed_rows(qt, x: torch.Tensor) -> torch.Tensor:
 
 
 def qmm_experts_packed(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K2's packed bodies: row i of x (..., n) against expert idx[i] (ids
-    in [0, E), read unchecked) of a packed Q2_K/Q3_K table W (E, d, n) ->
-    (..., d) float32."""
+    """K2's packed bodies: row i of x (..., n) against expert idx[i] (int32
+    or int64 ids in [0, E) on x's device, read as given and unchecked) of a
+    packed Q2_K/Q3_K table W (E, d, n) -> (..., d) float32."""
     if x.device.type == "cpu":
         return qmm_experts_plain(qt, idx, x)
     if x.device.type != "cuda":
@@ -729,8 +800,7 @@ def qmm_experts_packed(qt, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, n)
     if x2.shape[0] == 0:
         return x.new_zeros((*lead, d), dtype=torch.float32)
-    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
-    y = _packed_matvec(qt, x2, idx32, d)
+    y = _packed_matvec(qt, x2, idx.reshape(-1).contiguous(), d, "qmm_experts_packed")
     qmm_experts_packed.launches += 1
     return y.reshape(*lead, d)
 

@@ -979,8 +979,8 @@ def test_k5_packed_matches_plain(quant, d, n, rows, dev):
     """K5's packed bodies (the matvec up to ROW_TILE_MIN rows, the row-tiled route
     above, with a ragged row tile at 17 and 130 rows and ragged column
     blocks) against the plain version. Tolerance 1e-4 of the output scale:
-    f32 sums in other orders, and the matvec's exact 0.5 + u/16 floats whose
-    offset cancels against f32 group sums."""
+    f32 sums in other orders, and the matvec's x in two int8 terms a group
+    (2-4e-5 of max|ref| in the CPU emulation, tests/test_torch_packed_mv.py)."""
     qt = _packed(0, d, n, quant, seed=d + n, dev=dev)
     x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev)
     before = (qmm_packed.launches, qmm_packed_rows.launches)
@@ -1074,6 +1074,44 @@ def test_packed_wrappers_reject_what_they_cannot_take(quant, dev):
                            torch.ones((1, 128, 256), device=dev))
     with pytest.raises(ValueError):
         qmm_experts_packed(tab, te, torch.ones((2, 256), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(301, 7168), (1001, 1536), (203, 16384), (77, 18432),
+                                 (99, 512)],
+                         ids=["wkvq-like", "wcr-like", "wo-like", "w2-like", "wv_b-like"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+def test_k5_packed_mv_cases(quant, d, n, rows, dev):
+    """K5's packed matvec (csrc/packed_mv.cu) at every row count it takes,
+    over V3's in-features (32, 8 and 2 lanes a row; n = 18432 leaves a
+    partial last step of superblocks) with row counts no item size divides,
+    against the plain version. Tolerance 1e-4 of the output scale: x in two
+    int8 terms (~2-4e-5 of max|ref| on the CPU emulation) and f32 folds."""
+    qt = _packed(0, d, n, quant, seed=d + n + rows, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows + n)).to(dev)
+    before = qmm_packed.launches
+    _close(qmm_packed(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("ids", [torch.int64, torch.int32])
+@pytest.mark.parametrize("E,d,n,pairs", [(16, 4096, 7168, 8), (16, 7168, 2048, 8),
+                                         (128, 128, 512, 128), (5, 301, 1536, 8)],
+                         ids=["w13s", "w2s", "wv_b", "ragged"])
+def test_k2_packed_mv_cases(quant, ids, E, d, n, pairs, dev):
+    """K2's packed matvec over 8 pairs with repeated experts (wv_b: one
+    pair a head), the ids read as given in int64 or int32, against the
+    plain version. Tolerance as K5's."""
+    qt = _packed(E, d, n, quant, seed=E + d + pairs, dev=dev)
+    idx = (torch.arange(pairs) if pairs == E else
+           torch.tensor([3 % E, 0, 3 % E, E - 1, 1, 3 % E, 0, 2]))[:pairs].to(dev, ids)
+    x = torch.randn((pairs, n), generator=torch.Generator().manual_seed(pairs + n)).to(dev)
+    before = qmm_experts_packed.launches
+    _close(qmm_experts_packed(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+    assert qmm_experts_packed.launches == before + 1
 
 
 def _turbo(E, d, n, quant, seed, dev):
