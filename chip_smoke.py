@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (one nvcc per source, in parallel, into build/torch_kernels/), with
      each kernel's ptxas register and spill line; an instantiation of the
      tile GEMM (csrc/qmm_tiles.cu, K1/K5 row-tiled and K6 on the tensor
-     cores) or of K2's plain body that spills fails the run;
+     cores), of K2's plain body or of K5's fp8 matvec (csrc/fp8_mv.cu)
+     that spills fails the run;
   2. entry points: a tiny random Q3_K checkpoint written with the port's
      codec, hydrated by prefill and decoded greedily by Engine(...,
      device="cuda", kquant_runtime="nibble") and held against the same
@@ -62,13 +63,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the same draws in the turbo layout, Q3_K and Q2_K (K5, K2's and K6's
      turbo bodies, K5 row-tiled), each followed by its turbo kernels at its
      shapes beside packed K5 and nibble K1 on one w13;
-  4. the kernels: K1 (matvec and row-tiled, and the two routes timed at
-     1 to 32 rows), K2 (nibble and plain bodies), K3, K6, K9, K10 and K11 at
+  4. the kernels: K1 (the nibble matvec of csrc/nibble_mv.cu at every
+     dense V3 shape, Q3_K and Q2_K, at 1 to 4 rows; row-tiled; the two
+     routes timed at 1 to 32 rows), K2 (nibble bodies with int64 and int32
+     ids, plain body), K3, K6, K9, K10 and K11 at
      the shapes of the DeepSeek-V3-width model, K2's plain body and K4
      and K8 at those of DeepSeek-V2-Lite (and V3's lm_head and 128
      heads), and the fp8 bodies
-     of K5 (matvec and row-tiled), K2 and K6 at DeepSeek-V2-Lite's F8E5M2
-     shapes, and the int8 bodies of K3 and K10 at V3's and of K8 and K9 at
+     of K5 (the matvec of csrc/fp8_mv.cu at every V2-Lite F8E5M2 shape at 1
+     to 4 rows and on 32x16 blocks at 5 and 13 rows; row-tiled), K2 and K6
+     at DeepSeek-V2-Lite's F8E5M2 shapes, and the int8 bodies of K3 and K10 at V3's and of K8 and K9 at
      V2-Lite's shapes (beside the bf16 body's time over the same rows; for
      K9 an entry of its own, V2-Lite's split window, with SDPA's time),
      and the bodies that take the cache in two bf16 terms (K9 over f32 keys
@@ -831,7 +835,7 @@ def kernel_phase(params, cfg, entries):
     from deepseek_tpu_torch.ops.kernels.attention import (
         mla_decode_attn, mla_decode_attn_plain)
     from deepseek_tpu_torch.ops.kernels.qmm import (
-        qmm, qmm_experts, qmm_experts_plain, qmm_plain)
+        ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_plain)
     from deepseek_tpu_torch.quant.qtensor import PlainTensor
 
     gen = torch.Generator(device="cuda")
@@ -840,10 +844,12 @@ def kernel_phase(params, cfg, entries):
     dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
     H = cfg.n_heads
 
-    # K1 over every dense projection shape of the path; Q3_K from the model
-    # itself, Q2_K (with its min plane) synthesized at the same shapes.
-    # Tolerance 1e-4 of max|ref|: f32 sums in other orders, and the kernel's
-    # 0.5 + u/256 nibble floats cancel their offset against f32 group sums.
+    # K1 over every dense projection shape of the path at 1 to ROW_TILE_MIN
+    # rows (the matvec's row counts); Q3_K from the model itself, Q2_K (with
+    # its min plane) synthesized at the same shapes. Tolerance 1e-4 of
+    # max|ref|: x split into two int8 terms a 16-column group (~15 bits)
+    # against the exact nibbles in __dp4a, f32 folds in other orders.
+    mv_src = "deepseek_tpu_torch/csrc/nibble_mv.cu"
     k1 = {"wkvq": dense.wkvq, "wcr": dense.wcr, "wo": dense.wo,
           "w13 (dense)": dense.w13, "w2 (dense)": dense.w2,
           "lm_head": params.lm_head}
@@ -852,31 +858,36 @@ def kernel_phase(params, cfg, entries):
             d, n = qt.shape
             if quant == "q2_k":
                 qt = rand_nibble(gen, d, n, quant)
-            x = torch.randn((1, n), generator=gen, device="cuda")
-            emit(f"K1 qmm {quant} nibble {label} {d}x{n}",
-                 lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
-                 nbytes(x, qt.p, qt.a, qt.c) + 4 * d, 2.0 * d * n,
-                 "deepseek_tpu_torch/csrc/qmm.cu",
-                 "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)", "K1")
+            for rows in range(1, ROW_TILE_MIN + 1):
+                x = torch.randn((rows, n), generator=gen, device="cuda")
+                emit(f"K1 qmm {quant} nibble {label} {rows}x{d}x{n}",
+                     lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                     nbytes(x, qt.p, qt.a, qt.c) + 4 * rows * d, 2.0 * rows * d * n,
+                     mv_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206, "
+                     "pallas_call :400)", "K1")
+            del qt
 
     # K2: the MoE tables for one token's 8 routed + 1 shared experts, and the
-    # per-head wv_b (idx = head id)
+    # per-head wv_b (idx = head id), the ids as the model gives them (int64)
+    # and as int32, both read as given
     E = cfg.n_routed_experts
     sel = torch.randperm(E, generator=gen, device="cuda")[:cfg.n_active_routed]
     eids = torch.cat([sel.sort().values, torch.tensor([E], device="cuda")])
     wv3 = dense.wv_b.map(lambda t: t.reshape(H, t.shape[0] // H, t.shape[1]))
     k2 = [("w13s (MoE)", moe.w13s, eids), ("w2s (MoE)", moe.w2s, eids),
           ("wv_b (per head)", wv3, torch.arange(H, device="cuda"))]
-    for label, qt, idx in k2:
+    for label, qt, ids in k2:
         _, d, n = qt.shape
-        x = torch.randn((idx.numel(), n), generator=gen, device="cuda")
-        u = idx.unique()
-        emit(f"K2 qmm_experts q3_k nibble {label} {idx.numel()}x{d}x{n}",
-             lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
-             1e-4, nbytes(x, qt.p[u], qt.a[u]) + 4 * d * idx.numel(),
-             2.0 * idx.numel() * d * n, "deepseek_tpu_torch/csrc/qmm.cu",
-             "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _knib_body :206)",
-             "K2")
+        x = torch.randn((ids.numel(), n), generator=gen, device="cuda")
+        u = ids.unique()
+        for idx in (ids, ids.to(torch.int32)):
+            emit(f"K2 qmm_experts q3_k nibble {label} {str(idx.dtype)[6:]} ids "
+                 f"{idx.numel()}x{d}x{n}",
+                 lambda: qmm_experts(qt, idx, x), lambda: qmm_experts_plain(qt, idx, x),
+                 1e-4, nbytes(x, idx, qt.p[u], qt.a[u]) + 4 * d * idx.numel(),
+                 2.0 * idx.numel() * d * n, mv_src,
+                 "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _knib_body :206, "
+                 "pallas_call :710)", "K2")
 
     # K2's plain body: bf16 MoE tables at V3 widths for one token's 9
     # experts, the expert count cut from 257 to 16 (the pair path reads
@@ -987,22 +998,25 @@ def rand_fp8(gen, lead, d, n, block=(128, 128)):
 
 def fp8_kernel_entries(gen, emit):
     """The fp8 bodies at DeepSeek-V2-Lite's F8E5M2 shapes (128x128 blocks):
-    K5's matvec (the lm_head, wq, the ragged wkv_a and dense w2) at 1 and
-    ROW_TILE_MIN rows (the most it takes), its row-tiled route (wq over a
+    K5's matvec (the lm_head, wq, the ragged wkv_a, wkv_b, wo and the dense
+    w13 and ragged w2) at 1 to ROW_TILE_MIN rows (the most it takes at these
+    blocks), and on a 32x16-block weight at 5 and 13 rows (passes of
+    ROW_TILE_MIN), its row-tiled route (wq over a
     256-token chunk, wkv_b over the 4096-slot window), K2's fp8 body on the folded tables for one token's 6
     routed + 2 shared experts, and K6's on a 256-token chunk's tiles. No
     PyTorch call computes a block-scaled e5m2 x f32 product, so
     library_ms is null; `bf16_copy_ms` times torch.matmul over a bf16 copy
     of the dequantized weight (another function, reading twice the
     bytes). Tolerance 1e-4 of
-    max|ref|: the same products, the scale applied per 16-column partial
-    sum (matvec) or per weight (tiles), summed in other orders."""
+    max|ref|: the same products, the scale applied per 4-column word sum
+    (matvec) or per weight (tiles), summed in other orders."""
     from deepseek_tpu_torch.ops.kernels.qmm import (
         ROW_TILE_MIN, qmm, qmm_experts, qmm_experts_plain, qmm_grouped,
         qmm_grouped_plain, qmm_plain, qmm_fp8_rows)
     from deepseek_tpu_torch.ops.matmul import tile_dispatch
 
     qmm_src, tiles_src = "deepseek_tpu_torch/csrc/qmm.cu", "deepseek_tpu_torch/csrc/qmm_tiles.cu"
+    mv_src = "deepseek_tpu_torch/csrc/fp8_mv.cu"
     k5 = "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _fp8_body :260, pallas_call :418)"
 
     def fp8_bytes(qt):
@@ -1019,17 +1033,38 @@ def fp8_kernel_entries(gen, emit):
         del w16
 
     shapes = [("lm_head", 102400, 2048), ("wq", 3072, 2048),
-              ("wkv_a (ragged rows)", 576, 2048), ("w2 dense (ragged columns)", 2048, 10944)]
+              ("wkv_a (ragged rows)", 576, 2048), ("w2 dense (ragged columns)", 2048, 10944),
+              ("wkv_b", 4096, 512), ("wo", 2048, 2048), ("w13 dense", 21888, 2048)]
     for label, d, n in shapes:
         qt = rand_fp8(gen, 0, d, n)
-        for rows in (1, ROW_TILE_MIN):             # the matvec's row counts
+        for rows in range(1, ROW_TILE_MIN + 1):    # the matvec's row counts
             x = torch.randn((rows, n), generator=gen, device="cuda")
-            with_copy(lambda: emit(
+            entry = lambda: emit(
                 f"K5 qmm fp8 128x128 {label} (V2-Lite) {rows}x{d}x{n}",
                 lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
                 nbytes(x) + fp8_bytes(qt) + 4 * rows * d, 2.0 * rows * d * n,
-                qmm_src, k5, "K5"), qt, x)
+                mv_src, k5, "K5")
+            if rows in (1, ROW_TILE_MIN):
+                with_copy(entry, qt, x)
+            else:
+                entry()
+        # the cells' bf16 x, read as it is (no cast launch)
+        xb = torch.randn((1, n), generator=gen, device="cuda").to(torch.bfloat16)
+        emit(f"K5 qmm fp8 128x128 {label} (V2-Lite) bf16 x 1x{d}x{n}",
+             lambda: qmm(qt, xb), lambda: qmm_plain(qt, xb), 1e-4,
+             nbytes(xb) + fp8_bytes(qt) + 4 * d, 2.0 * d * n, mv_src, k5, "K5")
         del qt
+    # a weight whose 32x16 blocks keep K5 on the matvec at any rows: passes
+    # of ROW_TILE_MIN x rows, each reading the weight once
+    qt = rand_fp8(gen, 0, 300, 448, block=(32, 16))
+    for rows in (5, 13):
+        x = torch.randn((rows, 448), generator=gen, device="cuda")
+        passes = -(-rows // ROW_TILE_MIN)
+        emit(f"K5 qmm fp8 32x16 blocks (small-block matvec, {passes} passes) {rows}x300x448",
+             lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+             nbytes(x) + fp8_bytes(qt) + 4 * rows * 300, 2.0 * rows * 300 * 448,
+             mv_src, k5, "K5")
+    del qt
 
     # K5's two routes at few rows, to place ROW_TILE_MIN for fp8 weights:
     # the matvec (qmm with the threshold raised past the row count; 8 x
@@ -1154,7 +1189,6 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
     emit_nib = make_emit(entries)
     dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
     Q, H = quant.upper(), cfg.n_heads
-    qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
     mv_src = "deepseek_tpu_torch/csrc/packed_mv.cu"
     tiles_src = "deepseek_tpu_torch/csrc/qmm_tiles.cu"
     body = "_q2k_body :361" if quant == "q2_k" else "_q3k_body :368"
@@ -1178,8 +1212,8 @@ def packed_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
             emit_nib(f"K1 qmm {Q} nibble (the same w13, converted) {rows}x{d}x{n}",
                      lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,
                      nbytes(x, nib.p, nib.a, nib.c) + 4 * rows * d, 2.0 * rows * d * n,
-                     qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)",
-                     "K1")
+                     "deepseek_tpu_torch/csrc/nibble_mv.cu",
+                     "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)", "K1")
             del nib
             if rows == 1:
                 w16 = qt.dequant(torch.float32).to(torch.bfloat16)
@@ -1293,8 +1327,8 @@ def turbo_kernel_entries(params, cfg, quant, entries, dec_path, pre_path):
         emit_nib(f"K1 qmm {Q} nibble (the same w13) {rows}x{d}x{n}",
                  lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,
                  nbytes(x, nib.p, nib.a, nib.c) + 4 * rows * d, 2.0 * rows * d * n,
-                 qmm_src, "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)",
-                 "K1")
+                 "deepseek_tpu_torch/csrc/nibble_mv.cu",
+                 "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)", "K1")
     del packed, turbo, nib
     d, n = dense.wo.shape
     x = torch.randn((1, n), generator=gen, device="cuda")
@@ -1627,7 +1661,7 @@ def fused_kernel_entries(perm, cfg, entries, dec_path, pre_path):
     gen.manual_seed(SEED + 12)
     emit_dec, emit_pre = make_emit(entries, dec_path), make_emit(entries, pre_path)
     emit_k2 = make_emit(entries, "fused FFN entry point")
-    qmm_src = "deepseek_tpu_torch/csrc/qmm.cu"
+    mv_src = "deepseek_tpu_torch/csrc/nibble_mv.cu"
     m, dim, N, E = cfg.moe_intermediate_size, cfg.dim, cfg.n_active_routed + 1, 16
     act = ActivationType.SILU
     for quant in ("q3_k", "q2_k"):
@@ -1668,7 +1702,7 @@ def fused_kernel_entries(perm, cfg, entries, dec_path, pre_path):
         emit_k2(f"K2 qmm_experts {Q} nibble, x prepermuted (w2 MoE) {N}x{dim}x{m}",
                 lambda: qmm_experts(w2, idx, h, x_prepermuted=True),
                 lambda: qmm_experts_plain(w2, idx, h, x_prepermuted=True), 1e-4,
-                nbytes(h) + planes(w2) + 4 * dim * N, 2.0 * N * dim * m, qmm_src,
+                nbytes(h) + planes(w2) + 4 * dim * N, 2.0 * N * dim * m, mv_src,
                 "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _knib_body :206, "
                 "x_prepermuted :602-609)", "K2-xperm")
         del w13, w2
@@ -3076,7 +3110,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    spills = spilling_kernels(build.BUILD_LOGS, ("tile_gemm_kernel", "plain_matvec_kernel"))
+    spills = spilling_kernels(build.BUILD_LOGS, ("tile_gemm_kernel", "plain_matvec_kernel",
+                                                 "fp8_mv_kernel"))
     if spills:
         raise RuntimeError(f"these instantiations spill: {spills}")
     time_ms.flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")

@@ -1,8 +1,10 @@
-// The nibble matvec arithmetic shared by qmm.cu (K1, K2) and expert_ffn.cu
-// (K7): an activation row staged in the stride-16 permuted order with its
-// natural group sums, the byte-permute nibble floats, and the products of
-// one 4-group quad of weight rows. qmm.cu's header gives the plane layout
-// and why a nibble becomes 0.5 + u/256.
+// The nibble arithmetic shared by qmm.cu (the turbo bodies) and
+// expert_ffn.cu (K7): an activation row staged in the stride-16 permuted
+// order with its natural group sums, the byte-permute nibble floats (0.5 +
+// u/256: the byte under the 0x3F exponent byte of 0.5f, an exact float
+// whose offset cancels against the group sums), and the products of one
+// 4-group quad of weight rows. nibble_mv.cu's header gives the plane
+// layout.
 
 #pragma once
 

@@ -22,11 +22,12 @@
 // weights a second, against ~3.0e13 lane instructions a second the SMs
 // issue: about 3 instructions a weight for Q2_K and 4 for Q3_K. The design
 // keeps the work a weight well under that:
-//  - integer products: a pre-pass (xsplit_kernel, once per x row a call)
-//    splits each 16-column group of x into two int8 terms, x ~ s2 * (254 a
-//    + b) with s1 = max|x_g| / 127, a = rint(x / s1), s2 = s1 / 254 and b =
-//    rint((x - s1 a) / s2) (~15 bits of each x, as split-bf16 operands
-//    carry; the divisions are multiplies by rounded reciprocals of max|x_g|);
+//  - integer products: a pre-pass (xsplit.cuh, once per x row a call, x
+//    read in its own dtype: f32, f16 or bf16, no cast launch) splits each
+//    16-column group of x into two int8 terms, x ~ s2 * (254 a + b) with
+//    s1 = max|x_g| / 127, a = rint(x / s1), s2 = s1 / 254 and b = rint((x -
+//    s1 a) / s2) (~15 bits of each x, as split-bf16 operands carry; the
+//    divisions are multiplies by rounded reciprocals of max|x_g|);
 //    the weights' quants are already small unsigned integers, so __dp4a
 //    gives 4 exact products an instruction, and a group costs, per weight
 //    row, 8 dp4a, two integer multiply-adds, one convert and one FMA (Q3_K's
@@ -60,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "xsplit.cuh"
+
 namespace {
 
 constexpr int kPkThreads = 64;       // 2 warps a block
@@ -67,80 +70,6 @@ constexpr int kPkRows = 2;           // weight rows a lane subgroup holds
 constexpr int kPkMaxX = 4;           // x rows a K5 launch takes at most
 constexpr int kPkBlocksFew = 8;      // blocks an SM (launch bounds) at 1-2 x rows
 constexpr int kPkBlocksMany = 6;     // at 3-4 x rows
-constexpr int kSplitThreads = 128;
-
-// one 16-byte plane slab, streamed past L1
-__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// x (rows_x, n) f32 -> the terms of group g = 16 sb + j of row b (a lane
-// takes superblock sb, so the lanes of a warp read one (row, term, j) slab
-// of consecutive superblocks): terms[((2b + t) 16 + j) nsb + sb] the 16 int8
-// of term t (a, b) in natural column order, aux[(16b + j) nsb + sb] = (s2,
-// Q3_K: the int -4 (254 sum a + sum b) as float bits; Q2_K: the f32 sum of
-// x). One thread a group.
-__global__ void __launch_bounds__(kSplitThreads)
-xsplit_kernel(const float* __restrict__ x, uint4* __restrict__ terms,
-              float2* __restrict__ aux, int groups, int nsb, int q3) {
-  asm volatile("griddepcontrol.launch_dependents;");
-  const int i = blockIdx.x * kSplitThreads + threadIdx.x;   // (16 b + j) nsb + sb
-  if (i >= groups) return;
-  const int sb = i % nsb, bj = i / nsb, b = bj >> 4, j = bj & 15;
-  const float4* xg = reinterpret_cast<const float4*>(x + (size_t)b * nsb * 256 + 256 * sb +
-                                                     16 * j);
-  float v[16];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float4 f = __ldg(xg + k);
-    v[4 * k] = f.x; v[4 * k + 1] = f.y; v[4 * k + 2] = f.z; v[4 * k + 3] = f.w;
-  }
-  float m = 0.f;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) m = fmaxf(m, fabsf(v[c]));
-  // s1 = m / 127, s2 = s1 / 254 and the reciprocals, from one rounded 1 / m
-  const float inv = m > 0.f ? __frcp_rn(m) : 0.f;
-  const float s1 = __fmul_rn(m, 1.f / 127.f), s2 = __fmul_rn(s1, 1.f / 254.f);
-  const float r1 = __fmul_rn(127.f, inv), r2 = __fmul_rn(32258.f, inv);
-  uint32_t wa[4] = {0u, 0u, 0u, 0u}, wb[4] = {0u, 0u, 0u, 0u};
-  int sa = 0, sbv = 0;
-  float sx = 0.f;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const float a = rintf(__fmul_rn(v[c], r1));
-    const float r = __fsub_rn(v[c], __fmul_rn(s1, a));
-    const float bt = fminf(fmaxf(rintf(__fmul_rn(r, r2)), -127.f), 127.f);
-    const int ia = (int)a, ib = (int)bt;
-    wa[c >> 2] |= (uint32_t)(ia & 0xFF) << (8 * (c & 3));
-    wb[c >> 2] |= (uint32_t)(ib & 0xFF) << (8 * (c & 3));
-    sa += ia;
-    sbv += ib;
-    sx += v[c];
-  }
-  const size_t slab = (size_t)16 * nsb;
-  terms[(size_t)b * 2 * slab + (size_t)j * nsb + sb] = make_uint4(wa[0], wa[1], wa[2], wa[3]);
-  terms[((size_t)b * 2 + 1) * slab + (size_t)j * nsb + sb] =
-      make_uint4(wb[0], wb[1], wb[2], wb[3]);
-  aux[i] = make_float2(s2, q3 ? __int_as_float(-4 * (254 * sa + sbv)) : sx);
-}
-
-// t[k] = byte k of each of w0..w3 (a 4 x 4 byte transpose)
-__device__ __forceinline__ void transpose4(uint32_t w0, uint32_t w1, uint32_t w2,
-                                           uint32_t w3, uint32_t t[4]) {
-  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
-  const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
-  t[0] = __byte_perm(lo01, lo23, 0x5410);
-  t[1] = __byte_perm(lo01, lo23, 0x7632);
-  t[2] = __byte_perm(hi01, hi23, 0x5410);
-  t[3] = __byte_perm(hi01, hi23, 0x7632);
-}
 
 // Q3_K's high bits of 4 groups in the transposed layout: h[k] byte jq holds,
 // in bit 2s, the high bit of natural column 16g + 4s + jq (g the quad's
@@ -202,26 +131,6 @@ __device__ __forceinline__ void load_step(Step& st, const Planes& p, const size_
     st.sc[rr] = ld_stream(p.s8 + rw[rr] * n16 + g0);
     st.dv[rr] = __ldg(p.dsup + rw[rr] * n256 + sb);
     if constexpr (!Q3) st.mv[rr] = __ldg(p.dmin + rw[rr] * n256 + sb);
-  }
-}
-
-// one group's x terms and scalars for each x row
-template <int NB>
-struct XTerms {
-  uint4 a[NB], b[NB];
-  float2 s[NB];
-};
-
-// plain (coherent) loads: never moved above griddepcontrol.wait
-template <int NB, bool EXPERTS>
-__device__ __forceinline__ void load_x(XTerms<NB>& t, const uint4* terms, const float2* aux,
-                                       int xrow, int j, int sb, int nsb) {
-#pragma unroll
-  for (int bb = 0; bb < NB; ++bb) {
-    const size_t xr = EXPERTS ? xrow : bb;
-    t.a[bb] = terms[((2 * xr) * 16 + j) * nsb + sb];
-    t.b[bb] = terms[((2 * xr + 1) * 16 + j) * nsb + sb];
-    t.s[bb] = aux[(xr * 16 + j) * nsb + sb];
   }
 }
 
@@ -363,18 +272,8 @@ struct Args {
 // the matvec behind the pre-pass, allowed to start before the pre-pass ends
 template <bool Q3, int NB, bool EXPERTS>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.blocks);
-  cfg.blockDim = dim3(kPkThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, packed_mv_kernel<Q3, NB, EXPERTS>, a.terms, a.aux, a.p,
-                            a.idx, a.idx64, a.y, a.pairs, a.d, a.n, a.lpr_shift);
+  return launch_behind(packed_mv_kernel<Q3, NB, EXPERTS>, a.blocks, kPkThreads, stream, a.terms,
+                       a.aux, a.p, a.idx, a.idx64, a.y, a.pairs, a.d, a.n, a.lpr_shift);
 }
 
 template <bool Q3>
@@ -391,8 +290,8 @@ cudaError_t dispatch(const Args& a, int rows_x, cudaStream_t stream) {
 
 }  // namespace
 
-// y (rows_x, d) f32 = packed matvec of x (rows_x, n) f32, natural column
-// order. kind 0 = Q2_K: qs (E, d, n/4) u8, s8 = sm (E, d, n/16) u8, dsup
+// y (rows_x, d) f32 = packed matvec of x (rows_x, n) in dtype x_dtype (0
+// f32, 1 f16, 2 bf16), natural column order. kind 0 = Q2_K: qs (E, d, n/4) u8, s8 = sm (E, d, n/16) u8, dsup
 // and dmin (E, d, n/256) f32, hm null; kind 1 = Q3_K: qs, hm (E, d, n/8)
 // u8, s8 = sc (E, d, n/16) int8, dsup, dmin null. idx (rows_x,) of
 // idx_bytes 4 (int32) or 8 (int64) selects the expert of each row (K2), or
@@ -402,12 +301,12 @@ cudaError_t dispatch(const Args& a, int rows_x, cudaStream_t stream) {
 // warps (ops/kernels/qmm.py::packed_lanes, packed_warps). Needs n % 256 ==
 // 0 and 16-byte aligned planes. Returns a cudaError_t; the two launches are
 // asynchronous on `stream`.
-extern "C" int packed_mv(const void* x, int kind, const void* qs, const void* hm,
+extern "C" int packed_mv(const void* x, int x_dtype, int kind, const void* qs, const void* hm,
                          const void* s8, const void* dsup, const void* dmin,
                          const void* idx, int idx_bytes, void* scratch, void* y,
                          int rows_x, int d, int n, int lanes, int warps, void* stream) {
-  if (rows_x <= 0 || d <= 0 || n <= 0 || n % 256 != 0 || warps <= 0 ||
-      lanes <= 0 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+  if (rows_x <= 0 || d <= 0 || n <= 0 || n % 256 != 0 || warps <= 0 || x_dtype < 0 ||
+      x_dtype > 2 || lanes <= 0 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
       kind < 0 || kind > 1 || x == nullptr || qs == nullptr || s8 == nullptr ||
       dsup == nullptr || scratch == nullptr || y == nullptr ||
       (kind == 0 && dmin == nullptr) || (kind == 1 && hm == nullptr) ||
@@ -419,9 +318,8 @@ extern "C" int packed_mv(const void* x, int kind, const void* qs, const void* hm
   const int groups = rows_x * (n / 16);
   auto terms = static_cast<uint4*>(scratch);
   auto aux = reinterpret_cast<float2*>(terms + 2 * (size_t)groups);
-  xsplit_kernel<<<(groups + kSplitThreads - 1) / kSplitThreads, kSplitThreads, 0, st>>>(
-      static_cast<const float*>(x), terms, aux, groups, n / 256, kind);
-  cudaError_t err = cudaGetLastError();
+  // Q3_K's -4 as the integer start; Q2_K's min term against the f32 sum
+  cudaError_t err = launch_xsplit(x, x_dtype, 0, terms, aux, groups, n, 4, kind == 0, st);
   if (err != cudaSuccess) return (int)err;
   const Args a{terms, aux,
                Planes{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(hm),

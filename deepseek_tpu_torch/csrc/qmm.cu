@@ -1,49 +1,17 @@
-// Nibble-plane dequant + matrix-vector product for Hopper (sm_90a).
+// Dequant + matrix-vector products for Hopper (sm_90a): K2's plain body
+// (deepseek_tpu/ops/pallas/qmm.py:566 qmm_experts with the plain body
+// :651: an f32, f16 or bf16 expert table, the MoE tables of a plain-weight
+// checkpoint), K4, qmm's plain body (qmm.py:305, the large plain weights at
+// <= 8 rows), K2's fp8 body (qmm.py:664, _fp8_body :260: fp8 expert tables
+// and wv_b), and the turbo bodies of K5 and K2 (each before its kernels
+// below). The nibble matvec (K1, K2's nibble bodies) is csrc/nibble_mv.cu,
+// K5's fp8 matvec csrc/fp8_mv.cu, the packed bodies of K5 and K2
+// csrc/packed_mv.cu.
 //
-// Replaces the TPU kernels deepseek_tpu/ops/pallas/qmm.py::qmm with
-// _knib_body (K1: every dense projection and the lm_head) and
-// ::qmm_experts with _knib_body (K2: the gathered-expert form, one expert
-// id per activation row; the MoE tables and the per-head wv_b), K2's
-// plain body (qmm.py:651: an f32, f16 or bf16 expert table, the MoE
-// tables of a plain-weight checkpoint), K4, qmm's plain body (qmm.py:
-// 305, the large plain weights at <= 8 rows), and the fp8 bodies of K5
-// (qmm.py:418, _fp8_body :260: blockwise F8E5M2 projections at few rows)
-// and K2 (qmm.py:664, the same body: fp8 expert tables and wv_b), and the
-// turbo bodies of K5 and K2 (each before its kernels below), after the
-// nibble kernel. The packed bodies of K5 and K2 are csrc/packed_mv.cu.
-//
-//   y[b, r] = sum_j xp[b, j] * a[r, j % n16] * u[r, j]
-//             - sum_g s16[b, g] * (off * a[r, g] + c[r, g])
-//
-// u is the 4-bit plane (low nibble of byte j = permuted column j, high
-// nibble = permuted column j + n/2), xp the activations in the stride-16
-// permuted order (position o*n16 + g holds natural column g*16 + o) and
-// s16 the per-16 sums of the NATURAL activations (quant/qtensor.py).
-//
-// K2's prepermuted body (qmm.py:602-609, x_prepermuted=True): behind a
-// row-permuted w13 table (KNibbleTensor.rowperm) h already arrives in the
-// permuted order, so the block stages it as given and forms each natural
-// group's sum over its permuted positions o*n16 + g (stage_prepermuted);
-// the products are the same.
-//
-// Bound: bytes. A decode matvec does 4 flops per weight byte, far below
+// Bound: bytes everywhere: a decode matvec does 2 flops a weight, far below
 // the card's ~295 flops/byte balance point, so the weight stream is the
-// whole cost. The design keeps the instruction count per weight low enough
-// for that stream:
-//  - each block stages its activation row once in shared memory, already
-//    permuted, and the per-16 sums beside it (no separate launch for the
-//    permutation, which the TPU did outside the kernel);
-//  - a lane owns 4 consecutive groups g; for them the 16 bytes it needs
-//    sit at 8 offsets o*n16 (o = 0..7), each a 4-byte coalesced load, and
-//    both nibbles of a byte share the group and its scale (n/2 is a
-//    multiple of n16);
-//  - a nibble becomes a float in one byte-permute: placed under the
-//    exponent of 0.5 it reads as 0.5 + u/256 exactly, so each weight costs
-//    a PRMT and an FFMA; the 0.5 offset is removed per group with the
-//    group sum s16 (sum x*(0.5 + u/256) = s16/2 + sum x*u/256);
-//  - kRows output rows share every shared-memory read of the activations,
-//    and the next quad's planes are loaded before this quad's arithmetic.
-// The accumulation is float32 throughout.
+// whole cost; each kernel's note says how it keeps up with it. The
+// accumulation is float32 throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,156 +27,13 @@ constexpr int kThreads = 128;  // 4 warps per block
 constexpr int kRows = 4;       // output rows per lane subgroup
 constexpr int kMaxSmem = 232448;
 
-// Stage an activation row that is already in the permuted order: xs a
-// copy of it, s16[g] the sum of natural group g over its 16 permuted
-// positions o*n16 + g. Ends with the block synchronized.
-__device__ __forceinline__ void stage_prepermuted(const float* __restrict__ x,
-                                                  int xrow, int n, float* xs,
-                                                  float* s16) {
-  const int n16 = n >> 4;
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)xrow * n);
-  float4* xs4 = reinterpret_cast<float4*>(xs);
-  for (int i = threadIdx.x; i < (n >> 2); i += kThreads) xs4[i] = __ldg(xr + i);
-  __syncthreads();
-  for (int g = threadIdx.x; g < n16; g += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int o = 0; o < 16; ++o) s += xs[o * n16 + g];
-    s16[g] = s;
-  }
-  __syncthreads();
-}
-
-// LPR: lanes that share one output row (8, 16 or 32); a warp holds
-// 32 / LPR subgroups, each owning kRows rows. XP: x is already permuted.
-template <int LPR, bool HAS_C, bool XP>
-__global__ void __launch_bounds__(kThreads)
-knib_matvec_kernel(const float* __restrict__ x, const uint8_t* __restrict__ p,
-                   const uint16_t* __restrict__ a,
-                   const uint16_t* __restrict__ c,
-                   const int32_t* __restrict__ idx, float* __restrict__ y,
-                   int d, int n, float off) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // n floats, permuted order
-  const int n16 = n >> 4;
-  float* s16 = xs + n;                          // n16 group sums
-  const int xrow = blockIdx.y;
-  if constexpr (XP) {
-    stage_prepermuted(x, xrow, n, xs, s16);
-  } else {
-    stage_permuted<kThreads>(x, xrow, n, xs, s16);
-    __syncthreads();
-  }
-
-  const size_t e = idx != nullptr ? (size_t)idx[xrow] : 0;
-  const size_t half = (size_t)(n >> 1);
-  const uint8_t* pe = p + e * (size_t)d * half;
-  const uint16_t* ae = a + e * (size_t)d * n16;
-  const uint16_t* ce = HAS_C ? c + e * (size_t)d * n16 : nullptr;
-
-  constexpr int kSub = 32 / LPR;
-  const int lane = threadIdx.x & 31;
-  const int sl = lane % LPR;
-  const int sub = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kSub
-                  + lane / LPR;
-  const int row0 = sub * kRows;
-  const int nq = n16 >> 2;                     // 4-group quads per row
-  const float c0 = 128.f + off;
-
-  // the planes of one 4-group quad for the subgroup's kRows rows
-  // (clamped rows: loads stay in bounds, stores are masked)
-  auto load = [&](int q, uint32_t (&w)[kRows][8], uint2 (&av)[kRows],
-                  uint2 (&cv)[kRows]) {
-    const int g0 = q << 2;
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = min(row0 + rr, d - 1);
-      const uint8_t* pr = pe + (size_t)r * half + g0;
-#pragma unroll
-      for (int o = 0; o < 8; ++o)
-        w[rr][o] = __ldg(reinterpret_cast<const uint32_t*>(pr + (size_t)o * n16));
-      av[rr] = __ldg(reinterpret_cast<const uint2*>(ae + (size_t)r * n16 + g0));
-      if (HAS_C)
-        cv[rr] = __ldg(reinterpret_cast<const uint2*>(ce + (size_t)r * n16 + g0));
-    }
-  };
-
-  float acc[kRows];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.f;
-  uint32_t w[kRows][8];
-  uint2 av[kRows], cv[kRows];
-  if (sl < nq) load(sl, w, av, cv);
-  for (int q = sl; q < nq; q += LPR) {
-    // prefetch the next quad so its loads overlap this quad's arithmetic
-    uint32_t wn[kRows][8];
-    uint2 avn[kRows], cvn[kRows];
-    if (q + LPR < nq) load(q + LPR, wn, avn, cvn);
-    knib_quad<kRows, HAS_C>(w, av, cv, xs, s16, n16, q << 2, c0, acc);
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-      for (int o = 0; o < 8; ++o) w[rr][o] = wn[rr][o];
-      av[rr] = avn[rr];
-      cv[rr] = cvn[rr];
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-    for (int m = LPR / 2; m > 0; m >>= 1)
-      acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], m);
-  }
-  if (sl == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = row0 + rr;
-      if (r < d) y[(size_t)xrow * d + r] = acc[rr];
-    }
-  }
-}
-
-template <int LPR, bool HAS_C, bool XP>
-cudaError_t launch(const float* x, const uint8_t* p, const uint16_t* a,
-                   const uint16_t* c, const int32_t* idx, float* y,
-                   int rows_x, int d, int n, float off, cudaStream_t stream) {
-  static bool smem_opt_in = false;
-  if (!smem_opt_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        knib_matvec_kernel<LPR, HAS_C, XP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    smem_opt_in = true;
-  }
-  const size_t smem = (size_t)(n + n / 16) * sizeof(float);
-  const int rows_per_block = (kThreads / 32) * (32 / LPR) * kRows;
-  dim3 grid((d + rows_per_block - 1) / rows_per_block, rows_x);
-  knib_matvec_kernel<LPR, HAS_C, XP><<<grid, kThreads, smem, stream>>>(
-      x, p, a, c, idx, y, d, n, off);
-  return cudaGetLastError();
-}
-
-template <bool HAS_C, bool XP>
-cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
-                     const uint16_t* c, const int32_t* idx, float* y,
-                     int rows_x, int d, int n, float off,
-                     cudaStream_t stream) {
-  const int nq = n / 64;
-  if (nq % 32 == 0)
-    return launch<32, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
-  if (nq % 16 == 0)
-    return launch<16, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
-  return launch<8, HAS_C, XP>(x, p, a, c, idx, y, rows_x, d, n, off, stream);
-}
-
 // The turbo bodies of K5 (qmm.py:312 qmm with _q2kt_body :169, launched
 // :378, and _q3kt_body :195, launched :385: Q2_K/Q3_K turbo projections at
 // few rows) and K2 (qmm.py:566 qmm_experts, the same bodies chosen
 // :630-637: turbo expert tables and the per-head wv_b). Both planes hold
 // one int8 a weight; the activations come in natural order and the kernel
 // makes what the TPU kernel took as inputs: Q2_K's group sums s16 over the
-// natural row, Q3_K's permuted row (stage_permuted, as the nibble kernel).
+// natural row, Q3_K's permuted row (knib.cuh's stage_permuted, as K7).
 //
 //   Q2_K turbo, natural order, p = sc*q in 0..45, f32 super scales d,
 //   bf16 min terms bm:
@@ -216,7 +41,7 @@ cudaError_t dispatch(const float* x, const uint8_t* p, const uint16_t* a,
 //   A lane takes two 16-column groups g, g + LPR at a time: one 16-byte
 //   load a group and row (coalesced across the lanes), both groups' loads
 //   issued before their arithmetic, t = sum_k x_k * (0.5 + p_k/256) by a
-//   byte-permute and an FMA a weight (the nibble kernel's float: p < 128
+//   byte-permute and an FMA a weight (knib.cuh's nib_f float: p < 128
 //   sits in mantissa bits 16..22), then per group
 //     y += d[r, g/16] * (256 t - 128 s16[g]) - bm[r, g] * s16[g].
 //   Q3_K turbo, permuted order (position o*n16 + g = natural column 16g + o,
@@ -677,13 +502,6 @@ cudaError_t launch_plain(const float* x, const void* w, const int32_t* idx,
 // row tiles: where x fits in one chunk it is staged once per block, not
 // once per tile (at 8 rows, restaging it for every 8-row tile would read
 // twice the weight's bytes from L2).
-//
-// WT = uint8_t is K5's fp8 body at few rows (qmm.py:418): F8E5M2 weights
-// with f32 inverse scales (ceil(d/b0), ceil(n/b1)). Each 16-weight
-// vector lies in one scale block (b1 % 16 == 0, chunks of 64 columns), so
-// its partial sum is scaled once, on the output side as the TPU body does;
-// ragged grids need nothing more than the index. scale, b0 and b1 are
-// unused for the plain types.
 constexpr int kMvThreads = 256;
 constexpr int kMvRows = 8;          // output rows per tile
 constexpr int kMvRowsPerWarp = 4;
@@ -694,12 +512,9 @@ constexpr int kMvMaxX = 8;          // x rows a launch at most (dispatch_mv)
 template <typename WT, int NB>
 __global__ void __launch_bounds__(kMvThreads)
 plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-                const float* __restrict__ scale, float* __restrict__ y,
-                int d, int n, int chunk, int b0, int b1) {
+                float* __restrict__ y, int d, int n, int chunk) {
   constexpr int kVec = 16 / sizeof(WT);
-  constexpr bool kFp8 = sizeof(WT) == 1;
   constexpr int kStride = 32 * kMvQuarters;      // vectors between a lane's steps
-  const int g1 = (n + b1 - 1) / b1;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [NB][chunk]
   __shared__ float red[kMvQuarters][kMvRows][NB];
@@ -720,12 +535,10 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kMvRows + rg * kMvRowsPerWarp;
     const WT* wr[kMvRowsPerWarp];
-    const float* sr[kMvRowsPerWarp];             // fp8: each row's scale row
 #pragma unroll
     for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
       const int r = min(row0 + rr, d - 1);       // clamped: stores masked
       wr[rr] = w + (size_t)r * n;
-      if constexpr (kFp8) sr[rr] = scale + (size_t)(r / b0) * g1;
     }
 
     float acc[kMvRowsPerWarp][NB];
@@ -757,12 +570,8 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
           const int col = (vi + u * kStride) * kVec;
           // the 4 rows' weights widened once; the x rows one at a time
           float wv[kMvRowsPerWarp][kVec];
-          float sc[kMvRowsPerWarp];
 #pragma unroll
-          for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
-            widen<WT>(raw[u][rr], wv[rr]);
-            if constexpr (kFp8) sc[rr] = __ldg(sr[rr] + (c0 + col) / b1);
-          }
+          for (int rr = 0; rr < kMvRowsPerWarp; ++rr) widen<WT>(raw[u][rr], wv[rr]);
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
             float xv[kVec];
@@ -773,16 +582,9 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
             }
 #pragma unroll
             for (int rr = 0; rr < kMvRowsPerWarp; ++rr) {
-              if constexpr (kFp8) {
-                float t = 0.f;
 #pragma unroll
-                for (int k = 0; k < kVec; ++k) t = fmaf(xv[k], wv[rr][k], t);
-                acc[rr][b] = fmaf(t, sc[rr], acc[rr][b]);
-              } else {
-#pragma unroll
-                for (int k = 0; k < kVec; ++k)
-                  acc[rr][b] = fmaf(xv[k], wv[rr][k], acc[rr][b]);
-              }
+              for (int k = 0; k < kVec; ++k)
+                acc[rr][b] = fmaf(xv[k], wv[rr][k], acc[rr][b]);
             }
           }
         }
@@ -812,8 +614,8 @@ plain_mv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
 }
 
 template <typename WT, int NB>
-cudaError_t launch_mv(const float* x, const void* w, const float* s, float* y,
-                      int d, int n, int b0, int b1, cudaStream_t stream) {
+cudaError_t launch_mv(const float* x, const void* w, float* y, int d, int n,
+                      cudaStream_t stream) {
   // the x chunk: a multiple of 64 columns (whole weight vectors), <= 64 KB
   const int chunk = min(n, kMvSmemFloats / NB / 64 * 64);
   const size_t smem = (size_t)NB * chunk * sizeof(float);
@@ -835,23 +637,22 @@ cudaError_t launch_mv(const float* x, const void* w, const float* s, float* y,
   if (err != cudaSuccess) return err;
   const int grid = min((d + kMvRows - 1) / kMvRows, max(1, per_sm) * sms);
   plain_mv_kernel<WT, NB><<<grid, kMvThreads, smem, stream>>>(
-      x, static_cast<const WT*>(w), s, y, d, n, chunk, b0, b1);
+      x, static_cast<const WT*>(w), y, d, n, chunk);
   return cudaGetLastError();
 }
 
 template <typename WT>
-cudaError_t dispatch_mv(const float* x, const void* w, const float* s,
-                        float* y, int rows_x, int d, int n, int b0, int b1,
-                        cudaStream_t stream) {
+cudaError_t dispatch_mv(const float* x, const void* w, float* y, int rows_x, int d,
+                        int n, cudaStream_t stream) {
   switch (rows_x) {
-    case 1: return launch_mv<WT, 1>(x, w, s, y, d, n, b0, b1, stream);
-    case 2: return launch_mv<WT, 2>(x, w, s, y, d, n, b0, b1, stream);
-    case 3: return launch_mv<WT, 3>(x, w, s, y, d, n, b0, b1, stream);
-    case 4: return launch_mv<WT, 4>(x, w, s, y, d, n, b0, b1, stream);
-    case 5: return launch_mv<WT, 5>(x, w, s, y, d, n, b0, b1, stream);
-    case 6: return launch_mv<WT, 6>(x, w, s, y, d, n, b0, b1, stream);
-    case 7: return launch_mv<WT, 7>(x, w, s, y, d, n, b0, b1, stream);
-    case 8: return launch_mv<WT, 8>(x, w, s, y, d, n, b0, b1, stream);
+    case 1: return launch_mv<WT, 1>(x, w, y, d, n, stream);
+    case 2: return launch_mv<WT, 2>(x, w, y, d, n, stream);
+    case 3: return launch_mv<WT, 3>(x, w, y, d, n, stream);
+    case 4: return launch_mv<WT, 4>(x, w, y, d, n, stream);
+    case 5: return launch_mv<WT, 5>(x, w, y, d, n, stream);
+    case 6: return launch_mv<WT, 6>(x, w, y, d, n, stream);
+    case 7: return launch_mv<WT, 7>(x, w, y, d, n, stream);
+    case 8: return launch_mv<WT, 8>(x, w, y, d, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -870,40 +671,9 @@ extern "C" int plain_mv(const void* x, const void* w, int kind, void* y,
   auto xs = static_cast<const float*>(x);
   auto ys = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  if (kind == 2) return (int)dispatch_mv<float>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
-  if (kind == 3) return (int)dispatch_mv<__half>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
-  return (int)dispatch_mv<__nv_bfloat16>(xs, w, nullptr, ys, rows_x, d, n, 1, 1, st);
-}
-
-// y (rows_x, d) f32 = nibble matvec of x (rows_x, n) f32, in the natural
-// column order (x_perm 0) or already in the stride-16 permuted order
-// (x_perm 1: K2's prepermuted body). Planes p (E, d, n/2) u8, a and c
-// (E, d, n/16) bf16 (c may be null); idx (rows_x,) int32 selects the
-// expert of each row (K2), or is null with E = 1 (K1). Returns a
-// cudaError_t; the launch is asynchronous on `stream`.
-extern "C" int knib_matvec(const void* x, const void* p, const void* a,
-                           const void* c, const void* idx, void* y,
-                           int rows_x, int d, int n, int off, int x_perm,
-                           void* stream) {
-  if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 256 != 0 ||
-      (size_t)(n + n / 16) * sizeof(float) > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  auto xs = static_cast<const float*>(x);
-  auto ps = static_cast<const uint8_t*>(p);
-  auto as = static_cast<const uint16_t*>(a);
-  auto cs = static_cast<const uint16_t*>(c);
-  auto is = static_cast<const int32_t*>(idx);
-  auto ys = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  const float fo = (float)off;
-  if (x_perm) {
-    if (cs != nullptr)
-      return (int)dispatch<true, true>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
-    return (int)dispatch<false, true>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
-  }
-  if (cs != nullptr)
-    return (int)dispatch<true, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
-  return (int)dispatch<false, false>(xs, ps, as, cs, is, ys, rows_x, d, n, fo, st);
+  if (kind == 2) return (int)dispatch_mv<float>(xs, w, ys, rows_x, d, n, st);
+  if (kind == 3) return (int)dispatch_mv<__half>(xs, w, ys, rows_x, d, n, st);
+  return (int)dispatch_mv<__nv_bfloat16>(xs, w, ys, rows_x, d, n, st);
 }
 
 // y (rows_x, d) f32 = turbo matvec of x (rows_x, n) f32 (natural order).
@@ -955,27 +725,15 @@ extern "C" int plain_matvec(const void* x, const void* w, int kind,
 // y (rows_x, d) f32 = x (rows_x, n) f32 against the F8E5M2 table W (E, d,
 // n) with f32 inverse scales s (E, ceil(d/b0), ceil(n/b1)); idx (rows_x,)
 // int32 selects the expert of each row (K2's fp8 body, the persistent
-// plain_matvec_kernel), or is null with E = 1
-// (K5's: the x rows 8 at a time through plain_mv_kernel, each weight row
-// read once per 8 x rows). Needs n % 16 == 0, b1 % 16 == 0 and a 16-byte
-// aligned W. Returns a cudaError_t; the launches are asynchronous on
+// plain_matvec_kernel). Needs n % 16 == 0, b1 % 16 == 0 and a 16-byte
+// aligned W. Returns a cudaError_t; the launch is asynchronous on
 // `stream`.
 extern "C" int fp8_matvec(const void* x, const void* w, const void* s,
                           const void* idx, void* y, int rows_x, int d, int n,
                           int b0, int b1, void* stream) {
   if (rows_x <= 0 || rows_x > 65535 || d <= 0 || n <= 0 || n % 16 != 0 ||
-      b0 <= 0 || b1 <= 0 || b1 % 16 != 0)
+      b0 <= 0 || b1 <= 0 || b1 % 16 != 0 || idx == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (idx == nullptr) {
-    for (int r0 = 0; r0 < rows_x; r0 += kMvMaxX) {
-      const cudaError_t err = dispatch_mv<uint8_t>(
-          static_cast<const float*>(x) + (size_t)r0 * n, w,
-          static_cast<const float*>(s), static_cast<float*>(y) + (size_t)r0 * d,
-          min(kMvMaxX, rows_x - r0), d, n, b0, b1, static_cast<cudaStream_t>(stream));
-      if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaSuccess;
-  }
   return (int)launch_plain<uint8_t>(
       static_cast<const float*>(x), w, static_cast<const int32_t*>(idx),
       static_cast<float*>(y), rows_x, d, n, static_cast<cudaStream_t>(stream),

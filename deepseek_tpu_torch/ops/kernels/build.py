@@ -29,13 +29,15 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "qmm": {"knib_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-            "plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "qmm": {"plain_matvec": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
             "plain_mv": [_P, _P, _I, _P, _I, _I, _I, _P],
             "fp8_matvec": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "turbo_matvec": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
-    "packed_mv": {"packed_mv": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                                _I, _I, _I, _P]},
+    "nibble_mv": {"nibble_mv": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                _I, _I, _P]},
+    "fp8_mv": {"fp8_mv": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "packed_mv": {"packed_mv": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                _I, _I, _I, _I, _P]},
     "mha_decode": {"mha_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _I, _P]},

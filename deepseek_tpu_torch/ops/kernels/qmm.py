@@ -2,22 +2,27 @@
 matrix products, and the fused expert FFN.
 
 - ``qmm`` replaces ``deepseek_tpu/ops/pallas/qmm.py::qmm`` with
-  ``_knib_body`` (K1). Up to ``ROW_TILE_MIN`` rows it launches the matvec
-  of ``csrc/qmm.cu``; above, its row-tiled route ``qmm_rows`` launches the
-  tile GEMM of ``csrc/qmm_tiles.cu``. A plain weight goes to ``qmm_fp``,
-  ``::qmm`` with ``_plain_body`` (K4: at most 8 rows; ``csrc/qmm.cu``).
+  ``_knib_body`` (K1). Up to ``ROW_TILE_MIN`` rows it launches the nibble
+  matvec of ``csrc/nibble_mv.cu`` (all rows against each weight byte once:
+  x split into two int8 terms by a pre-pass, exact ``__dp4a`` products;
+  ``packed_lanes`` and ``nibble_warps`` size its grid); above, its
+  row-tiled route ``qmm_rows`` launches the tile GEMM of
+  ``csrc/qmm_tiles.cu``. A plain weight goes to ``qmm_fp``, ``::qmm`` with
+  ``_plain_body`` (K4: at most 8 rows; ``csrc/qmm.cu``).
 - ``qmm_experts`` replaces ``::qmm_experts`` with ``_knib_body`` (K2, one
-  expert id per activation row; ``csrc/qmm.cu``). A plain f32/f16/bf16
-  table goes to ``qmm_experts_fp``, K2's plain body (``qmm.py:651``; the
-  same source).
+  expert id per activation row, read as given; ``csrc/nibble_mv.cu``, the
+  same kernel). A plain f32/f16/bf16 table goes to ``qmm_experts_fp``,
+  K2's plain body (``qmm.py:651``; ``csrc/qmm.cu``).
 - ``qmm_grouped`` replaces ``::qmm_grouped`` with ``_knib_body`` (K6:
   128-row tiles, one expert each; ``csrc/qmm_tiles.cu``, the tile GEMM
   on the tensor cores over split bf16 operands, which every row-tiled
   route and every K6 body launches; ``tile_width`` is its MMA width).
 - A blockwise F8E5M2 weight (``Fp8Tensor``) takes the fp8 bodies
-  (``_fp8_body``, qmm.py:260): ``qmm_fp8`` is K5's (qmm.py:418; the matvec
-  of ``csrc/qmm.cu`` up to ``ROW_TILE_MIN`` rows, ``qmm_fp8_rows`` on the
-  tile GEMM above), ``qmm_experts_fp8`` K2's (qmm.py:664; ``csrc/qmm.cu``)
+  (``_fp8_body``, qmm.py:260): ``qmm_fp8`` is K5's (qmm.py:418; the fp8
+  matvec of ``csrc/fp8_mv.cu``, f32 products over coalesced weight words,
+  up to ``ROW_TILE_MIN`` rows, x read in its own dtype; ``qmm_fp8_rows`` on
+  the tile GEMM above),
+  ``qmm_experts_fp8`` K2's (qmm.py:664; ``csrc/qmm.cu``)
   and ``qmm_grouped_fp8`` K6's (qmm.py:502-508; ``csrc/qmm_tiles.cu``).
   Ragged grids (a block size that does not divide the weight) are taken,
   which the TPU kernels assert against. A per-tensor scale has no kernel
@@ -26,7 +31,8 @@ matrix products, and the fused expert FFN.
   K-quant runtime) takes the packed bodies (``_q2k_body`` qmm.py:361,
   ``_q3k_body`` :368): ``qmm_packed`` is K5's (the integer matvec of
   ``csrc/packed_mv.cu`` up to ``ROW_TILE_MIN`` rows, each weight byte read
-  once for all of them; ``qmm_packed_rows`` on the tile GEMM above),
+  once for all of them, the x pre-pass shared with the nibble matvec
+  (``csrc/xsplit.cuh``); ``qmm_packed_rows`` on the tile GEMM above),
   ``qmm_experts_packed`` K2's (qmm.py:622-629; the same kernel, the expert
   ids read as given) and ``qmm_grouped_packed`` K6's (qmm.py:471-478;
   ``csrc/qmm_tiles.cu``). ``packed_lanes`` and ``packed_warps`` size the
@@ -46,7 +52,8 @@ matrix products, and the fused expert FFN.
   ``::qmm_expert_ffn`` (K7: w13, GLU, w2 and the weighted sum over one
   token's pairs in one launch; ``csrc/expert_ffn.cu``), and
   ``qmm_experts`` / ``qmm_grouped`` take ``x_prepermuted=True``, K2's and
-  K6's prepermuted nibble bodies (``::qmm_experts`` :602-609 and the
+  K6's prepermuted nibble bodies (``::qmm_experts`` :602-609, whose
+  pre-pass reads each natural column from its permuted position, and the
   ``rp`` branch of ``deepseek_tpu/ops/matmul.py:268-285``): the
   activations arrive in the stride-16 permuted order in which a permuted
   w13 leaves h. They count their launches apart, in
@@ -59,7 +66,9 @@ table's rows as they are stored, and so do the plain versions
 
 A wrapper given CPU tensors computes the plain version (``*_plain``: the
 f32 dequant of quant/qtensor.py and a product, for every layout); given
-CUDA tensors it launches the kernel or raises. It never falls back.
+CUDA tensors it launches the kernel or raises. It never falls back. The
+nibble, packed and fp8 matvecs read x in its own dtype (f32, f16 or bf16)
+and ``check_mv_x`` raises on any other, so none runs a cast launch.
 """
 
 from __future__ import annotations
@@ -118,10 +127,16 @@ def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor,
     return out.reshape(*lead, -1)
 
 
-# K1 takes the row-tiled route above this many rows. The matvec streams
-# the weight once per row; the tile GEMM (on the tensor cores) streams it
-# once per 128 rows and runs a tile of at most 16 live rows at MMA width
-# 16, so its time hardly moves below 16 rows. Measured by chip_smoke.py on
+# K1 takes the row-tiled route above this many rows (the nibble and fp8
+# matvecs take at most this many rows a pass, kNbMaxX in csrc/nibble_mv.cu
+# and kMvRowsX in csrc/fp8_mv.cu).
+# The figures below placed it when the nibble and fp8 matvecs still
+# streamed the weight once per row; reading it once for all of a pass's
+# rows moved the crossover to 8-16 rows (chip_smoke.py logs it on every
+# run); the value is left at 4 until a change of its own measures a new one.
+# The tile GEMM (on the tensor cores) streams it once per 128 rows and
+# runs a tile of at most 16 live rows at MMA width 16, so its time hardly
+# moves below 16 rows. Measured by chip_smoke.py on
 # an H100 80GB HBM3 at 700 W, both routes in one call (matvec / row-tiled
 # ms): w13 36864x7168 at 2 rows 0.156 / 0.257, at 4 rows 0.287 / 0.258, at
 # 8 0.545 / 0.259; wo 7168x16384 at 4 rows 0.141 / 0.217, at 8 0.262 /
@@ -217,18 +232,77 @@ def _check_planes(qt: KNibbleTensor, x: torch.Tensor, experts: bool) -> None:
         raise ValueError(f"nibble kernels need in-features % 256 == 0, got {n}")
 
 
-def _launch(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int,
-            x_perm: bool = False) -> torch.Tensor:
-    n = x2.shape[-1]
-    x2 = x2.float().contiguous()
-    y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
+# K5's fp8 matvec (csrc/fp8_mv.cu; the tests read it back): x rows a pass
+# (kMvRowsX, = ROW_TILE_MIN); it sizes its own grid from the card's
+# occupancy
+_MV_ROWS_X = 4
+_X_DTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# K1's and K2's nibble matvec (csrc/nibble_mv.cu; the tests read these
+# back): x rows a K1 launch takes at most (kNbMaxX, = ROW_TILE_MIN; more
+# rows go in passes of it), warps a block (kNbThreads / 32), |off| at most
+# (kNbMaxOff) and, by the x rows an item takes (K2's: 1), the warps an SM
+# holds at the launch bounds (2 x kNbBlocksFew at 1-2, 2 x kNbBlocksMany at
+# 3-4)
+_NB_MAX_X = 4
+_NB_BLOCK_WARPS = 2
+_NB_MAX_OFF = 8
+_NB_WARPS_PER_SM = {1: 16, 2: 16, 3: 12, 4: 12}
+
+
+def check_mv_x(x2: torch.Tensor, n: int, what: str) -> None:
+    """Raise ValueError unless the nibble or fp8 matvec takes x2 (rows, n)
+    as it is: f32, f16 or bf16 (read in its own dtype, no cast launch),
+    contiguous, 16-byte aligned, as wide as the weight."""
+    if x2.dim() != 2 or x2.shape[1] != n:
+        raise ValueError(f"{what}: x {tuple(x2.shape)} against in-features {n}")
+    if x2.dtype not in _X_DTYPE or not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be a contiguous, 16-byte aligned f32, f16 or "
+                         f"bf16 tensor, got {x2.dtype}, contiguous={x2.is_contiguous()}, "
+                         f"address % 16 = {x2.data_ptr() % 16}")
+
+
+def nibble_warps(rows: int, d: int, n: int, sms: int, experts: bool = False) -> int:
+    """The nibble matvec's persistent warps for ``rows`` x rows (K1: 1 to
+    ``_NB_MAX_X``, all in each item) or pairs (``experts``, K2: one item
+    per pair and row group) of a (d, n) weight on ``sms`` SMs: an item is
+    one row for each lane subgroup of a warp (``packed_lanes`` lanes a row:
+    the same superblock a lane a step); as many warps as the card
+    holds at the kernel's launch bounds, fewer where that spreads the items
+    more evenly (every warp walks ``per`` or ``per - 1`` items), so that no
+    partial last wave is left."""
+    items = (rows if experts else 1) * -(-d // (32 // packed_lanes(n)))
+    most = sms * _NB_WARPS_PER_SM[1 if experts else rows]
+    per = -(-items // most)
+    return -(-items // per)
+
+
+def _nibble_mv(qt: KNibbleTensor, x2: torch.Tensor, idx, d: int,
+               x_perm: bool = False) -> torch.Tensor:
+    """Launch csrc/nibble_mv.cu: its x pre-pass, then the matvec. idx: K2's
+    expert ids (int32 or int64, one a row, as given), or None (K1: the rows
+    in passes of up to ``_NB_MAX_X``, each reading the weight once)."""
+    rows, n = x2.shape
+    check_mv_x(x2, n, "nibble_mv")
+    if idx is not None:
+        check_ids(idx, rows, x2.device, "nibble_mv")
+    if abs(int(qt.off)) > _NB_MAX_OFF:
+        raise ValueError(f"nibble_mv takes |off| <= {_NB_MAX_OFF}, not {qt.off}")
+    y = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
+    step = rows if idx is not None else _NB_MAX_X
+    sms = _sm_count(x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    err = library("qmm").knib_matvec(
-        x2.data_ptr(), qt.p.data_ptr(), qt.a.data_ptr(),
-        qt.c.data_ptr() if qt.c is not None else None,
-        idx.data_ptr() if idx is not None else None, y.data_ptr(),
-        x2.shape[0], d, n, int(qt.off), int(x_perm), stream)
-    check(err, "knib_matvec")
+    for r0 in range(0, rows, step):
+        xr, yr = x2[r0:r0 + step], y[r0:r0 + step]
+        nr = xr.shape[0]
+        # the pre-pass's two int8 terms and group scalars: 40 bytes a group
+        scratch = torch.empty(nr * (n // 16) * 40, dtype=torch.uint8, device=x2.device)
+        err = library("nibble_mv").nibble_mv(
+            xr.data_ptr(), _X_DTYPE[x2.dtype], int(x_perm), qt.p.data_ptr(), qt.a.data_ptr(),
+            qt.c.data_ptr() if qt.c is not None else None, int(qt.off),
+            idx.data_ptr() if idx is not None else None,
+            idx.element_size() if idx is not None else 0, scratch.data_ptr(), yr.data_ptr(),
+            nr, d, n, packed_lanes(n), nibble_warps(nr, d, n, sms, idx is not None), stream)
+        check(err, "nibble_mv")
     return y
 
 
@@ -279,7 +353,7 @@ def qmm(qt, x: torch.Tensor) -> torch.Tensor:
         return x.new_zeros((*lead, d), dtype=torch.float32)
     if x2.shape[0] > ROW_TILE_MIN:
         return qmm_rows(qt, x2).reshape(*lead, d)
-    y = _launch(qt, x2, None, d)
+    y = _nibble_mv(qt, x2.contiguous(), None, d)
     qmm.launches += 1
     return y.reshape(*lead, d)
 
@@ -354,7 +428,9 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor,
     ``qmm_experts_packed``, a turbo one ``qmm_experts_turbo``.
     ``x_prepermuted`` (a nibble table only; any other raises): x is in the
     stride-16 permuted order, as a row-permuted w13 leaves h, and the
-    kernel stages it as given (K2's prepermuted body)."""
+    kernel's pre-pass reads each natural column from its permuted position
+    (K2's prepermuted body). A nibble table's ids are read as given, int32
+    or int64."""
     if x_prepermuted and not isinstance(qt, KNibbleTensor):
         raise ValueError(f"qmm_experts: x_prepermuted needs a nibble table, "
                          f"not {type(qt).__name__}")
@@ -378,8 +454,7 @@ def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor,
     x2 = x.reshape(-1, n)
     if x2.shape[0] == 0:
         return x.new_zeros((*lead, d), dtype=torch.float32)
-    idx32 = idx.reshape(-1).to(device=x.device, dtype=torch.int32).contiguous()
-    y = _launch(qt, x2, idx32, d, x_prepermuted)
+    y = _nibble_mv(qt, x2.contiguous(), idx.reshape(-1).contiguous(), d, x_prepermuted)
     (qmm_experts.prepermuted if x_prepermuted else qmm_experts).launches += 1
     return y.reshape(*lead, d)
 
@@ -510,14 +585,28 @@ def _check_fp8(qt: Fp8Tensor, x: torch.Tensor, experts: bool, col_align: int,
 
 
 def _fp8_matvec(qt: Fp8Tensor, x2: torch.Tensor, idx, d: int) -> torch.Tensor:
+    """K2's fp8 body (csrc/qmm.cu ``fp8_matvec``), idx (rows,) int32."""
     x2 = x2.float().contiguous()
     y = torch.empty((x2.shape[0], d), dtype=torch.float32, device=x2.device)
     err = library("qmm").fp8_matvec(
-        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-        idx.data_ptr() if idx is not None else None, y.data_ptr(),
-        x2.shape[0], d, x2.shape[1], *qt.block_size,
+        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), idx.data_ptr(),
+        y.data_ptr(), x2.shape[0], d, x2.shape[1], *qt.block_size,
         torch.cuda.current_stream(x2.device).cuda_stream)
     check(err, "fp8_matvec")
+    return y
+
+
+def _fp8_mv(qt: Fp8Tensor, x2: torch.Tensor, d: int) -> torch.Tensor:
+    """Launch csrc/fp8_mv.cu: x2 (rows, n) in its own dtype, four rows a
+    pass."""
+    rows, n = x2.shape
+    check_mv_x(x2, n, "fp8_mv")
+    y = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
+    err = library("fp8_mv").fp8_mv(
+        x2.data_ptr(), _X_DTYPE[x2.dtype], qt.data.data_ptr(), qt.scale.data_ptr(),
+        y.data_ptr(), rows, d, n, *qt.block_size,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    check(err, "fp8_mv")
     return y
 
 
@@ -525,8 +614,9 @@ def qmm_fp8(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
     """K5's fp8 body: x (..., n) @ W (d, n).T for a blockwise F8E5M2 weight
     -> (..., d) float32; more than ``ROW_TILE_MIN`` rows take
     ``qmm_fp8_rows`` where its 64-column k-steps fit the column blocks (b1
-    % 64 == 0: the converter's 128), the matvec (8 rows a pass) where they
-    do not."""
+    % 64 == 0: the converter's 128), the matvec (four rows a pass, each
+    reading the weight once) where they do not. x is read in its own dtype
+    (f32, f16 or bf16)."""
     if x.device.type == "cpu":
         return qmm_plain(qt, x)
     if x.device.type != "cuda":
@@ -539,7 +629,7 @@ def qmm_fp8(qt: Fp8Tensor, x: torch.Tensor) -> torch.Tensor:
         return x.new_zeros((*lead, d), dtype=torch.float32)
     if x2.shape[0] > ROW_TILE_MIN and qt.block_size[1] % 64 == 0:
         return qmm_fp8_rows(qt, x2).reshape(*lead, d)
-    y = _fp8_matvec(qt, x2, None, d)
+    y = _fp8_mv(qt, x2.contiguous(), d)
     qmm_fp8.launches += 1
     return y.reshape(*lead, d)
 
@@ -703,6 +793,17 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[i]
 
 
+def check_ids(idx: torch.Tensor, rows: int, device, what: str) -> None:
+    """Raise ValueError unless ``idx`` holds one int32 or int64 expert id
+    a row on ``device``, contiguous: what the kernels that read ids as
+    given (no cast launch) take."""
+    if idx.dtype not in (torch.int32, torch.int64) or idx.device != device \
+            or tuple(idx.shape) != (rows,) or not idx.is_contiguous():
+        raise ValueError(f"{what}: expert ids must be {rows} contiguous int32 or int64 "
+                         f"values on {device}, got {idx.dtype} {tuple(idx.shape)} "
+                         f"on {idx.device}")
+
+
 def check_packed_mv(qt, x2: torch.Tensor, idx, what: str) -> None:
     """Raise ValueError unless csrc/packed_mv.cu takes x (rows, n) and the
     ids beside planes that ``_check_packed`` has passed: x as wide as the
@@ -715,23 +816,22 @@ def check_packed_mv(qt, x2: torch.Tensor, idx, what: str) -> None:
         if not 1 <= rows <= _PK_MAX_X:
             raise ValueError(f"{what}: the matvec takes 1 to {_PK_MAX_X} rows, not {rows}")
         return
-    if idx.dtype not in (torch.int32, torch.int64) or idx.device != x2.device \
-            or tuple(idx.shape) != (rows,) or not idx.is_contiguous():
-        raise ValueError(f"{what}: expert ids must be {rows} contiguous int32 or int64 "
-                         f"values on {x2.device}, got {idx.dtype} {tuple(idx.shape)} "
-                         f"on {idx.device}")
+    check_ids(idx, rows, x2.device, what)
 
 
 def _packed_matvec(qt, x2: torch.Tensor, idx, d: int, what: str) -> torch.Tensor:
-    x2 = x2.float().contiguous()
+    """Launch csrc/packed_mv.cu: its x pre-pass (x in its own dtype), then
+    the matvec."""
+    x2 = x2.contiguous()
     check_packed_mv(qt, x2, idx, what)
     rows, n = x2.shape
+    check_mv_x(x2, n, what)
     y = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
     # the pre-pass's two int8 terms and group scalars: 40 bytes a group
     scratch = torch.empty(rows * (n // 16) * 40, dtype=torch.uint8, device=x2.device)
     warps = packed_warps(rows, d, n, _sm_count(x2.device), experts=idx is not None)
     err = library("packed_mv").packed_mv(
-        x2.data_ptr(), *_packed_ptrs(qt),
+        x2.data_ptr(), _X_DTYPE[x2.dtype], *_packed_ptrs(qt),
         idx.data_ptr() if idx is not None else None,
         idx.element_size() if idx is not None else 0, scratch.data_ptr(),
         y.data_ptr(), rows, d, n, packed_lanes(n), warps,

@@ -139,10 +139,10 @@ ABLATIONS = [
         """__device__ __forceinline__ void unpack(uint32_t t, uint32_t h, uint32_t u[4]) {
   if (true) { u[0] = t; u[1] = t >> 2; u[2] = t >> 4; u[3] = h; return; }""")]),
     ("dp4a as IMAD", [("__dp4a(", "imad4("), (
-        """__device__ __forceinline__ uint32_t word(""",
+        """// Q3_K's high bits of 4 groups""",
         """__device__ __forceinline__ int imad4(int a, int b, int c) { return a * b + c; }
 
-__device__ __forceinline__ uint32_t word(""")]),
+// Q3_K's high bits of 4 groups""")]),
     ("plane loads alone", [(
         """      float part[kPkRows][NB], pmin[kPkRows][NB];""",
         """      uint32_t xo = 0;
@@ -167,8 +167,8 @@ __device__ __forceinline__ uint32_t word(""")]),
   }""")]),
 ]
 ABLATIONS.append(("one empty launch, no pre-pass", ABLATIONS[-1][1] + [(
-    """  xsplit_kernel<<<(groups + kSplitThreads - 1) / kSplitThreads, kSplitThreads, 0, st>>>(
-      static_cast<const float*>(x), terms, aux, groups, n / 256, kind);""", "")]))
+    """  cudaError_t err = launch_xsplit(x, x_dtype, 0, terms, aux, groups, n, 4, kind == 0, st);""",
+    "  cudaError_t err = cudaSuccess;")]))
 
 
 def ablate(flush) -> int:
@@ -181,6 +181,8 @@ def ablate(flush) -> int:
     from deepseek_tpu_torch.quant.qtensor import Q3KTensor
 
     src = (build.CSRC / "packed_mv.cu").read_text()
+    # the shared pre-pass header inline, so that a substitution may reach it
+    src = src.replace('#include "xsplit.cuh"', (build.CSRC / "xsplit.cuh").read_text())
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -220,7 +222,7 @@ def ablate(flush) -> int:
             def call():
                 y = torch.empty((rows, d), device="cuda")
                 scratch = torch.empty(rows * (n // 16) * 40, dtype=torch.uint8, device="cuda")
-                err = lib.packed_mv(x.data_ptr(), *Q._packed_ptrs(qt), None, 0,
+                err = lib.packed_mv(x.data_ptr(), 0, *Q._packed_ptrs(qt), None, 0,
                                     scratch.data_ptr(), y.data_ptr(), rows, d, n,
                                     Q.packed_lanes(n), Q.packed_warps(rows, d, n, sms),
                                     torch.cuda.current_stream().cuda_stream)

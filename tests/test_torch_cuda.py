@@ -64,8 +64,8 @@ def _nibble(E, d, n, quant, seed, dev):
 @pytest.mark.parametrize("B", [1, 3])
 def test_qmm_kernels_match_plain(quant, n, B, dev):
     """K1 and K2 against their plain versions. Tolerance 1e-4 of the output
-    scale: f32 sums in other orders, and the kernel's exact 0.5 + u/256
-    nibble floats whose offset cancels against f32 group sums."""
+    scale: x split into two int8 terms a 16-column group (~15 bits) against
+    the exact nibbles in __dp4a, f32 folds in other orders."""
     qt = _nibble(4, 100, n, quant, seed=n, dev=dev)      # 100 rows: ragged tiles
     x = torch.randn((B, n), generator=torch.Generator().manual_seed(B)).to(dev)
     dense = qt.map(lambda t: t[1].contiguous())
@@ -212,10 +212,10 @@ def test_k6_matches_plain(quant, dev):
 @pytest.mark.parametrize("E,d,n,rows", [(4, 100, 256, 3), (16, 7168, 2048, 9),
                                         (3, 300, 1536, 1)])
 def test_k2_prepermuted_matches_plain(quant, E, d, n, rows, dev):
-    """K2's prepermuted body (x in the stride-16 order, staged as given,
-    group sums over the permuted positions) against its plain version and
-    against the natural body on the natural x; counted apart. Tolerance
-    1e-4 of the output scale, as K2's."""
+    """K2's prepermuted body (x in the stride-16 order, each natural column
+    read from its permuted position by the pre-pass) against its plain
+    version and against the natural body on the natural x; counted apart.
+    Tolerance 1e-4 of the output scale, as K2's."""
     qt = _nibble(E, d, n, quant, seed=d + n, dev=dev)
     g = torch.Generator().manual_seed(rows)
     x = torch.randn((rows, n), generator=g).to(dev)
@@ -1526,3 +1526,154 @@ def test_k2_plain_cases(dtype, E, d, n, pairs, dev):
     before = qmm_experts_fp.launches
     _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
     assert qmm_experts_fp.launches == before + 1
+
+
+def _card_kernels(fn, tries=3, calls=3):
+    """The names of the CUDA kernels ``calls`` calls of ``fn`` run (torch.profiler;
+    profiled again, up to ``tries`` times, where a session reports no
+    device time at all)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = set()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if (getattr(ev, "device_time_total", None)
+                     or getattr(ev, "cuda_time_total", 0)) > 0
+                 and not ev.key.startswith(("aten::", "cuda", "Memset", "Memcpy"))}
+        if names:
+            break
+    return names
+
+
+def _only_kernels(names, allowed):
+    """Every kernel run is one of ``allowed`` (no cast or copy launch)."""
+    assert names, "the profiler saw no kernel"
+    stray = [k for k in names if not any(a in k for a in allowed)]
+    assert not stray, f"kernels beyond {allowed}: {stray}"
+
+
+_NIB_KERNELS = ("xsplit_kernel", "nib_mv_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("d,n", [(2112, 7168), (301, 7168), (1001, 1536), (203, 16384),
+                                 (77, 18432), (99, 512)],
+                         ids=["wkvq", "wkvq-ragged", "wcr-like", "wo-like", "w2-like",
+                              "wv_b-like"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k1_nibble_mv_cases(quant, d, n, rows, x_dtype, dev):
+    """K1's matvec (csrc/nibble_mv.cu ``nibble_mv``) at every row count it
+    takes, over V3's in-features and row counts no tile divides, with x in
+    f32 and in bf16 (read as it is: the profiler sees the pre-pass and the
+    matvec and nothing else), against the plain version. Tolerance 1e-4 of
+    the output scale: x split into two int8 terms a 16-column group (~15
+    bits), exact __dp4a products with the nibbles, f32 folds."""
+    qt = _nibble(1, d, n, quant, seed=d + n + rows, dev=dev).map(lambda t: t[0].contiguous())
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows + n)) \
+        .to(dev, x_dtype)
+    before = qmm.launches
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm.launches == before + 1
+    _only_kernels(_card_kernels(lambda: qmm(qt, x)), _NIB_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("ids", [torch.int64, torch.int32])
+@pytest.mark.parametrize("E,d,n,pairs", [(16, 4096, 7168, 9), (16, 7168, 2048, 9),
+                                         (128, 128, 512, 128), (5, 301, 1536, 8)],
+                         ids=["w13s", "w2s", "wv_b", "ragged"])
+@pytest.mark.parametrize("xperm", [False, True], ids=["natural", "prepermuted"])
+def test_k2_nibble_mv_cases(quant, ids, E, d, n, pairs, xperm, dev):
+    """K2's nibble bodies on the same kernel: pairs with repeated experts
+    (wv_b: one pair a head), the ids read as given in int64 or int32, x
+    natural or in the stride-16 permuted order, counted apart, against the
+    plain version; no cast launch. Tolerance as K1's."""
+    qt = _nibble(E, d, n, quant, seed=E + d + pairs, dev=dev)
+    idx = (torch.arange(pairs) if pairs == E else
+           torch.tensor([3 % E, 0, 3 % E, E - 1, 1, 3 % E, 0, 2, E - 1]))[:pairs].to(dev, ids)
+    x = torch.randn((pairs, n), generator=torch.Generator().manual_seed(pairs + n)).to(dev)
+    if xperm:
+        x = perm_x(x).contiguous()
+    count = qmm_experts.prepermuted if xperm else qmm_experts
+    before = count.launches
+    _close(qmm_experts(qt, idx, x, x_prepermuted=xperm),
+           qmm_experts_plain(qt, idx, x, x_prepermuted=xperm), 1e-4)
+    assert count.launches == before + 1
+    _only_kernels(_card_kernels(lambda: qmm_experts(qt, idx, x, x_prepermuted=xperm)),
+                  _NIB_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["f32", "f16", "bf16"])
+@pytest.mark.parametrize("experts", [False, True], ids=["K5", "K2"])
+def test_packed_mv_reads_x_as_given(quant, x_dtype, experts, dev):
+    """The packed matvec's pre-pass (csrc/xsplit.cuh, shared with the
+    nibble matvec) reads x in its own dtype: K5 at 3 rows and K2 over 9
+    pairs with int32 ids, x in f32, f16 and bf16, against the plain
+    version, and the profiler sees the pre-pass and the matvec and nothing
+    else. Tolerance as K5's packed bodies."""
+    E = 8 if experts else 0
+    qt = _packed(E, 300, 1536, quant, seed=11, dev=dev)
+    rows = 9 if experts else 3
+    x = torch.randn((rows, 1536), generator=torch.Generator().manual_seed(5)).to(dev, x_dtype)
+    kernels = ("xsplit_kernel", "packed_mv_kernel")
+    if experts:
+        idx = torch.tensor([0, 5, 5, 7, 1, 2, 3, 6, 3], device=dev, dtype=torch.int32)
+        before = qmm_experts_packed.launches
+        _close(qmm_experts(qt, idx, x), qmm_experts_plain(qt, idx, x), 1e-4)
+        assert qmm_experts_packed.launches == before + 1
+        _only_kernels(_card_kernels(lambda: qmm_experts(qt, idx, x)), kernels)
+    else:
+        before = qmm_packed.launches
+        _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+        assert qmm_packed.launches == before + 1
+        _only_kernels(_card_kernels(lambda: qmm(qt, x)), kernels)
+
+
+# DeepSeek-V2-Lite's F8E5M2 projections (128x128 blocks): (d, n)
+_V2_FP8 = {"wq": (3072, 2048), "wkv_a": (576, 2048), "wkv_b": (4096, 512),
+           "wo": (2048, 2048), "w13": (21888, 2048), "w2": (2048, 10944),
+           "lm_head": (102400, 2048)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_V2_FP8))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_fp8_mv_cases(name, rows, x_dtype, dev):
+    """K5's fp8 matvec (csrc/fp8_mv.cu ``fp8_mv``) at V2-Lite's shapes and
+    every row count it takes, x in f32 and bf16 (read as it is: one kernel,
+    no cast), against the plain version. Tolerance 1e-4 of the output
+    scale: exact weights and x, f32 products, each 4-column word's sum
+    scaled by its block, f32 sums in other orders."""
+    d, n = _V2_FP8[name]
+    qt = _fp8(0, d, n, (128, 128), seed=d + n, dev=dev)
+    x = torch.randn((rows, n), generator=torch.Generator().manual_seed(rows)).to(dev, x_dtype)
+    before = qmm_fp8.launches
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm_fp8.launches == before + 1
+    _only_kernels(_card_kernels(lambda: qmm(qt, x)), ("fp8_mv_kernel",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 13])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+def test_k5_fp8_mv_small_block_passes(rows, x_dtype, dev):
+    """32x16 blocks keep K5 on the matvec at any rows: passes of four x
+    rows (two and four launches of the kernel, one call), x in f32 and
+    f16, against the plain version. Tolerance as above."""
+    qt = _fp8(0, 300, 448, (32, 16), seed=rows + 7, dev=dev)
+    x = torch.randn((rows, 448), generator=torch.Generator().manual_seed(rows)).to(dev, x_dtype)
+    before = qmm_fp8.launches
+    _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
+    assert qmm_fp8.launches == before + 1
+    _only_kernels(_card_kernels(lambda: qmm(qt, x)), ("fp8_mv_kernel",))
