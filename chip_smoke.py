@@ -104,6 +104,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
      decoded past it, each against the unsharded run; then every partials
      body against its plain version at the shards' shapes and on an empty
      shard.
+  7. the CLI and single-sequence speculation: after the entry points, a
+     random F8E5M2 checkpoint at DeepSeek-V2-Lite's widths (MHA, 2 layers,
+     ~1.1 GB) and a 1-layer draft, written with the port's codec, through
+     ``python -m deepseek_tpu_torch`` subprocesses (completion at -t 0,
+     -t 0.8 and --kv-dtype int8, perplexity -w, passkey -n 64 -l 10,
+     interactive and chat from stdin, --ngram-spec, --draft), held against
+     the same routes in process (texts, perplexity within 1e-3, the
+     speculative texts against plain greedy); then --mtp-spec on a tiny
+     packed Q3_K V3-arch checkpoint with an MTP layer, against the CPU
+     Engine; and, on the V3-width packed Q3_K
+     draw with a random MTP layer, the draft-model, n-gram and MTP
+     speculation rounds against plain greedy decode, each round's launches
+     counted and its time beside plain decode.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -185,23 +198,26 @@ def nbytes(*ts):
 # phase 2: the entry point on a tiny checkpoint
 # ---------------------------------------------------------------------------
 
-def save_tiny(path: str, cfg, tensors: dict) -> None:
+def save_tiny(path: str, cfg, tensors: dict, metadata=None) -> None:
     """Write a tiny checkpoint with the port's codec: the tensors, a
-    byte-fallback vocabulary and the config's metadata."""
+    byte-fallback vocabulary and the config's metadata (and ``metadata``)."""
     from deepseek_tpu_torch.utils.codec import pack_tokenizer_tokens, save_checkpoint
 
     vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
     vocab += [f"tok{i}".encode() for i in range(len(vocab), cfg.vocab_size)]
     tensors["tokenizer.tokens"] = pack_tokenizer_tokens(vocab)
     md = cfg.to_metadata()
-    md.update(bos_token_id="1", eos_token_id="2")
+    md.update(bos_token_id="1", eos_token_id="2", **(metadata or {}))
     save_checkpoint(path, [tensors], md)
 
 
 def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
-                          max_seq_len: int = 64, window: int = 32) -> None:
+                          max_seq_len: int = 64, window: int = 32,
+                          mtp: bool = False) -> None:
     """A tiny 2-layer absorbed-MLA MoE checkpoint of random Q3_K (or Q2_K)
-    blocks with small f16 super scales, without the factor weights."""
+    blocks with small f16 super scales, without the factor weights; with
+    ``mtp``, DeepSeek-V3's multi-token-prediction layer too (``model.mtp.*``:
+    the norms, eh_proj and an MoE block), drawn after the others."""
     from deepseek_tpu_torch.config import (
         ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod)
     from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
@@ -243,8 +259,15 @@ def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
     t = {"model.embed.weight": q3k(c.vocab_size, c.dim),
          "model.output.weight": q3k(c.vocab_size, c.dim),
          "model.norm.weight": f32(c.dim, scale=0.1, base=1.0)}
-    for l in range(c.n_layers):
-        p = f"model.layers.{l}"
+    blocks = [(f"model.layers.{l}", c.is_moe_layer(l)) for l in range(c.n_layers)]
+    if mtp:
+        blocks.append(("model.mtp.block", True))
+    for p, moe in blocks:
+        if p == "model.mtp.block":
+            t.update({"model.mtp.enorm.weight": f32(c.dim, scale=0.1, base=1.0),
+                      "model.mtp.hnorm.weight": f32(c.dim, scale=0.1, base=1.0),
+                      "model.mtp.norm.weight": f32(c.dim, scale=0.1, base=1.0),
+                      "model.mtp.eh_proj.weight": q3k(c.dim, 2 * c.dim)})
         t.update({
             f"{p}.attn.norm.weight": f32(c.dim, scale=0.1, base=1.0),
             f"{p}.mlp.norm.weight": f32(c.dim, scale=0.1, base=1.0),
@@ -257,7 +280,7 @@ def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
             f"{p}.attn.wv_b.weight": q3k(H * Dv, R),
             f"{p}.attn.wo.weight": q3k(c.dim, H * Dv),
         })
-        if c.is_moe_layer(l):
+        if moe:
             t.update({
                 f"{p}.moegate.weight": f32(E, c.dim, scale=0.05),
                 f"{p}.moegate.bias": f32(E, scale=0.01),
@@ -3021,6 +3044,461 @@ def partials_kernel_entries(entries):
         del k, v
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CLI as a user runs it, and single-sequence speculation
+# ---------------------------------------------------------------------------
+
+CLI_TIMEOUT = 600          # seconds a CLI subprocess may take
+CLI_NEW = 32               # tokens a CLI completion generates
+CLI_PROMPT = ("The quick brown fox jumps over the lazy dog. The quick brown fox "
+              "jumps over the lazy dog. The quick brown fox")
+SPEC_K = 4                 # the CLI's default --spec-k
+SPEC_CALLS = 2             # fused calls (4 rounds each) a V3-width maker runs
+# an HF-convention chat template, as the converter embeds tokenizer_config.json's
+CHAT_TEMPLATE = ("{{ bos_token }}{% for m in messages %}<|{{ m.role }}|>{{ m.content }}"
+                 "{{ eos_token if m.role == 'assistant' }}\n{% endfor %}"
+                 "{% if add_generation_prompt %}<|assistant|>{% endif %}")
+CHAT_TURNS = ("hello", "and how are you?")
+
+
+def v2_lite_cli_config(n_layers: int, **overrides):
+    """DeepSeek-V2-Lite's published widths as the converter writes them by
+    default (decompressed MHA: V2-Lite has no query LoRA, which absorbed MLA
+    needs, convert.py:67) in F8E5M2 with 128x128 blocks (its FFN widths 1408
+    and 10944 are no multiples of the 256-column K-quant superblock, so no
+    Q2_K/Q3_K form of it exists); compute and cache dtypes are the CLI's
+    defaults (float32, float16: they are not checkpoint metadata)."""
+    from deepseek_tpu_torch.config import QuantKind
+    from deepseek_tpu_torch.models.testing import deepseek_v2_lite_proportions
+    return deepseek_v2_lite_proportions(
+        n_layers=n_layers, weight_quant=QuantKind.F8E5M2, block_size=(128, 128),
+        compute_dtype="float32", kv_cache_dtype="float16", **overrides)
+
+
+def write_fp8_model(path: str, cfg, seed: int, device: str, draft_path=None) -> int:
+    """A random F8E5M2 MHA checkpoint of ``cfg`` in the converter's tensor
+    layout (``model.layers.{l}.attn.wq`` etc., each weight with its 128x128
+    ``.scale`` grid, partial at ragged edges; every expert its own draw),
+    values drawn on ``device`` from ``seed`` and written with the port's
+    codec, with a byte-fallback tokenizer of the full vocabulary and a chat
+    template. With ``draft_path`` a 1-layer draft is written there too: the
+    same embedding, lm_head and layer 0. Returns the checkpoint's bytes."""
+    from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    b0, b1 = cfg.block_size
+    f8 = _DTYPE_TO_NP["F8_E5M2"]
+
+    def fp8(name, *shape):
+        *lead, rows, cols = shape
+        data = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) \
+            .to(torch.float8_e5m2).view(torch.uint8)
+        sc = torch.rand((*lead, -(-rows // b0), -(-cols // b1)), generator=gen,
+                        device=device) * 0.015 + 0.005
+        return {f"{name}.weight": data.cpu().numpy().view(f8),
+                f"{name}.scale": sc.cpu().numpy()}
+
+    def f32(*shape, scale=0.1, base=1.0):
+        return (base + torch.randn(shape, generator=gen, device=device) * scale) \
+            .cpu().numpy()
+
+    c = cfg
+    H, R, P, Dv = c.n_heads, c.kv_lora_rank, c.qk_rope_head_dim, c.v_head_dim
+    E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
+    t = {"model.norm.weight": f32(c.dim)}
+    t.update(fp8("model.embed", c.vocab_size, c.dim))
+    t.update(fp8("model.output", c.vocab_size, c.dim))
+    for l in range(c.n_layers):
+        p = f"model.layers.{l}"
+        t.update({f"{p}.attn.norm.weight": f32(c.dim), f"{p}.mlp.norm.weight": f32(c.dim),
+                  f"{p}.attn.kv_a_norm.weight": f32(R)})
+        t.update(fp8(f"{p}.attn.wq", H * c.head_dim, c.dim))
+        t.update(fp8(f"{p}.attn.wkv_a", R + P, c.dim))
+        t.update(fp8(f"{p}.attn.wkv_b", H * (c.qk_nope_head_dim + Dv), R))
+        t.update(fp8(f"{p}.attn.wo", c.dim, H * Dv))
+        if c.is_moe_layer(l):
+            t[f"{p}.moegate.weight"] = f32(E, c.dim, scale=0.05, base=0.0)
+            for k, shape in (("mlp.w1", (E, m, c.dim)), ("mlp.w3", (E, m, c.dim)),
+                             ("mlp.w2", (E, c.dim, m)), ("shared_mlp.w1", (ns * m, c.dim)),
+                             ("shared_mlp.w3", (ns * m, c.dim)),
+                             ("shared_mlp.w2", (c.dim, ns * m))):
+                t.update(fp8(f"{p}.{k}", *shape))
+        else:
+            for k, shape in (("w1", (c.hidden_dim, c.dim)), ("w3", (c.hidden_dim, c.dim)),
+                             ("w2", (c.dim, c.hidden_dim))):
+                t.update(fp8(f"{p}.mlp.{k}", *shape))
+    save_tiny(path, c, t, metadata=dict(chat_template=CHAT_TEMPLATE,
+                                        chat_bos_token="<s>", chat_eos_token="</s>"))
+    if draft_path is not None:
+        keep = {k: v for k, v in t.items()
+                if not k.startswith("model.layers.") or k.startswith("model.layers.0.")}
+        keep.pop("tokenizer.tokens")
+        save_tiny(draft_path, dataclasses.replace(c, n_layers=1), keep)
+    return sum(v.nbytes for v in t.values())
+
+
+def run_cli(args, label, stdin=None, device="cuda"):
+    """``python -m deepseek_tpu_torch`` as a user runs it, from the root of
+    the checkout; a non-zero exit fails the run. Returns its stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    if device != "cuda":
+        args = [*args, "--device", device]
+    res = subprocess.run([sys.executable, "-m", "deepseek_tpu_torch", *args], cwd=root,
+                         env=env, input=stdin, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    dt = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"CLI {label} exited {res.returncode}: "
+                           f"{res.stderr[-3000:]}\n{res.stdout[-2000:]}")
+    lines = [ln for ln in res.stdout.splitlines()
+             if re.search(r"speculative:|throughput:|perplexity:|tokens$|prompt:|passkey:",
+                          ln)]
+    log(f"CLI {label}: rc 0 in {dt:.1f} s; " + " | ".join(ln.strip() for ln in lines))
+    return res.stdout
+
+
+def cli_texts(out):
+    """The generated texts of a CLI run's completions."""
+    return re.findall(r"Model bits per weight: [^\n]*\n(.*?)\nGeneration stats:", out,
+                      re.S)
+
+
+def texts_of(eng, prompt, run):
+    """``run(on_token)`` -> tokens; returns (tokens, the text the CLI prints
+    for them: each piece decoded on its own)."""
+    pieces = []
+    out, _ = run(lambda tok, piece: pieces.append(piece.decode("utf-8", errors="replace")))
+    return out, "".join(pieces)
+
+
+def same_or_near_tie(ref_logits, want, got, label):
+    """Greedy tokens of another route (speculation, another process) against
+    the plain route's: equal, or first apart at a near tie (the two tokens'
+    logits within 1e-3 of the logit scale in the plain route's teacher-forced
+    logits ``ref_logits[i]``, row i choosing token i), which two summation
+    orders may break either way. Returns how many tokens agree."""
+    n = min(len(want), len(got))
+    for i in range(n):
+        if want[i] != got[i]:
+            lg = ref_logits[i]
+            tol = 1e-3 * float(np.abs(lg).max())
+            gap = float(lg[want[i]] - lg[got[i]])
+            if gap > tol:
+                raise RuntimeError(f"{label}: token {i} is {got[i]}, plain greedy says "
+                                   f"{want[i]} (logit gap {gap:.3e} > {tol:.3e})")
+            log(f"{label}: apart from plain greedy at token {i}, a near tie "
+                f"(gap {gap:.3e} <= {tol:.3e}); the {i} before agree")
+            return i
+    return n
+
+
+def teacher_logits(eng, prompt, tokens):
+    """The engine's logits choosing each of ``tokens`` after ``prompt`` on
+    generate's schedule (prefill, then decode steps)."""
+    cache = eng.new_cache()
+    _, logits, _, pos = eng.hydrate(cache, prompt)
+    rows = [logits]
+    for t in tokens[:-1]:
+        rows.append(eng.step(cache, t, pos)[0].float().cpu().numpy())
+        pos += 1
+    return rows
+
+
+def cli_phase(counts, runs, device="cuda", cfg=None):
+    """The port's CLI at DeepSeek-V2-Lite's widths (``v2_lite_cli_config``,
+    cut to 2 layers: one dense, one MoE), as subprocesses on the card:
+    completion at -t 0, -t 0.8 and with --kv-dtype int8, perplexity over the
+    wikitext fixture (-w), passkey (-n 64 -l 10: ~5.9k tokens, past the
+    4096-slot window), interactive and chat (two turns) from stdin,
+    --ngram-spec and --draft (a 1-layer draft of the same widths). The
+    greedy texts must equal the same routes' in process
+    (Engine(device="cuda").generate; the chat turns rendered by
+    Engine.render_chat), the speculative ones plain greedy's, the
+    perplexity the in-process Engine.perplexity's within 1e-3 relative; the
+    in-process runs count the launches. -m chat renders through jinja2:
+    where it does not import, chat is logged as not driven
+    (tests/test_torch_cli.py holds it on the CPU against the JAX CLI).
+    ``device`` and ``cfg`` rehearse the phase on the CPU at a small size."""
+    from deepseek_tpu_torch.engine import Engine
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    ck, dr = os.path.join(root, "v2lite_fp8"), os.path.join(root, "draft")
+    cfg = cfg or v2_lite_cli_config(n_layers=2)
+    cli = lambda args, label, stdin=None: run_cli(args, label, stdin, device)
+    t0 = time.perf_counter()
+    size = write_fp8_model(ck, cfg, SEED + 41, device, draft_path=dr)
+    log(f"CLI: random F8E5M2 DeepSeek-V2-Lite-width checkpoint (MHA, 2 layers, vocab "
+        f"{cfg.vocab_size}), {size / 1e9:.3f} GB, and its 1-layer draft written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        import jinja2  # noqa: F401  (-m chat renders its template through it)
+        chat = cli([ck, "-m", "chat", "-n", "8", "-t", "0"], "chat",
+                   stdin="\n".join(CHAT_TURNS) + "\n\n")
+    except ImportError:
+        chat = None
+        log("CLI: -m chat not driven: jinja2 does not import here; "
+            "tests/test_torch_cli.py holds it on the CPU")
+    base = [ck, "-i", CLI_PROMPT, "-n", str(CLI_NEW)]
+    plain = cli([*base, "-t", "0"], "completion -t 0")
+    cli([*base, "-t", "0.8", "--seed", "7"], "completion -t 0.8")
+    cli([*base, "-t", "0", "--kv-dtype", "int8"], "completion --kv-dtype int8")
+    ngram = cli([*base, "-t", "0", "--ngram-spec"], "completion --ngram-spec")
+    draft = cli([*base, "-t", "0", "--draft", dr], "completion --draft")
+    ppl_out = cli([ck, "-m", "perplexity", "-w"], "perplexity -w")
+    cli([ck, "-m", "passkey", "-n", "64", "-l", "10", "--seed", "3"], "passkey")
+    inter = cli([ck, "-m", "interactive", "--seed", "5"], "interactive",
+                    stdin=f'c -i "{CLI_PROMPT}" -n 8 -t 0\np -i "{CLI_PROMPT}"\n'
+                          'k -n 8 -l 2\nh\nq\n')
+
+    eng = Engine(ck, device=device, seed=SEED)
+    deng = Engine(dr, device=device, seed=SEED)
+    prompt = eng.tokenizer.encode(CLI_PROMPT, bos=True)
+    (want, text), runs["CLI plain"] = drive(
+        counts, ("K5", "K5r", "K2-fp8", "K6-fp8", "K8", "K9"), "CLI in process, generate",
+        lambda: texts_of(eng, prompt, lambda cb: eng.generate(
+            prompt, CLI_NEW, temperature=0.0, on_token=cb)))
+    if cli_texts(plain) != [text]:
+        raise RuntimeError(f"CLI greedy text {cli_texts(plain)!r} is not the in-process "
+                           f"generate's {text!r}")
+    ref = teacher_logits(eng, prompt, want)
+    for label, out, route, expect in (
+            ("--ngram-spec", ngram, lambda cb: eng.generate_ngram(
+                prompt, CLI_NEW, temperature=0.0, spec_k=SPEC_K, on_token=cb),
+             ("K5r", "K2-fp8", "K9")),
+            ("--draft", draft, lambda cb: eng.generate_speculative(
+                prompt, deng, CLI_NEW, temperature=0.0, spec_k=SPEC_K, on_token=cb),
+             ("K5", "K5r", "K2-fp8", "K8", "K9"))):
+        (got, gtext), runs[f"CLI {label}"] = drive(
+            counts, expect, f"CLI in process, {label}",
+            lambda route=route: texts_of(eng, prompt, route))
+        if cli_texts(out) != [gtext]:
+            raise RuntimeError(f"CLI {label} text {cli_texts(out)!r} is not the "
+                               f"in-process run's {gtext!r}")
+        same_or_near_tie(ref, want, got, f"CLI {label}")
+    ppl, err, n = eng.perplexity(
+        np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "deepseek_tpu_torch", "fixtures", "wikitext_v2.npy")
+                ).tolist()[:cfg.max_seq_len])
+    (got_ppl, got_err), = [(float(a), float(b)) for a, b in re.findall(
+        r"perplexity: ([0-9.e+-]+) ± ([0-9.e+-]+)", ppl_out)]
+    log(f"CLI perplexity -w: {got_ppl} ± {got_err} over {n + 1} tokens; in process "
+        f"{ppl} ± {err}")
+    if not abs(got_ppl - ppl) <= 1e-3 * ppl:
+        raise RuntimeError("CLI perplexity disagrees with Engine.perplexity")
+    if len(cli_texts(inter)) != 1 or "perplexity:" not in inter or "Passkey test" not in inter:
+        raise RuntimeError("CLI interactive: a mode did not run")
+    if chat is not None:
+        # the CLI's turns: the conversation rendered, generated to 8 tokens
+        # (eos not printed), the reply appended as the assistant's message
+        msgs, want = [], ""
+        for line in CHAT_TURNS:
+            msgs.append({"role": "user", "content": line})
+            toks = eng.tokenizer.encode(eng.render_chat(msgs), bos=False)
+            pieces = []
+            eng.generate(toks, 8, temperature=0.0, on_token=lambda t, p: None
+                         if eng.tokenizer.is_eos_or_eot(t) else pieces.append(p))
+            want += "user> " + "".join(p.decode("utf-8", errors="replace")
+                                       for p in pieces) + "\n"
+            msgs.append({"role": "assistant",
+                         "content": b"".join(pieces).decode("utf-8", errors="replace")})
+        if want not in chat:
+            raise RuntimeError(f"CLI chat printed {chat[-600:]!r}, in process {want!r}")
+        log(f"CLI chat: {len(CHAT_TURNS)} turns, the in-process turns' text")
+    del eng, deng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mtp_cli_phase(counts, runs, device="cuda"):
+    """Single-sequence MTP speculation at a small size: a tiny random
+    DeepSeek-V3-arch packed Q3_K checkpoint (absorbed MLA, R = 512) with an
+    MTP layer, through ``python -m deepseek_tpu_torch --mtp-spec`` on the
+    card (the packed runtime, the CLI's default), whose text must equal the
+    same route in process; that route's greedy tokens are held against
+    Engine(device="cpu").generate (near ties allowed as check_greedy
+    allows them)."""
+    from deepseek_tpu_torch.engine import Engine
+
+    rng = np.random.default_rng(SEED + 43)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_mtp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_tiny_checkpoint(tmp, rng, max_seq_len=256, window=128, mtp=True)
+    out = run_cli([tmp, "-i", "hello world", "-n", "40", "-t", "0", "--mtp-spec"],
+                  "completion --mtp-spec (tiny V3 Q3_K)", device=device)
+    eng = Engine(tmp, device=device, seed=SEED)
+    ref = Engine(tmp, device="cpu", seed=SEED)
+    if eng.params.mtp is None:
+        raise RuntimeError("the MTP layer did not load")
+    prompt = eng.tokenizer.encode("hello world", bos=True)
+    (got, text), runs["MTP CLI"] = drive(
+        counts, ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"),
+        "MTP in process, generate_mtp",
+        lambda: texts_of(eng, prompt, lambda cb: eng.generate_mtp(
+            prompt, 40, temperature=0.0, spec_k=SPEC_K, on_token=cb)))
+    if cli_texts(out) != [text]:
+        raise RuntimeError(f"CLI --mtp-spec text {cli_texts(out)!r} is not the "
+                           f"in-process run's {text!r}")
+    want, _ = ref.generate(prompt, 40, temperature=0.0)
+    check_greedy(ref, prompt, got, "MTP CLI vs CPU")
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+    log(f"MTP CLI: {len(got)} tokens, each the CPU Engine's greedy choice after the "
+        f"same tokens; the first {n} equal its plain greedy run's")
+
+
+def emitted(drafts_r, nacc_r, next_r):
+    """The tokens a fused call emits: per round drafts[:n_acc], then next."""
+    toks = []
+    for d, na, nx in zip(drafts_r.tolist(), nacc_r.tolist(), next_r.tolist()):
+        toks += d[:na] + [nx]
+    return toks
+
+
+def spec_rounds_phase(params, cfg, counts, runs, label="V3 packed Q3_K"):
+    """The three speculation makers at DeepSeek-V3's widths on the 4-layer
+    packed Q3_K draw with a random MTP layer (float32 compute, so that the
+    verify chunk's and decode's sums agree to near ties; without the factor
+    weights, so prefill runs K10): the draft model is the same draw's first
+    layer. Each maker runs SPEC_CALLS fused calls of 4 rounds greedily from
+    a 64-token prompt of a 16-token pattern; the emitted tokens must equal
+    plain greedy decode. The target drafting for itself must have every
+    draft accepted. One call of each is driven with the launch counts
+    (K5 row-tiled for the 5-row verify chunk, K2, K3, K10), and each call
+    timed beside plain decode steps."""
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.mtp import init_mtp_cache, mtp_forward
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.speculative import (
+        make_mtp_spec_rounds, make_ngram_spec_rounds, make_spec_rounds)
+
+    dev = params.final_norm.device
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    strip = lambda lp: dataclasses.replace(lp, wq_b=None, wkv_b=None)
+    params = dataclasses.replace(
+        params, layers=[strip(lp) for lp in params.layers],
+        mtp=dataclasses.replace(params.mtp, block=strip(params.mtp.block)))
+    draft = dataclasses.replace(params, layers=params.layers[:1], mtp=None)
+    cfg_d = dataclasses.replace(cfg, n_layers=1)
+    rng = np.random.default_rng(SEED + 47)
+    prompt = [int(v) for v in rng.integers(3, cfg.vocab_size, 16)] * 4
+    n_plain = SPEC_CALLS * 4 * (SPEC_K + 1) + 1
+    tok = lambda t: torch.full((1, 1), int(t), dtype=torch.int64, device=dev)
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, device=dev)
+        _, logits, _, pos = hydrate_cache(params, cfg, cache, prompt)
+        plain, ref = [int(logits.argmax())], [logits]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_plain - 1):
+            lg = forward_decode(params, cache, tok(plain[-1]), pos + i, cfg)[0]
+            ref.append(lg.float().cpu().numpy())
+            plain.append(int(ref[-1].argmax()))
+        plain_s = (time.perf_counter() - t0) / (n_plain - 1)
+    log(f"{label} speculation: plain greedy decode {plain_s * 1e3:.2f} ms a token "
+        f"({1 / plain_s:.2f} tok/s, float32 compute), {n_plain} tokens")
+
+    def run(name, setup, call, expect):
+        state = setup()
+        got, times, acc = [plain[0]], [], 0
+        key = prng.PRNGKey(SEED)
+        for c in range(SPEC_CALLS):
+            key, sub = prng.split(key)
+            if c == 0:
+                res, runs[f"{label} {name} rounds"] = drive(
+                    counts, expect, f"{label} {name}: one call of 4 rounds",
+                    lambda: call(state, got, sub))
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = call(state, got, sub)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            drafts_r, nacc_r, next_r = res
+            acc += int(nacc_r.sum())
+            got += emitted(drafts_r, nacc_r, next_r)
+        n = same_or_near_tie(ref, plain, got, f"{label} {name}")
+        rounds = 4 * SPEC_CALLS
+        log(f"{label} {name}: {len(got) - 1} tokens in {rounds} rounds, acceptance "
+            f"{acc}/{rounds * SPEC_K} = {acc / (rounds * SPEC_K):.3f}, {n} equal to plain "
+            f"greedy; the timed call {times[-1] * 1e3:.1f} ms "
+            f"({times[-1] * 1e3 / 4:.1f} ms a round, "
+            f"{(len(got) - 1) / SPEC_CALLS / times[-1]:.2f} tok/s on average over its "
+            f"tokens; plain decode {1 / plain_s:.2f} tok/s)")
+        return acc
+
+    def hydrated():
+        with torch.inference_mode():
+            c = init_cache(cfg, device=dev)
+            _, _, _, p = hydrate_cache(params, cfg, c, prompt, want_last_logits=False)
+        return {"cache": c, "pos": p}
+
+    def draft_setup(dp, dcfg):
+        st = hydrated()
+        st.update(dp=dp, dcache=init_cache(dcfg, device=dev),
+                  fn=make_spec_rounds(cfg, dcfg, SPEC_K, 4, greedy=True))
+        hydrate_cache(dp, dcfg, st["dcache"], prompt, want_last_logits=False)
+        return st
+
+    def draft_call(st, got, key):
+        d, na, nx, st["cache"], st["dcache"] = st["fn"](
+            params, st["dp"], st["cache"], st["dcache"], tok(got[-1]),
+            st["pos"] + len(got) - 1, key, 0.0, 1.0)
+        return d, na, nx
+
+    def ngram_setup():
+        st = hydrated()
+        H = cfg.kv_window
+        hist = torch.zeros((1, H), dtype=torch.int64, device=dev)
+        seq = prompt + [plain[0]]
+        hist[0, :len(seq)] = torch.tensor(seq, device=dev)
+        st.update(hist=hist, hlen=len(seq),
+                  fn=make_ngram_spec_rounds(cfg, SPEC_K, 4, hist_len=H, greedy=True))
+        return st
+
+    def ngram_call(st, got, key):
+        d, na, nx, _, st["cache"], st["hist"], st["hlen"] = st["fn"](
+            params, st["cache"], st["hist"], st["hlen"], tok(got[-1]),
+            st["pos"] + len(got) - 1, key, 0.0, 1.0)
+        return d, na, nx
+
+    def mtp_setup():
+        with torch.inference_mode():
+            c = init_cache(cfg, device=dev)
+            _, h = forward_prefill(params, c, torch.tensor([prompt], device=dev), 0, cfg,
+                                   "none", with_hidden=True)
+            cm = init_mtp_cache(cfg, device=dev)
+            pairs = torch.tensor([prompt[1:] + [plain[0]]], device=dev)
+            mtp_forward(params, cm, pairs, h.float(), 0, cfg, prefill=True)
+        return {"cache": c, "pos": len(prompt), "cm": cm, "h": h[:, -1:].float(),
+                "fn": make_mtp_spec_rounds(cfg, SPEC_K, 4, greedy=True)}
+
+    def mtp_call(st, got, key):
+        d, na, nx, st["h"], st["cache"], st["cm"] = st["fn"](
+            params, st["cache"], st["cm"], tok(got[-1]), st["h"],
+            st["pos"] + len(got) - 1, key, 0.0, 1.0)
+        return d, na, nx
+
+    run("draft model (1 layer)", lambda: draft_setup(draft, cfg_d), draft_call,
+        ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"))
+    # the target as its own draft: every draft is accepted, so the rounds
+    # emit drafts as well as the bonus tokens
+    acc = run("draft model (the target itself)", lambda: draft_setup(params, cfg),
+              draft_call, ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"))
+    if acc < SPEC_CALLS * 4 * SPEC_K:
+        raise RuntimeError(f"{label}: the target drafting for itself had {acc} of "
+                           f"{SPEC_CALLS * 4 * SPEC_K} drafts accepted")
+    run("n-gram", ngram_setup, ngram_call, ("K5r-packed", "K2-packed", "K10"))
+    run("MTP", mtp_setup, mtp_call, ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"))
+
+
 def spilling_kernels(logs, names):
     """The entry functions among ``names`` (substrings of the mangled
     names) whose ptxas -v lines report spill stores or loads."""
@@ -3131,6 +3609,10 @@ def main() -> int:
                 counts, "q3_k", kv="float32"),
             "MHA entry point, int8 cache": mha_entry_point_phase(counts, kv="int8"),
             "fused FFN entry point": fused_entry_point_phase(counts)}
+    # the CLI as a user runs it (subprocesses) at V2-Lite's widths, and MTP
+    # speculation through it on a tiny V3-arch checkpoint
+    cli_phase(counts, runs)
+    mtp_cli_phase(counts, runs)
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -3154,7 +3636,8 @@ def main() -> int:
     for quant in ("q3_k", "q2_k"):
         label = f"packed {quant.upper()}"
         t0 = time.perf_counter()
-        params = random_fused_params(cfg, quant, seed=SEED, device="cuda", factors=True)
+        params = random_fused_params(cfg, quant, seed=SEED, device="cuda", factors=True,
+                                     mtp=quant == "q3_k")
         torch.cuda.synchronize()
         log(f"full width: random {label} model (with wq_b/wkv_b), "
             f"{weight_bytes(params) / 1e9:.3f} GB of planes and scales, built on "
@@ -3168,6 +3651,7 @@ def main() -> int:
         if quant == "q3_k":
             decode_block_phase(params, cfg, label)
             int8_cache_phase(params, cfg, counts, label, runs)
+            spec_rounds_phase(params, cfg, counts, runs)
         log(f"kernels, {label} (each against its plain version on the card):")
         packed_kernel_entries(params, cfg, quant, entries, dec, pre)
         del params

@@ -541,23 +541,28 @@ def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
-                   pos0, cfg: ModelConfig, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
+                   pos0, cfg: ModelConfig, ctx: SpmdCtx = NULL_CTX,
+                   with_hidden: bool = False):
     """One decode step: tokens (B,1) at position ``pos0`` -> logits (B,V)
     float32. Writes this step's cache rows into ``cache`` in place; under a
     seq axis (``ctx`` from ``parallel.spmd.make_ctx``) ``cache`` is this
-    rank's slice of the window and every rank returns the same logits."""
+    rank's slice of the window and every rank returns the same logits.
+    ``with_hidden`` returns (logits, hidden): the pre-final-norm hidden
+    state (B,1,dim) in the compute dtype, which the MTP layer takes
+    (``_forward_impl(with_hidden=True)``, deepseek.py:1076-1080)."""
     B, T = tokens.shape
     if T != 1:
         raise ValueError("decode processes one token per sequence per call")
     pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx)
-    return final_logits(params.final_norm, params.lm_head, x, cfg)
+    logits = final_logits(params.final_norm, params.lm_head, x, cfg)
+    return (logits, x) if with_hidden else logits
 
 
 def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                     pos0, cfg: ModelConfig, logits_mode: str = "last",
-                    ctx: SpmdCtx = NULL_CTX):
+                    ctx: SpmdCtx = NULL_CTX, with_hidden: bool = False):
     """One prefill chunk: tokens (B,T) at positions pos0..pos0+T-1 (a
     shared int; pos0 + T <= kv_window) -> logits per ``logits_mode``:
     "last" (B,V), "all" (B,T,V) float32, or "none" (None). Writes the
@@ -565,12 +570,15 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     from ``parallel.spmd.make_ctx``, ``cache`` this rank's slice of the
     window) a chunk whose length divides the axis runs context-parallel,
     each rank on T/sp rows; any other chunk runs replicated on every rank
-    (``deepseek.py:1036-1056``). Every rank returns the same logits."""
+    (``deepseek.py:1036-1056``). Every rank returns the same logits.
+    ``with_hidden`` returns (logits, hidden), hidden the pre-final-norm
+    state (B,T,dim) in the compute dtype (this rank's rows under context
+    parallelism)."""
     B, T = tokens.shape
     if isinstance(pos0, torch.Tensor) and pos0.dim() > 0:
         raise NotImplementedError(
-            "verify mode (per-sequence chunk positions) is not ported yet "
-            "(ROADMAP.md queue 1, item 11)")
+            "verify mode (per-sequence chunk positions) belongs to batched "
+            "serving (ROADMAP.md queue 1, item 12)")
     pos0 = int(pos0)
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
@@ -589,9 +597,9 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
         x = x + attend(lp, cfg, xb, cache, layer, pos0, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
         x = x + _ffn(lp, cfg, xb, layer, prefill=True)
-    if logits_mode == "none":
-        return None
-    return final_logits(params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+    logits = None if logits_mode == "none" else final_logits(
+        params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+    return (logits, x) if with_hidden else logits
 
 
 def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
@@ -621,8 +629,8 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
         raise NotImplementedError("per-token logprobs belong to batched serving "
                                   "(ROADMAP.md queue 1, item 12)")
     if with_hidden:
-        raise NotImplementedError("the last hidden state feeds the MTP drafter "
-                                  "(ROADMAP.md queue 1, item 11)")
+        raise NotImplementedError("the decode block's hidden state feeds batched "
+                                  "MTP serving (ROADMAP.md queue 1, item 12)")
 
     @torch.inference_mode()
     def loop(params, cache, tok, pos0, key, temperature, top_p, active=None,

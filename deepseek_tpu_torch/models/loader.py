@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import ModelConfig, QuantKind
-from deepseek_tpu_torch.models.params import LayerParams, ModelParams
+from deepseek_tpu_torch.models.params import LayerParams, MTPParams, ModelParams
 from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 from deepseek_tpu_torch.quant.qtensor import (
     PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
@@ -71,12 +71,15 @@ def _logical_shape(dtype_str: str, shape, cfg: ModelConfig):
 
 def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
                 runtime_dtype: Optional[str] = None,
-                kquant_runtime: Optional[str] = None) -> ModelParams:
+                kquant_runtime: Optional[str] = None,
+                load_mtp: bool = True) -> ModelParams:
     """Read a ``.dseek`` checkpoint onto ``device``. K-quant tensors keep
     the packed planes (``kquant_runtime=None``, the JAX package's default)
     or expand to the nibble (``"nibble"``) or int8 turbo (``"turbo"``)
     layout, the turbo one converted from the packed planes on ``device``;
-    shapes are checked against the config and a mismatch fails loudly."""
+    shapes are checked against the config and a mismatch fails loudly.
+    With ``load_mtp`` the multi-token-prediction layer (``model.mtp.*``)
+    is read where the checkpoint has one (``ModelParams.mtp``)."""
     check_kquant_runtime(cfg, kquant_runtime)
 
     def norm(name: str, expect=None) -> Optional[torch.Tensor]:
@@ -182,11 +185,19 @@ def load_params(data: CheckpointData, cfg: ModelConfig, *, device="cpu",
 
     layers = [block_params(f"model.layers.{l}", cfg.is_moe_layer(l))
               for l in range(cfg.n_layers)]
+    mtp = None
+    if load_mtp and data.get("model.mtp.eh_proj.weight") is not None:
+        mtp = MTPParams(
+            enorm=norm("model.mtp.enorm", expect=(cfg.dim,)),
+            hnorm=norm("model.mtp.hnorm", expect=(cfg.dim,)),
+            eh_proj=qt("model.mtp.eh_proj", expect=(cfg.dim, 2 * cfg.dim)),
+            block=block_params("model.mtp.block", cfg.n_routed_experts > 0),
+            final_norm=norm("model.mtp.norm", expect=(cfg.dim,)))
     embed = qt("model.embed", expect=(cfg.vocab_size, cfg.dim))
     lm_head = qt("model.output", expect=(cfg.vocab_size, cfg.dim))
     return ModelParams(embed=embed, layers=layers,
                        final_norm=norm("model.norm"),
-                       lm_head=lm_head if lm_head is not None else embed)
+                       lm_head=lm_head if lm_head is not None else embed, mtp=mtp)
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +276,11 @@ def fuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
     tables also take the row-permuted layout (``rowperm_expert_w13``); the
     tables' ``rowperm`` then chooses the fused expert FFN (K7) and the
     prepermuted w2 products, and the variable is never read again."""
+    mtp = params.mtp
+    if mtp is not None:
+        mtp = dataclasses.replace(mtp, block=fuse_layer(mtp.block, cfg))
     fused = dataclasses.replace(params, layers=[fuse_layer(lp, cfg)
-                                                for lp in params.layers])
+                                                for lp in params.layers], mtp=mtp)
     if os.environ.get("DSEEK_FUSED_FFN"):
         fused = rowperm_expert_w13(fused, cfg)
     return fused
@@ -311,7 +325,11 @@ def rowperm_expert_w13(params: ModelParams, cfg: ModelConfig,
                 rep[f] = _rowperm_qt(qt, 2, undo)
         return dataclasses.replace(lp, **rep) if rep else lp
 
-    return dataclasses.replace(params, layers=[layer(lp) for lp in params.layers])
+    mtp = params.mtp
+    if mtp is not None:
+        mtp = dataclasses.replace(mtp, block=layer(mtp.block))
+    return dataclasses.replace(params, layers=[layer(lp) for lp in params.layers],
+                               mtp=mtp)
 
 
 # ---------------------------------------------------------------------------
@@ -364,11 +382,18 @@ def params_from_reference(obj, device="cpu") -> ModelParams:
                 f"{type(lp).__name__} layer groups (scan stacking) have no "
                 "counterpart in the port (ROADMAP.md queue 1, item 15)")
         layers.append(_layer_from_reference(lp, device))
+    mtp = getattr(obj, "mtp", None)
+    if mtp is not None:
+        norm = lambda v: _to_torch(v).float().to(device)
+        mtp = MTPParams(enorm=norm(mtp.enorm), hnorm=norm(mtp.hnorm),
+                        eh_proj=_weight_from_reference(mtp.eh_proj, device),
+                        block=_layer_from_reference(mtp.block, device),
+                        final_norm=norm(mtp.final_norm))
     return ModelParams(
         embed=_weight_from_reference(obj.embed, device),
         layers=layers,
         final_norm=_to_torch(obj.final_norm).float().to(device),
-        lm_head=_weight_from_reference(obj.lm_head, device))
+        lm_head=_weight_from_reference(obj.lm_head, device), mtp=mtp)
 
 
 def params_active_bytes(params: ModelParams, cfg: ModelConfig, pos: int = 0) -> float:
@@ -412,3 +437,29 @@ def params_active_bytes(params: ModelParams, cfg: ModelConfig, pos: int = 0) -> 
             frac_s = (cfg.n_active_routed + ns) / (cfg.n_routed_experts + ns)
             total += (nb(lp.w13s) + nb(lp.w2s)) * frac_s
     return float(total)
+
+
+def params_bits_per_weight(params: ModelParams) -> float:
+    """Storage bits per weight over the weight tensors as loaded
+    (``deepseek_tpu/models/loader.py::params_bits_per_weight``; the
+    reference's stat line, codec.cpp:40-66): every plane's bytes over the
+    logical elements, at the runtime layout (packed, nibble, turbo, fp8
+    with its scales, plain). The embedding, the lm_head (counted again
+    where tied to it, as the JAX tree walk counts it), every layer and the
+    MTP layer count; norms and router weights are no weight tensors."""
+    def weights(lp: LayerParams):
+        return [v for v in (getattr(lp, f.name) for f in dataclasses.fields(lp))
+                if dataclasses.is_dataclass(v)]
+
+    tensors = [params.embed, params.lm_head]
+    for lp in params.layers:
+        tensors += weights(lp)
+    if params.mtp is not None:
+        tensors += [params.mtp.eh_proj, *weights(params.mtp.block)]
+    bits = weights_n = 0.0
+    for qt in tensors:
+        bits += 8.0 * sum(t.numel() * t.element_size()
+                          for t in (getattr(qt, f.name) for f in dataclasses.fields(qt))
+                          if isinstance(t, torch.Tensor))
+        weights_n += float(np.prod(qt.shape, dtype=np.float64))
+    return bits / weights_n if weights_n else 0.0

@@ -61,11 +61,26 @@ class LayerParams:
 
 
 @dataclasses.dataclass
+class MTPParams:
+    """DeepSeek-V3's multi-token-prediction layer (the checkpoint's extra
+    layer): predicts token t+2 from the main model's final hidden state at
+    t and the embedding of token t+1 (models/mtp.py). The output head is
+    the main model's lm_head."""
+
+    enorm: torch.Tensor              # (dim,) norm on the next token's embedding
+    hnorm: torch.Tensor              # (dim,) norm on the main hidden state
+    eh_proj: QT                      # (dim, 2*dim) over [embedding; hidden]
+    block: LayerParams               # one transformer block, its own KV cache
+    final_norm: torch.Tensor         # (dim,) shared_head.norm
+
+
+@dataclasses.dataclass
 class ModelParams:
     embed: QT                        # (vocab_size, dim)
     layers: List[LayerParams]
     final_norm: torch.Tensor         # (dim,)
     lm_head: QT                      # (vocab_size, dim); tied checkpoints reuse embed
+    mtp: Optional[MTPParams] = None
 
 
 def embed_lookup(qt, tokens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -23,7 +23,7 @@ from deepseek_tpu_torch.config import (
     ActivationType, ModelConfig, QuantKind, ScoringFunc, TopKMethod,
 )
 from deepseek_tpu_torch.models.loader import fuse_layer, rowperm_expert_w13
-from deepseek_tpu_torch.models.params import LayerParams, ModelParams
+from deepseek_tpu_torch.models.params import LayerParams, MTPParams, ModelParams
 from deepseek_tpu_torch.quant.qtensor import (
     Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor, Q3KTensor, q2k_to_turbo,
     q3k_to_turbo,
@@ -194,7 +194,7 @@ def random_fp8_params(cfg: ModelConfig, seed: int = 7, device="cuda") -> ModelPa
 
 def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                         device="cuda", factors: bool = False,
-                        rowperm: bool = False) -> ModelParams:
+                        rowperm: bool = False, mtp: bool = False) -> ModelParams:
     """Random model in the fused decode layout (wkvq, wcr, w13) with
     nibble planes (``quant`` q3_k_nibble | q2_k_nibble: the shared experts
     folded into w13s/w2s), packed planes (q3_k | q2_k: the ranges of the
@@ -213,7 +213,11 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
     the absorbed prefill (K10). ``rowperm`` gives the nibble expert
     [w1;w3] tables the row-permuted layout of ``DSEEK_FUSED_FFN=1``
     (``loader.rowperm_expert_w13`` applied to the drawn planes, a real
-    permutation: the model computes what the one drawn without it does)."""
+    permutation: the model computes what the one drawn without it does).
+    ``mtp`` adds a random multi-token-prediction layer (``ModelParams.mtp``:
+    the norms, an ``eh_proj`` (dim, 2*dim) and one MoE block drawn like the
+    others), drawn after the main model so that the main weights do not
+    depend on it."""
     kinds = ("q3_k_nibble", "q2_k_nibble", "q3_k", "q2_k", "q3_k_turbo", "q2_k_turbo")
     if quant not in kinds:
         raise ValueError(f"quant must be one of {kinds}, not {quant}")
@@ -274,13 +278,8 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                         shared_w13=qt(2 * ns * m, c.dim), shared_w2=qt(c.dim, ns * m))
         return dict(w13s=qt(E + ns, 2 * m, c.dim), w2s=qt(E + ns, c.dim, m))
 
-    c = cfg
-    H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
-    E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
-    layers = []
-    for l in range(c.n_layers):
-        moe = c.is_moe_layer(l)
-        layers.append(LayerParams(
+    def layer(moe: bool) -> LayerParams:
+        return LayerParams(
             attn_norm=ones(c.dim), ffn_norm=ones(c.dim), kv_a_norm=ones(R),
             q_a_norm=ones(c.q_lora_rank),
             wo=qt(c.dim, H * Dv), wv_b=qt(H * Dv, R),
@@ -293,9 +292,19 @@ def random_fused_params(cfg: ModelConfig, quant: str, seed: int = 7,
                dict(w13=qt(2 * c.hidden_dim, c.dim), w2=qt(c.dim, c.hidden_dim))),
             wq_b=qt(H * c.head_dim, c.q_lora_rank) if factors else None,
             wkv_b=qt(H * (c.qk_nope_head_dim + Dv), R) if factors else None,
-        ))
+        )
+
+    c = cfg
+    H, P, Dv, R = c.n_heads, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
+    E, m, ns = c.n_routed_experts, c.moe_intermediate_size, c.n_shared_experts
+    layers = [layer(c.is_moe_layer(l)) for l in range(c.n_layers)]
     params = ModelParams(
         embed=PlainTensor(data=normal(c.vocab_size, c.dim).to(torch.bfloat16)),
         layers=layers, final_norm=ones(c.dim),
         lm_head=qt(c.vocab_size, c.dim))
+    if mtp:
+        params.mtp = MTPParams(enorm=ones(c.dim), hnorm=ones(c.dim),
+                               eh_proj=qt(c.dim, 2 * c.dim),
+                               block=layer(c.n_routed_experts > 0),
+                               final_norm=ones(c.dim))
     return rowperm_expert_w13(params, cfg) if rowperm else params

@@ -8,11 +8,11 @@ package's tokens at the same seed:
 
 - ``PRNGKey(seed)``: the raw pair (0, seed mod 2^32), as JAX builds it
   without 64-bit mode;
-- ``split(key)``: ``jax/_src/prng.py::_threefry_split_foldlike``, the hash
-  of the counters (0, 0) and (0, 1);
+- ``split(key, num)``: ``jax/_src/prng.py::_threefry_split_foldlike``, the
+  hash of the counters (0, i), i < num;
 - ``random_bits(key, shape)``: ``_threefry_random_bits_partitionable`` at
   32 bits, ``bits1 ^ bits2`` over the counters (0, i), i the flat index;
-- ``uniform(key, shape)`` on [tiny, 1): the mantissa trick of
+- ``uniform(key, shape, minval)`` on [minval, 1): the mantissa trick of
   ``jax/_src/random.py::_uniform``;
 - ``gumbel(key, shape)``: ``-log(-log(u))``, the ``mode="low"`` branch.
 
@@ -55,12 +55,12 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([0, int(seed) & _M32], np.uint32)
 
 
-def split(key: np.ndarray):
-    """``jax.random.split(key)`` -> (key, subkey), each a (2,) uint32."""
+def split(key: np.ndarray, num: int = 2):
+    """``jax.random.split(key, num)`` -> a tuple of ``num`` (2,) uint32
+    keys, key i the hash of the counter (0, i) (the default 2: (key,
+    subkey))."""
     k1, k2 = int(key[0]), int(key[1])
-    a = threefry2x32(k1, k2, 0, 0)
-    b = threefry2x32(k1, k2, 0, 1)
-    return np.array(a, np.uint32), np.array(b, np.uint32)
+    return tuple(np.array(threefry2x32(k1, k2, 0, i), np.uint32) for i in range(num))
 
 
 def random_bits(keys, shape, device="cpu") -> torch.Tensor:
@@ -82,13 +82,15 @@ def random_bits(keys, shape, device="cpu") -> torch.Tensor:
     return (b1 ^ b2).reshape(*lead, *shape)
 
 
-def uniform(keys, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval=tiny, maxval=1)``:
-    the top 23 bits under the exponent of 1.0, minus 1, scaled and floored
-    at tiny as JAX does (float32)."""
+def uniform(keys, shape, device="cpu", minval: float = _TINY) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval=1)``: the
+    top 23 bits under the exponent of 1.0, minus 1, scaled and floored at
+    minval as JAX does (float32). The default minval, tiny, is the one the
+    gumbel noise takes; ``jax.random.uniform``'s own default is 0."""
     bits = (random_bits(keys, shape, device) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats * _SPAN + _TINY, _TINY)
+    span = _SPAN if minval == _TINY else float(np.float32(1.0) - np.float32(minval))
+    return torch.clamp_min(floats * span + minval, minval)
 
 
 def gumbel(keys, shape, device="cpu") -> torch.Tensor:

@@ -226,11 +226,12 @@ def test_decode_loop_does_not_synchronize(ckpt, monkeypatch):
 
 def test_decode_loop_raises_on_unported_options(ckpt):
     """The seq mesh axis is ported (tests/test_torch_seq_parallel.py); a
-    mesh with a tensor axis, per-token logprobs and the hidden state are
-    not and raise, citing their ROADMAP items."""
+    mesh with a tensor axis, per-token logprobs and the block's hidden
+    state (batched MTP serving) are not and raise, citing their ROADMAP
+    items."""
     eng = _port_engine(ckpt)
     for kw, item in (("mesh", "item 14"), ("with_logprobs", "item 12"),
-                     ("with_hidden", "item 11")):
+                     ("with_hidden", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             make_decode_loop(eng.cfg, 4, **{kw: Mesh(tensor=2) if kw == "mesh" else True})
     loop = make_decode_loop(eng.cfg, 4)

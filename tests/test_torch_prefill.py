@@ -226,7 +226,7 @@ def test_forward_prefill_batch_matches_jax(ckpt):
 def test_prefill_rejects_unported_modes(ckpt):
     eng = ckpt["eng"]
     tok = torch.tensor([[5, 6]])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         forward_prefill(eng.params, eng.new_cache(), tok, torch.tensor([0]), eng.cfg)
     with pytest.raises(ValueError, match="window"):
         forward_prefill(eng.params, eng.new_cache(), tok, WINDOW - 1, eng.cfg)
