@@ -117,6 +117,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
      draw with a random MTP layer, the draft-model, n-gram and MTP
      speculation rounds against plain greedy decode, each round's launches
      counted and its time beside plain decode.
+  8. batched decode and continuous batching: a tiny packed Q3_K .dseek
+     through BatchScheduler on the card against the CPU scheduler (5
+     requests through 2 slots at temperature 0.8: the same tokens); `-m
+     serve --batch 4` (and `--serve-spec`) as a subprocess on a free
+     loopback port over the CLI phase's V2-Lite-width checkpoint: /health,
+     4 concurrent completions (streamed, with a stop string, with logprobs,
+     top_k 1) whose greedy text is the CLI's, then spec="ngram" serving in
+     process (K9 with per-row starts); on the V3-width packed Q3_K draw
+     (its MTP layer, f32 compute) 8 requests of 20-600 prompt tokens
+     through BatchScheduler(batch_size=4, logprobs=True,
+     prefix_cache_mb=64): greedy slots equal their runs alone (near ties
+     allowed), the logprobs the log-softmax of the single-sequence
+     teacher-forced logits within 1e-3 (batched decode is batch-invariant:
+     a served row computes the bits of the sequence alone), a prefix-cache
+     hit; then spec="ngram" and spec="mtp" serving (K10 with
+     per-row starts) against plain; tok/s at batch 1 and 4, a decode
+     step's wall and device-busy time at B = 1 and 4, a serving block
+     under set_sync_debug_mode("error"); then K5/K1 at 4 and 8 rows, K2
+     over a batch of 4 tokens' pairs, K3 at B = 4 with unequal kv_len and
+     K9/K10 with per-row starts (beside the scalar form) against their
+     plain versions.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -3195,11 +3216,19 @@ def same_or_near_tie(ref_logits, want, got, label):
     return n
 
 
-def teacher_logits(eng, prompt, tokens):
+def teacher_logits(eng, prompt, tokens, donor=None, reused=0):
     """The engine's logits choosing each of ``tokens`` after ``prompt`` on
-    generate's schedule (prefill, then decode steps)."""
+    generate's schedule (prefill, then decode steps). With ``donor`` the
+    prompt is hydrated as the serving scheduler admits it after a prefix
+    hit of ``reused`` tokens: the donor's prompt first (its admission wrote
+    the rows that the prefix cache keeps), then the prompt from ``reused``
+    on."""
     cache = eng.new_cache()
-    _, logits, _, pos = eng.hydrate(cache, prompt)
+    if donor is not None:
+        eng.hydrate(cache, donor)
+        _, logits, _, pos = eng.hydrate(cache, prompt[reused:], reused)
+    else:
+        _, logits, _, pos = eng.hydrate(cache, prompt)
     rows = [logits]
     for t in tokens[:-1]:
         rows.append(eng.step(cache, t, pos)[0].float().cpu().numpy())
@@ -3280,6 +3309,9 @@ def cli_phase(counts, runs, device="cuda", cfg=None):
             raise RuntimeError(f"CLI {label} text {cli_texts(out)!r} is not the "
                                f"in-process run's {gtext!r}")
         same_or_near_tie(ref, want, got, f"CLI {label}")
+    t1 = time.perf_counter()
+    serve_cli_phase(counts, runs, ck, eng, prompt, want, ref, device)
+    log(f"CLI -m serve phase: {time.perf_counter() - t1:.1f} s")
     ppl, err, n = eng.perplexity(
         np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "deepseek_tpu_torch", "fixtures", "wikitext_v2.npy")
@@ -3499,6 +3531,608 @@ def spec_rounds_phase(params, cfg, counts, runs, label="V3 packed Q3_K"):
     run("MTP", mtp_setup, mtp_call, ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"))
 
 
+# ---------------------------------------------------------------------------
+# batched decode and continuous-batching serving
+# ---------------------------------------------------------------------------
+
+SERVE_NEW = 24             # tokens each V3 serving request generates
+SERVE_LENS = (20, 140, 300, 600, 64, 400, 210, 520)   # prompt lengths
+SERVE_SHARED = 128         # the prefix two requests share
+SERVE_TOL = 1e-3           # logprobs against the teacher-forced log-softmax
+
+
+def params_engine(params, cfg, seed=SEED):
+    """An Engine over in-memory params (a random draw has no .dseek):
+    Engine.from_params with a byte-fallback tokenizer of the config's
+    vocabulary (save_tiny's)."""
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.tokenizer import Tokenizer
+
+    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
+    vocab += [f"tok{i}".encode() for i in range(len(vocab), cfg.vocab_size)]
+    return Engine.from_params(params, cfg, Tokenizer(vocab, bos_id=1, eos_id=2), seed=seed,
+                              prefill_chunk=256, decode_block=32)
+
+
+def joined_text(eng, prompt, toks) -> bytes:
+    """The bytes of ``toks`` after ``prompt``, as the scheduler joins them."""
+    out, prev = b"", prompt[-1]
+    for t in toks:
+        out += eng.tokenizer.decode_one(prev, t)
+        prev = t
+    return out
+
+
+def logprobs_of(rows, toks):
+    """The log-softmax of each of ``toks`` in its logits row (float64)."""
+    out = []
+    for lg, t in zip(rows, toks):
+        z = np.asarray(lg, np.float64)
+        m = z.max()
+        out.append(float(z[t] - m - np.log(np.exp(z - m).sum())))
+    return np.asarray(out)
+
+
+def serving_requests(eng, rng):
+    """SERVE_LENS prompts (admissions of up to 3 prefill chunks); requests 1
+    and 5 share a SERVE_SHARED-token prefix; requests 0, 2, 4 and 6 repeat a
+    16-token pattern (prompt lookup has something to find). Requests 2 and
+    6 sample at 0.8, request 3 at 0.8 with top_k 1 (greedy), the rest are
+    greedy; request 7 has a stop string (set by the caller)."""
+    from deepseek_tpu_torch.serving import Request
+
+    V = eng.cfg.vocab_size
+    shared = [int(v) for v in rng.integers(3, V, SERVE_SHARED)]
+    prompts = []
+    for i, n in enumerate(SERVE_LENS):
+        if i in (1, 5):
+            p = shared + [int(v) for v in rng.integers(3, V, n - SERVE_SHARED)]
+        elif i % 2 == 0:
+            p = ([int(v) for v in rng.integers(3, V, 16)] * (n // 16 + 1))[:n]
+        else:
+            p = [int(v) for v in rng.integers(3, V, n)]
+        prompts.append(p)
+    temps = [0.8 if i in (2, 3, 6) else 0.0 for i in range(len(prompts))]
+    reqs = []
+    for i, (p, t) in enumerate(zip(prompts, temps)):
+        reqs.append(Request(prompt_tokens=p, max_new_tokens=SERVE_NEW, temperature=t,
+                            top_p=0.95, top_k=1 if i == 3 else 0, logprobs=True))
+    return reqs
+
+
+def fresh(reqs):
+    """The same requests, unserved."""
+    import copy
+    out = []
+    for r in reqs:
+        c = copy.copy(r)
+        c.out_tokens, c.out_logprobs, c.out_bytes = [], [], b""
+        c.done = c.stop_hit = False
+        c._held = b""
+        out.append(c)
+    return out
+
+
+def serve_all(eng, reqs, **kw):
+    """A BatchScheduler over ``reqs``: (scheduler, finished requests in
+    submission order, wall seconds)."""
+    from deepseek_tpu_torch.serving import BatchScheduler
+
+    sched = BatchScheduler(eng, **kw)
+    for r in reqs:
+        sched.submit(r)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = sched.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return sched, done, time.perf_counter() - t0
+
+
+def profile_block(sched, label):
+    """(wall ms, device-busy ms, idle share) of one decode step of the
+    scheduler's batch: a warm-up block, then a timed block and a profiled
+    one of the same positions and slots; device busy is the sum of the
+    profiler's CUDA kernel times (scripts/torch_profile_decode.py)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepseek_tpu_torch.ops import prng
+
+    B, blk = sched.batch, sched.block
+    live = np.array([r is not None for r in sched.slots])
+    if not live.any():
+        live[:] = True
+    temps = np.zeros(B, np.float32)
+    ones = np.ones(B, np.float32)
+    zeros = np.zeros(B, np.float32)
+    loop = sched._loop_for(blk)
+    tok = torch.from_numpy(sched.cur.reshape(-1, 1).copy()).to("cuda")
+    pos = sched.pos.copy()
+
+    def run():
+        with torch.inference_mode():
+            loop(sched.params, sched.cache, tok, pos, prng.PRNGKey(SEED), temps, ones,
+                 live, zeros, zeros)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / blk
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) or 0.0
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3 / blk
+    idle = max(0.0, 1 - busy / wall)
+    log(f"{label}: a decode step of the batch of {B} ({int(live.sum())} live): wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share {idle:.3f}")
+    return wall, busy, idle
+
+
+def sync_debug_serving_block(sched, label):
+    """One decode block of the scheduler's loop with per-slot sampling
+    arrays (greedy, sampled, top-k and min-p rows) and an active mask with a
+    dead row, under torch.cuda.set_sync_debug_mode("error")."""
+    from deepseek_tpu_torch.ops import prng
+
+    B = sched.batch
+    loop = sched._loop_for()
+    rows = (np.array([0.0, 0.8, 0.8, 1.0][:B], np.float32),
+            np.array([0.95, 0.9, 1.0, 0.95][:B], np.float32),
+            np.array([0.0, 0.0, 20.0, 0.0][:B], np.float32),
+            np.array([0.0, 0.0, 0.0, 0.05][:B], np.float32))
+    active = np.array([True, True, False, True][:B])
+    tok = torch.full((B, 1), 5, dtype=torch.int64, device="cuda")
+    pos = np.array([3, 40, 0, 17][:B])
+    with torch.inference_mode():
+        loop(sched.params, sched.cache, tok, pos, prng.PRNGKey(SEED), *rows[:2], active,
+             *rows[2:])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = loop(sched.params, sched.cache, tok, pos, prng.PRNGKey(SEED + 1),
+                       *rows[:2], active, *rows[2:])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    toks, logits = out[0], out[1]
+    if toks.shape != (B, sched.block) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{label}: the serving block under sync debug mode: bad output")
+    log(f"{label}: a {sched.block}-step serving block (per-slot sampling arrays, an "
+        f"active mask with a dead row, logprobs) ran under set_sync_debug_mode('error')")
+
+
+def serving_phase(params, cfg, counts, runs, label="V3 packed Q3_K"):
+    """Continuous batching at DeepSeek-V3's widths: the 4-layer packed Q3_K
+    draw with its MTP layer, without the factor weights (a random draw's
+    wq_b/wkv_b are not the factors of its absorbed weights, so a hybrid
+    prefill and a decode step would compute other functions, and MTP
+    serving's seed step rewrites the last prompt row in decode mode), so
+    admission chunks and verify chunks run K10 (the latter with per-row
+    starts); f32 compute,
+    through an Engine over the in-memory params (``params_engine``). Eight
+    requests (``serving_requests``) through BatchScheduler(batch_size=4,
+    logprobs=True, prefix_cache_mb=64): every greedy request's tokens are
+    the same prompt's run alone (Engine.generate) or first apart at a near
+    tie; the stop request's text is the alone run's cut before its stop
+    string; every request's log-probabilities are the log-softmax of its
+    single-sequence teacher-forced logits (``teacher_logits``: Engine.step,
+    a batch of 1; request 5 on the schedule of its prefix hit) within
+    SERVE_TOL: the decode step is batch-invariant, so the row served in a
+    batch of 4 computes the bits of the sequence decoded alone
+    (scripts/torch_batch_invariance.py holds it op by op); the
+    prefix-sharing request hits the prefix cache. Then spec="ngram" and
+    spec="mtp" serving of the same
+    requests: greedy slots equal plain serving's (near ties allowed). The
+    aggregate tok/s at batch 1 and 4, a decode step's wall and device-busy
+    time at B = 1 and 4, and a serving block under sync debug mode.
+    Returns (the batch-4 scheduler, its Engine) for the kernel entries."""
+    from deepseek_tpu_torch.serving import BatchScheduler
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    strip = lambda lp: dataclasses.replace(lp, wq_b=None, wkv_b=None)
+    params = dataclasses.replace(
+        params, layers=[strip(lp) for lp in params.layers],
+        mtp=dataclasses.replace(params.mtp, block=strip(params.mtp.block)))
+    t0 = time.perf_counter()
+    eng = params_engine(params, cfg)
+    rng = np.random.default_rng(SEED + 53)
+    reqs = serving_requests(eng, rng)
+    greedy = [i for i, r in enumerate(reqs) if r.temperature == 0.0 or r.top_k == 1]
+    # each greedy request alone (generate's schedule) and its teacher logits
+    alone, ref = {}, {}
+    for i in greedy:
+        alone[i] = eng.generate(reqs[i].prompt_tokens, SERVE_NEW, temperature=0.0)[0]
+        ref[i] = teacher_logits(eng, reqs[i].prompt_tokens, alone[i])
+    text7 = joined_text(eng, reqs[7].prompt_tokens, alone[7])
+    at = next((j for j in range(len(text7) // 3, len(text7) - 4)
+               if all(32 < c < 127 for c in text7[j:j + 4])), None)
+    stop = text7[at:at + 4].decode() if at is not None else None
+    reqs[7].stop = [stop] if stop else None
+    log(f"{label} serving: {len(reqs)} requests, prompts {list(SERVE_LENS)} tokens, "
+        f"{SERVE_NEW} new each, greedy {greedy}, request 7's stop {stop!r}; the alone "
+        f"runs and their teacher logits in {time.perf_counter() - t0:.1f} s")
+
+    (sched, done, wall4), runs[f"{label} serving"] = drive(
+        counts, ("K5-packed", "K5r-packed", "K2-packed", "K6-packed", "K3", "K10"),
+        f"{label} serving, batch 4",
+        lambda: serve_all(eng, fresh(reqs), batch_size=4, logprobs=True,
+                          prefix_cache_mb=64))
+    n_tok = sum(len(r.out_tokens) for r in done)
+    log(f"{label} serving, batch 4: {n_tok} tokens in {wall4:.2f} s = "
+        f"{n_tok / wall4:.2f} tok/s aggregate (admissions included); prefix cache "
+        f"{sched.prefix_cache.stats}")
+    for i in greedy:
+        got = done[i].out_tokens
+        n = same_or_near_tie(ref[i], alone[i], got, f"{label} serving request {i}")
+        if i == 7 and stop:
+            want = text7[:text7.find(stop.encode())]
+            if n == len(got) and not (done[i].stop_hit and done[i].out_bytes == want):
+                raise RuntimeError(f"{label} serving: the stop request's text "
+                                   f"{done[i].out_bytes!r} is not {want!r}")
+        elif n == len(got) and len(got) != len(alone[i]):
+            raise RuntimeError(f"{label} serving request {i}: {len(got)} tokens, alone "
+                               f"{len(alone[i])}")
+    if sched.prefix_cache.stats["hits"] < 1:
+        raise RuntimeError(f"{label} serving: the shared prefix never hit the prefix cache")
+    # the logprobs against the single-sequence teacher, which admits request
+    # 5 as the scheduler did: request 1's prompt, then its own from the
+    # shared prefix on (the prefix cache restores request 1's rows)
+    st = sched.prefix_cache.stats
+    if (st["hits"], st["tokens_reused"]) != (1, SERVE_SHARED):
+        raise RuntimeError(f"{label} serving: prefix cache {st}, the teacher expects "
+                           f"one hit of {SERVE_SHARED} tokens (request 5)")
+    worst, scale = 0.0, 0.0
+    for r in done:
+        i = r.request_id
+        hit = dict(donor=reqs[1].prompt_tokens, reused=SERVE_SHARED) if i == 5 else {}
+        rows = (ref[i] if i in ref and not hit and alone[i] == r.out_tokens
+                else teacher_logits(eng, r.prompt_tokens, r.out_tokens, **hit))
+        want = logprobs_of(rows, r.out_tokens)
+        got = np.asarray(r.out_logprobs)
+        err = float(np.abs(got - want).max())
+        if not err <= SERVE_TOL:
+            log(f"{label} serving request {i}: logprobs {r.out_logprobs}, teacher-forced "
+                f"{want.tolist()}")
+        worst = max(worst, err)
+        scale = max(scale, max(float(np.abs(lg).max()) for lg in rows))
+    log(f"{label} serving: logprobs against the single-sequence teacher-forced "
+        f"log-softmax: max abs err {worst:.3e} (tolerance {SERVE_TOL}; logit scale "
+        f"{scale:.1f})")
+    if not worst <= SERVE_TOL:
+        raise RuntimeError(f"{label} serving: logprobs disagree with the teacher-forced "
+                           "log-softmax")
+
+    _, done1, wall1 = serve_all(eng, fresh(reqs), batch_size=1, logprobs=True,
+                                prefix_cache_mb=64)
+    n1 = sum(len(r.out_tokens) for r in done1)
+    log(f"{label} serving, batch 1: {n1} tokens in {wall1:.2f} s = {n1 / wall1:.2f} tok/s "
+        f"aggregate; batch 4: {n_tok / wall4:.2f} tok/s ({card_line()})")
+    for i in greedy:
+        same_or_near_tie(ref[i], alone[i], done1[i].out_tokens,
+                         f"{label} serving batch 1, request {i}")
+    for spec in ("ngram", "mtp"):
+        (ssched, sdone, swall), runs[f"{label} serving {spec}"] = drive(
+            counts, ("K10", "K10-rows", "K5r-packed", "K2-packed"),
+            f"{label} serving, spec={spec}",
+            lambda: serve_all(eng, fresh(reqs), batch_size=4, logprobs=True,
+                              prefix_cache_mb=64, spec=spec))
+        ns = sum(len(r.out_tokens) for r in sdone)
+        st = ssched.spec_stats
+        log(f"{label} serving, spec={spec}: {ns} tokens in {swall:.2f} s = "
+            f"{ns / swall:.2f} tok/s aggregate, {st}, acceptance "
+            f"{st['accepted'] / max(1, st['drafted']):.3f}")
+        for i in greedy:
+            same_or_near_tie(ref[i], alone[i], sdone[i].out_tokens,
+                             f"{label} serving spec={spec}, request {i}")
+
+    step = {}
+    for B in (1, 4):
+        s = BatchScheduler(eng, batch_size=B, logprobs=True)
+        for r in fresh(reqs)[:B]:
+            r.max_new_tokens, r.stop = 1 << 20, None    # every slot stays live
+            s.submit(r)
+        while s.queue or s.pending is not None:   # the admissions
+            s.step()
+        step[B] = profile_block(s, f"{label} serving")
+        del s
+    log(f"{label} serving: decode step wall / device busy / idle share, B = 1: "
+        f"{step[1][0]:.3f} / {step[1][1]:.3f} ms / {step[1][2]:.3f}; B = 4: "
+        f"{step[4][0]:.3f} / {step[4][1]:.3f} ms / {step[4][2]:.3f} ({card_line()})")
+    sync_debug_serving_block(sched, label)
+    log(f"{label} serving phase: {time.perf_counter() - t0:.1f} s")
+    return sched, eng
+
+
+def serving_kernel_entries(sched, cfg, entries, path, spec_path):
+    """The kernels at the serving batch's shapes on the V3-width packed Q3_K
+    draw: K5's packed matvec at B = 4 and its tile GEMM at B = 8 on the
+    attention and dense projections and the lm_head, K1 (nibble, the same
+    w13 converted) at 4 and 8 rows; K2's packed body over 4 tokens' 8 routed
+    experts each (32 pairs, sorted, experts repeated across tokens); K3 at B
+    = 4 with unequal kv_len; K10 with per-row starts (4 verify chunks of
+    5 rows at unequal starts, the spec rounds' shape) beside the scalar
+    form at the largest start (``scalar_ms``); K9 with per-row starts at
+    V2-Lite's widths (the MHA verify chunks). Tolerance 1e-4 of max|ref|."""
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mla_decode_attn, mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn, mla_prefill_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 57)
+    emit, emit_spec = make_emit(entries, path), make_emit(entries, spec_path)
+    emit_nib = make_emit(entries)
+    emit_k9 = make_emit(entries, "CLI serve spec in process")
+    params = sched.params
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    k5 = "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _q3k_body :368)"
+    for label, qt in (("wkvq", dense.wkvq), ("wcr", dense.wcr), ("wo", dense.wo),
+                      ("w13 (dense)", dense.w13), ("lm_head", params.lm_head)):
+        d, n = qt.shape
+        for rows in (4, 8):
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            tiled = rows > 4
+            emit(f"K5 qmm Q3_K packed {label} (serving batch) {rows}x{d}x{n}",
+                 lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                 nbytes(x) + qt.nbytes_active + 4 * rows * d, 2.0 * rows * d * n,
+                 "deepseek_tpu_torch/csrc/" + ("qmm_tiles.cu" if tiled else "packed_mv.cu"),
+                 k5, "K5r-packed" if tiled else "K5-packed")
+            if label == "w13 (dense)":
+                nib = packed_to_nibble(qt)
+                emit_nib(f"K1 qmm Q3_K nibble (the same w13, converted; serving batch) "
+                     f"{rows}x{d}x{n}",
+                     lambda: qmm(nib, x), lambda: qmm_plain(nib, x), 1e-4,
+                     nbytes(x, nib.p, nib.a, nib.c) + 4 * rows * d, 2.0 * rows * d * n,
+                     "deepseek_tpu_torch/csrc/" + ("qmm_tiles.cu" if tiled
+                                                   else "nibble_mv.cu"),
+                     "deepseek_tpu/ops/pallas/qmm.py:312 (qmm, _knib_body :206)",
+                     "K1r" if tiled else "K1")
+                del nib
+    # K2: 4 tokens' 8 routed experts each, the pair list sorted by expert
+    E = cfg.n_routed_experts
+    ids = torch.stack([torch.randperm(E, generator=gen, device="cuda")[:cfg.n_active_routed]
+                       for _ in range(4)]).reshape(-1).sort().values
+    u = int(ids.unique().numel())
+    for label, qt in (("w13 (MoE)", moe.w13), ("w2 (MoE)", moe.w2)):
+        n_tab, d, n = qt.shape
+        x = torch.randn((ids.numel(), n), generator=gen, device="cuda")
+        emit(f"K2 qmm_experts Q3_K packed {label} (serving batch 4: {ids.numel()} pairs "
+             f"over {u} experts) {d}x{n}",
+             lambda: qmm_experts(qt, ids, x), lambda: qmm_experts_plain(qt, ids, x), 1e-4,
+             nbytes(x) + qt.nbytes_active / n_tab * u + 4 * d * ids.numel(),
+             2.0 * ids.numel() * d * n, "deepseek_tpu_torch/csrc/packed_mv.cu",
+             "deepseek_tpu/ops/pallas/qmm.py:566 (qmm_experts, _q3k_body :368)",
+             "K2-packed")
+    S, dt = cfg.kv_window, sched.cache.ckv.dtype
+    kv = [1, 37, 2500, S]
+    qc = torch.randn((4, H, R), generator=gen, device="cuda")
+    qr = torch.randn((4, H, P), generator=gen, device="cuda")
+    ckv = torch.randn((4, S, R), generator=gen, device="cuda").to(dt)
+    kr = torch.randn((4, S, P), generator=gen, device="cuda").to(dt)
+    kl = torch.tensor(kv, device="cuda", dtype=torch.int32)
+    scale = cfg.attn_softmax_scale()
+    emit(f"K3 mla_decode_attn (serving batch 4, kv_len {kv}) H={H}",
+         lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale),
+         lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale), 1e-4,
+         sum(kv) * (R + P) * ckv.element_size() + nbytes(qc, qr) + 16 * H * R,
+         2.0 * H * sum(kv) * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
+         "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, pallas_call :221)",
+         "K3")
+    T, starts = 5, [600, 37, 2400, 4000]
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    qc = torch.randn((4, T, H, R), generator=gen, device="cuda") * 0.3
+    qr = torch.randn((4, T, H, P), generator=gen, device="cuda") * 0.3
+    seen = sum(s + T for s in starts)
+    e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (4 verify chunks of {T} "
+                  f"rows) S={S} H={H}",
+                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale,
+                                           q_pos0_max=max(starts)),
+                  lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale), 1e-4,
+                  seen * (R + P) * ckv.element_size() + nbytes(qc, qr) + 4 * 4 * T * H * R,
+                  2.0 * T * H * seen * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
+                  "deepseek_tpu/models/deepseek.py:1024-1035 (verify mode; the JAX package "
+                  "runs it in XLA, attention.py:213; K10: attention.py:644, pallas_call :707)",
+                  "K10-rows")
+    e["scalar_ms"] = time_ms(lambda: mla_prefill_attn(qc, qr, ckv, kr, max(starts), 0, scale))
+    log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
+    del ckv, kr
+    # K9 at V2-Lite's MHA widths (16 heads, 192/128) over an f16 window
+    from deepseek_tpu_torch.models.testing import deepseek_v2_lite_proportions
+    v2 = deepseek_v2_lite_proportions()
+    Hm, Dh, Dv, Sm = v2.n_heads, v2.head_dim, v2.v_head_dim, v2.kv_window
+    q = torch.randn((4, T, Hm, Dh), generator=gen, device="cuda") * 0.3
+    k = (torch.randn((4, Sm, Hm, Dh), generator=gen, device="cuda") * 0.3).half()
+    v = (torch.randn((4, Sm, Hm, Dv), generator=gen, device="cuda") * 0.3).half()
+    sc = 1.0 / math.sqrt(Dh)
+    seen = sum(s + T for s in starts)
+    e = emit_k9(f"K9 mha_prefill_attn per-row starts {starts} (V2-Lite widths, f16, 4 "
+                  f"verify chunks of {T} rows) S={Sm} H={Hm}",
+                  lambda: mha_prefill_attn(q, k, v, st, 0, sc, q_pos0_max=max(starts)),
+                  lambda: mha_prefill_attn_plain(q, k, v, st, 0, sc), 1e-4,
+                  seen * Hm * (Dh + Dv) * 2 + nbytes(q) + 4 * 4 * T * Hm * Dv,
+                  2.0 * T * Hm * seen * (Dh + Dv), "deepseek_tpu_torch/csrc/prefill_attn.cu",
+                  "deepseek_tpu/models/deepseek.py:548-578 (MHA verify mode in XLA; K9: "
+                  "attention.py:481, pallas_call :543)", "K9-rows")
+    e["scalar_ms"] = time_ms(lambda: mha_prefill_attn(q, k, v, max(starts), 0, sc))
+    log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
+    del q, k, v
+
+
+def tiny_serving_phase(counts, runs, device="cuda"):
+    """Continuous batching on a tiny packed Q3_K .dseek (V3 routing, R 512)
+    through BatchScheduler on the card and on the CPU (the plain versions):
+    5 requests through 2 slots sampled at temperature 0.8 (top_p 0.95),
+    with logprobs and the prefix cache; every token must be the CPU
+    scheduler's, the log-probabilities within 1e-3."""
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.serving import Request
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 59)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_serve")
+    shutil.rmtree(tmp, ignore_errors=True)
+    write_tiny_checkpoint(tmp, rng, max_seq_len=256, window=128)
+    base = [int(v) for v in rng.integers(3, 512, 70)]
+    prompts = [base + [int(v) for v in rng.integers(3, 512, n)] for n in (5, 40, 1, 90, 12)]
+
+    def run(dev):
+        eng = Engine(tmp, device=dev, seed=SEED)
+        reqs = [Request(prompt_tokens=p, max_new_tokens=20, temperature=0.8, top_p=0.95,
+                        logprobs=True) for p in prompts]
+        return serve_all(eng, reqs, batch_size=2, logprobs=True, prefix_cache_mb=8,
+                         prefix_block=32)
+
+    (_, got, _), runs["tiny serving"] = drive(
+        counts, ("K5-packed", "K5r-packed", "K2-packed", "K3", "K10"),
+        "tiny packed Q3_K serving on the card", lambda: run(device))
+    _, want, _ = run("cpu")
+    same_tokens([r.out_tokens for r in got], [r.out_tokens for r in want],
+                "tiny packed Q3_K serving, 5 requests through 2 slots at 0.8")
+    err = max(float(np.abs(np.asarray(a.out_logprobs) - b.out_logprobs).max())
+              for a, b in zip(got, want))
+    log(f"tiny serving: logprobs card vs CPU max abs err {err:.3e} (tolerance 1e-3); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= 1e-3:
+        raise RuntimeError("tiny serving: logprobs disagree with the CPU scheduler")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(url, payload=None, timeout=CLI_TIMEOUT):
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+    return body if payload is not None and payload.get("stream") else json.loads(body)
+
+
+def serve_cli_phase(counts, runs, ck, eng, prompt, want, ref, device="cuda"):
+    """``python -m deepseek_tpu_torch <ckpt> -m serve --batch 4`` on the CLI
+    phase's V2-Lite-width F8E5M2 checkpoint, a subprocess on a free
+    loopback port: GET /health, then 4 concurrent POST /v1/completions of
+    the CLI's prompt (streamed; with a stop string; with logprobs; at 0.8
+    with top_k 1), whose greedy tokens must be the in-process greedy run's
+    (which gave the CLI's text; near ties allowed) and whose texts the
+    joined text of those tokens (the stop one cut before its stop string).
+    Then a --serve-spec server, one greedy request. Each server is stopped
+    when done. In process, a spec="ngram" scheduler over the same Engine
+    drives K9's per-row starts (MHA verify chunks)."""
+    import threading
+
+    from deepseek_tpu_torch.serving import BatchScheduler, Request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    text = joined_text(eng, prompt, want).decode("utf-8", errors="replace")
+    at = next((j for j in range(len(text) // 3, len(text) - 3)
+               if text[j:j + 3].isascii() and text[j:j + 3].isprintable()), None)
+    stop = text[at:at + 3] if at is not None else None
+    for spec in (None, "ngram"):
+        t0 = time.perf_counter()
+        port = free_port()
+        url = f"http://127.0.0.1:{port}"
+        args = [sys.executable, "-m", "deepseek_tpu_torch", ck, "-m", "serve", "--port",
+                str(port), "--batch", "4", "--device", device]
+        if spec:
+            args.append("--serve-spec")
+        logf = open(os.path.join(os.path.dirname(ck), f"serve_{spec or 'plain'}.log"), "w+")
+        proc = subprocess.Popen(args, cwd=root, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            health = None
+            while time.perf_counter() - t0 < CLI_TIMEOUT:
+                if proc.poll() is not None:
+                    break
+                try:
+                    health = http_json(url + "/health", timeout=5)
+                    break
+                except OSError:
+                    time.sleep(1)
+            if health is None or health.get("status") != "ok":
+                logf.seek(0)
+                raise RuntimeError(f"-m serve did not come up: {logf.read()[-3000:]}")
+            log(f"-m serve{' --serve-spec' if spec else ''}: /health after "
+                f"{time.perf_counter() - t0:.1f} s: {health}")
+            base = {"prompt": CLI_PROMPT, "max_tokens": CLI_NEW, "temperature": 0.0}
+            payloads = ([dict(base, stream=True), dict(base, stop=stop),
+                         dict(base, logprobs=True), dict(base, temperature=0.8, top_k=1)]
+                        if spec is None else [dict(base, logprobs=True)])
+            out = [None] * len(payloads)
+            t1 = time.perf_counter()
+
+            def go(i):
+                out[i] = http_json(url + "/v1/completions", payloads[i])
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(len(payloads))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(CLI_TIMEOUT)
+            dt = time.perf_counter() - t1
+            if any(o is None for o in out):
+                raise RuntimeError("-m serve: a request got no answer")
+            for i, (p, o) in enumerate(zip(payloads, out)):
+                name = f"-m serve{' --serve-spec' if spec else ''} request {i}"
+                if p.get("stream"):
+                    lines = [ln for ln in o.decode().splitlines() if ln.startswith("data: ")]
+                    if lines[-1] != "data: [DONE]":
+                        raise RuntimeError(f"{name}: the stream did not end with [DONE]")
+                    got_text = "".join(json.loads(ln[6:])["text"] for ln in lines[:-1])
+                    if got_text != text:
+                        raise RuntimeError(f"{name}: streamed text {got_text!r}, greedy "
+                                           f"{text!r}")
+                    continue
+                n = same_or_near_tie(ref, want, o["tokens"], name)
+                if n < len(want):
+                    continue
+                if p.get("stop"):
+                    wtext = text[:text.find(stop)]
+                    if o["text"] != wtext or o["finish_reason"] != "stop":
+                        raise RuntimeError(f"{name}: stop {stop!r} gave {o['text']!r}, "
+                                           f"want {wtext!r}")
+                elif o["text"] != text:
+                    raise RuntimeError(f"{name}: text {o['text']!r}, greedy {text!r}")
+                if p.get("logprobs") and not (len(o["logprobs"]) == len(o["tokens"])
+                                              and all(x <= 0 for x in o["logprobs"])):
+                    raise RuntimeError(f"{name}: bad logprobs")
+            health = http_json(url + "/health", timeout=60)
+            log(f"-m serve{' --serve-spec' if spec else ''}: {len(payloads)} concurrent "
+                f"completions in {dt:.2f} s, greedy text the CLI's; /health {health}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    # in process: MHA verify chunks (K9 with per-row starts)
+    reqs = [Request(prompt_tokens=list(prompt), max_new_tokens=CLI_NEW, temperature=0.0)
+            for _ in range(2)]
+    (sched, done, wall), runs["CLI serve spec in process"] = drive(
+        counts, ("K9-rows", "K9", "K8", "K5", "K5r", "K2-fp8"),
+        "V2-Lite-width F8E5M2, spec='ngram' serving in process",
+        lambda: serve_all(eng, reqs, batch_size=4, spec="ngram"))
+    for r in done:
+        same_or_near_tie(ref, want, r.out_tokens, "in-process spec='ngram' serving")
+    log(f"V2-Lite-width spec serving in process: {sched.spec_stats}, {wall:.2f} s")
+
+
 def spilling_kernels(logs, names):
     """The entry functions among ``names`` (substrings of the mangled
     names) whose ptxas -v lines report spill stores or loads."""
@@ -3553,7 +4187,9 @@ def counters():
             "K9-part": mha_prefill_attn.partials,
             "K9-part-int8": mha_prefill_attn.partials.int8,
             "K10-part": mla_prefill_attn.partials,
-            "K10-part-int8": mla_prefill_attn.partials.int8}
+            "K10-part-int8": mla_prefill_attn.partials.int8,
+            # the launches with per-row chunk starts (verify mode)
+            "K9-rows": mha_prefill_attn.per_row, "K10-rows": mla_prefill_attn.per_row}
 
 
 def reset(counts):
@@ -3579,7 +4215,7 @@ def main() -> int:
         log("DSEEK_FUSED_FFN cleared: the fused FFN phase sets it for its own loads")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     # a fresh build, so that ptxas reports on every kernel of this checkout
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     build.build_all()
@@ -3613,6 +4249,7 @@ def main() -> int:
     # speculation through it on a tiny V3-arch checkpoint
     cli_phase(counts, runs)
     mtp_cli_phase(counts, runs)
+    tiny_serving_phase(counts, runs)
 
     cfg = deepseek_v3_proportions(n_layers=4)
     t0 = time.perf_counter()
@@ -3652,6 +4289,12 @@ def main() -> int:
             decode_block_phase(params, cfg, label)
             int8_cache_phase(params, cfg, counts, label, runs)
             spec_rounds_phase(params, cfg, counts, runs)
+            sched, _ = serving_phase(params, cfg, counts, runs)
+            log(f"kernels at the serving batch's shapes, {label} (each against its plain "
+                f"version on the card):")
+            serving_kernel_entries(sched, cfg, entries, f"V3 {label} serving",
+                                   f"V3 {label} serving ngram")
+            del sched
         log(f"kernels, {label} (each against its plain version on the card):")
         packed_kernel_entries(params, cfg, quant, entries, dec, pre)
         del params
@@ -3724,6 +4367,7 @@ def main() -> int:
                "K10-f16": "entry point", "K3-f16": "entry point",
                "K10-f32": "packed Q3_K entry point, float32 cache",
                "K3-f32": "packed Q3_K entry point, float32 cache"}
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     return finish(card, entries, runs, path_of)
 
 

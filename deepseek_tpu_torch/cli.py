@@ -1,4 +1,4 @@
-"""CLI workloads: completion | perplexity | passkey | chat | interactive.
+"""CLI workloads: completion | perplexity | passkey | chat | interactive | serve.
 
 The port of ``deepseek_tpu/cli.py``, with the same flags and defaults (the
 reference's surface, main.cpp:18-43, and the JAX CLI's long options):
@@ -6,13 +6,16 @@ reference's surface, main.cpp:18-43, and the JAX CLI's long options):
     python -m deepseek_tpu_torch <checkpoint_dir> [options]
       -h            help
       -L            lock/eagerly materialize weights
-      -m <mode>     completion|perplexity|passkey|interactive|chat (default
-                    completion); serve is not ported yet and exits non-zero
+      -m <mode>     completion|perplexity|passkey|interactive|chat|serve
+                    (default completion)
       -T <int>      sliding window context length (0 = max)
     completion: -i <str> | -f <path>, -t <float>, -p <float>, -n <int>,
                 --draft <ckpt> | --mtp-spec | --ngram-spec, --spec-k <int>
     perplexity: -i <str> | -f <path> | -w (embedded wikitext fixture)
     passkey:    -n <int> junk lines, -l <int> passkey position (-1 random)
+    serve:      --port, --host, --batch, --no-warmup, --prefix-cache <MB>,
+                --serve-spec [ngram|mtp], --spec-k (``server.py``: HTTP over
+                the continuous-batching scheduler)
 
 The model runs on the card (``--device cuda``, the default) or, with
 ``--device cpu``, through the kernels' plain versions. The defaults are
@@ -87,8 +90,7 @@ Options of the port:
   --seed <int>                sampler seed
   --yarn                      apply YaRN rope scaling (reference parses but
                               never applies it; opt-in quality improvement)
-Serve mode (-m serve) is not ported yet (ROADMAP.md queue 1, item 12);
-its options are parsed and unused:
+Serve mode (-m serve) options:
   --port <int>                HTTP port (default 8080)
   --host <str>                bind address (default 127.0.0.1)
   --batch <int>               continuous-batching slots (default 4)
@@ -518,10 +520,6 @@ def main(argv: Optional[List[str]] = None):
             rest.append(a)
         i += 1
     parse_mode_flags(args, rest)
-    if args.mode == "serve":
-        print("Error: -m serve (continuous batching over HTTP) is not ported "
-              "yet: ROADMAP.md queue 1, item 12", file=sys.stderr)
-        raise SystemExit(2)
 
     engine = Engine(
         args.checkpoint,
@@ -552,6 +550,13 @@ def main(argv: Optional[List[str]] = None):
         run_perplexity(engine, args)
     elif args.mode == "passkey":
         run_passkey(engine, args)
+    elif args.mode == "serve":
+        from deepseek_tpu_torch.server import Server
+        Server(engine, batch_size=args.batch, warmup=args.warmup,
+               prefix_cache_mb=args.prefix_cache_mb,
+               spec=args.serve_spec,
+               spec_k=args.spec_k,
+               ).serve_forever(args.host, args.port)
     else:
         run_interactive(engine, args)
 

@@ -15,6 +15,9 @@
 //   K9  (MHA): q (B,T,H,Dh) f32, k (B,S,H,Dh), v (B,S,H,Dv)
 //   K10 (MQA): q = [q_c | q_rope] (B,T,H,R+P) f32, k = [ckv | krope]
 //              (B,S,R+P), v = ckv (B,S,R): one cache row serves every head
+//   verify chunks (Args::q_pos set): K9 or K10 with row b's chunk at
+//              q_pos[b] + t, the starts read on the device (one (B,)
+//              int32 vector; the batched speculation's per-row chunks)
 //   K3  (MQA decode, Args::kv_len set): K10 with T = 1, so the block's 64
 //              rows are 64 heads of one sequence, and slot s masked unless
 //              s < kv_len[b], read on the device (no host position)
@@ -190,6 +193,9 @@ struct Args {
   // decode (K3, T = 1): kv_len (B,) int32 on the device, slot s live while
   // s < kv_len[b]; q_pos0 and cache_pos0 unused. Null for prefill.
   const int32_t* kv_len;
+  // prefill with per-row chunk starts (verify mode): q_pos (B,) int32 on
+  // the device, row b's queries at q_pos[b] + t; null: q_pos0 for every row
+  const int32_t* q_pos;
 };
 
 // TMA tensor maps of the cache, 2-D (columns, B*S rows) with boxes of TS
@@ -504,10 +510,11 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
   // latest query may see (decode: at the sequence's kv_len). A row sees
   // slot s while s <= lim (lim_first: the block's first row)
   const bool decode = a.kv_len != nullptr;
+  const int q_pos0 = a.q_pos != nullptr ? a.q_pos[b] : a.q_pos0;
   const int i_last = min(kBM, n_rows - row0) - 1;
-  const int lim_first = decode ? S : a.q_pos0 + row_t(0) - a.cache_pos0;
+  const int lim_first = decode ? S : q_pos0 + row_t(0) - a.cache_pos0;
   const int s_end = max(0, min(S, decode ? a.kv_len[b]
-                                         : a.q_pos0 + row_t(i_last) - a.cache_pos0 + 1));
+                                         : q_pos0 + row_t(i_last) - a.cache_pos0 + 1));
   const int s_lo = z * a.span;
   const int s_hi = min(s_end, s_lo + a.span);
   const int n_tiles = s_hi > s_lo ? (s_hi - s_lo + TS - 1) / TS : 0;
@@ -525,7 +532,7 @@ prefill_attn_kernel(Args a, const __grid_constant__ Maps maps) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int i = wm * 16 + g + 8 * j;
-    lim[j] = row0 + i >= n_rows ? -1 : decode ? S : a.q_pos0 + row_t(i) - a.cache_pos0;
+    lim[j] = row0 + i >= n_rows ? -1 : decode ? S : q_pos0 + row_t(i) - a.cache_pos0;
   }
 
   // the two cache segments of a tile: K9 keys and values of head h_fix;
@@ -1122,15 +1129,18 @@ bool bad_dims(int B, int T, int H, int S, int DK, int DV, int dtype,
 // otherwise. DK % 4 == 0, DV in {128, 512}. With m_out and l_out (B,T,H)
 // f32 (partials; both null otherwise) out is the unnormalized accumulator.
 // The window is walked in n_split spans of `span` slots (n_split 1: span >=
-// S); n_split > 1 needs f32 scratch of n_split * B*T*H * (DV + 2).
-// Returns a cudaError_t; the launches are asynchronous on `stream`.
+// S); n_split > 1 needs f32 scratch of n_split * B*T*H * (DV + 2). With
+// q_pos (B,) int32 on the device (verify mode) row b's queries sit at
+// q_pos[b] + t and q_pos0 is unused; the caller sizes the splits for the
+// largest start. Returns a cudaError_t; the launches are asynchronous on
+// `stream`.
 extern "C" int mha_prefill(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
                            void* out, void* m_out, void* l_out, void* scratch,
                            int n_split, int span, int B, int T, int H, int S,
                            int DK, int DV, int dtype, int q_pos0,
                            int cache_pos0, float scale, int sb, int sh, int ss,
-                           void* stream) {
+                           const void* q_pos, void* stream) {
   if (bad_dims(B, T, H, S, DK, DV, dtype, n_split, span, scratch) ||
       (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1141,6 +1151,7 @@ extern "C" int mha_prefill(const void* q, const void* k, const void* v,
          chunk_bytes(v, DV * esz, (long long)H * DV * esz), 0,
          static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
          sb, sh, ss};
+  a.q_pos = static_cast<const int32_t*>(q_pos);
   return run<false>(a, DV, dtype, n_split, static_cast<float*>(scratch),
                     static_cast<float*>(out), static_cast<float*>(m_out),
                     static_cast<float*>(l_out), static_cast<cudaStream_t>(stream));
@@ -1150,15 +1161,16 @@ extern "C" int mha_prefill(const void* q, const void* k, const void* v,
 // (B,S,P) of dtype 0/1/2/3 (3 = int8, then ckv_scale and krope_scale (B,S)
 // f32, contiguous) -> out (B,T,H,R) f32. R in {128, 512},
 // (R + P) % 4 == 0. With m_out and l_out (B,T,H) f32 (partials; both null
-// otherwise) out is the unnormalized accumulator. n_split, span and
-// scratch as mha_prefill's. Returns a cudaError_t; asynchronous on `stream`.
+// otherwise) out is the unnormalized accumulator. n_split, span, scratch
+// and q_pos as mha_prefill's. Returns a cudaError_t; asynchronous on
+// `stream`.
 extern "C" int mla_prefill(const void* q_c, const void* q_rope,
                            const void* ckv, const void* krope,
                            const void* ckv_scale, const void* krope_scale,
                            void* out, void* m_out, void* l_out, void* scratch,
                            int n_split, int span, int B, int T, int H, int S,
                            int R, int P, int dtype, int q_pos0, int cache_pos0,
-                           float scale, void* stream) {
+                           float scale, const void* q_pos, void* stream) {
   if (bad_dims(B, T, H, S, R + P, R, dtype, n_split, span, scratch) || P < 0 ||
       (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1169,6 +1181,7 @@ extern "C" int mla_prefill(const void* q_c, const void* q_rope,
          chunk_bytes(krope, P * esz, P * esz), 0,
          static_cast<const float*>(ckv_scale),
          static_cast<const float*>(krope_scale), S, 0, 1};
+  a.q_pos = static_cast<const int32_t*>(q_pos);
   return run<true>(a, R, dtype, n_split, static_cast<float*>(scratch),
                    static_cast<float*>(out), static_cast<float*>(m_out),
                    static_cast<float*>(l_out), static_cast<cudaStream_t>(stream));

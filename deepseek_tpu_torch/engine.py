@@ -221,9 +221,7 @@ class Engine:
             raise NotImplementedError(
                 "scan-stacked layers have no counterpart in the port "
                 "(ROADMAP.md queue 1, item 15)")
-        self.prefill_chunk = max(1, int(prefill_chunk))
-        self.decode_block = max(1, int(decode_block))
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         self.data = load_checkpoint(checkpoint_dir)
         overrides = {}
         if compute_dtype:
@@ -234,18 +232,45 @@ class Engine:
             overrides["use_yarn"] = True
         self.cfg = ModelConfig.from_metadata(self.data.metadata, context=context,
                                              **overrides)
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             factors = any(n.endswith(".attn.wkv_b.weight") for n in self.data.tensors) \
                 and any(n.endswith(".attn.wq_b.weight") for n in self.data.tensors)
             check_card_widths(self.cfg, factors)
-            torch.backends.cuda.matmul.allow_tf32 = False
-        self.params = load_params(self.data, self.cfg, device=self.device,
-                                  runtime_dtype=runtime_dtype,
-                                  kquant_runtime=kquant_runtime, load_mtp=load_mtp)
+        params = load_params(self.data, self.cfg, device=device,
+                             runtime_dtype=runtime_dtype,
+                             kquant_runtime=kquant_runtime, load_mtp=load_mtp)
         if fuse:
-            self.params = fuse_projections(self.params, self.cfg)
-        self.tokenizer = Tokenizer.from_checkpoint(self.data)
-        self.sampler = Sampler(self.cfg.vocab_size, seed)
+            params = fuse_projections(params, self.cfg)
+        self._attach(params, self.cfg, Tokenizer.from_checkpoint(self.data), device,
+                     seed, prefill_chunk, decode_block)
+
+    @classmethod
+    def from_params(cls, params, cfg: ModelConfig, tokenizer: Tokenizer, *,
+                    seed: Optional[int] = None, prefill_chunk: int = 256,
+                    decode_block: int = 32) -> "Engine":
+        """An Engine over weights already in memory (a random draw, which
+        has no .dseek), on their device; it has no checkpoint metadata (no
+        chat template). On the card the attention widths are checked as
+        ``__init__`` checks them."""
+        device = params.final_norm.device
+        if device.type == "cuda":
+            check_card_widths(cfg, any(lp.wq_b is not None and lp.wkv_b is not None
+                                       for lp in params.layers))
+        eng = cls.__new__(cls)
+        eng.data = None
+        eng.cfg = cfg
+        eng._attach(params, cfg, tokenizer, device, seed, prefill_chunk, decode_block)
+        return eng
+
+    def _attach(self, params, cfg: ModelConfig, tokenizer: Tokenizer, device,
+                seed: Optional[int], prefill_chunk: int, decode_block: int) -> None:
+        """The state every Engine holds beside its weights' source."""
+        if device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.params, self.cfg, self.tokenizer, self.device = params, cfg, tokenizer, device
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        self.decode_block = max(1, int(decode_block))
+        self.sampler = Sampler(cfg.vocab_size, seed)
         self._key = prng.PRNGKey(seed if seed is not None else 0)
         self._loops = {}
 
@@ -270,7 +295,7 @@ class Engine:
     def chat_template(self) -> Optional[str]:
         """The checkpoint's HF chat template (the converter embeds it in the
         .dseek metadata), or None."""
-        return self.data.metadata.get("chat_template")
+        return None if self.data is None else self.data.metadata.get("chat_template")
 
     def render_chat(self, messages, add_generation_prompt: bool = True,
                     template: Optional[str] = None) -> str:
@@ -283,7 +308,7 @@ class Engine:
                 "checkpoint has no chat_template metadata (re-convert from "
                 "an HF dir whose tokenizer_config.json carries one, or pass "
                 "a template explicitly)")
-        md = self.data.metadata
+        md = {} if self.data is None else self.data.metadata
         return render_chat(tpl, messages, bos_token=md.get("chat_bos_token", ""),
                            eos_token=md.get("chat_eos_token", ""),
                            add_generation_prompt=add_generation_prompt)

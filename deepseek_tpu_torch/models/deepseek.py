@@ -13,6 +13,11 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   T rows written at slot pos0, then causal attention over the window. The
   hybrid-MLA policy: a layer that kept ``wq_b``/``wkv_b`` attends in
   decompressed head space (K9), any other through the latent cache (K10).
+  Verify mode (``pos0`` a (B,) vector of per-row chunk starts, the batched
+  speculation's chunks): row b writes and attends its own T slots from
+  pos0[b] (K10, or K9 for MHA, reading the starts on the device), and
+  absorbed MLA stays absorbed even where the factor weights exist, so a
+  verify chunk shares decode's numerics (``deepseek.py:247-265``).
   The MoE FFN takes the pair path (K2) for at most 128 token-expert pairs,
   the grouped products (K6, K11) where the widths allow, the
   dense-over-experts einsums otherwise. Projections at many rows take
@@ -55,7 +60,10 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
 
 - ``make_decode_loop`` runs ``n_steps`` decode steps at a time, sampling
   each token on the device (``ops/sampling.py``) with the JAX package's
-  threefry keys; the Engine's default decode block.
+  threefry keys; the Engine's default decode block, and the serving
+  scheduler's, with per-row positions and sampling parameters, a mask of
+  live rows (``active``: dead rows do no expert work), and optionally the
+  sampled tokens' log-probabilities and the last hidden state.
 
 - On a mesh with a ``seq`` axis (``parallel/``: one process per shard,
   ``torch.distributed``), ``forward_decode``/``forward_prefill`` take the
@@ -94,10 +102,10 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
     expert_ffn_fusable, qmm_expert_ffn, qmm_experts,
 )
 from deepseek_tpu_torch.ops.matmul import (
-    dispatch_pairs, grouped_expert_ffn, grouped_ffn_supported, per_tensor_fp8,
-    qmatmul,
+    LiveRows, combine_pairs, dispatch_pairs, grouped_expert_ffn,
+    grouped_ffn_supported, per_tensor_fp8, qmatmul,
 )
-from deepseek_tpu_torch.ops.norms import rmsnorm
+from deepseek_tpu_torch.ops.norms import pad_rows, rmsnorm
 from deepseek_tpu_torch.ops.rope import apply_rope
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, make_ctx
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor, rows_to_experts
@@ -113,6 +121,36 @@ PAIR_PREFILL_MAX_PAIRS = 128
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _COMPUTE_DTYPES[str(cfg.compute_dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowStarts:
+    """Verify mode's per-row chunk starts: the host positions (B,), which
+    guard the window and size the kernels' splits, and their int32 copy on
+    the device, which the cache writes, the rope and the kernels read."""
+    host: np.ndarray
+    dev: torch.Tensor
+
+    @classmethod
+    def of(cls, pos0, B: int, device) -> "RowStarts":
+        """From a host array (one non-blocking copy) or a tensor (a CUDA
+        tensor is read back once: pass host positions to stay sync-free)."""
+        if isinstance(pos0, torch.Tensor):
+            pos0 = pos0.cpu().numpy()
+        host = np.array(pos0, dtype=np.int64).reshape(-1)
+        if host.shape != (B,):
+            raise ValueError(f"verify mode takes one chunk start per row: {B} rows, "
+                             f"{host.shape[0]} starts")
+        return cls(host, torch.from_numpy(host.astype(np.int32)).to(device,
+                                                                     non_blocking=True))
+
+
+def _starts(pos0):
+    """K9/K10's (q_pos0, q_pos0_max) and the cache writes' start for a chunk
+    at ``pos0`` (an int, or verify mode's RowStarts)."""
+    if isinstance(pos0, RowStarts):
+        return pos0.dev, int(pos0.host.max()), pos0.dev
+    return pos0, None, pos0
 
 
 def _rotation_only(yarn):
@@ -211,25 +249,29 @@ def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     return qmatmul(lp.wo, out.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
-def _chunk_positions(xb: torch.Tensor, pos0: int, ctx: SpmdCtx) -> torch.Tensor:
-    """(B,T) positions of the chunk rows in xb: pos0.., or under context
-    parallelism this rank's share of the chunk."""
+def _chunk_positions(xb: torch.Tensor, pos0, ctx: SpmdCtx) -> torch.Tensor:
+    """(B,T) positions of the chunk rows in xb: pos0.., each row's own in
+    verify mode, or under context parallelism this rank's share of the
+    chunk."""
     B, T = xb.shape[:2]
+    if isinstance(pos0, RowStarts):
+        return pos0.dev.long()[:, None] + torch.arange(T, device=xb.device)
     first = pos0 + (ctx.sidx * T if ctx.cp else 0)
     return (first + torch.arange(T, device=xb.device)).expand(B, T)
 
 
 def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
-                           cache: KVCache, layer: int, pos0: int,
+                           cache: KVCache, layer: int, pos0,
                            ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Decompressed-MHA attention of a prefill chunk xb (B,T,dim) at
-    positions pos0.. (deepseek.py:548-578): the chunk's keys and values go
-    into the cache at slot pos0, then the chunk attends causally over the
-    cached heads (slot == position)."""
+    positions pos0.. (deepseek.py:548-578; ``pos0`` RowStarts in verify
+    mode): the chunk's keys and values go into the cache at slot pos0, then
+    the chunk attends causally over the cached heads (slot == position)."""
     B, T, _ = xb.shape
     H, Dv = cfg.n_heads, cfg.v_head_dim
+    q_pos0, q_max, start = _starts(pos0)
     q, k, v = _mha_inputs(lp, cfg, xb, _chunk_positions(xb, pos0, ctx))
-    write_rows(cache, layer, k, v, pos0, ctx)
+    write_rows(cache, layer, k, v, start, ctx)
     if ctx.cp:
         q = ctx.cp_gather_rows(q)                 # the whole chunk's queries
     scales = {} if not cache.quantized else dict(
@@ -241,7 +283,8 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     # 256 MB threshold); K9 never holds the (B,H,T,S) scores in memory.
     merge = ctx.cp_merge_scatter if ctx.cp else ctx.seq_merge
     out = _attend(mha_prefill_attn, ctx, merge, q, cache.k[layer], cache.v[layer],
-                  pos0, ctx.sidx * cache.window, cfg.attn_softmax_scale(), **scales)
+                  q_pos0, ctx.sidx * cache.window, cfg.attn_softmax_scale(),
+                  q_pos0_max=q_max, **scales)
     return qmatmul(lp.wo, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
@@ -325,11 +368,12 @@ def per_head_up(wv_b, lat: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
-                       cache: KVCache, layer: int, pos0: int,
+                       cache: KVCache, layer: int, pos0,
                        ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
-    """MLA attention of a prefill chunk xb (B,T,dim) at positions pos0..:
-    the chunk's latent rows go into the cache at slot pos0, then the
-    chunk attends causally over the window (slot == position). Under a
+    """MLA attention of a prefill chunk xb (B,T,dim) at positions pos0..
+    (RowStarts in verify mode: each row its own): the chunk's latent rows
+    go into the cache at slot pos0, then the chunk attends causally over
+    the window (slot == position). Under a
     seq axis the window is this rank's slice (its slot s holds position
     sidx * S_local + s) and the shards' partials merge; under context
     parallelism xb holds this rank's rows and the queries are gathered."""
@@ -338,18 +382,21 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     scale = cfg.attn_softmax_scale()
     pos_bt = _chunk_positions(xb, pos0, ctx)
+    q_pos0, q_max, start = _starts(pos0)
 
     ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
     # hybrid MLA (deepseek.py:247-265): every prefill chunk of a layer that
     # kept its factor weights attends in decompressed head space, so the
-    # hydrated cache does not depend on the chunk length
-    decompress = lp.wkv_b is not None and lp.wq_b is not None
+    # hydrated cache does not depend on the chunk length; verify chunks stay
+    # absorbed, sharing decode's numerics
+    decompress = (lp.wkv_b is not None and lp.wq_b is not None
+                  and not isinstance(pos0, RowStarts))
     if not decompress:
         q_c, q_rope = _absorbed_queries(lp, cfg, q_a, pos_bt)
         if ctx.cp:
             q_c, q_rope = ctx.cp_gather_rows(q_c), ctx.cp_gather_rows(q_rope)
 
-    write_rows(cache, layer, ckv, k_rope, pos0, ctx)
+    write_rows(cache, layer, ckv, k_rope, start, ctx)
     ckv_l, kr_l = cache.ckv[layer], cache.krope[layer]              # (B,S,.)
     cs_l, rs_l = ((cache.ckv_s[layer], cache.krope_s[layer]) if cache.quantized
                   else (None, None))
@@ -376,8 +423,8 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
         v_out = _attend(mha_prefill_attn, ctx, merge, q, k_l.to(xb.dtype),
                         kv_dec[..., nope:].contiguous(), pos0, base, scale)
         return qmatmul(lp.wo, v_out.reshape(B, T, H * Dv).to(xb.dtype))
-    lat = _attend(mla_prefill_attn, ctx, merge, q_c, q_rope, ckv_l, kr_l, pos0, base,
-                  scale, ckv_scale=cs_l, krope_scale=rs_l)      # (B,T,H,R)
+    lat = _attend(mla_prefill_attn, ctx, merge, q_c, q_rope, ckv_l, kr_l, q_pos0, base,
+                  scale, ckv_scale=cs_l, krope_scale=rs_l, q_pos0_max=q_max)  # (B,T,H,R)
     # per-head up-projection of the attended latents, a plain einsum as in
     # the JAX prefill (deepseek.py:489-492)
     wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)
@@ -396,14 +443,17 @@ def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
 
 def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
-         prefill: bool = False) -> torch.Tensor:
+         prefill: bool = False, live: LiveRows = None) -> torch.Tensor:
     """The FFN over xb (B,T,dim). Decode (T == 1) and small prefill chunks
     take the expert-sorted pair list; larger prefill chunks the grouped
-    products or, where the widths do not allow them, dense-over-experts."""
+    products or, where the widths do not allow them, dense-over-experts.
+    ``live`` (decode): the pair list keeps the live rows' pairs only; the
+    gathering path collapses dead rows onto expert 0 with weight 0
+    (``deepseek.py:735-743``)."""
     if not cfg.is_moe_layer(layer):
         return _dense_glu(lp.w13, lp.w1, lp.w2, lp.w3, xb, cfg)
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
-    router_logits = torch.matmul(xb.float(), lp.moegate.float().t())
+    router_logits = _router_logits(xb, lp.moegate)
     weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,T,k)
     folded = lp.w13s is not None
     if folded:
@@ -417,12 +467,16 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
         t13, t1, t2, t3 = lp.w13, lp.w1, lp.w2, lp.w3
     n_exp = t2.shape[0]
     probe = t13 if t13 is not None else t1
+    if live is not None and per_tensor_fp8(probe):
+        keep = live.mask.reshape(-1, 1, 1)
+        idx = torch.where(keep, idx, torch.zeros_like(idx))
+        weights = torch.where(keep, weights, torch.zeros_like(weights))
     if per_tensor_fp8(probe):
         # no expert kernel takes a per-tensor scale (deepseek.py:707-713)
         out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg)
                if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg))
     elif not prefill or idx.numel() <= PAIR_PREFILL_MAX_PAIRS:
-        out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg)
+        out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live)
     elif grouped_ffn_supported(cfg, probe):
         out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13)
     else:
@@ -433,16 +487,29 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
     return out
 
 
-def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
+def _router_logits(xb: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """xb (..., dim) @ gate (E, dim).T in f32 over at least INVARIANT_ROWS
+    rows (``ops/norms.py``: a decode row's scores do not depend on its
+    batch)."""
+    x = xb.float().reshape(-1, xb.shape[-1])
+    out = torch.matmul(pad_rows(x), gate.float().t())[:x.shape[0]]
+    return out.reshape(*xb.shape[:-1], -1)
+
+
+def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live=None) -> torch.Tensor:
     """Expert-sorted pair list through the gathered-expert products (K2:
     its nibble, packed or fp8 body or, for a plain table, its plain body),
     combined per token with the routing weights. A single token over a
     row-permuted nibble w13 (``DSEEK_FUSED_FFN=1``) takes the fused expert
     FFN (K7) instead; several tokens over one take K2's prepermuted body on
-    w2 (``deepseek_tpu/models/deepseek.py:806-850``)."""
+    w2 (``deepseek_tpu/models/deepseek.py:806-850``). With ``live`` the
+    dead rows' pairs are cut off, so their routed output is 0."""
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     Bt = B * T
-    eid, wts, tok = dispatch_pairs(idx.reshape(Bt, -1), weights.reshape(Bt, -1))
+    if live is not None and live.count == 0:
+        return torch.zeros_like(xb)
+    k = idx.shape[-1]
+    eid, wts, tok, pair = dispatch_pairs(idx.reshape(Bt, k), weights.reshape(Bt, k), live)
     if Bt == 1 and expert_ffn_fusable(t13, t2):
         y = qmm_expert_ffn(t13, t2, eid, xb.reshape(1, -1), wts, cfg.act)
         return y.reshape(B, T, -1).to(dtype)
@@ -457,9 +524,7 @@ def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
     # a row-permuted w13 leaves h permuted per half: w2 takes it as it is
     rp = isinstance(t13, KNibbleTensor) and bool(t13.rowperm)
     per = qmm_experts(t2, eid, h, rp)                # x_prepermuted; (N, dim) f32
-    out = torch.zeros((Bt, per.shape[-1]), dtype=torch.float32, device=per.device)
-    out.index_add_(0, tok, per * wts[:, None])
-    return out.reshape(B, T, -1).to(dtype)
+    return combine_pairs(per.float(), wts, pair, Bt, k).reshape(B, T, -1).to(dtype)
 
 
 def _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
@@ -502,23 +567,28 @@ def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg):
 
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
                     kv_len, kv_sink, cfg: ModelConfig,
-                    ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
+                    ctx: SpmdCtx = NULL_CTX, live: LiveRows = None) -> torch.Tensor:
     """The transformer layers, unrolled, over x (B,1,dim)."""
     attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
         x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer)
+        x = x + _ffn(lp, cfg, xb, layer, live=live)
     return x
 
 
 def decode_positions(cfg: ModelConfig, B: int, pos0, device):
     """(pos (B,), kv_pos (B,), kv_len (B,) int32, kv_sink (B,)) for decode
-    at ``pos0`` (int, or a (B,) per-sequence tensor)."""
-    pos = (pos0.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
-           if isinstance(pos0, torch.Tensor)
-           else torch.full((B,), int(pos0), dtype=torch.int64, device=device))
+    at ``pos0``: an int, a (B,) tensor, or a (B,) host array of
+    per-sequence positions (one non-blocking copy)."""
+    if isinstance(pos0, torch.Tensor):
+        pos = pos0.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
+    elif np.ndim(pos0) > 0:
+        pos = torch.from_numpy(np.array(pos0, dtype=np.int64).reshape(-1)).to(
+            device, non_blocking=True).expand(B)
+    else:
+        pos = torch.full((B,), int(pos0), dtype=torch.int64, device=device)
     kv_sink, kv_pos, kv_len = ring_positions(cfg, pos)
     return pos, kv_pos, kv_len.to(torch.int32), kv_sink
 
@@ -542,20 +612,26 @@ def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
 
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                    pos0, cfg: ModelConfig, ctx: SpmdCtx = NULL_CTX,
-                   with_hidden: bool = False):
-    """One decode step: tokens (B,1) at position ``pos0`` -> logits (B,V)
+                   with_hidden: bool = False, active=None):
+    """One decode step: tokens (B,1) at position ``pos0`` (an int, or (B,)
+    per-sequence positions, a host array or a tensor) -> logits (B,V)
     float32. Writes this step's cache rows into ``cache`` in place; under a
     seq axis (``ctx`` from ``parallel.spmd.make_ctx``) ``cache`` is this
     rank's slice of the window and every rank returns the same logits.
     ``with_hidden`` returns (logits, hidden): the pre-final-norm hidden
     state (B,1,dim) in the compute dtype, which the MTP layer takes
-    (``_forward_impl(with_hidden=True)``, deepseek.py:1076-1080)."""
+    (``_forward_impl(with_hidden=True)``, deepseek.py:1076-1080).
+    ``active`` (B,) bool (a host mask, or ``LiveRows``) marks the live
+    rows of a serving batch: dead rows do no expert work (their routed
+    expert output is 0); None means all live."""
     B, T = tokens.shape
     if T != 1:
         raise ValueError("decode processes one token per sequence per call")
     pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
+    live = LiveRows.of(active, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
-    x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx)
+    x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx,
+                        live)
     logits = final_logits(params.final_norm, params.lm_head, x, cfg)
     return (logits, x) if with_hidden else logits
 
@@ -573,17 +649,27 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     (``deepseek.py:1036-1056``). Every rank returns the same logits.
     ``with_hidden`` returns (logits, hidden), hidden the pre-final-norm
     state (B,T,dim) in the compute dtype (this rank's rows under context
-    parallelism)."""
+    parallelism).
+
+    Verify mode (``deepseek.py:1024-1035``): ``pos0`` a (B,) host array or
+    tensor of per-row chunk starts, row b at pos0[b]..pos0[b]+T-1 with
+    max(pos0) + T <= kv_window (host positions keep the call free of host
+    syncs; a CUDA tensor is read back once). It does not compose with a
+    seq axis, as the JAX package asserts."""
     B, T = tokens.shape
-    if isinstance(pos0, torch.Tensor) and pos0.dim() > 0:
-        raise NotImplementedError(
-            "verify mode (per-sequence chunk positions) belongs to batched "
-            "serving (ROADMAP.md queue 1, item 12)")
-    pos0 = int(pos0)
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
-    if pos0 + T > cfg.kv_window:
-        raise ValueError(f"prefill at {pos0}..{pos0 + T - 1} crosses the "
+    if (isinstance(pos0, torch.Tensor) and pos0.dim() > 0) or \
+            (not isinstance(pos0, torch.Tensor) and np.ndim(pos0) > 0):
+        if ctx.sp > 1 or ctx.cp:
+            raise ValueError("verify mode (per-row chunk starts) does not compose "
+                             "with seq/context parallelism")
+        pos0 = RowStarts.of(pos0, B, tokens.device)
+        lo, hi = int(pos0.host.min()), int(pos0.host.max())
+    else:
+        pos0 = lo = hi = int(pos0)
+    if lo < 0 or hi + T > cfg.kv_window:
+        raise ValueError(f"prefill at {lo}..{hi + T - 1} crosses the "
                          f"{cfg.kv_window}-slot window; decode steps go on past it")
     if ctx.sp > 1 and T % ctx.sp == 0 and not ctx.cp:
         ctx = dataclasses.replace(ctx, cp=True)
@@ -603,41 +689,61 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
 
 
 def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
-                     with_logprobs: bool = False, with_hidden: bool = False):
+                     active_bucket=None, with_logprobs: bool = False,
+                     with_hidden: bool = False, all_hidden: bool = False):
     """Multi-token decode (``deepseek_tpu/models/deepseek.py::
     make_decode_loop``): one call runs ``n_steps`` decode steps, each
     sampling on the device the token the next step feeds.
 
     Returns ``fn(params, cache, tok (B,1), pos0, key, temperature, top_p,
     active=None, top_k=0, min_p=0.0) -> (tokens (B, n_steps) int64,
-    logits_last (B, V) float32, cache)``: ``tok`` is the token fed first,
+    logits_last (B, V) float32[, logprobs (B, n_steps) float32][, hidden
+    (B, 1, dim) float32], cache)``: ``tok`` is the token fed first,
     ``tokens[:, 0]`` its successor; ``key`` a (2,) uint32 threefry key
     (``ops/prng.py``) split once a step as the JAX loop splits its carry;
-    the cache is written in place. Positions are host ints ``pos0 + i``
-    and the sampled token stays on the device, so no step synchronizes
-    with the host: the tokens cross once, when the caller reads them.
+    the cache is written in place. ``pos0`` is an int or (B,) per-row
+    positions, the sampling parameters scalars or (B,) per-row values, and
+    ``active`` a (B,) bool mask of live rows (dead rows do no expert work),
+    all host values: they cross to the device once a call, in non-blocking
+    copies, and the sampled token stays on the device, so no step
+    synchronizes with the host: the tokens cross once, when the caller
+    reads them.
+
+    ``with_logprobs`` adds the raw log-softmax of each sampled token (no
+    temperature: the serving API's convention, ``deepseek.py:1437-1454``);
+    ``with_hidden`` the last step's pre-final-norm hidden state, which
+    seeds the MTP drafter (``all_hidden``: every step's, (B, n_steps,
+    dim), with which the serving scheduler re-feeds the drafter's cache
+    after plain blocks). ``active_bucket`` is the JAX keyword of a compiled
+    occupancy bucket; eager torch compiles nothing, so the pair list keeps
+    exactly the live rows' pairs whatever the bucket, which only bounds
+    the live count.
 
     With ``mesh`` (``parallel.mesh.make_mesh(seq=n)``, called on every
     rank) each rank runs the block over its slice of the window
     (``parallel.sharding.shard_cache``) with the same key: the merged
-    logits, and so the sampled tokens, are the same on every rank."""
+    logits, and so the sampled tokens, are the same on every rank. The
+    hidden state is single-device, as in the JAX package."""
     from deepseek_tpu_torch.ops import prng
-    from deepseek_tpu_torch.ops.sampling import sample_with_noise
+    from deepseek_tpu_torch.ops.sampling import SamplingRows, sample_rows
 
+    with_hidden = with_hidden or all_hidden
+    if mesh is not None and with_hidden:
+        raise ValueError("the decode block's hidden state is single-device "
+                         "(the MTP drafter runs unsharded)")
     ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
-    if with_logprobs:
-        raise NotImplementedError("per-token logprobs belong to batched serving "
-                                  "(ROADMAP.md queue 1, item 12)")
-    if with_hidden:
-        raise NotImplementedError("the decode block's hidden state feeds batched "
-                                  "MTP serving (ROADMAP.md queue 1, item 12)")
 
     @torch.inference_mode()
     def loop(params, cache, tok, pos0, key, temperature, top_p, active=None,
              top_k=0, min_p=0.0):
-        if active is not None:
-            raise NotImplementedError("live-row masks belong to batched serving "
-                                      "(ROADMAP.md queue 1, item 12)")
+        B, dev = tok.shape[0], tok.device
+        live = LiveRows.of(active, dev)
+        if live is not None and active_bucket is not None and live.count > active_bucket:
+            raise ValueError(f"{live.count} live rows exceed the occupancy bucket "
+                             f"{active_bucket}")
+        if not isinstance(pos0, torch.Tensor) and np.ndim(pos0) > 0:
+            pos0 = np.array(pos0, dtype=np.int64)
+        rows = SamplingRows.make(B, dev, temperature, top_p, top_k, min_p)
         subs = []
         for _ in range(n_steps):
             key, sub = prng.split(key)
@@ -647,17 +753,27 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
         def noise_of(i):
             # the block's noise in one draw, made when a step first samples
             if not noise:
-                noise.append(prng.gumbel(np.stack(subs), (tok.shape[0], cfg.vocab_size),
-                                         tok.device))
+                noise.append(prng.gumbel(np.stack(subs), (B, cfg.vocab_size), dev))
             return noise[0][i]
 
-        tokens, logits = [], None
+        tokens, lps, hid, logits = [], [], [], None
         for i in range(n_steps):
-            logits = forward_decode(params, cache, tok, pos0 + i, cfg, ctx)
-            nxt = sample_with_noise(logits, lambda i=i: noise_of(i), temperature,
-                                    top_p, top_k, min_p)
+            out = forward_decode(params, cache, tok, pos0 + i, cfg, ctx,
+                                 with_hidden=with_hidden, active=live)
+            logits = out[0] if with_hidden else out
+            if with_hidden:
+                hid = [*hid, out[1]] if all_hidden else [out[1]]
+            nxt = sample_rows(logits, lambda i=i: noise_of(i), rows)
+            if with_logprobs:
+                lsm = torch.log_softmax(logits.float(), dim=-1)
+                lps.append(lsm.gather(1, nxt[:, None])[:, 0])
             tokens.append(nxt)
             tok = nxt[:, None]
-        return torch.stack(tokens, 1), logits.float(), cache
+        res = (torch.stack(tokens, 1), logits.float())
+        if with_logprobs:
+            res += (torch.stack(lps, 1),)
+        if with_hidden:
+            res += (torch.cat(hid, 1).float(),)
+        return res + (cache,)
 
     return loop

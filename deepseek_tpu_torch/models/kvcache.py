@@ -139,7 +139,7 @@ def ring_positions(cfg: ModelConfig, pos: torch.Tensor
 
 
 def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
-               second: torch.Tensor, start: int, ctx: SpmdCtx = NULL_CTX) -> None:
+               second: torch.Tensor, start, ctx: SpmdCtx = NULL_CTX) -> None:
     """Prefill write into slots start .. start+T-1 of ``layer``, in place:
     the latent rows ckv (B,T,R) and krope (B,T,P) of an MLA cache, or the
     keys (B,T,H,head_dim) and values (B,T,H,v_head_dim) of an MHA cache.
@@ -148,6 +148,12 @@ def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
     f32 first), their scales, and the f32 keys of rows landing in the sink
     slots as their masters (``deepseek_tpu/models/deepseek.py::
     _sink_update``).
+
+    ``start`` is an int, or a (B,) int tensor on the cache's device (verify
+    mode: row b's chunk starts at slot start[b], ``deepseek.py:53-82,
+    125-160``), which the caller keeps inside the window (max(start) + T <=
+    window, from its host positions): a per-row scatter, and the sink
+    masters take the rows that land below KV_SINKS row by row.
 
     Under a ``seq`` axis (``ctx.sp > 1``) the cache is this rank's slice of
     the window and only the chunk's rows inside it are committed
@@ -166,6 +172,10 @@ def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
     else:
         first, second, fs, ss = first.to(a.dtype), second.to(b.dtype), None, None
     master = cache.sink_k if mha else cache.sink_krope
+    if isinstance(start, torch.Tensor):
+        _write_rows_per_row(layer, start, ((a, first), (b, second), (a_s, fs), (b_s, ss)),
+                            master, key)
+        return
     if ctx.cp:
         first, second, fs, ss = map(ctx.cp_gather_rows, (first, second, fs, ss))
         key = ctx.cp_gather_rows(key.float()) if master is not None else key
@@ -183,6 +193,29 @@ def write_rows(cache: KVCache, layer: int, first: torch.Tensor,
     n = min(start + T, KV_SINKS) - start
     if master is not None and n > 0:
         master[layer, :, start:start + n] = key[:, :n].float()
+
+
+def _write_rows_per_row(layer: int, start: torch.Tensor, pairs, master, key) -> None:
+    """``write_rows`` with a (B,) start vector: row b's T rows scatter into
+    slots start[b] .. start[b]+T-1 of each (cache tensor, rows) pair, and
+    the sink master takes, at each sink slot s, the row s - start[b] where
+    it lies in the chunk (``deepseek.py::_sink_update``, verify mode)."""
+    B, T = pairs[0][1].shape[:2]
+    start = start.to(torch.int64)
+    bidx = torch.arange(B, device=start.device)[:, None]
+    sidx = start[:, None] + torch.arange(T, device=start.device)      # (B, T)
+    for t, x in pairs:
+        if x is not None:
+            t[layer][bidx, sidx] = x
+    if master is None:
+        return
+    s = torch.arange(KV_SINKS, device=start.device)[None, :]           # (1, K)
+    ridx = (s - start[:, None]).clamp(0, T - 1)                         # (B, K)
+    valid = (s >= start[:, None]) & (s < start[:, None] + T)
+    rows = key.float()
+    cand = rows[torch.arange(B, device=start.device)[:, None], ridx]    # (B, K, ...)
+    m = master[layer]
+    m.copy_(torch.where(valid.reshape(valid.shape + (1,) * (cand.dim() - 2)), cand, m))
 
 
 def write_slot(t: torch.Tensor, bidx: torch.Tensor, lpos: torch.Tensor, x: torch.Tensor,

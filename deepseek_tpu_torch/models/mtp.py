@@ -25,9 +25,11 @@ import dataclasses
 import torch
 
 from deepseek_tpu_torch.config import ModelConfig
+import numpy as np
+
 from deepseek_tpu_torch.models.deepseek import (
-    _attention, _attention_mha, _attention_prefill, _attention_prefill_mha, _ffn,
-    compute_dtype, decode_positions, final_logits,
+    RowStarts, _attention, _attention_mha, _attention_prefill, _attention_prefill_mha,
+    _ffn, compute_dtype, decode_positions, final_logits,
 )
 from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.params import ModelParams, embed_lookup
@@ -45,19 +47,21 @@ def init_mtp_cache(cfg: ModelConfig, batch: int = 1, device="cpu") -> KVCache:
 def mtp_forward(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                 h: torch.Tensor, pos0, cfg: ModelConfig, prefill: bool):
     """tokens (B,T): the NEXT tokens; h (B,T,dim): the main model's hidden
-    states at the base positions pos0.. (a shared int). Returns (logits
-    (B,T,V) float32, h_mtp (B,T,dim) in the compute dtype, cache), the cache
-    written in place. Decode takes T == 1; prefill keeps pos0 + T inside
-    the window (``_mtp_impl``, mtp.py:46-99)."""
+    states at the base positions pos0.. (a shared int; in decode also (B,)
+    per-row positions). Returns (logits (B,T,V) float32, h_mtp (B,T,dim) in
+    the compute dtype, cache), the cache written in place. Decode takes T
+    == 1; prefill keeps pos0 + T inside the window (``_mtp_impl``,
+    mtp.py:46-99). Prefill's verify mode (``mtp.py:63-70``): ``pos0`` a
+    (B,) host array or tensor of per-row starts, each row's (token,
+    hidden) pairs written at its own positions (the batched MTP
+    speculation's re-feed of the drafter cache)."""
     mp = params.mtp
     if mp is None:
         raise ValueError("checkpoint has no MTP module")
-    if isinstance(pos0, torch.Tensor) and pos0.dim() > 0:
-        raise NotImplementedError(
-            "MTP verify mode (per-sequence positions) belongs to batched "
-            "serving (ROADMAP.md queue 1, item 12)")
-    pos0 = int(pos0)
     B, T = tokens.shape
+    per_row = (pos0.dim() > 0) if isinstance(pos0, torch.Tensor) else np.ndim(pos0) > 0
+    if prefill:
+        pos0 = RowStarts.of(pos0, B, tokens.device) if per_row else int(pos0)
     dtype = compute_dtype(cfg)
     e = rmsnorm(embed_lookup(params.embed, tokens, torch.float32).to(dtype),
                 mp.enorm, cfg.norm_eps)
@@ -67,8 +71,9 @@ def mtp_forward(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     lp = mp.block
     xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
     if prefill:
-        if pos0 + T > cfg.kv_window:
-            raise ValueError(f"MTP prefill at {pos0}..{pos0 + T - 1} crosses the "
+        last = int(pos0.host.max()) if per_row else pos0
+        if last + T > cfg.kv_window:
+            raise ValueError(f"MTP prefill at {last}..{last + T - 1} crosses the "
                              f"{cfg.kv_window}-slot window")
         attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
         x = x + attend(lp, cfg, xb, cache, 0, pos0)

@@ -129,10 +129,11 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _prefill_mask(q_pos: torch.Tensor, cache_pos: torch.Tensor) -> torch.Tensor:
-    """(1, 1, T, S): query t sees slot s when the position stored there is
-    at most its own and the slot is filled (position >= 0)."""
-    mask = (cache_pos[None, :] <= q_pos[:, None]) & (cache_pos >= 0)[None, :]
-    return mask[None, None]
+    """(1, 1, T, S), or (B, 1, T, S) for per-row q_pos (B, T) (verify
+    mode): query t sees slot s when the position stored there is at most
+    its own and the slot is filled (position >= 0)."""
+    mask = (cache_pos[None, :] <= q_pos[..., :, None]) & (cache_pos >= 0)
+    return mask[None, None] if q_pos.dim() == 1 else mask[:, None]
 
 
 def prefill_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
@@ -140,7 +141,8 @@ def prefill_attn_mha(q: torch.Tensor, k_cache: torch.Tensor,
                      cache_pos: torch.Tensor, softmax_scale=None,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """Chunked causal attention: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache
-    (B,S,H,Dv), q_pos (T,) query positions, cache_pos (S,) the position
+    (B,S,H,Dv), q_pos (T,) query positions (or (B,T), verify mode: each
+    row's own), cache_pos (S,) the position
     each slot holds (-1 = empty) -> (B,T,H,Dv) float32; an int8 cache
     passes k_scale/v_scale (B,H,S)."""
     k_cache, v_cache = _heads_dequant(k_cache, k_scale), _heads_dequant(v_cache, v_scale)

@@ -48,6 +48,7 @@ _DECODE_R = (128, 512)
 _MAX_DECODE_SPLITS = 128
 _DECODE_SPAN_ALIGN = 64     # split spans are whole multiples of every tile size
 _DECODE_FILL_BLOCKS = 132   # one block an SM (a block takes ~226 KB of shared memory)
+_DECODE_MAX_BLOCKS = 1024   # of a launch (bounds the partials' scratch: 134 MB at V3)
 
 
 def launch_counters() -> SimpleNamespace:
@@ -110,13 +111,19 @@ def mla_decode_attn_plain(q_c, q_rope, ckv_cache, krope_cache, kv_len,
 
 def mla_decode_splits(B: int, H: int, S: int):
     """(n_split, span): K3 walks the window of S slots in n_split spans of
-    ``span`` slots, one block per span, 64-head row block and sequence,
-    about ``_DECODE_FILL_BLOCKS`` blocks in all; a merge kernel combines the
-    spans' partials. A pure function of the shapes (kv_len stays on the
+    ``span`` slots, one block per span, 64-head row block and sequence; a
+    merge kernel combines the spans' partials. The spans are one
+    sequence's (about ``_DECODE_FILL_BLOCKS`` blocks for its row blocks),
+    the same for every batch whose launch stays within
+    ``_DECODE_MAX_BLOCKS`` blocks, so that a sequence's attended latents are
+    the same bits whatever batch it is decoded in (a served row equals the
+    sequence decoded alone; V3: up to 8 sequences); a larger batch takes
+    longer spans. A pure function of the shapes (kv_len stays on the
     card): spans past a sequence's live prefix return at once."""
-    blocks = B * -(-H // _DECODE_ROWS)
+    row_blocks = -(-H // _DECODE_ROWS)
     chunks = -(-S // _DECODE_SPAN_ALIGN)
-    n = max(1, min(-(-_DECODE_FILL_BLOCKS // blocks), chunks, _MAX_DECODE_SPLITS))
+    n = max(1, min(-(-_DECODE_FILL_BLOCKS // row_blocks), chunks, _MAX_DECODE_SPLITS,
+                   _DECODE_MAX_BLOCKS // (B * row_blocks)))
     span = -(-chunks // n) * _DECODE_SPAN_ALIGN
     return -(-S // span), span
 

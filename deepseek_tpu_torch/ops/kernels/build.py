@@ -48,9 +48,9 @@ SIGNATURES = {
                                   _P, _P, _I, _I, _I, _I, _I, _P]},
     "prefill_attn": {
         "mha_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
         "mla_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
         "mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _I, _I, _F, _P]},
 }

@@ -18,6 +18,13 @@ the unnormalized accumulator and its flash statistics, (acc, m (B,T,H),
 l (B,T,H)). Where the row blocks are too few to fill the card
 (``prefill_splits``), the window is split over blocks and merged.
 
+Verify mode (the batched speculation's chunks, one per serving slot):
+``q_pos0`` may be a (B,) int tensor of per-row chunk starts, row b's query
+t at ``q_pos0[b] + t``; on the card it is read by the kernel (int32 on the
+device, no host read), and the caller passes ``q_pos0_max``, the largest
+start from its host positions, which sizes the window splits. Such
+launches also count in ``.per_row.launches``.
+
 CPU tensors take the plain versions (ops.attention.prefill_attn_*);
 CUDA tensors launch the kernel or raise. ``.launches`` counts the
 normalized launches over a float cache, and among them ``.f16.launches``
@@ -76,13 +83,18 @@ def _split_buffers(n_split: int, rows: int, dv: int, device):
     return torch.empty(n_split * rows * (dv + 2), dtype=torch.float32, device=device)
 
 
-def _positions(T: int, S: int, q_pos0: int, cache_pos0: int, device):
-    q_pos = q_pos0 + torch.arange(T, device=device)
+def _positions(T: int, S: int, q_pos0, cache_pos0: int, device):
+    """(q_pos (T,) or, for a (B,) q_pos0, (B,T); cache_pos (S,))."""
+    if isinstance(q_pos0, torch.Tensor):
+        q_pos = q_pos0.to(device=device, dtype=torch.int64)[:, None] \
+            + torch.arange(T, device=device)
+    else:
+        q_pos = q_pos0 + torch.arange(T, device=device)
     cache_pos = cache_pos0 + torch.arange(S, device=device)
     return q_pos, cache_pos
 
 
-def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0: int, cache_pos0: int,
+def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0: int,
                            softmax_scale: float, k_scale=None, v_scale=None,
                            partials: bool = False):
     q_pos, cache_pos = _positions(q.shape[1], k_cache.shape[1], q_pos0,
@@ -92,7 +104,7 @@ def mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0: int, cache_pos0: int,
               k_scale=k_scale, v_scale=v_scale)
 
 
-def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0: int,
+def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0,
                            cache_pos0: int, softmax_scale: float,
                            ckv_scale=None, krope_scale=None, partials: bool = False):
     q_pos, cache_pos = _positions(q_c.shape[1], ckv_cache.shape[1], q_pos0,
@@ -101,6 +113,28 @@ def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0: int,
     return fn(q_c, q_rope, ckv_cache, krope_cache, q_pos, cache_pos, head_dim=0,
               softmax_scale=softmax_scale, ckv_scale=ckv_scale,
               krope_scale=krope_scale)
+
+
+def _row_starts(name: str, q_pos0, q_pos0_max, B: int, device):
+    """(the host start that sizes the splits, the per-row starts' device
+    pointer or 0): an int q_pos0 is both; a (B,) tensor needs int32 on the
+    queries' device and ``q_pos0_max``."""
+    if not isinstance(q_pos0, torch.Tensor):
+        return int(q_pos0), 0
+    if q_pos0_max is None:
+        raise ValueError(f"{name}: per-row starts need q_pos0_max, the largest "
+                         "start from the caller's host positions")
+    if (q_pos0.dtype != torch.int32 or q_pos0.shape != (B,) or not q_pos0.is_contiguous()
+            or q_pos0.device != device):
+        raise ValueError(f"{name}: per-row starts must be a contiguous ({B},) int32 "
+                         f"tensor on {device}, got {q_pos0.dtype} "
+                         f"{tuple(q_pos0.shape)} on {q_pos0.device}")
+    return int(q_pos0_max), q_pos0.data_ptr()
+
+
+def _count_rows(fn, q_pos0) -> None:
+    if isinstance(q_pos0, torch.Tensor):
+        fn.per_row.launches += 1
 
 
 def _check_operands(name, queries, caches):
@@ -118,12 +152,13 @@ def _check_operands(name, queries, caches):
 
 
 def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, q_pos0: int, cache_pos0: int,
+                     v_cache: torch.Tensor, q_pos0, cache_pos0: int,
                      softmax_scale: float, k_scale=None, v_scale=None,
-                     partials: bool = False):
+                     partials: bool = False, q_pos0_max=None):
     """K9: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
     f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 -> (B,T,H,Dv)
-    float32; with ``partials`` (acc (B,T,H,Dv), m (B,T,H), l (B,T,H))."""
+    float32; with ``partials`` (acc (B,T,H,Dv), m (B,T,H), l (B,T,H)).
+    ``q_pos0``: an int, or (B,) per-row starts with ``q_pos0_max``."""
     if q.device.type == "cpu":
         return mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0,
                                       softmax_scale, k_scale, v_scale, partials)
@@ -140,32 +175,35 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
     _check_operands("mha_prefill_attn", (q,), (k_cache, v_cache))
     check_scales("mha_prefill_attn", k_cache, (k_scale, v_scale), (B, H, S))
     sb, sh, ss = head_major_strides("mha_prefill_attn", k_scale, v_scale)
+    q_host, q_rows = _row_starts("mha_prefill_attn", q_pos0, q_pos0_max, B, q.device)
     qf = q.float().contiguous()
     out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q.device)
-    n_split, span = prefill_splits(B, T, H, S, int(q_pos0), int(cache_pos0), False)
+    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), False)
     scratch = _split_buffers(n_split, B * T * H, Dv, q.device)
     err = library("prefill_attn").mha_prefill(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
         data_ptr_or_0(v_scale), out.data_ptr(), data_ptr_or_0(m_out),
         data_ptr_or_0(l_out), data_ptr_or_0(scratch), n_split, span,
         B, T, H, S, Dh, Dv, DTYPE_CODE[k_cache.dtype],
-        int(q_pos0), int(cache_pos0), float(softmax_scale), sb, sh, ss,
+        q_host, int(cache_pos0), float(softmax_scale), sb, sh, ss, q_rows,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_prefill")
     count_body(mha_prefill_attn, partials, k_cache.dtype)
+    _count_rows(mha_prefill_attn, q_pos0)
     return (out, m_out, l_out) if partials else out
 
 
 def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
-                     q_pos0: int, cache_pos0: int, softmax_scale: float,
+                     q_pos0, cache_pos0: int, softmax_scale: float,
                      ckv_scale=None, krope_scale=None,
-                     partials: bool = False):
+                     partials: bool = False, q_pos0_max=None):
     """K10: q_c (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache
     (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32
     -> attended latents (B,T,H,R) float32; with ``partials`` (acc
-    (B,T,H,R), m (B,T,H), l (B,T,H))."""
+    (B,T,H,R), m (B,T,H), l (B,T,H)). ``q_pos0``: an int, or (B,) per-row
+    starts with ``q_pos0_max``."""
     if q_c.device.type == "cpu":
         return mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
                                       q_pos0, cache_pos0, softmax_scale,
@@ -185,23 +223,25 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     _check_operands("mla_prefill_attn", (q_c, q_rope), (ckv_cache, krope_cache))
     check_scales("mla_prefill_attn", ckv_cache, (ckv_scale, krope_scale), (B, S))
     q8 = ckv_cache.dtype == torch.int8
+    q_host, q_rows = _row_starts("mla_prefill_attn", q_pos0, q_pos0_max, B, q_c.device)
     cs = ckv_scale.contiguous() if q8 else None
     rs = krope_scale.contiguous() if q8 else None
     qc = q_c.float().contiguous()
     qr = q_rope.float().contiguous()
     out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q_c.device)
-    n_split, span = prefill_splits(B, T, H, S, int(q_pos0), int(cache_pos0), True)
+    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), True)
     scratch = _split_buffers(n_split, B * T * H, R, q_c.device)
     err = library("prefill_attn").mla_prefill(
         qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),
         krope_cache.data_ptr(), data_ptr_or_0(cs), data_ptr_or_0(rs), out.data_ptr(),
         data_ptr_or_0(m_out), data_ptr_or_0(l_out), data_ptr_or_0(scratch), n_split,
         span, B, T, H, S, R, P,
-        DTYPE_CODE[ckv_cache.dtype], int(q_pos0), int(cache_pos0),
-        float(softmax_scale), torch.cuda.current_stream(q_c.device).cuda_stream)
+        DTYPE_CODE[ckv_cache.dtype], q_host, int(cache_pos0),
+        float(softmax_scale), q_rows, torch.cuda.current_stream(q_c.device).cuda_stream)
     check(err, "mla_prefill")
     count_body(mla_prefill_attn, partials, ckv_cache.dtype)
+    _count_rows(mla_prefill_attn, q_pos0)
     return (out, m_out, l_out) if partials else out
 
 
@@ -215,3 +255,5 @@ mha_prefill_attn.f16 = SimpleNamespace(launches=0)
 mla_prefill_attn.f16 = SimpleNamespace(launches=0)
 mha_prefill_attn.f32 = SimpleNamespace(launches=0)
 mla_prefill_attn.f32 = SimpleNamespace(launches=0)
+mha_prefill_attn.per_row = SimpleNamespace(launches=0)
+mla_prefill_attn.per_row = SimpleNamespace(launches=0)

@@ -8,7 +8,9 @@ plain weights at few rows
 through K4 (the lm_head and the large dense FFN weights in decode), other
 plain weights and per-tensor fp8 (dequantized first, as the JAX qmm does)
 through one matrix product. ``dispatch_pairs`` is the single-device
-(ep == 1) part of ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``.
+(ep == 1) part of ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``,
+with its ``active`` mask of live batch rows (``LiveRows``: the serving
+scheduler's host mask and its device copy).
 
 The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
 name in ``deepseek_tpu/ops/matmul.py`` for ``ep == 1``: a counting sort of
@@ -30,8 +32,10 @@ expert, data axes).
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deepseek_tpu_torch.ops.activations import glu_act
@@ -76,17 +80,61 @@ def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unsupported weight {type(qt).__name__}")
 
 
-def dispatch_pairs(idx: torch.Tensor, weights: torch.Tensor
+@dataclasses.dataclass(frozen=True)
+class LiveRows:
+    """The live rows of a decode batch (continuous batching: empty and
+    finished slots are dead): ``mask`` (B,) bool on the device and
+    ``count``, the live rows, taken from the host mask it was made from, so
+    that cutting the pair list reads nothing back."""
+    mask: torch.Tensor
+    count: int
+
+    @classmethod
+    def of(cls, active, device) -> Optional["LiveRows"]:
+        """From a host mask (numpy or a list; a tensor is read back once),
+        with one non-blocking copy to ``device``; None stays None."""
+        if active is None or isinstance(active, LiveRows):
+            return active
+        if isinstance(active, torch.Tensor):
+            active = active.cpu().numpy()
+        host = np.array(active, dtype=bool).reshape(-1)
+        return cls(torch.from_numpy(host).to(device, non_blocking=True), int(host.sum()))
+
+
+def dispatch_pairs(idx: torch.Tensor, weights: torch.Tensor,
+                   live: Optional[LiveRows] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flatten the (T, k) token-expert pairs and sort them by expert id
-    (stable), so a repeated expert's pairs sit together.
+    (stable), so a repeated expert's pairs sit together. With ``live`` the
+    dead rows' pairs sort last and are cut off: the list keeps exactly the
+    live rows' ``live.count * k`` pairs (the JAX ``n_keep`` cut at an
+    occupancy bucket; eager torch has no bucketed compile, so the cut is
+    the live count itself), and the dead rows do no expert work.
 
-    Returns (expert (N,), weight (N,), token (N,)), N = T*k."""
+    Returns (expert (N,), weight (N,), token (N,), pair (N,): the index
+    of each pair in the flat (T*k) list, for ``combine_pairs``), N = T*k
+    or the live pairs."""
     T, k = idx.shape
     flat = idx.reshape(-1)
-    order = torch.sort(flat, stable=True).indices
     tok = torch.arange(T * k, device=idx.device) // k
-    return flat[order], weights.reshape(-1)[order], tok[order]
+    key = flat if live is None else torch.where(live.mask[tok], flat, 1 << 30)
+    order = torch.sort(key, stable=True).indices
+    if live is not None:
+        order = order[:live.count * k]
+    return flat[order], weights.reshape(-1)[order], tok[order], order
+
+
+def combine_pairs(per: torch.Tensor, weights: torch.Tensor, pair: torch.Tensor,
+                  n_tokens: int, k: int) -> torch.Tensor:
+    """Each token's routed output from the sorted pairs' outputs per (N,
+    dim): the weighted pairs scattered back to their (n_tokens, k) places
+    and summed over k there, in the token's own slot order and without
+    atomics, so that a token's sum is the same bits whatever else the pair
+    list holds (a served row equals the sequence decoded alone). Cut pairs
+    (dead rows) add 0. Returns (n_tokens, dim) in per's dtype."""
+    dense = per.new_zeros((n_tokens * k, per.shape[-1]))
+    dense[pair] = per * weights[:, None]
+    return dense.view(n_tokens, k, -1).sum(1)
 
 
 def counting_rank(cls: torch.Tensor, n_cls: int):

@@ -11,13 +11,18 @@ A sample is ``argmax(masked_logits + gumbel)`` with the JAX package's
 threefry noise (``ops/prng.py``), so a seed gives the JAX package's tokens.
 
 Where the JAX code branches with ``lax.cond`` (all rows greedy; no row
-asks for top-k or min-p), a host float takes a Python branch; a tensor
-parameter decides once per call. Per-row tensors of shape (B,) are taken
-as the JAX code takes them.
+asks for top-k or min-p), the host decides: a host float, or a host numpy
+array of per-row values (the serving scheduler's per-slot temperature,
+top-p, top-k and min-p), takes a Python branch and crosses to the device
+in one non-blocking copy, so the decode block stays free of host syncs. A
+device tensor is taken too, as the JAX code takes it, but deciding the
+branch reads it back. ``SamplingRows`` makes the columns and the branch
+once for a decode block's steps.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -29,19 +34,23 @@ _NEG_INF = -1e30
 
 
 def _col(v, shape, device) -> torch.Tensor:
-    """A host scalar, or a tensor broadcastable to ``shape``, as a float32
-    column of ``shape + (1,)``; a host scalar becomes a device fill, not a
-    blocking copy (the decode block does not synchronize)."""
-    if not isinstance(v, torch.Tensor):
+    """A host scalar, a host numpy array or a tensor, broadcastable to
+    ``shape``, as a float32 column of ``shape + (1,)``. A host scalar
+    becomes a device fill and a host array one non-blocking copy, not a
+    blocking one (the decode block does not synchronize)."""
+    if isinstance(v, torch.Tensor):
+        t = v.to(device=device, dtype=torch.float32)
+    elif np.ndim(v) == 0:
         return torch.full((*shape, 1), float(v), dtype=torch.float32, device=device)
-    t = v.to(device=device, dtype=torch.float32)
+    else:
+        t = torch.from_numpy(np.array(v, dtype=np.float32)).to(device, non_blocking=True)
     return t.expand(shape).reshape(*shape, 1)
 
 
 def _any(v, pred) -> bool:
-    """``pred`` holds for a host scalar, or for some element of a tensor
-    (which reads the tensor back: host scalars keep the decode block free
-    of synchronization)."""
+    """``pred`` holds for a host scalar, or for some element of a host
+    array or of a tensor (which reads the tensor back: host values keep the
+    decode block free of synchronization)."""
     if isinstance(v, torch.Tensor):
         return bool(pred(v).any())
     return bool(np.any(pred(np.asarray(v))))
@@ -112,24 +121,40 @@ def nucleus_dist(logits: torch.Tensor, temperature, top_p, top_k=0,
     return p.reshape(*lead, V)
 
 
-def sample_with_noise(logits: torch.Tensor, noise: Callable[[], torch.Tensor],
-                      temperature, top_p, top_k=0, min_p=0.0) -> torch.Tensor:
-    """``sample_token`` with the gumbel noise (B, V) given by ``noise()``,
-    called only when some row samples (the decode loop draws a block's
-    noise at once)."""
+@dataclasses.dataclass
+class SamplingRows:
+    """The sampling parameters of B rows as device columns (B, 1), with the
+    JAX ``lax.cond`` predicates decided on the host: some row samples
+    (temperature != 0), some row asks for top-k or min-p."""
+    temp: torch.Tensor
+    top_p: torch.Tensor
+    top_k: torch.Tensor
+    min_p: torch.Tensor
+    sampled: bool
+    filters: bool
+
+    @classmethod
+    def make(cls, B: int, device, temperature, top_p, top_k=0, min_p=0.0):
+        col = lambda v: _col(v, (B,), device)
+        return cls(col(temperature), col(top_p), col(top_k), col(min_p),
+                   _any(temperature, lambda t: t != 0.0), _filters_on(top_k, min_p))
+
+
+def sample_rows(logits: torch.Tensor, noise: Callable[[], torch.Tensor],
+                rows: SamplingRows) -> torch.Tensor:
+    """``sample_token`` over (B, V) logits with the rows' parameters and the
+    gumbel noise (B, V) given by ``noise()``, called only when some row
+    samples (the decode loop draws a block's noise at once)."""
     logits = logits.float()
-    B, dev = logits.shape[0], logits.device
     greedy = logits.argmax(-1)
-    if not _any(temperature, lambda t: t != 0.0):
+    if not rows.sampled:
         return greedy
-    temp = _col(temperature, (B,), dev)
-    scaled = logits / temp.clamp_min(1e-6)
+    scaled = logits / rows.temp.clamp_min(1e-6)
     probs = torch.softmax(scaled, dim=-1)
-    keep = _keep_mask(probs, _col(top_p, (B,), dev), _col(top_k, (B,), dev),
-                      _col(min_p, (B,), dev), _filters_on(top_k, min_p))
+    keep = _keep_mask(probs, rows.top_p, rows.top_k, rows.min_p, rows.filters)
     masked = torch.where(keep, scaled, torch.full_like(scaled, _NEG_INF))
     sampled = (noise() + masked).argmax(-1)
-    return torch.where(temp[:, 0] == 0.0, greedy, sampled)
+    return torch.where(rows.temp[:, 0] == 0.0, greedy, sampled)
 
 
 def sample_token(logits: torch.Tensor, key, temperature, top_p, top_k=0,
@@ -137,8 +162,10 @@ def sample_token(logits: torch.Tensor, key, temperature, top_p, top_k=0,
     """logits (B, V) -> (B,) int64 tokens. ``key`` is a (2,) uint32 threefry
     key (``prng.PRNGKey``/``split``); temperature, top_p, top_k and min_p
     are scalars or per-row (B,). top_k < 1 and min_p <= 0 turn those
-    filters off; temperature 0 is argmax."""
-    return sample_with_noise(
-        logits, lambda: prng.gumbel(key, tuple(logits.shape), logits.device),
-        temperature, top_p, top_k, min_p)
+    filters off; temperature 0 is argmax. Per-row values may be host numpy
+    arrays (one non-blocking copy each) or tensors."""
+    rows = SamplingRows.make(logits.shape[0], logits.device, temperature, top_p,
+                             top_k, min_p)
+    return sample_rows(
+        logits, lambda: prng.gumbel(key, tuple(logits.shape), logits.device), rows)
 

@@ -1,6 +1,8 @@
-"""Single-sequence speculative decoding rounds: the port of
-``deepseek_tpu/speculative.py`` (``_accept``, ``_ngram_lookup``,
-``make_spec_rounds``, ``make_ngram_spec_rounds``, ``make_mtp_spec_rounds``).
+"""Speculative decoding rounds: the port of ``deepseek_tpu/speculative.py``
+(``_accept``, ``_ngram_lookup``, ``_accept_pointmass``, ``make_spec_rounds``,
+``make_ngram_spec_rounds``, ``make_mtp_spec_rounds``, and the continuous-
+batching scheduler's ``make_batched_ngram_spec_rounds`` and
+``make_batched_mtp_spec_rounds``).
 
 A maker returns a function that runs ``rounds`` complete speculation
 rounds a call: draft ``spec_k`` tokens (a draft model's decode steps, an
@@ -22,12 +24,22 @@ sampled tokens. Rejected draft rows need no rollback: a ring slot is
 rewritten whenever its position is fed, and ``kv_len`` masking never
 exposes a slot before that. The rounds run strictly inside the prefill
 window; the Engine guards ``pos + rounds*(k+1) <= window``.
+
+The batched makers run every serving slot's round at once: each row drafts
+from its own history (or its own MTP hidden state), one verify chunk of
+per-row starts (``forward_prefill``'s verify mode, K10/K9 reading the
+starts on the device) scores all rows, and each row advances by its own
+accepted count; per-row sampling parameters are host arrays, as the
+decode block takes them. A round reads its (B,) accepted counts back
+once: the next chunk starts at host positions, and the scheduler needs
+the counts anyway.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from deepseek_tpu_torch.config import ModelConfig
@@ -37,8 +49,10 @@ from deepseek_tpu_torch.ops.sampling import nucleus_dist, sample_token
 
 
 def _categorical(key, logp: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical(key, logp)`` over a (V,) row."""
-    return (prng.gumbel(key, tuple(logp.shape), logp.device) + logp).argmax(-1)
+    """``jax.random.categorical(key, logp, axis=-1)`` over (..., V) rows;
+    ``key`` one key, or a stack (B, 2) of one key per row of (B, V)."""
+    shape = logp.shape[1:] if np.ndim(key) == 2 else logp.shape
+    return (prng.gumbel(key, tuple(shape), logp.device) + logp).argmax(-1)
 
 
 def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -46,25 +60,60 @@ def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1))[0]
 
 
+def _accept_rows(ps: torch.Tensor, qs: torch.Tensor, drafts: torch.Tensor,
+                 spec_k: int, keys):
+    """``_accept`` of B rows at once, row b under its own key (the JAX
+    ``vmap(_accept)`` over ``split(key, B)``). ps (B, k+1, V), qs (B, k,
+    V), drafts (B, k) -> (n_acc (B,), next (B,))."""
+    B, _, V = ps.shape
+    ku, kr, kb = (np.stack(c) for c in zip(*(prng.split(k, 3) for k in keys)))
+    pd = ps[:, :spec_k].gather(2, drafts[..., None])[..., 0]
+    qd = qs.gather(2, drafts[..., None])[..., 0]
+    u = prng.uniform(ku, (spec_k,), ps.device, minval=0.0)             # (B, k)
+    acc = u < torch.clamp(pd / qd.clamp_min(1e-12), max=1.0)
+    n_acc = torch.cumprod(acc.to(torch.int64), 1).sum(1)
+    # the residual distribution at the first rejected position
+    i = n_acc.clamp(max=spec_k - 1)[:, None, None].expand(B, 1, V)
+    p_i, q_i = ps.gather(1, i)[:, 0], qs.gather(1, i)[:, 0]
+    res = (p_i - q_i).clamp_min(0.0)
+    rs = res.sum(-1, keepdim=True)
+    res = torch.where(rs > 0, res / rs.clamp_min(1e-30), p_i)
+    repl = _categorical(kr, torch.log(res.clamp_min(1e-30)))
+    bonus = _categorical(kb, torch.log(ps[:, spec_k].clamp_min(1e-30)))
+    return n_acc, torch.where(n_acc == spec_k, bonus, repl)
+
+
 def _accept(ps: torch.Tensor, qs: torch.Tensor, drafts: torch.Tensor,
             spec_k: int, key):
     """Speculative acceptance on the device. ps (k+1, V) target nucleus
     distributions, qs (k, V) draft distributions, drafts (k,). Returns
     (n_acc, next_token), both 0-d."""
-    pd = ps[:spec_k].gather(1, drafts[:, None])[:, 0]
-    qd = qs.gather(1, drafts[:, None])[:, 0]
+    n_acc, nxt = _accept_rows(ps[None], qs[None], drafts[None], spec_k, [key])
+    return n_acc[0], nxt[0]
+
+
+def _accept_pointmass(ps: torch.Tensor, drafts: torch.Tensor, spec_k: int, key):
+    """Batched acceptance for point-mass drafts (prompt lookup): the rule
+    with q = one-hot(draft) accepts with probability p(draft), and the
+    residual is p with the draft zeroed. ps (B, k+1, V) target nucleus
+    distributions, drafts (B, k) -> (n_acc (B,), next (B,)). A temperature-0
+    row's p is one-hot, so acceptance is argmax equality and both draws are
+    the argmax: greedy rows are plain decode's tokens."""
+    B, _, V = ps.shape
+    pd = ps[:, :spec_k].gather(2, drafts[..., None])[..., 0]          # (B, k)
     ku, kr, kb = prng.split(key, 3)
-    u = prng.uniform(ku, (spec_k,), ps.device, minval=0.0)
-    acc = u < torch.clamp(pd / qd.clamp_min(1e-12), max=1.0)
-    n_acc = torch.cumprod(acc.to(torch.int64), 0).sum()
-    # the residual distribution at the first rejected position
-    i = n_acc.clamp_max(spec_k - 1)
-    p_i, q_i = _row(ps, i), _row(qs, i)
-    res = (p_i - q_i).clamp_min(0.0)
-    rs = res.sum()
+    u = prng.uniform(ku, (B, spec_k), ps.device, minval=0.0)
+    acc = u < pd.clamp(max=1.0)
+    n_acc = torch.cumprod(acc.to(torch.int64), 1).sum(1)              # (B,)
+    i = n_acc.clamp(max=spec_k - 1)
+    p_i = ps.gather(1, i[:, None, None].expand(B, 1, V))[:, 0]        # (B, V)
+    d_i = drafts.gather(1, i[:, None])                                 # (B, 1)
+    res = torch.where(torch.arange(V, device=ps.device)[None, :] == d_i,
+                      torch.zeros_like(p_i), p_i)
+    rs = res.sum(-1, keepdim=True)
     res = torch.where(rs > 0, res / rs.clamp_min(1e-30), p_i)
     repl = _categorical(kr, torch.log(res.clamp_min(1e-30)))
-    bonus = _categorical(kb, torch.log(ps[spec_k].clamp_min(1e-30)))
+    bonus = _categorical(kb, torch.log(ps[:, spec_k].clamp_min(1e-30)))
     return n_acc, torch.where(n_acc == spec_k, bonus, repl)
 
 
@@ -137,29 +186,40 @@ def make_spec_rounds(cfg_t: ModelConfig, cfg_d: ModelConfig, spec_k: int,
     return fn
 
 
-def _ngram_lookup(hist_row: torch.Tensor, hlen: int, H: int, ngram_max: int,
-                  ngram_min: int):
-    """Longest-n most-recent match of the history's last n tokens, n =
-    ngram_max down to ngram_min. hist_row (H,); returns (start, matched),
-    0-d device tensors: start indexes the token that followed the match."""
-    dev = hist_row.device
-    start = torch.zeros((), dtype=torch.int64, device=dev)
-    matched = torch.zeros((), dtype=torch.bool, device=dev)
+def _ngram_lookup_rows(hist: torch.Tensor, hlen, H: int, ngram_max: int,
+                       ngram_min: int):
+    """Longest-n most-recent match of each row's last n history tokens, n
+    = ngram_max down to ngram_min (the JAX ``vmap(_ngram_lookup)``). hist
+    (B, H); hlen (B,) host ints. Returns (start (B,), matched (B,)) on the
+    device: start indexes the token that followed the match."""
+    dev, B = hist.device, hist.shape[0]
+    hl = torch.from_numpy(np.array(hlen, dtype=np.int64).reshape(B)).to(
+        dev, non_blocking=True)[:, None]                                # (B, 1)
+    start = torch.zeros(B, dtype=torch.int64, device=dev)
+    matched = torch.zeros(B, dtype=torch.bool, device=dev)
     for n in range(ngram_max, ngram_min - 1, -1):
-        s = min(max(hlen - n, 0), H - n)          # dynamic_slice clamps its start
-        pat = hist_row[s:s + n]
-        eq = torch.ones(H - n + 1, dtype=torch.bool, device=dev)
+        s = (hl - n).clamp(0, H - n)               # dynamic_slice clamps its start
+        pat = hist.gather(1, s + torch.arange(n, device=dev))          # (B, n)
+        eq = torch.ones((B, H - n + 1), dtype=torch.bool, device=dev)
         for j in range(n):
-            eq &= hist_row[j:j + H - n + 1] == pat[j]
-        idx = torch.arange(H - n + 1, device=dev)
+            eq &= hist[:, j:j + H - n + 1] == pat[:, j:j + 1]
+        idx = torch.arange(H - n + 1, device=dev)[None, :]
         # a match needs a following token, and i == hlen-n is the suffix
         # itself: both excluded by i <= hlen-n-1
-        ok = eq & (idx <= hlen - n - 1) & (hlen >= n + 1)
-        best = torch.where(ok, idx, torch.full_like(idx, -1)).max()
+        ok = eq & (idx <= hl - n - 1) & (hl >= n + 1)
+        best = torch.where(ok, idx, torch.full_like(idx, -1)).amax(1)
         hit = best >= 0
         start = torch.where(hit & ~matched, best + n, start)
         matched = matched | hit
     return start, matched
+
+
+def _ngram_lookup(hist_row: torch.Tensor, hlen: int, H: int, ngram_max: int,
+                  ngram_min: int):
+    """``_ngram_lookup_rows`` of one history row (H,), hlen a host int ->
+    (start, matched), 0-d device tensors."""
+    start, matched = _ngram_lookup_rows(hist_row[None], [hlen], H, ngram_max, ngram_min)
+    return start[0], matched[0]
 
 
 def make_ngram_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
@@ -255,6 +315,159 @@ def make_mtp_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
             pos += int(n_acc) + 1          # the round's one read to the host
             out.append((drafts, n_acc, nxt))
             tok = nxt.reshape(1, 1)
+        return (*_stack_rounds(out), h_cur, ct, cm)
+
+    return fn
+
+
+def _no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{what} over a device mesh (the data, tensor and "
+                                  "expert axes) is ROADMAP.md queue 1, item 14")
+
+
+def _row_params(temperature, top_p, top_k, min_p, B: int):
+    """The per-row sampling parameters as host (B,) float32 arrays."""
+    return tuple(np.broadcast_to(np.asarray(v, dtype=np.float32).reshape(-1), (B,))
+                 for v in (temperature, top_p, top_k, min_p))
+
+
+def _emitted(drafts, n_acc, nxt, spec_k: int) -> torch.Tensor:
+    """(B, k+1): drafts[:n_acc], then next, then the drafts past it (junk
+    that a later write covers before it is read)."""
+    emitted = torch.cat([drafts, drafts[:, -1:]], 1)
+    at = torch.arange(spec_k + 1, device=drafts.device)[None, :] == n_acc[:, None]
+    return torch.where(at, nxt[:, None], emitted)
+
+
+def _emitted_logprobs(lg_all: torch.Tensor, emitted: torch.Tensor) -> torch.Tensor:
+    """The raw log-softmax (no temperature) of each emitted token from the
+    verify chunk's own logits rows: (B, k+1)."""
+    return torch.log_softmax(lg_all.float(), -1).gather(2, emitted[..., None])[..., 0]
+
+
+def make_batched_ngram_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
+                                   hist_len: int, ngram_max: int = 3,
+                                   ngram_min: int = 1, with_logprobs: bool = False,
+                                   mesh=None):
+    """Prompt-lookup speculation for the continuous-batching scheduler: every
+    slot drafts from its own history and all slots verify in one chunk of
+    per-row starts a round (``forward_prefill``'s verify mode); acceptance is
+    the point-mass rule per row (``_accept_pointmass``), so greedy and
+    sampled slots share a round.
+
+    ``hist[b, :pos0[b]+1]`` is slot b's sequence (prompt + emitted)
+    including ``tok[b]`` at index pos0[b]. ``active`` freezes a row: its
+    position, token and history stay put and its outputs are junk (its
+    cache writes land in a dead slot). The caller keeps max(pos0) +
+    rounds*(spec_k+1) <= kv_window and hist_len >= that bound.
+
+    Returns ``fn(params, ct, hist (B,H) int64, tok (B,1), pos0 (B,) host
+    ints, key, temperature, top_p, active, top_k, min_p) -> (drafts
+    (R,B,k), n_acc (R,B), next (R,B), matched (R,B)[, lps (R,B,k+1)], ct,
+    hist)``, the cache and hist written in place, the per-row parameters
+    host (B,) arrays (or scalars), ``active`` a host (B,) bool mask. Per
+    round r the host emits drafts[r,b,:n_acc[r,b]] then next[r,b] and
+    advances pos[b] by n_acc[r,b]+1 (live rows). ``with_logprobs`` adds the
+    raw log-softmax of each emitted token from the verify chunk's logits:
+    lps[r,b,i] scores the i-th token round r emits. A mesh is not ported."""
+    _no_mesh(mesh, "batched n-gram speculation")
+    H = hist_len
+
+    @torch.inference_mode()
+    def fn(params, ct, hist, tok, pos0, key, temperature, top_p, active, top_k,
+           min_p):
+        B, dev = tok.shape[0], tok.device
+        pos = np.array(pos0, dtype=np.int64).reshape(B)
+        act = np.broadcast_to(np.asarray(active, dtype=bool).reshape(-1), (B,))
+        act_d = torch.from_numpy(act.copy()).to(dev, non_blocking=True)
+        cols = [v[:, None] for v in _row_params(temperature, top_p, top_k, min_p, B)]
+        off = torch.arange(spec_k, device=dev)[None, :]
+        out = []
+        for _ in range(rounds):
+            hlen = pos + 1
+            start, matched = _ngram_lookup_rows(hist, hlen, H, ngram_max, ngram_min)
+            hl = torch.from_numpy(hlen).to(dev, non_blocking=True)[:, None]
+            start = torch.where(matched[:, None], start[:, None], hl - 1)
+            drafts = hist.gather(1, start.clamp(0, H - spec_k) + off)
+            drafts = torch.where(start + off < hl, drafts, hist.gather(1, hl - 1))
+            chunk = torch.cat([tok, drafts], 1)                          # (B, k+1)
+            lg_all = forward_prefill(params, ct, chunk, pos, cfg, "all")  # verify mode
+            key, ka = prng.split(key)
+            ps = nucleus_dist(lg_all, *cols)                             # (B, k+1, V)
+            n_acc, nxt = _accept_pointmass(ps, drafts, spec_k, ka)
+            emitted = _emitted(drafts, n_acc, nxt, spec_k)
+            lp = _emitted_logprobs(lg_all, emitted) if with_logprobs else None
+            at = torch.from_numpy(np.minimum(hlen, H - spec_k - 1)).to(dev, non_blocking=True)
+            hist.scatter_(1, at[:, None] + torch.arange(spec_k + 1, device=dev), emitted)
+            pos = pos + np.where(act, n_acc.cpu().numpy() + 1, 0)   # the round's host read
+            tok = torch.where(act_d[:, None], nxt[:, None], tok)
+            out.append((drafts, n_acc, nxt, matched) + ((lp,) if with_logprobs else ()))
+        return (*_stack_rounds(out), ct, hist)
+
+    return fn
+
+
+def make_batched_mtp_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
+                                 with_logprobs: bool = False, mesh=None):
+    """MTP self-speculation for the continuous-batching scheduler: every slot
+    drafts with the MTP layer from its own hidden state, all slots verify in
+    one chunk of per-row starts a round, and each row accepts by the exact
+    rule under its own key (the JAX ``vmap(_accept)``). After each verify the
+    MTP cache takes the pairs (chunk[j+1], h_all[j]) at each row's own
+    positions from the true hidden states (the MTP verify mode). ``active``
+    freezes a row as in the n-gram maker.
+
+    Returns ``fn(params, ct, cm, tok (B,1), h_cur (B,1,dim) f32, pos0 (B,)
+    host ints, key, temperature, top_p, active, top_k, min_p) -> (drafts
+    (R,B,k), n_acc (R,B), next (R,B)[, lps (R,B,k+1)], h_cur (B,1,dim),
+    ct, cm)``, both caches written in place; ``lps`` as the n-gram
+    maker's. A mesh is not ported."""
+    from deepseek_tpu_torch.models.mtp import mtp_forward
+
+    _no_mesh(mesh, "batched MTP speculation")
+
+    @torch.inference_mode()
+    def fn(params, ct, cm, tok, h_cur, pos0, key, temperature, top_p, active,
+           top_k, min_p):
+        B, dev = tok.shape[0], tok.device
+        pos = np.array(pos0, dtype=np.int64).reshape(B)
+        act = np.broadcast_to(np.asarray(active, dtype=bool).reshape(-1), (B,))
+        act_d = torch.from_numpy(act.copy()).to(dev, non_blocking=True)
+        params_b = _row_params(temperature, top_p, top_k, min_p, B)
+        cols = [v[:, None] for v in params_b]
+        out = []
+        for _ in range(rounds):
+            drafts, qs, t, hh = [], [], tok, h_cur
+            for j in range(spec_k):
+                lg, hh, cm = mtp_forward(params, cm, t, hh, pos - 1 + j, cfg,
+                                         prefill=False)
+                q = nucleus_dist(lg[:, 0], *params_b)
+                key, sub = prng.split(key)
+                d = sample_token(lg[:, 0], sub, *params_b)
+                hh = hh.float()
+                drafts.append(d)
+                qs.append(q)
+                t = d[:, None]
+            drafts, qs = torch.stack(drafts, 1), torch.stack(qs, 1)     # (B,k), (B,k,V)
+            chunk = torch.cat([tok, drafts], 1)                          # (B, k+1)
+            lg_all, h_all = forward_prefill(params, ct, chunk, pos, cfg, "all",
+                                            with_hidden=True)          # verify mode
+            key, ka = prng.split(key)
+            ps = nucleus_dist(lg_all, *cols)                             # (B, k+1, V)
+            n_acc, nxt = _accept_rows(ps, qs, drafts, spec_k, prng.split(ka, B))
+            h_all = h_all.float()
+            # the MTP pairs (chunk[j+1], h_all[j]) at each row's positions;
+            # the pairs past n_acc are rewritten before they are attended
+            mtp_forward(params, cm, torch.cat([drafts, nxt[:, None]], 1), h_all, pos,
+                        cfg, prefill=True)
+            lp = (_emitted_logprobs(lg_all, _emitted(drafts, n_acc, nxt, spec_k))
+                  if with_logprobs else None)
+            h_next = h_all.gather(1, n_acc[:, None, None].expand(B, 1, h_all.shape[-1]))
+            pos = pos + np.where(act, n_acc.cpu().numpy() + 1, 0)   # the round's host read
+            tok = torch.where(act_d[:, None], nxt[:, None], tok)
+            h_cur = torch.where(act_d[:, None, None], h_next, h_cur)
+            out.append((drafts, n_acc, nxt) + ((lp,) if with_logprobs else ()))
         return (*_stack_rounds(out), h_cur, ct, cm)
 
     return fn

@@ -168,11 +168,27 @@ def test_bad_flags_exit(ckpt):
             cli.main(argv + (["--device", "cpu"] if len(argv) > 1 else []))
 
 
-def test_serve_exits_citing_item_12(ckpt, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main([ckpt, "-m", "serve", "--device", "cpu"])
-    assert e.value.code != 0
-    assert "item 12" in capsys.readouterr().err
+def test_serve_exits_citing_item_12(ckpt, monkeypatch):
+    """``-m serve`` is ported (ROADMAP.md queue 1, item 12): it starts the
+    port's Server with the JAX CLI's serve flags, whose defaults are the
+    JAX CLI's (batch 4, warmup on, a 64 MB prefix cache, no speculation,
+    127.0.0.1:8080). serve_forever is replaced so that the test returns."""
+    from deepseek_tpu_torch import server
+
+    made = []
+
+    def fake_serve(self, host="127.0.0.1", port=8080):
+        made.append((self.scheduler.batch, self._warmup, self._prefix_mb,
+                     self.scheduler.spec, self.scheduler.spec_k, host, port))
+        self.shutdown()
+
+    monkeypatch.setattr(server.Server, "serve_forever", fake_serve)
+    cli.main([ckpt, "-m", "serve", "--device", "cpu", "--no-warmup"])
+    cli.main([ckpt, "-m", "serve", "--device", "cpu", "--batch", "2", "--port", "9123",
+              "--host", "0.0.0.0", "--prefix-cache", "0", "--serve-spec", "--spec-k", "3",
+              "--no-warmup"])
+    assert made == [(4, False, 64.0, None, 4, "127.0.0.1", 8080),
+                    (2, False, 0.0, "ngram", 3, "0.0.0.0", 9123)]
 
 
 def test_default_device_is_the_card(ckpt):

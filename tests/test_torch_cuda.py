@@ -1677,3 +1677,149 @@ def test_k5_fp8_mv_small_block_passes(rows, x_dtype, dev):
     _close(qmm(qt, x), qmm_plain(qt, x), 1e-4)
     assert qmm_fp8.launches == before + 1
     _only_kernels(_card_kernels(lambda: qmm(qt, x)), ("fp8_mv_kernel",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("H,S,DK,DV,starts", [
+    (3, 64, 48, 128, [7, 0, 50, 20]),
+    (128, 4096, 192, 128, [4000, 37, 2400, 9]),
+])
+def test_k9_per_row_starts_match_plain(dtype, H, S, DK, DV, starts, dev):
+    """K9 with a (B,) int32 start vector on the card (verify mode: row b's
+    queries at starts[b] + t) against its plain version, split windows
+    sized for the largest start; counted in ``.per_row``. Tolerance as
+    K9's."""
+    B, T = len(starts), 5
+    q, k, v = _prefill_inputs(B, T, H, S, DK, DV, S, dtype, dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(DK)
+    before = mha_prefill_attn.per_row.launches
+    _close(mha_prefill_attn(q, k, v, st, 0, scale, q_pos0_max=max(starts)),
+           mha_prefill_attn_plain(q, k, v, st, 0, scale), 1e-4)
+    assert mha_prefill_attn.per_row.launches == before + 1
+    with pytest.raises(ValueError, match="q_pos0_max"):
+        mha_prefill_attn(q, k, v, st, 0, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.int8])
+@pytest.mark.parametrize("H,S,R,P,starts", [
+    (4, 40, 128, 16, [3, 30, 0, 11]),
+    (128, 4096, 512, 64, [4000, 37, 2400, 9]),
+])
+def test_k10_per_row_starts_match_plain(dtype, H, S, R, P, starts, dev):
+    """K10 with a (B,) start vector (the batched speculation's verify
+    chunks, 5 rows a slot) against its plain version, float and int8
+    caches; tolerance as K10's."""
+    B, T = len(starts), 5
+    g = torch.Generator().manual_seed(S + H)
+    qc = (torch.randn((B, T, H, R), generator=g) * 0.3).to(dev)
+    qr = (torch.randn((B, T, H, P), generator=g) * 0.3).to(dev)
+    sc = {}
+    if dtype == torch.int8:
+        ckv = torch.randint(-127, 128, (B, S, R), generator=g, dtype=torch.int8).to(dev)
+        kr = torch.randint(-127, 128, (B, S, P), generator=g, dtype=torch.int8).to(dev)
+        sc = dict(ckv_scale=(torch.rand((B, S), generator=g) * 0.004).to(dev),
+                  krope_scale=(torch.rand((B, S), generator=g) * 0.004).to(dev))
+    else:
+        ckv = (torch.randn((B, S, R), generator=g) * 0.3).to(dev, dtype)
+        kr = (torch.randn((B, S, P), generator=g) * 0.3).to(dev, dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(192)
+    before = mla_prefill_attn.per_row.launches
+    _close(mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale, q_pos0_max=max(starts), **sc),
+           mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale, **sc), 1e-4)
+    assert mla_prefill_attn.per_row.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k3_k8_batch_of_four_unequal_lengths(dtype, dev):
+    """K3 (V3 widths, 128 heads) and K8 (V2-Lite widths, 16 heads) at B = 4,
+    the serving batch, with unequal kv_len (one slot, a short one, a long
+    one, the whole window) against their plain versions; tolerance 1e-4."""
+    kv_len = [1, 37, 2500, 4096]
+    kl = torch.tensor(kv_len, device=dev)
+    args = _attn_inputs(4, 128, 4096, 512, 64, 4, dtype, dev)
+    torch.testing.assert_close(mla_decode_attn(*args, kl, 0.07),
+                               mla_decode_attn_plain(*args, kl, 0.07), rtol=1e-4, atol=1e-4)
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn((4, 16, 192), generator=g).to(dev)
+    k = (torch.randn((4, 4096, 16, 192), generator=g) * 0.3).to(dev, dtype)
+    v = torch.randn((4, 4096, 16, 128), generator=g).to(dev, dtype)
+    _close(mha_decode_attn(q, k, v, kl, 0.07), mha_decode_attn_plain(q, k, v, kl, 0.07), 1e-4)
+
+
+@pytest.mark.cuda
+def test_batched_decode_block_does_not_synchronize(dev):
+    """The serving scheduler's decode block on the card: four rows at their
+    own positions, per-slot sampling parameters as host arrays (greedy and
+    sampled rows, a top-k and a min-p row), a dead row, logprobs and every
+    step's hidden state, under set_sync_debug_mode("error"); the dead row's
+    pairs are cut off (its routed FFN output stays 0)."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fused_params)
+    from deepseek_tpu_torch.ops import prng
+    cfg = deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512)
+    params = random_fused_params(cfg, "q3_k", seed=1, device=dev)
+    cache = init_cache(cfg, batch=4, device=dev)
+    tok = torch.tensor([[5], [6], [7], [8]], device=dev)
+    with torch.inference_mode():
+        forward_decode(params, cache, tok, 0, cfg)           # builds the kernels
+    loop = make_decode_loop(cfg, 8, with_logprobs=True, all_hidden=True)
+    pos = np.array([3, 0, 9, 1])
+    rows = (np.array([0.0, 0.8, 0.8, 1.0], np.float32), np.array([0.95, 0.9, 1.0, 0.95],
+                                                                   np.float32),
+            np.array([0.0, 0.0, 20.0, 0.0], np.float32), np.array([0.0, 0.0, 0.0, 0.05],
+                                                                   np.float32))
+    active = np.array([True, True, False, True])
+    torch.cuda.synchronize()
+    before = qmm_experts_packed.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, logits, lps, hid, _ = loop(params, cache, tok, pos, prng.PRNGKey(2), rows[0],
+                                         rows[1], active, rows[2], rows[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == lps.shape == (4, 8) and hid.shape == (4, 8, cfg.dim)
+    assert bool(torch.isfinite(logits).all()) and bool((lps <= 0).all())
+    assert qmm_experts_packed.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 4])
+def test_batched_decode_row_is_the_row_alone(B, dev):
+    """Batch-invariant decode: each row of a decode step over B sequences
+    at their own positions (f32 compute, all rows live) has the bits of
+    the same sequence decoded alone, step after step (the row reductions
+    and the router product over at least 16 rows, one sequence's K3 spans,
+    the pairs combined in slot order)."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fused_params)
+    cfg = dataclasses.replace(deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512),
+        compute_dtype="float32")
+    params = random_fused_params(cfg, "q3_k", seed=3, device=dev)
+    batch = init_cache(cfg, batch=B, device=dev)
+    alone = [init_cache(cfg, device=dev) for _ in range(B)]
+    pos = np.arange(B) * 7
+    g = torch.Generator().manual_seed(4)
+    with torch.inference_mode():
+        for step in range(6):
+            tok = torch.randint(3, cfg.vocab_size, (B, 1), generator=g).to(dev)
+            got = forward_decode(params, batch, tok, pos + step, cfg,
+                                 active=np.ones(B, bool))
+            for b in range(B):
+                want = forward_decode(params, alone[b], tok[b:b + 1], int(pos[b]) + step,
+                                      cfg)
+                assert torch.equal(got[b], want[0]), (step, b)

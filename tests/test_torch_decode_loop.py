@@ -8,7 +8,9 @@ against the JAX package.
   float32 logits and key, greedy, nucleus, top-k, min-p and per-row
   parameters, boundary ties included; ``nucleus_dist`` within 1e-6.
 - ``make_decode_loop`` against the JAX one on a converted checkpoint
-  (tokens, ``logits_last``), and no step of it synchronizes with the host.
+  (tokens, ``logits_last``), and no step of it synchronizes with the host;
+  the serving block (per-row positions and host sampling arrays, a live-
+  row mask, ``with_logprobs``, ``with_hidden``) likewise.
 - ``Engine`` at its default arguments against the JAX ``Engine`` at its
   own on a converted packed Q3_K checkpoint: the same tokens at
   temperature 0 and 0.8 across a block boundary and the 24-slot window's
@@ -225,17 +227,144 @@ def test_decode_loop_does_not_synchronize(ckpt, monkeypatch):
 
 
 def test_decode_loop_raises_on_unported_options(ckpt):
-    """The seq mesh axis is ported (tests/test_torch_seq_parallel.py); a
-    mesh with a tensor axis, per-token logprobs and the block's hidden
-    state (batched MTP serving) are not and raise, citing their ROADMAP
-    items."""
+    """The seq mesh axis is ported (tests/test_torch_seq_parallel.py), and
+    per-token logprobs, the hidden state and live-row masks are too
+    (``test_batched_decode_loop_matches_jax``); a mesh with a tensor axis
+    is not and raises, citing its ROADMAP item. The hidden state over a
+    mesh raises as the JAX loop asserts (single-device), and more live rows
+    than the occupancy bucket raise."""
     eng = _port_engine(ckpt)
-    for kw, item in (("mesh", "item 14"), ("with_logprobs", "item 12"),
-                     ("with_hidden", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_decode_loop(eng.cfg, 4, **{kw: Mesh(tensor=2) if kw == "mesh" else True})
-    loop = make_decode_loop(eng.cfg, 4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        loop(eng.params, torch_cache(eng.cfg), torch.tensor([[5]]), 0,
-             prng.PRNGKey(0), 0.0, 1.0, torch.ones(1, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        make_decode_loop(eng.cfg, 4, mesh=Mesh(tensor=2))
+    with pytest.raises(ValueError, match="single-device"):
+        make_decode_loop(eng.cfg, 4, mesh=Mesh(seq=2), with_hidden=True)
+    loop = make_decode_loop(eng.cfg, 4, active_bucket=1)
+    with pytest.raises(ValueError, match="bucket"):
+        loop(eng.params, torch_cache(eng.cfg, batch=2), torch.tensor([[5], [6]]), 0,
+             prng.PRNGKey(0), 0.0, 1.0, np.ones(2, dtype=bool))
     assert Engine(ckpt["dir"], device="cpu", decode_block=0).decode_block == 1
+
+
+def test_sample_token_host_rows_match_jax():
+    """Per-row parameters as host numpy arrays (the scheduler's per-slot
+    temperature, top-p, top-k and min-p: greedy rows, sampled rows, a
+    top-k row and a min-p row in one batch): the JAX tokens from the same
+    logits and key, bit for bit, and the branch decided on the host."""
+    rows = dict(temperature=np.array([0.0, 0.8, 0.8, 0.0, 1.1], np.float32),
+                top_p=np.array([0.95, 0.9, 1.0, 0.5, 0.95], np.float32),
+                top_k=np.array([0.0, 0.0, 4.0, 0.0, 0.0], np.float32),
+                min_p=np.array([0.0, 0.0, 0.0, 0.0, 0.1], np.float32))
+    rng = np.random.default_rng(5)
+    for trial in range(4):
+        lg = np.round(rng.standard_normal((5, 700)) * 3, 1).astype(np.float32)
+        key = prng.split(prng.PRNGKey(trial))[1]
+        want = np.asarray(jax_sampling.sample_token(
+            jnp.asarray(lg), jnp.asarray(key), **{k: jnp.asarray(v) for k, v in rows.items()}))
+        np.testing.assert_array_equal(sample_token(torch.from_numpy(lg), key, **rows).numpy(),
+                                      want)
+
+
+def _batched_inputs(eng):
+    """Four rows at positions 0/3/5/2 with per-row sampling parameters and
+    row 2 dead."""
+    pos = np.array([0, 3, 5, 2])
+    tok = np.array([[5], [17], [40], [9]])
+    rows = (np.array([0.0, 0.8, 0.8, 0.0], np.float32),
+            np.array([0.95, 0.9, 0.95, 1.0], np.float32),
+            np.array([0.0, 5.0, 0.0, 0.0], np.float32),
+            np.array([0.0, 0.0, 0.05, 0.0], np.float32))
+    active = np.array([True, True, False, True])
+    return pos, tok, rows, active
+
+
+@pytest.mark.parametrize("hidden", ["last", "all"])
+def test_batched_decode_loop_matches_jax(ckpt, hidden):
+    """A 6-step block over four rows with per-row positions, per-row host
+    sampling parameters, a dead row and ``with_logprobs``/``with_hidden``
+    against the JAX make_decode_loop (``active`` a device mask there): the
+    same tokens, logits_last and the log-probabilities within 1e-3 of the
+    logit scale, the last hidden state within 1e-3 of its scale.
+    ``all_hidden``'s last step is the same hidden state."""
+    jeng, eng = ckpt["jeng"], _port_engine(ckpt)
+    pos, tok, (t, p, k, m), active = _batched_inputs(eng)
+    key = prng.split(prng.PRNGKey(SEED))[1]
+    jt, jl, jlp, jh, _ = jax_decode_loop(jeng.cfg, 6, with_logprobs=True, with_hidden=True)(
+        jeng.params, init_cache(jeng.cfg, batch=4), jnp.asarray(tok, jnp.int32),
+        jnp.asarray(pos, jnp.int32), jnp.asarray(key), jnp.asarray(t), jnp.asarray(p),
+        jnp.asarray(active), jnp.asarray(k), jnp.asarray(m))
+    loop = make_decode_loop(eng.cfg, 6, with_logprobs=True, with_hidden=hidden == "last",
+                            all_hidden=hidden == "all", active_bucket=4)
+    pt, pl, plp, ph, _ = loop(eng.params, torch_cache(eng.cfg, batch=4),
+                              torch.from_numpy(tok), pos, key, t, p, active, k, m)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(jt))
+    want = np.asarray(jl)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(pl.numpy(), want, rtol=0, atol=1e-3 * scale)
+    np.testing.assert_allclose(plp.numpy(), np.asarray(jlp), rtol=0, atol=1e-3 * scale)
+    assert ph.shape == ((4, 1, eng.cfg.dim) if hidden == "last" else (4, 6, eng.cfg.dim))
+    jh = np.asarray(jh)
+    np.testing.assert_allclose(ph[:, -1:].numpy(), jh, rtol=0, atol=1e-3 * np.abs(jh).max())
+
+
+def test_batched_decode_loop_does_not_synchronize(ckpt, monkeypatch):
+    """The serving block (per-row positions, per-slot sampling arrays, an
+    active mask, logprobs and hidden states) reads nothing back to the host
+    inside the block: the host values cross in non-blocking copies."""
+    eng = _port_engine(ckpt)
+    pos, tok, (t, p, k, m), active = _batched_inputs(eng)
+    loop = make_decode_loop(eng.cfg, 5, with_logprobs=True, all_hidden=True)
+    calls = {"host": 0}
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        orig = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, **kw):
+            calls["host"] += 1
+            return _orig(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    toks, _, lps, hid, _ = loop(eng.params, torch_cache(eng.cfg, batch=4),
+                                torch.from_numpy(tok), pos, prng.PRNGKey(3), t, p,
+                                active, k, m)
+    assert calls["host"] == 0
+    assert toks.shape == lps.shape == (4, 5) and hid.shape == (4, 5, eng.cfg.dim)
+
+
+def test_combine_pairs_sums_each_token_in_slot_order():
+    """``combine_pairs`` (the pair list's combine, atomic-free in each
+    token's slot order) gives each token the index_add_ sum of its weighted
+    pairs (1e-6); the cut pairs of dead rows add nothing."""
+    from deepseek_tpu_torch.ops.matmul import LiveRows, combine_pairs, dispatch_pairs
+    g = torch.Generator().manual_seed(0)
+    T, k, E, d = 5, 3, 7, 16
+    idx = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)])
+    w = torch.rand((T, k), generator=g)
+    live = LiveRows.of(np.array([1, 0, 1, 1, 0], bool), "cpu")
+    eid, wts, tok, pair = dispatch_pairs(idx, w, live)
+    assert torch.equal(pair // k, tok) and torch.equal(idx.reshape(-1)[pair], eid)
+    per = torch.randn((eid.numel(), d), generator=g)
+    want = torch.zeros((T, d)).index_add_(0, tok, per * wts[:, None])
+    got = combine_pairs(per, wts, pair, T, k)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert not got[[1, 4]].any()
+
+
+def test_row_reductions_take_at_least_sixteen_rows():
+    """``pad_rows`` appends zero rows up to INVARIANT_ROWS (a larger batch
+    stays as it is); rmsnorm and the router product over the padded rows
+    give the unpadded values (1e-6) in the input's shape and dtype."""
+    from deepseek_tpu_torch.models.deepseek import _router_logits
+    from deepseek_tpu_torch.ops.norms import INVARIANT_ROWS, pad_rows, rmsnorm
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 1, 8), generator=g)
+    p = pad_rows(x)
+    assert p.shape == (INVARIANT_ROWS, 1, 8) and torch.equal(p[:3], x) and not p[3:].any()
+    big = torch.randn((INVARIANT_ROWS + 4, 8), generator=g)
+    assert pad_rows(big) is big
+    w = torch.rand(8, generator=g)
+    want = x / torch.sqrt((x * x).mean(-1, keepdim=True) + 1e-6) * w
+    torch.testing.assert_close(rmsnorm(x, w, 1e-6), want, rtol=1e-6, atol=1e-6)
+    assert rmsnorm(x.to(torch.bfloat16), w, 1e-6).dtype == torch.bfloat16
+    gate = torch.randn((5, 8), generator=g)
+    torch.testing.assert_close(_router_logits(x, gate), x @ gate.t(), rtol=1e-6,
+                               atol=1e-6)

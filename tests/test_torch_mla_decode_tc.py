@@ -153,8 +153,10 @@ def test_decode_single_pass_bf16_misses_the_tolerance():
     ((1, 128, 2048), (32, 64)),
     # H not a multiple of 64, a ragged window
     ((2, 20, 301), (5, 64)),
-    # eight sequences: 16 row blocks, 8 spans of 512
-    ((8, 128, 4096), (8, 512)),
+    # eight sequences: one sequence's 64 spans of 64 (1024 blocks)
+    ((8, 128, 4096), (64, 64)),
+    # sixteen sequences: past 1024 blocks the spans lengthen
+    ((16, 128, 4096), (32, 128)),
     # one row block: up to the merge's 128 spans
     ((1, 16, 16384), (128, 128)),
     ((1, 4, 16), (1, 64)),
@@ -168,6 +170,22 @@ def test_mla_decode_splits(args, want):
     B, H, S = args
     assert 1 <= n <= wrapper._MAX_DECODE_SPLITS and span % wrapper._DECODE_SPAN_ALIGN == 0
     assert (n - 1) * span < S <= n * span
+
+
+def test_mla_decode_splits_do_not_depend_on_the_batch():
+    """Up to the launch's block limit every batch takes one sequence's
+    spans, so a served row attends in the order the sequence alone does
+    (batch-invariant decode); past it the spans lengthen and stay whole."""
+    for H, S in ((128, 4096), (128, 2048), (16, 16384), (20, 301)):
+        rb = -(-H // wrapper._DECODE_ROWS)
+        alone = mla_decode_splits(1, H, S)
+        for B in range(1, 65):
+            n, span = mla_decode_splits(B, H, S)
+            if B * rb * alone[0] <= wrapper._DECODE_MAX_BLOCKS:
+                assert (n, span) == alone, (B, H, S)
+            else:
+                assert B * rb * n <= wrapper._DECODE_MAX_BLOCKS or n == 1
+                assert (n - 1) * span < S <= n * span
 
 
 def test_mla_decode_splits_are_the_shapes_alone():

@@ -26,6 +26,7 @@ from deepseek_tpu_torch.engine import Engine
 from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
 from deepseek_tpu_torch.models.kvcache import init_cache
 from deepseek_tpu_torch.models.mtp import init_mtp_cache, mtp_forward
+from deepseek_tpu_torch.ops import prng
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.util_hf import hf_config, hf_weights, write_hf_dir
 
@@ -98,13 +99,84 @@ def test_mtp_forward_matches_jax(engines):
 
 
 def test_mtp_verify_mode_raises(engines):
-    eng, _ = engines
+    """The MTP verify mode (``_mtp_impl`` with pos0 (B,), ``mtp.py:63-70``)
+    against the JAX one: after a 6-pair prefill of three rows, 3 pairs a
+    row at per-row starts 6/2/4 give the JAX logits and MTP hidden states
+    within 1e-4 of their scale and the same cache, and a decode step at
+    per-row positions after them likewise. A start past the window raises,
+    as the JAX caller's guard does."""
+    eng, jeng = engines
     cfg = eng.cfg
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mtp_forward(eng.params, init_mtp_cache(cfg), torch.zeros((2, 3), dtype=torch.int64),
-                    torch.zeros((2, 3, cfg.dim)), torch.tensor([0, 4]), cfg, prefill=True)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(3, cfg.vocab_size, size=(3, 10))
+    h = rng.standard_normal((3, 10, cfg.dim)).astype(np.float32)
+    pre, step = (make_mtp_forward(jeng.cfg, prefill=p, jit=False) for p in (True, False))
+    starts = np.array([6, 2, 4])
+    jc, tc = jax_mtp_cache(jeng.cfg, batch=3), init_mtp_cache(cfg, batch=3)
+    _, _, jc = pre(jeng.params, jc, jnp.asarray(toks[:, :6], jnp.int32), jnp.asarray(h[:, :6]), 0)
+    mtp_forward(eng.params, tc, torch.from_numpy(toks[:, :6]), torch.from_numpy(h[:, :6]), 0,
+                cfg, prefill=True)
+    jl, jh, jc = pre(jeng.params, jc, jnp.asarray(toks[:, 6:9], jnp.int32),
+                     jnp.asarray(h[:, 6:9]), jnp.asarray(starts, jnp.int32))
+    tl, th, tc = mtp_forward(eng.params, tc, torch.from_numpy(toks[:, 6:9]),
+                             torch.from_numpy(h[:, 6:9]), starts, cfg, prefill=True)
+    _close(tl, jl)
+    _close(th, jh)
+    for f in ("ckv", "krope"):
+        _close(getattr(tc, f).float(), np.asarray(getattr(jc, f), np.float32), tol=1e-3)
+    jl, jh, _ = step(jeng.params, jc, jnp.asarray(toks[:, 9:], jnp.int32),
+                     jnp.asarray(h[:, 9:]), jnp.asarray(starts + 3, jnp.int32))
+    tl, th, _ = mtp_forward(eng.params, tc, torch.from_numpy(toks[:, 9:]),
+                            torch.from_numpy(h[:, 9:]), starts + 3, cfg, prefill=False)
+    _close(tl, jl)
+    _close(th, jh)
+    with pytest.raises(ValueError, match="window"):
+        mtp_forward(eng.params, tc, torch.from_numpy(toks[:, 6:9]), torch.from_numpy(h[:, 6:9]),
+                    np.array([0, cfg.kv_window - 2, 0]), cfg, prefill=True)
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_batched_mtp_rounds_match_jax(engines, temperature):
+    """``make_batched_mtp_spec_rounds`` against the JAX maker: three rows
+    after a shared 10-token prefill, at per-row positions 10/7/9, per-row
+    sampling parameters (row 0 greedy at 0 and 0.8 alike) and row 2 dead;
+    3 rounds of 2 drafts with logprobs. The same drafts, accepted counts
+    and next tokens, the log-probabilities within 1e-3 and the hidden
+    states within 1e-3 of their scale."""
+    from deepseek_tpu.speculative import make_batched_mtp_spec_rounds as jax_maker
+    from deepseek_tpu_torch.speculative import make_batched_mtp_spec_rounds
+
+    eng, jeng = engines
+    cfg = eng.cfg
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(3, cfg.vocab_size, size=(3, 10))
+    tok = rng.integers(3, cfg.vocab_size, size=(3, 1))
+    h = rng.standard_normal((3, 1, cfg.dim)).astype(np.float32)
+    pos = np.array([10, 7, 9])
+    temps = np.array([0.0, temperature, temperature], np.float32)
+    topp = np.array([0.95, 0.9, 1.0], np.float32)
+    topk = np.array([0.0, 0.0, 6.0], np.float32)
+    minp = np.array([0.0, 0.02, 0.0], np.float32)
+    active = np.array([True, True, False])
+    key = prng.split(prng.PRNGKey(2))[1]
+    fwd = make_forward(jeng.cfg, prefill=True, logits_mode="none")
+    _, jc = fwd(jeng.params, jax_cache(jeng.cfg, batch=3), jnp.asarray(prompt, jnp.int32), 0)
+    want = jax_maker(jeng.cfg, 2, 3, with_logprobs=True)(
+        jeng.params, jc, jax_mtp_cache(jeng.cfg, batch=3), jnp.asarray(tok, jnp.int32),
+        jnp.asarray(h), jnp.asarray(pos, jnp.int32), jnp.asarray(key), jnp.asarray(temps),
+        jnp.asarray(topp), jnp.asarray(active), jnp.asarray(topk), jnp.asarray(minp))
+    with torch.inference_mode():
+        tc = init_cache(cfg, batch=3)
+        forward_prefill(eng.params, tc, torch.from_numpy(prompt), 0, cfg, "none")
+        got = make_batched_mtp_spec_rounds(cfg, 2, 3, with_logprobs=True)(
+            eng.params, tc, init_mtp_cache(cfg, batch=3), torch.from_numpy(tok),
+            torch.from_numpy(h), pos, key, temps, topp, active, topk, minp)
+    for g, w in zip(got[:3], want[:3]):              # drafts, n_acc, next
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    live = active[None, :]
+    np.testing.assert_allclose(got[3].numpy()[:, live[0]], np.asarray(want[3])[:, live[0]],
+                               rtol=0, atol=1e-3)
+    _close(got[4][live[0]], np.asarray(want[4])[live[0]], tol=1e-3)
 def test_forward_hidden_matches_jax(engines):
     """``forward_prefill``/``forward_decode(with_hidden=True)`` against
     ``_forward_impl(with_hidden=True)``: a 5-token chunk, then a step."""

@@ -224,10 +224,26 @@ def test_forward_prefill_batch_matches_jax(ckpt):
 
 
 def test_prefill_rejects_unported_modes(ckpt):
-    eng = ckpt["eng"]
+    """Verify mode (per-row chunk starts) is ported: on each converted
+    checkpoint, two rows' 5-token chunks at starts 0 and 30 over a cache of
+    a shared 40-token prefill give the JAX verify forward's logits within
+    1e-3 of their scale. A chunk past the window is still rejected."""
+    eng, jeng = ckpt["eng"], ckpt["jeng"]
+    toks = np.asarray(ckpt["toks"][:90]).reshape(2, 45)
+    starts = np.array([0, 30])
+    fwd = make_forward(jeng.cfg, prefill=True, logits_mode="all")
+    _, jc = fwd(jeng.params, init_cache(jeng.cfg, batch=2),
+                jnp.asarray(toks[:, :40], jnp.int32), 0)
+    want, _ = fwd(jeng.params, jc, jnp.asarray(toks[:, 40:], jnp.int32),
+                  jnp.asarray(starts, jnp.int32))
+    want = np.asarray(want)
+    with torch.inference_mode():
+        cache = eng.new_cache(batch=2)
+        forward_prefill(eng.params, cache, torch.from_numpy(toks[:, :40]), 0, eng.cfg, "none")
+        got = forward_prefill(eng.params, cache, torch.from_numpy(toks[:, 40:]), starts,
+                              eng.cfg, "all").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
     tok = torch.tensor([[5, 6]])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        forward_prefill(eng.params, eng.new_cache(), tok, torch.tensor([0]), eng.cfg)
     with pytest.raises(ValueError, match="window"):
         forward_prefill(eng.params, eng.new_cache(), tok, WINDOW - 1, eng.cfg)
 

@@ -172,3 +172,80 @@ def test_accept_matches_jax_accept():
         jn, jnxt = jax_accept(jnp.asarray(ps), jnp.asarray(qs),
                               jnp.asarray(drafts, jnp.int32), k, jnp.asarray(key))
         assert (int(n), int(nxt)) == (int(jn), int(jnxt))
+
+
+def test_accept_pointmass_matches_jax():
+    """``_accept_pointmass`` (the batched n-gram rule) against the JAX
+    function on random (B, k+1, V) distributions, several keys, one-hot
+    rows (temperature 0) among them: the same n_acc and next tokens."""
+    import jax.numpy as jnp
+    from deepseek_tpu.speculative import _accept_pointmass as jax_pointmass
+    from deepseek_tpu_torch.speculative import _accept_pointmass
+
+    rng = np.random.default_rng(1)
+    B, k, V = 3, 4, 50
+    for trial in range(8):
+        ps = rng.dirichlet(np.full(V, 0.3), size=(B, k + 1)).astype(np.float32)
+        ps[0] = np.eye(V, dtype=np.float32)[ps[0].argmax(-1)]      # a greedy row
+        drafts = rng.integers(0, V, size=(B, k))
+        drafts[:, :trial % k] = ps[:, :trial % k].argmax(-1)
+        key = prng.split(prng.PRNGKey(trial))[1]
+        n, nxt = _accept_pointmass(torch.from_numpy(ps), torch.from_numpy(drafts), k, key)
+        jn, jnxt = jax_pointmass(jnp.asarray(ps), jnp.asarray(drafts, jnp.int32), k,
+                                 jnp.asarray(key))
+        np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_batched_ngram_rounds_match_jax(dirs, temperature):
+    """``make_batched_ngram_spec_rounds`` against the JAX maker on the echo
+    checkpoint: three rows with their own histories (an echo, a short one,
+    a dead row) at per-row positions, per-row sampling parameters (row 0
+    greedy either way), 3 rounds of 4 drafts with logprobs: the same
+    drafts, accepted counts, next tokens, matches and history, the
+    log-probabilities within 1e-3."""
+    import jax.numpy as jnp
+    from deepseek_tpu.models import init_cache as jax_cache
+    from deepseek_tpu.models import make_forward
+    from deepseek_tpu.speculative import make_batched_ngram_spec_rounds as jax_maker
+    from deepseek_tpu_torch.models.deepseek import forward_prefill
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.speculative import make_batched_ngram_spec_rounds
+
+    eng, jeng = _pair(dirs["echo"])
+    cfg, H = eng.cfg, eng.cfg.kv_window
+    rng = np.random.default_rng(8)
+    pattern = list(rng.integers(3, 300, size=6))
+    seqs = [pattern * 3, list(rng.integers(3, 300, size=9)), list(rng.integers(3, 300, 12))]
+    pos = np.array([len(s) - 1 for s in seqs])
+    hist = np.zeros((3, H), np.int64)
+    for b, s in enumerate(seqs):
+        hist[b, :len(s)] = s
+    width = max(len(s) for s in seqs)
+    prompt = np.stack([np.pad(s, (0, width - len(s))) for s in seqs])
+    tok = np.array([[s[-1]] for s in seqs])
+    temps = np.array([0.0, temperature, temperature], np.float32)
+    topp = np.array([0.95, 0.9, 1.0], np.float32)
+    topk = np.array([0.0, 5.0, 0.0], np.float32)
+    minp = np.array([0.0, 0.0, 0.03], np.float32)
+    active = np.array([True, True, False])
+    key = prng.split(prng.PRNGKey(4))[1]
+    _, jc = make_forward(jeng.cfg, prefill=True, logits_mode="none")(
+        jeng.params, jax_cache(jeng.cfg, batch=3), jnp.asarray(prompt, jnp.int32), 0)
+    want = jax_maker(jeng.cfg, 4, 3, hist_len=H, with_logprobs=True)(
+        jeng.params, jc, jnp.asarray(hist, jnp.int32), jnp.asarray(tok, jnp.int32),
+        jnp.asarray(pos, jnp.int32), jnp.asarray(key), jnp.asarray(temps), jnp.asarray(topp),
+        jnp.asarray(active), jnp.asarray(topk), jnp.asarray(minp))
+    with torch.inference_mode():
+        tc = init_cache(cfg, batch=3)
+        forward_prefill(eng.params, tc, torch.from_numpy(prompt), 0, cfg, "none")
+        got = make_batched_ngram_spec_rounds(cfg, 4, 3, hist_len=H, with_logprobs=True)(
+            eng.params, tc, torch.from_numpy(hist), torch.from_numpy(tok), pos, key, temps,
+            topp, active, topk, minp)
+    for g, w in zip(got[:4], want[:4]):              # drafts, n_acc, next, matched
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert bool(np.asarray(want[3])[0, 0])           # the echo row matched
+    np.testing.assert_allclose(got[4].numpy()[:, :2], np.asarray(want[4])[:, :2], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got[-1].numpy()[:2], np.asarray(want[-1])[:2])
