@@ -138,6 +138,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      over a batch of 4 tokens' pairs, K3 at B = 4 with unequal kv_len and
      K9/K10 with per-row starts (beside the scalar form) against their
      plain versions.
+  9. the tensor and expert mesh axes: after the seq phase, the unsharded
+     runs on the card, then gloo ranks spawned on the one card (tensor=2,
+     expert=2, expert=2 x tensor=2) each draw the DeepSeek-V3-width packed
+     Q3_K model cut to 4 layers (f32 compute, bf16 cache, no factor
+     weights) and keep their slice (``shard_params``): a 512-token prompt
+     in 2 chunks (K10 at 64 heads at tensor=2, K5 row-tiled on cut planes,
+     K6 over the local experts under the EP capacity) and 16 steps fed the
+     unsharded greedy tokens (K3, K5 and K2 at the local shapes, non-owned
+     pairs aliased), and at tensor=2 the DeepSeek-V2-Lite-width F8E5M2
+     model cut to 2 layers (K9 and K8 at 8 heads, its ragged dense FFN
+     whole on both ranks): logits within 1e-3 of the unsharded run's, the
+     same bits and the same 0.8-sampled block on every rank; each rank's
+     walls, peak and resident memory and time in collectives; then each
+     kernel at those local shapes against its plain version;
+ 10. sessions: the tiny packed Q3_K checkpoint through Engine(device="cuda")
+     with f16, bf16 and int8 caches, hydrated past its window and saved;
+     a fresh Engine loads the session and resumes with the uninterrupted
+     run's tokens.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -2605,16 +2623,16 @@ def seq_inputs(cfg, model):
     return toks[:n], toks[n:]
 
 
-def seq_path(params, cfg, prompt, forced, ctx, cache, counts):
+def seq_path(params, cfg, prompt, forced, ctx, cache, counts, steps=SEQ_EDGE_DECODE):
     """The prompt in prefill chunks of 256 (every chunk divides the seq
     axis: context-parallel), then the decode steps fed ``forced`` (None:
-    greedy). Returns the logits after the prompt and after each step (a
-    (steps + 1, V) f32 CPU tensor), the tokens fed, each part's launch
-    counts, its wall seconds."""
+    ``steps`` greedy ones). Returns the logits after the prompt and after
+    each step (a (steps + 1, V) f32 CPU tensor), the tokens fed, each
+    part's launch counts, its wall seconds."""
     from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
 
     chunk, rows, fed, launched = 256, [], [], {}
-    steps = SEQ_EDGE_DECODE if forced is None else len(forced)
+    steps = steps if forced is None else len(forced)
     with torch.inference_mode():
         reset(counts)
         torch.cuda.synchronize()
@@ -3063,6 +3081,496 @@ def partials_kernel_entries(entries):
             lambda: mha_decode_attn(q, k, v, kl0, scale, partials=True, **sc),
             lambda: mha_decode_attn_plain(q, k, v, kl0, scale, partials=True, **sc))
         del k, v
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the tensor and expert mesh axes on ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (cell, mesh axes, the models it runs): the V3-width packed Q3_K draw cut
+# to 4 layers over every cell, the V2-Lite-width F8E5M2 draw cut to 2 at
+# tensor=2 (its ranks hold 8 of the 16 heads)
+MESH_CELLS = (("tensor=2", dict(tensor=2), ("v3", "v2")),
+              ("expert=2", dict(expert=2), ("v3",)),
+              ("expert=2 x tensor=2", dict(expert=2, tensor=2), ("v3",)))
+MESH_DECODE = 16           # teacher-forced decode steps after the prompt
+MESH_BLOCK = 16            # a decode block at temperature 0.8 every rank samples
+MESH_TOL = 1e-3            # of max|logit|, f32 compute (see SEQ_TOL)
+# the kernels each model's path must launch (prefill, decode)
+MESH_KERNELS = {"v3": (("K10", "K5r-packed", "K6-packed"), ("K3", "K5-packed", "K2-packed")),
+                "v2": (("K9", "K5r", "K6-fp8"), ("K8", "K5", "K2-fp8"))}
+
+
+def mesh_model(model):
+    """The mesh phase's model drawn on the card from the seed, f32 compute:
+    "v3" DeepSeek-V3 widths in packed Q3_K, 4 layers (3 dense, 1 MoE),
+    without the factor weights (absorbed prefill: K10), a bf16 cache; "v2"
+    DeepSeek-V2-Lite widths in F8E5M2 with 128x128 blocks, 2 layers (the
+    dense one, whose 10944-wide FFN does not cut at tensor=2, and one
+    MoE), a bf16 cache."""
+    from deepseek_tpu_torch.config import QuantKind
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v2_lite_proportions, deepseek_v3_proportions, random_fp8_params,
+        random_fused_params)
+    if model == "v3":
+        cfg = deepseek_v3_proportions(n_layers=4, compute_dtype="float32",
+                                      kv_cache_dtype="bfloat16")
+        return random_fused_params(cfg, "q3_k", seed=SEED, device="cuda"), cfg
+    cfg = deepseek_v2_lite_proportions(n_layers=2, weight_quant=QuantKind.F8E5M2,
+                                       block_size=(128, 128), compute_dtype="float32",
+                                       kv_cache_dtype="bfloat16")
+    return random_fp8_params(cfg, seed=SEED, device="cuda"), cfg
+
+
+class CollectiveClock:
+    """Wraps torch.distributed.all_reduce in a rank and counts its calls;
+    while ``timing``, the card is synchronized before and after each call
+    and the host clock between summed (a gloo all-reduce of CUDA tensors
+    copies through host memory)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.seconds, self.calls, self.timing, self._orig = 0.0, 0, True, dist.all_reduce
+
+        def counted(*a, **kw):
+            self.calls += 1
+            if not self.timing:
+                return self._orig(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        dist.all_reduce = counted
+
+    def reset(self, timing: bool = True):
+        self.seconds, self.calls, self.timing = 0.0, 0, timing
+
+
+def mesh_rank(rank, world, shape, models, forced_of):
+    """One rank of a mesh cell: each model drawn from the seed, cut to this
+    rank's slice (``shard_params``; the whole draw freed), the 512-token
+    prompt in 2 chunks and the teacher-forced decode steps (``seq_path``,
+    the collectives timed), then a decode block at 0.8 on the host clock
+    with the collectives untimed. Returns per model the logits, launches,
+    walls, collective time and calls, peak and resident memory, the
+    block's tokens and wall, what the rank holds."""
+    from deepseek_tpu_torch.models.deepseek import (
+        forward_prefill, local_heads, make_decode_loop)
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_tpu_torch.parallel.sharding import shard_params
+    from deepseek_tpu_torch.parallel.spmd import make_ctx
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(**shape)
+    counts, clock = counters(), CollectiveClock()
+    out = {"coords": (mesh.expert_index, mesh.tensor_index)}
+    for model in models:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, cfg = mesh_model(model)
+        sp = shard_params(params, cfg, mesh)
+        del params
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        ctx = make_ctx(cfg, mesh)
+        prompt, _ = seq_inputs(cfg, "v3")
+        heads = local_heads(sp.layers[0], cfg)
+        cache = init_cache(cfg, device="cuda", heads=heads)
+        clock.reset()
+        rows, _, launched, walls = seq_path(sp, cfg, prompt, forced_of[model], ctx, cache,
+                                            counts)
+        coll = (clock.seconds, clock.calls)
+        cache = init_cache(cfg, device="cuda", heads=heads)
+        with torch.inference_mode():
+            for i in range(0, len(prompt), 256):
+                forward_prefill(sp, cache, torch.tensor([prompt[i:i + 256]], device="cuda"),
+                                i, cfg, "none", ctx)
+        loop = make_decode_loop(cfg, MESH_BLOCK, mesh=mesh)
+        tok = torch.full((1, 1), prompt[-1], dtype=torch.int64, device="cuda")
+        clock.reset(timing=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _, _ = loop(sp, cache, tok, len(prompt), prng.PRNGKey(SEED), 0.8, 0.95)
+        toks = toks[0].tolist()
+        block = (time.perf_counter() - t0, clock.calls)
+        dense_w2 = sp.layers[0].w2.shape[-1]
+        experts = sp.layers[-1].w2.shape[0]
+        out[model] = dict(rows=rows, launched=launched, walls=walls, coll=coll,
+                          peak=torch.cuda.max_memory_allocated(), resident=resident,
+                          block=toks, block_wall=block,
+                          holds=dict(heads=heads, dense_w2_in=dense_w2, experts=experts,
+                                     lm_head_rows=sp.lm_head.shape[0]))
+        del sp, cache
+    return out
+
+
+def mesh_phase(counts, runs):
+    """The tensor and expert mesh axes: the unsharded runs on the card first
+    (the reference: the V3-width packed Q3_K draw and the V2-Lite-width
+    F8E5M2 draw, a 512-token prompt in 2 chunks, then MESH_DECODE greedy
+    steps), then each MESH_CELLS cell's ranks, spawned by parallel/launch.py
+    and sharing the card over gloo, run the same paths teacher-forced with
+    the unsharded greedy tokens over their slices (K10 / K9 at H/tp heads,
+    K3 / K8 likewise, the packed and fp8 K5 on cut planes, K2 and K6 over
+    the local experts with aliased pairs and the EP capacity). Each rank's
+    logits within MESH_TOL of max|logit| of the unsharded run's (f32
+    compute), the same bits on every rank, each row's argmax the unsharded
+    greedy token or a near-tie; each path launched its kernels; the decode
+    blocks at 0.8 give every rank the same tokens. Logs each rank's walls,
+    peak and resident memory and time in collectives."""
+    from deepseek_tpu_torch.models.deepseek import forward_prefill, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.ops import prng
+    from deepseek_tpu_torch.parallel.launch import launch
+    from deepseek_tpu_torch.parallel.spmd import NULL_CTX
+
+    t_phase = time.perf_counter()
+    ref, forced_of = {}, {}
+    for model in ("v3", "v2"):
+        params, cfg = mesh_model(model)
+        prompt, _ = seq_inputs(cfg, "v3")
+        rows, fed, launched, walls = seq_path(params, cfg, prompt, None, NULL_CTX,
+                                              init_cache(cfg, device="cuda"), counts,
+                                              steps=MESH_DECODE)
+        ref[model], forced_of[model] = (rows, walls), fed
+        cache = init_cache(cfg, device="cuda")
+        with torch.inference_mode():
+            for i in range(0, len(prompt), 256):
+                forward_prefill(params, cache, torch.tensor([prompt[i:i + 256]],
+                                                            device="cuda"), i, cfg, "none")
+        tok = torch.full((1, 1), prompt[-1], dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block, _, _ = make_decode_loop(cfg, MESH_BLOCK)(params, cache, tok, len(prompt),
+                                                         prng.PRNGKey(SEED), 0.8, 0.95)
+        block = block[0].tolist()
+        t_block = time.perf_counter() - t0
+        log(f"mesh: unsharded {model} on the card: prefill / decode wall {walls[0]:.3f} / "
+            f"{walls[1]:.3f} s, greedy tokens {fed}; a 0.8 block of {MESH_BLOCK} in "
+            f"{t_block:.3f} s ({MESH_BLOCK / t_block:.2f} tok/s), tokens {block}")
+        del params
+        torch.cuda.empty_cache()
+    log(f"mesh: unsharded reference runs in {time.perf_counter() - t_phase:.1f} s")
+    failed = []
+    for cell, shape, models in MESH_CELLS:
+        t0 = time.perf_counter()
+        n = math.prod(shape.values())
+        ranks = launch(mesh_rank, n, shape, models, forced_of, backend="gloo",
+                       timeout=SEQ_TIMEOUT, threads=None)
+        log(f"mesh {cell}: {n} gloo ranks on one card in {time.perf_counter() - t0:.1f} s "
+            f"(spawn and draws included); coordinates (expert, tensor) "
+            f"{[r['coords'] for r in ranks]}")
+        for model in models:
+            want, walls1 = ref[model]
+            scale = float(want.abs().max())
+            tol = MESH_TOL * scale
+            for r, res in enumerate(ranks):
+                got = res[model]
+                rows, launched = got["rows"], got["launched"]
+                err = float((rows - want).abs().max())
+                top = rows.argmax(-1)
+                ties = want.gather(1, want.argmax(-1, keepdim=True))[:, 0] \
+                    - want.gather(1, top[:, None])[:, 0]
+                wall = sum(got["walls"])
+                log(f"mesh {cell} {model}, rank {r} (holds {got['holds']}): logits vs "
+                    f"unsharded max abs err {err:.3e} ({err / scale:.2e} of max|logit| "
+                    f"{scale:.3f}; tolerance {MESH_TOL:g}), argmax equal on "
+                    f"{int((top == want.argmax(-1)).sum())} of {len(rows)} rows; prefill / "
+                    f"decode wall {got['walls'][0]:.3f} / {got['walls'][1]:.3f} s "
+                    f"(unsharded {walls1[0]:.3f} / {walls1[1]:.3f}; the ranks time-share "
+                    f"the card); collectives {got['coll'][1]} calls, {got['coll'][0]:.3f} s "
+                    f"({100 * got['coll'][0] / wall:.1f}% of the wall; the card synced "
+                    f"around each); peak device memory {got['peak'] / 2**30:.2f} GiB "
+                    f"(the whole draw before the cut), resident after the cut "
+                    f"{got['resident'] / 2**30:.2f} GiB; a 0.8 decode block of "
+                    f"{MESH_BLOCK} in {got['block_wall'][0]:.3f} s "
+                    f"({MESH_BLOCK / got['block_wall'][0]:.2f} tok/s, collectives untimed, "
+                    f"{got['block_wall'][1]} all-reduces); launches prefill "
+                    f"{ {k: v for k, v in launched['prefill'].items() if v} }, decode "
+                    f"{ {k: v for k, v in launched['decode'].items() if v} }")
+                if not (bool(torch.isfinite(rows).all()) and err <= tol
+                        and float(ties.max()) <= tol):
+                    failed.append(f"{cell} {model}: rank {r}'s logits disagree with the "
+                                  f"unsharded run")
+                if r and not torch.equal(rows, ranks[0][model]["rows"]):
+                    failed.append(f"{cell} {model}: rank {r}'s logits differ from rank 0's")
+                if got["block"] != ranks[0][model]["block"]:
+                    failed.append(f"{cell} {model}: rank {r} sampled other tokens")
+                for part, kernels in zip(("prefill", "decode"), MESH_KERNELS[model]):
+                    missing = [k for k in kernels if launched[part][k] == 0]
+                    if missing:
+                        failed.append(f"{cell} {model} {part}, rank {r}: never launched "
+                                      f"{missing}")
+            log(f"mesh {cell} {model}: the 0.8 block's tokens on rank 0 "
+                f"{ranks[0][model]['block']}")
+            runs[f"mesh {cell} {model} prefill"] = ranks[0][model]["launched"]["prefill"]
+            runs[f"mesh {cell} {model} decode"] = ranks[0][model]["launched"]["decode"]
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError("mesh: " + "; ".join(failed))
+
+
+def sdpa_yardstick(q, k, v, mask, scale):
+    """Yardstick only (the port never calls it): scaled_dot_product_attention
+    over q (B,H,T,D), k/v (B,H,S,.) and a boolean (T,S) mask."""
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[None, None], scale=scale)
+
+
+def mesh_kernel_entries(entries):
+    """The kernels of the mesh paths at the local shapes they take there,
+    each against its plain version on the card, on rank 0's slices (the
+    parent cuts the same draws with ``shard_params`` over a Mesh that names
+    the rank's place): at tensor=2, V3's K5 matvec (packed) on the cut
+    planes at 1 row and its row-tiled route at 256, K2 on the per-head
+    wv_b of 64 heads, K3 and K10 at 64 heads; at expert=2, K2 over the
+    local tables with the aliased pairs of one token and K6 over the local
+    experts' tiles under the EP capacity; V2-Lite's K5 (fp8) matvec and
+    row-tiled route on the cut planes, K8 and K9 at 8 heads. Tolerance
+    1e-4 of max|ref|, as the unsharded entries."""
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mha_decode_attn, mha_decode_attn_plain, mla_decode_attn, mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn,
+        mla_prefill_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_fp8_rows, qmm_grouped,
+        qmm_grouped_plain, qmm_packed_rows, qmm_plain)
+    from deepseek_tpu_torch.ops.matmul import (
+        dispatch_pairs, ep_owned, ep_prefill_capacity, owned_tiles)
+    from deepseek_tpu_torch.parallel.mesh import Mesh
+    from deepseek_tpu_torch.parallel.sharding import shard_params
+    from deepseek_tpu_torch.parallel.spmd import SpmdCtx
+    from deepseek_tpu_torch.quant.qtensor import rows_to_experts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    bf = lambda *shape: (rnd(*shape) * 0.3).to(torch.bfloat16)
+    csrc, qpy, apy = ("deepseek_tpu_torch/csrc/", "deepseek_tpu/ops/pallas/qmm.py:",
+                      "deepseek_tpu/ops/pallas/attention.py:")
+    T, S, kv = 256, 4096, PREFILL_TOKENS + MESH_DECODE
+    q_pos0 = PREFILL_TOKENS - T                    # the prompt's second chunk
+    pairs = sum(q_pos0 + t + 1 for t in range(T))  # causal (query, slot) pairs
+    params, cfg = mesh_model("v3")
+
+    def matvecs(emit_dec, emit_pre, tp, weights, rows_kernel, k5, k5r, label):
+        for name, qt in weights:
+            d, n = qt.shape
+            x = rnd(1, n)
+            emit_dec(f"{k5} qmm {label} {name} at tensor={tp} 1x{d}x{n}",
+                     lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                     nbytes(x) + qt.nbytes_active + 4 * d, 2.0 * d * n,
+                     csrc + ("packed_mv.cu" if k5 == "K5-packed" else "fp8_mv.cu"),
+                     qpy + "312 (qmm, " + ("_q3k_body :368)" if k5 == "K5-packed"
+                                           else "_fp8_body :260, pallas_call :418)"), k5)
+        for name, qt in weights[:3]:
+            d, n = qt.shape
+            x = rnd(T, n)
+            emit_pre(f"{k5r} qmm row-tiled {label} {name} at tensor={tp} {T}x{d}x{n}",
+                     lambda: rows_kernel(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+                     nbytes(x) + qt.nbytes_active + 4 * T * d, 2.0 * T * d * n,
+                     csrc + "qmm_tiles.cu", qpy + "312 (qmm, rows tiled by 128 :347-351)",
+                     k5r)
+
+    # V3 at tensor=2: rank 0 holds heads 0..63, half the dense and shared
+    # hidden width, half the vocab
+    sp = shard_params(params, cfg, Mesh(tensor=2, tensor_index=0))
+    dense, moe = sp.layers[0], sp.layers[cfg.n_layers - 1]
+    H, R, P = dense.wo.shape[-1] // cfg.v_head_dim, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dec, pre = "mesh tensor=2 v3 decode", "mesh tensor=2 v3 prefill"
+    emit_dec, emit_pre = make_emit(entries, dec), make_emit(entries, pre)
+    matvecs(emit_dec, emit_pre, 2,
+            [("wo", dense.wo), ("w1 (dense)", dense.w1), ("w2 (dense)", dense.w2),
+             ("wc", dense.wc), ("wq_rope_b", dense.wq_rope_b),
+             ("shared_w1", moe.shared_w1), ("shared_w2", moe.shared_w2),
+             ("lm_head", sp.lm_head)], qmm_packed_rows, "K5-packed", "K5r-packed",
+            "Q3_K packed")
+    wv3 = rows_to_experts(dense.wv_b, H)
+    ids = torch.arange(H, device="cuda")
+    x = rnd(H, R)
+    emit_dec(f"K2 qmm_experts Q3_K packed wv_b (per head) at tensor=2 {H}x"
+             f"{wv3.shape[1]}x{R}", lambda: qmm_experts(wv3, ids, x),
+             lambda: qmm_experts_plain(wv3, ids, x), 1e-4,
+             nbytes(x) + wv3.nbytes_active + 4 * H * wv3.shape[1], 2.0 * H * wv3.shape[1] * R,
+             csrc + "packed_mv.cu", qpy + "566 (qmm_experts, _q3k_body :368)", "K2-packed")
+    scale = cfg.attn_softmax_scale()
+    qc, qr = rnd(1, H, R), rnd(1, H, P)
+    ckv, kr = bf(1, S, R), bf(1, S, P)
+    kl = torch.tensor([kv], device="cuda", dtype=torch.int32)
+    dmask = (torch.arange(S, device="cuda") < kv)[None]
+    emit_dec(f"K3 mla_decode_attn bf16 cache at tensor=2 S={S} kv_len={kv} H={H}",
+             lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale),
+             lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale), 1e-4,
+             kv * (R + P) * 2 + nbytes(qc, qr) + 4 * H * R, 2.0 * H * kv * (2 * R + P),
+             csrc + "prefill_attn.cu", apy + "170 (mla_decode_attn, pallas_call :221)", "K3",
+             library=sdpa_yardstick(torch.cat([qc, qr], -1)[:, :, None].to(torch.bfloat16),
+                                    torch.cat([ckv, kr], -1)[:, None].expand(1, H, S, R + P),
+                                    ckv[:, None].expand(1, H, S, R), dmask, scale))
+    qc, qr = rnd(1, T, H, R) * 0.3, rnd(1, T, H, P) * 0.3
+    pmask = (torch.arange(S, device="cuda")[None]
+             <= q_pos0 + torch.arange(T, device="cuda")[:, None])
+    emit_pre(f"K10 mla_prefill_attn bf16 cache at tensor=2 T={T} S={S} H={H} "
+             f"q_pos0={q_pos0}",
+             lambda: mla_prefill_attn(qc, qr, ckv, kr, q_pos0, 0, scale),
+             lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, q_pos0, 0, scale), 1e-4,
+             (q_pos0 + T) * (R + P) * 2 + nbytes(qc, qr) + 4 * T * H * R,
+             2.0 * pairs * H * (2 * R + P), csrc + "prefill_attn.cu",
+             apy + "644 (mla_prefill_attn, pallas_call :707)", "K10",
+             library=sdpa_yardstick(
+                 torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16),
+                 torch.cat([ckv, kr], -1)[:, None].expand(1, H, S, R + P),
+                 ckv[:, None].expand(1, H, S, R), pmask, scale))
+    del sp, dense, moe, wv3, ckv, kr
+
+    # V3 at expert=2: rank 0 holds experts 0..127
+    sp = shard_params(params, cfg, Mesh(expert=2, expert_index=0))
+    moe = sp.layers[cfg.n_layers - 1]
+    E, k = cfg.n_routed_experts, cfg.n_active_routed
+    ctx = SpmdCtx(ep=2, eidx=0, ep_capacity_factor=cfg.ep_capacity_factor)
+    emit_dec = make_emit(entries, "mesh expert=2 v3 decode")
+    emit_pre = make_emit(entries, "mesh expert=2 v3 prefill")
+    sel = torch.randperm(E, generator=gen, device="cuda")[:k][None]
+    eid, wts, _, _ = dispatch_pairs(sel, torch.ones_like(sel, dtype=torch.float32),
+                                    ctx=ctx, n_experts=E)
+    owned = int((wts > 0).sum())
+    for name, qt in (("w1", moe.w1), ("w2", moe.w2)):
+        n_tab, d, n = qt.shape
+        x = rnd(k, n)
+        u = eid.unique().numel()
+        emit_dec(f"K2 qmm_experts Q3_K packed {name} (MoE) at expert=2: {n_tab} local "
+                 f"tables, {k} pairs ({owned} owned, the rest aliased) {k}x{d}x{n}",
+                 lambda: qmm_experts(qt, eid, x), lambda: qmm_experts_plain(qt, eid, x),
+                 1e-4, nbytes(x) + qt.nbytes_active / n_tab * u + 4 * d * k,
+                 2.0 * k * d * n, csrc + "packed_mv.cu",
+                 qpy + "566 (qmm_experts, _q3k_body :368, pallas_call :710)", "K2-packed")
+    routed = torch.rand((T, E), generator=gen, device="cuda").topk(k, dim=-1).indices
+    N = T * k
+    lidx, own, within, cnt, _ = ep_owned(routed.reshape(-1), torch.ones(N, device="cuda"),
+                                         ctx, E // 2)
+    C = ep_prefill_capacity(N, 2, ctx.ep_capacity_factor)
+    te, tr, _, _, G = owned_tiles(lidx, own, within, cnt, C)
+    live = torch.arange(128, device="cuda")[None, :] < tr[:, None]
+    n_live, n_exp = int(tr.sum()), int(te[tr > 0].unique().numel())
+    for name, qt in (("w1", moe.w1), ("w2", moe.w2)):
+        n_tab, d, n = qt.shape
+        x = rnd(G, 128, n)
+        emit_pre(f"K6 qmm_grouped Q3_K packed {name} (MoE) at expert=2: {G} tiles "
+                 f"(capacity {C} of {N} pairs), {n_live} owned pairs over {n_exp} of "
+                 f"{n_tab} local experts, {d}x{n}",
+                 lambda: qmm_grouped(qt, te, x, tr),
+                 lambda: qmm_grouped_plain(qt, te, x, tr), 1e-4,
+                 n_live * n * 4 + qt.nbytes_active / n_tab * n_exp + n_live * d * 4,
+                 2.0 * n_live * d * n, csrc + "qmm_tiles.cu",
+                 qpy + "449 (qmm_grouped, _q3k_body :368, pallas_call :538)", "K6-packed",
+                 select=lambda y: y[live])
+    del sp, moe, params
+    torch.cuda.empty_cache()
+
+    # V2-Lite fp8 at tensor=2: rank 0 holds heads 0..7
+    params, cfg = mesh_model("v2")
+    sp = shard_params(params, cfg, Mesh(tensor=2, tensor_index=0))
+    del params
+    dense, moe = sp.layers[0], sp.layers[1]
+    emit_dec = make_emit(entries, "mesh tensor=2 v2 decode")
+    emit_pre = make_emit(entries, "mesh tensor=2 v2 prefill")
+    matvecs(emit_dec, emit_pre, 2,
+            [("wq", dense.wq), ("wo", dense.wo), ("wkv_b", dense.wkv_b),
+             ("shared_w1", moe.shared_w1), ("shared_w2", moe.shared_w2),
+             ("lm_head", sp.lm_head)], qmm_fp8_rows, "K5", "K5r", "F8E5M2")
+    H = dense.wo.shape[-1] // cfg.v_head_dim
+    Dh, Dv = cfg.head_dim, cfg.v_head_dim
+    scale = cfg.attn_softmax_scale()
+    k_c, v_c = bf(1, S, H, Dh), bf(1, S, H, Dv)
+    q = rnd(1, H, Dh)
+    emit_dec(f"K8 mha_decode_attn bf16 cache at tensor=2 S={S} kv_len={kv} H={H} "
+             f"Dh={Dh} Dv={Dv}",
+             lambda: mha_decode_attn(q, k_c, v_c, kl, scale),
+             lambda: mha_decode_attn_plain(q, k_c, v_c, kl, scale), 1e-4,
+             kv * H * (Dh + Dv) * 2 + nbytes(q) + 4 * H * Dv, 2.0 * H * kv * (Dh + Dv),
+             csrc + "mha_decode.cu", apy + "320 (mha_decode_attn, pallas_call :370)", "K8",
+             library=sdpa_yardstick(q[:, :, None].to(torch.bfloat16),
+                                    k_c.transpose(1, 2), v_c.transpose(1, 2), dmask, scale))
+    q = rnd(1, T, H, Dh) * 0.3
+    emit_pre(f"K9 mha_prefill_attn bf16 cache at tensor=2 T={T} S={S} H={H} "
+             f"q_pos0={q_pos0}",
+             lambda: mha_prefill_attn(q, k_c, v_c, q_pos0, 0, scale),
+             lambda: mha_prefill_attn_plain(q, k_c, v_c, q_pos0, 0, scale), 1e-4,
+             (q_pos0 + T) * H * (Dh + Dv) * 2 + nbytes(q) + 4 * T * H * Dv,
+             2.0 * pairs * H * (Dh + Dv), csrc + "prefill_attn.cu",
+             apy + "481 (mha_prefill_attn, pallas_call :543)", "K9",
+             library=sdpa_yardstick(q.transpose(1, 2).to(torch.bfloat16),
+                                    k_c.transpose(1, 2), v_c.transpose(1, 2), pmask, scale))
+    del sp, dense, moe, k_c, v_c
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: session persistence
+# ---------------------------------------------------------------------------
+
+SESSION_PROMPT, SESSION_BEFORE, SESSION_AFTER = 120, 12, 12
+
+
+def session_phase(counts, runs):
+    """``Engine.save_session`` / ``load_session`` on the card: the tiny
+    packed Q3_K checkpoint of phase 2 (a 128-slot window) with f16, bf16 and
+    int8 caches: a 120-token prompt hydrated and 12 greedy steps (past the
+    window: the ring wraps and the sinks re-rotate), the session saved,
+    then a fresh Engine(device="cuda") loads it (every field on the card,
+    the same bits as saved) and decodes 12 more steps (K3, K5, K2), which
+    must give the uninterrupted run's tokens."""
+    from deepseek_tpu_torch.engine import Engine
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    ck = os.path.join(root, "chip_smoke_q3_k")
+    path = os.path.join(root, "chip_smoke_session.dseek")
+    prompt = [int(v) for v in np.random.default_rng(SEED + 13).integers(3, 512,
+                                                                        SESSION_PROMPT)]
+
+    def greedy(eng, cache, tok, pos, n):
+        out = []
+        for _ in range(n):
+            tok = int(eng.step(cache, tok, pos)[0].argmax())
+            out.append(tok)
+            pos += 1
+        return out
+
+    for kv in (None, "bfloat16", "int8"):
+        label = f"session, {kv or 'float16'} cache"
+        eng = Engine(ck, device="cuda", seed=SEED, kv_cache_dtype=kv)
+        cache, logits, _, pos = eng.hydrate(eng.new_cache(), prompt)
+        first = int(np.asarray(logits).reshape(-1).argmax())
+        before = greedy(eng, cache, first, pos, SESSION_BEFORE)
+        pos += SESSION_BEFORE
+        t0 = time.perf_counter()
+        eng.save_session(path, cache, pos, tokens=prompt + [first] + before)
+        t_save = time.perf_counter() - t0
+        saved = {f.name: getattr(cache, f.name).clone() for f in dataclasses.fields(cache)
+                 if getattr(cache, f.name) is not None}
+        want = greedy(eng, cache, before[-1], pos, SESSION_AFTER)
+        fresh = Engine(ck, device="cuda", seed=SEED, kv_cache_dtype=kv)
+        t0 = time.perf_counter()
+        loaded, pos2, toks = fresh.load_session(path)
+        t_load = time.perf_counter() - t0
+        same = all(getattr(loaded, f).device.type == fresh.device.type
+                   and torch.equal(getattr(loaded, f), t) for f, t in saved.items())
+        attn = {"int8": "K3-int8", "bfloat16": "K3"}.get(kv, "K3-f16")
+        got, launched = drive(counts, (attn, "K5-packed", "K2-packed"), label,
+                              lambda: greedy(fresh, loaded, toks[-1], pos2, SESSION_AFTER))
+        log(f"{label}: saved {os.path.getsize(path)} bytes at position {pos} in "
+            f"{t_save:.3f} s, loaded in {t_load:.3f} s, fields {sorted(saved)} "
+            f"{'equal' if same else 'DIFFER'} after the load; resumed tokens {got}, "
+            f"uninterrupted {want}")
+        if not (same and pos2 == pos and got == want):
+            raise RuntimeError(f"{label}: the resumed run differs from the uninterrupted one")
+        runs[label] = launched
 
 
 # ---------------------------------------------------------------------------
@@ -4349,6 +4857,13 @@ def main() -> int:
     log("kernels, the partials bodies at the shards' shapes (each against its "
         "plain version on the card):")
     partials_kernel_entries(entries)
+    # the tensor and expert axes: ranks share the card (the parent holds no
+    # model), then each kernel at the local shapes of the mesh paths
+    mesh_phase(counts, runs)
+    log("kernels at the mesh ranks' local shapes (each against its plain version "
+        "on the card):")
+    mesh_kernel_entries(entries)
+    session_phase(counts, runs)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",

@@ -114,9 +114,8 @@ class ModelConfig:
 
     arch: str = "DeepseekV2ForCausalLM"
 
-    # --- runtime knobs (not part of checkpoint metadata); kernel_impl and
-    # ep_capacity_factor are kept for the JAX package's field set and are
-    # not read by the port ---
+    # --- runtime knobs (not part of checkpoint metadata); kernel_impl is
+    # kept for the JAX package's field set and is not read by the port ---
     # dtype activations are computed in ("float32" or "bfloat16")
     compute_dtype: str = "float32"
     # dtype the KV cache is stored in (reference stores f16)

@@ -14,10 +14,14 @@ model), ``generate_ngram`` (prompt lookup) and ``generate_mtp`` (the
 checkpoint's MTP layer) run 4 fused speculation rounds a call
 (``speculative.py``) inside the window and a stepwise loop past it;
 ``perplexity`` scores a token list with the reference's estimator.
+``save_session``/``load_session`` persist a hydrated cache and its next
+position in the JAX Engine's session format, so a session written by
+either package resumes in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
@@ -29,14 +33,14 @@ from deepseek_tpu_torch.config import ModelConfig
 from deepseek_tpu_torch.models.deepseek import (
     forward_decode, forward_prefill, make_decode_loop,
 )
-from deepseek_tpu_torch.models.kvcache import init_cache
+from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.loader import (
     fuse_projections, load_params, params_active_bytes, params_bits_per_weight,
 )
 from deepseek_tpu_torch.ops import prng
 from deepseek_tpu_torch.sampler import Sampler, nucleus_probs
 from deepseek_tpu_torch.tokenizer import Tokenizer
-from deepseek_tpu_torch.utils.codec import load_checkpoint
+from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, load_checkpoint, load_shard, save_shard
 from deepseek_tpu_torch.utils.profiling import profile_scope
 
 # fused speculation rounds a call (the JAX Engine's R)
@@ -312,6 +316,77 @@ class Engine:
         return render_chat(tpl, messages, bos_token=md.get("chat_bos_token", ""),
                            eos_token=md.get("chat_eos_token", ""),
                            add_generation_prompt=add_generation_prompt)
+
+    # ------------------------------------------------------------------
+    # session persistence (``deepseek_tpu/engine.py:252-317``): the KV cache
+    # and the next decode position in one safetensors-format file, tensors
+    # ``session.cache.<field>`` (and ``session.tokens``), metadata
+    # ``session.pos`` and the ``session.cfg.*`` fingerprint, the JAX
+    # Engine's names and strings.
+    _SESSION_FPR_KEYS = ("n_layers", "kv_window", "use_mla", "n_heads",
+                         "kv_lora_rank", "qk_rope_head_dim",
+                         "qk_nope_head_dim", "v_head_dim", "kv_cache_dtype")
+
+    def _session_fingerprint(self) -> dict:
+        c = self.cfg
+        vals = dict(n_layers=c.n_layers, kv_window=c.kv_window,
+                    use_mla=int(c.use_mla), n_heads=c.n_heads,
+                    kv_lora_rank=c.kv_lora_rank,
+                    qk_rope_head_dim=c.qk_rope_head_dim,
+                    qk_nope_head_dim=c.qk_nope_head_dim,
+                    v_head_dim=c.v_head_dim,
+                    kv_cache_dtype=str(c.kv_cache_dtype))
+        return {k: str(v) for k, v in vals.items()}
+
+    def save_session(self, path: str, cache: KVCache, pos: int,
+                     tokens: Optional[List[int]] = None) -> None:
+        """Persist a hydrated session: the KV cache (every field, the int8
+        cache's f32 scales and sink masters included; bf16 as its raw
+        16-bit words) and the next decode position, optionally the token
+        history. Resume with ``load_session`` on an Engine over the same
+        checkpoint, of either package."""
+        tensors = {}
+        for f in dataclasses.fields(cache):
+            v = getattr(cache, f.name)
+            if v is not None:
+                v = v.detach().cpu().contiguous()
+                if v.dtype == torch.bfloat16:
+                    arr = v.view(torch.int16).numpy().view(np.uint16).view(
+                        _DTYPE_TO_NP["BF16"])
+                else:
+                    arr = v.numpy()
+                tensors[f"session.cache.{f.name}"] = arr
+        if tokens is not None:
+            tensors["session.tokens"] = np.asarray(tokens, np.int32)
+        md = {"session.pos": str(int(pos)), **{
+            f"session.cfg.{k}": v for k, v in self._session_fingerprint().items()}}
+        save_shard(path, tensors, metadata=md)
+
+    def load_session(self, path: str) -> Tuple[KVCache, int, Optional[List[int]]]:
+        """(cache on this Engine's device, pos, tokens or None) saved by
+        ``save_session``. Raises ValueError when the session was hydrated
+        under another depth, window, attention geometry or cache dtype."""
+        md, tensors = load_shard(path, read_metadata=True)
+        want = self._session_fingerprint()
+        got = {k.split(".", 2)[2]: v for k, v in md.items()
+               if k.startswith("session.cfg.")}
+        if got != want:
+            diff = {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
+            raise ValueError(f"session {path} was saved under an incompatible config: "
+                             f"{diff} (saved, engine)")
+        kw = {}
+        for name, tv in tensors.items():
+            if name.startswith("session.cache."):
+                if tv.dtype_str == "BF16":
+                    t = torch.from_numpy(np.array(tv.array.view(np.uint16)).view(np.int16)
+                                         ).view(torch.bfloat16)
+                else:
+                    t = torch.from_numpy(np.array(tv.array))
+                kw[name.split(".", 2)[2]] = t.to(self.device)
+        cache = KVCache(**{f.name: kw.get(f.name) for f in dataclasses.fields(KVCache)})
+        toks = (np.asarray(tensors["session.tokens"].array).tolist()
+                if "session.tokens" in tensors else None)
+        return cache, int(md["session.pos"]), toks
 
     @torch.inference_mode()
     def step(self, cache, token: int, pos: int) -> torch.Tensor:

@@ -77,6 +77,17 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   cache rows are gathered, and ``cp_merge_scatter`` hands each rank its
   rows back; the logits are reassembled (``final_logits``).
 
+- Over the tensor and expert axes (``parallel/sharding.py::shard_params``
+  gives each rank its slice; the JAX ``shard_map`` body): attention runs
+  this rank's heads (``local_heads``, read from wo's columns) and the
+  dense and shared FFN its share of the hidden width, each row-parallel
+  product (wo, w2) summed over the tensor line (``psum_t``; a projection
+  group left whole skips it); the routed experts are this rank's, the
+  token-expert pairs it does not own weigh 0 and ``psum_e`` sums the
+  mixtures; a vocab-sharded lm_head's logits are gathered
+  (``gather_logits``). EP prefill past its capacity raises
+  ``EPCapacityOverflow``. Every rank returns the same logits.
+
 On CPU tensors every kernel runs its plain version.
 """
 
@@ -179,6 +190,23 @@ def _latent_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     return ckv, k_rope, q_a
 
 
+def local_heads(lp: LayerParams, cfg: ModelConfig) -> int:
+    """The heads this rank's attention computes: all of them, or under a
+    tensor axis its share (``parallel/sharding.py`` cuts the head
+    projections and wo's columns; a group that could not be cut at a block
+    boundary stays whole, and this reads which from wo)."""
+    return lp.wo.shape[-1] // cfg.v_head_dim
+
+
+def _out_proj(lp: LayerParams, cfg: ModelConfig, ctx: SpmdCtx,
+              out: torch.Tensor) -> torch.Tensor:
+    """wo over the attended heads (B,T,H_l*Dv): a row-parallel product
+    whose partial sums add up over the tensor line where the heads split
+    (``deepseek.py:365, 493, 635``)."""
+    y = qmatmul(lp.wo, out)
+    return ctx.psum_t(y) if local_heads(lp, cfg) < cfg.n_heads else y
+
+
 def _attend(kernel, ctx: SpmdCtx, merge, *args, **kw) -> torch.Tensor:
     """``kernel(*args, **kw)`` on one device; under a seq axis its partials
     body over this rank's slice of the window, merged across the shards by
@@ -199,7 +227,7 @@ def _mha_inputs(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     ``wq_a`` -> ``q_a_norm`` -> ``wq_b`` where the checkpoint has a query
     LoRA."""
     B, T, _ = xb.shape
-    H, P = cfg.n_heads, cfg.qk_rope_head_dim
+    H, P = local_heads(lp, cfg), cfg.qk_rope_head_dim
     nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
     q = qmatmul(lp.wq_b, q_a) if q_a is not None else qmatmul(lp.wq, xb)
@@ -219,7 +247,7 @@ def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                    kv_sink: torch.Tensor, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Decompressed-MHA decode (deepseek.py:579-635). xb (B,1,dim)."""
     B = xb.shape[0]
-    H, nope, Dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    H, nope, Dv = local_heads(lp, cfg), cfg.qk_nope_head_dim, cfg.v_head_dim
     q, k, v = _mha_inputs(lp, cfg, xb, pos[:, None])
     k_l, v_l = cache.k[layer], cache.v[layer]                 # (B,S,H,.)
     rotate = lambda x: apply_rope(x, 1, cfg.rope_theta, cfg.has_moegate_bias,
@@ -246,7 +274,7 @@ def _attention_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     out = _attend(mha_decode_attn, ctx, ctx.seq_merge, q[:, 0], k_l, v_l,
                   ctx.local_kv_len(kv_len, cfg.kv_window), cfg.attn_softmax_scale(),
                   **scales)
-    return qmatmul(lp.wo, out.reshape(B, 1, H * Dv).to(xb.dtype))
+    return _out_proj(lp, cfg, ctx, out.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
 def _chunk_positions(xb: torch.Tensor, pos0, ctx: SpmdCtx) -> torch.Tensor:
@@ -268,7 +296,7 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     mode): the chunk's keys and values go into the cache at slot pos0, then
     the chunk attends causally over the cached heads (slot == position)."""
     B, T, _ = xb.shape
-    H, Dv = cfg.n_heads, cfg.v_head_dim
+    H, Dv = local_heads(lp, cfg), cfg.v_head_dim
     q_pos0, q_max, start = _starts(pos0)
     q, k, v = _mha_inputs(lp, cfg, xb, _chunk_positions(xb, pos0, ctx))
     write_rows(cache, layer, k, v, start, ctx)
@@ -285,7 +313,7 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     out = _attend(mha_prefill_attn, ctx, merge, q, cache.k[layer], cache.v[layer],
                   q_pos0, ctx.sidx * cache.window, cfg.attn_softmax_scale(),
                   q_pos0_max=q_max, **scales)
-    return qmatmul(lp.wo, out.reshape(B, T, H * Dv).to(xb.dtype))
+    return _out_proj(lp, cfg, ctx, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
 def _absorbed_queries(lp: LayerParams, cfg: ModelConfig, q_a: torch.Tensor,
@@ -293,7 +321,7 @@ def _absorbed_queries(lp: LayerParams, cfg: ModelConfig, q_a: torch.Tensor,
     """Queries in the latent space: q_a (B,T,q_lora) -> (q_c (B,T,H,R),
     q_rope (B,T,H,P)), both f32."""
     B, T = q_a.shape[:2]
-    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    H, R, P = local_heads(lp, cfg), cfg.kv_lora_rank, cfg.qk_rope_head_dim
     if lp.wcr is not None:
         qcr = qmatmul(lp.wcr, q_a)
         q_rope, q_c = qcr[..., :H * P], qcr[..., H * P:]
@@ -310,7 +338,7 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                kv_sink: torch.Tensor, ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Absorbed MLA decode (BlockMLA, infer.cpp:1052-1141). xb (B,1,dim)."""
     B = xb.shape[0]
-    H, Dv = cfg.n_heads, cfg.v_head_dim
+    H, Dv = local_heads(lp, cfg), cfg.v_head_dim
     is_v3, theta = cfg.has_moegate_bias, cfg.rope_theta
     yarn = cfg.yarn_params()
 
@@ -342,7 +370,7 @@ def _attention(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                   ckv_l, kr_l, ctx.local_kv_len(kv_len, cfg.kv_window),
                   cfg.attn_softmax_scale(), **scales)           # (B, H, R)
     v = per_head_up(lp.wv_b, lat)                             # (B, H, Dv)
-    return qmatmul(lp.wo, v.reshape(B, 1, H * Dv).to(xb.dtype))
+    return _out_proj(lp, cfg, ctx, v.reshape(B, 1, H * Dv).to(xb.dtype))
 
 
 def per_head_up(wv_b, lat: torch.Tensor) -> torch.Tensor:
@@ -378,7 +406,7 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     sidx * S_local + s) and the shards' partials merge; under context
     parallelism xb holds this rank's rows and the queries are gathered."""
     B, T, _ = xb.shape
-    H, R, P = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    H, R, P = local_heads(lp, cfg), cfg.kv_lora_rank, cfg.qk_rope_head_dim
     nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     scale = cfg.attn_softmax_scale()
     pos_bt = _chunk_positions(xb, pos0, ctx)
@@ -422,36 +450,46 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                          kr_d[:, :, None, :].float().expand(B, S, H, P)], dim=-1)
         v_out = _attend(mha_prefill_attn, ctx, merge, q, k_l.to(xb.dtype),
                         kv_dec[..., nope:].contiguous(), pos0, base, scale)
-        return qmatmul(lp.wo, v_out.reshape(B, T, H * Dv).to(xb.dtype))
+        return _out_proj(lp, cfg, ctx, v_out.reshape(B, T, H * Dv).to(xb.dtype))
     lat = _attend(mla_prefill_attn, ctx, merge, q_c, q_rope, ckv_l, kr_l, q_pos0, base,
                   scale, ckv_scale=cs_l, krope_scale=rs_l, q_pos0_max=q_max)  # (B,T,H,R)
     # per-head up-projection of the attended latents, a plain einsum as in
     # the JAX prefill (deepseek.py:489-492)
     wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)
     v = torch.einsum("bthr,hvr->bthv", lat, wv)
-    return qmatmul(lp.wo, v.reshape(B, T, H * Dv).to(xb.dtype))
+    return _out_proj(lp, cfg, ctx, v.reshape(B, T, H * Dv).to(xb.dtype))
 
 
-def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig,
+               ctx: SpmdCtx = NULL_CTX, width: int = 0) -> torch.Tensor:
+    """A GLU FFN of hidden ``width``: column-parallel w1/w3 and row-parallel
+    w2 under a tensor axis, whose partial sums add up over the tensor line
+    where the group split (w2 holds fewer than ``width`` in-features;
+    ``deepseek.py:652-663``)."""
     if w13 is not None:
         h2 = qmatmul(w13, xb)
         m = h2.shape[-1] // 2
         h = glu_act(h2[..., :m], h2[..., m:], cfg.act)
     else:
         h = glu_act(qmatmul(w1, xb), qmatmul(w3, xb), cfg.act)
-    return qmatmul(w2, h)
+    y = qmatmul(w2, h)
+    return ctx.psum_t(y) if w2.shape[-1] < width else y
 
 
 def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
-         prefill: bool = False, live: LiveRows = None) -> torch.Tensor:
+         prefill: bool = False, live: LiveRows = None, ctx: SpmdCtx = NULL_CTX,
+         ovf=None) -> torch.Tensor:
     """The FFN over xb (B,T,dim). Decode (T == 1) and small prefill chunks
     take the expert-sorted pair list; larger prefill chunks the grouped
     products or, where the widths do not allow them, dense-over-experts.
     ``live`` (decode): the pair list keeps the live rows' pairs only; the
     gathering path collapses dead rows onto expert 0 with weight 0
-    (``deepseek.py:735-743``)."""
+    (``deepseek.py:735-743``). Under an expert axis every path computes
+    this rank's pairs (the others weigh 0) and ``psum_e`` sums the
+    mixtures; the grouped path appends this rank's EP capacity overflow
+    count to the list ``ovf`` where one is given."""
     if not cfg.is_moe_layer(layer):
-        return _dense_glu(lp.w13, lp.w1, lp.w2, lp.w3, xb, cfg)
+        return _dense_glu(lp.w13, lp.w1, lp.w2, lp.w3, xb, cfg, ctx, cfg.hidden_dim)
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     router_logits = _router_logits(xb, lp.moegate)
     weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,T,k)
@@ -465,7 +503,7 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
         t13, t1, t2, t3 = lp.w13s, None, lp.w2s, None
     else:
         t13, t1, t2, t3 = lp.w13, lp.w1, lp.w2, lp.w3
-    n_exp = t2.shape[0]
+    n_exp = t2.shape[0] * ctx.ep                 # global experts
     probe = t13 if t13 is not None else t1
     if live is not None and per_tensor_fp8(probe):
         keep = live.mask.reshape(-1, 1, 1)
@@ -473,17 +511,20 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
         weights = torch.where(keep, weights, torch.zeros_like(weights))
     if per_tensor_fp8(probe):
         # no expert kernel takes a per-tensor scale (deepseek.py:707-713)
-        out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg)
-               if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg))
+        out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
+               if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx))
     elif not prefill or idx.numel() <= PAIR_PREFILL_MAX_PAIRS:
-        out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live)
+        out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live, ctx)
     elif grouped_ffn_supported(cfg, probe):
-        out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13)
+        out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13, ctx=ctx,
+                                 ovf=ovf)
     else:
-        out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg)
+        out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
+    out = ctx.psum_e(out)
     if not folded and (lp.shared_w13 is not None or lp.shared_w1 is not None):
         out = out + _dense_glu(lp.shared_w13, lp.shared_w1, lp.shared_w2,
-                               lp.shared_w3, xb, cfg)
+                               lp.shared_w3, xb, cfg, ctx,
+                               cfg.n_shared_experts * cfg.moe_intermediate_size)
     return out
 
 
@@ -496,20 +537,25 @@ def _router_logits(xb: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     return out.reshape(*xb.shape[:-1], -1)
 
 
-def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live=None) -> torch.Tensor:
+def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live=None,
+              ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Expert-sorted pair list through the gathered-expert products (K2:
     its nibble, packed or fp8 body or, for a plain table, its plain body),
     combined per token with the routing weights. A single token over a
     row-permuted nibble w13 (``DSEEK_FUSED_FFN=1``) takes the fused expert
     FFN (K7) instead; several tokens over one take K2's prepermuted body on
     w2 (``deepseek_tpu/models/deepseek.py:806-850``). With ``live`` the
-    dead rows' pairs are cut off, so their routed output is 0."""
+    dead rows' pairs are cut off, so their routed output is 0. Under an
+    expert axis the list keeps every pair, the other ranks' with weight 0
+    aliased to this rank's last expert (``dispatch_pairs``), over its local
+    tables: this rank's share of the mixture."""
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
     Bt = B * T
     if live is not None and live.count == 0:
         return torch.zeros_like(xb)
     k = idx.shape[-1]
-    eid, wts, tok, pair = dispatch_pairs(idx.reshape(Bt, k), weights.reshape(Bt, k), live)
+    eid, wts, tok, pair = dispatch_pairs(idx.reshape(Bt, k), weights.reshape(Bt, k), live,
+                                         ctx, t2.shape[0] * ctx.ep)
     if Bt == 1 and expert_ffn_fusable(t13, t2):
         y = qmm_expert_ffn(t13, t2, eid, xb.reshape(1, -1), wts, cfg.act)
         return y.reshape(B, T, -1).to(dtype)
@@ -527,11 +573,14 @@ def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live=None) -> torch.Tensor
     return combine_pairs(per.float(), wts, pair, Bt, k).reshape(B, T, -1).to(dtype)
 
 
-def _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
+def _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg,
+                ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Decode over expert tables that no kernel takes: the k selected
     experts of each token gathered and dequantized (the JAX decode path,
-    deepseek.py:852-868)."""
+    deepseek.py:852-868); under an expert axis the slots of other ranks'
+    experts point at local expert 0 with weight 0 (``expert_slots``)."""
     dtype = xb.dtype
+    idx, weights = ctx.expert_slots(idx, weights, t2.shape[0] * ctx.ep)
     take = lambda t: t.map(lambda a: a[idx]).dequant(dtype).float()  # (B,T,k,.,.)
     if t13 is not None:
         d13 = take(t13)
@@ -546,12 +595,14 @@ def _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg) -> torch.Tensor:
     return (per_k * weights[..., None].float()).sum(2).to(dtype)
 
 
-def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg):
+def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg,
+                        ctx: SpmdCtx = NULL_CTX):
     """Every expert once per chunk, the routing weights combined through a
-    (B,T,E) matrix (plain torch, as the JAX package leaves it to XLA)."""
+    (B,T,E) matrix (plain torch, as the JAX package leaves it to XLA); under
+    an expert axis this rank's experts' columns of it."""
     dtype = xb.dtype
-    wmat = (torch.nn.functional.one_hot(idx, n_exp).float()
-            * weights[..., None].float()).sum(-2)                  # (B,T,E)
+    wmat = ctx.local_expert_slice((torch.nn.functional.one_hot(idx, n_exp).float()
+                                   * weights[..., None].float()).sum(-2), n_exp)
     if t13 is not None:
         d13 = t13.dequant(dtype).float()                           # (E,2m,dim)
         m = d13.shape[-2] // 2
@@ -574,7 +625,7 @@ def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
         x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer, live=live)
+        x = x + _ffn(lp, cfg, xb, layer, live=live, ctx=ctx)
     return x
 
 
@@ -596,14 +647,16 @@ def decode_positions(cfg: ModelConfig, B: int, pos0, device):
 def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
                  logits_mode: str = "last", ctx: SpmdCtx = NULL_CTX) -> torch.Tensor:
     """Final norm + lm_head: x (B,T,dim) -> (B,V) float32 of the last row
-    (``logits_mode="last"``) or (B,T,V) of every row (``"all"``). Under a
-    context-parallel chunk x holds this rank's rows: the chunk's last row
-    comes from the last shard, "all" gathers every shard's rows
-    (``deepseek.py:1086-1095``), so every rank returns the whole result."""
+    (``logits_mode="last"``) or (B,T,V) of every row (``"all"``). A
+    vocab-sharded lm_head's slices are gathered over the tensor line
+    (``gather_logits``). Under a context-parallel chunk x holds this rank's
+    rows: the chunk's last row comes from the last shard, "all" gathers
+    every shard's rows (``deepseek.py:1086-1096``), so every rank returns
+    the whole result."""
     if logits_mode == "last":
         x = x[:, -1:]
     x = rmsnorm(x, final_norm, cfg.norm_eps)
-    logits = qmatmul(lm_head, x.float())
+    logits = ctx.gather_logits(qmatmul(lm_head, x.float()), cfg.vocab_size)
     if ctx.cp:
         logits = ctx.cp_last_row(logits) if logits_mode == "last" \
             else ctx.cp_gather_rows(logits)
@@ -632,7 +685,7 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx,
                         live)
-    logits = final_logits(params.final_norm, params.lm_head, x, cfg)
+    logits = final_logits(params.final_norm, params.lm_head, x, cfg, ctx=ctx)
     return (logits, x) if with_hidden else logits
 
 
@@ -678,14 +731,43 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
         tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
+    # EP prefill past its capacity drops pairs (deepseek.py:1334-1365)
+    ovf = [] if ctx.ep > 1 and ctx.ep_capacity_factor > 0 else None
     for layer, lp in enumerate(params.layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
         x = x + attend(lp, cfg, xb, cache, layer, pos0, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer, prefill=True)
+        x = x + _ffn(lp, cfg, xb, layer, prefill=True, ctx=ctx, ovf=ovf)
     logits = None if logits_mode == "none" else final_logits(
         params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+    if ovf:
+        # summed over the expert line and, under CP (each shard counted its
+        # own rows' pairs), the seq line: one host read a chunk
+        total = ctx.psum_e(torch.stack(ovf).sum())
+        n = int(ctx.psum_s(total) if ctx.cp else total)
+        if n > 0:
+            raise EPCapacityOverflow(
+                f"{n} token-expert pairs overflowed the EP prefill capacity "
+                f"(ep_capacity_factor={ctx.ep_capacity_factor}); retry the chunk with "
+                "ep_capacity_factor=0 (exact) or raise the factor (the cache holds this "
+                "chunk's rows, which a retry of the same chunk overwrites)",
+                cache=cache, logits=logits)
     return (logits, x) if with_hidden else logits
+
+
+class EPCapacityOverflow(RuntimeError):
+    """EP prefill routing skew exceeded the static capacity
+    (``ops/matmul.py::ep_prefill_capacity``): the chunk's MoE output misses
+    contributions. Retry the chunk with ep_capacity_factor=0 (exact) or a
+    larger factor (``deepseek.py:1275-1289``). ``.cache`` / ``.logits``
+    carry the call's cache (written in place: the rows before the chunk
+    are valid, the chunk's are overwritten by a retry at the same
+    position) and logits."""
+
+    def __init__(self, msg: str, cache=None, logits=None):
+        super().__init__(msg)
+        self.cache = cache
+        self.logits = logits
 
 
 def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
@@ -719,11 +801,12 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     exactly the live rows' pairs whatever the bucket, which only bounds
     the live count.
 
-    With ``mesh`` (``parallel.mesh.make_mesh(seq=n)``, called on every
-    rank) each rank runs the block over its slice of the window
-    (``parallel.sharding.shard_cache``) with the same key: the merged
-    logits, and so the sampled tokens, are the same on every rank. The
-    hidden state is single-device, as in the JAX package."""
+    With ``mesh`` (``parallel.mesh.make_mesh(expert=e, tensor=t, seq=s)``,
+    called on every rank) each rank runs the block over its parameters'
+    and cache's slices (``parallel.sharding.shard_params``,
+    ``shard_cache``) with the same key: the summed and merged logits, and
+    so the sampled tokens, are the same bits on every rank. The hidden
+    state is single-device, as in the JAX package."""
     from deepseek_tpu_torch.ops import prng
     from deepseek_tpu_torch.ops.sampling import SamplingRows, sample_rows
 

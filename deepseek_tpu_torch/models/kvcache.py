@@ -20,7 +20,9 @@ place: one write per layer per step, no copy of the cache.
 On a mesh with a ``seq`` axis (``parallel/``) each rank holds one slice
 of the window (``parallel/sharding.py::shard_cache``): the writes take
 the forward's ``SpmdCtx`` and commit only the rows that fall in the
-rank's slice; the int8 sink masters stay whole on every rank.
+rank's slice; the int8 sink masters stay whole on every rank. Under a
+``tensor`` axis an MHA cache holds this rank's heads (the writes take
+whatever heads the rows carry); the latent MLA cache stays whole.
 """
 
 from __future__ import annotations
@@ -82,7 +84,11 @@ class KVCache:
                              self.v_s, self.ckv_s, self.krope_s) if t is not None)
 
 
-def init_cache(cfg: ModelConfig, batch: int = 1, device="cpu") -> KVCache:
+def init_cache(cfg: ModelConfig, batch: int = 1, device="cpu",
+               heads: Optional[int] = None) -> KVCache:
+    """A zero cache for ``cfg``; an MHA one holds ``heads`` heads (default
+    all: under a tensor axis this rank's share, ``cfg.n_heads // tensor``,
+    as ``parallel/sharding.py::shard_cache`` cuts a whole one)."""
     dt = _CACHE_DTYPES.get(str(cfg.kv_cache_dtype))
     if dt is None:
         raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r}: expected one of "
@@ -97,7 +103,7 @@ def init_cache(cfg: ModelConfig, batch: int = 1, device="cpu") -> KVCache:
         return zeros(*shape, dtype=torch.float32) if q8 else None
 
     if not cfg.use_mla:
-        H = cfg.n_heads
+        H = heads or cfg.n_heads
         return KVCache(k=zeros(L, batch, S, H, cfg.head_dim),
                        v=zeros(L, batch, S, H, cfg.v_head_dim),
                        k_s=f32(L, batch, S, H), v_s=f32(L, batch, S, H),

@@ -6,7 +6,8 @@ F32/F16/BF16 tensors, F8_E5M2 tensors with blockwise or per-tensor scales,
 and U8 K-quant tensors in the packed plane layout (the default, as in the
 JAX package) or the nibble or turbo runtime layouts; ``fuse_projections``
 ports the function of the same name, with the row-permuted expert layout
-of ``DSEEK_FUSED_FFN=1`` (``rowperm_expert_w13``). ``params_from_reference``
+of ``DSEEK_FUSED_FFN=1`` (``rowperm_expert_w13``), and its exact inverse
+``unfuse_projections``, the layout a mesh slices. ``params_from_reference``
 builds the port's params from a ``deepseek_tpu`` ModelParams object
 without importing JAX.
 """
@@ -25,8 +26,8 @@ from deepseek_tpu_torch.models.params import LayerParams, MTPParams, ModelParams
 from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 from deepseek_tpu_torch.quant.qtensor import (
     PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor, Q2KTensor,
-    Q3KTensor, cols_to_experts, q2k_to_nibble, q2k_to_turbo, q3k_to_nibble,
-    q3k_to_turbo, rows_to_experts,
+    Q2KTurboTensor, Q3KTensor, cols_to_experts, q2k_to_nibble, q2k_to_turbo,
+    q3k_to_nibble, q3k_to_turbo, rows_to_experts, slice_qt,
 )
 from deepseek_tpu_torch.quant.repack import repack_q2k, repack_q3k
 from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, CheckpointData
@@ -330,6 +331,80 @@ def rowperm_expert_w13(params: ModelParams, cfg: ModelConfig,
         mtp = dataclasses.replace(mtp, block=layer(mtp.block))
     return dataclasses.replace(params, layers=[layer(lp) for lp in params.layers],
                                mtp=mtp)
+
+
+def _split_rows(qt, a: int, b: int):
+    """(..., a + b, n) -> its first a and last b rows."""
+    return slice_qt(qt, "rows", 0, a), slice_qt(qt, "rows", a, a + b)
+
+
+def _unfold_w2s(qt, E: int, ns: int):
+    """The shared experts' w2 tail (ns, dim, m) of a folded (E + ns, dim, m)
+    table -> (dim, ns*m), each field moved as the JAX ``unfuse_projections``
+    moves it; the permuted layouts (packed, Q3_K turbo, nibble) are the
+    (dim, m) layout at ns == 1, and no folded table has more than one
+    shared expert in them (``cols_to_experts`` folds none)."""
+    def unfold(a):
+        return a[E:].movedim(0, -2).reshape(*a.shape[1:-1], -1).contiguous()
+
+    if ns > 1 and not isinstance(qt, (PlainTensor, Fp8Tensor, Q2KTurboTensor)):
+        raise ValueError(f"{type(qt).__name__} w2s with {ns} shared experts: its "
+                         "columns interleave stride-16 and do not unfold by reshape")
+    if isinstance(qt, PlainTensor):
+        return PlainTensor(data=unfold(qt.data))
+    if isinstance(qt, Fp8Tensor):
+        return Fp8Tensor(data=unfold(qt.data.view(torch.uint8)).view(torch.float8_e5m2),
+                         scale=unfold(qt.scale), block_size=qt.block_size)
+    return qt.map(unfold)
+
+
+def unfuse_layer(lp: LayerParams, cfg: ModelConfig) -> LayerParams:
+    """``unfuse_projections`` for one layer (natural expert rows first)."""
+    kw = {}
+    if lp.w13s is not None:
+        E, ns = cfg.n_routed_experts, cfg.n_shared_experts
+        m = cfg.moe_intermediate_size
+        head = lambda qt: slice_qt(qt, "experts", 0, E)
+        sh1, sh3 = _split_rows(slice_qt(lp.w13s, "experts", E, E + ns), m, m)
+        merge = lambda qt: (PlainTensor(data=qt.data.reshape(-1, qt.shape[-1]))
+                            if isinstance(qt, PlainTensor)
+                            else qt.map(lambda a: a.reshape(-1, a.shape[-1])))
+        lp = dataclasses.replace(lp, w13s=None, w2s=None, w13=head(lp.w13s),
+                                 w2=head(lp.w2s), shared_w1=merge(sh1),
+                                 shared_w3=merge(sh3),
+                                 shared_w2=_unfold_w2s(lp.w2s, E, ns))
+    if lp.w13 is not None:
+        m = lp.w13.shape[-2] // 2
+        kw["w1"], kw["w3"] = _split_rows(lp.w13, m, m)
+        kw["w13"] = None
+    if lp.shared_w13 is not None:
+        m = lp.shared_w13.shape[-2] // 2
+        kw["shared_w1"], kw["shared_w3"] = _split_rows(lp.shared_w13, m, m)
+        kw["shared_w13"] = None
+    H, P, R = cfg.n_heads, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    if lp.wcr is not None:
+        kw["wq_rope_b"], kw["wc"] = _split_rows(lp.wcr, H * P, H * R)
+        kw["wcr"] = None
+    if lp.wkvq is not None:
+        kw["wkv_a"], kw["wq_a"] = _split_rows(lp.wkvq, R + P, cfg.q_lora_rank)
+        kw["wkvq"] = None
+    return dataclasses.replace(lp, **kw) if kw else lp
+
+
+def unfuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
+    """The exact inverse of ``fuse_projections``
+    (``deepseek_tpu/models/loader.py::unfuse_projections``): the natural
+    rows of row-permuted expert tables restored, the shared experts folded
+    into w13s/w2s unfolded back to shared_w1/w2/w3, then every fused pair
+    ([w1;w3], [shared_w1;shared_w3], [wq_rope_b;wc], [wkv_a;wq_a]) split.
+    The fused layouts are single-card layouts: a mesh slices the unfused
+    projections (``parallel/sharding.py``)."""
+    params = rowperm_expert_w13(params, cfg, undo=True)
+    mtp = params.mtp
+    if mtp is not None:
+        mtp = dataclasses.replace(mtp, block=unfuse_layer(mtp.block, cfg))
+    return dataclasses.replace(params, layers=[unfuse_layer(lp, cfg)
+                                               for lp in params.layers], mtp=mtp)
 
 
 # ---------------------------------------------------------------------------

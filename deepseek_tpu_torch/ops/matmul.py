@@ -7,27 +7,25 @@ int8 turbo forms and blockwise fp8 weights through K5's bodies, large
 plain weights at few rows
 through K4 (the lm_head and the large dense FFN weights in decode), other
 plain weights and per-tensor fp8 (dequantized first, as the JAX qmm does)
-through one matrix product. ``dispatch_pairs`` is the single-device
-(ep == 1) part of ``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``,
-with its ``active`` mask of live batch rows (``LiveRows``: the serving
-scheduler's host mask and its device copy).
+through one matrix product. ``dispatch_pairs`` ports
+``deepseek_tpu/parallel/spmd.py::SpmdCtx.dispatch_pairs``, with its
+ownership fold under an expert axis and its ``active`` mask of live batch
+rows (``LiveRows``: the serving scheduler's host mask and its device copy).
 
 The MoE prefill FFN (``grouped_expert_ffn``) ports the function of the same
-name in ``deepseek_tpu/ops/matmul.py`` for ``ep == 1``: a counting sort of
-the token-expert pairs by expert, then the expert projections as grouped
-products, K11 (``gmm``) for plain tables and K6 (``qmm_grouped``) over
-128-row tiles for nibble, packed, turbo and blockwise fp8 tables. Every
+name in ``deepseek_tpu/ops/matmul.py``: a counting sort of the token-expert
+pairs by expert (under an expert axis, of the pairs this rank owns, into
+the static EP capacity: ``ep_prefill_capacity``, with the count of pairs
+that did not fit), then the expert projections as grouped products, K11
+(``gmm``) for plain tables and K6 (``qmm_grouped``) over 128-row tiles for
+nibble, packed, turbo and blockwise fp8 tables. Every
 K-quant kernel takes its activations in the natural column order: the
 permuted copy (packed, Q3_K turbo, nibble) and the per-16 group sums
 (Q2_K turbo, nibble), which the JAX package makes before its kernels
 (``ops/matmul.py:254-259``, ``ops/pallas/qmm.py:600-615``), are made
 inside the port's kernels (or, for the tiles, not needed: they dequantize
 the weights in natural order); behind a row-permuted w13 the w2 tiles read
-h in its permuted order. The pair
-capacity is every pair, rounded up to the 128-row tile (the JAX
-``ep_prefill_capacity`` at ``ep == 1``); expert parallelism (the EP
-capacity and its overflow count) is ROADMAP.md queue 1, item 14 (tensor,
-expert, data axes).
+h in its permuted order.
 """
 
 from __future__ import annotations
@@ -39,6 +37,7 @@ import numpy as np
 import torch
 
 from deepseek_tpu_torch.ops.activations import glu_act
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, ep_ownership
 from deepseek_tpu_torch.ops.kernels.qmm import (
     PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, gmm, qmm, qmm_grouped,
 )
@@ -102,8 +101,9 @@ class LiveRows:
 
 
 def dispatch_pairs(idx: torch.Tensor, weights: torch.Tensor,
-                   live: Optional[LiveRows] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   live: Optional[LiveRows] = None, ctx: SpmdCtx = NULL_CTX,
+                   n_experts: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flatten the (T, k) token-expert pairs and sort them by expert id
     (stable), so a repeated expert's pairs sit together. With ``live`` the
     dead rows' pairs sort last and are cut off: the list keeps exactly the
@@ -111,17 +111,34 @@ def dispatch_pairs(idx: torch.Tensor, weights: torch.Tensor,
     occupancy bucket; eager torch has no bucketed compile, so the cut is
     the live count itself), and the dead rows do no expert work.
 
+    Under an expert axis (``ctx.ep > 1``, ``n_experts`` global experts) the
+    ids become this rank's local ids; the pairs it does not own keep their
+    place in the list (its length stays T*k, or the live pairs: nothing is
+    read back to size it) with weight 0, sorted after the owned ones and
+    aliased to the last owned expert, so the expert kernel reads no other
+    table (``spmd.py:154-214``).
+
     Returns (expert (N,), weight (N,), token (N,), pair (N,): the index
     of each pair in the flat (T*k) list, for ``combine_pairs``), N = T*k
     or the live pairs."""
     T, k = idx.shape
     flat = idx.reshape(-1)
+    w = weights.reshape(-1)
     tok = torch.arange(T * k, device=idx.device) // k
-    key = flat if live is None else torch.where(live.mask[tok], flat, 1 << 30)
+    e_local = n_experts // ctx.ep if ctx.ep > 1 else n_experts
+    flat, keep, w = ep_ownership(flat, w, ctx, e_local)
+    key = flat if keep is None else torch.where(keep, flat, e_local)
+    if live is not None:
+        key = torch.where(live.mask[tok], key, 1 << 30)
     order = torch.sort(key, stable=True).indices
     if live is not None:
         order = order[:live.count * k]
-    return flat[order], weights.reshape(-1)[order], tok[order], order
+    eid = flat[order]
+    if keep is not None:
+        kept = keep[order]
+        alias = torch.where(kept, eid, -1).max().clamp(min=0)
+        eid = torch.where(kept, eid, alias)
+    return eid, w[order], tok[order], order
 
 
 def combine_pairs(per: torch.Tensor, weights: torch.Tensor, pair: torch.Tensor,
@@ -159,41 +176,98 @@ def grouped_ffn_supported(cfg, w1=None) -> bool:
     return cfg.dim % 128 == 0 and cfg.moe_intermediate_size % 128 == 0
 
 
-def tile_dispatch(flat_idx: torch.Tensor, e_local: int, tile: int = 128):
-    """Counting dispatch of N pairs' expert ids into ``tile``-row tiles,
-    each tile of one expert, under the static budget G = E + C/tile (C =
-    all pairs, tile-rounded): each expert wastes less than one tile to
-    ragged fragmentation; surplus tiles point at the last expert.
+def ep_prefill_capacity(n_pairs: int, ep: int, cf: float, tile: int = 128) -> int:
+    """Static per-rank pair capacity of the EP prefill dispatch
+    (``deepseek_tpu/ops/matmul.py::ep_prefill_capacity``): every pair,
+    tile-rounded, at ep == 1 or cf <= 0; else about cf * n_pairs / ep.
+    Pairs past it are counted (the overflow), their contributions lost."""
+    if ep <= 1 or cf <= 0:
+        return -(-n_pairs // tile) * tile
+    c = min(n_pairs, int(cf * n_pairs / ep) + 1)
+    return min(-(-c // tile) * tile, -(-n_pairs // tile) * tile)
 
-    Returns (tile_expert (G,), tile_rows (G,) live rows per tile, dest (N,)
-    each pair's slot in the (G*tile) rows, G)."""
-    N = flat_idx.shape[0]
-    G = e_local + -(-N // tile)
-    within, counts, _ = counting_rank(flat_idx, e_local)
+
+def ep_owned(flat_idx: torch.Tensor, flat_w: torch.Tensor, ctx: SpmdCtx, e_local: int):
+    """Ownership and per-expert counting-sort ranks of this rank's pairs
+    (``ops/matmul.py::_ep_owned``): (local ids, owned (N,) bool, rank among
+    the owned pairs of the same expert, owned counts per local expert,
+    weights with the others' pairs at 0)."""
+    lidx, owned, w = ep_ownership(flat_idx, flat_w, ctx, e_local)
+    if owned is None:
+        owned = torch.ones(flat_idx.shape, dtype=torch.bool, device=flat_idx.device)
+    within, counts, _ = counting_rank(torch.where(owned, lidx, e_local), e_local + 1)
+    return lidx, owned, within, counts[:e_local], w
+
+
+def owned_tiles(lidx: torch.Tensor, owned: torch.Tensor, within: torch.Tensor,
+                counts: torch.Tensor, capacity: int, tile: int = 128):
+    """Counting dispatch of the owned pairs (``ep_owned``) into
+    ``tile``-row tiles, each tile of one expert, under the static budget
+    G = E_local + capacity/tile: each expert wastes less than one tile to
+    ragged fragmentation; surplus tiles point at the last expert; owned
+    pairs past the budget (EP capacity overflow) are dropped.
+
+    Returns (tile_expert (G,), tile_rows (G,) rows per tile, dest (N,) each
+    pair's slot in the (G*tile) rows, keep (N,) whether it has one, G)."""
+    e_local = counts.shape[0]
+    G = e_local + capacity // tile
     tiles_e = (counts + tile - 1) // tile
     tile_start = torch.cumsum(tiles_e, 0) - tiles_e              # (E,)
-    t_idx = torch.arange(G, device=flat_idx.device)
+    t_idx = torch.arange(G, device=lidx.device)
     tile_expert = ((t_idx[:, None] >= tile_start[None, :]).sum(1) - 1) \
         .clamp(0, e_local - 1)
     tile_rows = (counts[tile_expert] - (t_idx - tile_start[tile_expert]) * tile) \
         .clamp(0, tile)
-    dest = tile_start[flat_idx.long()] * tile + within
-    return tile_expert, tile_rows, dest, G
+    dest = torch.where(owned, tile_start[lidx.long()] * tile + within, G * tile)
+    return tile_expert, tile_rows, dest, dest < G * tile, G
 
 
-def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None):
-    """K-quant- or fp8-expert prefill FFN: ``tile_dispatch`` into 128-row
+def tile_dispatch(flat_idx: torch.Tensor, e_local: int, tile: int = 128):
+    """``owned_tiles`` of every pair (one rank), the capacity all pairs:
+    (tile_expert (G,), tile_rows (G,), dest (N,), G)."""
+    lidx, owned, within, counts, _ = ep_owned(flat_idx, flat_idx, NULL_CTX, e_local)
+    N = flat_idx.shape[0]
+    te, tr, dest, _, G = owned_tiles(lidx, owned, within, counts,
+                                     -(-N // tile) * tile, tile)
+    return te, tr, dest, G
+
+
+def _scatter_src(dest: torch.Tensor, keep: torch.Tensor, rows: int) -> torch.Tensor:
+    """src (rows,): the pair each kept pair's slot takes (0 where none), by
+    one scatter into a buffer with a spare slot for the dropped pairs (no
+    data-dependent shape, so nothing is read back)."""
+    N = dest.shape[0]
+    src = torch.zeros(rows + 1, dtype=torch.int64, device=dest.device)
+    src[torch.where(keep, dest, rows)] = torch.arange(N, device=dest.device)
+    return src[:rows]
+
+
+def _combine(y: torch.Tensor, dest, keep, w, shape, dtype):
+    """The kept pairs' rows of y (rows, dim) back in pair order, weighted
+    and summed over each token's k: (B, T, dim) in ``dtype``."""
+    B, T, k = shape
+    y = y[dest.clamp(max=y.shape[0] - 1)] * w.reshape(-1, 1).float()
+    y = torch.where(keep[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return y.reshape(B, T, k, -1).sum(2).to(dtype)
+
+
+def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None,
+                           ctx: SpmdCtx = NULL_CTX, ovf: Optional[list] = None):
+    """K-quant- or fp8-expert prefill FFN: ``owned_tiles`` into 128-row
     tiles and K6 over them. Unfilled slots gather row 0 and are never read
     back; the live row count of each tile goes to the kernel, which skips
-    the rest. Returns out (B, T, dim)."""
+    the rest. Returns out (B, T, dim); the overflow count goes to ``ovf``."""
     TB = 128
     B, T, k = idx.shape
     dim, dtype = xb.shape[-1], xb.dtype
     N = B * T * k
     e_local = (w13 if w13 is not None else w1).shape[0]
-    tile_expert, tile_rows, dest, G = tile_dispatch(idx.reshape(N), e_local, TB)
-    src = torch.zeros(G * TB, dtype=torch.int64, device=xb.device)
-    src[dest] = torch.arange(N, device=xb.device)
+    lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
+                                              e_local)
+    C = ep_prefill_capacity(N, ctx.ep, ctx.ep_capacity_factor, TB)
+    tile_expert, tile_rows, dest, keep, G = owned_tiles(lidx, owned, within, counts,
+                                                        C, TB)
+    src = _scatter_src(dest, keep, G * TB)
     x_tiles = xb.reshape(B * T, dim)[src // k].float().reshape(G, TB, dim)
 
     if w13 is not None:
@@ -208,35 +282,44 @@ def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None):
     # takes it as it is (deepseek_tpu/ops/matmul.py:268-285)
     rp = isinstance(w13, KNibbleTensor) and bool(w13.rowperm)
     y = qmm_grouped(w2, tile_expert, h, tile_rows, x_prepermuted=rp)  # (G, TB, dim)
-    y = y.reshape(G * TB, dim)[dest] * weights.reshape(N, 1).float()
-    return y.reshape(B, T, k, dim).sum(2).to(dtype)
+    if ovf is not None:
+        ovf.append((owned & ~keep).sum().float())
+    return _combine(y.reshape(G * TB, dim), dest, keep, w, (B, T, k), dtype)
 
 
 def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
-                       idx: torch.Tensor, act, w13=None) -> torch.Tensor:
+                       idx: torch.Tensor, act, w13=None, ctx: SpmdCtx = NULL_CTX,
+                       ovf: Optional[list] = None) -> torch.Tensor:
     """Prefill MoE FFN as a ragged grouped product: the (B*T*k) pairs are
     counting-sorted by expert and each expert's rows multiply its table
     once, so the work scales with the k routed experts per token, not all
     E. Plain tables (E, m, dim)/(E, dim, m) run K11; nibble, packed and
-    blockwise fp8 tables K6.
-    xb (B, T, dim), weights/idx (B, T, k) -> (B, T, dim) in xb's dtype."""
+    blockwise fp8 tables K6. Under an expert axis (the tables this rank's
+    experts) only the pairs it owns run, compacted into the static
+    capacity ``ep_prefill_capacity(N, ep, ctx.ep_capacity_factor)``.
+    xb (B, T, dim), weights/idx (B, T, k) -> this rank's share of the
+    mixture (B, T, dim) in xb's dtype; the count of owned pairs past the
+    capacity (an f32 scalar tensor on the device) is appended to ``ovf``."""
     if not isinstance(w13 if w13 is not None else w1, PlainTensor):
-        return _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=w13)
+        return _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=w13,
+                                      ctx=ctx, ovf=ovf)
     B, T, k = idx.shape
     dim, dtype = xb.shape[-1], xb.dtype
     N = B * T * k
     e_local = w2.shape[0]
-    C = -(-N // 128) * 128           # all pairs, tile-rounded (ep == 1)
+    C = ep_prefill_capacity(N, ctx.ep, ctx.ep_capacity_factor, 128)
 
-    flat = idx.reshape(N)
-    within, counts, starts = counting_rank(flat, e_local)
-    dest = starts[flat] + within                                 # (N,) < C
-    src = torch.zeros(C, dtype=torch.int64, device=xb.device)
-    src[dest] = torch.arange(N, device=xb.device)
-    # slack rows (unfilled, src = 0) attach to the last expert; their
-    # outputs are never gathered back
-    sizes = counts.clone()
-    sizes[-1] += C - N
+    lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
+                                              e_local)
+    starts = torch.cumsum(counts, 0) - counts
+    dest = torch.where(owned, starts[lidx.long()] + within, C)
+    keep = dest < C
+    src = _scatter_src(dest, keep, C)
+    # groups clipped to the capacity; slack rows (unfilled, src = 0) attach
+    # to the last expert, their outputs never gathered back
+    sizes = (torch.minimum(starts + counts, torch.full_like(starts, C))
+             - torch.minimum(starts, torch.full_like(starts, C)))
+    sizes[-1] += C - sizes.sum()
     x_rows = xb.reshape(B * T, dim)[src // k]                    # (C, dim)
 
     if w13 is not None:
@@ -247,5 +330,6 @@ def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
         h = glu_act(gmm(x_rows, w1.data, sizes), gmm(x_rows, w3.data, sizes),
                     act).to(dtype)
     y = gmm(h, w2.data, sizes)                                   # (C, dim) f32
-    y = y[dest] * weights.reshape(N, 1).float()
-    return y.reshape(B, T, k, dim).sum(2).to(dtype)
+    if ovf is not None:
+        ovf.append((owned & ~keep).sum().float())
+    return _combine(y, dest, keep, w, (B, T, k), dtype)

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deepseek_tpu_torch.quant.repack import stride16_inv_perm
+from deepseek_tpu_torch.quant.repack import stride16_inv_perm, stride16_perm
 
 
 @dataclasses.dataclass
@@ -405,3 +405,109 @@ def q3k_to_nibble(qs, hm, sc, d, device="cpu") -> KNibbleTensor:
     a = np.repeat(d.astype(np.float32), 16, axis=-1) * sc.astype(np.float32)
     return KNibbleTensor(p=torch.from_numpy(_nibble_pack(u)).to(device),
                          a=_bf16(a, device), c=None, off=4)
+
+
+# ---------------------------------------------------------------------------
+# slicing a weight by its logical dims (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+_AXIS = {"rows": -2, "cols": -1, "experts": 0}
+
+
+def _permuted_cols(vals: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Values stored in the stride-16 permuted order of their n columns ->
+    those of natural columns lo..hi-1, in the permuted order of hi - lo
+    columns (new position c' holds old position inv[lo + perm'(c')])."""
+    idx = stride16_inv_perm(vals.shape[-1])[lo:hi][stride16_perm(hi - lo)]
+    return vals.index_select(-1, torch.as_tensor(idx, device=vals.device))
+
+
+def _unpack_bits(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plane bytes -> values in plane order (byte j, field s holds position
+    s * n/(8/bits) + j)."""
+    mask = (1 << bits) - 1
+    return torch.cat([(planes >> s) & mask for s in range(0, 8, bits)], dim=-1)
+
+
+def _pack_bits(vals: torch.Tensor, bits: int) -> torch.Tensor:
+    """The inverse of ``_unpack_bits``."""
+    per = 8 // bits
+    w = vals.shape[-1] // per
+    out = torch.zeros(vals.shape[:-1] + (w,), dtype=torch.uint8, device=vals.device)
+    for s in range(per):
+        out |= vals[..., s * w:(s + 1) * w].to(torch.uint8) << (s * bits)
+    return out
+
+
+def _cols_of_planes(planes: torch.Tensor, bits: int, lo: int, hi: int) -> torch.Tensor:
+    return _pack_bits(_permuted_cols(_unpack_bits(planes, bits), lo, hi), bits)
+
+
+def _cut(t: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
+    """A contiguous copy of t's lo:hi along ``axis`` (the whole tensor's
+    storage is not kept alive by the slice)."""
+    return t.narrow(axis, lo, hi - lo).clone(memory_format=torch.contiguous_format)
+
+
+def slice_qt(qt, dim: str, lo: int, hi: int):
+    """The part lo:hi of a weight along one logical dim: ``"rows"`` (out
+    features), ``"cols"`` (in features) or ``"experts"`` (the stacked
+    expert axis), every field cut at the one boundary, as contiguous
+    copies; or None where a field's block would straddle it, in which
+    case the caller keeps the tensor whole (``deepseek_tpu/parallel/
+    sharding.py::_fit`` decides field by field instead, which can cut the
+    data and its scale grid at different columns).
+
+    Blocks: a blockwise fp8 weight cuts rows and columns at multiples of
+    its block (or the tensor's end), a per-tensor one anywhere (its scale
+    stays whole; an (E, 1, 1) expert scale follows the experts). K-quant
+    weights (packed, turbo, nibble) cut columns at multiples of the
+    256-column superblock; their stride-16 permuted planes (packed, Q3_K
+    turbo, nibble) are unpacked to the natural columns, cut and packed
+    again at the new width, so the part is the layout a (rows, hi - lo)
+    tensor has. A row-permuted nibble table (``rowperm``) cuts no rows."""
+    axis = _AXIS[dim]
+    size = qt.shape[axis]
+    if not 0 <= lo < hi <= size:
+        raise ValueError(f"slice {lo}:{hi} of {dim} ({size})")
+    if (lo, hi) == (0, size):
+        return qt
+    cut = lambda t: _cut(t, axis, lo, hi)
+    if isinstance(qt, PlainTensor):
+        return PlainTensor(data=cut(qt.data))
+    if isinstance(qt, Fp8Tensor):
+        data = _cut(qt.data.view(torch.uint8), axis, lo, hi).view(torch.float8_e5m2)
+        if qt.per_tensor:
+            whole = dim != "experts" or qt.scale.dim() == 0 or qt.scale.shape[0] != size
+            scale = qt.scale.clone() if whole else _cut(qt.scale, 0, lo, hi)
+            return Fp8Tensor(data=data, scale=scale, block_size=(0, 0))
+        if dim == "experts":
+            return Fp8Tensor(data=data, scale=cut(qt.scale), block_size=qt.block_size)
+        b = qt.block_size[0 if dim == "rows" else 1]
+        if lo % b or (hi % b and hi != size):
+            return None
+        return Fp8Tensor(data=data, scale=_cut(qt.scale, axis, lo // b, -(-hi // b)),
+                         block_size=qt.block_size)
+    if dim == "experts" or dim == "rows":
+        if dim == "rows" and isinstance(qt, KNibbleTensor) and qt.rowperm:
+            return None
+        return qt.map(cut)
+    if lo % 256 or hi % 256:
+        return None
+    g = lambda t, per: _cut(t, -1, lo // per, hi // per)    # per-group fields
+    if isinstance(qt, Q2KTensor):
+        return Q2KTensor(qs=_cols_of_planes(qt.qs, 2, lo, hi), sm=g(qt.sm, 16),
+                         d=g(qt.d, 256), dmin=g(qt.dmin, 256))
+    if isinstance(qt, Q3KTensor):
+        return Q3KTensor(qs=_cols_of_planes(qt.qs, 2, lo, hi),
+                         hm=_cols_of_planes(qt.hm, 1, lo, hi), sc=g(qt.sc, 16),
+                         d=g(qt.d, 256))
+    if isinstance(qt, Q2KTurboTensor):
+        return Q2KTurboTensor(p=cut(qt.p), d=g(qt.d, 256), bm=g(qt.bm, 16))
+    if isinstance(qt, Q3KTurboTensor):
+        return Q3KTurboTensor(p=_permuted_cols(qt.p, lo, hi), a=g(qt.a, 16))
+    if isinstance(qt, KNibbleTensor):
+        return KNibbleTensor(p=_cols_of_planes(qt.p, 4, lo, hi), a=g(qt.a, 16),
+                             c=None if qt.c is None else g(qt.c, 16), off=qt.off,
+                             rowperm=qt.rowperm)
+    raise TypeError(f"unsupported weight {type(qt).__name__}")

@@ -28,9 +28,8 @@ finished inside the dispatch (``serving.py:763``; here the slots are
 counted before the emission and a finished slot adds no more accepted
 drafts); and after plain-decode backoff its MTP drafter cache is stale
 (``serving.py:697``; here every plain block re-feeds its (token, hidden)
-pairs into the drafter cache, so a probe drafts over fresh context). A
-device mesh (the data, tensor and expert axes) is ROADMAP.md queue 1,
-item 14.
+pairs into the drafter cache, so a probe drafts over fresh context).
+Serving over a device mesh is ROADMAP.md queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -223,8 +222,8 @@ class BatchScheduler:
         that many steps where every live slot has that many tokens left and
         room in the window (0: off). ``mesh`` is ROADMAP.md queue 1, item 14."""
         if mesh is not None:
-            raise NotImplementedError("serving over a device mesh (the data, tensor "
-                                      "and expert axes) is ROADMAP.md queue 1, item 14")
+            raise NotImplementedError("serving over a device mesh is ROADMAP.md queue 1, "
+                                      "item 14 (serving and speculation over a mesh)")
         self.engine = engine
         self.batch = batch_size
         # a block larger than the window could never be stored

@@ -322,8 +322,8 @@ def make_mtp_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
 
 def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"{what} over a device mesh (the data, tensor and "
-                                  "expert axes) is ROADMAP.md queue 1, item 14")
+        raise NotImplementedError(f"{what} over a device mesh is ROADMAP.md queue 1, "
+                                  "item 14 (serving and speculation over a mesh)")
 
 
 def _row_params(temperature, top_p, top_k, min_p, B: int):

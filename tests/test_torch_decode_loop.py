@@ -227,15 +227,16 @@ def test_decode_loop_does_not_synchronize(ckpt, monkeypatch):
 
 
 def test_decode_loop_raises_on_unported_options(ckpt):
-    """The seq mesh axis is ported (tests/test_torch_seq_parallel.py), and
+    """The seq, tensor and expert mesh axes are ported (tests/
+    test_torch_seq_parallel.py, tests/test_torch_tensor_expert.py), and
     per-token logprobs, the hidden state and live-row masks are too
-    (``test_batched_decode_loop_matches_jax``); a mesh with a tensor axis
+    (``test_batched_decode_loop_matches_jax``); a mesh with a data axis
     is not and raises, citing its ROADMAP item. The hidden state over a
     mesh raises as the JAX loop asserts (single-device), and more live rows
     than the occupancy bucket raise."""
     eng = _port_engine(ckpt)
     with pytest.raises(NotImplementedError, match="item 14"):
-        make_decode_loop(eng.cfg, 4, mesh=Mesh(tensor=2))
+        make_decode_loop(eng.cfg, 4, mesh=Mesh(data=2))
     with pytest.raises(ValueError, match="single-device"):
         make_decode_loop(eng.cfg, 4, mesh=Mesh(seq=2), with_hidden=True)
     loop = make_decode_loop(eng.cfg, 4, active_bucket=1)

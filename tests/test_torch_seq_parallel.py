@@ -16,8 +16,8 @@ prefill over ``torch.distributed``) against the JAX package.
   concatenated against the JAX cache.
 - ``make_decode_loop(mesh=...)``: the same tokens on both ranks as the JAX
   loop over the same mesh, at temperature 0 and 0.8, across two blocks.
-- Errors: the unported axes, a window the axis does not divide, a rank
-  that raises.
+- Errors: the unported data axis (the tensor and expert axes build their
+  meshes), a window the axis does not divide, a rank that raises.
 
 The ranks import this module to find their bodies, so it imports JAX only
 inside the functions that build the reference: a rank loads torch and
@@ -537,10 +537,25 @@ def test_decode_loop_seq2_matches_jax(seq2_runs, temperature):
 # 5. errors
 # ---------------------------------------------------------------------------
 
+def _rank_mesh(rank, world, axis):
+    mesh = make_mesh(**{axis: world})
+    return mesh.expert_index, mesh.tensor_index, mesh.seq_index, mesh.size
+
+
 @pytest.mark.parametrize("axis", ["tensor", "expert", "data"])
 def test_unported_mesh_axes_raise(axis):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_mesh(**{axis: 2})
+    """The data axis is not ported and raises; the tensor and expert axes
+    are (tests/test_torch_tensor_expert.py): over two ranks each builds a
+    mesh that gives rank r the index r along it."""
+    if axis == "data":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            make_mesh(**{axis: 2})
+        return
+    i = {"expert": 0, "tensor": 1}[axis]
+    for r, got in enumerate(launch(_rank_mesh, 2, axis)):
+        want = [0, 0, 0, 2]
+        want[i] = r
+        assert got == tuple(want)
 
 
 def test_window_not_divisible_by_seq_raises():
