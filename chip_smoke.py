@@ -156,6 +156,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      with f16, bf16 and int8 caches, hydrated past its window and saved;
      a fresh Engine loads the session and resumes with the uninterrupted
      run's tokens.
+ 11. the data axis: the unsharded runs on the card, then gloo ranks on the
+     one card (data=2, data=2 x expert=2) serve 4 requests of the serving
+     mix through BatchScheduler(batch_size=4, logprobs=True,
+     prefix_cache_mb=64, mesh=...) on the DeepSeek-V3-width packed Q3_K
+     model cut to 4 layers (f32 compute, bf16 cache, no factor weights),
+     each rank holding 2 of the 4 batch rows; then spec="ngram" and the
+     DeepSeek-V2-Lite-width F8E5M2 model cut to 2 layers at data=2: greedy
+     tokens the unsharded run's (near ties allowed), log-probs within 1e-3
+     of its, every rank the same tokens and log-probs; each rank's wall,
+     time in collectives, peak and resident memory; then K3, K5, K2 and
+     K10 (verify mode) at a data shard's 2 rows against their plain
+     versions;
+ 12. pipeline stages: the same V3-width draw through a 2-stage Pipeline in
+     one process (both stages on the card) against the unsharded run, its
+     decode_microbatched (2 microbatches of 2) against decode_step, 2
+     stages x tensor=2 over 4 gloo ranks against the unsharded run, and 3
+     stages over an int8 cache on a tiny 3-layer packed Q3_K checkpoint
+     against its Engine past the window.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
@@ -252,9 +270,10 @@ def save_tiny(path: str, cfg, tensors: dict, metadata=None) -> None:
 
 def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
                           max_seq_len: int = 64, window: int = 32,
-                          mtp: bool = False) -> None:
-    """A tiny 2-layer absorbed-MLA MoE checkpoint of random Q3_K (or Q2_K)
-    blocks with small f16 super scales, without the factor weights; with
+                          mtp: bool = False, n_layers: int = 2) -> None:
+    """A tiny absorbed-MLA MoE checkpoint of random Q3_K (or Q2_K) blocks
+    with small f16 super scales, without the factor weights, 2 layers (one
+    dense, one MoE) or ``n_layers`` (the first dense); with
     ``mtp``, DeepSeek-V3's multi-token-prediction layer too (``model.mtp.*``:
     the norms, eh_proj and an MoE block), drawn after the others."""
     from deepseek_tpu_torch.config import (
@@ -262,7 +281,7 @@ def write_tiny_checkpoint(path: str, rng, quant: str = "q3_k",
     from deepseek_tpu_torch.quant.kquant import Q2K_BLOCK_BYTES, Q3K_BLOCK_BYTES, QK_K
 
     cfg = ModelConfig(
-        dim=512, hidden_dim=1024, n_layers=2, n_heads=4, vocab_size=512,
+        dim=512, hidden_dim=1024, n_layers=n_layers, n_heads=4, vocab_size=512,
         max_seq_len=max_seq_len, rope_theta=10000.0, norm_eps=1e-6,
         act=ActivationType.SILU, first_k_dense_replace=1, n_shared_experts=1,
         n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
@@ -3574,6 +3593,515 @@ def session_phase(counts, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: continuous batching over a data mesh, with ranks that share the
+# card
+# ---------------------------------------------------------------------------
+
+DATA_REQS = (0, 1, 2, 5)   # of serving_requests: 1 and 5 share a prefix, 2 samples
+# (cell, mesh axes, the (model, spec) jobs each rank serves)
+DATA_CELLS = (("data=2", dict(data=2), (("v3", None), ("v3", "ngram"), ("v2", None))),
+              ("data=2 x expert=2", dict(data=2, expert=2), (("v3", None),)))
+# the kernels each job's serving run must launch
+DATA_KERNELS = {("v3", None): ("K10", "K5r-packed", "K6-packed", "K3", "K5-packed",
+                               "K2-packed"),
+                ("v3", "ngram"): ("K10", "K10-rows", "K5r-packed", "K3", "K2-packed"),
+                ("v2", None): ("K9", "K5r", "K6-fp8", "K8", "K5", "K2-fp8")}
+
+
+def data_requests(eng):
+    """The DATA_REQS requests of the serving phase's mix (``serving_requests``,
+    the same seed), as plain dicts a rank can rebuild."""
+    reqs = serving_requests(eng, np.random.default_rng(SEED + 53))
+    return [dict(prompt_tokens=r.prompt_tokens, max_new_tokens=r.max_new_tokens,
+                 temperature=r.temperature, top_p=r.top_p, top_k=r.top_k, logprobs=True)
+            for i, r in enumerate(reqs) if i in DATA_REQS]
+
+
+def data_serve(eng, reqs, mesh=None, spec=None, sched=None):
+    """BatchScheduler(batch_size=4, logprobs=True, prefix_cache_mb=64) (or
+    ``sched``, made so) over ``reqs``: (scheduler, finished requests in
+    order, wall seconds)."""
+    from deepseek_tpu_torch.serving import BatchScheduler, Request
+
+    if sched is None:
+        sched = BatchScheduler(eng, batch_size=4, logprobs=True, prefix_cache_mb=64,
+                               mesh=mesh, spec=spec)
+    for r in reqs:
+        sched.submit(Request(**r))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    return sched, done, time.perf_counter() - t0
+
+
+def shard_verified(sched, shards):
+    """Make the unsharded spec scheduler ``sched`` verify each of ``shards``
+    equal blocks of its rows as a chunk of its own, the rows a data rank's
+    verify chunk holds, over views of those rows of its cache and history
+    (written in place); its host decisions stay the whole batch's. A verify
+    chunk is not batch invariant (ROADMAP, section 3), so spec serving at
+    data=2 is held to this, not to 4-row chunks."""
+    inner = sched._get_spec_fn()
+
+    def fn(params, ct, hist, tok, pos0, key, *rows_args):
+        n = tok.shape[0] // shards
+        outs = []
+        for d in range(shards):
+            rows = slice(d * n, (d + 1) * n)
+            cut = lambda v: v[rows] if np.ndim(v) > 0 else v     # noqa: E731
+            part = dataclasses.replace(ct, **{
+                f.name: getattr(ct, f.name)[:, rows] for f in dataclasses.fields(ct)
+                if isinstance(getattr(ct, f.name), torch.Tensor)})
+            outs.append(inner(params, part, hist[rows], tok[rows], cut(pos0), key,
+                              *map(cut, rows_args)))
+        return (*(torch.cat([o[i] for o in outs], dim=1) for i in range(len(outs[0]) - 2)),
+                ct, hist)
+    sched._spec_fn = fn
+    return sched
+
+
+def data_rank(rank, world, shape, jobs, reqs_of):
+    """One rank of a data cell: per job the model drawn from the seed (kept
+    for the next job of the same model), an Engine over it and a
+    BatchScheduler over the mesh (the weights cut by ``shard_params``: at
+    data=2 replicated, at expert=2 its experts, the whole draw then freed),
+    serving the requests with the collectives timed. Returns per job the
+    tokens and log-probs, launches, wall, collective time and calls, peak
+    and resident memory, speculation and prefix-cache statistics and the
+    slots whose cache rows the rank holds."""
+    from deepseek_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_tpu_torch.serving import BatchScheduler
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(**shape)
+    counts, clock = counters(), CollectiveClock()
+    out = {"coords": (mesh.data_index, mesh.expert_index)}
+    drawn = {}
+    for j, (model, spec) in enumerate(jobs):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if model not in drawn:
+            drawn.clear()
+            drawn[model] = mesh_model(model)
+        params, cfg = drawn[model]
+        eng = params_engine(params, cfg)
+        sched = BatchScheduler(eng, batch_size=4, logprobs=True, prefix_cache_mb=64,
+                               mesh=mesh, spec=spec)
+        if all(m != model for m, _ in jobs[j + 1:]):
+            eng.params = sched.params            # the whole draw is no longer needed
+            drawn.clear()
+        del params
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        clock.reset()
+        reset(counts)
+        sched, done, wall = data_serve(eng, reqs_of[model], sched=sched)
+        launched = read(counts)
+        out[(model, spec)] = dict(
+            toks=[r.out_tokens for r in done], lps=[r.out_logprobs for r in done],
+            launched=launched, wall=wall, coll=(clock.seconds, clock.calls),
+            peak=torch.cuda.max_memory_allocated(), resident=resident,
+            spec=dict(sched.spec_stats), prefix=sched.prefix_cache.stats,
+            slots=(sched._rows.start, sched._rows.stop))
+        del sched, eng
+    return out
+
+
+def data_serving_phase(counts, runs):
+    """Continuous batching over a data mesh: the unsharded runs on the card
+    first (the reference: the V3-width packed Q3_K draw cut to 4 layers and
+    the V2-Lite-width F8E5M2 draw cut to 2, f32 compute, bf16 cache, the
+    DATA_REQS requests of the serving phase's mix through
+    BatchScheduler(batch_size=4, logprobs=True, prefix_cache_mb=64)), then
+    each DATA_CELLS cell's gloo ranks on the one card serve the same
+    requests through the scheduler over the mesh, each rank holding 2 of
+    the 4 batch rows (K3 at 2 rows, K5 packed at 2 rows, K2 over 2 tokens'
+    pairs; MHA: K8 and K9 over a batch cut in two): greedy requests the
+    unsharded run's tokens (near ties allowed), their log-probs within
+    SERVE_TOL of the unsharded run's, every rank the same tokens and
+    log-probs (the sampled request too, drawn under each data shard's
+    folded key), the prefix-cache hit; spec="ngram" at data=2 (K10 with
+    per-row starts at 2 rows), held the same way to the unsharded spec
+    scheduler whose verify chunks hold a rank's rows (``shard_verified``).
+    Logs each rank's wall, time in collectives, peak and resident memory."""
+    from deepseek_tpu_torch.parallel.launch import launch
+    from deepseek_tpu_torch.serving import BatchScheduler
+
+    t_phase = time.perf_counter()
+    ref, reqs_of = {}, {}
+    for model in ("v3", "v2"):
+        params, cfg = mesh_model(model)
+        eng = params_engine(params, cfg)
+        reqs = reqs_of[model] = data_requests(eng)
+        greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0 or r["top_k"] == 1]
+        for spec in {"v3": (None, "ngram"), "v2": (None,)}[model]:
+            if spec is None:
+                label = f"data mesh: unsharded {model} serving"
+                (sched, done, wall), launched = drive(
+                    counts, DATA_KERNELS[(model, None)], label, lambda: data_serve(eng, reqs))
+                runs[f"unsharded {model} serving"] = launched
+            else:
+                label = (f"data mesh: unsharded {model} serving {spec}, verify chunks of "
+                         f"a data=2 rank's rows")
+                sched, done, wall = data_serve(eng, reqs, sched=shard_verified(BatchScheduler(
+                    eng, batch_size=4, logprobs=True, prefix_cache_mb=64, spec=spec), 2))
+            toks = [r.out_tokens for r in done]
+            teach = {i: teacher_logits(eng, reqs[i]["prompt_tokens"], toks[i]) for i in greedy}
+            n_tok = sum(len(t) for t in toks)
+            ref[(model, spec)] = dict(toks=toks, lps=[r.out_logprobs for r in done],
+                                      teach=teach, greedy=greedy)
+            log(f"{label}: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s), prompts "
+                f"{[len(r['prompt_tokens']) for r in reqs]}, greedy {greedy}, prefix cache "
+                f"{sched.prefix_cache.stats}, spec {sched.spec_stats}")
+            del sched
+        del params, eng
+        torch.cuda.empty_cache()
+    log(f"data mesh: unsharded reference runs in {time.perf_counter() - t_phase:.1f} s")
+    failed = []
+    for cell, shape, jobs in DATA_CELLS:
+        t0 = time.perf_counter()
+        n = math.prod(shape.values())
+        ranks = launch(data_rank, n, shape, jobs, reqs_of, backend="gloo",
+                       timeout=SEQ_TIMEOUT, threads=None)
+        log(f"data mesh {cell}: {n} gloo ranks on one card in "
+            f"{time.perf_counter() - t0:.1f} s (spawn and draws included); coordinates "
+            f"(data, expert) {[r['coords'] for r in ranks]}")
+        for job in jobs:
+            model, spec = job
+            name = f"{cell} {model} serving" + (f" {spec}" if spec else "")
+            want = ref[job]
+            for r, res in enumerate(ranks):
+                got = res[job]
+                worst = 0.0
+                for i in want["greedy"]:
+                    agree = same_or_near_tie(want["teach"][i], want["toks"][i],
+                                             got["toks"][i], f"{name}, rank {r}, request {i}")
+                    if agree == len(got["toks"][i]) and len(got["toks"][i]) != len(
+                            want["toks"][i]):
+                        failed.append(f"{name}, rank {r}: request {i} has "
+                                      f"{len(got['toks'][i])} tokens")
+                    a = np.asarray(got["lps"][i][:agree])
+                    b = np.asarray(want["lps"][i][:agree])
+                    worst = max(worst, float(np.abs(a - b).max()) if agree else 0.0)
+                n_tok = sum(len(t) for t in got["toks"])
+                wall, (cs, cn) = got["wall"], got["coll"]
+                log(f"{name}, rank {r} (slots {got['slots']}): {n_tok} tokens in "
+                    f"{wall:.3f} s ({n_tok / wall:.2f} tok/s; the ranks time-share the "
+                    f"card), collectives {cn} calls, {cs:.3f} s ({100 * cs / wall:.1f}% of "
+                    f"the wall; the card synced around each); greedy log-probs vs the "
+                    f"unsharded run's max abs err {worst:.3e} (tolerance {SERVE_TOL}); peak "
+                    f"device memory {got['peak'] / 2**30:.2f} GiB, resident "
+                    f"{got['resident'] / 2**30:.2f} GiB; prefix cache {got['prefix']}, "
+                    f"spec {got['spec']}; launches "
+                    f"{ {k: v for k, v in got['launched'].items() if v} }")
+                if not worst <= SERVE_TOL:
+                    failed.append(f"{name}, rank {r}: log-probs off the unsharded run's")
+                if not all(np.isfinite(lp).all() and max(lp, default=0.0) <= 0.0
+                           for lp in got["lps"]):
+                    failed.append(f"{name}, rank {r}: a log-prob is not finite or above 0")
+                if got["toks"] != ranks[0][job]["toks"] or got["lps"] != ranks[0][job]["lps"]:
+                    failed.append(f"{name}: rank {r}'s tokens or log-probs differ from "
+                                  f"rank 0's")
+                missing = [k for k in DATA_KERNELS[job] if got["launched"][k] == 0]
+                if missing:
+                    failed.append(f"{name}, rank {r}: never launched {missing}")
+                if spec is None and model == "v3" and got["prefix"]["hits"] < 1:
+                    failed.append(f"{name}, rank {r}: no prefix-cache hit")
+                if spec is not None and got["spec"]["dispatches"] < 1:
+                    failed.append(f"{name}, rank {r}: no speculation dispatch")
+            log(f"{name}: rank 0's tokens {ranks[0][job]['toks']}")
+            runs[name] = ranks[0][job]["launched"]
+    log(f"data mesh phase: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    if failed:
+        raise RuntimeError("data mesh: " + "; ".join(failed))
+
+
+def data_kernel_entries(entries):
+    """The kernels at a data shard's shapes on the V3-width packed Q3_K draw
+    (the rows a rank holds of the serving batch of 4 at data=2), each
+    against its plain version on the card: K5's packed matvec at 2 rows,
+    K2's packed body over 2 tokens' 16 routed pairs, K3 at 2 rows each at
+    its own kv_len, K10 in verify mode over 2 chunks with per-row starts.
+    Tolerance 1e-4 of max|ref|."""
+    from deepseek_tpu_torch.ops.kernels.attention import (
+        mla_decode_attn, mla_decode_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.prefill_attn import (
+        mla_prefill_attn, mla_prefill_attn_plain)
+    from deepseek_tpu_torch.ops.kernels.qmm import (
+        qmm, qmm_experts, qmm_experts_plain, qmm_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 61)
+    params, cfg = mesh_model("v3")
+    emit = make_emit(entries, "data=2 v3 serving")
+    emit_spec = make_emit(entries, "data=2 v3 serving ngram")
+    csrc, qpy = "deepseek_tpu_torch/csrc/", "deepseek_tpu/ops/pallas/qmm.py:"
+    dense, moe = params.layers[0], params.layers[cfg.n_layers - 1]
+    H, R, P, S = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.kv_window
+    for label, qt in (("wkvq", dense.wkvq), ("wcr", dense.wcr), ("wo", dense.wo),
+                      ("w13 (dense)", dense.w13), ("lm_head", params.lm_head)):
+        d, n = qt.shape
+        x = torch.randn((2, n), generator=gen, device="cuda")
+        emit(f"K5 qmm Q3_K packed {label} (a data=2 rank's rows) 2x{d}x{n}",
+             lambda: qmm(qt, x), lambda: qmm_plain(qt, x), 1e-4,
+             nbytes(x) + qt.nbytes_active + 4 * 2 * d, 2.0 * 2 * d * n,
+             csrc + "packed_mv.cu", qpy + "312 (qmm, _q3k_body :368)", "K5-packed")
+    E, k = cfg.n_routed_experts, cfg.n_active_routed
+    ids = torch.stack([torch.randperm(E, generator=gen, device="cuda")[:k]
+                       for _ in range(2)]).reshape(-1).sort().values
+    u = int(ids.unique().numel())
+    for label, qt in (("w13 (MoE)", moe.w13), ("w2 (MoE)", moe.w2)):
+        n_tab, d, n = qt.shape
+        x = torch.randn((ids.numel(), n), generator=gen, device="cuda")
+        emit(f"K2 qmm_experts Q3_K packed {label} (a data=2 rank's 2 tokens: "
+             f"{ids.numel()} pairs over {u} experts) {d}x{n}",
+             lambda: qmm_experts(qt, ids, x), lambda: qmm_experts_plain(qt, ids, x), 1e-4,
+             nbytes(x) + qt.nbytes_active / n_tab * u + 4 * d * ids.numel(),
+             2.0 * ids.numel() * d * n, csrc + "packed_mv.cu",
+             qpy + "566 (qmm_experts, _q3k_body :368, pallas_call :710)", "K2-packed")
+    del params, dense, moe
+    torch.cuda.empty_cache()
+    kv = [45, 424]                     # two slots' lengths (a short and a long prompt)
+    qc = torch.randn((2, H, R), generator=gen, device="cuda")
+    qr = torch.randn((2, H, P), generator=gen, device="cuda")
+    ckv = torch.randn((2, S, R), generator=gen, device="cuda").to(torch.bfloat16)
+    kr = torch.randn((2, S, P), generator=gen, device="cuda").to(torch.bfloat16)
+    kl = torch.tensor(kv, device="cuda", dtype=torch.int32)
+    scale = cfg.attn_softmax_scale()
+    dmask = torch.arange(S, device="cuda")[None] < kl[:, None]
+    q_s = torch.cat([qc, qr], -1)[:, :, None].to(torch.bfloat16)
+    k_s = torch.cat([ckv, kr], -1)[:, None].expand(2, H, S, R + P)
+    v_s = ckv[:, None].expand(2, H, S, R)
+    emit(f"K3 mla_decode_attn bf16 cache (a data=2 rank's 2 rows, kv_len {kv}) S={S} H={H}",
+         lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale),
+         lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale), 1e-4,
+         sum(kv) * (R + P) * 2 + nbytes(qc, qr) + 4 * 2 * H * R,
+         2.0 * H * sum(kv) * (2 * R + P), csrc + "prefill_attn.cu",
+         "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, pallas_call :221)",
+         "K3", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+             q_s, k_s, v_s, attn_mask=dmask[:, None, None], scale=scale))
+    T, starts = 5, [40, 419]
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    qc = torch.randn((2, T, H, R), generator=gen, device="cuda") * 0.3
+    qr = torch.randn((2, T, H, P), generator=gen, device="cuda") * 0.3
+    seen = sum(s + T for s in starts)
+    vmask = (torch.arange(S, device="cuda")[None, None]
+             <= st[:, None, None] + torch.arange(T, device="cuda")[None, :, None])
+    q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
+    e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (a data=2 rank's 2 verify "
+                  f"chunks of {T} rows) S={S} H={H}",
+                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale,
+                                           q_pos0_max=max(starts)),
+                  lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale), 1e-4,
+                  seen * (R + P) * 2 + nbytes(qc, qr) + 4 * 2 * T * H * R,
+                  2.0 * T * H * seen * (2 * R + P), csrc + "prefill_attn.cu",
+                  "deepseek_tpu/models/deepseek.py:1024-1035 (verify mode; the JAX package "
+                  "runs it in XLA, attention.py:213; K10: attention.py:644, pallas_call :707)",
+                  "K10-rows", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q_v, k_s, v_s, attn_mask=vmask[:, None], scale=scale))
+    e["scalar_ms"] = time_ms(lambda: mla_prefill_attn(qc, qr, ckv, kr, max(starts), 0, scale))
+    log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
+    del ckv, kr, k_s, v_s, q_v
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: pipeline stages
+# ---------------------------------------------------------------------------
+
+PP_DECODE = 16             # teacher-forced decode steps after the prompt
+PP_MICRO_PROMPT = 64       # the microbatched cell: 4 rows of this many tokens
+PP_MICRO_STEPS = 8
+PP_INT8_TOKENS = 40        # the 3-stage cell: past the tiny model's 32-slot window
+PP_TOL = 1e-3              # of max|logit|, f32 compute
+
+
+def pp_path(pp, prompt, forced):
+    """A pipeline's prefill of ``prompt`` in chunks of 256 then the decode
+    steps fed ``forced``: the logits rows ((steps + 1, V) f32 CPU) and the
+    prefill and decode walls."""
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(prompt), 256):
+        last = i + 256 >= len(prompt)
+        lg = pp.prefill(torch.tensor([prompt[i:i + 256]], device="cuda"), i,
+                        "last" if last else "none")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for s, t in enumerate(forced):
+        rows.append(lg[0].float().cpu())
+        lg = pp.decode_step(torch.tensor([[t]], device="cuda"), len(prompt) + s)
+    rows.append(lg[0].float().cpu())
+    torch.cuda.synchronize()
+    return torch.stack(rows), (t1 - t0, time.perf_counter() - t1)
+
+
+def pp_rank(rank, world, forced):
+    """One rank of 2 stages x tensor=2: the V3 draw, the Pipeline (its
+    stage's layers cut to its tensor slice, the whole draw freed), the
+    prompt and the forced steps with the collectives (the stage's
+    all-reduces, the hop and the logits' all-reduce) timed."""
+    from deepseek_tpu_torch.parallel.pipeline import Pipeline
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts, clock = counters(), CollectiveClock()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg = mesh_model("v3")
+    pp = Pipeline(cfg, params, n_stages=2, batch=1, mesh_shape={"tensor": 2})
+    del params
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    prompt, _ = seq_inputs(cfg, "v3")
+    st = pp.stages[pp.stage]
+    clock.reset()
+    reset(counts)
+    rows, walls = pp_path(pp, prompt, forced)
+    return dict(rows=rows, walls=walls, coll=(clock.seconds, clock.calls),
+                launched=read(counts), peak=torch.cuda.max_memory_allocated(),
+                resident=resident, stage=pp.stage,
+                holds=dict(layers=(st.lo, st.hi), wo_cols=st.params.layers[0].wo.shape[-1]))
+
+
+def pipeline_phase(counts, runs):
+    """Pipeline stages at DeepSeek-V3's widths: the 4-layer packed Q3_K draw
+    of the mesh phase (f32 compute, bf16 cache, no factor weights) runs its
+    512-token prompt in 2 chunks and PP_DECODE greedy steps unsharded; a
+    2-stage Pipeline in this process (both stages on the card) runs the
+    same path fed the greedy tokens (logits within PP_TOL of max|logit|);
+    at B = 4 (4 prompts of PP_MICRO_PROMPT tokens) decode_microbatched in 2
+    microbatches against decode_step (the same logits; the walls logged,
+    nothing claimed: one card, one stream); 2 stages x tensor=2 over 4 gloo
+    ranks against the unsharded run (the same bits on every rank; each
+    rank's walls, time in collectives, peak and resident memory); then 3
+    stages over an int8 cache on a tiny 3-layer packed Q3_K checkpoint
+    against its Engine, decoding past the window."""
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.parallel.launch import launch
+    from deepseek_tpu_torch.parallel.pipeline import Pipeline
+    from deepseek_tpu_torch.parallel.spmd import NULL_CTX
+
+    t_phase = time.perf_counter()
+    failed = []
+    params, cfg = mesh_model("v3")
+    prompt, _ = seq_inputs(cfg, "v3")
+    want, forced, _, walls1 = seq_path(params, cfg, prompt, None, NULL_CTX,
+                                       init_cache(cfg, device="cuda"), counts,
+                                       steps=PP_DECODE)
+    scale = float(want.abs().max())
+
+    def held(label, rows):
+        err = float((rows - want).abs().max())
+        ok = bool(torch.isfinite(rows).all()) and err <= PP_TOL * scale
+        log(f"{label}: logits vs unsharded max abs err {err:.3e} ({err / scale:.2e} of "
+            f"max|logit| {scale:.3f}; tolerance {PP_TOL:g}), equal bits: "
+            f"{torch.equal(rows, want)}")
+        if not ok:
+            failed.append(f"{label}: logits disagree with the unsharded run")
+
+    pp = Pipeline(cfg, params, n_stages=2, batch=1)
+    (rows, walls), launched = drive(
+        counts, ("K10", "K5r-packed", "K6-packed", "K3", "K5-packed", "K2-packed"),
+        "pipeline 2 stages (one process)", lambda: pp_path(pp, prompt, forced))
+    runs["pipeline 2 stages"] = launched
+    held("pipeline 2 stages (one process)", rows)
+    log(f"pipeline 2 stages (one process): prefill / decode wall {walls[0]:.3f} / "
+        f"{walls[1]:.3f} s (unsharded {walls1[0]:.3f} / {walls1[1]:.3f})")
+    del pp
+    # microbatched decode at B = 4 against the straight-through step
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 67)
+    rows4 = torch.randint(3, cfg.vocab_size, (4, PP_MICRO_PROMPT + PP_MICRO_STEPS),
+                          generator=gen, device="cuda")
+    out, wall = {}, {}
+    for mode in ("decode_step", "decode_microbatched"):
+        pp = Pipeline(cfg, params, n_stages=2, batch=4)
+        pp.prefill(rows4[:, :PP_MICRO_PROMPT], 0, "none")
+        lg, t = [], 0.0
+        reset(counts)
+        for s in range(PP_MICRO_STEPS):
+            tok = rows4[:, PP_MICRO_PROMPT + s:PP_MICRO_PROMPT + s + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = (pp.decode_step(tok, PP_MICRO_PROMPT + s) if mode == "decode_step" else
+                 pp.decode_microbatched(tok, PP_MICRO_PROMPT + s, n_micro=2))
+            torch.cuda.synchronize()
+            t += time.perf_counter() - t0
+            lg.append(y.float().cpu())
+        runs[f"pipeline {mode}"] = read(counts)
+        out[mode], wall[mode] = torch.stack(lg), t / PP_MICRO_STEPS
+        if mode == "decode_microbatched" and pp.stages[0].cache is not None:
+            failed.append("pipeline: the microbatch caches did not persist")
+        del pp
+    err = float((out["decode_microbatched"] - out["decode_step"]).abs().max())
+    sc4 = float(out["decode_step"].abs().max())
+    log(f"pipeline B = 4, {PP_MICRO_STEPS} steps: decode_microbatched (2 microbatches) vs "
+        f"decode_step max abs err {err:.3e} ({err / sc4:.2e} of max|logit|), equal bits "
+        f"{torch.equal(out['decode_microbatched'], out['decode_step'])}; a step's wall "
+        f"{wall['decode_step'] * 1e3:.3f} ms straight through, "
+        f"{wall['decode_microbatched'] * 1e3:.3f} ms microbatched (one card, one stream: "
+        f"nothing overlaps)")
+    if not err <= PP_TOL * sc4:
+        failed.append("pipeline: decode_microbatched disagrees with decode_step")
+    del params
+    torch.cuda.empty_cache()
+    # 2 stages x tensor=2 over 4 gloo ranks
+    t0 = time.perf_counter()
+    ranks = launch(pp_rank, 4, forced, backend="gloo", timeout=SEQ_TIMEOUT, threads=None)
+    log(f"pipeline 2 stages x tensor=2: 4 gloo ranks on one card in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and draws included)")
+    for r, got in enumerate(ranks):
+        label = f"pipeline 2 stages x tensor=2, rank {r} (stage {got['stage']}, {got['holds']})"
+        held(label, got["rows"])
+        wall = sum(got["walls"])
+        log(f"{label}: prefill / decode wall {got['walls'][0]:.3f} / {got['walls'][1]:.3f} "
+            f"s; collectives {got['coll'][1]} calls, {got['coll'][0]:.3f} s "
+            f"({100 * got['coll'][0] / wall:.1f}% of the wall; the card synced around "
+            f"each); peak device memory {got['peak'] / 2**30:.2f} GiB (the whole draw "
+            f"before the cut), resident {got['resident'] / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in got['launched'].items() if v} }")
+        if r and not torch.equal(got["rows"], ranks[0]["rows"]):
+            failed.append(f"pipeline 2 x tensor=2: rank {r}'s logits differ from rank 0's")
+        stage_kernels = ("K10", "K5r-packed", "K3", "K5-packed") + (
+            ("K6-packed", "K2-packed") if got["stage"] == 1 else ())
+        missing = [k for k in stage_kernels if got["launched"][k] == 0]
+        if missing:
+            failed.append(f"pipeline 2 x tensor=2, rank {r}: never launched {missing}")
+    runs["pipeline 2 stages x tensor=2"] = ranks[-1]["launched"]
+    # 3 stages over an int8 cache on a tiny 3-layer checkpoint
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    ck = os.path.join(root, "chip_smoke_q3_k_3_layers")
+    write_tiny_checkpoint(ck, np.random.default_rng(SEED + 71), n_layers=3)
+    eng = Engine(ck, device="cuda", seed=SEED, kv_cache_dtype="int8")
+    toks = [int(v) for v in np.random.default_rng(SEED + 73).integers(3, 512,
+                                                                       PP_INT8_TOKENS)]
+    cache = eng.new_cache()
+    want8 = torch.stack([eng.step(cache, t, pos)[0].float() for pos, t in enumerate(toks)])
+    pp = Pipeline(eng.cfg, eng.params, n_stages=3, batch=1)
+    got8, launched = drive(
+        counts, ("K3-int8", "K5-packed", "K2-packed"), "pipeline 3 stages int8",
+        lambda: torch.stack([pp.decode_step(torch.tensor([[t]], device="cuda"), pos)[0].float()
+                             for pos, t in enumerate(toks)]))
+    runs["pipeline 3 stages int8"] = launched
+    worst, scale8 = float((got8 - want8).abs().max()), float(want8.abs().max())
+    log(f"pipeline 3 stages, int8 cache, tiny 3-layer packed Q3_K ({eng.cfg.kv_window}-slot "
+        f"window, {PP_INT8_TOKENS} steps): stages {[(s.lo, s.hi) for s in pp.stages]}, "
+        f"logits vs the Engine max abs err {worst:.3e} ({worst / scale8:.2e} of "
+        f"max|logit|)")
+    if not (bool(torch.isfinite(got8).all()) and worst <= PP_TOL * scale8):
+        failed.append("pipeline 3 stages int8: logits disagree with the Engine's")
+    del eng, pp, cache
+    torch.cuda.empty_cache()
+    log(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    if failed:
+        raise RuntimeError("pipeline: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the CLI as a user runs it, and single-sequence speculation
 # ---------------------------------------------------------------------------
 
@@ -3703,17 +4231,18 @@ def texts_of(eng, prompt, run):
     return out, "".join(pieces)
 
 
-def same_or_near_tie(ref_logits, want, got, label):
+def same_or_near_tie(ref_logits, want, got, label, rel=1e-3):
     """Greedy tokens of another route (speculation, another process) against
     the plain route's: equal, or first apart at a near tie (the two tokens'
-    logits within 1e-3 of the logit scale in the plain route's teacher-forced
-    logits ``ref_logits[i]``, row i choosing token i), which two summation
-    orders may break either way. Returns how many tokens agree."""
+    logits within ``rel`` of the logit scale in the plain route's
+    teacher-forced logits ``ref_logits[i]``, row i choosing token i), which
+    two summation orders may break either way. Returns how many tokens
+    agree."""
     n = min(len(want), len(got))
     for i in range(n):
         if want[i] != got[i]:
             lg = ref_logits[i]
-            tol = 1e-3 * float(np.abs(lg).max())
+            tol = rel * float(np.abs(lg).max())
             gap = float(lg[want[i]] - lg[got[i]])
             if gap > tol:
                 raise RuntimeError(f"{label}: token {i} is {got[i]}, plain greedy says "
@@ -4439,6 +4968,9 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     qc = torch.randn((4, T, H, R), generator=gen, device="cuda") * 0.3
     qr = torch.randn((4, T, H, P), generator=gen, device="cuda") * 0.3
     seen = sum(s + T for s in starts)
+    vmask = (torch.arange(S, device="cuda")[None, None]
+             <= st[:, None, None] + torch.arange(T, device="cuda")[None, :, None])
+    q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
     e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (4 verify chunks of {T} "
                   f"rows) S={S} H={H}",
                   lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale,
@@ -4448,7 +4980,8 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
                   2.0 * T * H * seen * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
                   "deepseek_tpu/models/deepseek.py:1024-1035 (verify mode; the JAX package "
                   "runs it in XLA, attention.py:213; K10: attention.py:644, pallas_call :707)",
-                  "K10-rows")
+                  "K10-rows", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q_v, k_s, v_s, attn_mask=vmask[:, None], scale=scale))
     e["scalar_ms"] = time_ms(lambda: mla_prefill_attn(qc, qr, ckv, kr, max(starts), 0, scale))
     log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
     del ckv, kr
@@ -4864,6 +5397,13 @@ def main() -> int:
         "on the card):")
     mesh_kernel_entries(entries)
     session_phase(counts, runs)
+    # the data axis: continuous batching over data meshes (ranks share the
+    # card; the parent holds no model), then the kernels at a data shard's
+    # shapes; then pipeline stages
+    data_serving_phase(counts, runs)
+    log("kernels at a data shard's shapes (each against its plain version on the card):")
+    data_kernel_entries(entries)
+    pipeline_phase(counts, runs)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",

@@ -38,6 +38,7 @@ from deepseek_tpu_torch.models.loader import (
     fuse_projections, load_params, params_active_bytes, params_bits_per_weight,
 )
 from deepseek_tpu_torch.ops import prng
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX
 from deepseek_tpu_torch.sampler import Sampler, nucleus_probs
 from deepseek_tpu_torch.tokenizer import Tokenizer
 from deepseek_tpu_torch.utils.codec import _DTYPE_TO_NP, load_checkpoint, load_shard, save_shard
@@ -121,7 +122,7 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
                   want_last_logits: bool = True,
                   collect_all_logits: bool = False,
                   progress: Optional[Callable[[int, int], None]] = None,
-                  target_tokens: Optional[List[int]] = None):
+                  target_tokens: Optional[List[int]] = None, ctx=NULL_CTX):
     """Feed ``tokens`` at positions pos0.. into the cache of a single
     sequence (``deepseek_tpu/engine.py::Engine.hydrate``): prefill chunks of
     ``prefill_chunk`` while inside the window (each clamped at the window
@@ -131,7 +132,8 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
     ``target_tokens`` (entry i scored against the logits after tokens[i];
     the final entry may be a dummy) collects only those log-probabilities
     (N,), gathered on the device. ``progress(i, N)`` runs after each chunk
-    or step."""
+    or step. ``ctx`` (``parallel.spmd.make_ctx``) runs the forward over this
+    rank's slices of a mesh (the serving scheduler's admissions)."""
     window = cfg.kv_window
     C = max(1, int(prefill_chunk))
     device = cache.device
@@ -161,7 +163,7 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
                 "last" if need_last else "none")
             tok = torch.tensor([chunk], dtype=torch.int64, device=device)
             with profile_scope("hydrate.prefill"):
-                out = forward_prefill(params, cache, tok, pos, cfg, mode)
+                out = forward_prefill(params, cache, tok, pos, cfg, mode, ctx)
             if mode == "all":
                 if collect:
                     collect_rows(out[0], i, r)
@@ -172,7 +174,7 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
             i += r
         else:
             tok = torch.tensor([[int(tokens[i])]], dtype=torch.int64, device=device)
-            logits = forward_decode(params, cache, tok, pos, cfg)
+            logits = forward_decode(params, cache, tok, pos, cfg, ctx)
             if collect:
                 collect_rows(logits, i, 1)
             if i + 1 == N and want_last_logits:

@@ -88,6 +88,13 @@ The port of ``deepseek_tpu/models/deepseek.py::_forward_impl``:
   (``gather_logits``). EP prefill past its capacity raises
   ``EPCapacityOverflow``. Every rank returns the same logits.
 
+- Over the data axis the weights are replicated and ``forward_decode`` /
+  ``forward_prefill`` run this rank's rows of the batch over its rows of
+  the cache (``parallel/sharding.py::shard_cache``); only the EP overflow
+  count is summed over the data line, so every data shard raises
+  together. ``make_decode_loop(mesh=)`` takes the whole batch and gathers
+  the rows' results over the data line.
+
 On CPU tensors every kernel runs its plain version.
 """
 
@@ -618,14 +625,27 @@ def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg,
 
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
                     kv_len, kv_sink, cfg: ModelConfig,
-                    ctx: SpmdCtx = NULL_CTX, live: LiveRows = None) -> torch.Tensor:
-    """The transformer layers, unrolled, over x (B,1,dim)."""
-    attend = _attention if cfg.use_mla else _attention_mha
+                    ctx: SpmdCtx = NULL_CTX, live: LiveRows = None,
+                    prefill: bool = False, ovf=None) -> torch.Tensor:
+    """The transformer layers, unrolled, over x (B,T,dim): decode (T == 1)
+    at ``decode_positions``' (pos, kv_pos, kv_len, kv_sink), or with
+    ``prefill`` a chunk at ``pos`` (an int, or verify mode's RowStarts;
+    the other positions None), appending the EP capacity overflow counts
+    to ``ovf`` where one is given. Layer l reads cache layer l and
+    ``cfg.is_moe_layer(l)``: a pipeline stage passes its own layers, cache
+    and stage-local config."""
+    if prefill:
+        attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
+    else:
+        attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
+        if prefill:
+            x = x + attend(lp, cfg, xb, cache, layer, pos, ctx)
+        else:
+            x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer, live=live, ctx=ctx)
+        x = x + _ffn(lp, cfg, xb, layer, prefill=prefill, live=live, ctx=ctx, ovf=ovf)
     return x
 
 
@@ -730,21 +750,19 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
         sidx, t_loc = ctx.cp_rows(T)
         tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
-    attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
     # EP prefill past its capacity drops pairs (deepseek.py:1334-1365)
     ovf = [] if ctx.ep > 1 and ctx.ep_capacity_factor > 0 else None
-    for layer, lp in enumerate(params.layers):
-        xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        x = x + attend(lp, cfg, xb, cache, layer, pos0, ctx)
-        xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer, prefill=True, ctx=ctx, ovf=ovf)
+    x = run_layer_stack(params.layers, cache, x, pos0, None, None, None, cfg, ctx,
+                        prefill=True, ovf=ovf)
     logits = None if logits_mode == "none" else final_logits(
         params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
     if ovf:
-        # summed over the expert line and, under CP (each shard counted its
-        # own rows' pairs), the seq line: one host read a chunk
+        # summed over the expert line, under CP (each shard counted its own
+        # rows' pairs) the seq line, and the data line, so that every data
+        # shard raises together (deepseek.py:1066-1072): one host read a
+        # chunk
         total = ctx.psum_e(torch.stack(ovf).sum())
-        n = int(ctx.psum_s(total) if ctx.cp else total)
+        n = int(ctx.psum_d(ctx.psum_s(total) if ctx.cp else total))
         if n > 0:
             raise EPCapacityOverflow(
                 f"{n} token-expert pairs overflowed the EP prefill capacity "
@@ -801,12 +819,18 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     exactly the live rows' pairs whatever the bucket, which only bounds
     the live count.
 
-    With ``mesh`` (``parallel.mesh.make_mesh(expert=e, tensor=t, seq=s)``,
-    called on every rank) each rank runs the block over its parameters'
-    and cache's slices (``parallel.sharding.shard_params``,
+    With ``mesh`` (``parallel.mesh.make_mesh(data=d, expert=e, tensor=t,
+    seq=s)``, called on every rank) each rank runs the block over its
+    parameters' and cache's slices (``parallel.sharding.shard_params``,
     ``shard_cache``) with the same key: the summed and merged logits, and
-    so the sampled tokens, are the same bits on every rank. The hidden
-    state is single-device, as in the JAX package."""
+    so the sampled tokens, are the same bits on every rank of a data
+    shard. Over a data axis the caller passes the whole batch's ``tok``,
+    positions, sampling rows and ``active`` (host values) beside this
+    rank's rows of the cache; each rank runs its rows with the key folded
+    with its data index (``deepseek.py:1415-1418``) and the results are
+    gathered over the data line, so every rank returns the whole batch's
+    tokens, last logits and log-probs (the JAX ``out_specs=P("data")``).
+    The hidden state is single-device, as in the JAX package."""
     from deepseek_tpu_torch.ops import prng
     from deepseek_tpu_torch.ops.sampling import SamplingRows, sample_rows
 
@@ -819,6 +843,26 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     @torch.inference_mode()
     def loop(params, cache, tok, pos0, key, temperature, top_p, active=None,
              top_k=0, min_p=0.0):
+        if ctx.dp > 1:
+            B = tok.shape[0]
+            if B != cache.batch * ctx.dp:
+                raise ValueError(f"a data axis of {ctx.dp} takes the whole batch's "
+                                 f"{cache.batch * ctx.dp} rows beside this rank's "
+                                 f"{cache.batch} cache rows, not {B}")
+            rows = ctx.data_rows(B)
+
+            def cut(v):
+                """This rank's rows of a per-row value; a scalar as it is."""
+                if isinstance(v, LiveRows):
+                    v = v.mask
+                if isinstance(v, torch.Tensor):
+                    return v.reshape(-1)[rows] if v.dim() else v
+                return v if v is None or np.ndim(v) == 0 else np.asarray(v).reshape(-1)[rows]
+
+            tok = tok[rows]
+            pos0, temperature, top_p, active, top_k, min_p = map(
+                cut, (pos0, temperature, top_p, active, top_k, min_p))
+            key = prng.fold_in(key, ctx.didx)
         B, dev = tok.shape[0], tok.device
         live = LiveRows.of(active, dev)
         if live is not None and active_bucket is not None and live.count > active_bucket:
@@ -852,9 +896,9 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
                 lps.append(lsm.gather(1, nxt[:, None])[:, 0])
             tokens.append(nxt)
             tok = nxt[:, None]
-        res = (torch.stack(tokens, 1), logits.float())
+        res = (ctx.gather_d(torch.stack(tokens, 1)), ctx.gather_d(logits.float()))
         if with_logprobs:
-            res += (torch.stack(lps, 1),)
+            res += (ctx.gather_d(torch.stack(lps, 1)),)
         if with_hidden:
             res += (torch.cat(hid, 1).float(),)
         return res + (cache,)

@@ -10,6 +10,8 @@ package's tokens at the same seed:
   without 64-bit mode;
 - ``split(key, num)``: ``jax/_src/prng.py::_threefry_split_foldlike``, the
   hash of the counters (0, i), i < num;
+- ``fold_in(key, data)``: ``_threefry_fold_in``, the hash of the counter
+  ``threefry_seed(data)`` = (0, data) for a 32-bit ``data``;
 - ``random_bits(key, shape)``: ``_threefry_random_bits_partitionable`` at
   32 bits, ``bits1 ^ bits2`` over the counters (0, i), i the flat index;
 - ``uniform(key, shape, minval)`` on [minval, 1): the mantissa trick of
@@ -61,6 +63,15 @@ def split(key: np.ndarray, num: int = 2):
     subkey))."""
     k1, k2 = int(key[0]), int(key[1])
     return tuple(np.array(threefry2x32(k1, k2, 0, i), np.uint32) for i in range(num))
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for 0 <= data < 2^32 (a mesh
+    index): the hash of the counter (0, data)."""
+    data = int(data)
+    if not 0 <= data <= _M32:
+        raise ValueError(f"fold_in data {data} is not a 32-bit unsigned value")
+    return np.array(threefry2x32(int(key[0]), int(key[1]), 0, data), np.uint32)
 
 
 def random_bits(keys, shape, device="cpu") -> torch.Tensor:

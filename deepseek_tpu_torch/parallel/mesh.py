@@ -5,8 +5,11 @@ One process per shard. ``init_distributed`` joins the process group,
 ``make_mesh`` lays the four logical axes of the JAX package (data, expert,
 tensor, seq) over its ranks as the JAX grid does: rank r sits at
 ``np.arange(n).reshape(data, expert, tensor, seq)``'s coordinates of r
-(row-major, ``mesh.py:83``). Three axes are ported:
+(row-major, ``mesh.py:83``). The axes:
 
+- ``data`` (DP) shards the batch: each rank runs its rows of the batch
+  and of the KV cache, with the weights replicated; the decode block and
+  the batched speculation gather the rows' results over the data line;
 - ``expert`` (EP) shards the routed-expert tables; each rank computes the
   token-expert pairs it owns and one all-reduce over the expert line sums
   the mixtures (``parallel/spmd.py``);
@@ -16,12 +19,13 @@ tensor, seq) over its ranks as the JAX grid does: rank r sits at
 - ``seq`` shards the KV cache along the window (sequence-parallel decode,
   context-parallel prefill).
 
-The ``data`` axis is not ported and raises. Every rank builds one
-``torch.distributed`` subgroup per line of each axis larger than 1, in the
-same order (``new_group`` is collective), and keeps the lines it sits on.
-The ranks of one mesh may share a card: NCCL takes one rank per device,
-so ranks that share one use the ``gloo`` backend, which also runs the CPU
-tests. The backend is the caller's choice.
+Every rank builds one ``torch.distributed`` subgroup per line of each axis
+larger than 1, in the same order (``new_group`` is collective), and keeps
+the lines it sits on. ``make_mesh(stages=s)`` lays s such meshes side by
+side over s times the ranks, one a pipeline stage (``parallel/
+pipeline.py``). The ranks of one mesh may share a card: NCCL takes one
+rank per device, so ranks that share one use the ``gloo`` backend, which
+also runs the CPU tests. The backend is the caller's choice.
 """
 
 from __future__ import annotations
@@ -71,50 +75,50 @@ class Mesh:
     expert_group: Any = None
     tensor_group: Any = None
     seq_group: Any = None
+    data_index: int = 0
+    data_group: Any = None
 
     @property
     def size(self) -> int:
         return self.data * self.expert * self.tensor * self.seq
 
 
-def _unported_data_axis(data: int) -> None:
-    if data != 1:
-        raise NotImplementedError(
-            f"mesh axis data={data}: the data axis is not ported (ROADMAP.md "
-            "queue 1, item 14 (data axis)); the expert, tensor and seq axes are")
-
-
-def make_mesh(data: int = 1, expert: int = 1, tensor: int = 1, seq: int = 1) -> Mesh:
+def make_mesh(data: int = 1, expert: int = 1, tensor: int = 1, seq: int = 1, *,
+              stages: int = 1) -> Mesh:
     """A DP x EP x TP x SP mesh over the default group, which must have
-    data * expert * tensor * seq ranks; call it on every rank. The data
-    axis raises (not ported)."""
+    data * expert * tensor * seq ranks; call it on every rank. With
+    ``stages`` the group holds ``stages`` meshes of that shape side by
+    side, stage s on ranks [s * n, (s + 1) * n), and each rank gets its
+    stage's mesh (the subgroups of every stage are made on every rank)."""
     sizes = (data, expert, tensor, seq)
-    if any(n < 1 for n in sizes):
-        raise ValueError(f"mesh axes {dict(zip(AXES, sizes))} must be >= 1")
-    _unported_data_axis(data)
+    if any(n < 1 for n in sizes) or stages < 1:
+        raise ValueError(f"mesh axes {dict(zip(AXES, sizes))} and stages {stages} "
+                         "must be >= 1")
     n = int(np.prod(sizes))
-    if n == 1:
+    if n * stages == 1:
         return Mesh()
     if not dist.is_initialized():
-        raise RuntimeError(f"make_mesh over {n} ranks needs init_distributed first")
+        raise RuntimeError(f"make_mesh over {n * stages} ranks needs init_distributed "
+                           "first")
     world = dist.get_world_size()
-    if world != n:
-        raise ValueError(f"mesh {dict(zip(AXES, sizes))} needs {n} ranks, the "
-                         f"process group has {world}")
+    if world != n * stages:
+        raise ValueError(f"mesh {dict(zip(AXES, sizes))} x {stages} stages needs "
+                         f"{n * stages} ranks, the process group has {world}")
     rank = dist.get_rank()
-    grid = np.arange(n).reshape(sizes)
-    coords = [int(c) for c in np.unravel_index(rank, sizes)]
+    grid = np.arange(n * stages).reshape((stages,) + sizes)
+    coords = [int(c) for c in np.unravel_index(rank % n, sizes)]
     groups = {}
-    for ax in (1, 2, 3):
+    for ax in range(4):
         if sizes[ax] == 1:
             continue
-        for line in np.moveaxis(grid, ax, -1).reshape(-1, sizes[ax]):
+        for line in np.moveaxis(grid, ax + 1, -1).reshape(-1, sizes[ax]):
             group = dist.new_group(line.tolist(), timeout=_TIMEOUT)
             if rank in line:
                 groups[AXES[ax]] = group
     return Mesh(data, expert, tensor, seq, seq_index=coords[3], expert_index=coords[1],
                 tensor_index=coords[2], expert_group=groups.get("expert"),
-                tensor_group=groups.get("tensor"), seq_group=groups.get("seq"))
+                tensor_group=groups.get("tensor"), seq_group=groups.get("seq"),
+                data_index=coords[0], data_group=groups.get("data"))
 
 
 def default_mesh_shape(n_devices: int, cfg=None) -> Tuple[int, int, int]:

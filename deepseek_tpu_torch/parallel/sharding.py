@@ -22,7 +22,10 @@ V2-Lite's blockwise-fp8 dense FFN (10944 hidden: 5472 a rank at
 tensor=2, no multiple of 128) runs whole on both ranks. The head groups
 split in every layer or in none, as the MHA cache's heads follow them.
 
-Cache (``shard_cache``): the fields that carry the window (rows and their
+Cache (``shard_cache``): every field's batch (axis 1) is cut to this
+rank's rows over ``data`` where the batch divides the axis (the JAX
+``_fit``: a one-row admission cache stays whole on every data rank); the
+fields that carry the window (rows and their
 int8 scales) are sliced to this rank's ``window / seq`` slots; the MHA
 fields (k, v, k_s, v_s and the sink masters sink_k) to this rank's heads
 where the heads split; the latent MLA cache stays whole on every tensor
@@ -121,7 +124,9 @@ def shard_params(params: ModelParams, cfg: ModelConfig, mesh) -> ModelParams:
 
 def shard_cache(cache: KVCache, cfg: ModelConfig, mesh,
                 params: Optional[ModelParams] = None) -> KVCache:
-    """This rank's slice of ``cache`` (as ``init_cache`` builds it): slots
+    """This rank's slice of ``cache`` (as ``init_cache`` builds it): rows
+    [data_index * B/data, (data_index + 1) * B/data) of every field where
+    the data axis divides the batch B (else every row), slots
     [seq_index * S/seq, (seq_index + 1) * S/seq) of every window field, the
     sink masters whole along the window; an MHA cache that holds every
     head cut to this rank's heads as the head projections are (``params``:
@@ -134,12 +139,16 @@ def shard_cache(cache: KVCache, cfg: ModelConfig, mesh,
              and (params is None
                   or params.layers[0].wo.shape[-1] < cfg.n_heads * cfg.v_head_dim))
     h = cfg.n_heads // mesh.tensor
-    if mesh.seq <= 1 and not heads:
+    rows = mesh.data > 1 and cache.batch % mesh.data == 0
+    b = cache.batch // mesh.data
+    if mesh.seq <= 1 and not heads and not rows:
         return cache
     out = {}
     for f in dataclasses.fields(cache):
         t = getattr(cache, f.name)
         if t is not None:
+            if rows:
+                t = t[:, mesh.data_index * b:(mesh.data_index + 1) * b]
             if mesh.seq > 1 and f.name in WINDOW_FIELDS:
                 t = t[:, :, lo:lo + s]
             if heads and f.name in HEAD_FIELDS:

@@ -13,6 +13,12 @@ so dispatch is local: each rank keeps the token-expert pairs it owns
 (``ep_ownership``; non-owned pairs keep their place with weight 0) and
 ``psum_e`` sums the shards' mixtures.
 
+Data axis (``dp``): the weights are replicated and each rank runs its
+rows of the batch (``data_rows``) over its rows of the cache; nothing in a
+forward crosses the data line but the EP prefill overflow count
+(``psum_d``), and the decode block and the batched speculation gather
+their rows' results into the whole batch on every rank (``gather_d``).
+
 Seq axis (``sp``): every rank holds one slice of the KV window
 (``parallel/sharding.py``) and attention over the window is split into
 per-shard partials (acc, m, l) that merge exactly:
@@ -67,11 +73,12 @@ def ep_ownership(flat_idx: torch.Tensor, flat_w: torch.Tensor, ctx: "SpmdCtx",
 class SpmdCtx:
     tp: int = 1              # tensor axis: shards of the heads and hidden width
     ep: int = 1              # expert axis: shards of the routed-expert tables
-    dp: int = 1              # data axis (not ported: 1)
+    dp: int = 1              # data axis: shards of the batch
     sp: int = 1              # seq axis: shards of the KV window
     sidx: int = 0            # this rank's index along seq
     tidx: int = 0            # ... along tensor
     eidx: int = 0            # ... along expert
+    didx: int = 0            # ... along data
     lm_head_tp: bool = False  # the lm_head's vocab may shard (vocab % tp == 0)
     # EP prefill capacity factor (ops/matmul.py::ep_prefill_capacity); 0 =
     # exact. Only read when ep > 1.
@@ -83,6 +90,7 @@ class SpmdCtx:
     tgroup: Any = None
     egroup: Any = None
     sgroup: Any = None
+    dgroup: Any = None
 
     def _all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM,
                     group=None) -> torch.Tensor:
@@ -100,6 +108,30 @@ class SpmdCtx:
         full = torch.zeros(shape, dtype=x.dtype, device=x.device)
         full.narrow(dim, idx * t, t).copy_(x)
         return self._all_reduce(full, group=group)
+
+    # -- data axis -----------------------------------------------------------
+
+    def psum_d(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the data line (global scalar statistics: the EP prefill
+        overflow count)."""
+        return self._all_reduce(x, group=self.dgroup) if self.dp > 1 else x
+
+    def data_rows(self, B: int) -> slice:
+        """This rank's rows of a B-row batch cut over the data line."""
+        if self.dp <= 1:
+            return slice(0, B)
+        if B % self.dp:
+            raise ValueError(f"a batch of {B} rows does not divide the data axis "
+                             f"({self.dp})")
+        b = B // self.dp
+        return slice(self.didx * b, (self.didx + 1) * b)
+
+    def gather_d(self, x: Optional[torch.Tensor], dim: int = 0):
+        """This rank's rows of ``dim`` -> the whole batch's on every rank of
+        the data line, in rank order; None passes through."""
+        if x is None or self.dp <= 1:
+            return x
+        return self._gather(x, dim, self.dp, self.didx, self.dgroup)
 
     # -- tensor and expert axes ------------------------------------------
 
@@ -223,12 +255,8 @@ def _check(cond: bool, what: str) -> None:
 
 def make_ctx(cfg: ModelConfig, mesh) -> SpmdCtx:
     """Validate the mesh against the config (``spmd.py::make_ctx``'s
-    divisibility checks and messages) and build the body's context. A
-    data axis above 1 raises (not ported)."""
-    from deepseek_tpu_torch.parallel.mesh import _unported_data_axis
-
-    _unported_data_axis(mesh.data)
-    tp, ep, sp = mesh.tensor, mesh.expert, mesh.seq
+    divisibility checks and messages) and build the body's context."""
+    tp, ep, sp, dp = mesh.tensor, mesh.expert, mesh.seq, mesh.data
     if sp > 1:
         _check(cfg.kv_window % sp == 0, f"kv_window {cfg.kv_window} % seq {sp} == 0")
     if tp > 1:
@@ -240,9 +268,9 @@ def make_ctx(cfg: ModelConfig, mesh) -> SpmdCtx:
     if ep > 1:
         _check(cfg.n_routed_experts % ep == 0,
                f"n_routed_experts {cfg.n_routed_experts} % expert {ep} == 0")
-    return SpmdCtx(tp=tp, ep=ep, sp=sp, sidx=mesh.seq_index, tidx=mesh.tensor_index,
-                   eidx=mesh.expert_index,
+    return SpmdCtx(tp=tp, ep=ep, dp=dp, sp=sp, sidx=mesh.seq_index,
+                   tidx=mesh.tensor_index, eidx=mesh.expert_index, didx=mesh.data_index,
                    lm_head_tp=tp > 1 and cfg.vocab_size % tp == 0,
                    ep_capacity_factor=cfg.ep_capacity_factor,
                    tgroup=mesh.tensor_group, egroup=mesh.expert_group,
-                   sgroup=mesh.seq_group)
+                   sgroup=mesh.seq_group, dgroup=mesh.data_group)

@@ -29,7 +29,16 @@ counted before the emission and a finished slot adds no more accepted
 drafts); and after plain-decode backoff its MTP drafter cache is stale
 (``serving.py:697``; here every plain block re-feeds its (token, hidden)
 pairs into the drafter cache, so a probe drafts over fresh context).
-Serving over a device mesh is ROADMAP.md queue 1, item 14.
+
+Over a device mesh (``mesh=``, ``parallel/``) the scheduler runs on every
+rank, SPMD, where the JAX scheduler is one controller: each rank holds its
+slices of the weights and of the batch's cache (its data shard's rows),
+gets the same requests, and takes the same host decisions, because the
+decode block and the speculation rounds hand every rank the whole batch's
+tokens (gathered over the data line) and nothing decides on a clock. An
+admission hydrates its one-row cache on every data shard alike (a row
+cannot split over data; the tensor, expert and seq axes cut it as the
+batch's) and the rank that owns the slot merges it.
 """
 
 from __future__ import annotations
@@ -42,9 +51,10 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from deepseek_tpu_torch.engine import Engine
+from deepseek_tpu_torch.engine import Engine, hydrate_cache
 from deepseek_tpu_torch.models.kvcache import KVCache
 from deepseek_tpu_torch.ops import prng
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX, make_ctx
 
 # KVCache fields that are no ring: the int8 sink keys' float masters
 _MASTERS = ("sink_krope", "sink_k")
@@ -54,6 +64,12 @@ def _fields(cache: KVCache):
     """(name, tensor) of every tensor field of the cache."""
     return [(f.name, getattr(cache, f.name)) for f in dataclasses.fields(cache)
             if getattr(cache, f.name) is not None]
+
+
+def merge_row(cache: KVCache, sub: KVCache, row: int) -> None:
+    """Copy a 1-row cache into batch row ``row`` of ``cache``, in place."""
+    for (_, full), (_, part) in zip(_fields(cache), _fields(sub)):
+        full[:, row].copy_(part[:, 0])
 
 
 @dataclasses.dataclass
@@ -83,28 +99,49 @@ class PrefixCache:
     only, the sink masters.
     """
 
-    def __init__(self, block_tokens: int = 64, budget_mb: float = 64.0):
+    def __init__(self, block_tokens: int = 64, budget_mb: float = 64.0,
+                 base: int = 0, window: int = 0):
+        """``base`` and ``window``: under a seq axis the position of this
+        rank's first ring slot and the whole window (0: the cache's own),
+        so that a block keeps this rank's part of its slots; its bytes are
+        counted as the whole block's on every rank, so every rank evicts
+        alike."""
         if block_tokens < 1:
             raise ValueError("block_tokens must be >= 1")
         self.block = block_tokens
         self.budget = int(budget_mb * 1e6)
+        self.base, self.window = base, window
         self._store: Dict[bytes, list] = {}  # key -> [frag, nbytes]; insertion order = LRU
         self._bytes = 0
         self.hits = 0                # admissions that reused >= 1 block
         self.misses = 0              # admissions with no reusable prefix
         self.tokens_reused = 0       # prompt tokens not prefilled again
 
+    def _span(self, cache: KVCache, off: int) -> slice:
+        """This rank's slots of the block at global slot ``off``."""
+        lo, hi = off - self.base, off + self.block - self.base
+        return slice(min(max(lo, 0), cache.window), min(max(hi, 0), cache.window))
+
     def _slice(self, cache: KVCache, off: int) -> Dict[str, torch.Tensor]:
-        Q = self.block
-        return {n: (t.clone() if n in _MASTERS else t[:, :, off:off + Q].clone())
+        span = self._span(cache, off)
+        return {n: (t.clone() if n in _MASTERS else t[:, :, span].clone())
                 for n, t in _fields(cache)}
 
     def _write(self, cache: KVCache, frag: Dict[str, torch.Tensor], off: int) -> None:
+        span = self._span(cache, off)
         for n, t in _fields(cache):
             if n not in _MASTERS:
-                t[:, :, off:off + self.block].copy_(frag[n])
+                t[:, :, span].copy_(frag[n])
             elif off == 0:           # the same in every block of a chain
                 t.copy_(frag[n])
+
+    def _block_bytes(self, cache: KVCache) -> int:
+        """A block's bytes on one device, whatever part this rank holds."""
+        total = 0
+        for n, t in _fields(cache):
+            nb = t.numel() * t.element_size()
+            total += nb if n in _MASTERS else nb // cache.window * self.block
+        return total
 
     def match(self, tokens: List[int]):
         """Longest stored block chain that is a proper prefix of ``tokens``
@@ -140,7 +177,7 @@ class PrefixCache:
         """Store every complete block of a fully hydrated prompt; skipped for
         prompts past the window (their hydration wrapped the ring and
         re-rotated the sinks)."""
-        if len(tokens) > cache.window:
+        if len(tokens) > (self.window or cache.window):
             return
         arr = np.asarray(tokens, np.int32)
         n_blocks = (len(tokens) - 1) // self.block
@@ -150,8 +187,7 @@ class PrefixCache:
             key = arr[:(j + 1) * self.block].tobytes()
             e = self._store.pop(key, None)
             if e is None:
-                frag = self._slice(cache, j * self.block)
-                e = [frag, sum(t.numel() * t.element_size() for t in frag.values())]
+                e = [self._slice(cache, j * self.block), self._block_bytes(cache)]
                 self._bytes += e[1]
             self._store[key] = e
         while self._bytes > self.budget and self._store:
@@ -161,7 +197,7 @@ class PrefixCache:
     def warmup(self, sample_cache: KVCache) -> None:
         """Run a slice and a restore once against a throwaway copy of
         ``sample_cache`` (left untouched); nothing is compiled."""
-        if self.block > sample_cache.window:
+        if self.block > (self.window or sample_cache.window):
             return
         frag = self._slice(sample_cache, 0)
         blank = KVCache(**{n: torch.zeros_like(t) for n, t in _fields(sample_cache)})
@@ -220,15 +256,24 @@ class BatchScheduler:
         dispatches the scheduler backs off to plain blocks with exponential
         re-probing. ``idle_block``: with nothing queued, decode blocks of
         that many steps where every live slot has that many tokens left and
-        room in the window (0: off). ``mesh`` is ROADMAP.md queue 1, item 14."""
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is ROADMAP.md queue 1, "
-                                      "item 14 (serving and speculation over a mesh)")
+        room in the window (0: off).
+
+        ``mesh`` (``parallel.mesh.make_mesh``, the scheduler made on every
+        rank alike): the weights cut by ``shard_params``, the batch's cache
+        by ``shard_cache`` (the batch over ``data``, which it must divide),
+        the decode blocks and n-gram rounds over the mesh; a seq axis takes
+        no speculation, and MTP serving is single-chip, as in the JAX
+        package. Admissions hydrate exactly (no EP prefill capacity), as the
+        JAX scheduler's single-device hydrate does."""
         self.engine = engine
         self.batch = batch_size
+        cfg = engine.cfg
         # a block larger than the window could never be stored
-        prefix_block = min(prefix_block, max(1, engine.cfg.kv_window // 2))
-        self.prefix_cache = (PrefixCache(prefix_block, prefix_cache_mb)
+        prefix_block = min(prefix_block, max(1, cfg.kv_window // 2))
+        self.ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
+        self.prefix_cache = (PrefixCache(prefix_block, prefix_cache_mb,
+                                         base=self.ctx.sidx * cfg.kv_window // self.ctx.sp,
+                                         window=cfg.kv_window)
                              if prefix_cache_mb > 0 else None)
         # tokens decoded a block for the whole batch (up to block-1 positions
         # are wasted after a sequence stops)
@@ -237,9 +282,16 @@ class BatchScheduler:
         self.logprobs = bool(logprobs)
         if spec is not None and spec not in ("ngram", "mtp"):
             raise ValueError(f"unknown spec mode {spec!r}")
-        if spec == "mtp" and engine.params.mtp is None:
-            raise ValueError("spec='mtp' needs a checkpoint with an MTP module "
-                             "(convert --mtp)")
+        if spec == "ngram" and mesh is not None and mesh.seq > 1:
+            raise ValueError("spec serving composes with data/tensor/expert meshes; "
+                             "verify mode excludes 'seq'")
+        if spec == "mtp":
+            if engine.params.mtp is None:
+                raise ValueError("spec='mtp' needs a checkpoint with an MTP module "
+                                 "(convert --mtp)")
+            if mesh is not None:
+                raise ValueError("spec='mtp' serving is single-chip (the MTP drafter "
+                                 "runs with NULL_CTX)")
         self.spec = spec
         self.spec_k = spec_k
         self.spec_rounds = spec_rounds
@@ -254,15 +306,26 @@ class BatchScheduler:
         self._spec_alpha_floor = 0.15   # floor)
         self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0,
                            "dispatches": 0, "plain_fallbacks": 0}
-        self.cache = engine.new_cache(batch=batch_size)
+        self.mesh = mesh
         self._cm = None                 # batched MTP drafter cache
         self._h = None                  # (B,1,dim) f32 last hidden a slot
         if spec == "mtp":
             from deepseek_tpu_torch.models.mtp import init_mtp_cache
-            self._cm = init_mtp_cache(engine.cfg, batch=batch_size, device=engine.device)
-            self._h = torch.zeros((batch_size, 1, engine.cfg.dim), dtype=torch.float32,
+            self._cm = init_mtp_cache(cfg, batch=batch_size, device=engine.device)
+            self._h = torch.zeros((batch_size, 1, cfg.dim), dtype=torch.float32,
                                   device=engine.device)
         self.params = engine.params
+        self._rows = slice(0, batch_size)   # the slots whose cache rows this rank holds
+        if mesh is not None:
+            from deepseek_tpu_torch.parallel.sharding import shard_params
+            if batch_size % mesh.data:
+                raise ValueError(f"batch {batch_size} does not split over the data axis "
+                                 f"({mesh.data})")
+            self._rows = self.ctx.data_rows(batch_size)
+            self.params = shard_params(engine.params, cfg, mesh)
+        # admissions hydrate exactly: the JAX scheduler's hydrate runs unsharded
+        self._hctx = dataclasses.replace(self.ctx, ep_capacity_factor=0.0)
+        self.cache = self._new_cache(batch_size)
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.pos = np.zeros(batch_size, np.int64)      # next decode position
         self.cur = np.zeros(batch_size, np.int64)      # token to feed next
@@ -273,6 +336,22 @@ class BatchScheduler:
         # decode blocks per block length (the live mask cuts the pair list,
         # so no occupancy bucket needs a block of its own)
         self._loops: Dict[int, object] = {}
+
+    def _new_cache(self, batch: int) -> KVCache:
+        """A fresh cache of ``batch`` rows, this rank's slice of it on a
+        mesh (a one-row cache stays whole over data)."""
+        cache = self.engine.new_cache(batch=batch)
+        if self.mesh is None:
+            return cache
+        from deepseek_tpu_torch.parallel.sharding import shard_cache
+        return shard_cache(cache, self.engine.cfg, self.mesh, self.params)
+
+    def _hydrate(self, cache: KVCache, tokens, pos0: int, want_last_logits: bool = True):
+        """``Engine.hydrate`` over this rank's weights."""
+        eng = self.engine
+        return hydrate_cache(self.params, eng.cfg, cache, tokens, pos0,
+                             prefill_chunk=eng.prefill_chunk,
+                             want_last_logits=want_last_logits, ctx=self._hctx)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> int:
@@ -292,7 +371,7 @@ class BatchScheduler:
         if block not in self._loops:
             from deepseek_tpu_torch.models.deepseek import make_decode_loop
             self._loops[block] = make_decode_loop(
-                self.engine.cfg, block, with_logprobs=self.logprobs,
+                self.engine.cfg, block, mesh=self.mesh, with_logprobs=self.logprobs,
                 all_hidden=self.spec == "mtp")
         return self._loops[block]
 
@@ -353,23 +432,22 @@ class BatchScheduler:
         # admission modes on a throwaway 1-row cache: a mid-prompt chunk
         # ("none"), a final chunk ("last"), a short tail ("all")
         C, window = eng.prefill_chunk, eng.cfg.kv_window
-        sub = eng.new_cache(batch=1)
+        sub = self._new_cache(1)
         if 2 * C <= window:
-            sub, _, _, _ = eng.hydrate(sub, [0] * (2 * C), 0)
+            sub, _, _, _ = self._hydrate(sub, [0] * (2 * C), 0)
         if C + 1 <= window:
-            sub, _, _, _ = eng.hydrate(sub, [0] * (C + 1), 0)
+            sub, _, _, _ = self._hydrate(sub, [0] * (C + 1), 0)
         self.cache = self._merge_slot(self.cache, sub, 0)
         if self.prefix_cache is not None:
             self.prefix_cache.warmup(sub)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    @staticmethod
-    def _merge_slot(cache: KVCache, sub: KVCache, slot: int) -> KVCache:
+    def _merge_slot(self, cache: KVCache, sub: KVCache, slot: int) -> KVCache:
         """Copy the hydrated 1-row cache into batch row ``slot`` of the
-        shared cache, in place."""
-        for (_, full), (_, part) in zip(_fields(cache), _fields(sub)):
-            full[:, slot].copy_(part[:, 0])
+        shared cache, in place, where this rank holds that row."""
+        if self._rows.start <= slot < self._rows.stop:
+            merge_row(cache, sub, slot - self._rows.start)
         return cache
 
     def _advance_pending(self) -> None:
@@ -388,8 +466,8 @@ class BatchScheduler:
             # step like a decode block
             r = min(max(1, self.block), len(toks) - p.fed)
         final = p.fed + r == len(toks)
-        p.cache, logits, _, _ = eng.hydrate(
-            p.cache, toks[p.fed:p.fed + r], p.fed, want_last_logits=final)
+        p.cache, logits, _, _ = self._hydrate(p.cache, toks[p.fed:p.fed + r], p.fed,
+                                              want_last_logits=final)
         p.fed += r
         if not final:
             return
@@ -483,7 +561,7 @@ class BatchScheduler:
                 from deepseek_tpu_torch.speculative import make_batched_ngram_spec_rounds
                 self._spec_fn = make_batched_ngram_spec_rounds(
                     eng.cfg, self.spec_k, self.spec_rounds, hist_len=eng.cfg.kv_window,
-                    ngram_max=self.ngram_max, with_logprobs=self.logprobs)
+                    ngram_max=self.ngram_max, with_logprobs=self.logprobs, mesh=self.mesh)
         return self._spec_fn
 
     def _spec_ready(self) -> bool:
@@ -618,7 +696,7 @@ class BatchScheduler:
         if self.pending is None and self.queue:
             free = next((i for i in range(self.batch) if self.slots[i] is None), None)
             if free is not None:
-                p = _Pending(self.queue.popleft(), free, self.engine.new_cache(batch=1))
+                p = _Pending(self.queue.popleft(), free, self._new_cache(1))
                 if self.prefix_cache is not None:
                     reused, frags = self.prefix_cache.match(p.req.prompt_tokens)
                     if reused:

@@ -46,6 +46,7 @@ from deepseek_tpu_torch.config import ModelConfig
 from deepseek_tpu_torch.models.deepseek import forward_decode, forward_prefill
 from deepseek_tpu_torch.ops import prng
 from deepseek_tpu_torch.ops.sampling import nucleus_dist, sample_token
+from deepseek_tpu_torch.parallel.spmd import NULL_CTX, make_ctx
 
 
 def _categorical(key, logp: torch.Tensor) -> torch.Tensor:
@@ -320,12 +321,6 @@ def make_mtp_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
     return fn
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what} over a device mesh is ROADMAP.md queue 1, "
-                                  "item 14 (serving and speculation over a mesh)")
-
-
 def _row_params(temperature, top_p, top_k, min_p, B: int):
     """The per-row sampling parameters as host (B,) float32 arrays."""
     return tuple(np.broadcast_to(np.asarray(v, dtype=np.float32).reshape(-1), (B,))
@@ -370,18 +365,42 @@ def make_batched_ngram_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
     round r the host emits drafts[r,b,:n_acc[r,b]] then next[r,b] and
     advances pos[b] by n_acc[r,b]+1 (live rows). ``with_logprobs`` adds the
     raw log-softmax of each emitted token from the verify chunk's logits:
-    lps[r,b,i] scores the i-th token round r emits. A mesh is not ported."""
-    _no_mesh(mesh, "batched n-gram speculation")
+    lps[r,b,i] scores the i-th token round r emits.
+
+    ``mesh`` (data, tensor and expert axes; a seq axis raises, as verify
+    mode excludes it): every rank passes the whole batch's hist, tok,
+    positions and sampling rows beside its slices of the weights and cache
+    (``shard_params``, ``shard_cache``) and runs its data shard's rows
+    with the key folded with its data index (``speculative.py:249-251``);
+    the per-round results are gathered over the data line, so every rank
+    returns the whole batch's, and hist's rows of this rank's data shard
+    are written in place."""
+    ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
+    if ctx.sp > 1:
+        raise ValueError("spec serving mesh must not shard 'seq'")
     H = hist_len
 
     @torch.inference_mode()
     def fn(params, ct, hist, tok, pos0, key, temperature, top_p, active, top_k,
            min_p):
-        B, dev = tok.shape[0], tok.device
+        B = tok.shape[0]
+        rp = _row_params(temperature, top_p, top_k, min_p, B)
         pos = np.array(pos0, dtype=np.int64).reshape(B)
         act = np.broadcast_to(np.asarray(active, dtype=bool).reshape(-1), (B,))
+        whole = hist
+        if ctx.dp > 1:
+            if B != ct.batch * ctx.dp:
+                raise ValueError(f"a data axis of {ctx.dp} takes the whole batch's "
+                                 f"{ct.batch * ctx.dp} rows beside this rank's "
+                                 f"{ct.batch} cache rows, not {B}")
+            rows = ctx.data_rows(B)
+            hist, tok, pos, act = hist[rows], tok[rows], pos[rows], act[rows]
+            rp = tuple(v[rows] for v in rp)
+            key = prng.fold_in(key, ctx.didx)
+            B = tok.shape[0]
+        dev = tok.device
         act_d = torch.from_numpy(act.copy()).to(dev, non_blocking=True)
-        cols = [v[:, None] for v in _row_params(temperature, top_p, top_k, min_p, B)]
+        cols = [v[:, None] for v in rp]
         off = torch.arange(spec_k, device=dev)[None, :]
         out = []
         for _ in range(rounds):
@@ -392,7 +411,7 @@ def make_batched_ngram_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
             drafts = hist.gather(1, start.clamp(0, H - spec_k) + off)
             drafts = torch.where(start + off < hl, drafts, hist.gather(1, hl - 1))
             chunk = torch.cat([tok, drafts], 1)                          # (B, k+1)
-            lg_all = forward_prefill(params, ct, chunk, pos, cfg, "all")  # verify mode
+            lg_all = forward_prefill(params, ct, chunk, pos, cfg, "all", ctx)  # verify mode
             key, ka = prng.split(key)
             ps = nucleus_dist(lg_all, *cols)                             # (B, k+1, V)
             n_acc, nxt = _accept_pointmass(ps, drafts, spec_k, ka)
@@ -402,8 +421,11 @@ def make_batched_ngram_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
             hist.scatter_(1, at[:, None] + torch.arange(spec_k + 1, device=dev), emitted)
             pos = pos + np.where(act, n_acc.cpu().numpy() + 1, 0)   # the round's host read
             tok = torch.where(act_d[:, None], nxt[:, None], tok)
-            out.append((drafts, n_acc, nxt, matched) + ((lp,) if with_logprobs else ()))
-        return (*_stack_rounds(out), ct, hist)
+            out.append((drafts, n_acc, nxt, matched.long())
+                       + ((lp,) if with_logprobs else ()))
+        res = [ctx.gather_d(x, 1) for x in _stack_rounds(out)]
+        res[3] = res[3].bool()
+        return (*res, ct, whole)
 
     return fn
 
@@ -422,10 +444,12 @@ def make_batched_mtp_spec_rounds(cfg: ModelConfig, spec_k: int, rounds: int,
     host ints, key, temperature, top_p, active, top_k, min_p) -> (drafts
     (R,B,k), n_acc (R,B), next (R,B)[, lps (R,B,k+1)], h_cur (B,1,dim),
     ct, cm)``, both caches written in place; ``lps`` as the n-gram
-    maker's. A mesh is not ported."""
+    maker's. Single-device, as in the JAX package: a mesh raises."""
     from deepseek_tpu_torch.models.mtp import mtp_forward
 
-    _no_mesh(mesh, "batched MTP speculation")
+    if mesh is not None:
+        raise ValueError("spec='mtp' serving is single-chip (the MTP drafter runs "
+                         "with NULL_CTX)")
 
     @torch.inference_mode()
     def fn(params, ct, cm, tok, h_cur, pos0, key, temperature, top_p, active,

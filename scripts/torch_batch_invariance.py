@@ -330,7 +330,7 @@ def main() -> int:
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.testing import (
         deepseek_v3_proportions, random_fused_params)
-    from deepseek_tpu_torch.serving import BatchScheduler
+    from deepseek_tpu_torch.serving import merge_row
 
     torch.backends.cuda.matmul.allow_tf32 = False
     import subprocess
@@ -359,7 +359,7 @@ def main() -> int:
         pos.append(p)
     batch = init_cache(cfg, batch=len(PROMPTS), device="cuda")
     for i, c in enumerate(subs):
-        BatchScheduler._merge_slot(batch, c, i)
+        merge_row(batch, c, i)
     pos = np.array(pos, np.int64)
     toks = torch.tensor([[t] for t in first], device="cuda")
     res["trace"], res["steps"] = {}, {}

@@ -227,16 +227,19 @@ def test_decode_loop_does_not_synchronize(ckpt, monkeypatch):
 
 
 def test_decode_loop_raises_on_unported_options(ckpt):
-    """The seq, tensor and expert mesh axes are ported (tests/
-    test_torch_seq_parallel.py, tests/test_torch_tensor_expert.py), and
+    """Every mesh axis is ported (tests/test_torch_seq_parallel.py,
+    tests/test_torch_tensor_expert.py, tests/test_torch_data_axis.py), and
     per-token logprobs, the hidden state and live-row masks are too
-    (``test_batched_decode_loop_matches_jax``); a mesh with a data axis
-    is not and raises, citing its ROADMAP item. The hidden state over a
-    mesh raises as the JAX loop asserts (single-device), and more live rows
-    than the occupancy bucket raise."""
+    (``test_batched_decode_loop_matches_jax``): a loop over a data axis
+    takes the whole batch beside this rank's cache rows and refuses a data
+    shard's rows alone. The hidden state over a mesh raises as the JAX loop
+    asserts (single-device), and more live rows than the occupancy bucket
+    raise."""
     eng = _port_engine(ckpt)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_decode_loop(eng.cfg, 4, mesh=Mesh(data=2))
+    data_loop = make_decode_loop(eng.cfg, 4, mesh=Mesh(data=2))
+    with pytest.raises(ValueError, match="whole batch"):
+        data_loop(eng.params, torch_cache(eng.cfg, batch=2), torch.tensor([[5], [6]]), 0,
+                  prng.PRNGKey(0), 0.0, 1.0)
     with pytest.raises(ValueError, match="single-device"):
         make_decode_loop(eng.cfg, 4, mesh=Mesh(seq=2), with_hidden=True)
     loop = make_decode_loop(eng.cfg, 4, active_bucket=1)

@@ -539,19 +539,15 @@ def test_decode_loop_seq2_matches_jax(seq2_runs, temperature):
 
 def _rank_mesh(rank, world, axis):
     mesh = make_mesh(**{axis: world})
-    return mesh.expert_index, mesh.tensor_index, mesh.seq_index, mesh.size
+    return mesh.data_index, mesh.expert_index, mesh.tensor_index, mesh.size
 
 
 @pytest.mark.parametrize("axis", ["tensor", "expert", "data"])
 def test_unported_mesh_axes_raise(axis):
-    """The data axis is not ported and raises; the tensor and expert axes
-    are (tests/test_torch_tensor_expert.py): over two ranks each builds a
-    mesh that gives rank r the index r along it."""
-    if axis == "data":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            make_mesh(**{axis: 2})
-        return
-    i = {"expert": 0, "tensor": 1}[axis]
+    """Every axis is ported (tests/test_torch_tensor_expert.py, tests/
+    test_torch_data_axis.py): over two ranks each builds a mesh that gives
+    rank r the index r along it."""
+    i = {"data": 0, "expert": 1, "tensor": 2}[axis]
     for r, got in enumerate(launch(_rank_mesh, 2, axis)):
         want = [0, 0, 0, 2]
         want[i] = r

@@ -43,6 +43,7 @@ from deepseek_tpu_torch.models.loader import params_from_reference
 from deepseek_tpu_torch.ops.kernels.prefill_attn import (
     mha_prefill_attn, mha_prefill_attn_plain, mla_prefill_attn, mla_prefill_attn_plain,
 )
+from deepseek_tpu_torch.parallel.mesh import Mesh
 from deepseek_tpu_torch.serving import BatchScheduler, PrefixCache, Request
 from tests.test_torch_kv_int8 import _assert_caches_match
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -570,8 +571,10 @@ def test_spec_rejects_bad_combos(engine):
         BatchScheduler(engine, spec="bogus")
     with pytest.raises(ValueError, match="MTP module"):
         BatchScheduler(engine, spec="mtp")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        BatchScheduler(engine, mesh=object())
+    with pytest.raises(ValueError, match="verify mode excludes 'seq'"):
+        BatchScheduler(engine, batch_size=2, spec="ngram", mesh=Mesh(data=2, seq=2))
+    with pytest.raises(ValueError, match="split over the data axis"):
+        BatchScheduler(engine, batch_size=3, mesh=Mesh(data=2))
 
 
 def test_mtp_drafter_refed_after_plain_blocks(engine_mtp):

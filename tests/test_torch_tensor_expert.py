@@ -753,8 +753,8 @@ def test_make_ctx_raises_where_jax_does(shape):
         with pytest.raises(ValueError) as exc:
             make_ctx(cfg, mesh)
         assert str(exc.value).split(";")[0] == jerr
-    with pytest.raises(NotImplementedError, match="data axis"):
-        make_ctx(cfg, Mesh(data=2))
+    ctx = make_ctx(cfg, Mesh(data=2, data_index=1))
+    assert (ctx.dp, ctx.didx) == (2, 1)
 
 
 def test_lm_head_tp_follows_the_vocab():
