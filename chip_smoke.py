@@ -164,22 +164,42 @@ Phases, each of which fails the run (non-zero exit) on any error:
      each rank holding 2 of the 4 batch rows; then spec="ngram" and the
      DeepSeek-V2-Lite-width F8E5M2 model cut to 2 layers at data=2: greedy
      tokens the unsharded run's (near ties allowed), log-probs within 1e-3
-     of its, every rank the same tokens and log-probs; each rank's wall,
-     time in collectives, peak and resident memory; then K3, K5, K2 and
-     K10 (verify mode) at a data shard's 2 rows against their plain
-     versions;
+     of its, every rank the same tokens and log-probs, and spec="ngram"
+     bit for bit the unsharded batch-4 spec scheduler's (a verify chunk's
+     rows are batch invariant); each rank's wall, time in collectives,
+     peak and resident memory; then verify chunks on the same V3 draw
+     over B = 1, 2 and 4 sequences (spec_k 4): each sequence's rows
+     bit-equal to its chunk alone, timed on the invariant route and on
+     the parent's; then K3, K5, K2 and K10 (verify mode) at a data
+     shard's 2 rows against their plain versions;
  12. pipeline stages: the same V3-width draw through a 2-stage Pipeline in
      one process (both stages on the card) against the unsharded run, its
      decode_microbatched (2 microbatches of 2) against decode_step, 2
      stages x tensor=2 over 4 gloo ranks against the unsharded run, and 3
      stages over an int8 cache on a tiny 3-layer packed Q3_K checkpoint
      against its Engine past the window.
+ 13. conversion (``python -m deepseek_tpu_torch.convert``): (a) three tiny
+     HF directories (V2 MHA fp16; V3 with an MTP layer, --mla --quant
+     q3_k; an HF-FP8 input, --quant f8e5m2) converted by subprocesses on
+     the card and in process on the CPU, byte-equal but attn.wc, then
+     Engine(device="cuda") on each against the CPU Engine's greedy
+     tokens; (b) DeepSeek-V3's published widths cut to its first 2 (dense)
+     layers, F8_E4M3 + BF16 safetensors (~4.9 GB), to Q2_K with the
+     native encoder: seconds, weights a second, peak RSS, bytes; a
+     512-token prompt and 16 greedy tokens on the card, 32 tokens and 2
+     steps against the CPU Engine with a debug capture on each side, the
+     native tokenizer against the Python one; (c) DeepSeek-V2-Lite's
+     widths cut to 2 layers, BF16, to fp16 and f8e5m2 on the card, each
+     against the CPU Engine over 300 tokens and 8 steps (its K-quant
+     conversion raises: 1408 and 10944 are no multiples of 256). The
+     native libraries must build.
 The launch counts are set to 0 just before each driven path and read just
 after; a kernel that its path never launched fails the run. The line
 before last holds the card's name and power limit; the last line is the
 JSON result. Without a CUDA GPU the script exits 2 and prints none.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -206,8 +226,11 @@ CUT_DECODE = 8             # decode steps of the 2-layer cuts held against the C
 FP8_CUT_PROMPT = 300       # the fp8 cut: a chunk of 256 and one of 44
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -3635,32 +3658,6 @@ def data_serve(eng, reqs, mesh=None, spec=None, sched=None):
     return sched, done, time.perf_counter() - t0
 
 
-def shard_verified(sched, shards):
-    """Make the unsharded spec scheduler ``sched`` verify each of ``shards``
-    equal blocks of its rows as a chunk of its own, the rows a data rank's
-    verify chunk holds, over views of those rows of its cache and history
-    (written in place); its host decisions stay the whole batch's. A verify
-    chunk is not batch invariant (ROADMAP, section 3), so spec serving at
-    data=2 is held to this, not to 4-row chunks."""
-    inner = sched._get_spec_fn()
-
-    def fn(params, ct, hist, tok, pos0, key, *rows_args):
-        n = tok.shape[0] // shards
-        outs = []
-        for d in range(shards):
-            rows = slice(d * n, (d + 1) * n)
-            cut = lambda v: v[rows] if np.ndim(v) > 0 else v     # noqa: E731
-            part = dataclasses.replace(ct, **{
-                f.name: getattr(ct, f.name)[:, rows] for f in dataclasses.fields(ct)
-                if isinstance(getattr(ct, f.name), torch.Tensor)})
-            outs.append(inner(params, part, hist[rows], tok[rows], cut(pos0), key,
-                              *map(cut, rows_args)))
-        return (*(torch.cat([o[i] for o in outs], dim=1) for i in range(len(outs[0]) - 2)),
-                ct, hist)
-    sched._spec_fn = fn
-    return sched
-
-
 def data_rank(rank, world, shape, jobs, reqs_of):
     """One rank of a data cell: per job the model drawn from the seed (kept
     for the next job of the same model), an Engine over it and a
@@ -3723,11 +3720,12 @@ def data_serving_phase(counts, runs):
     SERVE_TOL of the unsharded run's, every rank the same tokens and
     log-probs (the sampled request too, drawn under each data shard's
     folded key), the prefix-cache hit; spec="ngram" at data=2 (K10 with
-    per-row starts at 2 rows), held the same way to the unsharded spec
-    scheduler whose verify chunks hold a rank's rows (``shard_verified``).
-    Logs each rank's wall, time in collectives, peak and resident memory."""
+    per-row starts at 2 rows) against the unsharded batch-4 spec scheduler:
+    greedy tokens and log-probs bit for bit (a verify chunk's rows compute
+    the bits of their sequence alone, whatever the chunk's B:
+    ``ops/matmul.py::verify_chunk``). Logs each rank's wall, time in
+    collectives, peak and resident memory."""
     from deepseek_tpu_torch.parallel.launch import launch
-    from deepseek_tpu_torch.serving import BatchScheduler
 
     t_phase = time.perf_counter()
     ref, reqs_of = {}, {}
@@ -3743,10 +3741,8 @@ def data_serving_phase(counts, runs):
                     counts, DATA_KERNELS[(model, None)], label, lambda: data_serve(eng, reqs))
                 runs[f"unsharded {model} serving"] = launched
             else:
-                label = (f"data mesh: unsharded {model} serving {spec}, verify chunks of "
-                         f"a data=2 rank's rows")
-                sched, done, wall = data_serve(eng, reqs, sched=shard_verified(BatchScheduler(
-                    eng, batch_size=4, logprobs=True, prefix_cache_mb=64, spec=spec), 2))
+                label = f"data mesh: unsharded {model} serving {spec}"
+                sched, done, wall = data_serve(eng, reqs, spec=spec)
             toks = [r.out_tokens for r in done]
             teach = {i: teacher_logits(eng, reqs[i]["prompt_tokens"], toks[i]) for i in greedy}
             n_tok = sum(len(t) for t in toks)
@@ -3798,6 +3794,17 @@ def data_serving_phase(counts, runs):
                     f"{ {k: v for k, v in got['launched'].items() if v} }")
                 if not worst <= SERVE_TOL:
                     failed.append(f"{name}, rank {r}: log-probs off the unsharded run's")
+                if spec is not None:
+                    # the greedy requests; the sampled one draws under each
+                    # data shard's folded key, as the JAX mesh scheduler does
+                    same = all(got["toks"][i] == want["toks"][i]
+                               and got["lps"][i] == want["lps"][i] for i in want["greedy"])
+                    log(f"{name}, rank {r}: greedy requests {want['greedy']}' tokens and "
+                        f"log-probs bit-equal to the unsharded batch-4 spec scheduler's: "
+                        f"{same}")
+                    if not same:
+                        failed.append(f"{name}, rank {r}: greedy tokens or log-probs not "
+                                      f"bit-equal to the unsharded spec scheduler's")
                 if not all(np.isfinite(lp).all() and max(lp, default=0.0) <= 0.0
                            for lp in got["lps"]):
                     failed.append(f"{name}, rank {r}: a log-prob is not finite or above 0")
@@ -3892,8 +3899,7 @@ def data_kernel_entries(entries):
     q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
     e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (a data=2 rank's 2 verify "
                   f"chunks of {T} rows) S={S} H={H}",
-                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale,
-                                           q_pos0_max=max(starts)),
+                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale),
                   lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale), 1e-4,
                   seen * (R + P) * 2 + nbytes(qc, qr) + 4 * 2 * T * H * R,
                   2.0 * T * H * seen * (2 * R + P), csrc + "prefill_attn.cu",
@@ -4973,8 +4979,7 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
     e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (4 verify chunks of {T} "
                   f"rows) S={S} H={H}",
-                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale,
-                                           q_pos0_max=max(starts)),
+                  lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale),
                   lambda: mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale), 1e-4,
                   seen * (R + P) * ckv.element_size() + nbytes(qc, qr) + 4 * 4 * T * H * R,
                   2.0 * T * H * seen * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
@@ -4996,7 +5001,7 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     seen = sum(s + T for s in starts)
     e = emit_k9(f"K9 mha_prefill_attn per-row starts {starts} (V2-Lite widths, f16, 4 "
                   f"verify chunks of {T} rows) S={Sm} H={Hm}",
-                  lambda: mha_prefill_attn(q, k, v, st, 0, sc, q_pos0_max=max(starts)),
+                  lambda: mha_prefill_attn(q, k, v, st, 0, sc),
                   lambda: mha_prefill_attn_plain(q, k, v, st, 0, sc), 1e-4,
                   seen * Hm * (Dh + Dv) * 2 + nbytes(q) + 4 * 4 * T * Hm * Dv,
                   2.0 * T * Hm * seen * (Dh + Dv), "deepseek_tpu_torch/csrc/prefill_attn.cu",
@@ -5172,6 +5177,696 @@ def serve_cli_phase(counts, runs, ck, eng, prompt, want, ref, device="cuda"):
     for r in done:
         same_or_near_tie(ref, want, r.out_tokens, "in-process spec='ngram' serving")
     log(f"V2-Lite-width spec serving in process: {sched.spec_stats}, {wall:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# verify chunks: batch invariance and their time, the parent's route beside
+# the invariant one
+# ---------------------------------------------------------------------------
+
+VERIFY_STARTS = (140, 600, 37, 1100)   # 4 sequences' chunk starts
+VERIFY_T = 5                           # spec_k 4
+VERIFY_REPS = 20
+
+
+def clone_rows(caches, seqs):
+    """A fresh batch cache holding the 1-row caches ``seqs``."""
+    c0 = caches[0]
+    return dataclasses.replace(c0, **{
+        f.name: torch.cat([getattr(caches[i], f.name) for i in seqs], dim=1)
+        for f in dataclasses.fields(c0) if isinstance(getattr(c0, f.name), torch.Tensor)})
+
+
+@contextlib.contextmanager
+def parent_verify_route(max_start):
+    """The verify route as the parent commit ran it: no verify_chunk (the
+    matvec at up to 4 rows, the tile GEMM's wide tiles past 16 rows, the
+    pair list or the grouped products by the batch's pairs, the router
+    product padded to 16 rows only, one wv einsum) and K10's splits sized
+    by B and the largest start."""
+    import deepseek_tpu_torch.models.deepseek as model
+    import deepseek_tpu_torch.ops.kernels.prefill_attn as pa
+    real = pa.prefill_splits
+
+    def old(B, T, H, S, q_pos0, cache_pos0, mqa, per_row=False):
+        return real(B, T, H, S, max_start if per_row else q_pos0, cache_pos0, mqa)
+    saved = model.verify_chunk, pa.prefill_splits
+    model.verify_chunk, pa.prefill_splits = contextlib.nullcontext, old
+    try:
+        yield
+    finally:
+        model.verify_chunk, pa.prefill_splits = saved
+
+
+def verify_chunk_phase(counts, runs):
+    """The V3-width packed Q3_K draw cut to 4 layers (f32 compute, bf16
+    cache, absorbed prefill), 4 sequences hydrated to VERIFY_STARTS; a
+    verify chunk (forward_prefill with per-row starts, spec_k 4: 5 rows a
+    sequence, logits of every row) over the first B = 1, 2 and 4 of them:
+    each sequence's rows must have the bits of its chunk verified alone
+    (B = 1). Each (route, B) is timed in calls of its own (wall with the
+    card synchronized, the mean of VERIFY_REPS), on the invariant route
+    and on the parent's (``parent_verify_route``), in the order parent,
+    new, new, parent; the parent's rows are compared too (a control: they
+    differ from the rows alone at B = 4)."""
+    from deepseek_tpu_torch.engine import hydrate_cache
+    from deepseek_tpu_torch.models.deepseek import forward_prefill
+    from deepseek_tpu_torch.models.kvcache import init_cache
+
+    t_phase = time.perf_counter()
+    params, cfg = mesh_model("v3")
+    gen = torch.Generator().manual_seed(SEED + 71)
+    caches = []
+    for s in VERIFY_STARTS:
+        c = init_cache(cfg, device="cuda")
+        hydrate_cache(params, cfg, c, torch.randint(3, cfg.vocab_size, (s,),
+                                                    generator=gen).tolist(),
+                      want_last_logits=False)
+        caches.append(c)
+    tok = torch.randint(3, cfg.vocab_size, (4, VERIFY_T), generator=gen).cuda()
+    starts = np.array(VERIFY_STARTS)
+
+    def chunk(seqs):
+        cache = clone_rows(caches, seqs)
+        with torch.inference_mode():
+            return forward_prefill(params, cache, tok[list(seqs)], starts[list(seqs)], cfg,
+                                   logits_mode="all")
+
+    def timed(B):
+        chunk(range(B))                           # warm
+        walls = []
+        for _ in range(VERIFY_REPS):
+            cache = clone_rows(caches, range(B))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                forward_prefill(params, cache, tok[:B], starts[:B], cfg, logits_mode="all")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return round(1e3 * float(np.median(walls)), 3)
+
+    times, failed = {}, []
+    for route in ("parent", "new", "new", "parent"):
+        ctx = parent_verify_route(max(VERIFY_STARTS)) if route == "parent" \
+            else contextlib.nullcontext()
+        with ctx:
+            alone = [chunk([b])[0] for b in range(4)]
+            for B in (2, 4):
+                got = chunk(range(B))
+                diff = max(float((got[b] - alone[b]).abs().max()) for b in range(B))
+                equal = all(torch.equal(got[b], alone[b]) for b in range(B))
+                log(f"verify chunk, {route} route, B={B} x {VERIFY_T} rows: each "
+                    f"sequence's rows bit-equal to its chunk alone: {equal} (max abs diff "
+                    f"{diff:.3e})")
+                if route == "new" and not equal:
+                    failed.append(f"B={B}: rows differ from the rows alone by {diff:.3e}")
+            for B in (1, 2, 4):
+                times.setdefault((route, B), []).append(timed(B))
+    for B in (1, 2, 4):
+        log(f"verify chunk B={B} x {VERIFY_T} rows (spec_k 4, V3-width packed Q3_K, 4 "
+            f"layers), median wall ms of {VERIFY_REPS} calls, in the order parent, new, new, "
+            f"parent: parent route {times[('parent', B)]}, invariant route "
+            f"{times[('new', B)]} ({card_line()})")
+    _, runs["verify chunk"] = drive(counts, ("K10-rows", "K5r-packed", "K2-packed"),
+                                    "verify chunk, B=4", lambda: chunk(range(4)))
+    del params, caches
+    torch.cuda.empty_cache()
+    log(f"verify chunk phase: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError("verify chunks not batch invariant: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: conversion (HF -> .dseek) with the port's converter
+# ---------------------------------------------------------------------------
+
+CONVERT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_convert")
+CONVERT_TIMEOUT = 600        # seconds for one converter subprocess
+V3_CONVERT_PROMPT = 512      # the converted V3 cut: hydrated prompt and decode steps
+V3_CONVERT_DECODE = 16
+V3_CPU_PROMPT = 32           # the shorter run held against the CPU Engine
+V3_CPU_STEPS = 2
+V2_CONVERT_PROMPT = 300      # the converted V2-Lite cuts against the CPU Engine
+V2_CONVERT_STEPS = 8
+
+
+def hf_config_of(dim, hidden, layers, heads, vocab, q_lora, kv_lora, nope, rope, v_dim,
+                 first_dense, n_experts, n_active, moe_inter, n_shared, v3,
+                 n_group=1, topk_group=1, mscale=1.0, init=0.1):
+    """An HF DeepSeek config.json (the layout of tests/util_hf.py)."""
+    return {
+        "architectures": ["DeepseekV3ForCausalLM" if v3 else "DeepseekV2ForCausalLM"],
+        "hidden_size": dim, "intermediate_size": hidden, "num_hidden_layers": layers,
+        "num_attention_heads": heads, "vocab_size": vocab,
+        "bos_token_id": 0 if v3 else 100000, "eos_token_id": 1 if v3 else 100001,
+        "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+        "first_k_dense_replace": first_dense, "kv_lora_rank": kv_lora,
+        "q_lora_rank": q_lora or None, "qk_nope_head_dim": nope,
+        "qk_rope_head_dim": rope, "v_head_dim": v_dim, "n_shared_experts": n_shared,
+        "n_routed_experts": n_experts, "num_experts_per_tok": n_active,
+        "moe_intermediate_size": moe_inter,
+        "routed_scaling_factor": 2.5 if v3 else 1.0, "n_group": n_group,
+        "norm_topk_prob": v3, "scoring_func": "sigmoid" if v3 else "softmax",
+        "topk_group": topk_group, "topk_method": "noaux_tc" if v3 else "greedy",
+        "tie_word_embeddings": False, "initializer_range": init,
+        "rope_scaling": {"type": "yarn", "beta_fast": 32, "beta_slow": 1, "factor": 40,
+                         "mscale": mscale, "mscale_all_dim": mscale,
+                         "original_max_position_embeddings": 4096},
+    }
+
+
+def hf_tensor_specs(cfg, mtp=False):
+    """(name, shape, kind) of every tensor of an HF DeepSeek checkpoint:
+    kind "w" (a projection, scaled N(0, 1)), "norm" (1 + 0.1 N(0, 1)),
+    "emb" (an embedding or head), "gate" (the router and its bias)."""
+    dim, H = cfg["hidden_size"], cfg["num_attention_heads"]
+    nope, rope, v_dim = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"], cfg["v_head_dim"]
+    q_lora, kv_lora = cfg["q_lora_rank"] or 0, cfg["kv_lora_rank"]
+    out = [("model.embed_tokens.weight", (cfg["vocab_size"], dim), "emb"),
+           ("model.norm.weight", (dim,), "norm"),
+           ("lm_head.weight", (cfg["vocab_size"], dim), "emb")]
+    for layer in range(cfg["num_hidden_layers"] + (1 if mtp else 0)):
+        p = f"model.layers.{layer}"
+        if mtp and layer == cfg["num_hidden_layers"]:
+            out += [(f"{p}.enorm.weight", (dim,), "norm"), (f"{p}.hnorm.weight", (dim,), "norm"),
+                    (f"{p}.eh_proj.weight", (dim, 2 * dim), "w"),
+                    (f"{p}.shared_head.norm.weight", (dim,), "norm")]
+        out += [(f"{p}.input_layernorm.weight", (dim,), "norm"),
+                (f"{p}.post_attention_layernorm.weight", (dim,), "norm"),
+                (f"{p}.self_attn.kv_a_proj_with_mqa.weight", (kv_lora + rope, dim), "w"),
+                (f"{p}.self_attn.kv_a_layernorm.weight", (kv_lora,), "norm"),
+                (f"{p}.self_attn.kv_b_proj.weight", (H * (nope + v_dim), kv_lora), "w"),
+                (f"{p}.self_attn.o_proj.weight", (dim, H * v_dim), "w")]
+        if q_lora:
+            out += [(f"{p}.self_attn.q_a_proj.weight", (q_lora, dim), "w"),
+                    (f"{p}.self_attn.q_a_layernorm.weight", (q_lora,), "norm"),
+                    (f"{p}.self_attn.q_b_proj.weight", (H * (nope + rope), q_lora), "w")]
+        else:
+            out += [(f"{p}.self_attn.q_proj.weight", (H * (nope + rope), dim), "w")]
+        if layer < cfg["first_k_dense_replace"]:
+            m = cfg["intermediate_size"]
+            out += [(f"{p}.mlp.gate_proj.weight", (m, dim), "w"),
+                    (f"{p}.mlp.down_proj.weight", (dim, m), "w"),
+                    (f"{p}.mlp.up_proj.weight", (m, dim), "w")]
+            continue
+        E, m = cfg["n_routed_experts"], cfg["moe_intermediate_size"]
+        out += [(f"{p}.mlp.gate.weight", (E, dim), "gate")]
+        if cfg["architectures"][0] == "DeepseekV3ForCausalLM":
+            out += [(f"{p}.mlp.gate.e_score_correction_bias", (E,), "gate")]
+        for e in range(E):
+            out += [(f"{p}.mlp.experts.{e}.gate_proj.weight", (m, dim), "w"),
+                    (f"{p}.mlp.experts.{e}.down_proj.weight", (dim, m), "w"),
+                    (f"{p}.mlp.experts.{e}.up_proj.weight", (m, dim), "w")]
+        sm = cfg["n_shared_experts"] * m
+        out += [(f"{p}.mlp.shared_experts.gate_proj.weight", (sm, dim), "w"),
+                (f"{p}.mlp.shared_experts.down_proj.weight", (dim, sm), "w"),
+                (f"{p}.mlp.shared_experts.up_proj.weight", (sm, dim), "w")]
+    return out
+
+
+def write_safetensors(path, tensors):
+    """A safetensors file written tensor by tensor: ``tensors`` is a list of
+    (name, dtype string, shape, make) where make() returns the tensor's
+    bytes as a numpy array, called once when its turn comes (so a file of
+    several GB never sits in host memory)."""
+    header, off = {}, 0
+    size = {"F32": 4, "BF16": 2, "F8_E4M3": 1}
+    for name, dt, shape, _ in tensors:
+        n = math.prod(shape) * size[dt]
+        header[name] = {"dtype": dt, "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for name, dt, shape, make in tensors:
+            a = np.ascontiguousarray(make())
+            if a.nbytes != header[name]["data_offsets"][1] - header[name]["data_offsets"][0]:
+                raise RuntimeError(f"{name}: {a.nbytes} bytes for {dt} {shape}")
+            a.tofile(f)
+
+
+def write_hf_dir(path, cfg, tokenizer, seed, form="F32", fp8_block=(128, 128),
+                 mtp=False, n_files=1, tokenizer_config=None, device="cuda"):
+    """An HF checkpoint directory (config.json, tokenizer_config.json,
+    tokenizer.json, *.safetensors) of random weights drawn on the card from
+    ``seed``: ``form`` "F32" (every tensor f32, as tests/util_hf.py), "BF16"
+    (DeepSeek-V2-Lite's release) or "FP8" (DeepSeek-V3's: the projections
+    F8_E4M3 with a float32 ``weight_scale_inv`` grid of ``fp8_block``
+    blocks, scale = block amax / 448, every other tensor BF16). The
+    projections, embedding and head are N(0, initializer_range) (the HF
+    init), the norms 1 + 0.1 N(0, 1). Returns the bytes of the safetensors
+    written."""
+    os.makedirs(path, exist_ok=True)
+    cfg = dict(cfg)
+    if form == "FP8":
+        cfg["quantization_config"] = {"quant_method": "fp8", "activation_scheme": "dynamic",
+                                      "fmt": "e4m3", "weight_block_size": list(fp8_block)}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"model_max_length": 4096, **(tokenizer_config or {})}, f)
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(tokenizer, f)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def values(shape, kind):
+        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        if kind == "norm":
+            return 1.0 + 0.1 * x
+        return x * cfg["initializer_range"]
+
+    def host(t, dt):
+        if dt == "F32":
+            return t.float().cpu().numpy()
+        if dt == "BF16":
+            return t.to(torch.bfloat16).view(torch.int16).cpu().numpy()
+        return t.view(torch.uint8).cpu().numpy()
+
+    specs = []
+    for name, shape, kind in hf_tensor_specs(cfg, mtp):
+        if form == "F32":
+            specs.append((name, "F32", shape, lambda s=shape, k=kind: host(values(s, k), "F32")))
+        elif form == "BF16" or kind != "w" or len(shape) != 2:
+            specs.append((name, "BF16", shape, lambda s=shape, k=kind: host(values(s, k), "BF16")))
+        else:
+            b0, b1 = fp8_block
+            grid = (-(-shape[0] // b0), -(-shape[1] // b1))
+            made = {}
+
+            def fp8(s=shape, g=grid, made=made):
+                w = values(s, "w")
+                wp = torch.zeros((g[0] * b0, g[1] * b1), device=device)
+                wp[:s[0], :s[1]] = w
+                amax = wp.reshape(g[0], b0, g[1], b1).abs().amax(dim=(1, 3))
+                sc = torch.clamp(amax, min=1e-12) / 448.0
+                full = sc.repeat_interleave(b0, 0)[:s[0]].repeat_interleave(b1, 1)[:, :s[1]]
+                made["scale"] = sc
+                return host((w / full).to(torch.float8_e4m3fn), "F8")
+
+            specs.append((name, "F8_E4M3", shape, fp8))
+            specs.append((name.replace(".weight", ".weight_scale_inv"), "F32", grid,
+                          lambda m=made: host(m.pop("scale"), "F32")))
+    per = -(-len(specs) // n_files)
+    total = 0
+    for i in range(n_files):
+        part = specs[i * per:(i + 1) * per]
+        fn = os.path.join(path, "model.safetensors" if n_files == 1
+                          else f"model-{i + 1:05d}-of-{n_files:05d}.safetensors")
+        write_safetensors(fn, part)
+        total += os.path.getsize(fn)
+    return total
+
+
+def params_to(params, device):
+    """A copy of the model's weights (every plane of every layer) on
+    ``device``."""
+    from deepseek_tpu_torch.quant.qtensor import PlainTensor
+
+    def move(t):
+        if t is None or isinstance(t, (bool, int, float, str, tuple)):
+            return t
+        if isinstance(t, torch.Tensor):
+            return t.to(device)
+        if isinstance(t, list):
+            return [move(x) for x in t]
+        if isinstance(t, PlainTensor):
+            return PlainTensor(data=move(t.data))
+        if hasattr(t, "map"):
+            return t.map(move)
+        return dataclasses.replace(t, **{f.name: move(getattr(t, f.name))
+                                         for f in dataclasses.fields(t)})
+    return move(params)
+
+
+def set_hf_config(path, **kw):
+    """Rewrite keys of an HF directory's config.json (the full model's
+    layer count over a directory that holds the first layers only)."""
+    fn = os.path.join(path, "config.json")
+    with open(fn) as f:
+        cfg = json.load(f)
+    cfg.update(kw)
+    with open(fn, "w") as f:
+        json.dump(cfg, f)
+
+
+def byte_tokenizer(vocab_size):
+    """A SentencePiece-style tokenizer.json with byte fallback (the layout
+    of tests/util_hf.py): <unk> <s> </s>, the 256 byte tokens, then words."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for i in range(256):
+        vocab[f"<0x{i:02X}>"] = 3 + i
+    for i, piece in enumerate(["▁hello", "▁world", "he", "ll", "o"]):
+        vocab[piece] = 259 + i
+    for i in range(len(vocab), vocab_size):
+        vocab[f"tok{i}"] = i
+    return {"model": {"vocab": vocab, "byte_fallback": True}, "added_tokens": []}
+
+
+def gpt2_tokenizer(vocab_size, seed):
+    """A GPT-2 byte-level tokenizer.json of ``vocab_size`` tokens (DeepSeek-V3's
+    kind): the two special tokens (ids 0 and 1), every single byte, then
+    distinct random pieces of 2-7 bytes, each written in the GPT-2
+    byte-to-unicode alphabet."""
+    from deepseek_tpu_torch.convert import gpt2_bytes_to_unicode
+
+    enc = gpt2_bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b" abcdefghijklmnopqrstuvwxyz,.etaoinshr", dtype=np.uint8)
+    vocab = {"".join(enc[b] for b in bytes([i])): 2 + i for i in range(256)}
+    while len(vocab) < vocab_size - 2:
+        n = int(rng.integers(2, 8))
+        piece = "".join(enc[int(b)] for b in rng.choice(alphabet, n))
+        vocab.setdefault(piece, len(vocab) + 2)
+    return {"model": {"vocab": vocab}, "added_tokens": [
+        {"id": 0, "content": "<｜begin▁of▁sentence｜>"},
+        {"id": 1, "content": "<｜end▁of▁sentence｜>"}]}
+
+
+def run_converter(out, hf, flags, label):
+    """``python -m deepseek_tpu_torch.convert OUT HF FLAGS`` as a user runs it
+    (on the card: the default device), inside a wrapper process that
+    reports the converter's peak RSS (getrusage(RUSAGE_CHILDREN), the
+    wrapper's only child). Returns (seconds, peak RSS bytes, stdout)."""
+    wrap = ("import resource, subprocess, sys; "
+            "r = subprocess.run([sys.executable, '-m', 'deepseek_tpu_torch.convert', "
+            "*sys.argv[1:]]); "
+            "print('PEAK_RSS_KB', resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss); "
+            "sys.exit(r.returncode)")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", wrap, out, hf, *flags],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=CONVERT_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"{label}: converter rc {res.returncode}:\n{res.stdout[-3000:]}"
+                           f"\n{res.stderr[-3000:]}")
+    peak = int(re.search(r"PEAK_RSS_KB (\d+)", res.stdout).group(1)) * 1024
+    return secs, peak, res.stdout
+
+
+def same_but_wc(a_dir, b_dir, label):
+    """Two conversions: the same metadata and every tensor byte for byte
+    but attn.wc (and its scale); returns the wc tensors' names."""
+    from deepseek_tpu_torch.utils.codec import load_checkpoint
+
+    a, b = load_checkpoint(a_dir), load_checkpoint(b_dir)
+    if a.metadata != b.metadata or set(a.tensors) != set(b.tensors):
+        raise RuntimeError(f"{label}: metadata or tensor names differ")
+    wc = {n for n in a.tensors if ".attn.wc." in n}
+    for name in a.tensors:
+        if name in wc:
+            continue
+        x, y = a.tensors[name], b.tensors[name]
+        if (x.dtype_str, x.shape) != (y.dtype_str, y.shape) or not np.array_equal(
+                np.asarray(x.array).view(np.uint8), np.asarray(y.array).view(np.uint8)):
+            raise RuntimeError(f"{label}: {name} differs between the card's and the "
+                               f"CPU's conversion")
+    return sorted(wc)
+
+
+def wc_error(a_dir, b_dir):
+    """max |dequant(wc_a) - dequant(wc_b)| over the layers' attn.wc, and
+    the largest |wc| (both on the dequantized f32 weights)."""
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.models.loader import unfuse_projections
+
+    err = scale = 0.0
+    ea = Engine(a_dir, device="cpu", load_mtp=False)
+    eb = Engine(b_dir, device="cpu", load_mtp=False)
+    pa = unfuse_projections(ea.params, ea.cfg)
+    pb = unfuse_projections(eb.params, eb.cfg)
+    for la, lb in zip(pa.layers, pb.layers):
+        if la.wc is None:
+            continue
+        wa, wb = la.wc.dequant(torch.float32), lb.wc.dequant(torch.float32)
+        err = max(err, float((wa - wb).abs().max()))
+        scale = max(scale, float(wa.abs().max()))
+    return err, scale
+
+
+def tiny_convert_phase(counts, runs):
+    """(a) Three tiny HF directories written with the port's codec's layout
+    (tests/util_hf.py): DeepSeek-V2 MHA at the default fp16; V3 with an MTP
+    layer at --mla --quant q3_k; an HF-FP8 input (F8_E4M3 + BF16) at
+    --quant f8e5m2. Each through ``python -m deepseek_tpu_torch.convert``
+    on the card (three subprocesses at once) and in process with
+    device="cpu": byte-equal but attn.wc (its dequantized weights within
+    1e-2 of their scale: an f16 or e5m2 rounding tie, or a K-quant
+    sub-block's grid); Engine(device="cuda") on each checkpoint gives the
+    CPU Engine's greedy tokens."""
+    from deepseek_tpu_torch.convert import convert
+    from deepseek_tpu_torch.engine import Engine
+
+    small = dict(dim=256, hidden=512, layers=2, heads=2, vocab=1024, q_lora=256,
+                 kv_lora=512, nope=128, rope=64, v_dim=128, first_dense=1, n_experts=8,
+                 n_active=2, moe_inter=256, n_shared=1)
+    cases = {
+        "V2 MHA fp16": (hf_config_of(**small, v3=False), "F32", False, []),
+        "V3 MTP q3_k --mla": (hf_config_of(**small, v3=True, n_group=2), "F32", True,
+                              ["--mla", "--quant", "q3_k"]),
+        "HF-FP8 f8e5m2": (hf_config_of(**small, v3=True, n_group=2), "FP8", False,
+                          ["--quant", "f8e5m2", "--mla"]),
+    }
+    t_phase = time.perf_counter()
+    procs = {}
+    for i, (label, (cfg, form, mtp, flags)) in enumerate(cases.items()):
+        root = os.path.join(CONVERT_DIR, f"tiny{i}")
+        shutil.rmtree(root, ignore_errors=True)
+        write_hf_dir(os.path.join(root, "hf"), cfg, byte_tokenizer(cfg["vocab_size"]),
+                     SEED + 80 + i, form=form, fp8_block=(128, 128), mtp=mtp,
+                     n_files=2 if i == 0 else 1,
+                     tokenizer_config={"chat_template": "{{ messages }}"} if mtp else None)
+        procs[label] = (root, subprocess.Popen(
+            [sys.executable, "-m", "deepseek_tpu_torch.convert", os.path.join(root, "card"),
+             os.path.join(root, "hf"), *flags],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for label, (cfg, form, mtp, flags) in cases.items():
+        root, proc = procs[label]
+        t0 = time.perf_counter()
+        kw = dict(quant=flags[flags.index("--quant") + 1] if "--quant" in flags else "fp16",
+                  use_mla="--mla" in flags)
+        convert(os.path.join(root, "hf"), os.path.join(root, "cpu"), device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        out, _ = proc.communicate(timeout=CONVERT_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"tiny conversion {label}: rc {proc.returncode}\n{out[-3000:]}")
+        wc = same_but_wc(os.path.join(root, "card"), os.path.join(root, "cpu"), label)
+        err, scale = wc_error(os.path.join(root, "card"), os.path.join(root, "cpu")) \
+            if wc else (0.0, 1.0)
+        log(f"tiny conversion {label}: card subprocess and CPU ({t_cpu:.1f} s in process) "
+            f"byte-equal but {len(wc)} attn.wc tensors (dequantized max abs diff "
+            f"{err:.3e}, scale {scale:.3e}); {out.strip().splitlines()[0]}")
+        if err > 1e-2 * scale:
+            raise RuntimeError(f"tiny conversion {label}: attn.wc off by {err:.3e}")
+        ck = os.path.join(root, "card")
+        prompt = [1, 259, 260, 40, 7, 99, 3, 17]
+        (got, _), launched = drive(counts, (), f"tiny conversion {label}: Engine on the card",
+                                   lambda: Engine(ck, device="cuda", seed=0).generate(
+                                       prompt, num_steps=8, temperature=0.0))
+        want, _ = Engine(ck, device="cpu", seed=0).generate(prompt, num_steps=8,
+                                                            temperature=0.0)
+        same_tokens(got, want, f"tiny conversion {label}: greedy tokens")
+        runs[f"tiny conversion {label}"] = launched
+    log(f"tiny conversion: {time.perf_counter() - t_phase:.1f} s")
+
+
+def v3_convert_phase(counts, runs):
+    """(b) DeepSeek-V3's published widths (config.json of
+    deepseek-ai/DeepSeek-V3) cut to its first 2 layers (both dense, as
+    first_k_dense_replace = 3 makes them): F8_E4M3 projections with
+    128x128 weight_scale_inv grids, BF16 embedding, head and norms, a
+    GPT-2-byte tokenizer.json of 129280 tokens; ~3.0 B parameters, ~4.9 GB
+    of safetensors. ``--mla --quant q2_k --n-layers 2`` through the native
+    encoder (a converter subprocess on the card); then Engine(device=
+    "cuda") hydrates a 512-token prompt and decodes 16 greedy tokens; a
+    32-token prompt and 2 steps against the CPU Engine (logits within 1e-3
+    of their scale), under a debug capture on each side (max_err by name);
+    the native tokenizer against the Python one at that vocabulary."""
+    import copy
+
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.native import kquant_native, tokenizer_native
+    from deepseek_tpu_torch.utils import debug
+
+    if not (kquant_native.available() and tokenizer_native.available()):
+        raise RuntimeError(f"native libraries did not build: K-quant "
+                           f"{kquant_native.build_error()}, tokenizer "
+                           f"{tokenizer_native.build_error()}")
+    t_phase = time.perf_counter()
+    root = os.path.join(CONVERT_DIR, "v3")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = hf_config_of(dim=7168, hidden=18432, layers=61, heads=128, vocab=129280,
+                       q_lora=1536, kv_lora=512, nope=128, rope=64, v_dim=128,
+                       first_dense=3, n_experts=256, n_active=8, moe_inter=2048,
+                       n_shared=1, v3=True, n_group=8, topk_group=4, init=0.006)
+    written = dict(cfg, num_hidden_layers=2)     # the cut: layers 0 and 1 only
+    t0 = time.perf_counter()
+    tok = gpt2_tokenizer(cfg["vocab_size"], SEED + 90)
+    in_bytes = write_hf_dir(os.path.join(root, "hf"), written, tok, SEED + 91, form="FP8",
+                            n_files=2)
+    set_hf_config(os.path.join(root, "hf"), num_hidden_layers=cfg["num_hidden_layers"])
+    n_params = sum(math.prod(s) for _, s, _ in hf_tensor_specs(written))
+    log(f"V3 conversion: HF input written in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params / 1e9:.3f} B parameters, {in_bytes / 1e9:.3f} GB of safetensors")
+    out = os.path.join(root, "dseek")
+    secs, peak, stdout = run_converter(out, os.path.join(root, "hf"),
+                                       ["--mla", "--quant", "q2_k", "--n-layers", "2"],
+                                       "V3 conversion")
+    out_bytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    log(f"V3 conversion: --mla --quant q2_k --n-layers 2 on the card in {secs:.1f} s "
+        f"({n_params / secs / 1e6:.1f} M weights/s), converter peak RSS "
+        f"{peak / 1e9:.3f} GB beside {in_bytes / 1e9:.3f} GB of input, "
+        f"{out_bytes / 1e9:.3f} GB written; {stdout.strip().splitlines()[0]} "
+        f"({card_line()})")
+    if "K-quant encoder: native" not in stdout:
+        raise RuntimeError("V3 conversion: the converter did not use the native encoder")
+    shutil.rmtree(os.path.join(root, "hf"))
+    gen = torch.Generator().manual_seed(SEED + 92)
+    eng = Engine(out, device="cuda", seed=0)
+    prompt = torch.randint(2, cfg["vocab_size"], (V3_CONVERT_PROMPT,), generator=gen).tolist()
+    (toks, _), launched = drive(
+        counts, ("K9", "K5r-packed", "K5-packed", "K3"),
+        "V3 conversion: Engine on the card",
+        lambda: eng.generate(prompt, num_steps=V3_CONVERT_DECODE, temperature=0.0))
+    runs["V3 conversion"] = launched
+    log(f"V3 conversion: {V3_CONVERT_PROMPT}-token prompt, {V3_CONVERT_DECODE} greedy "
+        f"tokens {toks}")
+    short = prompt[:V3_CPU_PROMPT]
+    # the CPU Engine over the card Engine's loaded weights (a second load
+    # would repack every plane again on the host)
+    ref = Engine.from_params(params_to(eng.params, "cpu"), eng.cfg, eng.tokenizer, seed=0,
+                             prefill_chunk=V3_CPU_PROMPT)
+    eng.prefill_chunk = V3_CPU_PROMPT
+    caps, logits = {}, {}
+    for name, e in (("card", eng), ("CPU", ref)):
+        t0 = time.perf_counter()
+        cache = e.new_cache()
+        with debug.debug_capture() as cap:
+            _, last, _, pos = e.hydrate(cache, short)
+        rows = [np.asarray(last, np.float32).reshape(-1)]
+        for i in range(V3_CPU_STEPS):
+            t = int(np.argmax(logits["card"][i])) if name == "CPU" else int(np.argmax(rows[-1]))
+            rows.append(e.step(cache, t, pos + i)[0].float().cpu().numpy())
+        caps[name], logits[name] = cap, np.stack(rows)
+        log(f"V3 conversion: {name} run of {V3_CPU_PROMPT} tokens + {V3_CPU_STEPS} steps "
+            f"in {time.perf_counter() - t0:.1f} s")
+    scale = float(np.abs(logits["CPU"]).max())
+    err = float(np.abs(logits["card"] - logits["CPU"]).max())
+    errs = caps["card"].max_err(caps["CPU"])
+    log(f"V3 conversion: card vs CPU Engine logits max abs err {err:.3e} (tolerance "
+        f"{1e-3 * scale:.3e}); debug capture max_err by name "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }")
+    if not (np.isfinite(logits["card"]).all() and err <= 1e-3 * scale):
+        raise RuntimeError("V3 conversion: the card's logits disagree with the CPU Engine's")
+    if set(errs) != set(caps["CPU"].tensors) or not errs:
+        raise RuntimeError("V3 conversion: the two captures hold other names")
+    text = ("DeepSeek-V3 converted on the card: the quick brown fox jumps over the lazy "
+            "dog, 0123456789 " * 40 + "héllo wörld 中文 ✓")
+    tk = eng.tokenizer
+    py = copy.copy(tk)
+    py._native = None
+    if tk._native is None or tk.encode(text, bos=True) != py.encode(text, bos=True):
+        raise RuntimeError("V3 conversion: the native tokenizer disagrees with the Python one")
+    log(f"V3 conversion: the native tokenizer encodes {len(text.encode())} bytes as the "
+        f"Python one does ({len(tk.encode(text))} tokens of a {tk.vocab_size}-token vocab)")
+    del eng, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    log(f"V3 conversion phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def v2_convert_phase(counts, runs):
+    """(c) DeepSeek-V2-Lite's published widths (config.json of
+    deepseek-ai/DeepSeek-V2-Lite) cut to 2 layers (the dense one and one
+    MoE layer of 64 routed + 2 shared experts), BF16 as released, ~1.1 B
+    parameters: converted on the card in process at the default (fp16,
+    MHA) and at --quant f8e5m2 --bsize 128; Engine(device="cuda") on each
+    against the CPU Engine over a 300-token prompt and 8 greedy steps
+    (logits within 1e-3 of their scale). Its FFN widths (1408, 10944) are
+    no multiples of 256, so no K-quant form exists: the converter raises."""
+    from deepseek_tpu_torch.convert import convert
+    from deepseek_tpu_torch.engine import Engine
+
+    t_phase = time.perf_counter()
+    root = os.path.join(CONVERT_DIR, "v2")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = hf_config_of(dim=2048, hidden=10944, layers=27, heads=16, vocab=102400,
+                       q_lora=0, kv_lora=512, nope=128, rope=64, v_dim=128, first_dense=1,
+                       n_experts=64, n_active=6, moe_inter=1408, n_shared=2, v3=False,
+                       mscale=0.707, init=0.02)
+    written = dict(cfg, num_hidden_layers=2)
+    hf = os.path.join(root, "hf")
+    tok = byte_tokenizer(cfg["vocab_size"])
+    in_bytes = write_hf_dir(hf, written, tok, SEED + 95, form="BF16")
+    set_hf_config(hf, num_hidden_layers=cfg["num_hidden_layers"])
+    n_params = sum(math.prod(s) for _, s, _ in hf_tensor_specs(written))
+    gen = torch.Generator().manual_seed(SEED + 96)
+    prompt = torch.randint(3, cfg["vocab_size"], (V2_CONVERT_PROMPT,), generator=gen).tolist()
+    for label, kw in (("fp16 MHA", {}), ("f8e5m2 --bsize 128", dict(quant="f8e5m2",
+                                                                   bsize=128))):
+        out = os.path.join(root, label.split()[0])
+        t0 = time.perf_counter()
+        convert(hf, out, n_layers=2, device="cuda", **kw)
+        secs = time.perf_counter() - t0
+        out_bytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        log(f"V2-Lite conversion {label}: {n_params / 1e9:.3f} B parameters "
+            f"({in_bytes / 1e9:.3f} GB BF16) in {secs:.1f} s on the card in process "
+            f"({n_params / secs / 1e6:.1f} M weights/s), {out_bytes / 1e9:.3f} GB written")
+        eng = Engine(out, device="cuda", seed=0, decode_block=1)
+        ref = Engine(out, device="cpu", seed=0, decode_block=1)
+        rows = {}
+        for name, e in (("card", eng), ("CPU", ref)):
+            def run(e=e, name=name):
+                cache = e.new_cache()
+                _, last, _, pos = e.hydrate(cache, prompt)
+                out_rows = [np.asarray(last, np.float32).reshape(-1)]
+                for i in range(V2_CONVERT_STEPS):
+                    src = rows["card"] if name == "CPU" else out_rows
+                    t = int(np.argmax(src[i]))
+                    out_rows.append(e.step(cache, t, pos + i)[0].float().cpu().numpy())
+                return np.stack(out_rows)
+            if name == "card":
+                rows[name], runs[f"V2-Lite conversion {label}"] = drive(
+                    counts, ("K9", "K8"), f"V2-Lite conversion {label}: Engine on the card",
+                    run)
+            else:
+                rows[name] = run()
+        scale = float(np.abs(rows["CPU"]).max())
+        err = float(np.abs(rows["card"] - rows["CPU"]).max())
+        log(f"V2-Lite conversion {label}: card vs CPU Engine over {V2_CONVERT_PROMPT} "
+            f"tokens and {V2_CONVERT_STEPS} steps, logits max abs err {err:.3e} "
+            f"(tolerance {1e-3 * scale:.3e})")
+        if not (np.isfinite(rows["card"]).all() and err <= 1e-3 * scale):
+            raise RuntimeError(f"V2-Lite conversion {label}: logits disagree with the CPU")
+        del eng, ref
+        torch.cuda.empty_cache()
+    try:
+        convert(hf, os.path.join(root, "q2_k"), quant="q2_k", n_layers=2, device="cuda")
+    except ValueError as exc:
+        log(f"V2-Lite conversion --quant q2_k raises, as the JAX converter does: {exc}")
+    else:
+        raise RuntimeError("V2-Lite conversion --quant q2_k did not raise")
+    shutil.rmtree(root)
+    log(f"V2-Lite conversion phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def conversion_phase(counts, runs):
+    """Phase 13: the converter, (a) tiny directories, (b) V3's widths to
+    Q2_K, (c) V2-Lite's widths to fp16 and f8e5m2; prints its seconds."""
+    t0 = time.perf_counter()
+    os.makedirs(CONVERT_DIR, exist_ok=True)
+    try:
+        tiny_convert_phase(counts, runs)
+        v3_convert_phase(counts, runs)
+        v2_convert_phase(counts, runs)
+    finally:
+        shutil.rmtree(CONVERT_DIR, ignore_errors=True)
+    log(f"conversion phase: {time.perf_counter() - t0:.1f} s ({card_line()})")
 
 
 def spilling_kernels(logs, names):
@@ -5401,9 +6096,11 @@ def main() -> int:
     # card; the parent holds no model), then the kernels at a data shard's
     # shapes; then pipeline stages
     data_serving_phase(counts, runs)
+    verify_chunk_phase(counts, runs)
     log("kernels at a data shard's shapes (each against its plain version on the card):")
     data_kernel_entries(entries)
     pipeline_phase(counts, runs)
+    conversion_phase(counts, runs)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",
                "K3": "full-width decode", "K1r": "full-width prefill",

@@ -1131,8 +1131,10 @@ bool bad_dims(int B, int T, int H, int S, int DK, int DV, int dtype,
 // The window is walked in n_split spans of `span` slots (n_split 1: span >=
 // S); n_split > 1 needs f32 scratch of n_split * B*T*H * (DV + 2). With
 // q_pos (B,) int32 on the device (verify mode) row b's queries sit at
-// q_pos[b] + t and q_pos0 is unused; the caller sizes the splits for the
-// largest start. Returns a cudaError_t; the launches are asynchronous on
+// q_pos[b] + t and q_pos0 is unused; the caller plans the splits over the
+// whole window for one sequence (the spans past a row block's last visible
+// slot are empty), so a row's bits follow neither B nor the other rows'
+// starts. Returns a cudaError_t; the launches are asynchronous on
 // `stream`.
 extern "C" int mha_prefill(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,

@@ -222,11 +222,16 @@ class Engine:
         ``DSEEK_FUSED_FFN`` set in the environment when the Engine is made,
         ``fuse_projections`` gives nibble expert [w1;w3] tables the
         row-permuted layout, whose decode runs the fused expert FFN (K7);
-        the variable is read there once and never in the forward."""
-        if scan_layers not in ("auto", False):
-            raise NotImplementedError(
-                "scan-stacked layers have no counterpart in the port "
-                "(ROADMAP.md queue 1, item 15)")
+        the variable is read there once and never in the forward.
+        ``scan_layers`` (True, False or "auto", as in the JAX Engine) is
+        accepted and changes nothing: the port runs the layers one after
+        another whatever it says. The JAX Engine stacks runs of like layers
+        into one ``lax.scan`` to keep a deep model's compiled TPU program
+        under its size cliff; eager torch compiles no program, so it has no
+        such cliff, and the function computed is the same."""
+        if scan_layers not in ("auto", True, False):
+            raise ValueError(f"scan_layers must be True, False or 'auto', not "
+                             f"{scan_layers!r}")
         device = resolve_device(device)
         self.data = load_checkpoint(checkpoint_dir)
         overrides = {}

@@ -100,6 +100,7 @@ On CPU tensors every kernel runs its plain version.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -121,12 +122,14 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
 )
 from deepseek_tpu_torch.ops.matmul import (
     LiveRows, combine_pairs, dispatch_pairs, grouped_expert_ffn,
-    grouped_ffn_supported, per_tensor_fp8, qmatmul,
+    grouped_ffn_supported, in_verify_chunk, per_tensor_fp8, qmatmul, row_slices,
+    verify_chunk,
 )
 from deepseek_tpu_torch.ops.norms import pad_rows, rmsnorm
 from deepseek_tpu_torch.ops.rope import apply_rope
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, make_ctx
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor, rows_to_experts
+from deepseek_tpu_torch.utils.debug import dbg
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -164,11 +167,11 @@ class RowStarts:
 
 
 def _starts(pos0):
-    """K9/K10's (q_pos0, q_pos0_max) and the cache writes' start for a chunk
-    at ``pos0`` (an int, or verify mode's RowStarts)."""
+    """K9/K10's q_pos0 and the cache writes' start for a chunk at ``pos0``
+    (an int, or verify mode's RowStarts: both its device starts)."""
     if isinstance(pos0, RowStarts):
-        return pos0.dev, int(pos0.host.max()), pos0.dev
-    return pos0, None, pos0
+        return pos0.dev, pos0.dev
+    return pos0, pos0
 
 
 def _rotation_only(yarn):
@@ -304,7 +307,7 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     the chunk attends causally over the cached heads (slot == position)."""
     B, T, _ = xb.shape
     H, Dv = local_heads(lp, cfg), cfg.v_head_dim
-    q_pos0, q_max, start = _starts(pos0)
+    q_pos0, start = _starts(pos0)
     q, k, v = _mha_inputs(lp, cfg, xb, _chunk_positions(xb, pos0, ctx))
     write_rows(cache, layer, k, v, start, ctx)
     if ctx.cp:
@@ -319,7 +322,7 @@ def _attention_prefill_mha(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     merge = ctx.cp_merge_scatter if ctx.cp else ctx.seq_merge
     out = _attend(mha_prefill_attn, ctx, merge, q, cache.k[layer], cache.v[layer],
                   q_pos0, ctx.sidx * cache.window, cfg.attn_softmax_scale(),
-                  q_pos0_max=q_max, **scales)
+                  **scales)
     return _out_proj(lp, cfg, ctx, out.reshape(B, T, H * Dv).to(xb.dtype))
 
 
@@ -417,7 +420,7 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
     nope, Dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     scale = cfg.attn_softmax_scale()
     pos_bt = _chunk_positions(xb, pos0, ctx)
-    q_pos0, q_max, start = _starts(pos0)
+    q_pos0, start = _starts(pos0)
 
     ckv, k_rope, q_a = _latent_inputs(lp, cfg, xb, pos_bt)
     # hybrid MLA (deepseek.py:247-265): every prefill chunk of a layer that
@@ -459,11 +462,14 @@ def _attention_prefill(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor,
                         kv_dec[..., nope:].contiguous(), pos0, base, scale)
         return _out_proj(lp, cfg, ctx, v_out.reshape(B, T, H * Dv).to(xb.dtype))
     lat = _attend(mla_prefill_attn, ctx, merge, q_c, q_rope, ckv_l, kr_l, q_pos0, base,
-                  scale, ckv_scale=cs_l, krope_scale=rs_l, q_pos0_max=q_max)  # (B,T,H,R)
+                  scale, ckv_scale=cs_l, krope_scale=rs_l)  # (B,T,H,R)
     # per-head up-projection of the attended latents, a plain einsum as in
-    # the JAX prefill (deepseek.py:489-492)
+    # the JAX prefill (deepseek.py:489-492); in verify mode over slices of
+    # VERIFY_ROWS rows, one GEMM shape whatever B is
     wv = lp.wv_b.dequant(torch.float32).reshape(H, Dv, R)
-    v = torch.einsum("bthr,hvr->bthv", lat, wv)
+    up = lambda a: torch.einsum("nhr,hvr->nhv", a, wv)     # noqa: E731
+    flat = lat.reshape(B * T, H, R)
+    v = row_slices(up, flat) if in_verify_chunk() else up(flat)
     return _out_proj(lp, cfg, ctx, v.reshape(B, T, H * Dv).to(xb.dtype))
 
 
@@ -520,7 +526,7 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
         # no expert kernel takes a per-tensor scale (deepseek.py:707-713)
         out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
                if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx))
-    elif not prefill or idx.numel() <= PAIR_PREFILL_MAX_PAIRS:
+    elif not prefill or _chunk_pairs(idx) <= PAIR_PREFILL_MAX_PAIRS:
         out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live, ctx)
     elif grouped_ffn_supported(cfg, probe):
         out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13, ctx=ctx,
@@ -535,12 +541,21 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
     return out
 
 
+def _chunk_pairs(idx: torch.Tensor) -> int:
+    """The token-expert pairs that choose the MoE route of a chunk's idx
+    (B,T,k): all of them, or in verify mode one sequence's (T*k), so that
+    every batch of verify chunks takes the route a sequence alone takes."""
+    return idx[0].numel() if in_verify_chunk() else idx.numel()
+
+
 def _router_logits(xb: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """xb (..., dim) @ gate (E, dim).T in f32 over at least INVARIANT_ROWS
     rows (``ops/norms.py``: a decode row's scores do not depend on its
-    batch)."""
+    batch); in verify mode over slices of exactly that many, one GEMM
+    shape whatever the chunk's rows."""
     x = xb.float().reshape(-1, xb.shape[-1])
-    out = torch.matmul(pad_rows(x), gate.float().t())[:x.shape[0]]
+    gemm = lambda a: torch.matmul(a, gate.float().t())      # noqa: E731
+    out = row_slices(gemm, x) if in_verify_chunk() else gemm(pad_rows(x))[:x.shape[0]]
     return out.reshape(*xb.shape[:-1], -1)
 
 
@@ -640,12 +655,18 @@ def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
         attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
         xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
+        dbg(f"l{layer}.attn_norm", xb)
         if prefill:
-            x = x + attend(lp, cfg, xb, cache, layer, pos, ctx)
+            attn = attend(lp, cfg, xb, cache, layer, pos, ctx)
         else:
-            x = x + attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
+            attn = attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
+        dbg(f"l{layer}.attn", attn)
+        x = x + attn
         xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, xb, layer, prefill=prefill, live=live, ctx=ctx, ovf=ovf)
+        dbg(f"l{layer}.ffn_norm", xb)
+        ffn = _ffn(lp, cfg, xb, layer, prefill=prefill, live=live, ctx=ctx, ovf=ovf)
+        dbg(f"l{layer}.ffn", ffn)
+        x = x + ffn
     return x
 
 
@@ -703,9 +724,11 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
     live = LiveRows.of(active, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
+    dbg("embed", x)
     x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx,
                         live)
     logits = final_logits(params.final_norm, params.lm_head, x, cfg, ctx=ctx)
+    dbg("logits", logits)
     return (logits, x) if with_hidden else logits
 
 
@@ -750,12 +773,18 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
         sidx, t_loc = ctx.cp_rows(T)
         tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
+    dbg("embed", x)
     # EP prefill past its capacity drops pairs (deepseek.py:1334-1365)
     ovf = [] if ctx.ep > 1 and ctx.ep_capacity_factor > 0 else None
-    x = run_layer_stack(params.layers, cache, x, pos0, None, None, None, cfg, ctx,
-                        prefill=True, ovf=ovf)
-    logits = None if logits_mode == "none" else final_logits(
-        params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+    # a verify chunk's rows compute the bits of their sequence verified
+    # alone (``ops/matmul.py::verify_chunk``)
+    with verify_chunk() if isinstance(pos0, RowStarts) else contextlib.nullcontext():
+        x = run_layer_stack(params.layers, cache, x, pos0, None, None, None, cfg, ctx,
+                            prefill=True, ovf=ovf)
+        logits = None if logits_mode == "none" else final_logits(
+            params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+    if logits is not None:
+        dbg("logits", logits)
     if ovf:
         # summed over the expert line, under CP (each shard counted its own
         # rows' pairs) the seq line, and the data line, so that every data

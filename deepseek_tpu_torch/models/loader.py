@@ -411,52 +411,56 @@ def unfuse_projections(params: ModelParams, cfg: ModelConfig) -> ModelParams:
 # params carried across from the JAX package
 # ---------------------------------------------------------------------------
 
-def _weight_from_reference(obj, device):
+def _weight_from_reference(obj, device, k=None):
+    """The port's weight of a JAX QTensor (``k``: layer k of a stacked
+    group's, every array field's leading axis indexed)."""
     kind = type(obj).__name__
+
+    def leaf(a):
+        return _to_torch(a if k is None else np.asarray(a)[k]).to(device)
     if kind == "PlainTensor":
-        return PlainTensor(data=_to_torch(obj.data).to(device))
+        return PlainTensor(data=leaf(obj.data))
     if kind == "KNibbleTensor":
         return KNibbleTensor(
-            p=_to_torch(obj.p).to(device), a=_to_torch(obj.a).to(device),
-            c=None if obj.c is None else _to_torch(obj.c).to(device),
+            p=leaf(obj.p), a=leaf(obj.a), c=None if obj.c is None else leaf(obj.c),
             off=int(obj.off), rowperm=int(getattr(obj, "rowperm", 0)))
     classes = {c.__name__: c for c in (*PACKED, *TURBO)}
     if kind in classes:
         cls = classes[kind]
-        return cls(*(_to_torch(getattr(obj, f.name)).to(device)
-                     for f in dataclasses.fields(cls)))
+        return cls(*(leaf(getattr(obj, f.name)) for f in dataclasses.fields(cls)))
     if kind == "Fp8Tensor":
-        return Fp8Tensor(data=_to_torch(obj.data).view(torch.uint8).to(device)
-                         .view(torch.float8_e5m2),
-                         scale=_to_torch(obj.scale).float().to(device),
+        return Fp8Tensor(data=leaf(obj.data).view(torch.uint8).view(torch.float8_e5m2),
+                         scale=leaf(obj.scale).float(),
                          block_size=tuple(int(b) for b in obj.block_size))
     raise NotImplementedError(f"weight layout {kind} is not ported yet")
 
 
-def _layer_from_reference(lp, device) -> LayerParams:
+def _layer_from_reference(lp, device, k=None) -> LayerParams:
     kw = {}
     for f in dataclasses.fields(LayerParams):
         v = getattr(lp, f.name, None)
         if v is None:
             kw[f.name] = None
         elif dataclasses.is_dataclass(v):
-            kw[f.name] = _weight_from_reference(v, device)
+            kw[f.name] = _weight_from_reference(v, device, k)
         else:
-            kw[f.name] = _to_torch(v).float().to(device)
+            kw[f.name] = _to_torch(v if k is None else np.asarray(v)[k]).float().to(device)
     return LayerParams(**kw)
 
 
 def params_from_reference(obj, device="cpu") -> ModelParams:
-    """The JAX package's ``ModelParams`` (fused or not, unstacked layers)
-    -> the port's, walking dataclass fields and type names and reading each
-    leaf through ``np.asarray`` — no import of JAX or of deepseek_tpu."""
+    """The JAX package's ``ModelParams`` (fused or not) -> the port's,
+    walking dataclass fields and type names and reading each leaf through
+    ``np.asarray`` — no import of JAX or of deepseek_tpu. A scan-stacked
+    group (``StackedLayers``: every field with a leading (n,) axis) becomes
+    its n layers, layer k from leaf k of each field: the port runs layers
+    one after another either way."""
     layers = []
     for lp in obj.layers:
-        if type(lp).__name__ != "LayerParams":
-            raise NotImplementedError(
-                f"{type(lp).__name__} layer groups (scan stacking) have no "
-                "counterpart in the port (ROADMAP.md queue 1, item 15)")
-        layers.append(_layer_from_reference(lp, device))
+        if type(lp).__name__ == "StackedLayers":
+            layers += [_layer_from_reference(lp.lp, device, k) for k in range(int(lp.n))]
+        else:
+            layers.append(_layer_from_reference(lp, device))
     mtp = getattr(obj, "mtp", None)
     if mtp is not None:
         norm = lambda v: _to_torch(v).float().to(device)

@@ -20,6 +20,7 @@ window and cache dtype (an int8 cache keeps the sinks' float masters).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -33,7 +34,7 @@ from deepseek_tpu_torch.models.deepseek import (
 )
 from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.params import ModelParams, embed_lookup
-from deepseek_tpu_torch.ops.matmul import qmatmul
+from deepseek_tpu_torch.ops.matmul import qmatmul, verify_chunk
 from deepseek_tpu_torch.ops.norms import rmsnorm
 
 
@@ -62,30 +63,32 @@ def mtp_forward(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     per_row = (pos0.dim() > 0) if isinstance(pos0, torch.Tensor) else np.ndim(pos0) > 0
     if prefill:
         pos0 = RowStarts.of(pos0, B, tokens.device) if per_row else int(pos0)
-    dtype = compute_dtype(cfg)
-    e = rmsnorm(embed_lookup(params.embed, tokens, torch.float32).to(dtype),
-                mp.enorm, cfg.norm_eps)
-    hh = rmsnorm(h.to(dtype), mp.hnorm, cfg.norm_eps)
-    x = qmatmul(mp.eh_proj, torch.cat([e, hh], dim=-1)).to(dtype)
+    # a verify chunk's rows compute the bits of their sequence alone
+    with verify_chunk() if prefill and per_row else contextlib.nullcontext():
+        dtype = compute_dtype(cfg)
+        e = rmsnorm(embed_lookup(params.embed, tokens, torch.float32).to(dtype),
+                    mp.enorm, cfg.norm_eps)
+        hh = rmsnorm(h.to(dtype), mp.hnorm, cfg.norm_eps)
+        x = qmatmul(mp.eh_proj, torch.cat([e, hh], dim=-1)).to(dtype)
 
-    lp = mp.block
-    xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-    if prefill:
-        last = int(pos0.host.max()) if per_row else pos0
-        if last + T > cfg.kv_window:
-            raise ValueError(f"MTP prefill at {last}..{last + T - 1} crosses the "
-                             f"{cfg.kv_window}-slot window")
-        attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
-        x = x + attend(lp, cfg, xb, cache, 0, pos0)
-    else:
-        if T != 1:
-            raise ValueError("MTP decode processes one token per sequence per call")
-        pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
-        attend = _attention if cfg.use_mla else _attention_mha
-        x = x + attend(lp, cfg, xb, cache, 0, pos, kv_pos, kv_len, kv_sink)
-    xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-    # the block's FFN form follows its own weights (V3's MTP layer is MoE)
-    layer_kind = cfg.first_k_dense_replace if lp.moegate is not None else 0
-    x = x + _ffn(lp, cfg, xb, layer_kind, prefill=prefill)
-    logits = final_logits(mp.final_norm, params.lm_head, x, cfg, "all")
+        lp = mp.block
+        xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
+        if prefill:
+            last = int(pos0.host.max()) if per_row else pos0
+            if last + T > cfg.kv_window:
+                raise ValueError(f"MTP prefill at {last}..{last + T - 1} crosses the "
+                                 f"{cfg.kv_window}-slot window")
+            attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
+            x = x + attend(lp, cfg, xb, cache, 0, pos0)
+        else:
+            if T != 1:
+                raise ValueError("MTP decode processes one token per sequence per call")
+            pos, kv_pos, kv_len, kv_sink = decode_positions(cfg, B, pos0, tokens.device)
+            attend = _attention if cfg.use_mla else _attention_mha
+            x = x + attend(lp, cfg, xb, cache, 0, pos, kv_pos, kv_len, kv_sink)
+        xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
+        # the block's FFN form follows its own weights (V3's MTP layer is MoE)
+        layer_kind = cfg.first_k_dense_replace if lp.moegate is not None else 0
+        x = x + _ffn(lp, cfg, xb, layer_kind, prefill=prefill)
+        logits = final_logits(mp.final_norm, params.lm_head, x, cfg, "all")
     return logits, x, cache

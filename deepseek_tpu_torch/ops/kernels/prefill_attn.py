@@ -21,8 +21,9 @@ l (B,T,H)). Where the row blocks are too few to fill the card
 Verify mode (the batched speculation's chunks, one per serving slot):
 ``q_pos0`` may be a (B,) int tensor of per-row chunk starts, row b's query
 t at ``q_pos0[b] + t``; on the card it is read by the kernel (int32 on the
-device, no host read), and the caller passes ``q_pos0_max``, the largest
-start from its host positions, which sizes the window splits. Such
+device, no host read). The window splits are then one sequence's plan
+over the whole window (``prefill_splits(per_row=True)``), so a row's
+spans, and its bits, follow neither B nor the other rows' starts. Such
 launches also count in ``.per_row.launches``.
 
 CPU tensors take the plain versions (ops.attention.prefill_attn_*);
@@ -60,12 +61,20 @@ _FILL_BLOCKS = 264    # about 2 blocks on each of the H100's 132 SMs
 
 
 def prefill_splits(B: int, T: int, H: int, S: int, q_pos0: int, cache_pos0: int,
-                   mqa: bool):
+                   mqa: bool, per_row: bool = False):
     """(n_split, span): the kernel walks the window in n_split spans of
     ``span`` slots, one block per span and row block, when the row blocks
     alone (K9: B x H x ceil(T/64), K10: B x ceil(T*H/64)) are fewer than
     ``_FILL_BLOCKS``; a merge kernel then combines the spans' partials. The
-    spans cover only the slots the chunk's latest query sees."""
+    spans cover only the slots the chunk's latest query sees.
+
+    ``per_row`` (verify mode's per-row starts; B and q_pos0 are ignored):
+    one sequence's plan over all S slots, a function of (T, H, S) alone.
+    A row block's spans past its last visible slot are empty (they return
+    at once and the merge skips them), and the merge combines the live
+    ones by their index, so a row computes the same bits in any batch."""
+    if per_row:
+        B, q_pos0 = 1, cache_pos0 + S - T
     blocks = B * (-(-T * H // _BLOCK_ROWS) if mqa else H * -(-T // _BLOCK_ROWS))
     used = max(0, min(S, q_pos0 + T - cache_pos0))
     chunks = -(-used // _SPAN_ALIGN)
@@ -115,21 +124,18 @@ def mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache, q_pos0,
               krope_scale=krope_scale)
 
 
-def _row_starts(name: str, q_pos0, q_pos0_max, B: int, device):
-    """(the host start that sizes the splits, the per-row starts' device
-    pointer or 0): an int q_pos0 is both; a (B,) tensor needs int32 on the
-    queries' device and ``q_pos0_max``."""
+def _row_starts(name: str, q_pos0, B: int, device):
+    """(the host start, the per-row starts' device pointer or 0): an int
+    q_pos0 is the first (the kernel reads no vector); a (B,) tensor must be
+    int32 on the queries' device."""
     if not isinstance(q_pos0, torch.Tensor):
         return int(q_pos0), 0
-    if q_pos0_max is None:
-        raise ValueError(f"{name}: per-row starts need q_pos0_max, the largest "
-                         "start from the caller's host positions")
     if (q_pos0.dtype != torch.int32 or q_pos0.shape != (B,) or not q_pos0.is_contiguous()
             or q_pos0.device != device):
         raise ValueError(f"{name}: per-row starts must be a contiguous ({B},) int32 "
                          f"tensor on {device}, got {q_pos0.dtype} "
                          f"{tuple(q_pos0.shape)} on {q_pos0.device}")
-    return int(q_pos0_max), q_pos0.data_ptr()
+    return 0, q_pos0.data_ptr()
 
 
 def _count_rows(fn, q_pos0) -> None:
@@ -154,11 +160,11 @@ def _check_operands(name, queries, caches):
 def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos0, cache_pos0: int,
                      softmax_scale: float, k_scale=None, v_scale=None,
-                     partials: bool = False, q_pos0_max=None):
+                     partials: bool = False):
     """K9: q (B,T,H,Dh), k_cache (B,S,H,Dh), v_cache (B,S,H,Dv) in
     f32/f16/bf16, or int8 with k_scale/v_scale (B,H,S) f32 -> (B,T,H,Dv)
     float32; with ``partials`` (acc (B,T,H,Dv), m (B,T,H), l (B,T,H)).
-    ``q_pos0``: an int, or (B,) per-row starts with ``q_pos0_max``."""
+    ``q_pos0``: an int, or (B,) per-row starts (int32 on the card)."""
     if q.device.type == "cpu":
         return mha_prefill_attn_plain(q, k_cache, v_cache, q_pos0, cache_pos0,
                                       softmax_scale, k_scale, v_scale, partials)
@@ -175,11 +181,12 @@ def mha_prefill_attn(q: torch.Tensor, k_cache: torch.Tensor,
     _check_operands("mha_prefill_attn", (q,), (k_cache, v_cache))
     check_scales("mha_prefill_attn", k_cache, (k_scale, v_scale), (B, H, S))
     sb, sh, ss = head_major_strides("mha_prefill_attn", k_scale, v_scale)
-    q_host, q_rows = _row_starts("mha_prefill_attn", q_pos0, q_pos0_max, B, q.device)
+    q_host, q_rows = _row_starts("mha_prefill_attn", q_pos0, B, q.device)
     qf = q.float().contiguous()
     out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q.device)
-    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), False)
+    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), False,
+                                   per_row=bool(q_rows))
     scratch = _split_buffers(n_split, B * T * H, Dv, q.device)
     err = library("prefill_attn").mha_prefill(
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), data_ptr_or_0(k_scale),
@@ -198,12 +205,12 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                      q_pos0, cache_pos0: int, softmax_scale: float,
                      ckv_scale=None, krope_scale=None,
-                     partials: bool = False, q_pos0_max=None):
+                     partials: bool = False):
     """K10: q_c (B,T,H,R), q_rope (B,T,H,P), ckv_cache (B,S,R), krope_cache
     (B,S,P) in f32/f16/bf16, or int8 with ckv_scale/krope_scale (B,S) f32
     -> attended latents (B,T,H,R) float32; with ``partials`` (acc
     (B,T,H,R), m (B,T,H), l (B,T,H)). ``q_pos0``: an int, or (B,) per-row
-    starts with ``q_pos0_max``."""
+    starts (int32 on the card)."""
     if q_c.device.type == "cpu":
         return mla_prefill_attn_plain(q_c, q_rope, ckv_cache, krope_cache,
                                       q_pos0, cache_pos0, softmax_scale,
@@ -223,14 +230,15 @@ def mla_prefill_attn(q_c: torch.Tensor, q_rope: torch.Tensor,
     _check_operands("mla_prefill_attn", (q_c, q_rope), (ckv_cache, krope_cache))
     check_scales("mla_prefill_attn", ckv_cache, (ckv_scale, krope_scale), (B, S))
     q8 = ckv_cache.dtype == torch.int8
-    q_host, q_rows = _row_starts("mla_prefill_attn", q_pos0, q_pos0_max, B, q_c.device)
+    q_host, q_rows = _row_starts("mla_prefill_attn", q_pos0, B, q_c.device)
     cs = ckv_scale.contiguous() if q8 else None
     rs = krope_scale.contiguous() if q8 else None
     qc = q_c.float().contiguous()
     qr = q_rope.float().contiguous()
     out = torch.empty((B, T, H, R), dtype=torch.float32, device=q_c.device)
     m_out, l_out = stats_outputs(partials, (B, T, H), q_c.device)
-    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), True)
+    n_split, span = prefill_splits(B, T, H, S, q_host, int(cache_pos0), True,
+                                   per_row=bool(q_rows))
     scratch = _split_buffers(n_split, B * T * H, R, q_c.device)
     err = library("prefill_attn").mla_prefill(
         qc.data_ptr(), qr.data_ptr(), ckv_cache.data_ptr(),

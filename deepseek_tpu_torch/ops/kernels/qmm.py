@@ -154,6 +154,10 @@ ROW_TILE_MIN = 4
 _TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
 # the tile GEMM's MMA widths (kW0..kW3 there; the tests read both back)
 _TILE_WIDTHS = (16, 32, 64, _TILE)
+# verify mode's row slices (``qmm_tiled``): at most the narrow tiles' rows
+# (Slot::NARROW, 16 for the nibble and packed kinds), so that every slice
+# runs the narrow kernel at MMA width 16 whatever its live rows
+VERIFY_ROWS = _TILE_WIDTHS[0]
 _PLAIN_KIND = {torch.float32: 2, torch.float16: 3, torch.bfloat16: 4}   # csrc/qmm.cu
 _FP8_KIND = 5
 # K11 (csrc/gmm.cu): rows of x a tile (kBN there; the tests read it) and
@@ -417,6 +421,23 @@ def qmm_rows(qt: KNibbleTensor, x: torch.Tensor) -> torch.Tensor:
     _tile_gemm(x2, kind, p, a, c, off, (None, None), y, -(-rows // _TILE), d)
     qmm_rows.launches += 1
     return y
+
+
+def qmm_tiled(qt, x: torch.Tensor) -> torch.Tensor:
+    """The row-tiled route of a nibble, packed, turbo or blockwise fp8
+    weight at any row count, even at most ``ROW_TILE_MIN``: x (rows, n) ->
+    (rows, d) float32. Verify mode (``ops/matmul.py::qmatmul``) calls it
+    on slices of at most ``VERIFY_ROWS`` rows, each one narrow tile of MMA
+    width 16, so a row's bits do not follow the slice's other rows. An fp8
+    weight whose column blocks are no multiple of 64 has no tile route: it
+    takes its matvec, whose rows are likewise independent."""
+    if isinstance(qt, Fp8Tensor):
+        return qmm_fp8_rows(qt, x) if qt.block_size[1] % 64 == 0 else qmm_fp8(qt, x)
+    if isinstance(qt, PACKED):
+        return qmm_packed_rows(qt, x)
+    if isinstance(qt, TURBO):
+        return qmm_turbo_rows(qt, x)
+    return qmm_rows(qt, x)
 
 
 def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor,

@@ -30,6 +30,8 @@ h in its permuted order.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Tuple
 
@@ -39,8 +41,10 @@ import torch
 from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, ep_ownership
 from deepseek_tpu_torch.ops.kernels.qmm import (
-    PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, gmm, qmm, qmm_grouped,
+    PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, VERIFY_ROWS, gmm, qmm, qmm_grouped,
+    qmm_tiled,
 )
+from deepseek_tpu_torch.ops.norms import pad_rows
 from deepseek_tpu_torch.quant.qtensor import (
     PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor,
 )
@@ -64,8 +68,58 @@ def per_tensor_fp8(t) -> bool:
     return isinstance(t, Fp8Tensor) and t.per_tensor
 
 
+_VERIFY = contextvars.ContextVar("verify_chunk", default=False)
+
+
+@contextlib.contextmanager
+def verify_chunk():
+    """Verify mode (``forward_prefill`` with per-row starts: the batched
+    speculation's chunks of B x (k+1) rows). Inside it every product whose
+    formulation would follow the row count takes one formulation whatever
+    B is, so that a sequence's rows compute the bits they have when the
+    sequence is verified alone: ``qmatmul`` and ``row_slices`` run slices
+    of exactly ``VERIFY_ROWS`` rows, zero-padded (a kernel-backed weight on
+    its row-tiled route, ``qmm_tiled``: one narrow tile of MMA width 16 a
+    slice, even where the matvec would take the rows; a plain weight or a
+    library product one GEMM shape), and the MoE FFN picks the pair list
+    or the grouped products from one sequence's pairs
+    (``models/deepseek.py::_ffn``). K9/K10 plan their splits for per-row
+    starts without it (``prefill_splits(per_row=True)``) and rmsnorm needs
+    nothing (``ops/norms.py``)."""
+    token = _VERIFY.set(True)
+    try:
+        yield
+    finally:
+        _VERIFY.reset(token)
+
+
+def in_verify_chunk() -> bool:
+    return _VERIFY.get()
+
+
+def row_slices(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn over the rows of x (rows, ...) in slices of ``VERIFY_ROWS``, each
+    padded with zero rows to exactly that many, the results cut back and
+    joined: every row goes through the same shape of product."""
+    outs = []
+    for i in range(0, x.shape[0], VERIFY_ROWS):
+        xs = x[i:i + VERIFY_ROWS]
+        outs.append(fn(pad_rows(xs, VERIFY_ROWS))[:xs.shape[0]])
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
 def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
-    """x (..., in) @ W.T -> (..., out) in x's dtype, accumulated in f32."""
+    """x (..., in) @ W.T -> (..., out) in x's dtype, accumulated in f32;
+    inside ``verify_chunk`` in slices of ``VERIFY_ROWS`` rows."""
+    if _VERIFY.get() and x.numel():
+        x2 = x.reshape(-1, x.shape[-1])
+        if isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)) or (
+                isinstance(qt, Fp8Tensor) and not qt.per_tensor):
+            y = row_slices(lambda xs: qmm_tiled(qt, xs), x2)
+        else:
+            w = qt.dequant(torch.float32) if isinstance(qt, Fp8Tensor) else qt.data.float()
+            y = row_slices(lambda xs: torch.matmul(xs.float(), w.t()), x2)
+        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
     if isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)):
         return qmm(qt, x).to(x.dtype)
     if isinstance(qt, Fp8Tensor):

@@ -10,7 +10,9 @@ import torch
 # one row, 128 for four, a warp from 16 rows on), and cuBLAS its algorithm
 # from it, so fewer rows are padded with zero rows to this many, and a
 # decode row's norm and routing scores are the same bits whatever batch
-# it is decoded in.
+# it is decoded in. From 16 rows on the reduction keeps that configuration
+# (a warp a row) at any count, so a verify chunk's rows (B x (k+1) of them)
+# also normalize to the bits of their sequence alone.
 INVARIANT_ROWS = 16
 
 

@@ -109,9 +109,7 @@ def _unpack_planes(planes: torch.Tensor, bits: int) -> torch.Tensor:
     """(..., d, n*bits/8) 2-bit (bits=2) or 1-bit planes -> (..., d, n)
     values in the NATURAL column order."""
     mask = (1 << bits) - 1
-    perm = torch.cat([(planes >> s) & mask for s in range(0, 8, bits)], dim=-1)
-    inv = torch.as_tensor(stride16_inv_perm(perm.shape[-1]), device=perm.device)
-    return perm.index_select(-1, inv)
+    return unperm_x(torch.cat([(planes >> s) & mask for s in range(0, 8, bits)], dim=-1))
 
 
 def _rep16(t: torch.Tensor) -> torch.Tensor:
@@ -234,9 +232,7 @@ class Q3KTurboTensor:
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         reps = (1,) * (self.a.dim() - 1) + (16,)
-        w = self.a.to(dtype).repeat(reps) * self.p.to(dtype)
-        inv = torch.as_tensor(stride16_inv_perm(self.p.shape[-1]), device=w.device)
-        return w.index_select(-1, inv)
+        return unperm_x(self.a.to(dtype).repeat(reps) * self.p.to(dtype))
 
 
 TURBO = (Q2KTurboTensor, Q3KTurboTensor)
@@ -297,14 +293,12 @@ class KNibbleTensor:
                              off=self.off, rowperm=self.rowperm)
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
-        n = 2 * self.p.shape[-1]
         u = torch.cat([self.p & 0xF, self.p >> 4], dim=-1).to(dtype)
         reps = (1,) * (self.a.dim() - 1) + (16,)
         w = self.a.to(dtype).repeat(reps) * (u - float(self.off))
         if self.c is not None:
             w = w - self.c.to(dtype).repeat(reps)
-        inv = torch.as_tensor(stride16_inv_perm(n), device=w.device)
-        w = w.index_select(-1, inv)
+        w = unperm_x(w)
         if self.rowperm:
             # stored position o*(mh/16) + g of each part holds natural row
             # g*16 + o: the inverse is a (16, mh/16) -> (mh/16, 16) transpose

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 
 from deepseek_tpu_torch.quant.kquant import (
-    QK_K, q2k_fields, q3k_fields, unpack_q3_scales, unpack_qs_2bit,
+    QK_K, q2k_fields, q3k_fields, unpack_q3_scales,
 )
 
 
@@ -35,6 +35,21 @@ def stride16_perm(n: int) -> np.ndarray:
 def stride16_inv_perm(n: int) -> np.ndarray:
     """inv[orig] = permuted position of original column orig."""
     return np.argsort(stride16_perm(n)).astype(np.int64)
+
+
+def _perm16(q: np.ndarray) -> np.ndarray:
+    """(..., n) -> the stride-16 permuted order (``q[..., stride16_perm(n)]``,
+    as a (n/16, 16) transpose)."""
+    *lead, n = q.shape
+    return q.reshape(*lead, n // 16, 16).swapaxes(-1, -2).reshape(*lead, n)
+
+
+def _unpack_2bit_u8(qs: np.ndarray) -> np.ndarray:
+    """(..., 64) packed qs bytes -> (..., 256) uint8 values in [0,3]
+    (``kquant.unpack_qs_2bit`` without its int32 widening)."""
+    q = qs.reshape(*qs.shape[:-1], 2, 1, 32)
+    shifts = np.array([0, 2, 4, 6], dtype=np.uint8).reshape(4, 1)
+    return ((q >> shifts) & 3).reshape(*qs.shape[:-1], 256)
 
 
 def _plane_pack_2bit(q: np.ndarray) -> np.ndarray:
@@ -66,8 +81,7 @@ def repack_q2k(raw: np.ndarray, rows: int, cols: int
     assert raw.shape[-2] == rows
     nbr = cols // QK_K
     scales, qs, d, dmin = q2k_fields(raw)
-    q = unpack_qs_2bit(qs.reshape(-1, 64)).reshape(*lead, rows, nbr * QK_K)
-    q = q[..., stride16_perm(nbr * QK_K)]
+    q = _perm16(_unpack_2bit_u8(qs).reshape(*lead, rows, nbr * QK_K))
     sm = scales.reshape(*lead, rows, nbr * 16)
     return (_plane_pack_2bit(q),
             np.ascontiguousarray(sm),
@@ -85,12 +99,11 @@ def repack_q3k(raw: np.ndarray, rows: int, cols: int
     nbr = cols // QK_K
     hmask, qs, scales, d = q3k_fields(raw)
     n = nbr * QK_K
-    perm = stride16_perm(n)
-    qlow = unpack_qs_2bit(qs.reshape(-1, 64)).reshape(*lead, rows, n)[..., perm]
+    qlow = _perm16(_unpack_2bit_u8(qs).reshape(*lead, rows, n))
     pos = np.arange(QK_K)
     # high bit: byte pos%32, bit pos//32 within each super-block
-    hb = ((hmask[..., pos % 32] >> (pos // 32)) & 1)
-    hb = hb.reshape(*lead, rows, n)[..., perm]
+    hb = ((hmask[..., pos % 32] >> (pos // 32).astype(np.uint8)) & 1)
+    hb = _perm16(hb.reshape(*lead, rows, n))
     sc6 = unpack_q3_scales(scales.reshape(-1, 12)).reshape(*lead, rows, nbr * 16)
     return (_plane_pack_2bit(qlow),
             _plane_pack_1bit(hb),

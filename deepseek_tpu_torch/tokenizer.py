@@ -9,7 +9,9 @@ when decoding the token immediately after BOS.
 
 The trie here is a flat transition table over bytes (array-based DAWG-style),
 which makes encode O(len) with small constants in pure Python. This is the
-port's copy of ``deepseek_tpu/tokenizer.py`` without its native fast path.
+port's copy of ``deepseek_tpu/tokenizer.py``, with its native fast path
+(``native/tokenizer.cpp``, the same semantics; the tests assert equality)
+where that library builds and ``DSEEK_NO_NATIVE`` is not 1.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ class Tokenizer:
                 node = nxt
             self._token_at[node] = tid
 
+        # native C++ trie fast path (native/tokenizer_native.py)
+        from deepseek_tpu_torch.native import tokenizer_native
+        self._native = (tokenizer_native.NativeEncoder(self.vocab, self.byte_fallback_start)
+                        if tokenizer_native.available() else None)
+
     @classmethod
     def from_checkpoint(cls, data: CheckpointData) -> "Tokenizer":
         vocab = unpack_tokenizer_tokens(data["tokenizer.tokens"])
@@ -71,6 +78,9 @@ class Tokenizer:
         out: List[int] = []
         if bos:
             out.append(self.bos_id)
+        if self._native is not None:
+            out.extend(self._native.encode(data))
+            return out
         children = self._children
         token_at = self._token_at
         i = 0

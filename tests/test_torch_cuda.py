@@ -1687,19 +1687,19 @@ def test_k5_fp8_mv_small_block_passes(rows, x_dtype, dev):
 ])
 def test_k9_per_row_starts_match_plain(dtype, H, S, DK, DV, starts, dev):
     """K9 with a (B,) int32 start vector on the card (verify mode: row b's
-    queries at starts[b] + t) against its plain version, split windows
-    sized for the largest start; counted in ``.per_row``. Tolerance as
-    K9's."""
+    queries at starts[b] + t) against its plain version, the window split
+    by one sequence's plan; counted in ``.per_row``. Tolerance as K9's.
+    Starts of another dtype raise."""
     B, T = len(starts), 5
     q, k, v = _prefill_inputs(B, T, H, S, DK, DV, S, dtype, dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     scale = 1.0 / math.sqrt(DK)
     before = mha_prefill_attn.per_row.launches
-    _close(mha_prefill_attn(q, k, v, st, 0, scale, q_pos0_max=max(starts)),
+    _close(mha_prefill_attn(q, k, v, st, 0, scale),
            mha_prefill_attn_plain(q, k, v, st, 0, scale), 1e-4)
     assert mha_prefill_attn.per_row.launches == before + 1
-    with pytest.raises(ValueError, match="q_pos0_max"):
-        mha_prefill_attn(q, k, v, st, 0, scale)
+    with pytest.raises(ValueError, match="int32"):
+        mha_prefill_attn(q, k, v, st.long(), 0, scale)
 
 
 @pytest.mark.cuda
@@ -1728,7 +1728,7 @@ def test_k10_per_row_starts_match_plain(dtype, H, S, R, P, starts, dev):
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     scale = 1.0 / math.sqrt(192)
     before = mla_prefill_attn.per_row.launches
-    _close(mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale, q_pos0_max=max(starts), **sc),
+    _close(mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale, **sc),
            mla_prefill_attn_plain(qc, qr, ckv, kr, st, 0, scale, **sc), 1e-4)
     assert mla_prefill_attn.per_row.launches == before + 1
 
@@ -1823,3 +1823,149 @@ def test_batched_decode_row_is_the_row_alone(B, dev):
                 want = forward_decode(params, alone[b], tok[b:b + 1], int(pos[b]) + step,
                                       cfg)
                 assert torch.equal(got[b], want[0]), (step, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q3_k", "q2_k_turbo", "q3_k_nibble"])
+def test_verify_chunk_rows_are_the_rows_alone(quant, dev):
+    """Batch-invariant verify chunks: forward_prefill's verify mode (per-row
+    starts, ``logits_mode="all"``) over B = 2 and 4 sequences at spec_k 1-4
+    (B x (k+1) rows: up to 20, past the narrow tiles' 16 and the pair
+    list's 128 pairs at 8 experts a token) gives each sequence's rows the
+    bits of the same chunk verified alone (B = 1), f32 compute."""
+    from deepseek_tpu_torch.models.deepseek import forward_prefill
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fused_params)
+    cfg = dataclasses.replace(deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=16, n_active_routed=8,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512),
+        compute_dtype="float32")
+    params = random_fused_params(cfg, quant, seed=5, device=dev)
+    starts = np.array([37, 300, 5, 1100])
+    g = torch.Generator().manual_seed(6)
+    hydrated = []
+    with torch.inference_mode():
+        for s in starts:
+            c = init_cache(cfg, device=dev)
+            forward_prefill(params, c, torch.randint(3, cfg.vocab_size, (1, int(s)),
+                                                     generator=g).to(dev), 0, cfg,
+                            logits_mode="none")
+            hydrated.append(c)
+
+        def rows_of(seqs):      # a fresh batch cache holding these sequences
+            return dataclasses.replace(hydrated[0], **{
+                f.name: torch.cat([getattr(hydrated[i], f.name) for i in seqs], dim=1)
+                for f in dataclasses.fields(hydrated[0])
+                if isinstance(getattr(hydrated[0], f.name), torch.Tensor)})
+
+        for k in (1, 2, 3, 4):
+            tok = torch.randint(3, cfg.vocab_size, (4, k + 1), generator=g).to(dev)
+            alone = [forward_prefill(params, rows_of([b]), tok[b:b + 1], starts[b:b + 1],
+                                     cfg, logits_mode="all")[0] for b in range(4)]
+            for B in (2, 4):
+                got = forward_prefill(params, rows_of(range(B)), tok[:B], starts[:B], cfg,
+                                      logits_mode="all")
+                for b in range(B):
+                    assert torch.equal(got[b], alone[b]), (quant, k, B, b)
+
+
+def _tiny_hf_dir(path, v3):
+    """A tiny HF DeepSeek directory (the layout of tests/util_hf.py),
+    written with the port's codec: 2 layers (dense, MoE), f32 weights."""
+    import json
+    import os
+
+    from deepseek_tpu_torch.utils import codec
+    dim, H, nope, rope, v, q_lora, kv_lora, m, E = 256, 2, 128, 64, 128, 256, 256, 256, 4
+    cfg = {"architectures": ["DeepseekV3ForCausalLM" if v3 else "DeepseekV2ForCausalLM"],
+           "hidden_size": dim, "intermediate_size": 512, "num_hidden_layers": 2,
+           "num_attention_heads": H, "vocab_size": 300, "bos_token_id": 1,
+           "eos_token_id": 2, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+           "hidden_act": "silu", "first_k_dense_replace": 1, "kv_lora_rank": kv_lora,
+           "q_lora_rank": q_lora, "qk_nope_head_dim": nope, "qk_rope_head_dim": rope,
+           "v_head_dim": v, "n_shared_experts": 1, "n_routed_experts": E,
+           "num_experts_per_tok": 2, "moe_intermediate_size": m,
+           "routed_scaling_factor": 1.0, "n_group": 2, "norm_topk_prob": False,
+           "scoring_func": "sigmoid" if v3 else "softmax", "topk_group": 1,
+           "topk_method": "noaux_tc" if v3 else "greedy", "tie_word_embeddings": False,
+           "rope_scaling": {"type": "yarn", "beta_fast": 32, "beta_slow": 1,
+                            "factor": 40, "mscale": 0.707, "mscale_all_dim": 0.707,
+                            "original_max_position_embeddings": 24}}
+    rng = np.random.default_rng(3)
+    w = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)     # noqa: E731
+    one = lambda n: (1 + 0.1 * rng.standard_normal(n)).astype(np.float32)  # noqa: E731
+    t = {"model.embed_tokens.weight": w(300, dim), "model.norm.weight": one(dim),
+         "lm_head.weight": w(300, dim)}
+    for layer in range(2):
+        p = f"model.layers.{layer}"
+        t.update({f"{p}.input_layernorm.weight": one(dim),
+                  f"{p}.post_attention_layernorm.weight": one(dim),
+                  f"{p}.self_attn.kv_a_proj_with_mqa.weight": w(kv_lora + rope, dim),
+                  f"{p}.self_attn.kv_a_layernorm.weight": one(kv_lora),
+                  f"{p}.self_attn.kv_b_proj.weight": w(H * (nope + v), kv_lora),
+                  f"{p}.self_attn.o_proj.weight": w(dim, H * v),
+                  f"{p}.self_attn.q_a_proj.weight": w(q_lora, dim),
+                  f"{p}.self_attn.q_a_layernorm.weight": one(q_lora),
+                  f"{p}.self_attn.q_b_proj.weight": w(H * (nope + rope), q_lora)})
+        if layer == 0:
+            t.update({f"{p}.mlp.gate_proj.weight": w(512, dim),
+                      f"{p}.mlp.down_proj.weight": w(dim, 512),
+                      f"{p}.mlp.up_proj.weight": w(512, dim)})
+            continue
+        t[f"{p}.mlp.gate.weight"] = w(E, dim)
+        if v3:
+            t[f"{p}.mlp.gate.e_score_correction_bias"] = w(E)
+        for e in range(E):
+            t.update({f"{p}.mlp.experts.{e}.gate_proj.weight": w(m, dim),
+                      f"{p}.mlp.experts.{e}.down_proj.weight": w(dim, m),
+                      f"{p}.mlp.experts.{e}.up_proj.weight": w(m, dim)})
+        t.update({f"{p}.mlp.shared_experts.gate_proj.weight": w(m, dim),
+                  f"{p}.mlp.shared_experts.down_proj.weight": w(dim, m),
+                  f"{p}.mlp.shared_experts.up_proj.weight": w(m, dim)})
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"model_max_length": 128}, f)
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2, **{f"<0x{i:02X}>": 3 + i for i in range(256)}}
+    vocab.update({f"tok{i}": i for i in range(259, 300)})
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"vocab": vocab, "byte_fallback": True}, "added_tokens": []}, f)
+    codec.save_shard(os.path.join(path, "model.safetensors"), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v3,kw", [
+    (False, {}), (True, dict(quant="q3_k", use_mla=True)),
+    (True, dict(quant="f8e5m2", use_mla=True)), (False, dict(quant="f8e5m2", bsize=0))])
+def test_conversion_on_the_card_equals_the_cpus(v3, kw, dev, tmp_path, monkeypatch):
+    """``convert(device="cuda")`` (the HF tensors dequantized, absorbed and
+    quantized in torch on the card, copied there in 64 KiB slices) writes
+    the bytes of the same conversion on the CPU, every tensor but attn.wc
+    (an f64 product on both: within 1e-6 of its scale after
+    dequantization)."""
+    from deepseek_tpu_torch import convert as cv
+    from deepseek_tpu_torch.convert import convert
+    monkeypatch.setattr(cv, "FETCH_BYTES", 1 << 16)
+    from deepseek_tpu_torch.engine import Engine
+    from deepseek_tpu_torch.models.loader import unfuse_projections
+    from deepseek_tpu_torch.utils.codec import load_checkpoint
+    hf = str(tmp_path / "hf")
+    _tiny_hf_dir(hf, v3)
+    convert(hf, str(tmp_path / "card"), device=dev, **kw)
+    convert(hf, str(tmp_path / "cpu"), device="cpu", **kw)
+    a, b = load_checkpoint(str(tmp_path / "card")), load_checkpoint(str(tmp_path / "cpu"))
+    assert a.metadata == b.metadata and set(a.tensors) == set(b.tensors)
+    for name in a.tensors:
+        if ".attn.wc." not in name:
+            assert np.array_equal(np.asarray(a[name]).view(np.uint8),
+                                  np.asarray(b[name]).view(np.uint8)), name
+    if kw.get("use_mla"):
+        pa, pb = (unfuse_projections(e.params, e.cfg) for e in (
+            Engine(str(tmp_path / "card"), device="cpu"),
+            Engine(str(tmp_path / "cpu"), device="cpu")))
+        for la, lb in zip(pa.layers, pb.layers):
+            wa, wb = la.wc.dequant(torch.float32), lb.wc.dequant(torch.float32)
+            assert float((wa - wb).abs().max()) <= 1e-6 * float(wb.abs().max())

@@ -134,8 +134,10 @@ def test_greedy_tokens_identical(ckpt):
 
 
 def test_engine_rejects_unported_options(ckpt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(ckpt["dir"], device="cpu", scan_layers=True)
+    # scan_layers is accepted (the layers run one after another either way);
+    # a value the JAX Engine does not take raises
+    with pytest.raises(ValueError, match="scan_layers"):
+        Engine(ckpt["dir"], device="cpu", scan_layers="always")
     # the int8 cache is ported: its greedy tokens are the JAX int8 Engine's
     eng8 = Engine(ckpt["dir"], context=CONTEXT, device="cpu", seed=0,
                   kv_cache_dtype="int8", kquant_runtime="nibble")

@@ -225,7 +225,7 @@ def test_prefill_plain_per_row_starts_match_jax(wrapper):
     t = torch.from_numpy
     row = t(starts.astype(np.int32))
     mha = mha_prefill_attn if wrapper else mha_prefill_attn_plain
-    got = mha(t(q), t(k), t(v), row, 0, 0.3, **({"q_pos0_max": 20} if wrapper else {}))
+    got = mha(t(q), t(k), t(v), row, 0, 0.3)
     want = np.asarray(jax_attn.prefill_attn_mha(jnp.asarray(q), jnp.asarray(k),
                                                  jnp.asarray(v), pos_vec, cache_pos,
                                                  softmax_scale=0.3))
@@ -233,8 +233,7 @@ def test_prefill_plain_per_row_starts_match_jax(wrapper):
     qc, qr = _rnd((B, T, H, R), 4), _rnd((B, T, H, P), 5)
     ckv, kr = _rnd((B, S, R), 6), _rnd((B, S, P), 7)
     mla = mla_prefill_attn if wrapper else mla_prefill_attn_plain
-    got = mla(t(qc), t(qr), t(ckv), t(kr), row, 0, 0.3,
-              **({"q_pos0_max": 20} if wrapper else {}))
+    got = mla(t(qc), t(qr), t(ckv), t(kr), row, 0, 0.3)
     want = np.asarray(jax_attn.prefill_attn_mla(
         jnp.asarray(qc), jnp.asarray(qr), jnp.asarray(ckv), jnp.asarray(kr), pos_vec,
         cache_pos, R + P, softmax_scale=0.3))
