@@ -3621,33 +3621,48 @@ def session_phase(counts, runs):
 # ---------------------------------------------------------------------------
 
 DATA_REQS = (0, 1, 2, 5)   # of serving_requests: 1 and 5 share a prefix, 2 samples
-# (cell, mesh axes, the (model, spec) jobs each rank serves)
-DATA_CELLS = (("data=2", dict(data=2), (("v3", None), ("v3", "ngram"), ("v2", None))),
-              ("data=2 x expert=2", dict(data=2, expert=2), (("v3", None),)))
+# (cell, mesh axes, the (model, spec, batch size) jobs each rank serves): a
+# batch of 4 serves the DATA_REQS requests, a batch of 8 all 8 of the mix
+DATA_CELLS = (("data=2", dict(data=2), (("v3", None, 4), ("v3", "ngram", 4),
+                                        ("v3", None, 8), ("v2", None, 4))),
+              ("data=2 x expert=2", dict(data=2, expert=2), (("v3", None, 4),)))
 # the kernels each job's serving run must launch
-DATA_KERNELS = {("v3", None): ("K10", "K5r-packed", "K6-packed", "K3", "K5-packed",
-                               "K2-packed"),
-                ("v3", "ngram"): ("K10", "K10-rows", "K5r-packed", "K3", "K2-packed"),
-                ("v2", None): ("K9", "K5r", "K6-fp8", "K8", "K5", "K2-fp8")}
+DATA_KERNELS = {("v3", None, 4): ("K10", "K5r-packed", "K6-packed", "K3", "K5-packed",
+                                  "K2-packed"),
+                ("v3", "ngram", 4): ("K10", "K10-rows", "K5r-packed", "K3", "K2-packed"),
+                ("v3", None, 8): ("K10", "K5r-packed", "K6-packed", "K3", "K5-packed",
+                                  "K2-packed"),
+                ("v2", None, 4): ("K9", "K5r", "K6-fp8", "K8", "K5", "K2-fp8")}
+# the unsharded jobs whose greedy requests are also served alone (a batch of
+# 1) and must be those rows bit for bit: the MHA draw (K8's spans) and the
+# batch of 8 (decode past 4 rows on the matvec)
+DATA_ALONE = (("v3", None, 8), ("v2", None, 4))
 
 
-def data_requests(eng):
-    """The DATA_REQS requests of the serving phase's mix (``serving_requests``,
-    the same seed), as plain dicts a rank can rebuild."""
+def data_job_name(cell, job):
+    model, spec, batch = job
+    return (f"{cell} {model} serving" + (f" {spec}" if spec else "")
+            + (f" batch {batch}" if batch != 4 else ""))
+
+
+def data_requests(eng, batch=4):
+    """The requests of the serving phase's mix (``serving_requests``, the
+    same seed) that a batch of ``batch`` serves (DATA_REQS, or all 8), as
+    plain dicts a rank can rebuild."""
     reqs = serving_requests(eng, np.random.default_rng(SEED + 53))
     return [dict(prompt_tokens=r.prompt_tokens, max_new_tokens=r.max_new_tokens,
                  temperature=r.temperature, top_p=r.top_p, top_k=r.top_k, logprobs=True)
-            for i, r in enumerate(reqs) if i in DATA_REQS]
+            for i, r in enumerate(reqs) if batch == 8 or i in DATA_REQS]
 
 
-def data_serve(eng, reqs, mesh=None, spec=None, sched=None):
-    """BatchScheduler(batch_size=4, logprobs=True, prefix_cache_mb=64) (or
-    ``sched``, made so) over ``reqs``: (scheduler, finished requests in
+def data_serve(eng, reqs, mesh=None, spec=None, sched=None, batch=4):
+    """BatchScheduler(batch_size=batch, logprobs=True, prefix_cache_mb=64)
+    (or ``sched``, made so) over ``reqs``: (scheduler, finished requests in
     order, wall seconds)."""
     from deepseek_tpu_torch.serving import BatchScheduler, Request
 
     if sched is None:
-        sched = BatchScheduler(eng, batch_size=4, logprobs=True, prefix_cache_mb=64,
+        sched = BatchScheduler(eng, batch_size=batch, logprobs=True, prefix_cache_mb=64,
                                mesh=mesh, spec=spec)
     for r in reqs:
         sched.submit(Request(**r))
@@ -3676,7 +3691,7 @@ def data_rank(rank, world, shape, jobs, reqs_of):
     counts, clock = counters(), CollectiveClock()
     out = {"coords": (mesh.data_index, mesh.expert_index)}
     drawn = {}
-    for j, (model, spec) in enumerate(jobs):
+    for j, (model, spec, batch) in enumerate(jobs):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         if model not in drawn:
@@ -3684,9 +3699,9 @@ def data_rank(rank, world, shape, jobs, reqs_of):
             drawn[model] = mesh_model(model)
         params, cfg = drawn[model]
         eng = params_engine(params, cfg)
-        sched = BatchScheduler(eng, batch_size=4, logprobs=True, prefix_cache_mb=64,
+        sched = BatchScheduler(eng, batch_size=batch, logprobs=True, prefix_cache_mb=64,
                                mesh=mesh, spec=spec)
-        if all(m != model for m, _ in jobs[j + 1:]):
+        if all(m != model for m, _, _ in jobs[j + 1:]):
             eng.params = sched.params            # the whole draw is no longer needed
             drawn.clear()
         del params
@@ -3694,9 +3709,9 @@ def data_rank(rank, world, shape, jobs, reqs_of):
         resident = torch.cuda.memory_allocated()
         clock.reset()
         reset(counts)
-        sched, done, wall = data_serve(eng, reqs_of[model], sched=sched)
+        sched, done, wall = data_serve(eng, reqs_of[(model, batch)], sched=sched)
         launched = read(counts)
-        out[(model, spec)] = dict(
+        out[(model, spec, batch)] = dict(
             toks=[r.out_tokens for r in done], lps=[r.out_logprobs for r in done],
             launched=launched, wall=wall, coll=(clock.seconds, clock.calls),
             peak=torch.cuda.max_memory_allocated(), resident=resident,
@@ -3711,51 +3726,73 @@ def data_serving_phase(counts, runs):
     first (the reference: the V3-width packed Q3_K draw cut to 4 layers and
     the V2-Lite-width F8E5M2 draw cut to 2, f32 compute, bf16 cache, the
     DATA_REQS requests of the serving phase's mix through
-    BatchScheduler(batch_size=4, logprobs=True, prefix_cache_mb=64)), then
-    each DATA_CELLS cell's gloo ranks on the one card serve the same
-    requests through the scheduler over the mesh, each rank holding 2 of
-    the 4 batch rows (K3 at 2 rows, K5 packed at 2 rows, K2 over 2 tokens'
-    pairs; MHA: K8 and K9 over a batch cut in two): greedy requests the
-    unsharded run's tokens (near ties allowed), their log-probs within
-    SERVE_TOL of the unsharded run's, every rank the same tokens and
-    log-probs (the sampled request too, drawn under each data shard's
-    folded key), the prefix-cache hit; spec="ngram" at data=2 (K10 with
-    per-row starts at 2 rows) against the unsharded batch-4 spec scheduler:
-    greedy tokens and log-probs bit for bit (a verify chunk's rows compute
-    the bits of their sequence alone, whatever the chunk's B:
-    ``ops/matmul.py::verify_chunk``). Logs each rank's wall, time in
-    collectives, peak and resident memory."""
+    BatchScheduler(batch_size=4, logprobs=True, prefix_cache_mb=64), and
+    all 8 of the mix at batch_size=8 on the V3 draw), then each DATA_CELLS
+    cell's gloo ranks on the one card serve the same requests through the
+    scheduler over the mesh, each rank holding half the batch rows (K3 at 2
+    or 4 rows, K5 packed at 2 or 4 rows, K2 over 2 or 4 tokens' pairs; MHA:
+    K8 and K9 over a batch cut in two): greedy requests the unsharded run's
+    tokens (near ties allowed), their log-probs within SERVE_TOL of the
+    unsharded run's, every rank the same tokens and log-probs (the sampled
+    request too, drawn under each data shard's folded key), the
+    prefix-cache hit. At data=2 every job's greedy tokens and log-probs
+    must be the unsharded scheduler's bit for bit: a served row computes
+    the bits of its sequence alone, whatever its batch (decode up to
+    DECODE_INVARIANT_ROWS rows: one sequence's K3 and K8 spans, the
+    projections on the matvec; verify chunks: ``ops/matmul.py::
+    verify_chunk``), so also the DATA_ALONE jobs' greedy requests served
+    alone (batch 1). Logs the decode step's wall at B = 4 and 8, and each
+    rank's wall, time in collectives, peak and resident memory."""
     from deepseek_tpu_torch.parallel.launch import launch
 
     t_phase = time.perf_counter()
-    ref, reqs_of = {}, {}
+    ref, reqs_of, failed = {}, {}, []
     for model in ("v3", "v2"):
         params, cfg = mesh_model(model)
         eng = params_engine(params, cfg)
-        reqs = reqs_of[model] = data_requests(eng)
-        greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0 or r["top_k"] == 1]
-        for spec in {"v3": (None, "ngram"), "v2": (None,)}[model]:
+        for job in (j for j in DATA_CELLS[0][2] if j[0] == model):
+            _, spec, batch = job
+            reqs = reqs_of[(model, batch)] = data_requests(eng, batch)
+            greedy = [i for i, r in enumerate(reqs)
+                      if r["temperature"] == 0.0 or r["top_k"] == 1]
+            label = "data mesh: " + data_job_name("unsharded", job)
             if spec is None:
-                label = f"data mesh: unsharded {model} serving"
                 (sched, done, wall), launched = drive(
-                    counts, DATA_KERNELS[(model, None)], label, lambda: data_serve(eng, reqs))
-                runs[f"unsharded {model} serving"] = launched
+                    counts, DATA_KERNELS[job], label,
+                    lambda: data_serve(eng, reqs, batch=batch))
+                runs[data_job_name("unsharded", job)] = launched
             else:
-                label = f"data mesh: unsharded {model} serving {spec}"
-                sched, done, wall = data_serve(eng, reqs, spec=spec)
+                sched, done, wall = data_serve(eng, reqs, spec=spec, batch=batch)
             toks = [r.out_tokens for r in done]
             teach = {i: teacher_logits(eng, reqs[i]["prompt_tokens"], toks[i]) for i in greedy}
             n_tok = sum(len(t) for t in toks)
-            ref[(model, spec)] = dict(toks=toks, lps=[r.out_logprobs for r in done],
-                                      teach=teach, greedy=greedy)
+            ref[job] = dict(toks=toks, lps=[r.out_logprobs for r in done],
+                            teach=teach, greedy=greedy)
             log(f"{label}: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.2f} tok/s), prompts "
                 f"{[len(r['prompt_tokens']) for r in reqs]}, greedy {greedy}, prefix cache "
                 f"{sched.prefix_cache.stats}, spec {sched.spec_stats}")
             del sched
+            if job in DATA_ALONE:
+                _, alone, wall = data_serve(eng, reqs, batch=1)
+                same = all(alone[i].out_tokens == toks[i]
+                           and alone[i].out_logprobs == ref[job]["lps"][i] for i in greedy)
+                gap = max(float(np.abs(np.asarray(alone[i].out_logprobs)
+                                       - np.asarray(ref[job]["lps"][i])).max())
+                          if len(alone[i].out_logprobs) == len(ref[job]["lps"][i])
+                          else float("inf") for i in greedy)
+                log(f"{label}: greedy requests {greedy} served alone (batch 1, {wall:.3f} s): "
+                    f"tokens and log-probs bit-equal to the batch of {batch}'s: {same} (max "
+                    f"abs log-prob diff {gap:.3e})")
+                if not same:
+                    failed.append(f"{label}: greedy rows differ from the rows alone by "
+                                  f"{gap:.3e}")
+            if job == ("v3", None, 8):
+                walls = decode_step_walls(params, cfg)
+                log(f"{label}: decode step wall, median of {DECODE_WALL_STEPS} synchronized "
+                    f"steps: B = 4 {walls[4]:.3f} ms, B = 8 {walls[8]:.3f} ms ({card_line()})")
         del params, eng
         torch.cuda.empty_cache()
     log(f"data mesh: unsharded reference runs in {time.perf_counter() - t_phase:.1f} s")
-    failed = []
     for cell, shape, jobs in DATA_CELLS:
         t0 = time.perf_counter()
         n = math.prod(shape.values())
@@ -3765,8 +3802,8 @@ def data_serving_phase(counts, runs):
             f"{time.perf_counter() - t0:.1f} s (spawn and draws included); coordinates "
             f"(data, expert) {[r['coords'] for r in ranks]}")
         for job in jobs:
-            model, spec = job
-            name = f"{cell} {model} serving" + (f" {spec}" if spec else "")
+            model, spec, batch = job
+            name = data_job_name(cell, job)
             want = ref[job]
             for r, res in enumerate(ranks):
                 got = res[job]
@@ -3794,17 +3831,17 @@ def data_serving_phase(counts, runs):
                     f"{ {k: v for k, v in got['launched'].items() if v} }")
                 if not worst <= SERVE_TOL:
                     failed.append(f"{name}, rank {r}: log-probs off the unsharded run's")
-                if spec is not None:
+                if cell == "data=2":
                     # the greedy requests; the sampled one draws under each
                     # data shard's folded key, as the JAX mesh scheduler does
                     same = all(got["toks"][i] == want["toks"][i]
                                and got["lps"][i] == want["lps"][i] for i in want["greedy"])
                     log(f"{name}, rank {r}: greedy requests {want['greedy']}' tokens and "
-                        f"log-probs bit-equal to the unsharded batch-4 spec scheduler's: "
-                        f"{same}")
+                        f"log-probs bit-equal to the unsharded batch-{batch} scheduler's: "
+                        f"{same} (max abs log-prob diff {worst:.3e})")
                     if not same:
                         failed.append(f"{name}, rank {r}: greedy tokens or log-probs not "
-                                      f"bit-equal to the unsharded spec scheduler's")
+                                      f"bit-equal to the unsharded scheduler's")
                 if not all(np.isfinite(lp).all() and max(lp, default=0.0) <= 0.0
                            for lp in got["lps"]):
                     failed.append(f"{name}, rank {r}: a log-prob is not finite or above 0")
@@ -3823,6 +3860,34 @@ def data_serving_phase(counts, runs):
     log(f"data mesh phase: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
     if failed:
         raise RuntimeError("data mesh: " + "; ".join(failed))
+
+
+DECODE_WALL_STEPS = 20
+
+
+def decode_step_walls(params, cfg, batches=(4, 8)):
+    """The median wall ms of DECODE_WALL_STEPS decode steps (forward_decode,
+    the card synchronized around each) over B fresh rows at positions 300,
+    350, ... for each B of ``batches``."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+
+    out = {}
+    for B in batches:
+        cache = init_cache(cfg, batch=B, device="cuda")
+        tok = torch.full((B, 1), 7, dtype=torch.int64, device="cuda")
+        pos = 300 + 50 * np.arange(B)
+        walls = []
+        with torch.inference_mode():
+            for i in range(DECODE_WALL_STEPS + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward_decode(params, cache, tok, pos + i, cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        out[B] = 1e3 * float(np.median(walls[2:]))
+        del cache
+    return out
 
 
 def data_kernel_entries(entries):
@@ -4962,13 +5027,20 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     kr = torch.randn((4, S, P), generator=gen, device="cuda").to(dt)
     kl = torch.tensor(kv, device="cuda", dtype=torch.int32)
     scale = cfg.attn_softmax_scale()
+    # the library yardstick: SDPA over the latent rows seen by every head,
+    # each row's live prefix by a per-row mask
+    dmask = torch.arange(S, device="cuda")[None] < kl[:, None]
+    k_s = torch.cat([ckv, kr], -1)[:, None].expand(4, H, S, R + P)
+    v_s = ckv[:, None].expand(4, H, S, R)
+    q_s = torch.cat([qc, qr], -1)[:, :, None].to(dt)
     emit(f"K3 mla_decode_attn (serving batch 4, kv_len {kv}) H={H}",
          lambda: mla_decode_attn(qc, qr, ckv, kr, kl, scale),
          lambda: mla_decode_attn_plain(qc, qr, ckv, kr, kl, scale), 1e-4,
          sum(kv) * (R + P) * ckv.element_size() + nbytes(qc, qr) + 16 * H * R,
          2.0 * H * sum(kv) * (2 * R + P), "deepseek_tpu_torch/csrc/prefill_attn.cu",
          "deepseek_tpu/ops/pallas/attention.py:170 (mla_decode_attn, pallas_call :221)",
-         "K3")
+         "K3", library=lambda: torch.nn.functional.scaled_dot_product_attention(
+             q_s, k_s, v_s, attn_mask=dmask[:, None, None], scale=scale))
     T, starts = 5, [600, 37, 2400, 4000]
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
     qc = torch.randn((4, T, H, R), generator=gen, device="cuda") * 0.3
@@ -4976,7 +5048,7 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     seen = sum(s + T for s in starts)
     vmask = (torch.arange(S, device="cuda")[None, None]
              <= st[:, None, None] + torch.arange(T, device="cuda")[None, :, None])
-    q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(torch.bfloat16).contiguous()
+    q_v = torch.cat([qc, qr], -1).transpose(1, 2).to(dt).contiguous()
     e = emit_spec(f"K10 mla_prefill_attn per-row starts {starts} (4 verify chunks of {T} "
                   f"rows) S={S} H={H}",
                   lambda: mla_prefill_attn(qc, qr, ckv, kr, st, 0, scale),
@@ -4989,7 +5061,7 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
                       q_v, k_s, v_s, attn_mask=vmask[:, None], scale=scale))
     e["scalar_ms"] = time_ms(lambda: mla_prefill_attn(qc, qr, ckv, kr, max(starts), 0, scale))
     log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
-    del ckv, kr
+    del ckv, kr, k_s, v_s, q_v
     # K9 at V2-Lite's MHA widths (16 heads, 192/128) over an f16 window
     from deepseek_tpu_torch.models.testing import deepseek_v2_lite_proportions
     v2 = deepseek_v2_lite_proportions()
@@ -4999,6 +5071,9 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
     v = (torch.randn((4, Sm, Hm, Dv), generator=gen, device="cuda") * 0.3).half()
     sc = 1.0 / math.sqrt(Dh)
     seen = sum(s + T for s in starts)
+    mmask = (torch.arange(Sm, device="cuda")[None, None]
+             <= st[:, None, None] + torch.arange(T, device="cuda")[None, :, None])
+    q_m, k_m, v_m = (t.transpose(1, 2).half().contiguous() for t in (q, k, v))
     e = emit_k9(f"K9 mha_prefill_attn per-row starts {starts} (V2-Lite widths, f16, 4 "
                   f"verify chunks of {T} rows) S={Sm} H={Hm}",
                   lambda: mha_prefill_attn(q, k, v, st, 0, sc),
@@ -5006,10 +5081,12 @@ def serving_kernel_entries(sched, cfg, entries, path, spec_path):
                   seen * Hm * (Dh + Dv) * 2 + nbytes(q) + 4 * 4 * T * Hm * Dv,
                   2.0 * T * Hm * seen * (Dh + Dv), "deepseek_tpu_torch/csrc/prefill_attn.cu",
                   "deepseek_tpu/models/deepseek.py:548-578 (MHA verify mode in XLA; K9: "
-                  "attention.py:481, pallas_call :543)", "K9-rows")
+                  "attention.py:481, pallas_call :543)", "K9-rows",
+                  library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q_m, k_m, v_m, attn_mask=mmask[:, None], scale=sc))
     e["scalar_ms"] = time_ms(lambda: mha_prefill_attn(q, k, v, max(starts), 0, sc))
     log(f"  {e['name']}: the scalar form at start {max(starts)} {e['scalar_ms']:.4f} ms")
-    del q, k, v
+    del q, k, v, q_m, k_m, v_m
 
 
 def tiny_serving_phase(counts, runs, device="cuda"):
@@ -5187,6 +5264,7 @@ def serve_cli_phase(counts, runs, ck, eng, prompt, want, ref, device="cuda"):
 VERIFY_STARTS = (140, 600, 37, 1100)   # 4 sequences' chunk starts
 VERIFY_T = 5                           # spec_k 4
 VERIFY_REPS = 20
+VERIFY_T_LONG = 17                     # spec_k 16: 136 pairs a sequence at 8 experts
 
 
 def clone_rows(caches, seqs):
@@ -5218,6 +5296,24 @@ def parent_verify_route(max_start):
         model.verify_chunk, pa.prefill_splits = saved
 
 
+@contextlib.contextmanager
+def parent_grouped_route():
+    """Verify chunks past PAIR_PREFILL_MAX_PAIRS pairs a sequence as the
+    parent commit ran them: one counting sort over every sequence's pairs,
+    whose tiles mix sequences."""
+    import deepseek_tpu_torch.models.deepseek as model
+    saved = model._grouped_ffn
+
+    def one_sort(t13, t1, t2, t3, xb, weights, idx, cfg, ctx, ovf):
+        return model.grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13,
+                                        ctx=ctx, ovf=ovf)
+    model._grouped_ffn = one_sort
+    try:
+        yield
+    finally:
+        model._grouped_ffn = saved
+
+
 def verify_chunk_phase(counts, runs):
     """The V3-width packed Q3_K draw cut to 4 layers (f32 compute, bf16
     cache, absorbed prefill), 4 sequences hydrated to VERIFY_STARTS; a
@@ -5228,10 +5324,16 @@ def verify_chunk_phase(counts, runs):
     card synchronized, the mean of VERIFY_REPS), on the invariant route
     and on the parent's (``parent_verify_route``), in the order parent,
     new, new, parent; the parent's rows are compared too (a control: they
-    differ from the rows alone at B = 4)."""
+    differ from the rows alone at B = 4). Then spec_k 16 (VERIFY_T_LONG
+    rows a sequence, past PAIR_PREFILL_MAX_PAIRS pairs: the grouped
+    products, K6, one sequence's tiles at a time) at B = 1, 2 and 4, on
+    this draw and on the same widths in packed Q2_K: the rows must be the
+    rows alone bit for bit; the parent's one sort over all the pairs
+    (``parent_grouped_route``) is compared too."""
     from deepseek_tpu_torch.engine import hydrate_cache
     from deepseek_tpu_torch.models.deepseek import forward_prefill
     from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import random_fused_params
 
     t_phase = time.perf_counter()
     params, cfg = mesh_model("v3")
@@ -5244,9 +5346,10 @@ def verify_chunk_phase(counts, runs):
                       want_last_logits=False)
         caches.append(c)
     tok = torch.randint(3, cfg.vocab_size, (4, VERIFY_T), generator=gen).cuda()
+    tok_long = torch.randint(3, cfg.vocab_size, (4, VERIFY_T_LONG), generator=gen).cuda()
     starts = np.array(VERIFY_STARTS)
 
-    def chunk(seqs):
+    def chunk(seqs, tok=tok):
         cache = clone_rows(caches, seqs)
         with torch.inference_mode():
             return forward_prefill(params, cache, tok[list(seqs)], starts[list(seqs)], cfg,
@@ -5289,11 +5392,124 @@ def verify_chunk_phase(counts, runs):
             f"{times[('new', B)]} ({card_line()})")
     _, runs["verify chunk"] = drive(counts, ("K10-rows", "K5r-packed", "K2-packed"),
                                     "verify chunk, B=4", lambda: chunk(range(4)))
+    _, runs["verify chunk spec_k 16"] = drive(
+        counts, ("K10-rows", "K5r-packed", "K6-packed"), "verify chunk spec_k 16, B=4",
+        lambda: chunk(range(4), tok_long))
+    # spec_k 16 on this draw (its chunks' pairs spread over ~256 experts, so
+    # a tile rarely holds more than 16 rows) and on the same widths in Q2_K
+    # (whose random planes route every token to the same 8 experts: at B = 4
+    # a tile holds 68 rows of 4 sequences, at MMA width 128 against 32 alone)
+    for quant in ("q3_k", "q2_k"):
+        if quant == "q2_k":
+            del params
+            torch.cuda.empty_cache()
+            params = random_fused_params(cfg, "q2_k", seed=SEED, device="cuda")
+            g2 = torch.Generator().manual_seed(SEED + 71)
+            for c, s in zip(caches, VERIFY_STARTS):
+                hydrate_cache(params, cfg, c, torch.randint(3, cfg.vocab_size, (s,),
+                                                            generator=g2).tolist(),
+                              want_last_logits=False)
+        for route in ("parent", "new"):
+            with parent_grouped_route() if route == "parent" else contextlib.nullcontext():
+                alone = [chunk([b], tok_long)[0] for b in range(4)]
+                for B in (1, 2, 4):
+                    got = chunk(range(B), tok_long)
+                    diff = max(float((got[b] - alone[b]).abs().max()) for b in range(B))
+                    equal = all(torch.equal(got[b], alone[b]) for b in range(B))
+                    log(f"verify chunk spec_k 16 ({quant}), {route} route, B={B} x "
+                        f"{VERIFY_T_LONG} rows: each sequence's rows bit-equal to its chunk "
+                        f"alone: {equal} (max abs diff {diff:.3e})")
+                    if route == "new" and not equal:
+                        failed.append(f"spec_k 16 ({quant}), B={B}: rows differ from the "
+                                      f"rows alone by {diff:.3e}")
     del params, caches
     torch.cuda.empty_cache()
     log(f"verify chunk phase: {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise RuntimeError("verify chunks not batch invariant: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: independent processes over TCP (the multi-process launcher)
+# ---------------------------------------------------------------------------
+
+MULTIHOST_TIMEOUT = 10       # the missing-peer run's rendezvous timeout, seconds
+MULTIHOST_BOUND = 60         # seconds in which that run must have failed
+
+
+def multihost_phase(device="cuda"):
+    """Two independent ``scripts/torch_launch_multihost.py`` processes (no
+    common parent group: they meet over tcp://127.0.0.1:<free port>, gloo),
+    each running the CLI on the card on a tiny packed Q3_K ``.dseek``
+    (``-m completion -t 0 -n 16``): each must print the completion of the
+    single-process CLI. Beside them, process 0 of another group alone, its
+    peer never started, with ``--timeout`` MULTIHOST_TIMEOUT: it must exit
+    non-zero within MULTIHOST_BOUND seconds. The four processes run at
+    once. ``device`` rehearses the phase on the CPU."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck = os.path.join(root, "build", "chip_smoke_multihost")
+    shutil.rmtree(ck, ignore_errors=True)
+    write_tiny_checkpoint(ck, np.random.default_rng(SEED + 83), max_seq_len=256, window=128)
+    args = [ck, "-m", "completion", "-i", "Processes meet over TCP", "-n", "16", "-t", "0",
+            "--device", device]
+    # four interpreters at once: one host thread each, so that none waits
+    # on another's spinning OpenMP threads
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    launcher = [sys.executable, os.path.join(root, "scripts", "torch_launch_multihost.py")]
+
+    def start(cmd):
+        return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def ranks(port, n, pids, timeout):
+        return [start([*launcher, "--coord", f"127.0.0.1:{port}", "--nprocs", str(n),
+                       "--pid", str(pid), "--timeout", str(timeout), *args])
+                for pid in pids]
+
+    t0 = time.perf_counter()
+    procs = ([start([sys.executable, "-m", "deepseek_tpu_torch", *args])]
+             + ranks(free_port(), 2, (0, 1), 120)
+             + ranks(free_port(), 2, (0,), MULTIHOST_TIMEOUT))
+    outs, ended = [None] * 4, [0.0] * 4
+    try:
+        # the lone process first, so that its time is its own
+        for i, bound in ((3, MULTIHOST_BOUND), (0, CLI_TIMEOUT), (1, CLI_TIMEOUT),
+                         (2, CLI_TIMEOUT)):
+            outs[i] = procs[i].communicate(
+                timeout=max(1.0, bound - (time.perf_counter() - t0)))
+            ended[i] = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("multihost: a process of the phase outlasted its bound") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    (alone, alone_err), *rank_outs, (_, solo_err) = outs
+    want = cli_texts(alone)
+    failed = []
+    if procs[0].returncode != 0 or len(want) != 1 or not want[0].strip():
+        failed.append(f"the one-process CLI: rc {procs[0].returncode}, printed {want!r}; "
+                      f"stderr {alone_err[-1500:]}")
+    log(f"multihost reference, one process: rc {procs[0].returncode} in {ended[0]:.1f} s")
+    for pid, (p, (out, err)) in enumerate(zip(procs[1:3], rank_outs)):
+        got = cli_texts(out)
+        joined = f"[multihost] process {pid}/2" in err
+        log(f"multihost: process {pid} of 2 rc {p.returncode} in {ended[pid + 1]:.1f} s, "
+            f"joined: {joined}, completion equal to the one-process CLI's: {got == want}")
+        if p.returncode != 0 or not joined or got != want:
+            failed.append(f"process {pid}: rc {p.returncode}, joined {joined}, printed "
+                          f"{got!r} against {want!r}; stderr {err[-1500:]}")
+    solo = procs[3]
+    log(f"multihost: process 0 of 2 alone (--timeout {MULTIHOST_TIMEOUT}): rc "
+        f"{solo.returncode} after {ended[3]:.1f} s; {solo_err.strip().splitlines()[-1:]}")
+    if solo.returncode == 0 or ended[3] >= MULTIHOST_BOUND:
+        failed.append(f"the missing peer: rc {solo.returncode} after {ended[3]:.1f} s")
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"multihost phase: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError("multihost: " + "; ".join(failed))
 
 
 # ---------------------------------------------------------------------------
@@ -5306,7 +5522,7 @@ CONVERT_TIMEOUT = 600        # seconds for one converter subprocess
 V3_CONVERT_PROMPT = 512      # the converted V3 cut: hydrated prompt and decode steps
 V3_CONVERT_DECODE = 16
 V3_CPU_PROMPT = 32           # the shorter run held against the CPU Engine
-V3_CPU_STEPS = 2
+V3_CPU_STEPS = 1
 V2_CONVERT_PROMPT = 300      # the converted V2-Lite cuts against the CPU Engine
 V2_CONVERT_STEPS = 8
 
@@ -6100,6 +6316,7 @@ def main() -> int:
     log("kernels at a data shard's shapes (each against its plain version on the card):")
     data_kernel_entries(entries)
     pipeline_phase(counts, runs)
+    multihost_phase()
     conversion_phase(counts, runs)
     # each kernel's launches come from the run of the path it serves
     path_of = {"K1": "full-width decode", "K2": "full-width decode",

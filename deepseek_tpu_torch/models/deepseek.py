@@ -121,7 +121,7 @@ from deepseek_tpu_torch.ops.kernels.qmm import (
     expert_ffn_fusable, qmm_expert_ffn, qmm_experts,
 )
 from deepseek_tpu_torch.ops.matmul import (
-    LiveRows, combine_pairs, dispatch_pairs, grouped_expert_ffn,
+    LiveRows, combine_pairs, decode_rows, dispatch_pairs, grouped_expert_ffn,
     grouped_ffn_supported, in_verify_chunk, per_tensor_fp8, qmatmul, row_slices,
     verify_chunk,
 )
@@ -529,8 +529,7 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
     elif not prefill or _chunk_pairs(idx) <= PAIR_PREFILL_MAX_PAIRS:
         out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live, ctx)
     elif grouped_ffn_supported(cfg, probe):
-        out = grouped_expert_ffn(t1, t2, t3, xb, weights, idx, cfg.act, w13=t13, ctx=ctx,
-                                 ovf=ovf)
+        out = _grouped_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx, ovf)
     else:
         out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
     out = ctx.psum_e(out)
@@ -539,6 +538,19 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
                                lp.shared_w3, xb, cfg, ctx,
                                cfg.n_shared_experts * cfg.moe_intermediate_size)
     return out
+
+
+def _grouped_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx, ovf) -> torch.Tensor:
+    """The grouped products over a chunk's pairs (``grouped_expert_ffn``);
+    in verify mode once a sequence, each sorting its own pairs into
+    tiles, so that no tile mixes sequences and a sequence's tiles (their
+    rows and MMA widths) are the ones it gets verified alone."""
+    def run(s):
+        return grouped_expert_ffn(t1, t2, t3, xb[s], weights[s], idx[s], cfg.act, w13=t13,
+                                  ctx=ctx, ovf=ovf)
+    if not in_verify_chunk():
+        return run(slice(None))
+    return torch.cat([run(slice(b, b + 1)) for b in range(xb.shape[0])])
 
 
 def _chunk_pairs(idx: torch.Tensor) -> int:
@@ -725,9 +737,12 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     live = LiveRows.of(active, tokens.device)
     x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
     dbg("embed", x)
-    x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg, ctx,
-                        live)
-    logits = final_logits(params.final_norm, params.lm_head, x, cfg, ctx=ctx)
+    # each row computes the bits of its sequence decoded alone, up to
+    # DECODE_INVARIANT_ROWS rows (``ops/matmul.py::decode_rows``)
+    with decode_rows(B):
+        x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg,
+                            ctx, live)
+        logits = final_logits(params.final_norm, params.lm_head, x, cfg, ctx=ctx)
     dbg("logits", logits)
     return (logits, x) if with_hidden else logits
 

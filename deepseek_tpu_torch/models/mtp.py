@@ -34,7 +34,7 @@ from deepseek_tpu_torch.models.deepseek import (
 )
 from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.params import ModelParams, embed_lookup
-from deepseek_tpu_torch.ops.matmul import qmatmul, verify_chunk
+from deepseek_tpu_torch.ops.matmul import decode_rows, qmatmul, verify_chunk
 from deepseek_tpu_torch.ops.norms import rmsnorm
 
 
@@ -63,8 +63,11 @@ def mtp_forward(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     per_row = (pos0.dim() > 0) if isinstance(pos0, torch.Tensor) else np.ndim(pos0) > 0
     if prefill:
         pos0 = RowStarts.of(pos0, B, tokens.device) if per_row else int(pos0)
-    # a verify chunk's rows compute the bits of their sequence alone
-    with verify_chunk() if prefill and per_row else contextlib.nullcontext():
+    # a verify chunk's rows, and a decode step's, compute the bits of their
+    # sequence alone
+    mode = (verify_chunk() if per_row else contextlib.nullcontext()) if prefill \
+        else decode_rows(B)
+    with mode:
         dtype = compute_dtype(cfg)
         e = rmsnorm(embed_lookup(params.embed, tokens, torch.float32).to(dtype),
                     mp.enorm, cfg.norm_eps)

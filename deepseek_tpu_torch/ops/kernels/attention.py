@@ -49,6 +49,14 @@ _MAX_DECODE_SPLITS = 128
 _DECODE_SPAN_ALIGN = 64     # split spans are whole multiples of every tile size
 _DECODE_FILL_BLOCKS = 132   # one block an SM (a block takes ~226 KB of shared memory)
 _DECODE_MAX_BLOCKS = 1024   # of a launch (bounds the partials' scratch: 134 MB at V3)
+# The decode batch up to which each row of a step computes the bits of its
+# sequence decoded alone: K3's spans stay one sequence's while a launch
+# keeps within _DECODE_MAX_BLOCKS blocks, which at V3's 128 heads (2 row
+# blocks of 64 spans over S 4096) is 1024 // (2 * 64) = 8 sequences; K8's
+# go further (_MHA_MAX_BLOCKS below), and the projections take the matvec
+# in slices up to it (``ops/matmul.py::decode_rows``). Past it a served
+# row is not bit-equal to the sequence alone.
+DECODE_INVARIANT_ROWS = 8
 
 
 def launch_counters() -> SimpleNamespace:
@@ -210,16 +218,26 @@ _MHA_MAX_SPLITS = 256
 _MHA_HEADS = 8
 _MHA_SPAN_ALIGN = 8       # split spans are whole tiles (TS: 8 int8, 4 otherwise)
 _MHA_FILL_BLOCKS = 264    # about 2 blocks on each of the H100's 132 SMs
+# of a launch: bounds the partials' scratch (acc (B,H,n,Dv) f32 and m, l),
+# 8 heads x (Dv + 2) floats a block: 17 MB at Dv 128, 34 MB at Dv 256
+_MHA_MAX_BLOCKS = 4096
 
 
 def decode_splits(B: int, H: int, S: int):
     """(n_split, span): K8 walks the window of S slots in n_split spans
-    of ``span`` slots, one block per span, head group and sequence, about
-    ``_MHA_FILL_BLOCKS`` blocks in all; a merge kernel combines the spans'
-    partials. A pure function of the shapes (kv_len stays on the card)."""
-    blocks = B * -(-H // _MHA_HEADS)
+    of ``span`` slots, one block per span, head group and sequence; a
+    merge kernel combines the spans' partials. The spans are one
+    sequence's (about ``_MHA_FILL_BLOCKS`` blocks for its head groups),
+    the same for every batch whose launch stays within
+    ``_MHA_MAX_BLOCKS`` blocks, so that a sequence's attended values are
+    the same bits whatever batch it is decoded in (V2-Lite's 16 heads and
+    the 128 of V3's widths: up to 15 sequences at S 4096); a larger batch
+    takes longer spans. A pure function of the shapes (kv_len stays on
+    the card): spans past a sequence's live prefix return at once."""
+    groups = -(-H // _MHA_HEADS)
     chunks = -(-S // _MHA_SPAN_ALIGN)
-    n = max(1, min(-(-_MHA_FILL_BLOCKS // blocks), chunks, _MHA_MAX_SPLITS))
+    n = max(1, min(-(-_MHA_FILL_BLOCKS // groups), chunks, _MHA_MAX_SPLITS,
+                   _MHA_MAX_BLOCKS // (B * groups)))
     span = -(-chunks // n) * _MHA_SPAN_ALIGN
     return -(-S // span), span
 

@@ -129,27 +129,25 @@ def qmm_experts_plain(qt, idx: torch.Tensor, x: torch.Tensor,
 
 # K1 takes the row-tiled route above this many rows (the nibble and fp8
 # matvecs take at most this many rows a pass, kNbMaxX in csrc/nibble_mv.cu
-# and kMvRowsX in csrc/fp8_mv.cu).
-# The figures below placed it when the nibble and fp8 matvecs still
-# streamed the weight once per row; reading it once for all of a pass's
-# rows moved the crossover to 8-16 rows (chip_smoke.py logs it on every
-# run); the value is left at 4 until a change of its own measures a new one.
-# The tile GEMM (on the tensor cores) streams it once per 128 rows and
-# runs a tile of at most 16 live rows at MMA width 16, so its time hardly
-# moves below 16 rows. Measured by chip_smoke.py on
-# an H100 80GB HBM3 at 700 W, both routes in one call (matvec / row-tiled
-# ms): w13 36864x7168 at 2 rows 0.156 / 0.257, at 4 rows 0.287 / 0.258, at
-# 8 0.545 / 0.259; wo 7168x16384 at 4 rows 0.141 / 0.217, at 8 0.262 /
-# 0.222. K5's fp8 matvec (8 x rows a pass) against its row-tiled route,
-# the same call: lm_head 102400x2048 at 4 rows 0.228 / 0.137, at 8 0.379 /
-# 0.137; wq 3072x2048 at 8 rows 0.021 / 0.029, at 16 0.037 / 0.030; dense
-# w2 2048x10944 at 8 rows 0.066 / 0.117, at 16 0.125 / 0.118. The
-# crossover is 4 rows on w13 and the lm_head, 8 on wo, 16 on wq and w2;
-# 4 keeps every one within 0.09 ms of its faster route at every count
-# measured from 1 to 32 rows (the worst: the lm_head at 4 rows, w2 at 8),
-# where 8 would cost w13 0.29 ms and the lm_head 0.24 ms at 8 rows, so
-# both weight kinds share the value. A decode step (1 row) and the pair path's
-# gathered rows stay on the matvec.
+# and kMvRowsX in csrc/fp8_mv.cu). The tile GEMM (on the tensor cores)
+# streams the weight once per 128 rows and runs a tile of at most 16 live
+# rows at MMA width 16, so its time hardly moves below 16 rows; a matvec
+# reads the weight once for all of a pass's rows, its time growing with
+# them. Measured on an H100 80GB HBM3 at 700 W by chip_smoke.py since the
+# matvecs of csrc/packed_mv.cu, nibble_mv.cu and fp8_mv.cu (PERF.md section
+# 6), a matvec pass of 4 rows / the tile GEMM at 8 rows, ms: nibble w13
+# 36864x7168 0.1479 / 0.2620; packed Q3_K wkvq 0.0182 / 0.1060, wcr 0.0585
+# / 0.1023, wo 0.0596 / 0.2401, w13 0.1130 / 0.2675, lm_head 0.3521 /
+# 0.6353; the fp8 lm_head 102400x2048 0.1499 (1 row 0.0813) / ~0.137 (its
+# tiles at 4 and 8 rows). Two passes of 4 rows thus cost about what the
+# tiles cost at 8 rows (packed w13 0.226 against 0.2675, nibble w13 0.296
+# against 0.2620), the packed projections less, the fp8 lm_head 2.2x more
+# (0.300 against 0.137). The value stays 4 until a change of its own
+# measures a crossover per weight kind (chip_smoke.py logs K1's and
+# K5-fp8's on every run). A decode step of up to DECODE_INVARIANT_ROWS rows
+# takes the matvec in passes of this many whatever its rows
+# (ops/matmul.py::decode_rows), and the pair path's gathered rows stay on
+# the matvec.
 ROW_TILE_MIN = 4
 _TILE = 128           # activation rows per tile (kBM in csrc/qmm_tiles.cu)
 # the tile GEMM's MMA widths (kW0..kW3 there; the tests read both back)
@@ -438,6 +436,37 @@ def qmm_tiled(qt, x: torch.Tensor) -> torch.Tensor:
     if isinstance(qt, TURBO):
         return qmm_turbo_rows(qt, x)
     return qmm_rows(qt, x)
+
+
+def qmm_matvec(qt, x: torch.Tensor) -> torch.Tensor:
+    """The matvec route of a nibble, packed, turbo or blockwise fp8 weight
+    at any row count, even past ``ROW_TILE_MIN``: x (rows, n) -> (rows, d)
+    float32, the rows in passes of at most ``ROW_TILE_MIN``, each reading
+    the weight once (each pass counted as a launch). Decode mode
+    (``ops/matmul.py::qmatmul``) calls it, so that a row's bits are those
+    it has in its pass alone whatever the batch: the counterpart of
+    ``qmm_tiled``."""
+    rows = x.shape[0]
+    if x.device.type == "cpu" or rows <= ROW_TILE_MIN:
+        return qmm(qt, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmm_matvec runs on cuda or cpu tensors, not {x.device}")
+    passes, d = -(-rows // ROW_TILE_MIN), qt.shape[-2]
+    if isinstance(qt, TURBO):
+        return torch.cat([qmm_turbo(qt, xs) for xs in x.split(ROW_TILE_MIN)])
+    if isinstance(qt, Fp8Tensor):
+        _check_fp8(qt, x, False, 16, "qmm_matvec")
+        y = _fp8_mv(qt, x.contiguous(), d)          # passes of _MV_ROWS_X in the launcher
+        qmm_fp8.launches += passes
+    elif isinstance(qt, PACKED):
+        _check_packed(qt, x, False, "qmm_matvec")
+        y = _packed_matvec(qt, x, None, d, "qmm_matvec")
+        qmm_packed.launches += passes
+    else:
+        _check_planes(qt, x, experts=False)
+        y = _nibble_mv(qt, x.contiguous(), None, d)
+        qmm.launches += passes
+    return y
 
 
 def qmm_experts(qt, idx: torch.Tensor, x: torch.Tensor,
@@ -842,22 +871,27 @@ def check_packed_mv(qt, x2: torch.Tensor, idx, what: str) -> None:
 
 def _packed_matvec(qt, x2: torch.Tensor, idx, d: int, what: str) -> torch.Tensor:
     """Launch csrc/packed_mv.cu: its x pre-pass (x in its own dtype), then
-    the matvec."""
+    the matvec; without ids the rows in passes of up to ``_PK_MAX_X``,
+    each reading the weight once."""
     x2 = x2.contiguous()
-    check_packed_mv(qt, x2, idx, what)
     rows, n = x2.shape
-    check_mv_x(x2, n, what)
     y = torch.empty((rows, d), dtype=torch.float32, device=x2.device)
-    # the pre-pass's two int8 terms and group scalars: 40 bytes a group
-    scratch = torch.empty(rows * (n // 16) * 40, dtype=torch.uint8, device=x2.device)
-    warps = packed_warps(rows, d, n, _sm_count(x2.device), experts=idx is not None)
-    err = library("packed_mv").packed_mv(
-        x2.data_ptr(), _X_DTYPE[x2.dtype], *_packed_ptrs(qt),
-        idx.data_ptr() if idx is not None else None,
-        idx.element_size() if idx is not None else 0, scratch.data_ptr(),
-        y.data_ptr(), rows, d, n, packed_lanes(n), warps,
-        torch.cuda.current_stream(x2.device).cuda_stream)
-    check(err, "packed_mv")
+    step = rows if idx is not None else _PK_MAX_X
+    for r0 in range(0, rows, step):
+        xr, yr = x2[r0:r0 + step], y[r0:r0 + step]
+        check_packed_mv(qt, xr, idx, what)
+        check_mv_x(xr, n, what)
+        nr = xr.shape[0]
+        # the pre-pass's two int8 terms and group scalars: 40 bytes a group
+        scratch = torch.empty(nr * (n // 16) * 40, dtype=torch.uint8, device=x2.device)
+        warps = packed_warps(nr, d, n, _sm_count(x2.device), experts=idx is not None)
+        err = library("packed_mv").packed_mv(
+            xr.data_ptr(), _X_DTYPE[x2.dtype], *_packed_ptrs(qt),
+            idx.data_ptr() if idx is not None else None,
+            idx.element_size() if idx is not None else 0, scratch.data_ptr(),
+            yr.data_ptr(), nr, d, n, packed_lanes(n), warps,
+            torch.cuda.current_stream(x2.device).cuda_stream)
+        check(err, "packed_mv")
     return y
 
 

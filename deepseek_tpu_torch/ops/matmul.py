@@ -40,9 +40,10 @@ import torch
 
 from deepseek_tpu_torch.ops.activations import glu_act
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, ep_ownership
+from deepseek_tpu_torch.ops.kernels.attention import DECODE_INVARIANT_ROWS
 from deepseek_tpu_torch.ops.kernels.qmm import (
     PLAIN_KERNEL_MAX_ROWS, PLAIN_KERNEL_MIN_BYTES, VERIFY_ROWS, gmm, qmm, qmm_grouped,
-    qmm_tiled,
+    qmm_matvec, qmm_tiled,
 )
 from deepseek_tpu_torch.ops.norms import pad_rows
 from deepseek_tpu_torch.quant.qtensor import (
@@ -97,6 +98,27 @@ def in_verify_chunk() -> bool:
     return _VERIFY.get()
 
 
+_DECODE = contextvars.ContextVar("decode_rows", default=False)
+
+
+@contextlib.contextmanager
+def decode_rows(rows: int):
+    """Decode mode (``forward_decode``: one token each of ``rows``
+    sequences). Up to ``DECODE_INVARIANT_ROWS`` rows every kernel-backed
+    projection (nibble, packed, turbo, blockwise fp8) takes the matvec in
+    passes of at most ``ROW_TILE_MIN`` rows (``qmm_matvec``), where more
+    rows would take the tile GEMM, which sums another way: so a served row
+    computes the bits of its sequence decoded alone, and a data shard's
+    rows those of the unsharded batch. Past that bound K3's spans follow
+    the batch anyway, and the rows keep the row-tiled route; prefill
+    chunks and admissions never enter it."""
+    token = _DECODE.set(rows <= DECODE_INVARIANT_ROWS)
+    try:
+        yield
+    finally:
+        _DECODE.reset(token)
+
+
 def row_slices(fn, x: torch.Tensor) -> torch.Tensor:
     """fn over the rows of x (rows, ...) in slices of ``VERIFY_ROWS``, each
     padded with zero rows to exactly that many, the results cut back and
@@ -108,13 +130,21 @@ def row_slices(fn, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
+def _kernel_backed(qt) -> bool:
+    return isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)) or (
+        isinstance(qt, Fp8Tensor) and not qt.per_tensor)
+
+
 def qmatmul(qt, x: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ W.T -> (..., out) in x's dtype, accumulated in f32;
-    inside ``verify_chunk`` in slices of ``VERIFY_ROWS`` rows."""
+    inside ``verify_chunk`` in slices of ``VERIFY_ROWS`` rows, inside
+    ``decode_rows`` on the matvec (``qmm_matvec``) at any row count."""
+    if _DECODE.get() and _kernel_backed(qt):
+        y = qmm_matvec(qt, x.reshape(-1, x.shape[-1]))
+        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
     if _VERIFY.get() and x.numel():
         x2 = x.reshape(-1, x.shape[-1])
-        if isinstance(qt, (*PACKED, *TURBO, KNibbleTensor)) or (
-                isinstance(qt, Fp8Tensor) and not qt.per_tensor):
+        if _kernel_backed(qt):
             y = row_slices(lambda xs: qmm_tiled(qt, xs), x2)
         else:
             w = qt.dequant(torch.float32) if isinstance(qt, Fp8Tensor) else qt.data.float()

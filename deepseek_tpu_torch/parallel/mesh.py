@@ -32,6 +32,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import socket
+import time
+import urllib.parse
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -50,14 +53,48 @@ def init_distributed(backend: str = "gloo", init_method: Optional[str] = None,
     ``init_method`` is a ``tcp://host:port`` or ``file://path`` rendezvous;
     nothing on the machine announces a cluster, so the caller gives the
     world size and this process's rank. ``timeout`` (seconds) bounds the
-    rendezvous and every collective, the mesh's subgroups' too, so a rank
-    that dies makes the others raise instead of hanging. Returns the
-    rank."""
+    rendezvous and every collective, the mesh's subgroups' too: a peer
+    that never comes fails the rendezvous after it, and a rank that dies
+    makes the others raise instead of hanging. Returns the rank."""
     global _TIMEOUT
     _TIMEOUT = datetime.timedelta(seconds=timeout)
-    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                            rank=rank, timeout=_TIMEOUT)
+    if init_method is not None and init_method.startswith("tcp://"):
+        store = _tcp_store(init_method, world_size, rank, timeout)
+        dist.init_process_group(backend, store=store, world_size=world_size, rank=rank,
+                                timeout=_TIMEOUT)
+    else:
+        dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                                rank=rank, timeout=_TIMEOUT)
     return dist.get_rank()
+
+
+def _tcp_store(url: str, world_size: int, rank: int, timeout: float):
+    """The ``tcp://host:port`` rendezvous's store, within ``timeout``: rank
+    0 serves it, and the group's first read of a peer's address raises
+    once the timeout passes without that peer; every other rank first
+    waits, within the timeout, for the port to accept a connection, then
+    connects as a client. (A store client makes two attempts at its
+    connect, each for the whole timeout it is given, with a random delay
+    between them: ``init_process_group`` with a ``tcp://`` method took
+    2.1x its timeout to fail without a server.)"""
+    u = urllib.parse.urlparse(url)
+    if u.hostname is None or u.port is None:
+        raise ValueError(f"init_method {url!r} is not tcp://host:port")
+    delta = datetime.timedelta(seconds=timeout)
+    if rank == 0:
+        return dist.TCPStore(u.hostname, u.port, world_size, True, timeout=delta,
+                             wait_for_workers=False)
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            socket.create_connection((u.hostname, u.port), timeout=1.0).close()
+            break
+        except OSError:
+            if time.monotonic() + 0.1 >= deadline:
+                raise TimeoutError(f"no rendezvous served at {u.hostname}:{u.port} within "
+                                   f"{timeout} s") from None
+            time.sleep(0.1)
+    return dist.TCPStore(u.hostname, u.port, world_size, False, timeout=delta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +152,27 @@ def make_mesh(data: int = 1, expert: int = 1, tensor: int = 1, seq: int = 1, *,
             group = dist.new_group(line.tolist(), timeout=_TIMEOUT)
             if rank in line:
                 groups[AXES[ax]] = group
+    settle_groups()
     return Mesh(data, expert, tensor, seq, seq_index=coords[3], expert_index=coords[1],
                 tensor_index=coords[2], expert_group=groups.get("expert"),
                 tensor_group=groups.get("tensor"), seq_group=groups.get("seq"),
                 data_index=coords[0], data_group=groups.get("data"))
+
+
+def settle_groups() -> None:
+    """Hold this rank until every rank has made every subgroup it made
+    before this call; call it on every rank after a run of ``new_group``.
+    A gloo ``new_group`` returns on a rank once its own side of each pair
+    is connected, which may be before a peer has finished its side: a rank
+    that then closes its sockets (``destroy_process_group``, an exit, a
+    failure elsewhere) fails that peer inside ``connectFullMesh``
+    ("Connection closed by peer"). One barrier over the default group,
+    whose pairs were all connected at init, closes the race: past it no
+    rank is still connecting. ``make_mesh`` and the pipeline's hop groups
+    call it, so a caller may leave straight after; a barrier in
+    ``launch`` before ``destroy_process_group`` alone closed it as well
+    in the tests, but only for ranks that ``launch`` starts."""
+    dist.barrier()
 
 
 def default_mesh_shape(n_devices: int, cfg=None) -> Tuple[int, int, int]:

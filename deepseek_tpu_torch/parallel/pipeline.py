@@ -35,6 +35,7 @@ call follows (``_whole_batch``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, Optional, Sequence
 
@@ -48,6 +49,7 @@ from deepseek_tpu_torch.models.deepseek import (
 )
 from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.params import ModelParams, embed_lookup
+from deepseek_tpu_torch.ops.matmul import decode_rows
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, make_ctx
 
 
@@ -147,7 +149,7 @@ class Pipeline:
                            lm_head=params.lm_head if last else None, mtp=None)
 
     def _spmd_init(self, params, bounds, mesh_shape, devices) -> None:
-        from deepseek_tpu_torch.parallel.mesh import _TIMEOUT, make_mesh
+        from deepseek_tpu_torch.parallel.mesh import _TIMEOUT, make_mesh, settle_groups
         from deepseek_tpu_torch.parallel.sharding import shard_cache, shard_params
 
         n, per = self.n_stages, self.per_stage
@@ -167,6 +169,7 @@ class Pipeline:
                  if n > 2 else None)
             if i == self.pos:
                 self._line = g if n > 2 else self._hops.get(0)
+        settle_groups()
         dev = _device(devices[rank] if devices is not None else "cuda")
         lo, hi = bounds[self.stage]
         scfg = stage_config(self.cfg, lo, hi)
@@ -191,19 +194,21 @@ class Pipeline:
             B, T = xin.shape[:2]
             x = xin
         x = x.to(compute_dtype(scfg))
-        if prefill:
-            x = run_layer_stack(st.params.layers, cache, x, pos0, None, None, None, scfg,
-                                st.ctx, prefill=True)
-        else:
-            pos, kv_pos, kv_len, kv_sink = decode_positions(scfg, B, pos0, x.device)
-            x = run_layer_stack(st.params.layers, cache, x, pos, kv_pos, kv_len, kv_sink,
-                                scfg, st.ctx)
-        if not last:
-            return x
-        if logits_mode == "none":
-            return None
-        return final_logits(st.params.final_norm, st.params.lm_head, x, scfg, logits_mode,
-                            st.ctx)
+        # a decode step's rows compute the bits of the unstaged forward_decode
+        with contextlib.nullcontext() if prefill else decode_rows(B):
+            if prefill:
+                x = run_layer_stack(st.params.layers, cache, x, pos0, None, None, None,
+                                    scfg, st.ctx, prefill=True)
+            else:
+                pos, kv_pos, kv_len, kv_sink = decode_positions(scfg, B, pos0, x.device)
+                x = run_layer_stack(st.params.layers, cache, x, pos, kv_pos, kv_len,
+                                    kv_sink, scfg, st.ctx)
+            if not last:
+                return x
+            if logits_mode == "none":
+                return None
+            return final_logits(st.params.final_norm, st.params.lm_head, x, scfg,
+                                logits_mode, st.ctx)
 
     def _hop(self, s: int, x: Optional[torch.Tensor], shape, dtype) -> Optional[torch.Tensor]:
         """Stage s's activations to rank i of stage s + 1 (SPMD)."""

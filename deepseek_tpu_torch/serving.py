@@ -258,6 +258,13 @@ class BatchScheduler:
         that many steps where every live slot has that many tokens left and
         room in the window (0: off).
 
+        A served row computes the bits of its sequence decoded alone up to
+        ``ops/kernels/attention.py::DECODE_INVARIANT_ROWS`` (8) rows a
+        decode step (a data shard's rows: those of the unsharded batch);
+        rows of a larger batch (or data shard) are not bit-equal to the
+        sequence alone: K3's spans and the projections' route follow the
+        batch there. Verify chunks keep the bits at any batch.
+
         ``mesh`` (``parallel.mesh.make_mesh``, the scheduler made on every
         rank alike): the weights cut by ``shard_params``, the batch's cache
         by ``shard_cache`` (the batch over ``data``, which it must divide),

@@ -1831,8 +1831,10 @@ def test_verify_chunk_rows_are_the_rows_alone(quant, dev):
     """Batch-invariant verify chunks: forward_prefill's verify mode (per-row
     starts, ``logits_mode="all"``) over B = 2 and 4 sequences at spec_k 1-4
     (B x (k+1) rows: up to 20, past the narrow tiles' 16 and the pair
-    list's 128 pairs at 8 experts a token) gives each sequence's rows the
-    bits of the same chunk verified alone (B = 1), f32 compute."""
+    list's 128 pairs at 8 experts a token) and at spec_k 16 (17 rows, 136
+    pairs a sequence: the grouped products, one sequence's tiles at a time)
+    gives each sequence's rows the bits of the same chunk verified alone
+    (B = 1), f32 compute."""
     from deepseek_tpu_torch.models.deepseek import forward_prefill
     from deepseek_tpu_torch.models.kvcache import init_cache
     from deepseek_tpu_torch.models.testing import (
@@ -1860,7 +1862,7 @@ def test_verify_chunk_rows_are_the_rows_alone(quant, dev):
                 for f in dataclasses.fields(hydrated[0])
                 if isinstance(getattr(hydrated[0], f.name), torch.Tensor)})
 
-        for k in (1, 2, 3, 4):
+        for k in (1, 2, 3, 4, 16):
             tok = torch.randint(3, cfg.vocab_size, (4, k + 1), generator=g).to(dev)
             alone = [forward_prefill(params, rows_of([b]), tok[b:b + 1], starts[b:b + 1],
                                      cfg, logits_mode="all")[0] for b in range(4)]
@@ -1869,6 +1871,88 @@ def test_verify_chunk_rows_are_the_rows_alone(quant, dev):
                                       logits_mode="all")
                 for b in range(B):
                     assert torch.equal(got[b], alone[b]), (quant, k, B, b)
+
+
+def _rows_vs_alone(params, cfg, B, pos, dev, steps=4, fill=False):
+    """Decode ``steps`` steps of B sequences at positions ``pos`` (f32
+    compute, all rows live) in one batch and each alone; ``fill`` first
+    gives the batch's cache random rows (the same in each alone cache).
+    Returns the (step, row) pairs whose logits are not bit-equal."""
+    from deepseek_tpu_torch.models.deepseek import forward_decode
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    batch = init_cache(cfg, batch=B, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    if fill:
+        for t in (batch.k, batch.v, batch.ckv, batch.krope):
+            if t is not None:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    alone = [dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[:, b:b + 1].clone()
+        for f in dataclasses.fields(batch) if getattr(batch, f.name) is not None})
+        for b in range(B)]
+    bad = []
+    with torch.inference_mode():
+        for step in range(steps):
+            tok = torch.randint(3, cfg.vocab_size, (B, 1), generator=g, device=dev)
+            got = forward_decode(params, batch, tok, pos + step, cfg, active=np.ones(B, bool))
+            for b in range(B):
+                want = forward_decode(params, alone[b], tok[b:b + 1], int(pos[b]) + step, cfg)
+                if not torch.equal(got[b], want[0]):
+                    bad.append((step, b))
+    return bad
+
+
+@pytest.mark.cuda
+def test_mha_served_rows_are_the_rows_alone(dev):
+    """MHA decode (K8) at B = 4 over a window of 4096 slots filled with
+    random rows, each sequence at its own position up to 3300: every row
+    has the bits of the same sequence decoded alone (K8's spans are one
+    sequence's at any batch up to its launch cap)."""
+    from deepseek_tpu_torch.config import QuantKind
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v2_lite_proportions, random_fp8_params)
+    cfg = dataclasses.replace(deepseek_v2_lite_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, vocab_size=1024, first_k_dense_replace=1,
+        n_routed_experts=8, n_active_routed=2, moe_intermediate_size=256,
+        weight_quant=QuantKind.F8E5M2, block_size=(128, 128)),
+        compute_dtype="float32", kv_cache_dtype="bfloat16")
+    assert cfg.n_heads == 16 and cfg.kv_window == 4096
+    params = random_fp8_params(cfg, seed=3, device=dev)
+    before = mha_decode_attn.launches
+    assert _rows_vs_alone(params, cfg, 4, np.array([900, 1700, 2500, 3300]), dev,
+                          fill=True) == []
+    assert mha_decode_attn.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q3_k", "q3_k_nibble", "fp8"])
+def test_decode_rows_past_four_are_the_rows_alone(quant, dev):
+    """Decode at B = 8 (past ROW_TILE_MIN, within DECODE_INVARIANT_ROWS):
+    every projection takes the matvec in slices of 4 rows (the row-tiled
+    wrappers launch nothing during the batch's steps), and every row has
+    the bits of the same sequence decoded alone, in the packed, nibble and
+    fp8 layouts."""
+    from deepseek_tpu_torch.config import QuantKind
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fp8_params, random_fused_params)
+    from deepseek_tpu_torch.ops.kernels.attention import DECODE_INVARIANT_ROWS
+    cfg = dataclasses.replace(deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512),
+        compute_dtype="float32")
+    if quant == "fp8":
+        cfg = dataclasses.replace(cfg, weight_quant=QuantKind.F8E5M2, block_size=(128, 128))
+        params = random_fp8_params(cfg, seed=3, device=dev)
+    else:
+        params = random_fused_params(cfg, quant, seed=3, device=dev)
+    mv, rows = {"q3_k": (qmm_packed, qmm_packed_rows), "q3_k_nibble": (qmm, qmm_rows),
+                "fp8": (qmm_fp8, qmm_fp8_rows)}[quant]
+    B = DECODE_INVARIANT_ROWS
+    assert B == 8 > ROW_TILE_MIN
+    counts = (mv.launches, rows.launches)
+    assert _rows_vs_alone(params, cfg, B, np.arange(B) * 7, dev, steps=6) == []
+    assert mv.launches > counts[0] and rows.launches == counts[1]
 
 
 def _tiny_hf_dir(path, v3):

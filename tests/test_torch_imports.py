@@ -8,6 +8,9 @@ import sys
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "deepseek_tpu_torch"
+# the port's scripts and worker processes that stand beside the package
+STANDALONE = [PKG.parent / "scripts" / "torch_launch_multihost.py",
+              PKG.parent / "tests" / "torch_multihost_worker.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
     for p in PKG.rglob("*.py"))
@@ -23,7 +26,8 @@ def _imported_roots(path: pathlib.Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + STANDALONE,
+                         ids=lambda p: p.name)
 def test_no_file_imports_jax_or_the_jax_package(path):
     for mod in _imported_roots(path):
         root = mod.split(".")[0]

@@ -162,16 +162,32 @@ def test_partials_and_empty_shard_match_pallas(kind):
     ((1, 128, 4096), (17, 248)),      # V3's 128 heads: 16 head groups x 17
     ((1, 16, 2048), (128, 16)),       # a seq=2 shard of V2-Lite's window
     ((2, 3, 40), (5, 8)),             # tiny: one span a tile of 8 slots
-    ((64, 16, 4096), (3, 1368)),      # many sequences: few spans
+    ((64, 16, 4096), (32, 128)),      # many sequences: 4096 blocks, longer spans
 ])
 def test_decode_splits(args, want):
     """The wrapper's split count: a pure function of the shapes that fills
-    about 2 blocks on each of 132 SMs, with spans in whole multiples of 8
-    slots (both tile sizes divide them) that cover the window."""
+    about 2 blocks on each of 132 SMs with one sequence's head groups, with
+    spans in whole multiples of 8 slots (both tile sizes divide them) that
+    cover the window, within 4096 blocks a launch."""
     n, span = decode_splits(*args)
     assert (n, span) == want
-    S = args[2]
+    B, H, S = args
     assert 1 <= n <= 256 and span % 8 == 0 and (n - 1) * span < S <= n * span
+    assert B * -(-H // 8) * n <= max(4096, B * -(-H // 8))
+
+
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("S", [4096, 2048, 40])
+def test_decode_splits_do_not_depend_on_the_batch(H, S):
+    """One sequence's spans for every batch up to the launch cap (4096
+    blocks: 15 sequences at V2-Lite's 16 heads and at 128 over 4096
+    slots), so that a served row attends with the bits of the sequence
+    decoded alone; past the cap a batch takes longer spans."""
+    one = decode_splits(1, H, S)
+    cap = 4096 // (-(-H // 8) * one[0])
+    assert cap >= 15 if S == 4096 else cap >= 16
+    assert all(decode_splits(B, H, S) == one for B in range(1, cap + 1))
+    assert decode_splits(cap + 1, H, S)[1] > one[1]
 
 
 def test_wrapper_constants_match_the_kernel():

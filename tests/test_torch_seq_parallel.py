@@ -554,6 +554,19 @@ def test_unported_mesh_axes_raise(axis):
         assert got == tuple(want)
 
 
+def _rank_mesh_2x2(rank, world):
+    mesh = make_mesh(expert=2, tensor=2)
+    return mesh.expert_index, mesh.tensor_index
+
+
+def test_mesh_ranks_may_leave_straight_after_make_mesh():
+    """Four ranks build a 2 x 2 (expert x tensor) mesh and return at once,
+    so ``launch`` tears each process group down straight after: no rank
+    may close its sockets while a peer still connects a subgroup
+    (``parallel/mesh.py::settle_groups``)."""
+    assert launch(_rank_mesh_2x2, 4) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
 def test_window_not_divisible_by_seq_raises():
     """make_ctx holds kv_window % seq == 0 (``deepseek_tpu/parallel/spmd.py::
     make_ctx``); seq=1 meshes and dividing windows pass."""

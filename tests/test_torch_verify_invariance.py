@@ -13,7 +13,10 @@ own functions:
 - K9/K10's span plan: one sequence's over the whole window, whatever B
   and the other rows' starts;
 - the MoE route: the pair list whenever one sequence's chunk has at most
-  ``PAIR_PREFILL_MAX_PAIRS`` pairs, though the batch's exceed it;
+  ``PAIR_PREFILL_MAX_PAIRS`` pairs, though the batch's exceed it; past
+  that (spec_k 16 at 8 experts) the grouped products, each sequence's
+  pairs sorted into tiles of their own: the plan of the sequence verified
+  alone;
 - the padding: the router product's and rmsnorm's rows each get the bits
   they get alone.
 """
@@ -152,3 +155,48 @@ def test_padded_rows_are_the_rows_alone(model_q3k):
         got = rmsnorm(x[:B], lp.attn_norm, cfg.norm_eps)
         for b in range(B):
             assert torch.equal(got[b], rmsnorm(x[b:b + 1], lp.attn_norm, cfg.norm_eps)[0])
+
+
+def test_grouped_tiles_hold_one_sequence(model_q3k, monkeypatch):
+    """At spec_k 16 (17 x 8 = 136 pairs a sequence, past
+    PAIR_PREFILL_MAX_PAIRS) a verify chunk of B = 4 sequences takes the
+    grouped products once a sequence: no tile holds rows of two
+    sequences, and each sequence's tile plan (the tiles' experts and live
+    rows, so their MMA widths) is the one it gets verified alone. An
+    ordinary prefill chunk of the same rows keeps one sort over all."""
+    cfg, params = model_q3k
+    plans = []
+    real = matmul.owned_tiles
+
+    def spy(lidx, owned, within, counts, capacity, tile=128):
+        out = real(lidx, owned, within, counts, capacity, tile)
+        plans.append((lidx.shape[0], out[0].tolist(), out[1].tolist()))
+        return out
+
+    monkeypatch.setattr(matmul, "owned_tiles", spy)
+    T, B = 17, 4
+    assert T * cfg.n_active_routed > model.PAIR_PREFILL_MAX_PAIRS
+    g = torch.Generator().manual_seed(11)
+    tok = torch.randint(3, cfg.vocab_size, (B, T), generator=g)
+    starts = np.array([3, 40, 17, 90])
+    with torch.inference_mode():
+        alone = []
+        for b in range(B):
+            plans.clear()
+            model.forward_prefill(params, init_cache(cfg), tok[b:b + 1], starts[b:b + 1],
+                                  cfg, logits_mode="none")
+            alone.append(list(plans))
+        plans.clear()
+        model.forward_prefill(params, init_cache(cfg, batch=B), tok, starts, cfg,
+                              logits_mode="none")
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert len(plans) == B * moe_layers
+    assert all(n == T * cfg.n_active_routed for n, _, _ in plans)
+    for layer in range(moe_layers):
+        assert [plans[layer * B + b] for b in range(B)] == \
+            [alone[b][layer] for b in range(B)]
+    plans.clear()
+    with torch.inference_mode():
+        model.forward_prefill(params, init_cache(cfg, batch=B), tok, 0, cfg,
+                              logits_mode="none")
+    assert [n for n, _, _ in plans] == [B * T * cfg.n_active_routed] * moe_layers
