@@ -4742,7 +4742,7 @@ def profile_block(sched, label):
     """(wall ms, device-busy ms, idle share) of one decode step of the
     scheduler's batch: a warm-up block, then a timed block and a profiled
     one of the same positions and slots; device busy is the sum of the
-    profiler's CUDA kernel times (scripts/torch_profile_decode.py)."""
+    profiler's CUDA kernel times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

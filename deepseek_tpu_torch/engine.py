@@ -31,7 +31,7 @@ import torch
 
 from deepseek_tpu_torch.config import ModelConfig
 from deepseek_tpu_torch.models.deepseek import (
-    forward_decode, forward_prefill, make_decode_loop,
+    forward_decode, forward_prefill, make_decode_loop, stack_routes,
 )
 from deepseek_tpu_torch.models.kvcache import KVCache, init_cache
 from deepseek_tpu_torch.models.loader import (
@@ -122,7 +122,8 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
                   want_last_logits: bool = True,
                   collect_all_logits: bool = False,
                   progress: Optional[Callable[[int, int], None]] = None,
-                  target_tokens: Optional[List[int]] = None, ctx=NULL_CTX):
+                  target_tokens: Optional[List[int]] = None, ctx=NULL_CTX,
+                  routes: Optional[list] = None):
     """Feed ``tokens`` at positions pos0.. into the cache of a single
     sequence (``deepseek_tpu/engine.py::Engine.hydrate``): prefill chunks of
     ``prefill_chunk`` while inside the window (each clamped at the window
@@ -133,7 +134,14 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
     the final entry may be a dummy) collects only those log-probabilities
     (N,), gathered on the device. ``progress(i, N)`` runs after each chunk
     or step. ``ctx`` (``parallel.spmd.make_ctx``) runs the forward over this
-    rank's slices of a mesh (the serving scheduler's admissions)."""
+    rank's slices of a mesh (the serving scheduler's admissions).
+    ``routes``: a list to which each chunk or step appends its routing
+    record, the experts every MoE layer's gate chose for each of its
+    tokens, (r, n_moe_layers, k) int16 on the device (the padding of a
+    short chunk cut off), so that they read tokens 0..N-1 in order;
+    single-device."""
+    if routes is not None and ctx != NULL_CTX:
+        raise ValueError("the routing record is single-device")
     window = cfg.kv_window
     C = max(1, int(prefill_chunk))
     device = cache.device
@@ -162,8 +170,11 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
             mode = "all" if (collect or (need_last and r < cp)) else (
                 "last" if need_last else "none")
             tok = torch.tensor([chunk], dtype=torch.int64, device=device)
+            rec = [] if routes is not None else None
             with profile_scope("hydrate.prefill"):
-                out = forward_prefill(params, cache, tok, pos, cfg, mode, ctx)
+                out = forward_prefill(params, cache, tok, pos, cfg, mode, ctx, routes=rec)
+            if rec is not None:
+                routes.append(stack_routes(rec, 1, cp, cfg.n_active_routed, device)[0, :r])
             if mode == "all":
                 if collect:
                     collect_rows(out[0], i, r)
@@ -174,7 +185,10 @@ def hydrate_cache(params, cfg: ModelConfig, cache, tokens: List[int],
             i += r
         else:
             tok = torch.tensor([[int(tokens[i])]], dtype=torch.int64, device=device)
-            logits = forward_decode(params, cache, tok, pos, cfg, ctx)
+            rec = [] if routes is not None else None
+            logits = forward_decode(params, cache, tok, pos, cfg, ctx, routes=rec)
+            if rec is not None:
+                routes.append(stack_routes(rec, 1, 1, cfg.n_active_routed, device)[0])
             if collect:
                 collect_rows(logits, i, 1)
             if i + 1 == N and want_last_logits:
@@ -405,14 +419,16 @@ class Engine:
                 want_last_logits: bool = True,
                 collect_all_logits: bool = False,
                 progress: Optional[Callable[[int, int], None]] = None,
-                target_tokens: Optional[List[int]] = None):
+                target_tokens: Optional[List[int]] = None,
+                routes: Optional[list] = None):
         """``hydrate_cache`` with this engine's params, config and
         ``prefill_chunk``."""
         return hydrate_cache(self.params, self.cfg, cache, tokens, pos0,
                              prefill_chunk=self.prefill_chunk,
                              want_last_logits=want_last_logits,
                              collect_all_logits=collect_all_logits,
-                             progress=progress, target_tokens=target_tokens)
+                             progress=progress, target_tokens=target_tokens,
+                             routes=routes)
 
     def _max_new(self, n_prompt: int, num_steps: int) -> int:
         if num_steps == 0:
@@ -883,20 +899,22 @@ class Engine:
         return out_tokens, stats
 
     def perplexity(self, tokens: List[int],
-                   progress: Optional[Callable[[int, int], None]] = None):
+                   progress: Optional[Callable[[int, int], None]] = None,
+                   routes: Optional[list] = None):
         """Perplexity over tokens[1:] given their prefixes (run_perplexity,
         main.cpp:371-431) -> (ppl, stderr, n_scored), the reference's
         estimator: ppl = exp(s/n), err = ppl * sqrt((ss - s^2/n) / n^2),
         s the negated sum of the log-probabilities and ss their squares'
         sum. The log-probabilities are gathered on the device
-        (``hydrate_cache``'s ``target_tokens``)."""
+        (``hydrate_cache``'s ``target_tokens``). ``routes``: a list that
+        gets each chunk's routing record (``hydrate_cache``)."""
         N = len(tokens)
         if N < 2:
             raise ValueError("perplexity needs at least 2 tokens")
         # the target after tokens[i] is tokens[i+1]; the final row has none
         _, _, logprobs, _ = self.hydrate(
             self.new_cache(), tokens, 0, want_last_logits=False, progress=progress,
-            target_tokens=list(tokens[1:]) + [0])
+            target_tokens=list(tokens[1:]) + [0], routes=routes)
         logprobs = logprobs[:N - 1]
         n = N - 1
         s = float(-logprobs.sum())

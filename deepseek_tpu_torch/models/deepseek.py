@@ -130,6 +130,7 @@ from deepseek_tpu_torch.ops.rope import apply_rope
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, SpmdCtx, make_ctx
 from deepseek_tpu_torch.quant.qtensor import KNibbleTensor, PlainTensor, rows_to_experts
 from deepseek_tpu_torch.utils.debug import dbg
+from deepseek_tpu_torch.utils.profiling import span
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -491,7 +492,7 @@ def _dense_glu(w13, w1, w2, w3, xb: torch.Tensor, cfg: ModelConfig,
 
 def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
          prefill: bool = False, live: LiveRows = None, ctx: SpmdCtx = NULL_CTX,
-         ovf=None) -> torch.Tensor:
+         ovf=None, routes=None) -> torch.Tensor:
     """The FFN over xb (B,T,dim). Decode (T == 1) and small prefill chunks
     take the expert-sorted pair list; larger prefill chunks the grouped
     products or, where the widths do not allow them, dense-over-experts.
@@ -500,43 +501,56 @@ def _ffn(lp: LayerParams, cfg: ModelConfig, xb: torch.Tensor, layer: int,
     (``deepseek.py:735-743``). Under an expert axis every path computes
     this rank's pairs (the others weigh 0) and ``psum_e`` sums the
     mixtures; the grouped path appends this rank's EP capacity overflow
-    count to the list ``ovf`` where one is given."""
+    count to the list ``ovf`` where one is given, and every MoE layer its
+    routed experts (the gate's ids, (B,T,k) int16) to the list ``routes``
+    where one is given.
+
+    Spans: ``moe.route`` (router and gate), ``moe.dispatch`` (the pair
+    sort and tile dispatch, inside each path) and ``moe.experts`` (the
+    expert products and the combine; the unfolded shared experts in a
+    second one)."""
     if not cfg.is_moe_layer(layer):
         return _dense_glu(lp.w13, lp.w1, lp.w2, lp.w3, xb, cfg, ctx, cfg.hidden_dim)
     B, T, dtype = xb.shape[0], xb.shape[1], xb.dtype
-    router_logits = _router_logits(xb, lp.moegate)
-    weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,T,k)
-    folded = lp.w13s is not None
-    if folded:
-        # shared experts sit at the tail of the tables as weight-1.0 slots
-        ns, E = cfg.n_shared_experts, cfg.n_routed_experts
-        sid = torch.arange(E, E + ns, device=idx.device).expand(B, T, ns)
-        idx = torch.cat([idx, sid], dim=-1)
-        weights = torch.cat([weights, torch.ones_like(weights[..., :ns])], dim=-1)
-        t13, t1, t2, t3 = lp.w13s, None, lp.w2s, None
-    else:
-        t13, t1, t2, t3 = lp.w13, lp.w1, lp.w2, lp.w3
-    n_exp = t2.shape[0] * ctx.ep                 # global experts
-    probe = t13 if t13 is not None else t1
-    if live is not None and per_tensor_fp8(probe):
-        keep = live.mask.reshape(-1, 1, 1)
-        idx = torch.where(keep, idx, torch.zeros_like(idx))
-        weights = torch.where(keep, weights, torch.zeros_like(weights))
+    with span("moe.route"):
+        router_logits = _router_logits(xb, lp.moegate)
+        weights, idx = moe_gate(router_logits, lp.moegate_bias, cfg)   # (B,T,k)
+        if routes is not None:
+            routes.append(idx.to(torch.int16))
+        folded = lp.w13s is not None
+        if folded:
+            # shared experts sit at the tail of the tables as weight-1.0 slots
+            ns, E = cfg.n_shared_experts, cfg.n_routed_experts
+            sid = torch.arange(E, E + ns, device=idx.device).expand(B, T, ns)
+            idx = torch.cat([idx, sid], dim=-1)
+            weights = torch.cat([weights, torch.ones_like(weights[..., :ns])], dim=-1)
+            t13, t1, t2, t3 = lp.w13s, None, lp.w2s, None
+        else:
+            t13, t1, t2, t3 = lp.w13, lp.w1, lp.w2, lp.w3
+        n_exp = t2.shape[0] * ctx.ep                 # global experts
+        probe = t13 if t13 is not None else t1
+        if live is not None and per_tensor_fp8(probe):
+            keep = live.mask.reshape(-1, 1, 1)
+            idx = torch.where(keep, idx, torch.zeros_like(idx))
+            weights = torch.where(keep, weights, torch.zeros_like(weights))
     if per_tensor_fp8(probe):
         # no expert kernel takes a per-tensor scale (deepseek.py:707-713)
-        out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
-               if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx))
+        with span("moe.experts"):
+            out = (_dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
+                   if prefill else _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx))
     elif not prefill or _chunk_pairs(idx) <= PAIR_PREFILL_MAX_PAIRS:
         out = _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live, ctx)
     elif grouped_ffn_supported(cfg, probe):
         out = _grouped_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, ctx, ovf)
     else:
-        out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
+        with span("moe.experts"):
+            out = _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg, ctx)
     out = ctx.psum_e(out)
     if not folded and (lp.shared_w13 is not None or lp.shared_w1 is not None):
-        out = out + _dense_glu(lp.shared_w13, lp.shared_w1, lp.shared_w2,
-                               lp.shared_w3, xb, cfg, ctx,
-                               cfg.n_shared_experts * cfg.moe_intermediate_size)
+        with span("moe.experts"):
+            out = out + _dense_glu(lp.shared_w13, lp.shared_w1, lp.shared_w2,
+                                   lp.shared_w3, xb, cfg, ctx,
+                                   cfg.n_shared_experts * cfg.moe_intermediate_size)
     return out
 
 
@@ -588,23 +602,26 @@ def _pair_ffn(t13, t1, t2, t3, xb, weights, idx, cfg, live=None,
     if live is not None and live.count == 0:
         return torch.zeros_like(xb)
     k = idx.shape[-1]
-    eid, wts, tok, pair = dispatch_pairs(idx.reshape(Bt, k), weights.reshape(Bt, k), live,
-                                         ctx, t2.shape[0] * ctx.ep)
-    if Bt == 1 and expert_ffn_fusable(t13, t2):
-        y = qmm_expert_ffn(t13, t2, eid, xb.reshape(1, -1), wts, cfg.act)
-        return y.reshape(B, T, -1).to(dtype)
-    xk = xb.reshape(Bt, -1)[tok]                                   # (N, dim)
-    if t13 is not None:
-        h2 = qmm_experts(t13, eid, xk).to(dtype)
-        m = h2.shape[-1] // 2
-        h = glu_act(h2[:, :m], h2[:, m:], cfg.act)
-    else:
-        h = glu_act(qmm_experts(t1, eid, xk).to(dtype),
-                    qmm_experts(t3, eid, xk).to(dtype), cfg.act)
-    # a row-permuted w13 leaves h permuted per half: w2 takes it as it is
-    rp = isinstance(t13, KNibbleTensor) and bool(t13.rowperm)
-    per = qmm_experts(t2, eid, h, rp)                # x_prepermuted; (N, dim) f32
-    return combine_pairs(per.float(), wts, pair, Bt, k).reshape(B, T, -1).to(dtype)
+    fused = Bt == 1 and expert_ffn_fusable(t13, t2)
+    with span("moe.dispatch"):
+        eid, wts, tok, pair = dispatch_pairs(idx.reshape(Bt, k), weights.reshape(Bt, k),
+                                             live, ctx, t2.shape[0] * ctx.ep)
+        xk = None if fused else xb.reshape(Bt, -1)[tok]            # (N, dim)
+    with span("moe.experts"):
+        if fused:
+            y = qmm_expert_ffn(t13, t2, eid, xb.reshape(1, -1), wts, cfg.act)
+            return y.reshape(B, T, -1).to(dtype)
+        if t13 is not None:
+            h2 = qmm_experts(t13, eid, xk).to(dtype)
+            m = h2.shape[-1] // 2
+            h = glu_act(h2[:, :m], h2[:, m:], cfg.act)
+        else:
+            h = glu_act(qmm_experts(t1, eid, xk).to(dtype),
+                        qmm_experts(t3, eid, xk).to(dtype), cfg.act)
+        # a row-permuted w13 leaves h permuted per half: w2 takes it as it is
+        rp = isinstance(t13, KNibbleTensor) and bool(t13.rowperm)
+        per = qmm_experts(t2, eid, h, rp)                # x_prepermuted; (N, dim) f32
+        return combine_pairs(per.float(), wts, pair, Bt, k).reshape(B, T, -1).to(dtype)
 
 
 def _gather_ffn(t13, t1, t2, t3, xb, weights, idx, cfg,
@@ -653,32 +670,37 @@ def _dense_over_experts(t13, t1, t2, t3, xb, weights, idx, n_exp, cfg,
 def run_layer_stack(layers, cache: KVCache, x: torch.Tensor, pos, kv_pos,
                     kv_len, kv_sink, cfg: ModelConfig,
                     ctx: SpmdCtx = NULL_CTX, live: LiveRows = None,
-                    prefill: bool = False, ovf=None) -> torch.Tensor:
+                    prefill: bool = False, ovf=None, routes=None) -> torch.Tensor:
     """The transformer layers, unrolled, over x (B,T,dim): decode (T == 1)
     at ``decode_positions``' (pos, kv_pos, kv_len, kv_sink), or with
     ``prefill`` a chunk at ``pos`` (an int, or verify mode's RowStarts;
     the other positions None), appending the EP capacity overflow counts
-    to ``ovf`` where one is given. Layer l reads cache layer l and
+    to ``ovf`` where one is given and each MoE layer's routed experts to
+    ``routes`` (``_ffn``). Layer l reads cache layer l and
     ``cfg.is_moe_layer(l)``: a pipeline stage passes its own layers, cache
-    and stage-local config."""
+    and stage-local config. Each layer's attention and FFN, norms and
+    residuals included, are the spans ``layer.attn`` and ``layer.ffn``."""
     if prefill:
         attend = _attention_prefill if cfg.use_mla else _attention_prefill_mha
     else:
         attend = _attention if cfg.use_mla else _attention_mha
     for layer, lp in enumerate(layers):
-        xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        dbg(f"l{layer}.attn_norm", xb)
-        if prefill:
-            attn = attend(lp, cfg, xb, cache, layer, pos, ctx)
-        else:
-            attn = attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
-        dbg(f"l{layer}.attn", attn)
-        x = x + attn
-        xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
-        dbg(f"l{layer}.ffn_norm", xb)
-        ffn = _ffn(lp, cfg, xb, layer, prefill=prefill, live=live, ctx=ctx, ovf=ovf)
-        dbg(f"l{layer}.ffn", ffn)
-        x = x + ffn
+        with span("layer.attn"):
+            xb = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
+            dbg(f"l{layer}.attn_norm", xb)
+            if prefill:
+                attn = attend(lp, cfg, xb, cache, layer, pos, ctx)
+            else:
+                attn = attend(lp, cfg, xb, cache, layer, pos, kv_pos, kv_len, kv_sink, ctx)
+            dbg(f"l{layer}.attn", attn)
+            x = x + attn
+        with span("layer.ffn"):
+            xb = rmsnorm(x, lp.ffn_norm, cfg.norm_eps)
+            dbg(f"l{layer}.ffn_norm", xb)
+            ffn = _ffn(lp, cfg, xb, layer, prefill=prefill, live=live, ctx=ctx, ovf=ovf,
+                       routes=routes)
+            dbg(f"l{layer}.ffn", ffn)
+            x = x + ffn
     return x
 
 
@@ -705,20 +727,21 @@ def final_logits(final_norm, lm_head, x: torch.Tensor, cfg: ModelConfig,
     (``gather_logits``). Under a context-parallel chunk x holds this rank's
     rows: the chunk's last row comes from the last shard, "all" gathers
     every shard's rows (``deepseek.py:1086-1096``), so every rank returns
-    the whole result."""
-    if logits_mode == "last":
-        x = x[:, -1:]
-    x = rmsnorm(x, final_norm, cfg.norm_eps)
-    logits = ctx.gather_logits(qmatmul(lm_head, x.float()), cfg.vocab_size)
-    if ctx.cp:
-        logits = ctx.cp_last_row(logits) if logits_mode == "last" \
-            else ctx.cp_gather_rows(logits)
-    return logits[:, 0] if logits_mode == "last" else logits
+    the whole result. The span ``model.logits``."""
+    with span("model.logits"):
+        if logits_mode == "last":
+            x = x[:, -1:]
+        x = rmsnorm(x, final_norm, cfg.norm_eps)
+        logits = ctx.gather_logits(qmatmul(lm_head, x.float()), cfg.vocab_size)
+        if ctx.cp:
+            logits = ctx.cp_last_row(logits) if logits_mode == "last" \
+                else ctx.cp_gather_rows(logits)
+        return logits[:, 0] if logits_mode == "last" else logits
 
 
 def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                    pos0, cfg: ModelConfig, ctx: SpmdCtx = NULL_CTX,
-                   with_hidden: bool = False, active=None):
+                   with_hidden: bool = False, active=None, routes=None):
     """One decode step: tokens (B,1) at position ``pos0`` (an int, or (B,)
     per-sequence positions, a host array or a tensor) -> logits (B,V)
     float32. Writes this step's cache rows into ``cache`` in place; under a
@@ -729,7 +752,8 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     (``_forward_impl(with_hidden=True)``, deepseek.py:1076-1080).
     ``active`` (B,) bool (a host mask, or ``LiveRows``) marks the live
     rows of a serving batch: dead rows do no expert work (their routed
-    expert output is 0); None means all live."""
+    expert output is 0); None means all live. ``routes``: a list to which
+    each MoE layer appends its routed experts (B,1,k) int16."""
     B, T = tokens.shape
     if T != 1:
         raise ValueError("decode processes one token per sequence per call")
@@ -741,7 +765,7 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     # DECODE_INVARIANT_ROWS rows (``ops/matmul.py::decode_rows``)
     with decode_rows(B):
         x = run_layer_stack(params.layers, cache, x, pos, kv_pos, kv_len, kv_sink, cfg,
-                            ctx, live)
+                            ctx, live, routes=routes)
         logits = final_logits(params.final_norm, params.lm_head, x, cfg, ctx=ctx)
     dbg("logits", logits)
     return (logits, x) if with_hidden else logits
@@ -749,7 +773,7 @@ def forward_decode(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
 
 def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
                     pos0, cfg: ModelConfig, logits_mode: str = "last",
-                    ctx: SpmdCtx = NULL_CTX, with_hidden: bool = False):
+                    ctx: SpmdCtx = NULL_CTX, with_hidden: bool = False, routes=None):
     """One prefill chunk: tokens (B,T) at positions pos0..pos0+T-1 (a
     shared int; pos0 + T <= kv_window) -> logits per ``logits_mode``:
     "last" (B,V), "all" (B,T,V) float32, or "none" (None). Writes the
@@ -760,61 +784,73 @@ def forward_prefill(params: ModelParams, cache: KVCache, tokens: torch.Tensor,
     (``deepseek.py:1036-1056``). Every rank returns the same logits.
     ``with_hidden`` returns (logits, hidden), hidden the pre-final-norm
     state (B,T,dim) in the compute dtype (this rank's rows under context
-    parallelism).
+    parallelism). ``routes``: a list to which each MoE layer appends its
+    routed experts (B,T,k) int16. The chunk is the span
+    ``model.prefill_chunk``.
 
     Verify mode (``deepseek.py:1024-1035``): ``pos0`` a (B,) host array or
     tensor of per-row chunk starts, row b at pos0[b]..pos0[b]+T-1 with
     max(pos0) + T <= kv_window (host positions keep the call free of host
     syncs; a CUDA tensor is read back once). It does not compose with a
     seq axis, as the JAX package asserts."""
-    B, T = tokens.shape
-    if logits_mode not in ("all", "last", "none"):
-        raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
-    if (isinstance(pos0, torch.Tensor) and pos0.dim() > 0) or \
-            (not isinstance(pos0, torch.Tensor) and np.ndim(pos0) > 0):
-        if ctx.sp > 1 or ctx.cp:
-            raise ValueError("verify mode (per-row chunk starts) does not compose "
-                             "with seq/context parallelism")
-        pos0 = RowStarts.of(pos0, B, tokens.device)
-        lo, hi = int(pos0.host.min()), int(pos0.host.max())
-    else:
-        pos0 = lo = hi = int(pos0)
-    if lo < 0 or hi + T > cfg.kv_window:
-        raise ValueError(f"prefill at {lo}..{hi + T - 1} crosses the "
-                         f"{cfg.kv_window}-slot window; decode steps go on past it")
-    if ctx.sp > 1 and T % ctx.sp == 0 and not ctx.cp:
-        ctx = dataclasses.replace(ctx, cp=True)
-    if ctx.cp:
-        sidx, t_loc = ctx.cp_rows(T)
-        tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
-    x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
-    dbg("embed", x)
-    # EP prefill past its capacity drops pairs (deepseek.py:1334-1365)
-    ovf = [] if ctx.ep > 1 and ctx.ep_capacity_factor > 0 else None
-    # a verify chunk's rows compute the bits of their sequence verified
-    # alone (``ops/matmul.py::verify_chunk``)
-    with verify_chunk() if isinstance(pos0, RowStarts) else contextlib.nullcontext():
-        x = run_layer_stack(params.layers, cache, x, pos0, None, None, None, cfg, ctx,
-                            prefill=True, ovf=ovf)
-        logits = None if logits_mode == "none" else final_logits(
-            params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
-    if logits is not None:
-        dbg("logits", logits)
-    if ovf:
-        # summed over the expert line, under CP (each shard counted its own
-        # rows' pairs) the seq line, and the data line, so that every data
-        # shard raises together (deepseek.py:1066-1072): one host read a
-        # chunk
-        total = ctx.psum_e(torch.stack(ovf).sum())
-        n = int(ctx.psum_d(ctx.psum_s(total) if ctx.cp else total))
-        if n > 0:
-            raise EPCapacityOverflow(
-                f"{n} token-expert pairs overflowed the EP prefill capacity "
-                f"(ep_capacity_factor={ctx.ep_capacity_factor}); retry the chunk with "
-                "ep_capacity_factor=0 (exact) or raise the factor (the cache holds this "
-                "chunk's rows, which a retry of the same chunk overwrites)",
-                cache=cache, logits=logits)
-    return (logits, x) if with_hidden else logits
+    with span("model.prefill_chunk"):
+        B, T = tokens.shape
+        if logits_mode not in ("all", "last", "none"):
+            raise ValueError(f"logits_mode must be all, last or none, not {logits_mode!r}")
+        if (isinstance(pos0, torch.Tensor) and pos0.dim() > 0) or \
+                (not isinstance(pos0, torch.Tensor) and np.ndim(pos0) > 0):
+            if ctx.sp > 1 or ctx.cp:
+                raise ValueError("verify mode (per-row chunk starts) does not compose "
+                                 "with seq/context parallelism")
+            pos0 = RowStarts.of(pos0, B, tokens.device)
+            lo, hi = int(pos0.host.min()), int(pos0.host.max())
+        else:
+            pos0 = lo = hi = int(pos0)
+        if lo < 0 or hi + T > cfg.kv_window:
+            raise ValueError(f"prefill at {lo}..{hi + T - 1} crosses the "
+                             f"{cfg.kv_window}-slot window; decode steps go on past it")
+        if ctx.sp > 1 and T % ctx.sp == 0 and not ctx.cp:
+            ctx = dataclasses.replace(ctx, cp=True)
+        if ctx.cp:
+            sidx, t_loc = ctx.cp_rows(T)
+            tokens = tokens[:, sidx * t_loc:(sidx + 1) * t_loc]
+        x = embed_lookup(params.embed, tokens, torch.float32).to(compute_dtype(cfg))
+        dbg("embed", x)
+        # EP prefill past its capacity drops pairs (deepseek.py:1334-1365)
+        ovf = [] if ctx.ep > 1 and ctx.ep_capacity_factor > 0 else None
+        # a verify chunk's rows compute the bits of their sequence verified
+        # alone (``ops/matmul.py::verify_chunk``)
+        with verify_chunk() if isinstance(pos0, RowStarts) else contextlib.nullcontext():
+            x = run_layer_stack(params.layers, cache, x, pos0, None, None, None, cfg, ctx,
+                                prefill=True, ovf=ovf, routes=routes)
+            logits = None if logits_mode == "none" else final_logits(
+                params.final_norm, params.lm_head, x, cfg, logits_mode, ctx)
+        if logits is not None:
+            dbg("logits", logits)
+        if ovf:
+            # summed over the expert line, under CP (each shard counted its own
+            # rows' pairs) the seq line, and the data line, so that every data
+            # shard raises together (deepseek.py:1066-1072): one host read a
+            # chunk
+            total = ctx.psum_e(torch.stack(ovf).sum())
+            n = int(ctx.psum_d(ctx.psum_s(total) if ctx.cp else total))
+            if n > 0:
+                raise EPCapacityOverflow(
+                    f"{n} token-expert pairs overflowed the EP prefill capacity "
+                    f"(ep_capacity_factor={ctx.ep_capacity_factor}); retry the chunk with "
+                    "ep_capacity_factor=0 (exact) or raise the factor (the cache holds this "
+                    "chunk's rows, which a retry of the same chunk overwrites)",
+                    cache=cache, logits=logits)
+        return (logits, x) if with_hidden else logits
+
+
+def stack_routes(rec: list, B: int, T: int, k: int, device) -> torch.Tensor:
+    """The routing record (B, T, n_moe_layers, k) int16 of the ids each MoE
+    layer appended to ``rec`` over one ``forward_prefill`` of T rows or T
+    ``forward_decode`` steps, in the order appended: one stack."""
+    if not rec:
+        return torch.empty((B, T, 0, k), dtype=torch.int16, device=device)
+    return torch.stack(rec, 2).reshape(B, T, -1, k)
 
 
 class EPCapacityOverflow(RuntimeError):
@@ -834,7 +870,8 @@ class EPCapacityOverflow(RuntimeError):
 
 def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
                      active_bucket=None, with_logprobs: bool = False,
-                     with_hidden: bool = False, all_hidden: bool = False):
+                     with_hidden: bool = False, all_hidden: bool = False,
+                     with_routes: bool = False):
     """Multi-token decode (``deepseek_tpu/models/deepseek.py::
     make_decode_loop``): one call runs ``n_steps`` decode steps, each
     sampling on the device the token the next step feeds.
@@ -842,7 +879,8 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     Returns ``fn(params, cache, tok (B,1), pos0, key, temperature, top_p,
     active=None, top_k=0, min_p=0.0) -> (tokens (B, n_steps) int64,
     logits_last (B, V) float32[, logprobs (B, n_steps) float32][, hidden
-    (B, 1, dim) float32], cache)``: ``tok`` is the token fed first,
+    (B, 1, dim) float32][, routes (B, n_steps, n_moe_layers, k) int16],
+    cache)``: ``tok`` is the token fed first,
     ``tokens[:, 0]`` its successor; ``key`` a (2,) uint32 threefry key
     (``ops/prng.py``) split once a step as the JAX loop splits its carry;
     the cache is written in place. ``pos0`` is an int or (B,) per-row
@@ -858,10 +896,17 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     ``with_hidden`` the last step's pre-final-norm hidden state, which
     seeds the MTP drafter (``all_hidden``: every step's, (B, n_steps,
     dim), with which the serving scheduler re-feeds the drafter's cache
-    after plain blocks). ``active_bucket`` is the JAX keyword of a compiled
-    occupancy bucket; eager torch compiles nothing, so the pair list keeps
-    exactly the live rows' pairs whatever the bucket, which only bounds
-    the live count.
+    after plain blocks). ``with_routes`` adds the routing record: the
+    experts the gate of every MoE layer routed each row to at every step
+    (the gate's ids, before the shared experts), written by the block's own
+    ops on the device, so that a caller reads them after the block, and a
+    captured graph of the block keeps them as an output; single-device.
+    Each step is the span ``model.decode_step``, its sampling (the
+    block's noise draw on the first step, the log-softmax of
+    ``with_logprobs``) the span ``sample``. ``active_bucket`` is the JAX
+    keyword of a compiled occupancy bucket; eager torch compiles nothing,
+    so the pair list keeps exactly the live rows' pairs whatever the
+    bucket, which only bounds the live count.
 
     With ``mesh`` (``parallel.mesh.make_mesh(data=d, expert=e, tensor=t,
     seq=s)``, called on every rank) each rank runs the block over its
@@ -882,6 +927,8 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
     if mesh is not None and with_hidden:
         raise ValueError("the decode block's hidden state is single-device "
                          "(the MTP drafter runs unsharded)")
+    if mesh is not None and with_routes:
+        raise ValueError("the decode block's routing record is single-device")
     ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
 
     @torch.inference_mode()
@@ -928,23 +975,28 @@ def make_decode_loop(cfg: ModelConfig, n_steps: int, *, mesh=None,
             return noise[0][i]
 
         tokens, lps, hid, logits = [], [], [], None
+        rec = [] if with_routes else None
         for i in range(n_steps):
-            out = forward_decode(params, cache, tok, pos0 + i, cfg, ctx,
-                                 with_hidden=with_hidden, active=live)
-            logits = out[0] if with_hidden else out
-            if with_hidden:
-                hid = [*hid, out[1]] if all_hidden else [out[1]]
-            nxt = sample_rows(logits, lambda i=i: noise_of(i), rows)
-            if with_logprobs:
-                lsm = torch.log_softmax(logits.float(), dim=-1)
-                lps.append(lsm.gather(1, nxt[:, None])[:, 0])
-            tokens.append(nxt)
-            tok = nxt[:, None]
+            with span("model.decode_step"):
+                out = forward_decode(params, cache, tok, pos0 + i, cfg, ctx,
+                                     with_hidden=with_hidden, active=live, routes=rec)
+                logits = out[0] if with_hidden else out
+                if with_hidden:
+                    hid = [*hid, out[1]] if all_hidden else [out[1]]
+                with span("sample"):
+                    nxt = sample_rows(logits, lambda i=i: noise_of(i), rows)
+                    if with_logprobs:
+                        lsm = torch.log_softmax(logits.float(), dim=-1)
+                        lps.append(lsm.gather(1, nxt[:, None])[:, 0])
+                tokens.append(nxt)
+                tok = nxt[:, None]
         res = (ctx.gather_d(torch.stack(tokens, 1)), ctx.gather_d(logits.float()))
         if with_logprobs:
             res += (ctx.gather_d(torch.stack(lps, 1)),)
         if with_hidden:
             res += (torch.cat(hid, 1).float(),)
+        if with_routes:
+            res += (stack_routes(rec, B, n_steps, cfg.n_active_routed, dev),)
         return res + (cache,)
 
     return loop

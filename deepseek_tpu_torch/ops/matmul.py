@@ -49,6 +49,7 @@ from deepseek_tpu_torch.ops.norms import pad_rows
 from deepseek_tpu_torch.quant.qtensor import (
     PACKED, TURBO, Fp8Tensor, KNibbleTensor, PlainTensor,
 )
+from deepseek_tpu_torch.utils.profiling import span
 
 
 def plain_kernel_route(qt: PlainTensor, rows: int) -> bool:
@@ -346,29 +347,31 @@ def _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=None,
     dim, dtype = xb.shape[-1], xb.dtype
     N = B * T * k
     e_local = (w13 if w13 is not None else w1).shape[0]
-    lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
-                                              e_local)
-    C = ep_prefill_capacity(N, ctx.ep, ctx.ep_capacity_factor, TB)
-    tile_expert, tile_rows, dest, keep, G = owned_tiles(lidx, owned, within, counts,
-                                                        C, TB)
-    src = _scatter_src(dest, keep, G * TB)
-    x_tiles = xb.reshape(B * T, dim)[src // k].float().reshape(G, TB, dim)
+    with span("moe.dispatch"):
+        lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
+                                                  e_local)
+        C = ep_prefill_capacity(N, ctx.ep, ctx.ep_capacity_factor, TB)
+        tile_expert, tile_rows, dest, keep, G = owned_tiles(lidx, owned, within, counts,
+                                                            C, TB)
+        src = _scatter_src(dest, keep, G * TB)
+        x_tiles = xb.reshape(B * T, dim)[src // k].float().reshape(G, TB, dim)
 
-    if w13 is not None:
-        h2 = qmm_grouped(w13, tile_expert, x_tiles, tile_rows)
-        mh = h2.shape[-1] // 2
-        h = glu_act(h2[..., :mh], h2[..., mh:], act)
-    else:
-        h = glu_act(qmm_grouped(w1, tile_expert, x_tiles, tile_rows),
-                    qmm_grouped(w3, tile_expert, x_tiles, tile_rows), act)
-    # a row-permuted w13 (KNibbleTensor.rowperm, DSEEK_FUSED_FFN=1) leaves
-    # h in the stride-16 permuted order per half: K6's prepermuted body
-    # takes it as it is (deepseek_tpu/ops/matmul.py:268-285)
-    rp = isinstance(w13, KNibbleTensor) and bool(w13.rowperm)
-    y = qmm_grouped(w2, tile_expert, h, tile_rows, x_prepermuted=rp)  # (G, TB, dim)
-    if ovf is not None:
-        ovf.append((owned & ~keep).sum().float())
-    return _combine(y.reshape(G * TB, dim), dest, keep, w, (B, T, k), dtype)
+    with span("moe.experts"):
+        if w13 is not None:
+            h2 = qmm_grouped(w13, tile_expert, x_tiles, tile_rows)
+            mh = h2.shape[-1] // 2
+            h = glu_act(h2[..., :mh], h2[..., mh:], act)
+        else:
+            h = glu_act(qmm_grouped(w1, tile_expert, x_tiles, tile_rows),
+                        qmm_grouped(w3, tile_expert, x_tiles, tile_rows), act)
+        # a row-permuted w13 (KNibbleTensor.rowperm, DSEEK_FUSED_FFN=1) leaves
+        # h in the stride-16 permuted order per half: K6's prepermuted body
+        # takes it as it is (deepseek_tpu/ops/matmul.py:268-285)
+        rp = isinstance(w13, KNibbleTensor) and bool(w13.rowperm)
+        y = qmm_grouped(w2, tile_expert, h, tile_rows, x_prepermuted=rp)  # (G, TB, dim)
+        if ovf is not None:
+            ovf.append((owned & ~keep).sum().float())
+        return _combine(y.reshape(G * TB, dim), dest, keep, w, (B, T, k), dtype)
 
 
 def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
@@ -383,7 +386,9 @@ def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
     capacity ``ep_prefill_capacity(N, ep, ctx.ep_capacity_factor)``.
     xb (B, T, dim), weights/idx (B, T, k) -> this rank's share of the
     mixture (B, T, dim) in xb's dtype; the count of owned pairs past the
-    capacity (an f32 scalar tensor on the device) is appended to ``ovf``."""
+    capacity (an f32 scalar tensor on the device) is appended to ``ovf``.
+    The sort and the rows' dispatch are the span ``moe.dispatch``, the
+    products and the combine ``moe.experts``."""
     if not isinstance(w13 if w13 is not None else w1, PlainTensor):
         return _quantized_grouped_ffn(w1, w2, w3, xb, weights, idx, act, w13=w13,
                                       ctx=ctx, ovf=ovf)
@@ -393,27 +398,29 @@ def grouped_expert_ffn(w1, w2, w3, xb: torch.Tensor, weights: torch.Tensor,
     e_local = w2.shape[0]
     C = ep_prefill_capacity(N, ctx.ep, ctx.ep_capacity_factor, 128)
 
-    lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
-                                              e_local)
-    starts = torch.cumsum(counts, 0) - counts
-    dest = torch.where(owned, starts[lidx.long()] + within, C)
-    keep = dest < C
-    src = _scatter_src(dest, keep, C)
-    # groups clipped to the capacity; slack rows (unfilled, src = 0) attach
-    # to the last expert, their outputs never gathered back
-    sizes = (torch.minimum(starts + counts, torch.full_like(starts, C))
-             - torch.minimum(starts, torch.full_like(starts, C)))
-    sizes[-1] += C - sizes.sum()
-    x_rows = xb.reshape(B * T, dim)[src // k]                    # (C, dim)
+    with span("moe.dispatch"):
+        lidx, owned, within, counts, w = ep_owned(idx.reshape(N), weights.reshape(N), ctx,
+                                                  e_local)
+        starts = torch.cumsum(counts, 0) - counts
+        dest = torch.where(owned, starts[lidx.long()] + within, C)
+        keep = dest < C
+        src = _scatter_src(dest, keep, C)
+        # groups clipped to the capacity; slack rows (unfilled, src = 0)
+        # attach to the last expert, their outputs never gathered back
+        sizes = (torch.minimum(starts + counts, torch.full_like(starts, C))
+                 - torch.minimum(starts, torch.full_like(starts, C)))
+        sizes[-1] += C - sizes.sum()
+        x_rows = xb.reshape(B * T, dim)[src // k]                    # (C, dim)
 
-    if w13 is not None:
-        h2 = gmm(x_rows, w13.data, sizes)
-        mh = h2.shape[-1] // 2
-        h = glu_act(h2[:, :mh], h2[:, mh:], act).to(dtype)
-    else:
-        h = glu_act(gmm(x_rows, w1.data, sizes), gmm(x_rows, w3.data, sizes),
-                    act).to(dtype)
-    y = gmm(h, w2.data, sizes)                                   # (C, dim) f32
-    if ovf is not None:
-        ovf.append((owned & ~keep).sum().float())
-    return _combine(y, dest, keep, w, (B, T, k), dtype)
+    with span("moe.experts"):
+        if w13 is not None:
+            h2 = gmm(x_rows, w13.data, sizes)
+            mh = h2.shape[-1] // 2
+            h = glu_act(h2[:, :mh], h2[:, mh:], act).to(dtype)
+        else:
+            h = glu_act(gmm(x_rows, w1.data, sizes), gmm(x_rows, w3.data, sizes),
+                        act).to(dtype)
+        y = gmm(h, w2.data, sizes)                                   # (C, dim) f32
+        if ovf is not None:
+            ovf.append((owned & ~keep).sum().float())
+        return _combine(y, dest, keep, w, (B, T, k), dtype)

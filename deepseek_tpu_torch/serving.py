@@ -55,6 +55,7 @@ from deepseek_tpu_torch.engine import Engine, hydrate_cache
 from deepseek_tpu_torch.models.kvcache import KVCache
 from deepseek_tpu_torch.ops import prng
 from deepseek_tpu_torch.parallel.spmd import NULL_CTX, make_ctx
+from deepseek_tpu_torch.utils.profiling import span
 
 # KVCache fields that are no ring: the int8 sink keys' float masters
 _MASTERS = ("sink_krope", "sink_k")
@@ -242,7 +243,8 @@ class BatchScheduler:
                  prefix_cache_mb: float = 0.0, prefix_block: int = 64,
                  logprobs: bool = False, spec: Optional[str] = None,
                  spec_k: int = 4, spec_rounds: int = 3,
-                 ngram_max: int = 3, idle_block: int = 0):
+                 ngram_max: int = 3, idle_block: int = 0,
+                 record_routes: bool = False):
         """The JAX scheduler's keywords. ``prefix_cache_mb > 0`` turns on
         block-level prompt-prefix reuse (``PrefixCache``). ``logprobs=True``
         makes the decode blocks return each sampled token's log-softmax, so
@@ -256,7 +258,12 @@ class BatchScheduler:
         dispatches the scheduler backs off to plain blocks with exponential
         re-probing. ``idle_block``: with nothing queued, decode blocks of
         that many steps where every live slot has that many tokens left and
-        room in the window (0: off).
+        room in the window (0: off). ``record_routes=True`` keeps each
+        request's routing record (``routes``); single-device plain serving
+        (no mesh, no speculation). The scheduler holds a request's record
+        (device slices, each a view of its decode block's record) until
+        ``routes`` reads it, so the caller reads every submitted request's
+        record once it has finished.
 
         A served row computes the bits of its sequence decoded alone up to
         ``ops/kernels/attention.py::DECODE_INVARIANT_ROWS`` (8) rows a
@@ -271,10 +278,21 @@ class BatchScheduler:
         the decode blocks and n-gram rounds over the mesh; a seq axis takes
         no speculation, and MTP serving is single-chip, as in the JAX
         package. Admissions hydrate exactly (no EP prefill capacity), as the
-        JAX scheduler's single-device hydrate does."""
+        JAX scheduler's single-device hydrate does.
+
+        Spans (``utils/profiling.py::span``): ``serve.step`` (a ``step``),
+        ``serve.admit`` (an admission chunk), ``serve.decode_block`` (the
+        block's call up to its return), ``serve.emit`` (the tokens' read-back
+        and emission) and ``serve.spec_round`` (a speculation dispatch)."""
         self.engine = engine
         self.batch = batch_size
         cfg = engine.cfg
+        if record_routes and (mesh is not None or spec is not None):
+            raise ValueError("the routing record is kept by single-device plain serving "
+                             "(no mesh, no speculation)")
+        self.record_routes = record_routes
+        # request id -> (request, [(first position, (n, n_moe_layers, k) int16)])
+        self._routes: Dict[int, tuple] = {}
         # a block larger than the window could never be stored
         prefix_block = min(prefix_block, max(1, cfg.kv_window // 2))
         self.ctx = NULL_CTX if mesh is None else make_ctx(cfg, mesh)
@@ -353,18 +371,41 @@ class BatchScheduler:
         from deepseek_tpu_torch.parallel.sharding import shard_cache
         return shard_cache(cache, self.engine.cfg, self.mesh, self.params)
 
-    def _hydrate(self, cache: KVCache, tokens, pos0: int, want_last_logits: bool = True):
+    def _hydrate(self, cache: KVCache, tokens, pos0: int, want_last_logits: bool = True,
+                 routes: Optional[list] = None):
         """``Engine.hydrate`` over this rank's weights."""
         eng = self.engine
         return hydrate_cache(self.params, eng.cfg, cache, tokens, pos0,
                              prefill_chunk=eng.prefill_chunk,
-                             want_last_logits=want_last_logits, ctx=self._hctx)
+                             want_last_logits=want_last_logits, ctx=self._hctx,
+                             routes=routes)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> int:
         req.request_id = next(self._ids)
         self.queue.append(req)
+        if self.record_routes:
+            self._routes[req.request_id] = (req, [])
         return req.request_id
+
+    def routes(self, request_id: int) -> np.ndarray:
+        """The routing record of a finished request: (positions, n_moe_layers,
+        k) int16 host array, row p the experts every MoE layer's gate chose
+        for the token fed at position p (the prompt's and the fed outputs',
+        so len(prompt) + len(out_tokens) - 1 rows); -1 at positions the
+        prefix cache restored. One read from the device, after the fact:
+        the record leaves the scheduler with it."""
+        req, pieces = self._routes[request_id]
+        if not req.done:
+            raise ValueError(f"request {request_id} is still running")
+        del self._routes[request_id]
+        host = torch.cat([t for _, t in pieces]).cpu().numpy()
+        out = np.full((max(p + len(t) for p, t in pieces), *host.shape[1:]), -1, np.int16)
+        off = 0
+        for p, t in pieces:
+            out[p:p + len(t)] = host[off:off + len(t)]
+            off += len(t)
+        return out
 
     @property
     def has_work(self) -> bool:
@@ -379,7 +420,7 @@ class BatchScheduler:
             from deepseek_tpu_torch.models.deepseek import make_decode_loop
             self._loops[block] = make_decode_loop(
                 self.engine.cfg, block, mesh=self.mesh, with_logprobs=self.logprobs,
-                all_hidden=self.spec == "mtp")
+                all_hidden=self.spec == "mtp", with_routes=self.record_routes)
         return self._loops[block]
 
     def _pick_block(self) -> int:
@@ -473,8 +514,13 @@ class BatchScheduler:
             # step like a decode block
             r = min(max(1, self.block), len(toks) - p.fed)
         final = p.fed + r == len(toks)
+        rec = [] if self.record_routes else None
         p.cache, logits, _, _ = self._hydrate(p.cache, toks[p.fed:p.fed + r], p.fed,
-                                              want_last_logits=final)
+                                              want_last_logits=final, routes=rec)
+        pos = p.fed
+        for t in rec or ():
+            self._routes[p.req.request_id][1].append((pos, t))
+            pos += len(t)
         p.fed += r
         if not final:
             return
@@ -699,6 +745,10 @@ class BatchScheduler:
         start), then one decode block of ``block`` tokens for the whole
         batch; sampling stays on the device with per-slot parameters, and
         only the (B, block) token ids come back."""
+        with span("serve.step"):
+            self._step()
+
+    def _step(self) -> None:
         self._free_finished()
         if self.pending is None and self.queue:
             free = next((i for i in range(self.batch) if self.slots[i] is None), None)
@@ -711,7 +761,8 @@ class BatchScheduler:
                         p.fed = reused
                 self.pending = p
         if self.pending is not None:
-            self._advance_pending()
+            with span("serve.admit"):
+                self._advance_pending()
         if not any(s is not None for s in self.slots):
             return
 
@@ -728,7 +779,8 @@ class BatchScheduler:
                 minps[i] = req.min_p
                 act[i] = not req.done
         if self._spec_ready():
-            return self._spec_step(temps, topps, topks, minps, act)
+            with span("serve.spec_round"):
+                return self._spec_step(temps, topps, topks, minps, act)
         if self.spec is not None:
             # plain blocks append tokens outside the rounds
             self._hist_stale = True
@@ -737,17 +789,23 @@ class BatchScheduler:
         self._key, sub = prng.split(self._key)
         pos0 = self.pos.copy()
         cur = torch.from_numpy(self.cur.reshape(-1, 1).copy()).to(self.engine.device)
-        out = self._loop_for(blk)(self.params, self.cache, cur, pos0, sub,
-                                  temps, topps, act, topks, minps)
+        with span("serve.decode_block"):
+            out = self._loop_for(blk)(self.params, self.cache, cur, pos0, sub,
+                                      temps, topps, act, topks, minps)
         self.cache = out[-1]
         toks_dev = out[0]
-        lps = out[2].cpu().numpy() if self.logprobs else None   # (B, block)
         if self.spec == "mtp":
             hid = out[-2]                                       # (B, block, dim)
             self._h = hid[:, -1:].contiguous()
             self._refeed_drafter(toks_dev, hid, pos0)
-        toks = toks_dev.cpu().numpy()                           # (B, block)
+        with span("serve.emit"):
+            lps = out[2].cpu().numpy() if self.logprobs else None   # (B, block)
+            toks = toks_dev.cpu().numpy()                           # (B, block)
+            self._emit_block(toks, lps, blk, pos0, out[-2] if self.record_routes else None)
 
+    def _emit_block(self, toks, lps, blk: int, pos0, routes) -> None:
+        """Emit a decode block's tokens; with the block's routing record,
+        keep each live request's rows up to its last token."""
         for i, req in enumerate(self.slots):
             if req is None or req.done:
                 # idle slots keep pos 0: their rows route to no expert and
@@ -762,6 +820,8 @@ class BatchScheduler:
                 prev = token
                 if req.done:
                     break
+            if routes is not None:
+                self._routes[req.request_id][1].append((int(pos0[i]), routes[i, :j + 1]))
             self.pos[i] += blk
             self.cur[i] = prev
 

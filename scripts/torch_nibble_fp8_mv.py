@@ -9,8 +9,9 @@ ROOT is the root of the checkout whose ``deepseek_tpu_torch`` is timed
 (default: this one). To compare two commits on one card, unpack the other
 with ``git archive`` into a directory that ``.gitignore`` lists and run the
 script once for each tree in one call, parent, change, change, parent, then
-``scripts/torch_profile_decode.py`` (the V3 nibble model) and ``--model
-v2-lite-fp8`` from each tree for the decode steps:
+the benchmark's traced run of the V2-Lite fp8 cell (``python3 gpubench/run.py
+--workload v2lite-fp8.ppl --seed N --seconds S --trace 1``) from each tree for
+the steps:
 
     git archive HEAD~1 | (mkdir -p build/parent && tar -x -C build/parent)
     for r in build/parent . . build/parent; do python scripts/torch_nibble_fp8_mv.py $r; done

@@ -8,8 +8,9 @@ ROOT is the root of the checkout whose ``deepseek_tpu_torch`` is timed
 (default: this one). To compare two commits on one card, unpack the other
 with ``git archive`` into a directory that ``.gitignore`` lists and run the
 script once for each tree in one call, parent, change, change, parent, then
-``scripts/torch_profile_decode.py --model v3-q3k`` and ``--model v3-q2k``
-from each tree for the decode steps:
+the benchmark's traced run of the packed V3 cell (``python3 gpubench/run.py
+--workload v3-q3k.serve --seed N --seconds S --trace 1``) from each tree for
+the decode steps:
 
     git archive HEAD~1 | (mkdir -p build/parent && tar -x -C build/parent)
     for r in build/parent . . build/parent; do python scripts/torch_packed_mv.py $r; done

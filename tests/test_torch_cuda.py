@@ -1793,6 +1793,46 @@ def test_batched_decode_block_does_not_synchronize(dev):
 
 
 @pytest.mark.cuda
+def test_traced_decode_block_does_not_synchronize(dev):
+    """The serving decode block with its routing record, a profiler
+    recording its spans, under set_sync_debug_mode("error"): the spans and
+    the record add no synchronization; the trace holds the step's spans
+    (host ranges inside a decode step), and the record the gate's
+    experts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepseek_tpu_torch.models.deepseek import forward_decode, make_decode_loop
+    from deepseek_tpu_torch.models.kvcache import init_cache
+    from deepseek_tpu_torch.models.testing import (
+        deepseek_v3_proportions, random_fused_params)
+    from deepseek_tpu_torch.ops import prng
+    cfg = deepseek_v3_proportions(
+        n_layers=2, dim=512, hidden_dim=1024, n_heads=4, vocab_size=1024,
+        first_k_dense_replace=1, n_routed_experts=8, n_active_routed=2,
+        moe_intermediate_size=256, n_group=2, topk_group=1, q_lora_rank=512)
+    params = random_fused_params(cfg, "q3_k", seed=1, device=dev)
+    cache = init_cache(cfg, batch=2, device=dev)
+    tok = torch.tensor([[5], [6]], device=dev)
+    with torch.inference_mode():
+        forward_decode(params, cache, tok, 0, cfg)           # builds the kernels
+    loop = make_decode_loop(cfg, 8, with_logprobs=True, with_routes=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, _, lps, routes, _ = loop(params, cache, tok, np.array([1, 4]),
+                                           prng.PRNGKey(2), np.array([0.0, 0.8], np.float32),
+                                           0.95, np.array([True, True]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert toks.shape == (2, 8) and routes.shape == (2, 8, 1, 2)
+    assert routes.dtype == torch.int16 and bool(((routes >= 0) & (routes < 8)).all())
+    names = {e.name for e in prof.events()}
+    assert {"model.decode_step", "sample", "layer.attn", "moe.dispatch"} <= names
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [2, 4])
 def test_batched_decode_row_is_the_row_alone(B, dev):
     """Batch-invariant decode: each row of a decode step over B sequences
